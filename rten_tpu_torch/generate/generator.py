@@ -6,9 +6,11 @@ Counterpart of ``rten_tpu/generate/generator.py`` (``GeneratorConfig``,
 ``max_tokens``. Speculative decoding (``with_draft``), ``GraphBackend`` and
 ``EncDecBackend`` are not ported yet.
 
-With the default ``ArgMaxSampler`` the backend returns the greedy token
-from the lm_head kernel's fused argmax, so no logits row leaves the card;
-other samplers get the f32 logits.
+A prompt, and every follow-up chunk of ``append_prompt``, goes into the
+cache as one ``decoder.prefill`` forward (the prefill kernels above 8 rows);
+each later token is one decode step. With the default ``ArgMaxSampler`` the
+backend returns the greedy token from the lm_head kernel's fused argmax,
+so no logits row leaves the card; other samplers get the f32 logits.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ class NativeBackend:
         self.length = 0  # tokens in the cache, every row
 
     def _step(self, tokens: np.ndarray, greedy: bool) -> torch.Tensor:
+        """All of ``tokens`` [B, T] in one forward; the lm_head runs on the
+        last position only."""
         tokens = np.asarray(tokens, np.int32)
         if self.length + tokens.shape[1] > self.max_len:
             raise ValueError(

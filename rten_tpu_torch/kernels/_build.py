@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every C entry point (pointers and the stream as c_void_p, or
 # ctypes would pass a 32-bit int and cut them).
 SIGNATURES = {
@@ -59,6 +59,22 @@ SIGNATURES = {
         _P, _P, _P, _P, _I,          # part_m, part_l, part_acc, attn, n_chunks
         _P, _P, _P, _I,              # wo_t, wo_scales, wo_bias, dm
         _P, _P, _F,                  # residual, out, sm_scale
+        _P,                          # stream
+    ],
+    "rt_quant_matmul": [
+        _P, _I, _I, _I,              # x, x_bf16, m, k
+        _P, _P, _P, _I,              # w_t, scales, bias, n
+        _I, _P, _I,                  # act, out, out_bf16
+        _P,                          # stream
+    ],
+    "rt_flash_attention": [
+        _P, _L, _L, _L,              # q and its batch, head, position strides
+        _P, _L, _L, _L,              # k ...
+        _P, _L, _L, _L,              # v ...
+        _P, _L, _L, _L,              # out ...
+        _P, _P,                      # q_offset, kv_len
+        _I, _I, _I, _I, _I, _I, _I,  # bf16, b, hq, hk, tq, s, d
+        _I, _F,                      # causal, sm_scale
         _P,                          # stream
     ],
 }

@@ -1,0 +1,127 @@
+"""Flash attention for prefill: tiled online-softmax attention of a block of
+queries against keys and values, causal or not, with grouped-query heads,
+a per-row query offset and a per-row valid KV length. Kernel wrapper beside
+its plain version.
+
+Counterpart of ``rten_tpu/kernels/attention.py`` ``flash_attention`` (:117;
+Pallas kernel ``_flash_kernel`` :29), whose function the kernel keeps:
+scores and softmax statistics in f32; the mask value ``-0.7 · f32 max``
+(``MASK_VALUE``), not −inf; columns at or past ``kv_len`` and (causal)
+right of the query's absolute position ``q_offset + row`` masked; P rounded
+to v's dtype before P·V, the softmax sum taken from the unrounded P; and 0
+for a row with no valid column (``kv_len`` 0). The plain version is the
+counterpart of ``attention_reference`` (:222) with those last two rules of
+the kernel, so both give the Pallas kernel's result.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from rten_tpu_torch.kernels import _build
+from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
+from rten_tpu_torch.kernels.quant_matmul import _stream
+
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for (csrc/flash_attention.cu)
+
+
+def _shapes(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"expected q [B, Hq, Tq, D] and k, v [B, Hk, S, D]; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, hq, tq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} (Hq a multiple of Hk)")
+    return b, hq, tq, d, k.shape[1], k.shape[2]
+
+
+def _per_row(t, b: int, what: str):
+    if t is not None and tuple(t.shape) != (b,):
+        raise ValueError(f"{what} must be an int32 [B] tensor, got shape {tuple(t.shape)}")
+    return t
+
+
+def flash_attention_ref(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_len=None):
+    """Plain version of ``flash_attention`` (same signature and result,
+    returned contiguous)."""
+    PLAIN["flash_attention"] += 1
+    b, hq, tq, d, hk, s = _shapes(q, k, v)
+    _per_row(q_offset, b, "q_offset")
+    _per_row(kv_len, b, "kv_len")
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    qf = q.float().reshape(b, hk, hq // hk, tq, d)  # q head h reads k/v head h // group
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * scale
+    col = torch.arange(s, device=q.device)
+    lens = torch.full((b,), s, device=q.device) if kv_len is None else kv_len.long()
+    mask = (col[None, :] < lens[:, None])[:, None, None, None, :]  # [B, 1, 1, 1, S]
+    if causal:
+        off = torch.zeros(b, device=q.device, dtype=torch.long) if q_offset is None else q_offset.long()
+        row = torch.arange(tq, device=q.device)[None, :] + off[:, None]  # [B, Tq]
+        mask = mask & (col[None, None, :] <= row[:, :, None])[:, None, None]
+    scores = torch.where(mask, scores, MASK_VALUE)
+    p = torch.where(mask, torch.exp(scores - scores.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(v.dtype).float(), v.float())
+    out = out / torch.where(l == 0, 1.0, l)
+    return out.reshape(b, hq, tq, d).to(q.dtype)
+
+
+def _strides(t, what: str):
+    """(batch, head, position) element strides of a [B, H, T, D] operand
+    whose rows the kernel reads as 16-byte vectors."""
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:3]):
+        raise ValueError(
+            f"flash_attention {what}: D must be contiguous, and the pointer and every row "
+            "start 16-byte aligned"
+        )
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_len=None):
+    """``softmax(q·kᵀ · sm_scale + mask) · v``, tiled.
+
+    q: [B, Hq, Tq, D]; k, v: [B, Hk, S, D] with Hq a multiple of Hk (q head
+    h reads k/v head h // (Hq / Hk)); any strides with D contiguous, so q
+    may be a view of a packed qkv. ``sm_scale`` defaults to 1/sqrt(D).
+    ``q_offset``: int32 [B], the absolute position of each row's first
+    query (causal only; default 0). ``kv_len``: int32 [B], each row's valid
+    KV prefix (default S; the kernel clamps it to [0, S]). Both stay on the
+    device. Returns [B, Hq, Tq, D] in q's dtype; the kernel's result is a
+    view of a [B, Tq, Hq, D] buffer, so ``transpose(1, 2)`` of it is
+    contiguous.
+
+    CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, head dim
+    64 or 128); CPU tensors run ``flash_attention_ref``."""
+    b, hq, tq, d, hk, s = _shapes(q, k, v)
+    _per_row(q_offset, b, "q_offset")
+    _per_row(kv_len, b, "kv_len")
+    if not use_kernel(q, k, v, q_offset, kv_len):
+        return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+                                   kv_len=kv_len)
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16) or k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
+            raise ValueError(f"flash_attention: {name} must be a contiguous int32 [B] tensor")
+    out = torch.empty((b, tq, hq, d), dtype=dtype, device=q.device).transpose(1, 2)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    rc = _build.library().rt_flash_attention(
+        q.data_ptr(), *_strides(q, "q"), k.data_ptr(), *_strides(k, "k"),
+        v.data_ptr(), *_strides(v, "v"), out.data_ptr(), *_strides(out, "out"),
+        None if q_offset is None else q_offset.data_ptr(),
+        None if kv_len is None else kv_len.data_ptr(),
+        int(dtype == torch.bfloat16), b, hq, hk, tq, s, d, int(causal), float(scale),
+        _stream(q),
+    )
+    _build.check(rc, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

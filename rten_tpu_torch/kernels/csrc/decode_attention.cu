@@ -47,29 +47,6 @@ struct AttnArgs {
   float sm_scale;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// 16 bytes of a row to f32: 4 floats or 8 bf16 values.
-__device__ __forceinline__ void load16(const float* p, float* f) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  const unsigned words[4] = {static_cast<unsigned>(v.x), static_cast<unsigned>(v.y),
-                             static_cast<unsigned>(v.z), static_cast<unsigned>(v.w)};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(words[i] << 16);
-    f[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(ATTN_THREADS) attn_split_kernel(AttnArgs a) {
   constexpr int VN = 16 / sizeof(T);             // elements in a 16-byte vector

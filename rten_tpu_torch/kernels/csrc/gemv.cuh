@@ -40,11 +40,8 @@
 #pragma once
 
 #include <climits>
-#include <cmath>
-#include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace rt {
 namespace {
@@ -79,18 +76,6 @@ struct GemvArgs {
   int* argmax_out;        // [m] int32 (argmax mode)
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // (value, index) pair order for the argmax: larger value first, then the
 // lower index.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -107,41 +92,6 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
       i = i2;
     }
   }
-}
-
-__device__ __forceinline__ float load_act(const void* p, int bf16, size_t i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_act(void* p, int bf16, size_t i, float v) {
-  if (bf16) {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-  } else {
-    static_cast<float*>(p)[i] = v;
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// erf by Abramowitz & Stegun 7.1.26 (max abs error 1.5e-7), the polynomial
-// of rten_tpu/kernels/matmul_pallas.py _erf_poly and activations.py.
-__device__ __forceinline__ float erf_poly(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  const float ax = fabsf(x);
-  const float t = 1.f / (1.f + p * ax);
-  const float y = 1.f - (((((a5 * t + a4) * t) + a3) * t + a2) * t + a1) * t * expf(-ax * ax);
-  return sign * y;
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 1) return 0.5f * v * (1.f + erf_poly(v * 0.7071067811865475f));
-  if (act == 2) return fmaxf(v, 0.f);
-  return v;
 }
 
 // Shared-memory position of natural column e of a row of k = 16 * kc
@@ -291,23 +241,6 @@ __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
     }
   }
   __syncthreads();
-}
-
-// 16 int8 weights (one int4) to f32 without the quarter-rate int-to-float
-// instruction: each byte, offset to unsigned by the XOR, becomes the low
-// mantissa byte of 2^23 (one byte permute), and one subtraction removes
-// 2^23 + 128. Exact for every int8.
-__device__ __forceinline__ void unpack16(const int4& w, float (&f)[16]) {
-  const unsigned words[4] = {static_cast<unsigned>(w.x), static_cast<unsigned>(w.y),
-                             static_cast<unsigned>(w.z), static_cast<unsigned>(w.w)};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned u = words[i] ^ 0x80808080u;
-    f[4 * i + 0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-    f[4 * i + 1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-    f[4 * i + 2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-    f[4 * i + 3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
-  }
 }
 
 // MR: rows the kernel is compiled for (m <= MR; 1 on the batch-1 decode
@@ -499,8 +432,6 @@ int max_blocks() {
   }
   return cached[dev];
 }
-
-constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use on sm_90
 
 template <int MR, int CPW>
 cudaError_t launch_gemv_t(const GemvArgs& a, int grid, size_t smem, cudaStream_t stream) {

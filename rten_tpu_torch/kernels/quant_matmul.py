@@ -1,10 +1,12 @@
-"""INT8 weight-only decode kernels: ``quant_gemv_int8`` and
-``quant_mlp_int8``, each beside its plain PyTorch version.
+"""INT8 weight-only matmul kernels: the decode ``quant_gemv_int8`` and
+``quant_mlp_int8`` and the prefill ``quant_matmul_int8``, each beside its
+plain PyTorch version.
 
 Counterpart of ``rten_tpu/kernels/quant_matmul.py`` (``quant_gemv_int8``
-:339, ``quant_mlp_int8`` :935) for the weight-only decode path; its
-``w8a8`` mode is not ported yet. Weights are int8 with per-output-channel
-f32 scales; activations are f32 or bf16, and every sum is kept in f32.
+:339, ``quant_matmul_int8`` :590, ``quant_mlp_int8`` :935) for the
+weight-only path; its ``w8a8`` mode is not ported yet. Weights are int8 with
+per-output-channel f32 scales; activations are f32 or bf16, and every sum
+is kept in f32.
 
 Weight layout: the port stores every int8 matrix transposed, ``[N, K]`` with
 K contiguous (``int8_pack``), so that a warp reads each output column's
@@ -128,6 +130,16 @@ def quant_gemv_int8_ref(
         out = torch.where(col < argmax_n, out, torch.full_like(out, _ARGMAX_MASK))
         return torch.argmax(out, dim=1).to(torch.int32)  # first index among equal maxima
     return out.to(out_dtype)
+
+
+def quant_matmul_int8_ref(x, w_t, scales, bias=None, *, activation=None, out_dtype=None):
+    """Plain version of ``quant_matmul_int8`` (same signature and result;
+    no hand-off to the GEMV: any M)."""
+    PLAIN["quant_matmul_int8"] += 1
+    out = _qdot(_dot_operand(x.float(), x.dtype == torch.bfloat16), w_t, scales)
+    if bias is not None:
+        out = out + bias.float()
+    return ACTIVATIONS[activation](out).to(out_dtype or x.dtype)
 
 
 def quant_mlp_int8_ref(
@@ -286,6 +298,45 @@ def quant_gemv_int8(
     _build.check(rc, "quant_gemv_int8")
     LAUNCHES["quant_gemv_int8"] += 1
     return result
+
+
+def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=None):
+    """Prefill matmul with the epilogue applied once, after the whole K sum:
+
+        out = activation((x @ W) * scales + bias)
+
+    x: [M, K] f32/bf16; w_t: int8 [N, K] (``int8_pack``); scales [N] f32;
+    bias [N]. Returns [M, N] in ``out_dtype`` (default x.dtype). The order
+    is ``acc * scale → + bias → activation → out_dtype``.
+
+    M ≤ 8 hands off to ``quant_gemv_int8``, as the TPU function does. Above
+    that, CUDA tensors launch ``csrc/quant_matmul.cu``: bf16 activations on
+    the tensor cores (``mma.sync``, f32 accumulation), f32 activations on an
+    f32 SIMT path with exact f32 products (no rounding to bf16 or TF32). CPU
+    tensors run ``quant_matmul_int8_ref``."""
+    m, k = x.shape
+    n = w_t.shape[0]
+    if m <= MAX_ROWS:
+        return quant_gemv_int8(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
+    out_dtype = out_dtype or x.dtype
+    if not use_kernel(x, w_t, scales, bias):
+        return quant_matmul_int8_ref(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
+    _check_act(x, "quant_matmul_int8")
+    _check_weight(w_t, k, "quant_matmul_int8")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quant_matmul_int8: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    scales = _vec_f32(scales, n, "scales")
+    bias = _vec_f32(bias, n, "bias")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rc = _build.library().rt_quant_matmul(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
+        w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,
+        activation_code(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        _stream(x),
+    )
+    _build.check(rc, "quant_matmul_int8")
+    LAUNCHES["quant_matmul_int8"] += 1
+    return out
 
 
 def quant_mlp_int8(

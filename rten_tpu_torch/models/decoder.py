@@ -1,21 +1,27 @@
-"""GPT-2-class decoder on PyTorch and CUDA: INT8 weight-only greedy decode
-over a preallocated KV cache.
+"""GPT-2-class decoder on PyTorch and CUDA: INT8 weight-only prefill and
+greedy decode over a preallocated KV cache.
 
-Counterpart of ``rten_tpu/models/decoder.py`` for its decode configuration:
-every forward takes one token per row (T = 1) and runs the fused decode
-structure of the TPU path, three hand-written kernels per layer:
+Counterpart of ``rten_tpu/models/decoder.py`` ``forward`` (:584): a forward
+takes T ≥ 1 tokens per row, with a cache (appended at its length) or
+without (a plain full-sequence forward). As on the TPU path, the number of
+rows B·T picks the structure:
 
-- layer 0's qkv: ``quant_gemv_int8`` with ln1 fused in;
-- each layer's attention: ``decode_attention`` on the packed q|k|v, with
-  the in-place cache append and the fused int8 wo + bias + residual;
-- each layer's MLP: ``quant_mlp_int8`` (ln2, up, GELU, down, residual),
-  which in every layer but the last also computes the next layer's ln1 and
-  qkv;
-- the lm_head: ``quant_gemv_int8`` with the final norm fused in, returning
-  the greedy token (fused argmax) or the logits.
+- **B·T ≤ 8: the fused decode structure.** Layer 0's qkv is
+  ``quant_gemv_int8`` with ln1 fused in; each layer's MLP is
+  ``quant_mlp_int8`` (ln2, up, GELU, down, residual), which in every layer
+  but the last also computes the next layer's ln1 and qkv. Attention at
+  T = 1 with a cache is ``decode_attention`` on the packed q|k|v, with the
+  in-place cache append and the fused int8 wo + bias + residual; at T > 1
+  (or without a cache) it is ``flash_attention`` over the cache, then wo
+  through ``quant_gemv_int8`` with the residual fused.
+- **B·T > 8: the prefill structure.** Plain-PyTorch norms (``_norm``),
+  ``quant_matmul_int8`` for qkv, wo, up (GELU in its epilogue) and down,
+  the residual adds outside, and causal ``flash_attention`` over the cache.
 
-A prompt goes through the same step one token at a time (``prefill``);
-multi-token prefill with its own two kernels comes later.
+The lm_head is ``quant_gemv_int8`` with the final norm fused in, returning
+the greedy token (fused argmax) or f32 logits, for up to 8 rows, and the
+final norm plus ``quant_matmul_int8`` (f32 out) for more. ``prefill`` is
+one forward; with ``last_only`` its lm_head runs on the last position only.
 
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
@@ -35,12 +41,16 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from rten_tpu_torch.kernels.attention import flash_attention
 from rten_tpu_torch.kernels.decode_attention import decode_attention
 from rten_tpu_torch.kernels.dispatch import resolve_device
 from rten_tpu_torch.kernels.quant_matmul import (
+    MAX_ROWS,
     int8_pack,
     quant_gemv_int8,
+    quant_matmul_int8,
     quant_mlp_int8,
     quantize_weights_int8,
 )
@@ -48,8 +58,8 @@ from rten_tpu_torch.kernels.quant_matmul import (
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """The fields of the JAX package's ``DecoderConfig`` that the decode path
-    of this slice runs: MHA with learned positions. RoPE, grouped-query
+    """The fields of the JAX package's ``DecoderConfig`` that the ported
+    path runs: MHA with learned positions. RoPE, grouped-query
     attention, SwiGLU, position offsets, untied lm_heads and the int8 KV
     cache come with later slices."""
 
@@ -77,7 +87,7 @@ _MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_down", "wqkv", "lm_head_q")
 
 
 def _check_supported(cfg: DecoderConfig) -> None:
-    """The decode path of this slice: GPT-2-class blocks with a kernel
+    """The ported path: GPT-2-class blocks with a kernel
     epilogue activation and lane-aligned widths (no K padding of the int8
     packs)."""
     problems = []
@@ -207,7 +217,7 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
     dropped, and ``[1, N]`` vectors become f32 ``[N]``."""
     dev = resolve_device(device)
     if "lm_head" in tree:
-        raise NotImplementedError("an untied lm_head is not ported yet: the decode path ties it to tok_emb")
+        raise NotImplementedError("an untied lm_head is not ported yet: the ported path ties it to tok_emb")
 
     def is_pack(node):
         return isinstance(node, dict) and set(node) == {"q", "s"}
@@ -292,7 +302,7 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int | None = None, devic
     and the valid length of each row, int32 ``[B]``, all on the device, and
     the same length kept on the host (``host_len``; every row advances
     together), so that ``forward`` refuses a full cache without reading the
-    device. ``forward`` writes each new token in place and advances both."""
+    device. ``forward`` writes the new tokens' k/v in place and advances both."""
     dev = resolve_device(device)
     shape = (batch, cfg.n_heads, max_len or cfg.max_seq, cfg.head_dim)
     return {
@@ -304,7 +314,7 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int | None = None, devic
 
 
 # ---------------------------------------------------------------------------
-# Forward (T = 1)
+# Forward
 # ---------------------------------------------------------------------------
 
 
@@ -312,83 +322,149 @@ def _pack(layer, key):
     pack = layer.get(key)
     if not (isinstance(pack, dict) and "qt" in pack):
         raise ValueError(
-            f"{key} is not an int8 pack: the decode path needs quantize_params_int8 "
+            f"{key} is not an int8 pack: the decoder needs quantize_params_int8 "
             "(or params_from_jax of quantized params), with every projection ≥ 2^16 elements"
         )
     return pack
 
 
-def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict, *, lm_head_mode="logits"):
-    """One decode step: ``tokens`` [B, 1] are appended at ``cache["len"]``.
+def _norm(x, p, cfg: DecoderConfig):
+    """Row norm of the prefill structure, the counterpart of the JAX
+    package's ``_norm`` (``decoder.py:491``): statistics and normalization
+    in f32, the normalized rows rounded to the model dtype, then scaled
+    (and shifted); returned in x.dtype."""
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + cfg.layer_norm_eps)
+        return (y.to(x.dtype) * p["scale"]).to(x.dtype)
+    y = F.layer_norm(xf, (xf.shape[-1],), eps=cfg.layer_norm_eps)
+    return (y.to(x.dtype) * p["scale"] + p["bias"]).to(x.dtype)
 
-    Returns ``(result, cache)``, the cache updated in place. ``result`` is
-    the f32 logits [B, 1, vocab] (``lm_head_mode="logits"``; not rounded to
-    the model dtype, unlike the JAX package's), the int32
-    greedy tokens [B, 1] from the lm_head kernel's fused argmax
-    (``"argmax"``), or None (``None``: the lm_head is skipped, as for all
-    but the last prompt token). Raises IndexError when the cache is full."""
+
+def _attention(qkv, cfg: DecoderConfig, b: int, t: int, cache, li: int, q_offset, kv_len):
+    """Causal attention of the T new rows, ``qkv`` [B·T, 3·H·D] → [B·T,
+    H·D]. With a cache, the new k/v rows are written in place at its host
+    length (every row advances together), and the queries attend to the
+    cache's valid prefix; without, to the T rows themselves."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = (part.transpose(1, 2) for part in qkv.view(b, t, 3, h, hd).unbind(2))
+    if cache is not None:
+        s0 = cache["host_len"]
+        k_cache, v_cache = cache["k"][li], cache["v"][li]
+        k_cache[:, :, s0 : s0 + t] = k
+        v_cache[:, :, s0 : s0 + t] = v
+        k, v = k_cache, v_cache
+    attn = flash_attention(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len)
+    return attn.transpose(1, 2).reshape(b * t, h * hd)
+
+
+def _lm_head(params: dict, cfg: DecoderConfig, x, mode: str):
+    """Final norm + tied int8 lm_head of the rows ``x`` [M, D]: f32 logits
+    [M, vocab] or (``mode="argmax"``) the greedy tokens int32 [M]. Up to 8
+    rows go through ``quant_gemv_int8`` with the norm fused (and the argmax
+    fused too); more through ``_norm`` and ``quant_matmul_int8``."""
+    head = _pack(params, "lm_head_q")
+    fn = params["final_norm"]
+    if x.shape[0] <= MAX_ROWS:
+        kw = dict(norm=cfg.norm, norm_scale=fn["scale"], norm_bias=fn.get("bias"),
+                  norm_eps=cfg.layer_norm_eps)
+        if mode == "argmax":
+            return quant_gemv_int8(x, head["qt"], head["s"], argmax_n=cfg.vocab_size, **kw)
+        # The epilogue writes f32 logits (the JAX package rounds them to the
+        # model dtype first; a sampler wants them unrounded).
+        return quant_gemv_int8(x, head["qt"], head["s"], out_dtype=torch.float32, **kw)[:, : cfg.vocab_size]
+    logits = quant_matmul_int8(_norm(x, fn, cfg), head["qt"], head["s"], out_dtype=torch.float32)
+    logits = logits[:, : cfg.vocab_size]
+    return logits.argmax(-1).to(torch.int32) if mode == "argmax" else logits
+
+
+def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None, *,
+            lm_head_mode="logits", last_only: bool = False):
+    """One forward of ``tokens`` [B, T], T ≥ 1: appended at ``cache["len"]``
+    with a cache, or a plain full-sequence forward (positions 0..T-1)
+    without one.
+
+    Returns ``(result, cache)``, the cache updated in place (None without
+    one). ``result`` is the f32 logits [B, T, vocab] (``lm_head_mode=
+    "logits"``; not rounded to the model dtype, unlike the JAX package's)
+    or the int32 greedy tokens [B, T] (``"argmax"``). With ``last_only``
+    the final norm and the lm_head run on the last position only and
+    ``result`` is [B, 1, …]. Raises IndexError, before any kernel runs,
+    when the T new tokens do not fit in the cache."""
     _check_supported(cfg)
+    if lm_head_mode not in ("logits", "argmax"):
+        raise ValueError(f"lm_head_mode must be 'logits' or 'argmax', got {lm_head_mode!r}")
     b, t = tokens.shape
-    if t != 1:
-        raise NotImplementedError(
-            "forward runs one token per row (the decode step); multi-token "
-            "prefill (quant_matmul_int8 + flash_attention) is slice 2 of the "
-            "port. prefill() feeds a prompt one token at a time."
-        )
-    if lm_head_mode not in ("logits", "argmax", None):
-        raise ValueError(f"lm_head_mode must be 'logits', 'argmax' or None, got {lm_head_mode!r}")
     h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
     eps = cfg.layer_norm_eps
-    s_max = cache["k"][0].shape[2]
-    if cache["host_len"] >= s_max:
-        raise IndexError(f"KV cache full: {cache['host_len']} tokens fill its {s_max} positions")
-    start = cache["len"]
-    x = params["tok_emb"].index_select(0, tokens.reshape(-1)) + params["pos_emb"].index_select(0, start)
+    rows = b * t
+    small = rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
+    decode = small and t == 1 and cache is not None  # decode_attention: one token on a cache
+    q_offset = kv_len = None
+    if cache is not None:
+        s_max = cache["k"][0].shape[2]
+        if cache["host_len"] + t > s_max:
+            raise IndexError(
+                f"KV cache full: {cache['host_len']} tokens + {t} new exceed its {s_max} positions"
+            )
+        start = cache["len"]
+        positions = start if t == 1 else (start[:, None] + torch.arange(t, device=start.device)).reshape(-1)
+        if not decode:
+            q_offset, kv_len = start, start + t
+    else:
+        positions = torch.arange(t, device=tokens.device).repeat(b)
+    x = params["tok_emb"].index_select(0, tokens.reshape(-1)) + params["pos_emb"].index_select(0, positions)
 
     layers = params["layers"]
-    first = layers[0]
-    wqkv = _pack(first, "wqkv")
-    qkv = quant_gemv_int8(
-        x, wqkv["qt"], wqkv["s"], first.get("bqkv"), norm=cfg.norm,
-        norm_scale=first["ln1"]["scale"], norm_bias=first["ln1"].get("bias"), norm_eps=eps,
-    )
+    qkv = None  # this layer's qkv when the previous layer's MLP kernel computed it
     for li, layer in enumerate(layers):
+        if qkv is None:
+            wqkv = _pack(layer, "wqkv")
+            if small:
+                qkv = quant_gemv_int8(
+                    x, wqkv["qt"], wqkv["s"], layer.get("bqkv"), norm=cfg.norm,
+                    norm_scale=layer["ln1"]["scale"], norm_bias=layer["ln1"].get("bias"), norm_eps=eps,
+                )
+            else:
+                qkv = quant_matmul_int8(_norm(x, layer["ln1"], cfg), wqkv["qt"], wqkv["s"], layer.get("bqkv"))
         wo = _pack(layer, "wo")
-        x = decode_attention(
-            qkv.view(b, 3, h, 1, hd), cache["k"][li], cache["v"][li], start,
-            wo["qt"], wo["s"], layer.get("bo"), residual=x,
-        )
-        nxt = layers[li + 1] if li + 1 < len(layers) else None
-        next_qkv = None
-        if nxt is not None:
-            nq = _pack(nxt, "wqkv")
-            next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
+        if decode:
+            x = decode_attention(
+                qkv.view(b, 3, h, 1, hd), cache["k"][li], cache["v"][li], cache["len"],
+                wo["qt"], wo["s"], layer.get("bo"), residual=x,
+            )
+        else:
+            attn = _attention(qkv, cfg, b, t, cache, li, q_offset, kv_len)
+            if small:
+                x = quant_gemv_int8(attn, wo["qt"], wo["s"], layer.get("bo"), residual=x)
+            else:
+                x = quant_matmul_int8(attn, wo["qt"], wo["s"], layer.get("bo")) + x
         up, down = _pack(layer, "w_up"), _pack(layer, "w_down")
-        out = quant_mlp_int8(
-            x, up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
-            activation=cfg.activation, norm=cfg.norm, norm_scale=layer["ln2"]["scale"],
-            norm_bias=layer["ln2"].get("bias"), norm_eps=eps, residual=x, next_qkv=next_qkv,
-        )
-        if next_qkv is None:
-            x = out
+        if small:
+            nxt = layers[li + 1] if li + 1 < len(layers) else None
+            next_qkv = None
+            if nxt is not None:
+                nq = _pack(nxt, "wqkv")
+                next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
+            out = quant_mlp_int8(
+                x, up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
+                activation=cfg.activation, norm=cfg.norm, norm_scale=layer["ln2"]["scale"],
+                norm_bias=layer["ln2"].get("bias"), norm_eps=eps, residual=x, next_qkv=next_qkv,
+            )
+            x, qkv = out if next_qkv is not None else (out, None)
         else:
-            x, qkv = out
+            hidden = quant_matmul_int8(
+                _norm(x, layer["ln2"], cfg), up["qt"], up["s"], layer.get("b_up"), activation=cfg.activation,
+            )
+            x = quant_matmul_int8(hidden, down["qt"], down["s"], layer.get("b_down")) + x
+            qkv = None
 
-    result = None
-    if lm_head_mode is not None:
-        head = _pack(params, "lm_head_q")
-        fn = params["final_norm"]
-        kw = dict(norm=cfg.norm, norm_scale=fn["scale"], norm_bias=fn.get("bias"), norm_eps=eps)
-        if lm_head_mode == "argmax":
-            result = quant_gemv_int8(x, head["qt"], head["s"], argmax_n=cfg.vocab_size, **kw)
-            result = result.view(b, 1)
-        else:
-            # The epilogue writes f32 logits (the JAX package rounds them to
-            # the model dtype first; a sampler wants them unrounded).
-            logits = quant_gemv_int8(x, head["qt"], head["s"], out_dtype=torch.float32, **kw)
-            result = logits[:, : cfg.vocab_size].reshape(b, 1, cfg.vocab_size)
-    cache["len"].add_(1)
-    cache["host_len"] += 1
+    head_in = x.view(b, t, d)[:, -1] if last_only and t > 1 else x
+    result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode)
+    result = result.reshape(b, 1 if last_only else t, *result.shape[1:])
+    if cache is not None:
+        cache["len"].add_(t)
+        cache["host_len"] += t
     return result, cache
 
 
@@ -397,17 +473,10 @@ decode_step = forward
 
 def prefill(params: dict, cfg: DecoderConfig, tokens, cache: dict, *, lm_head_mode="logits",
             last_only: bool = False):
-    """Feed ``tokens`` [B, T] through ``forward`` one position at a time.
+    """Feed a prompt ``tokens`` [B, T] into the cache as one forward.
     Returns ``(result [B, T, …], cache)`` or, with ``last_only``, only the
-    last position's result ``[B, 1, …]`` (the lm_head runs once)."""
-    n = tokens.shape[1]
-    outs = []
-    for i in range(n):
-        mode = lm_head_mode if (not last_only or i == n - 1) else None
-        res, cache = forward(params, cfg, tokens[:, i : i + 1], cache, lm_head_mode=mode)
-        if res is not None:
-            outs.append(res)
-    return torch.cat(outs, dim=1), cache
+    last position's result ``[B, 1, …]`` (the lm_head runs once per row)."""
+    return forward(params, cfg, tokens, cache, lm_head_mode=lm_head_mode, last_only=last_only)
 
 
 def generate_greedy(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, n_steps: int):

@@ -10,9 +10,11 @@ so on a machine without JAX it runs with the repository's conftest left out:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: f32 atol 1e-4 relative to max(1, |plain|) (same f32 arithmetic,
-another summation order); bf16 outputs 1e-2 relative (one bf16 rounding).
+another summation order); bf16 outputs 1e-2 relative (one bf16 rounding);
+attention outputs relative to their own max.
 """
 
+import contextlib
 import math
 
 import pytest
@@ -20,6 +22,7 @@ import torch
 
 from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.kernels import quant_matmul as qm
+from rten_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
 from rten_tpu_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 
 pytestmark = pytest.mark.gpu
@@ -173,6 +176,119 @@ def test_attention_full_cache_row_is_nan(dev):
         decode_attention_ref(qkv, kc, vc, lens, wo, wos)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,act,with_bias", [
+    (9, 384, 256, None, True),      # one row past the GEMV's 8
+    (64, 2304, 768, "gelu", True),  # GPT-2's qkv width, 64 prompt rows
+    (130, 200, 256, "relu", False),  # ragged M and N
+    (77, 131, 1040, None, True),     # odd N (unpaired stores), K not a multiple of 32
+])
+def test_matmul_kernel_matches_plain(dev, dtype, m, n, k, act, with_bias):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    bias = torch.randn(n, generator=gen, device=dev) if with_bias else None
+    before = dispatch.LAUNCHES["quant_matmul_int8"]
+    out = qm.quant_matmul_int8(x, qt, s, bias, activation=act)
+    assert dispatch.LAUNCHES["quant_matmul_int8"] == before + 1
+    assert out.shape == (m, n) and out.dtype == dtype
+    _close(out, qm.quant_matmul_int8_ref(x, qt, s, bias, activation=act), dtype)
+
+
+def test_matmul_kernel_f32_logits_and_dtypes(dev):
+    """bf16 rows to f32 logits (the lm_head at > 8 rows); other activation
+    dtypes are refused."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qt, s = _pack(gen, 1024 + 96, 256, dev)
+    x = torch.randn(20, 256, generator=gen, device=dev).to(torch.bfloat16)
+    out = qm.quant_matmul_int8(x, qt, s, out_dtype=torch.float32)
+    ref = qm.quant_matmul_int8_ref(x, qt, s, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    _close(out, ref, torch.float32)
+    with pytest.raises(TypeError):
+        qm.quant_matmul_int8(x.half(), qt, s)
+
+
+# (b, hq, hk, tq, s, causal, q_offset, kv_len), as in test_torch_kernels.py.
+FLASH_CASES = {
+    "causal": (2, 2, 2, 64, 128, True, None, None),
+    "non_causal": (1, 2, 2, 40, 128, False, None, [97]),
+    "gqa": (1, 4, 2, 48, 128, True, None, None),
+    "q_offset_kv_len": (2, 2, 2, 24, 256, True, [100, 7], [124, 31]),
+    "ragged_tq": (1, 3, 3, 13, 128, True, [50], [63]),
+    "kv_len_0_row": (2, 2, 1, 9, 128, True, [0, 60], [0, 69]),
+    "long": (1, 2, 2, 200, 300, True, [100], [300]),
+}
+
+
+def _flash_inputs(dev, case, dtype, d, seed=8):
+    b, hq, hk, tq, s, causal, q_offset, kv_len = FLASH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # q, k at std 1.5: scores of std ~2.25, a peaked softmax, so a wrong
+    # running max, rescale or dropped tile moves the output by O(1).
+    q = (1.5 * torch.randn(b, hq, tq, d, generator=gen, device=dev)).to(dtype)
+    k = (1.5 * torch.randn(b, hk, s, d, generator=gen, device=dev)).to(dtype)
+    v = torch.randn(b, hk, s, d, generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal)
+    if q_offset is not None:
+        kw["q_offset"] = torch.tensor(q_offset, dtype=torch.int32, device=dev)
+    if kv_len is not None:
+        kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    return (q, k, v), kw
+
+
+def _close_own_max(out, ref, dtype):
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.float().abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel_matches_plain(dev, dtype, case):
+    args, kw = _flash_inputs(dev, case, dtype, 64)
+    before = dispatch.LAUNCHES["flash_attention"]
+    out = flash_attention(*args, **kw)
+    assert dispatch.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_ref(*args, **kw)
+    _close_own_max(out, ref, dtype)
+    assert out.transpose(1, 2).is_contiguous()
+    if case == "kv_len_0_row":
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["q_offset_kv_len", "gqa"])
+def test_flash_kernel_head_dim_128(dev, dtype, case):
+    args, kw = _flash_inputs(dev, case, dtype, 128)
+    _close_own_max(flash_attention(*args, **kw), flash_attention_ref(*args, **kw), dtype)
+
+
+def test_flash_kernel_against_f64_softmax(dev):
+    """f32 operands: the kernel's output against the softmax in f64 (atol
+    1e-5 of the output's max), causal at q_offset 100."""
+    (q, k, v), kw = _flash_inputs(dev, "long", torch.float32, 64)
+    out = flash_attention(q, k, v, **kw).double()
+    scores = torch.einsum("bhqd,bhsd->bhqs", q.double(), k.double()) / 8.0
+    row = torch.arange(q.shape[2], device=dev)[:, None] + 100
+    scores = scores.masked_fill(torch.arange(k.shape[2], device=dev)[None, :] > row, -math.inf)
+    ref = torch.einsum("bhqs,bhsd->bhqd", torch.softmax(scores, -1), v.double())
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_strided_views(dev, dtype):
+    """q, k, v as views of a packed [B, T, 3, H, D] qkv (the decoder's
+    no-cache forward), against the plain version on contiguous copies."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, t, h, d = 2, 37, 3, 64
+    qkv = (1.5 * torch.randn(b, t, 3, h, d, generator=gen, device=dev)).to(dtype)
+    q, k, v = (p.transpose(1, 2) for p in qkv.unbind(2))
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    _close_own_max(out, ref, dtype)
+
+
 def test_generate_greedy_past_cache_raises(dev):
     from rten_tpu_torch.models import decoder
 
@@ -186,35 +302,85 @@ def test_generate_greedy_past_cache_raises(dev):
     assert cache["host_len"] == 8 and int(cache["len"][0]) == 8
 
 
-def test_tiny_decoder_kernels_match_plain(dev):
-    """Greedy tokens and logits of the tiny f32 decoder: kernels against the
-    plain versions, both on the card."""
+@contextlib.contextmanager
+def _plain_decoder(decoder):
+    """Route the decoder's five kernel calls to their plain versions."""
+    names = ("quant_gemv_int8", "quant_mlp_int8", "quant_matmul_int8", "decode_attention",
+             "flash_attention")
+    saved = {name: getattr(decoder, name) for name in names}
+    decoder.quant_gemv_int8 = qm.quant_gemv_int8_ref
+    decoder.quant_mlp_int8 = qm.quant_mlp_int8_ref
+    decoder.quant_matmul_int8 = qm.quant_matmul_int8_ref
+    decoder.decode_attention = decode_attention_ref
+    decoder.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(decoder, name, fn)
+
+
+def _tiny(dtype, dev):
     from rten_tpu_torch.models import decoder
 
     cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=1024,
-                                max_seq=256, dtype=torch.float32)
-    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+                                max_seq=256, dtype=dtype)
+    return decoder, cfg, decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+
+
+def test_tiny_decoder_kernels_match_plain(dev):
+    """Greedy tokens and logits of the tiny f32 decoder: kernels against the
+    plain versions, both on the card (a 5-token prompt: one forward of the
+    fused decode structure, attention through flash_attention)."""
+    decoder, cfg, params = _tiny(torch.float32, dev)
     prompt = torch.tensor([[11, 42, 7, 300, 5]], dtype=torch.int32, device=dev)
 
-    def run(plain):
-        saved = (decoder.quant_gemv_int8, decoder.quant_mlp_int8, decoder.decode_attention)
-        if plain:
-            decoder.quant_gemv_int8 = qm.quant_gemv_int8_ref
-            decoder.quant_mlp_int8 = qm.quant_mlp_int8_ref
-            decoder.decode_attention = decode_attention_ref
-        try:
-            cache = decoder.init_cache(cfg, 1, 64, device=dev)
-            logits, cache = decoder.prefill(params, cfg, prompt, cache)
-            first = logits[:, -1:].argmax(-1).to(torch.int32)
-            toks, _ = decoder.generate_greedy(params, cfg, cache, first, 8)
-            return logits, toks
-        finally:
-            decoder.quant_gemv_int8, decoder.quant_mlp_int8, decoder.decode_attention = saved
+    def run():
+        cache = decoder.init_cache(cfg, 1, 64, device=dev)
+        logits, cache = decoder.prefill(params, cfg, prompt, cache)
+        first = logits[:, -1:].argmax(-1).to(torch.int32)
+        toks, _ = decoder.generate_greedy(params, cfg, cache, first, 8)
+        return logits, toks
 
     dispatch.reset_counters()
-    k_logits, k_toks = run(False)
+    k_logits, k_toks = run()
     assert dispatch.PLAIN == {} and set(dispatch.LAUNCHES) == {
-        "quant_gemv_int8", "quant_mlp_int8", "decode_attention"}
-    p_logits, p_toks = run(True)
+        "quant_gemv_int8", "quant_mlp_int8", "decode_attention", "flash_attention"}
+    with _plain_decoder(decoder):
+        p_logits, p_toks = run()
     _close(k_logits, p_logits, torch.float32)
     assert k_toks.tolist() == p_toks.tolist()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiny_decoder_prefill_matches_plain(dev, dtype):
+    """A 20-token prompt as one forward (quant_matmul_int8 and
+    flash_attention), then a 9-token follow-up at q_offset 20, then 4
+    greedy steps: kernels against the plain versions on the card."""
+    decoder, cfg, params = _tiny(dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 29), generator=gen, device=dev, dtype=torch.int32)
+
+    def run():
+        cache = decoder.init_cache(cfg, 2, 64, device=dev)
+        first, cache = decoder.prefill(params, cfg, prompt[:, :20], cache)
+        second, cache = decoder.prefill(params, cfg, prompt[:, 20:], cache)
+        toks, cache = decoder.generate_greedy(params, cfg, cache, prompt[:, -1:], 4)
+        return torch.cat([first, second], 1), toks, cache
+
+    dispatch.reset_counters()
+    k_logits, k_toks, k_cache = run()
+    assert dispatch.PLAIN == {}
+    assert dispatch.LAUNCHES["quant_matmul_int8"] == 2 * (4 * cfg.n_layers + 1)
+    assert dispatch.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    with _plain_decoder(decoder):
+        p_logits, p_toks, p_cache = run()
+    assert k_logits.shape == (2, 29, cfg.vocab_size)
+    # bf16: the activations are rounded after sums taken in another order,
+    # and a flipped rounding in layer 0 carries through the second layer.
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (k_logits - p_logits).abs().max().item() <= tol * max(1.0, p_logits.abs().max().item())
+    for li in range(cfg.n_layers):
+        _close(k_cache["k"][li], p_cache["k"][li], dtype)
+    if dtype == torch.float32:
+        assert k_toks.tolist() == p_toks.tolist()

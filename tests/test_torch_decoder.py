@@ -1,11 +1,12 @@
 """The port's decoder (plain kernel versions, on the CPU) against the JAX
 package's decoder on the same seeded parameters.
 
-JAX runs its jnp path here (no TPU, so no fused kernels); the port runs the
-fused T = 1 structure through its kernels' plain versions, a prompt one
-token at a time. Both are f32. Tolerances: logits atol 1e-4 (same f32
-arithmetic, another order; exact erf against the erf polynomial, 1.5e-7);
-caches atol 1e-5; greedy tokens identical.
+JAX runs its jnp path here (no TPU, so no fused kernels); the port runs its
+kernels' plain versions, a prompt as one forward: the fused decode
+structure at B·T ≤ 8 rows, the prefill structure (quant_matmul_int8 and
+flash_attention) above. Both are f32. Tolerances: logits atol 1e-4 (same
+f32 arithmetic, another order; exact erf against the erf polynomial,
+1.5e-7); caches atol 1e-5; greedy tokens identical.
 """
 
 import jax
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from rten_tpu.models import decoder as jdec
+from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.models import decoder as tdec
 from torch_port_helpers import configs, dense_tree, to_jax, to_numpy, unfold
 
@@ -74,23 +76,87 @@ def test_params_from_jax_equal_port_quantization(tile_bn):
     np.testing.assert_array_equal(carried["tok_emb"], own["tok_emb"])
 
 
-def test_prefill_matches_jax(models):
-    """An 8-token prompt: JAX prefill (T = 8) against the port's
-    token-at-a-time prefill — logits of every position and the caches."""
-    jcfg, tcfg, jparams, tparams = models
-    tokens = np.random.default_rng(1).integers(0, tcfg.vocab_size, (1, 8)).astype(np.int32)
-    jcache = jdec.init_cache(jcfg, 1, 64)
-    jlogits, jcache = jdec.prefill(jparams, jcfg, jnp.asarray(tokens), jcache)
-    tcache = tdec.init_cache(tcfg, 1, 64, device="cpu")
-    tlogits, tcache = tdec.prefill(tparams, tcfg, torch.from_numpy(tokens), tcache)
-    assert tlogits.shape == (1, 8, tcfg.vocab_size)
-    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
-    assert int(tcache["len"][0]) == int(jcache["len"][0]) == 8
+def _assert_caches_match(tcache, jcache, tcfg):
     for li in range(tcfg.n_layers):
         for kv in ("k", "v"):
             np.testing.assert_allclose(
                 tcache[kv][li].numpy(), unfold(jcache[kv][li], tcfg.head_dim), atol=1e-5, rtol=0
             )
+
+
+def test_prefill_matches_jax(models):
+    """An 8-token prompt (B·T = 8: the fused decode structure, attention
+    through flash_attention over the cache) as one forward: JAX prefill
+    against the port's, logits of every position and the caches."""
+    jcfg, tcfg, jparams, tparams = models
+    tokens = np.random.default_rng(1).integers(0, tcfg.vocab_size, (1, 8)).astype(np.int32)
+    jcache = jdec.init_cache(jcfg, 1, 64)
+    jlogits, jcache = jdec.prefill(jparams, jcfg, jnp.asarray(tokens), jcache)
+    tcache = tdec.init_cache(tcfg, 1, 64, device="cpu")
+    dispatch.reset_counters()
+    tlogits, tcache = tdec.prefill(tparams, tcfg, torch.from_numpy(tokens), tcache)
+    assert dispatch.PLAIN["flash_attention"] == tcfg.n_layers and "decode_attention" not in dispatch.PLAIN
+    assert tlogits.shape == (1, 8, tcfg.vocab_size)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    assert int(tcache["len"][0]) == int(jcache["len"][0]) == 8
+    _assert_caches_match(tcache, jcache, tcfg)
+
+
+@pytest.mark.parametrize("b,t", [(1, 20), (2, 12), (1, 5)], ids=["1x20", "2x12", "1x5"])
+def test_one_forward_prefill_matches_jax(models, b, t):
+    """A prompt as one forward at B·T > 8 (the prefill structure) and ≤ 8
+    (the fused decode structure): logits of every position, the caches,
+    and the greedy tokens of 4 decode steps after it."""
+    jcfg, tcfg, jparams, tparams = models
+    tokens = np.random.default_rng(10 + t).integers(0, tcfg.vocab_size, (b, t)).astype(np.int32)
+    jcache = jdec.init_cache(jcfg, b, 64)
+    jlogits, jcache = jdec.prefill(jparams, jcfg, jnp.asarray(tokens), jcache)
+    tcache = tdec.init_cache(tcfg, b, 64, device="cpu")
+    dispatch.reset_counters()
+    tlogits, tcache = tdec.prefill(tparams, tcfg, torch.from_numpy(tokens), tcache)
+    n_matmul = 4 * tcfg.n_layers + (1 if b * t > 8 else 0)  # qkv, wo, up, down; the lm_head
+    assert dispatch.PLAIN["quant_matmul_int8"] == (n_matmul if b * t > 8 else 0)
+    assert dispatch.PLAIN["flash_attention"] == tcfg.n_layers
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_array_equal(tcache["len"].numpy(), np.asarray(jcache["len"]))
+    _assert_caches_match(tcache, jcache, tcfg)
+
+    first = jnp.argmax(jlogits[:, -1:], axis=-1).astype(jnp.int32)
+    jtoks, _ = jdec.generate_scan(jparams, jcfg, jcache, first, jax.random.PRNGKey(0), n_steps=4)
+    ttoks, _ = tdec.generate_greedy(tparams, tcfg, tcache, torch.from_numpy(np.array(first)), 4)
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+
+def test_chunked_prompt_matches_one_prefill(models):
+    """12 prompt tokens, then 9 more (a follow-up prompt at q_offset 12),
+    against one 21-token prefill: the last 9 positions' logits and the
+    caches."""
+    _, tcfg, _, tparams = models
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, tcfg.vocab_size, (1, 21)).astype(np.int32))
+    whole = tdec.init_cache(tcfg, 1, 64, device="cpu")
+    wlogits, whole = tdec.prefill(tparams, tcfg, tokens, whole)
+    chunked = tdec.init_cache(tcfg, 1, 64, device="cpu")
+    _, chunked = tdec.prefill(tparams, tcfg, tokens[:, :12], chunked)
+    clogits, chunked = tdec.prefill(tparams, tcfg, tokens[:, 12:], chunked)
+    np.testing.assert_allclose(clogits.numpy(), wlogits[:, 12:].numpy(), atol=LOGIT_ATOL, rtol=0)
+    assert chunked["host_len"] == whole["host_len"] == 21
+    for li in range(tcfg.n_layers):
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(chunked[kv][li].numpy(), whole[kv][li].numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,t", [(1, 12), (2, 3)], ids=["1x12", "2x3"])
+def test_forward_without_cache_matches_jax(models, b, t):
+    """``forward(cache=None)``: the plain full-sequence forward (q_offset 0,
+    kv_len T), in both structures."""
+    jcfg, tcfg, jparams, tparams = models
+    tokens = np.random.default_rng(20 + t).integers(0, tcfg.vocab_size, (b, t)).astype(np.int32)
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tokens))
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tokens))
+    assert jcache is None and tcache is None
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    targmax, _ = tdec.forward(tparams, tcfg, torch.from_numpy(tokens), lm_head_mode="argmax")
+    np.testing.assert_array_equal(targmax.numpy(), np.asarray(jlogits).argmax(-1))
 
 
 def test_greedy_decode_matches_jax(models):
@@ -129,12 +195,20 @@ def test_greedy_decode_matches_jax(models):
 
 
 def test_forward_refuses_multi_token():
+    """A multi-token forward that would overrun the cache is refused before
+    any kernel runs, and the cache is left as it was."""
     _, tcfg = configs()
     params = tdec.quantize_params_int8(tdec.params_from_jax(dense_tree(0), tcfg, device="cpu"),
                                        device="cpu")
     cache = tdec.init_cache(tcfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdec.forward(params, tcfg, torch.zeros((1, 2), dtype=torch.int32), cache)
+    _, cache = tdec.prefill(params, tcfg, torch.arange(10, dtype=torch.int32)[None], cache)
+    k_before = [k.clone() for k in cache["k"]]
+    dispatch.reset_counters()
+    with pytest.raises(IndexError, match="KV cache full"):
+        tdec.forward(params, tcfg, torch.zeros((1, 7), dtype=torch.int32), cache)
+    assert not dispatch.PLAIN and not dispatch.LAUNCHES
+    assert cache["host_len"] == 10 and int(cache["len"][0]) == 10
+    assert all(torch.equal(a, b) for a, b in zip(cache["k"], k_before))
 
 
 def test_generate_greedy_past_cache_raises():
@@ -176,7 +250,8 @@ def test_from_hf_gpt2_matches_jax_and_transformers():
         np.testing.assert_array_equal(tdense["layers"][1][key].numpy(), jdense["layers"][1][key])
     np.testing.assert_array_equal(tdense["tok_emb"].numpy(), jdense["tok_emb"])
 
-    ids = np.random.default_rng(3).integers(0, tcfg.vocab_size, (1, 6)).astype(np.int32)
+    # 12 tokens: the one-forward prefill structure (quant_matmul_int8, flash_attention).
+    ids = np.random.default_rng(3).integers(0, tcfg.vocab_size, (1, 12)).astype(np.int32)
     tparams = tdec.quantize_params_int8(tdense, device="cpu")
     tlogits, _ = tdec.prefill(tparams, tcfg, torch.from_numpy(ids),
                               tdec.init_cache(tcfg, 1, 16, device="cpu"))

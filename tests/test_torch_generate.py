@@ -17,6 +17,7 @@ from rten_tpu_torch.generate import (
     Metrics,
     NativeBackend,
 )
+from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.models import decoder as tdec
 from torch_port_helpers import configs, dense_tree, to_jax, to_numpy
 
@@ -72,6 +73,23 @@ def test_append_prompt(models):
     # prompt 5, two fed samples, then [last, 7, 8, 9] together, then 3 more
     assert tgen.backend.length == len(PROMPT) + 2 + 4 + 3
     assert int(tgen.backend.cache["len"][0]) == tgen.backend.length
+
+
+def test_long_prompt_is_one_prefill_forward(models):
+    """A 20-token prompt goes into the cache as one forward (the prefill
+    structure: four quant_matmul_int8 and one flash_attention per layer, no
+    decode_attention), and the stream after it equals JAX's."""
+    _, tcfg, _, _ = models
+    prompt = list(np.random.default_rng(7).integers(0, tcfg.vocab_size, 20))
+    jgen, tgen = _pair(models, max_tokens=6)
+    tgen.with_prompt(prompt)
+    dispatch.reset_counters()
+    first = int(next(tgen)[0])
+    assert dispatch.PLAIN["quant_matmul_int8"] == 4 * tcfg.n_layers
+    assert dispatch.PLAIN["flash_attention"] == tcfg.n_layers
+    assert "decode_attention" not in dispatch.PLAIN
+    assert tgen.backend.length == 20
+    assert [first] + _stream(tgen) == _stream(jgen.with_prompt(prompt))
 
 
 def test_eos_stops(models):

@@ -33,7 +33,9 @@ cache = decoder.init_cache(cfg, 1, device="cpu")
 tok = torch.tensor([[3]], dtype=torch.int32)
 for _ in range(2):
     tok, cache = decoder.forward(params, cfg, tok, cache, lm_head_mode="argmax")
-assert int(cache["len"][0]) == 2
+prompt = torch.arange(12, dtype=torch.int32)[None]  # one prefill forward of 12 rows
+logits, cache = decoder.prefill(params, cfg, prompt, cache, last_only=True)
+assert int(cache["len"][0]) == 14 and logits.shape == (1, 1, 300)
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))

@@ -1,5 +1,5 @@
-"""The port's decode kernels (plain versions, on the CPU) against the JAX
-package's Pallas kernels run with ``interpret=True``.
+"""The port's kernels (plain versions, on the CPU) against the JAX package's
+Pallas kernels run with ``interpret=True``.
 
 Inputs are made once with numpy from a seed and handed to both packages.
 Tolerances: f32 cases agree to atol 1e-4 (the same f32 arithmetic in
@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from rten_tpu.kernels import quant_matmul as jqm
+from rten_tpu.kernels.attention import flash_attention as jax_flash_attention
 from rten_tpu.kernels.decode_attention import decode_attention as jax_decode_attention
 from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.kernels import quant_matmul as tqm
+from rten_tpu_torch.kernels.attention import flash_attention
 from rten_tpu_torch.kernels.decode_attention import decode_attention
 
 ATOL = 1e-4
@@ -211,8 +213,107 @@ def test_decode_attention_matches_pallas(rng):
     np.testing.assert_array_equal(v_cache.numpy(), np.asarray(ref_v).reshape(b, h, s_max, d))
 
 
+@pytest.mark.parametrize("act", [None, "gelu", "relu"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("m", [9, 130])
+def test_quant_matmul_matches_pallas(rng, m, with_bias, act):
+    """The prefill matmul at ragged M > 8 (one row past the GEMV's 8; a
+    second 128-row block), with and without bias, for each epilogue
+    activation."""
+    k, n = 256, 384
+    q, s = _quant(rng, k, n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32) * 0.1 if with_bias else None
+    ref = jqm.quant_matmul_int8(
+        jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), None if bias is None else jnp.asarray(bias),
+        activation=act, block_m=128, block_n=128, block_k=128, interpret=True,
+    )
+    qt, st = _port_pack(q, s)
+    before = dict(dispatch.PLAIN)
+    out = tqm.quant_matmul_int8(_t(x), qt, st, None if bias is None else _t(bias), activation=act)
+    assert dispatch.PLAIN["quant_matmul_int8"] == before.get("quant_matmul_int8", 0) + 1
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_quant_matmul_hands_small_m_to_gemv(rng):
+    """M ≤ 8 goes to the GEMV, as in the TPU function; f32 logits out."""
+    m, k, n = 8, 256, 384
+    q, s = _quant(rng, k, n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    ref = jqm.quant_matmul_int8(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), activation="gelu",
+                                interpret=True)
+    qt, st = _port_pack(q, s)
+    before = dict(dispatch.PLAIN)
+    out = tqm.quant_matmul_int8(_t(x), qt, st, activation="gelu")
+    assert dispatch.PLAIN["quant_gemv_int8"] == before.get("quant_gemv_int8", 0) + 1
+    assert dispatch.PLAIN["quant_matmul_int8"] == before.get("quant_matmul_int8", 0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+# (b, hq, hk, tq, s, causal, q_offset, kv_len): GPT-2's head dim 64 throughout.
+FLASH_CASES = {
+    "causal": (2, 2, 2, 64, 128, True, None, None),
+    "non_causal": (1, 2, 2, 40, 128, False, None, [97]),
+    "gqa": (1, 4, 2, 48, 128, True, None, None),
+    "q_offset_kv_len": (2, 2, 2, 24, 256, True, [100, 7], [124, 31]),
+    "ragged_tq": (1, 3, 3, 13, 128, True, [50], [63]),
+    "kv_len_0_row": (2, 2, 1, 9, 128, True, [0, 60], [0, 69]),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_matches_pallas(rng, case):
+    b, hq, hk, tq, s, causal, q_offset, kv_len = FLASH_CASES[case]
+    d = 64
+    q = rng.standard_normal((b, hq, tq, d)).astype(np.float32) * 1.5
+    k = rng.standard_normal((b, hk, s, d)).astype(np.float32) * 1.5
+    v = rng.standard_normal((b, hk, s, d)).astype(np.float32)
+    j_off = None if q_offset is None else jnp.asarray(q_offset, jnp.int32)
+    j_len = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
+    ref = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                              q_offset=j_off, kv_len=j_len, interpret=True)
+    t_off = None if q_offset is None else torch.tensor(q_offset, dtype=torch.int32)
+    t_len = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    before = dict(dispatch.PLAIN)
+    out = flash_attention(_t(q), _t(k), _t(v), causal=causal, q_offset=t_off, kv_len=t_len)
+    assert dispatch.PLAIN["flash_attention"] == before.get("flash_attention", 0) + 1
+    assert out.shape == (b, hq, tq, d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    if case == "kv_len_0_row":
+        assert not out[0].any()  # l = 0: the row gives 0
+
+
+def test_flash_attention_bf16_rounds_p(rng):
+    """bf16 operands: P is rounded to bf16 before P.V, as in the Pallas
+    kernel (one bf16 rounding of the output apart)."""
+    b, h, tq, s, d = 1, 2, 16, 128, 64
+    q = rng.standard_normal((b, h, tq, d)).astype(np.float32) * 1.5
+    k = rng.standard_normal((b, h, s, d)).astype(np.float32) * 1.5
+    v = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    kv_len = np.array([77], np.int32)
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = jax_flash_attention(qb, kb, vb, causal=True, q_offset=jnp.asarray([60], jnp.int32),
+                              kv_len=jnp.asarray(kv_len), interpret=True)
+    tb = [_t(np.asarray(a.astype(jnp.float32)), torch.bfloat16) for a in (qb, kb, vb)]
+    out = flash_attention(*tb, causal=True, q_offset=torch.tensor([60], dtype=torch.int32),
+                          kv_len=_t(kv_len, torch.int32))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)), rtol=1e-2, atol=1e-2)
+
+
 def test_wrappers_reject_mixed_devices(rng):
     q, s = _quant(rng, 256, 128)
     qt, st = _port_pack(q, s)
     with pytest.raises(ValueError):
         tqm.quant_gemv_int8(torch.zeros(1, 256, device="meta"), qt, st)
+
+
+def test_prefill_wrappers_reject_mixed_devices(rng):
+    q, s = _quant(rng, 256, 128)
+    qt, st = _port_pack(q, s)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_int8(torch.zeros(16, 256, device="meta"), qt, st)
+    k = torch.zeros(1, 2, 64, 64)
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 2, 8, 64, device="meta"), k, k)
