@@ -9,7 +9,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device  — the card's name and power limit from nvidia-smi;
 2. build   — nvcc builds the kernels from rten_tpu_torch/kernels/csrc;
 3. kernels — each kernel (the three decode kernels, the prefill matmul and
-   flash attention) at GPT-2-small's shapes (bf16 activations, int8
+   flash attention, the serving path's int8 and paged decode attentions) at
+   GPT-2-small's shapes (bf16 activations, int8
    weights) against its plain PyTorch version on the same inputs, with its
    device time, its plain version's time, the least time the card could
    take for the same work, and one PyTorch library call as a yardstick;
@@ -21,8 +22,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    32 steps teacher-forced token by token through the kernels (the served
    path), and as one prefill forward through the kernels and through the
    plain versions;
-5. the line {"kernels": [...]}, the nvidia-smi line, and last the line
-   {"ok": true, "device": {...}}.
+5. serving — the same model behind the continuous-batching engines: 16
+   seeded requests (prompts 16-320 tokens, 32-256 new tokens) queued at
+   once through ServingEngine (8 slots, 8 forwards a tick; run and
+   run_pipelined), PagedServingEngine (pages of 128; a pool that holds them
+   all, then one small enough to preempt), both again with int8 KV, and 4
+   concurrent POST /generate to a ServingServer on loopback; each stream
+   held against its solo Generator(NativeBackend) stream (a difference
+   passes only where the solo top-2 logit gap is below 0.05), every page
+   back in its pool, each run's launch counters read around it; then ms
+   per forward at 8 active rows and the device's idle share per engine;
+6. the line {"kernels": [...]} (the launches summed over phases 4 and 5),
+   the nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
 Details (every case, the compiler's register report) go to
 chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -361,7 +372,100 @@ def check_kernels(torch, bound, cfg):
     torch.cuda.empty_cache()
     check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record)
     torch.cuda.empty_cache()
+    check_kv_kernels(torch, bound, cfg, randn, record)
+    torch.cuda.empty_cache()
     return cases
+
+
+KV_LENS = {"B=1 kv_len=1": [1], "B=1 kv_len=300": [300], "B=1 kv_len=767": [767],
+           "B=8 mixed": [1, 100, 200, 300, 400, 500, 640, 767]}
+
+
+def check_kv_kernels(torch, bound, cfg, randn, record):
+    """The serving path's KV kernels (decode_attention_int8 over an int8
+    [B, H, S, D] cache; paged_decode_attention and its int8 twin over pools
+    of 128-position pages, each row's 6 pages scattered through the pool) at
+    S 768, against their plain versions: the attention vector (tolerance
+    from its own max), the caches after the append bit for bit. Timed as
+    check_kernels times the others; the bound counts the valid prefix's
+    payload and scales, the packed qkv and the output; the library yardstick
+    is scaled_dot_product_attention over the same prefix made contiguous
+    (bf16; a bf16 dequantized copy for int8), rows masked to their lengths."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    h, hd, s_max, page = cfg.n_heads, cfg.head_dim, CACHE_LEN, 128
+    per_row = s_max // page
+    F = torch.nn.functional
+    kinds = {"decode_attention_int8": (da.decode_attention_int8, da.decode_attention_int8_ref),
+             "paged_decode_attention": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
+             "paged_decode_attention_int8": (pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref)}
+    for name, (kernel, plain) in kinds.items():
+        int8, paged = name.endswith("int8"), name.startswith("paged")
+        for case, lens_list in KV_LENS.items():
+            b = len(lens_list)
+
+            def make(i, b=b, lens_list=lens_list, int8=int8, paged=paged):
+                shape = (b * per_row + 1, h, page, hd) if paged else (b, h, s_max, hd)
+                if int8:
+                    cache = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                             for _ in range(2)]
+                    cache += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+                else:
+                    cache = [randn(*shape, scale=1.5), randn(*shape)]
+                lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+                args = [randn(b, 3, h, 1, hd, scale=1.5), *cache]
+                if paged:  # each row's pages scattered through the pool; the last page is spare
+                    perm = torch.randperm(b * per_row, generator=gen, device=dev).to(torch.int32)
+                    args.append(perm.view(b, per_row).contiguous())
+                return args + [lens]
+
+            args = make(0)
+            k_args, p_args = [a.clone() for a in args], [a.clone() for a in args]
+            out = kernel(*k_args)
+            ref = plain(*p_args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 1e-2 * ref.float().abs().max().item()  # one bf16 rounding of the output
+            n_cache = 4 if int8 else 2
+            if not all(torch.equal(a, p) for a, p in zip(k_args[1 : 1 + n_cache], p_args[1 : 1 + n_cache])):
+                raise AssertionError(f"{name} {case}: the caches after the append differ from the plain version's")
+            # The contiguous prefix (dequantized to bf16 for int8) per row, for the yardstick.
+            lens_t = torch.tensor(lens_list, device=dev)
+            valid = int(lens_t.max()) + 1
+
+            def contiguous(args, which):
+                kv = args[1 + which]
+                if paged:
+                    table = args[-2].long()
+                    kv = kv[table].permute(0, 2, 1, 3, 4).reshape(b, h, -1, hd)
+                    sc = args[3 + which][table].permute(0, 2, 1, 3).reshape(b, h, -1) if int8 else None
+                else:
+                    sc = args[3 + which] if int8 else None
+                kv = kv[:, :, :valid]
+                return da.dequantize_kv(kv, sc[:, :, :valid], torch.bfloat16) if int8 else kv
+
+            elt = 1 if int8 else 2
+            prefix = sum(lens_list)  # positions read from the cache (the new token comes from qkv)
+            per_call = (2 * h * prefix * hd * elt + (2 * h * prefix * 4 if int8 else 0)
+                        + nbytes(args[0]) + b * h * hd * 2 + 2 * h * b * hd * elt + 4 * b
+                        + (nbytes(args[-2]) if paged else 0))
+            ops = sum(4 * h * (n + 1) * hd for n in lens_list)
+            copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+            ms = graph_ms(torch, [lambda a=a: kernel(*a) for a in copies])
+            plain_ms = eager_ms(torch, lambda: plain(*p_args))  # the append is idempotent
+            lib_in = []
+            for c in copies[:8]:
+                q = c[0][:, 0]  # [B, H, 1, D]
+                mask = (torch.arange(valid, device=dev)[None, :] <= lens_t[:, None])[:, None, None, :]
+                lib_in.append((q, contiguous(c, 0), contiguous(c, 1), mask))
+            library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=t[3])
+                                       for t in lib_in])
+            record(name, f"{case} S={s_max} H={h} D={hd}" + (f" page={page}" if paged else ""), err, tol, ms,
+                   plain_ms, bound(per_call, ops), library)
+            del copies, lib_in
 
 
 def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
@@ -500,15 +604,11 @@ def stream_bytes(node, exclude=("tok_emb", "pos_emb")) -> int:
     return node.numel() * node.element_size()
 
 
-def drive_serve(torch, cfg, mem_rate, op_rate, out):
+def drive_serve(torch, cfg, params, mem_rate, op_rate, out):
     from rten_tpu_torch.generate import Generator, GeneratorConfig, Metrics, NativeBackend
     from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.models import decoder
 
-    t0 = time.perf_counter()
-    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
-    torch.cuda.synchronize()
-    log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
     prompt_gen = torch.Generator().manual_seed(0)
     prompts = {n: torch.randint(0, cfg.vocab_size, (1, n), generator=prompt_gen).to(torch.int32).numpy()
                for n in sorted({N_PROMPT, *TTFT_PROMPTS})}
@@ -534,7 +634,7 @@ def drive_serve(torch, cfg, mem_rate, op_rate, out):
     forwards = 1 + (N_NEW - 1)
     log(f"  served {len(tokens)} tokens after a {N_PROMPT}-token prompt in {wall:.3f} s; "
         f"launches {launches}; plain {plain or '{}'}")
-    for name in KERNELS:
+    for name in ENGINE_KERNELS["slot"]:  # the five kernels of generation at batch 1
         if launches.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if any(plain.values()):
@@ -701,6 +801,260 @@ def drive_serve(torch, cfg, mem_rate, op_rate, out):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: continuous-batching serving at full width
+# ---------------------------------------------------------------------------
+
+N_REQUESTS, PROMPT_RANGE, NEW_RANGE, SERVE_PAGE, GAP_TOL = 16, (16, 320), (32, 256), 128, 0.05
+ENGINE_KERNELS = {  # the kernels each engine run must launch (the prefill ones with them)
+    "slot": ("quant_gemv_int8", "quant_mlp_int8", "decode_attention", "quant_matmul_int8", "flash_attention"),
+    "paged": ("quant_gemv_int8", "quant_mlp_int8", "paged_decode_attention", "quant_matmul_int8",
+              "flash_attention"),
+    "slot_int8": ("quant_gemv_int8", "quant_mlp_int8", "decode_attention_int8", "quant_matmul_int8",
+                  "flash_attention"),
+    "paged_int8": ("quant_gemv_int8", "quant_mlp_int8", "paged_decode_attention_int8", "quant_matmul_int8",
+                   "flash_attention"),
+}
+
+
+class GapArgMax:
+    """Greedy sampler over the logits that records, per step, the gap
+    between the top two logits (the solo reference's tie margin)."""
+
+    def __init__(self):
+        self.gaps: list[float] = []
+
+    def sample(self, rng, logits):
+        import torch
+
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        self.gaps.append(float(top[0, 0] - top[0, 1]))
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def check_streams(what, streams, refs, gaps):
+    """Each stream equals its reference, or first differs where the solo
+    logits' top-2 gap is below GAP_TOL. Returns the number that differ."""
+    n_diff = 0
+    for i, (s, r) in enumerate(zip(streams, refs)):
+        if len(s) != len(r):
+            raise AssertionError(f"{what}: request {i} has {len(s)} tokens, its reference {len(r)}")
+        at = first_difference(s, r)
+        if at is None:
+            continue
+        n_diff += 1
+        if not gaps[i][at] < GAP_TOL:
+            raise AssertionError(f"{what}: request {i} differs at token {at}, where the solo top-2 gap is "
+                                 f"{gaps[i][at]:.4g} >= {GAP_TOL}")
+        log(f"    {what}: request {i} differs from its reference at token {at} (solo gap {gaps[i][at]:.4g})")
+    return n_diff
+
+
+def drive_serving(torch, cfg, params, out):
+    """16 seeded requests, all queued at once, through the slot engine
+    (run and run_pipelined), the paged engine (a pool that holds them all,
+    then one small enough to preempt), both again with int8_kv, and four
+    concurrent POST /generate to a ServingServer on loopback. Each stream is
+    held against its solo Generator(NativeBackend) stream; every run's
+    launch counters are read around it."""
+    import dataclasses
+    import random
+    import threading
+    import urllib.request
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine, ServingServer
+
+    dev = torch.device("cuda", 0)
+    cfg8 = dataclasses.replace(cfg, int8_kv=True)
+    rnd = random.Random(7)
+    specs = []
+    for _ in range(N_REQUESTS):
+        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*NEW_RANGE)
+        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    total_new = sum(s["max_new_tokens"] for s in specs)
+    log(f"  {N_REQUESTS} requests: prompts {min(len(s['prompt']) for s in specs)}-"
+        f"{max(len(s['prompt']) for s in specs)} tokens, {total_new} new tokens in all")
+
+    # Solo references through Generator(NativeBackend), with each step's top-2 gap.
+    solo, solo_gaps = {}, {}
+    t0 = time.perf_counter()
+    for key, c in (("bf16", cfg), ("int8", cfg8)):
+        solo[key], solo_gaps[key] = [], []
+        for s in specs:
+            sampler = GapArgMax()
+            gen = Generator(NativeBackend(params, c, max_len=len(s["prompt"]) + s["max_new_tokens"], device=dev),
+                            GeneratorConfig(max_tokens=s["max_new_tokens"])).with_prompt(s["prompt"])
+            solo[key].append([int(t[0]) for t in gen.with_sampler(sampler)])
+            solo_gaps[key].append(sampler.gaps)
+    log(f"  solo references (bf16 and int8 KV): {time.perf_counter() - t0:.1f} s")
+
+    pages_all = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs)
+    # Half of what the first 8 requests (admitted together) grow to: rows
+    # run out of pages mid-decode, so some are preempted and re-prefilled.
+    needs = [-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs]
+    pages_small = max(max(needs), sum(needs[:8]) // 2)
+    runs = [
+        ("slot run", "slot", lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev), "run"),
+        ("slot run_pipelined", "slot",
+         lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev), "pipelined"),
+        (f"paged {pages_all} pages", "paged",
+         lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all, page_size=SERVE_PAGE, device=dev),
+         "run"),
+        (f"paged {pages_small} pages (preempts)", "paged",
+         lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_small, page_size=SERVE_PAGE,
+                                    device=dev), "run"),
+        ("slot int8_kv run", "slot_int8",
+         lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev), "run"),
+        (f"paged int8_kv {pages_all} pages", "paged_int8",
+         lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all, page_size=SERVE_PAGE,
+                                    int8_kv=True, device=dev), "run"),
+    ]
+    results, launches_total = {}, {}
+    for label, kind, make, mode in runs:
+        engine = make()
+        peak_pages = [0]
+        if kind.startswith("paged"):
+            step = engine.step
+
+            def counted_step(step=step, engine=engine):
+                done = step()
+                peak_pages[0] = max(peak_pages[0], engine.pages_in_use())
+                return done
+
+            engine.step = counted_step
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_counters()
+        t0 = time.perf_counter()
+        engine.run_pipelined() if mode == "pipelined" else engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        for name, n in launches.items():
+            launches_total[name] = launches_total.get(name, 0) + n
+        missing = [k for k in ENGINE_KERNELS[kind] if launches.get(k, 0) == 0]
+        if missing or any(plain.values()):
+            raise AssertionError(f"{label}: kernels not launched {missing}, plain calls {plain}")
+        if not all(r.finished and len(r.output) == s["max_new_tokens"] for r, s in zip(reqs, specs)):
+            raise AssertionError(f"{label}: a request did not finish with its budget of tokens")
+        kv_bytes = (engine.pool.nbytes() // (engine.pool.n_pages + 1) * peak_pages[0] if kind.startswith("paged")
+                    else sum(nbytes(*v) for k, v in engine.cache.items() if isinstance(v, list)))
+        res = dict(kind=kind, wall_s=wall, tokens_per_s=total_new / wall, steps=engine.steps, launches=launches,
+                   kv_bytes_held=kv_bytes, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   streams=[r.output for r in reqs])
+        if kind.startswith("paged"):
+            if engine.pool.n_free != engine.pool.n_pages:
+                raise AssertionError(f"{label}: {engine.pool.n_pages - engine.pool.n_free} pages not returned")
+            res.update(preemptions=engine.preemptions, peak_pages=peak_pages[0])
+            if "preempts" in label and engine.preemptions == 0:
+                raise AssertionError(f"{label}: no request was preempted")
+        results[label] = res
+        log(f"  {label}: {total_new} tokens in {wall:.3f} s -> {total_new / wall:.1f} generated tokens/s; "
+            f"{engine.steps} forwards; KV bytes held {kv_bytes} (peak pages {peak_pages[0]}); peak device "
+            f"memory {torch.cuda.max_memory_allocated()} B; preemptions {res.get('preemptions', '-')}; "
+            f"launches {launches}")
+        del engine
+        torch.cuda.empty_cache()
+
+    labels = list(results)
+    refs = {"slot": solo["bf16"], "slot_int8": solo["int8"]}
+    diffs = {}
+    for label in labels:
+        kind = results[label]["kind"]
+        if kind in refs:
+            ref, gaps, against = refs[kind], solo_gaps["int8" if kind.endswith("int8") else "bf16"], "solo"
+        else:  # paged against slot, int8 paged against int8 slot
+            slot_label = labels[0] if kind == "paged" else next(x for x in labels if results[x]["kind"] == "slot_int8")
+            ref, gaps = results[slot_label]["streams"], solo_gaps["int8" if kind.endswith("int8") else "bf16"]
+            against = slot_label
+        diffs[label] = check_streams(f"{label} vs {against}", results[label]["streams"], ref, gaps)
+    log(f"  streams: differing requests (top-2 gap rule {GAP_TOL}) {diffs}")
+
+    # Four concurrent POST /generate to a ServingServer on loopback.
+    server = ServingServer(ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev))
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        replies = [None] * 4
+
+        def post(i):
+            body = json.dumps({"prompt": specs[i]["prompt"], "max_new_tokens": specs[i]["max_new_tokens"]}).encode()
+            req = urllib.request.Request(f"{url}/generate", data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                replies[i] = json.loads(r.read())
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.stop()
+    slot_streams = results[labels[0]]["streams"]
+    for i, reply in enumerate(replies):
+        if reply is None or set(reply) != {"request_id", "tokens", "finished"} or not reply["finished"]:
+            raise AssertionError(f"HTTP request {i}: bad reply {reply}")
+        if reply["tokens"] != slot_streams[i]:
+            raise AssertionError(f"HTTP request {i}: reply differs from the engine's output")
+    if health.get("status") != "ok" or stats.get("max_batch") != 8:
+        raise AssertionError(f"HTTP /healthz or /stats: {health} {stats}")
+    log(f"  HTTP: 4 concurrent POST /generate equal the slot engine's outputs; /healthz {health}; /stats {stats}")
+
+    # ms per engine forward with 8 active rows, and the device's idle share
+    # (profiler) over the same window.
+    step_stats = {}
+    long_specs = [dict(prompt=s["prompt"][:64], max_new_tokens=256) for s in specs[:8]]
+    for kind, make in (("slot", lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev)),
+                       ("paged", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all,
+                                                            page_size=SERVE_PAGE, device=dev)),
+                       ("slot_int8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev)),
+                       ("paged_int8", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all,
+                                                                 page_size=SERVE_PAGE, int8_kv=True, device=dev))):
+        engine = make()
+        for s in long_specs:
+            engine.submit(Request(**s))
+        forwards_per_step = engine.steps_per_tick if kind.startswith("slot") else 1
+        n_steps = max(2, 64 // forwards_per_step)  # 64 forwards timed, 64 profiled (of 256)
+        for _ in range(max(1, n_steps // 4)):  # admission, then the first steps at 8 rows
+            engine.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        host_ms = (time.perf_counter() - t0) * 1e3 / (n_steps * forwards_per_step)
+        if engine.n_active != 8:
+            raise AssertionError(f"{kind}: {engine.n_active} rows active in the timed window, not 8")
+        by_kernel = device_us_by_kernel(torch, engine.step, n_steps)
+        dev_ms = sum(by_kernel.values()) / 1e3 / forwards_per_step
+        step_stats[kind] = dict(ms_per_forward=host_ms, device_ms_per_forward=dev_ms,
+                                idle_share=max(0.0, 1.0 - dev_ms / host_ms), tokens_per_s=8e3 / host_ms,
+                                device_us_by_kernel={k: v / forwards_per_step for k, v in by_kernel.items()})
+        log(f"  {kind} at 8 active rows: {host_ms:.4f} ms per forward (host clock) -> {8e3 / host_ms:.1f} tokens/s; "
+            f"device {dev_ms:.4f} ms (profiler) -> idle share {max(0.0, 1.0 - dev_ms / host_ms):.4f}; top kernels (us):")
+        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {us / forwards_per_step:9.3f}  {name[:90]}")
+        del engine
+        torch.cuda.empty_cache()
+
+    for res in results.values():
+        del res["streams"]
+    out["serving"] = dict(requests=[dict(prompt_len=len(s["prompt"]), max_new_tokens=s["max_new_tokens"])
+                                    for s in specs], runs=results, differing=diffs, at_8_rows=step_stats,
+                          http=dict(health=health, stats=stats))
+    return launches_total
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -712,6 +1066,12 @@ KERNELS = {
                               replaces="rten_tpu/kernels/quant_matmul.py:590", timed="up+gelu M=64"),
     "flash_attention": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
                             replaces="rten_tpu/kernels/attention.py:117", timed="Tq=64 kv_len=64"),
+    "decode_attention_int8": dict(source="rten_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+                                  replaces="rten_tpu/kernels/decode_attention.py:1667", timed="B=1 kv_len=300"),
+    "paged_decode_attention": dict(source="rten_tpu_torch/kernels/csrc/paged_attention.cu",
+                                   replaces="rten_tpu/kernels/paged_attention.py:592", timed="B=1 kv_len=300"),
+    "paged_decode_attention_int8": dict(source="rten_tpu_torch/kernels/csrc/paged_attention_int8.cu",
+                                        replaces="rten_tpu/kernels/paged_attention.py:413", timed="B=1 kv_len=300"),
 }
 
 
@@ -733,7 +1093,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/5] device")
+    log("[1/6] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -744,7 +1104,7 @@ def main() -> int:
     bound = Bound(mem_rate, op_rate)
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate))
 
-    log("[2/5] build")
+    log("[2/6] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -759,14 +1119,25 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
-    log("[3/5] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/6] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     detail["cases"] = cases
 
-    log("[4/5] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
-    launches = drive_serve(torch, cfg, mem_rate, op_rate, detail)
+    t0 = time.perf_counter()
+    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
+    log("[4/6] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    launches = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/5] summary")
+    log("[5/6] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    for name, n in drive_serving(torch, cfg, params, detail).items():
+        launches[name] = launches.get(name, 0) + n
+    missing = [name for name in KERNELS if launches.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
+
+    log("[6/6] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

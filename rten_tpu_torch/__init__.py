@@ -3,11 +3,12 @@
 The JAX package ``rten_tpu`` is the reference; this package runs beside it
 and imports nothing of it (and never ``jax``). So far it carries the main
 path: GPT-2-class INT8 weight-only prefill (a prompt as one forward) and
-greedy decode over a preallocated KV cache (``models.decoder``,
-``generate``), on five hand-written CUDA kernels for ``sm_90a``
-(``kernels``). Entry points run on
-the card by default (``device="cuda"``) and run the kernels' plain PyTorch
-versions when asked for ``device="cpu"``.
+greedy decode over a preallocated KV cache, bf16 or int8 (``models.decoder``,
+``generate``), and continuous-batching serving over slot or paged KV caches
+with an HTTP API (``serve``), on eight hand-written CUDA kernels for
+``sm_90a`` (``kernels``). Entry points run on the card by default
+(``device="cuda"``) and run the kernels' plain PyTorch versions when asked
+for ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -77,6 +77,26 @@ SIGNATURES = {
         _I, _F,                      # causal, sm_scale
         _P,                          # stream
     ],
+    "rt_paged_attention": [
+        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        _P, _P, _I, _I,              # k_pages, v_pages, n_pages, page
+        _P, _I, _P,                  # table, max_pages, kv_len
+        _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
+        _P, _F, _P,                  # out, sm_scale, stream
+    ],
+    "rt_decode_attention_int8": [
+        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        _P, _P, _P, _P, _I, _P,      # k, v, k_scale, v_scale, s_max, kv_len
+        _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
+        _P, _F, _P,                  # out, sm_scale, stream
+    ],
+    "rt_paged_attention_int8": [
+        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        _P, _P, _P, _P, _I, _I,      # k_pages, v_pages, k_scale_pages, v_scale_pages, n_pages, page
+        _P, _I, _P,                  # table, max_pages, kv_len
+        _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
+        _P, _F, _P,                  # out, sm_scale, stream
+    ],
 }
 
 _lib: ctypes.CDLL | None = None

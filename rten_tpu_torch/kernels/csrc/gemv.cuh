@@ -435,12 +435,16 @@ int max_blocks() {
 
 template <int MR, int CPW>
 cudaError_t launch_gemv_t(const GemvArgs& a, int grid, size_t smem, cudaStream_t stream) {
-  static size_t smem_set = 48 * 1024;
+  // Set the dynamic limit to what this launch needs, from the first launch
+  // on: the kernel's static shared memory counts against the same limits
+  // (48 KB by default, 227 KB opted in), so neither 48 KB of rows nor
+  // MAX_SMEM fits beside it.
+  static size_t smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<MR, CPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+        gemv_kernel<MR, CPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    smem_set = MAX_SMEM;
+    smem_set = smem;
   }
   gemv_kernel<MR, CPW><<<grid, GEMV_THREADS, smem, stream>>>(a);
   return cudaGetLastError();

@@ -1,6 +1,8 @@
 """Decode attention: one query token against a preallocated KV cache, with
 the new token's k/v appended in place and the int8 output projection, its
-bias and the residual fused in. Kernel wrapper beside its plain version.
+bias and the residual fused in; and ``decode_attention_int8``, the same
+over an int8 cache with per-(token, head) scales (the output projection
+left to the caller). Kernel wrappers beside their plain versions.
 
 Counterpart of ``rten_tpu/kernels/decode_attention.py`` ``decode_attention``
 (:734) in the mode the decoder's decode step uses: packed q|k|v
@@ -30,7 +32,7 @@ from rten_tpu_torch.kernels.quant_matmul import (
     _vec_f32,
 )
 
-CHUNK = 64  # cache positions per split-KV block (csrc/decode_attention.cu ATTN_CHUNK)
+CHUNK = 64  # cache positions per split-KV block (csrc/kv_attention.cuh KV_CHUNK)
 HEAD_DIMS = (64, 128)
 
 
@@ -39,6 +41,13 @@ def _unpack(packed_qkv):
     if three != 3 or one != 1:
         raise ValueError(f"packed_qkv must be [B, 3, H, 1, D], got {tuple(packed_qkv.shape)}")
     return b, h, d
+
+
+def attend_ref(q, keys, vals, sm_scale: float):
+    """Softmax attention of one query per head in f32: q [H, D], keys and
+    vals [H, L, D] → [H·D]."""
+    p = torch.softmax(torch.einsum("hd,hsd->hs", q.float(), keys.float()) * sm_scale, dim=-1)
+    return torch.einsum("hs,hsd->hd", p, vals.float()).reshape(-1)
 
 
 def decode_attention_ref(
@@ -54,11 +63,7 @@ def decode_attention_ref(
     for bi, length in enumerate(kv_len.tolist()):
         k_cache[bi, :, length] = kn[bi].to(k_cache.dtype)
         v_cache[bi, :, length] = vn[bi].to(v_cache.dtype)
-        keys = k_cache[bi, :, : length + 1].float()  # [H, L+1, D]
-        vals = v_cache[bi, :, : length + 1].float()
-        s = torch.einsum("hd,hsd->hs", q[bi].float(), keys) * sm_scale
-        p = torch.softmax(s, dim=-1)
-        rows.append(torch.einsum("hs,hsd->hd", p, vals).reshape(-1))
+        rows.append(attend_ref(q[bi], k_cache[bi, :, : length + 1], v_cache[bi, :, : length + 1], sm_scale))
     attn = torch.stack(rows)  # [B, H·D] f32
     out = (attn @ wo_t.float().t()) * wo_scales.float()
     if wo_bias is not None:
@@ -140,3 +145,134 @@ def decode_attention(
     _build.check(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# INT8 KV cache
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x):
+    """Per-(token, head) absmax int8 quantization over the last axis: x
+    [..., D] → (int8 codes [..., D], f32 scales [...]). A copy of the JAX
+    package's ``quantize_kv`` (``rten_tpu/models/encoder_decoder.py:313``),
+    which the TPU kernels also apply to the new token: scale = absmax / 127
+    (1 where absmax is 0), codes = round(x / scale) half to even, clipped to
+    ±127. The port keeps scales without the trailing axis of length 1."""
+    xf = x.float()
+    absmax = xf.abs().amax(-1)
+    # A tensor divisor keeps the division IEEE on every device: PyTorch's
+    # CUDA division by a Python scalar multiplies by its reciprocal instead.
+    scales = torch.where(absmax == 0, torch.ones_like(absmax), absmax / torch.full_like(absmax, 127.0))
+    codes = torch.clamp(torch.round(xf / scales[..., None]), -127, 127).to(torch.int8)
+    return codes, scales
+
+
+def dequantize_kv(codes, scales, dtype):
+    """``codes * scales`` in f32, then cast to ``dtype``
+    (``encoder_decoder.py:321``)."""
+    return (codes.float() * scales[..., None].float()).to(dtype)
+
+
+def decode_attention_int8_ref(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
+    """Plain version of ``decode_attention_int8`` (same signature, result and
+    in-place cache update). Reads ``kv_len`` on the host."""
+    PLAIN["decode_attention_int8"] += 1
+    b, h, d = _unpack(packed_qkv)
+    s_max = k_cache.shape[2]
+    q = packed_qkv[:, 0, :, 0]
+    (knq, kns), (vnq, vns) = quantize_kv(packed_qkv[:, 1, :, 0]), quantize_kv(packed_qkv[:, 2, :, 0])
+    rows = []
+    for bi, length in enumerate(kv_len.tolist()):
+        if not 0 <= length < s_max:
+            raise IndexError(f"decode_attention_int8: row {bi} holds {length} of {s_max} positions")
+        k_cache[bi, :, length], k_scale[bi, :, length] = knq[bi], kns[bi]
+        v_cache[bi, :, length], v_scale[bi, :, length] = vnq[bi], vns[bi]
+        n = length + 1
+        keys = dequantize_kv(k_cache[bi, :, :n], k_scale[bi, :, :n], torch.float32)
+        vals = dequantize_kv(v_cache[bi, :, :n], v_scale[bi, :, :n], torch.float32)
+        rows.append(attend_ref(q[bi], keys, vals, 1.0 / math.sqrt(d)))
+    return torch.stack(rows).to(packed_qkv.dtype)
+
+
+def check_kv_operands(name, packed_qkv, payload, scales, heads_axis: int):
+    """Shared wrapper checks of the KV kernels (kv_attention.cuh): packed
+    qkv [B, 3, H, 1, D] of f32 or bf16, a payload with H at ``heads_axis``
+    and D last, and (int8) f32 scales of the payload's shape without D."""
+    b, h, d = _unpack(packed_qkv)
+    k, v = payload
+    if k.shape != v.shape or k.dim() != 4 or k.shape[heads_axis] != h or k.shape[3] != d:
+        raise ValueError(f"{name}: KV {tuple(k.shape)} does not fit packed_qkv {tuple(packed_qkv.shape)}")
+    if scales is not None:
+        for s in scales:
+            if tuple(s.shape) != tuple(k.shape[:3]):
+                raise ValueError(f"{name}: scales {tuple(s.shape)} must be {tuple(k.shape[:3])}")
+    return b, h, d
+
+
+def launch_kv_attention(name, entry, packed_qkv, tensors, kv_len, cap: int, scalars):
+    """Launch one of the KV kernels (kv_attention.cuh) on CUDA tensors:
+    ``tensors`` are (payload k, v, [scales k, v]) whose dtypes are checked,
+    ``scalars`` the entry's arguments between the scales and ``kv_len``.
+    Returns the attention vector [B, H·D] in packed_qkv's dtype."""
+    b, _three, h, _one, d = packed_qkv.shape
+    dtype = packed_qkv.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: activations must be float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    int8 = len(tensors) == 4
+    for i, t in enumerate(tensors):
+        want = (torch.int8 if i < 2 else torch.float32) if int8 else dtype
+        if t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: cache operand {i} must be contiguous {want}, got {t.dtype}")
+    if not packed_qkv.is_contiguous():
+        raise ValueError(f"{name}: packed_qkv must be contiguous")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous():
+        raise ValueError(f"{name}: kv_len must be a contiguous int32 [B] tensor")
+    n_chunks = -(-cap // CHUNK)
+    dev = packed_qkv.device
+    part_m = torch.empty((b, h, n_chunks), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b, h, n_chunks), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h * d), dtype=dtype, device=dev)
+    rc = getattr(_build.library(), entry)(
+        packed_qkv.data_ptr(), int(dtype == torch.bfloat16), b, h, d,
+        *(t.data_ptr() for t in tensors), *scalars, kv_len.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), n_chunks,
+        out.data_ptr(), 1.0 / math.sqrt(d), _stream(packed_qkv),
+    )
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def decode_attention_int8(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
+    """Decode attention over an int8 KV cache:
+
+        attn = softmax(q·kᵀ/sqrt(D))·v  over the valid prefix and the new token
+
+    packed_qkv: [B, 3, H, 1, D] (q | k_new | v_new, MHA) in f32 or bf16;
+    k_cache, v_cache: int8 [B, H, S, D]; k_scale, v_scale: f32 [B, H, S],
+    one scale per (token, head); kv_len: int32 [B], the valid length before
+    this token. The new token is quantized per head (``quantize_kv``) and
+    written with its scales at ``kv_len`` in place; its score and value use
+    the dequantized codes. The cache is dequantized in f32. Returns the
+    attention vector [B, H·D] in packed_qkv's dtype (the output projection
+    is the caller's, as on the TPU path). A full row (``kv_len`` ≥ S) raises
+    IndexError in the plain version; the kernel writes nothing and returns
+    NaN for it.
+
+    Counterpart of ``rten_tpu/kernels/decode_attention.py``
+    ``decode_attention_int8`` (:1667) in its per-row mode. Its scale layout
+    ``[B, H, 8, S·D/128]`` exists for Mosaic; here the scales are logical
+    ``[B, H, S]``. CUDA tensors launch ``csrc/decode_attention_int8.cu``;
+    CPU tensors run ``decode_attention_int8_ref``."""
+    check_kv_operands("decode_attention_int8", packed_qkv, (k_cache, v_cache), (k_scale, v_scale), 1)
+    if k_cache.shape[0] != packed_qkv.shape[0]:
+        raise ValueError(f"decode_attention_int8: cache batch {k_cache.shape[0]} != {packed_qkv.shape[0]}")
+    if not use_kernel(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
+        return decode_attention_int8_ref(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len)
+    s_max = k_cache.shape[2]
+    return launch_kv_attention("decode_attention_int8", "rt_decode_attention_int8", packed_qkv,
+                               (k_cache, v_cache, k_scale, v_scale), kv_len, s_max, (s_max,))

@@ -18,6 +18,14 @@ rows B·T picks the structure:
   ``quant_matmul_int8`` for qkv, wo, up (GELU in its epilogue) and down,
   the residual adds outside, and causal ``flash_attention`` over the cache.
 
+The KV cache is bf16/f32 or, with ``cfg.int8_kv``, int8 with one f32
+scale per (token, head); each row holds its own length. One token per row
+on an int8 cache runs ``decode_attention_int8``, on a paged pool's state
+(``serve.paged``) ``paged_decode_attention(_int8)``, each then wo through
+``quant_gemv_int8`` with the residual; more tokens on an int8 cache take
+the eager branch (quantize, write, attend over the prefix dequantized to
+the model dtype).
+
 The lm_head is ``quant_gemv_int8`` with the final norm fused in, returning
 the greedy token (fused argmax) or f32 logits, for up to 8 rows, and the
 final norm plus ``quant_matmul_int8`` (f32 out) for more. ``prefill`` is
@@ -29,7 +37,7 @@ already quantized tree) gives the decode layout: int8 packs
 ``{"qt": int8 [N, K], "s": f32 [N]}`` (``kernels.quant_matmul.int8_pack``),
 the fused ``wqkv``/``bqkv``, the tied ``lm_head_q``, and every per-channel
 vector as f32 ``[N]``. The KV cache is logical ``[B, H, S, D]`` per layer
-and is updated in place.
+(scales ``[B, H, S]``) and is updated in place.
 
 Entry points default to ``device="cuda"`` and raise on a machine without
 CUDA; ``device="cpu"`` runs the kernels' plain versions.
@@ -44,8 +52,14 @@ import torch
 import torch.nn.functional as F
 
 from rten_tpu_torch.kernels.attention import flash_attention
-from rten_tpu_torch.kernels.decode_attention import decode_attention
+from rten_tpu_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_int8,
+    dequantize_kv,
+    quantize_kv,
+)
 from rten_tpu_torch.kernels.dispatch import resolve_device
+from rten_tpu_torch.kernels.paged_attention import paged_decode_attention, paged_decode_attention_int8
 from rten_tpu_torch.kernels.quant_matmul import (
     MAX_ROWS,
     int8_pack,
@@ -59,9 +73,10 @@ from rten_tpu_torch.kernels.quant_matmul import (
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     """The fields of the JAX package's ``DecoderConfig`` that the ported
-    path runs: MHA with learned positions. RoPE, grouped-query
-    attention, SwiGLU, position offsets, untied lm_heads and the int8 KV
-    cache come with later slices."""
+    path runs: MHA with learned positions, and ``int8_kv`` (``init_cache``
+    makes an int8 cache with per-(token, head) f32 scales). RoPE,
+    grouped-query attention, SwiGLU, position offsets and untied lm_heads
+    come with later slices."""
 
     vocab_size: int = 50257
     n_layers: int = 12
@@ -72,6 +87,7 @@ class DecoderConfig:
     norm: str = "layernorm"  # "layernorm" | "rmsnorm"
     activation: str = "gelu"  # "gelu" | "relu"
     layer_norm_eps: float = 1e-5
+    int8_kv: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -299,18 +315,40 @@ def from_hf_gpt2(hf_state: dict, cfg: DecoderConfig, dtype=None, device="cuda") 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int | None = None, device="cuda") -> dict:
     """Preallocated KV cache: per-layer k/v ``[B, H, S, D]`` in cfg.dtype
-    and the valid length of each row, int32 ``[B]``, all on the device, and
-    the same length kept on the host (``host_len``; every row advances
-    together), so that ``forward`` refuses a full cache without reading the
-    device. ``forward`` writes the new tokens' k/v in place and advances both."""
+    (with ``cfg.int8_kv``: int8 codes, and per-(token, head) f32 scales
+    ``k_scale``/``v_scale`` ``[B, H, S]``) and the valid length of each row,
+    int32 ``[B]``, on the device. ``host_len`` keeps on the host, for each
+    row, a length at least the device's (numpy int64 ``[B]``), so that
+    ``forward`` refuses a full row without reading the device; a caller
+    that pins a row's device length (the serving engine's inactive rows)
+    pins it here too. ``forward`` writes each row's new k/v in place at its
+    own length and advances both."""
     dev = resolve_device(device)
     shape = (batch, cfg.n_heads, max_len or cfg.max_seq, cfg.head_dim)
-    return {
-        "k": [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.n_layers)],
-        "v": [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.n_layers)],
+    kv_dtype = torch.int8 if cfg.int8_kv else cfg.dtype
+    cache = {
+        "k": [torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in range(cfg.n_layers)],
+        "v": [torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in range(cfg.n_layers)],
         "len": torch.zeros(batch, dtype=torch.int32, device=dev),
-        "host_len": 0,
+        "host_len": np.zeros(batch, np.int64),
     }
+    if cfg.int8_kv:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = [torch.zeros(shape[:3], dtype=torch.float32, device=dev) for _ in range(cfg.n_layers)]
+    return cache
+
+
+_CACHE_LAYERS = ("k", "v", "k_scale", "v_scale")  # the per-layer lists of a contiguous cache
+
+
+def row_view(cache: dict, row: int) -> dict:
+    """A batch-1 cache whose tensors are views of row ``row`` of ``cache``
+    (contiguous: the row is the leading axis): a forward on it writes that
+    row of ``cache`` in place, and advances that row's device length."""
+    view = {key: [t[row : row + 1] for t in cache[key]] for key in _CACHE_LAYERS if key in cache}
+    view["len"] = cache["len"][row : row + 1]
+    view["host_len"] = cache["host_len"][row : row + 1]  # a numpy view: advances with the row
+    return view
 
 
 # ---------------------------------------------------------------------------
@@ -343,19 +381,48 @@ def _norm(x, p, cfg: DecoderConfig):
 
 def _attention(qkv, cfg: DecoderConfig, b: int, t: int, cache, li: int, q_offset, kv_len):
     """Causal attention of the T new rows, ``qkv`` [B·T, 3·H·D] → [B·T,
-    H·D]. With a cache, the new k/v rows are written in place at its host
-    length (every row advances together), and the queries attend to the
-    cache's valid prefix; without, to the T rows themselves."""
+    H·D]. With a cache, each row's new k/v are written in place at its own
+    length (``q_offset``, on the device), and the queries attend to the
+    cache's valid prefix; without, to the T rows themselves. An int8 cache
+    takes the new rows quantized per (token, head), and the queries attend
+    to its prefix dequantized to the model dtype (the JAX package's eager
+    int8 branch, ``decoder.py:812-845``)."""
     h, hd = cfg.n_heads, cfg.head_dim
     q, k, v = (part.transpose(1, 2) for part in qkv.view(b, t, 3, h, hd).unbind(2))
     if cache is not None:
-        s0 = cache["host_len"]
+        rows = torch.arange(b, device=q.device)[:, None]
+        pos = q_offset.long()[:, None] + torch.arange(t, device=q.device)  # [B, T]
         k_cache, v_cache = cache["k"][li], cache["v"][li]
-        k_cache[:, :, s0 : s0 + t] = k
-        v_cache[:, :, s0 : s0 + t] = v
-        k, v = k_cache, v_cache
+        if "k_scale" in cache:
+            n = int(cache["host_len"].max()) + t  # no row's prefix reaches past it
+            out = []
+            for new, codes, scales in ((k, k_cache, cache["k_scale"][li]), (v, v_cache, cache["v_scale"][li])):
+                q8, s8 = quantize_kv(new)  # [B, H, T, D], [B, H, T]
+                codes[rows, :, pos] = q8.transpose(1, 2)
+                scales[rows, :, pos] = s8.transpose(1, 2)
+                out.append(dequantize_kv(codes[:, :, :n], scales[:, :, :n], q.dtype))
+            k, v = out
+        else:
+            k_cache[rows, :, pos] = k.transpose(1, 2)
+            v_cache[rows, :, pos] = v.transpose(1, 2)
+            k, v = k_cache, v_cache
     attn = flash_attention(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len)
     return attn.transpose(1, 2).reshape(b * t, h * hd)
+
+
+def _kv_decode_attention(qkv, cfg: DecoderConfig, b: int, cache, li: int):
+    """One token per row against a paged or int8 cache: the attention
+    vector [B, H·D] (the output projection is the caller's GEMV, as in the
+    JAX package's ``_fproj`` after these kernels)."""
+    packed = qkv.view(b, 3, cfg.n_heads, 1, cfg.head_dim)
+    if "k_pages" in cache:
+        pages = (cache["k_pages"][li], cache["v_pages"][li])
+        if "k_scale_pages" in cache:
+            return paged_decode_attention_int8(packed, *pages, cache["k_scale_pages"][li],
+                                               cache["v_scale_pages"][li], cache["page_table"], cache["len"])
+        return paged_decode_attention(packed, *pages, cache["page_table"], cache["len"])
+    return decode_attention_int8(packed, cache["k"][li], cache["v"][li], cache["k_scale"][li],
+                                 cache["v_scale"][li], cache["len"])
 
 
 def _lm_head(params: dict, cfg: DecoderConfig, x, mode: str):
@@ -390,7 +457,15 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     or the int32 greedy tokens [B, T] (``"argmax"``). With ``last_only``
     the final norm and the lm_head run on the last position only and
     ``result`` is [B, 1, …]. Raises IndexError, before any kernel runs,
-    when the T new tokens do not fit in the cache."""
+    when the T new tokens do not fit in a row of the cache.
+
+    The cache is one ``init_cache`` makes (bf16/f32 or int8) or a paged
+    pool's state ``{"k_pages", "v_pages", ["k_scale_pages",
+    "v_scale_pages"], "page_table", "len"}`` (``serve.paged``), which takes
+    one token per row, at most 8 rows, each row's page of ``len`` allocated
+    by the caller. One token on an int8 or paged cache runs
+    ``decode_attention_int8`` or ``paged_decode_attention(_int8)``, then wo
+    through ``quant_gemv_int8`` with the residual."""
     _check_supported(cfg)
     if lm_head_mode not in ("logits", "argmax"):
         raise ValueError(f"lm_head_mode must be 'logits' or 'argmax', got {lm_head_mode!r}")
@@ -399,14 +474,23 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     eps = cfg.layer_norm_eps
     rows = b * t
     small = rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
-    decode = small and t == 1 and cache is not None  # decode_attention: one token on a cache
+    paged = cache is not None and "k_pages" in cache
+    one_token = small and t == 1 and cache is not None
+    kv_decode = one_token and (paged or "k_scale" in cache)  # the paged / int8 decode kernels
+    decode = one_token and not kv_decode  # decode_attention: one token on a bf16/f32 cache
     q_offset = kv_len = None
+    if paged and not kv_decode:
+        raise ValueError(f"a paged cache takes one token per row and at most {MAX_ROWS} rows, got {b}x{t}")
     if cache is not None:
-        s_max = cache["k"][0].shape[2]
-        if cache["host_len"] + t > s_max:
-            raise IndexError(
-                f"KV cache full: {cache['host_len']} tokens + {t} new exceed its {s_max} positions"
-            )
+        if not paged:
+            s_max = cache["k"][0].shape[2]
+            full = np.flatnonzero(cache["host_len"] + t > s_max)
+            if full.size:
+                r = int(full[0])
+                raise IndexError(
+                    f"KV cache full: row {r} holds {int(cache['host_len'][r])} tokens + {t} new, "
+                    f"past its {s_max} positions"
+                )
         start = cache["len"]
         positions = start if t == 1 else (start[:, None] + torch.arange(t, device=start.device)).reshape(-1)
         if not decode:
@@ -434,7 +518,10 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
                 wo["qt"], wo["s"], layer.get("bo"), residual=x,
             )
         else:
-            attn = _attention(qkv, cfg, b, t, cache, li, q_offset, kv_len)
+            if kv_decode:
+                attn = _kv_decode_attention(qkv, cfg, b, cache, li)
+            else:
+                attn = _attention(qkv, cfg, b, t, cache, li, q_offset, kv_len)
             if small:
                 x = quant_gemv_int8(attn, wo["qt"], wo["s"], layer.get("bo"), residual=x)
             else:
@@ -464,7 +551,8 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     result = result.reshape(b, 1 if last_only else t, *result.shape[1:])
     if cache is not None:
         cache["len"].add_(t)
-        cache["host_len"] += t
+        if not paged:
+            cache["host_len"] += t
     return result, cache
 
 

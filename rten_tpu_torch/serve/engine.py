@@ -1,0 +1,299 @@
+"""Continuous-batching inference engine over the port's decoder.
+
+Counterpart of ``rten_tpu/serve/engine.py`` (``Request`` :39,
+``_decode_k_steps`` :89, ``ServingEngine`` :152): a fixed batch of KV-cache
+slots; requests are admitted into free slots (a prefill writes the slot's
+row of the engine cache), every tick runs ``steps_per_tick`` batched decode
+forwards across all slots, and finished requests retire and free their
+slot at once.
+
+- **Admission** prefills the prompt at its exact length, as one forward on
+  a batch-1 view of the slot's row (``decoder.row_view``), so the k/v go
+  straight into the engine cache. (The JAX package pads to a bucket to
+  compile once, then splices a batch-1 cache into the slot.)
+- **A tick** is a Python loop of forwards with ``lm_head_mode="argmax"``;
+  EOS, the token budget and the active mask are decided on the device,
+  and the tick's tokens and active flags reach the host in one copy at its
+  end. An inactive row's device length is pinned to 0, so its append lands
+  at position 0 of a dead slot; the host mirror of the lengths
+  (``cache["host_len"]``) is pinned by the same rule less EOS, which the
+  host does not see until the tick ends: it stays at least the device's.
+- ``run_pipelined`` dispatches the next tick from the device-side carry
+  (last token, active mask, budget) before the host reads this one.
+
+Greedy only (``ArgMaxSampler``); at most 8 slots (the fused decode
+structure); no mesh or tensor parallelism yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from collections import deque
+from typing import Callable
+
+import numpy as np
+import torch
+
+from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler
+from rten_tpu_torch.kernels.dispatch import resolve_device
+from rten_tpu_torch.kernels.quant_matmul import MAX_ROWS
+from rten_tpu_torch.models import decoder
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 64
+    eos_tokens: tuple[int, ...] = ()
+    request_id: int | None = None
+    on_token: Callable[[int], None] | None = None
+    # filled by the engine:
+    output: list[int] = dataclasses.field(default_factory=list)
+    finished: bool = False
+
+
+def check_engine_options(max_batch: int, sampler, mesh, tp_mode: str = "pjit") -> None:
+    """The options the port's engines run, or NotImplementedError."""
+    if mesh is not None or tp_mode != "pjit":
+        raise NotImplementedError("mesh / tensor-parallel serving is not ported yet")
+    if not 1 <= max_batch <= MAX_ROWS:
+        raise NotImplementedError(
+            f"max_batch {max_batch}: the port serves 1-{MAX_ROWS} rows per step (the fused decode "
+            "structure); the JAX package's unfused path above that is not ported"
+        )
+    if sampler is not None and not isinstance(sampler, ArgMaxSampler):
+        raise NotImplementedError("the port's engines sample greedily (ArgMaxSampler) only so far")
+
+
+def prefill_first_token(params, cfg, cache: dict, prompt) -> int:
+    """Feed ``prompt`` into a batch-1 cache as one forward; the greedy first
+    token (the lm_head's fused argmax at the last position), on the host."""
+    dev = cache["len"].device
+    ids = torch.as_tensor(np.asarray(prompt, np.int32)[None], device=dev)
+    tok, _ = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True)
+    return int(tok.view(-1)[0])  # waits for the device
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        params,
+        cfg: decoder.DecoderConfig,
+        *,
+        max_batch: int = 8,
+        max_len: int | None = None,
+        sampler: Sampler | None = None,
+        mesh=None,
+        tp_mode: str = "pjit",
+        steps_per_tick: int = 1,
+        device="cuda",
+    ) -> None:
+        """``cfg.int8_kv`` gives the slots an int8 cache with per-(token,
+        head) scales."""
+        check_engine_options(max_batch, sampler, mesh, tp_mode)
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_len = max_len or cfg.max_seq
+        self.steps_per_tick = steps_per_tick
+        self.cache = decoder.init_cache(cfg, max_batch, self.max_len, self.device)
+        self.slots: list[Request | None] = [None] * max_batch
+        self.queue: deque[Request] = deque()
+        self._last_tokens = np.zeros((max_batch,), np.int32)
+        # Forwards each slot may still take by its budget: the device rule
+        # without EOS, which keeps the host lengths at least the device's.
+        self._mirror_budget = np.zeros((max_batch,), np.int64)
+        self._ids = itertools.count()
+        self.steps = 0
+        self._eos_width = 4
+        self._last_admitted: list[int] = []
+
+    # -- public API -----------------------------------------------------------
+
+    def submit(self, request: Request) -> Request:
+        if request.request_id is None:
+            request.request_id = next(self._ids)
+        if len(request.prompt) + request.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"request needs {len(request.prompt) + request.max_new_tokens} "
+                f"cache slots, engine max_len is {self.max_len}"
+            )
+        self.queue.append(request)
+        return request
+
+    @property
+    def n_active(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    def has_work(self) -> bool:
+        return self.n_active > 0 or bool(self.queue)
+
+    def run(self) -> list[Request]:
+        """Drive until all submitted requests finish; returns them."""
+        done: list[Request] = []
+        while self.has_work():
+            done.extend(self.step())
+        return done
+
+    def run_pipelined(self) -> list[Request]:
+        """Like ``run``, but the next tick is dispatched from the device-side
+        carry (last token, active mask, remaining budget per slot) before
+        this tick's tokens are read on the host, so the host's bookkeeping
+        overlaps the device's work. Streaming and retirement run one tick
+        behind the device; admission takes effect on the tick after the
+        slot frees. Token-exact against ``run`` (greedy)."""
+        done: list[Request] = []
+        pending = None
+        carry = None
+        while True:
+            done.extend(self._admit())
+            carry = self._sync_carry(carry)
+            if self.n_active > 0:
+                pending_next, carry = self._dispatch_tick(carry)
+            else:
+                pending_next = None
+            if pending is not None:
+                done.extend(self._process_tick(*pending))
+            pending = pending_next
+            if pending is None and not self.has_work():
+                return done
+
+    # -- engine step ------------------------------------------------------------
+
+    def step(self, n_steps: int | None = None) -> list[Request]:
+        """Admit waiting requests, run ``n_steps`` batched decode forwards
+        (default ``steps_per_tick``) with one copy to the host, retire the
+        finished requests."""
+        finished_at_admission = self._admit()
+        if self.n_active == 0:
+            return finished_at_admission
+        carry = self._sync_carry(None)
+        pending, _carry = self._dispatch_tick(carry, n_steps or self.steps_per_tick)
+        return finished_at_admission + self._process_tick(*pending)
+
+    def _eos(self) -> torch.Tensor:
+        """[B, E] int32 EOS ids of the live slots, -1 padded (E at least 4
+        and never shrinking, as in the JAX engine)."""
+        self._eos_width = max([len(s.eos_tokens) for s in self.slots if s is not None] + [self._eos_width])
+        eos = np.full((self.max_batch, self._eos_width), -1, np.int32)
+        for slot, req in enumerate(self.slots):
+            if req is not None:
+                eos[slot, : len(req.eos_tokens)] = req.eos_tokens
+        return torch.from_numpy(eos).to(self.device)
+
+    def _decode_tick(self, tok, act, budget, eos, k: int):
+        """``k`` decode forwards on the device (counterpart of
+        ``_decode_k_steps``): tok [B, 1] int32, act [B] bool, budget [B]
+        int32 (tokens each slot may still emit). Returns (the tick's tokens
+        and active flags stacked as int32 [2, k, B], the next carry)."""
+        lens = self.cache["len"]
+        lens.mul_(act)  # inactive slots attend to nothing and append at 0
+        host_len = self.cache["host_len"]
+        host_len[self._mirror_budget <= 0] = 0
+        toks, actives = [], []
+        for i in range(k):
+            nxt, self.cache = decoder.forward(self.params, self.cfg, tok, self.cache, lm_head_mode="argmax")
+            hit_eos = (nxt == eos).any(1)
+            act_next = act & ~hit_eos & (budget > i + 1)
+            lens.mul_(act_next)
+            self._mirror_budget -= 1
+            host_len[self._mirror_budget <= 0] = 0
+            toks.append(nxt[:, 0])
+            actives.append(act)
+            tok, act = nxt, act_next
+        out = torch.stack([torch.stack(toks), torch.stack(actives).to(torch.int32)])
+        budget_left = budget - out[1].sum(0, dtype=torch.int32)
+        return out, (tok, act, budget_left)
+
+    def _dispatch_tick(self, carry, k: int | None = None):
+        """Launch one tick from the device-side carry; returns ((the tick's
+        device output, k, slots snapshot), next carry) without reading the
+        device."""
+        k = k or self.steps_per_tick
+        tok, act, budget = carry
+        out, carry_out = self._decode_tick(tok, act, budget, self._eos(), k)
+        return (out, k, list(self.slots)), carry_out
+
+    def _process_tick(self, out, k, reqs) -> list[Request]:
+        """Host bookkeeping of a tick (``.cpu()`` waits for it): stream
+        tokens, retire finished requests, free their slots."""
+        toks, actives = out.cpu().numpy()  # the tick's one copy to the host
+        self.steps += k
+        finished: list[Request] = []
+        for slot, req in enumerate(reqs):
+            if req is None or req.finished:
+                continue
+            for s in range(k):
+                if not actives[s, slot]:
+                    break
+                tok = int(toks[s, slot])
+                req.output.append(tok)
+                if req.on_token:
+                    req.on_token(tok)
+                self._last_tokens[slot] = tok
+                if tok in req.eos_tokens or len(req.output) >= req.max_new_tokens:
+                    req.finished = True
+                    finished.append(req)
+                    if self.slots[slot] is req:
+                        self.slots[slot] = None
+                        self._mirror_budget[slot] = 0
+                    break
+        return finished
+
+    # -- admission ---------------------------------------------------------------
+
+    def _admit(self) -> list[Request]:
+        finished: list[Request] = []
+        self._last_admitted = []
+        while self.queue and self.n_active < self.max_batch:
+            req = self.queue.popleft()
+            slot = self.slots.index(None)
+            self._prefill_into_slot(req, slot)
+            first = req.output[-1]
+            if first in req.eos_tokens or len(req.output) >= req.max_new_tokens:
+                req.finished = True
+                finished.append(req)
+                self.cache["len"][slot] = 0
+                self.cache["host_len"][slot] = 0
+            else:
+                self.slots[slot] = req
+                self._mirror_budget[slot] = req.max_new_tokens - len(req.output)
+                self._last_admitted.append(slot)
+        return finished
+
+    def _prefill_into_slot(self, req: Request, slot: int) -> None:
+        self.cache["len"][slot] = 0
+        self.cache["host_len"][slot] = 0
+        first = prefill_first_token(self.params, self.cfg, decoder.row_view(self.cache, slot), req.prompt)
+        req.output.append(first)
+        if req.on_token:
+            req.on_token(first)
+        self._last_tokens[slot] = first
+
+    # -- pipelined ticking -------------------------------------------------------
+
+    def _sync_carry(self, carry):
+        """The device-side tick carry with host events folded in: built from
+        the host state when ``carry`` is None; otherwise the newly admitted
+        slots are spliced in (continuing slots' values live on the device,
+        one tick ahead of the host's bookkeeping)."""
+        if self.n_active == 0 and not self._last_admitted:
+            return carry
+
+        def budget_of(req):
+            return req.max_new_tokens - len(req.output) if req is not None else 0
+
+        budget = torch.tensor([budget_of(s) for s in self.slots], dtype=torch.int32, device=self.device)
+        tokens = torch.from_numpy(self._last_tokens.copy()).to(self.device)
+        if carry is None:
+            act = torch.tensor([s is not None for s in self.slots], device=self.device)
+            return tokens[:, None], act, budget
+        if not self._last_admitted:
+            return carry
+        adm = torch.zeros(self.max_batch, dtype=torch.bool)
+        adm[self._last_admitted] = True
+        adm = adm.to(self.device)
+        tok, act, bud = carry
+        return (torch.where(adm[:, None], tokens[:, None], tok), act | adm, torch.where(adm, budget, bud))

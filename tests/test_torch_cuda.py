@@ -115,6 +115,22 @@ def test_mlp_kernel_matches_plain(dev, dtype, with_next):
     _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("m", [4, 8])
+def test_mlp_kernel_rows_over_48kb_smem(dev, m):
+    """GPT-2-small's MLP at 4 and 8 rows (a serving tick, a short prompt):
+    the down projection stages m x 3072 f32 rows, over the 48 KB default
+    of dynamic shared memory."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    d, ff = 768, 3072
+    wu, su = _pack(gen, ff, d, dev)
+    wd, sd = _pack(gen, d, ff, dev)
+    x = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+    ns = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    args = (x, wu, su * 0.1, wd, sd * 0.1, None, None)
+    kw = dict(activation="gelu", norm="layernorm", norm_scale=ns, norm_bias=0.1 * ns, residual=x)
+    _close(qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw), torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_attention_kernel_matches_plain(dev, dtype, head_dim):
@@ -384,3 +400,173 @@ def test_tiny_decoder_prefill_matches_plain(dev, dtype):
         _close(k_cache["k"][li], p_cache["k"][li], dtype)
     if dtype == torch.float32:
         assert k_toks.tolist() == p_toks.tolist()
+
+
+# ---------------------------------------------------------------------------
+# The serving path's KV kernels: decode_attention_int8, paged_decode_attention,
+# paged_decode_attention_int8
+# ---------------------------------------------------------------------------
+
+KV_KINDS = ["int8", "paged", "paged_int8"]
+
+
+def _kv_case(dev, kind, dtype, d, page=64, seed=11):
+    """Inputs of one KV kernel: rows at kv_len 0, 63, 64, 150 and the last
+    position (191 of 3 pages, or S - 1), pages scattered through a pool of
+    12 (page 11 the scratch page); int8 payloads with scales in [0.005,
+    0.02]. Returns (kernel, plain, args); args[0] is the packed qkv."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, b = 4, 5
+    qkv = (1.5 * torch.randn(b, 3, h, 1, d, generator=gen, device=dev)).to(dtype)
+    # Row 1's new k/v on .5 code boundaries (head 0 at scale 1, head 1 at
+    # 0.5; exact in bf16): round half to even and half away differ there.
+    half = torch.tensor([[127.0, 2.5, -3.5, 0.5, 1.5, -0.5], [63.5, 1.25, -1.75, 0.25, 0.75, -0.25]], device=dev)
+    qkv[1, 1:, :2, 0] = 0
+    qkv[1, 1:, :2, 0, :6] = half.to(dtype)
+    int8 = kind.endswith("int8")
+    if kind == "int8":
+        s_max = 3 * page
+        shape = (b, h, s_max, d)
+    else:
+        shape = (12, h, page, d)
+    if int8:
+        payload = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in range(2)]
+        payload += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+    else:
+        payload = [(1.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype),
+                   torch.randn(shape, generator=gen, device=dev).to(dtype)]
+    lens = torch.tensor([0, 63, 64, 150, 3 * page - 1], dtype=torch.int32, device=dev)
+    if kind == "int8":
+        return da.decode_attention_int8, da.decode_attention_int8_ref, (qkv, *payload, lens)
+    table = torch.tensor([[11, 11, 11], [3, 11, 11], [7, 2, 11], [5, 0, 9], [10, 1, 8]],
+                         dtype=torch.int32, device=dev)
+    if kind == "paged":
+        return pa.paged_decode_attention, pa.paged_decode_attention_ref, (qkv, *payload, table, lens)
+    return pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref, (qkv, *payload, table, lens)
+
+
+def _clone_args(args):
+    return [a.clone() for a in args]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("kind", KV_KINDS)
+def test_kv_kernel_matches_plain(dev, kind, dtype, head_dim):
+    """Attention vector against the plain version (own-max tolerance), and
+    the caches after the append bit for bit (int8: codes and scales)."""
+    kernel, plain, args = _kv_case(dev, kind, dtype, head_dim)
+    k_args, p_args = _clone_args(args), _clone_args(args)
+    name = kernel.__name__
+    before = dispatch.LAUNCHES[name]
+    out = kernel(*k_args)
+    assert dispatch.LAUNCHES[name] == before + 1
+    ref = plain(*p_args)
+    assert out.shape == (5, 4 * head_dim) and out.dtype == dtype
+    _close_own_max(out, ref, dtype)
+    n_cache = 4 if kind.endswith("int8") else 2
+    for a, b in zip(k_args[1 : 1 + n_cache], p_args[1 : 1 + n_cache]):
+        assert torch.equal(a, b)
+    if kind.endswith("int8"):  # row 1 appends at 63: its own row, or pool page 3
+        codes = k_args[1][1 if kind == "int8" else 3, :2, 63, :6]
+        assert codes.tolist() == [[127, 2, -4, 0, 2, 0]] * 2
+
+
+@pytest.mark.parametrize("kind", KV_KINDS)
+def test_kv_kernel_page_128_and_f64(dev, kind):
+    """Pages (or S) of 3 x 128 positions, f32: the attention vector against
+    the softmax in f64 over the dequantized cache the plain version leaves
+    (atol 1e-5 of its max)."""
+    from rten_tpu_torch.kernels.decode_attention import attend_ref, dequantize_kv
+
+    kernel, plain, args = _kv_case(dev, kind, torch.float32, 64, page=128, seed=12)
+    k_args, p_args = _clone_args(args), _clone_args(args)
+    out = kernel(*k_args).double()
+    plain(*p_args)
+    qkv, lens = args[0], args[-1].tolist()
+    int8 = kind.endswith("int8")
+    rows = []
+    for bi, n in enumerate(lens):
+        if kind == "int8":
+            k, v = p_args[1][bi, :, : n + 1], p_args[2][bi, :, : n + 1]
+            if int8:
+                k = dequantize_kv(k, p_args[3][bi, :, : n + 1], torch.float64)
+                v = dequantize_kv(v, p_args[4][bi, :, : n + 1], torch.float64)
+        else:
+            pages = p_args[-2][bi, : n // 128 + 1].tolist()
+            k, v = p_args[1][pages], p_args[2][pages]
+            if int8:
+                k = dequantize_kv(k, p_args[3][pages], torch.float64)
+                v = dequantize_kv(v, p_args[4][pages], torch.float64)
+            k, v = (t.permute(1, 0, 2, 3).reshape(4, -1, 64)[:, : n + 1] for t in (k, v))
+        rows.append(attend_ref(qkv[bi, 0, :, 0].double(), k.double(), v.double(), 1 / 8.0))
+    ref = torch.stack(rows)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", KV_KINDS)
+def test_kv_kernel_full_row_is_nan(dev, kind):
+    """kv_len at the row's capacity: the kernel writes nothing and returns
+    NaN for that row; the other rows are unchanged. A table entry outside
+    the pool gives NaN too (paged)."""
+    kernel, _plain, args = _kv_case(dev, kind, torch.float32, 64)
+    args = _clone_args(args)
+    lens = args[-1]
+    lens[4] = 3 * 64
+    if kind != "int8":
+        args[-2][2, 1] = 99  # row 2's new token lands in its second page: outside the pool
+    before = _clone_args(args)
+    out = kernel(*args)
+    bad = [4] if kind == "int8" else [2, 4]
+    assert bool(out[bad].isnan().all()) and bool(out[[0, 1, 3]].isfinite().all())
+    n_cache = 4 if kind.endswith("int8") else 2
+    for a, b in zip(args[1 : 1 + n_cache], before[1 : 1 + n_cache]):
+        changed = (a != b).reshape(a.shape[0], -1).any(1)
+        assert not changed[4 if kind == "int8" else 8]  # the full row's (last) page is untouched
+
+
+def _engine_outputs(engine_cls, params, cfg, specs, dev, **kw):
+    from rten_tpu_torch.serve import Request
+
+    engine = engine_cls(params, cfg, device=dev, **kw)
+    reqs = [engine.submit(Request(**s)) for s in specs]
+    engine.run()
+    return [r.output for r in reqs], engine
+
+
+@pytest.mark.parametrize("engine", ["paged", "int8_slot", "int8_paged"])
+def test_tiny_engines_match_cpu(dev, engine):
+    """The paged engine and the int8 engines at the tiny f32 config: the
+    same requests on the card (kernels) and on the CPU (plain versions)
+    give the same streams, and the card run launched its KV kernel."""
+    import dataclasses
+
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
+
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=1024,
+                                max_seq=256, dtype=torch.float32)
+    cpu_params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cpu"), device="cpu")
+    gpu_params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+    gen = torch.Generator().manual_seed(13)
+    specs = [dict(prompt=torch.randint(1, 500, (n,), generator=gen).tolist(), max_new_tokens=m)
+             for n, m in ((3, 20), (70, 12), (12, 30), (130, 8))]
+    if engine == "int8_slot":
+        cfg8 = dataclasses.replace(cfg, int8_kv=True)
+        run = lambda p, d: _engine_outputs(ServingEngine, p, cfg8, specs, d, max_batch=3, steps_per_tick=4)  # noqa: E731
+        name = "decode_attention_int8"
+    else:
+        int8 = engine == "int8_paged"
+        run = lambda p, d: _engine_outputs(PagedServingEngine, p, cfg, specs, d, max_batch=3,  # noqa: E731
+                                           n_pages=6, page_size=64, int8_kv=int8)
+        name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    dispatch.reset_counters()
+    on_card, eng = run(gpu_params, dev)
+    assert dispatch.LAUNCHES[name] > 0 and not dispatch.PLAIN
+    on_cpu, _ = run(cpu_params, "cpu")
+    assert on_card == on_cpu
+    if engine != "int8_slot":
+        assert eng.pool.n_free == eng.pool.n_pages

@@ -9,16 +9,30 @@ f32 arithmetic, another order; exact erf against the erf polynomial,
 1.5e-7); caches atol 1e-5; greedy tokens identical.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rten_tpu.kernels.decode_attention import pack_kv_scales
 from rten_tpu.models import decoder as jdec
 from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.models import decoder as tdec
-from torch_port_helpers import configs, dense_tree, to_jax, to_numpy, unfold
+from torch_port_helpers import (
+    carry_cache,
+    configs,
+    dense_tree,
+    jax_pages,
+    jax_scale_tiles,
+    port_pages,
+    port_scale_pages,
+    to_jax,
+    to_numpy,
+    unfold,
+)
 
 LOGIT_ATOL = 1e-4
 
@@ -192,6 +206,99 @@ def test_greedy_decode_matches_jax(models):
         jl, jcache = jdec.decode_step(jparams, jcfg, jnp.asarray(step), jcache)
         tl, tcache = tdec.decode_step(tparams, tcfg, torch.from_numpy(step), tcache)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL, rtol=0)
+
+
+def _random_jax_cache(jcfg, lens, s_max, seed, int8=False):
+    """A JAX cache whose rows hold ``lens`` tokens of seeded random k/v
+    (int8 codes and scales in the kernel layout with ``int8``)."""
+    rng = np.random.default_rng(seed)
+    b, hd = len(lens), jcfg.head_dim
+    shape = (b, jcfg.n_heads, s_max, hd)
+    cache = {"len": jnp.asarray(np.array(lens, np.int32))}
+    for key in ("k", "v"):
+        if int8:
+            cache[key] = [jnp.asarray(rng.integers(-127, 128, shape).astype(np.int8)) for _ in range(jcfg.n_layers)]
+            scales = rng.uniform(0.005, 0.02, (*shape[:3], 1)).astype(np.float32)
+            cache[key + "_scale"] = [jnp.asarray(pack_kv_scales(jnp.asarray(scales), hd))
+                                     for _ in range(jcfg.n_layers)]
+        else:
+            cache[key] = [jnp.asarray(rng.standard_normal(shape).astype(np.float32)) for _ in range(jcfg.n_layers)]
+    return cache
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("t", [1, 3], ids=["decode", "3_tokens"])
+def test_forward_rows_of_unequal_lengths(models, kind, t):
+    """Rows holding 5, 12 and 0 tokens: each row's new k/v go in at its own
+    length. A decode step (the decode kernels) and a 3-token forward (9 rows:
+    the prefill structure) against ``jdec.forward`` on the same cache:
+    logits, the caches' valid prefixes (int8: codes and scales) and lengths."""
+    jcfg, tcfg, jparams, tparams = models
+    int8 = kind == "int8"
+    if int8:
+        jcfg = dataclasses.replace(jcfg, int8_kv=True)
+    lens, s_max = [5, 12, 0], 64
+    jcache = _random_jax_cache(jcfg, lens, s_max, seed=30 + t, int8=int8)
+    tcache = carry_cache(jcache, tcfg.head_dim)
+    tokens = np.random.default_rng(40 + t).integers(0, tcfg.vocab_size, (3, t)).astype(np.int32)
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tokens), jcache)
+    dispatch.reset_counters()
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tokens), tcache)
+    expect = ("decode_attention_int8" if int8 else "decode_attention") if t == 1 else "flash_attention"
+    assert dispatch.PLAIN[expect] == tcfg.n_layers
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    want = carry_cache(jcache, tcfg.head_dim)
+    np.testing.assert_array_equal(tcache["len"].numpy(), np.array(lens) + t)
+    np.testing.assert_array_equal(tcache["host_len"], np.array(lens) + t)
+    for li in range(tcfg.n_layers):
+        for key in ("k", "v", "k_scale", "v_scale") if int8 else ("k", "v"):
+            for r, n in enumerate(np.array(lens) + t):
+                got, ref = tcache[key][li][r, :, :n].numpy(), want[key][li][r, :, :n].numpy()
+                if key in ("k", "v") and int8:
+                    np.testing.assert_array_equal(got, ref, err_msg=f"{key} {li} row {r}")
+                else:
+                    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0, err_msg=f"{key} {li} row {r}")
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_pages", "int8_pages"])
+def test_paged_forward_matches_jax(models, int8):
+    """A decode step over a paged pool (pages of 64; rows at 5, 70 and 0
+    tokens, the last on the scratch page): logits and every page after the
+    append against ``jdec.forward`` on the same pool (Pallas in interpret
+    mode)."""
+    jcfg, tcfg, jparams, tparams = models
+    rng = np.random.default_rng(50 + int8)
+    hd, page, n_pages = tcfg.head_dim, 64, 6
+    shape = (n_pages, tcfg.n_heads, page, hd)
+    lens = np.array([5, 70, 0], np.int32)
+    table = np.array([[2, 5], [4, 1], [5, 5]], np.int32)  # page 5 is the scratch page
+
+    def payload():
+        if int8:
+            return rng.integers(-127, 128, shape).astype(np.int8)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    pool = {"k_pages": [payload() for _ in range(tcfg.n_layers)], "v_pages": [payload() for _ in range(tcfg.n_layers)]}
+    if int8:
+        for key in ("k_scale_pages", "v_scale_pages"):
+            pool[key] = [rng.uniform(0.005, 0.02, shape[:3]).astype(np.float32) for _ in range(tcfg.n_layers)]
+    jcache = {key: [jnp.asarray(jax_pages(p) if key in ("k_pages", "v_pages") else jax_scale_tiles(p, hd))
+                    for p in leaves] for key, leaves in pool.items()}
+    jcache.update(page_table=jnp.asarray(table), len=jnp.asarray(lens))
+    tcache = {key: [torch.from_numpy(p.copy()) for p in leaves] for key, leaves in pool.items()}
+    tcache.update(page_table=torch.from_numpy(table), len=torch.from_numpy(lens.copy()))
+    tokens = np.random.default_rng(60).integers(0, tcfg.vocab_size, (3, 1)).astype(np.int32)
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tokens), jcache)
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tokens), tcache)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_array_equal(tcache["len"].numpy(), lens + 1)
+    for li in range(tcfg.n_layers):
+        for key in ("k_pages", "v_pages"):
+            np.testing.assert_allclose(tcache[key][li].numpy(), port_pages(jcache[key][li], hd), atol=1e-5, rtol=0)
+        if int8:
+            for key in ("k_scale_pages", "v_scale_pages"):
+                np.testing.assert_allclose(tcache[key][li].numpy(), port_scale_pages(jcache[key][li], hd, page),
+                                           rtol=1e-6, atol=0)  # absmax of k/v equal to ~1e-7
 
 
 def test_forward_refuses_multi_token():

@@ -5,6 +5,7 @@ and profile."""
 
 import numpy as np
 import pytest
+import torch
 
 from rten_tpu.generate import Generator as JGenerator
 from rten_tpu.generate import GeneratorConfig as JGeneratorConfig
@@ -123,3 +124,24 @@ def test_backend_refuses_overflow(models):
     backend = NativeBackend(tparams, tcfg, max_len=4, device="cpu")
     with pytest.raises(ValueError, match="KV cache full"):
         backend.prefill(np.array([[1, 2, 3, 4, 5]], np.int32))
+
+
+@pytest.mark.parametrize("n_prompt", [5, 20])
+def test_int8_kv_stream_matches_jax(models, n_prompt):
+    """``int8_kv``: NativeBackend's cache is int8 with per-(token, head)
+    scales through ``init_cache``; the prompt goes through the eager int8
+    branch, each later token through decode_attention_int8; the stream
+    equals the JAX package's int8-KV Generator."""
+    import dataclasses
+
+    jcfg, tcfg, jparams, tparams = models
+    jcfg8, tcfg8 = dataclasses.replace(jcfg, int8_kv=True), dataclasses.replace(tcfg, int8_kv=True)
+    prompt = list(np.random.default_rng(8).integers(0, tcfg.vocab_size, n_prompt))
+    jgen = JGenerator(JNativeBackend(jparams, jcfg8, max_len=64), JGeneratorConfig(max_tokens=12))
+    backend = NativeBackend(tparams, tcfg8, max_len=64, device="cpu")
+    assert backend.cache["k"][0].dtype == torch.int8 and "k_scale" in backend.cache
+    tgen = Generator(backend, GeneratorConfig(max_tokens=12))
+    dispatch.reset_counters()
+    ttoks = _stream(tgen.with_prompt(prompt))
+    assert dispatch.PLAIN["decode_attention_int8"] == 11 * tcfg.n_layers
+    assert ttoks == _stream(jgen.with_prompt(prompt))

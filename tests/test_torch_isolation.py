@@ -36,6 +36,13 @@ for _ in range(2):
 prompt = torch.arange(12, dtype=torch.int32)[None]  # one prefill forward of 12 rows
 logits, cache = decoder.prefill(params, cfg, prompt, cache, last_only=True)
 assert int(cache["len"][0]) == 14 and logits.shape == (1, 1, 300)
+from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+for engine in (ServingEngine(params, cfg, max_batch=2, steps_per_tick=2, device="cpu"),
+               PagedServingEngine(params, cfg, max_batch=2, n_pages=4, page_size=64, int8_kv=True,
+                                  device="cpu")):
+    reqs = [engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=3)) for _ in range(3)]
+    engine.run()
+    assert all(len(r.output) == 3 for r in reqs)
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -76,6 +83,7 @@ def test_scan_regex_catches_imports():
 def test_entry_points_refuse_without_cuda(monkeypatch):
     from rten_tpu_torch.generate import NativeBackend
     from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = decoder.DecoderConfig(vocab_size=300, n_layers=1, n_heads=4, d_model=256, d_ff=512,
@@ -88,6 +96,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: decoder.params_from_jax({"layers": []}, cfg),
         lambda: decoder.from_hf_gpt2({}, cfg),
         lambda: NativeBackend(params, cfg),
+        lambda: ServingEngine(params, cfg),
+        lambda: PagedServingEngine(params, cfg, page_size=64),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -317,3 +317,134 @@ def test_prefill_wrappers_reject_mixed_devices(rng):
     k = torch.zeros(1, 2, 64, 64)
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(1, 2, 8, 64, device="meta"), k, k)
+
+
+# ---------------------------------------------------------------------------
+# The KV kernels of the serving path: decode_attention_int8,
+# paged_decode_attention, paged_decode_attention_int8
+# ---------------------------------------------------------------------------
+
+
+def _half_boundary_token(h, d):
+    """A new token per head whose codes fall on .5 boundaries: head 0 has
+    absmax 127 (scale 1), head 1 absmax 63.5 (scale 0.5); round half to
+    even gives 2, -4, 0, 2, 0 where round half away would give 3, -4, 1, 2, -1."""
+    x = np.zeros((h, d), np.float32)
+    x[0, :6] = [127.0, 2.5, -3.5, 0.5, 1.5, -0.5]
+    x[1, :6] = [63.5, 1.25, -1.75, 0.25, 0.75, -0.25]
+    return x
+
+
+def _new_tokens(rng, b, h, d):
+    """q, k_new, v_new [B, H, 1, D] with row 1 on .5 boundaries."""
+    q = rng.standard_normal((b, h, 1, d)).astype(np.float32) * 1.2
+    kn = rng.standard_normal((b, h, 1, d)).astype(np.float32) * 1.2
+    vn = rng.standard_normal((b, h, 1, d)).astype(np.float32)
+    kn[1, :, 0], vn[1, :, 0] = _half_boundary_token(h, d), _half_boundary_token(h, d)[::-1]
+    return q, kn, vn
+
+
+def _scales_equal(port, jax_scales):
+    """absmax / 127 to one f32 ulp: the port divides (IEEE, as numpy does),
+    while XLA's CPU backend compiles the jitted division by 127 into a
+    multiply by its reciprocal, one ulp off for a few percent of values."""
+    np.testing.assert_allclose(port, jax_scales, rtol=1.2e-7, atol=0)
+
+
+def _packed(q, kn, vn):
+    return _t(np.stack([q, kn, vn], axis=1))  # [B, 3, H, 1, D]
+
+
+def test_decode_attention_int8_matches_pallas(rng):
+    """Rows at kv_len 0, 100 (new token on .5 boundaries) and 255 (the last
+    position) of an int8 cache: the attention vector, and the appended
+    codes and scales, against the Pallas kernel (scales through the JAX
+    package's unpack_kv_scales)."""
+    from rten_tpu.kernels.decode_attention import decode_attention_int8 as jax_int8, pack_kv_scales
+
+    from rten_tpu_torch.kernels.decode_attention import decode_attention_int8
+    from torch_port_helpers import port_scales
+
+    lens = np.array([0, 100, 255], np.int32)
+    b, h, s, d = len(lens), 4, 256, 64
+    kq = rng.integers(-127, 128, (b, h, s, d)).astype(np.int8)
+    vq = rng.integers(-127, 128, (b, h, s, d)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.02, (b, h, s)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, (b, h, s)).astype(np.float32)
+    q, kn, vn = _new_tokens(rng, b, h, d)
+    out, k2, v2, ks2, vs2 = jax_int8(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), pack_kv_scales(jnp.asarray(ks[..., None]), d),
+        pack_kv_scales(jnp.asarray(vs[..., None]), d), jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn),
+        interpret=True,
+    )
+    caches = [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs)]
+    before = dispatch.PLAIN["decode_attention_int8"]
+    attn = decode_attention_int8(_packed(q, kn, vn), *caches, _t(lens, torch.int32))
+    assert dispatch.PLAIN["decode_attention_int8"] == before + 1
+    np.testing.assert_allclose(attn.numpy(), np.asarray(out).reshape(b, h * d), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(caches[0].numpy(), np.asarray(k2).reshape(b, h, s, d))
+    np.testing.assert_array_equal(caches[1].numpy(), np.asarray(v2).reshape(b, h, s, d))
+    _scales_equal(caches[2].numpy(), port_scales(ks2, d))
+    _scales_equal(caches[3].numpy(), port_scales(vs2, d))
+    # Round half to even at the boundaries (head 0: scale 1; head 1: scale 0.5).
+    np.testing.assert_array_equal(caches[0][1, 0, 100, :6].numpy(), [127, 2, -4, 0, 2, 0])
+    np.testing.assert_array_equal(caches[0][1, 1, 100, :6].numpy(), [127, 2, -4, 0, 2, 0])
+    assert caches[2][1, 0, 100] == 1.0 and caches[2][1, 1, 100] == 0.5
+
+
+# Paged case: pages of 64 positions, 3 table columns, a pool of 12 pages
+# whose last (11) is the scratch page; rows at kv_len 0 (all scratch), 63
+# (last slot of its first page), 64 (first slot of the second), 150 and 191
+# (the table's last position), their pages scattered through the pool.
+PAGED_LENS = [0, 63, 64, 150, 191]
+PAGED_TABLE = [[11, 11, 11], [3, 11, 11], [7, 2, 11], [5, 0, 9], [10, 1, 8]]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_layout_f32", "int8"])
+def test_paged_attention_matches_pallas(rng, int8):
+    """Paged decode attention (bf16/f32 pages or int8 pages with scale
+    pages) against the Pallas kernel: the attention vector, and every page
+    after the in-place append (a row at length 0 writes only the scratch
+    page)."""
+    from rten_tpu.kernels import paged_attention as jpa
+
+    from rten_tpu_torch.kernels import paged_attention as tpa
+    from torch_port_helpers import jax_pages, jax_scale_tiles, port_pages, port_scale_pages
+
+    lens, table = np.array(PAGED_LENS, np.int32), np.array(PAGED_TABLE, np.int32)
+    b, h, d, page, n_pages = len(lens), 4, 64, 64, 12
+    shape = (n_pages, h, page, d)
+    q, kn, vn = _new_tokens(rng, b, h, d)
+    if int8:
+        kp, vp = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+        ksp, vsp = (rng.uniform(0.005, 0.02, shape[:3]).astype(np.float32) for _ in range(2))
+        out, kp2, vp2, ksp2, vsp2 = jpa.paged_decode_attention_int8(
+            jnp.asarray(q), jnp.asarray(jax_pages(kp)), jnp.asarray(jax_pages(vp)),
+            jnp.asarray(jax_scale_tiles(ksp, d)), jnp.asarray(jax_scale_tiles(vsp, d)), jnp.asarray(table),
+            jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn), interpret=True,
+        )
+        pool = [torch.from_numpy(a.copy()) for a in (kp, vp, ksp, vsp)]
+        fn, name = tpa.paged_decode_attention_int8, "paged_decode_attention_int8"
+    else:
+        kp = rng.standard_normal(shape).astype(np.float32) * 1.2
+        vp = rng.standard_normal(shape).astype(np.float32)
+        out, kp2, vp2 = jpa.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(jax_pages(kp)), jnp.asarray(jax_pages(vp)), jnp.asarray(table),
+            jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn), interpret=True,
+        )
+        pool = [torch.from_numpy(a.copy()) for a in (kp, vp)]
+        fn, name = tpa.paged_decode_attention, "paged_decode_attention"
+    before = dispatch.PLAIN[name]
+    attn = fn(_packed(q, kn, vn), *pool, _t(table, torch.int32), _t(lens, torch.int32))
+    assert dispatch.PLAIN[name] == before + 1
+    np.testing.assert_allclose(attn.numpy(), np.asarray(out).reshape(b, h * d), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(pool[0].numpy(), port_pages(kp2, d))
+    np.testing.assert_array_equal(pool[1].numpy(), port_pages(vp2, d))
+    if int8:
+        _scales_equal(pool[2].numpy(), port_scale_pages(ksp2, d, page))
+        _scales_equal(pool[3].numpy(), port_scale_pages(vsp2, d, page))
+        np.testing.assert_array_equal(pool[0][3, 0, 63, :6].numpy(), [127, 2, -4, 0, 2, 0])
+    # Only the appended slots changed: the scratch page's slot 0 and each
+    # live row's slot of kv_len.
+    changed = np.argwhere((pool[0].numpy() != kp).any(-1).any(1))
+    assert {tuple(x) for x in changed} <= {(11, 0), (3, 63), (2, 0), (9, 22), (8, 63)}

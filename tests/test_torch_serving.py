@@ -1,0 +1,231 @@
+"""The port's serving engines (plain kernel versions, on the CPU) against the
+JAX package's engines on the same carried-across int8 parameters and the
+same requests: every request's greedy stream must be identical.
+
+The cases are those of ``tests/test_serving.py`` (concurrent requests,
+more requests than slots, EOS, streaming, slot reuse, multi-step ticks and
+``run_pipelined``; the paged engine's basic, multi-page prompt, inactive
+row, preemption and page-pressure cases; both engines with ``int8_kv``),
+at the tiny f32 config of ``torch_port_helpers`` (head dim 64) with pages
+of 64 positions. The JAX paged engine runs its Pallas kernels in interpret
+mode. The HTTP server runs on 127.0.0.1 over the port's engine on the CPU.
+"""
+
+import dataclasses
+import json
+import threading
+import urllib.request
+
+import numpy as np
+import pytest
+
+from rten_tpu.models import decoder as jdec
+from rten_tpu.serve import Request as JRequest
+from rten_tpu.serve import ServingEngine as JServingEngine
+from rten_tpu.serve.paged import PagedServingEngine as JPagedServingEngine
+from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+from rten_tpu_torch.kernels import dispatch
+from rten_tpu_torch.models import decoder as tdec
+from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine, ServingServer
+from torch_port_helpers import configs, dense_tree, to_jax, to_numpy
+
+PAGE = 64
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, tcfg = configs()
+    jparams = jdec.quantize_params_int8(to_jax(dense_tree(0)))
+    tparams = tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def _prompt(seed, n):
+    return [int(t) for t in np.random.default_rng(seed).integers(1, 500, n)]
+
+
+def _serve(engine, request_cls, specs, mode="run"):
+    """Submit ``specs`` (dicts of Request fields) and drive the engine;
+    returns the requests in submission order."""
+    if mode == "sequential":  # one request at a time, reusing the slot
+        reqs = []
+        for spec in specs:
+            reqs.append(engine.submit(request_cls(**spec)))
+            engine.run()
+        return reqs
+    reqs = [engine.submit(request_cls(**spec)) for spec in specs]
+    getattr(engine, "run_pipelined" if mode == "pipelined" else "run")()
+    return reqs
+
+
+# name: (engine kwargs, request specs, drive mode). EOS ids are chosen from
+# the JAX engine's own stream in the test (``"eos": k`` → the k-th token).
+SLOT_CASES = {
+    "concurrent": (dict(max_batch=4), [dict(prompt=p, max_new_tokens=5) for p in
+                                       ([1, 2, 3], [7, 8], _prompt(1, 12), [5])], "run"),
+    "more_requests_than_slots": (dict(max_batch=2), [dict(prompt=[i + 1, i + 2], max_new_tokens=3 + i % 3)
+                                                     for i in range(6)], "run"),
+    "eos": (dict(max_batch=2), [dict(prompt=[1, 2, 3], max_new_tokens=8, eos=2),
+                                dict(prompt=_prompt(2, 9), max_new_tokens=6)], "run"),
+    "slot_reuse": (dict(max_batch=1), [dict(prompt=[9, 9, 9, 9, 9], max_new_tokens=4),
+                                       dict(prompt=[1, 2], max_new_tokens=4)], "sequential"),
+    "tick4_eos_mid_tick": (dict(max_batch=2, steps_per_tick=4),
+                           [dict(prompt=[1, 2, 3], max_new_tokens=8, eos=1),
+                            dict(prompt=[9, 8], max_new_tokens=6), dict(prompt=_prompt(3, 14), max_new_tokens=7)],
+                           "run"),
+    "pipelined": (dict(max_batch=2, steps_per_tick=3),
+                  [dict(prompt=p, max_new_tokens=4 + i, eos=(1 if i == 0 else None))
+                   for i, p in enumerate(([1, 2, 3], [9, 8], [11, 12, 13, 14], [5], _prompt(4, 10)))],
+                  "pipelined"),
+}
+
+
+def _resolve_eos(specs, jcfg, jparams):
+    """Turn ``eos=k`` into the k-th token of the request's solo JAX stream."""
+    out = []
+    for spec in specs:
+        spec = dict(spec)
+        k = spec.pop("eos", None)
+        if k is not None:
+            ref = JServingEngine(jparams, jcfg, max_batch=1, seed=0)
+            (solo,) = _serve(ref, JRequest, [dict(spec)])
+            spec["eos_tokens"] = (solo.output[k],)
+        out.append(spec)
+    return out
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["f32_kv", "int8_kv"])
+@pytest.mark.parametrize("case", list(SLOT_CASES))
+def test_slot_engine_matches_jax(models, case, int8_kv):
+    jcfg, tcfg, jparams, tparams = models
+    if int8_kv:
+        jcfg, tcfg = dataclasses.replace(jcfg, int8_kv=True), dataclasses.replace(tcfg, int8_kv=True)
+    kw, specs, mode = SLOT_CASES[case]
+    specs = _resolve_eos(specs, jcfg, jparams)
+    jreqs = _serve(JServingEngine(jparams, jcfg, seed=0, **kw), JRequest, specs, mode)
+    seen = []
+    tspecs = [dict(s, on_token=seen.append) if i == 0 else s for i, s in enumerate(specs)]
+    engine = ServingEngine(tparams, tcfg, device="cpu", **kw)
+    dispatch.reset_counters()
+    treqs = _serve(engine, Request, tspecs, mode)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert all(r.finished for r in treqs) and all(s is None for s in engine.slots)
+    assert seen == treqs[0].output  # streaming, in order
+    for spec, r in zip(specs, treqs):
+        eos = spec.get("eos_tokens", ())
+        assert len(r.output) == spec["max_new_tokens"] or (eos and r.output[-1] == eos[0])
+    assert dispatch.PLAIN["decode_attention_int8" if int8_kv else "decode_attention"] > 0
+    assert not dispatch.LAUNCHES
+
+
+def test_slot_engine_matches_solo_generator(models):
+    """Batching is invisible: each request's stream equals the port's own
+    solo Generator(NativeBackend) stream."""
+    _, tcfg, _, tparams = models
+    prompts = [[1, 2, 3], [7, 8], _prompt(5, 13), [5]]
+    engine = ServingEngine(tparams, tcfg, max_batch=4, steps_per_tick=2, device="cpu")
+    reqs = _serve(engine, Request, [dict(prompt=p, max_new_tokens=6) for p in prompts])
+    for p, r in zip(prompts, reqs):
+        gen = Generator(NativeBackend(tparams, tcfg, max_len=64, device="cpu"), GeneratorConfig(max_tokens=6))
+        assert r.output == [int(t[0]) for t in gen.with_prompt(p)], p
+
+
+PAGED_CASES = {
+    # name: (engine kwargs, request specs); pages of 64 positions.
+    "basic": (dict(max_batch=3, n_pages=12), [dict(prompt=p, max_new_tokens=6)
+                                              for p in ([1, 2, 3, 4, 5], [9, 8, 7], _prompt(6, 11))]),
+    "multi_page_prompt": (dict(max_batch=1, n_pages=4), [dict(prompt=_prompt(7, 150), max_new_tokens=6)]),
+    "inactive_row": (dict(max_batch=2, n_pages=6), [dict(prompt=[1, 2, 3, 4], max_new_tokens=10),
+                                                    dict(prompt=[9, 8], max_new_tokens=2)]),
+    # 5 pages for two rows that each grow to 3 (60 prompt + 70 new tokens):
+    # one is preempted, re-prefilled and finished after the other.
+    "preemption": (dict(max_batch=2, n_pages=5), [dict(prompt=_prompt(8 + i, 60), max_new_tokens=70)
+                                                  for i in range(2)]),
+    "page_pressure": (dict(max_batch=2, n_pages=2), [dict(prompt=[i + 1, i + 2], max_new_tokens=4)
+                                                     for i in range(5)]),
+}
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["f32_kv", "int8_kv"])
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_engine_matches_jax(models, case, int8_kv):
+    jcfg, tcfg, jparams, tparams = models
+    kw, specs = PAGED_CASES[case]
+    jeng = JPagedServingEngine(jparams, jcfg, page_size=PAGE, seed=0, int8_kv=int8_kv, **kw)
+    jreqs = _serve(jeng, JRequest, specs)
+    engine = PagedServingEngine(tparams, tcfg, page_size=PAGE, int8_kv=int8_kv, device="cpu", **kw)
+    dispatch.reset_counters()
+    treqs = _serve(engine, Request, specs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert all(r.finished and len(r.output) == s["max_new_tokens"] for r, s in zip(treqs, specs))
+    assert engine.pool.n_free == engine.pool.n_pages == jeng.pool.n_free
+    assert (engine.preemptions > 0) == (case == "preemption")
+    assert dispatch.PLAIN["paged_decode_attention_int8" if int8_kv else "paged_decode_attention"] > 0
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["f32_kv", "int8_kv"])
+def test_paged_engine_matches_slot_engine(models, int8_kv):
+    """Paged against slot (int8 paged against int8 slot), the port alone."""
+    _, tcfg, _, tparams = models
+    cfg = dataclasses.replace(tcfg, int8_kv=int8_kv)
+    specs = [dict(prompt=_prompt(20 + i, n), max_new_tokens=m) for i, (n, m) in enumerate([(3, 9), (70, 5), (12, 12)])]
+    slot = _serve(ServingEngine(tparams, cfg, max_batch=3, device="cpu"), Request, specs)
+    paged = _serve(PagedServingEngine(tparams, tcfg, max_batch=3, n_pages=8, page_size=PAGE, int8_kv=int8_kv,
+                                      device="cpu"), Request, specs)
+    assert [r.output for r in paged] == [r.output for r in slot]
+
+
+def test_engines_refuse_unported_options(models):
+    _, tcfg, _, tparams = models
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tparams, tcfg, max_batch=9, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tparams, tcfg, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tparams, tcfg, tp_mode="shard_map", device="cpu")
+    with pytest.raises(NotImplementedError):
+        PagedServingEngine(tparams, tcfg, max_batch=9, page_size=PAGE, device="cpu")
+    with pytest.raises(ValueError, match="page_size"):
+        PagedServingEngine(tparams, tcfg, page_size=96, device="cpu")
+
+
+def _http(url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def test_http_server_matches_engine(models):
+    """Three concurrent POST /generate on 127.0.0.1 batch into one engine;
+    each reply equals the engine's own output for that request, with the
+    JAX server's keys; /healthz and /stats answer."""
+    _, tcfg, _, tparams = models
+    specs = [dict(prompt=[1, 2, 3], max_new_tokens=5), dict(prompt=_prompt(9, 10), max_new_tokens=7),
+             dict(prompt=[4], max_new_tokens=3, eos_tokens=(0,))]
+    direct = _serve(ServingEngine(tparams, tcfg, max_batch=4, steps_per_tick=2, device="cpu"), Request, specs)
+    server = ServingServer(ServingEngine(tparams, tcfg, max_batch=4, steps_per_tick=2, device="cpu"))
+    server.start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        health = _http(f"{url}/healthz")
+        assert health["status"] == "ok" and {"active", "queued", "steps"} <= set(health)
+        replies = [None] * len(specs)
+
+        def post(i, spec):
+            body = {"prompt": spec["prompt"], "max_new_tokens": spec["max_new_tokens"],
+                    "eos": list(spec.get("eos_tokens", ()))}
+            replies[i] = _http(f"{url}/generate", body)
+
+        threads = [threading.Thread(target=post, args=(i, s)) for i, s in enumerate(specs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        for reply, ref in zip(replies, direct):
+            assert set(reply) == {"request_id", "tokens", "finished"}
+            assert reply["finished"] and reply["tokens"] == ref.output
+        stats = _http(f"{url}/stats")
+        assert stats["max_batch"] == 4 and stats["max_len"] == tcfg.max_seq and stats["steps"] > 0
+    finally:
+        server.stop()

@@ -1,6 +1,7 @@
 """Shared set-up of the ``test_torch_*`` tests: one tiny GPT-2-class
-configuration for both packages, and seeded dense parameters built once in
-numpy and handed to both.
+configuration for both packages, seeded dense parameters built once in
+numpy and handed to both, and the conversions of KV caches, scales and
+pages between the JAX package's TPU layouts and the port's logical ones.
 
 At d_model 256, d_ff 1024 and vocab 500 every projection has ≥ 2^16
 elements, so the JAX package's ``quantize_params_int8`` turns each into an
@@ -11,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from rten_tpu.kernels.decode_attention import unpack_kv_scales
 from rten_tpu.models import decoder as jdec
 from rten_tpu_torch.models import decoder as tdec
 
@@ -81,3 +83,58 @@ def unfold(leaf, head_dim: int) -> np.ndarray:
     leaf = np.asarray(leaf)
     b, hk = leaf.shape[:2]
     return leaf.reshape(b, hk, -1, head_dim)
+
+
+def port_scales(packed, head_dim: int) -> np.ndarray:
+    """JAX KV scales in the kernel layout [B, H, 8, S·D/128] as the port's
+    logical [B, H, S] (the JAX package's ``unpack_kv_scales``)."""
+    return np.asarray(unpack_kv_scales(jnp.asarray(packed), head_dim))[..., 0]
+
+
+def carry_cache(jcache: dict, head_dim: int) -> dict:
+    """A JAX ``init_cache``-style cache (bf16/f32 or int8 with packed
+    scales; rows of any lengths) as the port's CPU cache: logical
+    [B, H, S, D] leaves, scales [B, H, S], device and host lengths."""
+    out = {key: [torch.from_numpy(unfold(leaf, head_dim).copy()) for leaf in jcache[key]] for key in ("k", "v")}
+    for key in ("k_scale", "v_scale"):
+        if key in jcache:
+            out[key] = [torch.from_numpy(port_scales(leaf, head_dim).copy()) for leaf in jcache[key]]
+    lens = np.asarray(jcache["len"])
+    out["len"] = torch.from_numpy(lens.astype(np.int32))
+    out["host_len"] = lens.astype(np.int64)
+    return out
+
+
+def port_pages(pages, head_dim: int) -> np.ndarray:
+    """JAX pages, folded [Hk, P, page·D/128, 128], as the port's [P, H, page, D]."""
+    pages = np.asarray(pages)
+    hk, p = pages.shape[:2]
+    return pages.reshape(hk, p, -1, head_dim).transpose(1, 0, 2, 3)
+
+
+def port_scale_pages(tiles, head_dim: int, page_size: int) -> np.ndarray:
+    """JAX scale pages [Hk, P, 8, 128] (token t of a page at [t % f, t·D/128],
+    f = 128/D: ``PagePool.write_scale_tiles``) as the port's [P, H, page]."""
+    tiles = np.asarray(tiles)
+    f = 128 // head_dim
+    t = np.arange(page_size)
+    return tiles[:, :, t % f, t // f].transpose(1, 0, 2)
+
+
+def jax_pages(pages) -> np.ndarray:
+    """Port pages [P, H, page, D] → the JAX package's folded [H, P, page·D/128, 128]."""
+    pages = np.asarray(pages)
+    p, h, page, d = pages.shape
+    return np.ascontiguousarray(pages.transpose(1, 0, 2, 3)).reshape(h, p, page * d // 128, 128)
+
+
+def jax_scale_tiles(scales, head_dim: int) -> np.ndarray:
+    """Port scale pages [P, H, page] → JAX tiles [H, P, 8, 128] (token t of a
+    page at [t % f, t·D/128]; ``PagePool.write_scale_tiles``)."""
+    scales = np.asarray(scales)
+    p, h, page = scales.shape
+    f = 128 // head_dim
+    tiles = np.zeros((h, p, 8, 128), np.float32)
+    t = np.arange(page)
+    tiles[:, :, t % f, t // f] = scales.transpose(1, 0, 2)
+    return tiles
