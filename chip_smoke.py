@@ -9,11 +9,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device  — the card's name and power limit from nvidia-smi;
 2. build   — nvcc builds the kernels from rten_tpu_torch/kernels/csrc;
 3. kernels — each kernel (the three decode kernels, the prefill matmul and
-   flash attention, the serving path's int8 and paged decode attentions) at
-   GPT-2-small's shapes (bf16 activations, int8
-   weights) against its plain PyTorch version on the same inputs, with its
-   device time, its plain version's time, the least time the card could
-   take for the same work, and one PyTorch library call as a yardstick;
+   flash attention, the serving path's int8 and paged decode attentions,
+   and the W8A8 ones: the w8a8 modes of the decode GEMV and MLP,
+   quantize_rows_int8 and quant_matmul_w8a8) at GPT-2-small's shapes (bf16
+   activations, int8 weights) against its plain PyTorch version on the
+   same inputs, with its device time, its plain version's time, the least
+   time the card could take for the same work, and one PyTorch library
+   call as a yardstick;
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
@@ -32,8 +34,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    passes only where the solo top-2 logit gap is below 0.05), every page
    back in its pool, each run's launch counters read around it; then ms
    per forward at 8 active rows and the device's idle share per engine;
-6. the line {"kernels": [...]} (the launches summed over phases 4 and 5),
-   the nvidia-smi line, and last the line {"ok": true, "device": {...}}.
+6. w8a8    — the same model and int8 weights with DecoderConfig(w8a8=True):
+   phase 4's path (every W8A8 kernel launched, no plain call), the accuracy
+   gate (the relative RMS difference of the 32 teacher-forced steps' logits
+   from the weight-only path's, at most W8A8_GATE), phase 5's 16 requests
+   through the slot engine, each stream equal to its solo W8A8 Generator
+   stream, and ms per forward at 8 active rows;
+7. the line {"kernels": [...]} (the launches summed over phases 4-6), the
+   nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
 Details (every case, the compiler's register report) go to
 chiprun_out/chip_smoke.json and chiprun_out/build_log.txt.
@@ -60,14 +68,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# Data-sheet rates by card (NVIDIA): memory bytes/s and dense bf16 tensor-core
-# FLOP/s. The kernels' operands are bf16 activations against int8 weights
-# (exact in bf16), so bf16 is the type whose peak bounds their operations.
+# Data-sheet rates by card (NVIDIA): memory bytes/s, dense bf16 tensor-core
+# FLOP/s and dense int8 tensor-core OP/s. The weight-only kernels' operands
+# are bf16 activations against int8 weights (exact in bf16), so bf16 is the
+# type whose peak bounds their operations; the W8A8 kernels' are int8.
 CARD_RATES = (
-    ("H100 PCIe", 2.0e12, 756e12),
-    ("H100 NVL", 3.9e12, 835e12),
-    ("H200", 4.8e12, 989e12),
-    ("H100", 3.35e12, 989e12),  # SXM (HBM3)
+    ("H100 PCIe", 2.0e12, 756e12, 1513e12),
+    ("H100 NVL", 3.9e12, 835e12, 1671e12),
+    ("H200", 4.8e12, 989e12, 1979e12),
+    ("H100", 3.35e12, 989e12, 1979e12),  # SXM (HBM3)
 )
 
 N_PROMPT, N_NEW, CACHE_LEN, N_FORCED = 64, 512, 768, 32
@@ -79,20 +88,22 @@ def log(*args):
 
 
 def card_rates(name: str):
-    for key, mem, f32 in CARD_RATES:
+    for key, mem, bf16, int8 in CARD_RATES:
         if key in name:
-            return key, mem, f32
+            return key, mem, bf16, int8
     raise RuntimeError(f"no data-sheet rates for card {name!r}")
 
 
 class Bound:
-    """Least time for a call: max(bytes / memory rate, ops / bf16 rate)."""
+    """Least time for a call: max(bytes / memory rate, ops / tensor-core
+    rate), the bf16 rate or (``int8``) the int8 one."""
 
-    def __init__(self, mem_rate: float, op_rate: float):
-        self.mem_rate, self.op_rate = mem_rate, op_rate
+    def __init__(self, mem_rate: float, op_rate: float, int8_rate: float):
+        self.mem_rate, self.op_rate, self.int8_rate = mem_rate, op_rate, int8_rate
 
-    def __call__(self, nbytes: float, ops: float):
-        t_mem, t_ops = nbytes / self.mem_rate * 1e3, ops / self.op_rate * 1e3
+    def __call__(self, nbytes: float, ops: float, int8: bool = False):
+        t_mem = nbytes / self.mem_rate * 1e3
+        t_ops = ops / (self.int8_rate if int8 else self.op_rate) * 1e3
         return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -142,13 +153,13 @@ def copies_for(per_call_bytes: int, cap: int = 256) -> int:
 
 @contextlib.contextmanager
 def plain_decoder(decoder):
-    """Route the decoder's five kernel calls to their plain versions."""
+    """Route the decoder's six kernel calls to their plain versions."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
 
     plain = dict(quant_gemv_int8=qm.quant_gemv_int8_ref, quant_mlp_int8=qm.quant_mlp_int8_ref,
-                 quant_matmul_int8=qm.quant_matmul_int8_ref,
+                 quant_matmul_int8=qm.quant_matmul_int8_ref, quant_matmul_w8a8=qm.quant_matmul_w8a8_ref,
                  decode_attention=da.decode_attention_ref, flash_attention=at.flash_attention_ref)
     saved = {name: getattr(decoder, name) for name in plain}
     for name, fn in plain.items():
@@ -374,7 +385,167 @@ def check_kernels(torch, bound, cfg):
     torch.cuda.empty_cache()
     check_kv_kernels(torch, bound, cfg, randn, record)
     torch.cuda.empty_cache()
+    check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record)
+    torch.cuda.empty_cache()
     return cases
+
+
+def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
+    """The W8A8 kernels against their plain versions at GPT-2-small's shapes
+    (bf16 activations), timed as check_kernels times the others, bounded at
+    the int8 tensor-core rate. The codes and scales of quantize_rows_int8
+    must equal the plain version's bit for bit. The outputs: both sum the
+    same codes exactly and round after each epilogue product, so they agree
+    to one bf16 rounding of the output (2^-7 of its max) and 1e-6 of it
+    (GELU's exp), plus, where a norm runs first, one activation code's
+    contribution (max(scale) · absmax of the normalized rows), since the
+    kernel's norm and PyTorch's round in other orders and may move a code
+    by one. The library yardstick is torch._int_mm on the same codes (the
+    s32 product alone, which needs M > 16); none for the GEMV and MLP."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    f32 = torch.float32
+    d, ff = cfg.d_model, cfg.d_ff
+    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
+
+    def w8_err(out, ref, code=0.0):
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        return err, (2.0**-7 * top if out.dtype == torch.bfloat16 else 0.0) + 1e-6 * max(1.0, top) + code
+
+    def code(scales, rows):  # one activation code's largest contribution
+        return scales.max().item() * rows.float().abs().max().item()
+
+    def normed(x, kw):
+        return qm._norm_rows_f32(x.float(), kw["norm"], 1e-5, kw["norm_scale"], kw["norm_bias"])
+
+    # -- quantize_rows_int8: the prefill's activations, codes bit for bit ---
+    for m in (64, 512):
+        x = randn(m, d)
+        codes, sx = qm.quantize_rows_int8(x)
+        ref_codes, ref_sx = qm.quantize_rows_int8_ref(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(codes, ref_codes) and torch.equal(sx, ref_sx)):
+            raise AssertionError(f"quantize_rows_int8 M={m}: codes or sx differ from the plain version's")
+        per_call = nbytes(x) + m * d + 4 * m
+        copies = [randn(m, d) for _ in range(copies_for(per_call))]
+        ms = graph_ms(torch, [lambda c=c: qm.quantize_rows_int8(c) for c in copies])
+        plain = eager_ms(torch, lambda: qm.quantize_rows_int8_ref(x))
+        record("quantize_rows_int8", f"M={m} K={d}", 0.0, 0.0, ms, plain, bound(per_call, 0), None,
+               "(codes and sx bit for bit)")
+        del copies
+
+    # -- quant_gemv_int8 w8a8: layer-0 qkv + ln1, wo + residual, lm_head + argmax
+    for m in (1, 8):
+        for name, n, mode in (("qkv+ln1", 3 * d, "qkv"), ("wo+residual", d, "wo"),
+                              ("lm_head_argmax", n_vocab_pad, "argmax")):
+            def make(i, m=m, n=n, mode=mode):
+                qt, s = pack(n, d)
+                kw = dict(w8a8=True)
+                if mode != "wo":
+                    ns, nb = norm_vecs(d)
+                    kw.update(norm="layernorm", norm_scale=ns, norm_bias=nb)
+                if mode == "wo":
+                    kw["residual"] = randn(m, n)
+                if mode == "argmax":
+                    kw["argmax_n"] = cfg.vocab_size
+                bias = None if mode == "argmax" else 0.1 * randn(n, dtype=f32)
+                return (randn(m, d), qt, s, bias), kw
+
+            args, kw = make(0)
+            out = qm.quant_gemv_int8(*args, **kw)
+            torch.cuda.synchronize()
+            c = code(args[2], normed(args[0], kw)) if mode != "wo" else 0.0
+            note = ""
+            if mode == "argmax":
+                logits = qm.quant_gemv_int8_ref(*args, out_dtype=f32, **{k: v for k, v in kw.items()
+                                                                         if k != "argmax_n"})
+                valid = logits[:, : cfg.vocab_size]
+                top = valid.max(1).values
+                # A different token is right only where its plain logit is
+                # within one code's contribution of the maximum.
+                err = (top - valid.gather(1, out.long()[:, None])[:, 0]).max().item()
+                tol = c + 1e-5 * max(1.0, top.abs().max().item())
+                note = f"(tokens {out.tolist()}, plain {valid.argmax(1).tolist()})"
+            else:
+                err, tol = w8_err(out, qm.quant_gemv_int8_ref(*args, **kw), c)
+            x, qt, s, bias = args
+            per_call = nbytes(x, qt, s, bias, kw.get("norm_scale"), kw.get("norm_bias"), kw.get("residual")) + (
+                4 * m if mode == "argmax" else 2 * m * n)
+            copies = [make(i) for i in range(copies_for(per_call))]
+            ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_gemv_int8(*a, **k) for a, k in copies])
+            plain = eager_ms(torch, lambda: qm.quant_gemv_int8_ref(*args, **kw))
+            record("quant_gemv_int8:w8a8", f"{name} M={m} N={n} K={d}", err, tol, ms, plain,
+                   bound(per_call, 2 * m * n * d, int8=True), None, note)
+            del copies
+
+    # -- quant_mlp_int8 w8a8: with the next layer's qkv and without ---------
+    for m in (1, 8):
+        for name, with_next in (("mlp+next_qkv", True), ("mlp (last layer)", False)):
+            def make(i, m=m, with_next=with_next):
+                wu, su = pack(ff, d)
+                wd, sd = pack(d, ff)
+                ns, nb = norm_vecs(d)
+                nxt = None
+                if with_next:
+                    wq, sq = pack(3 * d, d)
+                    qns, qnb = norm_vecs(d)
+                    nxt = (wq, sq, 0.1 * randn(3 * d, dtype=f32), qns, qnb)
+                args = (randn(m, d), wu, su, wd, sd, 0.1 * randn(ff, dtype=f32), 0.1 * randn(d, dtype=f32))
+                kw = dict(activation="gelu", norm="layernorm", norm_scale=ns, norm_bias=nb,
+                          residual=randn(m, d), next_qkv=nxt, w8a8=True)
+                return args, kw
+
+            args, kw = make(0)
+            out, ref = qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw)
+            torch.cuda.synchronize()
+            x, wu, su, wd, sd, bu, bd = args
+            xn = normed(x, kw)
+            up = qm.quant_gemv_int8_ref(xn, wu, su, bu, activation="gelu", w8a8=True)
+            c = code(su, xn) + code(sd, up)
+            if with_next:
+                wq, sq, _bq, qns, qnb = kw["next_qkv"]
+                c_qkv = 2 * c + code(sq, qm._norm_rows_f32(ref[0].float(), "layernorm", 1e-5, qns, qnb))
+                errs = [w8_err(out[0], ref[0], c), w8_err(out[1], ref[1], c_qkv)]
+            else:
+                errs = [w8_err(out, ref, c)]
+            worst = max(errs, key=lambda et: et[0] / et[1])
+            nxt = kw["next_qkv"] or ()
+            per_call = nbytes(*args, kw["norm_scale"], kw["norm_bias"], kw["residual"], *nxt) + 2 * m * (
+                d + (3 * d if with_next else 0))
+            ops = 2 * m * (2 * d * ff + (3 * d * d if with_next else 0))
+            copies = [make(i) for i in range(copies_for(per_call))]
+            ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_mlp_int8(*a, **k) for a, k in copies])
+            plain = eager_ms(torch, lambda: qm.quant_mlp_int8_ref(*args, **kw))
+            record("quant_mlp_int8:w8a8", f"{name} M={m} D={d} FF={ff}", *worst, ms, plain,
+                   bound(per_call, ops, int8=True))
+            del copies
+
+    # -- quant_matmul_w8a8: a layer's four projections at 64 and 512 prompt
+    # rows, and 2048^3. Its time is both launches (quantize, then matmul).
+    shapes = []
+    for m in (64, 512):
+        shapes += [(f"qkv M={m}", m, 3 * d, d, None, True), (f"wo M={m}", m, d, d, None, True),
+                   (f"up+gelu M={m}", m, ff, d, "gelu", True), (f"down M={m}", m, d, ff, None, True)]
+    shapes.append(("2048^3", 2048, 2048, 2048, None, False))
+    for name, m, n, k, act, with_bias in shapes:
+        def make(i, m=m, n=n, k=k, act=act, with_bias=with_bias):
+            qt, s = pack(n, k)
+            return (randn(m, k), qt, s, 0.1 * randn(n, dtype=f32) if with_bias else None), dict(activation=act)
+
+        args, kw = make(0)
+        out = qm.quant_matmul_w8a8(*args, **kw)
+        err, tol = w8_err(out, qm.quant_matmul_w8a8_ref(*args, **kw))
+        x, qt, s, bias = args
+        per_call = nbytes(x, qt, s, bias) + 2 * m * n
+        copies = [make(i) for i in range(copies_for(per_call))]
+        ms = graph_ms(torch, [lambda a=a, kw=kw: qm.quant_matmul_w8a8(*a, **kw) for a, kw in copies])
+        plain = eager_ms(torch, lambda: qm.quant_matmul_w8a8_ref(*args, **kw))
+        lib_in = [(qm.quantize_rows_int8(c[0][0])[0], c[0][1].t()) for c in copies]
+        library = graph_ms(torch, [lambda t=t: torch._int_mm(*t) for t in lib_in])
+        record("quant_matmul_w8a8", f"{name} N={n} K={k}", err, tol, ms, plain,
+               bound(per_call, 2 * m * n * k, int8=True), library)
+        del copies, lib_in
 
 
 KV_LENS = {"B=1 kv_len=1": [1], "B=1 kv_len=300": [300], "B=1 kv_len=767": [767],
@@ -601,10 +772,15 @@ def stream_bytes(node, exclude=("tok_emb", "pos_emb")) -> int:
         return sum(stream_bytes(v, exclude) for k, v in node.items() if k not in exclude)
     if isinstance(node, list):
         return sum(stream_bytes(v, exclude) for v in node)
-    return node.numel() * node.element_size()
+    return node.numel() * node.element_size() if hasattr(node, "numel") else 0  # a pack's "tiled" flag: none
 
 
-def drive_serve(torch, cfg, params, mem_rate, op_rate, out):
+def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None):
+    """Phase 4 (and, with cfg.w8a8, key "w8a8_" and the W8A8 kernels
+    required, phase 6's first part): the main path through Generator, time
+    to first token, the device time per decode step, and the teacher-forced
+    checks. Returns the main path's launches and the teacher-forced
+    sequence with its logits."""
     from rten_tpu_torch.generate import Generator, GeneratorConfig, Metrics, NativeBackend
     from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.models import decoder
@@ -634,7 +810,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out):
     forwards = 1 + (N_NEW - 1)
     log(f"  served {len(tokens)} tokens after a {N_PROMPT}-token prompt in {wall:.3f} s; "
         f"launches {launches}; plain {plain or '{}'}")
-    for name in ENGINE_KERNELS["slot"]:  # the five kernels of generation at batch 1
+    for name in required or ENGINE_KERNELS["slot"]:  # the kernels of generation at batch 1
         if launches.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if any(plain.values()):
@@ -787,18 +963,20 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out):
         f"one-forward kernels - plain {logit_err:.4g}, - token by token {tbt_err:.4g}")
     if not bool(torch.isfinite(k_logits).all() and torch.isfinite(tbt_logits).all()):
         raise AssertionError("non-finite logits")
-    out.update(decode=dict(
+    out[key + "decode"] = dict(
         tokens_per_s=metrics.tokens_per_second(), ms_per_step=step_ms, bound_ms_per_step=bound_ms,
         bound_share=bound_ms / step_ms, weight_bytes=weight, kv_bytes=kv, device_ms_per_step=device_ms,
         idle_share=idle, device_us_by_kernel=by_kernel, launches=launches,
         launches_per_forward={k: v / forwards for k, v in launches.items()}, forwards=forwards,
         plain_calls=plain, served_head=tokens[:16],
-    ), prefill={str(n): v for n, v in prefill_stats.items()}, forced=dict(
+    )
+    out[key + "prefill"] = {str(n): v for n, v in prefill_stats.items()}
+    out[key + "forced"] = dict(
         one_forward_agree_kernels=int((k_gaps == 0).sum()), one_forward_agree_plain=int((p_gaps == 0).sum()),
         max_gap_kernels=k_gaps.max().item(), max_gap_plain=p_gaps.max().item(),
         logit_err_kernels_plain=logit_err, logit_err_one_forward_token_by_token=tbt_err,
-    ))
-    return launches
+    )
+    return launches, dict(seq=seq, served=served, one_forward=k_logits, token_by_token=tbt_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -854,6 +1032,66 @@ def check_streams(what, streams, refs, gaps):
     return n_diff
 
 
+def serving_specs(cfg):
+    """The N_REQUESTS seeded requests of the serving phases."""
+    import random
+
+    rnd = random.Random(7)
+    specs = []
+    for _ in range(N_REQUESTS):
+        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*NEW_RANGE)
+        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    return specs
+
+
+def solo_streams(params, cfg, specs, dev):
+    """Each request alone through Generator(NativeBackend): its stream and
+    each step's top-2 logit gap."""
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+
+    streams, gaps = [], []
+    for s in specs:
+        sampler = GapArgMax()
+        gen = Generator(NativeBackend(params, cfg, max_len=len(s["prompt"]) + s["max_new_tokens"], device=dev),
+                        GeneratorConfig(max_tokens=s["max_new_tokens"])).with_prompt(s["prompt"])
+        streams.append([int(t[0]) for t in gen.with_sampler(sampler)])
+        gaps.append(sampler.gaps)
+    return streams, gaps
+
+
+def at_8_rows(torch, kind, make, specs):
+    """ms per engine forward with 8 active rows (host clock) and the
+    device's time by kernel and idle share (profiler) over the same window:
+    the first 8 requests' prompts cut to 64 tokens, 256 new tokens each."""
+    from rten_tpu_torch.serve import Request
+
+    engine = make()
+    for s in specs[:8]:
+        engine.submit(Request(prompt=s["prompt"][:64], max_new_tokens=256))
+    forwards_per_step = engine.steps_per_tick if kind.startswith("slot") else 1
+    n_steps = max(2, 64 // forwards_per_step)  # 64 forwards timed, 64 profiled (of 256)
+    for _ in range(max(1, n_steps // 4)):  # admission, then the first steps at 8 rows
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        engine.step()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (n_steps * forwards_per_step)
+    if engine.n_active != 8:
+        raise AssertionError(f"{kind}: {engine.n_active} rows active in the timed window, not 8")
+    by_kernel = device_us_by_kernel(torch, engine.step, n_steps)
+    dev_ms = sum(by_kernel.values()) / 1e3 / forwards_per_step
+    log(f"  {kind} at 8 active rows: {host_ms:.4f} ms per forward (host clock) -> {8e3 / host_ms:.1f} tokens/s; "
+        f"device {dev_ms:.4f} ms (profiler) -> idle share {max(0.0, 1.0 - dev_ms / host_ms):.4f}; top kernels (us):")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {us / forwards_per_step:9.3f}  {name[:90]}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(ms_per_forward=host_ms, device_ms_per_forward=dev_ms, idle_share=max(0.0, 1.0 - dev_ms / host_ms),
+                tokens_per_s=8e3 / host_ms,
+                device_us_by_kernel={k: v / forwards_per_step for k, v in by_kernel.items()})
+
+
 def drive_serving(torch, cfg, params, out):
     """16 seeded requests, all queued at once, through the slot engine
     (run and run_pipelined), the paged engine (a pool that holds them all,
@@ -862,21 +1100,15 @@ def drive_serving(torch, cfg, params, out):
     held against its solo Generator(NativeBackend) stream; every run's
     launch counters are read around it."""
     import dataclasses
-    import random
     import threading
     import urllib.request
 
-    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
     from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine, ServingServer
 
     dev = torch.device("cuda", 0)
     cfg8 = dataclasses.replace(cfg, int8_kv=True)
-    rnd = random.Random(7)
-    specs = []
-    for _ in range(N_REQUESTS):
-        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*NEW_RANGE)
-        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    specs = serving_specs(cfg)
     total_new = sum(s["max_new_tokens"] for s in specs)
     log(f"  {N_REQUESTS} requests: prompts {min(len(s['prompt']) for s in specs)}-"
         f"{max(len(s['prompt']) for s in specs)} tokens, {total_new} new tokens in all")
@@ -885,13 +1117,7 @@ def drive_serving(torch, cfg, params, out):
     solo, solo_gaps = {}, {}
     t0 = time.perf_counter()
     for key, c in (("bf16", cfg), ("int8", cfg8)):
-        solo[key], solo_gaps[key] = [], []
-        for s in specs:
-            sampler = GapArgMax()
-            gen = Generator(NativeBackend(params, c, max_len=len(s["prompt"]) + s["max_new_tokens"], device=dev),
-                            GeneratorConfig(max_tokens=s["max_new_tokens"])).with_prompt(s["prompt"])
-            solo[key].append([int(t[0]) for t in gen.with_sampler(sampler)])
-            solo_gaps[key].append(sampler.gaps)
+        solo[key], solo_gaps[key] = solo_streams(params, c, specs, dev)
     log(f"  solo references (bf16 and int8 KV): {time.perf_counter() - t0:.1f} s")
 
     pages_all = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs)
@@ -1014,38 +1240,13 @@ def drive_serving(torch, cfg, params, out):
     # ms per engine forward with 8 active rows, and the device's idle share
     # (profiler) over the same window.
     step_stats = {}
-    long_specs = [dict(prompt=s["prompt"][:64], max_new_tokens=256) for s in specs[:8]]
     for kind, make in (("slot", lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev)),
                        ("paged", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all,
                                                             page_size=SERVE_PAGE, device=dev)),
                        ("slot_int8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev)),
                        ("paged_int8", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all,
                                                                  page_size=SERVE_PAGE, int8_kv=True, device=dev))):
-        engine = make()
-        for s in long_specs:
-            engine.submit(Request(**s))
-        forwards_per_step = engine.steps_per_tick if kind.startswith("slot") else 1
-        n_steps = max(2, 64 // forwards_per_step)  # 64 forwards timed, 64 profiled (of 256)
-        for _ in range(max(1, n_steps // 4)):  # admission, then the first steps at 8 rows
-            engine.step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            engine.step()
-        host_ms = (time.perf_counter() - t0) * 1e3 / (n_steps * forwards_per_step)
-        if engine.n_active != 8:
-            raise AssertionError(f"{kind}: {engine.n_active} rows active in the timed window, not 8")
-        by_kernel = device_us_by_kernel(torch, engine.step, n_steps)
-        dev_ms = sum(by_kernel.values()) / 1e3 / forwards_per_step
-        step_stats[kind] = dict(ms_per_forward=host_ms, device_ms_per_forward=dev_ms,
-                                idle_share=max(0.0, 1.0 - dev_ms / host_ms), tokens_per_s=8e3 / host_ms,
-                                device_us_by_kernel={k: v / forwards_per_step for k, v in by_kernel.items()})
-        log(f"  {kind} at 8 active rows: {host_ms:.4f} ms per forward (host clock) -> {8e3 / host_ms:.1f} tokens/s; "
-            f"device {dev_ms:.4f} ms (profiler) -> idle share {max(0.0, 1.0 - dev_ms / host_ms):.4f}; top kernels (us):")
-        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"    {us / forwards_per_step:9.3f}  {name[:90]}")
-        del engine
-        torch.cuda.empty_cache()
+        step_stats[kind] = at_8_rows(torch, kind, make, specs)
 
     for res in results.values():
         del res["streams"]
@@ -1053,6 +1254,92 @@ def drive_serving(torch, cfg, params, out):
                                     for s in specs], runs=results, differing=diffs, at_8_rows=step_stats,
                           http=dict(health=health, stats=stats))
     return launches_total
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: W8A8 (DecoderConfig(w8a8=True)) at full width
+# ---------------------------------------------------------------------------
+
+W8A8_KERNELS = ("quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8", "quant_matmul_w8a8", "quantize_rows_int8",
+                "decode_attention", "flash_attention", "quant_matmul_int8")  # the last: the tiled packs
+W8A8_GATE = 0.10  # relative RMS of W8A8 against weight-only logits: the bound PERF.md states
+
+
+def rel_rms(a, b) -> float:
+    return ((a.double() - b.double()).pow(2).mean() / b.double().pow(2).mean()).sqrt().item()
+
+
+def drive_w8a8(torch, cfg, params, mem_rate, int8_rate, out):
+    """GPT-2-small with the same int8 weights in W8A8: phase 4's path
+    (Generator, time to first token, the teacher-forced checks), the
+    accuracy gate against the weight-only path on the same 32 teacher-forced
+    steps, then phase 5's 16 requests through the slot engine, each stream
+    equal to its solo W8A8 Generator stream, and ms per forward at 8 rows."""
+    import dataclasses
+
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import Request, ServingEngine
+
+    dev = torch.device("cuda", 0)
+    cfg8 = dataclasses.replace(cfg, w8a8=True)
+    launches, forced = drive_serve(torch, cfg8, params, mem_rate, int8_rate, out, key="w8a8_", required=W8A8_KERNELS)
+
+    # The accuracy gate: the same teacher-forced steps through the
+    # weight-only path, as one forward and token by token.
+    seq, served = forced["seq"], forced["served"]
+    lg, _ = decoder.prefill(params, cfg, seq, decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda"))
+    wo_one = lg[0, N_PROMPT - 1:]
+    c = decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda")
+    lg, c = decoder.prefill(params, cfg, seq[:, :N_PROMPT], c, last_only=True)
+    steps = [lg[0, -1]]
+    for i in range(N_FORCED - 1):
+        lg, c = decoder.forward(params, cfg, served[i].view(1, 1).to(torch.int32), c)
+        steps.append(lg[0, -1])
+    wo_tbt = torch.stack(steps)
+    gate = dict(one_forward=rel_rms(forced["one_forward"], wo_one),
+                token_by_token=rel_rms(forced["token_by_token"], wo_tbt),
+                per_step_max=max(rel_rms(a, b) for a, b in zip(forced["token_by_token"], wo_tbt)),
+                argmax_agree=int((forced["token_by_token"].argmax(-1) == wo_tbt.argmax(-1)).sum()), bound=W8A8_GATE)
+    log(f"  accuracy gate: W8A8 against weight-only logits over the {N_FORCED} teacher-forced steps, relative RMS "
+        f"{gate['one_forward']:.5f} (one forward) and {gate['token_by_token']:.5f} (token by token; worst step "
+        f"{gate['per_step_max']:.5f}), bound {W8A8_GATE}; the same argmax at {gate['argmax_agree']}/{N_FORCED}")
+    if not max(gate["one_forward"], gate["token_by_token"]) <= W8A8_GATE:
+        raise AssertionError(f"W8A8 logits differ from the weight-only ones by more than the gate: {gate}")
+
+    # Phase 5's requests through the slot engine in W8A8, against their solo streams.
+    specs = serving_specs(cfg)
+    total_new = sum(s["max_new_tokens"] for s in specs)
+    t0 = time.perf_counter()
+    solo, _gaps = solo_streams(params, cfg8, specs, dev)
+    log(f"  solo W8A8 references: {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev)
+    reqs = [engine.submit(Request(**s)) for s in specs]
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    missing = [k for k in W8A8_KERNELS if run_launches.get(k, 0) == 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"W8A8 slot run: kernels not launched {missing}, plain calls {plain}")
+    equal = sum(r.output == ref for r, ref in zip(reqs, solo))
+    log(f"  W8A8 slot run: {total_new} tokens in {wall:.3f} s -> {total_new / wall:.1f} generated tokens/s; "
+        f"{engine.steps} forwards; streams equal to their solo streams {equal}/{N_REQUESTS}; launches {run_launches}")
+    if equal != N_REQUESTS:
+        raise AssertionError(f"W8A8 slot run: {N_REQUESTS - equal} streams differ from their solo streams")
+    del engine
+    torch.cuda.empty_cache()
+    at_8 = at_8_rows(torch, "slot_w8a8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8,
+                                                             device=dev), specs)
+    out["w8a8_gate"] = gate
+    out["w8a8_serving"] = dict(wall_s=wall, tokens_per_s=total_new / wall, launches=run_launches,
+                               streams_equal=equal, at_8_rows=at_8)
+    for name, n in run_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    return launches
 
 
 KERNELS = {
@@ -1072,6 +1359,14 @@ KERNELS = {
                                    replaces="rten_tpu/kernels/paged_attention.py:592", timed="B=1 kv_len=300"),
     "paged_decode_attention_int8": dict(source="rten_tpu_torch/kernels/csrc/paged_attention_int8.cu",
                                         replaces="rten_tpu/kernels/paged_attention.py:413", timed="B=1 kv_len=300"),
+    "quant_gemv_int8:w8a8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
+                                 replaces="rten_tpu/kernels/quant_matmul.py:224", timed="lm_head_argmax M=1"),
+    "quant_mlp_int8:w8a8": dict(source="rten_tpu_torch/kernels/csrc/quant_mlp.cu",
+                                replaces="rten_tpu/kernels/quant_matmul.py:895", timed="mlp+next_qkv M=1"),
+    "quant_matmul_w8a8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
+                              replaces="rten_tpu/kernels/quant_matmul.py:760", timed="up+gelu M=64"),
+    "quantize_rows_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
+                               replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64"),
 }
 
 
@@ -1093,18 +1388,19 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/6] device")
+    log("[1/7] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    card, mem_rate, op_rate = card_rates(kind)
+    card, mem_rate, op_rate, int8_rate = card_rates(kind)
     log(f"  {kind}; nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-        f"rates used: {mem_rate / 1e12} TB/s, {op_rate / 1e12} TFLOP/s bf16 ({card} data sheet)")
-    bound = Bound(mem_rate, op_rate)
-    detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate))
+        f"rates used: {mem_rate / 1e12} TB/s, {op_rate / 1e12} TFLOP/s bf16, {int8_rate / 1e12} TOP/s int8 "
+        f"({card} data sheet, dense)")
+    bound = Bound(mem_rate, op_rate, int8_rate)
+    detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate))
 
-    log("[2/6] build")
+    log("[2/7] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -1119,7 +1415,7 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
-    log("[3/6] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/7] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     detail["cases"] = cases
 
@@ -1127,17 +1423,21 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/6] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
-    launches = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
+    log("[4/7] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    launches, _forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/6] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/7] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
+        launches[name] = launches.get(name, 0) + n
+
+    log("[6/7] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
     missing = [name for name in KERNELS if launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
 
-    log("[6/6] summary")
+    log("[7/7] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -2,11 +2,12 @@
 
 The JAX package ``rten_tpu`` is the reference; this package runs beside it
 and imports nothing of it (and never ``jax``). So far it carries the main
-path: GPT-2-class INT8 weight-only prefill (a prompt as one forward) and
-greedy decode over a preallocated KV cache, bf16 or int8 (``models.decoder``,
+path: GPT-2-class INT8 prefill (a prompt as one forward) and greedy decode
+over a preallocated KV cache, bf16 or int8, with int8 weights only or, with
+``DecoderConfig(w8a8=True)``, int8 activations too (``models.decoder``,
 ``generate``), and continuous-batching serving over slot or paged KV caches
-with an HTTP API (``serve``), on eight hand-written CUDA kernels for
-``sm_90a`` (``kernels``). Entry points run on the card by default
+with an HTTP API (``serve``), on hand-written CUDA kernels for ``sm_90a``
+(``kernels``). Entry points run on the card by default
 (``device="cuda"``) and run the kernels' plain PyTorch versions when asked
 for ``device="cpu"``.
 """

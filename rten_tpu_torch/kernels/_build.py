@@ -38,7 +38,7 @@ SIGNATURES = {
     "rt_max_blocks": [],
     "rt_quant_gemv": [
         _P, _I, _I,                  # x, x_bf16, m
-        _P, _P, _I, _I,              # w_t, scales, n, k
+        _P, _P, _I, _I, _I,          # w_t, scales, n, k, w8a8
         _P, _P, _P, _I, _F,          # bias, norm_scale, norm_bias, norm, eps
         _I, _P, _P, _I,              # act, residual, out, out_bf16
         _I, _P, _P, _P,              # argmax_n, part_max, part_idx, argmax_out
@@ -51,7 +51,7 @@ SIGNATURES = {
         _P, _P, _I, _F, _I,          # ln scale, ln bias, norm, eps, act
         _P, _P, _P, _P,              # residual, out, up_buf, h_buf
         _P, _P, _P, _I, _P, _P, _P,  # w_qkv_t, s_qkv, b_qkv, nq, next ln scale, next ln bias, qkv_out
-        _P,                          # stream
+        _I, _P,                      # w8a8, stream
     ],
     "rt_decode_attention": [
         _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
@@ -63,6 +63,16 @@ SIGNATURES = {
     ],
     "rt_quant_matmul": [
         _P, _I, _I, _I,              # x, x_bf16, m, k
+        _P, _P, _P, _I,              # w_t, scales, bias, n
+        _I, _P, _I,                  # act, out, out_bf16
+        _P,                          # stream
+    ],
+    "rt_quantize_rows": [
+        _P, _I, _I, _I,              # x, x_bf16, m, k
+        _P, _P, _P,                  # codes, sx, stream
+    ],
+    "rt_quant_matmul_w8a8": [
+        _P, _P, _I, _I,              # codes, sx, m, k
         _P, _P, _P, _I,              # w_t, scales, bias, n
         _I, _P, _I,                  # act, out, out_bf16
         _P,                          # stream

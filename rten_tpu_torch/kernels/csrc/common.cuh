@@ -1,7 +1,8 @@
-// Device helpers shared by every kernel source: warp reductions, activation
-// loads and stores in f32 or bf16, the epilogue activations, and the exact
-// int8 -> f32 conversion. Everything has internal linkage, so each .cu file
-// that includes this compiles its own copy.
+// Device helpers shared by every kernel source: warp and block reductions,
+// activation loads and stores in f32 or bf16, the W8A8 row quantization, the
+// epilogue activations, the exact int8 -> f32 conversion, and ldmatrix.
+// Everything has internal linkage, so each .cu file that includes this
+// compiles its own copy.
 #pragma once
 
 #include <cmath>
@@ -21,10 +22,115 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ int warp_sum(int v) {  // exact
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// W8A8 activation quantization, per row (the TPU's _act_quantize,
+// rten_tpu/kernels/quant_matmul.py:124): scale = absmax / 127 by IEEE
+// division (1 for an all-zero row), code = rint(x / scale), half to even,
+// clipped to +-127. No --use_fast_math, so `/` is the IEEE division.
+__device__ __forceinline__ float row_scale(float absmax) { return absmax == 0.f ? 1.f : absmax / 127.f; }
+
+__device__ __forceinline__ unsigned quantize_code(float x, float scale) {
+  return static_cast<unsigned>(static_cast<int>(fminf(fmaxf(rintf(x / scale), -127.f), 127.f))) & 0xffu;
+}
+
+// Four codes as one 32-bit word, element i in byte i (the order __dp4a
+// pairs them with four int8 weights).
+__device__ __forceinline__ unsigned quantize4(const float4& x, float scale) {
+  return quantize_code(x.x, scale) | (quantize_code(x.y, scale) << 8) | (quantize_code(x.z, scale) << 16) |
+         (quantize_code(x.w, scale) << 24);
+}
+
+__device__ __forceinline__ float absmax4(const float4& x) {
+  return fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
+}
+
+// Block-wide sum (or max) of one value per thread of a block of WARPS
+// warps; every thread gets the same result, combined in a fixed order. Ends
+// on a barrier, so `red` ([WARPS] floats of shared memory) can be reused at
+// once.
+template <bool MAX, int WARPS>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = MAX ? warp_max(v) : warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) t = MAX ? fmaxf(t, red[w]) : t + red[w];
+  __syncthreads();
+  return t;
+}
+
+// One row's W8A8 quantization by a block of THREADS threads: load(v) gives
+// float4 v (< nv) of the row, read twice (absmax, then codes), thread t
+// taking v = t, t + THREADS, ...; writes the row's codes, four to a word,
+// and returns its scale. The absmax is a block max, so exact in any order.
+template <int THREADS, typename Load>
+__device__ __forceinline__ float quantize_row(const Load& load, int nv, unsigned* codes, float* red) {
+  float amax = 0.f;
+  for (int v = threadIdx.x; v < nv; v += THREADS) amax = fmaxf(amax, absmax4(load(v)));
+  const float scale = row_scale(block_reduce<true, THREADS / 32>(amax, red));
+  for (int v = threadIdx.x; v < nv; v += THREADS) codes[v] = quantize4(load(v), scale);
+  return scale;
+}
+
+// Four consecutive activations (i % 4 == 0) as f32, one 8- or 16-byte load.
+__device__ __forceinline__ float4 load_act4(const void* p, int bf16, size_t i) {
+  if (bf16) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i));
+    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+  return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p) + i));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 b16 matrices (8 rows of 16 bytes each) from shared memory;
+// lane i gives the address of row i % 8 of matrix i / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// Store two neighbouring outputs (row, col) and (row, col + 1) of an
+// [m, n] f32 or bf16 matrix; the ragged edges are masked.
+__device__ __forceinline__ void store_out_pair(void* p, int bf16, int m, int n, int row, int col, float v0,
+                                               float v1) {
+  if (row >= m || col >= n) return;
+  const size_t o = (size_t)row * n + col;
+  const bool pair = col + 1 < n && (n & 1) == 0;  // o even: an aligned pair
+  if (bf16) {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p);
+    if (pair) {
+      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      out[o] = __float2bfloat16(v0);
+      if (col + 1 < n) out[o + 1] = __float2bfloat16(v1);
+    }
+  } else {
+    float* out = static_cast<float*>(p);
+    if (pair) {
+      *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+    } else {
+      out[o] = v0;
+      if (col + 1 < n) out[o + 1] = v1;
+    }
+  }
 }
 
 __device__ __forceinline__ float load_act(const void* p, int bf16, size_t i) {

@@ -37,9 +37,31 @@
 //   block writes one partial per row and argmax_reduce_kernel picks the
 //   maximum, the lowest column index among equal maxima (the TPU rule,
 //   where an earlier stripe wins a tie).
+//
+// W8A8 mode (a.w8a8; the w8a8 branches of the TPU's _gemv_kernel,
+// quant_matmul.py:224-261, and of _mlp_kernel's _qdot hops, :895-915):
+// - Prologue: each row in turn is loaded, normalised (the norm helpers of
+//   gemv_prologue) and quantized per row (quantize_row of common.cuh: scale
+//   = absmax / 127, a block max, so exact in any order; codes by IEEE
+//   division and rint) into int8
+//   codes in shared memory, k bytes a row in natural order, so a lane's 16
+//   codes line up with its 16 weight bytes. The f32 row is quantized as it
+//   is, never rounded to bf16 first (the TPU quantizes the f32 row).
+//   Shared memory: one f32 staging row plus the m * k code bytes (36 KB at
+//   8 rows of K 3072, 9 KB at K 768), so that all blocks of a launch fit
+//   in one wave: every block repeats the prologue, and staging all f32
+//   rows (120 KB / 30 KB) would add waves (PERF.md).
+// - Body: four __dp4a per 16-byte weight vector and row into int32 sums,
+//   summed across the warp exactly; the epilogue is ((float)acc * sx) *
+//   scale, rounded after each product (no FMA contraction, as the TPU's two
+//   f32 products), then bias, activation, residual or argmax as above.
+// - On the TPU stripe 0 quantizes once into scratch that later grid steps
+//   read, which its "parallel" grid (norm=None, no argmax) breaks
+//   (quant_matmul.py:512-518). Here every block quantizes the rows itself.
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -64,7 +86,8 @@ struct GemvArgs {
   const float* norm_bias;   // [k] or null
   int norm;               // 0 none, 1 layernorm, 2 rmsnorm
   float eps;
-  int dot_bf16;           // round the normalised rows to bf16 before the dot
+  int dot_bf16;           // round the normalised rows to bf16 before the dot (not in w8a8)
+  int w8a8;               // quantize the rows per row to int8; s8 x s8 -> s32 dots
   int act;                // 0 none, 1 gelu (erf polynomial), 2 relu
   const void* residual;   // [m, n] of the output dtype, or null
   void* out;              // [m, n] f32 or bf16 (out_bf16), or null
@@ -103,17 +126,40 @@ __device__ __forceinline__ int perm_index(int e, int kc) {
   return ((q * kc + c) << 2) | t;
 }
 
-// Four consecutive activations (i % 4 == 0) as f32, one 8- or 16-byte load.
-__device__ __forceinline__ float4 load_act4(const void* p, int bf16, size_t i) {
-  if (bf16) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i));
-    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-  }
-  return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p) + i));
+__device__ __forceinline__ float hsum4(const float4& v) { return v.x + v.y + v.z + v.w; }
+
+// The row norm's arithmetic, shared by both prologues. First pass: four
+// values' share of the row total, the sum of x (layernorm) or of x^2
+// (rmsnorm).
+__device__ __forceinline__ float norm_part4(const float4& x, int norm) {
+  const float4 sq = make_float4(x.x * x.x, x.y * x.y, x.z * x.z, x.w * x.w);
+  return norm == 2 ? hsum4(sq) : hsum4(x);
 }
 
-__device__ __forceinline__ float hsum4(const float4& v) { return v.x + v.y + v.z + v.w; }
+__device__ __forceinline__ float norm_inv(float tot, float kf, float eps) { return rsqrtf(tot / kf + eps); }
+
+// The mean and 1 / sqrt(var + eps) from the first pass's total; rmsnorm's
+// inv is final (from the mean square), layernorm's is replaced by norm_inv
+// of the centred sum of squares.
+__device__ __forceinline__ void norm_stats(int norm, float tot, float kf, float eps, float& mean, float& inv) {
+  mean = norm == 1 ? tot / kf : 0.f;
+  inv = norm_inv(tot, kf, eps);
+}
+
+// Layernorm's second pass: four values' centred sum of squares.
+__device__ __forceinline__ float centred_sq4(const float4& x, float mean) {
+  const float dx = x.x - mean, dy = x.y - mean, dz = x.z - mean, dw = x.w - mean;
+  return dx * dx + dy * dy + dz * dz + dw * dw;
+}
+
+// The normalise step: (x - mean) * inv * scale + bias.
+__device__ __forceinline__ float4 normalize4(float4 x, float mean, float inv, const float4& ns, const float4& nb) {
+  x.x = (x.x - mean) * inv * ns.x + nb.x;
+  x.y = (x.y - mean) * inv * ns.y + nb.y;
+  x.z = (x.z - mean) * inv * ns.z + nb.z;
+  x.w = (x.w - mean) * inv * ns.w + nb.w;
+  return x;
+}
 
 // Block-wide sums of each row's per-thread partials (rows < m), into tot.
 template <int MR>
@@ -171,9 +217,7 @@ __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
         const int v = v0 + i * GEMV_THREADS;
         if (v < nv) {
           row[perm_index(4 * v, kc) >> 2] = val[i];
-          const float4 sq = make_float4(val[i].x * val[i].x, val[i].y * val[i].y,
-                                        val[i].z * val[i].z, val[i].w * val[i].w);
-          part[r] += a.norm == 2 ? hsum4(sq) : hsum4(val[i]);
+          part[r] += norm_part4(val[i], a.norm);
         }
       }
     }
@@ -184,25 +228,18 @@ __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
     float tot[MR];
     block_row_sums<MR>(part, a.m, red[0], tot);
 #pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      mean[r] = a.norm == 1 ? tot[r] / kf : 0.f;
-      inv[r] = rsqrtf(tot[r] / kf + a.eps);  // rmsnorm: from the mean square
-    }
+    for (int r = 0; r < MR; ++r) norm_stats(a.norm, tot[r], kf, a.eps, mean[r], inv[r]);
     if (a.norm == 1) {  // layernorm: the variance, from the centred values
 #pragma unroll
       for (int r = 0; r < MR; ++r) {
         part[r] = 0.f;
         if (r >= a.m) continue;
         const float4* row = reinterpret_cast<const float4*>(xs + r * a.k);
-        for (int v = tid; v < nv; v += GEMV_THREADS) {
-          const float4 x = row[perm_index(4 * v, kc) >> 2];
-          const float dx = x.x - mean[r], dy = x.y - mean[r], dz = x.z - mean[r], dw = x.w - mean[r];
-          part[r] += dx * dx + dy * dy + dz * dz + dw * dw;
-        }
+        for (int v = tid; v < nv; v += GEMV_THREADS) part[r] += centred_sq4(row[perm_index(4 * v, kc) >> 2], mean[r]);
       }
       block_row_sums<MR>(part, a.m, red[1], tot);
 #pragma unroll
-      for (int r = 0; r < MR; ++r) inv[r] = rsqrtf(tot[r] / kf + a.eps);
+      for (int r = 0; r < MR; ++r) inv[r] = norm_inv(tot[r], kf, a.eps);
     }
   }
   if (a.norm || a.dot_bf16) {
@@ -226,12 +263,7 @@ __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
           const int v = v0 + i * GEMV_THREADS;
           if (v >= nv) break;
           float4 x = row[perm_index(4 * v, kc) >> 2];
-          if (a.norm) {
-            x.x = (x.x - mean[r]) * inv[r] * ns[i].x + nb[i].x;
-            x.y = (x.y - mean[r]) * inv[r] * ns[i].y + nb[i].y;
-            x.z = (x.z - mean[r]) * inv[r] * ns[i].z + nb[i].z;
-            x.w = (x.w - mean[r]) * inv[r] * ns[i].w + nb[i].w;
-          }
+          if (a.norm) x = normalize4(x, mean[r], inv[r], ns[i], nb[i]);
           if (a.dot_bf16) {
             x = make_float4(round_bf16(x.x), round_bf16(x.y), round_bf16(x.z), round_bf16(x.w));
           }
@@ -243,10 +275,50 @@ __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
   __syncthreads();
 }
 
+// The W8A8 prologue: row by row, load into the f32 staging row, normalise,
+// and quantize (quantize_row) into the row's int8 codes in xq [m, k] and its
+// scale sx[r]. Each thread reads and writes only its own elements of the
+// staging row, so only the reductions need barriers.
+__device__ void gemv_prologue_w8a8(const GemvArgs& a, float* stage, int8_t* xq, float* sx) {
+  __shared__ float red[GEMV_WARPS];
+  const int tid = threadIdx.x, nv = a.k >> 2;
+  const float kf = (float)a.k;
+  float4* row = reinterpret_cast<float4*>(stage);
+  for (int r = 0; r < a.m; ++r) {
+    float part = 0.f;
+    for (int v = tid; v < nv; v += GEMV_THREADS) {
+      const float4 x = load_act4(a.x, a.x_bf16, (size_t)r * a.k + 4 * v);
+      row[v] = x;
+      part += norm_part4(x, a.norm);
+    }
+    if (a.norm) {
+      float mean, inv;
+      norm_stats(a.norm, block_reduce<false, GEMV_WARPS>(part, red), kf, a.eps, mean, inv);
+      if (a.norm == 1) {  // layernorm: the variance, from the centred values
+        part = 0.f;
+        for (int v = tid; v < nv; v += GEMV_THREADS) part += centred_sq4(row[v], mean);
+        inv = norm_inv(block_reduce<false, GEMV_WARPS>(part, red), kf, a.eps);
+      }
+      for (int v = tid; v < nv; v += GEMV_THREADS) {
+        const float4 nb = a.norm_bias ? __ldg(reinterpret_cast<const float4*>(a.norm_bias) + v)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        row[v] = normalize4(row[v], mean, inv, __ldg(reinterpret_cast<const float4*>(a.norm_scale) + v), nb);
+      }
+    }
+    unsigned* codes = reinterpret_cast<unsigned*>(xq + (size_t)r * a.k);
+    const float scale = quantize_row<GEMV_THREADS>([&](int v) { return row[v]; }, nv, codes, red);
+    if (tid == 0) sx[r] = scale;
+  }
+  __syncthreads();
+}
+
 // MR: rows the kernel is compiled for (m <= MR; 1 on the batch-1 decode
-// path, so the unrolled row loops stay short). CPW: columns per warp.
-template <int MR, int CPW>
-__device__ void gemv_body(const GemvArgs& a, const float* xs) {
+// path, so the unrolled row loops stay short). CPW: columns per warp. W8:
+// the W8A8 mode, reading the codes xq and row scales sx of
+// gemv_prologue_w8a8 instead of the f32 rows xs.
+template <int MR, int CPW, bool W8>
+__device__ void gemv_body(const GemvArgs& a, const float* xs, const int8_t* xq, const float* sx) {
+  using Acc = std::conditional_t<W8, int, float>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int kc = a.k >> 4;
   const int groups = (a.n + CPW - 1) / CPW;
@@ -275,11 +347,11 @@ __device__ void gemv_body(const GemvArgs& a, const float* xs) {
     for (int r = 0; r < MR; ++r) {
       res[r] = (a.residual && r < a.m) ? load_act(a.residual, a.out_bf16, (size_t)r * a.n + my_col) : 0.f;
     }
-    float acc[CPW][MR];
+    Acc acc[CPW][MR];
 #pragma unroll
     for (int j = 0; j < CPW; ++j) {
 #pragma unroll
-      for (int r = 0; r < MR; ++r) acc[j][r] = 0.f;
+      for (int r = 0; r < MR; ++r) acc[j][r] = Acc(0);
     }
     // U chunks per lane in flight: all loads of a step issue before its math.
     constexpr int U = CPW == 1 ? 4 : 2;
@@ -297,7 +369,18 @@ __device__ void gemv_body(const GemvArgs& a, const float* xs) {
         if (c >= kc) break;
 #pragma unroll
         for (int r = 0; r < MR; ++r) {
-          if (r < a.m) {
+          if (r >= a.m) continue;
+          if constexpr (W8) {
+            const int4 q = reinterpret_cast<const int4*>(xq + r * a.k)[c];
+#pragma unroll
+            for (int j = 0; j < CPW; ++j) {
+              int sum = acc[j][r];
+              sum = __dp4a(wv[u][j].x, q.x, sum);
+              sum = __dp4a(wv[u][j].y, q.y, sum);
+              sum = __dp4a(wv[u][j].z, q.z, sum);
+              acc[j][r] = __dp4a(wv[u][j].w, q.w, sum);
+            }
+          } else {
             const float4* xr = reinterpret_cast<const float4*>(xs + r * a.k);
             const float4 x0 = xr[c], x1 = xr[kc + c], x2 = xr[2 * kc + c], x3 = xr[3 * kc + c];
             const float xv[16] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w,
@@ -329,7 +412,12 @@ __device__ void gemv_body(const GemvArgs& a, const float* xs) {
 #pragma unroll
       for (int r = 0; r < MR; ++r) {
         if (r >= a.m) continue;
-        float v = acc[j][r] * sc;
+        float v;
+        if constexpr (W8) {
+          v = __fmul_rn(__fmul_rn(__int2float_rn(acc[j][r]), sx[r]), sc);
+        } else {
+          v = acc[j][r] * sc;
+        }
         if (a.bias) v = v + bb;
         v = activate(v, a.act);
         const size_t o = (size_t)r * a.n + col;
@@ -377,12 +465,21 @@ __device__ void gemv_body(const GemvArgs& a, const float* xs) {
   }
 }
 
-template <int MR, int CPW>
+// Dynamic shared memory: the f32 rows [m, k], or (W8) one f32 staging row
+// and the int8 codes [m, k] after it.
+template <int MR, int CPW, bool W8>
 __global__ void __launch_bounds__(GEMV_THREADS) gemv_kernel(GemvArgs a) {
   extern __shared__ float4 gemv_smem[];
   float* xs = reinterpret_cast<float*>(gemv_smem);
-  gemv_prologue<MR>(a, xs);
-  gemv_body<MR, CPW>(a, xs);
+  if constexpr (W8) {
+    __shared__ float sx[MR];
+    int8_t* xq = reinterpret_cast<int8_t*>(xs + a.k);
+    gemv_prologue_w8a8(a, xs, xq, sx);
+    gemv_body<MR, CPW, true>(a, nullptr, xq, sx);
+  } else {
+    gemv_prologue<MR>(a, xs);
+    gemv_body<MR, CPW, false>(a, xs, nullptr, nullptr);
+  }
 }
 
 // Second pass of the argmax: one block per row over the per-block partials.
@@ -433,7 +530,7 @@ int max_blocks() {
   return cached[dev];
 }
 
-template <int MR, int CPW>
+template <int MR, int CPW, bool W8>
 cudaError_t launch_gemv_t(const GemvArgs& a, int grid, size_t smem, cudaStream_t stream) {
   // Set the dynamic limit to what this launch needs, from the first launch
   // on: the kernel's static shared memory counts against the same limits
@@ -442,18 +539,22 @@ cudaError_t launch_gemv_t(const GemvArgs& a, int grid, size_t smem, cudaStream_t
   static size_t smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gemv_kernel<MR, CPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gemv_kernel<MR, CPW, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  gemv_kernel<MR, CPW><<<grid, GEMV_THREADS, smem, stream>>>(a);
+  gemv_kernel<MR, CPW, W8><<<grid, GEMV_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int MR>
 cudaError_t launch_gemv_rows(const GemvArgs& a, int cpw, int grid, size_t smem, cudaStream_t stream) {
-  return cpw == 4 ? launch_gemv_t<MR, 4>(a, grid, smem, stream)
-                  : launch_gemv_t<MR, 1>(a, grid, smem, stream);
+  if (a.w8a8) {
+    return cpw == 4 ? launch_gemv_t<MR, 4, true>(a, grid, smem, stream)
+                    : launch_gemv_t<MR, 1, true>(a, grid, smem, stream);
+  }
+  return cpw == 4 ? launch_gemv_t<MR, 4, false>(a, grid, smem, stream)
+                  : launch_gemv_t<MR, 1, false>(a, grid, smem, stream);
 }
 
 cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
@@ -463,7 +564,8 @@ cudaError_t launch_gemv(const GemvArgs& a, cudaStream_t stream) {
       (a.norm_bias && (reinterpret_cast<uintptr_t>(a.norm_bias) & 15))) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)a.m * a.k * sizeof(float);
+  const size_t smem = a.w8a8 ? (size_t)a.k * sizeof(float) + (size_t)a.m * a.k
+                             : (size_t)a.m * a.k * sizeof(float);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int cpw = a.n >= 8192 ? 4 : 1;
   const int groups = (a.n + cpw - 1) / cpw;

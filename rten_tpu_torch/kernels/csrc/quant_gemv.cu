@@ -6,6 +6,10 @@
 // computes layer 0's qkv (ln1 fused) and the lm_head (final norm fused, and
 // the argmax over the vocabulary in greedy decoding).
 //
+// With w8a8 it also replaces the W8A8 branch of _gemv_kernel (:224-261):
+// the rows are quantized per row to int8 in the prologue and the dots are
+// s8 x s8 -> s32 (__dp4a).
+//
 // Bound on the H100: bytes, the int8 weight stream (the lm_head of
 // GPT-2-small streams 51200 x 768 bytes per token). The kernel is
 // gemv_kernel of gemv.cuh, whose notes give the design; the argmax takes a
@@ -21,7 +25,7 @@ extern "C" const char* rt_error_string(int err) {
 
 extern "C" int rt_quant_gemv(
     const void* x, int x_bf16, int m,
-    const int8_t* w_t, const float* scales, int n, int k,
+    const int8_t* w_t, const float* scales, int n, int k, int w8a8,
     const float* bias, const float* norm_scale, const float* norm_bias, int norm, float eps,
     int act, const void* residual, void* out, int out_bf16,
     int argmax_n, float* part_max, int* part_idx, int* argmax_out,
@@ -40,6 +44,7 @@ extern "C" int rt_quant_gemv(
   a.norm = norm;
   a.eps = eps;
   a.dot_bf16 = x_bf16;  // the dot runs in the activations' dtype
+  a.w8a8 = w8a8;
   a.act = act;
   a.residual = residual;
   a.out = out;

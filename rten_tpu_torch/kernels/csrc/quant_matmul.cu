@@ -59,18 +59,6 @@ struct QmArgs {
   int out_bf16;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 8 b16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
 // c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
@@ -90,27 +78,8 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ void store_pair(const QmArgs& a, int row, int col, float v0, float v1,
                                            float s0, float s1, float b0, float b1) {
   if (row >= a.m || col >= a.n) return;
-  v0 = activate(v0 * s0 + b0, a.act);
-  v1 = activate(v1 * s1 + b1, a.act);
-  const size_t o = (size_t)row * a.n + col;
-  const bool pair = col + 1 < a.n && (a.n & 1) == 0;  // o even: an aligned pair
-  if (a.out_bf16) {
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-    if (pair) {
-      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
-    } else {
-      out[o] = __float2bfloat16(v0);
-      if (col + 1 < a.n) out[o + 1] = __float2bfloat16(v1);
-    }
-  } else {
-    float* out = static_cast<float*>(a.out);
-    if (pair) {
-      *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
-    } else {
-      out[o] = v0;
-      if (col + 1 < a.n) out[o + 1] = v1;
-    }
-  }
+  store_out_pair(a.out, a.out_bf16, a.m, a.n, row, col, activate(v0 * s0 + b0, a.act),
+                 activate(v1 * s1 + b1, a.act));
 }
 
 __device__ __forceinline__ void col_params(const QmArgs& a, int col, float& s, float& b) {

@@ -19,6 +19,11 @@
 //      rounded copy: the TPU kernel normalises the f32 value,
 //      quant_matmul.py:914), bias.
 //
+// With w8a8 (the TPU's w_convert="w8a8", _qdot :139) every phase runs
+// gemv_kernel's W8A8 mode: phase 1 quantizes the normalised rows, phase 2
+// the f32 up scratch (per row, over FF), phase 3 the normalised f32 block
+// output, each per row to int8 before its s8 x s8 -> s32 dots.
+//
 // Bound on the H100: bytes, the three int8 weight streams (2.36 + 2.36 +
 // 1.77 MB on GPT-2-small). Each phase is a weight-streaming GEMV; the
 // intermediates are a few KB and stay in L2.
@@ -33,7 +38,7 @@ extern "C" int rt_quant_mlp(
     const void* residual, void* out, float* up_buf, float* h_buf,
     const int8_t* w_qkv_t, const float* s_qkv, const float* b_qkv, int nq,
     const float* next_norm_scale, const float* next_norm_bias, void* qkv_out,
-    void* stream) {
+    int w8a8, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   rt::GemvArgs up{};
@@ -50,6 +55,7 @@ extern "C" int rt_quant_mlp(
   up.norm = norm;
   up.eps = eps;
   up.dot_bf16 = bf16;
+  up.w8a8 = w8a8;
   up.act = act;
   up.out_f32 = up_buf;
   cudaError_t e = rt::launch_gemv(up, st);
@@ -65,6 +71,7 @@ extern "C" int rt_quant_mlp(
   down.k = ff;
   down.bias = b_down;
   down.dot_bf16 = bf16;
+  down.w8a8 = w8a8;
   down.residual = residual;
   down.out = out;
   down.out_bf16 = bf16;
@@ -86,6 +93,7 @@ extern "C" int rt_quant_mlp(
   qkv.norm = norm;
   qkv.eps = eps;
   qkv.dot_bf16 = bf16;
+  qkv.w8a8 = w8a8;
   qkv.out = qkv_out;
   qkv.out_bf16 = bf16;
   return static_cast<int>(rt::launch_gemv(qkv, st));

@@ -1,12 +1,17 @@
-"""INT8 weight-only matmul kernels: the decode ``quant_gemv_int8`` and
-``quant_mlp_int8`` and the prefill ``quant_matmul_int8``, each beside its
-plain PyTorch version.
+"""INT8 matmul kernels: the decode ``quant_gemv_int8`` and
+``quant_mlp_int8``, the prefill ``quant_matmul_int8`` and
+``quant_matmul_w8a8`` (with its row quantizer ``quantize_rows_int8``), each
+beside its plain PyTorch version.
 
 Counterpart of ``rten_tpu/kernels/quant_matmul.py`` (``quant_gemv_int8``
-:339, ``quant_matmul_int8`` :590, ``quant_mlp_int8`` :935) for the
-weight-only path; its ``w8a8`` mode is not ported yet. Weights are int8 with
-per-output-channel f32 scales; activations are f32 or bf16, and every sum
-is kept in f32.
+:339, ``quant_matmul_int8`` :590, ``quant_matmul_w8a8`` :760,
+``quant_mlp_int8`` :935). Weights are int8 with per-output-channel f32
+scales; activations are f32 or bf16. Weight-only (the default), every sum
+is kept in f32. ``w8a8=True`` on the GEMV and the MLP (the JAX package's
+``w_convert="w8a8"``) and ``quant_matmul_w8a8`` quantize the activations
+per row to int8 first (``quantize_rows_int8``: the JAX package's
+``_act_quantize``, :124) and take s8 × s8 sums exactly in int32, rescaled
+as ``(acc · sx) · scale`` in f32.
 
 Weight layout: the port stores every int8 matrix transposed, ``[N, K]`` with
 K contiguous (``int8_pack``), so that a warp reads each output column's
@@ -15,7 +20,8 @@ weights as 16 contiguous bytes a thread. The JAX package's row-major
 
 Numerics of both the kernels and the plain versions (those of the Pallas
 kernels): the optional pre-norm runs in f32 on the whole row; with bf16
-activations the normalized row is rounded to bf16 before the dot; the
+activations the normalized row is rounded to bf16 before a weight-only dot
+(never before the W8A8 quantization, which takes the f32 row); the
 epilogue order is ``acc * scale → + bias → activation → + residual``.
 """
 
@@ -66,9 +72,17 @@ def untile_gemv_weights(w_tiled, n: int | None = None) -> np.ndarray:
 def int8_pack(q, s, device="cpu") -> dict:
     """The port's int8 pack from a row-major ``[K, N]`` or tiled
     ``[S, K, bn]`` int8 matrix and its per-column scales:
-    ``{"qt": int8 [N, K] (K contiguous), "s": f32 [N]}``."""
+    ``{"qt": int8 [N, K] (K contiguous), "s": f32 [N], "tiled": bool}``.
+
+    ``tiled`` records whether the JAX package stores this matrix as tiled
+    ``[S, K, bn]`` stripes (here: whether ``q`` is; ``quantize_params_int8``
+    sets it by the JAX package's rules). The layout is the TPU's, but it
+    decides numbers: the JAX package's prefill keeps tiled packs
+    weight-only under W8A8 (``rten_tpu/models/decoder.py:526``), and the
+    port's decoder follows it."""
     q = np.asarray(q)
-    if q.ndim == 3:
+    tiled = q.ndim == 3
+    if tiled:
         q = untile_gemv_weights(q)
     if q.ndim != 2 or q.dtype != np.int8:
         raise ValueError(f"expected an int8 [K, N] or [S, K, bn] matrix, got {q.dtype} {q.shape}")
@@ -78,6 +92,7 @@ def int8_pack(q, s, device="cpu") -> dict:
     return {
         "qt": torch.from_numpy(np.ascontiguousarray(q.T)).to(device),
         "s": torch.from_numpy(s.copy()).to(device),
+        "tiled": tiled,
     }
 
 
@@ -109,17 +124,49 @@ def _qdot(xs, w_t, scales):
     return (xs @ w_t.float().t()) * scales.float()
 
 
+def _act_quantize(x):
+    """Per-row symmetric int8 quantization of f32 rows [M, K]: codes
+    ``clip(round_half_even(x / sx), ±127)`` with ``sx = absmax / 127`` (1
+    for an all-zero row), returned as (int8 [M, K], f32 [M, 1]). Both
+    divisions have a tensor divisor, so they are IEEE divisions on every
+    device, as in the kernels (PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal)."""
+    absmax = x.abs().amax(-1, keepdim=True)
+    sx = torch.where(absmax == 0, torch.ones_like(absmax), absmax / torch.full_like(absmax, 127.0))
+    return torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8), sx
+
+
+def _qdot_w8a8(xs, w_t, scales):
+    """The W8A8 product of f32 rows: codes @ W summed exactly (f64 holds
+    every int8 · int8 sum of any realistic K exactly; CUDA PyTorch has no
+    int32 matmul), rounded once to f32 like the kernels' int32 → f32, then
+    ``(acc · sx) · scale`` in f32."""
+    q, sx = _act_quantize(xs)
+    acc = (q.double() @ w_t.double().t()).float()
+    return (acc * sx) * scales.float()
+
+
+def quantize_rows_int8_ref(x):
+    """Plain version of ``quantize_rows_int8``: (codes int8 [M, K], sx f32
+    [M, 1]) of the rows of x [M, K], f32 or bf16."""
+    PLAIN["quantize_rows_int8"] += 1
+    return _act_quantize(x.float())
+
+
 def quant_gemv_int8_ref(
     x, w_t, scales, bias=None, *, activation=None, norm=None, norm_scale=None,
-    norm_bias=None, norm_eps=1e-5, residual=None, out_dtype=None, argmax_n=None,
+    norm_bias=None, norm_eps=1e-5, residual=None, out_dtype=None, argmax_n=None, w8a8=False,
 ):
     """Plain version of ``quant_gemv_int8`` (same signature and result)."""
-    PLAIN["quant_gemv_int8"] += 1
+    PLAIN["quant_gemv_int8:w8a8" if w8a8 else "quant_gemv_int8"] += 1
     out_dtype = out_dtype or x.dtype
     xs = x.float()
     if norm is not None:
         xs = _norm_rows_f32(xs, norm, norm_eps, norm_scale, norm_bias)
-    out = _qdot(_dot_operand(xs, x.dtype == torch.bfloat16), w_t, scales)
+    if w8a8:
+        out = _qdot_w8a8(xs, w_t, scales)
+    else:
+        out = _qdot(_dot_operand(xs, x.dtype == torch.bfloat16), w_t, scales)
     if bias is not None:
         out = out + bias.float()
     out = ACTIVATIONS[activation](out)
@@ -142,22 +189,38 @@ def quant_matmul_int8_ref(x, w_t, scales, bias=None, *, activation=None, out_dty
     return ACTIVATIONS[activation](out).to(out_dtype or x.dtype)
 
 
+def quant_matmul_w8a8_ref(x, w_t, scales, bias=None, *, activation=None, out_dtype=None):
+    """Plain version of ``quant_matmul_w8a8`` (same signature and result;
+    no hand-off to the GEMV: any M)."""
+    PLAIN["quant_matmul_w8a8"] += 1
+    out = _qdot_w8a8(x.float(), w_t, scales)
+    if bias is not None:
+        out = out + bias.float()
+    return ACTIVATIONS[activation](out).to(out_dtype or x.dtype)
+
+
 def quant_mlp_int8_ref(
     x, w_up_t, up_scales, w_down_t, down_scales, b_up=None, b_down=None, *,
     activation="gelu", norm=None, norm_scale=None, norm_bias=None, norm_eps=1e-5,
-    residual=None, next_qkv=None,
+    residual=None, next_qkv=None, w8a8=False,
 ):
     """Plain version of ``quant_mlp_int8`` (same signature and result)."""
-    PLAIN["quant_mlp_int8"] += 1
+    PLAIN["quant_mlp_int8:w8a8" if w8a8 else "quant_mlp_int8"] += 1
     bf16 = x.dtype == torch.bfloat16
+
+    def qdot(rows, w_t, scales):
+        if w8a8:
+            return _qdot_w8a8(rows, w_t, scales)
+        return _qdot(_dot_operand(rows, bf16), w_t, scales)
+
     xs = x.float()
     if norm is not None:
         xs = _norm_rows_f32(xs, norm, norm_eps, norm_scale, norm_bias)
-    up = _qdot(_dot_operand(xs, bf16), w_up_t, up_scales)
+    up = qdot(xs, w_up_t, up_scales)
     if b_up is not None:
         up = up + b_up.float()
     up = ACTIVATIONS[activation](up)
-    down = _qdot(_dot_operand(up, bf16), w_down_t, down_scales)
+    down = qdot(up, w_down_t, down_scales)
     if b_down is not None:
         down = down + b_down.float()
     if residual is not None:
@@ -168,7 +231,7 @@ def quant_mlp_int8_ref(
     w_qkv_t, qkv_scales, qkv_bias, nns, nnb = next_qkv
     # The next layer's norm reads the f32 block output, before its rounding.
     xq = _norm_rows_f32(down, norm, norm_eps, nns, nnb)
-    qkv = _qdot(_dot_operand(xq, bf16), w_qkv_t, qkv_scales)
+    qkv = qdot(xq, w_qkv_t, qkv_scales)
     if qkv_bias is not None:
         qkv = qkv + qkv_bias.float()
     return out, qkv.to(x.dtype)
@@ -230,7 +293,7 @@ def max_blocks(device_index: int) -> int:
 
 def quant_gemv_int8(
     x, w_t, scales, bias=None, *, activation=None, norm=None, norm_scale=None,
-    norm_bias=None, norm_eps=1e-5, residual=None, out_dtype=None, argmax_n=None,
+    norm_bias=None, norm_eps=1e-5, residual=None, out_dtype=None, argmax_n=None, w8a8=False,
 ):
     """Decode-path GEMV for M ≤ 8 rows:
 
@@ -244,6 +307,9 @@ def quant_gemv_int8(
     With ``argmax_n`` (no activation, no residual) returns the greedy token
     int32 [M]: the lowest column index among the maxima of the first
     ``argmax_n`` columns.
+
+    ``w8a8``: the (normalized) f32 rows are quantized per row to int8 and
+    the dots are s8 × s8 → s32, rescaled by ``(acc · sx) · scales``.
 
     CUDA tensors launch ``csrc/quant_gemv.cu``; CPU tensors run
     ``quant_gemv_int8_ref``."""
@@ -260,7 +326,7 @@ def quant_gemv_int8(
         return quant_gemv_int8_ref(
             x, w_t, scales, bias, activation=activation, norm=norm,
             norm_scale=norm_scale, norm_bias=norm_bias, norm_eps=norm_eps,
-            residual=residual, out_dtype=out_dtype, argmax_n=argmax_n,
+            residual=residual, out_dtype=out_dtype, argmax_n=argmax_n, w8a8=w8a8,
         )
     _check_act(x, "quant_gemv_int8")
     _check_weight(w_t, k, "quant_gemv_int8")
@@ -288,7 +354,7 @@ def quant_gemv_int8(
         out = result = torch.empty((m, n), dtype=out_dtype, device=dev)
     rc = lib.rt_quant_gemv(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m,
-        w_t.data_ptr(), scales.data_ptr(), n, k,
+        w_t.data_ptr(), scales.data_ptr(), n, k, int(w8a8),
         _ptr(bias), _ptr(ns), _ptr(nb), _NORM_CODES[norm], float(norm_eps),
         activation_code(activation), _ptr(residual), _ptr(out), int(out_dtype == torch.bfloat16),
         int(argmax_n or 0), _ptr(part_max), _ptr(part_idx),
@@ -296,7 +362,7 @@ def quant_gemv_int8(
         _stream(x),
     )
     _build.check(rc, "quant_gemv_int8")
-    LAUNCHES["quant_gemv_int8"] += 1
+    LAUNCHES["quant_gemv_int8:w8a8" if w8a8 else "quant_gemv_int8"] += 1
     return result
 
 
@@ -339,10 +405,77 @@ def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     return out
 
 
+def quantize_rows_int8(x):
+    """Per-row symmetric int8 quantization of activations x [M, K] (f32 or
+    bf16): ``(codes int8 [M, K], sx f32 [M, 1])`` with ``sx = absmax / 127``
+    (1 for an all-zero row) and codes ``clip(round_half_even(x / sx),
+    ±127)``, both divisions IEEE. The JAX package's ``_act_quantize``.
+
+    CUDA tensors launch the row-quantize kernel of
+    ``csrc/quant_matmul_w8a8.cu`` (one block per row); CPU tensors run
+    ``quantize_rows_int8_ref``."""
+    if not use_kernel(x):
+        return quantize_rows_int8_ref(x)
+    _check_act(x, "quantize_rows_int8")
+    m, k = x.shape
+    if k % 16:
+        raise ValueError(f"quantize_rows_int8: the row width {k} must be a multiple of 16")
+    codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    rc = _build.library().rt_quantize_rows(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, codes.data_ptr(), sx.data_ptr(), _stream(x),
+    )
+    _build.check(rc, "quantize_rows_int8")
+    LAUNCHES["quantize_rows_int8"] += 1
+    return codes, sx
+
+
+def quant_matmul_w8a8(x, w_t, scales, bias=None, *, activation=None, out_dtype=None):
+    """Prefill matmul in W8A8 mode, x quantized per row to int8:
+
+        out = activation((codes @ W) * sx * scales + bias)
+
+    x: [M, K] f32/bf16; w_t: int8 [N, K] (``int8_pack``); scales [N] f32;
+    bias [N]. Returns [M, N] in ``out_dtype`` (default x.dtype). The sums
+    are exact in int32; the epilogue is ``(acc · sx) · scale → + bias →
+    activation → out_dtype``.
+
+    M ≤ 8 hands off to ``quant_gemv_int8(w8a8=True)``, the same function
+    (per-row codes, exact sums, the same epilogue; the TPU function has no
+    hand-off). Above that, CUDA tensors launch the two kernels of
+    ``csrc/quant_matmul_w8a8.cu``: ``quantize_rows_int8``, then the int8
+    tensor-core matmul (``mma.sync`` s8 × s8 → s32). CPU tensors run
+    ``quant_matmul_w8a8_ref``."""
+    m, k = x.shape
+    n = w_t.shape[0]
+    if m <= MAX_ROWS:
+        return quant_gemv_int8(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype, w8a8=True)
+    out_dtype = out_dtype or x.dtype
+    if not use_kernel(x, w_t, scales, bias):
+        return quant_matmul_w8a8_ref(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
+    _check_act(x, "quant_matmul_w8a8")
+    _check_weight(w_t, k, "quant_matmul_w8a8")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quant_matmul_w8a8: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    scales = _vec_f32(scales, n, "scales")
+    bias = _vec_f32(bias, n, "bias")
+    codes, sx = quantize_rows_int8(x)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rc = _build.library().rt_quant_matmul_w8a8(
+        codes.data_ptr(), sx.data_ptr(), m, k,
+        w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,
+        activation_code(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        _stream(x),
+    )
+    _build.check(rc, "quant_matmul_w8a8")
+    LAUNCHES["quant_matmul_w8a8"] += 1
+    return out
+
+
 def quant_mlp_int8(
     x, w_up_t, up_scales, w_down_t, down_scales, b_up=None, b_down=None, *,
     activation="gelu", norm=None, norm_scale=None, norm_bias=None, norm_eps=1e-5,
-    residual=None, next_qkv=None,
+    residual=None, next_qkv=None, w8a8=False,
 ):
     """Whole transformer-MLP decode step for M ≤ 8 rows:
 
@@ -353,6 +486,10 @@ def quant_mlp_int8(
     next_norm_bias|None)`` it also returns the next layer's pre-norm + qkv
     projection of the f32 block output: ``(out, qkv [M, Nq])``. Outputs are
     in x.dtype.
+
+    ``w8a8``: every phase quantizes its f32 input rows per row to int8
+    (the normalized rows, the f32 up output over FF, the normalized block
+    output) and runs s8 × s8 → s32 dots.
 
     CUDA tensors launch ``csrc/quant_mlp.cu`` (three GEMV phases in one call:
     up into an f32 [M, FF] scratch, down, next qkv); CPU tensors run
@@ -374,7 +511,7 @@ def quant_mlp_int8(
             x, w_up_t, up_scales, w_down_t, down_scales, b_up, b_down,
             activation=activation, norm=norm, norm_scale=norm_scale,
             norm_bias=norm_bias, norm_eps=norm_eps, residual=residual,
-            next_qkv=next_qkv,
+            next_qkv=next_qkv, w8a8=w8a8,
         )
     _check_act(x, "quant_mlp_int8")
     _check_weight(w_up_t, d, "quant_mlp_int8 w_up")
@@ -413,8 +550,8 @@ def quant_mlp_int8(
         _ptr(ns), _ptr(nb), _NORM_CODES[norm], float(norm_eps), activation_code(activation),
         _ptr(residual), out.data_ptr(), up_buf.data_ptr(), _ptr(h_buf),
         _ptr(wq), _ptr(sq), _ptr(bq), nq, _ptr(qns), _ptr(qnb), _ptr(qkv),
-        _stream(x),
+        int(w8a8), _stream(x),
     )
     _build.check(rc, "quant_mlp_int8")
-    LAUNCHES["quant_mlp_int8"] += 1
+    LAUNCHES["quant_mlp_int8:w8a8" if w8a8 else "quant_mlp_int8"] += 1
     return out if next_qkv is None else (out, qkv)

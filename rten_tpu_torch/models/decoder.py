@@ -1,5 +1,5 @@
-"""GPT-2-class decoder on PyTorch and CUDA: INT8 weight-only prefill and
-greedy decode over a preallocated KV cache.
+"""GPT-2-class decoder on PyTorch and CUDA: INT8 prefill and greedy decode
+over a preallocated KV cache, weight-only or (``cfg.w8a8``) W8A8.
 
 Counterpart of ``rten_tpu/models/decoder.py`` ``forward`` (:584): a forward
 takes T ≥ 1 tokens per row, with a cache (appended at its length) or
@@ -30,6 +30,18 @@ The lm_head is ``quant_gemv_int8`` with the final norm fused in, returning
 the greedy token (fused argmax) or f32 logits, for up to 8 rows, and the
 final norm plus ``quant_matmul_int8`` (f32 out) for more. ``prefill`` is
 one forward; with ``last_only`` its lm_head runs on the last position only.
+
+**W8A8** (``cfg.w8a8``; the JAX package's ``RTEN_W_CONVERT=w8a8``, read
+there once at import): activations are quantized per row to int8 before
+each product, which runs s8 × s8 → s32. The JAX package's choices are
+mirrored exactly. In the decode structure every GEMV and MLP call runs in
+its ``w8a8`` mode, tiled packs included; the int8 wo fused into
+``decode_attention`` stays weight-only (the TPU kernel has no such mode).
+In the prefill structure every projection is ``quant_matmul_w8a8``, except
+packs the JAX package stores tiled (``pack["tiled"]``: its ``_proj`` keeps
+them on ``quant_matmul_int8``); that includes its lm_head at ≤ 8 rows
+(``last_only``), which runs ``_norm`` and the prefill projection as the
+JAX package runs it on every row.
 
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
@@ -65,6 +77,7 @@ from rten_tpu_torch.kernels.quant_matmul import (
     int8_pack,
     quant_gemv_int8,
     quant_matmul_int8,
+    quant_matmul_w8a8,
     quant_mlp_int8,
     quantize_weights_int8,
 )
@@ -74,7 +87,9 @@ from rten_tpu_torch.kernels.quant_matmul import (
 class DecoderConfig:
     """The fields of the JAX package's ``DecoderConfig`` that the ported
     path runs: MHA with learned positions, and ``int8_kv`` (``init_cache``
-    makes an int8 cache with per-(token, head) f32 scales). RoPE,
+    makes an int8 cache with per-(token, head) f32 scales). ``w8a8``
+    selects the W8A8 mode, which the JAX package takes from
+    ``RTEN_W_CONVERT=w8a8`` (default off, as its ``"direct"``). RoPE,
     grouped-query attention, SwiGLU, position offsets and untied lm_heads
     come with later slices."""
 
@@ -88,6 +103,7 @@ class DecoderConfig:
     activation: str = "gelu"  # "gelu" | "relu"
     layer_norm_eps: float = 1e-5
     int8_kv: bool = False
+    w8a8: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -98,6 +114,8 @@ class DecoderConfig:
 GPT2_SMALL = DecoderConfig()
 
 _QUANT_MIN_SIZE = 1 << 16  # a matrix is quantized at ≥ 2^16 elements (as in the JAX package)
+_TILE_BN = 1024  # the JAX package's default tiled-GEMV stripe width (RTEN_TILE_GEMV)
+_MLP_FUSED_BYTES = 8 << 20  # its whole-MLP kernel's weight budget (quant_matmul.py MLP_FUSED_VMEM_LIMIT)
 _EMBEDDINGS = ("tok_emb", "pos_emb")
 _MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_down", "wqkv", "lm_head_q")
 
@@ -169,15 +187,65 @@ def _np_f32(t) -> np.ndarray:
     return np.asarray(t, np.float32)
 
 
+def _pick_block(dim: int, preferred: int) -> int:
+    """Largest 128-multiple ≤ preferred that divides ``dim`` (else
+    preferred): a copy of the JAX package's ``pick_block``
+    (``rten_tpu/kernels/matmul_pallas.py:86``)."""
+    if dim % 128 != 0:
+        return min(preferred, max(128, -(-dim // 128) * 128))
+    for cand in range(min(preferred, dim), 127, -128):
+        if dim % cand == 0:
+            return cand
+    return preferred
+
+
+def _mark_tiled(params: dict, tile_bn: int) -> None:
+    """Set ``pack["tiled"]`` where the JAX package's ``quantize_params_int8``
+    stores the pack as ``[S, K, bn]`` stripes at ``tile_bn``
+    (``_tile_gemv_packs``, ``rten_tpu/models/decoder.py:339-414``): the
+    lm_head when wider than ``tile_bn``; ``w_up`` and ``w_down`` only when
+    its whole-MLP kernel cannot hold them; layer 0's ``wqkv``, and a later
+    layer's when it cannot ride the previous layer's MLP kernel; ``wo``
+    never. Layer packs tile only where a divisor width splits them. At
+    GPT-2-small's widths and 1024 that is the lm_head and layer 0's wqkv."""
+
+    def kn(pack):
+        return pack["qt"].shape[1], pack["qt"].shape[0]
+
+    def splits(pack):
+        n = kn(pack)[1]
+        bn = _pick_block(n, tile_bn)
+        return bn < n and n % bn == 0
+
+    def mlp_fits(d, ff, n_qkv=0):
+        return d * ff * 2 + d * n_qkv <= _MLP_FUSED_BYTES
+
+    def is_pack(node):
+        return isinstance(node, dict) and "qt" in node
+
+    if is_pack(params["lm_head_q"]):
+        params["lm_head_q"]["tiled"] = kn(params["lm_head_q"])[1] > tile_bn
+    for li, layer in enumerate(params["layers"]):
+        wu, wd, wqkv = layer.get("w_up"), layer.get("w_down"), layer.get("wqkv")
+        mlp = is_pack(wu) and is_pack(wd)
+        if mlp and not mlp_fits(*kn(wu)):
+            for pack in (wu, wd):
+                pack["tiled"] = splits(pack)
+        if is_pack(wqkv) and not (li > 0 and mlp and mlp_fits(*kn(wu), kn(wqkv)[1])):
+            wqkv["tiled"] = splits(wqkv)
+
+
 def quantize_params_int8(params: dict, device="cuda") -> dict:
-    """Weight-only INT8 decode params from dense ones, by the JAX package's
-    rules (``rten_tpu/models/decoder.py`` ``quantize_params_int8``): every
-    2-D matrix of ≥ 2^16 elements is quantized per output channel after
+    """INT8 decode params from dense ones, by the JAX package's rules
+    (``rten_tpu/models/decoder.py`` ``quantize_params_int8``): every 2-D
+    matrix of ≥ 2^16 elements is quantized per output channel after
     zero-padding K to a multiple of 128 and N to a multiple of 1024 (N ≥
     8192) or 128; smaller matrices stay dense; q|k|v fuse into ``wqkv``
     (and their biases into ``bqkv``) when their width is a multiple of 128;
     tied embeddings get their own ``lm_head_q``. Embeddings stay dense in
-    their dtype; every vector becomes f32 ``[N]``."""
+    their dtype; every vector becomes f32 ``[N]``. The packs the JAX
+    package would tile at its default width (``_TILE_BN``) are marked
+    ``tiled`` (``_mark_tiled``); the port's layout is the same."""
     dev = resolve_device(device)
     dtype = params["tok_emb"].dtype
 
@@ -221,6 +289,7 @@ def quantize_params_int8(params: dict, device="cuda") -> dict:
                 layer["bqkv"] = torch.cat([vector(src[k]) for k in ("bq", "bk", "bv")])
         out["layers"].append(layer)
     out["lm_head_q"] = matrix(_np_f32(params["tok_emb"]).T.copy())
+    _mark_tiled(out, _TILE_BN)
     return out
 
 
@@ -229,8 +298,9 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
     anything ``np.asarray`` takes). A dense tree gives dense port params in
     ``cfg.dtype``; a quantized tree (``rten_tpu`` ``quantize_params_int8``)
     gives the port's decode layout directly: row-major ``[K, N]`` and tiled
-    ``[S, K, bn]`` packs become ``int8_pack``s, the ``slabs`` duplicates are
-    dropped, and ``[1, N]`` vectors become f32 ``[N]``."""
+    ``[S, K, bn]`` packs become ``int8_pack``s (a tiled one marked
+    ``tiled``), the ``slabs`` duplicates are dropped, and ``[1, N]`` vectors
+    become f32 ``[N]``."""
     dev = resolve_device(device)
     if "lm_head" in tree:
         raise NotImplementedError("an untied lm_head is not ported yet: the ported path ties it to tok_emb")
@@ -379,6 +449,15 @@ def _norm(x, p, cfg: DecoderConfig):
     return (y.to(x.dtype) * p["scale"] + p["bias"]).to(x.dtype)
 
 
+def _proj(cfg: DecoderConfig, x, pack, bias=None, **kw):
+    """A projection of the prefill structure: ``quant_matmul_w8a8`` under
+    ``cfg.w8a8``, except for a pack the JAX package stores tiled (its
+    ``_proj`` keeps those on the weight-only kernel, ``decoder.py:526``);
+    else ``quant_matmul_int8``."""
+    matmul = quant_matmul_w8a8 if cfg.w8a8 and not pack["tiled"] else quant_matmul_int8
+    return matmul(x, pack["qt"], pack["s"], bias, **kw)
+
+
 def _attention(qkv, cfg: DecoderConfig, b: int, t: int, cache, li: int, q_offset, kv_len):
     """Causal attention of the T new rows, ``qkv`` [B·T, 3·H·D] → [B·T,
     H·D]. With a cache, each row's new k/v are written in place at its own
@@ -425,28 +504,29 @@ def _kv_decode_attention(qkv, cfg: DecoderConfig, b: int, cache, li: int):
                                  cache["v_scale"][li], cache["len"])
 
 
-def _lm_head(params: dict, cfg: DecoderConfig, x, mode: str):
+def _lm_head(params: dict, cfg: DecoderConfig, x, mode: str, small: bool):
     """Final norm + tied int8 lm_head of the rows ``x`` [M, D]: f32 logits
     [M, vocab] or (``mode="argmax"``) the greedy tokens int32 [M]. Up to 8
     rows go through ``quant_gemv_int8`` with the norm fused (and the argmax
-    fused too); more through ``_norm`` and ``quant_matmul_int8``."""
+    fused too); more through ``_norm`` and the prefill projection. Under
+    W8A8 a prefill-structure forward (``small`` False) takes the latter at
+    any row count, as the JAX package runs its lm_head on every row."""
     head = _pack(params, "lm_head_q")
     fn = params["final_norm"]
-    if x.shape[0] <= MAX_ROWS:
+    if x.shape[0] <= MAX_ROWS and (small or not cfg.w8a8):
         kw = dict(norm=cfg.norm, norm_scale=fn["scale"], norm_bias=fn.get("bias"),
-                  norm_eps=cfg.layer_norm_eps)
+                  norm_eps=cfg.layer_norm_eps, w8a8=cfg.w8a8)
         if mode == "argmax":
             return quant_gemv_int8(x, head["qt"], head["s"], argmax_n=cfg.vocab_size, **kw)
         # The epilogue writes f32 logits (the JAX package rounds them to the
         # model dtype first; a sampler wants them unrounded).
         return quant_gemv_int8(x, head["qt"], head["s"], out_dtype=torch.float32, **kw)[:, : cfg.vocab_size]
-    logits = quant_matmul_int8(_norm(x, fn, cfg), head["qt"], head["s"], out_dtype=torch.float32)
-    logits = logits[:, : cfg.vocab_size]
+    logits = _proj(cfg, _norm(x, fn, cfg), head, out_dtype=torch.float32)[:, : cfg.vocab_size]
     return logits.argmax(-1).to(torch.int32) if mode == "argmax" else logits
 
 
 def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None, *,
-            lm_head_mode="logits", last_only: bool = False):
+            lm_head_mode="logits", last_only: bool = False, fuse: bool = True):
     """One forward of ``tokens`` [B, T], T ≥ 1: appended at ``cache["len"]``
     with a cache, or a plain full-sequence forward (positions 0..T-1)
     without one.
@@ -465,7 +545,11 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     one token per row, at most 8 rows, each row's page of ``len`` allocated
     by the caller. One token on an int8 or paged cache runs
     ``decode_attention_int8`` or ``paged_decode_attention(_int8)``, then wo
-    through ``quant_gemv_int8`` with the residual."""
+    through ``quant_gemv_int8`` with the residual.
+
+    ``fuse=False`` runs the prefill structure at any row count (the JAX
+    package's ``RTEN_DECODE_FUSE=0``): the serving engines admit a W8A8
+    prompt so, as the JAX engines' bucketed admission (≥ 32 rows) does."""
     _check_supported(cfg)
     if lm_head_mode not in ("logits", "argmax"):
         raise ValueError(f"lm_head_mode must be 'logits' or 'argmax', got {lm_head_mode!r}")
@@ -473,7 +557,8 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
     eps = cfg.layer_norm_eps
     rows = b * t
-    small = rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
+    small = fuse and rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
+    w8a8 = cfg.w8a8
     paged = cache is not None and "k_pages" in cache
     one_token = small and t == 1 and cache is not None
     kv_decode = one_token and (paged or "k_scale" in cache)  # the paged / int8 decode kernels
@@ -508,9 +593,10 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
                 qkv = quant_gemv_int8(
                     x, wqkv["qt"], wqkv["s"], layer.get("bqkv"), norm=cfg.norm,
                     norm_scale=layer["ln1"]["scale"], norm_bias=layer["ln1"].get("bias"), norm_eps=eps,
+                    w8a8=w8a8,
                 )
             else:
-                qkv = quant_matmul_int8(_norm(x, layer["ln1"], cfg), wqkv["qt"], wqkv["s"], layer.get("bqkv"))
+                qkv = _proj(cfg, _norm(x, layer["ln1"], cfg), wqkv, layer.get("bqkv"))
         wo = _pack(layer, "wo")
         if decode:
             x = decode_attention(
@@ -523,9 +609,9 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
             else:
                 attn = _attention(qkv, cfg, b, t, cache, li, q_offset, kv_len)
             if small:
-                x = quant_gemv_int8(attn, wo["qt"], wo["s"], layer.get("bo"), residual=x)
+                x = quant_gemv_int8(attn, wo["qt"], wo["s"], layer.get("bo"), residual=x, w8a8=w8a8)
             else:
-                x = quant_matmul_int8(attn, wo["qt"], wo["s"], layer.get("bo")) + x
+                x = _proj(cfg, attn, wo, layer.get("bo")) + x
         up, down = _pack(layer, "w_up"), _pack(layer, "w_down")
         if small:
             nxt = layers[li + 1] if li + 1 < len(layers) else None
@@ -536,18 +622,16 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
             out = quant_mlp_int8(
                 x, up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
                 activation=cfg.activation, norm=cfg.norm, norm_scale=layer["ln2"]["scale"],
-                norm_bias=layer["ln2"].get("bias"), norm_eps=eps, residual=x, next_qkv=next_qkv,
+                norm_bias=layer["ln2"].get("bias"), norm_eps=eps, residual=x, next_qkv=next_qkv, w8a8=w8a8,
             )
             x, qkv = out if next_qkv is not None else (out, None)
         else:
-            hidden = quant_matmul_int8(
-                _norm(x, layer["ln2"], cfg), up["qt"], up["s"], layer.get("b_up"), activation=cfg.activation,
-            )
-            x = quant_matmul_int8(hidden, down["qt"], down["s"], layer.get("b_down")) + x
+            hidden = _proj(cfg, _norm(x, layer["ln2"], cfg), up, layer.get("b_up"), activation=cfg.activation)
+            x = _proj(cfg, hidden, down, layer.get("b_down")) + x
             qkv = None
 
     head_in = x.view(b, t, d)[:, -1] if last_only and t > 1 else x
-    result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode)
+    result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode, small)
     result = result.reshape(b, 1 if last_only else t, *result.shape[1:])
     if cache is not None:
         cache["len"].add_(t)
@@ -560,11 +644,11 @@ decode_step = forward
 
 
 def prefill(params: dict, cfg: DecoderConfig, tokens, cache: dict, *, lm_head_mode="logits",
-            last_only: bool = False):
+            last_only: bool = False, fuse: bool = True):
     """Feed a prompt ``tokens`` [B, T] into the cache as one forward.
     Returns ``(result [B, T, …], cache)`` or, with ``last_only``, only the
     last position's result ``[B, 1, …]`` (the lm_head runs once per row)."""
-    return forward(params, cfg, tokens, cache, lm_head_mode=lm_head_mode, last_only=last_only)
+    return forward(params, cfg, tokens, cache, lm_head_mode=lm_head_mode, last_only=last_only, fuse=fuse)
 
 
 def generate_greedy(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, n_steps: int):

@@ -10,7 +10,9 @@ slot at once.
 - **Admission** prefills the prompt at its exact length, as one forward on
   a batch-1 view of the slot's row (``decoder.row_view``), so the k/v go
   straight into the engine cache. (The JAX package pads to a bucket to
-  compile once, then splices a batch-1 cache into the slot.)
+  compile once, then splices a batch-1 cache into the slot.) Under W8A8
+  that forward takes the prefill structure at any length, as the JAX
+  engine's does (``prefill_first_token``).
 - **A tick** is a Python loop of forwards with ``lm_head_mode="argmax"``;
   EOS, the token budget and the active mask are decided on the device,
   and the tick's tokens and active flags reach the host in one copy at its
@@ -68,10 +70,16 @@ def check_engine_options(max_batch: int, sampler, mesh, tp_mode: str = "pjit") -
 
 def prefill_first_token(params, cfg, cache: dict, prompt) -> int:
     """Feed ``prompt`` into a batch-1 cache as one forward; the greedy first
-    token (the lm_head's fused argmax at the last position), on the host."""
+    token (the lm_head's fused argmax at the last position), on the host.
+
+    Under W8A8 the forward takes the prefill structure at any length, as
+    the JAX engines' admission at a bucket of ≥ 32 rows does: there the
+    structure decides which projections quantize their activations, so a
+    prompt of ≤ 8 tokens would otherwise run layer 0's qkv and the lm_head
+    in W8A8 where the JAX engine keeps those tiled packs weight-only."""
     dev = cache["len"].device
     ids = torch.as_tensor(np.asarray(prompt, np.int32)[None], device=dev)
-    tok, _ = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True)
+    tok, _ = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True, fuse=not cfg.w8a8)
     return int(tok.view(-1)[0])  # waits for the device
 
 

@@ -320,13 +320,14 @@ def test_generate_greedy_past_cache_raises(dev):
 
 @contextlib.contextmanager
 def _plain_decoder(decoder):
-    """Route the decoder's five kernel calls to their plain versions."""
-    names = ("quant_gemv_int8", "quant_mlp_int8", "quant_matmul_int8", "decode_attention",
+    """Route the decoder's six kernel calls to their plain versions."""
+    names = ("quant_gemv_int8", "quant_mlp_int8", "quant_matmul_int8", "quant_matmul_w8a8", "decode_attention",
              "flash_attention")
     saved = {name: getattr(decoder, name) for name in names}
     decoder.quant_gemv_int8 = qm.quant_gemv_int8_ref
     decoder.quant_mlp_int8 = qm.quant_mlp_int8_ref
     decoder.quant_matmul_int8 = qm.quant_matmul_int8_ref
+    decoder.quant_matmul_w8a8 = qm.quant_matmul_w8a8_ref
     decoder.decode_attention = decode_attention_ref
     decoder.flash_attention = flash_attention_ref
     try:
@@ -537,11 +538,12 @@ def _engine_outputs(engine_cls, params, cfg, specs, dev, **kw):
     return [r.output for r in reqs], engine
 
 
-@pytest.mark.parametrize("engine", ["paged", "int8_slot", "int8_paged"])
+@pytest.mark.parametrize("engine", ["paged", "int8_slot", "int8_paged", "w8a8_slot"])
 def test_tiny_engines_match_cpu(dev, engine):
-    """The paged engine and the int8 engines at the tiny f32 config: the
-    same requests on the card (kernels) and on the CPU (plain versions)
-    give the same streams, and the card run launched its KV kernel."""
+    """The paged engine, the int8 engines and the W8A8 slot engine at the
+    tiny f32 config: the same requests on the card (kernels) and on the CPU
+    (plain versions) give the same streams, and the card run launched its
+    KV kernel (W8A8: its three kernels)."""
     import dataclasses
 
     from rten_tpu_torch.models import decoder
@@ -554,10 +556,10 @@ def test_tiny_engines_match_cpu(dev, engine):
     gen = torch.Generator().manual_seed(13)
     specs = [dict(prompt=torch.randint(1, 500, (n,), generator=gen).tolist(), max_new_tokens=m)
              for n, m in ((3, 20), (70, 12), (12, 30), (130, 8))]
-    if engine == "int8_slot":
-        cfg8 = dataclasses.replace(cfg, int8_kv=True)
+    if engine in ("int8_slot", "w8a8_slot"):
+        cfg8 = dataclasses.replace(cfg, int8_kv=engine == "int8_slot", w8a8=engine == "w8a8_slot")
         run = lambda p, d: _engine_outputs(ServingEngine, p, cfg8, specs, d, max_batch=3, steps_per_tick=4)  # noqa: E731
-        name = "decode_attention_int8"
+        name = "decode_attention_int8" if engine == "int8_slot" else "quant_matmul_w8a8"
     else:
         int8 = engine == "int8_paged"
         run = lambda p, d: _engine_outputs(PagedServingEngine, p, cfg, specs, d, max_batch=3,  # noqa: E731
@@ -566,7 +568,206 @@ def test_tiny_engines_match_cpu(dev, engine):
     dispatch.reset_counters()
     on_card, eng = run(gpu_params, dev)
     assert dispatch.LAUNCHES[name] > 0 and not dispatch.PLAIN
+    if engine == "w8a8_slot":
+        assert dispatch.LAUNCHES["quant_gemv_int8:w8a8"] > 0 and dispatch.LAUNCHES["quant_mlp_int8:w8a8"] > 0
     on_cpu, _ = run(cpu_params, "cpu")
     assert on_card == on_cpu
-    if engine != "int8_slot":
+    if engine.endswith("paged"):
         assert eng.pool.n_free == eng.pool.n_pages
+
+
+# ---------------------------------------------------------------------------
+# W8A8: quantize_rows_int8, the w8a8 modes of the GEMV and MLP,
+# quant_matmul_w8a8
+# ---------------------------------------------------------------------------
+
+
+def _w8_close(out, ref, dtype, code=0.0):
+    """Kernel against plain version on the same inputs: both sum the same
+    int8 codes exactly and round after each epilogue product, so f32
+    outputs agree to GELU's exp (1e-6 of max(1, |plain|)), bf16 outputs to
+    one bf16 rounding of each value (2^-7 of it). ``code``: where a norm
+    runs first the kernel's and PyTorch's norms round in other orders, which
+    can move a code by one; one code's contribution is added."""
+    err = (out.float() - ref.float()).abs()
+    tol = 1e-6 * max(1.0, ref.float().abs().max().item()) + code
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-7 * ref.float().abs()
+    assert bool((err <= tol).all()), (err.max().item(), code)
+
+
+def _code(scales, rows):
+    """One activation code's largest contribution: |w| · sx · scale ≤
+    max(scale) · absmax(rows)."""
+    return scales.max().item() * rows.float().abs().max().item()
+
+
+def _normed(x, norm, ns, nb):
+    return qm._norm_rows_f32(x.float(), norm, 1e-5, ns, nb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k", [(37, 768), (5, 3072)])
+def test_quantize_rows_kernel_matches_plain(dev, dtype, m, k):
+    """Codes and sx bit for bit; .5 boundaries round half to even; an
+    all-zero row gets sx 1."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = 3 * torch.randn(m, k, generator=gen, device=dev)
+    x[0, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, 1.5, -0.5], device=dev)
+    x[3] = 0
+    x = x.to(dtype)
+    before = dispatch.LAUNCHES["quantize_rows_int8"]
+    codes, sx = qm.quantize_rows_int8(x)
+    assert dispatch.LAUNCHES["quantize_rows_int8"] == before + 1
+    ref_codes, ref_sx = qm.quantize_rows_int8_ref(x)
+    assert torch.equal(codes, ref_codes) and torch.equal(sx, ref_sx)
+    assert codes[0, :6].tolist() == [127, 2, -4, 0, 2, 0] and sx[3, 0].item() == 1.0 and not codes[3].any()
+
+
+# (m, n, k, norm, activation): the decode path's shapes at GPT-2 width and
+# the CPW 4 instance (n ≥ 8192).
+GEMV_W8_CASES = [(1, 2304, 768, "layernorm", None), (3, 9000, 256, None, "gelu"),
+                 (8, 768, 768, "rmsnorm", "relu"), (8, 768, 3072, None, None)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,norm,act", GEMV_W8_CASES)
+def test_gemv_w8a8_kernel_matches_plain(dev, dtype, m, n, k, norm, act):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    if m == 8 and norm is None:
+        x[5] = 0  # an all-zero row
+    x = x.to(dtype)
+    bias = torch.randn(n, generator=gen, device=dev)
+    resid = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+    ns = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+    nb = 0.1 * ns if norm == "layernorm" else None
+    kw = dict(activation=act, residual=resid, w8a8=True)
+    if norm:
+        kw.update(norm=norm, norm_scale=ns, norm_bias=nb)
+    before = dispatch.LAUNCHES["quant_gemv_int8:w8a8"]
+    out = qm.quant_gemv_int8(x, qt, s, bias, **kw)
+    assert dispatch.LAUNCHES["quant_gemv_int8:w8a8"] == before + 1
+    code = _code(s, _normed(x, norm, ns, nb)) if norm else 0.0
+    _w8_close(out, qm.quant_gemv_int8_ref(x, qt, s, bias, **kw), dtype, code)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemv_w8a8_argmax_ties_and_mask(dev, dtype):
+    """The w8a8 argmax: tied columns far apart give the lowest index,
+    padding columns are masked (no norm, so the plain logits are the
+    kernel's bit for bit)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    m, k, n, vocab = 2, 256, 20480, 20000
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    col = torch.where(x[0].float() > 0, 100, -100).to(torch.int8)
+    for c in (7, 5000, 19999, 20100):
+        qt[c] = col
+        s[c] = 1.0
+    s[20100] = 2.0
+    x[1] = x[0]
+    out = qm.quant_gemv_int8(x, qt, s, argmax_n=vocab, w8a8=True)
+    assert out.tolist() == [7, 7]
+    assert qm.quant_gemv_int8_ref(x, qt, s, argmax_n=vocab, w8a8=True).tolist() == [7, 7]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("with_next", [False, True])
+def test_mlp_w8a8_kernel_matches_plain(dev, dtype, m, with_next):
+    """GPT-2-small's MLP in w8a8 mode, with and without the next qkv:
+    tolerance one code's contribution per quantized phase feeding the
+    output (the up output and the norms round in other orders)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    d, ff = 768, 3072
+    wu, su = _pack(gen, ff, d, dev)
+    wd, sd = _pack(gen, d, ff, dev)
+    su, sd = su * 0.1, sd * 0.1
+    x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    resid = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    ns = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    nxt = None
+    if with_next:
+        wq, sq = _pack(gen, 3 * d, d, dev)
+        nxt = (wq, sq * 0.1, torch.randn(3 * d, generator=gen, device=dev), ns * 0.9, ns * 0.1)
+    args = (x, wu, su, wd, sd, torch.randn(ff, generator=gen, device=dev), torch.randn(d, generator=gen, device=dev))
+    kw = dict(activation="gelu", norm="layernorm", norm_scale=ns, norm_bias=0.1 * ns, residual=resid,
+              next_qkv=nxt, w8a8=True)
+    before = dispatch.LAUNCHES["quant_mlp_int8:w8a8"]
+    out, ref = qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw)
+    assert dispatch.LAUNCHES["quant_mlp_int8:w8a8"] == before + 1
+    xn = _normed(x, "layernorm", ns, 0.1 * ns)
+    codes = _code(su, xn) + _code(sd, qm.quant_gemv_int8_ref(xn, wu, su, args[5], activation="gelu", w8a8=True))
+    if with_next:
+        _w8_close(out[1], ref[1], dtype, 2 * codes + _code(nxt[1], _normed(ref[0], "layernorm", ns * 0.9, ns * 0.1)))
+        out, ref = out[0], ref[0]
+    _w8_close(out, ref, dtype, codes)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,act,with_bias", [
+    (9, 384, 256, None, True),       # one row past the GEMV's 8
+    (64, 2304, 768, "gelu", True),   # GPT-2's qkv width, 64 prompt rows
+    (130, 200, 256, "relu", False),  # ragged M and N
+    (77, 131, 1040, None, True),     # odd N (unpaired stores), K not a multiple of 64
+    (512, 768, 3072, None, True),    # GPT-2's down projection, 512 prompt rows
+])
+def test_matmul_w8a8_kernel_matches_plain(dev, dtype, m, n, k, act, with_bias):
+    gen = torch.Generator(device=dev).manual_seed(24)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    bias = torch.randn(n, generator=gen, device=dev) if with_bias else None
+    before = (dispatch.LAUNCHES["quant_matmul_w8a8"], dispatch.LAUNCHES["quantize_rows_int8"])
+    out = qm.quant_matmul_w8a8(x, qt, s, bias, activation=act)
+    assert (dispatch.LAUNCHES["quant_matmul_w8a8"], dispatch.LAUNCHES["quantize_rows_int8"]) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == (m, n) and out.dtype == dtype
+    _w8_close(out, qm.quant_matmul_w8a8_ref(x, qt, s, bias, activation=act), dtype)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_matmul_w8a8_small_m_hands_off(dev, m):
+    """M ≤ 8 runs the w8a8 GEMV, the same function; f32 logits out."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    qt, s = _pack(gen, 1024 + 96, 256, dev)
+    x = torch.randn(m, 256, generator=gen, device=dev).to(torch.bfloat16)
+    before = dispatch.LAUNCHES["quant_gemv_int8:w8a8"]
+    out = qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32)
+    assert dispatch.LAUNCHES["quant_gemv_int8:w8a8"] == before + 1 and out.dtype == torch.float32
+    _w8_close(out, qm.quant_matmul_w8a8_ref(x, qt, s, out_dtype=torch.float32), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiny_decoder_w8a8_kernels_match_plain(dev, dtype):
+    """The tiny decoder in W8A8: a 20-token prompt (quant_matmul_w8a8), a
+    5-token follow-up (the w8a8 GEMV and MLP at T > 1), 6 greedy steps:
+    kernels against the plain versions on the card. A code moved by one in
+    a layer's norm moves the logits by far less than 1e-2 of their max;
+    tokens are compared in f32 (bf16 rounds the activations after sums
+    taken in another order)."""
+    import dataclasses
+
+    decoder, cfg, params = _tiny(dtype, dev)
+    cfg = dataclasses.replace(cfg, w8a8=True)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 25), generator=gen, device=dev, dtype=torch.int32)
+
+    def run():
+        cache = decoder.init_cache(cfg, 2, 64, device=dev)
+        first, cache = decoder.prefill(params, cfg, prompt[:, :20], cache)
+        second, cache = decoder.prefill(params, cfg, prompt[:, 20:], cache)
+        toks, _ = decoder.generate_greedy(params, cfg, cache, prompt[:, -1:], 6)
+        return torch.cat([first, second], 1), toks
+
+    dispatch.reset_counters()
+    k_logits, k_toks = run()
+    assert dispatch.PLAIN == {}
+    for name in ("quant_matmul_w8a8", "quantize_rows_int8", "quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8"):
+        assert dispatch.LAUNCHES[name] > 0, name
+    with _plain_decoder(decoder):
+        p_logits, p_toks = run()
+    assert (k_logits - p_logits).abs().max().item() <= 1e-2 * p_logits.abs().max().item()
+    if dtype == torch.float32:
+        assert k_toks.tolist() == p_toks.tolist()

@@ -36,6 +36,11 @@ for _ in range(2):
 prompt = torch.arange(12, dtype=torch.int32)[None]  # one prefill forward of 12 rows
 logits, cache = decoder.prefill(params, cfg, prompt, cache, last_only=True)
 assert int(cache["len"][0]) == 14 and logits.shape == (1, 1, 300)
+import dataclasses
+cfg8 = dataclasses.replace(cfg, w8a8=True)  # the W8A8 prefill and decode structures
+logits, cache = decoder.prefill(params, cfg8, prompt, decoder.init_cache(cfg8, 1, device="cpu"))
+tok, cache = decoder.forward(params, cfg8, prompt[:, -1:], cache, lm_head_mode="argmax")
+assert int(cache["len"][0]) == 13 and logits.shape == (1, 12, 300)
 from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
 for engine in (ServingEngine(params, cfg, max_batch=2, steps_per_tick=2, device="cpu"),
                PagedServingEngine(params, cfg, max_batch=2, n_pages=4, page_size=64, int8_kv=True,

@@ -448,3 +448,199 @@ def test_paged_attention_matches_pallas(rng, int8):
     # live row's slot of kv_len.
     changed = np.argwhere((pool[0].numpy() != kp).any(-1).any(1))
     assert {tuple(x) for x in changed} <= {(11, 0), (3, 63), (2, 0), (9, 22), (8, 63)}
+
+
+# ---------------------------------------------------------------------------
+# W8A8: quantize_rows_int8, the w8a8 modes of quant_gemv_int8 and
+# quant_mlp_int8, quant_matmul_w8a8 (the Pallas kernels at w_convert="w8a8")
+# ---------------------------------------------------------------------------
+
+# Both packages sum the same int8 codes exactly, so outputs differ only by
+# f32 rounding: the JAX package's sx may sit one ulp off (see
+# _scales_equal), and GELU's exp. Where a norm runs first its f32 rows
+# differ between the packages in the last bits, which can move a code by
+# one: one code's contribution is added, |w| · sx · scale ≤ 127 · max(scale)
+# · absmax / 127. bf16 outputs may also round to the neighbouring bf16
+# value: 2^-7 of each value.
+W8_RTOL = 1e-5
+BF16_ULP = 2.0**-7
+
+
+def _code(scales, rows):
+    """One activation code's largest contribution to an output."""
+    return float(np.max(scales)) * float(np.abs(rows).max())
+
+
+def _w8_tol(ref, code=0.0):
+    return W8_RTOL * max(1.0, float(np.abs(np.asarray(ref, np.float32)).max())) + code
+
+
+def _np_norm(x, norm, ns, nb, eps=1e-5):
+    x = x.astype(np.float64)
+    if norm == "rmsnorm":
+        y = x / np.sqrt((x * x).mean(-1, keepdims=True) + eps)
+    else:
+        xc = x - x.mean(-1, keepdims=True)
+        y = xc / np.sqrt((xc * xc).mean(-1, keepdims=True) + eps)
+    return y * ns + (0 if nb is None else nb)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_rows_matches_act_quantize(rng, dtype):
+    """Codes bit for bit and sx to one ulp against the JAX package's
+    ``_act_quantize``; an all-zero row gets sx 1, and codes on .5
+    boundaries round half to even (row 0: absmax 127, sx exactly 1)."""
+    x = rng.standard_normal((6, 256)).astype(np.float32) * 3
+    x[0, :6] = [127.0, 2.5, -3.5, 0.5, 1.5, -0.5]
+    x[3] = 0.0
+    if dtype == "bf16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    jq, jsx = jqm._act_quantize(jnp.asarray(x))
+    tx = _t(x, torch.bfloat16 if dtype == "bf16" else torch.float32)
+    before = dispatch.PLAIN["quantize_rows_int8"]
+    codes, sx = tqm.quantize_rows_int8(tx)
+    assert dispatch.PLAIN["quantize_rows_int8"] == before + 1
+    assert codes.dtype == torch.int8 and codes.shape == (6, 256) and sx.shape == (6, 1)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jq).astype(np.int8))
+    _scales_equal(sx.numpy(), np.asarray(jsx))
+    np.testing.assert_array_equal(codes[0, :6].numpy(), [127, 2, -4, 0, 2, 0])
+    assert sx[0, 0] == 1.0 and sx[3, 0] == 1.0 and not codes[3].any()
+
+
+# name: (m, activation dtype, norm, bias, activation, residual)
+GEMV_W8_CASES = {
+    "m1_f32_layernorm_bias": (1, "f32", "layernorm", True, None, False),
+    "m3_f32_rmsnorm": (3, "f32", "rmsnorm", False, None, False),
+    "m8_f32_bias_relu_residual_zero_row": (8, "f32", None, True, "relu", True),
+    "m1_bf16_layernorm_gelu_residual": (1, "bf16", "layernorm", True, "gelu", True),
+    "m3_bf16_bias": (3, "bf16", None, True, None, False),
+    "m8_bf16_rmsnorm_bias_gelu": (8, "bf16", "rmsnorm", True, "gelu", False),
+}
+
+
+@pytest.mark.parametrize("case", list(GEMV_W8_CASES))
+def test_quant_gemv_w8a8_matches_pallas(rng, case):
+    """The decode GEMV's w8a8 mode against the Pallas kernel: the f32 rows
+    (normalized when a norm runs, never rounded to bf16) quantized per row;
+    bf16 outputs to one bf16 rounding (rtol 1e-2)."""
+    m, dt, norm, with_bias, act, with_res = GEMV_W8_CASES[case]
+    k, n = 256, 384
+    q, s = _quant(rng, k, n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if m == 8:
+        x[5] = 0.0  # an all-zero row: sx 1, codes 0
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dt == "bf16" else (jnp.float32, torch.float32)
+    x = np.asarray(jnp.asarray(x, jdt).astype(jnp.float32))
+    bias = rng.standard_normal(n).astype(np.float32) * 0.1 if with_bias else None
+    ns = rng.uniform(0.5, 1.5, k).astype(np.float32)
+    nb = rng.standard_normal(k).astype(np.float32) * 0.1 if norm == "layernorm" else None
+    resid = np.asarray(jnp.asarray(rng.standard_normal((m, n)), jdt).astype(jnp.float32)) if with_res else None
+    jkw = dict(activation=act, norm=norm)
+    tkw = dict(jkw)
+    if norm is not None:
+        jkw.update(norm_scale=jnp.asarray(ns), norm_bias=None if nb is None else jnp.asarray(nb))
+        tkw.update(norm_scale=_t(ns), norm_bias=None if nb is None else _t(nb))
+    if with_res:
+        jkw["residual"], tkw["residual"] = jnp.asarray(resid, jdt), _t(resid, tdt)
+    ref = jqm.quant_gemv_int8(
+        jnp.asarray(x, jdt), jnp.asarray(q), jnp.asarray(s), None if bias is None else jnp.asarray(bias),
+        block_n=128, w_convert="w8a8", interpret=True, **jkw,
+    )
+    before = dispatch.PLAIN["quant_gemv_int8:w8a8"]
+    out = tqm.quant_gemv_int8(_t(x, tdt), *_port_pack(q, s), None if bias is None else _t(bias), w8a8=True, **tkw)
+    assert dispatch.PLAIN["quant_gemv_int8:w8a8"] == before + 1
+    assert out.dtype == tdt and out.shape == (m, n)
+    ref = np.asarray(ref.astype(jnp.float32))
+    tol = _w8_tol(ref, _code(s, _np_norm(x, norm, ns, nb)) if norm else 0.0)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=BF16_ULP if dt == "bf16" else 0)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_quant_gemv_w8a8_argmax_tiled_padded_vocab(rng, m):
+    """w8a8 through the lm_head's configuration: a tiled [S, K, bn] pack
+    carried across, the final layernorm fused, and the greedy argmax over
+    a padded vocabulary: tokens identical to the Pallas kernel's."""
+    k, n, vocab = 256, 512, 450
+    q, s = _quant(rng, k, n)
+    s[480] = 10.0  # a padding column larger than any logit
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    ns = rng.uniform(0.5, 1.5, k).astype(np.float32)
+    tiled = np.asarray(jqm.tile_gemv_weights(q, 128))
+    ref = jqm.quant_gemv_int8(
+        jnp.asarray(x), jnp.asarray(tiled), jnp.asarray(s), norm="layernorm", norm_scale=jnp.asarray(ns),
+        norm_bias=jnp.zeros(k), argmax_n=vocab, w_convert="w8a8", interpret=True,
+    )
+    pack = tqm.int8_pack(tiled, s)
+    assert pack["tiled"]
+    out = tqm.quant_gemv_int8(_t(x), pack["qt"], pack["s"], norm="layernorm", norm_scale=_t(ns),
+                              norm_bias=torch.zeros(k), argmax_n=vocab, w8a8=True)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("dtype,with_next_qkv", [("f32", False), ("f32", True), ("bf16", True)])
+def test_quant_mlp_w8a8_matches_pallas(rng, dtype, with_next_qkv):
+    """The MLP's w8a8 mode against the Pallas kernel: each of up, down and
+    the next qkv quantizes its f32 input per row (the normalized rows, the
+    f32 up output over FF, the normalized f32 block output). Tolerance:
+    one code's contribution per quantized phase feeding the output (the
+    f32 rows differ in the last bits between the packages), bf16 one
+    rounding more."""
+    m, d, ff, nq = 2, 256, 1024, 768
+    a = _mlp_inputs(rng, m, d, ff, nq)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    J = jnp.asarray
+    x = np.asarray(J(a["x"], jdt).astype(jnp.float32))
+    resid = np.asarray(J(a["resid"], jdt).astype(jnp.float32))
+    jnext = (J(a["wq"]), J(a["sq"]), J(a["bq"]), J(a["qns"]), J(a["qnb"])) if with_next_qkv else None
+    ref = jqm.quant_mlp_int8(
+        J(x, jdt), J(a["wu"]), J(a["su"]), J(a["wd"]), J(a["sd"]), J(a["bu"]), J(a["bd"]),
+        activation="gelu", norm="layernorm", norm_scale=J(a["ns"]), norm_bias=J(a["nb"]),
+        residual=J(resid, jdt), next_qkv=jnext, w_convert="w8a8", interpret=True,
+    )
+    wu, su = _port_pack(a["wu"], a["su"])
+    wd, sd = _port_pack(a["wd"], a["sd"])
+    wq, sq = _port_pack(a["wq"], a["sq"])
+    tnext = (wq, sq, _t(a["bq"]), _t(a["qns"]), _t(a["qnb"])) if with_next_qkv else None
+    before = dispatch.PLAIN["quant_mlp_int8:w8a8"]
+    out = tqm.quant_mlp_int8(
+        _t(x, tdt), wu, su, wd, sd, _t(a["bu"]), _t(a["bd"]), activation="gelu",
+        norm="layernorm", norm_scale=_t(a["ns"]), norm_bias=_t(a["nb"]),
+        residual=_t(resid, tdt), next_qkv=tnext, w8a8=True,
+    )
+    assert dispatch.PLAIN["quant_mlp_int8:w8a8"] == before + 1
+    outs, refs = (out, ref) if with_next_qkv else ((out,), (ref,))
+    xn = _np_norm(x, "layernorm", a["ns"], a["nb"])
+    up = xn @ (a["wu"].astype(np.float64) * a["su"])
+    codes = _code(a["su"], xn) + _code(a["sd"], up)
+    for o, r, code in zip(outs, refs, (codes, 2 * codes)):
+        r = np.asarray(r.astype(jnp.float32))
+        np.testing.assert_allclose(o.float().numpy(), r, atol=_w8_tol(r, code), rtol=BF16_ULP if dtype == "bf16" else 0)
+
+
+# (m, bias, activation): M ≤ 8 hands off to the w8a8 GEMV; 9 is one row past
+# it; 130 crosses a second 128-row Pallas block.
+MATMUL_W8_CASES = [(1, True, "gelu"), (8, False, None), (9, True, "relu"), (9, False, "gelu"),
+                   (64, True, None), (64, False, "relu"), (130, True, "gelu"), (130, False, None)]
+
+
+@pytest.mark.parametrize("m,with_bias,act", MATMUL_W8_CASES,
+                         ids=[f"m{m}_{'bias' if b else 'no_bias'}_{a}" for m, b, a in MATMUL_W8_CASES])
+def test_quant_matmul_w8a8_matches_pallas(rng, m, with_bias, act):
+    """The prefill matmul in W8A8 mode against ``_q8_kernel`` (no norm: the
+    same codes, the same exact sums, f32 rounding apart)."""
+    k, n = 256, 384
+    q, s = _quant(rng, k, n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32) * 0.1 if with_bias else None
+    ref = jqm.quant_matmul_w8a8(
+        jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), None if bias is None else jnp.asarray(bias),
+        activation=act, block_m=128, block_n=128, block_k=128, interpret=True,
+    )
+    name = "quant_gemv_int8:w8a8" if m <= 8 else "quant_matmul_w8a8"
+    before = dispatch.PLAIN[name]
+    out = tqm.quant_matmul_w8a8(_t(x), *_port_pack(q, s), None if bias is None else _t(bias), activation=act)
+    assert dispatch.PLAIN[name] == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(out.numpy(), ref, atol=_w8_tol(ref), rtol=0)

@@ -27,7 +27,7 @@ from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
 from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.models import decoder as tdec
 from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine, ServingServer
-from torch_port_helpers import configs, dense_tree, to_jax, to_numpy
+from torch_port_helpers import configs, dense_tree, patch_jax_w8a8, to_jax, to_numpy, unfold
 
 PAGE = 64
 
@@ -229,3 +229,87 @@ def test_http_server_matches_engine(models):
         assert stats["max_batch"] == 4 and stats["max_len"] == tcfg.max_seq and stats["steps"] > 0
     finally:
         server.stop()
+
+
+# ---------------------------------------------------------------------------
+# W8A8 (cfg.w8a8) serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def jax_w8a8(monkeypatch):
+    """The JAX package's W8A8 path (``patch_jax_w8a8``), with JAX's trace
+    caches cleared on entry and on exit: its engines jit ``prefill`` and
+    the decode loop keyed on the config alone, so a weight-only trace made
+    earlier in this worker would be reused, and a W8A8 one would leak into
+    later tests. Returns the calls of the JAX ``quant_matmul_w8a8`` (made
+    while tracing, so a reused trace shows as none)."""
+    import jax
+
+    from rten_tpu.kernels import quant_matmul as jqm
+
+    jax.clear_caches()
+    patch_jax_w8a8(monkeypatch)
+    calls = []
+    inner = jqm.quant_matmul_w8a8
+    monkeypatch.setattr(jqm, "quant_matmul_w8a8", lambda *a, **kw: calls.append(1) or inner(*a, **kw))
+    yield calls
+    jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def w8_tiled_models():
+    """JAX params quantized at tile_bn 128 (the lm_head and layer 0's wqkv
+    tiled: the JAX prefill keeps them weight-only) and the port's copy."""
+    jcfg, tcfg = configs()
+    jparams = jdec.quantize_params_int8(to_jax(dense_tree(0)), tile_bn=128)
+    return jcfg, dataclasses.replace(tcfg, w8a8=True), jparams, tdec.params_from_jax(to_numpy(jparams), tcfg,
+                                                                                   device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["slot", "paged"])
+def test_w8a8_engines_match_jax(jax_w8a8, w8_tiled_models, engine):
+    """The W8A8 slot and paged engines against the JAX engines in W8A8, with
+    prompts of 3, 2 and 5 tokens beside longer ones: the JAX engines admit at
+    a bucket of ≥ 32 rows (the prefill structure, tiled packs weight-only),
+    and so must the port's exact-length admission. Besides the streams,
+    the slot engine's caches hold the prompts' k/v as the JAX engine's do
+    (positions 1 on: a finished row's append may land at 0), which the
+    tokens alone would not show."""
+    jcfg, tcfg, jparams, tparams = w8_tiled_models
+    specs = [dict(prompt=p, max_new_tokens=5) for p in ([1, 2, 3], [7, 8], _prompt(30, 12), [4, 5, 6, 7, 9])]
+    if engine == "slot":
+        jeng = JServingEngine(jparams, jcfg, max_batch=4, seed=0)
+        teng = ServingEngine(tparams, tcfg, max_batch=4, steps_per_tick=2, device="cpu")
+    else:
+        jeng = JPagedServingEngine(jparams, jcfg, max_batch=4, n_pages=8, page_size=PAGE, seed=0)
+        teng = PagedServingEngine(tparams, tcfg, max_batch=4, n_pages=8, page_size=PAGE, device="cpu")
+    jreqs = _serve(jeng, JRequest, specs)
+    assert jax_w8a8, "the JAX engine reused a trace: its W8A8 matmul was never traced"
+    dispatch.reset_counters()
+    treqs = _serve(teng, Request, specs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert dispatch.PLAIN["quant_matmul_w8a8"] > 0 and dispatch.PLAIN["quant_gemv_int8:w8a8"] > 0
+    assert dispatch.PLAIN["quant_mlp_int8:w8a8"] > 0
+    if engine == "slot":
+        for li in range(tcfg.n_layers):
+            for kv in ("k", "v"):
+                want = unfold(jeng.cache[kv][li], tcfg.head_dim)
+                for slot, spec in enumerate(specs):
+                    n = len(spec["prompt"])
+                    np.testing.assert_allclose(teng.cache[kv][li][slot, :, 1:n].numpy(), want[slot, :, 1:n],
+                                               atol=1e-4, rtol=0, err_msg=f"{kv} layer {li} slot {slot}")
+
+
+def test_w8a8_slot_engine_matches_solo_generator(w8_tiled_models):
+    """Batching is invisible in W8A8 too: per-row codes and exact int32 sums
+    make a row's result independent of the batch, so each stream equals
+    its solo Generator(NativeBackend) stream (prompts over 8 tokens, which
+    both prefill in the prefill structure)."""
+    _, tcfg, _, tparams = w8_tiled_models
+    prompts = [_prompt(31 + i, n) for i, n in enumerate((9, 13, 20, 11))]
+    engine = ServingEngine(tparams, tcfg, max_batch=4, steps_per_tick=2, device="cpu")
+    reqs = _serve(engine, Request, [dict(prompt=p, max_new_tokens=6) for p in prompts])
+    for p, r in zip(prompts, reqs):
+        gen = Generator(NativeBackend(tparams, tcfg, max_len=64, device="cpu"), GeneratorConfig(max_tokens=6))
+        assert r.output == [int(t[0]) for t in gen.with_prompt(p)], p
