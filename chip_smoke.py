@@ -10,12 +10,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build   — nvcc builds the kernels from rten_tpu_torch/kernels/csrc;
 3. kernels — each kernel (the three decode kernels, the prefill matmul and
    flash attention, the serving path's int8 and paged decode attentions,
-   and the W8A8 ones: the w8a8 modes of the decode GEMV and MLP,
-   quantize_rows_int8 and quant_matmul_w8a8) at GPT-2-small's shapes (bf16
-   activations, int8 weights) against its plain PyTorch version on the
-   same inputs, with its device time, its plain version's time, the least
-   time the card could take for the same work, and one PyTorch library
-   call as a yardstick;
+   the W8A8 ones: the w8a8 modes of the decode GEMV and MLP,
+   quantize_rows_int8 and quant_matmul_w8a8; decode_block, the whole
+   layer in one kernel, beside the two kernels it replaces;
+   matmul_fused in bf16 and f32; the silu / sigmoid / tanh epilogues;
+   decode_attention at 8 rows of mixed lengths) at GPT-2-small's shapes
+   (bf16 activations, int8 weights) against its plain PyTorch version on
+   the same inputs, with its device time, its plain version's time, the
+   least time the card could take for the same work, and one PyTorch
+   library call as a yardstick;
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
@@ -40,7 +43,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    from the weight-only path's, at most W8A8_GATE), phase 5's 16 requests
    through the slot engine, each stream equal to its solo W8A8 Generator
    stream, and ms per forward at 8 active rows;
-7. the line {"kernels": [...]} (the launches summed over phases 4-6), the
+7. mega    — the same model and weights with DecoderConfig(mega=True):
+   phase 4's path with decode_block launched 12 times a decode step and
+   neither decode_attention nor quant_mlp_int8 (tokens/s, ms/step, device
+   time by kernel and idle share beside phase 4's two-kernel numbers),
+   phase 4's 32 teacher-forced steps through the mega path's kernels and
+   plain versions against the two-kernel logits (relative RMS at most
+   MEGA_GATE, the top-2 gap rule), and a short W8A8 + mega run;
+8. the line {"kernels": [...]} (the launches summed over phases 4-7;
+   matmul_fused, which no model calls, launches in phase 3 only), the
    nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
 Details (every case, the compiler's register report) go to
@@ -69,14 +80,15 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # Data-sheet rates by card (NVIDIA): memory bytes/s, dense bf16 tensor-core
-# FLOP/s and dense int8 tensor-core OP/s. The weight-only kernels' operands
-# are bf16 activations against int8 weights (exact in bf16), so bf16 is the
-# type whose peak bounds their operations; the W8A8 kernels' are int8.
+# FLOP/s, dense int8 tensor-core OP/s and f32 FLOP/s on the CUDA cores. The
+# weight-only kernels' operands are bf16 activations against int8 weights
+# (exact in bf16), so bf16 is the type whose peak bounds their operations;
+# the W8A8 kernels' are int8; matmul_fused's f32 mode runs f32 FMA, not TF32.
 CARD_RATES = (
-    ("H100 PCIe", 2.0e12, 756e12, 1513e12),
-    ("H100 NVL", 3.9e12, 835e12, 1671e12),
-    ("H200", 4.8e12, 989e12, 1979e12),
-    ("H100", 3.35e12, 989e12, 1979e12),  # SXM (HBM3)
+    ("H100 PCIe", 2.0e12, 756e12, 1513e12, 51e12),
+    ("H100 NVL", 3.9e12, 835e12, 1671e12, 60e12),
+    ("H200", 4.8e12, 989e12, 1979e12, 67e12),
+    ("H100", 3.35e12, 989e12, 1979e12, 67e12),  # SXM (HBM3)
 )
 
 N_PROMPT, N_NEW, CACHE_LEN, N_FORCED = 64, 512, 768, 32
@@ -88,22 +100,23 @@ def log(*args):
 
 
 def card_rates(name: str):
-    for key, mem, bf16, int8 in CARD_RATES:
+    for key, mem, bf16, int8, f32 in CARD_RATES:
         if key in name:
-            return key, mem, bf16, int8
+            return key, mem, bf16, int8, f32
     raise RuntimeError(f"no data-sheet rates for card {name!r}")
 
 
 class Bound:
-    """Least time for a call: max(bytes / memory rate, ops / tensor-core
-    rate), the bf16 rate or (``int8``) the int8 one."""
+    """Least time for a call: max(bytes / memory rate, ops / peak rate), the
+    bf16 tensor-core rate, or (``int8``) the int8 one, or (``f32``) the f32
+    CUDA-core one."""
 
-    def __init__(self, mem_rate: float, op_rate: float, int8_rate: float):
-        self.mem_rate, self.op_rate, self.int8_rate = mem_rate, op_rate, int8_rate
+    def __init__(self, mem_rate: float, op_rate: float, int8_rate: float, f32_rate: float):
+        self.mem_rate, self.op_rate, self.int8_rate, self.f32_rate = mem_rate, op_rate, int8_rate, f32_rate
 
-    def __call__(self, nbytes: float, ops: float, int8: bool = False):
+    def __call__(self, nbytes: float, ops: float, int8: bool = False, f32: bool = False):
         t_mem = nbytes / self.mem_rate * 1e3
-        t_ops = ops / (self.int8_rate if int8 else self.op_rate) * 1e3
+        t_ops = ops / (self.int8_rate if int8 else self.f32_rate if f32 else self.op_rate) * 1e3
         return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -153,14 +166,15 @@ def copies_for(per_call_bytes: int, cap: int = 256) -> int:
 
 @contextlib.contextmanager
 def plain_decoder(decoder):
-    """Route the decoder's six kernel calls to their plain versions."""
+    """Route the decoder's seven kernel calls to their plain versions."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
 
     plain = dict(quant_gemv_int8=qm.quant_gemv_int8_ref, quant_mlp_int8=qm.quant_mlp_int8_ref,
                  quant_matmul_int8=qm.quant_matmul_int8_ref, quant_matmul_w8a8=qm.quant_matmul_w8a8_ref,
-                 decode_attention=da.decode_attention_ref, flash_attention=at.flash_attention_ref)
+                 decode_attention=da.decode_attention_ref, decode_block=da.decode_block_ref,
+                 flash_attention=at.flash_attention_ref)
     saved = {name: getattr(decoder, name) for name in plain}
     for name, fn in plain.items():
         setattr(decoder, name, fn)
@@ -387,6 +401,8 @@ def check_kernels(torch, bound, cfg):
     torch.cuda.empty_cache()
     check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record)
     torch.cuda.empty_cache()
+    check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -545,6 +561,174 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
         library = graph_ms(torch, [lambda t=t: torch._int_mm(*t) for t in lib_in])
         record("quant_matmul_w8a8", f"{name} N={n} K={k}", err, tol, ms, plain,
                bound(per_call, 2 * m * n * k, int8=True), library)
+        del copies, lib_in
+
+
+def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
+    """The whole-block kernel, the dense matmul and the later epilogue and
+    attention cases against their plain versions, timed as check_kernels
+    times the others: decode_block (GPT-2-small's block at
+    kv_len 1 / 300 / 767 of S 768, with and without the next qkv; beside it
+    the time of the two kernels it replaces on the same inputs), matmul_fused
+    (512 x 768 x 3072 bf16 + GELU, the up projection's shape dense; 2048^3
+    bf16; 1024^3 f32 against the f32 CUDA-core rate; library yardstick
+    torch.addmm, without the activation), the silu / sigmoid / tanh epilogues
+    of quant_matmul_int8 and quant_matmul_w8a8 at the up shape, M 64, and
+    decode_attention at B 8 with mixed lengths (the port's counterpart of the
+    TPU kernel's batched mode: one launch for all rows)."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import quant_matmul as qm
+    from rten_tpu_torch.kernels.matmul import matmul_fused, matmul_fused_ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5555)
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, ff, h, hd, s_max = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim, CACHE_LEN
+    F = torch.nn.functional
+
+    # -- decode_block: the whole layer (and the next layer's qkv) in one launch
+    for kv_len in (1, 300, 767):
+        for with_next in (True, False):
+            def make(i, kv_len=kv_len, with_next=with_next):
+                kc, vc = randn(1, h, s_max, hd, scale=1.5), randn(1, h, s_max, hd)
+                wo, wos = pack(d, h * hd)
+                wu, su = pack(ff, d)
+                wd, sd = pack(d, ff)
+                ns, nb = norm_vecs(d)
+                mlp = (wu, su, wd, sd, 0.1 * randn(ff, dtype=f32), 0.1 * randn(d, dtype=f32), ns, nb)
+                nxt = None
+                if with_next:
+                    wq, sq = pack(3 * d, d)
+                    qns, qnb = norm_vecs(d)
+                    nxt = (wq, sq, 0.1 * randn(3 * d, dtype=f32), qns, qnb)
+                lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+                return (randn(1, 3, h, 1, hd, scale=1.5), kc, vc, lens, wo, wos, 0.1 * randn(d, dtype=f32),
+                        randn(1, d), mlp, nxt)
+
+            kw = dict(activation="gelu", norm="layernorm")
+            args = make(0)
+            p_args = (args[0], args[1].clone(), args[2].clone(), *args[3:])
+            out = da.decode_block(*args, **kw)
+            ref = da.decode_block_ref(*p_args, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(args[1], p_args[1]) and torch.equal(args[2], p_args[2])):
+                raise AssertionError(f"decode_block kv_len={kv_len}: caches differ from the plain append")
+            outs, refs = (out, ref) if with_next else ((out,), (ref,))
+            errs = [bf16_err(o, r) for o, r in zip(outs, refs)]
+            worst = max(errs, key=lambda et: et[0] / et[1])
+            qkv, kc, vc, lens, wo, wos, bo, resid, mlp, nxt = args
+            prefix = 2 * h * kv_len * hd * 2  # k and v rows < kv_len, read once
+            per_call = (prefix + nbytes(qkv, lens, wo, wos, bo, resid, *mlp, *(nxt or ())) + 2 * h * hd * 2
+                        + 2 * d + (2 * 3 * d if with_next else 0))
+            ops = 4 * h * (kv_len + 1) * hd + 2 * (h * hd * d + 2 * d * ff + (3 * d * d if with_next else 0))
+            copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+            ms = graph_ms(torch, [lambda a=a: da.decode_block(*a, **kw) for a in copies])
+
+            def two_kernels(a):  # what the decoder runs without mega: decode_attention, then quant_mlp_int8
+                x = da.decode_attention(*a[:7], residual=a[7])
+                wu, su, wd, sd, bu, bd, ns, nb = a[8]
+                return qm.quant_mlp_int8(x, wu, su, wd, sd, bu, bd, activation="gelu", norm="layernorm",
+                                         norm_scale=ns, norm_bias=nb, residual=x, next_qkv=a[9])
+
+            two_ms = graph_ms(torch, [lambda a=a: two_kernels(a) for a in copies])
+            plain = eager_ms(torch, lambda: da.decode_block_ref(*p_args, **kw))
+            record("decode_block", f"kv_len={kv_len} {'+next_qkv' if with_next else 'last layer'} S={s_max} "
+                   f"D={d} FF={ff}", *worst, ms, plain, bound(per_call, ops), None,
+                   f"(decode_attention + quant_mlp_int8 on the same inputs {two_ms:.4f} ms)")
+            del copies
+
+    # -- decode_attention at B 8, mixed lengths: all rows in one launch ----
+    lens_list = KV_LENS["B=8 mixed"]
+    b = len(lens_list)
+
+    def make_b8(i):
+        wo, wos = pack(d, h * hd)
+        return (randn(b, 3, h, 1, hd, scale=1.5), randn(b, h, s_max, hd, scale=1.5), randn(b, h, s_max, hd),
+                torch.tensor(lens_list, dtype=torch.int32, device=dev), wo, wos,
+                0.1 * randn(d, dtype=f32)), dict(residual=randn(b, d))
+
+    args, kw = make_b8(0)
+    p_args = (args[0], args[1].clone(), args[2].clone(), *args[3:])
+    out = da.decode_attention(*args, **kw)
+    ref = da.decode_attention_ref(*p_args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(args[1], p_args[1]) and torch.equal(args[2], p_args[2])):
+        raise AssertionError("decode_attention B=8: caches differ from the plain append")
+    err, tol = bf16_err(out, ref)
+    prefix = sum(lens_list)
+    per_call = 2 * h * prefix * hd * 2 + nbytes(*args, kw["residual"]) - nbytes(args[1], args[2]) + b * d * 2 + (
+        2 * b * h * hd * 2)
+    ops = sum(4 * h * (n + 1) * hd for n in lens_list) + 2 * b * h * hd * d
+    copies = [make_b8(i) for i in range(copies_for(per_call, cap=64))]
+    ms = graph_ms(torch, [lambda a=a, k=k: da.decode_attention(*a, **k) for a, k in copies])
+    plain = eager_ms(torch, lambda: da.decode_attention_ref(*p_args, **kw))
+    valid = max(lens_list) + 1
+    mask = (torch.arange(valid, device=dev)[None, :] <= torch.tensor(lens_list, device=dev)[:, None])[:, None, None, :]
+    lib_in = [(c[0][0][:, 0], c[0][1][:, :, :valid], c[0][2][:, :, :valid]) for c in copies[:8]]
+    library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask) for t in lib_in])
+    record("decode_attention", f"B=8 mixed (1-767) S={s_max} H={h} D={hd}", err, tol, ms, plain,
+           bound(per_call, ops), library, "(the TPU kernel's batched mode: one launch for all rows)")
+    del copies, lib_in
+
+    # -- the silu / sigmoid / tanh epilogues at the up shape, M 64 ---------
+    m = 64
+    for act in ("silu", "sigmoid", "tanh"):
+        for name, fn, ref_fn in (("quant_matmul_int8", qm.quant_matmul_int8, qm.quant_matmul_int8_ref),
+                                 ("quant_matmul_w8a8", qm.quant_matmul_w8a8, qm.quant_matmul_w8a8_ref)):
+            def make_up(i):
+                qt, sc = pack(ff, d)
+                return randn(m, d), qt, sc, 0.1 * randn(ff, dtype=f32)
+
+            args = make_up(0)
+            out, ref = fn(*args, activation=act), ref_fn(*args, activation=act)
+            torch.cuda.synchronize()
+            w8 = name.endswith("w8a8")
+            if w8:  # the same codes summed exactly; one bf16 rounding and the epilogue's exp apart
+                top = ref.float().abs().max().item()
+                err, tol = (out.float() - ref.float()).abs().max().item(), 2.0**-7 * top + 1e-6 * max(1.0, top)
+            else:
+                err, tol = bf16_err(out, ref)
+            per_call = nbytes(*args) + 2 * m * ff
+            copies = [make_up(i) for i in range(copies_for(per_call))]
+            ms = graph_ms(torch, [lambda a=a: fn(*a, activation=act) for a in copies])
+            plain = eager_ms(torch, lambda: ref_fn(*args, activation=act))
+            if w8:
+                lib_in = [(qm.quantize_rows_int8(c[0])[0], c[1].t()) for c in copies]
+                library = graph_ms(torch, [lambda t=t: torch._int_mm(*t) for t in lib_in])
+            else:
+                lib_in = [(c[0], (c[1].float() * c[2][:, None]).to(bf16), c[3].to(bf16)) for c in copies[:4]]
+                library = graph_ms(torch, [lambda t=t: F.linear(*t) for t in lib_in])
+            record(name, f"up+{act} M={m} N={ff} K={d}", err, tol, ms, plain,
+                   bound(per_call, 2 * m * ff * d, int8=w8), library)
+            del copies, lib_in
+
+    # -- matmul_fused: dense x @ w + bias, activation ----------------------
+    for label, mm, kk, nn, dtype, act, with_bias in (("512x768x3072 bf16+gelu", 512, d, ff, bf16, "gelu", True),
+                                                    ("2048^3 bf16", 2048, 2048, 2048, bf16, None, False),
+                                                    ("1024^3 f32", 1024, 1024, 1024, f32, None, False)):
+        def make_mf(i, mm=mm, kk=kk, nn=nn, dtype=dtype, with_bias=with_bias):
+            x = randn(mm, kk, dtype=dtype)
+            w = randn(kk, nn, scale=kk**-0.5, dtype=dtype)
+            return x, w, 0.1 * randn(nn, dtype=f32) if with_bias else None
+
+        args = make_mf(0)
+        out = matmul_fused(*args, activation=act)
+        ref = matmul_fused_ref(*args, activation=act)
+        torch.cuda.synchronize()
+        if dtype == f32:  # exact f32 products (no TF32), f32 sums in another order
+            err, tol = (out - ref).abs().max().item(), 1e-5 * max(1.0, ref.abs().max().item())
+        else:
+            err, tol = bf16_err(out, ref)
+        x, w, bias = args
+        per_call = nbytes(*args) + mm * nn * out.element_size()
+        copies = [make_mf(i) for i in range(copies_for(per_call))]
+        ms = graph_ms(torch, [lambda a=a: matmul_fused(*a, activation=act) for a in copies])
+        plain = eager_ms(torch, lambda: matmul_fused_ref(*args, activation=act))
+        lib_in = [(c[0], c[1], c[2].to(dtype) if c[2] is not None else None) for c in copies]
+        library = graph_ms(torch, [lambda t=t: torch.addmm(t[2], t[0], t[1]) if t[2] is not None
+                                   else torch.mm(t[0], t[1]) for t in lib_in])
+        record("matmul_fused", f"{label} M={mm} K={kk} N={nn}", err, tol, ms, plain,
+               bound(per_call, 2 * mm * nn * kk, f32=dtype == f32), library)
         del copies, lib_in
 
 
@@ -1342,6 +1526,111 @@ def drive_w8a8(torch, cfg, params, mem_rate, int8_rate, out):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the whole-block decode (DecoderConfig(mega=True)) at full width
+# ---------------------------------------------------------------------------
+
+MEGA_KERNELS = ("quant_gemv_int8", "decode_block", "quant_matmul_int8", "flash_attention")
+MEGA_GATE = 0.05  # relative RMS of mega against two-kernel logits: the bound PERF.md states
+N_MEGA_W8A8 = 32  # tokens of the short W8A8 + mega run
+
+
+def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
+    """GPT-2-small with the same int8 weights and DecoderConfig(mega=True):
+    phase 4's path (Generator, time to first token, device time per step by
+    kernel, the teacher-forced checks) with decode_block launched 12 times a
+    decode step and neither decode_attention nor quant_mlp_int8; then phase
+    4's 32 teacher-forced steps (``forced``: the two-kernel path's tokens and
+    logits) through the mega path's kernels and its plain versions, held
+    against the two-kernel logits (relative RMS at most MEGA_GATE; an argmax
+    that differs from the served token only where its top-2 gap is below
+    GAP_TOL); and a short W8A8 + mega run that launches."""
+    import dataclasses
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+
+    cfgm = dataclasses.replace(cfg, mega=True)
+    launches, _mega_forced = drive_serve(torch, cfgm, params, mem_rate, op_rate, out, key="mega_",
+                                         required=MEGA_KERNELS)
+    steps = N_NEW - 1
+    if launches.get("decode_block", 0) != cfg.n_layers * steps or launches.get("decode_attention", 0) \
+            or launches.get("quant_mlp_int8", 0):
+        raise AssertionError(f"mega decode: decode_block must launch {cfg.n_layers} times a step and the two "
+                             f"kernels it replaces never: {launches}")
+
+    # Phase 4's teacher-forced steps, token by token through the mega path.
+    seq, served = forced["seq"], forced["served"]
+
+    def token_by_token():
+        c = decoder.init_cache(cfgm, 1, CACHE_LEN, device="cuda")
+        lg, c = decoder.prefill(params, cfgm, seq[:, :N_PROMPT], c, last_only=True)
+        rows = [lg[0, -1]]
+        for i in range(N_FORCED - 1):
+            lg, c = decoder.forward(params, cfgm, served[i].view(1, 1).to(torch.int32), c)
+            rows.append(lg[0, -1])
+        return torch.stack(rows)
+
+    mega_k = token_by_token()
+    with plain_decoder(decoder):
+        mega_p = token_by_token()
+    torch.cuda.synchronize()
+    two = forced["token_by_token"]
+
+    def gaps(logits):
+        return logits.max(-1).values - logits.gather(1, served[:, None].to(torch.int64))[:, 0]
+
+    k_gaps, p_gaps = gaps(mega_k), gaps(mega_p)
+    for what, g in (("the mega kernels", k_gaps), ("the mega plain versions", p_gaps)):
+        if bool((g > GAP_TOL).any()):
+            raise AssertionError(f"a served token loses to the argmax of {what} by > {GAP_TOL}: {g.tolist()}")
+    gate = dict(mega_vs_two_kernel=rel_rms(mega_k, two), per_step_max=max(rel_rms(a, b) for a, b in zip(mega_k, two)),
+                kernels_vs_plain=rel_rms(mega_k, mega_p), argmax_agree_kernels=int((k_gaps == 0).sum()),
+                argmax_agree_plain=int((p_gaps == 0).sum()), max_gap_kernels=k_gaps.max().item(),
+                max_gap_plain=p_gaps.max().item(), bound=MEGA_GATE)
+    log(f"  teacher-forced {N_FORCED} steps through the mega path: relative RMS against the two-kernel logits "
+        f"{gate['mega_vs_two_kernel']:.5f} (worst step {gate['per_step_max']:.5f}; bound {MEGA_GATE}), kernels "
+        f"against plain {gate['kernels_vs_plain']:.5f}; the served token is the argmax at "
+        f"{gate['argmax_agree_kernels']}/{N_FORCED} (kernels) and {gate['argmax_agree_plain']}/{N_FORCED} (plain), "
+        f"worst gap {gate['max_gap_kernels']:.4g} / {gate['max_gap_plain']:.4g} (tol {GAP_TOL})")
+    if not (gate["mega_vs_two_kernel"] <= MEGA_GATE and bool(torch.isfinite(mega_k).all())):
+        raise AssertionError(f"mega logits differ from the two-kernel ones by more than the bound: {gate}")
+    base, mega = out["decode"], out["mega_decode"]
+    log(f"  beside the two-kernel path of this call: {mega['tokens_per_s']:.1f} against {base['tokens_per_s']:.1f} "
+        f"tokens/s; host {mega['ms_per_step']:.4f} against {base['ms_per_step']:.4f} ms/step; device "
+        f"{mega['device_ms_per_step']} against {base['device_ms_per_step']} ms/step; idle share "
+        f"{mega['idle_share']} against {base['idle_share']}; launches a forward "
+        f"{sum(mega['launches_per_forward'].values()):.2f} against {sum(base['launches_per_forward'].values()):.2f}")
+
+    # A short W8A8 + mega run: the block stays weight-only, layer 0's qkv and
+    # the lm_head run the w8a8 GEMV, the prompt quant_matmul_w8a8.
+    cfg8 = dataclasses.replace(cfgm, w8a8=True)
+    prompt = seq[:, :N_PROMPT].cpu().numpy()
+    stream = iter(Generator(NativeBackend(params, cfg8, max_len=CACHE_LEN, device="cuda"),
+                            GeneratorConfig(max_tokens=N_MEGA_W8A8)).with_prompt(prompt))
+    dispatch.reset_counters()
+    toks = [int(next(stream)[0])]  # the prompt's prefill forward
+    prefill_launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    dispatch.reset_counters()
+    toks += [int(t[0]) for t in stream]  # the decode steps
+    torch.cuda.synchronize()
+    w8_launches = dict(dispatch.LAUNCHES)
+    plain.update({k: v for k, v in dispatch.PLAIN.items() if v})
+    want = {"decode_block": cfg.n_layers * (N_MEGA_W8A8 - 1), "quant_gemv_int8:w8a8": 2 * (N_MEGA_W8A8 - 1)}
+    if w8_launches != want or not prefill_launches.get("quant_matmul_w8a8") or any(plain.values()) \
+            or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"W8A8 + mega run: decode launches {w8_launches} (want {want}), prefill "
+                             f"{prefill_launches}, plain {plain}")
+    log(f"  W8A8 + mega: {len(toks)} tokens; the prompt's launches {prefill_launches}; the decode steps' {w8_launches}")
+    out["mega_forced"] = gate
+    out["mega_w8a8"] = dict(prefill_launches=prefill_launches, decode_launches=w8_launches, tokens=toks[:16])
+    for counts in (prefill_launches, w8_launches):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -1367,6 +1656,12 @@ KERNELS = {
                               replaces="rten_tpu/kernels/quant_matmul.py:760", timed="up+gelu M=64"),
     "quantize_rows_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
                                replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64"),
+    "decode_block": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
+                         replaces="rten_tpu/kernels/decode_attention.py:118", timed="kv_len=300 +next_qkv"),
+    # No model calls matmul_fused (the JAX package's tests alone do): it is
+    # held against its plain version in phase 3 and launches on no main path.
+    "matmul_fused": dict(source="rten_tpu_torch/kernels/csrc/matmul_fused.cu",
+                         replaces="rten_tpu/kernels/matmul_pallas.py:102", timed="512x768x3072", on_path=False),
 }
 
 
@@ -1388,19 +1683,20 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/7] device")
+    log("[1/8] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    card, mem_rate, op_rate, int8_rate = card_rates(kind)
+    card, mem_rate, op_rate, int8_rate, f32_rate = card_rates(kind)
     log(f"  {kind}; nvidia-smi: {smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-        f"rates used: {mem_rate / 1e12} TB/s, {op_rate / 1e12} TFLOP/s bf16, {int8_rate / 1e12} TOP/s int8 "
-        f"({card} data sheet, dense)")
-    bound = Bound(mem_rate, op_rate, int8_rate)
-    detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate))
+        f"rates used: {mem_rate / 1e12} TB/s, {op_rate / 1e12} TFLOP/s bf16, {int8_rate / 1e12} TOP/s int8, "
+        f"{f32_rate / 1e12} TFLOP/s f32 ({card} data sheet, dense)")
+    bound = Bound(mem_rate, op_rate, int8_rate, f32_rate)
+    detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
+                              f32_rate=f32_rate))
 
-    log("[2/7] build")
+    log("[2/8] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -1415,7 +1711,7 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
-    log("[3/7] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/8] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     detail["cases"] = cases
 
@@ -1423,21 +1719,24 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/7] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
-    launches, _forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
+    log("[4/8] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/7] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/8] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/7] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/8] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    missing = [name for name in KERNELS if launches.get(name, 0) == 0]
+    log("[7/8] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
+        launches[name] = launches.get(name, 0) + n
+    missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
 
-    log("[7/7] summary")
+    log("[8/8] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -61,6 +61,26 @@ SIGNATURES = {
         _P, _P, _F,                  # residual, out, sm_scale
         _P,                          # stream
     ],
+    "rt_decode_block": [
+        _P, _I, _I, _I,              # qkv, bf16, h, d
+        _P, _P, _I, _P,              # k_cache, v_cache, s_max, kv_len
+        _P, _P, _P, _P, _I,          # part_m, part_l, part_acc, attn, n_chunks
+        _P, _P, _P, _I,              # wo_t, wo_scales, wo_bias, dm
+        _P, _P,                      # residual, h_buf
+        _P, _P, _P, _I, _P,          # w_up_t, s_up, b_up, ff, u_buf
+        _P, _P, _P,                  # w_down_t, s_down, b_down
+        _P, _P, _I, _F, _I,          # ln2 scale, ln2 bias, norm, eps, act
+        _P, _P,                      # out, out_f32
+        _P, _P, _P, _I,              # w_qkv_t, s_qkv, b_qkv, nq
+        _P, _P, _P,                  # next ln scale, next ln bias, qkv_out
+        _F, _P,                      # sm_scale, stream
+    ],
+    "rt_matmul_fused": [
+        _P, _P, _P, _I,              # x, w, bias, bf16
+        _I, _I, _I,                  # m, n, k
+        _I, _P, _I,                  # act, out, out_bf16
+        _P,                          # stream
+    ],
     "rt_quant_matmul": [
         _P, _I, _I, _I,              # x, x_bf16, m, k
         _P, _P, _P, _I,              # w_t, scales, bias, n

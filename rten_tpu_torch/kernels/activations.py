@@ -1,9 +1,12 @@
 """Epilogue activations shared by the kernels and their plain versions.
 
 Counterpart of ``rten_tpu/kernels/matmul_pallas.py`` ``_erf_poly``,
-``_gelu_erf`` and ``_ACTIVATIONS``. GELU is the exact (erf, not tanh) form,
+``_gelu_erf`` and ``_ACTIVATIONS`` (:48-55): none, relu, gelu, and silu,
+sigmoid and tanh in f32 (``jax.nn.silu``, ``jax.nn.sigmoid``,
+``jnp.tanh``; the CUDA kernels use ``expf`` and ``tanhf``, ``csrc/common.cuh``
+``activate``). GELU is the exact (erf, not tanh) form,
 with erf from Abramowitz & Stegun 7.1.26 (max abs error 1.5e-7). The CUDA
-kernels evaluate the same polynomial (``csrc/gemv.cuh`` ``gelu_erf``), so a
+kernels evaluate the same polynomial (``csrc/common.cuh`` ``erf_poly``), so a
 kernel and its plain version differ only by float rounding; the JAX
 package's jnp path uses exact erf instead, which differs by at most 1.5e-7
 in erf.
@@ -36,9 +39,12 @@ ACTIVATIONS = {
     None: lambda x: x,
     "relu": torch.relu,
     "gelu": gelu_erf,
+    "silu": lambda x: x * torch.sigmoid(x),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
 }
 
-ACTIVATION_CODES = {None: 0, "gelu": 1, "relu": 2}
+ACTIVATION_CODES = {None: 0, "gelu": 1, "relu": 2, "silu": 3, "sigmoid": 4, "tanh": 5}
 
 
 def activation_code(name: str | None) -> int:

@@ -1,6 +1,7 @@
 // Device helpers shared by every kernel source: warp and block reductions,
 // activation loads and stores in f32 or bf16, the W8A8 row quantization, the
-// epilogue activations, the exact int8 -> f32 conversion, and ldmatrix.
+// epilogue activations, the exact int8 -> f32 conversion, and ldmatrix
+// (plain and transposed).
 // Everything has internal linkage, so each .cu file that includes this
 // compiles its own copy.
 #pragma once
@@ -85,14 +86,20 @@ __device__ __forceinline__ float quantize_row(const Load& load, int nv, unsigned
   return scale;
 }
 
-// Four consecutive activations (i % 4 == 0) as f32, one 8- or 16-byte load.
+// Four consecutive activations (i % 4 == 0) as f32, one 8- or 16-byte load:
+// through the read-only path (__ldg), or, COHERENT, from L2 (__ldcg) for
+// data that other blocks of the same launch wrote (decode_block.cu's
+// scratch, read after a grid sync).
+template <bool COHERENT = false>
 __device__ __forceinline__ float4 load_act4(const void* p, int bf16, size_t i) {
   if (bf16) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i));
+    const uint2* q = reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i);
+    const uint2 v = COHERENT ? __ldcg(q) : __ldg(q);
     return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
                        __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
   }
-  return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p) + i));
+  const float4* q = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+  return COHERENT ? __ldcg(q) : __ldg(q);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -103,6 +110,15 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 // lane i gives the address of row i % 8 of matrix i / 8.
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The same four matrices transposed: from 8 x 8 tiles stored k-major (row
+// = k, 8 contiguous columns), lane i gets the pair of k of column i / 4 that
+// an mma.sync B ("col") fragment holds.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
@@ -196,10 +212,24 @@ __device__ __forceinline__ float erf_poly(float x) {
   return sign * y;
 }
 
-// Epilogue activation by code (activations.py ACTIVATION_CODES).
+// silu, sigmoid and tanh, in f32 as the TPU's _ACTIVATIONS (jax.nn.silu =
+// x * sigmoid(x), sigmoid = 1 / (1 + exp(-x))). Not inlined: inlined into
+// every kernel's epilogue, their code cost the prefill matmuls 5-15% of
+// their time whatever the activation (registers and code size; measured
+// on the H100, PERF.md); out of line they cost a call per output element,
+// and only when selected.
+__device__ __noinline__ float activate_exp(float v, int act) {
+  if (act == 3) return v * (1.f / (1.f + expf(-v)));
+  if (act == 4) return 1.f / (1.f + expf(-v));
+  return tanhf(v);
+}
+
+// Epilogue activation by code (activations.py ACTIVATION_CODES): 1 gelu
+// (erf polynomial), 2 relu, 3 silu, 4 sigmoid, 5 tanh.
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == 1) return 0.5f * v * (1.f + erf_poly(v * 0.7071067811865475f));
   if (act == 2) return fmaxf(v, 0.f);
+  if (act >= 3) return activate_exp(v, act);
   return v;
 }
 

@@ -4,9 +4,11 @@
 //
 //     out = activation((norm(x) @ W) * scale + bias) + residual
 //
-// Shared by the three decode kernels: quant_gemv.cu launches it once (twice
-// with the argmax), quant_mlp.cu three times (up, down, next qkv) and
-// decode_attention.cu once for the output projection. Everything here has
+// Shared by the decode kernels: quant_gemv.cu launches it once (twice with
+// the argmax), quant_mlp.cu three times (up, down, next qkv) and
+// decode_attention.cu once for the output projection; decode_block.cu runs
+// its prologue and body (device functions whose column loop strides over
+// the grid) as four phases of one persistent kernel. Everything here has
 // internal linkage, so every .cu file instantiates its own copy.
 //
 // Replaces the TPU's rten_tpu/kernels/quant_matmul.py _gemv_kernel /
@@ -88,8 +90,9 @@ struct GemvArgs {
   float eps;
   int dot_bf16;           // round the normalised rows to bf16 before the dot (not in w8a8)
   int w8a8;               // quantize the rows per row to int8; s8 x s8 -> s32 dots
-  int act;                // 0 none, 1 gelu (erf polynomial), 2 relu
-  const void* residual;   // [m, n] of the output dtype, or null
+  int act;                // activations.py ACTIVATION_CODES (common.cuh activate)
+  const void* residual;   // [m, n] of the output dtype (f32 with res_f32), or null
+  int res_f32;            // the residual is f32 whatever the output dtype (decode_block.cu)
   void* out;              // [m, n] f32 or bf16 (out_bf16), or null
   int out_bf16;
   float* out_f32;         // [m, n] f32 copy of the output, or null
@@ -192,8 +195,10 @@ constexpr int PRO_BATCH = 4;  // float4 loads a thread keeps in flight in the pr
 // row; (2) layernorm's centred sum of squares, from shared memory; (3)
 // normalise with the norm's scale and bias, and round to bf16 for a bf16
 // dot. On the TPU one grid step computed this once into scratch; here every
-// block recomputes it (a few KB from L2).
-template <int MR>
+// block recomputes it (a few KB from L2). COHERENT: x was written by other
+// blocks of the same launch (decode_block.cu), so it is read from L2, not
+// through the read-only path.
+template <int MR, bool COHERENT = false>
 __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
   __shared__ float red[2][MR][GEMV_WARPS];
   const int tid = threadIdx.x;
@@ -210,7 +215,7 @@ __device__ void gemv_prologue(const GemvArgs& a, float* xs) {
 #pragma unroll
       for (int i = 0; i < PRO_BATCH; ++i) {
         const int v = v0 + i * GEMV_THREADS;
-        val[i] = v < nv ? load_act4(a.x, a.x_bf16, (size_t)r * a.k + 4 * v) : zero;
+        val[i] = v < nv ? load_act4<COHERENT>(a.x, a.x_bf16, (size_t)r * a.k + 4 * v) : zero;
       }
 #pragma unroll
       for (int i = 0; i < PRO_BATCH; ++i) {
@@ -345,7 +350,8 @@ __device__ void gemv_body(const GemvArgs& a, const float* xs, const int8_t* xq, 
     float res[MR];
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
-      res[r] = (a.residual && r < a.m) ? load_act(a.residual, a.out_bf16, (size_t)r * a.n + my_col) : 0.f;
+      res[r] = (a.residual && r < a.m)
+                   ? load_act(a.residual, a.res_f32 ? 0 : a.out_bf16, (size_t)r * a.n + my_col) : 0.f;
     }
     Acc acc[CPW][MR];
 #pragma unroll

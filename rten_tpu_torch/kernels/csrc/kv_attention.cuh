@@ -28,6 +28,9 @@
 // clipped to +-127 (IEEE division and round-half-even, the jnp.round rule),
 // and the new token's score and value use the dequantized code * scale.
 //
+// Both kernels' bodies are device functions of a work item (kv_split_item,
+// kv_combine_item), which decode_block.cu's persistent kernel calls too.
+//
 // Bound on the H100: bytes, the valid prefix's payload (and scales) read
 // once. The split puts (kv_len + 1) / 64 x H blocks on the card per row;
 // every cache row is read as 16-byte vectors by neighbouring lanes.
@@ -66,8 +69,11 @@ __device__ __forceinline__ void load16(const int8_t* p, float* f) {
   unpack16(*reinterpret_cast<const int4*>(p), *reinterpret_cast<float(*)[16]>(f));
 }
 
+// One split work item, chunk c of head hh of row b, by a block of
+// KV_THREADS threads (kv_split_kernel's body; decode_block.cu's phase 1
+// loops it over the items of a persistent grid).
 template <typename T, typename KV, int D, bool PAGED>
-__global__ void __launch_bounds__(KV_THREADS) kv_split_kernel(KvArgs a) {
+__device__ void kv_split_item(const KvArgs& a, int c, int hh, int b) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   static_assert(INT8 || std::is_same<KV, T>::value, "a float cache holds the activations' dtype");
   constexpr int VN = 16 / sizeof(KV);            // elements in a 16-byte vector
@@ -75,7 +81,6 @@ __global__ void __launch_bounds__(KV_THREADS) kv_split_kernel(KvArgs a) {
   constexpr int RPW = 32 / VPR;                  // rows a warp scores per step
   constexpr int SLICES = KV_THREADS / VPR;       // position slices of the P.V sum
   constexpr int WARPS = KV_THREADS / 32;
-  const int c = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
   const int len = a.kv_len[b];
   if (len < 0 || len >= a.cap) return;  // no room to append: nothing written, NaN out
   const int start = c * KV_CHUNK;
@@ -245,9 +250,16 @@ __global__ void __launch_bounds__(KV_THREADS) kv_split_kernel(KvArgs a) {
   }
 }
 
+template <typename T, typename KV, int D, bool PAGED>
+__global__ void __launch_bounds__(KV_THREADS) kv_split_kernel(KvArgs a) {
+  kv_split_item<T, KV, D, PAGED>(a, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+// The combine of head hh of row b by threads 0..D-1 (kv_combine_kernel's
+// body; decode_block.cu's phase 2).
 template <typename O, int D>
-__global__ void __launch_bounds__(D) kv_combine_kernel(KvArgs a, O* out) {
-  const int hh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+__device__ void kv_combine_item(const KvArgs& a, O* out, int hh, int b) {
+  const int tid = threadIdx.x;
   const int len = a.kv_len[b];
   O* dst = out + ((size_t)b * a.h + hh) * D;
   if (len < 0 || len >= a.cap) {  // no room to append: the row's output is NaN, never plausible
@@ -265,6 +277,11 @@ __global__ void __launch_bounds__(D) kv_combine_kernel(KvArgs a, O* out) {
     num += w * a.part_acc[(base + c) * D + tid];
   }
   store_elt(dst + tid, num * (den == 0.f ? 1.f : 1.f / den));
+}
+
+template <typename O, int D>
+__global__ void __launch_bounds__(D) kv_combine_kernel(KvArgs a, O* out) {
+  kv_combine_item<O, D>(a, out, blockIdx.x, blockIdx.y);
 }
 
 template <typename T, typename KV, int D, bool PAGED, bool F32_OUT>

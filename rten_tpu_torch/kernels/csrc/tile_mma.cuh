@@ -1,0 +1,171 @@
+// The 64 x 128 output tile of 256 threads shared by the prefill matmuls
+// (quant_matmul.cu: int8 weights; matmul_fused.cu: dense bf16 or f32
+// weights). Each kernel stages its own operands into shared memory; the
+// K loops, the tensor-core step and the order of the epilogue are here.
+//
+// - bf16 (tensor cores): per K step of 32, the A tile (64 rows x 32, k
+//   contiguous) and the B tile are staged as bf16 into two buffers, the
+//   next step's global loads in flight while the tensor cores work on this
+//   one. B is stored either n-major ([128 columns][32 k], k contiguous: the
+//   int8 pack's [N, K] layout, read with ldmatrix) or k-major ([32 k][128
+//   columns]: a dense [K, N] matrix, read with ldmatrix.trans). Rows are
+//   padded by 16 bytes so that ldmatrix's eight 16-byte rows fall in
+//   distinct banks. 8 warps as 2 x 4, each owning 32 x 32: per k16 step two
+//   ldmatrix.x4 for A, two for B, and 2 x 4 mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate): 32 f32 accumulators per thread.
+// - f32 (CUDA cores, exact f32 products, no TF32): per K step of 16, A
+//   transposed ([16 k][64 rows]) and B k-major ([16 k][128 columns]) in
+//   shared memory, one buffer; each thread owns 4 x 8 outputs (rows ty +
+//   16 i, columns tx + 16 j) and accumulates with fmaf.
+#pragma once
+
+#include "common.cuh"
+
+namespace rt {
+namespace {
+
+constexpr int TILE_BM = 64, TILE_BN = 128, TILE_THREADS = 256;
+constexpr int TILE_BK = 32;              // K step of the bf16 loop
+constexpr int TILE_LDS = TILE_BK + 8;    // [row][k] stride of a bf16 tile, in bf16
+constexpr int TILE_LDN = TILE_BN + 8;    // [k][column] stride of a k-major bf16 B tile
+constexpr int SIMT_BK = 16;              // K step of the f32 loop
+
+// c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Shared memory of the bf16 loop; B_KN: B stored k-major.
+template <bool B_KN>
+struct Bf16Tiles {
+  __nv_bfloat16 a[2][TILE_BM][TILE_LDS];
+  __nv_bfloat16 b[2][B_KN ? TILE_BK : TILE_BN][B_KN ? TILE_LDN : TILE_LDS];
+};
+
+// One K step of this warp's 32 x 32 (rows wm * 32, columns wn * 32) on
+// buffer buf.
+template <bool B_KN>
+__device__ __forceinline__ void bf16_tile_step(const Bf16Tiles<B_KN>& s, int buf, float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < TILE_BK; kk += 16) {
+    unsigned af[2][4], bfr[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // A 16 x 16: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15)
+      ldmatrix_x4(af[i], &s.a[buf][wm * 32 + i * 16 + r8 + (mat & 1) * 8][kk + (mat >> 1) * 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // B, two n8 tiles: (k 0-7, k 8-15) of columns 0-7, then 8-15
+      if constexpr (B_KN) {
+        ldmatrix_x4_trans(bfr[j], &s.b[buf][kk + (mat & 1) * 8 + r8][wn * 32 + j * 16 + (mat >> 1) * 8]);
+      } else {
+        ldmatrix_x4(bfr[j], &s.b[buf][wn * 32 + j * 16 + r8 + (mat >> 1) * 8][kk + (mat & 1) * 8]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_bf16(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2], bfr[j >> 1][(j & 1) * 2 + 1]);
+      }
+    }
+  }
+}
+
+// The double-buffered K loop over nk steps: load(kt) fetches step kt's
+// global pieces into the thread's registers, store(buf) writes them into
+// buffer buf. Leaves the sums in acc.
+template <bool B_KN, typename Load, typename Store>
+__device__ __forceinline__ void bf16_tile_loop(int nk, const Load& load, const Store& store,
+                                               const Bf16Tiles<B_KN>& s, float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) load(kt + 1);
+    bf16_tile_step<B_KN>(s, buf, acc);
+    if (kt + 1 < nk) store(buf ^ 1);
+    __syncthreads();
+  }
+}
+
+// The epilogue walk of the bf16 accumulators: pair(row, col, v0, v1, j) for
+// columns col and col + 1 (col even) of each row this thread holds, in the
+// m16n8 layout (c0, c1 at row lane / 4, columns 2 * (lane % 4) and + 1;
+// c2, c3 eight rows below). col_setup(col) runs once per column pair first.
+template <typename ColSetup, typename Pair>
+__device__ __forceinline__ void bf16_tile_epilogue(const float (&acc)[2][4][4], int m0, int n0,
+                                                   const ColSetup& col_setup, const Pair& pair) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn * 32 + j * 8 + t4 * 2;
+    col_setup(col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + wm * 32 + i * 16 + g;
+      pair(row, col, acc[i][j][0], acc[i][j][1]);
+      pair(row + 8, col, acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+// Shared memory of the f32 loop: A transposed, B k-major.
+struct F32Tiles {
+  float a[SIMT_BK][TILE_BM + 4];
+  float b[SIMT_BK][TILE_BN];
+};
+
+// The f32 K loop: stage(k0) fills the tiles with K columns k0..k0+15 (zeros
+// past the edges). Thread (ty, tx) = (tid / 16, tid % 16) accumulates rows
+// ty + 16 i and columns tx + 16 j.
+template <typename Stage>
+__device__ __forceinline__ void f32_tile_loop(int k, const Stage& stage, const F32Tiles& s,
+                                              float (&acc)[4][8]) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < k; k0 += SIMT_BK) {
+    stage(k0);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SIMT_BK; ++kk) {
+      float xv[4], wv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xv[i] = s.a[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) wv[j] = s.b[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+}  // namespace rt

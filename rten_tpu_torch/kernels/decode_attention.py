@@ -1,14 +1,28 @@
 """Decode attention: one query token against a preallocated KV cache, with
 the new token's k/v appended in place and the int8 output projection, its
-bias and the residual fused in; and ``decode_attention_int8``, the same
+bias and the residual fused in; ``decode_block``, the same with the rest of
+the transformer block (ln2, up, activation, down, residual, and the next
+layer's ln1 + qkv) in one kernel; and ``decode_attention_int8``, attention
 over an int8 cache with per-(token, head) scales (the output projection
 left to the caller). Kernel wrappers beside their plain versions.
 
 Counterpart of ``rten_tpu/kernels/decode_attention.py`` ``decode_attention``
-(:734) in the mode the decoder's decode step uses: packed q|k|v
+(:734) in the modes the decoder's decode step uses: packed q|k|v
 ``[B, 3, H, 1, D]`` (MHA), in-place append at ``kv_len``, fused int8
-``wo`` + bias + residual. Its folded cache layout and lane padding exist
-for Mosaic only; here the cache is logical ``[B, H, S, D]``.
+``wo`` + bias + residual; with ``mlp=`` / ``next_qkv=`` (the whole-block
+"mega" mode, batch 1) that is ``decode_block``. Its folded cache layout and
+lane padding exist for Mosaic only; here the cache is logical
+``[B, H, S, D]``.
+
+The TPU kernels' ``batched=True`` modes (``_decode_attn_kernel_batched``,
+``_decode_attn_int8_kernel_batched``: every row in one grid cell, with
+per-row lengths) compute, row by row, what their per-row modes compute;
+they exist to pay a TPU grid cell's fixed costs (its DMA chain, the
+block-0 latency, the append's round trips) once for all rows instead of
+once per row. A CUDA grid pays no such cost per row, so here both modes are
+the one launch over all B rows that ``decode_attention`` and
+``decode_attention_int8`` always make (split-KV grid (chunk, head, row); the
+fused wo reads W_o once for all rows).
 
 Numerics (those of the Pallas kernel): scores, softmax statistics and the
 attention vector are f32; the scale is ``1/sqrt(D)``; the output
@@ -23,17 +37,23 @@ import math
 import torch
 
 from rten_tpu_torch.kernels import _build
+from rten_tpu_torch.kernels.activations import ACTIVATIONS, activation_code
 from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
 from rten_tpu_torch.kernels.quant_matmul import (
+    _NORM_CODES,
     MAX_ROWS,
     _check_weight,
+    _dot_operand,
+    _norm_rows_f32,
     _ptr,
+    _qdot,
     _stream,
     _vec_f32,
 )
 
 CHUNK = 64  # cache positions per split-KV block (csrc/kv_attention.cuh KV_CHUNK)
 HEAD_DIMS = (64, 128)
+_LANES = 128  # the TPU's lane width, in the copied support rules below
 
 
 def _unpack(packed_qkv):
@@ -50,13 +70,12 @@ def attend_ref(q, keys, vals, sm_scale: float):
     return torch.einsum("hs,hsd->hd", p, vals.float()).reshape(-1)
 
 
-def decode_attention_ref(
-    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias=None, residual=None,
-):
-    """Plain version of ``decode_attention`` (same signature, result and
-    in-place cache update). Reads ``kv_len`` on the host."""
-    PLAIN["decode_attention"] += 1
-    b, h, d = _unpack(packed_qkv)
+def _append_attend(packed_qkv, k_cache, v_cache, kv_len):
+    """Append each row's new k/v at its ``kv_len`` in place and attend over
+    the prefix and the new token: the f32 attention vector [B, H·D] and the
+    f32 ``attn @ W_o · scales + bias + residual`` of the plain versions.
+    Reads ``kv_len`` on the host; a full row raises IndexError."""
+    _b, _h, d = _unpack(packed_qkv)
     sm_scale = 1.0 / math.sqrt(d)
     q, kn, vn = packed_qkv[:, 0, :, 0], packed_qkv[:, 1, :, 0], packed_qkv[:, 2, :, 0]
     rows = []
@@ -64,13 +83,26 @@ def decode_attention_ref(
         k_cache[bi, :, length] = kn[bi].to(k_cache.dtype)
         v_cache[bi, :, length] = vn[bi].to(v_cache.dtype)
         rows.append(attend_ref(q[bi], k_cache[bi, :, : length + 1], v_cache[bi, :, : length + 1], sm_scale))
-    attn = torch.stack(rows)  # [B, H·D] f32
+    return torch.stack(rows)
+
+
+def _project_wo(attn, wo_t, wo_scales, wo_bias, residual):
     out = (attn @ wo_t.float().t()) * wo_scales.float()
     if wo_bias is not None:
         out = out + wo_bias.float()
     if residual is not None:
         out = out + residual.float()
-    return out.to(packed_qkv.dtype)
+    return out
+
+
+def decode_attention_ref(
+    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias=None, residual=None,
+):
+    """Plain version of ``decode_attention`` (same signature, result and
+    in-place cache update). Reads ``kv_len`` on the host."""
+    PLAIN["decode_attention"] += 1
+    attn = _append_attend(packed_qkv, k_cache, v_cache, kv_len)
+    return _project_wo(attn, wo_t, wo_scales, wo_bias, residual).to(packed_qkv.dtype)
 
 
 def decode_attention(
@@ -89,6 +121,10 @@ def decode_attention(
     S) raises IndexError in the plain version; the kernel, which does not
     read ``kv_len`` on the host, leaves the caches alone and returns NaN
     for that row (``decoder.forward`` refuses a full cache beforehand).
+
+    All B rows run in one launch, each at its own length: the port's
+    counterpart of the TPU kernel's ``batched=True`` mode as well as of its
+    per-row mode (see the module docstring).
 
     CUDA tensors launch ``csrc/decode_attention.cu`` (split-KV scores and
     partial softmax, combine, output GEMV); CPU tensors run
@@ -145,6 +181,191 @@ def decode_attention(
     _build.check(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The whole block in one kernel (the TPU kernel's "mega" mode, batch 1)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_supported(head_dim: int, s_max: int, block_s: int = 256) -> bool:
+    """The JAX package's shape gate of its decode attention kernel (a copy
+    of ``rten_tpu/kernels/decode_attention.py:684``: 128-lane folding, an
+    8-row append window), used here only inside ``mega_block_supported``."""
+    bs = min(block_s, s_max)
+    return (
+        head_dim <= _LANES
+        and _LANES % head_dim == 0
+        and s_max % bs == 0
+        and (bs * head_dim) % _LANES == 0
+        and (s_max * head_dim) % (8 * _LANES) == 0
+    )
+
+
+def mega_block_supported(d_model: int, ff: int, n_qkv: int, hk: int, head_dim: int, s_max: int,
+                         kv_bytes: int = 2, block_s: int = 256) -> bool:
+    """Whether the JAX package runs a layer through its whole-block kernel:
+    a copy of ``rten_tpu/kernels/decode_attention.py:697``
+    ``mega_block_supported``, its TPU VMEM budget included (the attention
+    double buffers plus the int8 MLP and next-qkv weights within 12 MB), so
+    that the port takes ``decode_block`` on exactly the layers the JAX
+    package takes its mega kernel on. ``decode_block`` itself has no such
+    limit."""
+    if not decode_attention_supported(head_dim, s_max, block_s):
+        return False
+    bs = min(block_s, s_max)
+    rows = bs * head_dim // _LANES
+    attn_bufs = 2 * 2 * hk * rows * _LANES * kv_bytes
+    attn_bufs += 2 * 2 * hk * 8 * _LANES * kv_bytes
+    weights = d_model * ff * 2 + d_model * n_qkv
+    return attn_bufs + weights <= (12 << 20)
+
+
+def decode_block_ref(
+    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
+    activation="gelu", norm="layernorm", norm_eps=1e-5,
+):
+    """Plain version of ``decode_block`` (same signature, result and in-place
+    cache update), line by line the TPU kernel's mega branch
+    (``decode_attention.py:337-405``). Reads ``kv_len`` on the host."""
+    PLAIN["decode_block"] += 1
+    dtype = packed_qkv.dtype
+    bf16 = dtype == torch.bfloat16
+    attn = _append_attend(packed_qkv, k_cache, v_cache, kv_len)
+    hidden = _project_wo(attn, wo_t, wo_scales, wo_bias, residual)  # f32, not rounded
+    w_up_t, up_scales, w_down_t, down_scales, b_up, b_down, ln2_scale, ln2_bias = mlp
+    xn = _norm_rows_f32(hidden, norm, norm_eps, ln2_scale, ln2_bias)
+    up = _qdot(_dot_operand(xn, bf16), w_up_t, up_scales)
+    if b_up is not None:
+        up = up + b_up.float()
+    up = ACTIVATIONS[activation](up)
+    down = _qdot(_dot_operand(up, bf16), w_down_t, down_scales)
+    if b_down is not None:
+        down = down + b_down.float()
+    down = down + hidden  # the block residual, f32
+    out = down.to(dtype)
+    if next_qkv is None:
+        return out
+    w_qkv_t, qkv_scales, qkv_bias, nns, nnb = next_qkv
+    xq = _norm_rows_f32(down, norm, norm_eps, nns, nnb)
+    qkv = _qdot(_dot_operand(xq, bf16), w_qkv_t, qkv_scales)
+    if qkv_bias is not None:
+        qkv = qkv + qkv_bias.float()
+    return out, qkv.to(dtype)
+
+
+def _aligned(n: int) -> int:
+    return -(-n // 64) * 64  # 256-byte segments of the f32 scratch
+
+
+def decode_block(
+    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
+    activation="gelu", norm="layernorm", norm_eps=1e-5,
+):
+    """A whole transformer block of one decode token (batch 1) in one
+    kernel, the JAX package's ``decode_attention(..., mlp=, next_qkv=)``
+    (the "mega" mode its decoder takes under ``RTEN_DECODE_FUSE=mega``):
+
+        h   = decode_attention(...)                 in f32, not rounded
+        out = act(norm(h) @ W_up · s + b_up) @ W_down · s + b_down + h
+        qkv = norm_next(out) @ W_qkv · s + b_qkv    (with ``next_qkv``)
+
+    packed_qkv [1, 3, H, 1, D], k_cache / v_cache [1, H, S, D], kv_len
+    int32 [1], wo_t int8 [Dm, H·D], wo_scales, wo_bias and residual [1, Dm]
+    as in ``decode_attention``; ``mlp = (w_up_t int8 [FF, Dm], up_scales,
+    w_down_t int8 [Dm, FF], down_scales, b_up|None, b_down|None, ln2_scale,
+    ln2_bias|None)``; ``next_qkv = (w_qkv_t int8 [Nq, Dm], scales,
+    bias|None, next_ln_scale, next_ln_bias|None)``. Appends the new k/v at
+    kv_len in place. Returns out [1, Dm], or (out, qkv [1, Nq]), in
+    packed_qkv's dtype.
+
+    Its numbers are the TPU kernel's, not those of ``decode_attention``
+    then ``quant_mlp_int8``: h stays f32 into ln2 and into the down
+    projection's residual; the normalised row, the activated up row and the
+    next-qkv input are rounded to the model dtype before their int8 dots;
+    the next qkv normalises the f32 out. A full row (kv_len ≥ S) raises
+    IndexError in the plain version; the kernel writes nothing and returns
+    NaN.
+
+    CUDA tensors launch ``csrc/decode_block.cu`` (one persistent cooperative
+    kernel); CPU tensors run ``decode_block_ref``."""
+    b, h, d = _unpack(packed_qkv)
+    if b != 1:
+        raise ValueError(f"decode_block runs batch 1 (the TPU kernel's mega mode), got {b} rows")
+    w_up_t, up_scales, w_down_t, down_scales, b_up, b_down, ln2_scale, ln2_bias = mlp
+    dm, ff = wo_t.shape[0], w_up_t.shape[0]
+    if tuple(wo_t.shape) != (dm, h * d) or tuple(w_up_t.shape) != (ff, dm) or tuple(w_down_t.shape) != (dm, ff):
+        raise ValueError(
+            f"block weights wo {tuple(wo_t.shape)}, up {tuple(w_up_t.shape)}, down {tuple(w_down_t.shape)} "
+            f"do not fit {h} heads of {d}"
+        )
+    if k_cache.shape != v_cache.shape or tuple(k_cache.shape[:2]) != (1, h) or k_cache.shape[3] != d:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not fit packed_qkv {tuple(packed_qkv.shape)}")
+    if tuple(residual.shape) != (1, dm):
+        raise ValueError(f"residual shape {tuple(residual.shape)} != {(1, dm)}")
+    if norm not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"decode_block needs the fused norm (layernorm or rmsnorm), got {norm!r}")
+    extra = list(next_qkv) if next_qkv is not None else []
+    if not use_kernel(packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, *mlp, *extra):
+        return decode_block_ref(packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp,
+                                next_qkv, activation=activation, norm=norm, norm_eps=norm_eps)
+    dtype = packed_qkv.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_block: activations must be float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_block kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    for name, t in (("packed_qkv", packed_qkv), ("k_cache", k_cache), ("v_cache", v_cache), ("residual", residual)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"decode_block: {name} must be contiguous {dtype}")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (1,) or not kv_len.is_contiguous():
+        raise ValueError("decode_block: kv_len must be a contiguous int32 [1] tensor")
+    _check_weight(wo_t, h * d, "decode_block wo")
+    _check_weight(w_up_t, dm, "decode_block w_up")
+    _check_weight(w_down_t, ff, "decode_block w_down")
+    s_max = k_cache.shape[2]
+    n_chunks = -(-s_max // CHUNK)
+    dev = packed_qkv.device
+    # One f32 scratch: the split partials, the attention vector, h, the up
+    # row and the f32 block output, each 256-byte aligned.
+    sizes = (h * n_chunks, h * n_chunks, h * n_chunks * d, h * d, dm, ff, dm)
+    scratch = torch.empty(sum(_aligned(n) for n in sizes), dtype=torch.float32, device=dev)
+    ptrs, off = [], 0
+    for n in sizes:
+        ptrs.append(scratch.data_ptr() + 4 * off)
+        off += _aligned(n)
+    part_m, part_l, part_acc, attn, h_buf, u_buf, out_f32 = ptrs
+    out = torch.empty((1, dm), dtype=dtype, device=dev)
+    # Every converted vector stays bound to a name until the launch is
+    # enqueued, so the allocator cannot hand its memory to the next one.
+    sw, bw = _vec_f32(wo_scales, dm, "wo scales"), _vec_f32(wo_bias, dm, "wo bias")
+    su, bu = _vec_f32(up_scales, ff, "up scales"), _vec_f32(b_up, ff, "b_up")
+    sd, bd = _vec_f32(down_scales, dm, "down scales"), _vec_f32(b_down, dm, "b_down")
+    ns, nb = _vec_f32(ln2_scale, dm, "ln2 scale"), _vec_f32(ln2_bias, dm, "ln2 bias")
+    wq = sq = bq = qns = qnb = qkv = None
+    nq = 0
+    if next_qkv is not None:
+        wq, sq, bq, qns, qnb = next_qkv
+        nq = wq.shape[0]
+        _check_weight(wq, dm, "decode_block next qkv")
+        sq, bq = _vec_f32(sq, nq, "next qkv scales"), _vec_f32(bq, nq, "next qkv bias")
+        qns, qnb = _vec_f32(qns, dm, "next norm scale"), _vec_f32(qnb, dm, "next norm bias")
+        qkv = torch.empty((1, nq), dtype=dtype, device=dev)
+    rc = _build.library().rt_decode_block(
+        packed_qkv.data_ptr(), int(dtype == torch.bfloat16), h, d,
+        k_cache.data_ptr(), v_cache.data_ptr(), s_max, kv_len.data_ptr(),
+        part_m, part_l, part_acc, attn, n_chunks,
+        wo_t.data_ptr(), sw.data_ptr(), _ptr(bw), dm,
+        residual.data_ptr(), h_buf,
+        w_up_t.data_ptr(), su.data_ptr(), _ptr(bu), ff, u_buf,
+        w_down_t.data_ptr(), sd.data_ptr(), _ptr(bd),
+        ns.data_ptr(), _ptr(nb), _NORM_CODES[norm], float(norm_eps), activation_code(activation),
+        out.data_ptr(), out_f32,
+        _ptr(wq), _ptr(sq), _ptr(bq), nq, _ptr(qns), _ptr(qnb), _ptr(qkv),
+        1.0 / math.sqrt(d), _stream(packed_qkv),
+    )
+    _build.check(rc, "decode_block")
+    LAUNCHES["decode_block"] += 1
+    return out if next_qkv is None else (out, qkv)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +485,9 @@ def decode_attention_int8(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len
     NaN for it.
 
     Counterpart of ``rten_tpu/kernels/decode_attention.py``
-    ``decode_attention_int8`` (:1667) in its per-row mode. Its scale layout
+    ``decode_attention_int8`` (:1667) in its per-row mode and its
+    ``batched=True`` mode, both the one launch over all B rows (see the
+    module docstring). Its scale layout
     ``[B, H, 8, S·D/128]`` exists for Mosaic; here the scales are logical
     ``[B, H, S]``. CUDA tensors launch ``csrc/decode_attention_int8.cu``;
     CPU tensors run ``decode_attention_int8_ref``."""

@@ -26,6 +26,17 @@ on an int8 cache runs ``decode_attention_int8``, on a paged pool's state
 the eager branch (quantize, write, attend over the prefix dequantized to
 the model dtype).
 
+**The whole-block decode** (``cfg.mega``; the JAX package's
+``RTEN_DECODE_FUSE=mega``): one token at batch 1 on a bf16/f32 cache runs
+each layer as one ``decode_block`` kernel (attention, wo, ln2, up,
+activation, down, and the next layer's ln1 + qkv), on the layers the JAX
+package takes its mega kernel on (``mega_block_supported``, the same weight
+shapes and activations gelu, relu or silu); every other forward is
+unchanged. Its numbers differ from the two-kernel step where the JAX
+package's do: the block's hidden state after wo stays f32. Under W8A8 the
+block stays weight-only (the TPU kernel has no W8A8 mode), while layer 0's
+qkv and the lm_head run W8A8.
+
 The lm_head is ``quant_gemv_int8`` with the final norm fused in, returning
 the greedy token (fused argmax) or f32 logits, for up to 8 rows, and the
 final norm plus ``quant_matmul_int8`` (f32 out) for more. ``prefill`` is
@@ -67,7 +78,9 @@ from rten_tpu_torch.kernels.attention import flash_attention
 from rten_tpu_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_int8,
+    decode_block,
     dequantize_kv,
+    mega_block_supported,
     quantize_kv,
 )
 from rten_tpu_torch.kernels.dispatch import resolve_device
@@ -89,7 +102,9 @@ class DecoderConfig:
     path runs: MHA with learned positions, and ``int8_kv`` (``init_cache``
     makes an int8 cache with per-(token, head) f32 scales). ``w8a8``
     selects the W8A8 mode, which the JAX package takes from
-    ``RTEN_W_CONVERT=w8a8`` (default off, as its ``"direct"``). RoPE,
+    ``RTEN_W_CONVERT=w8a8`` (default off, as its ``"direct"``); ``mega``
+    the whole-block decode kernel, which it takes from
+    ``RTEN_DECODE_FUSE=mega`` (default off, as its ``"1"``). RoPE,
     grouped-query attention, SwiGLU, position offsets and untied lm_heads
     come with later slices."""
 
@@ -100,10 +115,11 @@ class DecoderConfig:
     d_ff: int = 3072
     max_seq: int = 1024
     norm: str = "layernorm"  # "layernorm" | "rmsnorm"
-    activation: str = "gelu"  # "gelu" | "relu"
+    activation: str = "gelu"  # "gelu" | "relu" | "silu"
     layer_norm_eps: float = 1e-5
     int8_kv: bool = False
     w8a8: bool = False
+    mega: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -125,7 +141,7 @@ def _check_supported(cfg: DecoderConfig) -> None:
     epilogue activation and lane-aligned widths (no K padding of the int8
     packs)."""
     problems = []
-    if cfg.activation not in ("gelu", "relu"):
+    if cfg.activation not in ("gelu", "relu", "silu"):
         problems.append(f"activation={cfg.activation!r}")
     if cfg.norm not in ("layernorm", "rmsnorm"):
         problems.append(f"norm={cfg.norm!r}")
@@ -504,6 +520,33 @@ def _kv_decode_attention(qkv, cfg: DecoderConfig, b: int, cache, li: int):
                                  cache["v_scale"][li], cache["len"])
 
 
+def _mega_layer(params: dict, cfg: DecoderConfig, li: int, cache: dict):
+    """``(mlp, next_qkv)`` of ``decode_block`` for layer ``li`` where the
+    JAX package's decoder runs that layer through its mega kernel
+    (``rten_tpu/models/decoder.py:859-921``: the MLP packs of the config's
+    shapes, the next layer's qkv when it has one, and
+    ``mega_block_supported`` over this layer's cache), else None."""
+    layers = params["layers"]
+    layer = layers[li]
+    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    up, down = _pack(layer, "w_up"), _pack(layer, "w_down")
+    if tuple(up["qt"].shape) != (ff, d) or tuple(down["qt"].shape) != (d, ff):
+        return None
+    qkv_dim = 3 * h * hd
+    next_qkv = None
+    nxt = layers[li + 1] if li + 1 < len(layers) else None
+    if nxt is not None and tuple(_pack(nxt, "wqkv")["qt"].shape) == (qkv_dim, d):
+        nq = nxt["wqkv"]
+        next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
+    k_cache = cache["k"][li]
+    if not mega_block_supported(d, ff, qkv_dim if next_qkv is not None else 0, h, hd, k_cache.shape[2],
+                                kv_bytes=k_cache.element_size()):
+        return None
+    mlp = (up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
+           layer["ln2"]["scale"], layer["ln2"].get("bias"))
+    return mlp, next_qkv
+
+
 def _lm_head(params: dict, cfg: DecoderConfig, x, mode: str, small: bool):
     """Final norm + tied int8 lm_head of the rows ``x`` [M, D]: f32 logits
     [M, vocab] or (``mode="argmax"``) the greedy tokens int32 [M]. Up to 8
@@ -563,6 +606,7 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     one_token = small and t == 1 and cache is not None
     kv_decode = one_token and (paged or "k_scale" in cache)  # the paged / int8 decode kernels
     decode = one_token and not kv_decode  # decode_attention: one token on a bf16/f32 cache
+    mega = decode and b == 1 and cfg.mega
     q_offset = kv_len = None
     if paged and not kv_decode:
         raise ValueError(f"a paged cache takes one token per row and at most {MAX_ROWS} rows, got {b}x{t}")
@@ -599,10 +643,14 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
                 qkv = _proj(cfg, _norm(x, layer["ln1"], cfg), wqkv, layer.get("bqkv"))
         wo = _pack(layer, "wo")
         if decode:
-            x = decode_attention(
-                qkv.view(b, 3, h, 1, hd), cache["k"][li], cache["v"][li], cache["len"],
-                wo["qt"], wo["s"], layer.get("bo"), residual=x,
-            )
+            attn_args = (qkv.view(b, 3, h, 1, hd), cache["k"][li], cache["v"][li], cache["len"],
+                         wo["qt"], wo["s"], layer.get("bo"))
+            block = _mega_layer(params, cfg, li, cache) if mega else None
+            if block is not None:  # the whole layer, and the next layer's qkv, in one kernel
+                out = decode_block(*attn_args, x, *block, activation=cfg.activation, norm=cfg.norm, norm_eps=eps)
+                x, qkv = out if block[1] is not None else (out, None)
+                continue
+            x = decode_attention(*attn_args, residual=x)
         else:
             if kv_decode:
                 attn = _kv_decode_attention(qkv, cfg, b, cache, li)

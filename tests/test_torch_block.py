@@ -1,0 +1,367 @@
+"""The whole-block decode (``decode_block``, ``DecoderConfig(mega=True)``)
+and the batched decode-attention modes: the port's plain versions, on the
+CPU, against the JAX package's Pallas kernels run with ``interpret=True``
+and its decoder under ``RTEN_DECODE_FUSE=mega``.
+
+Tolerances: f32 outputs atol 1e-4 relative to max(1, |ref|) (the same f32
+arithmetic in another order); bf16 outputs one bf16 rounding of their
+largest value (1e-2 of it); caches after a kernel's append equal, after a
+decoder step to atol 1e-5 (the new k/v are f32 sums); logits 1e-3 and
+greedy tokens identical (ROADMAP's bars).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rten_tpu.kernels import decode_attention as jda
+from rten_tpu.kernels import quant_matmul as jqm
+from rten_tpu.models import decoder as jdec
+from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+from rten_tpu_torch.kernels import decode_attention as tda
+from rten_tpu_torch.kernels import dispatch
+from rten_tpu_torch.kernels import quant_matmul as tqm
+from rten_tpu_torch.models import decoder as tdec
+from torch_port_helpers import carry_cache, configs, dense_tree, patch_jax_fused, port_scales, to_jax, to_numpy
+
+LOGIT_ATOL = 1e-3
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _quant(rng, k, n, scale=0.2):
+    return jqm.quantize_weights_int8(rng.standard_normal((k, n)).astype(np.float32) * scale)
+
+
+def _pack(q, s):
+    pack = tqm.int8_pack(q, s)
+    return pack["qt"], pack["s"]
+
+
+def _close(out, ref, bf16: bool):
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    top = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(out, ref, atol=(1e-2 if bf16 else 1e-4) * top, rtol=0)
+
+
+def _jax_dtype(bf16):
+    return jnp.bfloat16 if bf16 else jnp.float32
+
+
+def _as_port(a, bf16):
+    """A JAX-side array as the port's tensor of the same values."""
+    return _t(np.asarray(jnp.asarray(a).astype(jnp.float32)), torch.bfloat16 if bf16 else torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# decode_block_ref against the TPU kernel's mega branch
+# ---------------------------------------------------------------------------
+
+# (dtype, kv_len, next qkv, activation, norm): every value of each axis,
+# each pair of the first four at least once.
+BLOCK_CASES = [
+    ("f32", 0, True, "gelu", "layernorm"),
+    ("f32", 5, False, "relu", "rmsnorm"),
+    ("f32", 127, True, "silu", "layernorm"),
+    ("f32", 127, False, "gelu", "rmsnorm"),
+    ("f32", 5, True, "silu", "rmsnorm"),
+    ("bf16", 0, False, "silu", "rmsnorm"),
+    ("bf16", 5, True, "gelu", "layernorm"),
+    ("bf16", 127, True, "relu", "rmsnorm"),
+    ("bf16", 0, True, "relu", "layernorm"),
+]
+
+
+@pytest.mark.parametrize("dt,kv_len,with_next,act,norm", BLOCK_CASES,
+                         ids=[f"{c[0]}_len{c[1]}_{'next' if c[2] else 'last'}_{c[3]}_{c[4]}" for c in BLOCK_CASES])
+def test_decode_block_matches_mega_kernel(rng, dt, kv_len, with_next, act, norm):
+    """One block of one token (batch 1, S 128, 4 heads of 64, d_model 256,
+    FF 1024): the output, the next qkv and both caches after the append."""
+    bf16 = dt == "bf16"
+    jdt = _jax_dtype(bf16)
+    h, d, s_max, dm, ff, nq = 4, 64, 128, 256, 1024, 768
+    kc = jnp.asarray(rng.standard_normal((1, h, s_max, d)).astype(np.float32), jdt)
+    vc = jnp.asarray(rng.standard_normal((1, h, s_max, d)).astype(np.float32), jdt)
+    pk = jnp.asarray(rng.standard_normal((1, 3, h, 1, d)).astype(np.float32) * 0.8, jdt)
+    resid = jnp.asarray(rng.standard_normal((1, dm)).astype(np.float32), jdt)
+    wo, so = _quant(rng, h * d, dm)
+    wu, su = _quant(rng, dm, ff)
+    wd, sd = _quant(rng, ff, dm, scale=0.05)
+    wq, sq = _quant(rng, dm, nq)
+    vec = lambda n, sc=0.1: rng.standard_normal(n).astype(np.float32) * sc  # noqa: E731
+    bo, bu, bd, bq = vec(dm), vec(ff), vec(dm), vec(nq)
+    ns, qns = rng.uniform(0.8, 1.2, dm).astype(np.float32), rng.uniform(0.8, 1.2, dm).astype(np.float32)
+    nb, qnb = (vec(dm), vec(dm)) if norm == "layernorm" else (None, None)
+    lens = np.array([kv_len], np.int32)
+    J = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    res = jda.decode_attention(
+        None, kc, vc, jnp.asarray(lens), None, None, J(wo), J(so), J(bo), resid, packed_qkv=pk,
+        mlp=(J(wu), J(su), J(wd), J(sd), J(bu), J(bd), J(ns), J(nb)),
+        next_qkv=(J(wq), J(sq), J(bq), J(qns), J(qnb)) if with_next else None,
+        activation=act, norm=norm, interpret=True,
+    )
+    (ref, ref_qkv, ref_k, ref_v) = res if with_next else (res[0], None, res[1], res[2])
+
+    T = lambda a: None if a is None else _t(a)  # noqa: E731
+    k_cache, v_cache = _as_port(kc, bf16), _as_port(vc, bf16)
+    mlp = (*_pack(wu, su), *_pack(wd, sd), T(bu), T(bd), T(ns), T(nb))
+    nxt = (*_pack(wq, sq), T(bq), T(qns), T(qnb)) if with_next else None
+    before = dispatch.PLAIN["decode_block"]
+    out = tda.decode_block(_as_port(pk, bf16), k_cache, v_cache, torch.from_numpy(lens), *_pack(wo, so), T(bo),
+                           _as_port(resid, bf16), mlp, nxt, activation=act, norm=norm)
+    assert dispatch.PLAIN["decode_block"] == before + 1
+    out, qkv = out if with_next else (out, None)
+    assert out.shape == (1, dm) and out.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    _close(out.float(), np.asarray(ref.astype(jnp.float32)), bf16)
+    if with_next:
+        assert qkv.shape == (1, nq) and qkv.dtype == out.dtype
+        _close(qkv.float(), np.asarray(ref_qkv.astype(jnp.float32)), bf16)
+    np.testing.assert_array_equal(k_cache.float().numpy(), np.asarray(ref_k.astype(jnp.float32)).reshape(k_cache.shape))
+    np.testing.assert_array_equal(v_cache.float().numpy(), np.asarray(ref_v.astype(jnp.float32)).reshape(v_cache.shape))
+
+
+def test_decode_block_is_not_the_two_kernel_composition(rng):
+    """In bf16 the block keeps its hidden state f32 into ln2 and the down
+    projection's residual, so it differs from decode_attention then
+    quant_mlp_int8 (which round it to bf16), and in f32 it equals them."""
+    h, d, s_max, dm, ff = 4, 64, 128, 256, 1024
+    wo, wu, wd = _quant(rng, h * d, dm), _quant(rng, dm, ff), _quant(rng, ff, dm, scale=0.05)
+    kc = rng.standard_normal((1, h, s_max, d)).astype(np.float32)
+    pk = rng.standard_normal((1, 3, h, 1, d)).astype(np.float32)
+    resid = rng.standard_normal((1, dm)).astype(np.float32) * 3
+    ns = rng.uniform(0.8, 1.2, dm).astype(np.float32)
+    lens = torch.tensor([40], dtype=torch.int32)
+    diffs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cache = lambda: _t(kc, dtype)  # noqa: E731
+        mlp = (*_pack(*wu), *_pack(*wd), None, None, _t(ns), None)
+        block = tda.decode_block(_t(pk, dtype), cache(), cache(), lens, *_pack(*wo), None, _t(resid, dtype), mlp,
+                                 activation="gelu", norm="rmsnorm")
+        x = tda.decode_attention(_t(pk, dtype), cache(), cache(), lens, *_pack(*wo), residual=_t(resid, dtype))
+        two = tqm.quant_mlp_int8(x, *_pack(*wu), *_pack(*wd), activation="gelu", norm="rmsnorm",
+                                 norm_scale=_t(ns), residual=x)
+        diffs[dtype] = (block.float() - two.float()).abs().max().item()
+    assert diffs[torch.float32] < 1e-5 and diffs[torch.bfloat16] > 1e-3, diffs
+
+
+def test_mega_block_supported_is_the_jax_rule():
+    """The copied gate agrees with the JAX package's at GPT-2-small and the
+    tiny config, in and out of its 12 MB budget."""
+    cases = [(768, 3072, 2304, 12, 64, 768, 2), (768, 3072, 0, 12, 64, 1024, 4), (256, 1024, 768, 4, 64, 64, 4),
+             (256, 1024, 768, 4, 64, 100, 4), (1024, 4096, 3072, 16, 64, 1024, 2), (768, 3072, 2304, 12, 64, 768, 4)]
+    for c in cases:
+        assert tda.mega_block_supported(*c[:6], kv_bytes=c[6]) == jda.mega_block_supported(*c[:6], kv_bytes=c[6]), c
+    assert not tda.mega_block_supported(1024, 4096, 3072, 16, 64, 1024, kv_bytes=2)
+
+
+# ---------------------------------------------------------------------------
+# The batched=True modes: the port's all-rows launch against the TPU
+# kernels' single-cell batched kernels
+# ---------------------------------------------------------------------------
+
+BATCH_LENS = [0, 5, 70]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_matches_batched_kernel(rng, dt):
+    """B 3 at lengths 0 / 5 / 70 of S 128, packed q|k|v, fused wo + bias +
+    residual: outputs and caches against ``_decode_attn_kernel_batched``."""
+    bf16 = dt == "bf16"
+    jdt = _jax_dtype(bf16)
+    b, h, d, s_max, dm = len(BATCH_LENS), 4, 64, 128, 256
+    kc = jnp.asarray(rng.standard_normal((b, h, s_max, d)).astype(np.float32), jdt)
+    vc = jnp.asarray(rng.standard_normal((b, h, s_max, d)).astype(np.float32), jdt)
+    pk = jnp.asarray(rng.standard_normal((b, 3, h, 1, d)).astype(np.float32), jdt)
+    resid = jnp.asarray(rng.standard_normal((b, dm)).astype(np.float32), jdt)
+    wo, so = _quant(rng, h * d, dm)
+    bo = rng.standard_normal(dm).astype(np.float32) * 0.1
+    lens = np.array(BATCH_LENS, np.int32)
+    ref, ref_k, ref_v = jda.decode_attention(
+        None, kc, vc, jnp.asarray(lens), None, None, jnp.asarray(wo), jnp.asarray(so), jnp.asarray(bo), resid,
+        packed_qkv=pk, batched=True, interpret=True,
+    )
+    k_cache, v_cache = _as_port(kc, bf16), _as_port(vc, bf16)
+    out = tda.decode_attention(_as_port(pk, bf16), k_cache, v_cache, torch.from_numpy(lens), *_pack(wo, so), _t(bo),
+                               residual=_as_port(resid, bf16))
+    _close(out.float(), np.asarray(ref.astype(jnp.float32)), bf16)
+    np.testing.assert_array_equal(k_cache.float().numpy(), np.asarray(ref_k.astype(jnp.float32)))
+    np.testing.assert_array_equal(v_cache.float().numpy(), np.asarray(ref_v.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_int8_matches_batched_kernel(rng, dt):
+    """The int8 twin against ``_decode_attn_int8_kernel_batched``: B 3 at
+    lengths 0 / 5 / 70; S 256, the JAX int8 kernel's smallest cache (its
+    scale tiles need 128-lane blocks of 256 positions). The attention
+    vector, the codes bit for bit and the scales to one ulp (through
+    ``unpack_kv_scales``)."""
+    bf16 = dt == "bf16"
+    jdt = _jax_dtype(bf16)
+    b, h, d, s_max = len(BATCH_LENS), 4, 64, 256
+    kq = rng.integers(-127, 128, (b, h, s_max, d)).astype(np.int8)
+    vq = rng.integers(-127, 128, (b, h, s_max, d)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.02, (b, h, s_max)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, (b, h, s_max)).astype(np.float32)
+    q, kn, vn = (jnp.asarray(rng.standard_normal((b, h, 1, d)).astype(np.float32) * 1.2, jdt) for _ in range(3))
+    lens = np.array(BATCH_LENS, np.int32)
+    out, k2, v2, ks2, vs2 = jda.decode_attention_int8(
+        q, jnp.asarray(kq), jnp.asarray(vq), jda.pack_kv_scales(jnp.asarray(ks[..., None]), d),
+        jda.pack_kv_scales(jnp.asarray(vs[..., None]), d), jnp.asarray(lens), kn, vn, batched=True, interpret=True,
+    )
+    caches = [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs)]
+    packed = _as_port(jnp.stack([q, kn, vn], axis=1), bf16)  # [B, 3, H, 1, D]
+    attn = tda.decode_attention_int8(packed, *caches, torch.from_numpy(lens))
+    _close(attn.float(), np.asarray(out.astype(jnp.float32)).reshape(b, h * d), bf16)
+    np.testing.assert_array_equal(caches[0].numpy(), np.asarray(k2).reshape(b, h, s_max, d))
+    np.testing.assert_array_equal(caches[1].numpy(), np.asarray(v2).reshape(b, h, s_max, d))
+    for port, packed_scales in ((caches[2], ks2), (caches[3], vs2)):
+        np.testing.assert_allclose(port.numpy(), port_scales(packed_scales, d), rtol=1.2e-7, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The decoder under DecoderConfig(mega=True) against the JAX decoder under
+# RTEN_DECODE_FUSE=mega (its Pallas kernels in interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, tcfg = configs()
+    jparams = jdec.quantize_params_int8(to_jax(dense_tree(0)), tile_bn=128)
+    tparams = tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture
+def jax_mega(monkeypatch):
+    """The JAX decoder's fused path with ``RTEN_DECODE_FUSE=mega``, JAX's
+    trace caches cleared around the test (its jitted ``generate_scan`` is
+    keyed on the config, which does not carry the mode). Yields
+    ``install(w8a8=False)``, which applies ``patch_jax_fused`` and returns
+    the list of the ``layer_idx`` of every ``decode_attention`` call that
+    passed ``mlp=`` (one per layer each time the decoder is traced under
+    mega)."""
+    jax.clear_caches()
+    calls = []
+
+    def install(w8a8=False):
+        patch_jax_fused(monkeypatch, w8a8=w8a8)
+        inner = jda.decode_attention
+
+        def spy(*a, **kw):
+            if kw.get("mlp") is not None:
+                calls.append(kw.get("layer_idx"))
+            return inner(*a, **kw)
+
+        monkeypatch.setattr(jda, "decode_attention", spy)
+        monkeypatch.setenv("RTEN_DECODE_FUSE", "mega")
+        return calls
+
+    yield install
+    jax.clear_caches()
+
+
+def _random_caches(jcfg, tcfg, n, s_max, seed):
+    """One row holding ``n`` tokens of seeded random k/v, as a JAX cache and
+    the port's copy of it."""
+    rng = np.random.default_rng(seed)
+    shape = (1, jcfg.n_heads, s_max, jcfg.head_dim)
+    jcache = {"len": jnp.asarray([n], jnp.int32)}
+    for key in ("k", "v"):
+        jcache[key] = [jnp.asarray(rng.standard_normal(shape).astype(np.float32)) for _ in range(jcfg.n_layers)]
+    return jcache, carry_cache(jcache, tcfg.head_dim)
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["weight_only", "w8a8"])
+def test_mega_decode_step_matches_jax(models, jax_mega, w8a8):
+    """A decode step at batch 1 on a 64-position cache holding 20 tokens:
+    the port's ``decode_block`` in every layer against the JAX mega kernel
+    in every layer; logits within 1e-3, caches equal to f32 rounding (atol
+1e-5, as the other decoder tests hold them). Under W8A8 the block
+    stays weight-only (the TPU kernel has no W8A8 mode) while layer 0's qkv
+    and the lm_head run the w8a8 GEMV, in both packages."""
+    jcfg, tcfg, jparams, tparams = models
+    calls = jax_mega(w8a8)
+    tcfg = dataclasses.replace(tcfg, mega=True, w8a8=w8a8)
+    jcache, tcache = _random_caches(jcfg, tcfg, 20, 64, seed=80)
+    tok = np.array([[123]], np.int32)
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tok), jcache)
+    assert calls == list(range(jcfg.n_layers))  # the JAX decoder took its mega kernel in every layer
+    dispatch.reset_counters()
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tok), tcache)
+    gemv = "quant_gemv_int8:w8a8" if w8a8 else "quant_gemv_int8"
+    assert dict(dispatch.PLAIN) == {"decode_block": tcfg.n_layers, gemv: 2}  # + layer 0's qkv and the lm_head
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    want = carry_cache(jcache, tcfg.head_dim)
+    for li in range(tcfg.n_layers):  # the new k/v come from f32 sums in another order
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(tcache[kv][li].numpy(), want[kv][li].numpy(), atol=1e-5, rtol=0)
+    assert tcache["host_len"][0] == 21 and int(tcache["len"][0]) == 21
+
+
+def test_mega_greedy_stream_matches_jax(models, jax_mega):
+    """A 5-token prompt and 16 greedy steps: the JAX ``generate_scan``
+    under mega, the port's ``generate_greedy`` with ``mega=True``, and
+    ``Generator(NativeBackend(device="cpu"))`` with ``mega=True``: the same
+    tokens, every decode step through ``decode_block``."""
+    jcfg, tcfg, jparams, tparams = models
+    calls = jax_mega()
+    tcfg = dataclasses.replace(tcfg, mega=True)
+    prompt = np.random.default_rng(81).integers(0, tcfg.vocab_size, (1, 5)).astype(np.int32)
+    n = 16
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(prompt), jdec.init_cache(jcfg, 1, 64))
+    first = jnp.argmax(jlogits[:, -1:], axis=-1).astype(jnp.int32)
+    jtoks, _ = jdec.generate_scan(jparams, jcfg, jcache, first, jax.random.PRNGKey(0), n_steps=n)
+    assert calls, "the JAX decode loop was not traced under mega"
+
+    tcache = tdec.init_cache(tcfg, 1, 64, device="cpu")
+    tfirst, tcache = tdec.prefill(tparams, tcfg, torch.from_numpy(prompt), tcache, lm_head_mode="argmax",
+                                  last_only=True)
+    np.testing.assert_array_equal(tfirst.numpy(), np.asarray(first))
+    dispatch.reset_counters()
+    ttoks, _ = tdec.generate_greedy(tparams, tcfg, tcache, tfirst, n)
+    assert dispatch.PLAIN["decode_block"] == n * tcfg.n_layers and "decode_attention" not in dispatch.PLAIN
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+    gen = Generator(NativeBackend(tparams, tcfg, max_len=64, device="cpu"),
+                    GeneratorConfig(max_tokens=n + 1)).with_prompt(prompt)
+    stream = [int(t[0]) for t in gen]
+    assert stream == [int(np.asarray(first)[0, 0])] + np.asarray(jtoks)[0].tolist()
+
+
+@pytest.mark.parametrize("mega", [False, True], ids=["two_kernel", "mega"])
+def test_silu_decoder_matches_jax(monkeypatch, mega):
+    """``DecoderConfig(activation="silu")``: a 12-token prompt (the prefill
+    structure, silu in ``quant_matmul_int8``'s epilogue) and 2 greedy
+    decode steps (silu in ``quant_mlp_int8``, or in ``decode_block`` with
+    mega), against the JAX decoder: its jnp path, or with mega its fused
+    path under ``RTEN_DECODE_FUSE=mega``; logits of every forward and the
+    tokens."""
+    jax.clear_caches()
+    jcfg, tcfg = configs()
+    jcfg, tcfg = dataclasses.replace(jcfg, activation="silu"), dataclasses.replace(tcfg, activation="silu", mega=mega)
+    jparams = jdec.quantize_params_int8(to_jax(dense_tree(1)), tile_bn=128)
+    tparams = tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu")
+    if mega:
+        patch_jax_fused(monkeypatch)
+        monkeypatch.setenv("RTEN_DECODE_FUSE", "mega")
+    tokens = np.random.default_rng(82).integers(0, tcfg.vocab_size, (1, 12)).astype(np.int32)
+    jcache, tcache = jdec.init_cache(jcfg, 1, 64), tdec.init_cache(tcfg, 1, 64, device="cpu")
+    chunk = tokens
+    dispatch.reset_counters()
+    for step in range(3):
+        jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(chunk), jcache)
+        tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(chunk), tcache)
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0,
+                                   err_msg=f"forward {step}")
+        chunk = np.array(jlogits[:, -1:].argmax(-1), np.int32)
+        np.testing.assert_array_equal(tlogits[:, -1:].argmax(-1).numpy(), chunk)
+    assert dispatch.PLAIN["quant_matmul_int8"] == 4 * tcfg.n_layers + 1
+    assert dispatch.PLAIN["decode_block" if mega else "quant_mlp_int8"] == 2 * tcfg.n_layers
+    jax.clear_caches()

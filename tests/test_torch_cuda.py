@@ -320,15 +320,18 @@ def test_generate_greedy_past_cache_raises(dev):
 
 @contextlib.contextmanager
 def _plain_decoder(decoder):
-    """Route the decoder's six kernel calls to their plain versions."""
+    """Route the decoder's seven kernel calls to their plain versions."""
+    from rten_tpu_torch.kernels.decode_attention import decode_block_ref
+
     names = ("quant_gemv_int8", "quant_mlp_int8", "quant_matmul_int8", "quant_matmul_w8a8", "decode_attention",
-             "flash_attention")
+             "decode_block", "flash_attention")
     saved = {name: getattr(decoder, name) for name in names}
     decoder.quant_gemv_int8 = qm.quant_gemv_int8_ref
     decoder.quant_mlp_int8 = qm.quant_mlp_int8_ref
     decoder.quant_matmul_int8 = qm.quant_matmul_int8_ref
     decoder.quant_matmul_w8a8 = qm.quant_matmul_w8a8_ref
     decoder.decode_attention = decode_attention_ref
+    decoder.decode_block = decode_block_ref
     decoder.flash_attention = flash_attention_ref
     try:
         yield
@@ -771,3 +774,233 @@ def test_tiny_decoder_w8a8_kernels_match_plain(dev, dtype):
     assert (k_logits - p_logits).abs().max().item() <= 1e-2 * p_logits.abs().max().item()
     if dtype == torch.float32:
         assert k_toks.tolist() == p_toks.tolist()
+
+
+# ---------------------------------------------------------------------------
+# The whole-block decode kernel (decode_block), matmul_fused, and the silu /
+# sigmoid / tanh epilogues
+# ---------------------------------------------------------------------------
+
+NEW_ACTS = ["silu", "sigmoid", "tanh"]
+
+
+def _block_case(dev, dtype, d, kv_len, with_next, seed=30, h=4, s_max=256, dm=256, ff=1024, norm="layernorm"):
+    """Inputs of one decode_block call: (args, kwargs); args[1:3] are the
+    caches, which the call updates in place."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    kc, vc = rn(1, h, s_max, d, scale=1.5).to(dtype), rn(1, h, s_max, d).to(dtype)
+    qkv = rn(1, 3, h, 1, d, scale=1.5).to(dtype)
+    wo, wos = _pack(gen, dm, h * d, dev)
+    wu, su = _pack(gen, ff, dm, dev)
+    wd, sd = _pack(gen, dm, ff, dev)
+    ns = 1 + 0.1 * rn(dm)
+    nb = 0.1 * rn(dm) if norm == "layernorm" else None
+    mlp = (wu, su * 0.1, wd, sd * 0.1, rn(ff, scale=0.1), rn(dm, scale=0.1), ns, nb)
+    nxt = None
+    if with_next:
+        wq, sq = _pack(gen, 3 * h * d, dm, dev)
+        nxt = (wq, sq * 0.1, rn(3 * h * d, scale=0.1), ns * 0.9, None if nb is None else nb * 0.5)
+    lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    args = (qkv, kc, vc, lens, wo, wos * 0.1, rn(dm, scale=0.1), rn(1, dm).to(dtype), mlp, nxt)
+    return args, dict(activation="gelu", norm=norm)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("head_dim,kv_len", [(64, 0), (64, 63), (64, 64), (64, 255), (128, 150)])
+@pytest.mark.parametrize("with_next", [False, True])
+def test_decode_block_kernel_matches_plain(dev, dtype, head_dim, kv_len, with_next):
+    """The whole block against ``decode_block_ref``: the output, the next
+    qkv, and the caches after the append bit for bit."""
+    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
+
+    args, kw = _block_case(dev, dtype, head_dim, kv_len, with_next)
+    p_args = list(args)
+    p_args[1], p_args[2] = args[1].clone(), args[2].clone()
+    before = dispatch.LAUNCHES["decode_block"]
+    out = decode_block(*args, **kw)
+    assert dispatch.LAUNCHES["decode_block"] == before + 1
+    ref = decode_block_ref(*p_args, **kw)
+    outs, refs = (out, ref) if with_next else ((out,), (ref,))
+    for o, r in zip(outs, refs):
+        assert o.dtype == dtype and o.shape == r.shape
+        _close(o, r, dtype)
+    assert torch.equal(args[1], p_args[1]) and torch.equal(args[2], p_args[2])
+
+
+@pytest.mark.parametrize("act,norm", [("relu", "rmsnorm"), ("silu", "layernorm"), ("silu", "rmsnorm")])
+def test_decode_block_kernel_activations_and_norms(dev, act, norm):
+    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
+
+    args, kw = _block_case(dev, torch.float32, 64, 100, True, seed=31, norm=norm)
+    kw["activation"] = act
+    p_args = list(args)
+    p_args[1], p_args[2] = args[1].clone(), args[2].clone()
+    out, ref = decode_block(*args, **kw), decode_block_ref(*p_args, **kw)
+    _close(out[0], ref[0], torch.float32)
+    _close(out[1], ref[1], torch.float32)
+
+
+def test_decode_block_kernel_gpt2_width(dev):
+    """GPT-2-small's block (12 heads of 64, d_model 768, FF 3072) at 767 of
+    768 positions in bf16: the FF-wide shared-memory row and 12 chunks."""
+    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
+
+    args, kw = _block_case(dev, torch.bfloat16, 64, 767, True, seed=32, h=12, s_max=768, dm=768, ff=3072)
+    p_args = list(args)
+    p_args[1], p_args[2] = args[1].clone(), args[2].clone()
+    out, ref = decode_block(*args, **kw), decode_block_ref(*p_args, **kw)
+    _close(out[0], ref[0], torch.bfloat16)
+    _close(out[1], ref[1], torch.bfloat16)
+    assert torch.equal(args[1], p_args[1])
+
+
+def test_decode_block_hidden_state_stays_f32(dev):
+    """bf16, a residual of 100 and a wo output of ~0.01: the f32 hidden
+    state h varies only below bf16's resolution at 100, so ln2 of h rounded
+    to bf16 (the two-kernel path's numbers) would be ln2 of a constant, and
+    the next qkv of the rounded block output would lose the down
+    projection's ~1 against bf16's 0.5 steps. The kernel must keep both
+    f32, as the plain version does."""
+    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
+
+    args, kw = _block_case(dev, torch.bfloat16, 64, 100, True, seed=34)
+    qkv, kc, vc, lens, wo, wos, bo, resid, mlp, nxt = args
+    wu, su, wd, sd, bu, bd, ns, nb = mlp
+    args = (qkv, kc, vc, lens, wo, wos * 0.01, None, torch.full_like(resid, 100.0),
+            (wu, su, wd, sd * 0.3, bu, bd, ns, nb), nxt)
+    p_args = (qkv, kc.clone(), vc.clone(), *args[3:])
+    out, qkv_next = decode_block(*args, **kw)
+    ref, ref_next = decode_block_ref(*p_args, **kw)
+    _close(out, ref, torch.bfloat16)
+    _close(qkv_next, ref_next, torch.bfloat16)
+    assert (ref.float() - 100).std().item() > 0.5  # the down projection's share of the output
+
+
+def test_decode_block_full_row_is_nan(dev):
+    """kv_len = S: the kernel writes nothing and returns NaN (the plain
+    version raises IndexError)."""
+    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
+
+    args, kw = _block_case(dev, torch.float32, 64, 256, True, seed=33)
+    k0, v0 = args[1].clone(), args[2].clone()
+    out, qkv = decode_block(*args, **kw)
+    assert bool(out.isnan().all()) and bool(qkv.isnan().all())
+    assert torch.equal(args[1], k0) and torch.equal(args[2], v0)
+    with pytest.raises(IndexError):
+        decode_block_ref(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k", [(3, 200, 300), (77, 131, 1040), (130, 256, 64), (1, 8, 7)])
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu", "sigmoid", "tanh"])
+def test_matmul_fused_kernel_matches_plain(dev, dtype, m, n, k, act):
+    """Any M, N, K (rows not 16-byte multiples, odd N, K below one step),
+    with bias, each activation."""
+    from rten_tpu_torch.kernels.matmul import matmul_fused, matmul_fused_ref
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+    bias = torch.randn(n, generator=gen, device=dev)
+    before = dispatch.LAUNCHES["matmul_fused"]
+    out = matmul_fused(x, w, bias, activation=act)
+    assert dispatch.LAUNCHES["matmul_fused"] == before + 1
+    assert out.shape == (m, n) and out.dtype == dtype
+    _close(out, matmul_fused_ref(x, w, bias, activation=act), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_fused_kernel_large_and_f32_out(dev, dtype):
+    """512 x 768 @ 768 x 3072 + GELU (the up projection's shape), f32 out,
+    no bias; the f32 kernel against an f64 product (no TF32: 1e-5)."""
+    from rten_tpu_torch.kernels.matmul import matmul_fused, matmul_fused_ref
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(512, 768, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(768, 3072, generator=gen, device=dev) / 28).to(dtype)
+    out = matmul_fused(x, w, activation="gelu", out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    _close(out, matmul_fused_ref(x, w, activation="gelu", out_dtype=torch.float32), torch.float32)
+    if dtype == torch.float32:
+        ref = x.double() @ w.double()
+        assert (matmul_fused(x, w) - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", NEW_ACTS)
+def test_new_epilogues_on_the_int8_kernels(dev, dtype, act):
+    """silu, sigmoid and tanh in the epilogues of the decode GEMV (weight
+    only and w8a8), the decode MLP, the prefill matmul and the W8A8 matmul."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    k, n = 256, 384
+    qt, s = _pack(gen, n, k, dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    for m in (2, 64):
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        _close(qm.quant_matmul_int8(x, qt, s, bias, activation=act),
+               qm.quant_matmul_int8_ref(x, qt, s, bias, activation=act), dtype)
+        _w8_close(qm.quant_matmul_w8a8(x, qt, s, bias, activation=act),
+                  qm.quant_matmul_w8a8_ref(x, qt, s, bias, activation=act), dtype)
+    x = torch.randn(3, k, generator=gen, device=dev).to(dtype)
+    ns = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+    kw = dict(activation=act, norm="layernorm", norm_scale=ns, norm_bias=0.1 * ns)
+    _close(qm.quant_gemv_int8(x, qt, s, bias, **kw), qm.quant_gemv_int8_ref(x, qt, s, bias, **kw), dtype)
+    _w8_close(qm.quant_gemv_int8(x, qt, s, bias, w8a8=True, **kw),
+              qm.quant_gemv_int8_ref(x, qt, s, bias, w8a8=True, **kw), dtype,
+              _code(s, _normed(x, "layernorm", ns, 0.1 * ns)))
+    wu, su = _pack(gen, 1024, k, dev)
+    wd, sd = _pack(gen, k, 1024, dev)
+    args = (x, wu, su * 0.1, wd, sd * 0.1, torch.randn(1024, generator=gen, device=dev), None)
+    mkw = dict(activation=act, norm="rmsnorm", norm_scale=ns, residual=x)
+    _close(qm.quant_mlp_int8(*args, **mkw), qm.quant_mlp_int8_ref(*args, **mkw), dtype)
+
+
+def _tiny_mega(dtype, dev, w8a8=False):
+    import dataclasses
+
+    decoder, cfg, params = _tiny(dtype, dev)
+    return decoder, dataclasses.replace(cfg, mega=True, w8a8=w8a8), params
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["weight_only", "w8a8"])
+def test_tiny_decoder_mega_step_launches_decode_block(dev, w8a8):
+    """A mega decode step launches ``decode_block`` once per layer and
+    neither ``decode_attention`` nor the MLP kernel; its logits and 6 greedy
+    tokens equal the plain versions' (f32; W8A8 logits to 1e-2 of their max)
+    and, weight-only, the two-kernel step's on the card."""
+    decoder, cfg, params = _tiny_mega(torch.float32, dev, w8a8)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 12), generator=gen, device=dev, dtype=torch.int32)
+
+    def run(c):
+        cache = decoder.init_cache(c, 1, 64, device=dev)
+        _, cache = decoder.prefill(params, c, prompt, cache)
+        logits, cache = decoder.forward(params, c, prompt[:, -1:], cache)
+        toks, _ = decoder.generate_greedy(params, c, cache, prompt[:, -1:], 6)
+        return logits, toks
+
+    run(cfg)
+    cache = decoder.init_cache(cfg, 1, 64, device=dev)
+    _, cache = decoder.prefill(params, cfg, prompt, cache)
+    dispatch.reset_counters()
+    decoder.forward(params, cfg, prompt[:, -1:], cache)
+    gemv = "quant_gemv_int8:w8a8" if w8a8 else "quant_gemv_int8"
+    assert dict(dispatch.LAUNCHES) == {"decode_block": cfg.n_layers, gemv: 2} and not dispatch.PLAIN
+    k_logits, k_toks = run(cfg)
+    with _plain_decoder(decoder):
+        p_logits, p_toks = run(cfg)
+    if w8a8:  # a code moved by one in a norm (as test_tiny_decoder_w8a8_kernels_match_plain)
+        assert (k_logits - p_logits).abs().max().item() <= 1e-2 * p_logits.abs().max().item()
+    else:
+        _close(k_logits, p_logits, torch.float32)
+    assert k_toks.tolist() == p_toks.tolist()
+    if not w8a8:  # f32: the two-kernel step computes the same values (W8A8 quantizes its MLP)
+        import dataclasses
+
+        two_logits, two_toks = run(dataclasses.replace(cfg, mega=False))
+        _close(k_logits, two_logits, torch.float32)
+        assert k_toks.tolist() == two_toks.tolist()

@@ -41,6 +41,13 @@ cfg8 = dataclasses.replace(cfg, w8a8=True)  # the W8A8 prefill and decode struct
 logits, cache = decoder.prefill(params, cfg8, prompt, decoder.init_cache(cfg8, 1, device="cpu"))
 tok, cache = decoder.forward(params, cfg8, prompt[:, -1:], cache, lm_head_mode="argmax")
 assert int(cache["len"][0]) == 13 and logits.shape == (1, 12, 300)
+from rten_tpu_torch.kernels import dispatch
+from rten_tpu_torch.kernels.matmul import matmul_fused
+dispatch.reset_counters()
+cfgm = dataclasses.replace(cfg, mega=True, activation="silu")  # the whole-block decode kernel
+tok, cache = decoder.forward(params, cfgm, tok, cache, lm_head_mode="argmax")
+assert dispatch.PLAIN["decode_block"] == 1 and "decode_attention" not in dispatch.PLAIN
+assert matmul_fused(torch.ones(3, 5), torch.ones(5, 2), activation="tanh").shape == (3, 2)
 from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
 for engine in (ServingEngine(params, cfg, max_batch=2, steps_per_tick=2, device="cpu"),
                PagedServingEngine(params, cfg, max_batch=2, n_pages=4, page_size=64, int8_kv=True,

@@ -140,16 +140,16 @@ def jax_scale_tiles(scales, head_dim: int) -> np.ndarray:
     return tiles
 
 
-def patch_jax_w8a8(monkeypatch):
-    """Run the JAX package's W8A8 path (``RTEN_W_CONVERT=w8a8``) on the CPU,
-    as ``tests/test_decoder_generate.py:429-455`` runs its fused kernels:
-    ``dispatch.on_tpu`` forced, every Pallas wrapper the decoder and the
+def patch_jax_fused(monkeypatch, w8a8: bool = False):
+    """Run the JAX package's fused decode path (the Pallas kernels) on the
+    CPU, as ``tests/test_decoder_generate.py:429-455`` runs it:
+    ``dispatch.on_tpu`` forced and every Pallas wrapper the decoder and the
     engines reach in interpret mode (the paged ones pass ``interpret``
-    themselves, so it is overridden), the GEMV and MLP at
-    ``w_convert="w8a8"`` explicitly (a trace cached under ``"direct"`` in
-    the same worker is not reused), and the module default that ``_proj``
-    reads set to ``"w8a8"``. ``monkeypatch`` undoes all of it; nothing in
-    ``rten_tpu`` changes."""
+    themselves, so it is overridden). With ``w8a8`` its W8A8 path
+    (``RTEN_W_CONVERT=w8a8``): the GEMV and MLP at ``w_convert="w8a8"``
+    explicitly (a trace cached under ``"direct"`` in the same worker is not
+    reused), and the module default that ``_proj`` reads set to ``"w8a8"``.
+    ``monkeypatch`` undoes all of it; nothing in ``rten_tpu`` changes."""
     import functools
 
     import rten_tpu.kernels.decode_attention as jda
@@ -161,10 +161,17 @@ def patch_jax_w8a8(monkeypatch):
         return lambda *a, **kw: fn(*a, **{**kw, "interpret": True})
 
     monkeypatch.setattr(jdispatch, "on_tpu", lambda: True)
-    monkeypatch.setattr(jqm, "_W_CONVERT_DEFAULT", "w8a8")
+    if w8a8:
+        monkeypatch.setattr(jqm, "_W_CONVERT_DEFAULT", "w8a8")
+    w_convert = "w8a8" if w8a8 else "direct"
     for name in ("quant_gemv_int8", "quant_mlp_int8"):
-        monkeypatch.setattr(jqm, name, functools.partial(getattr(jqm, name), interpret=True, w_convert="w8a8"))
+        monkeypatch.setattr(jqm, name, functools.partial(getattr(jqm, name), interpret=True, w_convert=w_convert))
     for mod, name in ((jqm, "quant_matmul_int8"), (jqm, "quant_matmul_w8a8"), (jda, "decode_attention"),
                       (jda, "decode_attention_int8"), (jpa, "paged_decode_attention"),
                       (jpa, "paged_decode_attention_int8"), (jdec, "flash_attention")):
         monkeypatch.setattr(mod, name, interpreted(getattr(mod, name)))
+
+
+def patch_jax_w8a8(monkeypatch):
+    """``patch_jax_fused`` in the JAX package's W8A8 mode."""
+    patch_jax_fused(monkeypatch, w8a8=True)
