@@ -15,10 +15,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    layer in one kernel, beside the two kernels it replaces;
    matmul_fused in bf16 and f32; the silu / sigmoid / tanh epilogues;
    decode_attention at 8 rows of mixed lengths) at GPT-2-small's shapes
-   (bf16 activations, int8 weights) against its plain PyTorch version on
-   the same inputs, with its device time, its plain version's time, the
-   least time the card could take for the same work, and one PyTorch
-   library call as a yardstick;
+   (bf16 activations, int8 weights), and the KV kernels' Llama/Qwen2-class
+   modes (unpacked q / k_new / v_new with 14 query heads over 2 kv heads,
+   decode_attention with and without its fused wo, the int8 and paged
+   kernels) at Qwen2-0.5B's attention shapes, each against its plain
+   PyTorch version on the same inputs, with its device time, its plain
+   version's time, the least time the card could take for the same work,
+   and one PyTorch library call as a yardstick;
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
@@ -50,7 +53,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 4's 32 teacher-forced steps through the mega path's kernels and
    plain versions against the two-kernel logits (relative RMS at most
    MEGA_GATE, the top-2 gap rule), and a short W8A8 + mega run;
-8. the line {"kernels": [...]} (the launches summed over phases 4-7;
+8. qwen2   — a Qwen2-0.5B-shaped model (24 layers, d_model 896, 14 query
+   heads over 2 kv heads, d_ff 4864, vocab 151936, RoPE θ 1e6, q/k/v
+   biases, the tied head as an lm_head copy; random int8 weights from seed
+   0): phase 4's path with a 64-token prompt and 256 tokens in a
+   1024-position cache (decode_attention in its unpacked GQA mode 24 times
+   a decode step), its 32 teacher-forced steps through the kernels and the
+   plain versions, 8 seeded requests through the slot and paged engines on
+   bf16 and int8 KV (the three GQA KV kernels; each stream against its solo
+   stream), and one decode step at 12 rows on a bf16 cache (decode_attention
+   without its wo) against the plain versions;
+9. the line {"kernels": [...]} (the launches summed over phases 4-8;
    matmul_fused, which no model calls, launches in phase 3 only), the
    nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
@@ -402,6 +415,8 @@ def check_kernels(torch, bound, cfg):
     check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record)
     torch.cuda.empty_cache()
     check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    torch.cuda.empty_cache()
+    check_gqa_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
     return cases
 
@@ -823,6 +838,114 @@ def check_kv_kernels(torch, bound, cfg, randn, record):
             del copies, lib_in
 
 
+QWEN2 = dict(n_heads=14, n_kv_heads=2, d_model=896)  # Qwen2-0.5B's attention (its config.json)
+
+
+def check_gqa_kernels(torch, bound, randn, pack, record):
+    """The KV kernels' Llama/Qwen2-class modes at Qwen2-0.5B's attention
+    (14 query heads over 2 kv heads, head dim 64, wo 896 x 896) and S 768,
+    kv_len 1 / 300 / 767 and 8 rows of mixed lengths: decode_attention on
+    unpacked q / k_new / v_new with the fused wo ("decode_attention:gqa")
+    and without it ("decode_attention:no_wo"), decode_attention_int8 and
+    the paged pair (pages of 128) in their GQA modes, each against its
+    plain version (the output, tolerance from its own max; the caches or
+    pages after the append bit for bit), timed as check_kernels times the
+    others. The bound counts the valid prefix of the 2 kv heads once, the
+    operands, the appended token and the output (and W_o); the library
+    yardstick is scaled_dot_product_attention(enable_gqa=True) over the
+    same prefix made contiguous (a bf16 dequantized copy for int8), rows
+    masked to their lengths, without wo."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6161)
+    hq, hk, dm = QWEN2["n_heads"], QWEN2["n_kv_heads"], QWEN2["d_model"]
+    hd, s_max, page = dm // hq, CACHE_LEN, 128
+    per_row = s_max // page
+    F = torch.nn.functional
+    kinds = {"decode_attention:gqa": (da.decode_attention, da.decode_attention_ref),
+             "decode_attention:no_wo": (da.decode_attention, da.decode_attention_ref),
+             "decode_attention_int8:gqa": (da.decode_attention_int8, da.decode_attention_int8_ref),
+             "paged_decode_attention:gqa": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
+             "paged_decode_attention_int8:gqa": (pa.paged_decode_attention_int8,
+                                                 pa.paged_decode_attention_int8_ref)}
+    for name, (kernel, plain) in kinds.items():
+        int8, paged, with_wo = "int8" in name, name.startswith("paged"), name == "decode_attention:gqa"
+        for case, lens_list in KV_LENS.items():
+            b = len(lens_list)
+
+            def make(i, b=b, lens_list=lens_list, int8=int8, paged=paged, with_wo=with_wo):
+                shape = (b * per_row + 1, hk, page, hd) if paged else (b, hk, s_max, hd)
+                if int8:
+                    cache = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                             for _ in range(2)]
+                    cache += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+                else:
+                    cache = [randn(*shape, scale=1.5), randn(*shape)]
+                q, kv = randn(b, hq, hd, scale=1.5), randn(b, 2 * hk, hd, scale=1.5)
+                args = [(q, kv[:, :hk], kv[:, hk:]), *cache]  # k_new and v_new: views of one tensor
+                if paged:  # each row's pages scattered through the pool; the last page is spare
+                    perm = torch.randperm(b * per_row, generator=gen, device=dev).to(torch.int32)
+                    args.append(perm.view(b, per_row).contiguous())
+                args.append(torch.tensor(lens_list, dtype=torch.int32, device=dev))
+                kw = {}
+                if with_wo:
+                    args += [*pack(dm, hq * hd), 0.1 * randn(dm, dtype=torch.float32)]
+                    kw["residual"] = randn(b, dm)
+                return args, kw
+
+            args, kw = make(0)
+            n_cache = 4 if int8 else 2
+
+            def cloned(a):
+                return [a[0], *(t.clone() for t in a[1 : 1 + n_cache]), *a[1 + n_cache :]]
+
+            k_args, p_args = cloned(args), cloned(args)
+            out = kernel(*k_args, **kw)
+            ref = plain(*p_args, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 1e-2 * max(1.0 if with_wo else 0.0, ref.float().abs().max().item())  # one bf16 rounding
+            if not all(torch.equal(a, p) for a, p in zip(k_args[1 : 1 + n_cache], p_args[1 : 1 + n_cache])):
+                raise AssertionError(f"{name} {case}: the caches after the append differ from the plain version's")
+            lens_t = torch.tensor(lens_list, device=dev)
+            valid = int(lens_t.max()) + 1
+
+            def contiguous(a, which):
+                kv = a[1 + which]
+                if paged:
+                    table = a[1 + n_cache].long()
+                    kv = kv[table].permute(0, 2, 1, 3, 4).reshape(b, hk, -1, hd)
+                    sc = a[3 + which][table].permute(0, 2, 1, 3).reshape(b, hk, -1) if int8 else None
+                else:
+                    sc = a[3 + which] if int8 else None
+                kv = kv[:, :, :valid]
+                return da.dequantize_kv(kv, sc[:, :, :valid], torch.bfloat16) if int8 else kv
+
+            elt = 1 if int8 else 2
+            prefix = sum(lens_list)  # positions read from the cache (the new token comes from the operands)
+            per_call = (2 * hk * prefix * hd * elt + (2 * hk * prefix * 4 if int8 else 0) + 2 * b * hq * hd
+                        + 2 * 2 * b * hk * hd + 2 * b * hk * hd * elt + 4 * b
+                        + (nbytes(args[1 + n_cache]) if paged else 0))
+            ops = sum(4 * hq * (n + 1) * hd for n in lens_list)
+            if with_wo:
+                per_call += nbytes(*args[-3:], kw["residual"]) + 2 * b * dm
+                ops += 2 * b * hq * hd * dm
+            else:
+                per_call += 2 * b * hq * hd
+            copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+            ms = graph_ms(torch, [lambda a=a, k=k: kernel(*a, **k) for a, k in copies])
+            plain_ms = eager_ms(torch, lambda: plain(*p_args, **kw))  # the append is idempotent
+            mask = (torch.arange(valid, device=dev)[None, :] <= lens_t[:, None])[:, None, None, :]
+            lib_in = [(c[0][0][0][:, :, None], contiguous(c[0], 0), contiguous(c[0], 1)) for c in copies[:8]]
+            library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask, enable_gqa=True)
+                                       for t in lib_in])
+            record(name, f"{case} S={s_max} Hq={hq} Hk={hk} D={hd}" + (f" page={page}" if paged else ""), err, tol,
+                   ms, plain_ms, bound(per_call, ops), library, "(SDPA without wo)" if with_wo else "")
+            del copies, lib_in
+
+
 def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     """quant_matmul_int8 and flash_attention against their plain versions at
     the prefill path's shapes, timed as check_kernels times the others."""
@@ -959,12 +1082,15 @@ def stream_bytes(node, exclude=("tok_emb", "pos_emb")) -> int:
     return node.numel() * node.element_size() if hasattr(node, "numel") else 0  # a pack's "tiled" flag: none
 
 
-def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None):
+def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None, n_new=None, cache_len=None):
     """Phase 4 (and, with cfg.w8a8, key "w8a8_" and the W8A8 kernels
-    required, phase 6's first part): the main path through Generator, time
-    to first token, the device time per decode step, and the teacher-forced
+    required, phase 6's first part; phase 8's first part at ``n_new`` tokens
+    in a ``cache_len`` cache): the main path through Generator, time to
+    first token, the device time per decode step, and the teacher-forced
     checks. Returns the main path's launches and the teacher-forced
     sequence with its logits."""
+    n_new = n_new or N_NEW
+    cache_len = cache_len or CACHE_LEN
     from rten_tpu_torch.generate import Generator, GeneratorConfig, Metrics, NativeBackend
     from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.models import decoder
@@ -975,7 +1101,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
     prompt = prompts[N_PROMPT]
 
     def serve(n_new, metrics=None):
-        gen = Generator(NativeBackend(params, cfg, max_len=CACHE_LEN, device="cuda"),
+        gen = Generator(NativeBackend(params, cfg, max_len=cache_len, device="cuda"),
                         GeneratorConfig(max_tokens=n_new)).with_prompt(prompt)
         if metrics is not None:
             gen.profile(metrics)
@@ -983,15 +1109,15 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
 
     serve(8)  # warm-up: allocator and library load, outside the counted run
 
-    # The main path: the prompt as one prefill forward, then N_NEW - 1 decode steps.
+    # The main path: the prompt as one prefill forward, then n_new - 1 decode steps.
     dispatch.reset_counters()
     metrics = Metrics()
     t0 = time.perf_counter()
-    tokens = serve(N_NEW, metrics)
+    tokens = serve(n_new, metrics)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
-    forwards = 1 + (N_NEW - 1)
+    forwards = 1 + (n_new - 1)
     log(f"  served {len(tokens)} tokens after a {N_PROMPT}-token prompt in {wall:.3f} s; "
         f"launches {launches}; plain {plain or '{}'}")
     for name in required or ENGINE_KERNELS["slot"]:  # the kernels of generation at batch 1
@@ -999,13 +1125,13 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
             raise AssertionError(f"kernel {name} was not launched on the main path")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
-    if len(tokens) != N_NEW or not all(0 <= t < cfg.vocab_size for t in tokens):
+    if len(tokens) != n_new or not all(0 <= t < cfg.vocab_size for t in tokens):
         raise AssertionError("the served stream has the wrong length or out-of-vocabulary ids")
 
     step_ms = metrics.mean_step_ms()
     weight = stream_bytes(params)
-    avg_prefix = N_PROMPT + (N_NEW - 1) / 2
-    kv = 2 * cfg.n_layers * cfg.n_heads * avg_prefix * cfg.head_dim * 2
+    avg_prefix = N_PROMPT + (n_new - 1) / 2
+    kv = 2 * cfg.n_layers * cfg.kv_heads * avg_prefix * cfg.head_dim * 2
     bound_ms = (weight + kv) / mem_rate * 1e3
     log(f"  decode: {metrics.tokens_per_second():.1f} tokens/s, {step_ms:.4f} ms/step (host clock, "
         f"steady steps); bound {bound_ms:.4f} ms/step ({weight} weight + {kv:.0f} KV bytes) -> "
@@ -1015,9 +1141,9 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
     # NativeBackend.prefill call and its token's copy to the host, after a
     # warm-up), against max(weight bytes / memory rate, 2 * non-lm_head
     # weights * T / bf16 rate), with its launches and device time by kernel.
-    n_body = sum(layer[k]["qt"].numel() for layer in params["layers"]
-                 for k in ("wqkv", "wo", "w_up", "w_down"))
-    backend = NativeBackend(params, cfg, max_len=CACHE_LEN, device="cuda")
+    n_body = sum(pack["qt"].numel() for layer in params["layers"] for pack in layer.values()
+                 if isinstance(pack, dict) and "qt" in pack)
+    backend = NativeBackend(params, cfg, max_len=cache_len, device="cuda")
     prefill_stats = {}
     for n in TTFT_PROMPTS:
         def first_token(p=prompts[n]):
@@ -1036,7 +1162,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
         per_prefill = dict(dispatch.LAUNCHES)
 
         ids_n = torch.from_numpy(prompts[n]).cuda()
-        caches = [decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda") for _ in range(4)]
+        caches = [decoder.init_cache(cfg, 1, cache_len, device="cuda") for _ in range(4)]
         by_kernel = device_us_by_kernel(torch, lambda: decoder.prefill(
             params, cfg, ids_n, caches.pop(), lm_head_mode="argmax", last_only=True), 4)
         del caches
@@ -1065,7 +1191,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
     ids = torch.from_numpy(prompt).cuda()
 
     def token_by_token_ms():
-        c = decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda")
+        c = decoder.init_cache(cfg, 1, cache_len, device="cuda")
         torch.cuda.synchronize()
         t = time.perf_counter()
         for i in range(N_PROMPT):
@@ -1081,7 +1207,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
         f"of it")
 
     # Device time per decode step (profiler) against the host step time.
-    cache = decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda")
+    cache = decoder.init_cache(cfg, 1, cache_len, device="cuda")
     _, cache = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True)
     last = torch.tensor([[tokens[0]]], dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
@@ -1109,7 +1235,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
     # through the plain versions: each may prefer another token only where
     # its own top-2 gap to the served token is below the tolerance.
     served = torch.tensor(tokens[:N_FORCED], device="cuda")
-    c = decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda")
+    c = decoder.init_cache(cfg, 1, cache_len, device="cuda")
     lg, c = decoder.prefill(params, cfg, ids, c, last_only=True)
     step_logits = [lg[0, -1]]
     for i in range(N_FORCED - 1):
@@ -1122,7 +1248,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
     seq = torch.tensor([list(prompt[0]) + tokens[: N_FORCED - 1]], dtype=torch.int32, device="cuda")
 
     def one_forward_logits():
-        lg, _ = decoder.prefill(params, cfg, seq, decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda"))
+        lg, _ = decoder.prefill(params, cfg, seq, decoder.init_cache(cfg, 1, cache_len, device="cuda"))
         return lg[0, N_PROMPT - 1:]  # logits that chose served tokens 0..N_FORCED-1
 
     k_logits = one_forward_logits()
@@ -1631,6 +1757,166 @@ def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: a Qwen2-0.5B-shaped model (RoPE, GQA, SwiGLU) at full width
+# ---------------------------------------------------------------------------
+
+# huggingface.co/Qwen/Qwen2-0.5B config.json: 24 layers, hidden 896, 14 heads
+# over 2 kv heads (head dim 64), intermediate 4864, vocab 151936, RMSNorm eps
+# 1e-6, rope_theta 1e6, q/k/v biases, tied embeddings.
+QWEN2_CFG = dict(vocab_size=151936, n_layers=24, d_ff=4864, max_seq=1024, pos_encoding="rope", norm="rmsnorm",
+                 activation="swiglu", rope_theta=1e6, layer_norm_eps=1e-6, **QWEN2)
+N_QWEN2_NEW, QWEN2_CACHE, N_QWEN2_REQUESTS, QWEN2_NEW_RANGE = 256, 1024, 8, (16, 64)
+QWEN2_KERNELS = ("quant_gemv_int8", "decode_attention:gqa", "quant_matmul_int8", "flash_attention")
+QWEN2_ENGINE_KERNELS = {"slot": "decode_attention:gqa", "slot_int8": "decode_attention_int8:gqa",
+                        "paged": "paged_decode_attention:gqa", "paged_int8": "paged_decode_attention_int8:gqa"}
+
+
+def qwen2_params(torch, cfg):
+    """Random int8 params of the Qwen2-0.5B shape from seed 0: the port's
+    ``init_params`` (tied), seeded q/k/v biases, and the tied head as
+    ``from_hf_llama`` writes it (an ``lm_head`` copy of the embedding), then
+    ``quantize_params_int8`` (``w_gu`` fuses: 2 x 4864 is a multiple of 128,
+    its N 9728 pads to 10240; the lm_head's N 151936 to 152576)."""
+    import numpy as np
+
+    from rten_tpu_torch.models import decoder
+
+    dense = decoder.init_params(0, cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    widths = {"bq": cfg.n_heads * cfg.head_dim, "bk": cfg.kv_heads * cfg.head_dim, "bv": cfg.kv_heads * cfg.head_dim}
+    for layer in dense["layers"]:
+        for key, n in widths.items():
+            layer[key] = torch.from_numpy(rng.standard_normal(n, dtype=np.float32) * np.float32(0.02)).to(
+                dense["tok_emb"].device, cfg.dtype)
+    dense["lm_head"] = dense["tok_emb"].t().contiguous()
+    return decoder.quantize_params_int8(dense, device="cuda")
+
+
+def drive_qwen2(torch, mem_rate, op_rate, out):
+    """Phase 8: the Qwen2-0.5B-shaped model through phase 4's path
+    (Generator(NativeBackend): a 64-token prompt in one prefill, then 255
+    greedy steps in a 1024-position cache, each launching decode_attention
+    24 times in its unpacked GQA mode and no plain version; time to first
+    token at 64 and 512; device time by kernel; 32 teacher-forced steps
+    through the kernels and the plain versions under the top-2 rule), then
+    8 seeded requests through the slot and paged engines, each on bf16 and
+    int8 KV, each stream held against its solo stream (the three GQA KV
+    kernels), and one decode step at 12 rows on a bf16 cache
+    (decode_attention without its wo) against the plain versions."""
+    import dataclasses
+    import random
+
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = decoder.DecoderConfig(**QWEN2_CFG, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = qwen2_params(torch, cfg)
+    torch.cuda.synchronize()
+    weight = stream_bytes(params)
+    log(f"  params: Qwen2-0.5B shape int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize; "
+        f"{weight} bytes a decode step streams; w_gu {tuple(params['layers'][0]['w_gu']['qt'].shape)}, "
+        f"lm_head {tuple(params['lm_head']['qt'].shape)}")
+    launches, _forced = drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="qwen2_", required=QWEN2_KERNELS,
+                                    n_new=N_QWEN2_NEW, cache_len=QWEN2_CACHE)
+    steps = N_QWEN2_NEW - 1
+    if launches.get("decode_attention:gqa", 0) != cfg.n_layers * steps or launches.get("decode_attention", 0) \
+            or launches.get("quant_mlp_int8", 0):
+        raise AssertionError(f"Qwen2 decode: decode_attention:gqa must launch {cfg.n_layers} times a step: {launches}")
+    launches = dict(launches)  # the phase's sum; out["qwen2_decode"] keeps the served path's own
+    per_forward = out["qwen2_decode"]["launches_per_forward"]
+    log(f"  launches a forward {sum(per_forward.values()):.2f}: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per_forward.items())))
+
+    # Serving: 8 seeded requests through both engines, bf16 and int8 KV.
+    rnd = random.Random(8)
+    specs = []
+    for _ in range(N_QWEN2_REQUESTS):
+        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*QWEN2_NEW_RANGE)
+        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    cfg8 = dataclasses.replace(cfg, int8_kv=True)
+    t0 = time.perf_counter()
+    solo = {key: solo_streams(params, c, specs, dev) for key, c in (("bf16", cfg), ("int8", cfg8))}
+    log(f"  {N_QWEN2_REQUESTS} requests, prompts {min(len(s['prompt']) for s in specs)}-"
+        f"{max(len(s['prompt']) for s in specs)} tokens; solo references (bf16 and int8 KV) "
+        f"{time.perf_counter() - t0:.1f} s")
+    pages = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs)
+    runs = {"slot": lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev),
+            "slot_int8": lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev),
+            "paged": lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages, page_size=SERVE_PAGE,
+                                                device=dev),
+            "paged_int8": lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages, page_size=SERVE_PAGE,
+                                                     int8_kv=True, device=dev)}
+    serving = {}
+    total_new = sum(s["max_new_tokens"] for s in specs)
+    for kind, make in runs.items():
+        engine = make()
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        torch.cuda.synchronize()
+        dispatch.reset_counters()
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        if not run_launches.get(QWEN2_ENGINE_KERNELS[kind]) or any(plain.values()):
+            raise AssertionError(f"Qwen2 {kind}: {QWEN2_ENGINE_KERNELS[kind]} not launched or plain calls: "
+                                 f"{run_launches} {plain}")
+        ref, gaps = solo["int8" if kind.endswith("int8") else "bf16"]
+        n_diff = check_streams(f"Qwen2 {kind} vs solo", [r.output for r in reqs], ref, gaps)
+        for name, n in run_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        serving[kind] = dict(wall_s=wall, tokens_per_s=total_new / wall, forwards=engine.steps, differing=n_diff,
+                             launches=run_launches)
+        log(f"  Qwen2 {kind}: {total_new} tokens in {wall:.3f} s -> {total_new / wall:.1f} generated tokens/s; "
+            f"{engine.steps} forwards; streams differing from solo (top-2 rule) {n_diff}; launches {run_launches}")
+        del engine
+        torch.cuda.empty_cache()
+
+    # One decode step at 12 rows on a bf16 cache: decode_attention without
+    # its fused wo, then the prefill projections; kernels against plain.
+    b = 12
+    gen = torch.Generator().manual_seed(9)
+    lens = torch.randint(8, 600, (b,), generator=gen, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, dtype=torch.int32).to(dev)
+    cache = decoder.init_cache(cfg, b, QWEN2_CACHE, device="cuda")
+    for li in range(cfg.n_layers):
+        for key in ("k", "v"):
+            cache[key][li].normal_(generator=torch.Generator(device=dev).manual_seed(li))
+    cache["len"].copy_(lens.to(dev))
+    cache["host_len"][:] = lens.numpy()
+
+    def step():
+        c = {k: ([t.clone() for t in v] if isinstance(v, list) else v.copy() if k == "host_len" else v.clone())
+             for k, v in cache.items()}
+        return decoder.forward(params, cfg, toks, c)[0][:, 0]
+
+    dispatch.reset_counters()
+    k_logits = step()
+    torch.cuda.synchronize()
+    b12 = dict(dispatch.LAUNCHES)
+    if b12.get("decode_attention:no_wo") != cfg.n_layers or any(dispatch.PLAIN.values()):
+        raise AssertionError(f"12-row step: decode_attention:no_wo must launch {cfg.n_layers} times: {b12}")
+    with plain_decoder(decoder):
+        p_logits = step()
+    top = p_logits.argmax(-1)
+    gap = (k_logits.max(-1).values - k_logits.gather(1, top[:, None])[:, 0]).max().item()
+    if not (gap <= GAP_TOL and bool(torch.isfinite(k_logits).all())):
+        raise AssertionError(f"12-row step: the plain argmax loses to the kernels' by {gap} > {GAP_TOL}")
+    log(f"  12-row decode step: launches {b12}; kernels against plain max |logit| difference "
+        f"{(k_logits - p_logits).abs().max().item():.4g}, argmax agree {int((k_logits.argmax(-1) == top).sum())}/{b}")
+    for name, n in b12.items():
+        launches[name] = launches.get(name, 0) + n
+    out["qwen2_serving"] = serving
+    out["qwen2_b12"] = dict(launches=b12, argmax_agree=int((k_logits.argmax(-1) == top).sum()), worst_gap=gap)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -1658,6 +1944,17 @@ KERNELS = {
                                replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64"),
     "decode_block": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
                          replaces="rten_tpu/kernels/decode_attention.py:118", timed="kv_len=300 +next_qkv"),
+    "decode_attention:gqa": dict(source="rten_tpu_torch/kernels/csrc/decode_attention.cu",
+                                 replaces="rten_tpu/kernels/decode_attention.py:734", timed="B=1 kv_len=300"),
+    "decode_attention:no_wo": dict(source="rten_tpu_torch/kernels/csrc/decode_attention.cu",
+                                   replaces="rten_tpu/kernels/decode_attention.py:734", timed="B=1 kv_len=300"),
+    "decode_attention_int8:gqa": dict(source="rten_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+                                      replaces="rten_tpu/kernels/decode_attention.py:1667", timed="B=1 kv_len=300"),
+    "paged_decode_attention:gqa": dict(source="rten_tpu_torch/kernels/csrc/paged_attention.cu",
+                                       replaces="rten_tpu/kernels/paged_attention.py:592", timed="B=1 kv_len=300"),
+    "paged_decode_attention_int8:gqa": dict(source="rten_tpu_torch/kernels/csrc/paged_attention_int8.cu",
+                                            replaces="rten_tpu/kernels/paged_attention.py:413",
+                                            timed="B=1 kv_len=300"),
     # No model calls matmul_fused (the JAX package's tests alone do): it is
     # held against its plain version in phase 3 and launches on no main path.
     "matmul_fused": dict(source="rten_tpu_torch/kernels/csrc/matmul_fused.cu",
@@ -1683,7 +1980,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/8] device")
+    log("[1/9] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -1696,7 +1993,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/8] build")
+    log("[2/9] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -1711,7 +2008,7 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
-    log("[3/8] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/9] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     detail["cases"] = cases
 
@@ -1719,24 +2016,29 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/8] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/9] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/8] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/9] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/8] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/9] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/8] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/9] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
+        launches[name] = launches.get(name, 0) + n
+    del params
+    torch.cuda.empty_cache()
+    log("[8/9] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
 
-    log("[8/8] summary")
+    log("[9/9] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -32,6 +32,12 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# The leading arguments of the four KV-attention entry points (kv_attention.cuh).
+_KV_OPERANDS = [
+    _P, _P, _P,                      # q, k_new, v_new
+    _L, _L, _L,                      # their row strides (elements)
+    _I, _I, _I, _I, _I,              # bf16, b, hq, hk, d
+]
 # argtypes of every C entry point (pointers and the stream as c_void_p, or
 # ctypes would pass a 32-bit int and cut them).
 SIGNATURES = {
@@ -54,7 +60,7 @@ SIGNATURES = {
         _I, _P,                      # w8a8, stream
     ],
     "rt_decode_attention": [
-        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        *_KV_OPERANDS,
         _P, _P, _I, _P,              # k_cache, v_cache, s_max, kv_len
         _P, _P, _P, _P, _I,          # part_m, part_l, part_acc, attn, n_chunks
         _P, _P, _P, _I,              # wo_t, wo_scales, wo_bias, dm
@@ -108,20 +114,20 @@ SIGNATURES = {
         _P,                          # stream
     ],
     "rt_paged_attention": [
-        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        *_KV_OPERANDS,
         _P, _P, _I, _I,              # k_pages, v_pages, n_pages, page
         _P, _I, _P,                  # table, max_pages, kv_len
         _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
         _P, _F, _P,                  # out, sm_scale, stream
     ],
     "rt_decode_attention_int8": [
-        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        *_KV_OPERANDS,
         _P, _P, _P, _P, _I, _P,      # k, v, k_scale, v_scale, s_max, kv_len
         _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
         _P, _F, _P,                  # out, sm_scale, stream
     ],
     "rt_paged_attention_int8": [
-        _P, _I, _I, _I, _I,          # qkv, bf16, b, h, d
+        *_KV_OPERANDS,
         _P, _P, _P, _P, _I, _I,      # k_pages, v_pages, k_scale_pages, v_scale_pages, n_pages, page
         _P, _I, _P,                  # table, max_pages, kv_len
         _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks

@@ -1,23 +1,28 @@
 // decode_attention: one query token per row against a preallocated KV cache
-// [B, H, S, D] (MHA), with the new token's k/v appended in place at kv_len
-// and the int8 output projection, its bias and the residual fused in.
+// [B, Hk, S, D] (Hq query heads over Hk kv heads: MHA or grouped-query), with
+// the new token's k/v appended in place at kv_len and, optionally, the int8
+// output projection, its bias and the residual fused in.
 //
 // Replaces rten_tpu/kernels/decode_attention.py decode_attention (:734;
-// Pallas kernel _decode_attn_kernel :83) in its packed-qkv, fused-wo mode
-// (which the TPU kernel supports for MHA only, as here).
+// Pallas kernel _decode_attn_kernel :83) in its three decode-step modes: the
+// packed-qkv fused-wo mode of MHA models (three views of the packed buffer
+// here), the unpacked q / k_new / v_new fused-wo mode with GQA of the RoPE
+// and GQA models, and the mode without wo, which returns the attention
+// vector (the JAX decoder takes it when the step is not fused).
 // On the TPU one grid cell per row walks the valid prefix in order with a
-// running online softmax and a double-buffered DMA. Here three launches on
-// one stream:
+// running online softmax and a double-buffered DMA. Here two or three
+// launches on one stream:
 //   1-2. kv_attention.cuh's split-KV pair over the contiguous cache
-//      (blocks of 64 positions of the valid prefix scored in f32, the block
-//      holding kv_len appending k_new / v_new there; a combine launch),
-//      giving the f32 attention vector;
-//   3. gemv_kernel (gemv.cuh): attn @ W_o * s + bias + residual, the dot in
-//      f32 as on the TPU (the attention vector is not rounded).
+//      (blocks of 64 positions of one kv head's valid prefix, the group's
+//      query heads scored against each, the block holding kv_len appending
+//      k_new / v_new there; a combine launch), giving the attention vector
+//      (f32 for the fused wo, else in the activations' dtype);
+//   3. with wo: gemv_kernel (gemv.cuh): attn @ W_o * s + bias + residual,
+//      the dot in f32 as on the TPU (the attention vector is not rounded).
 //
-// Bound on the H100: bytes, the valid KV prefix (2 * H * (kv_len + 1) * D
-// elements) plus the int8 W_o (H*D x Dm). Splitting the prefix into chunks
-// puts (kv_len + 1) / 64 x H blocks on the card instead of H, so at batch 1
+// Bound on the H100: bytes, the valid KV prefix (2 * Hk * (kv_len + 1) * D
+// elements) plus the int8 W_o (Hq*D x Dm). Splitting the prefix into chunks
+// puts (kv_len + 1) / 64 x Hk blocks on the card instead of Hk, so at batch 1
 // the cache stream is spread over the SMs; every cache row is read as
 // 16-byte vectors by neighbouring lanes; all softmax statistics and sums
 // are f32.
@@ -26,15 +31,23 @@
 #include "kv_attention.cuh"
 
 extern "C" int rt_decode_attention(
-    const void* qkv, int bf16, int b, int h, int d,
+    const void* q, const void* k_new, const void* v_new,
+    long long q_stride, long long kn_stride, long long vn_stride,
+    int bf16, int b, int hq, int hk, int d,
     void* k_cache, void* v_cache, int s_max, const int* kv_len,
     float* part_m, float* part_l, float* part_acc, float* attn, int n_chunks,
     const int8_t* wo_t, const float* wo_scales, const float* wo_bias, int dm,
     const void* residual, void* out, float sm_scale,
     void* stream) {
+  rt::KvArgs a = rt::kv_args(q, k_new, v_new, q_stride, kn_stride, vn_stride, hq, hk, kv_len, part_m, part_l,
+                             part_acc, n_chunks, sm_scale);
+  a.k = k_cache;
+  a.v = v_cache;
+  a.cap = s_max;
+  if (wo_t == nullptr) {  // the attention vector alone, in the activations' dtype
+    return rt::run_kv_attention<false, false>(a, bf16, b, d, out, stream);
+  }
   if (b > rt::MAXM) return static_cast<int>(cudaErrorInvalidValue);
-  rt::KvArgs a{qkv, k_cache, v_cache, nullptr, nullptr, kv_len, nullptr, h, s_max,
-               0, 0, 0, n_chunks, part_m, part_l, part_acc, sm_scale};
   const int e = rt::run_kv_attention<false, false, true>(a, bf16, b, d, attn, stream);
   if (e != 0) return e;
 
@@ -45,7 +58,7 @@ extern "C" int rt_decode_attention(
   g.w = wo_t;
   g.scale = wo_scales;
   g.n = dm;
-  g.k = h * d;
+  g.k = hq * d;
   g.bias = wo_bias;
   g.dot_bf16 = 0;  // f32 attention vector times the int8 weights, as on the TPU
   g.residual = residual;

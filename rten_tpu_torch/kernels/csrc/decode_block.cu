@@ -82,13 +82,13 @@ __global__ void __launch_bounds__(DB_THREADS) decode_block_kernel(BlockArgs p) {
   cg::grid_group grid = cg::this_grid();
   const KvArgs& kv = p.kv;
   const int len = kv.kv_len[0];
-  const int items = (len >= 0 && len < kv.cap) ? (len + KV_CHUNK) / KV_CHUNK * kv.h : 0;
+  const int items = (len >= 0 && len < kv.cap) ? (len + KV_CHUNK) / KV_CHUNK * kv.hk : 0;
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
-    kv_split_item<T, T, D, false>(kv, i / kv.h, i % kv.h, 0);
+    kv_split_item<T, T, D, false, 1>(kv, i / kv.hk, i % kv.hk, 0);
     __syncthreads();  // the next item reuses the shared buffers
   }
   grid.sync();
-  for (int hh = blockIdx.x; hh < kv.h; hh += gridDim.x) {
+  for (int hh = blockIdx.x; hh < kv.hq; hh += gridDim.x) {
     if ((int)threadIdx.x < D) kv_combine_item<float, D>(kv, p.attn, hh, 0);
   }
   grid.sync();
@@ -170,8 +170,14 @@ extern "C" int rt_decode_block(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   rt::BlockArgs p{};
-  p.kv = rt::KvArgs{qkv, k_cache, v_cache, nullptr, nullptr, kv_len, nullptr, h, s_max,
-                    0, 0, 0, n_chunks, part_m, part_l, part_acc, sm_scale};
+  // The packed [1, 3 * H * D] q|k|v as the three operands of the MHA split.
+  const size_t part_bytes = (size_t)h * d * (bf16 ? 2 : 4);
+  const char* packed = static_cast<const char*>(qkv);
+  p.kv = rt::kv_args(packed, packed + part_bytes, packed + 2 * part_bytes, 3LL * h * d, 3LL * h * d,
+                     3LL * h * d, h, h, kv_len, part_m, part_l, part_acc, n_chunks, sm_scale);
+  p.kv.k = k_cache;
+  p.kv.v = v_cache;
+  p.kv.cap = s_max;
   p.attn = attn;
 
   rt::GemvArgs& wo = p.wo;  // f32 attention vector times the int8 W_o, as in decode_attention.cu

@@ -1,23 +1,34 @@
 // paged_decode_attention: one query token per row against KV pages of a
-// shared pool [n_pages, H, page, D] (bf16 or f32), found through a
-// [B, max_pages] page table, with the new token's k/v appended in place
-// into the page that holds position kv_len.
+// shared pool [n_pages, Hk, page, D] (bf16 or f32), found through a
+// [B, max_pages] page table (Hq query heads over Hk kv heads: MHA or
+// grouped-query), with the new token's k/v appended in place into the page
+// that holds position kv_len.
 //
 // Replaces rten_tpu/kernels/paged_attention.py paged_decode_attention
-// (:592; Pallas kernel _paged_attn_kernel :34). The split-KV kernel pair is
-// kv_attention.cuh's (design and bound there); wo is left to the GEMV, as
-// the TPU path leaves it to _fproj. A row of length 0 points its table at
-// the pool's scratch page, so its append lands in memory no row reads.
+// (:592; Pallas kernel _paged_attn_kernel :34), MHA and GQA. The split-KV
+// kernel pair is kv_attention.cuh's (design and bound there); wo is left to
+// the GEMV, as the TPU path leaves it to _fproj. A row of length 0 points
+// its table at the pool's scratch page, so its append lands in memory no
+// row reads.
 
 #include "kv_attention.cuh"
 
 extern "C" int rt_paged_attention(
-    const void* qkv, int bf16, int b, int h, int d,
+    const void* q, const void* k_new, const void* v_new,
+    long long q_stride, long long kn_stride, long long vn_stride,
+    int bf16, int b, int hq, int hk, int d,
     void* k_pages, void* v_pages, int n_pages, int page,
     const int* table, int max_pages, const int* kv_len,
     float* part_m, float* part_l, float* part_acc, int n_chunks,
     void* out, float sm_scale, void* stream) {
-  rt::KvArgs a{qkv, k_pages, v_pages, nullptr, nullptr, kv_len, table, h, max_pages * page,
-               page, max_pages, n_pages, n_chunks, part_m, part_l, part_acc, sm_scale};
+  rt::KvArgs a = rt::kv_args(q, k_new, v_new, q_stride, kn_stride, vn_stride, hq, hk, kv_len, part_m, part_l,
+                             part_acc, n_chunks, sm_scale);
+  a.k = k_pages;
+  a.v = v_pages;
+  a.table = table;
+  a.cap = max_pages * page;
+  a.page = page;
+  a.max_pages = max_pages;
+  a.n_pages = n_pages;
   return rt::run_kv_attention<false, true>(a, bf16, b, d, out, stream);
 }

@@ -1,18 +1,25 @@
 """Decode attention: one query token against a preallocated KV cache, with
-the new token's k/v appended in place and the int8 output projection, its
-bias and the residual fused in; ``decode_block``, the same with the rest of
-the transformer block (ln2, up, activation, down, residual, and the next
-layer's ln1 + qkv) in one kernel; and ``decode_attention_int8``, attention
-over an int8 cache with per-(token, head) scales (the output projection
-left to the caller). Kernel wrappers beside their plain versions.
+the new token's k/v appended in place and, optionally, the int8 output
+projection, its bias and the residual fused in; ``decode_block``, the same
+with the rest of the transformer block (ln2, up, activation, down,
+residual, and the next layer's ln1 + qkv) in one kernel; and
+``decode_attention_int8``, attention over an int8 cache with per-(token, kv
+head) scales (the output projection left to the caller). Kernel wrappers
+beside their plain versions.
 
 Counterpart of ``rten_tpu/kernels/decode_attention.py`` ``decode_attention``
 (:734) in the modes the decoder's decode step uses: packed q|k|v
-``[B, 3, H, 1, D]`` (MHA), in-place append at ``kv_len``, fused int8
-``wo`` + bias + residual; with ``mlp=`` / ``next_qkv=`` (the whole-block
-"mega" mode, batch 1) that is ``decode_block``. Its folded cache layout and
-lane padding exist for Mosaic only; here the cache is logical
-``[B, H, S, D]``.
+``[B, 3, H, 1, D]`` (MHA without RoPE) or unpacked ``(q [B, Hq, D], k_new
+[B, Hk, D], v_new [B, Hk, D])`` with grouped-query heads (every RoPE or GQA
+model; ``split_qkv``), in-place append at ``kv_len``, with the fused int8
+``wo`` + bias + residual or without it (the attention vector of an unfused
+step); with ``mlp=`` / ``next_qkv=`` (the whole-block "mega" mode, batch 1,
+MHA) that is ``decode_block``. Its folded cache layout and lane padding
+exist for Mosaic only; here the cache is logical ``[B, Hk, S, D]``. Each
+mode counts its launches under its own name (``mode_name``):
+``decode_attention``, ``decode_attention:gqa`` (Hq > Hk) and
+``decode_attention:no_wo``; ``decode_attention_int8`` and
+``decode_attention_int8:gqa``.
 
 The TPU kernels' ``batched=True`` modes (``_decode_attn_kernel_batched``,
 ``_decode_attn_int8_kernel_batched``: every row in one grid cell, with
@@ -21,8 +28,8 @@ they exist to pay a TPU grid cell's fixed costs (its DMA chain, the
 block-0 latency, the append's round trips) once for all rows instead of
 once per row. A CUDA grid pays no such cost per row, so here both modes are
 the one launch over all B rows that ``decode_attention`` and
-``decode_attention_int8`` always make (split-KV grid (chunk, head, row); the
-fused wo reads W_o once for all rows).
+``decode_attention_int8`` always make (split-KV grid (chunk, kv head, row);
+the fused wo reads W_o once for all rows).
 
 Numerics (those of the Pallas kernel): scores, softmax statistics and the
 attention vector are f32; the scale is ``1/sqrt(D)``; the output
@@ -63,21 +70,52 @@ def _unpack(packed_qkv):
     return b, h, d
 
 
+def split_qkv(qkv):
+    """The three operands of the KV kernels as ``(q [B, Hq, D], k_new [B,
+    Hk, D], v_new [B, Hk, D])``. ``qkv`` is either a packed MHA tensor
+    ``[B, 3, H, 1, D]`` (returned as three views of it, no copy) or the
+    tuple ``(q, k_new, v_new)`` itself, with Hq a multiple of Hk: the
+    unpacked operands of grouped-query attention and of RoPE, whose q and k
+    are rotated after the projection. Query head h reads kv head
+    h // (Hq / Hk)."""
+    if isinstance(qkv, torch.Tensor):
+        _unpack(qkv)
+        return qkv[:, 0, :, 0], qkv[:, 1, :, 0], qkv[:, 2, :, 0]
+    q, k_new, v_new = qkv
+    if (q.dim() != 3 or k_new.dim() != 3 or k_new.shape != v_new.shape or q.shape[0] != k_new.shape[0]
+            or q.shape[2] != k_new.shape[2] or q.shape[1] % k_new.shape[1]):
+        raise ValueError(
+            f"q {tuple(q.shape)}, k_new {tuple(k_new.shape)}, v_new {tuple(v_new.shape)} must be "
+            "[B, Hq, D], [B, Hk, D], [B, Hk, D] with Hq a multiple of Hk"
+        )
+    return q, k_new, v_new
+
+
+def mode_name(name: str, hq: int, hk: int, wo: bool = True) -> str:
+    """The launch counter of a KV kernel's mode: ``name:no_wo`` for
+    ``decode_attention`` without its fused wo, ``name:gqa`` for
+    grouped-query heads (Hq > Hk), else ``name``."""
+    if not wo:
+        return name + ":no_wo"
+    return name + ":gqa" if hq > hk else name
+
+
 def attend_ref(q, keys, vals, sm_scale: float):
-    """Softmax attention of one query per head in f32: q [H, D], keys and
-    vals [H, L, D] → [H·D]."""
-    p = torch.softmax(torch.einsum("hd,hsd->hs", q.float(), keys.float()) * sm_scale, dim=-1)
-    return torch.einsum("hs,hsd->hd", p, vals.float()).reshape(-1)
+    """Softmax attention of one query per head in f32: q [Hq, D], keys and
+    vals [Hk, L, D] (query head h reads kv head h // (Hq / Hk)) → [Hq·D]."""
+    group = q.shape[0] // keys.shape[0]
+    keys, vals = keys.float().repeat_interleave(group, 0), vals.float().repeat_interleave(group, 0)
+    p = torch.softmax(torch.einsum("hd,hsd->hs", q.float(), keys) * sm_scale, dim=-1)
+    return torch.einsum("hs,hsd->hd", p, vals).reshape(-1)
 
 
-def _append_attend(packed_qkv, k_cache, v_cache, kv_len):
+def _append_attend(ops, k_cache, v_cache, kv_len):
     """Append each row's new k/v at its ``kv_len`` in place and attend over
-    the prefix and the new token: the f32 attention vector [B, H·D] and the
-    f32 ``attn @ W_o · scales + bias + residual`` of the plain versions.
-    Reads ``kv_len`` on the host; a full row raises IndexError."""
-    _b, _h, d = _unpack(packed_qkv)
-    sm_scale = 1.0 / math.sqrt(d)
-    q, kn, vn = packed_qkv[:, 0, :, 0], packed_qkv[:, 1, :, 0], packed_qkv[:, 2, :, 0]
+    the prefix and the new token: the f32 attention vector [B, Hq·D] of the
+    plain versions. Reads ``kv_len`` on the host; a full row raises
+    IndexError."""
+    q, kn, vn = ops
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
     rows = []
     for bi, length in enumerate(kv_len.tolist()):
         k_cache[bi, :, length] = kn[bi].to(k_cache.dtype)
@@ -96,90 +134,118 @@ def _project_wo(attn, wo_t, wo_scales, wo_bias, residual):
 
 
 def decode_attention_ref(
-    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias=None, residual=None,
+    qkv, k_cache, v_cache, kv_len, wo_t=None, wo_scales=None, wo_bias=None, residual=None,
 ):
     """Plain version of ``decode_attention`` (same signature, result and
     in-place cache update). Reads ``kv_len`` on the host."""
-    PLAIN["decode_attention"] += 1
-    attn = _append_attend(packed_qkv, k_cache, v_cache, kv_len)
-    return _project_wo(attn, wo_t, wo_scales, wo_bias, residual).to(packed_qkv.dtype)
+    q, kn, vn = split_qkv(qkv)
+    PLAIN[mode_name("decode_attention", q.shape[1], kn.shape[1], wo_t is not None)] += 1
+    attn = _append_attend((q, kn, vn), k_cache, v_cache, kv_len)
+    if wo_t is None:
+        return attn.to(q.dtype)
+    return _project_wo(attn, wo_t, wo_scales, wo_bias, residual).to(q.dtype)
+
+
+def _operand_args(name: str, ops, d: int) -> list:
+    """The kernels' leading arguments for q, k_new and v_new (pointers, then
+    row strides in elements), checked: one dtype, f32 or bf16, each row's
+    heads contiguous."""
+    dtype = ops[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: activations must be float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    for what, t in zip(("q", "k_new", "v_new"), ops):
+        if t.dtype != dtype or t.stride(2) != 1 or (t.shape[1] > 1 and t.stride(1) != d):
+            raise ValueError(f"{name}: {what} must be {dtype} with each row's heads contiguous")
+    return [t.data_ptr() for t in ops] + [t.stride(0) for t in ops]
 
 
 def decode_attention(
-    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias=None, residual=None,
+    qkv, k_cache, v_cache, kv_len, wo_t=None, wo_scales=None, wo_bias=None, residual=None,
 ):
     """``softmax(q·kᵀ/sqrt(D))·v`` over the valid prefix plus the new
-    token, then the int8 output projection:
+    token, then (with ``wo_t``) the int8 output projection:
 
         out = attn @ W_o * wo_scales + wo_bias + residual
 
-    packed_qkv: [B, 3, H, 1, D] (q | k_new | v_new, MHA); k_cache, v_cache:
-    [B, H, S, D] of packed_qkv's dtype; kv_len: int32 [B], the valid length
-    BEFORE this token, below S; wo_t: int8 [Dm, H·D] (``int8_pack``);
-    residual [B, Dm]. Writes k_new/v_new into the caches at ``kv_len`` in
-    place and returns out [B, Dm]. A row whose cache is full (``kv_len`` ≥
-    S) raises IndexError in the plain version; the kernel, which does not
-    read ``kv_len`` on the host, leaves the caches alone and returns NaN
-    for that row (``decoder.forward`` refuses a full cache beforehand).
+    qkv: the packed MHA ``[B, 3, H, 1, D]`` (q | k_new | v_new) or the tuple
+    ``(q [B, Hq, D], k_new [B, Hk, D], v_new [B, Hk, D])`` of grouped-query
+    attention and RoPE (``split_qkv``); k_cache, v_cache: [B, Hk, S, D] of
+    the operands' dtype; kv_len: int32 [B], the valid length BEFORE this
+    token, below S; wo_t: int8 [Dm, Hq·D] (``int8_pack``); residual [B, Dm].
+    Writes k_new/v_new into the caches at ``kv_len`` in place, once per kv
+    head, and returns out [B, Dm], or without ``wo_t`` the attention vector
+    [B, Hq·D] in the operands' dtype (the JAX decoder's unfused step). A
+    row whose cache is full (``kv_len`` ≥ S) raises IndexError in the plain
+    version; the kernel, which does not read ``kv_len`` on the host, leaves
+    the caches alone and returns NaN for that row (``decoder.forward``
+    refuses a full cache beforehand).
 
     All B rows run in one launch, each at its own length: the port's
     counterpart of the TPU kernel's ``batched=True`` mode as well as of its
-    per-row mode (see the module docstring).
+    per-row mode (see the module docstring). With the fused wo B is at most
+    8; without it, any B.
 
     CUDA tensors launch ``csrc/decode_attention.cu`` (split-KV scores and
-    partial softmax, combine, output GEMV); CPU tensors run
-    ``decode_attention_ref``."""
-    b, h, d = _unpack(packed_qkv)
-    dm = wo_t.shape[0]
-    if b > MAX_ROWS:
-        raise ValueError(f"decode_attention takes at most {MAX_ROWS} rows, got {b}")
-    if k_cache.shape != v_cache.shape or k_cache.dim() != 4 or tuple(k_cache.shape[:2]) != (b, h) \
+    partial softmax over (chunk, kv head, row), combine, output GEMV); CPU
+    tensors run ``decode_attention_ref``."""
+    q, kn, vn = split_qkv(qkv)
+    b, hq, d = q.shape
+    hk = kn.shape[1]
+    with_wo = wo_t is not None
+    if with_wo and b > MAX_ROWS:
+        raise ValueError(f"decode_attention with the fused wo takes at most {MAX_ROWS} rows, got {b}")
+    if k_cache.shape != v_cache.shape or k_cache.dim() != 4 or tuple(k_cache.shape[:2]) != (b, hk) \
             or k_cache.shape[3] != d:
         raise ValueError(
-            f"caches {tuple(k_cache.shape)} do not fit packed_qkv {tuple(packed_qkv.shape)}"
+            f"caches {tuple(k_cache.shape)} do not fit q {tuple(q.shape)} and k_new {tuple(kn.shape)}"
         )
-    if tuple(wo_t.shape) != (dm, h * d):
-        raise ValueError(f"wo {tuple(wo_t.shape)} does not fit {h} heads of {d}")
+    dm = wo_t.shape[0] if with_wo else 0
+    if with_wo and tuple(wo_t.shape) != (dm, hq * d):
+        raise ValueError(f"wo {tuple(wo_t.shape)} does not fit {hq} heads of {d}")
     if residual is not None and tuple(residual.shape) != (b, dm):
         raise ValueError(f"residual shape {tuple(residual.shape)} != {(b, dm)}")
-    if not use_kernel(packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual):
+    if not use_kernel(q, kn, vn, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual):
         return decode_attention_ref(
-            packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual
+            (q, kn, vn), k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual
         )
-    dtype = packed_qkv.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode_attention: activations must be float32 or bfloat16, got {dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention kernel supports head_dim in {HEAD_DIMS}, got {d}")
-    for name, t in (("packed_qkv", packed_qkv), ("k_cache", k_cache), ("v_cache", v_cache)):
+    name = "decode_attention"
+    ops = _operand_args(name, (q, kn, vn), d)
+    dtype = q.dtype
+    for what, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {dtype}")
+            raise ValueError(f"{what} must be contiguous {dtype}")
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous():
         raise ValueError("kv_len must be a contiguous int32 [B] tensor")
     if residual is not None and (residual.dtype != dtype or not residual.is_contiguous()):
         raise ValueError("residual must be contiguous and of the activations' dtype")
-    _check_weight(wo_t, h * d, "decode_attention wo")
     s_max = k_cache.shape[2]
     n_chunks = -(-s_max // CHUNK)
-    dev = packed_qkv.device
-    part_m = torch.empty((b, h, n_chunks), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b, h, n_chunks), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=dev)
-    attn = torch.empty((b, h * d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, dm), dtype=dtype, device=dev)
-    scales = _vec_f32(wo_scales, dm, "wo scales")
-    bias = _vec_f32(wo_bias, dm, "wo bias")
+    dev = q.device
+    part_m = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, hq, n_chunks, d), dtype=torch.float32, device=dev)
+    attn = scales = bias = None
+    if with_wo:
+        _check_weight(wo_t, hq * d, "decode_attention wo")
+        attn = torch.empty((b, hq * d), dtype=torch.float32, device=dev)
+        out = torch.empty((b, dm), dtype=dtype, device=dev)
+        scales = _vec_f32(wo_scales, dm, "wo scales")
+        bias = _vec_f32(wo_bias, dm, "wo bias")
+    else:
+        out = torch.empty((b, hq * d), dtype=dtype, device=dev)
     rc = _build.library().rt_decode_attention(
-        packed_qkv.data_ptr(), int(dtype == torch.bfloat16), b, h, d,
+        *ops, int(dtype == torch.bfloat16), b, hq, hk, d,
         k_cache.data_ptr(), v_cache.data_ptr(), s_max, kv_len.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), attn.data_ptr(), n_chunks,
-        wo_t.data_ptr(), scales.data_ptr(), _ptr(bias), dm,
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), _ptr(attn), n_chunks,
+        _ptr(wo_t), _ptr(scales), _ptr(bias), dm,
         _ptr(residual), out.data_ptr(),
         1.0 / math.sqrt(d),
-        _stream(packed_qkv),
+        _stream(q),
     )
-    _build.check(rc, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
+    _build.check(rc, name)
+    LAUNCHES[mode_name(name, hq, hk, with_wo)] += 1
     return out
 
 
@@ -231,7 +297,7 @@ def decode_block_ref(
     PLAIN["decode_block"] += 1
     dtype = packed_qkv.dtype
     bf16 = dtype == torch.bfloat16
-    attn = _append_attend(packed_qkv, k_cache, v_cache, kv_len)
+    attn = _append_attend(split_qkv(packed_qkv), k_cache, v_cache, kv_len)
     hidden = _project_wo(attn, wo_t, wo_scales, wo_bias, residual)  # f32, not rounded
     w_up_t, up_scales, w_down_t, down_scales, b_up, b_down, ln2_scale, ln2_bias = mlp
     xn = _norm_rows_f32(hidden, norm, norm_eps, ln2_scale, ln2_bias)
@@ -395,14 +461,13 @@ def dequantize_kv(codes, scales, dtype):
     return (codes.float() * scales[..., None].float()).to(dtype)
 
 
-def decode_attention_int8_ref(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
+def decode_attention_int8_ref(qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
     """Plain version of ``decode_attention_int8`` (same signature, result and
     in-place cache update). Reads ``kv_len`` on the host."""
-    PLAIN["decode_attention_int8"] += 1
-    b, h, d = _unpack(packed_qkv)
+    q, kn, vn = split_qkv(qkv)
+    PLAIN[mode_name("decode_attention_int8", q.shape[1], kn.shape[1])] += 1
     s_max = k_cache.shape[2]
-    q = packed_qkv[:, 0, :, 0]
-    (knq, kns), (vnq, vns) = quantize_kv(packed_qkv[:, 1, :, 0]), quantize_kv(packed_qkv[:, 2, :, 0])
+    (knq, kns), (vnq, vns) = quantize_kv(kn), quantize_kv(vn)
     rows = []
     for bi, length in enumerate(kv_len.tolist()):
         if not 0 <= length < s_max:
@@ -412,90 +477,91 @@ def decode_attention_int8_ref(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv
         n = length + 1
         keys = dequantize_kv(k_cache[bi, :, :n], k_scale[bi, :, :n], torch.float32)
         vals = dequantize_kv(v_cache[bi, :, :n], v_scale[bi, :, :n], torch.float32)
-        rows.append(attend_ref(q[bi], keys, vals, 1.0 / math.sqrt(d)))
-    return torch.stack(rows).to(packed_qkv.dtype)
+        rows.append(attend_ref(q[bi], keys, vals, 1.0 / math.sqrt(q.shape[-1])))
+    return torch.stack(rows).to(q.dtype)
 
 
-def check_kv_operands(name, packed_qkv, payload, scales, heads_axis: int):
-    """Shared wrapper checks of the KV kernels (kv_attention.cuh): packed
-    qkv [B, 3, H, 1, D] of f32 or bf16, a payload with H at ``heads_axis``
-    and D last, and (int8) f32 scales of the payload's shape without D."""
-    b, h, d = _unpack(packed_qkv)
+def check_kv_operands(name, qkv, payload, scales, heads_axis: int):
+    """Shared wrapper checks of the KV kernels (kv_attention.cuh): the
+    operands of ``split_qkv``, a payload with Hk at ``heads_axis`` and D
+    last, and (int8) f32 scales of the payload's shape without D. Returns
+    the operands (q, k_new, v_new)."""
+    q, kn, vn = ops = split_qkv(qkv)
     k, v = payload
-    if k.shape != v.shape or k.dim() != 4 or k.shape[heads_axis] != h or k.shape[3] != d:
-        raise ValueError(f"{name}: KV {tuple(k.shape)} does not fit packed_qkv {tuple(packed_qkv.shape)}")
+    if k.shape != v.shape or k.dim() != 4 or k.shape[heads_axis] != kn.shape[1] or k.shape[3] != q.shape[2]:
+        raise ValueError(f"{name}: KV {tuple(k.shape)} does not fit q {tuple(q.shape)} and k_new {tuple(kn.shape)}")
     if scales is not None:
         for s in scales:
             if tuple(s.shape) != tuple(k.shape[:3]):
                 raise ValueError(f"{name}: scales {tuple(s.shape)} must be {tuple(k.shape[:3])}")
-    return b, h, d
+    return ops
 
 
-def launch_kv_attention(name, entry, packed_qkv, tensors, kv_len, cap: int, scalars):
+def launch_kv_attention(name, entry, ops, tensors, kv_len, cap: int, scalars):
     """Launch one of the KV kernels (kv_attention.cuh) on CUDA tensors:
-    ``tensors`` are (payload k, v, [scales k, v]) whose dtypes are checked,
-    ``scalars`` the entry's arguments between the scales and ``kv_len``.
-    Returns the attention vector [B, H·D] in packed_qkv's dtype."""
-    b, _three, h, _one, d = packed_qkv.shape
-    dtype = packed_qkv.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: activations must be float32 or bfloat16, got {dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    ``ops`` (q, k_new, v_new) as ``split_qkv`` gives them, ``tensors`` the
+    (payload k, v, [scales k, v]) whose dtypes are checked, ``scalars`` the
+    entry's arguments between the scales and ``kv_len``. Returns the
+    attention vector [B, Hq·D] in the operands' dtype."""
+    q, kn, _vn = ops
+    b, hq, d = q.shape
+    hk = kn.shape[1]
+    args = _operand_args(name, ops, d)
+    dtype = q.dtype
     int8 = len(tensors) == 4
     for i, t in enumerate(tensors):
         want = (torch.int8 if i < 2 else torch.float32) if int8 else dtype
         if t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name}: cache operand {i} must be contiguous {want}, got {t.dtype}")
-    if not packed_qkv.is_contiguous():
-        raise ValueError(f"{name}: packed_qkv must be contiguous")
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous():
         raise ValueError(f"{name}: kv_len must be a contiguous int32 [B] tensor")
     n_chunks = -(-cap // CHUNK)
-    dev = packed_qkv.device
-    part_m = torch.empty((b, h, n_chunks), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b, h, n_chunks), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, h * d), dtype=dtype, device=dev)
+    dev = q.device
+    part_m = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, hq, n_chunks, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hq * d), dtype=dtype, device=dev)
     rc = getattr(_build.library(), entry)(
-        packed_qkv.data_ptr(), int(dtype == torch.bfloat16), b, h, d,
+        *args, int(dtype == torch.bfloat16), b, hq, hk, d,
         *(t.data_ptr() for t in tensors), *scalars, kv_len.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), n_chunks,
-        out.data_ptr(), 1.0 / math.sqrt(d), _stream(packed_qkv),
+        out.data_ptr(), 1.0 / math.sqrt(d), _stream(q),
     )
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[mode_name(name, hq, hk)] += 1
     return out
 
 
-def decode_attention_int8(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
+def decode_attention_int8(qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
     """Decode attention over an int8 KV cache:
 
         attn = softmax(q·kᵀ/sqrt(D))·v  over the valid prefix and the new token
 
-    packed_qkv: [B, 3, H, 1, D] (q | k_new | v_new, MHA) in f32 or bf16;
-    k_cache, v_cache: int8 [B, H, S, D]; k_scale, v_scale: f32 [B, H, S],
-    one scale per (token, head); kv_len: int32 [B], the valid length before
-    this token. The new token is quantized per head (``quantize_kv``) and
-    written with its scales at ``kv_len`` in place; its score and value use
-    the dequantized codes. The cache is dequantized in f32. Returns the
-    attention vector [B, H·D] in packed_qkv's dtype (the output projection
-    is the caller's, as on the TPU path). A full row (``kv_len`` ≥ S) raises
-    IndexError in the plain version; the kernel writes nothing and returns
-    NaN for it.
+    qkv: the packed MHA ``[B, 3, H, 1, D]`` or the tuple ``(q [B, Hq, D],
+    k_new [B, Hk, D], v_new [B, Hk, D])`` (``split_qkv``) in f32 or bf16;
+    k_cache, v_cache: int8 [B, Hk, S, D]; k_scale, v_scale: f32 [B, Hk, S],
+    one scale per (token, kv head); kv_len: int32 [B], the valid length
+    before this token. The new token is quantized per kv head
+    (``quantize_kv``) and written with its scales at ``kv_len`` in place;
+    its score and value use the dequantized codes. The cache is dequantized
+    in f32. Returns the attention vector [B, Hq·D] in the operands' dtype
+    (the output projection is the caller's, as on the TPU path). A full row
+    (``kv_len`` ≥ S) raises IndexError in the plain version; the kernel
+    writes nothing and returns NaN for it.
 
     Counterpart of ``rten_tpu/kernels/decode_attention.py``
     ``decode_attention_int8`` (:1667) in its per-row mode and its
     ``batched=True`` mode, both the one launch over all B rows (see the
-    module docstring). Its scale layout
-    ``[B, H, 8, S·D/128]`` exists for Mosaic; here the scales are logical
-    ``[B, H, S]``. CUDA tensors launch ``csrc/decode_attention_int8.cu``;
+    module docstring), MHA and GQA. Its scale layout
+    ``[B, Hk, 8, S·D/128]`` exists for Mosaic; here the scales are logical
+    ``[B, Hk, S]``. CUDA tensors launch ``csrc/decode_attention_int8.cu``;
     CPU tensors run ``decode_attention_int8_ref``."""
-    check_kv_operands("decode_attention_int8", packed_qkv, (k_cache, v_cache), (k_scale, v_scale), 1)
-    if k_cache.shape[0] != packed_qkv.shape[0]:
-        raise ValueError(f"decode_attention_int8: cache batch {k_cache.shape[0]} != {packed_qkv.shape[0]}")
-    if not use_kernel(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len):
-        return decode_attention_int8_ref(packed_qkv, k_cache, v_cache, k_scale, v_scale, kv_len)
+    name = "decode_attention_int8"
+    ops = check_kv_operands(name, qkv, (k_cache, v_cache), (k_scale, v_scale), 1)
+    if k_cache.shape[0] != ops[0].shape[0]:
+        raise ValueError(f"{name}: cache batch {k_cache.shape[0]} != {ops[0].shape[0]}")
+    if not use_kernel(*ops, k_cache, v_cache, k_scale, v_scale, kv_len):
+        return decode_attention_int8_ref(ops, k_cache, v_cache, k_scale, v_scale, kv_len)
     s_max = k_cache.shape[2]
-    return launch_kv_attention("decode_attention_int8", "rt_decode_attention_int8", packed_qkv,
+    return launch_kv_attention(name, "rt_decode_attention_int8", ops,
                                (k_cache, v_cache, k_scale, v_scale), kv_len, s_max, (s_max,))

@@ -1,46 +1,67 @@
-"""GPT-2-class decoder on PyTorch and CUDA: INT8 prefill and greedy decode
-over a preallocated KV cache, weight-only or (``cfg.w8a8``) W8A8.
+"""GPT-2-class and Llama/Qwen2-class decoders on PyTorch and CUDA: INT8
+prefill and greedy decode over a preallocated KV cache, weight-only or
+(``cfg.w8a8``) W8A8.
 
 Counterpart of ``rten_tpu/models/decoder.py`` ``forward`` (:584): a forward
 takes T ≥ 1 tokens per row, with a cache (appended at its length) or
-without (a plain full-sequence forward). As on the TPU path, the number of
-rows B·T picks the structure:
+without (a plain full-sequence forward). The config switches cover GPT-2
+(learned positions, LayerNorm, GELU), OPT (learned positions at an offset
+of 2, ReLU) and Llama / Qwen2 (RoPE, RMSNorm, SwiGLU, grouped-query
+attention with ``n_kv_heads``, an untied lm_head, Qwen2's q/k/v biases).
+As on the TPU path, the number of rows B·T picks the structure:
 
 - **B·T ≤ 8: the fused decode structure.** Layer 0's qkv is
-  ``quant_gemv_int8`` with ln1 fused in; each layer's MLP is
-  ``quant_mlp_int8`` (ln2, up, GELU, down, residual), which in every layer
-  but the last also computes the next layer's ln1 and qkv. Attention at
-  T = 1 with a cache is ``decode_attention`` on the packed q|k|v, with the
-  in-place cache append and the fused int8 wo + bias + residual; at T > 1
-  (or without a cache) it is ``flash_attention`` over the cache, then wo
-  through ``quant_gemv_int8`` with the residual fused.
+  ``quant_gemv_int8`` with ln1 fused in. A GELU/ReLU layer's MLP is
+  ``quant_mlp_int8`` (ln2, up, activation, down, residual) when its int8
+  weights fit the JAX package's whole-MLP budget (``mlp_fused_supported``),
+  and then also computes the next layer's ln1 and qkv when those fit too;
+  past the budget it is the up GEMV (ln2 and the activation fused), then
+  the down GEMV with the residual. A SwiGLU layer's MLP is the ``w_gu``
+  GEMV (or ``w_gate`` and ``w_up``) with ln2 fused, ``silu(gate) · up``,
+  then the down GEMV with the residual. Attention at T = 1 with a
+  bf16/f32 cache is ``decode_attention`` with the in-place cache append and
+  the fused int8 wo + bias + residual; at T > 1 (or without a cache) it is
+  ``flash_attention`` over the cache, then wo through ``quant_gemv_int8``
+  with the residual fused.
 - **B·T > 8: the prefill structure.** Plain-PyTorch norms (``_norm``),
-  ``quant_matmul_int8`` for qkv, wo, up (GELU in its epilogue) and down,
-  the residual adds outside, and causal ``flash_attention`` over the cache.
+  ``quant_matmul_int8`` for qkv, wo, up (GELU in its epilogue) and down
+  (or gate|up and down), the residual adds outside, and causal
+  ``flash_attention`` over the cache; one token a row on a bf16/f32 cache
+  (T = 1, B > 8) takes ``decode_attention`` without its wo instead, then wo
+  through the prefill projection, as the JAX package does.
+
+RoPE rotates q and k (rotate-half, in f32, rounded to the model dtype)
+after the qkv projection and before any cache append, at each row's own
+positions; q, k_new and v_new then reach the attention kernels as separate
+operands (``decode_attention``'s unpacked mode), as they do for
+grouped-query attention.
 
 The KV cache is bf16/f32 or, with ``cfg.int8_kv``, int8 with one f32
-scale per (token, head); each row holds its own length. One token per row
-on an int8 cache runs ``decode_attention_int8``, on a paged pool's state
-(``serve.paged``) ``paged_decode_attention(_int8)``, each then wo through
-``quant_gemv_int8`` with the residual; more tokens on an int8 cache take
-the eager branch (quantize, write, attend over the prefix dequantized to
-the model dtype).
+scale per (token, kv head); each row holds its own length. One token per
+row on an int8 cache runs ``decode_attention_int8``, on a paged pool's
+state (``serve.paged``) ``paged_decode_attention(_int8)``, each then wo
+through ``quant_gemv_int8`` with the residual; more tokens on an int8 cache
+take the eager branch (quantize, write, attend over the prefix dequantized
+to the model dtype).
 
 **The whole-block decode** (``cfg.mega``; the JAX package's
 ``RTEN_DECODE_FUSE=mega``): one token at batch 1 on a bf16/f32 cache runs
 each layer as one ``decode_block`` kernel (attention, wo, ln2, up,
 activation, down, and the next layer's ln1 + qkv), on the layers the JAX
 package takes its mega kernel on (``mega_block_supported``, the same weight
-shapes and activations gelu, relu or silu); every other forward is
-unchanged. Its numbers differ from the two-kernel step where the JAX
-package's do: the block's hidden state after wo stays f32. Under W8A8 the
-block stays weight-only (the TPU kernel has no W8A8 mode), while layer 0's
-qkv and the lm_head run W8A8.
+shapes and activations gelu, relu or silu; never SwiGLU); every other
+forward is unchanged. Its numbers differ from the two-kernel step where the
+JAX package's do: the block's hidden state after wo stays f32. Under W8A8
+the block stays weight-only (the TPU kernel has no W8A8 mode), while layer
+0's qkv and the lm_head run W8A8. ``decode_block`` takes MHA without RoPE
+only: a GQA or RoPE config with ``mega`` on a layer the JAX package would
+fuse is refused.
 
-The lm_head is ``quant_gemv_int8`` with the final norm fused in, returning
-the greedy token (fused argmax) or f32 logits, for up to 8 rows, and the
-final norm plus ``quant_matmul_int8`` (f32 out) for more. ``prefill`` is
-one forward; with ``last_only`` its lm_head runs on the last position only.
+The lm_head (the untied ``lm_head`` or the tied ``lm_head_q``) is
+``quant_gemv_int8`` with the final norm fused in, returning the greedy
+token (fused argmax) or f32 logits, for up to 8 rows, and the final norm
+plus ``quant_matmul_int8`` (f32 out) for more. ``prefill`` is one forward;
+with ``last_only`` its lm_head runs on the last position only.
 
 **W8A8** (``cfg.w8a8``; the JAX package's ``RTEN_W_CONVERT=w8a8``, read
 there once at import): activations are quantized per row to int8 before
@@ -57,10 +78,12 @@ JAX package runs it on every row.
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
 already quantized tree) gives the decode layout: int8 packs
-``{"qt": int8 [N, K], "s": f32 [N]}`` (``kernels.quant_matmul.int8_pack``),
-the fused ``wqkv``/``bqkv``, the tied ``lm_head_q``, and every per-channel
-vector as f32 ``[N]``. The KV cache is logical ``[B, H, S, D]`` per layer
-(scales ``[B, H, S]``) and is updated in place.
+``{"qt": int8 [N, K], "s": f32 [N]}`` (``kernels.quant_matmul.int8_pack``,
+K and N zero-padded as the JAX package pads them), the fused
+``wqkv``/``bqkv`` and (SwiGLU) ``w_gu``, the untied ``lm_head`` or the tied
+``lm_head_q``, and every per-channel vector as f32 ``[N]``. The KV cache is
+logical ``[B, Hk, S, D]`` per layer (scales ``[B, Hk, S]``) and is updated
+in place.
 
 Entry points default to ``device="cuda"`` and raise on a machine without
 CUDA; ``device="cpu"`` runs the kernels' plain versions.
@@ -98,29 +121,38 @@ from rten_tpu_torch.kernels.quant_matmul import (
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """The fields of the JAX package's ``DecoderConfig`` that the ported
-    path runs: MHA with learned positions, and ``int8_kv`` (``init_cache``
-    makes an int8 cache with per-(token, head) f32 scales). ``w8a8``
-    selects the W8A8 mode, which the JAX package takes from
-    ``RTEN_W_CONVERT=w8a8`` (default off, as its ``"direct"``); ``mega``
-    the whole-block decode kernel, which it takes from
-    ``RTEN_DECODE_FUSE=mega`` (default off, as its ``"1"``). RoPE,
-    grouped-query attention, SwiGLU, position offsets and untied lm_heads
-    come with later slices."""
+    """The JAX package's ``DecoderConfig`` (``rten_tpu/models/decoder.py:81``)
+    with the port's own switches after it: ``int8_kv`` (``init_cache``
+    makes an int8 cache with per-(token, kv head) f32 scales), ``w8a8``, the
+    W8A8 mode, which the JAX package takes from ``RTEN_W_CONVERT=w8a8``
+    (default off, as its ``"direct"``), and ``mega``, the whole-block decode
+    kernel, which it takes from ``RTEN_DECODE_FUSE=mega`` (default off, as
+    its ``"1"``). ``tie_embeddings`` only tells ``init_params`` whether to
+    make an ``lm_head``: a forward uses the params' ``lm_head`` where they
+    have one."""
 
     vocab_size: int = 50257
     n_layers: int = 12
     n_heads: int = 12
+    n_kv_heads: int | None = None  # None → MHA (= n_heads)
     d_model: int = 768
     d_ff: int = 3072
     max_seq: int = 1024
+    pos_encoding: str = "learned"  # "learned" | "rope"
+    pos_offset: int = 0  # learned-position table offset (OPT reserves 2 rows)
     norm: str = "layernorm"  # "layernorm" | "rmsnorm"
-    activation: str = "gelu"  # "gelu" | "relu" | "silu"
+    activation: str = "gelu"  # "gelu" | "relu" | "silu" | "swiglu"
+    rope_theta: float = 10000.0
     layer_norm_eps: float = 1e-5
+    tie_embeddings: bool = True
     int8_kv: bool = False
     w8a8: bool = False
     mega: bool = False
     dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
 
     @property
     def head_dim(self) -> int:
@@ -128,29 +160,49 @@ class DecoderConfig:
 
 
 GPT2_SMALL = DecoderConfig()
+LLAMA_TINY = DecoderConfig(  # a copy of the JAX package's (decoder.py:109)
+    vocab_size=32000, n_layers=4, n_heads=8, n_kv_heads=4, d_model=512, d_ff=1376, max_seq=2048,
+    pos_encoding="rope", norm="rmsnorm", activation="swiglu", tie_embeddings=False,
+)
 
 _QUANT_MIN_SIZE = 1 << 16  # a matrix is quantized at ≥ 2^16 elements (as in the JAX package)
 _TILE_BN = 1024  # the JAX package's default tiled-GEMV stripe width (RTEN_TILE_GEMV)
 _MLP_FUSED_BYTES = 8 << 20  # its whole-MLP kernel's weight budget (quant_matmul.py MLP_FUSED_VMEM_LIMIT)
 _EMBEDDINGS = ("tok_emb", "pos_emb")
-_MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_down", "wqkv", "lm_head_q")
+_MATRICES = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate", "wqkv", "w_gu", "lm_head", "lm_head_q")
+
+
+def mlp_fused_supported(d: int, ff: int, n_qkv: int = 0) -> bool:
+    """Whether the JAX package runs a layer's whole MLP (and, with
+    ``n_qkv``, the next layer's qkv too) as its one MLP kernel: a copy of
+    ``rten_tpu/kernels/quant_matmul.py:925``, its int8 weights within
+    ``_MLP_FUSED_BYTES``, so that the port routes every decode MLP as the
+    JAX package does (``quant_mlp_int8`` itself has no such limit)."""
+    return d * ff * 2 + d * n_qkv <= _MLP_FUSED_BYTES
 
 
 def _check_supported(cfg: DecoderConfig) -> None:
-    """The ported path: GPT-2-class blocks with a kernel
-    epilogue activation and lane-aligned widths (no K padding of the int8
-    packs)."""
+    """The ported path: GPT-2, OPT and Llama/Qwen2-class blocks with a
+    kernel epilogue activation or SwiGLU, d_model a multiple of 128 (the K
+    of every projection but the down one), whole groups of query heads."""
     problems = []
-    if cfg.activation not in ("gelu", "relu", "silu"):
+    if cfg.activation not in ("gelu", "relu", "silu", "swiglu"):
         problems.append(f"activation={cfg.activation!r}")
     if cfg.norm not in ("layernorm", "rmsnorm"):
         problems.append(f"norm={cfg.norm!r}")
-    if cfg.d_model % 128 or cfg.d_ff % 128:
-        problems.append("d_model or d_ff not a multiple of 128")
+    if cfg.pos_encoding not in ("learned", "rope"):
+        problems.append(f"pos_encoding={cfg.pos_encoding!r}")
+    if cfg.d_model % 128:
+        problems.append("d_model not a multiple of 128")
+    if cfg.n_heads % cfg.kv_heads:
+        problems.append(f"n_heads {cfg.n_heads} not a multiple of n_kv_heads {cfg.kv_heads}")
     if problems:
+        raise NotImplementedError("rten_tpu_torch's decoder does not run this config; unsupported: "
+                                  + ", ".join(problems))
+    if cfg.mega and cfg.activation != "swiglu" and (cfg.kv_heads != cfg.n_heads or cfg.pos_encoding == "rope"):
         raise NotImplementedError(
-            "rten_tpu_torch's decoder runs GPT-2-class models only so far; "
-            "unsupported: " + ", ".join(problems)
+            "mega: decode_block takes MHA without RoPE; the JAX package's whole-block kernel with "
+            "grouped-query heads or RoPE is not ported"
         )
 
 
@@ -160,9 +212,12 @@ def _check_supported(cfg: DecoderConfig) -> None:
 
 
 def init_params(seed: int, cfg: DecoderConfig, device="cuda") -> dict:
-    """Random dense params of a GPT-2-class config from a numpy seed (normal
-    0.02 weights, zero biases, unit norm scales), in ``cfg.dtype`` on
-    ``device``."""
+    """Random dense params from a numpy seed (normal 0.02 weights, zero
+    biases, unit norm scales), in ``cfg.dtype`` on ``device``, in the JAX
+    package's branches (``rten_tpu/models/decoder.py:129``): no ``pos_emb``
+    under RoPE, an ``lm_head`` when untied, ``w_gate`` / ``w_up`` /
+    ``w_down`` without biases for SwiGLU (and then no attention biases),
+    ``wk`` / ``wv`` of width ``kv_heads·head_dim``."""
     dev = resolve_device(device)
     _check_supported(cfg)
     rng = np.random.default_rng(seed)
@@ -180,20 +235,22 @@ def init_params(seed: int, cfg: DecoderConfig, device="cuda") -> dict:
             p["bias"] = zeros(cfg.d_model)
         return p
 
-    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
-    params: dict = {
-        "tok_emb": dense((cfg.vocab_size, d)),
-        "pos_emb": dense((cfg.max_seq, d)),
-        "final_norm": norm_params(),
-        "layers": [],
-    }
+    d, ff = cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    params: dict = {"tok_emb": dense((cfg.vocab_size, d)), "final_norm": norm_params(), "layers": []}
+    if cfg.pos_encoding == "learned":
+        params["pos_emb"] = dense((cfg.max_seq, d))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab_size))
     for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "ln1": norm_params(), "ln2": norm_params(),
-            "wq": dense((d, hd)), "wk": dense((d, hd)), "wv": dense((d, hd)), "wo": dense((hd, d)),
-            "bq": zeros(hd), "bk": zeros(hd), "bv": zeros(hd), "bo": zeros(d),
-            "w_up": dense((d, ff)), "b_up": zeros(ff), "w_down": dense((ff, d)), "b_down": zeros(d),
-        })
+        layer = {"ln1": norm_params(), "ln2": norm_params(),
+                 "wq": dense((d, hq)), "wk": dense((d, hkv)), "wv": dense((d, hkv)), "wo": dense((hq, d))}
+        if cfg.activation == "swiglu":
+            layer.update(w_gate=dense((d, ff)), w_up=dense((d, ff)), w_down=dense((ff, d)))
+        else:
+            layer.update(w_up=dense((d, ff)), b_up=zeros(ff), w_down=dense((ff, d)), b_down=zeros(d),
+                         bq=zeros(hq), bk=zeros(hkv), bv=zeros(hkv), bo=zeros(d))
+        params["layers"].append(layer)
     return params
 
 
@@ -215,40 +272,46 @@ def _pick_block(dim: int, preferred: int) -> int:
     return preferred
 
 
+def _is_pack(node) -> bool:
+    return isinstance(node, dict) and "qt" in node
+
+
 def _mark_tiled(params: dict, tile_bn: int) -> None:
     """Set ``pack["tiled"]`` where the JAX package's ``quantize_params_int8``
     stores the pack as ``[S, K, bn]`` stripes at ``tile_bn``
     (``_tile_gemv_packs``, ``rten_tpu/models/decoder.py:339-414``): the
-    lm_head when wider than ``tile_bn``; ``w_up`` and ``w_down`` only when
-    its whole-MLP kernel cannot hold them; layer 0's ``wqkv``, and a later
-    layer's when it cannot ride the previous layer's MLP kernel; ``wo``
-    never. Layer packs tile only where a divisor width splits them. At
-    GPT-2-small's widths and 1024 that is the lm_head and layer 0's wqkv."""
+    lm_head (untied or tied) when wider than ``tile_bn``; SwiGLU's ``w_gu``,
+    ``w_gate`` and ``w_up`` always, its ``w_down`` never; a GELU/ReLU
+    layer's ``w_up`` and ``w_down`` only when its whole-MLP kernel cannot
+    hold them (``mlp_fused_supported``); layer 0's ``wqkv``, a SwiGLU
+    layer's, and a later layer's when it cannot ride the previous layer's
+    MLP kernel; ``wo`` never. Layer packs tile only where a divisor width
+    splits them. At GPT-2-small's widths and 1024 that is the lm_head and
+    layer 0's wqkv."""
 
     def kn(pack):
         return pack["qt"].shape[1], pack["qt"].shape[0]
 
-    def splits(pack):
+    def mark(pack):
         n = kn(pack)[1]
         bn = _pick_block(n, tile_bn)
-        return bn < n and n % bn == 0
+        pack["tiled"] = bn < n and n % bn == 0
 
-    def mlp_fits(d, ff, n_qkv=0):
-        return d * ff * 2 + d * n_qkv <= _MLP_FUSED_BYTES
-
-    def is_pack(node):
-        return isinstance(node, dict) and "qt" in node
-
-    if is_pack(params["lm_head_q"]):
-        params["lm_head_q"]["tiled"] = kn(params["lm_head_q"])[1] > tile_bn
+    head = params.get("lm_head_q", params.get("lm_head"))
+    if _is_pack(head):
+        head["tiled"] = kn(head)[1] > tile_bn
     for li, layer in enumerate(params["layers"]):
+        swiglu = "w_gu" in layer or "w_gate" in layer
         wu, wd, wqkv = layer.get("w_up"), layer.get("w_down"), layer.get("wqkv")
-        mlp = is_pack(wu) and is_pack(wd)
-        if mlp and not mlp_fits(*kn(wu)):
-            for pack in (wu, wd):
-                pack["tiled"] = splits(pack)
-        if is_pack(wqkv) and not (li > 0 and mlp and mlp_fits(*kn(wu), kn(wqkv)[1])):
-            wqkv["tiled"] = splits(wqkv)
+        for key in ("w_gu", "w_gate", "w_up") if swiglu else ():
+            if _is_pack(layer.get(key)):
+                mark(layer[key])
+        mlp = not swiglu and _is_pack(wu) and _is_pack(wd)
+        if mlp and not mlp_fused_supported(*kn(wu)):
+            mark(wu)
+            mark(wd)
+        if _is_pack(wqkv) and not (li > 0 and mlp and mlp_fused_supported(*kn(wu), kn(wqkv)[1])):
+            mark(wqkv)
 
 
 def quantize_params_int8(params: dict, device="cuda") -> dict:
@@ -257,11 +320,12 @@ def quantize_params_int8(params: dict, device="cuda") -> dict:
     matrix of ≥ 2^16 elements is quantized per output channel after
     zero-padding K to a multiple of 128 and N to a multiple of 1024 (N ≥
     8192) or 128; smaller matrices stay dense; q|k|v fuse into ``wqkv``
-    (and their biases into ``bqkv``) when their width is a multiple of 128;
-    tied embeddings get their own ``lm_head_q``. Embeddings stay dense in
-    their dtype; every vector becomes f32 ``[N]``. The packs the JAX
-    package would tile at its default width (``_TILE_BN``) are marked
-    ``tiled`` (``_mark_tiled``); the port's layout is the same."""
+    (and their biases into ``bqkv``) when their width is a multiple of 128,
+    SwiGLU's gate|up into ``w_gu`` when 2·d_ff is; an untied ``lm_head`` is
+    quantized in place, tied embeddings get their own ``lm_head_q``.
+    Embeddings stay dense in their dtype; every vector becomes f32 ``[N]``.
+    The packs the JAX package would tile at its default width (``_TILE_BN``)
+    are marked ``tiled`` (``_mark_tiled``); the port's layout is the same."""
     dev = resolve_device(device)
     dtype = params["tok_emb"].dtype
 
@@ -288,23 +352,26 @@ def quantize_params_int8(params: dict, device="cuda") -> dict:
             return matrix(_np_f32(node))
         return vector(node)
 
+    def concat(src, keys):
+        return np.concatenate([_np_f32(src[k]) for k in keys], 1)
+
     src_layers = params["layers"]
     out = walk({k: v for k, v in params.items() if k != "layers"})
     out["layers"] = []
     for src in src_layers:
-        layer = {}
-        widths = [src[k].shape[1] for k in ("wq", "wk", "wv")]
-        fuse = sum(widths) % 128 == 0
-        for k, v in src.items():
-            if fuse and k in ("wq", "wk", "wv", "bq", "bk", "bv"):
-                continue
-            layer[k] = walk(v, k)
-        if fuse:
-            layer["wqkv"] = matrix(np.concatenate([_np_f32(src[k]) for k in ("wq", "wk", "wv")], 1))
+        fuse_qkv = sum(src[k].shape[1] for k in ("wq", "wk", "wv")) % 128 == 0
+        fuse_gu = "w_gate" in src and (2 * src["w_gate"].shape[1]) % 128 == 0
+        skip = (("wq", "wk", "wv", "bq", "bk", "bv") if fuse_qkv else ()) + (("w_gate", "w_up") if fuse_gu else ())
+        layer = {k: walk(v, k) for k, v in src.items() if k not in skip}
+        if fuse_qkv:
+            layer["wqkv"] = matrix(concat(src, ("wq", "wk", "wv")))
             if "bq" in src:
                 layer["bqkv"] = torch.cat([vector(src[k]) for k in ("bq", "bk", "bv")])
+        if fuse_gu:
+            layer["w_gu"] = matrix(concat(src, ("w_gate", "w_up")))
         out["layers"].append(layer)
-    out["lm_head_q"] = matrix(_np_f32(params["tok_emb"]).T.copy())
+    if "lm_head" not in params:
+        out["lm_head_q"] = matrix(_np_f32(params["tok_emb"]).T.copy())
     _mark_tiled(out, _TILE_BN)
     return out
 
@@ -314,12 +381,11 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
     anything ``np.asarray`` takes). A dense tree gives dense port params in
     ``cfg.dtype``; a quantized tree (``rten_tpu`` ``quantize_params_int8``)
     gives the port's decode layout directly: row-major ``[K, N]`` and tiled
-    ``[S, K, bn]`` packs become ``int8_pack``s (a tiled one marked
+    ``[S, K, bn]`` packs (K-padded ones, the untied ``lm_head``, ``w_gu``
+    and ``w_gate`` among them) become ``int8_pack``s (a tiled one marked
     ``tiled``), the ``slabs`` duplicates are dropped, and ``[1, N]`` vectors
     become f32 ``[N]``."""
     dev = resolve_device(device)
-    if "lm_head" in tree:
-        raise NotImplementedError("an untied lm_head is not ported yet: the ported path ties it to tok_emb")
 
     def is_pack(node):
         return isinstance(node, dict) and set(node) == {"q", "s"}
@@ -351,17 +417,21 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
     return conv(tree)
 
 
+def _hf_getter(hf_state: dict, prefixes, dev, dtype):
+    def g(name):
+        for prefix in prefixes:
+            if prefix + name in hf_state:
+                return torch.from_numpy(_np_f32(hf_state[prefix + name]).copy()).to(dev, dtype)
+        raise KeyError(name)
+
+    return g
+
+
 def from_hf_gpt2(hf_state: dict, cfg: DecoderConfig, dtype=None, device="cuda") -> dict:
     """Dense port params from a HuggingFace ``GPT2LMHeadModel``/``GPT2Model``
     state dict (torch tensors or numpy arrays). GPT-2's Conv1D weights are
     already ``[in, out]``, so nothing is transposed."""
-    dev = resolve_device(device)
-    dtype = dtype or cfg.dtype
-
-    def g(name):
-        key = name if name in hf_state else "transformer." + name
-        return torch.from_numpy(_np_f32(hf_state[key]).copy()).to(dev, dtype)
-
+    g = _hf_getter(hf_state, ("", "transformer."), resolve_device(device), dtype or cfg.dtype)
     params: dict = {
         "tok_emb": g("wte.weight"),
         "pos_emb": g("wpe.weight"),
@@ -394,23 +464,97 @@ def from_hf_gpt2(hf_state: dict, cfg: DecoderConfig, dtype=None, device="cuda") 
     return params
 
 
+def from_hf_opt(hf_state: dict, cfg: DecoderConfig, dtype=None, device="cuda") -> dict:
+    """Dense port params from a HuggingFace ``OPTForCausalLM``/``OPTModel``
+    state dict: a copy of ``rten_tpu/models/decoder.py:1328`` (ReLU MLP,
+    learned positions at the OPT offset of 2 rows, ``cfg.pos_offset=2``,
+    the pre-norm layout; the ``project_in``/``project_out`` variants such as
+    opt-350m are refused). nn.Linear weights are ``[out, in]``, so they are
+    transposed."""
+    if any("project_in" in k for k in hf_state):
+        raise ValueError("OPT project_in/out variants (opt-350m) unsupported")
+    g = _hf_getter(hf_state, ("", "model.", "model.decoder.", "decoder."), resolve_device(device),
+                   dtype or cfg.dtype)
+
+    def t(name):
+        return g(name).t().contiguous()
+
+    params: dict = {
+        "tok_emb": g("embed_tokens.weight"),
+        "pos_emb": g("embed_positions.weight"),
+        "final_norm": {"scale": g("final_layer_norm.weight"), "bias": g("final_layer_norm.bias")},
+        "layers": [],
+    }
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        params["layers"].append(
+            {
+                "ln1": {"scale": g(p + "self_attn_layer_norm.weight"), "bias": g(p + "self_attn_layer_norm.bias")},
+                "ln2": {"scale": g(p + "final_layer_norm.weight"), "bias": g(p + "final_layer_norm.bias")},
+                "wq": t(p + "self_attn.q_proj.weight"), "bq": g(p + "self_attn.q_proj.bias"),
+                "wk": t(p + "self_attn.k_proj.weight"), "bk": g(p + "self_attn.k_proj.bias"),
+                "wv": t(p + "self_attn.v_proj.weight"), "bv": g(p + "self_attn.v_proj.bias"),
+                "wo": t(p + "self_attn.out_proj.weight"), "bo": g(p + "self_attn.out_proj.bias"),
+                "w_up": t(p + "fc1.weight"), "b_up": g(p + "fc1.bias"),
+                "w_down": t(p + "fc2.weight"), "b_down": g(p + "fc2.bias"),
+            }
+        )
+    return params
+
+
+def from_hf_llama(hf_state: dict, cfg: DecoderConfig, dtype=None, device="cuda") -> dict:
+    """Dense port params from a HuggingFace ``LlamaForCausalLM``/``LlamaModel``
+    (or Qwen2) state dict: a copy of ``rten_tpu/models/decoder.py:1384``
+    (RoPE, RMSNorm, SwiGLU, grouped-query attention). An ``lm_head`` is
+    always written: the checkpoint's, or a copy of the tied embedding;
+    Qwen2's q/k/v biases are kept where the checkpoint has them. nn.Linear
+    weights are ``[out, in]``, so they are transposed."""
+    g = _hf_getter(hf_state, ("", "model."), resolve_device(device), dtype or cfg.dtype)
+
+    def t(name):
+        return g(name).t().contiguous()
+
+    params: dict = {"tok_emb": g("embed_tokens.weight"), "final_norm": {"scale": g("norm.weight")}, "layers": []}
+    tied = not any(k.endswith("lm_head.weight") for k in hf_state)
+    params["lm_head"] = t("embed_tokens.weight" if tied else "lm_head.weight")
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        layer = {
+            "ln1": {"scale": g(p + "input_layernorm.weight")},
+            "ln2": {"scale": g(p + "post_attention_layernorm.weight")},
+            "wq": t(p + "self_attn.q_proj.weight"),
+            "wk": t(p + "self_attn.k_proj.weight"),
+            "wv": t(p + "self_attn.v_proj.weight"),
+            "wo": t(p + "self_attn.o_proj.weight"),
+            "w_gate": t(p + "mlp.gate_proj.weight"),
+            "w_up": t(p + "mlp.up_proj.weight"),
+            "w_down": t(p + "mlp.down_proj.weight"),
+        }
+        for ours, theirs in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+            name = p + f"self_attn.{theirs}.bias"
+            if name in hf_state or "model." + name in hf_state:
+                layer[ours] = g(name)
+        params["layers"].append(layer)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int | None = None, device="cuda") -> dict:
-    """Preallocated KV cache: per-layer k/v ``[B, H, S, D]`` in cfg.dtype
-    (with ``cfg.int8_kv``: int8 codes, and per-(token, head) f32 scales
-    ``k_scale``/``v_scale`` ``[B, H, S]``) and the valid length of each row,
-    int32 ``[B]``, on the device. ``host_len`` keeps on the host, for each
-    row, a length at least the device's (numpy int64 ``[B]``), so that
+    """Preallocated KV cache: per-layer k/v ``[B, Hk, S, D]`` in cfg.dtype
+    (with ``cfg.int8_kv``: int8 codes, and per-(token, kv head) f32 scales
+    ``k_scale``/``v_scale`` ``[B, Hk, S]``) and the valid length of each
+    row, int32 ``[B]``, on the device. ``host_len`` keeps on the host, for
+    each row, a length at least the device's (numpy int64 ``[B]``), so that
     ``forward`` refuses a full row without reading the device; a caller
     that pins a row's device length (the serving engine's inactive rows)
     pins it here too. ``forward`` writes each row's new k/v in place at its
     own length and advances both."""
     dev = resolve_device(device)
-    shape = (batch, cfg.n_heads, max_len or cfg.max_seq, cfg.head_dim)
+    shape = (batch, cfg.kv_heads, max_len or cfg.max_seq, cfg.head_dim)
     kv_dtype = torch.int8 if cfg.int8_kv else cfg.dtype
     cache = {
         "k": [torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in range(cfg.n_layers)],
@@ -444,7 +588,7 @@ def row_view(cache: dict, row: int) -> dict:
 
 def _pack(layer, key):
     pack = layer.get(key)
-    if not (isinstance(pack, dict) and "qt" in pack):
+    if not _is_pack(pack):
         raise ValueError(
             f"{key} is not an int8 pack: the decoder needs quantize_params_int8 "
             "(or params_from_jax of quantized params), with every projection ≥ 2^16 elements"
@@ -466,24 +610,75 @@ def _norm(x, p, cfg: DecoderConfig):
 
 
 def _proj(cfg: DecoderConfig, x, pack, bias=None, **kw):
-    """A projection of the prefill structure: ``quant_matmul_w8a8`` under
-    ``cfg.w8a8``, except for a pack the JAX package stores tiled (its
-    ``_proj`` keeps those on the weight-only kernel, ``decoder.py:526``);
-    else ``quant_matmul_int8``."""
+    """A projection of the prefill structure, the JAX package's ``_proj``
+    (``decoder.py:502``): x zero-padded to the pack's K, then
+    ``quant_matmul_w8a8`` under ``cfg.w8a8``, except for a pack the JAX
+    package stores tiled (its ``_proj`` keeps those on the weight-only
+    kernel, ``decoder.py:526``); else ``quant_matmul_int8``."""
+    k = pack["qt"].shape[1]
+    if x.shape[1] < k:
+        x = F.pad(x, (0, k - x.shape[1]))
     matmul = quant_matmul_w8a8 if cfg.w8a8 and not pack["tiled"] else quant_matmul_int8
     return matmul(x, pack["qt"], pack["s"], bias, **kw)
 
 
-def _attention(qkv, cfg: DecoderConfig, b: int, t: int, cache, li: int, q_offset, kv_len):
-    """Causal attention of the T new rows, ``qkv`` [B·T, 3·H·D] → [B·T,
-    H·D]. With a cache, each row's new k/v are written in place at its own
-    length (``q_offset``, on the device), and the queries attend to the
-    cache's valid prefix; without, to the T rows themselves. An int8 cache
-    takes the new rows quantized per (token, head), and the queries attend
-    to its prefix dequantized to the model dtype (the JAX package's eager
-    int8 branch, ``decoder.py:812-845``)."""
-    h, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = (part.transpose(1, 2) for part in qkv.view(b, t, 3, h, hd).unbind(2))
+def _residual_proj(cfg: DecoderConfig, src, pack, bias, residual, small: bool):
+    """``src @ W + bias + residual`` as the JAX package's ``_fproj`` runs it
+    (``decoder.py:632-671``): in the fused decode structure, when the pack's
+    K is ``src``'s width, one ``quant_gemv_int8`` with the residual fused;
+    otherwise (the prefill structure, or a K-padded pack) ``_proj``, its
+    output rounded to the model dtype, plus the residual in the model
+    dtype."""
+    if small and pack["qt"].shape[1] == src.shape[1]:
+        return quant_gemv_int8(src, pack["qt"], pack["s"], bias, residual=residual, w8a8=cfg.w8a8)
+    return _proj(cfg, src, pack, bias) + residual
+
+
+def _gemv_norm(cfg: DecoderConfig, x, pack, bias, norm_p, **kw):
+    """A decode-structure GEMV with the row norm ``norm_p`` fused in."""
+    return quant_gemv_int8(x, pack["qt"], pack["s"], bias, norm=cfg.norm, norm_scale=norm_p["scale"],
+                           norm_bias=norm_p.get("bias"), norm_eps=cfg.layer_norm_eps, w8a8=cfg.w8a8, **kw)
+
+
+def _rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin) f32 [B, T, 1, D/2] of the rotary embedding at positions
+    int [B, T], as the JAX package's ``_rope`` (``decoder.py:572``) computes
+    them; a forward computes them once for every layer's q and k."""
+    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim))
+    angles = positions[:, :, None, None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rope(x, tables):
+    """Rotary embeddings of x [B, T, H, D] (rotate-half in f32, rounded to
+    x.dtype: the JAX package's ``_rope``) with ``_rope_tables``' (cos, sin)."""
+    cos, sin = tables
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _split_heads(qkv, cfg: DecoderConfig, b: int, t: int, rope):
+    """q [B, T, H, D], k and v [B, T, Hk, D] of the projection ``qkv``
+    [B·T, (H + 2·Hk)·D] (views, or with RoPE, whose ``_rope_tables`` are
+    ``rope``, the rotated q and k)."""
+    h, hk, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = qkv[:, : h * hd].view(b, t, h, hd)
+    k = qkv[:, h * hd : (h + hk) * hd].view(b, t, hk, hd)
+    v = qkv[:, (h + hk) * hd : (h + 2 * hk) * hd].view(b, t, hk, hd)
+    if rope is not None:
+        q, k = _rope(q, rope), _rope(k, rope)
+    return q, k, v
+
+
+def _attention(q, k, v, cache, li: int, q_offset, kv_len):
+    """Causal attention of the T new rows, q [B, T, H, D], k and v [B, T,
+    Hk, D] → [B·T, H·D]. With a cache, each row's new k/v are written in
+    place at its own length (``q_offset``, on the device), and the queries
+    attend to the cache's valid prefix; without, to the T rows themselves.
+    An int8 cache takes the new rows quantized per (token, kv head), and the
+    queries attend to its prefix dequantized to the model dtype (the JAX
+    package's eager int8 branch, ``decoder.py:812-845``)."""
+    b, t, h, hd = q.shape
     if cache is not None:
         rows = torch.arange(b, device=q.device)[:, None]
         pos = q_offset.long()[:, None] + torch.arange(t, device=q.device)  # [B, T]
@@ -492,32 +687,33 @@ def _attention(qkv, cfg: DecoderConfig, b: int, t: int, cache, li: int, q_offset
             n = int(cache["host_len"].max()) + t  # no row's prefix reaches past it
             out = []
             for new, codes, scales in ((k, k_cache, cache["k_scale"][li]), (v, v_cache, cache["v_scale"][li])):
-                q8, s8 = quantize_kv(new)  # [B, H, T, D], [B, H, T]
-                codes[rows, :, pos] = q8.transpose(1, 2)
-                scales[rows, :, pos] = s8.transpose(1, 2)
+                q8, s8 = quantize_kv(new)  # [B, T, Hk, D], [B, T, Hk]
+                codes[rows, :, pos] = q8
+                scales[rows, :, pos] = s8
                 out.append(dequantize_kv(codes[:, :, :n], scales[:, :, :n], q.dtype))
             k, v = out
         else:
-            k_cache[rows, :, pos] = k.transpose(1, 2)
-            v_cache[rows, :, pos] = v.transpose(1, 2)
+            k_cache[rows, :, pos] = k
+            v_cache[rows, :, pos] = v
             k, v = k_cache, v_cache
-    attn = flash_attention(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len)
+    else:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    attn = flash_attention(q.transpose(1, 2), k, v, causal=True, q_offset=q_offset, kv_len=kv_len)
     return attn.transpose(1, 2).reshape(b * t, h * hd)
 
 
-def _kv_decode_attention(qkv, cfg: DecoderConfig, b: int, cache, li: int):
+def _kv_decode_attention(ops, cache, li: int):
     """One token per row against a paged or int8 cache: the attention
-    vector [B, H·D] (the output projection is the caller's GEMV, as in the
-    JAX package's ``_fproj`` after these kernels)."""
-    packed = qkv.view(b, 3, cfg.n_heads, 1, cfg.head_dim)
+    vector [B, H·D] (the output projection is the caller's, as in the JAX
+    package's ``_fproj`` after these kernels)."""
     if "k_pages" in cache:
         pages = (cache["k_pages"][li], cache["v_pages"][li])
         if "k_scale_pages" in cache:
-            return paged_decode_attention_int8(packed, *pages, cache["k_scale_pages"][li],
-                                               cache["v_scale_pages"][li], cache["page_table"], cache["len"])
-        return paged_decode_attention(packed, *pages, cache["page_table"], cache["len"])
-    return decode_attention_int8(packed, cache["k"][li], cache["v"][li], cache["k_scale"][li],
-                                 cache["v_scale"][li], cache["len"])
+            return paged_decode_attention_int8(ops, *pages, cache["k_scale_pages"][li], cache["v_scale_pages"][li],
+                                               cache["page_table"], cache["len"])
+        return paged_decode_attention(ops, *pages, cache["page_table"], cache["len"])
+    return decode_attention_int8(ops, cache["k"][li], cache["v"][li], cache["k_scale"][li], cache["v_scale"][li],
+                                 cache["len"])
 
 
 def _mega_layer(params: dict, cfg: DecoderConfig, li: int, cache: dict):
@@ -547,23 +743,73 @@ def _mega_layer(params: dict, cfg: DecoderConfig, li: int, cache: dict):
     return mlp, next_qkv
 
 
+def _mlp(params: dict, cfg: DecoderConfig, li: int, x, small: bool):
+    """The MLP half of layer ``li`` on the rows x (the block output after
+    attention): ``(x, next layer's qkv or None)``, routed as the JAX
+    package's ``forward`` routes it (``decoder.py:1026-1120``)."""
+    layers = params["layers"]
+    layer = layers[li]
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.activation == "swiglu":
+        if small:
+            if "w_gu" in layer:
+                gu = _gemv_norm(cfg, x, _pack(layer, "w_gu"), None, layer["ln2"])[:, : 2 * ff]
+                gate, up = gu[:, :ff], gu[:, ff:]
+            else:
+                gate = _gemv_norm(cfg, x, _pack(layer, "w_gate"), None, layer["ln2"])
+                up = _gemv_norm(cfg, x, _pack(layer, "w_up"), None, layer["ln2"])
+        else:
+            xn = _norm(x, layer["ln2"], cfg)
+            if "w_gu" in layer:
+                gu = _proj(cfg, xn, _pack(layer, "w_gu"))[:, : 2 * ff]
+                gate, up = gu[:, :ff], gu[:, ff:]
+            else:
+                gate, up = _proj(cfg, xn, _pack(layer, "w_gate")), _proj(cfg, xn, _pack(layer, "w_up"))
+        hidden = F.silu(gate.float()).to(x.dtype) * up
+        return _residual_proj(cfg, hidden, _pack(layer, "w_down"), None, x, small), None
+    up, down = _pack(layer, "w_up"), _pack(layer, "w_down")
+    if not small:
+        hidden = _proj(cfg, _norm(x, layer["ln2"], cfg), up, layer.get("b_up"), activation=cfg.activation)
+        return _residual_proj(cfg, hidden, down, layer.get("b_down"), x, small), None
+    if tuple(up["qt"].shape) == (ff, d) and tuple(down["qt"].shape) == (d, ff) and mlp_fused_supported(d, ff):
+        # The whole MLP as one kernel, and the next layer's ln1 + qkv with it
+        # when those weights fit its budget too.
+        nxt = layers[li + 1] if li + 1 < len(layers) else None
+        qkv_dim = (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim
+        next_qkv = None
+        if nxt is not None and _is_pack(nxt.get("wqkv")) and tuple(nxt["wqkv"]["qt"].shape) == (qkv_dim, d) \
+                and mlp_fused_supported(d, ff, qkv_dim):
+            nq = nxt["wqkv"]
+            next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
+        out = quant_mlp_int8(
+            x, up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
+            activation=cfg.activation, norm=cfg.norm, norm_scale=layer["ln2"]["scale"],
+            norm_bias=layer["ln2"].get("bias"), norm_eps=cfg.layer_norm_eps, residual=x, next_qkv=next_qkv,
+            w8a8=cfg.w8a8,
+        )
+        return out if next_qkv is not None else (out, None)
+    # Past the budget: the up GEMV with ln2 and the activation fused (its
+    # output rounded to the model dtype), then the down GEMV with the residual.
+    hidden = _gemv_norm(cfg, x, up, layer.get("b_up"), layer["ln2"], activation=cfg.activation)
+    return _residual_proj(cfg, hidden, down, layer.get("b_down"), x, small), None
+
+
 def _lm_head(params: dict, cfg: DecoderConfig, x, mode: str, small: bool):
-    """Final norm + tied int8 lm_head of the rows ``x`` [M, D]: f32 logits
-    [M, vocab] or (``mode="argmax"``) the greedy tokens int32 [M]. Up to 8
-    rows go through ``quant_gemv_int8`` with the norm fused (and the argmax
-    fused too); more through ``_norm`` and the prefill projection. Under
-    W8A8 a prefill-structure forward (``small`` False) takes the latter at
-    any row count, as the JAX package runs its lm_head on every row."""
-    head = _pack(params, "lm_head_q")
+    """Final norm + int8 lm_head (``lm_head_q``, tied, or the untied
+    ``lm_head``) of the rows ``x`` [M, D]: f32 logits [M, vocab] or
+    (``mode="argmax"``) the greedy tokens int32 [M]. Up to 8 rows go
+    through ``quant_gemv_int8`` with the norm fused (and the argmax fused
+    too); more through ``_norm`` and the prefill projection. Under W8A8 a
+    prefill-structure forward (``small`` False) takes the latter at any row
+    count, as the JAX package runs its lm_head on every row."""
+    head = _pack(params, "lm_head_q" if "lm_head_q" in params else "lm_head")
     fn = params["final_norm"]
     if x.shape[0] <= MAX_ROWS and (small or not cfg.w8a8):
-        kw = dict(norm=cfg.norm, norm_scale=fn["scale"], norm_bias=fn.get("bias"),
-                  norm_eps=cfg.layer_norm_eps, w8a8=cfg.w8a8)
         if mode == "argmax":
-            return quant_gemv_int8(x, head["qt"], head["s"], argmax_n=cfg.vocab_size, **kw)
+            return _gemv_norm(cfg, x, head, None, fn, argmax_n=cfg.vocab_size)
         # The epilogue writes f32 logits (the JAX package rounds them to the
         # model dtype first; a sampler wants them unrounded).
-        return quant_gemv_int8(x, head["qt"], head["s"], out_dtype=torch.float32, **kw)[:, : cfg.vocab_size]
+        return _gemv_norm(cfg, x, head, None, fn, out_dtype=torch.float32)[:, : cfg.vocab_size]
     logits = _proj(cfg, _norm(x, fn, cfg), head, out_dtype=torch.float32)[:, : cfg.vocab_size]
     return logits.argmax(-1).to(torch.int32) if mode == "argmax" else logits
 
@@ -592,21 +838,22 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
 
     ``fuse=False`` runs the prefill structure at any row count (the JAX
     package's ``RTEN_DECODE_FUSE=0``): the serving engines admit a W8A8
-    prompt so, as the JAX engines' bucketed admission (≥ 32 rows) does."""
+    prompt so, as the JAX engines' bucketed admission (≥ 32 rows) does. One
+    token a row on a bf16/f32 cache then takes ``decode_attention`` without
+    its fused wo, as it does at more than 8 rows."""
     _check_supported(cfg)
     if lm_head_mode not in ("logits", "argmax"):
         raise ValueError(f"lm_head_mode must be 'logits' or 'argmax', got {lm_head_mode!r}")
     b, t = tokens.shape
-    h, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
-    eps = cfg.layer_norm_eps
     rows = b * t
     small = fuse and rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
-    w8a8 = cfg.w8a8
     paged = cache is not None and "k_pages" in cache
-    one_token = small and t == 1 and cache is not None
-    kv_decode = one_token and (paged or "k_scale" in cache)  # the paged / int8 decode kernels
-    decode = one_token and not kv_decode  # decode_attention: one token on a bf16/f32 cache
-    mega = decode and b == 1 and cfg.mega
+    one_token = t == 1 and cache is not None
+    kv_decode = small and one_token and (paged or "k_scale" in cache)  # the paged / int8 decode kernels
+    # decode_attention: one token a row on a bf16/f32 cache; its wo fused in
+    # the decode structure, else left to the prefill projection.
+    decode = one_token and not paged and "k_scale" not in cache
+    mega = decode and small and b == 1 and cfg.mega and cfg.activation != "swiglu"
     q_offset = kv_len = None
     if paged and not kv_decode:
         raise ValueError(f"a paged cache takes one token per row and at most {MAX_ROWS} rows, got {b}x{t}")
@@ -621,12 +868,17 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
                     f"past its {s_max} positions"
                 )
         start = cache["len"]
-        positions = start if t == 1 else (start[:, None] + torch.arange(t, device=start.device)).reshape(-1)
+        positions = start[:, None] + torch.arange(t, device=start.device)  # [B, T]
         if not decode:
             q_offset, kv_len = start, start + t
     else:
-        positions = torch.arange(t, device=tokens.device).repeat(b)
-    x = params["tok_emb"].index_select(0, tokens.reshape(-1)) + params["pos_emb"].index_select(0, positions)
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+    x = params["tok_emb"].index_select(0, tokens.reshape(-1))
+    rope = None
+    if cfg.pos_encoding == "learned":
+        x = x + params["pos_emb"].index_select(0, positions.reshape(-1) + cfg.pos_offset)
+    else:
+        rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     layers = params["layers"]
     qkv = None  # this layer's qkv when the previous layer's MLP kernel computed it
@@ -634,51 +886,34 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
         if qkv is None:
             wqkv = _pack(layer, "wqkv")
             if small:
-                qkv = quant_gemv_int8(
-                    x, wqkv["qt"], wqkv["s"], layer.get("bqkv"), norm=cfg.norm,
-                    norm_scale=layer["ln1"]["scale"], norm_bias=layer["ln1"].get("bias"), norm_eps=eps,
-                    w8a8=w8a8,
-                )
+                qkv = _gemv_norm(cfg, x, wqkv, layer.get("bqkv"), layer["ln1"])
             else:
                 qkv = _proj(cfg, _norm(x, layer["ln1"], cfg), wqkv, layer.get("bqkv"))
+        q, k, v = _split_heads(qkv, cfg, b, t, rope)
         wo = _pack(layer, "wo")
-        if decode:
-            attn_args = (qkv.view(b, 3, h, 1, hd), cache["k"][li], cache["v"][li], cache["len"],
-                         wo["qt"], wo["s"], layer.get("bo"))
-            block = _mega_layer(params, cfg, li, cache) if mega else None
-            if block is not None:  # the whole layer, and the next layer's qkv, in one kernel
-                out = decode_block(*attn_args, x, *block, activation=cfg.activation, norm=cfg.norm, norm_eps=eps)
+        if mega:  # the whole layer, and the next layer's qkv, in one kernel
+            block = _mega_layer(params, cfg, li, cache)
+            if block is not None:
+                out = decode_block(qkv.view(b, 3, cfg.n_heads, 1, cfg.head_dim), cache["k"][li], cache["v"][li],
+                                   cache["len"], wo["qt"], wo["s"], layer.get("bo"), x, *block,
+                                   activation=cfg.activation, norm=cfg.norm, norm_eps=cfg.layer_norm_eps)
                 x, qkv = out if block[1] is not None else (out, None)
                 continue
-            x = decode_attention(*attn_args, residual=x)
+        ops = (q[:, 0], k[:, 0], v[:, 0]) if one_token else None
+        if decode and small:
+            x = decode_attention(ops, cache["k"][li], cache["v"][li], cache["len"], wo["qt"], wo["s"],
+                                 layer.get("bo"), residual=x)
         else:
-            if kv_decode:
-                attn = _kv_decode_attention(qkv, cfg, b, cache, li)
+            if decode:
+                attn = decode_attention(ops, cache["k"][li], cache["v"][li], cache["len"])
+            elif kv_decode:
+                attn = _kv_decode_attention(ops, cache, li)
             else:
-                attn = _attention(qkv, cfg, b, t, cache, li, q_offset, kv_len)
-            if small:
-                x = quant_gemv_int8(attn, wo["qt"], wo["s"], layer.get("bo"), residual=x, w8a8=w8a8)
-            else:
-                x = _proj(cfg, attn, wo, layer.get("bo")) + x
-        up, down = _pack(layer, "w_up"), _pack(layer, "w_down")
-        if small:
-            nxt = layers[li + 1] if li + 1 < len(layers) else None
-            next_qkv = None
-            if nxt is not None:
-                nq = _pack(nxt, "wqkv")
-                next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
-            out = quant_mlp_int8(
-                x, up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
-                activation=cfg.activation, norm=cfg.norm, norm_scale=layer["ln2"]["scale"],
-                norm_bias=layer["ln2"].get("bias"), norm_eps=eps, residual=x, next_qkv=next_qkv, w8a8=w8a8,
-            )
-            x, qkv = out if next_qkv is not None else (out, None)
-        else:
-            hidden = _proj(cfg, _norm(x, layer["ln2"], cfg), up, layer.get("b_up"), activation=cfg.activation)
-            x = _proj(cfg, hidden, down, layer.get("b_down")) + x
-            qkv = None
+                attn = _attention(q, k, v, cache, li, q_offset, kv_len)
+            x = _residual_proj(cfg, attn, wo, layer.get("bo"), x, small)
+        x, qkv = _mlp(params, cfg, li, x, small)
 
-    head_in = x.view(b, t, d)[:, -1] if last_only and t > 1 else x
+    head_in = x.view(b, t, cfg.d_model)[:, -1] if last_only and t > 1 else x
     result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode, small)
     result = result.reshape(b, 1 if last_only else t, *result.shape[1:])
     if cache is not None:

@@ -49,7 +49,7 @@ class PagePool:
         self.page_size = page_size
         self.int8 = int8
         dtype = torch.int8 if int8 else cfg.dtype
-        shape = (n_pages + 1, cfg.n_heads, page_size, cfg.head_dim)
+        shape = (n_pages + 1, cfg.kv_heads, page_size, cfg.head_dim)
         self.k_pages = [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(cfg.n_layers)]
         self.v_pages = [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(cfg.n_layers)]
         if int8:

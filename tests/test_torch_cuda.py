@@ -1004,3 +1004,202 @@ def test_tiny_decoder_mega_step_launches_decode_block(dev, w8a8):
         two_logits, two_toks = run(dataclasses.replace(cfg, mega=False))
         _close(k_logits, two_logits, torch.float32)
         assert k_toks.tolist() == two_toks.tolist()
+
+
+# ---------------------------------------------------------------------------
+# The KV kernels' Llama/Qwen2-class modes: unpacked q | k_new | v_new
+# operands with grouped-query heads (Hq = group · Hk), and decode_attention
+# without its fused wo
+# ---------------------------------------------------------------------------
+
+GQA_KINDS = ["fused_wo", "no_wo", "int8", "paged", "paged_int8"]
+GROUPS = [1, 2, 7]
+
+
+def _gqa_case(dev, kind, dtype, d, group, hk=2, seed=40):
+    """Inputs of one KV kernel in its unpacked mode: Hk kv heads, group · Hk
+    query heads, rows at kv_len 0, 63, 64, 150 and 191 (the last position of
+    a 3 x 64 row or of 3 pages scattered through a pool of 12, page 11 the
+    scratch page); q and k_new as separate tensors, v_new a strided view.
+    Returns (kernel, plain, args, kw); args[0] is the operand tuple."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hq, b, page = group * hk, 5, 64
+    q = (1.5 * torch.randn(b, hq, d, generator=gen, device=dev)).to(dtype)
+    kv = (1.5 * torch.randn(b, 2 * hk, d, generator=gen, device=dev)).to(dtype)
+    ops = (q, kv[:, :hk].contiguous(), kv[:, hk:])
+    int8, paged = kind.endswith("int8"), kind.startswith("paged")
+    shape = (12, hk, page, d) if paged else (b, hk, 3 * page, d)
+    if int8:
+        payload = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in range(2)]
+        payload += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+    else:
+        payload = [(1.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype),
+                   torch.randn(shape, generator=gen, device=dev).to(dtype)]
+    lens = torch.tensor([0, 63, 64, 150, 3 * page - 1], dtype=torch.int32, device=dev)
+    table = torch.tensor([[11, 11, 11], [3, 11, 11], [7, 2, 11], [5, 0, 9], [10, 1, 8]], dtype=torch.int32,
+                         device=dev)
+    if kind == "fused_wo":
+        wo, wos = _pack(gen, 320, hq * d, dev)
+        kw = dict(residual=torch.randn(b, 320, generator=gen, device=dev).to(dtype))
+        return da.decode_attention, da.decode_attention_ref, [ops, *payload, lens, wo, wos,
+                                                               torch.randn(320, generator=gen, device=dev)], kw
+    if kind == "no_wo":
+        return da.decode_attention, da.decode_attention_ref, [ops, *payload, lens], {}
+    if kind == "int8":
+        return da.decode_attention_int8, da.decode_attention_int8_ref, [ops, *payload, lens], {}
+    fn = (pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref) if int8 else (
+        pa.paged_decode_attention, pa.paged_decode_attention_ref)
+    return (*fn, [ops, *payload, table, lens], {})
+
+
+def _mode(kind, group):
+    base = {"fused_wo": "decode_attention", "no_wo": "decode_attention", "int8": "decode_attention_int8",
+            "paged": "paged_decode_attention", "paged_int8": "paged_decode_attention_int8"}[kind]
+    if kind == "no_wo":
+        return base + ":no_wo"
+    return base + (":gqa" if group > 1 else "")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("kind", GQA_KINDS)
+def test_gqa_kernel_matches_plain(dev, kind, group, dtype):
+    """Each unpacked / grouped-query mode against its plain version:
+    the output (own-max tolerance; f32 or bf16 as the kernel writes it),
+    the caches or pages after the append bit for bit (int8: codes and
+    scales, appended once per kv head), and the launch counted under the
+    mode's name."""
+    kernel, plain, args, kw = _gqa_case(dev, kind, dtype, 64, group)
+    n_cache = 4 if kind.endswith("int8") else 2
+    k_args = [args[0], *_clone_args(args[1:])]
+    p_args = [args[0], *_clone_args(args[1:])]
+    dispatch.reset_counters()
+    out = kernel(*k_args, **kw)
+    assert dict(dispatch.LAUNCHES) == {_mode(kind, group): 1}
+    ref = plain(*p_args, **kw)
+    hq = 2 * group
+    assert out.dtype == dtype and out.shape == ((5, 320) if kind == "fused_wo" else (5, hq * 64))
+    (_close if kind == "fused_wo" else _close_own_max)(out, ref, dtype)
+    for a, b in zip(k_args[1 : 1 + n_cache], p_args[1 : 1 + n_cache]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", GQA_KINDS)
+def test_gqa_kernel_head_dim_128_qwen2_heads(dev, kind):
+    """Qwen2-0.5B's grouping (14 query heads over 2 kv heads) at head dim
+    128, bf16, against the plain version; caches bit for bit."""
+    kernel, plain, args, kw = _gqa_case(dev, kind, torch.bfloat16, 128, 7, seed=41)
+    k_args, p_args = [args[0], *_clone_args(args[1:])], [args[0], *_clone_args(args[1:])]
+    out, ref = kernel(*k_args, **kw), plain(*p_args, **kw)
+    (_close if kind == "fused_wo" else _close_own_max)(out, ref, torch.bfloat16)
+    n_cache = 4 if kind.endswith("int8") else 2
+    for a, b in zip(k_args[1 : 1 + n_cache], p_args[1 : 1 + n_cache]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["no_wo", "int8", "paged"])
+def test_gqa_kernel_against_f64_softmax(dev, kind):
+    """Group 7 in f32: the attention vector against the softmax in f64 over
+    the cache the plain version leaves (each query head h over kv head
+    h // 7), atol 1e-5 of its max."""
+    from rten_tpu_torch.kernels.decode_attention import attend_ref, dequantize_kv
+
+    kernel, plain, args, kw = _gqa_case(dev, kind, torch.float32, 64, 7, seed=42)
+    k_args, p_args = [args[0], *_clone_args(args[1:])], [args[0], *_clone_args(args[1:])]
+    out = kernel(*k_args).double()
+    plain(*p_args)
+    q, lens = args[0][0], args[-1].tolist()
+    rows = []
+    for bi, n in enumerate(lens):
+        if kind == "paged":
+            pages = p_args[-2][bi, : n // 64 + 1].tolist()
+            k, v = (t[pages].permute(1, 0, 2, 3).reshape(2, -1, 64)[:, : n + 1] for t in p_args[1:3])
+        else:
+            k, v = p_args[1][bi, :, : n + 1], p_args[2][bi, :, : n + 1]
+            if kind == "int8":
+                k = dequantize_kv(k, p_args[3][bi, :, : n + 1], torch.float64)
+                v = dequantize_kv(v, p_args[4][bi, :, : n + 1], torch.float64)
+        rows.append(attend_ref(q[bi].double(), k.double(), v.double(), 1 / 8.0))
+    ref = torch.stack(rows)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_no_wo_kernel_past_eight_rows(dev):
+    """decode_attention without wo takes any row count (12 here, the JAX
+    decoder's unfused step past the GEMV's 8 rows); with wo it refuses 9."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    b, hk, hq, d, s = 12, 2, 14, 64, 128
+    ops = tuple(torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16) for h in (hq, hk, hk))
+    caches = [torch.randn(b, hk, s, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
+    lens = torch.randint(0, s, (b,), generator=gen, device=dev, dtype=torch.int32)
+    p_caches = _clone_args(caches)
+    out = decode_attention(ops, *caches, lens)
+    ref = decode_attention_ref(ops, *p_caches, lens)
+    _close_own_max(out, ref, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(caches, p_caches))
+    wo, wos = _pack(gen, 256, hq * d, dev)
+    with pytest.raises(ValueError, match="at most 8 rows"):
+        decode_attention(ops, *caches, lens, wo, wos)
+
+
+def _tiny_llama(dtype, dev, d_ff=344, **kw):
+    from rten_tpu_torch.models import decoder
+
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, d_ff=d_ff,
+                                max_seq=256, pos_encoding="rope", norm="rmsnorm", activation="swiglu",
+                                tie_embeddings=False, layer_norm_eps=1e-6, dtype=dtype, **kw)
+    return decoder, cfg, decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+
+
+@pytest.mark.parametrize("d_ff", [344, 384])
+def test_tiny_llama_decoder_kernels_match_plain(dev, d_ff):
+    """The tiny f32 Llama-class decoder (RoPE, SwiGLU, 4 query heads over 2
+    kv heads, an untied lm_head): a 12-token prompt as one forward, then 6
+    greedy steps, kernels against the plain versions on the card; every
+    decode step launches decode_attention in its GQA mode."""
+    decoder, cfg, params = _tiny_llama(torch.float32, dev, d_ff)
+    prompt = torch.randint(0, 500, (2, 12), generator=torch.Generator(device=dev).manual_seed(44), device=dev,
+                           dtype=torch.int32)
+
+    def run():
+        cache = decoder.init_cache(cfg, 2, 64, device=dev)
+        logits, cache = decoder.prefill(params, cfg, prompt, cache)
+        first = logits[:, -1:].argmax(-1).to(torch.int32)
+        toks, _ = decoder.generate_greedy(params, cfg, cache, first, 6)
+        return logits, toks
+
+    dispatch.reset_counters()
+    k_logits, k_toks = run()
+    assert dispatch.PLAIN == {} and dispatch.LAUNCHES["decode_attention:gqa"] == 6 * cfg.n_layers
+    assert "quant_mlp_int8" not in dispatch.LAUNCHES
+    with _plain_decoder(decoder):
+        p_logits, p_toks = run()
+    _close(k_logits, p_logits, torch.float32)
+    assert k_toks.tolist() == p_toks.tolist()
+
+
+@pytest.mark.parametrize("engine", ["slot_int8", "paged", "paged_int8"])
+def test_tiny_llama_engines_match_cpu(dev, engine):
+    """The tiny Llama-class model (f32) behind the engines on the card,
+    through the three GQA KV kernels, against the same engine on the CPU."""
+    from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
+
+    _decoder, cfg, params = _tiny_llama(torch.float32, dev)
+    cpu_params = _decoder.quantize_params_int8(_decoder.init_params(0, cfg, device="cpu"), device="cpu")
+    specs = [dict(prompt=[1, 2, 3], max_new_tokens=6), dict(prompt=list(range(5, 75)), max_new_tokens=5)]
+    if engine == "slot_int8":
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, int8_kv=True)
+        make, kw = ServingEngine, dict(max_batch=2)
+    else:
+        make, kw = PagedServingEngine, dict(max_batch=2, n_pages=6, page_size=64, int8_kv=engine == "paged_int8")
+    dispatch.reset_counters()
+    on_card, _ = _engine_outputs(make, params, cfg, specs, dev, **kw)
+    mode = {"slot_int8": "decode_attention_int8:gqa", "paged": "paged_decode_attention:gqa",
+            "paged_int8": "paged_decode_attention_int8:gqa"}[engine]
+    assert dispatch.LAUNCHES[mode] > 0 and not dispatch.PLAIN
+    assert on_card == _engine_outputs(make, cpu_params, cfg, specs, "cpu", **kw)[0]

@@ -481,3 +481,66 @@ def test_w8a8_accuracy_gate(w8_models):
         logits[w8a8] = torch.cat(steps).numpy()
     rms = [_rel_rms(logits[True][i], logits[False][i]) for i in range(len(logits[True]))]
     assert 0 < min(rms) and max(rms) < W8_GATE, rms
+
+
+# ---------------------------------------------------------------------------
+# The decode MLP's routing by the JAX package's whole-MLP budget
+# (``mlp_fused_supported``), in bf16, where a rounding in another place
+# shows: both budgets monkeypatched (the port's ``_MLP_FUSED_BYTES`` and the
+# JAX package's ``MLP_FUSED_VMEM_LIMIT``). At SLICE_CFG the MLP's int8
+# weights take 524288 bytes and the next qkv 196608 more: at 600000 the MLP
+# fits and the next qkv does not (layer 1's qkv is a GEMV over layer 0's
+# block output rounded to bf16); at 400000 neither fits (the up GEMV, its
+# output rounded, then the down GEMV with the residual; under W8A8 the down
+# GEMV quantizes the rounded rows).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("budget,w8a8", [(600000, False), (400000, False), (400000, True)],
+                         ids=["mlp_fits", "nothing_fits", "nothing_fits_w8a8"])
+def test_decode_mlp_routing_matches_jax_bits(monkeypatch, budget, w8a8):
+    """One bf16 decode step at kv_len 20 against ``jdec.forward`` under
+    ``patch_jax_fused``: layer 1's new k/v and the last block's output (the
+    lm_head GEMV's input) bit for bit."""
+    import jax
+
+    from rten_tpu.kernels import quant_matmul as jqm
+    from torch_port_helpers import SLICE_CFG, patch_jax_fused
+
+    patch_jax_fused(monkeypatch, w8a8=w8a8)
+    monkeypatch.setattr(jqm, "MLP_FUSED_VMEM_LIMIT", budget)
+    monkeypatch.setattr(tdec, "_MLP_FUSED_BYTES", budget)
+    jcfg = jdec.DecoderConfig(**SLICE_CFG, dtype=jnp.bfloat16)
+    tcfg = tdec.DecoderConfig(**SLICE_CFG, dtype=torch.bfloat16, w8a8=w8a8)
+    tree = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), to_jax(dense_tree(0)))
+    jparams = jdec.quantize_params_int8(tree, tile_bn=None)
+    tparams = tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu")
+    rng = np.random.default_rng(90)
+    shape = (1, tcfg.n_heads, 64, tcfg.head_dim)
+    jcache = {key: [jnp.asarray(rng.standard_normal(shape), jnp.bfloat16) for _ in range(tcfg.n_layers)]
+              for key in ("k", "v")}
+    jcache["len"] = jnp.asarray([20], jnp.int32)
+    tcache = carry_cache(jcache, tcfg.head_dim)
+    token = np.array([[7]], np.int32)
+
+    seen = {}
+    for mod, key in ((jqm, "jax"), (tdec, "port")):
+        inner = mod.quant_gemv_int8
+
+        def record(x, *a, inner=inner, key=key, **kw):
+            seen[key] = np.asarray(x if key == "jax" else x.float().numpy(), np.float32)  # the last call: the lm_head
+            return inner(x, *a, **kw)
+
+        monkeypatch.setattr(mod, "quant_gemv_int8", record)
+    dispatch.reset_counters()
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(token), jcache)
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(token), tcache)
+    mlp = "quant_mlp_int8:w8a8" if w8a8 else "quant_mlp_int8"
+    assert dispatch.PLAIN[mlp] == (tcfg.n_layers if budget == 600000 else 0)
+    want = carry_cache(jcache, tcfg.head_dim)
+    for kv in ("k", "v"):
+        np.testing.assert_array_equal(tcache[kv][1][0, :, 20].float().numpy(), want[kv][1][0, :, 20].float().numpy(),
+                                      err_msg=f"layer 1's new {kv}")
+    np.testing.assert_array_equal(seen["port"], seen["jax"], err_msg="the last block's output")
+    # The JAX package's logits are rounded to bf16, the port's are not.
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=1e-3, rtol=2.0**-8)

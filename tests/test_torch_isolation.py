@@ -55,6 +55,18 @@ for engine in (ServingEngine(params, cfg, max_batch=2, steps_per_tick=2, device=
     reqs = [engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=3)) for _ in range(3)]
     engine.run()
     assert all(len(r.output) == 3 for r in reqs)
+llama = dataclasses.replace(decoder.LLAMA_TINY, vocab_size=300, n_layers=1, d_model=256, n_heads=4, n_kv_heads=2,
+                            d_ff=344, max_seq=32, dtype=torch.float32)  # RoPE, GQA, SwiGLU, untied lm_head
+lparams = decoder.quantize_params_int8(decoder.init_params(0, llama, device="cpu"), device="cpu")
+dispatch.reset_counters()
+logits, cache = decoder.prefill(lparams, llama, prompt, decoder.init_cache(llama, 1, device="cpu"), last_only=True)
+tok, cache = decoder.forward(lparams, llama, logits.argmax(-1).to(torch.int32), cache, lm_head_mode="argmax")
+assert dispatch.PLAIN["decode_attention:gqa"] == 1 and int(cache["len"][0]) == 13
+for engine in (ServingEngine(lparams, dataclasses.replace(llama, int8_kv=True), max_batch=2, device="cpu"),
+               PagedServingEngine(lparams, llama, max_batch=2, n_pages=4, page_size=64, device="cpu")):
+    reqs = [engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=3)) for _ in range(3)]
+    engine.run()
+    assert all(len(r.output) == 3 for r in reqs)
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -107,6 +119,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: decoder.init_cache(cfg, 1),
         lambda: decoder.params_from_jax({"layers": []}, cfg),
         lambda: decoder.from_hf_gpt2({}, cfg),
+        lambda: decoder.from_hf_llama({}, cfg),
+        lambda: decoder.from_hf_opt({}, cfg),
         lambda: NativeBackend(params, cfg),
         lambda: ServingEngine(params, cfg),
         lambda: PagedServingEngine(params, cfg, page_size=64),

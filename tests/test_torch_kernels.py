@@ -644,3 +644,162 @@ def test_quant_matmul_w8a8_matches_pallas(rng, m, with_bias, act):
     assert out.shape == (m, n) and out.dtype == torch.float32
     ref = np.asarray(ref)
     np.testing.assert_allclose(out.numpy(), ref, atol=_w8_tol(ref), rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The KV kernels' modes of Llama/Qwen2-class models: unpacked q | k_new |
+# v_new operands, grouped-query heads (Hq = group · Hk, group 1, 2 and 7),
+# and decode_attention without its fused wo. Each plain version against the
+# Pallas kernel in interpret mode; caches, pages and scales after the append.
+# ---------------------------------------------------------------------------
+
+GROUPS = [1, 2, 7]
+
+
+def _gqa_tokens(rng, b, hq, hk, d):
+    """q [B, Hq, 1, D], k_new and v_new [B, Hk, 1, D], row 1 of k/v on .5
+    boundaries (int8 rounding) where Hk ≥ 2."""
+    q = rng.standard_normal((b, hq, 1, d)).astype(np.float32) * 1.2
+    kn = rng.standard_normal((b, hk, 1, d)).astype(np.float32) * 1.2
+    vn = rng.standard_normal((b, hk, 1, d)).astype(np.float32)
+    if hk >= 2:
+        kn[1, :2, 0], vn[1, :2, 0] = _half_boundary_token(2, d), _half_boundary_token(2, d)[::-1]
+    return q, kn, vn
+
+
+def _ops(q, kn, vn):
+    """The port's unpacked operands [B, H, D] of [B, H, 1, D] arrays."""
+    return _t(q[:, :, 0]), _t(kn[:, :, 0]), _t(vn[:, :, 0])
+
+
+@pytest.mark.parametrize("with_wo", [True, False], ids=["fused_wo", "no_wo"])
+@pytest.mark.parametrize("group", GROUPS)
+def test_decode_attention_gqa_matches_pallas(rng, group, with_wo):
+    """``decode_attention`` on unpacked operands with ``group`` query heads
+    a kv head, rows at kv_len 0, 5 and 255: with the fused wo + bias +
+    residual (the decode step of every RoPE / GQA model), and without it
+    (the attention vector of the unfused step); the caches in place."""
+    lens = np.array([0, 5, 255], np.int32)
+    b, hk, s_max, d, dm = len(lens), 2, 256, 64, 256
+    hq = group * hk
+    kc = rng.standard_normal((b, hk, s_max, d)).astype(np.float32) * 0.3
+    vc = rng.standard_normal((b, hk, s_max, d)).astype(np.float32)
+    q, kn, vn = _gqa_tokens(rng, b, hq, hk, d)
+    wo = ()
+    if with_wo:
+        wo_q, wo_s = _quant(rng, hq * d, dm)
+        bo = rng.standard_normal(dm).astype(np.float32) * 0.1
+        resid = rng.standard_normal((b, dm)).astype(np.float32)
+        wo = (jnp.asarray(wo_q), jnp.asarray(wo_s), jnp.asarray(bo), jnp.asarray(resid))
+    ref, ref_k, ref_v = jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn),
+        *wo, block_s=128, interpret=True,
+    )
+    k_cache, v_cache = _t(kc), _t(vc)
+    port_wo = (*_port_pack(wo_q, wo_s), _t(bo)) if with_wo else ()
+    name = "decode_attention" + ("" if group == 1 else ":gqa") if with_wo else "decode_attention:no_wo"
+    before = dispatch.PLAIN[name]
+    out = decode_attention(_ops(q, kn, vn), k_cache, v_cache, _t(lens, torch.int32), *port_wo,
+                           residual=_t(resid) if with_wo else None)
+    assert dispatch.PLAIN[name] == before + 1
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref).reshape(out.shape), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(k_cache.numpy(), np.asarray(ref_k).reshape(b, hk, s_max, d))
+    np.testing.assert_array_equal(v_cache.numpy(), np.asarray(ref_v).reshape(b, hk, s_max, d))
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_decode_attention_int8_gqa_matches_pallas(rng, group):
+    """``decode_attention_int8`` with ``group`` query heads a kv head: the
+    attention vector, and the codes and scales appended once per kv head."""
+    from rten_tpu.kernels.decode_attention import decode_attention_int8 as jax_int8, pack_kv_scales
+
+    from rten_tpu_torch.kernels.decode_attention import decode_attention_int8
+    from torch_port_helpers import port_scales
+
+    lens = np.array([0, 100, 255], np.int32)
+    b, hk, s, d = len(lens), 2, 256, 64
+    hq = group * hk
+    kq, vq = (rng.integers(-127, 128, (b, hk, s, d)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.02, (b, hk, s)).astype(np.float32) for _ in range(2))
+    q, kn, vn = _gqa_tokens(rng, b, hq, hk, d)
+    out, k2, v2, ks2, vs2 = jax_int8(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), pack_kv_scales(jnp.asarray(ks[..., None]), d),
+        pack_kv_scales(jnp.asarray(vs[..., None]), d), jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn),
+        interpret=True,
+    )
+    caches = [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs)]
+    name = "decode_attention_int8" + ("" if group == 1 else ":gqa")
+    before = dispatch.PLAIN[name]
+    attn = decode_attention_int8(_ops(q, kn, vn), *caches, _t(lens, torch.int32))
+    assert dispatch.PLAIN[name] == before + 1
+    np.testing.assert_allclose(attn.numpy(), np.asarray(out).reshape(b, hq * d), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(caches[0].numpy(), np.asarray(k2).reshape(b, hk, s, d))
+    np.testing.assert_array_equal(caches[1].numpy(), np.asarray(v2).reshape(b, hk, s, d))
+    _scales_equal(caches[2].numpy(), port_scales(ks2, d))
+    _scales_equal(caches[3].numpy(), port_scales(vs2, d))
+    np.testing.assert_array_equal(caches[0][1, 0, 100, :6].numpy(), [127, 2, -4, 0, 2, 0])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("group", GROUPS)
+def test_paged_attention_gqa_matches_pallas(rng, group, int8):
+    """``paged_decode_attention`` and its int8 twin with ``group`` query
+    heads a kv head over pages of 64 (``PAGED_TABLE``): the attention vector
+    and every page after the append."""
+    from rten_tpu.kernels import paged_attention as jpa
+
+    from rten_tpu_torch.kernels import paged_attention as tpa
+    from torch_port_helpers import jax_pages, jax_scale_tiles, port_pages, port_scale_pages
+
+    lens, table = np.array(PAGED_LENS, np.int32), np.array(PAGED_TABLE, np.int32)
+    b, hk, d, page, n_pages = len(lens), 2, 64, 64, 12
+    hq = group * hk
+    shape = (n_pages, hk, page, d)
+    q, kn, vn = _gqa_tokens(rng, b, hq, hk, d)
+    if int8:
+        kp, vp = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+        ksp, vsp = (rng.uniform(0.005, 0.02, shape[:3]).astype(np.float32) for _ in range(2))
+        out, kp2, vp2, ksp2, vsp2 = jpa.paged_decode_attention_int8(
+            jnp.asarray(q), jnp.asarray(jax_pages(kp)), jnp.asarray(jax_pages(vp)),
+            jnp.asarray(jax_scale_tiles(ksp, d)), jnp.asarray(jax_scale_tiles(vsp, d)), jnp.asarray(table),
+            jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn), interpret=True,
+        )
+        pool = [torch.from_numpy(a.copy()) for a in (kp, vp, ksp, vsp)]
+        fn, name = tpa.paged_decode_attention_int8, "paged_decode_attention_int8"
+    else:
+        kp = rng.standard_normal(shape).astype(np.float32) * 1.2
+        vp = rng.standard_normal(shape).astype(np.float32)
+        out, kp2, vp2 = jpa.paged_decode_attention(
+            jnp.asarray(q), jnp.asarray(jax_pages(kp)), jnp.asarray(jax_pages(vp)), jnp.asarray(table),
+            jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn), interpret=True,
+        )
+        pool = [torch.from_numpy(a.copy()) for a in (kp, vp)]
+        fn, name = tpa.paged_decode_attention, "paged_decode_attention"
+    name += "" if group == 1 else ":gqa"
+    before = dispatch.PLAIN[name]
+    attn = fn(_ops(q, kn, vn), *pool, _t(table, torch.int32), _t(lens, torch.int32))
+    assert dispatch.PLAIN[name] == before + 1
+    np.testing.assert_allclose(attn.numpy(), np.asarray(out).reshape(b, hq * d), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(pool[0].numpy(), port_pages(kp2, d))
+    np.testing.assert_array_equal(pool[1].numpy(), port_pages(vp2, d))
+    if int8:
+        _scales_equal(pool[2].numpy(), port_scale_pages(ksp2, d, page))
+        _scales_equal(pool[3].numpy(), port_scale_pages(vsp2, d, page))
+
+
+def test_packed_and_unpacked_operands_agree(rng):
+    """The packed MHA operand is three views of one tensor: the same call on
+    those views, made contiguous, gives the same bits and caches."""
+    lens = np.array([3, 40], np.int32)
+    b, h, s, d = 2, 4, 64, 64
+    flat = _t(rng.standard_normal((b, 3, h, 1, d)).astype(np.float32))
+    kc = _t(rng.standard_normal((b, h, s, d)).astype(np.float32))
+    vc = _t(rng.standard_normal((b, h, s, d)).astype(np.float32))
+    caches = [(kc.clone(), vc.clone()) for _ in range(2)]
+    packed = decode_attention(flat, *caches[0], _t(lens, torch.int32))
+    ops = tuple(flat[:, i, :, 0].contiguous() for i in range(3))
+    unpacked = decode_attention(ops, *caches[1], _t(lens, torch.int32))
+    assert torch.equal(packed, unpacked) and packed.shape == (b, h * d)
+    assert torch.equal(caches[0][0], caches[1][0]) and torch.equal(caches[0][1], caches[1][1])
+    with pytest.raises(ValueError, match="multiple of Hk"):
+        decode_attention((ops[0][:, :3], ops[1][:, :2], ops[2][:, :2]), *caches[0], _t(lens, torch.int32))

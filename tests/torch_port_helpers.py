@@ -62,6 +62,48 @@ def dense_tree(seed: int = 0) -> dict:
     return tree
 
 
+# The Llama/Qwen2-class twin of SLICE_CFG: RoPE, RMSNorm, SwiGLU, 4 query
+# heads over 2 kv heads, an untied lm_head. d_ff 384 fuses gate|up into
+# ``w_gu``; d_ff 344 (``llama_configs(d_ff=344)``) keeps ``w_gate`` and
+# ``w_up`` apart and K-pads ``w_down`` to 384.
+LLAMA_SLICE_CFG = dict(vocab_size=500, n_layers=2, n_heads=4, n_kv_heads=2, d_model=256, d_ff=384, max_seq=256,
+                       pos_encoding="rope", norm="rmsnorm", activation="swiglu", tie_embeddings=False,
+                       layer_norm_eps=1e-6)
+
+
+def llama_configs(**kw):
+    """(JAX config, port config) of the Llama slice tests, in f32, with
+    ``kw`` replacing fields of ``LLAMA_SLICE_CFG``."""
+    c = {**LLAMA_SLICE_CFG, **kw}
+    return jdec.DecoderConfig(**c, dtype=jnp.float32), tdec.DecoderConfig(**c, dtype=torch.float32)
+
+
+def llama_tree(seed: int = 0, d_ff: int = 384, qkv_bias: bool = True) -> dict:
+    """``dense_tree``'s SwiGLU / GQA variant: dense params in the JAX
+    package's Llama layout (``w_gate``, ``w_up``, ``w_down`` without biases,
+    ``wk`` / ``wv`` of the kv heads' width, an ``lm_head``, norm scales
+    only), with Qwen2's q/k/v biases when ``qkv_bias``."""
+    rng = np.random.default_rng(seed)
+    c = LLAMA_SLICE_CFG
+    d, v = c["d_model"], c["vocab_size"]
+    hkv = c["n_kv_heads"] * d // c["n_heads"]
+
+    def w(*shape, scale=0.08):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def norm():
+        return {"scale": rng.uniform(0.8, 1.2, d).astype(np.float32)}
+
+    tree = {"tok_emb": w(v, d, scale=0.5), "lm_head": w(d, v, scale=0.1), "final_norm": norm(), "layers": []}
+    for _ in range(c["n_layers"]):
+        layer = {"ln1": norm(), "ln2": norm(), "wq": w(d, d), "wk": w(d, hkv), "wv": w(d, hkv), "wo": w(d, d),
+                 "w_gate": w(d, d_ff), "w_up": w(d, d_ff), "w_down": w(d_ff, d, scale=0.04)}
+        if qkv_bias:
+            layer.update(bq=w(d, scale=0.05), bk=w(hkv, scale=0.05), bv=w(hkv, scale=0.05))
+        tree["layers"].append(layer)
+    return tree
+
+
 def to_jax(tree):
     if isinstance(tree, dict):
         return {k: to_jax(v) for k, v in tree.items()}
@@ -95,7 +137,12 @@ def carry_cache(jcache: dict, head_dim: int) -> dict:
     """A JAX ``init_cache``-style cache (bf16/f32 or int8 with packed
     scales; rows of any lengths) as the port's CPU cache: logical
     [B, H, S, D] leaves, scales [B, H, S], device and host lengths."""
-    out = {key: [torch.from_numpy(unfold(leaf, head_dim).copy()) for leaf in jcache[key]] for key in ("k", "v")}
+    def tensor(arr):
+        if arr.dtype == jnp.bfloat16:  # numpy holds it as ml_dtypes' bfloat16, which torch cannot take
+            return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(arr.copy())
+
+    out = {key: [tensor(unfold(leaf, head_dim)) for leaf in jcache[key]] for key in ("k", "v")}
     for key in ("k_scale", "v_scale"):
         if key in jcache:
             out[key] = [torch.from_numpy(port_scales(leaf, head_dim).copy()) for leaf in jcache[key]]
