@@ -2,7 +2,10 @@
 """Build, check and drive rten_tpu_torch (the PyTorch / CUDA port) on one
 NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --prefill  # phases 1-2, the prefill kernels' checks, and one
+                                     # prefill forward's device time by kernel (see
+                                     # prefill_only); its last line is marked partial
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -15,7 +18,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    layer in one kernel, beside the two kernels it replaces;
    matmul_fused in bf16 and f32; the silu / sigmoid / tanh epilogues;
    decode_attention at 8 rows of mixed lengths) at GPT-2-small's shapes
-   (bf16 activations, int8 weights), and the KV kernels' Llama/Qwen2-class
+   (bf16 activations, int8 weights), the prefill matmul and flash attention
+   at the Qwen2-0.5B shape's too (each with its split-K or split-KV plan
+   and its wrapper's host µs a call), and the KV kernels' Llama/Qwen2-class
    modes (unpacked q / k_new / v_new with 14 query heads over 2 kv heads,
    decode_attention with and without its fused wo, the int8 and paged
    kernels) at Qwen2-0.5B's attention shapes, each against its plain
@@ -63,7 +68,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 and int8 KV (the three GQA KV kernels; each stream against its solo
    stream), and one decode step at 12 rows on a bf16 cache (decode_attention
    without its wo) against the plain versions;
-9. the line {"kernels": [...]} (the launches summed over phases 4-8;
+9. the line {"kernels": [...]} (the launches summed over phases 4-8, the
+   split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only), the
    nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
@@ -220,16 +226,12 @@ def device_us_by_kernel(torch, fn, n: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(torch, bound, cfg):
-    from rten_tpu_torch.kernels import decode_attention as da
-    from rten_tpu_torch.kernels import quant_matmul as qm
-
+def check_tools(torch):
+    """Seeded input makers and the case recorder of phase 3: (randn, pack,
+    norm_vecs, bf16_err, record, cases)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf16 = torch.bfloat16
-    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
-    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
-    F = torch.nn.functional
 
     def randn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
@@ -249,16 +251,31 @@ def check_kernels(torch, bound, cfg):
 
     cases = []
 
-    def record(kernel, shape, err, tol, ms, plain, bnd, library=None, note=""):
+    def record(kernel, shape, err, tol, ms, plain, bnd, library=None, note="", **extra):
         if not (err <= tol):
             raise AssertionError(f"{kernel} {shape}: max |kernel - plain| {err:.3g} > {tol:.3g}")
         t_bound, by = bnd
         case = dict(kernel=kernel, shape=shape, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                    bound_ms=t_bound, bound_by=by, library_ms=library)
+                    bound_ms=t_bound, bound_by=by, library_ms=library, **extra)
         cases.append(case)
         lib = f"{library:.4f}" if library is not None else "null"
+        more = "".join(f"  {k} {v:.2f}" if isinstance(v, float) else f"  {k} {v}" for k, v in extra.items())
         log(f"  {kernel:17s} {shape:28s} err {err:.3g} (tol {tol:.3g})  kernel {ms:.4f} ms  "
-            f"plain {plain:.4f} ms  bound {t_bound:.4f} ms ({by})  library {lib} ms {note}")
+            f"plain {plain:.4f} ms  bound {t_bound:.4f} ms ({by})  library {lib} ms{more} {note}")
+
+    return randn, pack, norm_vecs, bf16_err, record, cases
+
+
+def check_kernels(torch, bound, cfg):
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
+    F = torch.nn.functional
+    randn, pack, norm_vecs, bf16_err, record, cases = check_tools(torch)
 
     # -- quant_gemv_int8: layer-0 qkv, lm_head logits, lm_head argmax -------
     for name, n, mode in (("qkv", 3 * d, "qkv"), ("lm_head_logits", n_vocab_pad, "logits"),
@@ -714,7 +731,8 @@ def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, rec
                 lib_in = [(c[0], (c[1].float() * c[2][:, None]).to(bf16), c[3].to(bf16)) for c in copies[:4]]
                 library = graph_ms(torch, [lambda t=t: F.linear(*t) for t in lib_in])
             record(name, f"up+{act} M={m} N={ff} K={d}", err, tol, ms, plain,
-                   bound(per_call, 2 * m * ff * d, int8=w8), library)
+                   bound(per_call, 2 * m * ff * d, int8=w8), library,
+                   **({} if w8 else {"split": qm.device_plan(args[0], ff)[1]}))
             del copies, lib_in
 
     # -- matmul_fused: dense x @ w + bias, activation ----------------------
@@ -946,9 +964,24 @@ def check_gqa_kernels(torch, bound, randn, pack, record):
             del copies, lib_in
 
 
+def host_us(torch, fn, n: int = 100) -> float:
+    """Host µs a call of ``fn`` (the wrapper's Python, ctypes and launch
+    enqueue; the device runs behind), after a synchronised warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     """quant_matmul_int8 and flash_attention against their plain versions at
-    the prefill path's shapes, timed as check_kernels times the others."""
+    the prefill paths' shapes (GPT-2-small's and the Qwen2-0.5B shape's),
+    timed as check_kernels times the others, with each call's launch plan
+    (split-K or split-KV cluster size) and the wrapper's host µs a call."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import quant_matmul as qm
 
@@ -957,10 +990,15 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
     n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
     F = torch.nn.functional
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- quant_matmul_int8: a layer's four projections and the f32 lm_head at
-    # 64 and 512 prompt rows, a ragged 9 rows, and the JAX package's own
-    # prefill yardstick, 2048^3 (bench.py:328-362).
+    # 64 and 512 prompt rows, a ragged 9 rows, the JAX package's own prefill
+    # yardstick, 2048^3 (bench.py:328-362), and the Qwen2-0.5B shape's qkv
+    # (with its bias), w_gu (SwiGLU's gate | up, N 9728 padded to 10240) and
+    # w_down at 64 and 512 rows.
+    qw = QWEN2["d_model"]
+    qkv_n = (QWEN2["n_heads"] + 2 * QWEN2["n_kv_heads"]) * (qw // QWEN2["n_heads"])
     shapes = []
     for m in (64, 512):
         shapes += [(f"qkv M={m}", m, 3 * d, d, None, True, bf16),
@@ -970,6 +1008,10 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
                    (f"lm_head_logits M={m}", m, n_vocab_pad, d, None, False, f32)]
     shapes += [("qkv M=9 (ragged)", 9, 3 * d, d, None, True, bf16),
                ("2048^3", 2048, 2048, 2048, None, False, bf16)]
+    for m in (64, 512):
+        shapes += [(f"qwen2 qkv M={m}", m, qkv_n, qw, None, True, bf16),
+                   (f"qwen2 w_gu M={m}", m, 10240, qw, None, False, bf16),
+                   (f"qwen2 w_down M={m}", m, qw, QWEN2_CFG["d_ff"], None, False, bf16)]
     for name, m, n, k, act, with_bias, out_dtype in shapes:
         def make(i, m=m, n=n, k=k, act=act, with_bias=with_bias, out_dtype=out_dtype):
             qt, s = pack(n, k)
@@ -993,20 +1035,29 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
                  for c in copies[:copies_for(2 * n * k)]]
         library = graph_ms(torch, [lambda w=w: F.linear(x, *w) for w in lib_w])
         record("quant_matmul_int8", f"{name} N={n} K={k}", err, tol, ms, plain,
-               bound(per_call, 2 * m * n * k), library)
+               bound(per_call, 2 * m * n * k), library,
+               split=qm.device_plan(torch.empty(m, k, device=dev, dtype=bf16), n)[1],
+               host_us=host_us(torch, lambda: qm.quant_matmul_int8(*args, **kw)))
         del copies, lib_w
 
     # -- flash_attention: causal over a 768-position cache at the prompts of
-    # phase 4 (64 and 512 tokens) and a follow-up prompt (24 tokens at
-    # q_offset 300); GQA and non-causal at small sizes. q and k at std 1.5
-    # give scores of std ~2.3, so the softmax is peaked and a wrong running
-    # max, rescale or dropped tile moves the output by O(1). The output is
-    # checked alone against its own max; the f32 kernel (the same values in
-    # f32) against the softmax in f64.
+    # phase 4 (64 and 512 tokens), a follow-up prompt (24 tokens at q_offset
+    # 300) and a chunk of 8; the Qwen2-0.5B shape's GQA (14 query heads over
+    # 2 kv heads) over a 1024-position cache at 64, 512 and 24 at 300; GQA
+    # and non-causal at small sizes. q and k at std 1.5 give scores of std
+    # ~2.3, so the softmax is peaked and a wrong running max, rescale or
+    # dropped tile moves the output by O(1). The output is checked alone
+    # against its own max; the f32 kernel (the same values in f32) against
+    # the softmax in f64.
+    qh, qk = QWEN2["n_heads"], QWEN2["n_kv_heads"]
     fa_cases = [  # name, b, hq, hk, tq, s, causal, q_offset, kv_len
         ("Tq=64 kv_len=64", 1, h, h, 64, CACHE_LEN, True, 0, 64),
         ("Tq=512 kv_len=512", 1, h, h, 512, CACHE_LEN, True, 0, 512),
         ("Tq=24 q_offset=300 kv_len=324", 1, h, h, 24, CACHE_LEN, True, 300, 324),
+        ("Tq=8 q_offset=300 kv_len=308", 1, h, h, 8, CACHE_LEN, True, 300, 308),
+        ("qwen2 Tq=64 kv_len=64", 1, qh, qk, 64, QWEN2_CACHE, True, 0, 64),
+        ("qwen2 Tq=512 kv_len=512", 1, qh, qk, 512, QWEN2_CACHE, True, 0, 512),
+        ("qwen2 Tq=24 q_offset=300 kv_len=324", 1, qh, qk, 24, QWEN2_CACHE, True, 300, 324),
         ("GQA Hq=12 Hk=4 Tq=100 q_offset=20", 2, h, 4, 100, 256, True, 20, 120),
         ("non-causal Tq=77 kv_len=200", 2, h, h, 77, 256, False, 0, 200),
     ]
@@ -1016,7 +1067,9 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
             kc, vc = randn(b, hk, s, hd, scale=1.5), randn(b, hk, s, hd)
             kw = dict(causal=causal, q_offset=torch.full((b,), q_off, dtype=torch.int32, device=dev),
                       kv_len=torch.full((b,), kv_len, dtype=torch.int32, device=dev))
-            return (q, kc, vc), kw
+            # Views of the S-position cache up to the prefix known on the
+            # host, as decoder._attention passes them (the plan reads S).
+            return (q, kc[:, :, :kv_len], vc[:, :, :kv_len]), kw
 
         args, kw = make(0)
         q, kc, vc = args
@@ -1060,9 +1113,11 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
         lib_kw["enable_gqa"] = hq != hk
         lib_in = [(c[0][0], c[0][1][:, :, :kv_len], c[0][2][:, :, :kv_len]) for c in copies]
         library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, **lib_kw) for t in lib_in])
-        record("flash_attention", f"{name} S={s} H={hq} D={hd}", err, tol, ms, plain,
+        record("flash_attention", f"{name} S={s} H={hq}/{hk} D={hd}", err, tol, ms, plain,
                bound(per_call, ops), library,
-               f"(f32 kernel vs f64 softmax err {err64:.3g} tol {tol64:.3g}; score std {score_std:.2f})")
+               f"(f32 kernel vs f64 softmax err {err64:.3g} tol {tol64:.3g}; score std {score_std:.2f})",
+               split=at.flash_plan(b, hq, hk, tq, kv_len, sms)[1],
+               host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
         del copies, lib_in
 
 
@@ -1080,6 +1135,17 @@ def stream_bytes(node, exclude=("tok_emb", "pos_emb")) -> int:
     if isinstance(node, list):
         return sum(stream_bytes(v, exclude) for v in node)
     return node.numel() * node.element_size() if hasattr(node, "numel") else 0  # a pack's "tiled" flag: none
+
+
+def prefill_device_us(torch, cfg, params, ids, cache_len, reps: int = 4) -> dict:
+    """Device µs by kernel of one prefill forward of ``ids`` [1, T] into a
+    fresh cache (the lm_head on the last position, its argmax), from the
+    profiler over ``reps`` forwards."""
+    from rten_tpu_torch.models import decoder
+
+    caches = [decoder.init_cache(cfg, 1, cache_len, device="cuda") for _ in range(reps)]
+    return device_us_by_kernel(torch, lambda: decoder.prefill(
+        params, cfg, ids, caches.pop(), lm_head_mode="argmax", last_only=True), reps)
 
 
 def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None, n_new=None, cache_len=None):
@@ -1159,13 +1225,12 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
         backend.reset()
         dispatch.reset_counters()
         backend.prefill(prompts[n], greedy=True)
-        per_prefill = dict(dispatch.LAUNCHES)
+        per_prefill, per_prefill_plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        need = ("flash_attention",) if cfg.w8a8 else ("quant_matmul_int8", "flash_attention")
+        if any(per_prefill_plain.values()) or not all(per_prefill.get(k) for k in need):
+            raise AssertionError(f"prefill {n}: launches {per_prefill}, plain {per_prefill_plain}")
 
-        ids_n = torch.from_numpy(prompts[n]).cuda()
-        caches = [decoder.init_cache(cfg, 1, cache_len, device="cuda") for _ in range(4)]
-        by_kernel = device_us_by_kernel(torch, lambda: decoder.prefill(
-            params, cfg, ids_n, caches.pop(), lm_head_mode="argmax", last_only=True), 4)
-        del caches
+        by_kernel = prefill_device_us(torch, cfg, params, torch.from_numpy(prompts[n]).cuda(), cache_len)
         dev_ms = sum(by_kernel.values()) / 1e3
         t_bytes, t_ops = weight / mem_rate * 1e3, 2 * n_body * n / op_rate * 1e3
         p_bound = max(t_bytes, t_ops)
@@ -1927,7 +1992,16 @@ KERNELS = {
     "quant_matmul_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul.cu",
                               replaces="rten_tpu/kernels/quant_matmul.py:590", timed="up+gelu M=64"),
     "flash_attention": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
-                            replaces="rten_tpu/kernels/attention.py:117", timed="Tq=64 kv_len=64"),
+                            replaces="rten_tpu/kernels/attention.py:117", timed="Tq=512 kv_len=512"),
+    # The split modes (a launch of the same kernel as a cluster that splits
+    # K, or the KV axis, and sums its partials through distributed shared
+    # memory): their cases are the kernel's cases whose plan splits.
+    "quant_matmul_int8:split_k": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul.cu",
+                                      replaces="rten_tpu/kernels/quant_matmul.py:590", timed="down M=64",
+                                      cases_of="quant_matmul_int8"),
+    "flash_attention:split_kv": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
+                                     replaces="rten_tpu/kernels/attention.py:117", timed="Tq=24 q_offset=300",
+                                     cases_of="flash_attention"),
     "decode_attention_int8": dict(source="rten_tpu_torch/kernels/csrc/decode_attention_int8.cu",
                                   replaces="rten_tpu/kernels/decode_attention.py:1667", timed="B=1 kv_len=300"),
     "paged_decode_attention": dict(source="rten_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -1960,6 +2034,44 @@ KERNELS = {
     "matmul_fused": dict(source="rten_tpu_torch/kernels/csrc/matmul_fused.cu",
                          replaces="rten_tpu/kernels/matmul_pallas.py:102", timed="512x768x3072", on_path=False),
 }
+
+
+def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
+    """``--prefill``: the two prefill kernels at both models' shapes (phase
+    3's check_prefill_kernels) and the device µs by kernel of one prefill
+    forward of GPT-2-small and of the Qwen2-0.5B shape at prompts 64 and
+    512, written to chiprun_out/prefill.json. A timing mode, not the
+    check: its last line is marked partial, never the full run's ok line."""
+    from rten_tpu_torch.models import decoder
+
+    randn, pack, _norm_vecs, bf16_err, record, cases = check_tools(torch)
+    log("[3/4] prefill kernels against their plain versions (GPT-2-small and Qwen2-0.5B shapes, bf16)")
+    check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record)
+    detail["cases"] = cases
+    log("[4/4] device us by kernel of one prefill forward")
+    forwards = {}
+    gen = torch.Generator().manual_seed(0)
+    for key, make_cfg, cache_len in (("gpt2", lambda: cfg, CACHE_LEN),
+                                     ("qwen2", lambda: decoder.DecoderConfig(**QWEN2_CFG, dtype=torch.bfloat16),
+                                      QWEN2_CACHE)):
+        mcfg = make_cfg()
+        params = (decoder.quantize_params_int8(decoder.init_params(0, mcfg, device="cuda"), device="cuda")
+                  if key == "gpt2" else qwen2_params(torch, mcfg))
+        for n in TTFT_PROMPTS:
+            ids = torch.randint(0, mcfg.vocab_size, (1, n), generator=gen).to(torch.int32).cuda()
+            by_kernel = prefill_device_us(torch, mcfg, params, ids, cache_len)
+            forwards[f"{key} {n}"] = by_kernel
+            log(f"  {key} prefill {n}: device {sum(by_kernel.values()) / 1e3:.4f} ms; by kernel (us):")
+            for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+                log(f"    {us:9.3f}  {name[:90]}")
+        del params
+        torch.cuda.empty_cache()
+    detail["prefill_forward_us"] = forwards
+    (OUT_DIR / "prefill.json").write_text(json.dumps(detail, indent=1))
+    print(smi)
+    print(json.dumps({"partial": "prefill", "kind": kind,
+                      "prefill_ms": {k: sum(v.values()) / 1e3 for k, v in forwards.items()}}))
+    return 0
 
 
 def main() -> int:
@@ -2008,6 +2120,8 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
+    if "--prefill" in sys.argv[1:]:
+        return prefill_only(torch, bound, cfg, detail, kind, smi)
     log("[3/9] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     detail["cases"] = cases
@@ -2041,7 +2155,8 @@ def main() -> int:
     log("[9/9] summary")
     entries = []
     for name, meta in KERNELS.items():
-        mine = [c for c in cases if c["kernel"] == name]
+        mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name)
+                and ("cases_of" not in meta or c["split"] > 1)]
         timed = next(c for c in mine if c["shape"].startswith(meta["timed"]))
         entries.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],

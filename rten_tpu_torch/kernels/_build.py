@@ -91,8 +91,10 @@ SIGNATURES = {
         _P, _I, _I, _I,              # x, x_bf16, m, k
         _P, _P, _P, _I,              # w_t, scales, bias, n
         _I, _P, _I,                  # act, out, out_bf16
+        _I, _I,                      # tok, split (quant_matmul.py matmul_plan)
         _P,                          # stream
     ],
+    "rt_quant_matmul_clusters": [_I, _I],  # tok, split
     "rt_quantize_rows": [
         _P, _I, _I, _I,              # x, x_bf16, m, k
         _P, _P, _P,                  # codes, sx, stream
@@ -110,7 +112,7 @@ SIGNATURES = {
         _P, _L, _L, _L,              # out ...
         _P, _P,                      # q_offset, kv_len
         _I, _I, _I, _I, _I, _I, _I,  # bf16, b, hq, hk, tq, s, d
-        _I, _F,                      # causal, sm_scale
+        _I, _F, _I,                  # causal, sm_scale, split (attention.py flash_plan)
         _P,                          # stream
     ],
     "rt_paged_attention": [

@@ -16,16 +16,34 @@ the kernel, so both give the Pallas kernel's result.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
-from rten_tpu_torch.kernels.quant_matmul import _stream
+from rten_tpu_torch.kernels.quant_matmul import _sms, _stream, split_for
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for (csrc/flash_attention.cu)
+# Launch plan of the bf16 kernel (flash_mma_kernel): a block owns FB_ROWS
+# (query, head of the GQA group) rows, query major, and walks KV tiles of
+# FB_KV positions; a cluster of ``split`` blocks divides the tiles.
+FB_ROWS, FB_KV = 64, 64
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_plan(b: int, hq: int, hk: int, tq: int, s: int, sms: int) -> tuple[int, int]:
+    """``(row_tiles, split)`` of one bf16 ``flash_attention`` launch on a
+    card with ``sms`` SMs: the 64-row tiles of a kv head's Tq · (Hq / Hk)
+    rows, and the split-KV cluster size (``split_for`` over the row tiles
+    of every kv head and batch row, at most the tiles of ``s`` positions).
+    The kernel divides the tiles the rows actually need (kv_len, q_offset:
+    on the device) among the ranks, rank r of ``split`` taking
+    ``[r n / split, (r + 1) n / split)`` of n tiles."""
+    row_tiles = -(-tq * (hq // hk) // FB_ROWS)
+    return row_tiles, split_for(row_tiles * hk * b, -(-s // FB_KV), sms)
 
 
 def _shapes(q, k, v):
@@ -93,10 +111,13 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     KV prefix (default S; the kernel clamps it to [0, S]). Both stay on the
     device. Returns [B, Hq, Tq, D] in q's dtype; the kernel's result is a
     view of a [B, Tq, Hq, D] buffer, so ``transpose(1, 2)`` of it is
-    contiguous.
+    contiguous. The split-KV plan reads S, so a caller that knows on the
+    host that no row's prefix reaches past n passes ``k[:, :, :n]``.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, head dim
-    64 or 128); CPU tensors run ``flash_attention_ref``."""
+    64 or 128; bf16 on the tensor cores, split over the KV axis across a
+    cluster by ``flash_plan``, such a launch also counted under
+    ``flash_attention:split_kv``); CPU tensors run ``flash_attention_ref``."""
     b, hq, tq, d, hk, s = _shapes(q, k, v)
     _per_row(q_offset, b, "q_offset")
     _per_row(kv_len, b, "kv_len")
@@ -114,14 +135,17 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
             raise ValueError(f"flash_attention: {name} must be a contiguous int32 [B] tensor")
     out = torch.empty((b, tq, hq, d), dtype=dtype, device=q.device).transpose(1, 2)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    split = flash_plan(b, hq, hk, tq, s, _sms(q))[1] if dtype == torch.bfloat16 else 1
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), *_strides(q, "q"), k.data_ptr(), *_strides(k, "k"),
         v.data_ptr(), *_strides(v, "v"), out.data_ptr(), *_strides(out, "out"),
         None if q_offset is None else q_offset.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(),
-        int(dtype == torch.bfloat16), b, hq, hk, tq, s, d, int(causal), float(scale),
+        int(dtype == torch.bfloat16), b, hq, hk, tq, s, d, int(causal), float(scale), split,
         _stream(q),
     )
     _build.check(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    if split > 1:
+        LAUNCHES["flash_attention:split_kv"] += 1
     return out

@@ -169,14 +169,6 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// f32 rounded to the element type T and back (bf16: one rounding; f32: none).
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) { return round_bf16(v); }
-
 __device__ __forceinline__ void store_elt(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_elt(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 

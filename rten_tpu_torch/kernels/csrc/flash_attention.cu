@@ -12,34 +12,70 @@
 // Replaces rten_tpu/kernels/attention.py flash_attention (:117; Pallas
 // kernel _flash_kernel :29) and keeps every part of its function: the mask
 // value -0.7 * f32 max (not -inf), the running max and sum in f32, KV tiles
-// wholly past kv_len or wholly above the diagonal skipped, P rounded to v's
-// dtype before P.V (the sum l from the unrounded P), and 0 for a row with
-// l = 0 (kv_len 0).
+// wholly past kv_len or wholly above the diagonal skipped and never read,
+// kv_len clamped to [0, S], P rounded to v's dtype before P.V (the sum l
+// from the unrounded P), and 0 for a row with l = 0 (kv_len 0).
 //
-// Bound on the H100: operations at prefill sizes (4 * D operations per
+// Bound on the H100: operations at long prompts (4 * D operations per
 // (query, key) pair against 2 * D bytes of k and v per key, reused by all
-// 64 rows of a q tile); bytes for short prompts.
+// rows of a q tile); bytes, and above all latency, for short prompts and
+// the chunks of <= 8 rows.
 //
-// Design (a first, simple version on the CUDA cores; tensor-core products
-// are later work):
+// What the first design (kept below as the f32 path) lost time on:
+// both products on the CUDA cores in f32, K and V staged synchronously and
+// converted to f32 one tile at a time behind two barriers, a grid of (q
+// tiles, Hq, B) that put 12 blocks on 132 SMs for a 24-row prompt, and
+// every query head of a GQA group staging its kv head's tiles again.
+//
+// bf16 (the main path), flash_mma_kernel:
+// - Both products on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate): S = Q K^T with Q's fragments in registers for the whole
+//   loop, then P (f32, rounded to bf16) reused in registers as the A
+//   operand of O += P V, with V read through ldmatrix.trans. Four warps, 16
+//   rows each. Not wgmma: at this path's shapes the work is at most ~0.4
+//   GFLOP a call (Tq 512, 12 heads), under 2 us even at a third of
+//   mma.sync's rate, so the time is latency and the grid, not the
+//   tensor-core rate; mma.sync keeps each warp's softmax in its own
+//   registers and lets a 64-row tile mix the query heads of a GQA group.
+// - K/V tiles of 64 positions in a ring of FB_STAGES bf16 stages filled by
+//   cp.async (16 bytes a thread, zero-filled past kv_len, so the tiles need
+//   no masking for NaN), one barrier a tile; nothing converts to f32 in
+//   shared memory.
+// - GQA: a block's 64 rows are (query, head of the group) pairs, query
+//   major, so the group's heads share the block's K/V stages and the causal
+//   bound stays that of the block's last query.
+// - Split-KV where (row tiles x Hk x B) leaves most SMs idle (attention.py
+//   flash_plan): a cluster of C blocks (C <= 8) shares a row tile; rank r
+//   walks KV tiles [r n / C, (r + 1) n / C) of the n its rows need (n read
+//   on the device: kv_len, q_offset). Each rank leaves (m, l, acc) in its
+//   shared memory; after a cluster barrier rank r combines a 1/C slice of
+//   the tile over ranks 0..C-1 in that order through distributed shared
+//   memory (the same bits on every launch) and writes it normalised.
+//
+// f32 (exact f32 products, no TF32), flash_kernel, the first design:
 // - One block of 256 threads per (64-row q tile, q head, batch row). A loop
 //   over 64-position K/V tiles inside the block, up to min(kv_len,
 //   q_offset + tile end), takes the place of the TPU's sequential kv grid
 //   axis; the running max, sum and output accumulator stay in f32
 //   registers across it. The block reads its row's q_offset and kv_len
 //   itself (the TPU's scalar prefetch).
-// - The q tile, each K and V tile (converted to f32) and the P tile sit in
-//   shared memory with rows padded by one float, so the column reads of
-//   the two products hit distinct banks. Only positions below kv_len are
-//   read from memory; the rest of a tile is zero.
+// - The q tile, each K and V tile and the P tile sit in shared memory with
+//   rows padded by one float, so the column reads of the two products hit
+//   distinct banks. Only positions below kv_len are read from memory; the
+//   rest of a tile is zero.
 // - Thread (ty, tx) owns query rows ty + 16 i (i < 4): scores of columns
 //   tx + 16 j (j < 4) and output columns tx + 16 j (j < D / 16). A row's
 //   maximum and sum reduce over its 16 threads, which share one half-warp.
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
+#include "tile_mma.cuh"
 
 namespace rt {
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256;
 constexpr float FA_MASK = -0.7f * 3.4028234663852886e38f;  // attention.py DEFAULT_MASK_VALUE
@@ -59,14 +95,14 @@ struct FlashArgs {
   float sm_scale;
 };
 
-// Rows [row0, row0 + n_valid) of a [*, D] operand (row stride `stride`
-// elements) into a 64-row f32 tile with row stride D + 1; rows past n_valid
-// are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src, long long stride, int row0,
+// Rows [row0, row0 + n_valid) of a [*, D] f32 operand (row stride
+// `stride` elements) into a 64-row tile with row stride D + 1; rows past
+// n_valid are zero.
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long stride, int row0,
                                            int n_valid) {
-  constexpr int VN = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int VPR = D / VN;         // loads per row
+  constexpr int VN = 4;         // floats per 16-byte load
+  constexpr int VPR = D / VN;   // loads per row
   for (int i = threadIdx.x; i < FA_BQ * VPR; i += FA_THREADS) {
     const int r = i / VPR, c = (i % VPR) * VN;
     float f[VN];
@@ -93,7 +129,7 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   constexpr int LD = D + 1, LP = FA_BK + 1, DJ = D / 16;
   extern __shared__ float4 fa_smem[];
@@ -113,10 +149,10 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   const int kv_end = a.causal ? min(kv_len, q_off + q0 + FA_BQ) : kv_len;
   const int n_tiles = kv_end > 0 ? (kv_end + FA_BK - 1) / FA_BK : 0;
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  stage_tile<T, D>(qs, qp, a.q_st, q0, min(FA_BQ, a.tq - q0));
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  stage_tile<D>(qs, qp, a.q_st, q0, min(FA_BQ, a.tq - q0));
 
   float m_i[4], l_i[4], acc[4][DJ];
 #pragma unroll
@@ -130,8 +166,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int c0 = t * FA_BK;
     __syncthreads();  // the previous tile's readers (and the q staging) are done
-    stage_tile<T, D>(ks, kp, a.k_ss, c0, min(FA_BK, kv_len - c0));
-    stage_tile<T, D>(vs, vp, a.v_ss, c0, min(FA_BK, kv_len - c0));
+    stage_tile<D>(ks, kp, a.k_ss, c0, min(FA_BK, kv_len - c0));
+    stage_tile<D>(vs, vp, a.v_ss, c0, min(FA_BK, kv_len - c0));
     __syncthreads();
 
     float s[4][4];
@@ -170,7 +206,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
-        ps[(ty + 16 * i) * LP + tx + 16 * j] = round_to<T>(p);
+        ps[(ty + 16 * i) * LP + tx + 16 * j] = p;  // v's dtype: no rounding in f32
       }
       l_i[i] = alpha * l_i[i] + half_warp_sum(rs);
       m_i[i] = m_new;
@@ -193,40 +229,322 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
     }
   }
 
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= a.tq) continue;
     const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store_elt(op + r * a.o_st + tx + 16 * j, acc[i][j] * inv);
+    for (int j = 0; j < DJ; ++j) op[r * a.o_st + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_flash(const FlashArgs& a, int b, cudaStream_t st) {
   constexpr size_t smem = (3 * FA_BQ * (D + 1) + FA_BQ * (FA_BK + 1)) * sizeof(float);
   static bool smem_allowed = false;
-  const cudaError_t e = allow_smem(flash_kernel<T, D>, smem, smem_allowed);
+  const cudaError_t e = allow_smem(flash_kernel<D>, smem, smem_allowed);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.tq + FA_BQ - 1) / FA_BQ, a.hq, b);
-  flash_kernel<T, D><<<grid, FA_THREADS, smem, st>>>(a);
+  flash_kernel<D><<<grid, FA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+
+// ---- bf16: tensor cores, cp.async ring, split-KV across a cluster --------
+
+constexpr int FB_ROWS = 64, FB_KV = 64, FB_THREADS = 128;
+constexpr int FB_MAX_CLUSTER = 8;  // attention.py MAX_SPLIT
+
+template <int D>
+struct FbLayout {
+  static constexpr int LD = D + 8;                  // bf16 row stride: ldmatrix rows in distinct banks
+  static constexpr int STAGES = D == 64 ? 3 : 2;    // K/V ring depth
+  static constexpr int TILE = FB_ROWS * LD;         // bf16 elements of a Q, K or V tile
+  static constexpr int SMEM = (1 + 2 * STAGES) * TILE * 2;
+  static constexpr int LDO = D + 4;                 // f32 row stride of the split partials
+  static_assert((FB_ROWS * LDO + 2 * FB_ROWS) * 4 <= SMEM, "the partials reuse the tiles");
+};
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
+  using L = FbLayout<D>;
+  constexpr int LD = L::LD, CH = D / 8;  // 16-byte chunks a row
+  extern __shared__ float4 fb_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fb_smem);
+  __nv_bfloat16* ring = qs + L::TILE;  // stage s: K at ring + 2 s TILE, V after it
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  const int group = a.hq / a.hk, rows = a.tq * group;
+  const int r0 = (blockIdx.x / n_split) * FB_ROWS;  // packed row r = query r / group, head r % group
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, mat = lane >> 3, r8 = lane & 7;
+
+  const int q_off = (a.causal && a.q_offset) ? a.q_offset[b] : 0;
+  const int kv_len = min(max(a.kv_len ? a.kv_len[b] : a.s, 0), a.s);
+  const int last_q = min(r0 + FB_ROWS - 1, rows - 1) / group;
+  const int kv_end = a.causal ? min(kv_len, q_off + last_q + 1) : kv_len;
+  const int n_tiles = kv_end > 0 ? (kv_end + FB_KV - 1) / FB_KV : 0;
+  const int t_begin = rank * n_tiles / n_split;
+  const int n_mine = (rank + 1) * n_tiles / n_split - t_begin;
+
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hkv * a.k_sh;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hkv * a.v_sh;
+
+  for (int c = tid; c < FB_ROWS * CH; c += FB_THREADS) {
+    const int r = c / CH, d8 = (c % CH) * 8, pr = r0 + r;
+    const bool ok = pr < rows;
+    const __nv_bfloat16* src =
+        ok ? qp + (hkv * group + pr % group) * a.q_sh + (long long)(pr / group) * a.q_st + d8 : qp;
+    cp_async16(qs + r * LD + d8, src, ok);
+  }
+  cp_async_commit();
+  auto load_kv = [&](int tile, int stage) {
+    const int c0 = tile * FB_KV;
+    __nv_bfloat16* ks = ring + 2 * stage * L::TILE;
+    __nv_bfloat16* vs = ks + L::TILE;
+    for (int c = tid; c < FB_KV * CH; c += FB_THREADS) {
+      const int r = c / CH, d8 = (c % CH) * 8;
+      const bool ok = c0 + r < kv_len;
+      const long long pos = ok ? c0 + r : 0;
+      cp_async16(ks + r * LD + d8, kp + pos * a.k_ss + d8, ok);
+      cp_async16(vs + r * LD + d8, vp + pos * a.v_ss + d8, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < L::STAGES - 1; ++s) {
+    if (s < n_mine) load_kv(t_begin + s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<L::STAGES - 1>();  // the Q group
+  __syncthreads();
+
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldmatrix_x4(qf[kk], qs + (warp * 16 + r8 + (mat & 1) * 8) * LD + kk * 16 + (mat >> 1) * 8);
+  }
+  // This thread's rows: warp * 16 + g and + 8; their queries' absolute positions.
+  const int lr0 = warp * 16 + g;
+  const int qpos[2] = {q_off + (r0 + lr0) / group, q_off + (r0 + lr0 + 8) / group};
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int i = 0; i < n_mine; ++i) {
+    cp_async_wait<L::STAGES - 2>();  // tile i has landed (this thread's copies) ...
+    __syncthreads();                 // ... everyone's, and tile i - 1's stage is free
+    if (i + L::STAGES - 1 < n_mine) load_kv(t_begin + i + L::STAGES - 1, (i + L::STAGES - 1) % L::STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* ks = ring + 2 * (i % L::STAGES) * L::TILE;
+    const __nv_bfloat16* vs = ks + L::TILE;
+    const int c0 = (t_begin + i) * FB_KV;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {  // key positions jn * 16 .. + 15: two n8 tiles
+        unsigned bfr[4];
+        ldmatrix_x4(bfr, ks + (jn * 16 + r8 + (mat >> 1) * 8) * LD + kk * 16 + (mat & 1) * 8);
+        mma_bf16(s[2 * jn], qf[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * jn + 1], qf[kk], bfr[2], bfr[3]);
+      }
+    }
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = col < kv_len && (!a.causal || col <= qpos[e >> 1]);
+        s[j][e] = ok ? s[j][e] * a.sm_scale : FA_MASK;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_i[h], quad_max(mx[h]));
+      alpha[h] = expf(m_i[h] - m_new);
+      m_i[h] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+    uint32_t pa[4][4];  // P as the A operand of P V: k16 chunk j / 2
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[j][e] - m_i[e >> 1]);
+        rs[e >> 1] += p[e];
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16x2(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_i[h] = alpha[h] * l_i[h] + quad_sum(rs[h]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // key positions kk * 16 .. + 15
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        unsigned bfr[4];
+        ldmatrix_x4_trans(bfr, vs + (kk * 16 + (mat & 1) * 8 + r8) * LD + dn * 16 + (mat >> 1) * 8);
+        mma_bf16(o[2 * dn], pa[kk], bfr[0], bfr[1]);
+        mma_bf16(o[2 * dn + 1], pa[kk], bfr[2], bfr[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb;
+  if (n_split == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pr = r0 + lr0 + 8 * h;
+      if (pr >= rows) continue;
+      const float inv = l_i[h] == 0.f ? 1.f : 1.f / l_i[h];
+      __nv_bfloat16* row = op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // Split: (m, l, acc) of the 64 rows into this block's shared memory, then
+  // rank r combines its slice of the tile over ranks 0..C-1 in order.
+  __syncthreads();  // every warp is done with the tiles
+  float* red_o = reinterpret_cast<float*>(fb_smem);  // [64][LDO]
+  float* red_m = red_o + FB_ROWS * L::LDO;           // [64]
+  float* red_l = red_m + FB_ROWS;                    // [64]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lr = lr0 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(red_o + lr * L::LDO + 8 * j + 2 * t) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
+    }
+    if (t == 0) {
+      red_m[lr] = m_i[h];
+      red_l[lr] = l_i[h];
+    }
+  }
+  cluster.sync();
+  // Four neighbouring d of a row a thread, every rank's (m, l, acc) load in
+  // flight before the fixed-order sums.
+  constexpr int V = FB_ROWS * D / 4;
+  const int v_end = (rank + 1) * V / n_split;
+  for (int v = rank * V / n_split + tid; v < v_end; v += FB_THREADS) {
+    const int lr = v / (D / 4), d = (v % (D / 4)) * 4, pr = r0 + lr;
+    if (pr >= rows) continue;
+    float mq[FB_MAX_CLUSTER], lq[FB_MAX_CLUSTER];
+    float4 oq[FB_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < FB_MAX_CLUSTER; ++q) {
+      if (q < n_split) {
+        mq[q] = *cluster.map_shared_rank(red_m + lr, q);
+        lq[q] = *cluster.map_shared_rank(red_l + lr, q);
+        oq[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red_o + lr * L::LDO + d, q));
+      }
+    }
+    float m_all = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < FB_MAX_CLUSTER; ++q)
+      if (q < n_split) m_all = fmaxf(m_all, mq[q]);
+    float l_sum = 0.f;
+    float4 o_sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m_all != -INFINITY) {
+#pragma unroll
+      for (int q = 0; q < FB_MAX_CLUSTER; ++q) {
+        if (q < n_split) {
+          const float w = expf(mq[q] - m_all);
+          l_sum += w * lq[q];
+          o_sum = make_float4(o_sum.x + w * oq[q].x, o_sum.y + w * oq[q].y, o_sum.z + w * oq[q].z,
+                              o_sum.w + w * oq[q].w);
+        }
+      }
+    }
+    const float inv = l_sum == 0.f ? 1.f : 1.f / l_sum;
+    uint2 packed;
+    packed.x = pack_bf16x2(o_sum.x * inv, o_sum.y * inv);
+    packed.y = pack_bf16x2(o_sum.z * inv, o_sum.w * inv);
+    *reinterpret_cast<uint2*>(op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st + d) =
+        packed;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int D>
+cudaError_t launch_flash_mma(const FlashArgs& a, int b, int split, cudaStream_t st) {
+  using L = FbLayout<D>;
+  static bool smem_allowed = false;
+  cudaError_t e = allow_smem(flash_mma_kernel<D>, L::SMEM, smem_allowed);
+  if (e != cudaSuccess) return e;
+  const int row_tiles = (a.tq * (a.hq / a.hk) + FB_ROWS - 1) / FB_ROWS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(row_tiles * split, a.hk, b);
+  cfg.blockDim = dim3(FB_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;  // a plain launch is a cluster of one
+  e = cudaLaunchKernelEx(&cfg, flash_mma_kernel<D>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace rt
 
+// split (1..8: blocks of a cluster along the KV axis) comes from
+// attention.py flash_plan; the f32 path ignores it.
 extern "C" int rt_flash_attention(
     const void* q, long long q_sb, long long q_sh, long long q_st,
     const void* k, long long k_sb, long long k_sh, long long k_ss,
     const void* v, long long v_sb, long long v_sh, long long v_ss,
     void* o, long long o_sb, long long o_sh, long long o_st,
     const int* q_offset, const int* kv_len,
-    int bf16, int b, int hq, int hk, int tq, int s, int d, int causal, float sm_scale,
+    int bf16, int b, int hq, int hk, int tq, int s, int d, int causal, float sm_scale, int split,
     void* stream) {
-  if (b < 1 || b > 65535 || hq < 1 || hq > 65535 || hk < 1 || hq % hk || tq < 1 || s < 1) {
+  if (b < 1 || b > 65535 || hq < 1 || hq > 65535 || hk < 1 || hq % hk || tq < 1 || s < 1 || split < 1 ||
+      split > rt::FB_MAX_CLUSTER) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const rt::FlashArgs a{q, q_sb, q_sh, q_st, k, k_sb, k_sh, k_ss, v, v_sb, v_sh, v_ss,
@@ -234,9 +552,9 @@ extern "C" int rt_flash_attention(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (d == 64) {
-    e = bf16 ? rt::launch_flash<__nv_bfloat16, 64>(a, b, st) : rt::launch_flash<float, 64>(a, b, st);
+    e = bf16 ? rt::launch_flash_mma<64>(a, b, split, st) : rt::launch_flash<64>(a, b, st);
   } else if (d == 128) {
-    e = bf16 ? rt::launch_flash<__nv_bfloat16, 128>(a, b, st) : rt::launch_flash<float, 128>(a, b, st);
+    e = bf16 ? rt::launch_flash_mma<128>(a, b, split, st) : rt::launch_flash<128>(a, b, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -366,6 +366,81 @@ def quant_gemv_int8(
     return result
 
 
+# Launch plan of the bf16 prefill matmul (csrc/quant_matmul.cu
+# qmm_wgmma_kernel): a block owns ``tok`` tokens and ``tok`` output channels
+# (64 for each of its tok / 64 consumer warpgroups), a stage QW_BK of K; a
+# cluster of ``split`` blocks divides the n K steps, rank r taking
+# ``[r n / split, (r + 1) n / split)``.
+QW_BK = 128
+MAX_SPLIT = 8  # blocks of a cluster (the portable cluster size)
+
+
+def split_for(tiles: int, steps: int, sms: int, fits: tuple[int, ...] | None = None) -> int:
+    """Blocks a cluster splits the reduction over: 1 while the ``tiles``
+    blocks fill at least half the ``sms`` SMs; else as many as fill the
+    card, at most ``MAX_SPLIT`` and at most ``steps`` (no rank idle), and,
+    given ``fits`` (``fits[c - 1]``: the clusters of c blocks the device
+    holds at once), no more than lets all ``tiles`` clusters run at once
+    (a cluster lives in one GPC, so 5 or 6 blocks that each fill an SM
+    leave some of a GPC's SMs unused)."""
+    if 2 * tiles >= sms:
+        return 1
+    for split in range(max(1, min(MAX_SPLIT, steps, sms // tiles)), 1, -1):
+        if fits is None or tiles <= fits[split - 1]:
+            return split
+    return 1
+
+
+def matmul_tokens(m: int) -> int:
+    return 64 if m <= 64 else 128
+
+
+@functools.lru_cache(maxsize=1024)
+def matmul_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None = None) -> tuple[int, int]:
+    """``(tok, split)`` of one bf16 ``quant_matmul_int8`` launch on a card
+    with ``sms`` SMs: tokens a block (``matmul_tokens``: 64 up to 64 rows,
+    else 128) and the split-K cluster size (``split_for``; ``fits``: the
+    device's cluster capacity for that block, ``cluster_capacity``)."""
+    tok = matmul_tokens(m)
+    tiles = -(-n // tok) * -(-m // tok)  # tok channels a block too: a 64-channel warpgroup per 64 tokens
+    return tok, split_for(tiles, -(-k // QW_BK), sms, fits)
+
+
+@functools.lru_cache(maxsize=32)
+def cluster_capacity(device_index: int, tok: int) -> tuple[int, ...]:
+    """``fits`` of ``split_for`` for the matmul's ``tok``-token block on
+    this device: clusters of 1..MAX_SPLIT blocks it holds at once
+    (``cudaOccupancyMaxActiveClusters``), queried once."""
+    lib = _build.library()
+    with torch.cuda.device(device_index):
+        fits = tuple(int(lib.rt_quant_matmul_clusters(tok, c)) for c in range(1, MAX_SPLIT + 1))
+    for c, n in enumerate(fits, 1):
+        if n < 0:
+            _build.check(-n, f"quant_matmul_int8 cluster capacity (tok {tok}, cluster {c})")
+    return fits
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _device_index(t) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _sms(t) -> int:
+    return sm_count(_device_index(t))
+
+
+def device_plan(x, n: int) -> tuple[int, int]:
+    """``matmul_plan`` of bf16 rows ``x`` [M, K] against N output channels
+    on x's card, with its SM count and cluster capacity."""
+    m, k = x.shape
+    idx = _device_index(x)
+    return matmul_plan(m, n, k, sm_count(idx), cluster_capacity(idx, matmul_tokens(m)))
+
+
 def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=None):
     """Prefill matmul with the epilogue applied once, after the whole K sum:
 
@@ -377,8 +452,10 @@ def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
 
     M ≤ 8 hands off to ``quant_gemv_int8``, as the TPU function does. Above
     that, CUDA tensors launch ``csrc/quant_matmul.cu``: bf16 activations on
-    the tensor cores (``mma.sync``, f32 accumulation), f32 activations on an
-    f32 SIMT path with exact f32 products (no rounding to bf16 or TF32). CPU
+    the tensor cores (``wgmma`` from a TMA-fed ring, f32 accumulation,
+    split-K across a cluster by ``matmul_plan``), f32 activations on an f32
+    SIMT path with exact f32 products (no rounding to bf16 or TF32). A
+    split-K launch also counts under ``quant_matmul_int8:split_k``. CPU
     tensors run ``quant_matmul_int8_ref``."""
     m, k = x.shape
     n = w_t.shape[0]
@@ -394,14 +471,17 @@ def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     scales = _vec_f32(scales, n, "scales")
     bias = _vec_f32(bias, n, "bias")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    tok, split = device_plan(x, n) if x.dtype == torch.bfloat16 else (0, 1)
     rc = _build.library().rt_quant_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
         w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,
         activation_code(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        _stream(x),
+        tok, split, _stream(x),
     )
     _build.check(rc, "quant_matmul_int8")
     LAUNCHES["quant_matmul_int8"] += 1
+    if split > 1:
+        LAUNCHES["quant_matmul_int8:split_k"] += 1
     return out
 
 

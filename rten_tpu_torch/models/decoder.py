@@ -680,11 +680,11 @@ def _attention(q, k, v, cache, li: int, q_offset, kv_len):
     package's eager int8 branch, ``decoder.py:812-845``)."""
     b, t, h, hd = q.shape
     if cache is not None:
+        n = int(cache["host_len"].max()) + t  # no row's prefix reaches past it
         rows = torch.arange(b, device=q.device)[:, None]
         pos = q_offset.long()[:, None] + torch.arange(t, device=q.device)  # [B, T]
         k_cache, v_cache = cache["k"][li], cache["v"][li]
         if "k_scale" in cache:
-            n = int(cache["host_len"].max()) + t  # no row's prefix reaches past it
             out = []
             for new, codes, scales in ((k, k_cache, cache["k_scale"][li]), (v, v_cache, cache["v_scale"][li])):
                 q8, s8 = quantize_kv(new)  # [B, T, Hk, D], [B, T, Hk]
@@ -695,7 +695,7 @@ def _attention(q, k, v, cache, li: int, q_offset, kv_len):
         else:
             k_cache[rows, :, pos] = k
             v_cache[rows, :, pos] = v
-            k, v = k_cache, v_cache
+            k, v = k_cache[:, :, :n], v_cache[:, :, :n]  # the split-KV plan reads S
     else:
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     attn = flash_attention(q.transpose(1, 2), k, v, causal=True, q_offset=q_offset, kv_len=kv_len)

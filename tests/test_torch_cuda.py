@@ -1203,3 +1203,165 @@ def test_tiny_llama_engines_match_cpu(dev, engine):
             "paged_int8": "paged_decode_attention_int8:gqa"}[engine]
     assert dispatch.LAUNCHES[mode] > 0 and not dispatch.PLAIN
     assert on_card == _engine_outputs(make, cpu_params, cfg, specs, "cpu", **kw)[0]
+
+
+# -- the Hopper prefill kernels: split-K quant_matmul_int8 (wgmma on a TMA
+# ring) and split-KV flash_attention (tensor cores on a cp.async ring) --
+
+SPLIT_K_SHAPES = [(768, 3072), (896, 4864)]  # GPT-2-small's and Qwen2-0.5B's down projections
+
+
+@pytest.mark.parametrize("m", [9, 20, 64, 65, 512])
+@pytest.mark.parametrize("n,k", SPLIT_K_SHAPES)
+def test_matmul_split_k_matches_plain(dev, m, n, k):
+    gen = torch.Generator(device=dev).manual_seed(50)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=dev)
+    split = qm.device_plan(x, n)[1]
+    assert split > 1 or m >= 512
+    before = dispatch.LAUNCHES["quant_matmul_int8:split_k"]
+    out = qm.quant_matmul_int8(x, qt, s, bias)
+    assert dispatch.LAUNCHES["quant_matmul_int8:split_k"] == before + (split > 1)
+    _close(out, qm.quant_matmul_int8_ref(x, qt, s, bias), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (9, 200, 16),      # K of one 16-wide piece: one stage, mostly zero-filled
+    (40, 131, 400),    # K not a multiple of the 128-deep stage; N not of the 64-channel tile
+    (64, 72, 1040),    # 9 K steps over a split that does not divide them
+    (300, 1000, 528),  # ragged M over 128-token tiles
+])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_matmul_ragged_edges_match_plain(dev, m, n, k, with_bias):
+    gen = torch.Generator(device=dev).manual_seed(51)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=dev) if with_bias else None
+    for out_dtype in (torch.bfloat16, torch.float32):
+        out = qm.quant_matmul_int8(x, qt, s, bias, out_dtype=out_dtype)
+        _close(out, qm.quant_matmul_int8_ref(x, qt, s, bias, out_dtype=out_dtype), torch.bfloat16)
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "relu", "silu", "sigmoid", "tanh"])
+@pytest.mark.parametrize("m,n,k", [(64, 768, 3072), (512, 3072, 768)])
+def test_matmul_split_and_wide_activations(dev, act, m, n, k):
+    gen = torch.Generator(device=dev).manual_seed(52)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=dev)
+    _close(qm.quant_matmul_int8(x, qt, s, bias, activation=act),
+           qm.quant_matmul_int8_ref(x, qt, s, bias, activation=act), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 768, 3072), (64, 896, 4864), (512, 3072, 768), (20, 1152, 896)])
+def test_matmul_bitwise_deterministic(dev, m, n, k):
+    """Two launches on the same inputs give the same bits: the split-K sum
+    runs over the cluster's ranks in a fixed order, with no atomics."""
+    gen = torch.Generator(device=dev).manual_seed(53)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=dev)
+    outs = [qm.quant_matmul_int8(x, qt, s, bias, out_dtype=torch.float32) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=64, causal=True, seed=60):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (1.5 * torch.randn(b, hq, tq, d, generator=gen, device=dev)).to(torch.bfloat16)
+    k = (1.5 * torch.randn(b, hk, s, d, generator=gen, device=dev)).to(torch.bfloat16)
+    v = torch.randn(b, hk, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(causal=causal, q_offset=torch.tensor(q_offset, dtype=torch.int32, device=dev),
+              kv_len=torch.tensor(kv_len, dtype=torch.int32, device=dev))
+    return (q, k, v), kw
+
+
+# (b, hq, hk, tq, s, q_offset, kv_len): each a grid of few blocks, so split over KV.
+SPLIT_KV_CASES = {
+    **{f"tq{t}_chunk": (1, 12, 12, t, 768, [300], [300 + t]) for t in range(1, 9)},
+    "tq24_at_300": (1, 12, 12, 24, 768, [300], [324]),
+    "kv_len_0_row": (2, 4, 4, 24, 512, [0, 100], [0, 124]),
+    "kv_len_on_tile_edge": (2, 4, 4, 8, 512, [120, 248], [128, 256]),
+    "kv_len_on_split_edge": (1, 4, 4, 16, 1024, [496], [512]),
+    "kv_len_full": (1, 4, 4, 24, 512, [488], [512]),
+    "gqa_14_over_2_tq8": (1, 14, 2, 8, 1024, [300], [308]),
+    "gqa_14_over_2_tq64": (1, 14, 2, 64, 1024, [0], [64]),
+    "gqa_14_over_2_tq24_at_300": (1, 14, 2, 24, 1024, [300], [324]),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_KV_CASES))
+def test_flash_split_kv_matches_plain(dev, case):
+    from rten_tpu_torch.kernels.attention import flash_plan
+    from rten_tpu_torch.kernels.quant_matmul import _sms
+
+    b, hq, hk, tq, s, q_offset, kv_len = SPLIT_KV_CASES[case]
+    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len)
+    split = flash_plan(b, hq, hk, tq, s, _sms(args[0]))[1]
+    assert split > 1
+    before = dispatch.LAUNCHES["flash_attention:split_kv"]
+    out = flash_attention(*args, **kw)
+    assert dispatch.LAUNCHES["flash_attention:split_kv"] == before + 1
+    ref = flash_attention_ref(*args, **kw)
+    _close_own_max(out, ref, torch.bfloat16)
+    if case == "kv_len_0_row":
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("case", ["tq24_at_300", "gqa_14_over_2_tq8", "kv_len_on_split_edge"])
+def test_flash_split_kv_head_dim_128(dev, case):
+    b, hq, hk, tq, s, q_offset, kv_len = SPLIT_KV_CASES[case]
+    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=128)
+    _close_own_max(flash_attention(*args, **kw), flash_attention_ref(*args, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,hq,hk,tq,s,q_offset,kv_len", [
+    (1, 14, 2, 512, 1024, [0], [512]),    # Qwen2-0.5B's heads at a 512-token prompt: no split
+    (1, 12, 12, 512, 768, [0], [512]),    # GPT-2-small's
+    (2, 14, 2, 100, 256, [20, 0], [120, 77]),
+])
+def test_flash_gqa_long_prompts_match_plain(dev, b, hq, hk, tq, s, q_offset, kv_len):
+    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len)
+    _close_own_max(flash_attention(*args, **kw), flash_attention_ref(*args, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["tq24_at_300", "gqa_14_over_2_tq64", "kv_len_0_row"])
+def test_flash_bitwise_deterministic(dev, case):
+    """Two launches on the same inputs give the same bits: the split-KV
+    partials combine over the cluster's ranks in a fixed order."""
+    args, kw = _flash_case(dev, *SPLIT_KV_CASES[case])
+    outs = [flash_attention(*args, **kw) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    args, kw = _flash_case(dev, 1, 12, 12, 512, 768, [0], [512])
+    assert torch.equal(flash_attention(*args, **kw), flash_attention(*args, **kw))
+
+
+def test_flash_sliced_prefix_caps_the_split(dev):
+    """The split-KV plan reads S, so a caller that slices k/v to the prefix
+    it knows of (the decoder's ``host_len`` + T, a view with the cache's
+    strides) launches one tile's worth unsplit, with the split launch over
+    the whole cache giving the same result up to the order of its sums."""
+    (q, k, v), kw = _flash_case(dev, 1, 12, 12, 64, 768, [0], [64])
+    before = dispatch.LAUNCHES["flash_attention:split_kv"]
+    sliced = flash_attention(q, k[:, :, :64], v[:, :, :64], **kw)
+    assert dispatch.LAUNCHES["flash_attention:split_kv"] == before
+    split = flash_attention(q, k, v, **kw)
+    assert dispatch.LAUNCHES["flash_attention:split_kv"] == before + 1
+    ref = flash_attention_ref(q, k, v, **kw)
+    _close_own_max(sliced, ref, torch.bfloat16)
+    _close_own_max(split, ref, torch.bfloat16)
+
+
+def test_matmul_cluster_capacity(dev):
+    """The device's cluster capacity of both matmul blocks: a positive count
+    for every cluster size, falling as clusters grow, and the plan of the
+    few-tile projections within it."""
+    for tok in (64, 128):
+        fits = qm.cluster_capacity(0, tok)
+        assert len(fits) == qm.MAX_SPLIT and all(n > 0 for n in fits)
+        assert all(a >= b for a, b in zip(fits, fits[1:]))
+        assert fits[0] >= qm.sm_count(0) // (2 if tok == 128 else 3)
+    for m, n, k in [(64, 768, 3072), (512, 768, 3072), (512, 1152, 896), (64, 896, 4864)]:
+        tok, split = qm.device_plan(torch.empty(m, k, device=dev, dtype=torch.bfloat16), n)
+        tiles = -(-n // tok) * -(-m // tok)
+        assert split > 1 and tiles <= qm.cluster_capacity(0, tok)[split - 1]

@@ -1,0 +1,194 @@
+"""The host-side launch plans of the Hopper prefill kernels, on the CPU:
+``quant_matmul.matmul_plan`` (tokens a block, split-K cluster size of
+``csrc/quant_matmul.cu``) and ``attention.flash_plan`` (row tiles, split-KV
+cluster size of ``csrc/flash_attention.cu``).
+
+Each plan is checked for coverage (every K step and every KV tile a row
+needs is walked by exactly one rank, and no tile a row cannot see, with
+each rank's range as the kernels compute it on the device: ``split_ranges``
+and ``flash_tile_ranges`` below copy that arithmetic, so the card tests at
+split and tile edges are what hold the kernels to it), for the hardware's
+limits (a cluster of at most 8 blocks, grid y and z at most
+65535, the K steps or KV tiles at least the split), and for where the split
+turns on: exactly where the output tiles alone would leave most of the SMs
+idle, and (given the device's cluster capacity, modelled here on an
+H100's GPCs) only as far as every cluster runs at once.
+"""
+
+import random
+
+import pytest
+
+from rten_tpu_torch.kernels import attention as at
+from rten_tpu_torch.kernels import quant_matmul as qm
+
+H100_SMS = 132
+# A model of an H100's cluster capacity for the matmul's blocks: eight GPCs
+# of uneven size (132 SMs in all); a cluster lives in one GPC, and a
+# 128-token block fills its SM (a 64-token one takes half).
+H100_GPCS = (18, 18, 18, 18, 16, 16, 14, 14)
+
+
+def _fits(per_sm: int) -> tuple[int, ...]:
+    return tuple(sum(g * per_sm // c for g in H100_GPCS) for c in range(1, qm.MAX_SPLIT + 1))
+
+
+FITS = {64: _fits(2), 128: _fits(1)}
+
+# The prefill projections of GPT-2-small (d 768, d_ff 3072, vocab padded to
+# 51200) and of the Qwen2-0.5B shape (d 896, qkv 1152, w_gu 10240, d_ff
+# 4864), at the prompts the chip check runs, and ragged shapes.
+MATMUL_SHAPES = [
+    (m, n, k)
+    for m in (9, 20, 64, 65, 512)
+    for n, k in ((2304, 768), (768, 768), (3072, 768), (768, 3072), (51200, 768),
+                 (1152, 896), (896, 896), (10240, 896), (896, 4864))
+] + [(2048, 2048, 2048), (9, 200, 16), (40, 131, 400), (64, 72, 1040), (300, 1000, 528)]
+
+
+def split_ranges(n: int, split: int) -> list[tuple[int, int]]:
+    """The ``[begin, end)`` of each of ``split`` ranks over ``n`` steps, as
+    both kernels divide K steps and KV tiles: rank r takes
+    ``[r n / split, (r + 1) n / split)``."""
+    return [(r * n // split, (r + 1) * n // split) for r in range(split)]
+
+
+def flash_tile_ranges(row_tile, tq, group, q_offset, kv_len, s, causal, split):
+    """The KV tiles each rank of a split cluster walks for one row tile, as
+    ``flash_mma_kernel`` computes them: kv_len clamped to [0, S]; the tiles
+    up to the block's last query's diagonal (causal) or kv_len."""
+    kv_len = min(max(kv_len, 0), s)
+    last_q = min(row_tile * at.FB_ROWS + at.FB_ROWS - 1, tq * group - 1) // group
+    kv_end = min(kv_len, q_offset + last_q + 1) if causal else kv_len
+    return split_ranges(-(-kv_end // at.FB_KV) if kv_end > 0 else 0, split)
+
+
+def _covered_once(ranges, n):
+    steps = [i for lo, hi in ranges for i in range(lo, hi)]
+    return sorted(steps) == list(range(n))
+
+
+@pytest.mark.parametrize("n,split", [(0, 1), (5, 8), (7, 3), (24, 8), (97, 6)])
+def test_split_ranges_cover_each_step_once(n, split):
+    ranges = split_ranges(n, split)
+    assert len(ranges) == split
+    assert _covered_once(ranges, n)
+    assert all(lo <= hi for lo, hi in ranges)
+    if split <= n:  # no rank idle
+        assert all(hi > lo for lo, hi in ranges)
+
+
+@pytest.mark.parametrize("m,n,k", MATMUL_SHAPES)
+def test_matmul_plan_limits_and_coverage(m, n, k):
+    fits = FITS[qm.matmul_tokens(m)]
+    tok, split = qm.matmul_plan(m, n, k, H100_SMS, fits)
+    steps = -(-k // qm.QW_BK)
+    tiles = -(-n // tok) * -(-m // tok)
+    assert tok in (64, 128) and (tok == 64) == (m <= 64)
+    assert 1 <= split <= qm.MAX_SPLIT and split <= steps
+    assert split == 1 or tiles <= fits[split - 1]  # every cluster runs at once
+    assert -(-m // tok) <= 65535
+    # every K step once, and the steps cover [0, K)
+    ranges = split_ranges(steps, split)
+    assert _covered_once(ranges, steps)
+    assert ranges[-1][1] * qm.QW_BK >= k > (ranges[-1][1] - 1) * qm.QW_BK
+    # the split turns on exactly where the tiles leave most SMs idle (and a
+    # cluster of two fits them all), and then never puts more blocks on the
+    # card than it has SMs
+    assert (split > 1) == (2 * tiles < H100_SMS and steps > 1 and tiles <= fits[1])
+    if split > 1:
+        assert tiles * split <= H100_SMS
+
+
+def test_matmul_plan_main_path_splits():
+    """The few-tile projections split K; the wide ones do not (at 64 rows
+    GPT-2 down 12 tiles x 8, wo 12 x 6, Qwen2 w_down 14 x 8; at 512 rows,
+    128 x 128 tiles, GPT-2 down 24 x 4, Qwen2 qkv 36 x 3)."""
+    def plan(m, n, k):
+        return qm.matmul_plan(m, n, k, H100_SMS, FITS[qm.matmul_tokens(m)])
+
+    assert plan(64, 768, 3072) == (64, 8)
+    assert plan(64, 768, 768) == (64, 6)
+    assert plan(64, 896, 4864) == (64, 8)
+    assert plan(64, 10240, 896) == (64, 1)
+    assert plan(512, 768, 3072) == (128, 4)  # 24 clusters of 5 do not fit 8 GPCs at once
+    assert plan(512, 1152, 896) == (128, 3)
+    assert plan(512, 10240, 896) == (128, 1)
+    assert plan(2048, 2048, 2048) == (128, 1)
+    # without the device's capacity, as many as fill the SMs
+    assert qm.matmul_plan(512, 768, 3072, H100_SMS) == (128, 5)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 114, 132])
+def test_matmul_plan_other_cards(sms):
+    rnd = random.Random(sms)
+    for _ in range(200):
+        m, n, k = rnd.randint(9, 4096), rnd.randint(1, 20000), 16 * rnd.randint(1, 400)
+        tok, split = qm.matmul_plan(m, n, k, sms)
+        tiles = -(-n // tok) * -(-m // tok)
+        assert 1 <= split <= min(qm.MAX_SPLIT, -(-k // qm.QW_BK))
+        assert (split > 1) == (2 * tiles < sms and k > qm.QW_BK)
+        assert split == 1 or tiles * split <= sms
+
+
+FLASH_SHAPES = [  # b, hq, hk, tq, s
+    (1, 12, 12, tq, 768) for tq in (1, 2, 5, 8, 24, 64, 100, 512)
+] + [(1, 14, 2, tq, 1024) for tq in (1, 8, 24, 64, 512)] + [
+    (2, 4, 4, 24, 512), (2, 4, 4, 8, 512), (1, 4, 4, 16, 1024), (2, 14, 2, 100, 256), (8, 12, 12, 1, 768),
+    (1, 32, 8, 3000, 4096), (4, 2, 1, 9, 64),
+]
+
+
+@pytest.mark.parametrize("b,hq,hk,tq,s", FLASH_SHAPES)
+def test_flash_plan_limits(b, hq, hk, tq, s):
+    row_tiles, split = at.flash_plan(b, hq, hk, tq, s, H100_SMS)
+    group = hq // hk
+    assert (row_tiles - 1) * at.FB_ROWS < tq * group <= row_tiles * at.FB_ROWS
+    kv_tiles = -(-s // at.FB_KV)
+    assert 1 <= split <= min(qm.MAX_SPLIT, kv_tiles)
+    assert hk <= 65535 and b <= 65535
+    base = row_tiles * hk * b
+    assert (split > 1) == (2 * base < H100_SMS and kv_tiles > 1)
+    if split > 1:
+        assert base * split <= H100_SMS
+
+
+def test_flash_plan_main_path_splits():
+    """Short prompts and the <= 8-row chunks split KV; 512-token prompts
+    (96 and 112 blocks) do not."""
+    assert at.flash_plan(1, 12, 12, 24, 768, H100_SMS) == (1, 8)
+    assert at.flash_plan(1, 12, 12, 64, 768, H100_SMS) == (1, 8)
+    assert at.flash_plan(1, 14, 2, 64, 1024, H100_SMS) == (7, 8)
+    assert at.flash_plan(1, 14, 2, 8, 1024, H100_SMS) == (1, 8)
+    assert at.flash_plan(1, 12, 12, 512, 768, H100_SMS) == (8, 1)
+    assert at.flash_plan(1, 14, 2, 512, 1024, H100_SMS) == (56, 1)
+
+
+def _needed_tiles(row_tile, tq, group, q_offset, kv_len, s, causal):
+    """KV tiles holding a column some row of the tile may attend to."""
+    kv_len = min(max(kv_len, 0), s)
+    rows = range(row_tile * at.FB_ROWS, min((row_tile + 1) * at.FB_ROWS, tq * group))
+    cols = set()
+    for r in rows:
+        hi = min(kv_len, q_offset + r // group + 1) if causal else kv_len
+        cols.update(range(hi))
+    return sorted({c // at.FB_KV for c in cols})
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiles_cover_each_needed_tile_once(causal):
+    """Every KV tile some row of a block may see is walked by exactly one
+    rank of its cluster; no tile wholly past kv_len or above the block's
+    diagonal is read (kv_len clamped to [0, S])."""
+    for b, hq, hk, tq, s in FLASH_SHAPES[:16]:
+        row_tiles, split = at.flash_plan(b, hq, hk, tq, s, H100_SMS)
+        group = hq // hk
+        rnd = random.Random(tq * 1000 + s)
+        for q_offset, kv_len in [(0, tq), (0, 0), (s - tq, s), (300 % s, 300 % s + tq), (0, s + 50), (7, -3)] + [
+                (rnd.randint(0, s), rnd.randint(-5, s + 5)) for _ in range(6)]:
+            for rt in range(row_tiles):
+                ranges = flash_tile_ranges(rt, tq, group, q_offset, kv_len, s, causal, split)
+                walked = sorted(i for lo, hi in ranges for i in range(lo, hi))
+                assert len(ranges) == split
+                assert walked == _needed_tiles(rt, tq, group, q_offset, kv_len, s, causal), \
+                    (b, hq, hk, tq, s, rt, q_offset, kv_len)
