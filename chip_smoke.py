@@ -3,9 +3,10 @@
 NVIDIA card.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --prefill  # phases 1-2, the prefill kernels' checks, and one
-                                     # prefill forward's device time by kernel (see
-                                     # prefill_only); its last line is marked partial
+    python3 chip_smoke.py --prefill  # phases 1-2, the prefill kernels' and matmul_fused's
+                                     # checks, and one prefill forward's device time by
+                                     # kernel, weight-only and W8A8 (see prefill_only);
+                                     # its last line is marked partial
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -16,11 +17,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the W8A8 ones: the w8a8 modes of the decode GEMV and MLP,
    quantize_rows_int8 and quant_matmul_w8a8; decode_block, the whole
    layer in one kernel, beside the two kernels it replaces;
-   matmul_fused in bf16 and f32; the silu / sigmoid / tanh epilogues;
-   decode_attention at 8 rows of mixed lengths) at GPT-2-small's shapes
-   (bf16 activations, int8 weights), the prefill matmul and flash attention
-   at the Qwen2-0.5B shape's too (each with its split-K or split-KV plan
-   and its wrapper's host µs a call), and the KV kernels' Llama/Qwen2-class
+   matmul_fused on its wgmma, ragged and f32 routes; the silu / sigmoid /
+   tanh epilogues; decode_attention at 8 rows of mixed lengths) at
+   GPT-2-small's shapes (bf16 activations, int8 weights), the prefill
+   matmuls (weight-only and W8A8) and flash attention at the Qwen2-0.5B
+   shape's too (each with its split-K or split-KV plan and its wrapper's
+   host µs a call; the W8A8 matmul also without its row quantizer), and
+   the KV kernels' Llama/Qwen2-class
    modes (unpacked q / k_new / v_new with 14 query heads over 2 kv heads,
    decode_attention with and without its fused wo, the int8 and paged
    kernels) at Qwen2-0.5B's attention shapes, each against its plain
@@ -70,7 +73,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    without its wo) against the plain versions;
 9. the line {"kernels": [...]} (the launches summed over phases 4-8, the
    split-K and split-KV launches also under their own names;
-   matmul_fused, which no model calls, launches in phase 3 only), the
+   matmul_fused, which no model calls, launches in phase 3 only, its
+   ragged route also under its own name), the
    nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
 Details (every case, the compiler's register report) go to
@@ -438,6 +442,18 @@ def check_kernels(torch, bound, cfg):
     return cases
 
 
+def w8_err(out, ref, code=0.0):
+    """A W8A8 kernel's output against its plain version's: both sum the
+    same codes exactly and round after each epilogue product, so they agree
+    to one bf16 rounding of the output (2^-7 of its max) and 1e-6 of it
+    (GELU's exp), plus ``code`` where a norm runs first."""
+    import torch
+
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    return err, (2.0**-7 * top if out.dtype == torch.bfloat16 else 0.0) + 1e-6 * max(1.0, top) + code
+
+
 def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
     """The W8A8 kernels against their plain versions at GPT-2-small's shapes
     (bf16 activations), timed as check_kernels times the others, bounded at
@@ -455,11 +471,6 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
     f32 = torch.float32
     d, ff = cfg.d_model, cfg.d_ff
     n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
-
-    def w8_err(out, ref, code=0.0):
-        err = (out.float() - ref.float()).abs().max().item()
-        top = ref.float().abs().max().item()
-        return err, (2.0**-7 * top if out.dtype == torch.bfloat16 else 0.0) + 1e-6 * max(1.0, top) + code
 
     def code(scales, rows):  # one activation code's largest contribution
         return scales.max().item() * rows.float().abs().max().item()
@@ -569,13 +580,32 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
                    bound(per_call, ops, int8=True))
             del copies
 
-    # -- quant_matmul_w8a8: a layer's four projections at 64 and 512 prompt
-    # rows, and 2048^3. Its time is both launches (quantize, then matmul).
+    check_w8a8_matmul(torch, bound, cfg, randn, pack, record)
+
+
+def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
+    """quant_matmul_w8a8 at the prefill projections of GPT-2-small (a
+    layer's four, with GELU on the up one) and of the Qwen2-0.5B shape (qkv
+    with its bias, w_gu, w_down) at 64 and 512 prompt rows, and 2048^3,
+    against its plain version. Its time (ms) is both launches, quantize then
+    matmul; ``matmul_ms`` is the matmul launch alone on the same codes
+    (``quant_matmul_w8a8_codes``), the like-for-like time beside
+    torch._int_mm's; with the split-K plan and the wrapper's host µs a
+    call."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    f32 = torch.float32
+    d, ff = cfg.d_model, cfg.d_ff
+    qw = QWEN2["d_model"]
+    qkv_n = (QWEN2["n_heads"] + 2 * QWEN2["n_kv_heads"]) * (qw // QWEN2["n_heads"])
     shapes = []
     for m in (64, 512):
         shapes += [(f"qkv M={m}", m, 3 * d, d, None, True), (f"wo M={m}", m, d, d, None, True),
                    (f"up+gelu M={m}", m, ff, d, "gelu", True), (f"down M={m}", m, d, ff, None, True)]
     shapes.append(("2048^3", 2048, 2048, 2048, None, False))
+    for m in (64, 512):
+        shapes += [(f"qwen2 qkv M={m}", m, qkv_n, qw, None, True), (f"qwen2 w_gu M={m}", m, 10240, qw, None, False),
+                   (f"qwen2 w_down M={m}", m, qw, QWEN2_CFG["d_ff"], None, False)]
     for name, m, n, k, act, with_bias in shapes:
         def make(i, m=m, n=n, k=k, act=act, with_bias=with_bias):
             qt, s = pack(n, k)
@@ -589,11 +619,17 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
         copies = [make(i) for i in range(copies_for(per_call))]
         ms = graph_ms(torch, [lambda a=a, kw=kw: qm.quant_matmul_w8a8(*a, **kw) for a, kw in copies])
         plain = eager_ms(torch, lambda: qm.quant_matmul_w8a8_ref(*args, **kw))
-        lib_in = [(qm.quantize_rows_int8(c[0][0])[0], c[0][1].t()) for c in copies]
+        codes = [qm.quantize_rows_int8(c[0][0]) for c in copies]
+        matmul_ms = graph_ms(torch, [lambda c=c, a=a: qm.quant_matmul_w8a8_codes(*c, *a[0][1:], out_dtype=x.dtype,
+                                                                                 **kw)
+                                     for c, a in zip(codes, copies)])
+        lib_in = [(c[0], a[0][1].t()) for c, a in zip(codes, copies)]
         library = graph_ms(torch, [lambda t=t: torch._int_mm(*t) for t in lib_in])
         record("quant_matmul_w8a8", f"{name} N={n} K={k}", err, tol, ms, plain,
-               bound(per_call, 2 * m * n * k, int8=True), library)
-        del copies, lib_in
+               bound(per_call, 2 * m * n * k, int8=True), library, matmul_ms=matmul_ms,
+               split=qm.w8a8_device_plan(codes[0][0], n)[2],
+               host_us=host_us(torch, lambda: qm.quant_matmul_w8a8(*args, **kw)))
+        del copies, codes, lib_in
 
 
 def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
@@ -602,18 +638,14 @@ def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, rec
     times the others: decode_block (GPT-2-small's block at
     kv_len 1 / 300 / 767 of S 768, with and without the next qkv; beside it
     the time of the two kernels it replaces on the same inputs), matmul_fused
-    (512 x 768 x 3072 bf16 + GELU, the up projection's shape dense; 2048^3
-    bf16; 1024^3 f32 against the f32 CUDA-core rate; library yardstick
-    torch.addmm, without the activation), the silu / sigmoid / tanh epilogues
+    (check_matmul_fused), the silu / sigmoid / tanh epilogues
     of quant_matmul_int8 and quant_matmul_w8a8 at the up shape, M 64, and
     decode_attention at B 8 with mixed lengths (the port's counterpart of the
     TPU kernel's batched mode: one launch for all rows)."""
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
-    from rten_tpu_torch.kernels.matmul import matmul_fused, matmul_fused_ref
 
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(5555)
     bf16, f32 = torch.bfloat16, torch.float32
     d, ff, h, hd, s_max = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim, CACHE_LEN
     F = torch.nn.functional
@@ -735,33 +767,51 @@ def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, rec
                    **({} if w8 else {"split": qm.device_plan(args[0], ff)[1]}))
             del copies, lib_in
 
-    # -- matmul_fused: dense x @ w + bias, activation ----------------------
-    for label, mm, kk, nn, dtype, act, with_bias in (("512x768x3072 bf16+gelu", 512, d, ff, bf16, "gelu", True),
-                                                    ("2048^3 bf16", 2048, 2048, 2048, bf16, None, False),
-                                                    ("1024^3 f32", 1024, 1024, 1024, f32, None, False)):
+    check_matmul_fused(torch, bound, cfg, randn, bf16_err, record)
+
+
+def check_matmul_fused(torch, bound, cfg, randn, bf16_err, record):
+    """matmul_fused against its plain version on its three routes: the
+    wgmma route (512 x 768 x 3072 bf16 + GELU, the up projection's shape
+    dense; 2048^3 bf16), the ragged route (the same two with N 3070 and K
+    2046, rows TMA cannot address) and the f32 route (1024^3, against the
+    f32 CUDA-core rate); library yardstick torch.addmm (torch.mm without a
+    bias), without the activation; with each call's route, split-K plan and
+    the wrapper's host µs a call."""
+    from rten_tpu_torch.kernels import matmul as mf
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, ff = cfg.d_model, cfg.d_ff
+    for label, mm, kk, nn, dtype, act, with_bias in (
+            ("512x768x3072 bf16+gelu", 512, d, ff, bf16, "gelu", True),
+            ("2048^3 bf16", 2048, 2048, 2048, bf16, None, False),
+            ("1024^3 f32", 1024, 1024, 1024, f32, None, False),
+            ("512x768x3070 bf16+gelu", 512, d, ff - 2, bf16, "gelu", True),
+            ("2048x2046x2048 bf16", 2048, 2046, 2048, bf16, None, False)):
         def make_mf(i, mm=mm, kk=kk, nn=nn, dtype=dtype, with_bias=with_bias):
             x = randn(mm, kk, dtype=dtype)
             w = randn(kk, nn, scale=kk**-0.5, dtype=dtype)
             return x, w, 0.1 * randn(nn, dtype=f32) if with_bias else None
 
         args = make_mf(0)
-        out = matmul_fused(*args, activation=act)
-        ref = matmul_fused_ref(*args, activation=act)
+        out = mf.matmul_fused(*args, activation=act)
+        ref = mf.matmul_fused_ref(*args, activation=act)
         torch.cuda.synchronize()
         if dtype == f32:  # exact f32 products (no TF32), f32 sums in another order
             err, tol = (out - ref).abs().max().item(), 1e-5 * max(1.0, ref.abs().max().item())
         else:
             err, tol = bf16_err(out, ref)
-        x, w, bias = args
         per_call = nbytes(*args) + mm * nn * out.element_size()
         copies = [make_mf(i) for i in range(copies_for(per_call))]
-        ms = graph_ms(torch, [lambda a=a: matmul_fused(*a, activation=act) for a in copies])
-        plain = eager_ms(torch, lambda: matmul_fused_ref(*args, activation=act))
+        ms = graph_ms(torch, [lambda a=a: mf.matmul_fused(*a, activation=act) for a in copies])
+        plain = eager_ms(torch, lambda: mf.matmul_fused_ref(*args, activation=act))
         lib_in = [(c[0], c[1], c[2].to(dtype) if c[2] is not None else None) for c in copies]
         library = graph_ms(torch, [lambda t=t: torch.addmm(t[2], t[0], t[1]) if t[2] is not None
                                    else torch.mm(t[0], t[1]) for t in lib_in])
+        route, _bn, split = mf.device_fused_plan(args[0], args[1])
         record("matmul_fused", f"{label} M={mm} K={kk} N={nn}", err, tol, ms, plain,
-               bound(per_call, 2 * mm * nn * kk, f32=dtype == f32), library)
+               bound(per_call, 2 * mm * nn * kk, f32=dtype == f32), library, route=route, split=split,
+               host_us=host_us(torch, lambda: mf.matmul_fused(*args, activation=act)))
         del copies, lib_in
 
 
@@ -1711,7 +1761,7 @@ def drive_w8a8(torch, cfg, params, mem_rate, int8_rate, out):
                                                              device=dev), specs)
     out["w8a8_gate"] = gate
     out["w8a8_serving"] = dict(wall_s=wall, tokens_per_s=total_new / wall, launches=run_launches,
-                               streams_equal=equal, at_8_rows=at_8)
+                               streams_equal=equal, at_8_rows=at_8, streams=[r.output for r in reqs])
     for name, n in run_launches.items():
         launches[name] = launches.get(name, 0) + n
     return launches
@@ -1998,10 +2048,10 @@ KERNELS = {
     # memory): their cases are the kernel's cases whose plan splits.
     "quant_matmul_int8:split_k": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul.cu",
                                       replaces="rten_tpu/kernels/quant_matmul.py:590", timed="down M=64",
-                                      cases_of="quant_matmul_int8"),
+                                      cases_of="quant_matmul_int8", select=lambda c: c.get("split", 1) > 1),
     "flash_attention:split_kv": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
                                      replaces="rten_tpu/kernels/attention.py:117", timed="Tq=24 q_offset=300",
-                                     cases_of="flash_attention"),
+                                     cases_of="flash_attention", select=lambda c: c.get("split", 1) > 1),
     "decode_attention_int8": dict(source="rten_tpu_torch/kernels/csrc/decode_attention_int8.cu",
                                   replaces="rten_tpu/kernels/decode_attention.py:1667", timed="B=1 kv_len=300"),
     "paged_decode_attention": dict(source="rten_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -2014,6 +2064,9 @@ KERNELS = {
                                 replaces="rten_tpu/kernels/quant_matmul.py:895", timed="mlp+next_qkv M=1"),
     "quant_matmul_w8a8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
                               replaces="rten_tpu/kernels/quant_matmul.py:760", timed="up+gelu M=64"),
+    "quant_matmul_w8a8:split_k": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
+                                      replaces="rten_tpu/kernels/quant_matmul.py:760", timed="down M=64",
+                                      cases_of="quant_matmul_w8a8", select=lambda c: c.get("split", 1) > 1),
     "quantize_rows_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
                                replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64"),
     "decode_block": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
@@ -2030,25 +2083,35 @@ KERNELS = {
                                             replaces="rten_tpu/kernels/paged_attention.py:413",
                                             timed="B=1 kv_len=300"),
     # No model calls matmul_fused (the JAX package's tests alone do): it is
-    # held against its plain version in phase 3 and launches on no main path.
+    # held against its plain version in phase 3 and launches on no main
+    # path. Its ragged route (bf16 rows TMA cannot address) likewise.
     "matmul_fused": dict(source="rten_tpu_torch/kernels/csrc/matmul_fused.cu",
                          replaces="rten_tpu/kernels/matmul_pallas.py:102", timed="512x768x3072", on_path=False),
+    "matmul_fused:ragged": dict(source="rten_tpu_torch/kernels/csrc/matmul_fused.cu",
+                                replaces="rten_tpu/kernels/matmul_pallas.py:102", timed="512x768x3070",
+                                on_path=False, cases_of="matmul_fused", select=lambda c: c.get("route") == "ragged"),
 }
 
 
 def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
-    """``--prefill``: the two prefill kernels at both models' shapes (phase
-    3's check_prefill_kernels) and the device µs by kernel of one prefill
+    """``--prefill``: the prefill kernels at both models' shapes (phase 3's
+    check_prefill_kernels and check_w8a8_matmul), matmul_fused on its three
+    routes (check_matmul_fused), and the device µs by kernel of one prefill
     forward of GPT-2-small and of the Qwen2-0.5B shape at prompts 64 and
-    512, written to chiprun_out/prefill.json. A timing mode, not the
-    check: its last line is marked partial, never the full run's ok line."""
+    512, weight-only and W8A8, written to chiprun_out/prefill.json. A timing
+    mode, not the check: its last line is marked partial, never the full
+    run's ok line."""
+    import dataclasses
+
     from rten_tpu_torch.models import decoder
 
     randn, pack, _norm_vecs, bf16_err, record, cases = check_tools(torch)
-    log("[3/4] prefill kernels against their plain versions (GPT-2-small and Qwen2-0.5B shapes, bf16)")
+    log("[3/4] prefill kernels and matmul_fused against their plain versions (GPT-2-small and Qwen2-0.5B shapes)")
     check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record)
+    check_w8a8_matmul(torch, bound, cfg, randn, pack, record)
+    check_matmul_fused(torch, bound, cfg, randn, bf16_err, record)
     detail["cases"] = cases
-    log("[4/4] device us by kernel of one prefill forward")
+    log("[4/4] device us by kernel of one prefill forward, weight-only and W8A8")
     forwards = {}
     gen = torch.Generator().manual_seed(0)
     for key, make_cfg, cache_len in (("gpt2", lambda: cfg, CACHE_LEN),
@@ -2059,11 +2122,12 @@ def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
                   if key == "gpt2" else qwen2_params(torch, mcfg))
         for n in TTFT_PROMPTS:
             ids = torch.randint(0, mcfg.vocab_size, (1, n), generator=gen).to(torch.int32).cuda()
-            by_kernel = prefill_device_us(torch, mcfg, params, ids, cache_len)
-            forwards[f"{key} {n}"] = by_kernel
-            log(f"  {key} prefill {n}: device {sum(by_kernel.values()) / 1e3:.4f} ms; by kernel (us):")
-            for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-                log(f"    {us:9.3f}  {name[:90]}")
+            for mode, run_cfg in (("", mcfg), (" w8a8", dataclasses.replace(mcfg, w8a8=True))):
+                by_kernel = prefill_device_us(torch, run_cfg, params, ids, cache_len)
+                forwards[f"{key}{mode} {n}"] = by_kernel
+                log(f"  {key}{mode} prefill {n}: device {sum(by_kernel.values()) / 1e3:.4f} ms; by kernel (us):")
+                for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+                    log(f"    {us:9.3f}  {name[:90]}")
         del params
         torch.cuda.empty_cache()
     detail["prefill_forward_us"] = forwards
@@ -2155,8 +2219,7 @@ def main() -> int:
     log("[9/9] summary")
     entries = []
     for name, meta in KERNELS.items():
-        mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name)
-                and ("cases_of" not in meta or c["split"] > 1)]
+        mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]
         timed = next(c for c in mine if c["shape"].startswith(meta["timed"]))
         entries.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],

@@ -82,11 +82,12 @@ SIGNATURES = {
         _F, _P,                      # sm_scale, stream
     ],
     "rt_matmul_fused": [
-        _P, _P, _P, _I,              # x, w, bias, bf16
+        _P, _P, _P, _I,              # x, w, bias, route (matmul.py ROUTES)
         _I, _I, _I,                  # m, n, k
-        _I, _P, _I,                  # act, out, out_bf16
+        _I, _P, _I, _I, _I,          # act, out, out_bf16, bn, split (matmul.py fused_plan)
         _P,                          # stream
     ],
+    "rt_matmul_fused_clusters": [_I, _I, _I],  # route, bn, split
     "rt_quant_matmul": [
         _P, _I, _I, _I,              # x, x_bf16, m, k
         _P, _P, _P, _I,              # w_t, scales, bias, n
@@ -103,8 +104,10 @@ SIGNATURES = {
         _P, _P, _I, _I,              # codes, sx, m, k
         _P, _P, _P, _I,              # w_t, scales, bias, n
         _I, _P, _I,                  # act, out, out_bf16
+        _I, _I, _I,                  # tok, ch, split (quant_matmul.py w8a8_plan)
         _P,                          # stream
     ],
+    "rt_quant_matmul_w8a8_clusters": [_I, _I, _I],  # tok, ch, split
     "rt_flash_attention": [
         _P, _L, _L, _L,              # q and its batch, head, position strides
         _P, _L, _L, _L,              # k ...

@@ -1,8 +1,8 @@
-// The 64 x 128 output tile of 256 threads of matmul_fused.cu (dense bf16
-// or f32 weights; both loops) and of quant_matmul.cu's f32 path (int8
-// weights; the f32 loop). Each kernel stages its own operands into shared
-// memory; the K loops, the tensor-core step and the order of the epilogue
-// are here. The mma_bf16 step and pack_bf16x2 serve flash_attention.cu too.
+// The 64 x 128 output tile of 256 threads of matmul_fused.cu's ragged route
+// (dense bf16 rows TMA cannot address; the bf16 loop) and of
+// quant_matmul.cu's f32 path (int8 weights; the f32 loop). Each kernel
+// stages its own operands into shared memory; the K loops, the tensor-core
+// step and the order of the epilogue are here. The mma_bf16 step and pack_bf16x2 serve flash_attention.cu too.
 //
 // - bf16 (tensor cores): per K step of 32, the A tile (64 rows x 32, k
 //   contiguous) and the B tile are staged as bf16 into two buffers, the

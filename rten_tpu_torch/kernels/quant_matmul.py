@@ -366,11 +366,12 @@ def quant_gemv_int8(
     return result
 
 
-# Launch plan of the bf16 prefill matmul (csrc/quant_matmul.cu
-# qmm_wgmma_kernel): a block owns ``tok`` tokens and ``tok`` output channels
-# (64 for each of its tok / 64 consumer warpgroups), a stage QW_BK of K; a
-# cluster of ``split`` blocks divides the n K steps, rank r taking
-# ``[r n / split, (r + 1) n / split)``.
+# Launch plan of the prefill matmuls on int8 weights (csrc/quant_matmul.cu
+# qmm_wgmma_kernel, bf16 activations; csrc/quant_matmul_w8a8.cu
+# qmm_s8_wgmma_kernel, W8A8 codes): a block owns ``tok`` tokens and ``tok``
+# output channels (64 for each of its tok / 64 consumer warpgroups), a stage
+# QW_BK of K; a cluster of ``split`` blocks divides the n K steps, rank r
+# taking ``[r n / split, (r + 1) n / split)``.
 QW_BK = 128
 MAX_SPLIT = 8  # blocks of a cluster (the portable cluster size)
 
@@ -407,17 +408,47 @@ def matmul_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None =
 
 
 @functools.lru_cache(maxsize=32)
-def cluster_capacity(device_index: int, tok: int) -> tuple[int, ...]:
-    """``fits`` of ``split_for`` for the matmul's ``tok``-token block on
-    this device: clusters of 1..MAX_SPLIT blocks it holds at once
+def cluster_capacity(device_index: int, tok: int, kernel: str = "int8", ch: int = 64) -> tuple[int, ...]:
+    """``fits`` of ``split_for`` for ``kernel``'s ``tok``-token block on
+    this device (``"int8"``: quant_matmul.cu's bf16 block; ``"w8a8"``:
+    quant_matmul_w8a8.cu's, with ``ch`` output channels a consumer
+    warpgroup): clusters of 1..MAX_SPLIT blocks it holds at once
     (``cudaOccupancyMaxActiveClusters``), queried once."""
     lib = _build.library()
     with torch.cuda.device(device_index):
-        fits = tuple(int(lib.rt_quant_matmul_clusters(tok, c)) for c in range(1, MAX_SPLIT + 1))
+        if kernel == "int8":
+            fits = tuple(int(lib.rt_quant_matmul_clusters(tok, c)) for c in range(1, MAX_SPLIT + 1))
+        else:
+            fits = tuple(int(lib.rt_quant_matmul_w8a8_clusters(tok, ch, c)) for c in range(1, MAX_SPLIT + 1))
     for c, n in enumerate(fits, 1):
         if n < 0:
-            _build.check(-n, f"quant_matmul_int8 cluster capacity (tok {tok}, cluster {c})")
+            _build.check(-n, f"{kernel} matmul cluster capacity (tok {tok}, ch {ch}, cluster {c})")
     return fits
+
+
+def w8a8_channels(m: int, n: int, sms: int) -> int:
+    """Output channels a consumer warpgroup of the W8A8 matmul takes: 128
+    (two wgmma M tiles on each stage's codes: a 128-token block of 256
+    channels) where such blocks still fill at least 7/8 of the ``sms`` SMs
+    in one wave (2048^3, the Qwen2-0.5B shape's ``w_gu`` at 512 rows), else
+    64 (measured on the H100: the wide block is 4-25% faster there and
+    slower wherever its tiles are fewer)."""
+    if matmul_tokens(m) == 128 and 8 * (-(-n // 256) * -(-m // 128)) >= 7 * sms:
+        return 128
+    return 64
+
+
+@functools.lru_cache(maxsize=1024)
+def w8a8_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None = None) -> tuple[int, int, int]:
+    """``(tok, ch, split)`` of one ``quant_matmul_w8a8`` matmul launch on a
+    card with ``sms`` SMs: tokens a block (``matmul_tokens``), output
+    channels a consumer warpgroup (``w8a8_channels``; a block has one per
+    64 tokens) and the split-K cluster size (``split_for`` over K stages of
+    ``QW_BK`` codes; ``fits``: the device's cluster capacity for that
+    block, ``cluster_capacity``)."""
+    tok, ch = matmul_tokens(m), w8a8_channels(m, n, sms)
+    tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
+    return tok, ch, split_for(tiles, -(-k // QW_BK), sms, fits)
 
 
 @functools.lru_cache(maxsize=16)
@@ -439,6 +470,16 @@ def device_plan(x, n: int) -> tuple[int, int]:
     m, k = x.shape
     idx = _device_index(x)
     return matmul_plan(m, n, k, sm_count(idx), cluster_capacity(idx, matmul_tokens(m)))
+
+
+def w8a8_device_plan(codes, n: int) -> tuple[int, int, int]:
+    """``w8a8_plan`` of codes [M, K] against N output channels on their
+    card, with its SM count and the chosen block's cluster capacity."""
+    m, k = codes.shape
+    idx = _device_index(codes)
+    sms = sm_count(idx)
+    tok, ch = matmul_tokens(m), w8a8_channels(m, n, sms)
+    return w8a8_plan(m, n, k, sms, cluster_capacity(idx, tok, "w8a8", ch))
 
 
 def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=None):
@@ -523,11 +564,11 @@ def quant_matmul_w8a8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     M ≤ 8 hands off to ``quant_gemv_int8(w8a8=True)``, the same function
     (per-row codes, exact sums, the same epilogue; the TPU function has no
     hand-off). Above that, CUDA tensors launch the two kernels of
-    ``csrc/quant_matmul_w8a8.cu``: ``quantize_rows_int8``, then the int8
-    tensor-core matmul (``mma.sync`` s8 × s8 → s32). CPU tensors run
+    ``csrc/quant_matmul_w8a8.cu``: ``quantize_rows_int8``, then
+    ``quant_matmul_w8a8_codes`` (int8 ``wgmma`` from a TMA-fed ring, split-K
+    across a cluster by ``w8a8_plan``). CPU tensors run
     ``quant_matmul_w8a8_ref``."""
     m, k = x.shape
-    n = w_t.shape[0]
     if m <= MAX_ROWS:
         return quant_gemv_int8(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype, w8a8=True)
     out_dtype = out_dtype or x.dtype
@@ -537,18 +578,48 @@ def quant_matmul_w8a8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     _check_weight(w_t, k, "quant_matmul_w8a8")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quant_matmul_w8a8: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    codes, sx = quantize_rows_int8(x)
+    return quant_matmul_w8a8_codes(codes, sx, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
+
+
+def quant_matmul_w8a8_codes(codes, sx, w_t, scales, bias=None, *, activation=None, out_dtype=torch.float32):
+    """The matmul of ``quant_matmul_w8a8`` alone, on rows already quantized
+    by ``quantize_rows_int8`` (codes int8 [M, K], sx f32 [M, 1]), any M:
+
+        out = activation((codes @ W) * sx * scales + bias)
+
+    CUDA tensors launch ``csrc/quant_matmul_w8a8.cu``'s int8 ``wgmma``
+    kernel (a split-K launch also counts under
+    ``quant_matmul_w8a8:split_k``); CPU tensors compute the same sums and
+    epilogue in PyTorch."""
+    m, k = codes.shape
+    n = w_t.shape[0]
+    if not use_kernel(codes, sx, w_t, scales, bias):
+        acc = (codes.double() @ w_t.double().t()).float()
+        out = (acc * sx.float().reshape(m, 1)) * scales.float()
+        if bias is not None:
+            out = out + bias.float()
+        return ACTIVATIONS[activation](out).to(out_dtype)
+    if codes.dtype != torch.int8 or not codes.is_contiguous() or codes.data_ptr() % 16:
+        raise ValueError("quant_matmul_w8a8_codes: codes must be a contiguous, 16-byte aligned int8 [M, K] matrix")
+    _check_weight(w_t, k, "quant_matmul_w8a8")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quant_matmul_w8a8: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    sxv = _vec_f32(sx, m, "sx")
     scales = _vec_f32(scales, n, "scales")
     bias = _vec_f32(bias, n, "bias")
-    codes, sx = quantize_rows_int8(x)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    tok, ch, split = w8a8_device_plan(codes, n)
+    out = torch.empty((m, n), dtype=out_dtype, device=codes.device)
     rc = _build.library().rt_quant_matmul_w8a8(
-        codes.data_ptr(), sx.data_ptr(), m, k,
+        codes.data_ptr(), sxv.data_ptr(), m, k,
         w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,
         activation_code(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        _stream(x),
+        tok, ch, split, _stream(codes),
     )
     _build.check(rc, "quant_matmul_w8a8")
     LAUNCHES["quant_matmul_w8a8"] += 1
+    if split > 1:
+        LAUNCHES["quant_matmul_w8a8:split_k"] += 1
     return out
 
 

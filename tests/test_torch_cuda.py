@@ -1365,3 +1365,235 @@ def test_matmul_cluster_capacity(dev):
         tok, split = qm.device_plan(torch.empty(m, k, device=dev, dtype=torch.bfloat16), n)
         tiles = -(-n // tok) * -(-m // tok)
         assert split > 1 and tiles <= qm.cluster_capacity(0, tok)[split - 1]
+
+
+# -- the Hopper redesigns of quant_matmul_w8a8 (int8 wgmma on a TMA ring,
+# split-K) and matmul_fused (bf16 wgmma with an MN-major B, the ragged
+# mma.sync route, the f32 FMA ring) --
+
+# (m, n, k): GPT-2 down at 64 rows (split), Qwen2-0.5B w_down at 64 rows
+# (split), GPT-2 down and up at 512 (128-token tiles), Qwen2 qkv at 512, a
+# ragged M / N / K (1040 is no multiple of the 128-deep stage).
+W8_BITWISE_SHAPES = [(64, 768, 3072), (64, 896, 4864), (512, 768, 3072), (512, 3072, 768), (512, 1152, 896),
+                     (77, 131, 1040), (20, 1152, 896)]
+
+
+@pytest.mark.parametrize("m,n,k", W8_BITWISE_SHAPES)
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_matmul_w8a8_f32_equals_plain_bitwise(dev, m, n, k, with_bias):
+    """f32 out, no activation: the kernel's int32 sums are exact at every
+    split and its epilogue rounds as the plain version does, so the two
+    are equal bit for bit; the split-K counter follows the plan."""
+    gen = torch.Generator(device=dev).manual_seed(70)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=dev) if with_bias else None
+    split = qm.w8a8_device_plan(x, n)[2]
+    before = dispatch.LAUNCHES["quant_matmul_w8a8:split_k"]
+    out = qm.quant_matmul_w8a8(x, qt, s, bias, out_dtype=torch.float32)
+    assert dispatch.LAUNCHES["quant_matmul_w8a8:split_k"] == before + (split > 1)
+    assert (split > 1) == ((m, n, k) in [(64, 768, 3072), (64, 896, 4864), (512, 768, 3072), (512, 1152, 896),
+                                         (77, 131, 1040), (20, 1152, 896)])
+    ref = qm.quant_matmul_w8a8_ref(x, qt, s, bias, out_dtype=torch.float32)
+    assert torch.equal(out, ref), (out - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 768, 3072), (64, 896, 4864), (512, 3072, 768), (77, 131, 1040)])
+def test_matmul_w8a8_bitwise_deterministic(dev, m, n, k):
+    """Two launches on the same inputs give the same bits (bf16 out, GELU)."""
+    gen = torch.Generator(device=dev).manual_seed(71)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gen, device=dev)
+    outs = [qm.quant_matmul_w8a8(x, qt, s, bias, activation="gelu") for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("m", [9, 64, 65, 512])
+def test_matmul_w8a8_codes_alone_matches_the_pair(dev, m):
+    """The matmul launch alone on quantize_rows_int8's codes gives what the
+    two-launch wrapper gives."""
+    gen = torch.Generator(device=dev).manual_seed(72)
+    qt, s = _pack(gen, 768, 3072, dev)
+    x = torch.randn(m, 3072, generator=gen, device=dev).to(torch.bfloat16)
+    codes, sx = qm.quantize_rows_int8(x)
+    alone = qm.quant_matmul_w8a8_codes(codes, sx, qt, s, out_dtype=torch.bfloat16)
+    assert torch.equal(alone, qm.quant_matmul_w8a8(x, qt, s))
+
+
+def _mf_close(out, ref, operands):
+    """matmul_fused against its plain version at the tolerances the chip
+    check and the existing card tests use: f32 operands (exact products
+    summed in another order) 1e-5 of max(1, |plain|); bf16 operands with an
+    f32 output (the tensor cores' f32 sums in another order) 1e-4 of it; a
+    bf16 output (one rounding of it) 1e-2 of it."""
+    scale = max(1.0, ref.float().abs().max().item())
+    if out.dtype == torch.bfloat16:
+        tol = 1e-2 * scale
+    else:
+        tol = (1e-5 if operands == torch.float32 else 1e-4) * scale
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def _mf_inputs(dev, m, k, n, dtype, seed=73, offset=0):
+    """x [m, k] (starting ``offset`` elements into its buffer), w [k, n] at
+    std k^-0.5, an f32 bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m * k + offset, generator=gen, device=dev).to(dtype)[offset:].view(m, k)
+    w = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+    return x, w, 0.1 * torch.randn(n, generator=gen, device=dev)
+
+
+MF_COUNTERS = ("matmul_fused", "matmul_fused:ragged", "matmul_fused:split_k")
+
+
+def _mf_run(x, w, bias, act):
+    """matmul_fused against its plain version in both output dtypes; the
+    counters' increase."""
+    from rten_tpu_torch.kernels.matmul import matmul_fused, matmul_fused_ref
+
+    before = [dispatch.LAUNCHES[key] for key in MF_COUNTERS]
+    for out_dtype in (x.dtype, torch.float32 if x.dtype == torch.bfloat16 else torch.bfloat16):
+        out = matmul_fused(x, w, bias, activation=act, out_dtype=out_dtype)
+        assert out.dtype == out_dtype and out.shape == (x.shape[0], w.shape[1])
+        _mf_close(out, matmul_fused_ref(x, w, bias, activation=act, out_dtype=out_dtype), x.dtype)
+    return [dispatch.LAUNCHES[key] - b for key, b in zip(MF_COUNTERS, before)]
+
+
+# (m, k, n): N and K that cross the 64-column boxes and 64-deep stages (and
+# a swizzle atom's 8 rows), one stage, split-K at 64 rows, the up
+# projection's shape, ragged M over 128-row tiles.
+MF_WGMMA_SHAPES = [(1, 64, 64), (77, 136, 200), (130, 64, 256), (129, 1040, 520), (64, 3072, 768),
+                   (300, 4864, 896), (512, 768, 3072)]
+
+
+@pytest.mark.parametrize("m,k,n", MF_WGMMA_SHAPES)
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_matmul_fused_wgmma_route_matches_plain(dev, m, k, n, act):
+    from rten_tpu_torch.kernels.matmul import device_fused_plan
+
+    x, w, bias = _mf_inputs(dev, m, k, n, torch.bfloat16)
+    route, _bn, split = device_fused_plan(x, w)
+    assert route == "wgmma"
+    assert (split > 1) == ((m, k, n) in [(77, 136, 200), (129, 1040, 520), (64, 3072, 768), (300, 4864, 896)])
+    assert _mf_run(x, w, bias, act) == [2, 0, 2 * (split > 1)]
+
+
+# (m, k, n, offset): K or N not a multiple of 8, or x's base 2 bytes past a
+# 16-byte boundary: rows TMA cannot address.
+MF_RAGGED_SHAPES = [(3, 300, 200, 0), (77, 1040, 131, 0), (1, 7, 8, 0), (130, 64, 256, 1), (64, 3070, 768, 0)]
+
+
+@pytest.mark.parametrize("m,k,n,offset", MF_RAGGED_SHAPES)
+def test_matmul_fused_ragged_route_matches_plain(dev, m, k, n, offset):
+    from rten_tpu_torch.kernels.matmul import device_fused_plan
+
+    x, w, bias = _mf_inputs(dev, m, k, n, torch.bfloat16, offset=offset)
+    assert device_fused_plan(x, w)[::2] == ("ragged", 1)
+    assert _mf_run(x, w, bias, "gelu") == [2, 2, 0]
+
+
+# (m, k, n): 1024^3 (64 tiles: split-K 2), rows that are not 16-byte
+# multiples (copied 4 bytes at a time), one K step, ragged M.
+MF_F32_SHAPES = [(1024, 1024, 1024), (77, 1040, 131), (1, 7, 8), (130, 64, 256), (3, 300, 200), (300, 4864, 896)]
+
+
+@pytest.mark.parametrize("m,k,n", MF_F32_SHAPES)
+def test_matmul_fused_f32_route_matches_plain(dev, m, k, n):
+    """The f32 route against its plain version, and against an f64 product
+    (exact f32 products, no TF32: 1e-5)."""
+    from rten_tpu_torch.kernels.matmul import device_fused_plan, matmul_fused
+
+    x, w, bias = _mf_inputs(dev, m, k, n, torch.float32)
+    route, _bn, split = device_fused_plan(x, w)
+    assert route == "f32" and (split > 1) == ((m, k, n) != (1, 7, 8))
+    assert _mf_run(x, w, bias, None) == [2, 0, 2 * (split > 1)]
+    ref = x.double() @ w.double() + bias.double()
+    assert (matmul_fused(x, w, bias) - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(64, 3072, 768, torch.bfloat16), (512, 768, 3072, torch.bfloat16),
+                                         (1024, 1024, 1024, torch.float32), (77, 1040, 131, torch.bfloat16)])
+def test_matmul_fused_bitwise_deterministic(dev, m, k, n, dtype):
+    """Two launches give the same bits on every route (the split-K partials
+    sum over the cluster's ranks in a fixed order)."""
+    from rten_tpu_torch.kernels.matmul import matmul_fused
+
+    x, w, bias = _mf_inputs(dev, m, k, n, dtype)
+    outs = [matmul_fused(x, w, bias, activation="gelu", out_dtype=torch.float32) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_w8a8_and_fused_cluster_capacity(dev):
+    """The cluster capacity of the W8A8 blocks and of matmul_fused's two
+    split routes: positive, falling as clusters grow; the W8A8 M 64 block
+    (a 64 KB ring) fits more clusters than quant_matmul_int8's."""
+    from rten_tpu_torch.kernels.matmul import fused_capacity
+
+    caps = [qm.cluster_capacity(0, tok, "w8a8", ch) for tok, ch in ((64, 64), (128, 64), (128, 128))]
+    caps += [fused_capacity(0, route, bn) for route, bn in (("wgmma", 128), ("wgmma", 256), ("f32", 128))]
+    for fits in caps:
+        assert len(fits) == qm.MAX_SPLIT and all(n > 0 for n in fits)
+        assert all(a >= b for a, b in zip(fits, fits[1:]))
+    assert caps[0][0] > qm.cluster_capacity(0, 64)[0]
+
+
+@pytest.mark.parametrize("tok_m,ch", [(64, 64), (512, 64), (512, 128)])
+@pytest.mark.parametrize("n,k", [(768, 3072), (3072, 768), (131, 1040)])
+def test_matmul_w8a8_block_variants_bitwise(dev, monkeypatch, tok_m, ch, n, k):
+    """Every block of the W8A8 kernel (64 tokens by 64 output channels a
+    warpgroup, 128 tokens by 64 or 128), whatever the plan would pick: f32
+    out, no
+    activation, bit for bit the plain version (split or not)."""
+    monkeypatch.setattr(qm, "w8a8_channels", lambda m, n, sms: ch)
+    qm.w8a8_plan.cache_clear()
+    try:
+        gen = torch.Generator(device=dev).manual_seed(74)
+        qt, s = _pack(gen, n, k, dev)
+        m = tok_m + 3  # a ragged last token tile
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        bias = torch.randn(n, generator=gen, device=dev)
+        assert qm.w8a8_device_plan(x, n)[1] == ch
+        out = qm.quant_matmul_w8a8(x, qt, s, bias, out_dtype=torch.float32)
+        ref = qm.quant_matmul_w8a8_ref(x, qt, s, bias, out_dtype=torch.float32)
+        assert torch.equal(out, ref), (out - ref).abs().max().item()
+    finally:
+        qm.w8a8_plan.cache_clear()
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("m,k,n", [(77, 136, 200), (512, 768, 3072), (300, 4864, 896), (2048, 512, 1032)])
+def test_matmul_fused_wgmma_widths(dev, monkeypatch, bn, m, k, n):
+    """Both block widths of the wgmma route (128 or 256 columns: two or
+    four 64-column boxes of w a stage), whatever the plan would pick."""
+    from rten_tpu_torch.kernels import matmul as mf
+
+    monkeypatch.setattr(mf, "fused_columns", lambda route, m, n, sms: bn if route == "wgmma" else 128)
+    mf.fused_plan.cache_clear()
+    try:
+        x, w, bias = _mf_inputs(dev, m, k, n, torch.bfloat16, seed=75)
+        assert mf.device_fused_plan(x, w)[:2] == ("wgmma", bn)
+        assert _mf_run(x, w, bias, "gelu")[:2] == [2, 0]
+    finally:
+        mf.fused_plan.cache_clear()
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 768, 3072), (512, 3072, 768)])
+def test_matmul_w8a8_pair_in_cuda_graph(dev, m, n, k):
+    """The quantizer and the matmul (its plan, tensor maps and cluster
+    launch) captured into a CUDA graph and replayed on new rows: the same
+    bits as the eager pair on those rows."""
+    gen = torch.Generator(device=dev).manual_seed(76)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    qm.quant_matmul_w8a8(x, qt, s)  # build, plan and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32)
+    for _ in range(3):
+        x.copy_(torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
+        graph.replay()
+        assert torch.equal(out, qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32))
+

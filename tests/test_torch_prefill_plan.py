@@ -1,6 +1,8 @@
 """The host-side launch plans of the Hopper prefill kernels, on the CPU:
 ``quant_matmul.matmul_plan`` (tokens a block, split-K cluster size of
-``csrc/quant_matmul.cu``) and ``attention.flash_plan`` (row tiles, split-KV
+``csrc/quant_matmul.cu`` and of ``csrc/quant_matmul_w8a8.cu``, each with its
+own cluster capacity), ``matmul.fused_plan`` (route and split-K of
+``csrc/matmul_fused.cu``) and ``attention.flash_plan`` (row tiles, split-KV
 cluster size of ``csrc/flash_attention.cu``).
 
 Each plan is checked for coverage (every K step and every KV tile a row
@@ -19,7 +21,10 @@ import random
 
 import pytest
 
+import torch
+
 from rten_tpu_torch.kernels import attention as at
+from rten_tpu_torch.kernels import matmul as mf
 from rten_tpu_torch.kernels import quant_matmul as qm
 
 H100_SMS = 132
@@ -34,6 +39,11 @@ def _fits(per_sm: int) -> tuple[int, ...]:
 
 
 FITS = {64: _fits(2), 128: _fits(1)}
+# The W8A8 kernel's 64-token block has a 64 KB ring (three a SM), its
+# 128-token blocks a 192 KB one; matmul_fused's wgmma blocks (192 KB rings)
+# and its f32 block (165 registers a thread) fill an SM each.
+FITS_W8A8 = {(64, 64): _fits(3), (128, 64): _fits(1), (128, 128): _fits(1)}
+FITS_FUSED = _fits(1)
 
 # The prefill projections of GPT-2-small (d 768, d_ff 3072, vocab padded to
 # 51200) and of the Qwen2-0.5B shape (d 896, qkv 1152, w_gu 10240, d_ff
@@ -192,3 +202,117 @@ def test_flash_tiles_cover_each_needed_tile_once(causal):
                 assert len(ranges) == split
                 assert walked == _needed_tiles(rt, tq, group, q_offset, kv_len, s, causal), \
                     (b, hq, hk, tq, s, rt, q_offset, kv_len)
+
+
+@pytest.mark.parametrize("m,n,k", MATMUL_SHAPES)
+def test_w8a8_plan_limits_and_coverage(m, n, k):
+    """The W8A8 matmul's plan: every K step once, the split at most 8, the
+    steps and what the chosen block's cluster capacity fits."""
+    tok, ch, _ = qm.w8a8_plan(m, n, k, H100_SMS)
+    fits = FITS_W8A8[tok, ch]
+    tok, ch, split = qm.w8a8_plan(m, n, k, H100_SMS, fits)
+    steps = -(-k // qm.QW_BK)
+    tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
+    assert tok == qm.matmul_tokens(m) and ch in (64, 128) and (ch == 64 or tok == 128)
+    assert 1 <= split <= min(qm.MAX_SPLIT, steps)
+    assert split == 1 or (tiles <= fits[split - 1] and tiles * split <= H100_SMS)
+    assert _covered_once(split_ranges(steps, split), steps)
+    assert (split > 1) == (2 * tiles < H100_SMS and steps > 1 and tiles <= fits[1])
+
+
+def test_w8a8_plan_main_path_splits():
+    """The W8A8 blocks and splits at both models' projections at 64 and 512
+    rows (GPT-2 qkv, wo, up, down; Qwen2-0.5B qkv, w_gu, w_down) and
+    2048^3: the wide block (128 channels a warpgroup) only where its tiles
+    fill 7/8 of the SMs."""
+    def plan(m, n, k):
+        tok, ch, _ = qm.w8a8_plan(m, n, k, H100_SMS)
+        return qm.w8a8_plan(m, n, k, H100_SMS, FITS_W8A8[tok, ch])[1:]
+
+    gpt2 = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
+    qwen2 = [(1152, 896), (10240, 896), (896, 4864)]
+    assert [plan(64, n, k) for n, k in gpt2] == [(64, 3), (64, 6), (64, 2), (64, 8)]
+    assert [plan(64, n, k) for n, k in qwen2] == [(64, 7), (64, 1), (64, 8)]
+    assert [plan(512, n, k) for n, k in gpt2] == [(64, 1), (64, 4), (64, 1), (64, 4)]
+    assert [plan(512, n, k) for n, k in qwen2] == [(64, 3), (128, 1), (64, 4)]
+    assert plan(2048, 2048, 2048) == (128, 1)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 114, 132])
+def test_w8a8_plan_other_cards(sms):
+    """On other SM counts (a fraction of each GPC's SMs): the wide block by
+    the same 7/8 rule, within the capacity, no more blocks than SMs where
+    the split is on."""
+    rnd = random.Random(sms + 1)
+    for _ in range(200):
+        m, n, k = rnd.randint(9, 4096), rnd.randint(1, 20000), 16 * rnd.randint(1, 400)
+        tok, ch, _ = qm.w8a8_plan(m, n, k, sms)
+        fits = tuple(max(1, f * sms // H100_SMS) for f in FITS_W8A8[tok, ch])
+        tok, ch, split = qm.w8a8_plan(m, n, k, sms, fits)
+        assert (ch == 128) == (tok == 128 and 8 * -(-n // 256) * -(-m // 128) >= 7 * sms)
+        tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
+        assert 1 <= split <= min(qm.MAX_SPLIT, -(-k // qm.QW_BK))
+        assert split == 1 or (tiles * split <= sms and tiles <= fits[split - 1])
+
+
+# (m, k, n) of matmul_fused: the chip check's shapes, the card tests' ragged
+# and swizzle-crossing ones, and few-tile shapes that split.
+FUSED_SHAPES = [(512, 768, 3072), (2048, 2048, 2048), (1024, 1024, 1024), (64, 3072, 768), (77, 136, 200),
+                (129, 1040, 520), (300, 4864, 896), (1, 64, 64), (1, 7, 8), (3, 300, 200), (130, 64, 256),
+                (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "f32"])
+@pytest.mark.parametrize("m,k,n", FUSED_SHAPES)
+def test_fused_plan_limits_and_coverage(route, m, k, n):
+    bn, split = mf.fused_plan(route, m, n, k, H100_SMS, FITS_FUSED)
+    steps = -(-k // mf.FUSED_BK[route])
+    tiles = -(-m // mf.FUSED_BM) * -(-n // bn)
+    assert bn in ((128, 256) if route == "wgmma" else (128,))
+    assert 1 <= split <= min(qm.MAX_SPLIT, steps)
+    assert split == 1 or (tiles <= FITS_FUSED[split - 1] and tiles * split <= H100_SMS)
+    ranges = split_ranges(steps, split)
+    assert _covered_once(ranges, steps)
+    assert ranges[-1][1] * mf.FUSED_BK[route] >= k > (ranges[-1][1] - 1) * mf.FUSED_BK[route]
+    assert (split > 1) == (2 * tiles < H100_SMS and steps > 1 and tiles <= FITS_FUSED[1])
+
+
+def test_fused_plan_pinned_splits():
+    """The timed shapes: 512 x 768 x 3072 (96 tiles of 128 columns) does
+    not split; 2048^3 and 4096^3 take 256-column blocks (128 and 512 of
+    them: at least 7/8 of the SMs) unsplit; 1024^3 f32 (64 tiles) splits
+    in two; the up projection's transpose at 64 rows (6 tiles) eight ways;
+    the ragged route never."""
+    def plan(route, m, k, n):
+        return mf.fused_plan(route, m, n, k, H100_SMS, FITS_FUSED)
+
+    assert plan("wgmma", 512, 768, 3072) == (128, 1)
+    assert plan("wgmma", 2048, 2048, 2048) == (256, 1)
+    assert plan("wgmma", 4096, 4096, 4096) == (256, 1)
+    assert plan("f32", 1024, 1024, 1024) == (128, 2)
+    assert plan("f32", 4096, 4096, 4096) == (128, 1)
+    assert plan("wgmma", 64, 3072, 768) == (128, 8)
+    assert plan("ragged", 64, 3070, 768) == (128, 1)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 114, 132])
+def test_fused_plan_other_cards(sms):
+    rnd = random.Random(sms + 2)
+    for _ in range(200):
+        route = rnd.choice(["wgmma", "f32"])
+        m, k, n = rnd.randint(1, 4096), rnd.randint(1, 6000), rnd.randint(1, 6000)
+        bn, split = mf.fused_plan(route, m, n, k, sms)
+        assert (bn == 256) == (route == "wgmma" and 8 * -(-m // mf.FUSED_BM) * -(-n // 256) >= 7 * sms)
+        tiles = -(-m // mf.FUSED_BM) * -(-n // bn)
+        assert 1 <= split <= min(qm.MAX_SPLIT, -(-k // mf.FUSED_BK[route]))
+        assert split == 1 or tiles * split <= sms
+@pytest.mark.parametrize("dtype,k,n,aligned,route", [
+    (torch.float32, 7, 8, True, "f32"), (torch.float32, 1024, 1024, False, "f32"),
+    (torch.bfloat16, 768, 3072, True, "wgmma"), (torch.bfloat16, 8, 8, True, "wgmma"),
+    (torch.bfloat16, 3070, 768, True, "ragged"), (torch.bfloat16, 768, 3070, True, "ragged"),
+    (torch.bfloat16, 768, 3072, False, "ragged"),
+])
+def test_fused_route_by_shape(dtype, k, n, aligned, route):
+    """bf16 rows TMA can address (16-byte multiples on aligned bases) take
+    the wgmma route, other bf16 the ragged one, f32 the f32 one."""
+    assert mf.fused_route(dtype, k, n, aligned) == route
