@@ -7,6 +7,10 @@ NVIDIA card.
                                      # checks, and one prefill forward's device time by
                                      # kernel, weight-only and W8A8 (see prefill_only);
                                      # its last line is marked partial
+    python3 chip_smoke.py --kv LABEL [--package DIR]
+                                     # phases 1-2 and the KV kernels' and decode_block's
+                                     # checks, of this tree's package or DIR's (see
+                                     # kv_only); its last line is marked partial
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -29,7 +33,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernels) at Qwen2-0.5B's attention shapes, each against its plain
    PyTorch version on the same inputs, with its device time, its plain
    version's time, the least time the card could take for the same work,
-   and one PyTorch library call as a yardstick;
+   and one PyTorch library call as a yardstick; every KV case (also
+   decode_attention without wo at GPT-2's 12 heads) with its plan's
+   cluster size, its wrapper's host µs and the kernels a call launches,
+   which must be one attention launch (two with the fused wo);
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
@@ -208,21 +215,47 @@ def plain_decoder(decoder):
             setattr(decoder, name, fn)
 
 
-def device_us_by_kernel(torch, fn, n: int) -> dict:
-    """Device µs per call of ``fn`` by kernel name, from torch.profiler over
-    ``n`` calls (device-side events: kernels, copies, fills)."""
+def profile_by_kernel(torch, fn, n: int) -> tuple[dict, dict]:
+    """(device µs per call, launches per call) of ``fn`` by kernel name,
+    from torch.profiler over ``n`` calls (device-side events: kernels,
+    copies, fills)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_kernel = {}
+    by_kernel, calls = {}, {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             us = getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
             name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
             by_kernel[name] = by_kernel.get(name, 0.0) + us / n
-    return by_kernel
+            calls[name] = calls.get(name, 0.0) + evt.count / n
+    return by_kernel, calls
+
+
+def device_us_by_kernel(torch, fn, n: int) -> dict:
+    """Device µs per call of ``fn`` by kernel name (``profile_by_kernel``)."""
+    return profile_by_kernel(torch, fn, n)[0]
+
+
+def kv_launch_info(torch, fn, entry: str, q, hk: int, cap: int, with_wo: bool = False) -> dict:
+    """What a KV kernel case records beside its times: the plan's cluster
+    size (``decode_attention.kv_device_plan`` on these operands; None for a
+    package without the plan), the wrapper's host µs a call, and the device
+    kernels a call launches (profiler over 16 calls; the attention launch,
+    with wo also the GEMV: ``expect_launches``). The profiler misses about
+    one record in eight of a cluster launch (measured on the H100:
+    ``rt::kv_attention_kernel`` at 7 of 8 calls, the GEMV launched beside it
+    at 8 of 8), so each kernel's count a call is rounded."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    plan = getattr(da, "kv_device_plan", None)
+    extra = (int(with_wo),) if entry == "rt_decode_attention" else ()
+    _us, calls = profile_by_kernel(torch, fn, 16)
+    return dict(split=plan(entry, q, hk, cap, *extra) if plan is not None else None, host_us=host_us(torch, fn),
+                launches_per_call=sum(round(n) for n in calls.values()), expect_launches=2 if with_wo else 1,
+                kernel_names=sorted({name.split("<")[0] for name in calls}))
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +304,10 @@ def check_tools(torch):
 
 
 def check_kernels(torch, bound, cfg):
-    from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
 
-    dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
-    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    d, ff = cfg.d_model, cfg.d_ff
     n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
     F = torch.nn.functional
     randn, pack, norm_vecs, bf16_err, record, cases = check_tools(torch)
@@ -362,7 +393,33 @@ def check_kernels(torch, bound, cfg):
         record("quant_mlp_int8", f"{name} D={d} FF={ff}", err, tol, ms, plain, bound(per_call, ops))
         del copies
 
-    # -- decode_attention: packed qkv, append at kv_len, fused wo -----------
+    check_decode_attention(torch, bound, cfg, randn, pack, bf16_err, record)
+    torch.cuda.empty_cache()
+    check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record)
+    torch.cuda.empty_cache()
+    check_kv_kernels(torch, bound, cfg, randn, record)
+    torch.cuda.empty_cache()
+    check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record)
+    torch.cuda.empty_cache()
+    check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    torch.cuda.empty_cache()
+    check_gqa_kernels(torch, bound, randn, pack, record)
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_decode_attention(torch, bound, cfg, randn, pack, bf16_err, record):
+    """decode_attention at GPT-2-small's attention (12 heads, D 64, S 768),
+    kv_len 1 / 300 / 767: the packed-qkv call with its fused wo, and the same
+    attention without wo ("decode_attention:no_wo", like for like with
+    SDPA), each against its plain version, timed as check_kernels times the
+    others, with the plan's cluster size, the wrapper's host µs and the
+    kernels a call launches (kv_launch_info)."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda", 0)
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    F = torch.nn.functional
     # q and k at std 1.5 give scores q.k/sqrt(64) of std ~2.3, so the
     # softmax is peaked and a wrong chunk max, combine rescale or dropped
     # chunk moves the output by O(1). Three checks per kv_len: the fused
@@ -426,20 +483,27 @@ def check_kernels(torch, bound, cfg):
                        c[0][2][:, :, : kv_len + 1]) for c in copies]
         library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t) for t in lib_inputs])
         record("decode_attention", f"kv_len={kv_len} S={s_max} H={h} D={hd}", err, tol, ms, plain,
-               bound(per_call, ops), library, note)
+               bound(per_call, ops), library, note,
+               **kv_launch_info(torch, lambda: da.decode_attention(*args, **kw), "rt_decode_attention",
+                                qkv[:, 0, :, 0], h, s_max, with_wo=True))
+        # The same attention without wo: the attention vector, like for like with SDPA.
+        nw_args = (qkv, kc0.clone(), vc0.clone(), lens)
+        nw_plain_args = (qkv, kc0.clone(), vc0.clone(), lens)
+        nw = da.decode_attention(*nw_args)
+        nw_ref = da.decode_attention_ref(*nw_plain_args)
+        torch.cuda.synchronize()
+        if not (torch.equal(nw_args[1], nw_plain_args[1]) and torch.equal(nw_args[2], nw_plain_args[2])):
+            raise AssertionError(f"decode_attention:no_wo kv_len={kv_len}: caches differ from the plain append")
+        nw_err = (nw.float() - nw_ref.float()).abs().max().item()
+        nw_tol = 1e-2 * nw_ref.float().abs().max().item()  # one bf16 rounding of the output
+        nw_ms = graph_ms(torch, [lambda c=c: da.decode_attention(*c[0][:4]) for c in copies])
+        nw_plain = eager_ms(torch, lambda: da.decode_attention_ref(*nw_plain_args))
+        nw_per_call = prefix + nbytes(qkv, lens) + 2 * h * hd * 2 + h * hd * 2
+        record("decode_attention:no_wo", f"MHA kv_len={kv_len} S={s_max} H={h} D={hd}", nw_err, nw_tol, nw_ms,
+               nw_plain, bound(nw_per_call, 4 * h * (kv_len + 1) * hd), library,
+               **kv_launch_info(torch, lambda: da.decode_attention(*nw_args), "rt_decode_attention",
+                                qkv[:, 0, :, 0], h, s_max))
         del copies, lib_inputs, caches
-    torch.cuda.empty_cache()
-    check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record)
-    torch.cuda.empty_cache()
-    check_kv_kernels(torch, bound, cfg, randn, record)
-    torch.cuda.empty_cache()
-    check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record)
-    torch.cuda.empty_cache()
-    check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
-    torch.cuda.empty_cache()
-    check_gqa_kernels(torch, bound, randn, pack, record)
-    torch.cuda.empty_cache()
-    return cases
 
 
 def w8_err(out, ref, code=0.0):
@@ -632,23 +696,16 @@ def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
         del copies, codes, lib_in
 
 
-def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
-    """The whole-block kernel, the dense matmul and the later epilogue and
-    attention cases against their plain versions, timed as check_kernels
-    times the others: decode_block (GPT-2-small's block at
-    kv_len 1 / 300 / 767 of S 768, with and without the next qkv; beside it
-    the time of the two kernels it replaces on the same inputs), matmul_fused
-    (check_matmul_fused), the silu / sigmoid / tanh epilogues
-    of quant_matmul_int8 and quant_matmul_w8a8 at the up shape, M 64, and
-    decode_attention at B 8 with mixed lengths (the port's counterpart of the
-    TPU kernel's batched mode: one launch for all rows)."""
+def check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
+    """decode_block (GPT-2-small's block at kv_len 1 / 300 / 767 of S 768,
+    with and without the next qkv) against its plain version, and beside it
+    the time of the two kernels it replaces on the same inputs."""
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
 
     dev = torch.device("cuda", 0)
-    bf16, f32 = torch.bfloat16, torch.float32
+    f32 = torch.float32
     d, ff, h, hd, s_max = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim, CACHE_LEN
-    F = torch.nn.functional
 
     # -- decode_block: the whole layer (and the next layer's qkv) in one launch
     for kv_len in (1, 300, 767):
@@ -701,6 +758,18 @@ def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, rec
                    f"(decode_attention + quant_mlp_int8 on the same inputs {two_ms:.4f} ms)")
             del copies
 
+
+def check_decode_attention_b8(torch, bound, cfg, randn, pack, bf16_err, record):
+    """decode_attention at B 8 with mixed lengths (the port's counterpart of
+    the TPU kernel's batched mode: one launch for all rows), GPT-2-small's
+    attention and wo, against its plain version."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    d, h, hd, s_max = cfg.d_model, cfg.n_heads, cfg.head_dim, CACHE_LEN
+    F = torch.nn.functional
+
     # -- decode_attention at B 8, mixed lengths: all rows in one launch ----
     lens_list = KV_LENS["B=8 mixed"]
     b = len(lens_list)
@@ -731,8 +800,27 @@ def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, rec
     lib_in = [(c[0][0][:, 0], c[0][1][:, :, :valid], c[0][2][:, :, :valid]) for c in copies[:8]]
     library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask) for t in lib_in])
     record("decode_attention", f"B=8 mixed (1-767) S={s_max} H={h} D={hd}", err, tol, ms, plain,
-           bound(per_call, ops), library, "(the TPU kernel's batched mode: one launch for all rows)")
+           bound(per_call, ops), library, "(the TPU kernel's batched mode: one launch for all rows)",
+           **kv_launch_info(torch, lambda: da.decode_attention(*args, **kw), "rt_decode_attention",
+                            args[0][:, 0, :, 0], h, s_max, with_wo=True))
     del copies, lib_in
+
+
+def check_block_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
+    """The whole-block kernel, the dense matmul and the later epilogue and
+    attention cases against their plain versions, timed as check_kernels
+    times the others: decode_block (check_decode_block), matmul_fused
+    (check_matmul_fused), the silu / sigmoid / tanh epilogues of
+    quant_matmul_int8 and quant_matmul_w8a8 at the up shape, M 64, and
+    decode_attention at B 8 with mixed lengths (check_decode_attention_b8)."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, ff = cfg.d_model, cfg.d_ff
+    F = torch.nn.functional
+
+    check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    check_decode_attention_b8(torch, bound, cfg, randn, pack, bf16_err, record)
 
     # -- the silu / sigmoid / tanh epilogues at the up shape, M 64 ---------
     m = 64
@@ -817,6 +905,9 @@ def check_matmul_fused(torch, bound, cfg, randn, bf16_err, record):
 
 KV_LENS = {"B=1 kv_len=1": [1], "B=1 kv_len=300": [300], "B=1 kv_len=767": [767],
            "B=8 mixed": [1, 100, 200, 300, 400, 500, 640, 767]}
+KV_ENTRIES = {"decode_attention": "rt_decode_attention", "decode_attention_int8": "rt_decode_attention_int8",
+              "paged_decode_attention": "rt_paged_attention",
+              "paged_decode_attention_int8": "rt_paged_attention_int8"}  # each KV kernel's C entry point
 
 
 def check_kv_kernels(torch, bound, cfg, randn, record):
@@ -902,7 +993,8 @@ def check_kv_kernels(torch, bound, cfg, randn, record):
             library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=t[3])
                                        for t in lib_in])
             record(name, f"{case} S={s_max} H={h} D={hd}" + (f" page={page}" if paged else ""), err, tol, ms,
-                   plain_ms, bound(per_call, ops), library)
+                   plain_ms, bound(per_call, ops), library,
+                   **kv_launch_info(torch, lambda: kernel(*k_args), KV_ENTRIES[name], args[0][:, 0, :, 0], h, s_max))
             del copies, lib_in
 
 
@@ -1010,7 +1102,9 @@ def check_gqa_kernels(torch, bound, randn, pack, record):
             library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask, enable_gqa=True)
                                        for t in lib_in])
             record(name, f"{case} S={s_max} Hq={hq} Hk={hk} D={hd}" + (f" page={page}" if paged else ""), err, tol,
-                   ms, plain_ms, bound(per_call, ops), library, "(SDPA without wo)" if with_wo else "")
+                   ms, plain_ms, bound(per_call, ops), library, "(SDPA without wo)" if with_wo else "",
+                   **kv_launch_info(torch, lambda: kernel(*k_args, **kw), KV_ENTRIES[name.split(":")[0]],
+                                    args[0][0], hk, s_max, with_wo=with_wo))
             del copies, lib_in
 
 
@@ -2138,16 +2232,63 @@ def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
     return 0
 
 
+def kv_only(torch, bound, cfg, detail, kind, smi, label: str) -> int:
+    """``--kv LABEL``: the four KV kernels in every mode and decode_block at
+    the shapes phase 3 times them (check_decode_attention, check_kv_kernels,
+    check_gqa_kernels, check_decode_block, check_decode_attention_b8), each
+    with its plan, host µs and launches a call, written to
+    chiprun_out/kv_LABEL.json. A timing mode: its last line is marked
+    partial, never the full run's ok line, and it holds no launch count to
+    the one-launch rule, so that ``--package`` can time a parent commit's
+    package (unpacked under rten_tpu_torch/_build/, git-ignored) with the
+    same checks in the same call: parent, tree, tree, parent."""
+    randn, pack, norm_vecs, bf16_err, record, cases = check_tools(torch)
+    log("[3/3] KV kernels and decode_block against their plain versions (GPT-2-small and Qwen2-0.5B shapes)")
+    check_decode_attention(torch, bound, cfg, randn, pack, bf16_err, record)
+    torch.cuda.empty_cache()
+    check_kv_kernels(torch, bound, cfg, randn, record)
+    torch.cuda.empty_cache()
+    check_gqa_kernels(torch, bound, randn, pack, record)
+    torch.cuda.empty_cache()
+    check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    check_decode_attention_b8(torch, bound, cfg, randn, pack, bf16_err, record)
+    detail["cases"] = cases
+    (OUT_DIR / f"kv_{label}.json").write_text(json.dumps(detail, indent=1))
+    print(smi)
+    print(json.dumps({"partial": "kv", "kind": kind, "label": label}))
+    return 0
+
+
+def one_launch_a_call(cases) -> None:
+    """The KV kernels' rule: one attention launch a call (two with the
+    fused wo, the GEMV its own launch), no combine kernel."""
+    wrong = [f"{c['kernel']} {c['shape']}: {c['launches_per_call']} launches a call {c['kernel_names']}"
+             for c in cases if "launches_per_call" in c
+             and (c["launches_per_call"] != c["expect_launches"] or any("combine" in n for n in c["kernel_names"]))]
+    if wrong:
+        raise AssertionError("KV kernels not at one attention launch a call: " + "; ".join(wrong))
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Build, check and drive rten_tpu_torch on one NVIDIA card.")
+    parser.add_argument("--prefill", action="store_true", help="the prefill kernels' timing mode (prefill_only)")
+    parser.add_argument("--kv", metavar="LABEL", help="the KV kernels' timing mode (kv_only)")
+    parser.add_argument("--package", metavar="DIR", help="with --kv: import rten_tpu_torch from DIR")
+    opts = parser.parse_args()
+    if opts.package and not opts.kv:
+        parser.error("--package times another package's KV kernels: it needs --kv")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    if not (ROOT / "rten_tpu_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: rten_tpu_torch is not beside {ROOT}", file=sys.stderr)
+    root = Path(opts.package).resolve() if opts.package else ROOT
+    if not (root / "rten_tpu_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: rten_tpu_torch is not in {root}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     from rten_tpu_torch.kernels import _build
     from rten_tpu_torch.models import decoder
 
@@ -2184,10 +2325,13 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
-    if "--prefill" in sys.argv[1:]:
+    if opts.prefill:
         return prefill_only(torch, bound, cfg, detail, kind, smi)
+    if opts.kv:
+        return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
     log("[3/9] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
+    one_launch_a_call(cases)
     detail["cases"] = cases
 
     t0 = time.perf_counter()

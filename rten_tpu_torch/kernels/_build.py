@@ -62,11 +62,12 @@ SIGNATURES = {
     "rt_decode_attention": [
         *_KV_OPERANDS,
         _P, _P, _I, _P,              # k_cache, v_cache, s_max, kv_len
-        _P, _P, _P, _P, _I,          # part_m, part_l, part_acc, attn, n_chunks
+        _P, _I,                      # attn, split (attention.py kv_plan)
         _P, _P, _P, _I,              # wo_t, wo_scales, wo_bias, dm
         _P, _P, _F,                  # residual, out, sm_scale
         _P,                          # stream
     ],
+    "rt_decode_attention_clusters": [_I, _I, _I, _I, _I],  # bf16, d, gqa, with_wo, split
     "rt_decode_block": [
         _P, _I, _I, _I,              # qkv, bf16, h, d
         _P, _P, _I, _P,              # k_cache, v_cache, s_max, kv_len
@@ -122,22 +123,23 @@ SIGNATURES = {
         *_KV_OPERANDS,
         _P, _P, _I, _I,              # k_pages, v_pages, n_pages, page
         _P, _I, _P,                  # table, max_pages, kv_len
-        _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
-        _P, _F, _P,                  # out, sm_scale, stream
+        _I, _P, _F, _P,              # split, out, sm_scale, stream
     ],
     "rt_decode_attention_int8": [
         *_KV_OPERANDS,
         _P, _P, _P, _P, _I, _P,      # k, v, k_scale, v_scale, s_max, kv_len
-        _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
-        _P, _F, _P,                  # out, sm_scale, stream
+        _I, _P, _F, _P,              # split, out, sm_scale, stream
     ],
     "rt_paged_attention_int8": [
         *_KV_OPERANDS,
         _P, _P, _P, _P, _I, _I,      # k_pages, v_pages, k_scale_pages, v_scale_pages, n_pages, page
         _P, _I, _P,                  # table, max_pages, kv_len
-        _P, _P, _P, _I,              # part_m, part_l, part_acc, n_chunks
-        _P, _F, _P,                  # out, sm_scale, stream
+        _I, _P, _F, _P,              # split, out, sm_scale, stream
     ],
+    # The three entries' cluster capacity: bf16, d, gqa, split.
+    "rt_paged_attention_clusters": [_I, _I, _I, _I],
+    "rt_decode_attention_int8_clusters": [_I, _I, _I, _I],
+    "rt_paged_attention_int8_clusters": [_I, _I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

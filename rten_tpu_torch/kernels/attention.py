@@ -12,6 +12,10 @@ to v's dtype before P·V, the softmax sum taken from the unrounded P; and 0
 for a row with no valid column (``kv_len`` 0). The plain version is the
 counterpart of ``attention_reference`` (:222) with those last two rules of
 the kernel, so both give the Pallas kernel's result.
+
+Also the launch plan of the split-KV decode attention engine
+(``csrc/kv_attention.cuh``, the four KV kernels' one clustered launch):
+``kv_plan``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
-from rten_tpu_torch.kernels.quant_matmul import _sms, _stream, split_for
+from rten_tpu_torch.kernels.quant_matmul import MAX_SPLIT, _sms, _stream, split_for
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for (csrc/flash_attention.cu)
@@ -44,6 +48,39 @@ def flash_plan(b: int, hq: int, hk: int, tq: int, s: int, sms: int) -> tuple[int
     ``[r n / split, (r + 1) n / split)`` of n tiles."""
     row_tiles = -(-tq * (hq // hk) // FB_ROWS)
     return row_tiles, split_for(row_tiles * hk * b, -(-s // FB_KV), sms)
+
+
+# The decode attention engine (csrc/kv_attention.cuh): a cluster of C
+# blocks a (kv head, head tile, row), rank r walking the row's KV_CHUNK-
+# position chunks r, r + C, ...; a head tile is up to KV_GROUP_TILE query
+# heads of one kv head's group (MHA: one).
+KV_CHUNK, KV_GROUP_TILE = 64, 8
+
+
+def kv_tiles(group: int) -> int:
+    """Head tiles of a GQA group of ``group`` query heads a kv head (one
+    cluster each; 1 for MHA)."""
+    return -(-group // KV_GROUP_TILE)
+
+
+@functools.lru_cache(maxsize=1024)
+def kv_plan(b: int, hk: int, group: int, cap: int, sms: int, fits: tuple[int, ...] | None = None) -> int:
+    """Cluster size C of one launch of the KV attention engine over ``b``
+    rows of ``hk`` kv heads of ``group`` query heads each, rows of ``cap``
+    positions, on a card with ``sms`` SMs: the largest C (at most
+    ``MAX_SPLIT``, at most the chunks of ``cap``: no rank idle on a full
+    row) at which all ``b · hk · kv_tiles(group)`` clusters run at once,
+    ``fits[C - 1]`` being the clusters of C blocks the device holds at once
+    (``cudaOccupancyMaxActiveClusters``), or ``sms // C`` without ``fits``
+    (one block an SM). C only spreads the work: a row's sums are ordered by
+    its V = min(8, chunks of ``cap``) virtual ranks whatever C is, so a row
+    gets the same bits in any batch and from any of the four kernels. The
+    kernel reads kv_len on the device, so the plan sizes for ``cap``."""
+    clusters = b * hk * kv_tiles(group)
+    for split in range(min(MAX_SPLIT, -(-cap // KV_CHUNK)), 1, -1):
+        if clusters <= (fits[split - 1] if fits is not None else sms // split):
+            return split
+    return 1
 
 
 def _shapes(q, k, v):

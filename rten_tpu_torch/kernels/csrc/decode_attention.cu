@@ -10,22 +10,23 @@
 // and GQA models, and the mode without wo, which returns the attention
 // vector (the JAX decoder takes it when the step is not fused).
 // On the TPU one grid cell per row walks the valid prefix in order with a
-// running online softmax and a double-buffered DMA. Here two or three
+// running online softmax and a double-buffered DMA. Here one or two
 // launches on one stream:
-//   1-2. kv_attention.cuh's split-KV pair over the contiguous cache
-//      (blocks of 64 positions of one kv head's valid prefix, the group's
-//      query heads scored against each, the block holding kv_len appending
-//      k_new / v_new there; a combine launch), giving the attention vector
-//      (f32 for the fused wo, else in the activations' dtype);
-//   3. with wo: gemv_kernel (gemv.cuh): attn @ W_o * s + bias + residual,
+//   1. kv_attention.cuh's clustered split-KV kernel over the contiguous
+//      cache (a cluster of C blocks a (kv head, row), the group's query
+//      heads scored in one pass over each 64-position chunk, the rank whose
+//      chunk holds kv_len appending k_new / v_new there, the ranks' partial
+//      softmax states combined through distributed shared memory), giving
+//      the attention vector (f32 for the fused wo, else in the activations'
+//      dtype);
+//   2. with wo: gemv_kernel (gemv.cuh): attn @ W_o * s + bias + residual,
 //      the dot in f32 as on the TPU (the attention vector is not rounded).
+//      Fusing it into the attention launch needs every head's vector, a
+//      grid-wide dependency; it stays its own launch.
 //
 // Bound on the H100: bytes, the valid KV prefix (2 * Hk * (kv_len + 1) * D
-// elements) plus the int8 W_o (Hq*D x Dm). Splitting the prefix into chunks
-// puts (kv_len + 1) / 64 x Hk blocks on the card instead of Hk, so at batch 1
-// the cache stream is spread over the SMs; every cache row is read as
-// 16-byte vectors by neighbouring lanes; all softmax statistics and sums
-// are f32.
+// elements) plus the int8 W_o (Hq*D x Dm). Design and its reasons in
+// kv_attention.cuh; all softmax statistics and sums are f32.
 
 #include "gemv.cuh"
 #include "kv_attention.cuh"
@@ -35,20 +36,19 @@ extern "C" int rt_decode_attention(
     long long q_stride, long long kn_stride, long long vn_stride,
     int bf16, int b, int hq, int hk, int d,
     void* k_cache, void* v_cache, int s_max, const int* kv_len,
-    float* part_m, float* part_l, float* part_acc, float* attn, int n_chunks,
+    float* attn, int split,
     const int8_t* wo_t, const float* wo_scales, const float* wo_bias, int dm,
     const void* residual, void* out, float sm_scale,
     void* stream) {
-  rt::KvArgs a = rt::kv_args(q, k_new, v_new, q_stride, kn_stride, vn_stride, hq, hk, kv_len, part_m, part_l,
-                             part_acc, n_chunks, sm_scale);
+  rt::KvArgs a = rt::kv_args(q, k_new, v_new, q_stride, kn_stride, vn_stride, hq, hk, kv_len, sm_scale);
   a.k = k_cache;
   a.v = v_cache;
   a.cap = s_max;
   if (wo_t == nullptr) {  // the attention vector alone, in the activations' dtype
-    return rt::run_kv_attention<false, false>(a, bf16, b, d, out, stream);
+    return rt::run_kv_attention<false, false>(a, bf16, b, d, out, split, stream);
   }
   if (b > rt::MAXM) return static_cast<int>(cudaErrorInvalidValue);
-  const int e = rt::run_kv_attention<false, false, true>(a, bf16, b, d, attn, stream);
+  const int e = rt::run_kv_attention<false, false, true>(a, bf16, b, d, attn, split, stream);
   if (e != 0) return e;
 
   rt::GemvArgs g{};
@@ -65,4 +65,11 @@ extern "C" int rt_decode_attention(
   g.out = out;
   g.out_bf16 = bf16;
   return static_cast<int>(rt::launch_gemv(g, static_cast<cudaStream_t>(stream)));
+}
+
+// The cluster capacity of the kernel a call of (bf16, d, gqa, with wo)
+// launches, for attention.py kv_plan.
+extern "C" int rt_decode_attention_clusters(int bf16, int d, int gqa, int with_wo, int split) {
+  return with_wo ? rt::kv_clusters<false, false, true>(bf16, d, gqa, split)
+                 : rt::kv_clusters<false, false>(bf16, d, gqa, split);
 }

@@ -9,53 +9,91 @@
 // buffer [B, 3 * H * D] is three views of one tensor and RoPE'd q and k
 // arrive as their own tensors. The new token's k/v are appended in place at
 // kv_len (quantized first for int8) and the output is the attention vector
-// [B, Hq * D] in the activations' dtype.
+// [B, Hq * D] in the activations' dtype (or f32 for a caller that projects
+// it unrounded: decode_attention.cu's wo).
 //
-// Shared by decode_attention.cu (whose fused wo reads the vector in f32),
-// paged_attention.cu, decode_attention_int8.cu and paged_attention_int8.cu
-// (rten_tpu/kernels/decode_attention.py _decode_attn_kernel,
-// _decode_attn_int8_kernel; paged_attention.py _paged_attn_kernel,
-// _paged_attn_int8_kernel). On the TPU one grid cell per row walks its
-// pages (or blocks) in order under a running online softmax, with the new
-// token seeding it and the group's query rows scored together. Here two
-// launches:
-//   1. kv_split_kernel, grid (chunk, kv head, row): KV_CHUNK positions of
-//      the prefix plus the new token each (a chunk never crosses a page:
-//      pages are multiples of KV_CHUNK); blocks past kv_len + 1 exit at
-//      once. A block reads its chunk of one kv head and scores every query
-//      head of that head's group against it (GT heads at a time: each cache
-//      row is loaded once per GT heads, and the device-memory bytes stay
-//      those of Hk heads), in f32 (int8: q.k_int8 * scale * sm_scale); for
-//      each query head it writes its softmax max, sum and unnormalised P.V
-//      (int8: (p * scale) . v_int8). The block whose chunk holds position
-//      kv_len appends the new token there, once per kv head, and uses it
-//      from shared memory, so no block reads a cache row another block
-//      writes.
-//   2. kv_combine_kernel, grid (query head, row): rescales the partials to
-//      the common maximum and normalises.
-// The int8 append quantizes per kv head as the TPU wrapper does: absmax over
-// D, scale = absmax / 127 (1 where absmax is 0), code = rint(x / scale)
-// clipped to +-127 (IEEE division and round-half-even, the jnp.round rule),
-// and the new token's score and value use the dequantized code * scale.
-//
-// Both kernels' bodies are device functions of a work item (kv_split_item,
-// kv_combine_item), which decode_block.cu's persistent kernel calls too (at
-// group 1).
+// Shared by decode_attention.cu, paged_attention.cu, decode_attention_int8.cu
+// and paged_attention_int8.cu (rten_tpu/kernels/decode_attention.py
+// _decode_attn_kernel, _decode_attn_int8_kernel; paged_attention.py
+// _paged_attn_kernel, _paged_attn_int8_kernel). On the TPU one grid cell per
+// row walks its pages (or blocks) in order under a running online softmax,
+// with the new token seeding it and the group's query rows scored together.
 //
 // Bound on the H100: bytes, the valid prefix's payload (and scales) read
-// once per kv head. The split puts (kv_len + 1) / 64 x Hk blocks on the card
-// per row; every cache row is read as 16-byte vectors by neighbouring lanes.
+// once per kv head: 0.2-0.9 us at the decoders' shapes, so what costs is
+// fixed latency and idle SMs. Design: one launch, no partials in device
+// memory.
+//   - Grid (C, Hk * tiles, B) as clusters of C blocks along x (C <= 8,
+//     attention.py kv_plan): one cluster a (kv head, head tile, row). A
+//     head tile is the whole group up to KV_GT = 8 query heads (MHA: one);
+//     a larger group is tiled over more clusters, each reading the chunks
+//     again (from L2, mostly).
+//   - A row's 64-position chunks (a chunk never crosses a page: pages are
+//     multiples of KV_CHUNK) belong to V = min(8, chunks of cap) virtual
+//     ranks, virtual rank v walking chunks v, v + V, ... of the valid prefix
+//     plus the new token under a running online softmax; rank r of the
+//     cluster runs virtual ranks r, r + C, ... in turn. V, not C, orders a
+//     row's sums, so the plan may size C by the batch and the device and a
+//     row still gets the same bits in any batch, from any of the four
+//     kernels (the serving engines' streams are held against their solo
+//     streams). Its first chunk is requested before kv_len has arrived;
+//     each chunk's K and V rows (and int8 scales) come by cp.async into a
+//     ring of 3 shared-memory stages (2 for f32 at head dim 128), requested
+//     two chunks ahead of the one the block computes, across its virtual
+//     ranks.
+//   - A chunk in one pass for the whole head tile, each warp on its own,
+//     in blocks of 8 warps (MHA) or 16 (GQA): warp w takes head w % gt and
+//     the part w / gt of the chunk's positions (MHA: 8 parts of 8; Qwen2's
+//     group of 7: 2 parts of 32), lane (rw, sub) the part's rows rw, rw + RPW, ...
+//     and their 16-byte column slice sub, with its slice of q in registers.
+//     It scores its rows (the VPR lanes of a row dot their slices and reduce
+//     by shuffles), moves the running max over NSTEP row steps at a time,
+//     and adds p and p * v of its rows to its own sum and P.V slice. The
+//     lane that scores a row is the lane that reads its V, so the softmax
+//     needs no shared array and no barrier: one barrier a chunk (its stage
+//     has landed; one more where the new token is written into it).
+//   - Numerics in f32 on CUDA cores: score q.k * sm_scale (int8: q.k_int8 *
+//     k_scale * sm_scale), P.V sum p * v (int8: (p * v_scale) * v_int8).
+//   - The end of a virtual rank: each warp sums its lanes' row slices by
+//     shuffles; a head's parts merge in shared memory, in part order; each
+//     head's max and sum and the P.V of each output go straight into the
+//     shared memory of the rank that owns that output (rank r owns outputs
+//     [r * share, (r + 1) * share) of the tile), in the virtual rank's slot.
+//     After the last, one cluster barrier; each rank then combines its share
+//     from its own shared memory, the virtual ranks' states in order, so no
+//     rank reads another's memory. A virtual rank or part with no position
+//     contributes max -inf and sum 0. Every rank arrives on the cluster
+//     barrier at its start and waits before its first remote store, so no
+//     store reaches a block that has not started.
+//   - The rank whose chunk holds kv_len appends the new token there, once
+//     per kv head (head tile 0), and writes it into that chunk's stage, where
+//     it is scored as any other row; no rank reads from device memory a row
+//     another writes. The int8 append
+//     quantizes per kv head as the TPU wrapper does: absmax over D, scale =
+//     absmax / 127 (1 where absmax is 0), code = rint(x / scale) clipped to
+//     +-127 (IEEE division and round-half-even, the jnp.round rule), and the
+//     new token's score and value use the dequantized code * scale.
+//   - Faults: kv_len outside [0, cap) writes nothing and gives NaN; a page
+//     id outside the pool for a chunk the row needs gives NaN for the row.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace rt {
 namespace {
 
-constexpr int KV_CHUNK = 64;  // positions per split block (kernels/paged_attention.py CHUNK)
-constexpr int KV_THREADS = 128;
+constexpr int KV_CHUNK = 64;      // positions per chunk (kernels/decode_attention.py CHUNK)
+// Threads of a block: 8 warps for an MHA head, 16 for a GQA head tile (two
+// position parts a head at Qwen2's group of 7).
+template <int GT>
+__host__ __device__ constexpr int kv_threads() { return GT == 1 ? 256 : 512; }
+constexpr int KV_GT = 8;          // query heads a GQA cluster scores (attention.py KV_GROUP_TILE)
+constexpr int KV_MAX_SPLIT = 8;   // ranks of a cluster (the portable cluster size)
+static_assert(KV_GT <= kv_threads<KV_GT>() / 32, "a warp for each head of a tile");
 
 struct KvArgs {
   const void* q;         // [B, Hq, D]: row b at q + b * q_stride (elements)
@@ -71,310 +109,496 @@ struct KvArgs {
   int hq, hk;            // query heads, kv heads (hq % hk == 0)
   int cap;               // positions a row can hold: S, or max_pages * page
   int page, max_pages, n_pages;  // paged only
-  int nc;                // chunks per row (cap / KV_CHUNK rounded up)
-  float* part_m;         // [B, Hq, nc]
-  float* part_l;
-  float* part_acc;       // [B, Hq, nc, D]
   float sm_scale;
 };
 
-// Query heads a split block scores at a time under GQA: GT * 16 / sizeof(KV)
-// f32 accumulators a thread (64).
-template <typename KV>
-constexpr int kv_group_tile() { return 4 * static_cast<int>(sizeof(KV)); }
+// One shared-memory stage: a chunk's K rows, its V rows and (int8) their
+// scales; a ring of STAGES a block: 3 (two chunks ahead of the one computed)
+// where they fit 100 KB, else 2.
+template <typename KV, int D>
+struct KvStage {
+  static constexpr int ROW = D * static_cast<int>(sizeof(KV));  // bytes of a cache row
+  static constexpr int TILE = KV_CHUNK * ROW;
+  static constexpr int SCALES = sizeof(KV) == 1 ? KV_CHUNK * 4 : 0;
+  static constexpr int BYTES = 2 * TILE + 2 * SCALES;
+  static constexpr int STAGES = 3 * BYTES <= 100 * 1024 ? 3 : 2;
+  static constexpr int SMEM = STAGES * BYTES;
+};
 
 // 16 bytes of a cache row to f32: 4 floats, 8 bf16 values or 16 int8 codes.
 __device__ __forceinline__ void load16(const int8_t* p, float* f) {
   unpack16(*reinterpret_cast<const int4*>(p), *reinterpret_cast<float(*)[16]>(f));
 }
 
-// One split work item, chunk c of kv head kvh of row b, by a block of
-// KV_THREADS threads (kv_split_kernel's body; decode_block.cu's phase 1
-// loops it over the items of a persistent grid). GT: query heads scored at
-// a time (1 for MHA).
-template <typename T, typename KV, int D, bool PAGED, int GT>
-__device__ void kv_split_item(const KvArgs& a, int c, int kvh, int b) {
+// Chunk c's K and V rows (rows >= `rows` zero-filled: past a cap that is
+// not a multiple of KV_CHUNK) and, int8, their scales, from payload row
+// `row0` into a stage, by cp.async; one commit group.
+template <typename KV, int D, int THREADS>
+__device__ __forceinline__ void kv_issue_chunk(const KvArgs& a, unsigned char* stage, size_t row0, int rows) {
+  using L = KvStage<KV, D>;
+  constexpr int VROW = L::ROW / 16;  // 16-byte vectors a row
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + row0 * L::ROW;
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + row0 * L::ROW;
+  for (int i = threadIdx.x; i < KV_CHUNK * VROW; i += THREADS) {
+    const bool ok = i / VROW < rows;
+    cp_async16(stage + i * 16, kg + (ok ? i * 16 : 0), ok);
+    cp_async16(stage + L::TILE + i * 16, vg + (ok ? i * 16 : 0), ok);
+  }
+  if constexpr (L::SCALES > 0) {  // scales 4 bytes at a time: a row's may start anywhere
+    const int i = threadIdx.x;
+    if (i < 2 * KV_CHUNK) {
+      const int t = i % KV_CHUNK;
+      const float* src = (i < KV_CHUNK ? a.k_scale : a.v_scale) + row0;
+      cp_async4(stage + 2 * L::TILE + i * 4, src + (t < rows ? t : 0), t < rows);
+    }
+  }
+  cp_async_commit();
+}
+
+// The cluster (kv head, head tile, row) = (blockIdx.y / tiles, blockIdx.y %
+// tiles, blockIdx.z), rank blockIdx.x of gridDim.x. GT: heads a tile holds
+// (1 for MHA, KV_GT under GQA); O: the output's type.
+template <typename T, typename KV, int D, bool PAGED, int GT, typename O>
+__global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a, O* out, int tiles) {
+  namespace cg = cooperative_groups;
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   static_assert(INT8 || std::is_same<KV, T>::value, "a float cache holds the activations' dtype");
-  constexpr int VN = 16 / sizeof(KV);            // elements in a 16-byte vector
-  constexpr int VPR = D / VN;                    // vectors (lanes) per cache row
-  constexpr int RPW = 32 / VPR;                  // rows a warp scores per step
-  constexpr int SLICES = KV_THREADS / VPR;       // position slices of the P.V sum
-  constexpr int WARPS = KV_THREADS / 32;
-  const int len = a.kv_len[b];
-  if (len < 0 || len >= a.cap) return;  // no room to append: nothing written, NaN out
-  const int start = c * KV_CHUNK;
-  const int total = len + 1;
-  if (start >= total) return;
-  const int n_pos = min(KV_CHUNK, total - start);
+  using L = KvStage<KV, D>;
+  constexpr int S = L::STAGES;
+  constexpr int VN = 16 / sizeof(KV);  // elements in a 16-byte vector
+  constexpr int VPR = D / VN;          // lanes a cache row
+  constexpr int RPW = 32 / VPR;        // rows a warp reads at a time (the P.V slices of a warp)
+  constexpr int DL = D / 32;           // new-token elements a lane of warp 0 holds
+  constexpr int NSTEP = 8;             // row steps (RPW rows each) under one running-max update
+  constexpr int THREADS = kv_threads<GT>(), WARPS = THREADS / 32;
+
+  extern __shared__ __align__(16) unsigned char kv_smem[];
+  __shared__ float st_m[WARPS], st_l[WARPS];
+  __shared__ __align__(16) float st_acc[WARPS][D];
+  // The combine's inbox: from each virtual rank v, each head's max and sum
+  // and its P.V for this rank's share of the tile's outputs; from each rank,
+  // whether it met a page outside the pool.
+  __shared__ float in_m[KV_MAX_SPLIT][GT], in_l[KV_MAX_SPLIT][GT];
+  __shared__ float in_acc[KV_MAX_SPLIT * (GT * D + 1)];
+  __shared__ int in_bad[KV_MAX_SPLIT];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = gridDim.x, rank = blockIdx.x;
+  const int kvh = blockIdx.y / tiles, tile = blockIdx.y % tiles, b = blockIdx.z;
+  const int group = a.hq / a.hk, g0 = tile * GT, gt = min(GT, group - g0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int group = a.hq / a.hk;
-  const size_t head0 = (size_t)b * a.hq + (size_t)kvh * group;  // (row, first query head of the group)
+  const int nc = (a.cap + KV_CHUNK - 1) / KV_CHUNK;
+  const int len = a.kv_len[b];
+  // Arrive on the cluster barrier at once (relaxed: a release would stall
+  // on the loads in flight); its wait, before the first store into another
+  // rank's shared memory, then knows every rank has started.
+  const int share = (gt * D + split - 1) / split;  // outputs a rank combines: [rank * share, ...)
+  const int V = min(KV_MAX_SPLIT, nc);
+  if (split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  size_t row0;  // row (of D elements) of position `start` in the payload
-  if constexpr (PAGED) {
-    const int pg = a.table[(size_t)b * a.max_pages + start / a.page];
-    if (pg < 0 || pg >= a.n_pages) {  // a page id outside the pool: NaN out, nothing read
-      for (int g = tid; g < group; g += KV_THREADS) {
-        a.part_m[(head0 + g) * a.nc + c] = NAN;
-        a.part_l[(head0 + g) * a.nc + c] = NAN;
+  // Payload row of chunk c's first position (pg: its page, paged), and the
+  // rows of the chunk inside the cache.
+  const auto chunk_row = [&](int c, int pg) -> size_t {
+    if constexpr (PAGED) {
+      return ((size_t)pg * a.hk + kvh) * a.page + (c * KV_CHUNK) % a.page;
+    } else {
+      return ((size_t)b * a.hk + kvh) * a.cap + (size_t)c * KV_CHUNK;
+    }
+  };
+  const auto chunk_rows = [&](int c) { return PAGED ? KV_CHUNK : min(KV_CHUNK, a.cap - c * KV_CHUNK); };
+  // Page id of chunk c (paged; -1 past the row), and whether it is in the pool.
+  const auto page_of = [&](int c) {
+    return PAGED && c < nc ? a.table[(size_t)b * a.max_pages + c * KV_CHUNK / a.page] : (c < nc ? 0 : -1);
+  };
+  const auto page_ok = [&](int pg) { return !PAGED || (pg >= 0 && pg < a.n_pages); };
+  const auto stage_at = [&](int i) { return kv_smem + (i % S) * L::BYTES; };
+
+  // The row's sums are ordered by V virtual ranks, V = min(8, chunks of
+  // cap), a number the batch and C do not change: virtual rank v walks
+  // chunks v, v + V, ..., and this block (rank r of C) runs virtual ranks
+  // r, r + C, ... in turn. Its stream of chunks is theirs, one after
+  // another; `advance` moves (v, c) to the next chunk of the stream (c = -1
+  // past its end).
+  int n_chunks = nc;  // the row's chunks: known once kv_len has arrived
+  const auto advance = [&](int& v, int& c) {
+    if (c < 0) return;
+    c += V;
+    while (c >= n_chunks) {
+      v += split;
+      if (v >= V || v >= n_chunks) {
+        c = -1;
+        return;
       }
-      return;
+      c = v;
     }
-    row0 = ((size_t)pg * a.hk + kvh) * a.page + start % a.page;
+  };
+  // The stream's first chunk (chunk `rank`): its page id and rows requested
+  // before kv_len is known.
+  int iv = rank, ic = rank < V ? rank : -1;  // the next chunk to request
+  int ipg = ic >= 0 ? page_of(ic) : -1;      // its page
+  if (ic >= 0 && page_ok(ipg)) {
+    kv_issue_chunk<KV, D, THREADS>(a, stage_at(0), chunk_row(ic, ipg), chunk_rows(ic));
   } else {
-    row0 = ((size_t)b * a.hk + kvh) * a.cap + start;
+    cp_async_commit();
   }
-  KV* kc = static_cast<KV*>(a.k) + row0 * D;
-  KV* vc = static_cast<KV*>(a.v) + row0 * D;
+  int qpg[S - 1];  // qpg[k]: page of the stream's chunk k places after the one computed
+  qpg[0] = ipg;
 
-  __shared__ float qs[GT][D], kn[D], vn[D];
-  __shared__ float ps[GT][KV_CHUNK], ks[KV_CHUNK], vs[KV_CHUNK];
-  __shared__ float pv[SLICES][D];
-  __shared__ float red[2 * WARPS];
-  __shared__ float red_m[GT], red_l[GT], new_sk, new_sv;
-
-  const T* k_new = static_cast<const T*>(a.k_new) + b * a.kn_stride + (size_t)kvh * D;
-  const T* v_new = static_cast<const T*>(a.v_new) + b * a.vn_stride + (size_t)kvh * D;
-  const int t_new = len - start;               // the new token's place in this chunk
-  const bool holds_new = t_new < KV_CHUNK;
-  if (holds_new) {
-    for (int i = tid; i < D; i += KV_THREADS) {
-      kn[i] = to_f32(k_new[i]);
-      vn[i] = to_f32(v_new[i]);
-    }
+  // Warp w takes head hg = w % gt of the tile and the part w / gt of every
+  // chunk's positions (MHA: 8 parts of 8); lane (rw, sub) the rows rw,
+  // rw + RPW, ... of it and their 16-byte column slice sub, so it holds its
+  // slice of q in registers.
+  int parts = WARPS / gt;                    // position parts of a head: a power of two,
+  while (parts & (parts - 1)) parts &= parts - 1;  // so that they split the chunk evenly
+  const int pp = KV_CHUNK / parts;           // positions of a part in each chunk
+  const bool pv_warp = warp < gt * parts;
+  const int hg = warp % gt, part = warp / gt;
+  const int sub = lane % VPR, rw = lane / VPR;
+  float qr[VN];
+  {
+    const T* qg = static_cast<const T*>(a.q) + b * a.q_stride + ((size_t)kvh * group + g0 + (pv_warp ? hg : 0)) * D;
+#pragma unroll
+    for (int e = 0; e < VN; ++e) qr[e] = to_f32(qg[sub * VN + e]);
   }
-  if constexpr (INT8) {
-    for (int t = tid; t < n_pos; t += KV_THREADS) {
-      ks[t] = t == t_new ? 1.f : a.k_scale[row0 + t];  // the new token is dequantized below
-      vs[t] = t == t_new ? 1.f : a.v_scale[row0 + t];
-    }
-  }
-  __syncthreads();
-
-  if (holds_new) {  // append in place at position len, once per kv head
+  // Warp 0 holds the new token as the cache stores it (int8: codes, with
+  // their scales sk / sv): appended to the cache, and written into the
+  // stage of its chunk, where every warp reads it as any other row.
+  KV wk[DL], wv[DL];
+  float sk = 1.f, sv = 1.f;
+  if (warp == 0) {
+    const T* kg = static_cast<const T*>(a.k_new) + b * a.kn_stride + (size_t)kvh * D;
+    const T* vg = static_cast<const T*>(a.v_new) + b * a.vn_stride + (size_t)kvh * D;
     if constexpr (INT8) {
-      float ak = tid < D ? fabsf(kn[tid]) : 0.f;
-      float av = tid < D ? fabsf(vn[tid]) : 0.f;
+      float xk[DL], xv[DL], ak = 0.f, av = 0.f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) {
+        xk[i] = to_f32(kg[lane + 32 * i]);
+        xv[i] = to_f32(vg[lane + 32 * i]);
+        ak = fmaxf(ak, fabsf(xk[i]));
+        av = fmaxf(av, fabsf(xv[i]));
+      }
       ak = warp_max(ak);
       av = warp_max(av);
-      if (lane == 0) {
-        red[warp] = ak;
-        red[WARPS + warp] = av;
+      sk = ak == 0.f ? 1.f : ak / 127.f;
+      sv = av == 0.f ? 1.f : av / 127.f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) {
+        wk[i] = static_cast<int8_t>(fminf(fmaxf(rintf(xk[i] / sk), -127.f), 127.f));
+        wv[i] = static_cast<int8_t>(fminf(fmaxf(rintf(xv[i] / sv), -127.f), 127.f));
       }
-      __syncthreads();
-      if (tid == 0) {
-        float mk = 0.f, mv = 0.f;
-        for (int w = 0; w < WARPS; ++w) {
-          mk = fmaxf(mk, red[w]);
-          mv = fmaxf(mv, red[WARPS + w]);
-        }
-        new_sk = mk == 0.f ? 1.f : mk / 127.f;
-        new_sv = mv == 0.f ? 1.f : mv / 127.f;
-        a.k_scale[row0 + t_new] = new_sk;
-        a.v_scale[row0 + t_new] = new_sv;
-      }
-      __syncthreads();
-      const float sk = new_sk, sv = new_sv;
-      for (int i = tid; i < D; i += KV_THREADS) {
-        const float ck = fminf(fmaxf(rintf(kn[i] / sk), -127.f), 127.f);
-        const float cv = fminf(fmaxf(rintf(vn[i] / sv), -127.f), 127.f);
-        kc[(size_t)t_new * D + i] = static_cast<int8_t>(ck);
-        vc[(size_t)t_new * D + i] = static_cast<int8_t>(cv);
-        kn[i] = ck * sk;
-        vn[i] = cv * sv;
-      }
-      __syncthreads();
     } else {
-      for (int i = tid; i < D; i += KV_THREADS) {
-        kc[(size_t)t_new * D + i] = k_new[i];
-        vc[(size_t)t_new * D + i] = v_new[i];
+#pragma unroll
+      for (int i = 0; i < DL; ++i) {
+        wk[i] = kg[lane + 32 * i];
+        wv[i] = vg[lane + 32 * i];
       }
     }
   }
 
-  const int sub = lane % VPR, rw = lane / VPR;
-  const int vi = tid % VPR, slice = tid / VPR;
-  for (int g0 = 0; g0 < group; g0 += GT) {  // the group's query heads, GT at a time
-    const int gt = min(GT, group - g0);
-    const T* q = static_cast<const T*>(a.q) + b * a.q_stride + ((size_t)kvh * group + g0) * D;
-    for (int i = tid; i < gt * D; i += KV_THREADS) qs[i / D][i % D] = to_f32(q[i]);
-    __syncthreads();
-
-    // Scores: VPR lanes read one cache row as 16-byte vectors, each dots its
-    // slice with every query head of the tile, and the VPR partial sums
-    // reduce by shuffles.
-    for (int t0 = warp * RPW; t0 < n_pos; t0 += WARPS * RPW) {
-      const int t = t0 + rw;
-      float f[VN];
-      if (t == t_new) {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) f[e] = kn[sub * VN + e];
-      } else if (t < n_pos) {
-        load16(kc + (size_t)t * D + sub * VN, f);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) f[e] = 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        if (g < gt) {  // uniform over the block
-          float s = 0.f;
-#pragma unroll
-          for (int e = 0; e < VN; ++e) s += qs[g][sub * VN + e] * f[e];
-#pragma unroll
-          for (int o = VPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (sub == 0 && t < n_pos) ps[g][t] = INT8 ? s * ks[t] * a.sm_scale : s * a.sm_scale;
-        }
-      }
+  O* dst = out + ((size_t)b * a.hq + (size_t)kvh * group + g0) * D;
+  if (len < 0 || len >= a.cap) {  // no room to append: nothing written, NaN out (the whole cluster)
+    if (rank == 0) {
+      for (int i = tid; i < gt * D; i += THREADS) store_elt(dst + i, NAN);
     }
-    __syncthreads();
-
-    for (int g = warp; g < gt; g += WARPS) {  // softmax statistics, a warp a head
-      float mx = -INFINITY;
-      for (int t = lane; t < n_pos; t += 32) mx = fmaxf(mx, ps[g][t]);
-      mx = warp_max(mx);
-      float l = 0.f;
-      for (int t = lane; t < KV_CHUNK; t += 32) {
-        const float p = t < n_pos ? expf(ps[g][t] - mx) : 0.f;
-        ps[g][t] = p;
-        l += p;
-      }
-      l = warp_sum(l);
-      if (lane == 0) {
-        red_m[g] = mx;
-        red_l[g] = l;
-      }
-    }
-    __syncthreads();
-
-    // P.V: thread (slice, vector) sums positions slice, slice + SLICES, ...
-    // of its 16-byte column slice for every head of the tile; the slices
-    // reduce in shared memory, a head at a time.
-    float acc[GT][VN];
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-#pragma unroll
-      for (int e = 0; e < VN; ++e) acc[g][e] = 0.f;
-    }
-    for (int t = slice; t < n_pos; t += SLICES) {
-      float f[VN];
-      if (t == t_new) {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) f[e] = vn[vi * VN + e];
-      } else {
-        load16(vc + (size_t)t * D + vi * VN, f);
-      }
-      const float sv = INT8 ? vs[t] : 1.f;
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        if (g < gt) {
-          const float p = ps[g][t] * sv;
-#pragma unroll
-          for (int e = 0; e < VN; ++e) acc[g][e] += p * f[e];
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      if (g < gt) {
-#pragma unroll
-        for (int e = 0; e < VN; ++e) pv[slice][vi * VN + e] = acc[g][e];
-        __syncthreads();
-        const size_t idx = (head0 + g0 + g) * a.nc + c;
-        for (int i = tid; i < D; i += KV_THREADS) {
-          float sum = 0.f;
-#pragma unroll 4
-          for (int sl = 0; sl < SLICES; ++sl) sum += pv[sl][i];
-          a.part_acc[idx * D + i] = sum;
-        }
-        if (tid == 0) {
-          a.part_m[idx] = red_m[g];
-          a.part_l[idx] = red_l[g];
-        }
-        __syncthreads();
-      }
-    }
-  }
-}
-
-template <typename T, typename KV, int D, bool PAGED, int GT>
-__global__ void __launch_bounds__(KV_THREADS) kv_split_kernel(KvArgs a) {
-  kv_split_item<T, KV, D, PAGED, GT>(a, blockIdx.x, blockIdx.y, blockIdx.z);
-}
-
-// The combine of query head hh of row b by threads 0..D-1
-// (kv_combine_kernel's body; decode_block.cu's phase 2).
-template <typename O, int D>
-__device__ void kv_combine_item(const KvArgs& a, O* out, int hh, int b) {
-  const int tid = threadIdx.x;
-  const int len = a.kv_len[b];
-  O* dst = out + ((size_t)b * a.hq + hh) * D;
-  if (len < 0 || len >= a.cap) {  // no room to append: the row's output is NaN, never plausible
-    store_elt(dst + tid, NAN);
+    cp_async_wait<0>();
     return;
   }
-  const int n_valid = (len + KV_CHUNK) / KV_CHUNK;  // ceil((len + 1) / CHUNK)
-  const size_t base = ((size_t)b * a.hq + hh) * a.nc;
-  float mx = -INFINITY;
-  for (int c = 0; c < n_valid; ++c) mx = fmaxf(mx, a.part_m[base + c]);
-  float den = 0.f, num = 0.f;
-  for (int c = 0; c < n_valid; ++c) {
-    const float w = expf(a.part_m[base + c] - mx);
-    den += w * a.part_l[base + c];
-    num += w * a.part_acc[(base + c) * D + tid];
+  const int total = len + 1;
+  n_chunks = (total + KV_CHUNK - 1) / KV_CHUNK;
+  const int c_new = len / KV_CHUNK;
+  if (ic >= n_chunks) ic = -1;  // the row is shorter than the first request
+  // The rest of the ring's first S - 1 chunks: one commit group a stage,
+  // empty past the stream's end.
+  advance(iv, ic);
+  ipg = ic >= 0 ? page_of(ic) : -1;
+#pragma unroll
+  for (int k = 1; k < S - 1; ++k) {
+    if (ic >= 0 && page_ok(ipg)) {
+      kv_issue_chunk<KV, D, THREADS>(a, stage_at(k), chunk_row(ic, ipg), chunk_rows(ic));
+    } else {
+      cp_async_commit();
+    }
+    qpg[k] = ipg;
+    advance(iv, ic);
+    ipg = ic >= 0 ? page_of(ic) : -1;
   }
-  store_elt(dst + tid, num * (den == 0.f ? 1.f : 1.f / den));
-}
+  const auto inbox = [&](auto* p, int r) { return r == rank ? p : cluster.map_shared_rank(p, r); };
+  bool waited = split == 1;  // on the cluster barrier's first phase
 
-template <typename O, int D>
-__global__ void __launch_bounds__(D) kv_combine_kernel(KvArgs a, O* out) {
-  kv_combine_item<O, D>(a, out, blockIdx.x, blockIdx.y);
-}
+  float m_run, l_run, acc[VN];  // l_run: this lane's rows' share of the sum
+  bool bad = false;
+  int pos = 0;  // the stream position computed
+  for (int v = rank; v < V; v += split) {  // one past the row's chunks sends an empty state
+    m_run = -INFINITY;
+    l_run = 0.f;
+#pragma unroll
+    for (int e = 0; e < VN; ++e) acc[e] = 0.f;
+    for (int c = v; c < n_chunks; c += V, ++pos) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // chunk c landed; every warp is done with the stage it replaces
+      const int pg_cur = qpg[0];
+      if (ic >= 0 && page_ok(ipg)) {  // the chunk S - 1 places ahead, into the stage chunk pos - 1 left
+        kv_issue_chunk<KV, D, THREADS>(a, stage_at(pos + S - 1), chunk_row(ic, ipg), chunk_rows(ic));
+      } else {
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int k = 0; k < S - 2; ++k) qpg[k] = qpg[k + 1];
+      qpg[S - 2] = ipg;
+      advance(iv, ic);
+      ipg = ic >= 0 ? page_of(ic) : -1;
+      if (!page_ok(pg_cur)) {  // a page id outside the pool: NaN for the row, nothing read or written
+        bad = true;
+        continue;
+      }
+      const int start = c * KV_CHUNK;
+      const int n_pos = min(KV_CHUNK, total - start);
+      unsigned char* stage = stage_at(pos);
+      const KV* kt = reinterpret_cast<const KV*>(stage);
+      const KV* vt = reinterpret_cast<const KV*>(stage + L::TILE);
+      float* kst = reinterpret_cast<float*>(stage + 2 * L::TILE);
+      const float* vst = kst + KV_CHUNK;
+      if (c == c_new) {  // the new token: appended at position len (once per kv head) and into the stage
+        const int t_new = len - start;
+        if (warp == 0) {
+          const size_t at = chunk_row(c, pg_cur) + t_new;
+          KV* kc = static_cast<KV*>(a.k) + at * D;
+          KV* vc = static_cast<KV*>(a.v) + at * D;
+          KV* ks = reinterpret_cast<KV*>(stage) + t_new * D;
+          KV* vs = reinterpret_cast<KV*>(stage + L::TILE) + t_new * D;
+#pragma unroll
+          for (int j = 0; j < DL; ++j) {
+            if (tile == 0) {
+              kc[lane + 32 * j] = wk[j];
+              vc[lane + 32 * j] = wv[j];
+            }
+            ks[lane + 32 * j] = wk[j];
+            vs[lane + 32 * j] = wv[j];
+          }
+          if (INT8 && lane == 0) {
+            if (tile == 0) {
+              a.k_scale[at] = sk;
+              a.v_scale[at] = sv;
+            }
+            kst[t_new] = sk;
+            kst[KV_CHUNK + t_new] = sv;
+          }
+        }
+        __syncthreads();
+      }
 
-template <typename T, typename KV, int D, bool PAGED, bool F32_OUT>
-cudaError_t launch_kv(const KvArgs& a, int b, void* out, cudaStream_t st) {
-  using O = std::conditional_t<F32_OUT, float, T>;
-  const dim3 grid(a.nc, a.hk, b);
-  if (a.hq == a.hk) {
-    kv_split_kernel<T, KV, D, PAGED, 1><<<grid, KV_THREADS, 0, st>>>(a);
+      // (Head hg, part)'s positions [pb, pe) of the chunk, NSTEP row steps at
+      // a time: each lane's rows' scores (VPR lanes dot their slices and
+      // reduce by shuffles), the running max moved to cover them, then p =
+      // exp(score - max) into the lane's sum and its slice of P.V.
+      const int pb = part * pp, pe = min(pb + pp, n_pos);
+      if (pv_warp) {
+        for (int base = pb; base < pe; base += RPW * NSTEP) {
+          float sc[NSTEP];
+          float mx = -INFINITY;
+#pragma unroll
+          for (int k = 0; k < NSTEP; ++k) sc[k] = -INFINITY;
+#pragma unroll
+          for (int k = 0; k < NSTEP; ++k) {
+            if (base + k * RPW >= pe) break;  // uniform over the warp
+            const int t = base + k * RPW + rw;
+            float f[VN];
+            if (t < pe) {
+              load16(kt + t * D + sub * VN, f);
+            } else {
+#pragma unroll
+              for (int e = 0; e < VN; ++e) f[e] = 0.f;
+            }
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < VN; ++e) dot += qr[e] * f[e];
+#pragma unroll
+            for (int o = VPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+            if (t < pe) sc[k] = INT8 ? dot * kst[t] * a.sm_scale : dot * a.sm_scale;
+            mx = fmaxf(mx, sc[k]);
+          }
+#pragma unroll
+          for (int o = VPR; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_new = fmaxf(m_run, mx);
+          const float alpha = expf(m_run - m_new);  // 0 while m_run is -inf
+          l_run *= alpha;
+#pragma unroll
+          for (int e = 0; e < VN; ++e) acc[e] *= alpha;
+          m_run = m_new;
+#pragma unroll
+          for (int k = 0; k < NSTEP; ++k) {
+            if (base + k * RPW >= pe) break;
+            const int t = base + k * RPW + rw;
+            if (t < pe) {
+              const float p = expf(sc[k] - m_new);
+              l_run += p;
+              float f[VN];
+              load16(vt + t * D + sub * VN, f);
+              const float pv = INT8 ? p * vst[t] : p;
+#pragma unroll
+              for (int e = 0; e < VN; ++e) acc[e] += pv * f[e];
+            }
+          }
+        }
+      }
+    }
+
+    // Virtual rank v's state: each (head, part) warp's row slices summed by
+    // shuffles; the parts of a head merged in part order; each head's max
+    // and sum and the P.V of each output stored straight into the shared
+    // memory of the rank that owns that output (rank r: outputs [r * share,
+    // (r + 1) * share) of the tile's gt * D), in its slot v.
+#pragma unroll
+    for (int o = VPR; o < 32; o <<= 1) {
+#pragma unroll
+      for (int e = 0; e < VN; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+      l_run += __shfl_xor_sync(0xffffffffu, l_run, o);
+    }
+    if (pv_warp) {
+      if (lane < VPR) {
+#pragma unroll
+        for (int e = 0; e < VN; ++e) st_acc[warp][lane * VN + e] = acc[e];
+      }
+      if (lane == 0) {
+        st_m[warp] = m_run;
+        st_l[warp] = l_run;
+      }
+    }
+    __syncthreads();
+    if (!waited) {
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+      waited = true;
+    }
+    for (int o = tid; o < gt * D; o += THREADS) {
+      const int g = o / D, d = o % D, r = o / share;
+      float mx = -INFINITY;
+      for (int p = 0; p < parts; ++p) mx = fmaxf(mx, st_m[p * gt + g]);
+      float num = 0.f, den = 0.f;
+      if (mx != -INFINITY) {
+        for (int p = 0; p < parts; ++p) {
+          const float w = expf(st_m[p * gt + g] - mx);
+          den += w * st_l[p * gt + g];
+          num += w * st_acc[p * gt + g][d];
+        }
+      }
+      *inbox(&in_acc[v * share + o - r * share], r) = num;
+      if (d == 0) {
+        for (int q = 0; q < split; ++q) {
+          *inbox(&in_m[v][g], q) = mx;
+          *inbox(&in_l[v][g], q) = den;
+        }
+      }
+    }
+    __syncthreads();  // st_* free for the next virtual rank
+  }
+  cp_async_wait<0>();  // requests past the stream's end (the first, speculative one) still in flight
+  if (!waited) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid == 0) {  // whether this rank met a page outside the pool (NaN for the row)
+    for (int q = 0; q < split; ++q) *inbox(&in_bad[rank], q) = bad;
+  }
+  if (split > 1) {
+    cluster.sync();  // every rank's states delivered; no rank reads another's memory after this
   } else {
-    kv_split_kernel<T, KV, D, PAGED, kv_group_tile<KV>()><<<grid, KV_THREADS, 0, st>>>(a);
+    __syncthreads();
   }
-  kv_combine_kernel<O, D><<<dim3(a.hq, b), D, 0, st>>>(a, static_cast<O*>(out));
-  return cudaGetLastError();
+
+  // This rank's share of the outputs: the virtual ranks' states in order.
+  bool nan = false;
+  for (int q = 0; q < split; ++q) nan |= in_bad[q] != 0;
+  for (int j = tid; j < share && rank * share + j < gt * D; j += THREADS) {
+    const int o = rank * share + j, g = o / D;
+    float mx = -INFINITY;
+    for (int v = 0; v < V; ++v) mx = fmaxf(mx, in_m[v][g]);
+    float num = 0.f, den = 0.f;
+    for (int v = 0; v < V; ++v) {
+      const float w = expf(in_m[v][g] - mx);
+      den += w * in_l[v][g];
+      num += w * in_acc[v * share + j];
+    }
+    store_elt(dst + o, nan ? NAN : num * (den == 0.f ? 1.f : 1.f / den));
+  }
 }
 
-// Instantiation by (activation dtype, head dim); the cache holds the
-// activations' dtype or int8 codes (INT8_KV). The attention vector is
-// written in the activations' dtype, or in f32 (F32_OUT) for a caller that
-// projects it unrounded (decode_attention.cu's fused wo).
+template <typename T, typename KV, int D, bool PAGED, int GT, typename O>
+struct KvKernel {
+  using Out = O;
+  static constexpr int SMEM = KvStage<KV, D>::SMEM;
+
+  // The kernel's dynamic shared-memory limit set to SMEM, once: with its
+  // static shared memory the block may pass the default 48 KB (and the
+  // static part counts against the same 227 KB, so not MAX_SMEM).
+  static cudaError_t prepare() {
+    static const cudaError_t e = cudaFuncSetAttribute(kv_attention_kernel<T, KV, D, PAGED, GT, O>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    return e;
+  }
+
+  static cudaError_t launch(const KvArgs& a, int b, O* out, int split, cudaStream_t st) {
+    const cudaError_t e = prepare();
+    if (e != cudaSuccess) return e;
+    const int tiles = GT == 1 ? 1 : (a.hq / a.hk + GT - 1) / GT;
+    return launch_clustered(kv_attention_kernel<T, KV, D, PAGED, GT, O>, dim3(split, a.hk * tiles, b), kv_threads<GT>(),
+                            SMEM, split, st, a, out, tiles);
+  }
+
+  // Clusters of `split` blocks the device holds at once (minus a CUDA error).
+  static int clusters(int split) {
+    const cudaError_t e = prepare();
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    bool prepared = true;
+    return max_active_clusters(kv_attention_kernel<T, KV, D, PAGED, GT, O>, kv_threads<GT>(), SMEM, prepared,
+                               split);
+  }
+};
+
+// body(KvKernel<...>{}) for the kernel of (activation dtype, head dim, MHA
+// or GQA): the cache holds the activations' dtype or int8 codes (INT8_KV);
+// the attention vector is written in the activations' dtype, or in f32
+// (F32_OUT). The head dim is 64 or 128 (checked by the callers).
+template <bool INT8_KV, bool PAGED, bool F32_OUT, typename Body>
+int with_kv_kernel(int bf16, int d, bool gqa, const Body& body) {
+  const auto pick = [&](auto t, auto dd) -> int {
+    using T = decltype(t);
+    constexpr int D = decltype(dd)::value;
+    using KV = std::conditional_t<INT8_KV, int8_t, T>;
+    using O = std::conditional_t<F32_OUT, float, T>;
+    return gqa ? body(KvKernel<T, KV, D, PAGED, KV_GT, O>{}) : body(KvKernel<T, KV, D, PAGED, 1, O>{});
+  };
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (d == 64) return bf16 ? pick(__nv_bfloat16{}, D64{}) : pick(0.f, D64{});
+  return bf16 ? pick(__nv_bfloat16{}, D128{}) : pick(0.f, D128{});
+}
+
+// One launch of the KV attention of `b` rows as clusters of `split` blocks.
 template <bool INT8_KV, bool PAGED, bool F32_OUT = false>
-int run_kv_attention(const KvArgs& a, int bf16, int b, int d, void* out, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b < 1 || a.hk < 1 || a.hq < a.hk || a.hq % a.hk || a.cap < 1 || a.nc * KV_CHUNK < a.cap ||
+int run_kv_attention(const KvArgs& a, int bf16, int b, int d, void* out, int split, void* stream) {
+  if (b < 1 || a.hk < 1 || a.hq < a.hk || a.hq % a.hk || a.cap < 1 || split < 1 || split > KV_MAX_SPLIT ||
+      (d != 64 && d != 128) ||
       (PAGED && (a.page < KV_CHUNK || a.page % KV_CHUNK || a.max_pages < 1 || a.n_pages < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using BF = __nv_bfloat16;
-  cudaError_t e;
-  if (d == 64) {
-    e = bf16 ? launch_kv<BF, std::conditional_t<INT8_KV, int8_t, BF>, 64, PAGED, F32_OUT>(a, b, out, st)
-             : launch_kv<float, std::conditional_t<INT8_KV, int8_t, float>, 64, PAGED, F32_OUT>(a, b, out, st);
-  } else if (d == 128) {
-    e = bf16 ? launch_kv<BF, std::conditional_t<INT8_KV, int8_t, BF>, 128, PAGED, F32_OUT>(a, b, out, st)
-             : launch_kv<float, std::conditional_t<INT8_KV, int8_t, float>, 128, PAGED, F32_OUT>(a, b, out, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_kv_kernel<INT8_KV, PAGED, F32_OUT>(bf16, d, a.hq > a.hk, [&](auto k) {
+    using K = decltype(k);
+    return static_cast<int>(K::launch(a, b, static_cast<typename K::Out*>(out), split, st));
+  });
+}
+
+// The clusters of `split` blocks of that kernel the device holds at once,
+// or minus a CUDA error: attention.py kv_plan keeps every cluster of a
+// launch resident within it.
+template <bool INT8_KV, bool PAGED, bool F32_OUT = false>
+int kv_clusters(int bf16, int d, int gqa, int split) {
+  if (split < 1 || split > KV_MAX_SPLIT || (d != 64 && d != 128)) return -static_cast<int>(cudaErrorInvalidValue);
+  return with_kv_kernel<INT8_KV, PAGED, F32_OUT>(bf16, d, gqa != 0,
+                                                 [&](auto k) { return decltype(k)::clusters(split); });
 }
 
 // The arguments every KV entry point shares: the three operands with their
-// row strides, the head counts, the lengths and the split scratch.
+// row strides, the head counts and the lengths.
 KvArgs kv_args(const void* q, const void* k_new, const void* v_new, long long q_stride, long long kn_stride,
-               long long vn_stride, int hq, int hk, const int* kv_len, float* part_m, float* part_l,
-               float* part_acc, int n_chunks, float sm_scale) {
+               long long vn_stride, int hq, int hk, const int* kv_len, float sm_scale) {
   KvArgs a{};
   a.q = q;
   a.k_new = k_new;
@@ -385,10 +609,6 @@ KvArgs kv_args(const void* q, const void* k_new, const void* v_new, long long q_
   a.hq = hq;
   a.hk = hk;
   a.kv_len = kv_len;
-  a.part_m = part_m;
-  a.part_l = part_l;
-  a.part_acc = part_acc;
-  a.nc = n_chunks;
   a.sm_scale = sm_scale;
   return a;
 }

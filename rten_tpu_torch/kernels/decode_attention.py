@@ -28,8 +28,9 @@ they exist to pay a TPU grid cell's fixed costs (its DMA chain, the
 block-0 latency, the append's round trips) once for all rows instead of
 once per row. A CUDA grid pays no such cost per row, so here both modes are
 the one launch over all B rows that ``decode_attention`` and
-``decode_attention_int8`` always make (split-KV grid (chunk, kv head, row);
-the fused wo reads W_o once for all rows).
+``decode_attention_int8`` always make (a cluster of ``attention.kv_plan``
+blocks a (kv head, row); the fused wo, a second launch, reads W_o once for
+all rows).
 
 Numerics (those of the Pallas kernel): scores, softmax statistics and the
 attention vector are f32; the scale is ``1/sqrt(D)``; the output
@@ -39,26 +40,31 @@ projection multiplies the f32 attention vector by the int8 weights in f32
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels.activations import ACTIVATIONS, activation_code
+from rten_tpu_torch.kernels.attention import KV_CHUNK, kv_plan
 from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
 from rten_tpu_torch.kernels.quant_matmul import (
     _NORM_CODES,
     MAX_ROWS,
+    MAX_SPLIT,
     _check_weight,
+    _device_index,
     _dot_operand,
     _norm_rows_f32,
     _ptr,
     _qdot,
     _stream,
     _vec_f32,
+    sm_count,
 )
 
-CHUNK = 64  # cache positions per split-KV block (csrc/kv_attention.cuh KV_CHUNK)
+CHUNK = KV_CHUNK  # cache positions per split-KV chunk (csrc/kv_attention.cuh KV_CHUNK)
 HEAD_DIMS = (64, 128)
 _LANES = 128  # the TPU's lane width, in the copied support rules below
 
@@ -187,9 +193,9 @@ def decode_attention(
     per-row mode (see the module docstring). With the fused wo B is at most
     8; without it, any B.
 
-    CUDA tensors launch ``csrc/decode_attention.cu`` (split-KV scores and
-    partial softmax over (chunk, kv head, row), combine, output GEMV); CPU
-    tensors run ``decode_attention_ref``."""
+    CUDA tensors launch ``csrc/decode_attention.cu`` (the clustered
+    split-KV attention over (kv head, row), then with wo the output GEMV);
+    CPU tensors run ``decode_attention_ref``."""
     q, kn, vn = split_qkv(qkv)
     b, hq, d = q.shape
     hk = kn.shape[1]
@@ -221,11 +227,8 @@ def decode_attention(
     if residual is not None and (residual.dtype != dtype or not residual.is_contiguous()):
         raise ValueError("residual must be contiguous and of the activations' dtype")
     s_max = k_cache.shape[2]
-    n_chunks = -(-s_max // CHUNK)
     dev = q.device
-    part_m = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, hq, n_chunks, d), dtype=torch.float32, device=dev)
+    split = kv_device_plan("rt_decode_attention", q, hk, s_max, int(with_wo))
     attn = scales = bias = None
     if with_wo:
         _check_weight(wo_t, hq * d, "decode_attention wo")
@@ -237,8 +240,7 @@ def decode_attention(
         out = torch.empty((b, hq * d), dtype=dtype, device=dev)
     rc = _build.library().rt_decode_attention(
         *ops, int(dtype == torch.bfloat16), b, hq, hk, d,
-        k_cache.data_ptr(), v_cache.data_ptr(), s_max, kv_len.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), _ptr(attn), n_chunks,
+        k_cache.data_ptr(), v_cache.data_ptr(), s_max, kv_len.data_ptr(), _ptr(attn), split,
         _ptr(wo_t), _ptr(scales), _ptr(bias), dm,
         _ptr(residual), out.data_ptr(),
         1.0 / math.sqrt(d),
@@ -497,6 +499,33 @@ def check_kv_operands(name, qkv, payload, scales, heads_axis: int):
     return ops
 
 
+@functools.lru_cache(maxsize=64)
+def kv_cluster_capacity(device_index: int, entry: str, *variant: int) -> tuple[int, ...]:
+    """``fits`` of ``attention.kv_plan`` for the kernel that the KV entry
+    point ``entry`` launches in ``variant`` (its ``*_clusters`` arguments
+    before the cluster size: bf16, head dim, GQA, and for
+    ``rt_decode_attention`` the fused wo): the clusters of 1..MAX_SPLIT
+    blocks this device holds at once (``cudaOccupancyMaxActiveClusters``),
+    queried once."""
+    fn = getattr(_build.library(), entry + "_clusters")
+    with torch.cuda.device(device_index):
+        fits = tuple(int(fn(*variant, c)) for c in range(1, MAX_SPLIT + 1))
+    for c, n in enumerate(fits, 1):
+        if n < 0:
+            _build.check(-n, f"{entry} cluster capacity ({variant}, cluster {c})")
+    return fits
+
+
+def kv_device_plan(entry: str, q, hk: int, cap: int, *extra: int) -> int:
+    """``attention.kv_plan`` of a KV kernel's launch over q [B, Hq, D] on
+    q's card, with its SM count and the launched kernel's cluster capacity
+    (``extra``: ``rt_decode_attention``'s fused-wo flag)."""
+    b, hq, d = q.shape
+    idx = _device_index(q)
+    fits = kv_cluster_capacity(idx, entry, int(q.dtype == torch.bfloat16), d, int(hq > hk), *extra)
+    return kv_plan(b, hk, hq // hk, cap, sm_count(idx), fits)
+
+
 def launch_kv_attention(name, entry, ops, tensors, kv_len, cap: int, scalars):
     """Launch one of the KV kernels (kv_attention.cuh) on CUDA tensors:
     ``ops`` (q, k_new, v_new) as ``split_qkv`` gives them, ``tensors`` the
@@ -515,16 +544,11 @@ def launch_kv_attention(name, entry, ops, tensors, kv_len, cap: int, scalars):
             raise ValueError(f"{name}: cache operand {i} must be contiguous {want}, got {t.dtype}")
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous():
         raise ValueError(f"{name}: kv_len must be a contiguous int32 [B] tensor")
-    n_chunks = -(-cap // CHUNK)
-    dev = q.device
-    part_m = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
-    part_l = torch.empty((b, hq, n_chunks), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, hq, n_chunks, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, hq * d), dtype=dtype, device=dev)
+    split = kv_device_plan(entry, q, hk, cap)
+    out = torch.empty((b, hq * d), dtype=dtype, device=q.device)
     rc = getattr(_build.library(), entry)(
         *args, int(dtype == torch.bfloat16), b, hq, hk, d,
-        *(t.data_ptr() for t in tensors), *scalars, kv_len.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), n_chunks,
+        *(t.data_ptr() for t in tensors), *scalars, kv_len.data_ptr(), split,
         out.data_ptr(), 1.0 / math.sqrt(d), _stream(q),
     )
     _build.check(rc, name)

@@ -1597,3 +1597,200 @@ def test_matmul_w8a8_pair_in_cuda_graph(dev, m, n, k):
         graph.replay()
         assert torch.equal(out, qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32))
 
+
+
+# -- the KV engine as one clustered launch (csrc/kv_attention.cuh): a
+# cluster of C ranks a (kv head, head tile, row), rank r walking chunks r,
+# r + C, ...; the group's heads scored in one pass; the ranks' states
+# combined through distributed shared memory --
+
+KV_ENGINE_KINDS = ["fused_wo", "no_wo", "int8", "paged", "paged_int8"]
+# Chunk, page (64) and rank edges, and the last position of a 6-chunk row.
+EDGE_LENS = [0, 1, 63, 64, 65, 127, 128, 300, 383]
+
+
+def _engine_case(dev, kind, dtype, d, group, lens, hk=2, cap=384, page=64, seed=90):
+    """Inputs of one KV kernel, rows at ``lens`` (each below ``cap``): Hk kv
+    heads, group · Hk query heads, q and k_new separate and v_new a strided
+    view; paged rows scattered through a pool with a scratch page last.
+    Returns (kernel, plain, args, kw, n_cache)."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hq, b, per_row = group * hk, len(lens), cap // page
+    q = (1.5 * torch.randn(b, hq, d, generator=gen, device=dev)).to(dtype)
+    kv = (1.5 * torch.randn(b, 2 * hk, d, generator=gen, device=dev)).to(dtype)
+    ops = (q, kv[:, :hk].contiguous(), kv[:, hk:])
+    int8, paged = kind.endswith("int8"), kind.startswith("paged")
+    shape = (b * per_row + 1, hk, page, d) if paged else (b, hk, cap, d)
+    if int8:
+        payload = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in range(2)]
+        payload += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+    else:
+        payload = [(1.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype),
+                   torch.randn(shape, generator=gen, device=dev).to(dtype)]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n_cache = len(payload)
+    if kind in ("fused_wo", "no_wo"):
+        args, kw = [ops, *payload, lens_t], {}
+        if kind == "fused_wo":
+            wo, wos = _pack(gen, 256, hq * d, dev)
+            args += [wo, wos, torch.randn(256, generator=gen, device=dev)]
+            kw = dict(residual=torch.randn(b, 256, generator=gen, device=dev).to(dtype))
+        return da.decode_attention, da.decode_attention_ref, args, kw, n_cache
+    if kind == "int8":
+        return da.decode_attention_int8, da.decode_attention_int8_ref, [ops, *payload, lens_t], {}, n_cache
+    table = torch.randperm(b * per_row, generator=gen, device=dev).to(torch.int32).view(b, per_row).contiguous()
+    fn = (pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref) if int8 else (
+        pa.paged_decode_attention, pa.paged_decode_attention_ref)
+    return (*fn, [ops, *payload, table, lens_t], {}, n_cache)
+
+
+def _engine_check(kernel, plain, args, kw, n_cache, dtype, kind):
+    """The kernel against its plain version (fused wo: the output's own
+    rule; else the attention vector against its own max), the caches or
+    pages after the append bit for bit, and a second launch on the same
+    inputs giving the same bits. Returns the kernel's output."""
+    k_args = [args[0], *_clone_args(args[1:])]
+    p_args = [args[0], *_clone_args(args[1:])]
+    again = [args[0], *_clone_args(args[1:])]
+    out = kernel(*k_args, **kw)
+    ref = plain(*p_args, **kw)
+    (_close if kind == "fused_wo" else _close_own_max)(out, ref, dtype)
+    for a, b in zip(k_args[1 : 1 + n_cache], p_args[1 : 1 + n_cache]):
+        assert torch.equal(a, b)
+    assert torch.equal(kernel(*again, **kw), out)
+    return out
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("kind", KV_ENGINE_KINDS)
+def test_kv_engine_chunk_and_page_edges(dev, kind, group, dtype, head_dim):
+    """Rows at kv_len 0, 1, 63, 64, 65, 127, 128, 300 and cap - 1 (383 of 6
+    chunks or pages of 64), MHA and Qwen2's group of 7, both dtypes, head
+    dim 64 and 128: one launch of the kernel (the fused wo, at most 8 rows,
+    in two calls) against its plain version, the append bit for bit, two
+    launches bit for bit."""
+    dispatch.reset_counters()
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, dtype, head_dim, group, EDGE_LENS)
+    if kind == "fused_wo":  # rows 0-7, then the last
+        for rows in (slice(0, 8), slice(8, 9)):
+            part = [tuple(t[rows] for t in args[0]), *(t[rows] for t in args[1:4]), *args[4:]]
+            _engine_check(kernel, plain, part, dict(residual=kw["residual"][rows].contiguous()), n_cache,
+                          dtype, kind)
+    else:
+        _engine_check(kernel, plain, args, kw, n_cache, dtype, kind)
+
+
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("kind", KV_ENGINE_KINDS)
+def test_kv_engine_every_cluster_size(dev, monkeypatch, kind, group, split):
+    """Every cluster size 1-8, forced over the plan, on the edge rows (6
+    chunks, so 6 virtual ranks: at 7 and 8 some ranks run none), bf16:
+    against the plain version, the append and a second launch bit for bit,
+    and the same bits as at C 1 (a row's sums are ordered by its virtual
+    ranks, not by C)."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    lens = EDGE_LENS[:8] if kind == "fused_wo" else EDGE_LENS
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, torch.bfloat16, 64, group, lens, seed=91)
+    monkeypatch.setattr(da, "kv_plan", lambda *a: 1)
+    at_1 = kernel(args[0], *_clone_args(args[1:]), **kw)
+    monkeypatch.setattr(da, "kv_plan", lambda *a: split)
+    out = _engine_check(kernel, plain, args, kw, n_cache, torch.bfloat16, kind)
+    assert torch.equal(out, at_1)
+
+
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("kind", KV_ENGINE_KINDS)
+def test_kv_engine_eight_mixed_rows_at_s768(dev, kind, group):
+    """8 rows of mixed lengths (1-767) at S 768 (pages of 128), GPT-2's 12
+    heads or Qwen2-0.5B's 14 over 2, bf16, the plan's own cluster size:
+    against the plain version, the append and a second launch bit for bit;
+    one kernel launch a call, counted under the mode's name."""
+    from rten_tpu_torch.kernels.attention import kv_plan
+
+    lens = [1, 100, 200, 300, 400, 500, 640, 767]
+    hk = 12 if group == 1 else 2
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, torch.bfloat16, 64, group, lens, hk=hk, cap=768,
+                                                    page=128, seed=92)
+    dispatch.reset_counters()
+    _engine_check(kernel, plain, args, kw, n_cache, torch.bfloat16, kind)
+    assert sum(dispatch.LAUNCHES.values()) == 2
+    assert 1 <= kv_plan(8, hk, group, 768, qm.sm_count(0)) <= 8
+
+
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("kind", ["no_wo", "int8", "paged", "paged_int8"])
+def test_kv_engine_row_bits_do_not_depend_on_the_batch(dev, kind, group):
+    """Each of 8 rows (S 768, pages of 128) alone gives the bits it gives
+    among the 8, though the plan gives the two launches other cluster sizes
+    (the serving engines' streams are held against their solo streams)."""
+    lens = [1, 100, 200, 300, 400, 500, 640, 767]
+    hk = 12 if group == 1 else 2
+    kernel, _plain, args, kw, n_cache = _engine_case(dev, kind, torch.bfloat16, 64, group, lens, hk=hk, cap=768,
+                                                    page=128, seed=95)
+    paged = kind.startswith("paged")
+    out = kernel(args[0], *_clone_args(args[1:]), **kw)
+    for i in range(len(lens)):
+        ops = tuple(t[i : i + 1] for t in args[0])
+        caches = _clone_args(args[1 : 1 + n_cache])
+        if not paged:
+            caches = [t[i : i + 1].contiguous() for t in caches]
+        rest = [args[1 + n_cache][i : i + 1].contiguous()] if paged else []
+        alone = kernel(ops, *caches, *rest, args[-1][i : i + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], out[i]), i
+
+
+@pytest.mark.parametrize("group", [9, 16])
+@pytest.mark.parametrize("kind", ["no_wo", "int8", "paged_int8"])
+def test_kv_engine_groups_past_a_tile(dev, kind, group):
+    """Groups of 9 and 16 query heads a kv head (two head tiles, each its
+    own cluster; the append by the first alone), f32: against the plain
+    version, the append and a second launch bit for bit."""
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, torch.float32, 64, group, EDGE_LENS, seed=93)
+    _engine_check(kernel, plain, args, kw, n_cache, torch.float32, kind)
+
+
+@pytest.mark.parametrize("kind", KV_ENGINE_KINDS)
+def test_kv_engine_full_row_and_bad_page_are_nan(dev, kind):
+    """Group 7: a row at its capacity gives NaN and (contiguous) writes
+    nothing; a paged row whose table names a page outside the pool for a
+    chunk it needs gives NaN; the other rows match the plain version on
+    the untouched inputs."""
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, torch.float32, 64, 7, [5, 64, 383, 200], seed=94)
+    paged = kind.startswith("paged")
+    k_args, p_args = [args[0], *_clone_args(args[1:])], [args[0], *_clone_args(args[1:])]
+    k_args[1 + n_cache + paged][2] = 384  # row 2 at its capacity
+    bad = [2]
+    if paged:
+        k_args[1 + n_cache][3, 1] = 999  # row 3's second page (positions 64-127) outside the pool
+        bad.append(3)
+    before = _clone_args(k_args[1 : 1 + n_cache])
+    out = kernel(*k_args, **kw)
+    assert bool(out[bad].isnan().all()) and bool(out[[0, 1]].isfinite().all())
+    if not paged:
+        for a, b in zip(k_args[1 : 1 + n_cache], before):
+            assert torch.equal(a[2], b[2])
+    ref = plain(*p_args, **kw)
+    (_close if kind == "fused_wo" else _close_own_max)(out[:2], ref[:2], torch.float32)
+
+
+def test_kv_cluster_capacity(dev):
+    """The KV kernels' cluster capacity: a positive count for every cluster
+    size, falling as clusters grow, and the plan within it."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels.attention import kv_plan
+
+    for entry, variant in (("rt_decode_attention", (1, 64, 1, 1)), ("rt_decode_attention", (1, 64, 0, 0)),
+                           ("rt_decode_attention_int8", (1, 128, 1)), ("rt_paged_attention", (0, 128, 0)),
+                           ("rt_paged_attention_int8", (1, 64, 1))):
+        fits = da.kv_cluster_capacity(0, entry, *variant)
+        assert len(fits) == 8 and all(n > 0 for n in fits)
+        assert all(a >= b for a, b in zip(fits, fits[1:]))
+        split = kv_plan(8, 2, 7, 768, qm.sm_count(0), fits)
+        assert 16 <= fits[split - 1] or split == 1
