@@ -11,6 +11,11 @@ NVIDIA card.
                                      # phases 1-2 and the KV kernels' and decode_block's
                                      # checks, of this tree's package or DIR's (see
                                      # kv_only); its last line is marked partial
+    python3 chip_smoke.py --gemv LABEL [--package DIR]
+                                     # phases 1-2 and the decode GEMV's, MLP's and fused
+                                     # wo's checks at 1 and 8 rows, and decode_block's
+                                     # output digest, of this tree's package or DIR's
+                                     # (see gemv_only); its last line is marked partial
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -26,7 +31,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GPT-2-small's shapes (bf16 activations, int8 weights), the prefill
    matmuls (weight-only and W8A8) and flash attention at the Qwen2-0.5B
    shape's too (each with its split-K or split-KV plan and its wrapper's
-   host µs a call; the W8A8 matmul also without its row quantizer), and
+   host µs a call; the W8A8 matmul also without its row quantizer), the
+   decode GEMV (its argmax included) and MLP at 1 and 8 rows and the
+   GEMV at the Qwen2-0.5B shape's qkv, w_gu, w_down and lm_head + argmax
+   (each with its plan and its launches a call, which must be one), and
    the KV kernels' Llama/Qwen2-class
    modes (unpacked q / k_new / v_new with 14 query heads over 2 kv heads,
    decode_attention with and without its fused wo, the int8 and paged
@@ -304,95 +312,10 @@ def check_tools(torch):
 
 
 def check_kernels(torch, bound, cfg):
-    from rten_tpu_torch.kernels import quant_matmul as qm
-
-    bf16 = torch.bfloat16
-    d, ff = cfg.d_model, cfg.d_ff
-    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
-    F = torch.nn.functional
     randn, pack, norm_vecs, bf16_err, record, cases = check_tools(torch)
 
-    # -- quant_gemv_int8: layer-0 qkv, lm_head logits, lm_head argmax -------
-    for name, n, mode in (("qkv", 3 * d, "qkv"), ("lm_head_logits", n_vocab_pad, "logits"),
-                          ("lm_head_argmax", n_vocab_pad, "argmax")):
-        def make(i, n=n, mode=mode):
-            qt, s = pack(n, d)
-            ns, nb = norm_vecs(d)
-            bias = 0.1 * randn(n, dtype=torch.float32) if mode == "qkv" else None
-            kw = dict(norm="layernorm", norm_scale=ns, norm_bias=nb)
-            if mode == "argmax":
-                kw["argmax_n"] = cfg.vocab_size
-            if mode == "logits":
-                kw["out_dtype"] = torch.float32
-            return (randn(1, d), qt, s, bias), kw
-
-        args, kw = make(0)
-        out = qm.quant_gemv_int8(*args, **kw)
-        torch.cuda.synchronize()
-        if mode == "argmax":
-            kw_logits = {k: v for k, v in kw.items() if k != "argmax_n"}
-            logits = qm.quant_gemv_int8_ref(*args, out_dtype=torch.float32, **kw_logits)[0]
-            valid = logits[: cfg.vocab_size]
-            top = valid.max().item()
-            ref = qm.quant_gemv_int8_ref(*args, **kw)
-            # Kernel and plain sum in other orders: a different token is
-            # right only when its plain logit ties the maximum to f32 order.
-            err = top - valid[int(out[0])].item()
-            tol = 1e-5 * max(1.0, abs(top))
-            note = f"(token {int(out[0])}, plain {int(ref[0])})"
-        else:
-            ref = qm.quant_gemv_int8_ref(*args, **kw)
-            if mode == "qkv":
-                err, tol = bf16_err(out, ref)
-            else:  # f32 logits: a flipped bf16 rounding of one normalised input element
-                err, tol = (out - ref).abs().max().item(), 2e-3 * max(1.0, ref.abs().max().item())
-            note = ""
-        x, qt, s, bias = args
-        per_call = nbytes(x, qt, s, bias, kw["norm_scale"], kw["norm_bias"]) + (
-            4 if mode == "argmax" else n * (4 if mode == "logits" else 2))
-        copies = [make(i) for i in range(copies_for(per_call))]
-        ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_gemv_int8(*a, **k) for a, k in copies])
-        plain = eager_ms(torch, lambda: qm.quant_gemv_int8_ref(*args, **kw))
-        w_deq = [(c[0][1].float() * c[0][2][:, None]).to(bf16) for c in copies[:copies_for(2 * n * d)]]
-        library = graph_ms(torch, [lambda w=w: F.linear(x, w) for w in w_deq])
-        record("quant_gemv_int8", f"{name} N={n} K={d}", err, tol, ms, plain,
-               bound(per_call, 2 * n * d), library, note)
-        del copies, w_deq
-
-    # -- quant_mlp_int8: with the next layer's qkv (layers 0-10) and without -
-    for name, with_next in (("mlp+next_qkv", True), ("mlp (last layer)", False)):
-        def make(i, with_next=with_next):
-            wu, su = pack(ff, d)
-            wd, sd = pack(d, ff)
-            ns, nb = norm_vecs(d)
-            nxt = None
-            if with_next:
-                wq, sq = pack(3 * d, d)
-                qns, qnb = norm_vecs(d)
-                nxt = (wq, sq, 0.1 * randn(3 * d, dtype=torch.float32), qns, qnb)
-            args = (randn(1, d), wu, su, wd, sd, 0.1 * randn(ff, dtype=torch.float32),
-                    0.1 * randn(d, dtype=torch.float32))
-            kw = dict(activation="gelu", norm="layernorm", norm_scale=ns, norm_bias=nb,
-                      residual=randn(1, d), next_qkv=nxt)
-            return args, kw
-
-        args, kw = make(0)
-        out, ref = qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw)
-        torch.cuda.synchronize()
-        outs, refs = (out, ref) if with_next else ((out,), (ref,))
-        errs = [bf16_err(o, r) for o, r in zip(outs, refs)]
-        err = max(e for e, _ in errs)
-        tol = min(t for _, t in errs)
-        nxt = kw["next_qkv"] or ()
-        per_call = nbytes(*args, kw["norm_scale"], kw["norm_bias"], kw["residual"], *nxt) + 2 * (
-            d + (3 * d if with_next else 0))
-        ops = 2 * (2 * d * ff + (3 * d * d if with_next else 0))
-        copies = [make(i) for i in range(copies_for(per_call))]
-        ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_mlp_int8(*a, **k) for a, k in copies])
-        plain = eager_ms(torch, lambda: qm.quant_mlp_int8_ref(*args, **kw))
-        record("quant_mlp_int8", f"{name} D={d} FF={ff}", err, tol, ms, plain, bound(per_call, ops))
-        del copies
-
+    check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    torch.cuda.empty_cache()
     check_decode_attention(torch, bound, cfg, randn, pack, bf16_err, record)
     torch.cuda.empty_cache()
     check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record)
@@ -406,6 +329,145 @@ def check_kernels(torch, bound, cfg):
     check_gqa_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
     return cases
+
+
+def gemv_launch_info(torch, fn, m: int, dot: str, phases: tuple, coop: bool = False) -> dict:
+    """What a GEMV or MLP case records beside its times: its plan (grid,
+    ring slots, resident or not, each phase's K pieces and team; None for a
+    package without ``gemv_plan``), the kernels a call launches: the
+    launch calls the profiler sees on the host over 16 calls (its device
+    records can miss a kernel), which must be one a call, and the device
+    kernels' names; and the wrapper's host µs a call."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    plan = None
+    if hasattr(qm, "gemv_plan"):
+        p = qm.gemv_plan(m, dot, phases, qm.sm_count(0), coop)
+        plan = dict(grid=p.grid, slots=p.slots, resident=p.resident, smem=p.smem, cluster=getattr(p, "split", 1),
+                    pieces_team=[list(r[:2]) for r in p.phases])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(16):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunch")) / 16
+    names = {e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0]
+             for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+    return dict(plan=plan, launches_per_call=round(launches), expect_launches=1, kernel_names=sorted(names),
+                host_us=host_us(torch, fn))
+
+
+def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
+    """quant_gemv_int8 and quant_mlp_int8 at 1 and 8 rows: GPT-2-small's
+    layer-0 qkv + ln1, lm_head logits and lm_head + argmax, its MLP with the
+    next layer's qkv and without (the last layer); the Qwen2-0.5B shape's
+    qkv + rmsnorm + bias, w_gu + rmsnorm, w_down + residual and lm_head +
+    argmax (N 152576, K 896). Each against its plain version, with its
+    bound, its plain time, the time of F.linear on the dequantized bf16
+    weights (the MLP: none, no single call), its plan and its launches a
+    call (one)."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    F = torch.nn.functional
+    d, ff = cfg.d_model, cfg.d_ff
+    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
+    qw, qff, q_vocab = QWEN2["d_model"], QWEN2_CFG["d_ff"], QWEN2_CFG["vocab_size"]
+    qkv_n = (QWEN2["n_heads"] + 2 * QWEN2["n_kv_heads"]) * (qw // QWEN2["n_heads"])
+    shapes = [("qkv+ln1", d, 3 * d, "layernorm", "bias", None),
+              ("lm_head_logits", d, n_vocab_pad, "layernorm", "logits", None),
+              ("lm_head_argmax", d, n_vocab_pad, "layernorm", "argmax", cfg.vocab_size),
+              ("qwen2 qkv+rms", qw, qkv_n, "rmsnorm", "bias", None),
+              ("qwen2 w_gu+rms", qw, 2 * qff, "rmsnorm", "", None),
+              ("qwen2 w_down+res", qff, qw, None, "residual", None),
+              ("qwen2 lm_head_argmax", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "argmax", q_vocab)]
+    for m in (1, 8):
+        for name, k, n, norm, mode, vocab in shapes:
+            def make(i, m=m, k=k, n=n, norm=norm, mode=mode, vocab=vocab):
+                qt, s = pack(n, k)
+                kw = {}
+                if norm:
+                    ns, nb = norm_vecs(k)
+                    kw.update(norm=norm, norm_scale=ns, norm_bias=nb if norm == "layernorm" else None)
+                if mode == "argmax":
+                    kw["argmax_n"] = vocab
+                if mode == "logits":
+                    kw["out_dtype"] = f32
+                if mode == "residual":
+                    kw["residual"] = randn(m, n)
+                bias = 0.1 * randn(n, dtype=f32) if mode == "bias" else None
+                return (randn(m, k), qt, s, bias), kw
+
+            args, kw = make(0)
+            out = qm.quant_gemv_int8(*args, **kw)
+            torch.cuda.synchronize()
+            note = ""
+            if mode == "argmax":
+                logits = qm.quant_gemv_int8_ref(*args, out_dtype=f32, **{a: v for a, v in kw.items()
+                                                                        if a != "argmax_n"})[:, :vocab]
+                top = logits.max(1).values
+                # Kernel and plain sum in other orders: a different token is
+                # right only when its plain logit ties the maximum to f32 order.
+                err = (top - logits.gather(1, out.long()[:, None])[:, 0]).max().item()
+                tol = 1e-5 * max(1.0, top.abs().max().item())
+                note = f"(tokens {out.tolist()}, plain {logits.argmax(1).tolist()})"
+            else:
+                ref = qm.quant_gemv_int8_ref(*args, **kw)
+                if mode == "logits":  # f32 logits: a flipped bf16 rounding of one normalised input element
+                    err, tol = (out - ref).abs().max().item(), 2e-3 * max(1.0, ref.abs().max().item())
+                else:
+                    err, tol = bf16_err(out, ref)
+            x, qt, s, bias = args
+            per_call = nbytes(x, qt, s, bias, kw.get("norm_scale"), kw.get("norm_bias"), kw.get("residual")) + (
+                4 * m if mode == "argmax" else m * n * (4 if mode == "logits" else 2))
+            copies = [make(i) for i in range(copies_for(per_call))]
+            ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_gemv_int8(*a, **k) for a, k in copies])
+            plain = eager_ms(torch, lambda: qm.quant_gemv_int8_ref(*args, **kw))
+            w_deq = [(c[0][1].float() * c[0][2][:, None]).to(bf16) for c in copies[:copies_for(2 * n * k)]]
+            library = graph_ms(torch, [lambda w=w: F.linear(x, w) for w in w_deq])
+            record("quant_gemv_int8", f"{name} M={m} N={n} K={k}", err, tol, ms, plain,
+                   bound(per_call, 2 * m * n * k), library, note,
+                   **gemv_launch_info(torch, lambda: qm.quant_gemv_int8(*args, **kw), m, "bf16",
+                                      ((n, k, norm is not None, 2),)))
+            del copies, w_deq
+
+        # -- quant_mlp_int8: with the next layer's qkv (layers 0-10) and without
+        for name, with_next in (("mlp+next_qkv", True), ("mlp (last layer)", False)):
+            def make(i, m=m, with_next=with_next):
+                wu, su = pack(ff, d)
+                wd, sd = pack(d, ff)
+                ns, nb = norm_vecs(d)
+                nxt = None
+                if with_next:
+                    wq, sq = pack(3 * d, d)
+                    qns, qnb = norm_vecs(d)
+                    nxt = (wq, sq, 0.1 * randn(3 * d, dtype=f32), qns, qnb)
+                args = (randn(m, d), wu, su, wd, sd, 0.1 * randn(ff, dtype=f32), 0.1 * randn(d, dtype=f32))
+                kw = dict(activation="gelu", norm="layernorm", norm_scale=ns, norm_bias=nb,
+                          residual=randn(m, d), next_qkv=nxt)
+                return args, kw
+
+            args, kw = make(0)
+            out, ref = qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw)
+            torch.cuda.synchronize()
+            outs, refs = (out, ref) if with_next else ((out,), (ref,))
+            errs = [bf16_err(o, r) for o, r in zip(outs, refs)]
+            err = max(e for e, _ in errs)
+            tol = min(t for _, t in errs)
+            nxt = kw["next_qkv"] or ()
+            per_call = nbytes(*args, kw["norm_scale"], kw["norm_bias"], kw["residual"], *nxt) + 2 * m * (
+                d + (3 * d if with_next else 0))
+            ops = 2 * m * (2 * d * ff + (3 * d * d if with_next else 0))
+            copies = [make(i) for i in range(copies_for(per_call))]
+            ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_mlp_int8(*a, **k) for a, k in copies])
+            plain = eager_ms(torch, lambda: qm.quant_mlp_int8_ref(*args, **kw))
+            phases = ((ff, d, True, 2), (d, ff, False, 4)) + (((3 * d, d, True, 4),) if with_next else ())
+            record("quant_mlp_int8", f"{name} M={m} D={d} FF={ff}", err, tol, ms, plain, bound(per_call, ops),
+                   **gemv_launch_info(torch, lambda: qm.quant_mlp_int8(*args, **kw), m, "bf16", phases, True))
+            del copies
 
 
 def check_decode_attention(torch, bound, cfg, randn, pack, bf16_err, record):
@@ -532,15 +594,7 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
     s32 product alone, which needs M > 16); none for the GEMV and MLP."""
     from rten_tpu_torch.kernels import quant_matmul as qm
 
-    f32 = torch.float32
-    d, ff = cfg.d_model, cfg.d_ff
-    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
-
-    def code(scales, rows):  # one activation code's largest contribution
-        return scales.max().item() * rows.float().abs().max().item()
-
-    def normed(x, kw):
-        return qm._norm_rows_f32(x.float(), kw["norm"], 1e-5, kw["norm_scale"], kw["norm_bias"])
+    d = cfg.d_model
 
     # -- quantize_rows_int8: the prefill's activations, codes bit for bit ---
     for m in (64, 512):
@@ -557,6 +611,26 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
         record("quantize_rows_int8", f"M={m} K={d}", 0.0, 0.0, ms, plain, bound(per_call, 0), None,
                "(codes and sx bit for bit)")
         del copies
+
+    check_w8a8_decode(torch, bound, cfg, randn, pack, norm_vecs, record)
+    check_w8a8_matmul(torch, bound, cfg, randn, pack, record)
+
+
+def check_w8a8_decode(torch, bound, cfg, randn, pack, norm_vecs, record):
+    """The W8A8 modes of the decode GEMV and MLP at GPT-2-small's shapes
+    and 1 and 8 rows, as check_w8a8_kernels holds them (tolerances there),
+    each with its plan and launches a call (one)."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    f32 = torch.float32
+    d, ff = cfg.d_model, cfg.d_ff
+    n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
+
+    def code(scales, rows):  # one activation code's largest contribution
+        return scales.max().item() * rows.float().abs().max().item()
+
+    def normed(x, kw):
+        return qm._norm_rows_f32(x.float(), kw["norm"], 1e-5, kw["norm_scale"], kw["norm_bias"])
 
     # -- quant_gemv_int8 w8a8: layer-0 qkv + ln1, wo + residual, lm_head + argmax
     for m in (1, 8):
@@ -599,7 +673,9 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
             ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_gemv_int8(*a, **k) for a, k in copies])
             plain = eager_ms(torch, lambda: qm.quant_gemv_int8_ref(*args, **kw))
             record("quant_gemv_int8:w8a8", f"{name} M={m} N={n} K={d}", err, tol, ms, plain,
-                   bound(per_call, 2 * m * n * d, int8=True), None, note)
+                   bound(per_call, 2 * m * n * d, int8=True), None, note,
+                   **gemv_launch_info(torch, lambda: qm.quant_gemv_int8(*args, **kw), m, "s8",
+                                      ((n, d, mode != "wo", 2),)))
             del copies
 
     # -- quant_mlp_int8 w8a8: with the next layer's qkv and without ---------
@@ -640,11 +716,12 @@ def check_w8a8_kernels(torch, bound, cfg, randn, pack, norm_vecs, record):
             copies = [make(i) for i in range(copies_for(per_call))]
             ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_mlp_int8(*a, **k) for a, k in copies])
             plain = eager_ms(torch, lambda: qm.quant_mlp_int8_ref(*args, **kw))
+            phases = ((ff, d, True, 2), (d, ff, False, 4)) + (((3 * d, d, True, 4),) if with_next else ())
             record("quant_mlp_int8:w8a8", f"{name} M={m} D={d} FF={ff}", *worst, ms, plain,
-                   bound(per_call, ops, int8=True))
+                   bound(per_call, ops, int8=True),
+                   **gemv_launch_info(torch, lambda: qm.quant_mlp_int8(*args, **kw), m, "s8", phases, True))
             del copies
 
-    check_w8a8_matmul(torch, bound, cfg, randn, pack, record)
 
 
 def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
@@ -2259,14 +2336,84 @@ def kv_only(torch, bound, cfg, detail, kind, smi, label: str) -> int:
     return 0
 
 
+def decode_block_digest(torch, cfg) -> str:
+    """A digest of decode_block's outputs (out, next qkv, both caches) at
+    GPT-2-small's block, kv_len 300 of S 768, on inputs made on the host
+    from seed 7: the same digest from two packages shows that a change left
+    the kernel's bits alone."""
+    import hashlib
+
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    gen = torch.Generator().manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+
+    def rand(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen) * scale).to(dtype).cuda()
+
+    def pack(n, k):
+        return (torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).cuda(),
+                (torch.rand(n, generator=gen) * (0.04 / 127) + 0.01 / 127).cuda())
+
+    kc, vc = rand(1, h, CACHE_LEN, hd, scale=1.5), rand(1, h, CACHE_LEN, hd)
+    wo, wos = pack(d, h * hd)
+    wu, su = pack(ff, d)
+    wd, sd = pack(d, ff)
+    wq, sq = pack(3 * d, d)
+    mlp = (wu, su, wd, sd, 0.1 * rand(ff, dtype=f32), 0.1 * rand(d, dtype=f32), 1 + 0.1 * rand(d, dtype=f32),
+           0.1 * rand(d, dtype=f32))
+    nxt = (wq, sq, 0.1 * rand(3 * d, dtype=f32), 1 + 0.1 * rand(d, dtype=f32), 0.1 * rand(d, dtype=f32))
+    lens = torch.full((1,), 300, dtype=torch.int32, device="cuda")
+    out, qkv = da.decode_block(rand(1, 3, h, 1, hd, scale=1.5), kc, vc, lens, wo, wos, 0.1 * rand(d, dtype=f32),
+                               rand(1, d), mlp, nxt, activation="gelu", norm="layernorm")
+    digest = hashlib.sha256()
+    for t in (out, qkv, kc, vc):
+        digest.update(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def gemv_only(torch, bound, cfg, detail, kind, smi, label: str) -> int:
+    """``--gemv LABEL``: the decode GEMV and MLP at 1 and 8 rows, weight-only
+    at GPT-2-small's and the Qwen2-0.5B shape's widths (check_gemv_kernels)
+    and W8A8 (check_w8a8_decode), decode_attention with its fused wo at B 1
+    (MHA: check_decode_attention; GQA, and GQA without wo:
+    check_gqa_kernels) and B 8 (check_decode_attention_b8), decode_block
+    beside the two kernels it replaces (check_decode_block), and
+    decode_block's output digest (decode_block_digest), written to
+    chiprun_out/gemv_LABEL.json. A timing
+    mode like ``--kv``: its last line is marked partial, and it holds no
+    launch count to the one-launch rule, so that ``--package`` can time a
+    parent commit's package in the same call: parent, tree, tree, parent."""
+    randn, pack, norm_vecs, bf16_err, record, cases = check_tools(torch)
+    log("[3/3] the decode GEMV, MLP and fused wo against their plain versions (GPT-2-small and Qwen2-0.5B shapes)")
+    check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    torch.cuda.empty_cache()
+    check_w8a8_decode(torch, bound, cfg, randn, pack, norm_vecs, record)
+    torch.cuda.empty_cache()
+    check_decode_attention(torch, bound, cfg, randn, pack, bf16_err, record)
+    check_gqa_kernels(torch, bound, randn, pack, record)
+    torch.cuda.empty_cache()
+    check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
+    check_decode_attention_b8(torch, bound, cfg, randn, pack, bf16_err, record)
+    detail["decode_block_digest"] = decode_block_digest(torch, cfg)
+    log(f"  decode_block digest {detail['decode_block_digest']}")
+    detail["cases"] = cases
+    (OUT_DIR / f"gemv_{label}.json").write_text(json.dumps(detail, indent=1))
+    print(smi)
+    print(json.dumps({"partial": "gemv", "kind": kind, "label": label}))
+    return 0
+
+
 def one_launch_a_call(cases) -> None:
-    """The KV kernels' rule: one attention launch a call (two with the
-    fused wo, the GEMV its own launch), no combine kernel."""
+    """Each case's launches a call: the KV kernels one attention launch (two
+    with the fused wo, the GEMV its own launch) and no combine kernel; the
+    decode GEMV (its argmax included) and MLP one launch."""
     wrong = [f"{c['kernel']} {c['shape']}: {c['launches_per_call']} launches a call {c['kernel_names']}"
              for c in cases if "launches_per_call" in c
              and (c["launches_per_call"] != c["expect_launches"] or any("combine" in n for n in c["kernel_names"]))]
     if wrong:
-        raise AssertionError("KV kernels not at one attention launch a call: " + "; ".join(wrong))
+        raise AssertionError("kernels not at their launches a call: " + "; ".join(wrong))
 
 
 def main() -> int:
@@ -2277,10 +2424,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive rten_tpu_torch on one NVIDIA card.")
     parser.add_argument("--prefill", action="store_true", help="the prefill kernels' timing mode (prefill_only)")
     parser.add_argument("--kv", metavar="LABEL", help="the KV kernels' timing mode (kv_only)")
-    parser.add_argument("--package", metavar="DIR", help="with --kv: import rten_tpu_torch from DIR")
+    parser.add_argument("--gemv", metavar="LABEL", help="the decode GEMV's and MLP's timing mode (gemv_only)")
+    parser.add_argument("--package", metavar="DIR", help="with --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
-    if opts.package and not opts.kv:
-        parser.error("--package times another package's KV kernels: it needs --kv")
+    if opts.package and not (opts.kv or opts.gemv):
+        parser.error("--package times another package's kernels: it needs --kv or --gemv")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -2329,6 +2477,8 @@ def main() -> int:
         return prefill_only(torch, bound, cfg, detail, kind, smi)
     if opts.kv:
         return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
+    if opts.gemv:
+        return gemv_only(torch, bound, cfg, detail, kind, smi, opts.gemv)
     log("[3/9] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)

@@ -41,14 +41,13 @@ _KV_OPERANDS = [
 # argtypes of every C entry point (pointers and the stream as c_void_p, or
 # ctypes would pass a 32-bit int and cut them).
 SIGNATURES = {
-    "rt_max_blocks": [],
     "rt_quant_gemv": [
         _P, _I, _I,                  # x, x_bf16, m
         _P, _P, _I, _I, _I,          # w_t, scales, n, k, w8a8
         _P, _P, _P, _I, _F,          # bias, norm_scale, norm_bias, norm, eps
         _I, _P, _P, _I,              # act, residual, out, out_bf16
-        _I, _P, _P, _P,              # argmax_n, part_max, part_idx, argmax_out
-        _P,                          # stream
+        _I, _P,                      # argmax_n, argmax_out
+        _P, _P, _P,                  # plan (quant_matmul.py gemv_plan), work buffer, stream
     ],
     "rt_quant_mlp": [
         _P, _I, _I, _I,              # x, bf16, m, d
@@ -57,7 +56,7 @@ SIGNATURES = {
         _P, _P, _I, _F, _I,          # ln scale, ln bias, norm, eps, act
         _P, _P, _P, _P,              # residual, out, up_buf, h_buf
         _P, _P, _P, _I, _P, _P, _P,  # w_qkv_t, s_qkv, b_qkv, nq, next ln scale, next ln bias, qkv_out
-        _I, _P,                      # w8a8, stream
+        _I, _P, _P, _P,              # w8a8, plan, work buffer, stream
     ],
     "rt_decode_attention": [
         *_KV_OPERANDS,
@@ -65,7 +64,7 @@ SIGNATURES = {
         _P, _I,                      # attn, split (attention.py kv_plan)
         _P, _P, _P, _I,              # wo_t, wo_scales, wo_bias, dm
         _P, _P, _F,                  # residual, out, sm_scale
-        _P,                          # stream
+        _P, _P, _P,                  # wo plan (quant_matmul.py gemv_plan), work buffer, stream
     ],
     "rt_decode_attention_clusters": [_I, _I, _I, _I, _I],  # bf16, d, gqa, with_wo, split
     "rt_decode_block": [

@@ -56,6 +56,41 @@ __device__ __forceinline__ float absmax4(const float4& x) {
   return fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
 }
 
+__device__ __forceinline__ float hsum4(const float4& v) { return v.x + v.y + v.z + v.w; }
+
+// The row norm's arithmetic, shared by the GEMV prologues (gemv.cuh,
+// block_gemv.cuh). First pass: four values' share of the row total, the
+// sum of x (layernorm) or of x^2 (rmsnorm).
+__device__ __forceinline__ float norm_part4(const float4& x, int norm) {
+  const float4 sq = make_float4(x.x * x.x, x.y * x.y, x.z * x.z, x.w * x.w);
+  return norm == 2 ? hsum4(sq) : hsum4(x);
+}
+
+__device__ __forceinline__ float norm_inv(float tot, float kf, float eps) { return rsqrtf(tot / kf + eps); }
+
+// The mean and 1 / sqrt(var + eps) from the first pass's total; rmsnorm's
+// inv is final (from the mean square), layernorm's is replaced by norm_inv
+// of the centred sum of squares.
+__device__ __forceinline__ void norm_stats(int norm, float tot, float kf, float eps, float& mean, float& inv) {
+  mean = norm == 1 ? tot / kf : 0.f;
+  inv = norm_inv(tot, kf, eps);
+}
+
+// Layernorm's second pass: four values' centred sum of squares.
+__device__ __forceinline__ float centred_sq4(const float4& x, float mean) {
+  const float dx = x.x - mean, dy = x.y - mean, dz = x.z - mean, dw = x.w - mean;
+  return dx * dx + dy * dy + dz * dz + dw * dw;
+}
+
+// The normalise step: (x - mean) * inv * scale + bias.
+__device__ __forceinline__ float4 normalize4(float4 x, float mean, float inv, const float4& ns, const float4& nb) {
+  x.x = (x.x - mean) * inv * ns.x + nb.x;
+  x.y = (x.y - mean) * inv * ns.y + nb.y;
+  x.z = (x.z - mean) * inv * ns.z + nb.z;
+  x.w = (x.w - mean) * inv * ns.w + nb.w;
+  return x;
+}
+
 // Block-wide sum (or max) of one value per thread of a block of WARPS
 // warps; every thread gets the same result, combined in a fixed order. Ends
 // on a barrier, so `red` ([WARPS] floats of shared memory) can be reused at

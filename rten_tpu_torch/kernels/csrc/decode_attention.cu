@@ -20,9 +20,10 @@
 //      the attention vector (f32 for the fused wo, else in the activations'
 //      dtype);
 //   2. with wo: gemv_kernel (gemv.cuh): attn @ W_o * s + bias + residual,
-//      the dot in f32 as on the TPU (the attention vector is not rounded).
-//      Fusing it into the attention launch needs every head's vector, a
-//      grid-wide dependency; it stays its own launch.
+//      the dot in f32 as on the TPU (the attention vector is not rounded;
+//      its f32 mode, quant_matmul.py gemv_plan the plan). Fusing it into
+//      the attention launch needs every head's vector, a grid-wide
+//      dependency; it stays its own launch.
 //
 // Bound on the H100: bytes, the valid KV prefix (2 * Hk * (kv_len + 1) * D
 // elements) plus the int8 W_o (Hq*D x Dm). Design and its reasons in
@@ -39,7 +40,7 @@ extern "C" int rt_decode_attention(
     float* attn, int split,
     const int8_t* wo_t, const float* wo_scales, const float* wo_bias, int dm,
     const void* residual, void* out, float sm_scale,
-    void* stream) {
+    const int* wo_plan, int* work, void* stream) {
   rt::KvArgs a = rt::kv_args(q, k_new, v_new, q_stride, kn_stride, vn_stride, hq, hk, kv_len, sm_scale);
   a.k = k_cache;
   a.v = v_cache;
@@ -51,20 +52,22 @@ extern "C" int rt_decode_attention(
   const int e = rt::run_kv_attention<false, false, true>(a, bf16, b, d, attn, split, stream);
   if (e != 0) return e;
 
-  rt::GemvArgs g{};
-  g.x = attn;
-  g.x_bf16 = 0;
+  rt::GvArgs g{};
+  g.phases = 1;
   g.m = b;
-  g.w = wo_t;
-  g.scale = wo_scales;
-  g.n = dm;
-  g.k = hq * d;
-  g.bias = wo_bias;
-  g.dot_bf16 = 0;  // f32 attention vector times the int8 weights, as on the TPU
-  g.residual = residual;
-  g.out = out;
-  g.out_bf16 = bf16;
-  return static_cast<int>(rt::launch_gemv(g, static_cast<cudaStream_t>(stream)));
+  rt::GvPhase& p = g.ph[0];
+  p.x = attn;
+  p.x_bf16 = 0;
+  p.w = wo_t;
+  p.scale = wo_scales;
+  p.n = dm;
+  p.k = hq * d;
+  p.bias = wo_bias;
+  p.residual = residual;
+  p.out = out;
+  p.out_bf16 = bf16;
+  // The f32 attention vector times the int8 weights, as on the TPU.
+  return static_cast<int>(rt::launch_gemv(g, rt::DOT_F32, wo_plan, work, static_cast<cudaStream_t>(stream)));
 }
 
 // The cluster capacity of the kernel a call of (bf16, d, gqa, with wo)

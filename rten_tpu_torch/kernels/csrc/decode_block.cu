@@ -32,7 +32,7 @@
 //      softmax max, sum and unnormalised P.V to the f32 scratch;
 //   2. the combine of each head (combine_item) into the f32 attention
 //      vector;
-//   3. wo: gemv_prologue + gemv_body (gemv.cuh) on that vector, f32 dot,
+//   3. wo: gemv_prologue + gemv_body (block_gemv.cuh) on that vector, f32 dot,
 //      + bias + residual into the f32 scratch h;
 //   4. ln2 + up + bias + activation, into the f32 scratch u;
 //   5. down + bias + the f32 h, giving out (model dtype) and its f32 copy;
@@ -51,7 +51,7 @@
 
 #include <cooperative_groups.h>
 
-#include "gemv.cuh"
+#include "block_gemv.cuh"
 
 namespace rt {
 namespace {
@@ -243,7 +243,7 @@ struct BlockArgs {
 __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* xs) {
   if ((int)blockIdx.x * GEMV_WARPS >= a.n) return;
   gemv_prologue<1, true>(a, xs);
-  gemv_body<1, 1, false>(a, xs, nullptr, nullptr);
+  gemv_body<1, 1>(a, xs);
 }
 
 template <typename T, int D>

@@ -61,6 +61,7 @@ from rten_tpu_torch.kernels.quant_matmul import (
     _qdot,
     _stream,
     _vec_f32,
+    gemv_device_plan,
     sm_count,
 )
 
@@ -229,13 +230,16 @@ def decode_attention(
     s_max = k_cache.shape[2]
     dev = q.device
     split = kv_device_plan("rt_decode_attention", q, hk, s_max, int(with_wo))
-    attn = scales = bias = None
+    attn = scales = bias = wo_plan = None
+    work = 0
     if with_wo:
         _check_weight(wo_t, hq * d, "decode_attention wo")
         attn = torch.empty((b, hq * d), dtype=torch.float32, device=dev)
         out = torch.empty((b, dm), dtype=dtype, device=dev)
         scales = _vec_f32(wo_scales, dm, "wo scales")
         bias = _vec_f32(wo_bias, dm, "wo bias")
+        wo_plan, work = gemv_device_plan(q, b, "f32", ((dm, hq * d, False, 4),))
+        wo_plan = wo_plan.ints
     else:
         out = torch.empty((b, hq * d), dtype=dtype, device=dev)
     rc = _build.library().rt_decode_attention(
@@ -244,7 +248,7 @@ def decode_attention(
         _ptr(wo_t), _ptr(scales), _ptr(bias), dm,
         _ptr(residual), out.data_ptr(),
         1.0 / math.sqrt(d),
-        _stream(q),
+        wo_plan, work or None, _stream(q),
     )
     _build.check(rc, name)
     LAUNCHES[mode_name(name, hq, hk, with_wo)] += 1

@@ -27,7 +27,9 @@ epilogue order is ``acc * scale → + bias → activation → + residual``.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -283,12 +285,262 @@ def _check_weight(w_t, k: int, what: str):
         )
 
 
-@functools.cache
-def max_blocks(device_index: int) -> int:
-    """Capacity of the argmax partial buffers: the most blocks a GEMV
-    launch uses on this device (8 per SM, as csrc/gemv.cuh plans it)."""
-    with torch.cuda.device(device_index):
-        return int(_build.library().rt_max_blocks())
+# Launch plan of the decode GEMV engine (csrc/gemv.cuh gemv_kernel): output
+# columns in tiles of GEMV_TILE, a tile's K in chunks of GEMV_CHUNK bytes cut
+# into ``pieces`` contiguous ranges (a unit: one tile's piece), the tiles of
+# each phase spread evenly over the blocks (a GEMV of its own with pieces > 1:
+# over clusters of ``pieces`` blocks, rank r summing piece r), each unit
+# summed by a team of ``team`` of the block's GEMV_WARPS warps; the weights
+# stream through a ring of ``slots`` shared-memory slots of one unit each.
+GEMV_TILE = 16
+GEMV_CHUNK = 64
+GEMV_WARPS = 8
+GEMV_TEAM_BYTES = 2 * GEMV_WARPS * 32 * 16
+GEMV_PIECE_BYTES = 32 * 16       # a piece's sum in its owner's inbox
+GEMV_SMEM = 232448 - 2048        # a block's shared memory less the kernel's static arrays
+GEMV_SMEM_PAIR = 233472 // 2 - 1024 - 2048  # each of two blocks on one SM
+# A phase's x and norm vectors are staged in shared memory up to this (a
+# GEMV of its own; the MLP, whose weights are resident, 48 KB) where the
+# plan still fits; past it they are read from global memory.
+GEMV_STAGE_MAX = 96 << 10
+GEMV_STAGE_MAX_MLP = 48 << 10
+SPLIT_TILES = 64                 # fewer tiles: a tile's K is cut over several blocks
+SPLIT_UNITS = 128                # ... into about this many units
+SPLIT_MIN_CHUNKS = 12            # ... of at least this many chunks a piece (the wo's K 768 stays whole)
+PIECE_CHUNKS = 48                # the longest piece (3 KB a row: a slot of 48 KB)
+# The argmax's work buffer (int32 words; csrc/gemv.cuh GV_WORK_ARGMAX): its
+# ticket, then a (value, index) partial per row and block.
+GEMV_MAX_GRID = 1024
+GEMV_WORK_WORDS = 32 + 2 * MAX_ROWS * GEMV_MAX_GRID
+
+
+def _range_lo(i: int, total: int, parts: int) -> int:
+    """Start of part i of ``total`` things cut into ``parts`` (the kernel's
+    ``range_lo``)."""
+    return i * total // parts
+
+
+def gemv_split(n: int, k: int, mlp: bool = False) -> tuple[int, int]:
+    """``(pieces, team)`` of an [N, K] matrix: the K pieces of a tile (none
+    longer than PIECE_CHUNKS chunks; with fewer than SPLIT_TILES tiles, in a
+    GEMV launch of its own, enough for about SPLIT_UNITS units, at most 8
+    and none shorter than SPLIT_MIN_CHUNKS: a cluster's barrier costs more
+    than a short piece saves) and the warps that sum one unit (8 for up to
+    256 units, 4, 2, then 1 from 1025; in the MLP's launch, one block an
+    SM, 8 up to 128 units, 4 up to 256, ...; never more than the shortest
+    piece's chunks, a power of two).
+    In the MLP's launch (``mlp``) a few-tile matrix is not split further:
+    its weights are in flight from kernel entry on every SM anyway, and its
+    cooperative launch has no cluster to combine pieces in. Pieces that no
+    cluster sums (``gemv_clustered``: the MLP's, and those of a tile whose
+    K alone outgrows a slot) stay in one block, summed in order by one team
+    of all 8 warps. A function of (n, k) and the launch's kind alone, so
+    that a column's sum order does not depend on the rows, the grid or the
+    card."""
+    tiles = -(-n // GEMV_TILE)
+    chunks = -(-k // GEMV_CHUNK)
+    pieces = -(-chunks // PIECE_CHUNKS)
+    if tiles < SPLIT_TILES and not mlp:
+        pieces = max(pieces, min(chunks // SPLIT_MIN_CHUNKS, 8, -(-SPLIT_UNITS // tiles)))
+    units = tiles * pieces
+    team = 8 if units <= 256 else 4 if units <= 512 else 2 if units <= 1024 else 1
+    if mlp:  # about one block an SM: a block's units side by side, not one after another
+        team = 8 if units <= 128 else 4 if units <= 256 else 2 if units <= 512 else 1
+    while team > 1 and team > chunks // pieces:
+        team //= 2
+    if pieces > 1 and not gemv_clustered(n, k, mlp):
+        team = GEMV_WARPS
+    return pieces, team
+
+
+def gemv_clustered(n: int, k: int, mlp: bool = False) -> bool:
+    """Whether a tile's pieces are summed by a cluster of as many blocks:
+    a few-tile matrix (under SPLIT_TILES tiles) split in 2-8 pieces, in a
+    GEMV launch of its own (gemv_split's rule)."""
+    chunks = -(-k // GEMV_CHUNK)
+    pieces = max(-(-chunks // PIECE_CHUNKS), min(chunks // SPLIT_MIN_CHUNKS, 8, -(-SPLIT_UNITS // -(-n // GEMV_TILE))))
+    return not mlp and -(-n // GEMV_TILE) < SPLIT_TILES and 1 < pieces <= 8
+
+
+def gemv_row_bytes(k: int, pieces: int) -> int:
+    """Shared-memory bytes of a unit's weight row: K for an unsplit tile
+    (its rows arrive as one contiguous copy), else the longest piece."""
+    return k if pieces == 1 else -(-(-(-k // GEMV_CHUNK)) // pieces) * GEMV_CHUNK
+
+
+def gemv_x_row(k: int, dot: str) -> int:
+    """Shared-memory bytes of a row of the dot operand, whole chunks: bf16
+    values (16 mod 128), permuted f32 (64 mod 128) or codes (64 mod 128)."""
+    chunks = -(-k // GEMV_CHUNK)
+    if dot == "bf16":
+        return 2 * chunks * GEMV_CHUNK + 16
+    if dot == "f32":
+        return 4 * chunks * GEMV_CHUNK + 64
+    return chunks * GEMV_CHUNK + (64 if chunks % 2 == 0 else 0)
+
+
+def _align(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def gemv_smem(ring_bytes: int, x_bytes: int, stage_bytes: int, inbox_bytes: int, bars: int) -> int:
+    """Dynamic shared memory of a launch (csrc/gemv.cuh gv_layout): the
+    weights, the dot operand, the norm staging, the members' sums, the
+    split's inbox and one mbarrier a unit of the block."""
+    return ring_bytes + _align(x_bytes, 128) + _align(stage_bytes, 128) + GEMV_TEAM_BYTES + inbox_bytes + 8 * bars
+
+
+def gemv_block_tiles(tiles: int, grid: int, split: int, b: int) -> range:
+    """The tiles block b of ``grid`` runs (csrc/gemv.cuh gemv_kernel): a
+    share of the grid's, or with ``split`` > 1 of its cluster's."""
+    parts, part = grid // split, b // split
+    return range(_range_lo(part, tiles, parts), _range_lo(part + 1, tiles, parts))
+
+
+class GemvPlan(NamedTuple):
+    """One launch's plan: ``grid`` blocks, ``slots`` ring slots of
+    ``slot_bytes`` in ``ring_bytes`` (resident: a slot for every unit of
+    the fullest block, each unit at its phase's size), ``x_bytes`` of dot
+    operand rows, ``stage_bytes`` for the staged x rows and norm vectors,
+    ``bars`` mbarriers (one a unit: the sum over the phases of a block's
+    most units), ``smem`` in all, ``coop`` (a cooperative launch: the MLP),
+    ``split`` (> 1: clusters of that many blocks, one a piece) and
+    ``inbox_bytes`` (the piece sums a block owns), and per phase
+    ``(pieces, team, row, xrow)``; ``units`` per phase and ``block_units``
+    (the most units one block streams) beside them. ``ints`` is the array
+    the C entry points take."""
+
+    grid: int
+    slots: int
+    slot_bytes: int
+    ring_bytes: int
+    x_bytes: int
+    stage_bytes: int
+    bars: int
+    smem: int
+    coop: bool
+    split: int
+    inbox_bytes: int
+    phases: tuple
+    units: tuple
+    block_units: int
+    ints: ctypes.Array
+
+    @property
+    def resident(self) -> bool:
+        """Every unit of every block has its own slot: the whole weight
+        stream is issued at kernel entry."""
+        return self.slots >= self.block_units
+
+
+@functools.lru_cache(maxsize=4096)
+def gemv_plan(m: int, dot: str, phases: tuple, sms: int, coop: bool = False) -> GemvPlan:
+    """The plan of a GEMV launch of ``m`` rows whose ``phases`` are ``(n, k,
+    norm, xel)`` each (norm: whether a row norm runs first; xel: bytes of an
+    x value, 2 for bf16, 4 for f32) on a card of ``sms`` SMs. A phase's x
+    rows and norm vectors are staged in shared memory (csrc/gemv.cuh
+    gv_stage_need) where they fit in GEMV_STAGE_MAX. A single GEMV takes
+    min(tiles, 2 · sms) blocks when two fit an SM with four slots each (else
+    min(tiles, sms)), or with pieces P > 1 that many clusters of P blocks
+    within 2 · sms (or sms) blocks; a cooperative launch (the MLP) one block
+    an SM. The slots: as many units as the fullest block streams, or what
+    fits; the MLP gives up the staging where that keeps its weights
+    resident. Raises ValueError when not even one slot fits beside the dot
+    operand."""
+    if not 1 <= m <= MAX_ROWS or not 1 <= len(phases) <= 3 or (len(phases) > 1 and not coop):
+        raise ValueError(f"GEMV plan: m={m}, {len(phases)} phases, coop={coop}")
+    rows, units, tiles = [], [], []
+    for n, k, _norm, _xel in phases:
+        pieces, team = gemv_split(n, k, coop)
+        rows.append((pieces, team, gemv_row_bytes(k, pieces), gemv_x_row(k, dot)))
+        tiles.append(-(-n // GEMV_TILE))
+        units.append(tiles[-1] * pieces)
+    split = rows[0][0] if gemv_clustered(*phases[0][:2], coop) else 1
+    slot_bytes = GEMV_TILE * max(r[2] for r in rows)
+    x_bytes = m * max(r[3] for r in rows)
+    needs = [(8 * k if norm else 0) + m * k * xel for _n, k, norm, xel in phases]
+    stage_max = GEMV_STAGE_MAX_MLP if coop else GEMV_STAGE_MAX
+    stage_bytes = max((need for need in needs if need <= stage_max), default=0)
+
+    unit_bytes = [GEMV_TILE * r[2] for r in rows]
+
+    def counts(grid, b):
+        """Units of each phase block b runs: one a tile (split), else
+        every piece of its tiles."""
+        return [len(gemv_block_tiles(t, grid, split, b)) * (1 if split > 1 else r[0]) for t, r in zip(tiles, rows)]
+
+    def layout(grid):
+        """(bars, inbox_bytes): a bound on a block's units (the kernel's),
+        and a split owner's piece sums."""
+        parts = grid // split
+        block_tiles = [-(-t // parts) for t in tiles]
+        bars = sum(bt * (1 if split > 1 else r[0]) for bt, r in zip(block_tiles, rows))
+        inbox = -(-block_tiles[0] // split) * split * GEMV_PIECE_BYTES if split > 1 else 0
+        return bars, inbox
+
+    def weights_for(grid, budget):
+        """(most units of a block, slots, ring_bytes): every unit of every
+        block resident where the fullest block's units fit, else a ring."""
+        fixed = gemv_smem(0, x_bytes, stage_bytes, layout(grid)[1], layout(grid)[0])
+        most = max(sum(counts(grid, b)) for b in range(grid))
+        packed = max(sum(c * ub for c, ub in zip(counts(grid, b), unit_bytes)) for b in range(grid))
+        if fixed + packed <= budget:
+            return most, most, packed
+        slots = min(most, (budget - fixed) // slot_bytes)
+        return most, slots, slots * slot_bytes
+
+    def grid_and_weights():
+        if coop:
+            return (sms, *weights_for(sms, GEMV_SMEM))
+        grid = split * min(tiles[0], 2 * sms // split)
+        most, slots, ring_bytes = weights_for(grid, GEMV_SMEM_PAIR)
+        if slots < min(4, most):
+            grid = split * min(tiles[0], max(1, sms // split))
+            most, slots, ring_bytes = weights_for(grid, GEMV_SMEM)
+        return grid, most, slots, ring_bytes
+
+    grid, most, slots, ring_bytes = grid_and_weights()
+    if stage_bytes and (slots < 1 or (coop and slots < most)):
+        # no room for a slot, or (the MLP) for all its weights, beside the staging: read x from global instead
+        staged = stage_bytes, grid, most, slots, ring_bytes
+        stage_bytes = 0
+        grid, most, slots, ring_bytes = grid_and_weights()
+        if slots < most and staged[3] >= 1:  # streaming either way: keep the staging
+            stage_bytes, grid, most, slots, ring_bytes = staged
+    if slots < 1 or grid > GEMV_MAX_GRID:
+        raise ValueError(
+            f"GEMV of {m} rows, phases {phases}: the dot operand ({x_bytes} B) and the norm's scale "
+            f"and bias ({stage_bytes} B) leave no room for a {slot_bytes}-byte weight slot"
+        )
+    bars, inbox_bytes = layout(grid)
+    smem = gemv_smem(ring_bytes, x_bytes, stage_bytes, inbox_bytes, bars)
+    head = [grid, slots, slot_bytes, ring_bytes, x_bytes, stage_bytes, bars, smem, int(coop), split, inbox_bytes]
+    ints = (ctypes.c_int * (len(head) + 4 * len(rows)))(*head, *(v for r in rows for v in r))
+    return GemvPlan(grid, slots, slot_bytes, ring_bytes, x_bytes, stage_bytes, bars, smem, coop, split, inbox_bytes,
+                    tuple(rows), tuple(units), most, ints)
+
+
+_GEMV_WORK: dict = {}
+
+
+def gemv_device_plan(x, m: int, dot: str, phases: tuple, coop: bool = False) -> tuple[GemvPlan, int]:
+    """``gemv_plan`` on x's card, and the pointer of the argmax's work
+    buffer of the current stream: int32 zeros made once per (device,
+    stream), whose ticket every launch leaves at 0. Launches on one stream
+    run in order, so they may share it; launches on two streams may run at
+    once, so each stream has its own."""
+    dev = _device_index(x)
+    key = (dev, _stream(x))
+    work = _GEMV_WORK.get(key)
+    if work is None:
+        work = _GEMV_WORK[key] = torch.zeros(GEMV_WORK_WORDS, dtype=torch.int32, device=x.device)
+    return gemv_plan(m, dot, phases, sm_count(dev), coop), work.data_ptr()
+
+
+def gemv_dot(x, w8a8: bool = False) -> str:
+    """The engine's dot for activations x: ``"s8"`` (W8A8), ``"bf16"`` for
+    bf16 activations, else ``"f32"``."""
+    return "s8" if w8a8 else "bf16" if x.dtype == torch.bfloat16 else "f32"
 
 
 def quant_gemv_int8(
@@ -311,8 +563,8 @@ def quant_gemv_int8(
     ``w8a8``: the (normalized) f32 rows are quantized per row to int8 and
     the dots are s8 × s8 → s32, rescaled by ``(acc · sx) · scales``.
 
-    CUDA tensors launch ``csrc/quant_gemv.cu``; CPU tensors run
-    ``quant_gemv_int8_ref``."""
+    CUDA tensors launch ``csrc/quant_gemv.cu`` (one launch, the argmax
+    included; ``gemv_plan``); CPU tensors run ``quant_gemv_int8_ref``."""
     m, k = x.shape
     n = w_t.shape[0]
     if m > MAX_ROWS:
@@ -341,25 +593,19 @@ def quant_gemv_int8(
     if residual is not None:
         if residual.dtype != out_dtype or not residual.is_contiguous():
             raise ValueError("residual must be contiguous and of out_dtype")
-    lib = _build.library()
     dev = x.device
     if argmax_n is not None:
-        cap = max_blocks(dev.index if dev.index is not None else torch.cuda.current_device())
-        part_max = torch.empty((m, cap), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((m, cap), dtype=torch.int32, device=dev)
-        result = torch.empty((m,), dtype=torch.int32, device=dev)
-        out = None
+        out, result = None, torch.empty((m,), dtype=torch.int32, device=dev)
     else:
-        part_max = part_idx = None
         out = result = torch.empty((m, n), dtype=out_dtype, device=dev)
-    rc = lib.rt_quant_gemv(
+    plan, work = gemv_device_plan(x, m, gemv_dot(x, w8a8), ((n, k, norm is not None, x.element_size()),))
+    rc = _build.library().rt_quant_gemv(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m,
         w_t.data_ptr(), scales.data_ptr(), n, k, int(w8a8),
         _ptr(bias), _ptr(ns), _ptr(nb), _NORM_CODES[norm], float(norm_eps),
         activation_code(activation), _ptr(residual), _ptr(out), int(out_dtype == torch.bfloat16),
-        int(argmax_n or 0), _ptr(part_max), _ptr(part_idx),
-        result.data_ptr() if argmax_n is not None else None,
-        _stream(x),
+        int(argmax_n or 0), result.data_ptr() if argmax_n is not None else None,
+        plan.ints, work, _stream(x),
     )
     _build.check(rc, "quant_gemv_int8")
     LAUNCHES["quant_gemv_int8:w8a8" if w8a8 else "quant_gemv_int8"] += 1
@@ -642,9 +888,9 @@ def quant_mlp_int8(
     (the normalized rows, the f32 up output over FF, the normalized block
     output) and runs s8 × s8 → s32 dots.
 
-    CUDA tensors launch ``csrc/quant_mlp.cu`` (three GEMV phases in one call:
-    up into an f32 [M, FF] scratch, down, next qkv); CPU tensors run
-    ``quant_mlp_int8_ref``."""
+    CUDA tensors launch ``csrc/quant_mlp.cu`` (one cooperative launch of
+    the GEMV engine's phases: up into an f32 [M, FF] scratch, down, next
+    qkv; ``gemv_plan``); CPU tensors run ``quant_mlp_int8_ref``."""
     m, d = x.shape
     ff = w_up_t.shape[0]
     if m > MAX_ROWS:
@@ -694,6 +940,9 @@ def quant_mlp_int8(
     nb = _vec_f32(norm_bias, d, "norm_bias") if norm is not None else None
     su, bu = _vec_f32(up_scales, ff, "up scales"), _vec_f32(b_up, ff, "b_up")
     sd, bd = _vec_f32(down_scales, d, "down scales"), _vec_f32(b_down, d, "b_down")
+    phases = ((ff, d, norm is not None, x.element_size()), (d, ff, False, 4)) + (
+        ((nq, d, True, 4),) if next_qkv is not None else ())
+    plan, work = gemv_device_plan(x, m, gemv_dot(x, w8a8), phases, coop=True)
     rc = _build.library().rt_quant_mlp(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, d,
         w_up_t.data_ptr(), su.data_ptr(), _ptr(bu), ff,
@@ -701,7 +950,7 @@ def quant_mlp_int8(
         _ptr(ns), _ptr(nb), _NORM_CODES[norm], float(norm_eps), activation_code(activation),
         _ptr(residual), out.data_ptr(), up_buf.data_ptr(), _ptr(h_buf),
         _ptr(wq), _ptr(sq), _ptr(bq), nq, _ptr(qns), _ptr(qnb), _ptr(qkv),
-        int(w8a8), _stream(x),
+        int(w8a8), plan.ints, work, _stream(x),
     )
     _build.check(rc, "quant_mlp_int8")
     LAUNCHES["quant_mlp_int8:w8a8" if w8a8 else "quant_mlp_int8"] += 1

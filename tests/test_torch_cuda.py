@@ -1794,3 +1794,261 @@ def test_kv_cluster_capacity(dev):
         assert all(a >= b for a, b in zip(fits, fits[1:]))
         split = kv_plan(8, 2, 7, 768, qm.sm_count(0), fits)
         assert 16 <= fits[split - 1] or split == 1
+
+
+# ---------------------------------------------------------------------------
+# The decode GEMV engine (csrc/gemv.cuh): quant_gemv_int8 and quant_mlp_int8
+# on tensor cores, weights streamed by TMA, one launch a call
+# ---------------------------------------------------------------------------
+
+# (n, k): a partial tile and a partial chunk (K 16 x 3); N not a multiple of
+# 16 and K = 16 x 17; K = 16 x 49; GPT-2's qkv width plus a ragged tile; a
+# few-tile matrix whose tiles are split over a cluster of 6 blocks (K = 16
+# x 305); the wo's shape (unsplit); a many-tile matrix whose K outgrows a
+# slot (two pieces a tile, run in order by one block); Qwen2's down
+# projection, split over clusters of 3.
+GEMV_ENGINE_SHAPES = [(7, 48), (333, 272), (1000, 784), (2309, 768), (40, 4880), (768, 768), (1040, 3200),
+                      (896, 4864)]
+ENGINE_NORMS = [None, "layernorm", "rmsnorm"]
+ENGINE_ACTS = [None, "gelu", "relu", "silu", "sigmoid", "tanh"]
+
+
+def _engine_gemv_case(dev, m, n, k, dtype, norm, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    bias = torch.randn(n, generator=gen, device=dev)
+    resid = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+    ns = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+    kw = dict(residual=resid)
+    if norm:
+        kw.update(norm=norm, norm_scale=ns, norm_bias=0.1 * ns if norm == "layernorm" else None)
+    return (x, qt, s, bias), kw
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 5, 8])
+@pytest.mark.parametrize("n,k", GEMV_ENGINE_SHAPES)
+def test_gemv_engine_matches_plain(dev, n, k, m, dtype):
+    """Every edge of the engine's tiles, chunks and splits, at 1-8 rows, in
+    both activation dtypes, with the norm and activation varying by shape:
+    against the plain version, one launch a call."""
+    i = GEMV_ENGINE_SHAPES.index((n, k))
+    norm, act = ENGINE_NORMS[i % 3], ENGINE_ACTS[(i + m) % 6]
+    args, kw = _engine_gemv_case(dev, m, n, k, dtype, norm, 70 + i)
+    before = dispatch.LAUNCHES["quant_gemv_int8"]
+    out = qm.quant_gemv_int8(*args, activation=act, **kw)
+    assert dispatch.LAUNCHES["quant_gemv_int8"] == before + 1
+    _close(out, qm.quant_gemv_int8_ref(*args, activation=act, **kw), dtype)
+
+
+@pytest.mark.parametrize("act", ENGINE_ACTS)
+@pytest.mark.parametrize("norm", ENGINE_NORMS)
+def test_gemv_engine_norms_and_activations(dev, norm, act):
+    """Every norm with every epilogue activation, f32 output of bf16 rows
+    (the lm_head's logits mode), no bias, no residual."""
+    args, _kw = _engine_gemv_case(dev, 3, 520, 256, torch.bfloat16, norm, 77)
+    kw = dict(norm=norm, norm_scale=_kw.get("norm_scale"), norm_bias=_kw.get("norm_bias"), activation=act,
+              out_dtype=torch.float32)
+    x, qt, s, _bias = args
+    out, ref = qm.quant_gemv_int8(x, qt, s, **kw), qm.quant_gemv_int8_ref(x, qt, s, **kw)
+    _close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,k", GEMV_ENGINE_SHAPES)
+def test_gemv_engine_w8a8(dev, n, k, dtype):
+    """W8A8 on the s8 tensor cores: without a norm the outputs equal the
+    plain version's bit for bit (f32 out) or to its bf16 rounding (the same
+    f32 value rounded once); with a norm within one code's contribution
+    (_w8_close)."""
+    args, kw = _engine_gemv_case(dev, 8, n, k, dtype, None, 80)
+    x, qt, s, bias = args
+    x[5] = 0  # an all-zero row: sx 1
+    out = qm.quant_gemv_int8(x, qt, s, bias, w8a8=True, out_dtype=torch.float32, **kw | {"residual": None})
+    ref = qm.quant_gemv_int8_ref(x, qt, s, bias, w8a8=True, out_dtype=torch.float32)
+    assert torch.equal(out, ref)
+    out = qm.quant_gemv_int8(x, qt, s, bias, w8a8=True, activation="relu", **kw)
+    ref = qm.quant_gemv_int8_ref(x, qt, s, bias, w8a8=True, activation="relu", **kw)
+    assert torch.equal(out, ref)
+    norm = "rmsnorm" if n % 2 else "layernorm"
+    args, kw = _engine_gemv_case(dev, 8, n, k, dtype, norm, 81)
+    out = qm.quant_gemv_int8(*args, w8a8=True, **kw)
+    ref = qm.quant_gemv_int8_ref(*args, w8a8=True, **kw)
+    _w8_close(out, ref, dtype, _code(args[2], _normed(args[0], norm, kw["norm_scale"], kw["norm_bias"])))
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["weight_only", "w8a8"])
+def test_gemv_engine_argmax_ties_across_blocks_and_grids(dev, w8a8):
+    """Tied maxima in columns far apart (other blocks) give the lowest
+    index, columns past argmax_n are masked even when larger; over launches
+    whose grids differ (the vocabulary of 20480 columns, then 1000, then
+    20480 again), so a ticket left anywhere but 0 would show."""
+    gen = torch.Generator(device=dev).manual_seed(82)
+    m, k = 3, 256
+
+    def case(n, ties, pad):
+        qt, s = _pack(gen, n, k, dev)
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        col = torch.where(x[0].float() > 0, 100, -100).to(torch.int8)
+        for c in (*ties, pad):
+            qt[c] = col
+            s[c] = 1.0
+        s[pad] = 2.0
+        x[1] = x[0]
+        return x, qt, s
+
+    for n, ties, pad, vocab in ((20480, (7, 5000, 19999), 20100, 20000), (1000, (300, 301, 990), 999, 998),
+                                (20480, (64, 640, 12800), 20479, 20000)):
+        x, qt, s = case(n, ties, pad)
+        out = qm.quant_gemv_int8(x, qt, s, argmax_n=vocab, w8a8=w8a8)
+        ref = qm.quant_gemv_int8_ref(x, qt, s, argmax_n=vocab, w8a8=w8a8)
+        assert out[:2].tolist() == [ties[0], ties[0]]
+        if w8a8:  # exact sums: the whole argmax equals the plain version's
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dot", ["bf16", "f32", "w8a8"])
+@pytest.mark.parametrize("n,k", [(2309, 768), (40, 4880), (51200, 768), (768, 768), (1040, 3200), (896, 4864)])
+def test_gemv_engine_row_alone_equals_row_among_8(dev, n, k, dot):
+    """A row computed alone gives the bits it gives among 8 (a column's sum
+    order depends on (n, k) alone), with a norm, and its argmax."""
+    dtype = torch.float32 if dot == "f32" else torch.bfloat16
+    args, kw = _engine_gemv_case(dev, 8, n, k, dtype, "layernorm", 83)
+    x, qt, s, bias = args
+    w8 = dot == "w8a8"
+    kw.pop("residual")
+    out = qm.quant_gemv_int8(x, qt, s, bias, w8a8=w8, **kw)
+    tok = qm.quant_gemv_int8(x, qt, s, argmax_n=n - 5, w8a8=w8, **kw)
+    for r in range(8):
+        assert torch.equal(qm.quant_gemv_int8(x[r : r + 1].contiguous(), qt, s, bias, w8a8=w8, **kw)[0], out[r]), r
+        alone = qm.quant_gemv_int8(x[r : r + 1].contiguous(), qt, s, argmax_n=n - 5, w8a8=w8, **kw)
+        assert alone[0] == tok[r], r
+
+
+def test_gemv_engine_argmax_on_two_streams(dev):
+    """Argmax GEMVs on two streams at once, each on its own stream's work
+    buffer: every launch's tokens equal those of the same call alone on the
+    default stream (the kernel is deterministic; a shared ticket would mix
+    the launches' partials)."""
+    gen = torch.Generator(device=dev).manual_seed(88)
+    cases = []
+    for n in (20480, 51200):
+        qt, s = _pack(gen, n, 768, dev)
+        x = torch.randn(4, 768, generator=gen, device=dev).to(torch.bfloat16)
+        cases.append((x, qt, s, n - 100, qm.quant_gemv_int8(x, qt, s, argmax_n=n - 100)))
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs = [[], []]
+    torch.cuda.synchronize()
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                x, qt, s, vocab, _ref = cases[i]
+                outs[i].append(qm.quant_gemv_int8(x, qt, s, argmax_n=vocab))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, cases[i][4]) for o in outs[i]), i
+
+
+def _engine_mlp_case(dev, m, d, ff, nq, dtype, seed, w8a8=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wu, su = _pack(gen, ff, d, dev)
+    wd, sd = _pack(gen, d, ff, dev)
+    x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    resid = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    ns = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    nxt = None
+    if nq:
+        wq, sq = _pack(gen, nq, d, dev)
+        nxt = (wq, sq * 0.1, torch.randn(nq, generator=gen, device=dev), ns * 0.9, ns * 0.1)
+    args = (x, wu, su * 0.1, wd, sd * 0.1, torch.randn(ff, generator=gen, device=dev),
+            torch.randn(d, generator=gen, device=dev))
+    kw = dict(activation="gelu", norm="layernorm", norm_scale=ns, norm_bias=0.1 * ns, residual=resid,
+              next_qkv=nxt, w8a8=w8a8)
+    return args, kw
+
+
+# (d, ff, nq): GPT-2-small's MLP with and without the next qkv (every
+# block's weights resident in shared memory); MLP_STREAMING is past the
+# fused budget (19 MB: its later units stream through the ring).
+MLP_ENGINE_SHAPES = [(768, 3072, 2304), (768, 3072, 0)]
+MLP_STREAMING = (1024, 8192, 3072)
+
+
+def _mlp_engine_check(dev, d, ff, nq, m, dtype):
+    args, kw = _engine_mlp_case(dev, m, d, ff, nq, dtype, 84)
+    before = dispatch.LAUNCHES["quant_mlp_int8"]
+    out, ref = qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw)
+    assert dispatch.LAUNCHES["quant_mlp_int8"] == before + 1
+    outs, refs = (out, ref) if nq else ((out,), (ref,))
+    for o, r in zip(outs, refs):
+        _close(o, r, dtype)
+    alone = qm.quant_mlp_int8(args[0][-1:].contiguous(), *args[1:], **kw | {"residual": kw["residual"][-1:]})
+    for o, a in zip(outs, (alone,) if not nq else alone):
+        assert torch.equal(o[-1:], a)
+    phases = ((ff, d, True, args[0].element_size()), (d, ff, False, 4)) + (((nq, d, True, 4),) if nq else ())
+    return qm.gemv_plan(m, qm.gemv_dot(args[0]), phases, qm.sm_count(0), True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("d,ff,nq", MLP_ENGINE_SHAPES)
+def test_mlp_engine_resident(dev, d, ff, nq, m, dtype):
+    """The MLP in one cooperative launch, its weights resident in shared
+    memory, against the plain version; a row alone equal to itself among
+    the rows."""
+    plan = _mlp_engine_check(dev, d, ff, nq, m, dtype)
+    assert plan.resident or dtype == torch.float32
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_mlp_engine_streams_past_the_budget(dev, m):
+    """An MLP past the fused budget (bf16): its later units streamed
+    through the ring, against the plain version, and a row alone equal to
+    itself among the rows."""
+    plan = _mlp_engine_check(dev, *MLP_STREAMING, m, torch.bfloat16)
+    assert not plan.resident
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("d,ff,nq", MLP_ENGINE_SHAPES + [MLP_STREAMING])
+def test_mlp_engine_w8a8(dev, d, ff, nq, m):
+    """The W8A8 MLP in one launch, resident and streaming, within one code's
+    contribution per quantized phase (as test_mlp_w8a8_kernel_matches_plain)."""
+    args, kw = _engine_mlp_case(dev, m, d, ff, nq, torch.bfloat16, 85, w8a8=True)
+    out, ref = qm.quant_mlp_int8(*args, **kw), qm.quant_mlp_int8_ref(*args, **kw)
+    x, wu, su, _wd, sd, bu, _bd = args
+    xn = _normed(x, "layernorm", kw["norm_scale"], kw["norm_bias"])
+    codes = _code(su, xn) + _code(sd, qm.quant_gemv_int8_ref(xn, wu, su, bu, activation="gelu", w8a8=True))
+    if nq:
+        nxt = kw["next_qkv"]
+        _w8_close(out[1], ref[1], torch.bfloat16,
+                  2 * codes + _code(nxt[1], _normed(ref[0], "layernorm", nxt[3], nxt[4])))
+        out, ref = out[0], ref[0]
+    _w8_close(out, ref, torch.bfloat16, codes)
+
+
+def test_gemv_engine_one_launch_a_call(dev):
+    """quant_gemv_int8 (the argmax included), quant_mlp_int8 and its W8A8
+    mode each launch one kernel a call: the profiler's launch calls on the
+    host (its device records can miss a kernel), all of gemv_kernel."""
+    args, kw = _engine_gemv_case(dev, 2, 51200, 768, torch.bfloat16, "layernorm", 86)
+    x, qt, s, _bias = args
+    kw.pop("residual")
+    margs, mkw = _engine_mlp_case(dev, 2, 768, 3072, 2304, torch.bfloat16, 87)
+    calls = {"argmax": lambda: qm.quant_gemv_int8(x, qt, s, argmax_n=50257, **kw),
+             "gemv": lambda: qm.quant_gemv_int8(x, qt, s, **kw),
+             "mlp": lambda: qm.quant_mlp_int8(*margs, **mkw),
+             "mlp_w8a8": lambda: qm.quant_mlp_int8(*margs, **mkw | {"w8a8": True})}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
+        kernels = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
+        assert launches == 4 and kernels and all("gemv_kernel" in k for k in kernels), (name, launches, kernels)
