@@ -25,7 +25,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    flash attention, the serving path's int8 and paged decode attentions,
    the W8A8 ones: the w8a8 modes of the decode GEMV and MLP,
    quantize_rows_int8 and quant_matmul_w8a8; decode_block, the whole
-   layer in one kernel, beside the two kernels it replaces;
+   layer in one kernel, at GPT-2-small's and tiny_starcoder_py's blocks,
+   beside the two kernels it replaces and with its grid-wide waits' cost;
    matmul_fused on its wgmma, ragged and f32 routes; the silu / sigmoid /
    tanh epilogues; decode_attention at 8 rows of mixed lengths) at
    GPT-2-small's shapes (bf16 activations, int8 weights), the prefill
@@ -76,7 +77,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 4's 32 teacher-forced steps through the mega path's kernels and
    plain versions against the two-kernel logits (relative RMS at most
    MEGA_GATE, the top-2 gap rule), and a short W8A8 + mega run;
-8. qwen2   — a Qwen2-0.5B-shaped model (24 layers, d_model 896, 14 query
+8. starcoder — a tiny_starcoder_py-shaped model (20 layers, d_model 768,
+   12 query heads over 1 kv head, d_ff 3072, vocab 49152, learned
+   positions; random int8 weights from seed 0) through phase 4's path with
+   a 64-token prompt and 256 tokens in a 1024-position cache, two-kernel
+   (decode_attention:gqa + quant_mlp_int8) and with DecoderConfig(mega=True)
+   (decode_block:gqa 20 times a decode step, neither of the two), side by
+   side, and the two-kernel path's 32 teacher-forced steps through the mega
+   kernels and plain versions against its logits (MEGA_GATE, top-2 rule);
+9. qwen2   — a Qwen2-0.5B-shaped model (24 layers, d_model 896, 14 query
    heads over 2 kv heads, d_ff 4864, vocab 151936, RoPE θ 1e6, q/k/v
    biases, the tied head as an lm_head copy; random int8 weights from seed
    0): phase 4's path with a 64-token prompt and 256 tokens in a
@@ -86,7 +95,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 and int8 KV (the three GQA KV kernels; each stream against its solo
    stream), and one decode step at 12 rows on a bf16 cache (decode_attention
    without its wo) against the plain versions;
-9. the line {"kernels": [...]} (the launches summed over phases 4-8, the
+10. the line {"kernels": [...]} (the launches summed over phases 4-9, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
    ragged route also under its own name), the
@@ -255,13 +264,21 @@ def kv_launch_info(torch, fn, entry: str, q, hk: int, cap: int, with_wo: bool = 
     with wo also the GEMV: ``expect_launches``). The profiler misses about
     one record in eight of a cluster launch (measured on the H100:
     ``rt::kv_attention_kernel`` at 7 of 8 calls, the GEMV launched beside it
-    at 8 of 8), so each kernel's count a call is rounded."""
+    at 8 of 8), so each kernel's count a call is rounded. A profile that
+    recorded no device event at all, while the case's outputs had just
+    matched the plain version, is taken again, at most three times; the
+    attempts are recorded (``profile_attempts``), and three empty profiles
+    read 0 launches a call, which fails ``one_launch_a_call``."""
     from rten_tpu_torch.kernels import decode_attention as da
 
     plan = getattr(da, "kv_device_plan", None)
     extra = (int(with_wo),) if entry == "rt_decode_attention" else ()
-    _us, calls = profile_by_kernel(torch, fn, 16)
+    for attempts in range(1, 4):
+        _us, calls = profile_by_kernel(torch, fn, 16)
+        if calls:
+            break
     return dict(split=plan(entry, q, hk, cap, *extra) if plan is not None else None, host_us=host_us(torch, fn),
+                profile_attempts=attempts,
                 launches_per_call=sum(round(n) for n in calls.values()), expect_launches=2 if with_wo else 1,
                 kernel_names=sorted({name.split("<")[0] for name in calls}))
 
@@ -773,67 +790,138 @@ def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
         del copies, codes, lib_in
 
 
-def check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
-    """decode_block (GPT-2-small's block at kv_len 1 / 300 / 767 of S 768,
-    with and without the next qkv) against its plain version, and beside it
-    the time of the two kernels it replaces on the same inputs."""
+# decode_block's blocks: (query heads, kv heads) at d_model 768, FF 3072,
+# head dim 64; GPT-2-small's (packed q|k|v) and tiny_starcoder_py's (MQA,
+# unpacked; the next qkv N (12 + 2) x 64 = 896).
+BLOCK_SHAPES = {"gpt2": (12, 12), "starcoder": (12, 1)}
+
+
+def block_waits(torch, fn, grid: int, reps: int = 5) -> dict:
+    """decode_block's %globaltimer stamps (``decode_block_timed``; their order in
+    csrc/decode_block.cu decode_block_kernel), in us, the median over
+    blocks and then over ``reps`` launches: each grid-wide wait's cost
+    (from the last block's arrival to each block's release), the attention
+    phase (entry to done) and its first item's arrival, and for each GEMV
+    phase (wo, up, down, next qkv) its operand row's time after the wait,
+    its first weights' arrival after entry, and its dots and epilogue once
+    both are in. A phase the launch does not run reads 0."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    stamps = torch.zeros((grid, da.BLOCK_STAMPS), dtype=torch.int64, device="cuda")
+    runs = []
+    for _ in range(reps):
+        stamps.zero_()
+        fn(stamps)
+        torch.cuda.synchronize()
+        s = stamps.cpu().double() / 1e3
+        rel = s - s[:, :1]
+
+        def med(values):
+            values = [v for v in values if v == v]
+            return statistics.median(values) if values else 0.0
+
+        def ok(col):
+            return s[:, col] > 0
+
+        r = dict(attention_us=med(rel[:, 2].tolist()), first_item_us=med(rel[ok(1), 1].tolist()))
+        r["waits_us"] = [med((s[ok(i + 1), i + 1] - s[:, i].max()).tolist()) if bool(ok(i + 1).any()) else 0.0
+                         for i in (2, 6, 10, 14)]
+        r["row_us"] = [med((s[ok(b + 1), b + 1] - s[ok(b + 1), b]).tolist()) for b in (3, 7, 11, 15)]
+        r["weights_at_us"] = [med(rel[ok(b + 2), b + 2].tolist()) for b in (3, 7, 11, 15)]
+        r["dots_us"] = [med((s[ok(b + 2), b + 3] - torch.maximum(s[ok(b + 2), b + 1], s[ok(b + 2), b + 2])).tolist())
+                        for b in (3, 7, 11, 15)]
+        runs.append(r)
+    out = {}
+    for key, val in runs[0].items():
+        if isinstance(val, list):
+            out[key] = [round(statistics.median(r[key][i] for r in runs), 3) for i in range(len(val))]
+        else:
+            out[key] = round(statistics.median(r[key] for r in runs), 3)
+    return out
+
+
+def check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record, shapes=tuple(BLOCK_SHAPES)):
+    """decode_block at the blocks of BLOCK_SHAPES (kv_len 1 / 300 / 767 of S
+    768, with and without the next qkv) against its plain version, beside
+    the time of the two kernels it replaces on the same inputs
+    (decode_attention with its fused wo, then quant_mlp_int8), and, where
+    the package has ``decode_block_timed``, the cost of its grid-wide
+    waits (block_waits)."""
+    import inspect
+
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
-    d, ff, h, hd, s_max = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim, CACHE_LEN
+    d, ff, hd, s_max = cfg.d_model, cfg.d_ff, cfg.head_dim, CACHE_LEN
+    params = inspect.signature(da.decode_block).parameters
+    stamped = hasattr(da, "decode_block_timed")
+    if "qkv" not in params:  # an older package's decode_block: packed MHA only
+        shapes = [sh for sh in shapes if BLOCK_SHAPES[sh][0] == BLOCK_SHAPES[sh][1]]
 
     # -- decode_block: the whole layer (and the next layer's qkv) in one launch
-    for kv_len in (1, 300, 767):
-        for with_next in (True, False):
-            def make(i, kv_len=kv_len, with_next=with_next):
-                kc, vc = randn(1, h, s_max, hd, scale=1.5), randn(1, h, s_max, hd)
-                wo, wos = pack(d, h * hd)
-                wu, su = pack(ff, d)
-                wd, sd = pack(d, ff)
-                ns, nb = norm_vecs(d)
-                mlp = (wu, su, wd, sd, 0.1 * randn(ff, dtype=f32), 0.1 * randn(d, dtype=f32), ns, nb)
-                nxt = None
-                if with_next:
-                    wq, sq = pack(3 * d, d)
-                    qns, qnb = norm_vecs(d)
-                    nxt = (wq, sq, 0.1 * randn(3 * d, dtype=f32), qns, qnb)
-                lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-                return (randn(1, 3, h, 1, hd, scale=1.5), kc, vc, lens, wo, wos, 0.1 * randn(d, dtype=f32),
-                        randn(1, d), mlp, nxt)
+    for shape in shapes:
+        h, hk = BLOCK_SHAPES[shape]
+        name = "decode_block" if h == hk else "decode_block:gqa"
+        nq = (h + 2 * hk) * hd
+        for kv_len in (1, 300, 767):
+            for with_next in (True, False):
+                def make(i, kv_len=kv_len, with_next=with_next):
+                    kc, vc = randn(1, hk, s_max, hd, scale=1.5), randn(1, hk, s_max, hd)
+                    if h == hk:
+                        ops = randn(1, 3, h, 1, hd, scale=1.5)
+                    else:
+                        ops = (randn(1, h, hd, scale=1.5), randn(1, hk, hd, scale=1.5), randn(1, hk, hd))
+                    wo, wos = pack(d, h * hd)
+                    wu, su = pack(ff, d)
+                    wd, sd = pack(d, ff)
+                    ns, nb = norm_vecs(d)
+                    mlp = (wu, su, wd, sd, 0.1 * randn(ff, dtype=f32), 0.1 * randn(d, dtype=f32), ns, nb)
+                    nxt = None
+                    if with_next:
+                        wq, sq = pack(nq, d)
+                        qns, qnb = norm_vecs(d)
+                        nxt = (wq, sq, 0.1 * randn(nq, dtype=f32), qns, qnb)
+                    lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+                    return (ops, kc, vc, lens, wo, wos, 0.1 * randn(d, dtype=f32), randn(1, d), mlp, nxt)
 
-            kw = dict(activation="gelu", norm="layernorm")
-            args = make(0)
-            p_args = (args[0], args[1].clone(), args[2].clone(), *args[3:])
-            out = da.decode_block(*args, **kw)
-            ref = da.decode_block_ref(*p_args, **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(args[1], p_args[1]) and torch.equal(args[2], p_args[2])):
-                raise AssertionError(f"decode_block kv_len={kv_len}: caches differ from the plain append")
-            outs, refs = (out, ref) if with_next else ((out,), (ref,))
-            errs = [bf16_err(o, r) for o, r in zip(outs, refs)]
-            worst = max(errs, key=lambda et: et[0] / et[1])
-            qkv, kc, vc, lens, wo, wos, bo, resid, mlp, nxt = args
-            prefix = 2 * h * kv_len * hd * 2  # k and v rows < kv_len, read once
-            per_call = (prefix + nbytes(qkv, lens, wo, wos, bo, resid, *mlp, *(nxt or ())) + 2 * h * hd * 2
-                        + 2 * d + (2 * 3 * d if with_next else 0))
-            ops = 4 * h * (kv_len + 1) * hd + 2 * (h * hd * d + 2 * d * ff + (3 * d * d if with_next else 0))
-            copies = [make(i) for i in range(copies_for(per_call, cap=64))]
-            ms = graph_ms(torch, [lambda a=a: da.decode_block(*a, **kw) for a in copies])
+                kw = dict(activation="gelu", norm="layernorm")
+                args = make(0)
+                p_args = (args[0], args[1].clone(), args[2].clone(), *args[3:])
+                out = da.decode_block(*args, **kw)
+                ref = da.decode_block_ref(*p_args, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(args[1], p_args[1]) and torch.equal(args[2], p_args[2])):
+                    raise AssertionError(f"{name} kv_len={kv_len}: caches differ from the plain append")
+                outs, refs = (out, ref) if with_next else ((out,), (ref,))
+                errs = [bf16_err(o, r) for o, r in zip(outs, refs)]
+                worst = max(errs, key=lambda et: et[0] / et[1])
+                ops, kc, vc, lens, wo, wos, bo, resid, mlp, nxt = args
+                operands = ops if isinstance(ops, tuple) else (ops,)
+                prefix = 2 * hk * kv_len * hd * 2  # k and v rows < kv_len, read once
+                per_call = (prefix + nbytes(*operands, lens, wo, wos, bo, resid, *mlp, *(nxt or ()))
+                            + 2 * hk * hd * 2 + 2 * d + (2 * nq if with_next else 0))
+                ops_n = 4 * h * (kv_len + 1) * hd + 2 * (h * hd * d + 2 * d * ff + (nq * d if with_next else 0))
+                copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+                ms = graph_ms(torch, [lambda a=a: da.decode_block(*a, **kw) for a in copies])
 
-            def two_kernels(a):  # what the decoder runs without mega: decode_attention, then quant_mlp_int8
-                x = da.decode_attention(*a[:7], residual=a[7])
-                wu, su, wd, sd, bu, bd, ns, nb = a[8]
-                return qm.quant_mlp_int8(x, wu, su, wd, sd, bu, bd, activation="gelu", norm="layernorm",
-                                         norm_scale=ns, norm_bias=nb, residual=x, next_qkv=a[9])
+                def two_kernels(a):  # what the decoder runs without mega: decode_attention, then quant_mlp_int8
+                    x = da.decode_attention(*a[:7], residual=a[7])
+                    wu, su, wd, sd, bu, bd, ns, nb = a[8]
+                    return qm.quant_mlp_int8(x, wu, su, wd, sd, bu, bd, activation="gelu", norm="layernorm",
+                                             norm_scale=ns, norm_bias=nb, residual=x, next_qkv=a[9])
 
-            two_ms = graph_ms(torch, [lambda a=a: two_kernels(a) for a in copies])
-            plain = eager_ms(torch, lambda: da.decode_block_ref(*p_args, **kw))
-            record("decode_block", f"kv_len={kv_len} {'+next_qkv' if with_next else 'last layer'} S={s_max} "
-                   f"D={d} FF={ff}", *worst, ms, plain, bound(per_call, ops), None,
-                   f"(decode_attention + quant_mlp_int8 on the same inputs {two_ms:.4f} ms)")
-            del copies
+                two_ms = graph_ms(torch, [lambda a=a: two_kernels(a) for a in copies])
+                plain = eager_ms(torch, lambda: da.decode_block_ref(*p_args, **kw))
+                extra = dict(two_kernel_ms=two_ms)
+                if stamped:
+                    extra.update(block_waits(torch, lambda st: da.decode_block_timed(st, *args, **kw),
+                                             da.block_grid(0)))
+                record(name, f"kv_len={kv_len} {'+next_qkv' if with_next else 'last layer'} S={s_max} "
+                       f"Hq={h} Hk={hk} D={d} FF={ff}", *worst, ms, plain, bound(per_call, ops_n), None,
+                       f"(decode_attention + quant_mlp_int8 on the same inputs {two_ms:.4f} ms)", **extra)
+                del copies
 
 
 def check_decode_attention_b8(torch, bound, cfg, randn, pack, bf16_err, record):
@@ -1371,8 +1459,8 @@ def prefill_device_us(torch, cfg, params, ids, cache_len, reps: int = 4) -> dict
 
 def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None, n_new=None, cache_len=None):
     """Phase 4 (and, with cfg.w8a8, key "w8a8_" and the W8A8 kernels
-    required, phase 6's first part; phase 8's first part at ``n_new`` tokens
-    in a ``cache_len`` cache): the main path through Generator, time to
+    required, phase 6's first part; phases 8's and 9's first parts at
+    ``n_new`` tokens in a ``cache_len`` cache): the main path through Generator, time to
     first token, the device time per decode step, and the teacher-forced
     checks. Returns the main path's launches and the teacher-forced
     sequence with its logits."""
@@ -1947,36 +2035,18 @@ MEGA_GATE = 0.05  # relative RMS of mega against two-kernel logits: the bound PE
 N_MEGA_W8A8 = 32  # tokens of the short W8A8 + mega run
 
 
-def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
-    """GPT-2-small with the same int8 weights and DecoderConfig(mega=True):
-    phase 4's path (Generator, time to first token, device time per step by
-    kernel, the teacher-forced checks) with decode_block launched 12 times a
-    decode step and neither decode_attention nor quant_mlp_int8; then phase
-    4's 32 teacher-forced steps (``forced``: the two-kernel path's tokens and
-    logits) through the mega path's kernels and its plain versions, held
-    against the two-kernel logits (relative RMS at most MEGA_GATE; an argmax
-    that differs from the served token only where its top-2 gap is below
-    GAP_TOL); and a short W8A8 + mega run that launches."""
-    import dataclasses
-
-    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
-    from rten_tpu_torch.kernels import dispatch
+def mega_gate(torch, cfgm, params, forced, cache_len) -> dict:
+    """The two-kernel path's teacher-forced steps (``forced``, from
+    drive_serve) token by token through the mega path's kernels and its
+    plain versions (``cfgm``), held against the two-kernel logits: relative
+    RMS at most MEGA_GATE, and an argmax that differs from the served token
+    only where its top-2 gap is below GAP_TOL. Returns the gate's numbers."""
     from rten_tpu_torch.models import decoder
 
-    cfgm = dataclasses.replace(cfg, mega=True)
-    launches, _mega_forced = drive_serve(torch, cfgm, params, mem_rate, op_rate, out, key="mega_",
-                                         required=MEGA_KERNELS)
-    steps = N_NEW - 1
-    if launches.get("decode_block", 0) != cfg.n_layers * steps or launches.get("decode_attention", 0) \
-            or launches.get("quant_mlp_int8", 0):
-        raise AssertionError(f"mega decode: decode_block must launch {cfg.n_layers} times a step and the two "
-                             f"kernels it replaces never: {launches}")
-
-    # Phase 4's teacher-forced steps, token by token through the mega path.
     seq, served = forced["seq"], forced["served"]
 
     def token_by_token():
-        c = decoder.init_cache(cfgm, 1, CACHE_LEN, device="cuda")
+        c = decoder.init_cache(cfgm, 1, cache_len, device="cuda")
         lg, c = decoder.prefill(params, cfgm, seq[:, :N_PROMPT], c, last_only=True)
         rows = [lg[0, -1]]
         for i in range(N_FORCED - 1):
@@ -2008,6 +2078,35 @@ def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
         f"worst gap {gate['max_gap_kernels']:.4g} / {gate['max_gap_plain']:.4g} (tol {GAP_TOL})")
     if not (gate["mega_vs_two_kernel"] <= MEGA_GATE and bool(torch.isfinite(mega_k).all())):
         raise AssertionError(f"mega logits differ from the two-kernel ones by more than the bound: {gate}")
+    return gate
+
+
+def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
+    """GPT-2-small with the same int8 weights and DecoderConfig(mega=True):
+    phase 4's path (Generator, time to first token, device time per step by
+    kernel, the teacher-forced checks) with decode_block launched 12 times a
+    decode step and neither decode_attention nor quant_mlp_int8; then phase
+    4's 32 teacher-forced steps (``forced``: the two-kernel path's tokens and
+    logits) through the mega path's kernels and its plain versions, held
+    against the two-kernel logits (relative RMS at most MEGA_GATE; an argmax
+    that differs from the served token only where its top-2 gap is below
+    GAP_TOL); and a short W8A8 + mega run that launches."""
+    import dataclasses
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+
+    cfgm = dataclasses.replace(cfg, mega=True)
+    launches, _mega_forced = drive_serve(torch, cfgm, params, mem_rate, op_rate, out, key="mega_",
+                                         required=MEGA_KERNELS)
+    steps = N_NEW - 1
+    if launches.get("decode_block", 0) != cfg.n_layers * steps or launches.get("decode_attention", 0) \
+            or launches.get("quant_mlp_int8", 0):
+        raise AssertionError(f"mega decode: decode_block must launch {cfg.n_layers} times a step and the two "
+                             f"kernels it replaces never: {launches}")
+
+    gate = mega_gate(torch, cfgm, params, forced, CACHE_LEN)
     base, mega = out["decode"], out["mega_decode"]
     log(f"  beside the two-kernel path of this call: {mega['tokens_per_s']:.1f} against {base['tokens_per_s']:.1f} "
         f"tokens/s; host {mega['ms_per_step']:.4f} against {base['ms_per_step']:.4f} ms/step; device "
@@ -2018,7 +2117,7 @@ def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
     # A short W8A8 + mega run: the block stays weight-only, layer 0's qkv and
     # the lm_head run the w8a8 GEMV, the prompt quant_matmul_w8a8.
     cfg8 = dataclasses.replace(cfgm, w8a8=True)
-    prompt = seq[:, :N_PROMPT].cpu().numpy()
+    prompt = forced["seq"][:, :N_PROMPT].cpu().numpy()
     stream = iter(Generator(NativeBackend(params, cfg8, max_len=CACHE_LEN, device="cuda"),
                             GeneratorConfig(max_tokens=N_MEGA_W8A8)).with_prompt(prompt))
     dispatch.reset_counters()
@@ -2044,7 +2143,69 @@ def drive_mega(torch, cfg, params, mem_rate, op_rate, out, forced):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: a Qwen2-0.5B-shaped model (RoPE, GQA, SwiGLU) at full width
+# Phase 8: a tiny_starcoder_py-shaped model (MQA) with the whole-block decode
+# ---------------------------------------------------------------------------
+
+# huggingface.co/bigcode/tiny_starcoder_py config.json (GPTBigCode): 20 layers,
+# n_embd 768, 12 heads over one kv head (multi_query), n_inner 3072, vocab
+# 49152, n_positions 8192, layer_norm_epsilon 1e-5, learned positions, biases,
+# a tied head. Its gelu_pytorch_tanh runs as the erf GELU, the one the JAX
+# package has.
+STARCODER_CFG = dict(vocab_size=49152, n_layers=20, n_heads=12, n_kv_heads=1, d_model=768, d_ff=3072, max_seq=8192,
+                     layer_norm_eps=1e-5)
+N_STARCODER_NEW, STARCODER_CACHE = 256, 1024
+STARCODER_KERNELS = ("quant_gemv_int8", "decode_block:gqa", "quant_matmul_int8", "flash_attention")
+STARCODER_TWO_KERNEL = ("quant_gemv_int8", "quant_mlp_int8", "decode_attention:gqa", "quant_matmul_int8",
+                        "flash_attention")
+
+
+def drive_starcoder(torch, mem_rate, op_rate, out):
+    """Phase 8: the tiny_starcoder_py-shaped model (random int8 weights from
+    seed 0, bf16) through phase 4's path (Generator(NativeBackend): a
+    64-token prompt, then 255 greedy steps in a 1024-position cache) twice:
+    the two-kernel decode (decode_attention:gqa with its wo, then
+    quant_mlp_int8) and DecoderConfig(mega=True), whose every decode step
+    launches decode_block:gqa 20 times and neither decode_attention nor
+    quant_mlp_int8; then the two-kernel path's 32 teacher-forced steps
+    through the mega kernels and plain versions (mega_gate)."""
+    import dataclasses
+
+    from rten_tpu_torch.models import decoder
+
+    cfg = decoder.DecoderConfig(**STARCODER_CFG, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    log(f"  params: tiny_starcoder_py shape int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize; "
+        f"{stream_bytes(params)} bytes a decode step streams; wqkv {tuple(params['layers'][0]['wqkv']['qt'].shape)}")
+    kw = dict(n_new=N_STARCODER_NEW, cache_len=STARCODER_CACHE)
+    launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="starcoder_",
+                                   required=STARCODER_TWO_KERNEL, **kw)
+    cfgm = dataclasses.replace(cfg, mega=True)
+    mega_launches, _ = drive_serve(torch, cfgm, params, mem_rate, op_rate, out, key="starcoder_mega_",
+                                   required=STARCODER_KERNELS, **kw)
+    steps = N_STARCODER_NEW - 1
+    if mega_launches.get("decode_block:gqa", 0) != cfg.n_layers * steps or any(
+            mega_launches.get(k, 0) for k in ("decode_attention", "decode_attention:gqa", "quant_mlp_int8")):
+        raise AssertionError(f"tiny_starcoder_py mega decode: decode_block:gqa must launch {cfg.n_layers} times a "
+                             f"step and the two kernels it replaces never: {mega_launches}")
+    gate = mega_gate(torch, cfgm, params, forced, STARCODER_CACHE)
+    base, mega = out["starcoder_decode"], out["starcoder_mega_decode"]
+    log(f"  beside the two-kernel path of this call: {mega['tokens_per_s']:.1f} against {base['tokens_per_s']:.1f} "
+        f"tokens/s; host {mega['ms_per_step']:.4f} against {base['ms_per_step']:.4f} ms/step; device "
+        f"{mega['device_ms_per_step']} against {base['device_ms_per_step']} ms/step; idle share "
+        f"{mega['idle_share']} against {base['idle_share']}; launches a forward "
+        f"{sum(mega['launches_per_forward'].values()):.2f} against {sum(base['launches_per_forward'].values()):.2f}")
+    out["starcoder_mega_forced"] = gate
+    for name, n in mega_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: a Qwen2-0.5B-shaped model (RoPE, GQA, SwiGLU) at full width
 # ---------------------------------------------------------------------------
 
 # huggingface.co/Qwen/Qwen2-0.5B config.json: 24 layers, hidden 896, 14 heads
@@ -2080,7 +2241,7 @@ def qwen2_params(torch, cfg):
 
 
 def drive_qwen2(torch, mem_rate, op_rate, out):
-    """Phase 8: the Qwen2-0.5B-shaped model through phase 4's path
+    """Phase 9: the Qwen2-0.5B-shaped model through phase 4's path
     (Generator(NativeBackend): a 64-token prompt in one prefill, then 255
     greedy steps in a 1024-position cache, each launching decode_attention
     24 times in its unpacked GQA mode and no plain version; time to first
@@ -2242,6 +2403,8 @@ KERNELS = {
                                replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64"),
     "decode_block": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
                          replaces="rten_tpu/kernels/decode_attention.py:118", timed="kv_len=300 +next_qkv"),
+    "decode_block:gqa": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
+                             replaces="rten_tpu/kernels/decode_attention.py:118", timed="kv_len=300 +next_qkv"),
     "decode_attention:gqa": dict(source="rten_tpu_torch/kernels/csrc/decode_attention.cu",
                                  replaces="rten_tpu/kernels/decode_attention.py:734", timed="B=1 kv_len=300"),
     "decode_attention:no_wo": dict(source="rten_tpu_torch/kernels/csrc/decode_attention.cu",
@@ -2410,6 +2573,7 @@ def one_launch_a_call(cases) -> None:
     with the fused wo, the GEMV its own launch) and no combine kernel; the
     decode GEMV (its argmax included) and MLP one launch."""
     wrong = [f"{c['kernel']} {c['shape']}: {c['launches_per_call']} launches a call {c['kernel_names']}"
+             f" (profiles taken: {c.get('profile_attempts', 1)})"
              for c in cases if "launches_per_call" in c
              and (c["launches_per_call"] != c["expect_launches"] or any("combine" in n for n in c["kernel_names"]))]
     if wrong:
@@ -2445,7 +2609,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/9] device")
+    log("[1/10] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -2458,7 +2622,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/9] build")
+    log("[2/10] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -2479,7 +2643,7 @@ def main() -> int:
         return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
     if opts.gemv:
         return gemv_only(torch, bound, cfg, detail, kind, smi, opts.gemv)
-    log("[3/9] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/10] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -2488,29 +2652,32 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/9] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/10] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/9] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/10] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/9] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/10] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/9] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/10] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/9] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[8/10] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
+        launches[name] = launches.get(name, 0) + n
+    log("[9/10] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
 
-    log("[9/9] summary")
+    log("[10/10] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

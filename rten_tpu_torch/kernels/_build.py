@@ -68,9 +68,9 @@ SIGNATURES = {
     ],
     "rt_decode_attention_clusters": [_I, _I, _I, _I, _I],  # bf16, d, gqa, with_wo, split
     "rt_decode_block": [
-        _P, _I, _I, _I,              # qkv, bf16, h, d
+        _P, _P, _P, _I, _I, _I, _I,  # q, k_new, v_new, bf16, hq, hk, d
         _P, _P, _I, _P,              # k_cache, v_cache, s_max, kv_len
-        _P, _P, _P, _P, _I,          # part_m, part_l, part_acc, attn, n_chunks
+        _P, _I,                      # part (the items' states), n_chunks
         _P, _P, _P, _I,              # wo_t, wo_scales, wo_bias, dm
         _P, _P,                      # residual, h_buf
         _P, _P, _P, _I, _P,          # w_up_t, s_up, b_up, ff, u_buf
@@ -79,7 +79,7 @@ SIGNATURES = {
         _P, _P,                      # out, out_f32
         _P, _P, _P, _I,              # w_qkv_t, s_qkv, b_qkv, nq
         _P, _P, _P,                  # next ln scale, next ln bias, qkv_out
-        _F, _P,                      # sm_scale, stream
+        _F, _I, _I, _P, _P,          # sm_scale, grid, weight region bytes (0: all that fit), stamps (null but in decode_block_timed), stream
     ],
     "rt_matmul_fused": [
         _P, _P, _P, _I,              # x, w, bias, route (matmul.py ROUTES)

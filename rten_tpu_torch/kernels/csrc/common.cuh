@@ -59,7 +59,7 @@ __device__ __forceinline__ float absmax4(const float4& x) {
 __device__ __forceinline__ float hsum4(const float4& v) { return v.x + v.y + v.z + v.w; }
 
 // The row norm's arithmetic, shared by the GEMV prologues (gemv.cuh,
-// block_gemv.cuh). First pass: four values' share of the row total, the
+// decode_block.cu). First pass: four values' share of the row total, the
 // sum of x (layernorm) or of x^2 (rmsnorm).
 __device__ __forceinline__ float norm_part4(const float4& x, int norm) {
   const float4 sq = make_float4(x.x * x.x, x.y * x.y, x.z * x.z, x.w * x.w);
@@ -123,8 +123,8 @@ __device__ __forceinline__ float quantize_row(const Load& load, int nv, unsigned
 
 // Four consecutive activations (i % 4 == 0) as f32, one 8- or 16-byte load:
 // through the read-only path (__ldg), or, COHERENT, from L2 (__ldcg) for
-// data that other blocks of the same launch wrote (decode_block.cu's
-// scratch, read after a grid sync).
+// data that other blocks of the same launch wrote (the MLP's rows in
+// gemv.cuh, read after a grid sync).
 template <bool COHERENT = false>
 __device__ __forceinline__ float4 load_act4(const void* p, int bf16, size_t i) {
   if (bf16) {

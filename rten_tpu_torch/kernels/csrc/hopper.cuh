@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the prefill kernels (quant_matmul.cu,
-// flash_attention.cu, quant_matmul_w8a8.cu, matmul_fused.cu): mbarriers,
-// TMA tile loads and their tensor maps, the producer loop of a TMA ring,
+// flash_attention.cu, quant_matmul_w8a8.cu, matmul_fused.cu) and the decode
+// kernels: mbarriers, TMA tile loads and their tensor maps, 1-D bulk copies
+// and the proxy fence before reusing their destination, the global timer,
+// the producer loop of a TMA ring,
 // cp.async with zero fill, warpgroup MMA (wgmma) with the A operand in
 // registers or in shared memory (bf16, int8; B K-major or MN-major), the
 // int8 -> bf16 conversion of an A fragment, and the rank-order sum of a
@@ -65,6 +67,29 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Order this thread's earlier generic-proxy accesses to shared memory before
+// the bulk copies it issues next (a destination written again).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The card's global timer, in ns (for measurement builds of a kernel).
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 // Bring a tensor map (a kernel parameter) into the TMA unit's cache ahead

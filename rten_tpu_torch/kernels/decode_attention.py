@@ -14,12 +14,13 @@ Counterpart of ``rten_tpu/kernels/decode_attention.py`` ``decode_attention``
 model; ``split_qkv``), in-place append at ``kv_len``, with the fused int8
 ``wo`` + bias + residual or without it (the attention vector of an unfused
 step); with ``mlp=`` / ``next_qkv=`` (the whole-block "mega" mode, batch 1,
-MHA) that is ``decode_block``. Its folded cache layout and lane padding
-exist for Mosaic only; here the cache is logical ``[B, Hk, S, D]``. Each
-mode counts its launches under its own name (``mode_name``):
-``decode_attention``, ``decode_attention:gqa`` (Hq > Hk) and
-``decode_attention:no_wo``; ``decode_attention_int8`` and
-``decode_attention_int8:gqa``.
+packed or unpacked) that is ``decode_block``. Its folded cache layout and
+lane padding exist for Mosaic only; here the cache is logical
+``[B, Hk, S, D]``. Each mode counts its launches under its own name
+(``mode_name``): ``decode_attention``, ``decode_attention:gqa`` (Hq > Hk)
+and ``decode_attention:no_wo``; ``decode_attention_int8`` and
+``decode_attention_int8:gqa``; ``decode_block``, a grouped-query block
+also under ``decode_block:gqa``.
 
 The TPU kernels' ``batched=True`` modes (``_decode_attn_kernel_batched``,
 ``_decode_attn_int8_kernel_batched``: every row in one grid cell, with
@@ -282,7 +283,7 @@ def mega_block_supported(d_model: int, ff: int, n_qkv: int, hk: int, head_dim: i
     double buffers plus the int8 MLP and next-qkv weights within 12 MB), so
     that the port takes ``decode_block`` on exactly the layers the JAX
     package takes its mega kernel on. ``decode_block`` itself has no such
-    limit."""
+    budget: its shared memory does not grow with the cache."""
     if not decode_attention_supported(head_dim, s_max, block_s):
         return False
     bs = min(block_s, s_max)
@@ -294,16 +295,19 @@ def mega_block_supported(d_model: int, ff: int, n_qkv: int, hk: int, head_dim: i
 
 
 def decode_block_ref(
-    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
+    qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
     activation="gelu", norm="layernorm", norm_eps=1e-5,
 ):
     """Plain version of ``decode_block`` (same signature, result and in-place
     cache update), line by line the TPU kernel's mega branch
     (``decode_attention.py:337-405``). Reads ``kv_len`` on the host."""
+    q, kn, vn = ops = split_qkv(qkv)
     PLAIN["decode_block"] += 1
-    dtype = packed_qkv.dtype
+    if q.shape[1] > kn.shape[1]:
+        PLAIN[mode_name("decode_block", q.shape[1], kn.shape[1])] += 1
+    dtype = q.dtype
     bf16 = dtype == torch.bfloat16
-    attn = _append_attend(split_qkv(packed_qkv), k_cache, v_cache, kv_len)
+    attn = _append_attend(ops, k_cache, v_cache, kv_len)
     hidden = _project_wo(attn, wo_t, wo_scales, wo_bias, residual)  # f32, not rounded
     w_up_t, up_scales, w_down_t, down_scales, b_up, b_down, ln2_scale, ln2_bias = mlp
     xn = _norm_rows_f32(hidden, norm, norm_eps, ln2_scale, ln2_bias)
@@ -320,18 +324,35 @@ def decode_block_ref(
         return out
     w_qkv_t, qkv_scales, qkv_bias, nns, nnb = next_qkv
     xq = _norm_rows_f32(down, norm, norm_eps, nns, nnb)
-    qkv = _qdot(_dot_operand(xq, bf16), w_qkv_t, qkv_scales)
+    nxt = _qdot(_dot_operand(xq, bf16), w_qkv_t, qkv_scales)
     if qkv_bias is not None:
-        qkv = qkv + qkv_bias.float()
-    return out, qkv.to(dtype)
+        nxt = nxt + qkv_bias.float()
+    return out, nxt.to(dtype)
 
 
 def _aligned(n: int) -> int:
     return -(-n // 64) * 64  # 256-byte segments of the f32 scratch
 
 
+BLOCK_STAMPS = 20  # %globaltimer stamps a block of decode_block_timed records (csrc/decode_block.cu DB_STAMPS)
+
+
+def block_grid(device_index: int) -> int:
+    """Blocks of a ``decode_block`` launch: one a SM, so that the blocks'
+    shared memory together holds the layer's weights (a smaller grid gives
+    the same bits; the card tests launch one)."""
+    return sm_count(device_index)
+
+
+def block_region() -> int:
+    """Bytes of a block's shared memory ``decode_block`` may give its
+    weights; 0: as many as fit beside the rest. A smaller region makes the
+    kernel bring the weights in waves (the card tests set it so)."""
+    return 0
+
+
 def decode_block(
-    packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
+    qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
     activation="gelu", norm="layernorm", norm_eps=1e-5,
 ):
     """A whole transformer block of one decode token (batch 1) in one
@@ -342,14 +363,17 @@ def decode_block(
         out = act(norm(h) @ W_up · s + b_up) @ W_down · s + b_down + h
         qkv = norm_next(out) @ W_qkv · s + b_qkv    (with ``next_qkv``)
 
-    packed_qkv [1, 3, H, 1, D], k_cache / v_cache [1, H, S, D], kv_len
-    int32 [1], wo_t int8 [Dm, H·D], wo_scales, wo_bias and residual [1, Dm]
-    as in ``decode_attention``; ``mlp = (w_up_t int8 [FF, Dm], up_scales,
+    qkv: the packed MHA ``[1, 3, H, 1, D]`` or the tuple ``(q [1, Hq, D],
+    k_new [1, Hk, D], v_new [1, Hk, D])`` of grouped-query attention and
+    RoPE (``split_qkv``); k_cache / v_cache [1, Hk, S, D]; kv_len int32
+    [1]; wo_t int8 [Dm, Hq·D], wo_scales, wo_bias and residual [1, Dm] as
+    in ``decode_attention``; ``mlp = (w_up_t int8 [FF, Dm], up_scales,
     w_down_t int8 [Dm, FF], down_scales, b_up|None, b_down|None, ln2_scale,
     ln2_bias|None)``; ``next_qkv = (w_qkv_t int8 [Nq, Dm], scales,
-    bias|None, next_ln_scale, next_ln_bias|None)``. Appends the new k/v at
-    kv_len in place. Returns out [1, Dm], or (out, qkv [1, Nq]), in
-    packed_qkv's dtype.
+    bias|None, next_ln_scale, next_ln_bias|None)`` with Nq = (Hq + 2·Hk)·D
+    for the decoder's next layer (any Nq here). Appends the new k/v at
+    kv_len in place, once per kv head. Returns out [1, Dm], or (out, qkv
+    [1, Nq]), in the operands' dtype.
 
     Its numbers are the TPU kernel's, not those of ``decode_attention``
     then ``quant_mlp_int8``: h stays f32 into ln2 and into the down
@@ -360,52 +384,78 @@ def decode_block(
     NaN.
 
     CUDA tensors launch ``csrc/decode_block.cu`` (one persistent cooperative
-    kernel); CPU tensors run ``decode_block_ref``."""
-    b, h, d = _unpack(packed_qkv)
+    kernel of ``block_grid`` blocks); CPU tensors run ``decode_block_ref``.
+    Launches count under ``decode_block``, and also under
+    ``decode_block:gqa`` for Hq > Hk (``mode_name``)."""
+    return _decode_block(qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv,
+                         activation=activation, norm=norm, norm_eps=norm_eps, stamps=None)
+
+
+def decode_block_timed(stamps, *args, **kw):
+    """``decode_block(*args, **kw)`` through the kernel's measurement build,
+    for timing its phases: ``stamps``, an int64 [grid, BLOCK_STAMPS] CUDA
+    tensor, takes each block's %globaltimer stamps at its phases' steps and
+    grid-wide waits, in the order ``decode_block_kernel`` lists them. bf16
+    and head dim 64 only; the same results and bits as ``decode_block``."""
+    if stamps is None or not stamps.is_cuda:
+        raise ValueError("decode_block_timed: stamps must be a CUDA tensor")
+    return _decode_block(*args, **kw, stamps=stamps)
+
+
+def _decode_block(
+    qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp, next_qkv=None, *,
+    activation="gelu", norm="layernorm", norm_eps=1e-5, stamps=None,
+):
+    q, kn, vn = ops = split_qkv(qkv)
+    b, hq, d = q.shape
+    hk = kn.shape[1]
     if b != 1:
         raise ValueError(f"decode_block runs batch 1 (the TPU kernel's mega mode), got {b} rows")
     w_up_t, up_scales, w_down_t, down_scales, b_up, b_down, ln2_scale, ln2_bias = mlp
     dm, ff = wo_t.shape[0], w_up_t.shape[0]
-    if tuple(wo_t.shape) != (dm, h * d) or tuple(w_up_t.shape) != (ff, dm) or tuple(w_down_t.shape) != (dm, ff):
+    if tuple(wo_t.shape) != (dm, hq * d) or tuple(w_up_t.shape) != (ff, dm) or tuple(w_down_t.shape) != (dm, ff):
         raise ValueError(
             f"block weights wo {tuple(wo_t.shape)}, up {tuple(w_up_t.shape)}, down {tuple(w_down_t.shape)} "
-            f"do not fit {h} heads of {d}"
+            f"do not fit {hq} heads of {d}"
         )
-    if k_cache.shape != v_cache.shape or tuple(k_cache.shape[:2]) != (1, h) or k_cache.shape[3] != d:
-        raise ValueError(f"caches {tuple(k_cache.shape)} do not fit packed_qkv {tuple(packed_qkv.shape)}")
+    if k_cache.shape != v_cache.shape or k_cache.dim() != 4 or tuple(k_cache.shape[:2]) != (1, hk) \
+            or k_cache.shape[3] != d:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not fit q {tuple(q.shape)} and k_new {tuple(kn.shape)}")
     if tuple(residual.shape) != (1, dm):
         raise ValueError(f"residual shape {tuple(residual.shape)} != {(1, dm)}")
     if norm not in ("layernorm", "rmsnorm"):
         raise ValueError(f"decode_block needs the fused norm (layernorm or rmsnorm), got {norm!r}")
     extra = list(next_qkv) if next_qkv is not None else []
-    if not use_kernel(packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, *mlp, *extra):
-        return decode_block_ref(packed_qkv, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp,
+    if not use_kernel(*ops, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, *mlp, *extra):
+        return decode_block_ref(ops, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp,
                                 next_qkv, activation=activation, norm=norm, norm_eps=norm_eps)
-    dtype = packed_qkv.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode_block: activations must be float32 or bfloat16, got {dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_block kernel supports head_dim in {HEAD_DIMS}, got {d}")
-    for name, t in (("packed_qkv", packed_qkv), ("k_cache", k_cache), ("v_cache", v_cache), ("residual", residual)):
+    name = "decode_block"
+    _operand_args(name, ops, d)
+    dtype = q.dtype
+    for what, t in (("k_cache", k_cache), ("v_cache", v_cache), ("residual", residual)):
         if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"decode_block: {name} must be contiguous {dtype}")
+            raise ValueError(f"decode_block: {what} must be contiguous {dtype}")
     if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (1,) or not kv_len.is_contiguous():
         raise ValueError("decode_block: kv_len must be a contiguous int32 [1] tensor")
-    _check_weight(wo_t, h * d, "decode_block wo")
+    _check_weight(wo_t, hq * d, "decode_block wo")
     _check_weight(w_up_t, dm, "decode_block w_up")
     _check_weight(w_down_t, ff, "decode_block w_down")
     s_max = k_cache.shape[2]
     n_chunks = -(-s_max // CHUNK)
-    dev = packed_qkv.device
-    # One f32 scratch: the split partials, the attention vector, h, the up
-    # row and the f32 block output, each 256-byte aligned.
-    sizes = (h * n_chunks, h * n_chunks, h * n_chunks * d, h * d, dm, ff, dm)
+    dev = q.device
+    grid = block_grid(_device_index(q))
+    if stamps is not None and (stamps.dtype != torch.int64 or tuple(stamps.shape) != (grid, BLOCK_STAMPS)
+                               or stamps.device != dev):
+        raise ValueError(f"decode_block: stamps must be an int64 [{grid}, {BLOCK_STAMPS}] tensor on {dev}")
+    # One f32 scratch: each (query head, chunk)'s P.V, max and sum (d + 4
+    # floats), h, the up row and the f32 block output, each 256-byte aligned.
+    sizes = (hq * n_chunks * (d + 4), dm, ff, dm)
     scratch = torch.empty(sum(_aligned(n) for n in sizes), dtype=torch.float32, device=dev)
     ptrs, off = [], 0
     for n in sizes:
         ptrs.append(scratch.data_ptr() + 4 * off)
         off += _aligned(n)
-    part_m, part_l, part_acc, attn, h_buf, u_buf, out_f32 = ptrs
+    part, h_buf, u_buf, out_f32 = ptrs
     out = torch.empty((1, dm), dtype=dtype, device=dev)
     # Every converted vector stays bound to a name until the launch is
     # enqueued, so the allocator cannot hand its memory to the next one.
@@ -413,7 +463,7 @@ def decode_block(
     su, bu = _vec_f32(up_scales, ff, "up scales"), _vec_f32(b_up, ff, "b_up")
     sd, bd = _vec_f32(down_scales, dm, "down scales"), _vec_f32(b_down, dm, "b_down")
     ns, nb = _vec_f32(ln2_scale, dm, "ln2 scale"), _vec_f32(ln2_bias, dm, "ln2 bias")
-    wq = sq = bq = qns = qnb = qkv = None
+    wq = sq = bq = qns = qnb = nxt = None
     nq = 0
     if next_qkv is not None:
         wq, sq, bq, qns, qnb = next_qkv
@@ -421,23 +471,25 @@ def decode_block(
         _check_weight(wq, dm, "decode_block next qkv")
         sq, bq = _vec_f32(sq, nq, "next qkv scales"), _vec_f32(bq, nq, "next qkv bias")
         qns, qnb = _vec_f32(qns, dm, "next norm scale"), _vec_f32(qnb, dm, "next norm bias")
-        qkv = torch.empty((1, nq), dtype=dtype, device=dev)
+        nxt = torch.empty((1, nq), dtype=dtype, device=dev)
     rc = _build.library().rt_decode_block(
-        packed_qkv.data_ptr(), int(dtype == torch.bfloat16), h, d,
+        q.data_ptr(), kn.data_ptr(), vn.data_ptr(), int(dtype == torch.bfloat16), hq, hk, d,
         k_cache.data_ptr(), v_cache.data_ptr(), s_max, kv_len.data_ptr(),
-        part_m, part_l, part_acc, attn, n_chunks,
+        part, n_chunks,
         wo_t.data_ptr(), sw.data_ptr(), _ptr(bw), dm,
         residual.data_ptr(), h_buf,
         w_up_t.data_ptr(), su.data_ptr(), _ptr(bu), ff, u_buf,
         w_down_t.data_ptr(), sd.data_ptr(), _ptr(bd),
         ns.data_ptr(), _ptr(nb), _NORM_CODES[norm], float(norm_eps), activation_code(activation),
         out.data_ptr(), out_f32,
-        _ptr(wq), _ptr(sq), _ptr(bq), nq, _ptr(qns), _ptr(qnb), _ptr(qkv),
-        1.0 / math.sqrt(d), _stream(packed_qkv),
+        _ptr(wq), _ptr(sq), _ptr(bq), nq, _ptr(qns), _ptr(qnb), _ptr(nxt),
+        1.0 / math.sqrt(d), grid, block_region(), _ptr(stamps), _stream(q),
     )
-    _build.check(rc, "decode_block")
-    LAUNCHES["decode_block"] += 1
-    return out if next_qkv is None else (out, qkv)
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    if hq > hk:
+        LAUNCHES[mode_name(name, hq, hk)] += 1
+    return out if next_qkv is None else (out, nxt)
 
 
 # ---------------------------------------------------------------------------

@@ -53,9 +53,9 @@ shapes and activations gelu, relu or silu; never SwiGLU); every other
 forward is unchanged. Its numbers differ from the two-kernel step where the
 JAX package's do: the block's hidden state after wo stays f32. Under W8A8
 the block stays weight-only (the TPU kernel has no W8A8 mode), while layer
-0's qkv and the lm_head run W8A8. ``decode_block`` takes MHA without RoPE
-only: a GQA or RoPE config with ``mega`` on a layer the JAX package would
-fuse is refused.
+0's qkv and the lm_head run W8A8. MHA without RoPE hands ``decode_block``
+the packed q|k|v row, a GQA / MQA or RoPE config its RoPE'd q, k and v
+(the JAX package's ``packed_ok`` rule).
 
 The lm_head (the untied ``lm_head`` or the tied ``lm_head_q``) is
 ``quant_gemv_int8`` with the final norm fused in, returning the greedy
@@ -199,11 +199,6 @@ def _check_supported(cfg: DecoderConfig) -> None:
     if problems:
         raise NotImplementedError("rten_tpu_torch's decoder does not run this config; unsupported: "
                                   + ", ".join(problems))
-    if cfg.mega and cfg.activation != "swiglu" and (cfg.kv_heads != cfg.n_heads or cfg.pos_encoding == "rope"):
-        raise NotImplementedError(
-            "mega: decode_block takes MHA without RoPE; the JAX package's whole-block kernel with "
-            "grouped-query heads or RoPE is not ported"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -720,22 +715,23 @@ def _mega_layer(params: dict, cfg: DecoderConfig, li: int, cache: dict):
     """``(mlp, next_qkv)`` of ``decode_block`` for layer ``li`` where the
     JAX package's decoder runs that layer through its mega kernel
     (``rten_tpu/models/decoder.py:859-921``: the MLP packs of the config's
-    shapes, the next layer's qkv when it has one, and
-    ``mega_block_supported`` over this layer's cache), else None."""
+    shapes, the next layer's qkv of (Hq + 2·Hk)·D columns when it has one,
+    and ``mega_block_supported`` over this layer's kv heads and cache), else
+    None."""
     layers = params["layers"]
     layer = layers[li]
-    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim
+    d, ff, h, hk, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     up, down = _pack(layer, "w_up"), _pack(layer, "w_down")
     if tuple(up["qt"].shape) != (ff, d) or tuple(down["qt"].shape) != (d, ff):
         return None
-    qkv_dim = 3 * h * hd
+    qkv_dim = (h + 2 * hk) * hd
     next_qkv = None
     nxt = layers[li + 1] if li + 1 < len(layers) else None
     if nxt is not None and tuple(_pack(nxt, "wqkv")["qt"].shape) == (qkv_dim, d):
         nq = nxt["wqkv"]
         next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
     k_cache = cache["k"][li]
-    if not mega_block_supported(d, ff, qkv_dim if next_qkv is not None else 0, h, hd, k_cache.shape[2],
+    if not mega_block_supported(d, ff, qkv_dim if next_qkv is not None else 0, hk, hd, k_cache.shape[2],
                                 kv_bytes=k_cache.element_size()):
         return None
     mlp = (up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
@@ -853,7 +849,7 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     # decode_attention: one token a row on a bf16/f32 cache; its wo fused in
     # the decode structure, else left to the prefill projection.
     decode = one_token and not paged and "k_scale" not in cache
-    mega = decode and small and b == 1 and cfg.mega and cfg.activation != "swiglu"
+    mega = decode and small and b == 1 and cfg.mega and cfg.activation in ("gelu", "relu", "silu")
     q_offset = kv_len = None
     if paged and not kv_decode:
         raise ValueError(f"a paged cache takes one token per row and at most {MAX_ROWS} rows, got {b}x{t}")
@@ -894,9 +890,12 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
         if mega:  # the whole layer, and the next layer's qkv, in one kernel
             block = _mega_layer(params, cfg, li, cache)
             if block is not None:
-                out = decode_block(qkv.view(b, 3, cfg.n_heads, 1, cfg.head_dim), cache["k"][li], cache["v"][li],
-                                   cache["len"], wo["qt"], wo["s"], layer.get("bo"), x, *block,
-                                   activation=cfg.activation, norm=cfg.norm, norm_eps=cfg.layer_norm_eps)
+                # MHA without RoPE: the packed row (JAX decoder.py:929-933 packed_ok).
+                packed = cfg.kv_heads == cfg.n_heads and rope is None
+                ops = qkv.view(b, 3, cfg.n_heads, 1, cfg.head_dim) if packed else (q[:, 0], k[:, 0], v[:, 0])
+                out = decode_block(ops, cache["k"][li], cache["v"][li], cache["len"], wo["qt"], wo["s"],
+                                   layer.get("bo"), x, *block, activation=cfg.activation, norm=cfg.norm,
+                                   norm_eps=cfg.layer_norm_eps)
                 x, qkv = out if block[1] is not None else (out, None)
                 continue
         ops = (q[:, 0], k[:, 0], v[:, 0]) if one_token else None

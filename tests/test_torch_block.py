@@ -26,7 +26,16 @@ from rten_tpu_torch.kernels import decode_attention as tda
 from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.kernels import quant_matmul as tqm
 from rten_tpu_torch.models import decoder as tdec
-from torch_port_helpers import carry_cache, configs, dense_tree, patch_jax_fused, port_scales, to_jax, to_numpy
+from torch_port_helpers import (
+    SLICE_CFG,
+    carry_cache,
+    configs,
+    dense_tree,
+    patch_jax_fused,
+    port_scales,
+    to_jax,
+    to_numpy,
+)
 
 LOGIT_ATOL = 1e-3
 
@@ -63,32 +72,54 @@ def _as_port(a, bf16):
 # decode_block_ref against the TPU kernel's mega branch
 # ---------------------------------------------------------------------------
 
-# (dtype, kv_len, next qkv, activation, norm): every value of each axis,
-# each pair of the first four at least once.
+# (operands, dtype, kv_len, next qkv, activation, norm): every value of each
+# axis, each pair of the dtype, kv_len, next qkv and activation at least
+# once for the packed MHA row; the grouped-query operands (4 query heads over
+# 2, and over 1) unpacked as the JAX decoder hands them over under GQA or RoPE.
 BLOCK_CASES = [
-    ("f32", 0, True, "gelu", "layernorm"),
-    ("f32", 5, False, "relu", "rmsnorm"),
-    ("f32", 127, True, "silu", "layernorm"),
-    ("f32", 127, False, "gelu", "rmsnorm"),
-    ("f32", 5, True, "silu", "rmsnorm"),
-    ("bf16", 0, False, "silu", "rmsnorm"),
-    ("bf16", 5, True, "gelu", "layernorm"),
-    ("bf16", 127, True, "relu", "rmsnorm"),
-    ("bf16", 0, True, "relu", "layernorm"),
+    ("packed", "f32", 0, True, "gelu", "layernorm"),
+    ("packed", "f32", 5, False, "relu", "rmsnorm"),
+    ("packed", "f32", 127, True, "silu", "layernorm"),
+    ("packed", "f32", 127, False, "gelu", "rmsnorm"),
+    ("packed", "f32", 5, True, "silu", "rmsnorm"),
+    ("packed", "bf16", 0, False, "silu", "rmsnorm"),
+    ("packed", "bf16", 5, True, "gelu", "layernorm"),
+    ("packed", "bf16", 127, True, "relu", "rmsnorm"),
+    ("packed", "bf16", 0, True, "relu", "layernorm"),
+    ("gqa", "f32", 0, True, "gelu", "layernorm"),
+    ("gqa", "bf16", 127, True, "silu", "rmsnorm"),
+    ("gqa", "f32", 70, False, "relu", "layernorm"),
+    ("mqa", "f32", 5, True, "relu", "rmsnorm"),
+    ("mqa", "bf16", 70, True, "gelu", "layernorm"),
+    ("mqa", "f32", 127, False, "silu", "layernorm"),
 ]
+KV_HEADS = {"packed": 4, "gqa": 2, "mqa": 1}  # over 4 query heads
 
 
-@pytest.mark.parametrize("dt,kv_len,with_next,act,norm", BLOCK_CASES,
-                         ids=[f"{c[0]}_len{c[1]}_{'next' if c[2] else 'last'}_{c[3]}_{c[4]}" for c in BLOCK_CASES])
-def test_decode_block_matches_mega_kernel(rng, dt, kv_len, with_next, act, norm):
-    """One block of one token (batch 1, S 128, 4 heads of 64, d_model 256,
-    FF 1024): the output, the next qkv and both caches after the append."""
+def _block_id(c):
+    name = f"{c[1]}_len{c[2]}_{'next' if c[3] else 'last'}_{c[4]}_{c[5]}"
+    return name if c[0] == "packed" else f"{c[0]}_{name}"
+
+
+@pytest.mark.parametrize("ops,dt,kv_len,with_next,act,norm", BLOCK_CASES, ids=[_block_id(c) for c in BLOCK_CASES])
+def test_decode_block_matches_mega_kernel(rng, ops, dt, kv_len, with_next, act, norm):
+    """One block of one token (batch 1, S 128, 4 query heads of 64 over 4,
+    2 or 1 kv heads, d_model 256, FF 1024, the next qkv (4 + 2 Hk) x 64):
+    the output, the next qkv and both caches after the append."""
     bf16 = dt == "bf16"
     jdt = _jax_dtype(bf16)
-    h, d, s_max, dm, ff, nq = 4, 64, 128, 256, 1024, 768
-    kc = jnp.asarray(rng.standard_normal((1, h, s_max, d)).astype(np.float32), jdt)
-    vc = jnp.asarray(rng.standard_normal((1, h, s_max, d)).astype(np.float32), jdt)
-    pk = jnp.asarray(rng.standard_normal((1, 3, h, 1, d)).astype(np.float32) * 0.8, jdt)
+    h, d, s_max, dm, ff = 4, 64, 128, 256, 1024
+    hk = KV_HEADS[ops]
+    nq = (h + 2 * hk) * d
+    kc = jnp.asarray(rng.standard_normal((1, hk, s_max, d)).astype(np.float32), jdt)
+    vc = jnp.asarray(rng.standard_normal((1, hk, s_max, d)).astype(np.float32), jdt)
+    if ops == "packed":
+        pk = jnp.asarray(rng.standard_normal((1, 3, h, 1, d)).astype(np.float32) * 0.8, jdt)
+        q = kn = vn = None
+    else:
+        pk = None
+        q = jnp.asarray(rng.standard_normal((1, h, 1, d)).astype(np.float32) * 0.8, jdt)
+        kn, vn = (jnp.asarray(rng.standard_normal((1, hk, 1, d)).astype(np.float32) * 0.8, jdt) for _ in range(2))
     resid = jnp.asarray(rng.standard_normal((1, dm)).astype(np.float32), jdt)
     wo, so = _quant(rng, h * d, dm)
     wu, su = _quant(rng, dm, ff)
@@ -101,7 +132,7 @@ def test_decode_block_matches_mega_kernel(rng, dt, kv_len, with_next, act, norm)
     lens = np.array([kv_len], np.int32)
     J = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
     res = jda.decode_attention(
-        None, kc, vc, jnp.asarray(lens), None, None, J(wo), J(so), J(bo), resid, packed_qkv=pk,
+        q, kc, vc, jnp.asarray(lens), kn, vn, J(wo), J(so), J(bo), resid, packed_qkv=pk,
         mlp=(J(wu), J(su), J(wd), J(sd), J(bu), J(bd), J(ns), J(nb)),
         next_qkv=(J(wq), J(sq), J(bq), J(qns), J(qnb)) if with_next else None,
         activation=act, norm=norm, interpret=True,
@@ -110,12 +141,14 @@ def test_decode_block_matches_mega_kernel(rng, dt, kv_len, with_next, act, norm)
 
     T = lambda a: None if a is None else _t(a)  # noqa: E731
     k_cache, v_cache = _as_port(kc, bf16), _as_port(vc, bf16)
+    operands = _as_port(pk, bf16) if ops == "packed" else tuple(_as_port(x, bf16)[:, :, 0] for x in (q, kn, vn))
     mlp = (*_pack(wu, su), *_pack(wd, sd), T(bu), T(bd), T(ns), T(nb))
     nxt = (*_pack(wq, sq), T(bq), T(qns), T(qnb)) if with_next else None
-    before = dispatch.PLAIN["decode_block"]
-    out = tda.decode_block(_as_port(pk, bf16), k_cache, v_cache, torch.from_numpy(lens), *_pack(wo, so), T(bo),
+    dispatch.reset_counters()
+    out = tda.decode_block(operands, k_cache, v_cache, torch.from_numpy(lens), *_pack(wo, so), T(bo),
                            _as_port(resid, bf16), mlp, nxt, activation=act, norm=norm)
-    assert dispatch.PLAIN["decode_block"] == before + 1
+    want = {"decode_block": 1, **({"decode_block:gqa": 1} if hk < h else {})}
+    assert dict(dispatch.PLAIN) == want
     out, qkv = out if with_next else (out, None)
     assert out.shape == (1, dm) and out.dtype == (torch.bfloat16 if bf16 else torch.float32)
     _close(out.float(), np.asarray(ref.astype(jnp.float32)), bf16)
@@ -271,7 +304,7 @@ def _random_caches(jcfg, tcfg, n, s_max, seed):
     """One row holding ``n`` tokens of seeded random k/v, as a JAX cache and
     the port's copy of it."""
     rng = np.random.default_rng(seed)
-    shape = (1, jcfg.n_heads, s_max, jcfg.head_dim)
+    shape = (1, jcfg.kv_heads, s_max, jcfg.head_dim)
     jcache = {"len": jnp.asarray([n], jnp.int32)}
     for key in ("k", "v"):
         jcache[key] = [jnp.asarray(rng.standard_normal(shape).astype(np.float32)) for _ in range(jcfg.n_layers)]
@@ -333,6 +366,124 @@ def test_mega_greedy_stream_matches_jax(models, jax_mega):
                     GeneratorConfig(max_tokens=n + 1)).with_prompt(prompt)
     stream = [int(t[0]) for t in gen]
     assert stream == [int(np.asarray(first)[0, 0])] + np.asarray(jtoks)[0].tolist()
+
+
+# The grouped-query mega configs: SLICE_CFG's block with 4 query heads over
+# 1 kv head and learned positions (MQA, tiny_starcoder_py's kind), and over 2
+# with RoPE; ``dense_tree``'s wk / wv / bk / bv cut to the kv width.
+MEGA_GQA = {"mqa": dict(n_kv_heads=1), "gqa_rope": dict(n_kv_heads=2, pos_encoding="rope")}
+
+
+@pytest.fixture(scope="module")
+def gqa_models():
+    out = {}
+    for kind, extra in MEGA_GQA.items():
+        jcfg = jdec.DecoderConfig(**SLICE_CFG, **extra, dtype=jnp.float32)
+        tcfg = tdec.DecoderConfig(**SLICE_CFG, **extra, dtype=torch.float32)
+        tree = dense_tree(2)
+        hkv = jcfg.kv_heads * jcfg.head_dim
+        for layer in tree["layers"]:
+            for key in ("wk", "wv"):
+                layer[key] = layer[key][:, :hkv]
+            for key in ("bk", "bv"):
+                layer[key] = layer[key][:hkv]
+        if extra.get("pos_encoding") == "rope":
+            del tree["pos_emb"]
+        jparams = jdec.quantize_params_int8(to_jax(tree), tile_bn=128)
+        out[kind] = (jcfg, tcfg, jparams, tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu"))
+    return out
+
+
+def _layer_spy(monkeypatch, caches):
+    """The layers whose step runs through the port's ``decode_block``, found
+    by the cache it is handed."""
+    taken = []
+    inner = tdec.decode_block
+
+    def spy(ops, k_cache, *a, **kw):
+        taken.append(next(i for i, t in enumerate(caches) if t is k_cache))
+        return inner(ops, k_cache, *a, **kw)
+
+    monkeypatch.setattr(tdec, "decode_block", spy)
+    return taken
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["weight_only", "w8a8"])
+@pytest.mark.parametrize("kind", list(MEGA_GQA))
+def test_mega_gqa_decode_step_matches_jax(gqa_models, jax_mega, monkeypatch, kind, w8a8):
+    """A decode step at batch 1 on a 64-position cache holding 20 tokens,
+    MQA (learned positions) and GQA with RoPE: the JAX decoder takes its mega
+    kernel unpacked in every layer, the port ``decode_block`` on the same
+    layers with the RoPE'd q, k and v; logits within 1e-3, caches to atol
+    1e-5. W8A8 as in ``test_mega_decode_step_matches_jax``."""
+    jcfg, tcfg, jparams, tparams = gqa_models[kind]
+    calls = jax_mega(w8a8)
+    tcfg = dataclasses.replace(tcfg, mega=True, w8a8=w8a8)
+    jcache, tcache = _random_caches(jcfg, tcfg, 20, 64, seed=84)
+    taken = _layer_spy(monkeypatch, tcache["k"])
+    tok = np.array([[321]], np.int32)
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tok), jcache)
+    assert calls == list(range(jcfg.n_layers))
+    dispatch.reset_counters()
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tok), tcache)
+    assert taken == calls
+    gemv = "quant_gemv_int8:w8a8" if w8a8 else "quant_gemv_int8"
+    assert dict(dispatch.PLAIN) == {"decode_block": tcfg.n_layers, "decode_block:gqa": tcfg.n_layers, gemv: 2}
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
+    want = carry_cache(jcache, tcfg.head_dim)
+    for li in range(tcfg.n_layers):
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(tcache[kv][li].numpy(), want[kv][li].numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", list(MEGA_GQA))
+def test_mega_gqa_greedy_stream_matches_jax(gqa_models, jax_mega, kind):
+    """A 5-token prompt and 16 greedy steps under mega, MQA and GQA + RoPE:
+    the JAX ``generate_scan`` and the port's ``generate_greedy`` give the
+    same tokens, every port step through ``decode_block`` in every layer."""
+    jcfg, tcfg, jparams, tparams = gqa_models[kind]
+    calls = jax_mega()
+    tcfg = dataclasses.replace(tcfg, mega=True)
+    prompt = np.random.default_rng(85).integers(0, tcfg.vocab_size, (1, 5)).astype(np.int32)
+    n = 16
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(prompt), jdec.init_cache(jcfg, 1, 64))
+    first = jnp.argmax(jlogits[:, -1:], axis=-1).astype(jnp.int32)
+    jtoks, _ = jdec.generate_scan(jparams, jcfg, jcache, first, jax.random.PRNGKey(0), n_steps=n)
+    assert calls, "the JAX decode loop was not traced under mega"
+    tcache = tdec.init_cache(tcfg, 1, 64, device="cpu")
+    tfirst, tcache = tdec.prefill(tparams, tcfg, torch.from_numpy(prompt), tcache, lm_head_mode="argmax",
+                                  last_only=True)
+    np.testing.assert_array_equal(tfirst.numpy(), np.asarray(first))
+    dispatch.reset_counters()
+    ttoks, _ = tdec.generate_greedy(tparams, tcfg, tcache, tfirst, n)
+    assert dispatch.PLAIN["decode_block:gqa"] == n * tcfg.n_layers and "decode_attention:gqa" not in dispatch.PLAIN
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+
+
+def test_mega_layer_takes_the_jax_rule_with_grouped_heads():
+    """``_mega_layer`` gives ``mega_block_supported`` the kv heads and the
+    next qkv's (Hq + 2 Hk) D columns, as the JAX decoder does
+    (``rten_tpu/models/decoder.py:884-907``): at d_model 1024, d_ff 4096, 16
+    query heads over 1, head dim 64 and S 1024 the JAX rule admits a layer
+    with its next qkv, and so must the port; the last layer, without one."""
+    d, ff, h, hk, hd, s_max = 1024, 4096, 16, 1, 64, 1024
+    nq = (h + 2 * hk) * hd
+    assert jda.mega_block_supported(d, ff, nq, hk, hd, s_max, kv_bytes=2)
+    assert tda.mega_block_supported(d, ff, nq, hk, hd, s_max, kv_bytes=2)
+    cfg = tdec.DecoderConfig(vocab_size=512, n_layers=2, n_heads=h, n_kv_heads=hk, d_model=d, d_ff=ff,
+                             max_seq=s_max, mega=True)
+
+    def pack(n, k):
+        return {"qt": torch.zeros((n, k), dtype=torch.int8), "s": torch.ones(n), "tiled": False}
+
+    norm = {"scale": torch.ones(d), "bias": torch.zeros(d)}
+    layers = [{"w_up": pack(ff, d), "w_down": pack(d, ff), "wqkv": pack(nq, d), "ln1": norm, "ln2": norm}
+              for _ in range(2)]
+    cache = {"k": [torch.zeros((1, hk, s_max, hd), dtype=torch.bfloat16) for _ in range(2)]}
+    block = tdec._mega_layer({"layers": layers}, cfg, 0, cache)
+    assert block is not None and block[1] is not None and tuple(block[1][0].shape) == (nq, d)
+    last = tdec._mega_layer({"layers": layers}, cfg, 1, cache)
+    assert last is not None and last[1] is None
 
 
 @pytest.mark.parametrize("mega", [False, True], ids=["two_kernel", "mega"])

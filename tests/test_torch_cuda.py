@@ -784,16 +784,29 @@ def test_tiny_decoder_w8a8_kernels_match_plain(dev, dtype):
 NEW_ACTS = ["silu", "sigmoid", "tanh"]
 
 
-def _block_case(dev, dtype, d, kv_len, with_next, seed=30, h=4, s_max=256, dm=256, ff=1024, norm="layernorm"):
+# decode_block's operands: (query heads, kv heads) and whether the q|k|v
+# row comes packed (MHA) or as three tensors (GQA / MQA, RoPE).
+BLOCK_OPS = {"packed": (4, 4, True), "gqa4_2": (4, 2, False), "gqa14_2": (14, 2, False), "mqa12_1": (12, 1, False)}
+
+
+def _block_case(dev, dtype, d, kv_len, with_next, seed=30, h=4, s_max=256, dm=256, ff=1024, norm="layernorm",
+                hk=None, packed=None):
     """Inputs of one decode_block call: (args, kwargs); args[1:3] are the
-    caches, which the call updates in place."""
+    caches, which the call updates in place. hk: kv heads (default h);
+    packed: the [1, 3, H, 1, D] row (default for MHA) or the tuple (q,
+    k_new, v_new); the next qkv has (h + 2 hk) d columns."""
     gen = torch.Generator(device=dev).manual_seed(seed)
+    hk = h if hk is None else hk
+    packed = hk == h if packed is None else packed
 
     def rn(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=gen, device=dev)
 
-    kc, vc = rn(1, h, s_max, d, scale=1.5).to(dtype), rn(1, h, s_max, d).to(dtype)
-    qkv = rn(1, 3, h, 1, d, scale=1.5).to(dtype)
+    kc, vc = rn(1, hk, s_max, d, scale=1.5).to(dtype), rn(1, hk, s_max, d).to(dtype)
+    if packed:
+        qkv = rn(1, 3, h, 1, d, scale=1.5).to(dtype)
+    else:
+        qkv = (rn(1, h, d, scale=1.5).to(dtype), rn(1, hk, d, scale=1.5).to(dtype), rn(1, hk, d).to(dtype))
     wo, wos = _pack(gen, dm, h * d, dev)
     wu, su = _pack(gen, ff, dm, dev)
     wd, sd = _pack(gen, dm, ff, dev)
@@ -802,63 +815,76 @@ def _block_case(dev, dtype, d, kv_len, with_next, seed=30, h=4, s_max=256, dm=25
     mlp = (wu, su * 0.1, wd, sd * 0.1, rn(ff, scale=0.1), rn(dm, scale=0.1), ns, nb)
     nxt = None
     if with_next:
-        wq, sq = _pack(gen, 3 * h * d, dm, dev)
-        nxt = (wq, sq * 0.1, rn(3 * h * d, scale=0.1), ns * 0.9, None if nb is None else nb * 0.5)
+        nq = (h + 2 * hk) * d
+        wq, sq = _pack(gen, nq, dm, dev)
+        nxt = (wq, sq * 0.1, rn(nq, scale=0.1), ns * 0.9, None if nb is None else nb * 0.5)
     lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
     args = (qkv, kc, vc, lens, wo, wos * 0.1, rn(dm, scale=0.1), rn(1, dm).to(dtype), mlp, nxt)
     return args, dict(activation="gelu", norm=norm)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("head_dim,kv_len", [(64, 0), (64, 63), (64, 64), (64, 255), (128, 150)])
-@pytest.mark.parametrize("with_next", [False, True])
-def test_decode_block_kernel_matches_plain(dev, dtype, head_dim, kv_len, with_next):
-    """The whole block against ``decode_block_ref``: the output, the next
-    qkv, and the caches after the append bit for bit."""
+def _block_check(args, kw, dtype, with_next):
+    """decode_block against decode_block_ref on copies of the caches: the
+    output, the next qkv, and the caches after the append bit for bit."""
     from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
 
-    args, kw = _block_case(dev, dtype, head_dim, kv_len, with_next)
-    p_args = list(args)
-    p_args[1], p_args[2] = args[1].clone(), args[2].clone()
-    before = dispatch.LAUNCHES["decode_block"]
+    p_args = (args[0], args[1].clone(), args[2].clone(), *args[3:])
     out = decode_block(*args, **kw)
-    assert dispatch.LAUNCHES["decode_block"] == before + 1
     ref = decode_block_ref(*p_args, **kw)
     outs, refs = (out, ref) if with_next else ((out,), (ref,))
     for o, r in zip(outs, refs):
         assert o.dtype == dtype and o.shape == r.shape
         _close(o, r, dtype)
     assert torch.equal(args[1], p_args[1]) and torch.equal(args[2], p_args[2])
+    return out
 
 
-@pytest.mark.parametrize("act,norm", [("relu", "rmsnorm"), ("silu", "layernorm"), ("silu", "rmsnorm")])
-def test_decode_block_kernel_activations_and_norms(dev, act, norm):
-    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
+@pytest.mark.parametrize("ops", list(BLOCK_OPS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 64, 65, 767])
+@pytest.mark.parametrize("with_next", [False, True])
+def test_decode_block_kernel_matches_plain(dev, ops, dtype, head_dim, kv_len, with_next):
+    """The whole block against ``decode_block_ref`` at S 768: MHA packed,
+    GQA 4 / 2 and 14 / 2, MQA 12 / 1 unpacked; the chunk edges (kv_len 63,
+    64, 65) and the last position; one launch, counted under its mode."""
+    h, hk, packed = BLOCK_OPS[ops]
+    args, kw = _block_case(dev, dtype, head_dim, kv_len, with_next, h=h, hk=hk, packed=packed, s_max=768)
+    before = dict(dispatch.LAUNCHES)
+    _block_check(args, kw, dtype, with_next)
+    assert dispatch.LAUNCHES["decode_block"] == before.get("decode_block", 0) + 1
+    assert dispatch.LAUNCHES["decode_block:gqa"] == before.get("decode_block:gqa", 0) + (h > hk)
 
-    args, kw = _block_case(dev, torch.float32, 64, 100, True, seed=31, norm=norm)
+
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu"])
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("ops", ["packed", "mqa12_1"])
+def test_decode_block_kernel_activations_and_norms(dev, act, norm, ops):
+    h, hk, packed = BLOCK_OPS[ops]
+    args, kw = _block_case(dev, torch.float32, 64, 100, True, seed=31, norm=norm, h=h, hk=hk, packed=packed)
     kw["activation"] = act
-    p_args = list(args)
-    p_args[1], p_args[2] = args[1].clone(), args[2].clone()
-    out, ref = decode_block(*args, **kw), decode_block_ref(*p_args, **kw)
-    _close(out[0], ref[0], torch.float32)
-    _close(out[1], ref[1], torch.float32)
+    _block_check(args, kw, torch.float32, True)
 
 
 def test_decode_block_kernel_gpt2_width(dev):
     """GPT-2-small's block (12 heads of 64, d_model 768, FF 3072) at 767 of
-    768 positions in bf16: the FF-wide shared-memory row and 12 chunks."""
-    from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
-
+    768 positions in bf16: 12 chunks a head, every SM's weights resident."""
     args, kw = _block_case(dev, torch.bfloat16, 64, 767, True, seed=32, h=12, s_max=768, dm=768, ff=3072)
-    p_args = list(args)
-    p_args[1], p_args[2] = args[1].clone(), args[2].clone()
-    out, ref = decode_block(*args, **kw), decode_block_ref(*p_args, **kw)
-    _close(out[0], ref[0], torch.bfloat16)
-    _close(out[1], ref[1], torch.bfloat16)
-    assert torch.equal(args[1], p_args[1])
+    _block_check(args, kw, torch.bfloat16, True)
 
 
-def test_decode_block_hidden_state_stays_f32(dev):
+def test_decode_block_kernel_tiny_starcoder_width(dev):
+    """tiny_starcoder_py's block (12 query heads over 1 kv head of 64, d_model
+    768, FF 3072, the next qkv N 896) at kv_len 1 / 300 / 767 of 1024 in
+    bf16."""
+    for kv_len in (1, 300, 767):
+        args, kw = _block_case(dev, torch.bfloat16, 64, kv_len, True, seed=35, h=12, hk=1, s_max=1024, dm=768,
+                               ff=3072)
+        _block_check(args, kw, torch.bfloat16, True)
+
+
+@pytest.mark.parametrize("ops", ["packed", "gqa4_2"])
+def test_decode_block_hidden_state_stays_f32(dev, ops):
     """bf16, a residual of 100 and a wo output of ~0.01: the f32 hidden
     state h varies only below bf16's resolution at 100, so ln2 of h rounded
     to bf16 (the two-kernel path's numbers) would be ln2 of a constant, and
@@ -867,7 +893,8 @@ def test_decode_block_hidden_state_stays_f32(dev):
     f32, as the plain version does."""
     from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
 
-    args, kw = _block_case(dev, torch.bfloat16, 64, 100, True, seed=34)
+    h, hk, packed = BLOCK_OPS[ops]
+    args, kw = _block_case(dev, torch.bfloat16, 64, 100, True, seed=34, h=h, hk=hk, packed=packed)
     qkv, kc, vc, lens, wo, wos, bo, resid, mlp, nxt = args
     wu, su, wd, sd, bu, bd, ns, nb = mlp
     args = (qkv, kc, vc, lens, wo, wos * 0.01, None, torch.full_like(resid, 100.0),
@@ -880,18 +907,113 @@ def test_decode_block_hidden_state_stays_f32(dev):
     assert (ref.float() - 100).std().item() > 0.5  # the down projection's share of the output
 
 
-def test_decode_block_full_row_is_nan(dev):
+@pytest.mark.parametrize("ops", ["packed", "mqa12_1"])
+def test_decode_block_full_row_is_nan(dev, ops):
     """kv_len = S: the kernel writes nothing and returns NaN (the plain
     version raises IndexError)."""
     from rten_tpu_torch.kernels.decode_attention import decode_block, decode_block_ref
 
-    args, kw = _block_case(dev, torch.float32, 64, 256, True, seed=33)
+    h, hk, packed = BLOCK_OPS[ops]
+    args, kw = _block_case(dev, torch.float32, 64, 256, True, seed=33, h=h, hk=hk, packed=packed)
     k0, v0 = args[1].clone(), args[2].clone()
     out, qkv = decode_block(*args, **kw)
     assert bool(out.isnan().all()) and bool(qkv.isnan().all())
     assert torch.equal(args[1], k0) and torch.equal(args[2], v0)
     with pytest.raises(IndexError):
         decode_block_ref(*args, **kw)
+
+
+@pytest.mark.parametrize("ops", ["packed", "mqa12_1"])
+@pytest.mark.parametrize("grid,region", [(37, 0), (5, 0), (0, 16384), (12, 65536)])
+def test_decode_block_same_bits_from_any_grid(dev, monkeypatch, ops, grid, region):
+    """GPT-2's widths at kv_len 700 of 768 in bf16: a launch of ``grid``
+    blocks (0: one a SM), or with a smaller weight region (16 or 64 KB: the
+    weights then come in waves, up to ~40 runs a block), gives the full
+    grid's bits: the outputs and caches."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    hk = 12 if ops == "packed" else 1
+    args, kw = _block_case(dev, torch.bfloat16, 64, 700, True, seed=36, h=12, hk=hk, s_max=768, dm=768, ff=3072)
+    k0, v0 = args[1].clone(), args[2].clone()
+    full = da.decode_block(*args, **kw)
+    full_k, full_v = args[1].clone(), args[2].clone()
+    if grid:
+        monkeypatch.setattr(da, "block_grid", lambda idx: grid)
+    if region:
+        monkeypatch.setattr(da, "block_region", lambda: region)
+    again = (args[0], k0.clone(), v0.clone(), *args[3:])
+    out = da.decode_block(*again, **kw)
+    assert torch.equal(out[0], full[0]) and torch.equal(out[1], full[1])
+    assert torch.equal(again[1], full_k) and torch.equal(again[2], full_v)
+
+
+@pytest.mark.parametrize("h,hk,s_max,kv_len", [
+    (12, 12, 4096, 4095), (12, 12, 4096, 1000), (12, 1, 8192, 8191), (12, 1, 8192, 3000),
+])
+def test_decode_block_kernel_long_cache(dev, monkeypatch, h, hk, s_max, kv_len):
+    """A GPT-2-class MHA block over a 4096-position cache and
+    tiny_starcoder_py's MQA block over its published 8192, in bf16: the
+    kernel's shared memory does not grow with the cache, so these launch and
+    agree with the plain version as the short caches do; a grid of 37 gives
+    the same bits."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    args, kw = _block_case(dev, torch.bfloat16, 64, kv_len, True, seed=39, h=h, hk=hk, s_max=s_max, dm=768,
+                           ff=3072)
+    again = (args[0], args[1].clone(), args[2].clone(), *args[3:])
+    out = _block_check(args, kw, torch.bfloat16, True)
+    monkeypatch.setattr(da, "block_grid", lambda idx: 37)
+    small = da.decode_block(*again, **kw)
+    assert torch.equal(small[0], out[0]) and torch.equal(small[1], out[1])
+    assert torch.equal(again[1], args[1]) and torch.equal(again[2], args[2])
+
+
+def test_decode_block_two_streams(dev):
+    """Two launches at once on two streams (MHA and MQA blocks, each on its
+    own inputs) equal their launches alone: no state carries between or
+    across launches."""
+    from rten_tpu_torch.kernels.decode_attention import decode_block
+
+    cases = [_block_case(dev, torch.bfloat16, 64, n, True, seed=37 + i, h=12, hk=hk, s_max=768, dm=768, ff=3072)
+             for i, (n, hk) in enumerate(((300, 12), (650, 1)))]
+    fresh = [(a[0], a[1].clone(), a[2].clone(), *a[3:]) for a, _ in cases]
+    alone = []
+    for a, kw in cases:
+        a = (a[0], a[1].clone(), a[2].clone(), *a[3:])
+        alone.append(decode_block(*a, **kw))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, a, (_, kw) in zip(streams, fresh, cases):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(decode_block(*a, **kw))
+    torch.cuda.synchronize()
+    for o, r in zip(outs, alone):
+        assert torch.equal(o[0], r[0]) and torch.equal(o[1], r[1])
+
+
+def test_decode_block_stamps(dev):
+    """Through the measurement build (``decode_block_timed``) every block
+    records its phases' steps and the grid-wide waits on the %globaltimer,
+    in program order: at GPT-2's block with the next qkv, every block
+    reaches every stamp but its first attention item's (60 items for 132
+    blocks) and the spare last one. Its results are decode_block's bits."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    args, kw = _block_case(dev, torch.bfloat16, 64, 300, True, seed=38, h=12, s_max=768, dm=768, ff=3072)
+    again = (args[0], args[1].clone(), args[2].clone(), *args[3:])
+    stamps = torch.zeros((da.block_grid(dev.index or 0), da.BLOCK_STAMPS), dtype=torch.int64, device=dev)
+    timed = da.decode_block_timed(stamps, *args, **kw)
+    plain = da.decode_block(*again, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(timed[0], plain[0]) and torch.equal(timed[1], plain[1])
+    s = stamps.cpu()
+    always = [i for i in range(19) if i != 1]
+    assert bool((s[:, always] > 0).all())
+    for row in s.tolist():
+        seen = [t for t in row if t > 0]
+        assert seen == sorted(seen)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1004,6 +1126,48 @@ def test_tiny_decoder_mega_step_launches_decode_block(dev, w8a8):
         two_logits, two_toks = run(dataclasses.replace(cfg, mega=False))
         _close(k_logits, two_logits, torch.float32)
         assert k_toks.tolist() == two_toks.tolist()
+
+
+@pytest.mark.parametrize("kind", ["mqa", "gqa_rope"])
+def test_tiny_gqa_decoder_mega_step_launches_decode_block(dev, kind):
+    """The tiny decoder with 4 query heads over 1 kv head (learned
+    positions) or over 2 with RoPE, GELU and ``mega``: a decode step
+    launches ``decode_block`` in its grouped mode once per layer and no
+    attention or MLP kernel; its logits and 6 greedy tokens equal the plain
+    versions' (f32)."""
+    import dataclasses
+
+    from rten_tpu_torch.models import decoder
+
+    extra = dict(n_kv_heads=1) if kind == "mqa" else dict(n_kv_heads=2, pos_encoding="rope")
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=1024, max_seq=256,
+                                dtype=torch.float32, mega=True, **extra)
+    params = decoder.quantize_params_int8(decoder.init_params(1, cfg, device=dev), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 12), generator=gen, device=dev, dtype=torch.int32)
+
+    def run(c):
+        cache = decoder.init_cache(c, 1, 64, device=dev)
+        _, cache = decoder.prefill(params, c, prompt, cache)
+        logits, cache = decoder.forward(params, c, prompt[:, -1:], cache)
+        toks, _ = decoder.generate_greedy(params, c, cache, prompt[:, -1:], 6)
+        return logits, toks
+
+    cache = decoder.init_cache(cfg, 1, 64, device=dev)
+    _, cache = decoder.prefill(params, cfg, prompt, cache)
+    dispatch.reset_counters()
+    decoder.forward(params, cfg, prompt[:, -1:], cache)
+    n = cfg.n_layers
+    assert dict(dispatch.LAUNCHES) == {"decode_block": n, "decode_block:gqa": n, "quant_gemv_int8": 2}
+    assert not dispatch.PLAIN
+    k_logits, k_toks = run(cfg)
+    with _plain_decoder(decoder):
+        p_logits, p_toks = run(cfg)
+    _close(k_logits, p_logits, torch.float32)
+    assert k_toks.tolist() == p_toks.tolist()
+    two_logits, two_toks = run(dataclasses.replace(cfg, mega=False))
+    _close(k_logits, two_logits, torch.float32)
+    assert k_toks.tolist() == two_toks.tolist()
 
 
 # ---------------------------------------------------------------------------

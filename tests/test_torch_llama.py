@@ -104,7 +104,8 @@ def test_llama_init_params_and_cache_layout():
     """``init_params`` takes the JAX package's branches (no ``pos_emb`` under
     RoPE, an ``lm_head`` when untied, SwiGLU weights without biases, k/v of
     the kv heads' width); the cache and a paged pool hold Hk heads;
-    ``LLAMA_TINY`` is the JAX package's; mega with GQA or RoPE is refused."""
+    ``LLAMA_TINY`` is the JAX package's; a GELU config with GQA and RoPE
+    runs its mega decode step through ``decode_block`` in every layer."""
     jcfg, tcfg = llama_configs(d_ff=344)
     jp = to_numpy(jdec.init_params(jax.random.PRNGKey(0), jcfg))
     tp = tdec.init_params(0, tcfg, device="cpu")
@@ -125,8 +126,15 @@ def test_llama_init_params_and_cache_layout():
     tiny = {f.name: getattr(tdec.LLAMA_TINY, f.name) for f in dataclasses.fields(jdec.DecoderConfig)}
     assert tiny == {**{f.name: getattr(jdec.LLAMA_TINY, f.name) for f in dataclasses.fields(jdec.DecoderConfig)},
                     "dtype": torch.bfloat16}
-    with pytest.raises(NotImplementedError, match="mega"):
-        tdec.forward({}, dataclasses.replace(tcfg, activation="gelu", mega=True), torch.zeros((1, 1), dtype=torch.int32))
+    # d_ff 384: at 344 the int8 packs pad w_up's N, and neither package fuses the block.
+    gelu = dataclasses.replace(tcfg, activation="gelu", mega=True, d_ff=384)
+    params = tdec.quantize_params_int8(tdec.init_params(0, gelu, device="cpu"), device="cpu")
+    cache = tdec.init_cache(gelu, 1, 64, device="cpu")
+    _, cache = tdec.prefill(params, gelu, torch.tensor([[5, 7, 11]], dtype=torch.int32), cache)
+    dispatch.reset_counters()
+    logits, cache = tdec.forward(params, gelu, torch.tensor([[13]], dtype=torch.int32), cache)
+    assert dispatch.PLAIN["decode_block"] == dispatch.PLAIN["decode_block:gqa"] == gelu.n_layers
+    assert "decode_attention:gqa" not in dispatch.PLAIN and bool(torch.isfinite(logits).all())
 
 
 def _step(jparams, jcfg, tparams, tcfg, chunk, jcache, tcache, **tkw):
