@@ -95,7 +95,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 and int8 KV (the three GQA KV kernels; each stream against its solo
    stream), and one decode step at 12 rows on a bf16 cache (decode_attention
    without its wo) against the plain versions;
-10. the line {"kernels": [...]} (the launches summed over phases 4-9, the
+10. generation — GPT-2-small (seed 0) through decoder.generate_scan, greedy
+   and with TemperatureSampler(0.8), TopKSampler(50, 0.8) and
+   TopPSampler(0.9, 0.8) (seed 1): 256 steps after phase 4's prompt in a
+   768-position cache, captured as one CUDA graph and replayed, each equal
+   to the same steps run eagerly with the same seed, with host ms a step
+   and tokens/s captured and eager, device ms a step (profiler) and the
+   idle share, and 32 teacher-forced steps in which the card's choice on
+   the logits and noise equals the stream and the host's choice; the
+   Qwen2-0.5B shape with TopPSampler(0.9, 0.7), 128 steps; speculative
+   decoding with K 4 against the target itself (every round K+1 until the
+   stream leaves the plain greedy one) and a 2-layer draft at GPT-2's
+   widths (seed 2), greedy and at temperature 1e-4, each against the plain
+   greedy stream under the top-2 rule, with acceptance and host ms per
+   emitted token, and Generator.with_draft; phase 5's 16 requests through
+   the slot and paged engines with TemperatureSampler(0.8): one seed gives
+   the same streams twice, temperature 1e-4 the greedy streams;
+11. the line {"kernels": [...]} (the launches summed over phases 4-10, a
+   captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
    ragged route also under its own name), the
@@ -400,7 +417,8 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
               ("qwen2 qkv+rms", qw, qkv_n, "rmsnorm", "bias", None),
               ("qwen2 w_gu+rms", qw, 2 * qff, "rmsnorm", "", None),
               ("qwen2 w_down+res", qff, qw, None, "residual", None),
-              ("qwen2 lm_head_argmax", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "argmax", q_vocab)]
+              ("qwen2 lm_head_argmax", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "argmax", q_vocab),
+              ("qwen2 lm_head_logits", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "logits", None)]
     for m in (1, 8):
         for name, k, n, norm, mode, vocab in shapes:
             def make(i, m=m, k=k, n=n, norm=norm, mode=mode, vocab=vocab):
@@ -1364,6 +1382,8 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
         ("Tq=512 kv_len=512", 1, h, h, 512, CACHE_LEN, True, 0, 512),
         ("Tq=24 q_offset=300 kv_len=324", 1, h, h, 24, CACHE_LEN, True, 300, 324),
         ("Tq=8 q_offset=300 kv_len=308", 1, h, h, 8, CACHE_LEN, True, 300, 308),
+        (f"verify Tq={SPEC_K + 1} q_offset=300 kv_len={300 + SPEC_K + 1}", 1, h, h, SPEC_K + 1, CACHE_LEN, True, 300,
+         300 + SPEC_K + 1),
         ("qwen2 Tq=64 kv_len=64", 1, qh, qk, 64, QWEN2_CACHE, True, 0, 64),
         ("qwen2 Tq=512 kv_len=512", 1, qh, qk, 512, QWEN2_CACHE, True, 0, 512),
         ("qwen2 Tq=24 q_offset=300 kv_len=324", 1, qh, qk, 24, QWEN2_CACHE, True, 300, 324),
@@ -1584,9 +1604,10 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
     cache = decoder.init_cache(cfg, 1, cache_len, device="cuda")
     _, cache = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True)
     last = torch.tensor([[tokens[0]]], dtype=torch.int32, device="cuda")
-    torch.cuda.synchronize()
     n_prof = 32
-    by_kernel = device_us_by_kernel(torch, lambda: decoder.generate_greedy(params, cfg, cache, last, n_prof), 1)
+    decoder.generate_scan(params, cfg, cache, last, n_steps=n_prof)  # captures (warm-up, capture, one replay)
+    torch.cuda.synchronize()
+    by_kernel = device_us_by_kernel(torch, lambda: decoder.generate_scan(params, cfg, cache, last, n_steps=n_prof), 1)
     by_kernel = {k: v / n_prof for k, v in by_kernel.items()}
     dev_us = sum(by_kernel.values())
     device_ms = dev_us / 1e3 if dev_us > 0 else None
@@ -1595,7 +1616,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
         idle = None
     else:
         idle = max(0.0, 1.0 - device_ms / step_ms)
-        log(f"  device time {device_ms:.4f} ms/step (profiler, {n_prof} greedy steps) -> idle share "
+        log(f"  device time {device_ms:.4f} ms/step (profiler, a replay of {n_prof} greedy steps) -> idle share "
             f"{idle:.4f} of the {step_ms:.4f} ms host step; by kernel (us/step):")
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
             log(f"    {us:9.3f}  {name[:90]}")
@@ -2364,6 +2385,362 @@ def drive_qwen2(torch, mem_rate, op_rate, out):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: sampled generation — generate_scan captured as one CUDA graph,
+# speculative decoding, sampled serving
+# ---------------------------------------------------------------------------
+
+N_SCAN, N_QWEN2_SCAN, SPEC_K, SPEC_NEW, SPEC_ROUNDS = 256, 128, 4, 128, 8
+SCAN_SAMPLERS = (("greedy", None, ()), ("temperature 0.8", "TemperatureSampler", (0.8,)),
+                 ("top-k 50 at 0.8", "TopKSampler", (50, 0.8)), ("top-p 0.9 at 0.8", "TopPSampler", (0.9, 0.8)))
+
+
+def make_sampler(cls, args):
+    from rten_tpu_torch.generate import sampler as sm
+
+    return None if cls is None else getattr(sm, cls)(*args)
+
+
+def scan_case(torch, cfg, params, prompt, cache_len, n_steps, sampler, attn, label):
+    """``generate_scan`` at batch 1 after ``prompt`` [1, P], generator seed
+    1 for a sampler: eager (``decoder._scan_steps``, one forward at a
+    time), then captured (the first call captures and replays, and must
+    give the eager tokens), then 3 replays after rewinding the cache's
+    lengths to P and reseeding (the same tokens again). Host ms a step of
+    the eager steps and of the replays (median), device ms a step from the
+    profiler over N_FORCED eager steps and one replay, and the idle shares; each
+    step must launch ``attn`` once a layer and nothing run a plain version.
+    With a sampler, N_FORCED teacher-forced steps: on each step's logits
+    and the noise ``sample`` draws, the card's ``choose`` equals the
+    stream and ``choose`` on the host. Returns (numbers, the captured
+    call's launches)."""
+    from rten_tpu_torch.generate.sampler import gumbel
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+
+    ids = torch.from_numpy(prompt).cuda()
+    n_prompt = ids.shape[1]
+
+    def fresh():
+        cache = decoder.init_cache(cfg, 1, cache_len, device="cuda")
+        first, cache = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True)
+        return cache, first, torch.Generator(device="cuda").manual_seed(1)
+
+    def rewind(cache, rng):
+        cache["len"].fill_(n_prompt)
+        cache["host_len"][:] = n_prompt
+        rng.manual_seed(1)
+
+    cache, first, rng = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = decoder._scan_steps(params, cfg, cache, first, rng, n_steps, sampler).cpu()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    rewind(cache, rng)
+    eager_dev = device_us_by_kernel(torch, lambda: decoder._scan_steps(params, cfg, cache, first, rng, N_FORCED,
+                                                                         sampler), 1)
+    eager_dev_ms = sum(eager_dev.values()) / 1e3 / N_FORCED
+
+    cache, first, rng = fresh()
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    toks, cache = decoder.generate_scan(params, cfg, cache, first, rng, n_steps=n_steps, sampler=sampler)
+    toks = toks.cpu()
+    first_call_s = time.perf_counter() - t0
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    if len(decoder._GRAPHS.get(cache["len"], ())) != 1:
+        raise AssertionError(f"{label}: generate_scan did not capture one graph")
+    if not torch.equal(toks, eager):
+        at = first_difference(toks[0].tolist(), eager[0].tolist())
+        raise AssertionError(f"{label}: captured tokens differ from eager at step {at}")
+    if any(plain.values()) or launches.get(attn, 0) != cfg.n_layers * n_steps:
+        raise AssertionError(f"{label}: {attn} must launch {cfg.n_layers} times a step, no plain call: "
+                             f"{launches} {plain}")
+    if int(cache["len"][0]) != n_prompt + n_steps or int(cache["host_len"][0]) != n_prompt + n_steps:
+        raise AssertionError(f"{label}: cache lengths {cache['len'].tolist()} / {cache['host_len']} after the replay")
+    times = []
+    for _ in range(3):
+        rewind(cache, rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, cache = decoder.generate_scan(params, cfg, cache, first, rng, n_steps=n_steps, sampler=sampler)
+        again = again.cpu()
+        times.append((time.perf_counter() - t0) * 1e3 / n_steps)
+        if not torch.equal(again, toks):
+            raise AssertionError(f"{label}: a replay from the same lengths and seed gave other tokens")
+    captured_ms = statistics.median(times)
+    rewind(cache, rng)
+    dev = device_us_by_kernel(torch, lambda: decoder.generate_scan(params, cfg, cache, first, rng, n_steps=n_steps,
+                                                                     sampler=sampler), 1)
+    dev_ms = sum(dev.values()) / 1e3 / n_steps
+
+    forced = None
+    if sampler is not None:  # teacher-forced: the card's choice on the stream's own logits and noise
+        cache, first, rng = fresh()
+        tok, agree_host = first, 0
+        for i in range(N_FORCED):
+            logits, cache = decoder.forward(params, cfg, tok, cache)
+            lg = logits[:, -1]
+            noise = gumbel(rng, sampler.noise_shape(lg), lg.device)
+            card = int(sampler.choose(lg, noise)[0])
+            host = int(sampler.choose(lg.cpu(), noise.cpu())[0])
+            if card != int(eager[0, i]) or host != card:
+                raise AssertionError(f"{label}: teacher-forced step {i}: card {card}, host {host}, stream "
+                                     f"{int(eager[0, i])}")
+            agree_host += 1
+            tok = toks[:, i : i + 1].cuda()
+        forced = agree_host
+    distinct = len(set(toks[0].tolist()))
+    res = dict(n_steps=n_steps, eager_ms_per_step=eager_ms, captured_ms_per_step=captured_ms,
+               captured_ms_all=times, eager_tokens_per_s=1e3 / eager_ms, captured_tokens_per_s=1e3 / captured_ms,
+               first_call_s=first_call_s, device_ms_per_step=dev_ms or None,
+               eager_device_ms_per_step=eager_dev_ms or None,
+               idle_share=max(0.0, 1.0 - dev_ms / captured_ms) if dev_ms else None,
+               eager_idle_share=max(0.0, 1.0 - eager_dev_ms / eager_ms) if eager_dev_ms else None,
+               device_us_by_kernel={k: v / n_steps for k, v in dev.items()}, distinct_tokens=distinct,
+               forced_agree=forced, launches=launches, tokens=toks[0].tolist())
+    dev_txt = f"{dev_ms:.4f}" if dev_ms else "not measured"
+    log(f"  {label}: captured equals eager over {n_steps} steps ({distinct} distinct tokens); host "
+        f"{captured_ms:.4f} ms/step captured ({1e3 / captured_ms:.1f} tokens/s) against {eager_ms:.4f} eager "
+        f"({1e3 / eager_ms:.1f} tokens/s); device {dev_txt} ms/step captured, {eager_dev_ms:.4f} eager (profiler) "
+        f"-> idle share {res['idle_share'] if res['idle_share'] is None else round(res['idle_share'], 4)} captured, "
+        f"{res['eager_idle_share'] if res['eager_idle_share'] is None else round(res['eager_idle_share'], 4)} eager; "
+        f"first call (warm-up, capture, replay) {first_call_s:.3f} s"
+        + (f"; teacher-forced {forced}/{N_FORCED} card choice = stream = host choice" if forced else ""))
+    return res, launches
+
+
+def spec_stream(torch, cfg, params, dcfg, dparams, prompt, sampler=None):
+    """GPT-2 speculative decoding at batch 1 through ``speculative_scan``
+    (greedy) or ``speculative_sample_scan`` (a TemperatureSampler, seed 3)
+    after ``prompt``, SPEC_ROUNDS rounds a call, until SPEC_NEW tokens:
+    (tokens, each round's count, host ms per emitted token, launches)."""
+    from rten_tpu_torch.generate import speculative
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+
+    ids = torch.from_numpy(prompt).cuda()
+    max_len = CACHE_LEN  # ≥ prompt + SPEC_NEW + SPEC_ROUNDS (K + 1) + K + 2; Generator.with_draft's too
+    rng = torch.Generator(device="cuda").manual_seed(3)
+
+    def run():
+        cache_t = decoder.init_cache(cfg, 1, max_len, device="cuda")
+        cache_d = decoder.init_cache(dcfg, 1, max_len, device="cuda")
+        logits, cache_t = decoder.prefill(params, cfg, ids, cache_t, last_only=True)
+        decoder.prefill(dparams, dcfg, ids, cache_d, lm_head_mode="argmax", last_only=True)
+        first = sampler.sample(rng, logits[:, -1]) if sampler else logits[:, -1].argmax(-1)
+        last = first.view(1, 1).to(torch.int32)
+        out, counts = [int(last[0, 0])], []
+        while len(out) < SPEC_NEW:
+            if sampler is None:
+                toks, cnt, _, _, last = speculative.speculative_scan(
+                    params, cfg, cache_t, dparams, dcfg, cache_d, last, k=SPEC_K, n_rounds=SPEC_ROUNDS)
+            else:
+                toks, cnt, _, _, last = speculative.speculative_sample_scan(
+                    params, cfg, cache_t, dparams, dcfg, cache_d, last, rng, sampler.temperature, k=SPEC_K,
+                    n_rounds=SPEC_ROUNDS)
+            for r in range(cnt.shape[0]):
+                out.extend(int(t) for t in toks[r, 0, : cnt[r, 0]])
+                counts.append(int(cnt[r, 0]))
+        return out[:SPEC_NEW], counts
+
+    run()  # warm-up
+    rng.manual_seed(3)
+    dispatch.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, counts = run()
+    ms = (time.perf_counter() - t0) * 1e3 / SPEC_NEW
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    if any(plain.values()) or not launches.get("flash_attention"):
+        raise AssertionError(f"speculative: the verify's flash_attention not launched, or plain calls: {launches} "
+                             f"{plain}")
+    return out, counts, ms, launches
+
+
+def forced_gaps(torch, cfg, params, prompt, stream):
+    """The target's own verdict on a stream: one prefill forward of the
+    prompt and the stream (phase 4's one-forward check); at each position,
+    the gap from the maximum logit to the stream token's, and the top-2
+    gap."""
+    from rten_tpu_torch.models import decoder
+
+    seq = torch.tensor([list(prompt[0]) + stream[:-1]], dtype=torch.int32, device="cuda")
+    lg, _ = decoder.prefill(params, cfg, seq, decoder.init_cache(cfg, 1, CACHE_LEN, device="cuda"))
+    lg = lg[0, prompt.shape[1] - 1:]  # the logits that chose stream[0], stream[1], ...
+    top2 = torch.topk(lg, 2, dim=-1).values
+    loss = top2[:, 0] - lg.gather(1, torch.tensor(stream, device="cuda")[:, None])[:, 0]
+    return loss.tolist(), (top2[:, 0] - top2[:, 1]).tolist()
+
+
+def short_rounds(counts, n: int) -> list:
+    """The stream positions of the corrections of rounds that accepted
+    fewer than K drafts, within the stream's first ``n`` tokens (the first
+    token comes from the prefill)."""
+    pos, out = 1, []
+    for c in counts:
+        if c != SPEC_K + 1 and pos + c - 1 < n:
+            out.append(pos + c - 1)
+        pos += c
+    return out
+
+
+def drive_generation(torch, mem_rate, out):
+    """Phase 10: GPT-2-small (seed 0) through ``generate_scan`` greedy and
+    with each sampler (``scan_case``: 256 steps after the 64-token prompt in
+    a 768-position cache), the Qwen2-0.5B shape with top-p 0.9 at 0.7 (128
+    steps in 1024); speculative decoding with K 4 against the target itself
+    (every round K+1 until the stream leaves the plain one) and a 2-layer
+    draft at GPT-2's widths (seed 2), greedy and at temperature 1e-4 (each
+    stream against the plain greedy stream under the top-2 rule), and the
+    same through ``Generator.with_draft``; then phase 5's 16 requests
+    through the slot and paged engines with TemperatureSampler(0.8): two
+    runs with one seed give the same streams, and temperature 1e-4 the
+    greedy engine's streams (top-2 rule against the solo gaps)."""
+    import dataclasses
+
+    import numpy as np
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+    from rten_tpu_torch.generate.sampler import TemperatureSampler
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    dev = torch.device("cuda", 0)
+    launches: dict = {}
+
+    def add(run):
+        for name, n in run.items():
+            launches[name] = launches.get(name, 0) + n
+
+    cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
+    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
+    prompt_gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (1, N_PROMPT), generator=prompt_gen).to(torch.int32).numpy()
+    scan = {}
+    t_phase = time.perf_counter()
+    for label, cls, args in SCAN_SAMPLERS:
+        scan[label], run = scan_case(torch, cfg, params, prompt, CACHE_LEN, N_SCAN, make_sampler(cls, args),
+                                     "decode_attention", f"GPT-2 {label}")
+        add(run)
+
+    log(f"  ({time.perf_counter() - t_phase:.1f} s)")
+    t_phase = time.perf_counter()
+    # Speculative decoding: the plain greedy stream with each step's top-2 gap, then K 4 rounds.
+    solo = GapArgMax()
+    plain = [int(t[0]) for t in Generator(NativeBackend(params, cfg, max_len=CACHE_LEN, device=dev),
+                                          GeneratorConfig(max_tokens=SPEC_NEW)).with_prompt(prompt).with_sampler(solo)]
+    if plain[1:] != scan["greedy"]["tokens"][: SPEC_NEW - 1]:  # plain[0] is the prefill's token
+        raise AssertionError("the logits path's greedy stream differs from generate_scan's")
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    dparams = decoder.quantize_params_int8(decoder.init_params(2, dcfg, device="cuda"), device="cuda")
+    spec = {}
+    for label, dc, dp, sampler in (("draft = target", cfg, params, None), ("2-layer draft", dcfg, dparams, None),
+                                   ("2-layer draft, temperature 1e-4", dcfg, dparams, TemperatureSampler(1e-4))):
+        toks, counts, ms, run = spec_stream(torch, cfg, params, dc, dp, prompt, sampler)
+        add(run)
+        diff = check_streams(f"speculative, {label}", [toks], [plain], [solo.gaps])
+        at = first_difference(toks, plain)
+        # Every token the target's near-argmax given the stream before it;
+        # a draft that is the target loses a round only at a near-tie.
+        loss, top2 = forced_gaps(torch, cfg, params, prompt, toks)
+        if max(loss) > GAP_TOL:
+            raise AssertionError(f"speculative, {label}: token {loss.index(max(loss))} loses to the target's argmax "
+                                 f"by {max(loss):.4g} > {GAP_TOL}")
+        ties = [top2[i] for i in short_rounds(counts, len(toks))]
+        if dc is cfg and any(g >= GAP_TOL for g in ties):
+            raise AssertionError(f"speculative, {label}: a round short of K+1 where the target's top-2 gap is "
+                                 f"{max(ties):.4g} >= {GAP_TOL}: {counts}")
+        acc = (sum(counts) - len(counts)) / (SPEC_K * len(counts))
+        spec[label] = dict(ms_per_token=ms, tokens_per_s=1e3 / ms, rounds=len(counts),
+                           mean_count=sum(counts) / len(counts), acceptance=acc, counts=counts,
+                           differs_from_plain_at=at, worst_loss=max(loss), short_round_gaps=ties if dc is cfg else None,
+                           launches=run, tokens=toks)
+        log(f"  speculative K {SPEC_K}, {label}: {SPEC_NEW} tokens in {len(counts)} rounds, mean "
+            f"{sum(counts) / len(counts):.3f} tokens a round (acceptance {acc:.4f}); host {ms:.4f} ms per emitted "
+            f"token ({1e3 / ms:.1f} tokens/s); first difference from the plain greedy stream {at} ({diff} differing); "
+            f"every token within {max(loss):.4g} of the target's argmax given its prefix (one forward)"
+            + (f"; short rounds' top-2 gaps {[round(g, 4) for g in ties]}" if dc is cfg else ""))
+    # The same through Generator.with_draft (greedy): its stream equals spec_stream's.
+    gen = Generator(NativeBackend(params, cfg, max_len=CACHE_LEN, device=dev), GeneratorConfig(max_tokens=SPEC_NEW))
+    gen.with_prompt(prompt).with_draft(NativeBackend(dparams, dcfg, max_len=CACHE_LEN, device=dev), k=SPEC_K,
+                                       rounds_per_call=SPEC_ROUNDS)
+    dispatch.reset_counters()
+    drafted = [int(t[0]) for t in gen]
+    add(dict(dispatch.LAUNCHES))
+    if drafted != spec["2-layer draft"]["tokens"]:
+        raise AssertionError("Generator.with_draft's stream differs from speculative_scan's")
+    log(f"  Generator.with_draft (2-layer draft, K {SPEC_K}): its {len(drafted)} tokens equal speculative_scan's")
+    del dparams
+    log(f"  ({time.perf_counter() - t_phase:.1f} s)")
+    t_phase = time.perf_counter()
+
+    # Qwen2-0.5B shape, top-p.
+    qcfg = decoder.DecoderConfig(**QWEN2_CFG, dtype=torch.bfloat16)
+    qparams = qwen2_params(torch, qcfg)
+    qprompt = torch.randint(0, qcfg.vocab_size, (1, N_PROMPT), generator=torch.Generator().manual_seed(0)).to(
+        torch.int32).numpy()
+    qwen2, run = scan_case(torch, qcfg, qparams, qprompt, QWEN2_CACHE, N_QWEN2_SCAN,
+                           make_sampler("TopPSampler", (0.9, 0.7)), "decode_attention:gqa", "Qwen2 top-p 0.9 at 0.7")
+    add(run)
+    del qparams
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t_phase:.1f} s)")
+    t_phase = time.perf_counter()
+
+    # Sampled serving: phase 5's requests.
+    specs = serving_specs(cfg)
+    t0 = time.perf_counter()
+    _, solo_gaps = solo_streams(params, cfg, specs, dev)
+    log(f"  serving: {N_REQUESTS} requests; solo gaps {time.perf_counter() - t0:.1f} s")
+    pages = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs)
+    makers = {"slot": lambda **kw: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev, **kw),
+              "paged": lambda **kw: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages, page_size=SERVE_PAGE,
+                                                       device=dev, **kw)}
+    total_new = sum(s["max_new_tokens"] for s in specs)
+    serving = {}
+    for kind, make in makers.items():
+        streams = {}
+        for label, kw in (("greedy", {}), ("temperature 0.8 seed 5", dict(sampler=TemperatureSampler(0.8), seed=5)),
+                          ("temperature 0.8 seed 5 again", dict(sampler=TemperatureSampler(0.8), seed=5)),
+                          ("temperature 1e-4", dict(sampler=TemperatureSampler(1e-4), seed=6))):
+            engine = make(**kw)
+            reqs = [engine.submit(Request(**s)) for s in specs]
+            torch.cuda.synchronize()
+            dispatch.reset_counters()
+            t0 = time.perf_counter()
+            engine.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run, plain_calls = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+            if any(plain_calls.values()) or not all(run.get(k) for k in ENGINE_KERNELS[kind]):
+                raise AssertionError(f"sampled {kind} {label}: launches {run}, plain {plain_calls}")
+            if not all(r.finished and len(r.output) == s["max_new_tokens"] for r, s in zip(reqs, specs)):
+                raise AssertionError(f"sampled {kind} {label}: a request did not finish with its budget")
+            add(run)
+            streams[label] = [r.output for r in reqs]
+            serving[f"{kind} {label}"] = dict(wall_s=wall, tokens_per_s=total_new / wall, forwards=engine.steps)
+            log(f"  {kind} engine, {label}: {total_new} tokens in {wall:.3f} s -> {total_new / wall:.1f} generated "
+                f"tokens/s")
+            del engine
+        if streams["temperature 0.8 seed 5"] != streams["temperature 0.8 seed 5 again"]:
+            raise AssertionError(f"sampled {kind}: two runs with one seed gave other streams")
+        if streams["temperature 0.8 seed 5"] == streams["greedy"]:
+            raise AssertionError(f"sampled {kind}: temperature 0.8 drew the greedy streams")
+        n_diff = check_streams(f"{kind} temperature 1e-4 vs greedy", streams["temperature 1e-4"], streams["greedy"],
+                               solo_gaps)
+        serving[f"{kind} differing at 1e-4"] = n_diff
+        log(f"  {kind} engine: one seed, the same streams; temperature 1e-4 equals greedy ({n_diff} differ, top-2 "
+            f"rule)")
+    log(f"  ({time.perf_counter() - t_phase:.1f} s)")
+    out["generation"] = dict(gpt2_scan=scan, qwen2_scan=qwen2, speculative=spec, serving=serving)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -2609,7 +2986,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/10] device")
+    log("[1/11] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -2622,7 +2999,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/10] build")
+    log("[2/11] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -2643,7 +3020,7 @@ def main() -> int:
         return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
     if opts.gemv:
         return gemv_only(torch, bound, cfg, detail, kind, smi, opts.gemv)
-    log("[3/10] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/11] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -2652,32 +3029,36 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/10] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/11] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/10] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/11] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/10] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/11] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/10] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/11] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/10] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log("[8/11] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/10] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[9/11] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
+        launches[name] = launches.get(name, 0) + n
+
+    log("[10/11] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+        "shape), speculative decoding, sampled serving")
+    for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
-
-    log("[10/10] summary")
+    log("[11/11] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

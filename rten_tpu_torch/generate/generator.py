@@ -2,15 +2,22 @@
 
 Counterpart of ``rten_tpu/generate/generator.py`` (``GeneratorConfig``,
 ``NativeBackend``, ``Generator``): the iterator keeps ``with_prompt``,
-``append_prompt``, ``with_sampler``, ``on_token``, ``profile``, EOS and
-``max_tokens``. Speculative decoding (``with_draft``), ``GraphBackend`` and
+``append_prompt``, ``with_sampler``, ``with_draft``, ``on_token``,
+``profile``, EOS and ``max_tokens``. ``GraphBackend`` and
 ``EncDecBackend`` are not ported yet.
 
 A prompt, and every follow-up chunk of ``append_prompt``, goes into the
 cache as one ``decoder.prefill`` forward (the prefill kernels above 8 rows);
 each later token is one decode step. With the default ``ArgMaxSampler`` the
 backend returns the greedy token from the lm_head kernel's fused argmax,
-so no logits row leaves the card; other samplers get the f32 logits.
+so no logits row leaves the card; any other sampler gets the f32 logits
+and draws from the generator's ``torch.Generator`` (seeded from
+``GeneratorConfig.seed``, on the backend's device).
+
+``with_draft`` turns on speculative decoding (``generate/speculative.py``):
+a draft ``NativeBackend`` proposes k tokens a round, the target verifies
+them in one forward, and the iterator serves one token per ``__next__``
+from per-row buffers refilled ``rounds_per_call`` rounds at a time.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from rten_tpu_torch.generate import speculative
 from rten_tpu_torch.generate.metrics import Metrics
-from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler
+from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler, TemperatureSampler
 from rten_tpu_torch.kernels.dispatch import resolve_device
 from rten_tpu_torch.models import decoder
 
@@ -94,6 +102,7 @@ class Generator:
         self._finished = False
         self._first = True
         self._on_token: Callable[[np.ndarray], None] | None = None
+        self._draft: NativeBackend | None = None
 
     def with_prompt(self, prompt) -> "Generator":
         arr = np.asarray(prompt, np.int32)
@@ -121,6 +130,25 @@ class Generator:
         self.sampler = sampler
         return self
 
+    def with_draft(self, draft: NativeBackend, *, k: int = 4, rounds_per_call: int = 4) -> "Generator":
+        """Speculative decoding: ``draft`` (a smaller ``NativeBackend`` of
+        the same batch) proposes ``k`` tokens a round and the backend
+        verifies them in one forward. One token per ``__next__`` as before,
+        served from per-row buffers refilled ``rounds_per_call`` rounds at
+        a time. The stream is exact: token-exact under ``ArgMaxSampler``,
+        distribution-exact under ``TemperatureSampler``; any other sampler
+        raises ValueError at the first refill."""
+        if not isinstance(self.backend, NativeBackend) or not isinstance(draft, NativeBackend):
+            raise TypeError("with_draft needs a NativeBackend target and draft (speculative rollback rewrites "
+                            "the native cache's per-row lengths)")
+        if draft.batch != self.backend.batch:
+            raise ValueError("the draft's batch must equal the target backend's")
+        self._draft = draft
+        self._spec_k = k
+        self._spec_rounds = rounds_per_call
+        self._spec_buf: list[list[int]] | None = None
+        return self
+
     def profile(self, metrics: Metrics) -> "Generator":
         self.metrics = metrics
         return self
@@ -137,17 +165,16 @@ class Generator:
             raise StopIteration
         if self.metrics:
             self.metrics.start_step()
-        if self._pending is not None:
-            tokens, self._pending = self._pending, None
+        if self._draft is not None:
+            next_tokens = self._spec_next()
         else:
-            tokens = self._last[:, None]
-        greedy = isinstance(self.sampler, ArgMaxSampler)
-        step = self.backend.prefill if self._first else self.backend.decode
-        out = step(tokens, greedy=greedy)
-        self._first = False
-        if not greedy:
-            out = self.sampler.sample(self._rng, out)
-        next_tokens = out.cpu().numpy().astype(np.int32)  # waits for the device
+            if self._pending is not None:
+                tokens, self._pending = self._pending, None
+            else:
+                tokens = self._last[:, None]
+            step = self.backend.prefill if self._first else self.backend.decode
+            self._first = False
+            next_tokens = self._choose(step(tokens, greedy=self._greedy()))
         if self.metrics:
             self.metrics.end_step()
         self._last = next_tokens
@@ -157,3 +184,91 @@ class Generator:
         if self._on_token:
             self._on_token(next_tokens)
         return next_tokens
+
+    def _greedy(self) -> bool:
+        return isinstance(self.sampler, ArgMaxSampler)
+
+    def _choose(self, out: torch.Tensor) -> np.ndarray:
+        """The step's tokens on the host (waits for the device): the
+        backend's greedy tokens, or the sampler's draw from its logits."""
+        if not self._greedy():
+            out = self.sampler.sample(self._rng, out)
+        return out.cpu().numpy().astype(np.int32)
+
+    # -- speculative decoding (with_draft) -----------------------------------
+
+    def _spec_next(self) -> np.ndarray:
+        """One step in draft mode: a prompt chunk feeds both caches (they
+        stay prefix-aligned) and samples the next token from the target;
+        otherwise the next buffered token, refilling the buffers when any
+        row runs dry."""
+        bk, dk = self.backend, self._draft
+        if self._pending is not None:
+            tokens, self._pending = self._pending, None
+            if self._first:
+                # Headroom: a refill may run rounds·(k+1) tokens past what
+                # was emitted, and keeps k+2 in reserve; a cache sized for
+                # plain decoding (prompt + max_tokens) would let the rounds'
+                # length clamp bind mid-stream. Grow both caches up front.
+                need = tokens.shape[1] + self.config.max_tokens + self._spec_rounds * (self._spec_k + 1) \
+                    + self._spec_k + 2
+                for nb in (bk, dk):
+                    if nb.max_len < need:
+                        nb.max_len = need
+                        nb.reset()
+                out = bk.prefill(tokens, greedy=self._greedy())
+                dk.prefill(tokens, greedy=True)
+                self._first = False
+            else:
+                # Mid-conversation: the caches hold verified tokens the
+                # iterator has not emitted (still buffered). The cache holds
+                # prompt + every produced token but the last, so dropping u
+                # buffered tokens rolls each row's length back by u.
+                if self._spec_buf is not None and any(self._spec_buf):
+                    u = np.array([len(b) for b in self._spec_buf], np.int64)
+                    u_dev = torch.from_numpy(u.astype(np.int32)).to(bk.device)
+                    for nb in (bk, dk):
+                        nb.cache["len"].sub_(u_dev)
+                        nb.cache["host_len"] -= u
+                        nb.length = int(nb.cache["host_len"].max())
+                out = bk.decode(tokens, greedy=self._greedy())
+                dk.decode(tokens, greedy=True)
+            toks = self._choose(out)
+            self._spec_buf = [[] for _ in range(bk.batch)]
+            self._spec_last = toks
+            return toks
+        if any(not b for b in self._spec_buf):
+            self._spec_refill()
+        return np.asarray([b.pop(0) for b in self._spec_buf], np.int32)
+
+    def _spec_refill(self) -> None:
+        bk, dk = self.backend, self._draft
+        # The rounds' length clamp keeps rows the host stopped reading
+        # inside the cache; a live row reaching it would corrupt the
+        # verified prefix, so a refill without rounds·(k+1) + k+2 positions
+        # of room is refused.
+        need = int(bk.cache["host_len"].max()) + self._spec_rounds * (self._spec_k + 1) + self._spec_k + 2
+        if bk.max_len < need or dk.max_len < need:
+            raise ValueError(
+                f"speculative refill needs cache headroom {need} but max_len is {min(bk.max_len, dk.max_len)}; "
+                "construct the NativeBackends with a larger max_len (or lower max_tokens / rounds_per_call)"
+            )
+        last = torch.from_numpy(self._spec_last[:, None].astype(np.int32)).to(bk.device)
+        common = (bk.params, bk.cfg, bk.cache, dk.params, dk.cfg, dk.cache, last)
+        if self._greedy():
+            toks, counts, _, _, last = speculative.speculative_scan(*common, k=self._spec_k,
+                                                                    n_rounds=self._spec_rounds)
+        elif isinstance(self.sampler, TemperatureSampler):
+            toks, counts, _, _, last = speculative.speculative_sample_scan(
+                *common, self._rng, self.sampler.temperature, k=self._spec_k, n_rounds=self._spec_rounds)
+        else:
+            raise ValueError(
+                "speculative decoding verifies ArgMaxSampler and TemperatureSampler exactly; "
+                f"{type(self.sampler).__name__} would change the target distribution"
+            )
+        for nb in (bk, dk):
+            nb.length = int(nb.cache["host_len"].max())
+        for r in range(toks.shape[0]):
+            for i in range(bk.batch):
+                self._spec_buf[i].extend(int(t) for t in toks[r, i, : counts[r, i]])
+        self._spec_last = last.view(-1).cpu().numpy().astype(np.int32)

@@ -1,5 +1,5 @@
 """GPT-2-class and Llama/Qwen2-class decoders on PyTorch and CUDA: INT8
-prefill and greedy decode over a preallocated KV cache, weight-only or
+prefill and decode over a preallocated KV cache, weight-only or
 (``cfg.w8a8``) W8A8.
 
 Counterpart of ``rten_tpu/models/decoder.py`` ``forward`` (:584): a forward
@@ -85,17 +85,23 @@ K and N zero-padded as the JAX package pads them), the fused
 logical ``[B, Hk, S, D]`` per layer (scales ``[B, Hk, S]``) and is updated
 in place.
 
+``generate_scan`` runs n one-token decode steps, greedy or sampled, each
+token fed straight back on the device; on the card it captures the steps
+once as one CUDA graph and replays it.
+
 Entry points default to ``device="cuda"`` and raise on a machine without
 CUDA; ``device="cpu"`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from rten_tpu_torch.kernels.attention import flash_attention
 from rten_tpu_torch.kernels.decode_attention import (
@@ -106,6 +112,7 @@ from rten_tpu_torch.kernels.decode_attention import (
     mega_block_supported,
     quantize_kv,
 )
+from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.kernels.dispatch import resolve_device
 from rten_tpu_torch.kernels.paged_attention import paged_decode_attention, paged_decode_attention_int8
 from rten_tpu_torch.kernels.quant_matmul import (
@@ -854,15 +861,7 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     if paged and not kv_decode:
         raise ValueError(f"a paged cache takes one token per row and at most {MAX_ROWS} rows, got {b}x{t}")
     if cache is not None:
-        if not paged:
-            s_max = cache["k"][0].shape[2]
-            full = np.flatnonzero(cache["host_len"] + t > s_max)
-            if full.size:
-                r = int(full[0])
-                raise IndexError(
-                    f"KV cache full: row {r} holds {int(cache['host_len'][r])} tokens + {t} new, "
-                    f"past its {s_max} positions"
-                )
+        _check_room(cache, t)
         start = cache["len"]
         positions = start[:, None] + torch.arange(t, device=start.device)  # [B, T]
         if not decode:
@@ -933,14 +932,176 @@ def prefill(params: dict, cfg: DecoderConfig, tokens, cache: dict, *, lm_head_mo
     return forward(params, cfg, tokens, cache, lm_head_mode=lm_head_mode, last_only=last_only, fuse=fuse)
 
 
-def generate_greedy(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, n_steps: int):
-    """``n_steps`` greedy decode steps from ``last_tokens`` [B, 1], each
-    token taken by the lm_head kernel's fused argmax and fed straight back
-    on the device. Counterpart of ``generate_scan``'s greedy branch.
-    Returns ``(tokens [B, n_steps] int32, cache)``."""
-    tok = last_tokens
+def _check_room(cache: dict, n_steps: int) -> None:
+    """IndexError unless every row of a contiguous cache holds ``n_steps``
+    more tokens (on the host mirror ``host_len``: no device read); a paged
+    pool's rows get their pages from the caller."""
+    if "host_len" not in cache:
+        return
+    s_max = cache["k"][0].shape[2]
+    full = np.flatnonzero(cache["host_len"] + n_steps > s_max)
+    if full.size:
+        r = int(full[0])
+        raise IndexError(
+            f"KV cache full: row {r} holds {int(cache['host_len'][r])} tokens + {n_steps} new, "
+            f"past its {s_max} positions"
+        )
+
+
+def _scan_steps(params: dict, cfg: DecoderConfig, cache: dict, tok, rng, n_steps: int, sampler):
+    """The decode loop of ``generate_scan``: ``n_steps`` one-token forwards
+    from ``tok`` [B, 1], each token fed straight back on the device. Greedy
+    (``sampler`` None) takes the lm_head kernel's fused argmax; a sampler
+    gets the step's f32 logits and ``rng``. Returns the tokens [B, n_steps]."""
     out = []
     for _ in range(n_steps):
-        tok, cache = forward(params, cfg, tok, cache, lm_head_mode="argmax")
+        if sampler is None:
+            tok, cache = forward(params, cfg, tok, cache, lm_head_mode="argmax")
+        else:
+            logits, cache = forward(params, cfg, tok, cache)
+            tok = sampler.sample(rng, logits[:, -1])[:, None]
         out.append(tok)
-    return torch.cat(out, dim=1), cache
+    return torch.cat(out, dim=1)
+
+
+def _capturable(cache: dict, b: int, sampled: bool) -> bool:
+    """Whether ``generate_scan`` may capture its steps: only when every
+    step reads the cache length on the device alone. One token a row does
+    on a bf16/f32 cache at any B, and on an int8 or paged cache at 8 rows
+    or fewer (their decode kernels). An int8 cache above 8 rows goes
+    through ``_attention``, which bakes ``int(cache["host_len"].max())``
+    into the launch, so a replay would attend over the capture's prefix.
+    Decided from the cache's kind and B before any capture, never by
+    catching a capture error. A sampled graph needs the installed torch to
+    advance its generator at every replay
+    (``CUDAGraph.register_generator_state``)."""
+    if sampled and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        return False
+    return b <= MAX_ROWS or ("k_pages" not in cache and "k_scale" not in cache)
+
+
+class _Captured:
+    """``n_steps`` decode steps captured as one CUDA graph: the static
+    first-token input [B, 1] the graph reads, its static tokens [B, n_steps],
+    the kernels' launch counts of one replay, and the objects whose device
+    memory the graph reads (params, the generator) kept alive with it."""
+
+    def __init__(self, graph, tokens_in, tokens_out, launches, keep):
+        self.graph, self.tokens_in, self.tokens_out = graph, tokens_in, tokens_out
+        self.launches, self.keep = launches, keep
+
+
+# Captured graphs by cache (weakly, on its ``len`` tensor: a cache's graphs
+# go with it), then by (params, cfg, B, n_steps, sampler, generator, the
+# cache tensors' addresses and shapes).
+_GRAPHS = WeakIdKeyDictionary()
+_CAPTURE_STREAMS: dict = {}
+
+
+def _cache_tensors(cache: dict) -> list:
+    return [t for key in (*_CACHE_LAYERS, "k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+            for t in cache.get(key, ())] + [cache["len"]] + ([cache["page_table"]] if "page_table" in cache else [])
+
+
+def _scratch_like(cache: dict) -> dict:
+    """A cache of the same kind, shapes and lengths with zero contents (a
+    warm-up target that leaves the real one untouched)."""
+    scratch = {key: [torch.zeros_like(t) for t in cache[key]] for key in cache if isinstance(cache[key], list)}
+    for key in ("len", "page_table"):
+        if key in cache:
+            scratch[key] = cache[key].clone()
+    if "host_len" in cache:
+        scratch["host_len"] = cache["host_len"].copy()
+    return scratch
+
+
+def _capture(params, cfg, cache, last_tokens, rng, n_steps, sampler) -> _Captured:
+    """Capture ``_scan_steps`` on the device's capture stream. Each kernel's
+    first use (its build, its plan, the GEMV argmax's work buffer of the
+    stream) happens first, in one warm-up step on a scratch cache with a
+    scratch generator on that stream. The launch counters are put back as
+    they were: a replay adds the captured counts. The capture's own
+    ``host_len`` additions are undone: a replay adds its ``n_steps``."""
+    dev = last_tokens.device
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    before = collections.Counter(dispatch.LAUNCHES)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        warm_rng = None if sampler is None else torch.Generator(device=dev).manual_seed(0)
+        _scan_steps(params, cfg, _scratch_like(cache), last_tokens.clone(), warm_rng, 1, sampler)
+    stream.synchronize()
+    warmed = collections.Counter(dispatch.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    if sampler is not None:
+        graph.register_generator_state(rng)
+    tokens_in = last_tokens.clone()
+    with torch.cuda.graph(graph, stream=stream):
+        tokens_out = _scan_steps(params, cfg, cache, tokens_in, rng, n_steps, sampler)
+    launches = collections.Counter(dispatch.LAUNCHES)
+    launches.subtract(warmed)
+    dispatch.LAUNCHES.clear()
+    dispatch.LAUNCHES.update(before)
+    if "host_len" in cache:
+        cache["host_len"] -= n_steps
+    return _Captured(graph, tokens_in, tokens_out, +launches, (params, rng))
+
+
+def generate_scan(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, rng=None, *, n_steps: int,
+                  sampler=None):
+    """``n_steps`` decode steps from ``last_tokens`` [B, 1] int32 (the
+    tokens to feed first), each step's token fed straight back on the
+    device: the counterpart of the JAX package's ``generate_scan``
+    (``rten_tpu/models/decoder.py:1226``, one ``lax.scan``). Returns
+    ``(tokens [B, n_steps] int32, cache)``, the cache advanced in place.
+
+    Greedy (``sampler`` None or an ``ArgMaxSampler``) takes each token from
+    the lm_head kernel's fused argmax. Any other sampler gets each step's
+    f32 logits (the lm_head GEMV without its argmax at ≤ 8 rows, the
+    prefill projection above) and ``rng``, a ``torch.Generator`` on the
+    cache's device (ValueError without one).
+
+    The cache must hold ``n_steps`` more tokens in every row, checked once
+    on the host before any step (IndexError, nothing run).
+
+    On the card the steps are captured once into a ``torch.cuda.CUDAGraph``
+    (cached on the cache, the params, cfg, B, n_steps, the sampler and the
+    generator) and replayed: each call copies ``last_tokens`` into the
+    graph's static input and returns a copy of its static output. The
+    generator is registered with the graph, so its state advances with
+    every replay and the same seed gives the same tokens captured and eager.
+    Replays run on the caller's current stream, in order: graphs captured
+    on one device share its capture stream's GEMV argmax work buffer.
+    Where a step would read a length on the host (``_capturable``) the
+    steps run eagerly, as they do on the CPU."""
+    from rten_tpu_torch.generate.sampler import ArgMaxSampler
+
+    if isinstance(sampler, ArgMaxSampler):
+        sampler = None
+    if sampler is not None and rng is None:
+        raise ValueError(f"{type(sampler).__name__} requires an rng (a torch.Generator)")
+    b = last_tokens.shape[0]
+    _check_room(cache, n_steps)
+    if last_tokens.device.type != "cuda" or not _capturable(cache, b, sampler is not None):
+        return _scan_steps(params, cfg, cache, last_tokens, rng, n_steps, sampler), cache
+    graphs = _GRAPHS.setdefault(cache["len"], {})
+    tensors = _cache_tensors(cache)
+    key = (id(params), cfg, b, n_steps, sampler, None if sampler is None else id(rng),
+           tuple((t.data_ptr(), tuple(t.shape)) for t in tensors))
+    entry = graphs.get(key)
+    if entry is None:
+        entry = graphs[key] = _capture(params, cfg, cache, last_tokens, rng, n_steps, sampler)
+    entry.tokens_in.copy_(last_tokens)
+    entry.graph.replay()
+    dispatch.LAUNCHES.update(entry.launches)
+    if "host_len" in cache:
+        cache["host_len"] += n_steps
+    return entry.tokens_out.clone(), cache
+
+
+def generate_greedy(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, n_steps: int):
+    """``n_steps`` greedy decode steps from ``last_tokens`` [B, 1]:
+    ``generate_scan`` without a sampler. Returns ``(tokens [B, n_steps]
+    int32, cache)``."""
+    return generate_scan(params, cfg, cache, last_tokens, n_steps=n_steps)

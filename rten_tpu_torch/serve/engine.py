@@ -13,7 +13,12 @@ slot at once.
   compile once, then splices a batch-1 cache into the slot.) Under W8A8
   that forward takes the prefill structure at any length, as the JAX
   engine's does (``prefill_first_token``).
-- **A tick** is a Python loop of forwards with ``lm_head_mode="argmax"``;
+- **Sampling.** Greedy (``ArgMaxSampler``, the default) takes each token
+  from the lm_head kernel's fused argmax. Any other sampler gets the f32
+  logits, of the prompt's last position at admission and of each tick
+  forward, and draws from the engine's ``torch.Generator`` (seeded from
+  ``seed``), so one seed gives the same streams.
+- **A tick** is a Python loop of forwards, each sampled on the device;
   EOS, the token budget and the active mask are decided on the device,
   and the tick's tokens and active flags reach the host in one copy at its
   end. An inactive row's device length is pinned to 0, so its append lands
@@ -23,8 +28,8 @@ slot at once.
 - ``run_pipelined`` dispatches the next tick from the device-side carry
   (last token, active mask, budget) before the host reads this one.
 
-Greedy only (``ArgMaxSampler``); at most 8 slots (the fused decode
-structure); no mesh or tensor parallelism yet.
+At most 8 slots (the fused decode structure); no mesh or tensor
+parallelism yet.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ class Request:
     finished: bool = False
 
 
-def check_engine_options(max_batch: int, sampler, mesh, tp_mode: str = "pjit") -> None:
+def check_engine_options(max_batch: int, mesh, tp_mode: str = "pjit") -> None:
     """The options the port's engines run, or NotImplementedError."""
     if mesh is not None or tp_mode != "pjit":
         raise NotImplementedError("mesh / tensor-parallel serving is not ported yet")
@@ -64,13 +69,22 @@ def check_engine_options(max_batch: int, sampler, mesh, tp_mode: str = "pjit") -
             f"max_batch {max_batch}: the port serves 1-{MAX_ROWS} rows per step (the fused decode "
             "structure); the JAX package's unfused path above that is not ported"
         )
-    if sampler is not None and not isinstance(sampler, ArgMaxSampler):
-        raise NotImplementedError("the port's engines sample greedily (ArgMaxSampler) only so far")
 
 
-def prefill_first_token(params, cfg, cache: dict, prompt) -> int:
-    """Feed ``prompt`` into a batch-1 cache as one forward; the greedy first
-    token (the lm_head's fused argmax at the last position), on the host.
+def sample_step(params, cfg, tokens, cache, sampler: Sampler, rng, **kw):
+    """One forward of ``tokens`` and its last position's token per row,
+    int32 [B, 1] on the device: the lm_head kernel's fused argmax under
+    ``ArgMaxSampler``, else ``sampler`` over the f32 logits with ``rng``."""
+    if isinstance(sampler, ArgMaxSampler):
+        tok, _ = decoder.forward(params, cfg, tokens, cache, lm_head_mode="argmax", last_only=True, **kw)
+        return tok[:, -1:]
+    logits, _ = decoder.forward(params, cfg, tokens, cache, last_only=True, **kw)
+    return sampler.sample(rng, logits[:, -1])[:, None]
+
+
+def prefill_first_token(params, cfg, cache: dict, prompt, sampler: Sampler, rng) -> int:
+    """Feed ``prompt`` into a batch-1 cache as one forward; the first token
+    (``sample_step`` at the last position), on the host.
 
     Under W8A8 the forward takes the prefill structure at any length, as
     the JAX engines' admission at a bucket of ≥ 32 rows does: there the
@@ -79,7 +93,7 @@ def prefill_first_token(params, cfg, cache: dict, prompt) -> int:
     in W8A8 where the JAX engine keeps those tiled packs weight-only."""
     dev = cache["len"].device
     ids = torch.as_tensor(np.asarray(prompt, np.int32)[None], device=dev)
-    tok, _ = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True, fuse=not cfg.w8a8)
+    tok = sample_step(params, cfg, ids, cache, sampler, rng, fuse=not cfg.w8a8)
     return int(tok.view(-1)[0])  # waits for the device
 
 
@@ -92,6 +106,7 @@ class ServingEngine:
         max_batch: int = 8,
         max_len: int | None = None,
         sampler: Sampler | None = None,
+        seed: int = 0,
         mesh=None,
         tp_mode: str = "pjit",
         steps_per_tick: int = 1,
@@ -99,8 +114,10 @@ class ServingEngine:
     ) -> None:
         """``cfg.int8_kv`` gives the slots an int8 cache with per-(token,
         head) scales."""
-        check_engine_options(max_batch, sampler, mesh, tp_mode)
+        check_engine_options(max_batch, mesh, tp_mode)
         self.device = resolve_device(device)
+        self.sampler = sampler or ArgMaxSampler()
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -202,7 +219,7 @@ class ServingEngine:
         host_len[self._mirror_budget <= 0] = 0
         toks, actives = [], []
         for i in range(k):
-            nxt, self.cache = decoder.forward(self.params, self.cfg, tok, self.cache, lm_head_mode="argmax")
+            nxt = sample_step(self.params, self.cfg, tok, self.cache, self.sampler, self._rng)
             hit_eos = (nxt == eos).any(1)
             act_next = act & ~hit_eos & (budget > i + 1)
             lens.mul_(act_next)
@@ -274,7 +291,8 @@ class ServingEngine:
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
         self.cache["len"][slot] = 0
         self.cache["host_len"][slot] = 0
-        first = prefill_first_token(self.params, self.cfg, decoder.row_view(self.cache, slot), req.prompt)
+        first = prefill_first_token(self.params, self.cfg, decoder.row_view(self.cache, slot), req.prompt,
+                                    self.sampler, self._rng)
         req.output.append(first)
         if req.on_token:
             req.on_token(first)

@@ -27,11 +27,11 @@ from collections import deque
 import numpy as np
 import torch
 
-from rten_tpu_torch.generate.sampler import Sampler
+from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler
 from rten_tpu_torch.kernels.dispatch import resolve_device
 from rten_tpu_torch.kernels.paged_attention import paged_attention_supported
 from rten_tpu_torch.models import decoder
-from rten_tpu_torch.serve.engine import Request, check_engine_options, prefill_first_token
+from rten_tpu_torch.serve.engine import Request, check_engine_options, prefill_first_token, sample_step
 
 
 class PagePool:
@@ -113,6 +113,7 @@ class PagedServingEngine:
         n_pages: int = 64,
         page_size: int = 128,
         sampler: Sampler | None = None,
+        seed: int = 0,
         int8_kv: bool = False,
         mesh=None,
         device="cuda",
@@ -121,8 +122,10 @@ class PagedServingEngine:
         pages; the admission prefill then runs on an int8 cache too, so the
         deeper layers see the same quantized-KV attention the contiguous
         int8 engine computes."""
-        check_engine_options(max_batch, sampler, mesh)
+        check_engine_options(max_batch, mesh)
         self.device = resolve_device(device)
+        self.sampler = sampler or ArgMaxSampler()
+        self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -199,7 +202,7 @@ class PagedServingEngine:
         if self.int8_kv:
             state["k_scale_pages"], state["v_scale_pages"] = self.pool.k_scales, self.pool.v_scales
         tokens = torch.from_numpy(self._last_tokens[:, None].copy()).to(self.device)
-        sampled, _ = decoder.forward(self.params, self.cfg, tokens, state, lm_head_mode="argmax")
+        sampled = sample_step(self.params, self.cfg, tokens, state, self.sampler, self._rng)
         sampled = sampled.view(-1).cpu().numpy()  # the step's one copy to the host
         self.steps += 1
 
@@ -248,7 +251,7 @@ class PagedServingEngine:
             slot = self.seqs.index(None)
 
             tmp = decoder.init_cache(self._prefill_cfg, 1, need * psz, self.device)
-            first = prefill_first_token(self.params, self._prefill_cfg, tmp, ctx)
+            first = prefill_first_token(self.params, self._prefill_cfg, tmp, ctx, self.sampler, self._rng)
             for li in range(self.cfg.n_layers):
                 self.pool.write_prefix(li, pages, tmp, len(ctx))
             req.output.append(first)

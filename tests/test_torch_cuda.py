@@ -314,18 +314,25 @@ def test_generate_greedy_past_cache_raises(dev):
     cache = decoder.init_cache(cfg, 1, 8, device=dev)
     first = torch.tensor([[3]], dtype=torch.int32, device=dev)
     with pytest.raises(IndexError, match="KV cache full"):
-        decoder.generate_greedy(params, cfg, cache, first, 9)
+        decoder.generate_greedy(params, cfg, cache, first, 9)  # checked for all 9 steps before the capture
+    assert cache["host_len"] == 0 and int(cache["len"][0]) == 0
+    decoder.generate_greedy(params, cfg, cache, first, 8)
+    with pytest.raises(IndexError, match="KV cache full"):
+        decoder.generate_greedy(params, cfg, cache, first, 1)
     assert cache["host_len"] == 8 and int(cache["len"][0]) == 8
 
 
 @contextlib.contextmanager
 def _plain_decoder(decoder):
-    """Route the decoder's seven kernel calls to their plain versions."""
+    """Route the decoder's seven kernel calls to their plain versions, and
+    ``generate_scan`` to its eager steps (the plain versions read lengths
+    on the host, which a CUDA graph capture cannot)."""
     from rten_tpu_torch.kernels.decode_attention import decode_block_ref
 
     names = ("quant_gemv_int8", "quant_mlp_int8", "quant_matmul_int8", "quant_matmul_w8a8", "decode_attention",
-             "decode_block", "flash_attention")
+             "decode_block", "flash_attention", "_capturable")
     saved = {name: getattr(decoder, name) for name in names}
+    decoder._capturable = lambda *args: False
     decoder.quant_gemv_int8 = qm.quant_gemv_int8_ref
     decoder.quant_mlp_int8 = qm.quant_mlp_int8_ref
     decoder.quant_matmul_int8 = qm.quant_matmul_int8_ref
@@ -577,6 +584,115 @@ def test_tiny_engines_match_cpu(dev, engine):
     assert on_card == on_cpu
     if engine.endswith("paged"):
         assert eng.pool.n_free == eng.pool.n_pages
+
+
+# ---------------------------------------------------------------------------
+# generate_scan: n decode steps captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+SCAN_SAMPLERS = {"greedy": None, "temperature": ("TemperatureSampler", (0.8,)),
+                 "topk": ("TopKSampler", (50, 0.8)), "topp": ("TopPSampler", (0.9, 0.8))}
+
+
+@contextlib.contextmanager
+def _eager_scan(decoder):
+    """``generate_scan`` runs its steps eagerly (no capture)."""
+    saved = decoder._capturable
+    decoder._capturable = lambda *args: False
+    try:
+        yield
+    finally:
+        decoder._capturable = saved
+
+
+def _sampler(name):
+    from rten_tpu_torch.generate import sampler as sm
+
+    spec = SCAN_SAMPLERS[name]
+    return None if spec is None else getattr(sm, spec[0])(*spec[1])
+
+
+def _scan_twice(decoder, cfg, params, dev, b, sampler, n=12):
+    """A 7-token prompt, then ``generate_scan`` twice (the second call
+    replays the first call's graph) with one seeded generator: the tokens
+    [B, 2n], the cache and the launch counts of the two calls."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    prompt = torch.randint(0, cfg.vocab_size, (b, 7), generator=gen, device=dev, dtype=torch.int32)
+    cache = decoder.init_cache(cfg, b, 64, device=dev)
+    first, cache = decoder.prefill(params, cfg, prompt, cache, lm_head_mode="argmax", last_only=True)
+    rng = torch.Generator(device=dev).manual_seed(5)
+    dispatch.reset_counters()
+    a, cache = decoder.generate_scan(params, cfg, cache, first, rng, n_steps=n, sampler=sampler)
+    c, cache = decoder.generate_scan(params, cfg, cache, a[:, -1:], rng, n_steps=n, sampler=sampler)
+    return torch.cat([a, c], 1), cache, dict(dispatch.LAUNCHES)
+
+
+@pytest.mark.parametrize("name", SCAN_SAMPLERS)
+@pytest.mark.parametrize("kind,b", [("bf16", 1), ("bf16", 3), ("int8", 2), ("bf16", 12)])
+def test_generate_scan_captured_equals_eager(dev, kind, b, name):
+    """The captured steps give the eager steps' tokens with the same seed
+    (the generator advances with each replay), count the same launches,
+    and leave the same device and host lengths; a second call replays the
+    one graph."""
+    import dataclasses
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    cfg = dataclasses.replace(cfg, int8_kv=kind == "int8")
+    sampler = _sampler(name)
+    got, cache, launches = _scan_twice(decoder, cfg, params, dev, b, sampler)
+    assert len(decoder._GRAPHS[cache["len"]]) == 1
+    with _eager_scan(decoder):
+        want, eager_cache, eager_launches = _scan_twice(decoder, cfg, params, dev, b, sampler)
+    assert got.tolist() == want.tolist()
+    assert launches == eager_launches and not dispatch.PLAIN
+    assert cache["len"].tolist() == eager_cache["len"].tolist() == [7 + 24] * b
+    assert cache["host_len"].tolist() == [7 + 24] * b
+    if name != "greedy":
+        assert len(set(got.view(-1).tolist())) > 3  # the draws are not collapsed onto one token
+
+
+def test_generate_scan_int8_cache_past_eight_rows_runs_eagerly(dev):
+    """An int8 cache above 8 rows attends through the eager int8 branch,
+    which reads the host length: no graph, and the steps run eagerly."""
+    import dataclasses
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    cfg = dataclasses.replace(cfg, int8_kv=True)
+    got, cache, _ = _scan_twice(decoder, cfg, params, dev, 12, _sampler("temperature"))
+    assert cache["len"] not in decoder._GRAPHS
+    with _eager_scan(decoder):
+        want, _, _ = _scan_twice(decoder, cfg, params, dev, 12, _sampler("temperature"))
+    assert got.tolist() == want.tolist()
+
+
+def test_generate_scan_two_graphs_on_one_stream(dev):
+    """Two caches' graphs (greedy at 1 row, top-p at 2) share the capture
+    stream's GEMV argmax buffer; their replays, interleaved in order on one
+    stream, give their eager runs' tokens."""
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    cases = [(1, None), (2, _sampler("topp"))]
+
+    def run():
+        states = []
+        for b, sampler in cases:
+            gen = torch.Generator(device=dev).manual_seed(30 + b)
+            prompt = torch.randint(0, cfg.vocab_size, (b, 5), generator=gen, device=dev, dtype=torch.int32)
+            cache = decoder.init_cache(cfg, b, 64, device=dev)
+            first, cache = decoder.prefill(params, cfg, prompt, cache, lm_head_mode="argmax", last_only=True)
+            states.append([cache, first, torch.Generator(device=dev).manual_seed(b), []])
+        for _ in range(3):
+            for (b, sampler), state in zip(cases, states):
+                cache, last, rng, out = state
+                toks, _ = decoder.generate_scan(params, cfg, cache, last, rng, n_steps=6, sampler=sampler)
+                out.append(toks)
+                state[1] = toks[:, -1:]
+        return [torch.cat(state[3], 1).tolist() for state in states], [state[0] for state in states]
+
+    got, caches = run()
+    assert all(len(decoder._GRAPHS[c["len"]]) == 1 for c in caches)
+    with _eager_scan(decoder):
+        want, _ = run()
+    assert got == want
 
 
 # ---------------------------------------------------------------------------

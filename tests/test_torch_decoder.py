@@ -332,8 +332,15 @@ def test_generate_greedy_past_cache_raises():
     params = tdec.quantize_params_int8(tdec.params_from_jax(dense_tree(0), tcfg, device="cpu"),
                                        device="cpu")
     cache = tdec.init_cache(tcfg, 1, 8, device="cpu")
+    first = torch.zeros((1, 1), dtype=torch.int32)
+    dispatch.reset_counters()
     with pytest.raises(IndexError, match="KV cache full"):
-        tdec.generate_greedy(params, tcfg, cache, torch.zeros((1, 1), dtype=torch.int32), 9)
+        tdec.generate_greedy(params, tcfg, cache, first, 9)  # checked for all 9 steps up front
+    assert not dispatch.PLAIN
+    assert cache["host_len"] == 0 and int(cache["len"][0]) == 0
+    tdec.generate_greedy(params, tcfg, cache, first, 8)
+    with pytest.raises(IndexError, match="KV cache full"):
+        tdec.generate_greedy(params, tcfg, cache, first, 1)
     assert cache["host_len"] == 8 and int(cache["len"][0]) == 8
 
 
