@@ -3,10 +3,12 @@
 NVIDIA card.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --prefill  # phases 1-2, the prefill kernels' and matmul_fused's
+    python3 chip_smoke.py --prefill [LABEL] [--package DIR]
+                                     # phases 1-2, the prefill kernels' and matmul_fused's
                                      # checks, and one prefill forward's device time by
-                                     # kernel, weight-only and W8A8 (see prefill_only);
-                                     # its last line is marked partial
+                                     # kernel and launches, weight-only and W8A8, of this
+                                     # tree's package or DIR's (see prefill_only); its
+                                     # last line is marked partial
     python3 chip_smoke.py --kv LABEL [--package DIR]
                                      # phases 1-2 and the KV kernels' and decode_block's
                                      # checks, of this tree's package or DIR's (see
@@ -32,7 +34,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GPT-2-small's shapes (bf16 activations, int8 weights), the prefill
    matmuls (weight-only and W8A8) and flash attention at the Qwen2-0.5B
    shape's too (each with its split-K or split-KV plan and its wrapper's
-   host µs a call; the W8A8 matmul also without its row quantizer), the
+   host µs a call; the W8A8 matmul, one launch with its rows quantized
+   inside, also against the two-launch pair bit for bit and beside the
+   pair's time and its matmul launch alone), the
    decode GEMV (its argmax included) and MLP at 1 and 8 rows and the
    GEMV at the Qwen2-0.5B shape's qkv, w_gu, w_down and lm_head + argmax
    (each with its plan and its launches a call, which must be one), and
@@ -763,11 +767,15 @@ def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
     """quant_matmul_w8a8 at the prefill projections of GPT-2-small (a
     layer's four, with GELU on the up one) and of the Qwen2-0.5B shape (qkv
     with its bias, w_gu, w_down) at 64 and 512 prompt rows, and 2048^3,
-    against its plain version. Its time (ms) is both launches, quantize then
-    matmul; ``matmul_ms`` is the matmul launch alone on the same codes
-    (``quant_matmul_w8a8_codes``), the like-for-like time beside
-    torch._int_mm's; with the split-K plan and the wrapper's host µs a
-    call."""
+    against its plain version and bit for bit against the two-launch pair
+    (quantize_rows_int8, then quant_matmul_w8a8_codes). Its time (ms) is one
+    call of the wrapper (one launch; a parent package's wrapper, under
+    --package, launched the pair); ``pair_ms`` is the pair's two launches;
+    ``matmul_ms`` the pair's matmul launch alone on the same codes, the
+    like-for-like time beside torch._int_mm's; with the plan (split-K, and
+    the one-launch layout), the launches a call by kernel and the wrapper's
+    host µs a call."""
+    from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.kernels import quant_matmul as qm
 
     f32 = torch.float32
@@ -788,12 +796,23 @@ def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
             return (randn(m, k), qt, s, 0.1 * randn(n, dtype=f32) if with_bias else None), dict(activation=act)
 
         args, kw = make(0)
-        out = qm.quant_matmul_w8a8(*args, **kw)
-        err, tol = w8_err(out, qm.quant_matmul_w8a8_ref(*args, **kw))
         x, qt, s, bias = args
+
+        def pair(a, kw):
+            return qm.quant_matmul_w8a8_codes(*qm.quantize_rows_int8(a[0]), *a[1:], out_dtype=a[0].dtype, **kw)
+
+        before = dict(dispatch.LAUNCHES)
+        out = qm.quant_matmul_w8a8(*args, **kw)
+        per_call_launches = {key: v - before.get(key, 0) for key, v in dispatch.LAUNCHES.items()
+                             if key in ("quant_matmul_w8a8", "quantize_rows_int8") and v != before.get(key, 0)}
+        torch.cuda.synchronize()
+        if not torch.equal(out, pair(args, kw)):
+            raise AssertionError(f"quant_matmul_w8a8 {name}: the one call differs from the two-launch pair's bits")
+        err, tol = w8_err(out, qm.quant_matmul_w8a8_ref(*args, **kw))
         per_call = nbytes(x, qt, s, bias) + 2 * m * n
         copies = [make(i) for i in range(copies_for(per_call))]
         ms = graph_ms(torch, [lambda a=a, kw=kw: qm.quant_matmul_w8a8(*a, **kw) for a, kw in copies])
+        pair_ms = graph_ms(torch, [lambda a=a, kw=kw: pair(a, kw) for a, kw in copies])
         plain = eager_ms(torch, lambda: qm.quant_matmul_w8a8_ref(*args, **kw))
         codes = [qm.quantize_rows_int8(c[0][0]) for c in copies]
         matmul_ms = graph_ms(torch, [lambda c=c, a=a: qm.quant_matmul_w8a8_codes(*c, *a[0][1:], out_dtype=x.dtype,
@@ -801,9 +820,11 @@ def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
                                      for c, a in zip(codes, copies)])
         lib_in = [(c[0], a[0][1].t()) for c, a in zip(codes, copies)]
         library = graph_ms(torch, [lambda t=t: torch._int_mm(*t) for t in lib_in])
+        plan = qm.w8a8_device_plan(x, n)
+        layout = dict(stages=plan.stages, slots=plan.slots, resident=plan.resident) if hasattr(plan, "slots") else {}
         record("quant_matmul_w8a8", f"{name} N={n} K={k}", err, tol, ms, plain,
-               bound(per_call, 2 * m * n * k, int8=True), library, matmul_ms=matmul_ms,
-               split=qm.w8a8_device_plan(codes[0][0], n)[2],
+               bound(per_call, 2 * m * n * k, int8=True), library, pair_ms=pair_ms, matmul_ms=matmul_ms,
+               split=plan[2], **layout, launches_a_call=per_call_launches,
                host_us=host_us(torch, lambda: qm.quant_matmul_w8a8(*args, **kw)))
         del copies, codes, lib_in
 
@@ -1965,8 +1986,8 @@ def drive_serving(torch, cfg, params, out):
 # Phase 6: W8A8 (DecoderConfig(w8a8=True)) at full width
 # ---------------------------------------------------------------------------
 
-W8A8_KERNELS = ("quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8", "quant_matmul_w8a8", "quantize_rows_int8",
-                "decode_attention", "flash_attention", "quant_matmul_int8")  # the last: the tiled packs
+W8A8_KERNELS = ("quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8", "quant_matmul_w8a8", "decode_attention",
+                "flash_attention", "quant_matmul_int8")  # the last: the tiled packs
 W8A8_GATE = 0.10  # relative RMS of W8A8 against weight-only logits: the bound PERF.md states
 
 
@@ -2776,8 +2797,11 @@ KERNELS = {
     "quant_matmul_w8a8:split_k": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
                                       replaces="rten_tpu/kernels/quant_matmul.py:760", timed="down M=64",
                                       cases_of="quant_matmul_w8a8", select=lambda c: c.get("split", 1) > 1),
+    # The row quantizer runs inside quant_matmul_w8a8's one launch; its own
+    # kernel, with quant_matmul_w8a8_codes the two-launch pair that launch
+    # must equal, is checked in phase 3 and launches on no main path.
     "quantize_rows_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul_w8a8.cu",
-                               replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64"),
+                               replaces="rten_tpu/kernels/quant_matmul.py:792", timed="M=64", on_path=False),
     "decode_block": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
                          replaces="rten_tpu/kernels/decode_attention.py:118", timed="kv_len=300 +next_qkv"),
     "decode_block:gqa": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
@@ -2804,16 +2828,20 @@ KERNELS = {
 }
 
 
-def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
-    """``--prefill``: the prefill kernels at both models' shapes (phase 3's
-    check_prefill_kernels and check_w8a8_matmul), matmul_fused on its three
-    routes (check_matmul_fused), and the device µs by kernel of one prefill
-    forward of GPT-2-small and of the Qwen2-0.5B shape at prompts 64 and
-    512, weight-only and W8A8, written to chiprun_out/prefill.json. A timing
-    mode, not the check: its last line is marked partial, never the full
-    run's ok line."""
+def prefill_only(torch, bound, cfg, detail, kind, smi, label: str = "") -> int:
+    """``--prefill [LABEL]``: the prefill kernels at both models' shapes
+    (phase 3's check_prefill_kernels and check_w8a8_matmul), matmul_fused on
+    its three routes (check_matmul_fused), and the device µs by kernel and
+    the launches of one prefill forward of GPT-2-small and of the
+    Qwen2-0.5B shape at prompts 64 and 512, weight-only and W8A8, written
+    to chiprun_out/prefill.json (prefill_LABEL.json). A timing mode, not
+    the check: its last line is marked partial, never the full run's ok
+    line, and it holds no launch count to the one-launch rule, so that
+    ``--package`` can time a parent commit's package with the same checks
+    in the same call: parent, tree, tree, parent."""
     import dataclasses
 
+    from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.models import decoder
 
     randn, pack, _norm_vecs, bf16_err, record, cases = check_tools(torch)
@@ -2822,8 +2850,8 @@ def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
     check_w8a8_matmul(torch, bound, cfg, randn, pack, record)
     check_matmul_fused(torch, bound, cfg, randn, bf16_err, record)
     detail["cases"] = cases
-    log("[4/4] device us by kernel of one prefill forward, weight-only and W8A8")
-    forwards = {}
+    log("[4/4] device us by kernel and launches of one prefill forward, weight-only and W8A8")
+    forwards, launches = {}, {}
     gen = torch.Generator().manual_seed(0)
     for key, make_cfg, cache_len in (("gpt2", lambda: cfg, CACHE_LEN),
                                      ("qwen2", lambda: decoder.DecoderConfig(**QWEN2_CFG, dtype=torch.bfloat16),
@@ -2836,16 +2864,23 @@ def prefill_only(torch, bound, cfg, detail, kind, smi) -> int:
             for mode, run_cfg in (("", mcfg), (" w8a8", dataclasses.replace(mcfg, w8a8=True))):
                 by_kernel = prefill_device_us(torch, run_cfg, params, ids, cache_len)
                 forwards[f"{key}{mode} {n}"] = by_kernel
-                log(f"  {key}{mode} prefill {n}: device {sum(by_kernel.values()) / 1e3:.4f} ms; by kernel (us):")
+                dispatch.reset_counters()
+                cache = decoder.init_cache(run_cfg, 1, cache_len, device="cuda")
+                decoder.prefill(params, run_cfg, ids, cache, lm_head_mode="argmax", last_only=True)
+                launches[f"{key}{mode} {n}"] = dict(dispatch.LAUNCHES)
+                log(f"  {key}{mode} prefill {n}: device {sum(by_kernel.values()) / 1e3:.4f} ms; launches a "
+                    f"forward {sum(dispatch.LAUNCHES.values())} {dict(dispatch.LAUNCHES)}; by kernel (us):")
                 for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
                     log(f"    {us:9.3f}  {name[:90]}")
         del params
         torch.cuda.empty_cache()
     detail["prefill_forward_us"] = forwards
-    (OUT_DIR / "prefill.json").write_text(json.dumps(detail, indent=1))
+    detail["prefill_forward_launches"] = launches
+    (OUT_DIR / (f"prefill_{label}.json" if label else "prefill.json")).write_text(json.dumps(detail, indent=1))
     print(smi)
-    print(json.dumps({"partial": "prefill", "kind": kind,
-                      "prefill_ms": {k: sum(v.values()) / 1e3 for k, v in forwards.items()}}))
+    print(json.dumps({"partial": "prefill", "kind": kind, "label": label,
+                      "prefill_ms": {k: sum(v.values()) / 1e3 for k, v in forwards.items()},
+                      "launches_a_forward": {k: sum(v.values()) for k, v in launches.items()}}))
     return 0
 
 
@@ -2945,6 +2980,16 @@ def gemv_only(torch, bound, cfg, detail, kind, smi, label: str) -> int:
     return 0
 
 
+def one_launch_w8a8(cases) -> None:
+    """quant_matmul_w8a8 above 8 rows: one launch of its own a call and
+    none of quantize_rows_int8."""
+    wrong = [f"{c['shape']}: {c['launches_a_call']}" for c in cases
+             if c["kernel"] == "quant_matmul_w8a8" and "launches_a_call" in c
+             and c["launches_a_call"] != {"quant_matmul_w8a8": 1}]
+    if wrong:
+        raise AssertionError("quant_matmul_w8a8 not one launch a call: " + "; ".join(wrong))
+
+
 def one_launch_a_call(cases) -> None:
     """Each case's launches a call: the KV kernels one attention launch (two
     with the fused wo, the GEMV its own launch) and no combine kernel; the
@@ -2963,13 +3008,15 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description="Build, check and drive rten_tpu_torch on one NVIDIA card.")
-    parser.add_argument("--prefill", action="store_true", help="the prefill kernels' timing mode (prefill_only)")
+    parser.add_argument("--prefill", nargs="?", const="", metavar="LABEL",
+                        help="the prefill kernels' timing mode (prefill_only); LABEL names its output file")
     parser.add_argument("--kv", metavar="LABEL", help="the KV kernels' timing mode (kv_only)")
     parser.add_argument("--gemv", metavar="LABEL", help="the decode GEMV's and MLP's timing mode (gemv_only)")
-    parser.add_argument("--package", metavar="DIR", help="with --kv or --gemv: import rten_tpu_torch from DIR")
+    parser.add_argument("--package", metavar="DIR",
+                        help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
-    if opts.package and not (opts.kv or opts.gemv):
-        parser.error("--package times another package's kernels: it needs --kv or --gemv")
+    if opts.package and not (opts.kv or opts.gemv or opts.prefill is not None):
+        parser.error("--package times another package's kernels: it needs --prefill, --kv or --gemv")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -3014,8 +3061,8 @@ def main() -> int:
     detail["build_seconds"] = built
 
     cfg = decoder.DecoderConfig(dtype=torch.bfloat16, max_seq=1024)
-    if opts.prefill:
-        return prefill_only(torch, bound, cfg, detail, kind, smi)
+    if opts.prefill is not None:
+        return prefill_only(torch, bound, cfg, detail, kind, smi, opts.prefill)
     if opts.kv:
         return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
     if opts.gemv:
@@ -3058,6 +3105,10 @@ def main() -> int:
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
+    if launches.get("quantize_rows_int8", 0):
+        raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
+                             "paths: quant_matmul_w8a8 quantizes inside its one launch")
+    one_launch_w8a8(cases)
     log("[11/11] summary")
     entries = []
     for name, meta in KERNELS.items():

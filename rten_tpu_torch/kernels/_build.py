@@ -108,6 +108,16 @@ SIGNATURES = {
         _P,                          # stream
     ],
     "rt_quant_matmul_w8a8_clusters": [_I, _I, _I],  # tok, ch, split
+    "rt_quant_matmul_w8a8_fused": [
+        _P, _I, _I, _I,              # x, x_bf16, m, k
+        _P, _P, _P, _I,              # w_t, scales, bias, n
+        _I, _P, _I,                  # act, out, out_bf16
+        _I, _I, _I,                  # tok, ch, split (quant_matmul.py w8a8_plan)
+        _I, _I,                      # stages, slots (quant_matmul.py w8a8_layout)
+        _P,                          # stream
+    ],
+    "rt_quant_matmul_w8a8_fused_clusters": [_I, _I, _I, _I],  # tok, ch, split, smem
+    "rt_quant_matmul_w8a8_fused_smem": [_I, _I, _I, _I, _I],  # tok, ch, stages, slots, x_bf16
     "rt_flash_attention": [
         _P, _L, _L, _L,              # q and its batch, head, position strides
         _P, _L, _L, _L,              # k ...

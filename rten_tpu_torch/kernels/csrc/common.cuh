@@ -52,6 +52,42 @@ __device__ __forceinline__ unsigned quantize4(const float4& x, float scale) {
          (quantize_code(x.w, scale) << 24);
 }
 
+// The codes quantize4 gives for 16 values, four to a word, without a
+// division, for all but the values it marks in `exact` (bit e for x[e]):
+// the caller gives those quantize_code's IEEE division. inv is 1 / scale by
+// IEEE division, once a row, or 0 to mark every value (scale below 2^-126,
+// whose reciprocal may overflow, or infinite). q = x * inv is within 3 *
+// 2^-24 * |x / scale| < 2.3e-5 of the IEEE quotient (|x / scale| <=
+// 127.00001), so q rounds to the same integer unless it lies within 2^-14
+// of a half-integer: such values (0.1-0.2% of random bf16 values, most of
+// them the tie at absmax / 2) and NaN are marked. |q| < 127.5, so no clamp
+// is needed; adding 1.5 * 2^23 rounds half to even as rintf does and leaves
+// the code in the sum's low byte, so there is no float-to-int conversion
+// either (a quarter-rate instruction).
+__device__ __forceinline__ uint4 quantize16(const float (&x)[16], float inv, unsigned& exact) {
+  constexpr float MAGIC = 12582912.f;  // 1.5 * 2^23
+  unsigned w[4];
+  exact = inv == 0.f ? 0xffffu : 0u;
+#pragma unroll
+  for (int i = 0; i < 16; i += 4) {
+    unsigned b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float q = x[i + e] * inv;
+      const float u = q + MAGIC;
+      if (!(fabsf(q - (u - MAGIC)) <= 0.5f - 0x1p-14f)) exact |= 1u << (i + e);
+      b[e] = __float_as_uint(u);
+    }
+    w[i / 4] = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// inv of quantize16 for a row's scale.
+__device__ __forceinline__ float quantize_inv(float scale) {
+  return scale >= 0x1p-126f && scale <= 3.4028234663852886e38f ? 1.f / scale : 0.f;
+}
+
 __device__ __forceinline__ float absmax4(const float4& x) {
   return fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
 }

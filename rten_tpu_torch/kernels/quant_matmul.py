@@ -9,9 +9,10 @@ Counterpart of ``rten_tpu/kernels/quant_matmul.py`` (``quant_gemv_int8``
 scales; activations are f32 or bf16. Weight-only (the default), every sum
 is kept in f32. ``w8a8=True`` on the GEMV and the MLP (the JAX package's
 ``w_convert="w8a8"``) and ``quant_matmul_w8a8`` quantize the activations
-per row to int8 first (``quantize_rows_int8``: the JAX package's
-``_act_quantize``, :124) and take s8 × s8 sums exactly in int32, rescaled
-as ``(acc · sx) · scale`` in f32.
+per row to int8 first (the JAX package's ``_act_quantize``, :124: the
+prefill matmul inside its one launch, the GEMV and MLP inside theirs;
+``quantize_rows_int8`` on its own, a yardstick on no model path) and take
+s8 × s8 sums exactly in int32, rescaled as ``(acc · sx) · scale`` in f32.
 
 Weight layout: the port stores every int8 matrix transposed, ``[N, K]`` with
 K contiguous (``int8_pack``), so that a warp reads each output column's
@@ -614,8 +615,9 @@ def quant_gemv_int8(
 
 # Launch plan of the prefill matmuls on int8 weights (csrc/quant_matmul.cu
 # qmm_wgmma_kernel, bf16 activations; csrc/quant_matmul_w8a8.cu
-# qmm_s8_wgmma_kernel, W8A8 codes): a block owns ``tok`` tokens and ``tok``
-# output channels (64 for each of its tok / 64 consumer warpgroups), a stage
+# qmm_w8a8_kernel, W8A8, and qmm_s8_wgmma_kernel, W8A8 codes): a block owns
+# ``tok`` tokens and ``tok`` output channels (64 for each of its tok / 64
+# consumer warpgroups; W8A8: ``ch`` for each), a stage
 # QW_BK of K; a cluster of ``split`` blocks divides the n K steps, rank r
 # taking ``[r n / split, (r + 1) n / split)``.
 QW_BK = 128
@@ -653,19 +655,25 @@ def matmul_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None =
     return tok, split_for(tiles, -(-k // QW_BK), sms, fits)
 
 
-@functools.lru_cache(maxsize=32)
-def cluster_capacity(device_index: int, tok: int, kernel: str = "int8", ch: int = 64) -> tuple[int, ...]:
+@functools.lru_cache(maxsize=64)
+def cluster_capacity(device_index: int, tok: int, kernel: str = "int8", ch: int = 64, smem: int = 0
+                     ) -> tuple[int, ...]:
     """``fits`` of ``split_for`` for ``kernel``'s ``tok``-token block on
-    this device (``"int8"``: quant_matmul.cu's bf16 block; ``"w8a8"``:
-    quant_matmul_w8a8.cu's, with ``ch`` output channels a consumer
-    warpgroup): clusters of 1..MAX_SPLIT blocks it holds at once
-    (``cudaOccupancyMaxActiveClusters``), queried once."""
+    this device (``"int8"``: quant_matmul.cu's bf16 block; ``"w8a8"``: the
+    two-launch W8A8 matmul's, with ``ch`` output channels a consumer
+    warpgroup; ``"w8a8_fused"``: the one-launch W8A8 kernel's, with
+    ``smem`` bytes of shared memory a block): clusters of 1..MAX_SPLIT
+    blocks it holds at once (``cudaOccupancyMaxActiveClusters``), queried
+    once."""
     lib = _build.library()
     with torch.cuda.device(device_index):
         if kernel == "int8":
             fits = tuple(int(lib.rt_quant_matmul_clusters(tok, c)) for c in range(1, MAX_SPLIT + 1))
-        else:
+        elif kernel == "w8a8":
             fits = tuple(int(lib.rt_quant_matmul_w8a8_clusters(tok, ch, c)) for c in range(1, MAX_SPLIT + 1))
+        else:
+            fits = tuple(int(lib.rt_quant_matmul_w8a8_fused_clusters(tok, ch, c, smem))
+                         for c in range(1, MAX_SPLIT + 1))
     for c, n in enumerate(fits, 1):
         if n < 0:
             _build.check(-n, f"{kernel} matmul cluster capacity (tok {tok}, ch {ch}, cluster {c})")
@@ -675,26 +683,118 @@ def cluster_capacity(device_index: int, tok: int, kernel: str = "int8", ch: int 
 def w8a8_channels(m: int, n: int, sms: int) -> int:
     """Output channels a consumer warpgroup of the W8A8 matmul takes: 128
     (two wgmma M tiles on each stage's codes: a 128-token block of 256
-    channels) where such blocks still fill at least 7/8 of the ``sms`` SMs
-    in one wave (2048^3, the Qwen2-0.5B shape's ``w_gu`` at 512 rows), else
-    64 (measured on the H100: the wide block is 4-25% faster there and
-    slower wherever its tiles are fewer)."""
-    if matmul_tokens(m) == 128 and 8 * (-(-n // 256) * -(-m // 128)) >= 7 * sms:
-        return 128
-    return 64
+    channels) wherever a block has 128 tokens, else 64. The one-launch
+    kernel quantizes its token tile in every block along N, so the wide
+    block halves that work, and split-K (``w8a8_plan``) fills the card
+    where its tiles are few, shortening each rank's pass over its rows
+    (measured on the H100: 1.0-1.7x faster than 64 channels at the
+    512-row projections of both models; ``sms`` is unused)."""
+    return 128 if matmul_tokens(m) == 128 else 64
 
 
 @functools.lru_cache(maxsize=1024)
 def w8a8_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None = None) -> tuple[int, int, int]:
-    """``(tok, ch, split)`` of one ``quant_matmul_w8a8`` matmul launch on a
-    card with ``sms`` SMs: tokens a block (``matmul_tokens``), output
-    channels a consumer warpgroup (``w8a8_channels``; a block has one per
-    64 tokens) and the split-K cluster size (``split_for`` over K stages of
-    ``QW_BK`` codes; ``fits``: the device's cluster capacity for that
-    block, ``cluster_capacity``)."""
+    """``(tok, ch, split)`` of one ``quant_matmul_w8a8`` launch on a card
+    with ``sms`` SMs: tokens a block (``matmul_tokens``), output channels a
+    consumer warpgroup (``w8a8_channels``; a block has one per 64 tokens)
+    and the split-K cluster size (``split_for`` over K stages of ``QW_BK``
+    values; ``fits``: the device's cluster capacity for that block,
+    ``cluster_capacity``: the one-launch kernel's at ``w8a8_base_smem``, or
+    the two-launch matmul's)."""
     tok, ch = matmul_tokens(m), w8a8_channels(m, n, sms)
     tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
     return tok, ch, split_for(tiles, -(-k // QW_BK), sms, fits)
+
+
+# Shared memory of the one-launch W8A8 kernel (csrc/quant_matmul_w8a8.cu
+# qmm_w8a8_kernel) on an H100: a block's most (one 128-token block an SM, or
+# any block alone on its SM), and each of two 64-token blocks on one SM (of
+# the SM's 228 KB, 1 KB a block is the system's).
+W8A8_SMEM_BLOCK = 232448
+W8A8_SMEM_PAIR = 233472 // 2 - 1024
+W8A8_STAGES_MAX = {(64, 64): 4, (128, 64): 6, (128, 128): 4}  # ring stages at most (the two-launch matmul's)
+W8A8_STAGES_REREAD = 3  # ring stages where the rows arrive twice, the rest of the budget for their slots
+
+
+def w8a8_smem(tok: int, ch: int, stages: int, slots: int, act_bytes: int) -> int:
+    """Shared memory of a one-launch W8A8 block (csrc/quant_matmul_w8a8.cu
+    Q8XLayout): ``stages`` ring stages of [tok][128] codes and [BN][128]
+    weights and ``slots`` activation slots of [tok][128] values of
+    ``act_bytes`` (the [tok][BN] int32 sums of the epilogue reuse both, and
+    need at least their own size), an mbarrier a stage twice and a slot
+    once, three floats a row, and 1024 bytes of alignment slack."""
+    bn = ch * tok // 64
+    region = max(stages * (tok + bn) * QW_BK + slots * tok * QW_BK * act_bytes, tok * (bn + 4) * 4)
+    return 1024 + region + 8 * (2 * stages + slots) + 12 * tok
+
+
+class W8A8Layout(NamedTuple):
+    """A one-launch W8A8 block's shared memory: ``stages`` ring stages,
+    ``slots`` activation slots, ``smem`` bytes; ``resident``: the slots
+    hold a rank's whole K range of its tile, read once."""
+
+    stages: int
+    slots: int
+    smem: int
+    resident: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def w8a8_layout(tok: int, ch: int, k: int, split: int, act_bytes: int, budget: int) -> W8A8Layout:
+    """The layout of a one-launch W8A8 block within ``budget`` bytes, for
+    the most K steps a rank of ``split`` takes (``n``): resident (a slot a
+    step) with min(n, W8A8_STAGES_MAX) ring stages, or fewer down to
+    min(n, 2), where that fits; else the rows arrive a second time, through
+    as many slots (at least 2) as fit beside min(n, W8A8_STAGES_REREAD)
+    stages, or fewer down to min(n, 2). A rank of two steps or more needs
+    two stages (its consumers free a stage one step late). Raises
+    ValueError when nothing fits."""
+    n = -(-(-(-k // QW_BK)) // split)
+    low, top = min(n, 2), min(n, W8A8_STAGES_MAX[tok, ch])
+
+    def smem(stages, slots):
+        return w8a8_smem(tok, ch, stages, slots, act_bytes)
+
+    for stages in range(top, low - 1, -1):
+        if smem(stages, n) <= budget:
+            return W8A8Layout(stages, n, smem(stages, n), True)
+    for stages in range(min(top, W8A8_STAGES_REREAD), low - 1, -1):
+        slots = 2
+        while slots + 1 < n and smem(stages, slots + 1) <= budget:
+            slots += 1
+        if smem(stages, slots) <= budget:
+            return W8A8Layout(stages, slots, smem(stages, slots), False)
+    raise ValueError(f"W8A8 block {tok} x {ch}, K {k}, split {split}, {act_bytes}-byte values: no layout fits "
+                     f"{budget} bytes")
+
+
+def w8a8_base_smem(tok: int) -> int:
+    """The shared memory a one-launch W8A8 block plans within unless it has
+    an SM to itself: two 64-token blocks an SM, one 128-token block."""
+    return W8A8_SMEM_PAIR if tok == 64 else W8A8_SMEM_BLOCK
+
+
+def w8a8_budget(tok: int, tiles: int, split: int, sms: int, fits_alone: tuple[int, ...] | None = None) -> int:
+    """A one-launch W8A8 block's shared-memory budget: a block's most where
+    every block of the launch has an SM of its own (``tiles · split ≤
+    sms`` and, given ``fits_alone``, the capacity of clusters of blocks
+    that fill their SM, every cluster at once), else ``w8a8_base_smem``."""
+    if tiles * split <= sms and (fits_alone is None or tiles <= fits_alone[split - 1]):
+        return W8A8_SMEM_BLOCK
+    return w8a8_base_smem(tok)
+
+
+class W8A8Plan(NamedTuple):
+    """One ``quant_matmul_w8a8`` launch: ``w8a8_plan``'s (tok, ch, split)
+    and ``w8a8_layout``'s stages, slots, smem and resident."""
+
+    tok: int
+    ch: int
+    split: int
+    stages: int
+    slots: int
+    smem: int
+    resident: bool
 
 
 @functools.lru_cache(maxsize=16)
@@ -718,9 +818,27 @@ def device_plan(x, n: int) -> tuple[int, int]:
     return matmul_plan(m, n, k, sm_count(idx), cluster_capacity(idx, matmul_tokens(m)))
 
 
-def w8a8_device_plan(codes, n: int) -> tuple[int, int, int]:
-    """``w8a8_plan`` of codes [M, K] against N output channels on their
-    card, with its SM count and the chosen block's cluster capacity."""
+def w8a8_device_plan(x, n: int) -> W8A8Plan:
+    """The one-launch plan of rows x [M, K] (f32 or bf16) against N output
+    channels on x's card: ``w8a8_plan`` with its SM count and the chosen
+    block's cluster capacity at ``w8a8_base_smem``, then ``w8a8_layout``
+    within ``w8a8_budget`` (for a 64-token block, given the capacity of
+    blocks alone on their SM)."""
+    m, k = x.shape
+    idx = _device_index(x)
+    sms = sm_count(idx)
+    tok, ch = matmul_tokens(m), w8a8_channels(m, n, sms)
+    tok, ch, split = w8a8_plan(m, n, k, sms, cluster_capacity(idx, tok, "w8a8_fused", ch, w8a8_base_smem(tok)))
+    tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
+    alone = cluster_capacity(idx, tok, "w8a8_fused", ch, W8A8_SMEM_BLOCK) if tok == 64 else None
+    layout = w8a8_layout(tok, ch, k, split, x.element_size(), w8a8_budget(tok, tiles, split, sms, alone))
+    return W8A8Plan(tok, ch, split, *layout)
+
+
+def w8a8_codes_plan(codes, n: int) -> tuple[int, int, int]:
+    """``w8a8_plan`` of the two-launch matmul on codes [M, K] against N
+    output channels on their card, with its SM count and the chosen block's
+    cluster capacity."""
     m, k = codes.shape
     idx = _device_index(codes)
     sms = sm_count(idx)
@@ -777,6 +895,8 @@ def quantize_rows_int8(x):
     bf16): ``(codes int8 [M, K], sx f32 [M, 1])`` with ``sx = absmax / 127``
     (1 for an all-zero row) and codes ``clip(round_half_even(x / sx),
     ±127)``, both divisions IEEE. The JAX package's ``_act_quantize``.
+    ``quant_matmul_w8a8`` quantizes inside its own launch; this, with
+    ``quant_matmul_w8a8_codes``, is the two-launch yardstick it must equal.
 
     CUDA tensors launch the row-quantize kernel of
     ``csrc/quant_matmul_w8a8.cu`` (one block per row); CPU tensors run
@@ -809,12 +929,17 @@ def quant_matmul_w8a8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
 
     M ≤ 8 hands off to ``quant_gemv_int8(w8a8=True)``, the same function
     (per-row codes, exact sums, the same epilogue; the TPU function has no
-    hand-off). Above that, CUDA tensors launch the two kernels of
-    ``csrc/quant_matmul_w8a8.cu``: ``quantize_rows_int8``, then
-    ``quant_matmul_w8a8_codes`` (int8 ``wgmma`` from a TMA-fed ring, split-K
-    across a cluster by ``w8a8_plan``). CPU tensors run
+    hand-off). Above that, CUDA tensors launch ``csrc/quant_matmul_w8a8.cu``
+    once: a block quantizes its own token tile (the rows' absmax across the
+    split-K cluster through distributed shared memory, the codes written
+    into the stage the int8 ``wgmma`` reads) and multiplies it on a
+    TMA-fed ring, split-K across a cluster (``w8a8_device_plan``). The
+    result equals ``quant_matmul_w8a8_codes(*quantize_rows_int8(x), ...)``
+    bit for bit. A split-K launch also counts under
+    ``quant_matmul_w8a8:split_k``. CPU tensors run
     ``quant_matmul_w8a8_ref``."""
     m, k = x.shape
+    n = w_t.shape[0]
     if m <= MAX_ROWS:
         return quant_gemv_int8(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype, w8a8=True)
     out_dtype = out_dtype or x.dtype
@@ -824,8 +949,21 @@ def quant_matmul_w8a8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     _check_weight(w_t, k, "quant_matmul_w8a8")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quant_matmul_w8a8: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    codes, sx = quantize_rows_int8(x)
-    return quant_matmul_w8a8_codes(codes, sx, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
+    scales = _vec_f32(scales, n, "scales")
+    bias = _vec_f32(bias, n, "bias")
+    plan = w8a8_device_plan(x, n)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    rc = _build.library().rt_quant_matmul_w8a8_fused(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
+        w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,
+        activation_code(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        plan.tok, plan.ch, plan.split, plan.stages, plan.slots, _stream(x),
+    )
+    _build.check(rc, "quant_matmul_w8a8")
+    LAUNCHES["quant_matmul_w8a8"] += 1
+    if plan.split > 1:
+        LAUNCHES["quant_matmul_w8a8:split_k"] += 1
+    return out
 
 
 def quant_matmul_w8a8_codes(codes, sx, w_t, scales, bias=None, *, activation=None, out_dtype=torch.float32):
@@ -834,10 +972,13 @@ def quant_matmul_w8a8_codes(codes, sx, w_t, scales, bias=None, *, activation=Non
 
         out = activation((codes @ W) * sx * scales + bias)
 
-    CUDA tensors launch ``csrc/quant_matmul_w8a8.cu``'s int8 ``wgmma``
-    kernel (a split-K launch also counts under
-    ``quant_matmul_w8a8:split_k``); CPU tensors compute the same sums and
-    epilogue in PyTorch."""
+    With ``quantize_rows_int8``, the two-launch pair the one-launch
+    ``quant_matmul_w8a8`` must equal bit for bit, and the like-for-like
+    matmul time beside ``torch._int_mm``; no model path calls it. CUDA
+    tensors launch ``csrc/quant_matmul_w8a8.cu``'s int8 ``wgmma`` kernel on
+    the codes by TMA (``w8a8_codes_plan``; a split-K launch also counts
+    under ``quant_matmul_w8a8:split_k``); CPU tensors compute the same sums
+    and epilogue in PyTorch."""
     m, k = codes.shape
     n = w_t.shape[0]
     if not use_kernel(codes, sx, w_t, scales, bias):
@@ -854,7 +995,7 @@ def quant_matmul_w8a8_codes(codes, sx, w_t, scales, bias=None, *, activation=Non
     sxv = _vec_f32(sx, m, "sx")
     scales = _vec_f32(scales, n, "scales")
     bias = _vec_f32(bias, n, "bias")
-    tok, ch, split = w8a8_device_plan(codes, n)
+    tok, ch, split = w8a8_codes_plan(codes, n)
     out = torch.empty((m, n), dtype=out_dtype, device=codes.device)
     rc = _build.library().rt_quant_matmul_w8a8(
         codes.data_ptr(), sxv.data_ptr(), m, k,

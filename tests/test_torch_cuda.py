@@ -841,7 +841,7 @@ def test_matmul_w8a8_kernel_matches_plain(dev, dtype, m, n, k, act, with_bias):
     before = (dispatch.LAUNCHES["quant_matmul_w8a8"], dispatch.LAUNCHES["quantize_rows_int8"])
     out = qm.quant_matmul_w8a8(x, qt, s, bias, activation=act)
     assert (dispatch.LAUNCHES["quant_matmul_w8a8"], dispatch.LAUNCHES["quantize_rows_int8"]) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1])  # one launch: the rows are quantized inside it
     assert out.shape == (m, n) and out.dtype == dtype
     _w8_close(out, qm.quant_matmul_w8a8_ref(x, qt, s, bias, activation=act), dtype)
 
@@ -883,8 +883,9 @@ def test_tiny_decoder_w8a8_kernels_match_plain(dev, dtype):
     dispatch.reset_counters()
     k_logits, k_toks = run()
     assert dispatch.PLAIN == {}
-    for name in ("quant_matmul_w8a8", "quantize_rows_int8", "quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8"):
+    for name in ("quant_matmul_w8a8", "quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8"):
         assert dispatch.LAUNCHES[name] > 0, name
+    assert dispatch.LAUNCHES["quantize_rows_int8"] == 0  # the prefill quantizes inside quant_matmul_w8a8
     with _plain_decoder(decoder):
         p_logits, p_toks = run()
     assert (k_logits - p_logits).abs().max().item() <= 1e-2 * p_logits.abs().max().item()
@@ -1672,8 +1673,8 @@ def test_matmul_w8a8_f32_equals_plain_bitwise(dev, m, n, k, with_bias):
     before = dispatch.LAUNCHES["quant_matmul_w8a8:split_k"]
     out = qm.quant_matmul_w8a8(x, qt, s, bias, out_dtype=torch.float32)
     assert dispatch.LAUNCHES["quant_matmul_w8a8:split_k"] == before + (split > 1)
-    assert (split > 1) == ((m, n, k) in [(64, 768, 3072), (64, 896, 4864), (512, 768, 3072), (512, 1152, 896),
-                                         (77, 131, 1040), (20, 1152, 896)])
+    assert (split > 1) == ((m, n, k) in [(64, 768, 3072), (64, 896, 4864), (512, 768, 3072), (512, 3072, 768),
+                                         (512, 1152, 896), (77, 131, 1040), (20, 1152, 896)])
     ref = qm.quant_matmul_w8a8_ref(x, qt, s, bias, out_dtype=torch.float32)
     assert torch.equal(out, ref), (out - ref).abs().max().item()
 
@@ -1861,21 +1862,137 @@ def test_matmul_fused_wgmma_widths(dev, monkeypatch, bn, m, k, n):
 
 @pytest.mark.parametrize("m,n,k", [(64, 768, 3072), (512, 3072, 768)])
 def test_matmul_w8a8_pair_in_cuda_graph(dev, m, n, k):
-    """The quantizer and the matmul (its plan, tensor maps and cluster
-    launch) captured into a CUDA graph and replayed on new rows: the same
-    bits as the eager pair on those rows."""
+    """The one-launch matmul (its plan, tensor maps and cluster launch) and
+    the two-launch pair captured into a CUDA graph and replayed on new
+    rows: the same bits as each other and as the eager call on those rows,
+    one launch each call."""
     gen = torch.Generator(device=dev).manual_seed(76)
     qt, s = _pack(gen, n, k, dev)
     x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
     qm.quant_matmul_w8a8(x, qt, s)  # build, plan and warm up outside the capture
+    qm.quant_matmul_w8a8_codes(*qm.quantize_rows_int8(x), qt, s)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
+    names = ("quant_matmul_w8a8", "quantize_rows_int8")
     with torch.cuda.graph(graph):
+        before = [dispatch.LAUNCHES[name] for name in names]
         out = qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32)
+        one = [dispatch.LAUNCHES[name] - b for name, b in zip(names, before)]
+        pair = qm.quant_matmul_w8a8_codes(*qm.quantize_rows_int8(x), qt, s, out_dtype=torch.float32)
+    assert one == [1, 0]  # the pair's matmul also counts under quant_matmul_w8a8
     for _ in range(3):
         x.copy_(torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16))
         graph.replay()
+        assert torch.equal(out, pair)
         assert torch.equal(out, qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32))
+
+
+# -- the one-launch W8A8 matmul (the rows quantized inside it) against the
+# two-launch pair it replaced, quantize_rows_int8 then
+# quant_matmul_w8a8_codes: the same codes, sx and int32 sums, so the same
+# bits for every plan, dtype and edge --
+
+def _w8_rows(gen, m, k, dev, dtype):
+    """Rows with the quantizer's edges: row 0 all zero (sx 1, codes 0);
+    row 1 with absmax 127 and every other value on a .5 boundary of its
+    scale (half to even); row 2's absmax only in its last K column (the
+    last rank's range) and row 3's only in its first (rank 0's), the rest
+    of both small."""
+    x = torch.randn(m, k, generator=gen, device=dev)
+    x[0] = 0
+    x[1] = torch.randint(-126, 126, (k,), generator=gen, device=dev).float() + 0.5
+    x[1, k // 2] = 127.0
+    x[2:4] = 0.01 * torch.randn(2, k, generator=gen, device=dev)
+    x[2, k - 1] = -50.0
+    x[3, 0] = 50.0
+    return x.to(dtype)
+
+
+def _w8_pair(x, qt, s, bias, **kw):
+    return qm.quant_matmul_w8a8_codes(*qm.quantize_rows_int8(x), qt, s, bias, **kw)
+
+
+def _w8_forced(monkeypatch, tok, ch, split, resident):
+    """Route quant_matmul_w8a8 through one forced plan: its block, split and
+    a resident layout (a slot a step of the longest rank) or one that reads
+    the rows twice (two slots), or, where the resident one does not fit,
+    the most slots that do."""
+    def plan(x, n):
+        m, k = x.shape
+        most = -(-(-(-k // qm.QW_BK)) // split)
+        stages = min(most, qm.W8A8_STAGES_REREAD)
+        slots = most if resident else min(2, most)
+        while qm.w8a8_smem(tok, ch, stages, slots, x.element_size()) > qm.W8A8_SMEM_BLOCK:
+            slots -= 1
+        assert slots >= 1 and stages >= min(most, 2)
+        return qm.W8A8Plan(tok, ch, split, stages, slots, qm.w8a8_smem(tok, ch, stages, slots, x.element_size()),
+                           slots >= most)
+
+    monkeypatch.setattr(qm, "w8a8_device_plan", plan)
+
+
+W8_PLANS = ([(64, 64, c, r) for c in range(1, 9) for r in (True, False)]
+            + [(128, 64, c, r) for c in (1, 2, 3, 4, 8) for r in (True, False)]
+            + [(128, 128, c, r) for c in (1, 2, 4) for r in (True, False)])
+
+
+@pytest.mark.parametrize("tok,ch,split,resident", W8_PLANS)
+def test_matmul_w8a8_every_plan_equals_pair(dev, monkeypatch, tok, ch, split, resident):
+    """Every block (64 tokens x 64 channels a warpgroup, 128 x 64, 128 x
+    128), every split 1-8 and both layouts, forced whatever the plan would
+    pick: f32 rows to f32 out and bf16 rows to bf16 out with GELU and a
+    bias, at a ragged M (a token past the block), N and K (1040: 9 steps,
+    the last 16 deep): torch.equal to the pair, one launch a call."""
+    _w8_forced(monkeypatch, tok, ch, split, resident)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    m, n, k = tok + 1, 200, 1040
+    qt, s = _pack(gen, n, k, dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    for dtype, kw in ((torch.float32, dict(out_dtype=torch.float32)),
+                      (torch.bfloat16, dict(activation="gelu", out_dtype=torch.bfloat16))):
+        x = _w8_rows(gen, m, k, dev, dtype)
+        before = (dispatch.LAUNCHES["quant_matmul_w8a8"], dispatch.LAUNCHES["quantize_rows_int8"])
+        out = qm.quant_matmul_w8a8(x, qt, s, bias, **kw)
+        assert (dispatch.LAUNCHES["quant_matmul_w8a8"], dispatch.LAUNCHES["quantize_rows_int8"]) == (
+            before[0] + 1, before[1])
+        pair = _w8_pair(x, qt, s, bias, **kw)
+        assert torch.equal(out, pair), (dtype, (out.float() - pair.float()).abs().max().item())
+
+
+@pytest.mark.parametrize("m", [65, 129, 513])
+@pytest.mark.parametrize("n,k", [(333, 784), (896, 4864)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_w8a8_one_launch_edges(dev, dtype, m, n, k):
+    """The plan's own choice at a ragged M, N and K (784: 6 steps and 16;
+    Qwen2-0.5B's w_down K 4864), f32 and bf16 out, with the quantizer's
+    edge rows (_w8_rows): torch.equal to the pair."""
+    gen = torch.Generator(device=dev).manual_seed(78)
+    qt, s = _pack(gen, n, k, dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    x = _w8_rows(gen, m, k, dev, dtype)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = qm.quant_matmul_w8a8(x, qt, s, bias, out_dtype=out_dtype)
+        assert torch.equal(out, _w8_pair(x, qt, s, bias, out_dtype=out_dtype))
+    assert torch.equal(qm.quant_matmul_w8a8(x, qt, s, out_dtype=torch.float32),
+                       qm.quant_matmul_w8a8_ref(x, qt, s, out_dtype=torch.float32))
+
+
+def test_matmul_w8a8_fused_smem_and_capacity(dev):
+    """The kernel's shared memory a block equals w8a8_smem's count; the
+    one-launch blocks' cluster capacity is positive and falls as clusters
+    grow; a 64-token block at the two-a-SM budget fits more clusters than
+    one alone on its SM."""
+    lib = qm._build.library()
+    for tok, ch in ((64, 64), (128, 64), (128, 128)):
+        for stages, slots, bf16 in ((1, 1, 1), (3, 2, 0), (4, 5, 1), (2, 9, 1)):
+            assert lib.rt_quant_matmul_w8a8_fused_smem(tok, ch, stages, slots, bf16) == qm.w8a8_smem(
+                tok, ch, stages, slots, 2 if bf16 else 4)
+        for smem in {qm.w8a8_base_smem(tok), qm.W8A8_SMEM_BLOCK}:
+            fits = qm.cluster_capacity(0, tok, "w8a8_fused", ch, smem)
+            assert len(fits) == qm.MAX_SPLIT and all(f > 0 for f in fits)
+            assert all(a >= b for a, b in zip(fits, fits[1:]))
+    pair = qm.cluster_capacity(0, 64, "w8a8_fused", 64, qm.W8A8_SMEM_PAIR)
+    assert pair[0] >= 2 * qm.cluster_capacity(0, 64, "w8a8_fused", 64, qm.W8A8_SMEM_BLOCK)[0]
 
 
 

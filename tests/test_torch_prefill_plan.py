@@ -19,6 +19,7 @@ H100's GPCs) only as far as every cluster runs at once.
 
 import random
 
+import numpy as np
 import pytest
 
 import torch
@@ -39,10 +40,11 @@ def _fits(per_sm: int) -> tuple[int, ...]:
 
 
 FITS = {64: _fits(2), 128: _fits(1)}
-# The W8A8 kernel's 64-token block has a 64 KB ring (three a SM), its
-# 128-token blocks a 192 KB one; matmul_fused's wgmma blocks (192 KB rings)
-# and its f32 block (165 registers a thread) fill an SM each.
-FITS_W8A8 = {(64, 64): _fits(3), (128, 64): _fits(1), (128, 128): _fits(1)}
+# The one-launch W8A8 kernel plans its 64-token block at two a SM
+# (w8a8_base_smem) and its 128-token blocks at one; matmul_fused's wgmma
+# blocks (192 KB rings) and its f32 block (165 registers a thread) fill an
+# SM each.
+FITS_W8A8 = {(64, 64): _fits(2), (128, 64): _fits(1), (128, 128): _fits(1)}
 FITS_FUSED = _fits(1)
 
 # The prefill projections of GPT-2-small (d 768, d_ff 3072, vocab padded to
@@ -223,8 +225,8 @@ def test_w8a8_plan_limits_and_coverage(m, n, k):
 def test_w8a8_plan_main_path_splits():
     """The W8A8 blocks and splits at both models' projections at 64 and 512
     rows (GPT-2 qkv, wo, up, down; Qwen2-0.5B qkv, w_gu, w_down) and
-    2048^3: the wide block (128 channels a warpgroup) only where its tiles
-    fill 7/8 of the SMs."""
+    2048^3: the wide block (128 channels a warpgroup) wherever a block has
+    128 tokens, split-K where its tiles are few."""
     def plan(m, n, k):
         tok, ch, _ = qm.w8a8_plan(m, n, k, H100_SMS)
         return qm.w8a8_plan(m, n, k, H100_SMS, FITS_W8A8[tok, ch])[1:]
@@ -233,26 +235,173 @@ def test_w8a8_plan_main_path_splits():
     qwen2 = [(1152, 896), (10240, 896), (896, 4864)]
     assert [plan(64, n, k) for n, k in gpt2] == [(64, 3), (64, 6), (64, 2), (64, 8)]
     assert [plan(64, n, k) for n, k in qwen2] == [(64, 7), (64, 1), (64, 8)]
-    assert [plan(512, n, k) for n, k in gpt2] == [(64, 1), (64, 4), (64, 1), (64, 4)]
-    assert [plan(512, n, k) for n, k in qwen2] == [(64, 3), (128, 1), (64, 4)]
+    assert [plan(512, n, k) for n, k in gpt2] == [(128, 3), (128, 6), (128, 2), (128, 8)]
+    assert [plan(512, n, k) for n, k in qwen2] == [(128, 6), (128, 1), (128, 7)]
     assert plan(2048, 2048, 2048) == (128, 1)
 
 
 @pytest.mark.parametrize("sms", [1, 66, 114, 132])
 def test_w8a8_plan_other_cards(sms):
-    """On other SM counts (a fraction of each GPC's SMs): the wide block by
-    the same 7/8 rule, within the capacity, no more blocks than SMs where
-    the split is on."""
+    """On other SM counts (a fraction of each GPC's SMs): the wide block
+    wherever a block has 128 tokens, within the capacity, no more blocks
+    than SMs where the split is on."""
     rnd = random.Random(sms + 1)
     for _ in range(200):
         m, n, k = rnd.randint(9, 4096), rnd.randint(1, 20000), 16 * rnd.randint(1, 400)
         tok, ch, _ = qm.w8a8_plan(m, n, k, sms)
         fits = tuple(max(1, f * sms // H100_SMS) for f in FITS_W8A8[tok, ch])
         tok, ch, split = qm.w8a8_plan(m, n, k, sms, fits)
-        assert (ch == 128) == (tok == 128 and 8 * -(-n // 256) * -(-m // 128) >= 7 * sms)
+        assert (ch == 128) == (tok == 128)
         tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
         assert 1 <= split <= min(qm.MAX_SPLIT, -(-k // qm.QW_BK))
         assert split == 1 or (tiles * split <= sms and tiles <= fits[split - 1])
+
+
+def _w8a8_full_plan(m, n, k, act_bytes, sms=H100_SMS):
+    """What ``w8a8_device_plan`` computes on a card of ``sms`` SMs, with
+    the modelled capacities: (tok, ch, split, stages, slots, resident,
+    smem, budget)."""
+    tok, ch, _ = qm.w8a8_plan(m, n, k, sms)
+    tok, ch, split = qm.w8a8_plan(m, n, k, sms, FITS_W8A8[tok, ch])
+    tiles = -(-n // (ch * tok // 64)) * -(-m // tok)
+    budget = qm.w8a8_budget(tok, tiles, split, sms, _fits(1) if tok == 64 else None)
+    lay = qm.w8a8_layout(tok, ch, k, split, act_bytes, budget)
+    return tok, ch, split, lay.stages, lay.slots, lay.resident, lay.smem, budget
+
+
+@pytest.mark.parametrize("m,n,k", MATMUL_SHAPES)
+def test_w8a8_layout_limits(m, n, k):
+    """The one-launch W8A8 block's shared memory, for f32 and bf16 rows:
+    within its budget and the 227 KB a block may have (two 64-token blocks
+    an SM unless every block has an SM of its own), a slot a K step where
+    resident, at least two slots where the rows arrive twice, at least two
+    ring stages for a rank of two steps or more, none more than the rank's
+    steps; room for the epilogue's int32 sums; and w8a8_smem's count."""
+    for act_bytes in (2, 4):
+        tok, ch, split, stages, slots, resident, smem, budget = _w8a8_full_plan(m, n, k, act_bytes)
+        most = -(-(-(-k // qm.QW_BK)) // split)
+        bn = ch * tok // 64
+        assert smem == qm.w8a8_smem(tok, ch, stages, slots, act_bytes) <= budget <= 232448
+        tiles = -(-n // bn) * -(-m // tok)
+        alone = tiles * split <= H100_SMS and tiles <= _fits(1)[split - 1]  # every cluster at once, a block an SM
+        assert budget == (232448 if tok == 128 or alone else 233472 // 2 - 1024)
+        assert min(most, 2) <= stages <= min(most, qm.W8A8_STAGES_MAX[tok, ch])
+        assert resident == (slots == most) and (resident or 2 <= slots < most)
+        assert smem - 1024 - 8 * (2 * stages + slots) - 12 * tok >= tok * (bn + 4) * 4
+
+
+def test_w8a8_layout_main_path():
+    """The one-launch blocks at both models' projections (bf16 rows): at 64
+    rows every GPT-2 projection and the Qwen2-0.5B shape's qkv and w_down
+    keep their rank's K range resident (w_down's 5 steps with a block an
+    SM: 112 blocks), Qwen2 w_gu (160 blocks, two an SM) reads its rows
+    twice; at 512 rows (128 x 256 blocks, split-K) every GPT-2 projection
+    and Qwen2 qkv are resident, Qwen2 w_gu (160 blocks), w_down (6 steps a
+    rank) and 2048^3 read their rows twice, three ring stages beside two
+    slots."""
+    def plan(m, n, k, act_bytes=2):
+        return _w8a8_full_plan(m, n, k, act_bytes)[:6]
+
+    gpt2 = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
+    qwen2 = [(1152, 896), (10240, 896), (896, 4864)]
+    assert [plan(64, n, k) for n, k in gpt2] == [
+        (64, 64, 3, 2, 2, True), (64, 64, 6, 1, 1, True), (64, 64, 2, 3, 3, True), (64, 64, 8, 3, 3, True)]
+    assert [plan(64, n, k) for n, k in qwen2] == [
+        (64, 64, 7, 1, 1, True), (64, 64, 1, 3, 3, False), (64, 64, 8, 4, 5, True)]
+    assert [plan(512, n, k) for n, k in gpt2] == [
+        (128, 128, 3, 2, 2, True), (128, 128, 6, 1, 1, True), (128, 128, 2, 2, 3, True), (128, 128, 8, 2, 3, True)]
+    assert [plan(512, n, k) for n, k in qwen2] == [
+        (128, 128, 6, 2, 2, True), (128, 128, 1, 3, 2, False), (128, 128, 7, 3, 2, False)]
+    assert plan(2048, 2048, 2048) == (128, 128, 1, 3, 2, False)
+    assert plan(2048, 2048, 2048, 4) == (128, 128, 1, 2, 2, False)  # f32 rows: 64 KB slots
+
+
+def _convert_schedule(n, slots):
+    """The converting warpgroup's activation loads and reads over a rank of
+    ``n`` K steps, as csrc/quant_matmul_w8a8.cu Q8Convert numbers them:
+    load l < n is pass 1's step l, load l >= n pass 2's step l - n; load l
+    goes to slot l % slots; pass 2's i-th step is (i + max(n - slots, 0)) %
+    n, read from the slot pass 1 left it in (i < slots) or from load n + i
+    - slots. Checks that every read finds the load it waits for in its slot
+    (the load's phase l // slots is the slot's next), and returns pass 2's
+    steps."""
+    held, loads = {}, {}  # slot -> (load, step) it holds; slot -> loads issued to it
+
+    def load(l):
+        slot = l % slots
+        loads.setdefault(slot, []).append(l)
+        assert len(loads[slot]) - 1 == l // slots  # the slot's phases in load order
+        held[slot] = (l, l if l < n else l - n)
+
+    for l in range(min(slots, n)):
+        load(l)
+    for l in range(n):  # pass 1
+        assert held[l % slots] == (l, l)
+        if l + slots < n:
+            load(l + slots)
+    order = []
+    for i in range(n):  # pass 2
+        step = (i + max(n - slots, 0)) % n
+        if i < slots:
+            assert held[step % slots][1] == step
+        else:
+            assert held[(n + i - slots) % slots] == (n + i - slots, step)
+        order.append(step)
+        if i + slots < n:
+            load(n + i)
+    return order, sum(len(v) for v in loads.values())
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3, 4, 5])
+def test_w8a8_convert_schedule(slots):
+    """Every K step of a rank reaches pass 2 once; the steps pass 1 leaves
+    in their slots are not loaded again, so a rank loads n + max(n -
+    slots, 0) slots in all (resident: n)."""
+    for n in range(1, 25):
+        order, n_loads = _convert_schedule(n, slots)
+        assert sorted(order) == list(range(n))
+        assert n_loads == n + max(n - slots, 0)
+
+
+def _codes_without_division(x, scale):
+    """csrc/common.cuh quantize16 in numpy f32: q = x * (1 / scale), rounded
+    by adding 1.5 * 2^23; values within 2^-14 of a half-integer, and NaN,
+    are marked for x / scale (rows whose scale is below 2^-126: None)."""
+    x = x.astype(np.float32)
+    scale = np.float32(scale)
+    if not scale >= np.float32(2.0**-126):
+        return None
+    magic = np.float32(12582912.0)
+    with np.errstate(invalid="ignore"):
+        q = x * (np.float32(1) / scale)
+        u = q + magic
+        near = ~(np.abs(q - (u - magic)) <= np.float32(0.5) - np.float32(2.0**-14))
+    codes = (u.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    return codes, near
+
+
+def test_w8a8_codes_without_division_equal_ieee():
+    """The one-launch kernel's codes (a product by 1 / scale, exact division
+    only near a half-integer) equal clip(rint(x / scale), ±127) with IEEE
+    division, over wide random rows, bf16-rounded rows, rows of exact
+    half-integers and rows whose absmax is tiny or huge."""
+    rng = np.random.default_rng(0)
+    random_rows = [rng.standard_normal(4096) * 10.0 ** rng.uniform(-30, 30) for _ in range(64)]
+    random_rows += [torch.tensor(rng.standard_normal(768)).to(torch.bfloat16).float().numpy() for _ in range(64)]
+    base = rng.integers(-127, 128, 4096).astype(np.float32)
+    rows = [(base + np.float32(0.5)) * np.float32(s) for s in (1.0, 0.37, 3.0e-20, 7.1e25)]
+    rows += [np.concatenate([[127.0], rng.integers(-254, 255, 4095) / 2.0]).astype(np.float32)]
+    marked = []
+    for i, row in enumerate(random_rows + rows):
+        x = row.astype(np.float32)
+        amax = np.abs(x).max()
+        scale = np.float32(1.0) if amax == 0 else np.float32(amax) / np.float32(127.0)
+        want = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+        codes, near = _codes_without_division(x, scale)
+        assert np.array_equal(codes[~near], want[~near])
+        if i < len(random_rows):
+            marked.append(near.mean())
+    assert np.mean(marked) < 0.002  # the exact division stays rare (in bf16 rows a value at absmax / 2 is a tie)
 
 
 # (m, k, n) of matmul_fused: the chip check's shapes, the card tests' ragged
