@@ -49,7 +49,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and one PyTorch library call as a yardstick; every KV case (also
    decode_attention without wo at GPT-2's 12 heads) with its plan's
    cluster size, its wrapper's host µs and the kernels a call launches,
-   which must be one attention launch (two with the fused wo);
+   which must be one attention launch (two with the fused wo); and the
+   encoder-decoder's kernels at Whisper-tiny's shapes (flash_attention not
+   causal over 1500 audio positions at Tq 1500 and Tq 1, quant_matmul_int8
+   at 1500 rows, the GEMV at K 384 with the lm_head's argmax bounded to
+   51865 of 51968 columns, the MLP at D 384 / FF 1536, decode_attention
+   without wo and decode_attention_int8 at S 448), and the four KV kernels
+   at 16 rows of mixed lengths;
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
@@ -68,6 +74,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    passes only where the solo top-2 logit gap is below 0.05), every page
    back in its pool, each run's launch counters read around it; then ms
    per forward at 8 active rows and the device's idle share per engine;
+   then both engines at max_batch 16 on bf16 and int8 KV with 32 seeded
+   requests (16-48 new tokens), each stream against its solo stream, ms
+   per forward at 16 active rows, the idle share, and one step's launches
+   (the KV kernel once a layer a forward, no plain version); the slot
+   engine's checkpoint (bf16 and int8 KV, greedy and TemperatureSampler(0.8)
+   from a seed: half the ticks, snapshot_engine, save_snapshot to a file,
+   load_snapshot, restore_engine into a fresh engine, every stream equal to
+   the uninterrupted run's) and a NativeBackend's (snapshot_backend after
+   phase 4's prompt, the same 32 greedy steps after restore_backend);
 6. w8a8    — the same model and int8 weights with DecoderConfig(w8a8=True):
    phase 4's path (every W8A8 kernel launched, no plain call), the accuracy
    gate (the relative RMS difference of the 32 teacher-forced steps' logits
@@ -115,7 +130,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    emitted token, and Generator.with_draft; phase 5's 16 requests through
    the slot and paged engines with TemperatureSampler(0.8): one seed gives
    the same streams twice, temperature 1e-4 the greedy streams;
-11. the line {"kernels": [...]} (the launches summed over phases 4-10, a
+11. whisper — Whisper-tiny at full width (WHISPER_TINY: random int8 weights
+   from seed 0, bf16 activations) through Generator(EncDecBackend(...,
+   device="cuda")), int8 KV then bf16 KV: a seeded 30-second mel (1500
+   encoder positions) encoded once, the 4 start-of-transcript tokens as
+   one prefill, 200 greedy steps in the 448-position cache; time to first
+   token, the encoder's device time by kernel, host and device ms a step,
+   tokens/s, the idle share, one step's launches (four GEMVs, the KV
+   kernel, flash attention and the MLP kernel a layer, the lm_head GEMV);
+   the encoder states and 32 teacher-forced steps through the kernels
+   against the plain versions (relative RMS at most WHISPER_GATE, the
+   top-2 rule);
+12. the line {"kernels": [...]} (the launches summed over phases 4-11, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
@@ -138,6 +164,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -366,6 +393,12 @@ def check_kernels(torch, bound, cfg):
     torch.cuda.empty_cache()
     check_gqa_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
+    # The KV kernels at Whisper-tiny's self attention and at phase 5's 16 rows.
+    check_kv_kernels(torch, bound, cfg, randn, record, kinds=("decode_attention", "decode_attention_int8"),
+                     lens_cases=WHISPER_KV_LENS, h=WHISPER["n_heads"], s_max=WHISPER_TEXT)
+    torch.cuda.empty_cache()
+    check_kv_kernels(torch, bound, cfg, randn, record, kinds=("decode_attention", *KV_KINDS), lens_cases=KV_LENS_16)
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -403,7 +436,10 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
     layer-0 qkv + ln1, lm_head logits and lm_head + argmax, its MLP with the
     next layer's qkv and without (the last layer); the Qwen2-0.5B shape's
     qkv + rmsnorm + bias, w_gu + rmsnorm, w_down + residual and lm_head +
-    argmax (N 152576, K 896). Each against its plain version, with its
+    argmax (N 152576, K 896); Whisper-tiny's at K 384: q|k|v with LayerNorm
+    and bias (N 1152), wo with the residual, the lm_head with dec_ln and its
+    argmax bounded to 51865 of 51968 columns, and its MLP (D 384, FF 1536,
+    no next qkv). Each against its plain version, with its
     bound, its plain time, the time of F.linear on the dequantized bf16
     weights (the MLP: none, no single call), its plan and its launches a
     call (one)."""
@@ -415,6 +451,7 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
     n_vocab_pad = -(-cfg.vocab_size // 1024) * 1024
     qw, qff, q_vocab = QWEN2["d_model"], QWEN2_CFG["d_ff"], QWEN2_CFG["vocab_size"]
     qkv_n = (QWEN2["n_heads"] + 2 * QWEN2["n_kv_heads"]) * (qw // QWEN2["n_heads"])
+    wd = WHISPER["d_model"]
     shapes = [("qkv+ln1", d, 3 * d, "layernorm", "bias", None),
               ("lm_head_logits", d, n_vocab_pad, "layernorm", "logits", None),
               ("lm_head_argmax", d, n_vocab_pad, "layernorm", "argmax", cfg.vocab_size),
@@ -422,7 +459,11 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
               ("qwen2 w_gu+rms", qw, 2 * qff, "rmsnorm", "", None),
               ("qwen2 w_down+res", qff, qw, None, "residual", None),
               ("qwen2 lm_head_argmax", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "argmax", q_vocab),
-              ("qwen2 lm_head_logits", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "logits", None)]
+              ("qwen2 lm_head_logits", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "logits", None),
+              ("whisper qkv+ln", wd, 3 * wd, "layernorm", "bias", None),
+              ("whisper wo+res", wd, wd, None, "residual", None),
+              ("whisper lm_head_argmax", wd, -(-WHISPER["vocab_size"] // 128) * 128, "layernorm", "argmax",
+               WHISPER["vocab_size"])]
     for m in (1, 8):
         for name, k, n, norm, mode, vocab in shapes:
             def make(i, m=m, k=k, n=n, norm=norm, mode=mode, vocab=vocab):
@@ -474,8 +515,12 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
             del copies, w_deq
 
         # -- quant_mlp_int8: with the next layer's qkv (layers 0-10) and without
-        for name, with_next in (("mlp+next_qkv", True), ("mlp (last layer)", False)):
-            def make(i, m=m, with_next=with_next):
+        # -- quant_mlp_int8: with the next layer's qkv (layers 0-10) and
+        # without (the last layer); Whisper-tiny's (D 384, FF 1536, never a
+        # next qkv).
+        for name, md, mff, with_next in (("mlp+next_qkv", d, ff, True), ("mlp (last layer)", d, ff, False),
+                                         ("whisper mlp", wd, WHISPER["d_ff"], False)):
+            def make(i, m=m, d=md, ff=mff, with_next=with_next):
                 wu, su = pack(ff, d)
                 wd, sd = pack(d, ff)
                 ns, nb = norm_vecs(d)
@@ -498,13 +543,13 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
             tol = min(t for _, t in errs)
             nxt = kw["next_qkv"] or ()
             per_call = nbytes(*args, kw["norm_scale"], kw["norm_bias"], kw["residual"], *nxt) + 2 * m * (
-                d + (3 * d if with_next else 0))
-            ops = 2 * m * (2 * d * ff + (3 * d * d if with_next else 0))
+                md + (3 * md if with_next else 0))
+            ops = 2 * m * (2 * md * mff + (3 * md * md if with_next else 0))
             copies = [make(i) for i in range(copies_for(per_call))]
             ms = graph_ms(torch, [lambda a=a, k=k: qm.quant_mlp_int8(*a, **k) for a, k in copies])
             plain = eager_ms(torch, lambda: qm.quant_mlp_int8_ref(*args, **kw))
-            phases = ((ff, d, True, 2), (d, ff, False, 4)) + (((3 * d, d, True, 4),) if with_next else ())
-            record("quant_mlp_int8", f"{name} M={m} D={d} FF={ff}", err, tol, ms, plain, bound(per_call, ops),
+            phases = ((mff, md, True, 2), (md, mff, False, 4)) + (((3 * md, md, True, 4),) if with_next else ())
+            record("quant_mlp_int8", f"{name} M={m} D={md} FF={mff}", err, tol, ms, plain, bound(per_call, ops),
                    **gemv_launch_info(torch, lambda: qm.quant_mlp_int8(*args, **kw), m, "bf16", phases, True))
             del copies
 
@@ -1109,35 +1154,45 @@ def check_matmul_fused(torch, bound, cfg, randn, bf16_err, record):
 
 KV_LENS = {"B=1 kv_len=1": [1], "B=1 kv_len=300": [300], "B=1 kv_len=767": [767],
            "B=8 mixed": [1, 100, 200, 300, 400, 500, 640, 767]}
+# The 16-row engines' decode step (phase 5): 16 rows of mixed lengths.
+KV_LENS_16 = {"B=16 mixed": [0, 1, 50, 100, 127, 128, 200, 255, 300, 400, 447, 500, 600, 640, 700, 767]}
 KV_ENTRIES = {"decode_attention": "rt_decode_attention", "decode_attention_int8": "rt_decode_attention_int8",
               "paged_decode_attention": "rt_paged_attention",
               "paged_decode_attention_int8": "rt_paged_attention_int8"}  # each KV kernel's C entry point
 
 
-def check_kv_kernels(torch, bound, cfg, randn, record):
+KV_KINDS = ("decode_attention_int8", "paged_decode_attention", "paged_decode_attention_int8")
+
+
+def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_cases=None, h=None, s_max=CACHE_LEN):
     """The serving path's KV kernels (decode_attention_int8 over an int8
     [B, H, S, D] cache; paged_decode_attention and its int8 twin over pools
-    of 128-position pages, each row's 6 pages scattered through the pool) at
-    S 768, against their plain versions: the attention vector (tolerance
-    from its own max), the caches after the append bit for bit. Timed as
-    check_kernels times the others; the bound counts the valid prefix's
-    payload and scales, the packed qkv and the output; the library yardstick
-    is scaled_dot_product_attention over the same prefix made contiguous
-    (bf16; a bf16 dequantized copy for int8), rows masked to their lengths."""
+    of 128-position pages, each row's pages scattered through the pool; with
+    ``"decode_attention"`` in ``kinds``, decode_attention without its wo
+    over a bf16 cache) at S ``s_max`` (768) and ``h`` heads (cfg's) for the
+    rows of each of ``lens_cases`` (KV_LENS), against their plain versions:
+    the attention vector (tolerance from its own max), the caches after the
+    append bit for bit. Timed as check_kernels times the others; the bound
+    counts the valid prefix's payload and scales, the packed qkv and the
+    output; the library yardstick is scaled_dot_product_attention over the
+    same prefix made contiguous (bf16; a bf16 dequantized copy for int8),
+    rows masked to their lengths."""
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4321)
-    h, hd, s_max, page = cfg.n_heads, cfg.head_dim, CACHE_LEN, 128
+    h, hd, page = h or cfg.n_heads, cfg.head_dim, 128
     per_row = s_max // page
     F = torch.nn.functional
-    kinds = {"decode_attention_int8": (da.decode_attention_int8, da.decode_attention_int8_ref),
+    table = {"decode_attention": (da.decode_attention, da.decode_attention_ref),
+             "decode_attention_int8": (da.decode_attention_int8, da.decode_attention_int8_ref),
              "paged_decode_attention": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
              "paged_decode_attention_int8": (pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref)}
-    for name, (kernel, plain) in kinds.items():
+    for name in kinds:
+        kernel, plain = table[name]
         int8, paged = name.endswith("int8"), name.startswith("paged")
-        for case, lens_list in KV_LENS.items():
+        for case, lens_list in (lens_cases or KV_LENS).items():
             b = len(lens_list)
 
             def make(i, b=b, lens_list=lens_list, int8=int8, paged=paged):
@@ -1196,7 +1251,8 @@ def check_kv_kernels(torch, bound, cfg, randn, record):
                 lib_in.append((q, contiguous(c, 0), contiguous(c, 1), mask))
             library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=t[3])
                                        for t in lib_in])
-            record(name, f"{case} S={s_max} H={h} D={hd}" + (f" page={page}" if paged else ""), err, tol, ms,
+            record(name + (":no_wo" if name == "decode_attention" else ""),
+                   f"{case} S={s_max} H={h} D={hd}" + (f" page={page}" if paged else ""), err, tol, ms,
                    plain_ms, bound(per_call, ops), library,
                    **kv_launch_info(torch, lambda: kernel(*k_args), KV_ENTRIES[name], args[0][:, 0, :, 0], h, s_max))
             del copies, lib_in
@@ -1327,7 +1383,8 @@ def host_us(torch, fn, n: int = 100) -> float:
 
 def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     """quant_matmul_int8 and flash_attention against their plain versions at
-    the prefill paths' shapes (GPT-2-small's and the Qwen2-0.5B shape's),
+    the prefill paths' shapes (GPT-2-small's, the Qwen2-0.5B shape's and
+    Whisper-tiny's encoder and cross attention),
     timed as check_kernels times the others, with each call's launch plan
     (split-K or split-KV cluster size) and the wrapper's host µs a call."""
     from rten_tpu_torch.kernels import attention as at
@@ -1360,6 +1417,10 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
         shapes += [(f"qwen2 qkv M={m}", m, qkv_n, qw, None, True, bf16),
                    (f"qwen2 w_gu M={m}", m, 10240, qw, None, False, bf16),
                    (f"qwen2 w_down M={m}", m, qw, QWEN2_CFG["d_ff"], None, False, bf16)]
+    wd, wff, m = WHISPER["d_model"], WHISPER["d_ff"], WHISPER_AUDIO  # Whisper-tiny's encoder, 1500 positions
+    shapes += [(f"whisper enc wq M={m}", m, wd, wd, None, True, bf16),
+               (f"whisper enc up+gelu M={m}", m, wff, wd, "gelu", True, bf16),
+               (f"whisper enc down M={m}", m, wd, wff, None, True, bf16)]
     for name, m, n, k, act, with_bias, out_dtype in shapes:
         def make(i, m=m, n=n, k=k, act=act, with_bias=with_bias, out_dtype=out_dtype):
             qt, s = pack(n, k)
@@ -1397,7 +1458,7 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     # dropped tile moves the output by O(1). The output is checked alone
     # against its own max; the f32 kernel (the same values in f32) against
     # the softmax in f64.
-    qh, qk = QWEN2["n_heads"], QWEN2["n_kv_heads"]
+    qh, qk, wh = QWEN2["n_heads"], QWEN2["n_kv_heads"], WHISPER["n_heads"]
     fa_cases = [  # name, b, hq, hk, tq, s, causal, q_offset, kv_len
         ("Tq=64 kv_len=64", 1, h, h, 64, CACHE_LEN, True, 0, 64),
         ("Tq=512 kv_len=512", 1, h, h, 512, CACHE_LEN, True, 0, 512),
@@ -1410,6 +1471,11 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
         ("qwen2 Tq=24 q_offset=300 kv_len=324", 1, qh, qk, 24, QWEN2_CACHE, True, 300, 324),
         ("GQA Hq=12 Hk=4 Tq=100 q_offset=20", 2, h, 4, 100, 256, True, 20, 120),
         ("non-causal Tq=77 kv_len=200", 2, h, h, 77, 256, False, 0, 200),
+        # Whisper-tiny: the encoder (not causal over 1500 audio positions, 23
+        # tiles of 64 and one of 28) and a decoder token's cross attention.
+        ("whisper encoder Tq=1500", 1, wh, wh, WHISPER_AUDIO, WHISPER_AUDIO, False, 0, WHISPER_AUDIO),
+        ("whisper cross Tq=1", 1, wh, wh, 1, WHISPER_AUDIO, False, 0, WHISPER_AUDIO),
+        ("whisper cross B=8 Tq=1", 8, wh, wh, 1, WHISPER_AUDIO, False, 0, WHISPER_AUDIO),
     ]
     for name, b, hq, hk, tq, s, causal, q_off, kv_len in fa_cases:
         def make(i, b=b, hq=hq, hk=hk, tq=tq, s=s, causal=causal, q_off=q_off, kv_len=kv_len):
@@ -1469,6 +1535,14 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
                split=at.flash_plan(b, hq, hk, tq, kv_len, sms)[1],
                host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
         del copies, lib_in
+
+
+# Whisper-tiny (huggingface.co/openai/whisper-tiny config.json: d_model 384,
+# 4 encoder and 4 decoder layers of 6 heads, FFN 1536, vocab 51865, 80 mel
+# bins, 1500 audio and 448 text positions): encoder_decoder.WHISPER_TINY.
+WHISPER = dict(d_model=384, n_heads=6, d_ff=1536, vocab_size=51865)
+WHISPER_AUDIO, WHISPER_TEXT = 1500, 448
+WHISPER_KV_LENS = {"whisper B=1 kv_len=1": [1], "whisper B=1 kv_len=100": [100], "whisper B=1 kv_len=447": [447]}
 
 
 # ---------------------------------------------------------------------------
@@ -1785,36 +1859,49 @@ def solo_streams(params, cfg, specs, dev):
     return streams, gaps
 
 
-def at_8_rows(torch, kind, make, specs):
-    """ms per engine forward with 8 active rows (host clock) and the
+def at_rows(torch, kind, make, specs, rows: int = 8, kv_kernel: str | None = None, n_layers: int = 0):
+    """ms per engine forward with ``rows`` active rows (host clock) and the
     device's time by kernel and idle share (profiler) over the same window:
-    the first 8 requests' prompts cut to 64 tokens, 256 new tokens each."""
+    the first ``rows`` requests' prompts cut to 64 tokens, 256 new tokens
+    each. With ``kv_kernel``, one more step's launches are read: every
+    forward of it must launch ``kv_kernel`` once a layer and no plain
+    version may run."""
+    from rten_tpu_torch.kernels import dispatch
     from rten_tpu_torch.serve import Request
 
     engine = make()
-    for s in specs[:8]:
+    for s in specs[:rows]:
         engine.submit(Request(prompt=s["prompt"][:64], max_new_tokens=256))
     forwards_per_step = engine.steps_per_tick if kind.startswith("slot") else 1
     n_steps = max(2, 64 // forwards_per_step)  # 64 forwards timed, 64 profiled (of 256)
-    for _ in range(max(1, n_steps // 4)):  # admission, then the first steps at 8 rows
+    for _ in range(max(1, n_steps // 4)):  # admission, then the first steps at full rows
         engine.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
         engine.step()
     host_ms = (time.perf_counter() - t0) * 1e3 / (n_steps * forwards_per_step)
-    if engine.n_active != 8:
-        raise AssertionError(f"{kind}: {engine.n_active} rows active in the timed window, not 8")
+    if engine.n_active != rows:
+        raise AssertionError(f"{kind}: {engine.n_active} rows active in the timed window, not {rows}")
     by_kernel = device_us_by_kernel(torch, engine.step, n_steps)
     dev_ms = sum(by_kernel.values()) / 1e3 / forwards_per_step
-    log(f"  {kind} at 8 active rows: {host_ms:.4f} ms per forward (host clock) -> {8e3 / host_ms:.1f} tokens/s; "
-        f"device {dev_ms:.4f} ms (profiler) -> idle share {max(0.0, 1.0 - dev_ms / host_ms):.4f}; top kernels (us):")
+    launches = None
+    if kv_kernel is not None:
+        dispatch.reset_counters()
+        engine.step()
+        launches = {k: v / forwards_per_step for k, v in dispatch.LAUNCHES.items()}
+        if dispatch.PLAIN or launches.get(kv_kernel) != n_layers:
+            raise AssertionError(f"{kind} at {rows} rows: launches a forward {launches}, plain {dict(dispatch.PLAIN)}; "
+                                 f"{kv_kernel} must launch {n_layers} times a forward and no plain version run")
+    log(f"  {kind} at {rows} active rows: {host_ms:.4f} ms per forward (host clock) -> {rows * 1e3 / host_ms:.1f} "
+        f"tokens/s; device {dev_ms:.4f} ms (profiler) -> idle share {max(0.0, 1.0 - dev_ms / host_ms):.4f}"
+        + (f"; launches a forward {launches}" if launches else "") + "; top kernels (us):")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {us / forwards_per_step:9.3f}  {name[:90]}")
     del engine
     torch.cuda.empty_cache()
     return dict(ms_per_forward=host_ms, device_ms_per_forward=dev_ms, idle_share=max(0.0, 1.0 - dev_ms / host_ms),
-                tokens_per_s=8e3 / host_ms,
+                tokens_per_s=rows * 1e3 / host_ms, launches_per_forward=launches,
                 device_us_by_kernel={k: v / forwards_per_step for k, v in by_kernel.items()})
 
 
@@ -1972,13 +2059,188 @@ def drive_serving(torch, cfg, params, out):
                        ("slot_int8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev)),
                        ("paged_int8", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_all,
                                                                  page_size=SERVE_PAGE, int8_kv=True, device=dev))):
-        step_stats[kind] = at_8_rows(torch, kind, make, specs)
+        step_stats[kind] = at_rows(torch, kind, make, specs)
 
     for res in results.values():
         del res["streams"]
     out["serving"] = dict(requests=[dict(prompt_len=len(s["prompt"]), max_new_tokens=s["max_new_tokens"])
                                     for s in specs], runs=results, differing=diffs, at_8_rows=step_stats,
                           http=dict(health=health, stats=stats))
+    for more in (drive_serving_16(torch, cfg, params, out), drive_checkpoints(torch, cfg, params, out)):
+        for name, n in more.items():
+            launches_total[name] = launches_total.get(name, 0) + n
+    return launches_total
+
+
+N_REQUESTS_16, NEW_RANGE_16 = 32, (16, 48)
+KV_KERNEL_16 = {"slot": "decode_attention:no_wo", "slot_int8": "decode_attention_int8",
+                "paged": "paged_decode_attention", "paged_int8": "paged_decode_attention_int8"}
+
+
+def serving_specs_16(cfg):
+    """The 32 seeded requests of the 16-row runs: prompts of 16-320 tokens
+    as phase 5's, 16-48 new tokens each (phase 5's 32-256 cut to keep the
+    run short: these runs test the row count, which stays 16)."""
+    import random
+
+    rnd = random.Random(16)
+    specs = []
+    for _ in range(N_REQUESTS_16):
+        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*NEW_RANGE_16)
+        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    return specs
+
+
+def drive_serving_16(torch, cfg, params, out) -> dict:
+    """Phase 5's 16-row runs: ServingEngine (8 forwards a tick) and
+    PagedServingEngine (a pool that holds every request) at max_batch 16,
+    on a bf16 and an int8 KV cache, each with 32 seeded requests queued at
+    once; each stream against its solo Generator(NativeBackend) stream
+    (top-2 rule), each run's launch counters read around it (its KV kernel
+    launched, no plain version); then ms per forward at 16 active rows, the
+    device's idle share, and one step's launches: the KV kernel once a layer
+    at every forward. Returns the runs' launches."""
+    import dataclasses
+
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    dev = torch.device("cuda", 0)
+    cfg8 = dataclasses.replace(cfg, int8_kv=True)
+    specs = serving_specs_16(cfg)
+    total_new = sum(s["max_new_tokens"] for s in specs)
+    t0 = time.perf_counter()
+    solo = {key: solo_streams(params, c, specs, dev) for key, c in (("bf16", cfg), ("int8", cfg8))}
+    log(f"  16 rows: {N_REQUESTS_16} requests (prompts {min(len(s['prompt']) for s in specs)}-"
+        f"{max(len(s['prompt']) for s in specs)} tokens, {total_new} new tokens in all); solo references "
+        f"{time.perf_counter() - t0:.1f} s")
+    pages = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs)
+    makes = {
+        "slot": lambda: ServingEngine(params, cfg, max_batch=16, steps_per_tick=8, device=dev),
+        "paged": lambda: PagedServingEngine(params, cfg, max_batch=16, n_pages=pages, page_size=SERVE_PAGE, device=dev),
+        "slot_int8": lambda: ServingEngine(params, cfg8, max_batch=16, steps_per_tick=8, device=dev),
+        "paged_int8": lambda: PagedServingEngine(params, cfg, max_batch=16, n_pages=pages, page_size=SERVE_PAGE,
+                                                 int8_kv=True, device=dev),
+    }
+    runs, launches_total = {}, {}
+    for kind, make in makes.items():
+        engine = make()
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        torch.cuda.synchronize()
+        dispatch.reset_counters()
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        for name, n in launches.items():
+            launches_total[name] = launches_total.get(name, 0) + n
+        if any(plain.values()) or not launches.get(KV_KERNEL_16[kind]):
+            raise AssertionError(f"16 rows {kind}: launches {launches}, plain calls {plain}")
+        if not all(r.finished and len(r.output) == s["max_new_tokens"] for r, s in zip(reqs, specs)):
+            raise AssertionError(f"16 rows {kind}: a request did not finish with its budget of tokens")
+        ref, gaps = solo["int8" if kind.endswith("int8") else "bf16"]
+        diff = check_streams(f"16 rows {kind} vs solo", [r.output for r in reqs], ref, gaps)
+        runs[kind] = dict(wall_s=wall, tokens_per_s=total_new / wall, forwards=engine.steps, launches=launches,
+                          differing=diff)
+        log(f"  16 rows {kind}: {total_new} tokens in {wall:.3f} s -> {total_new / wall:.1f} generated tokens/s; "
+            f"{engine.steps} forwards; {diff} streams differ from their solo streams (top-2 rule); launches {launches}")
+        del engine
+        torch.cuda.empty_cache()
+    at_16 = {kind: at_rows(torch, kind, make, specs, rows=16, kv_kernel=KV_KERNEL_16[kind], n_layers=cfg.n_layers)
+             for kind, make in makes.items()}
+    out["serving_16"] = dict(requests=[dict(prompt_len=len(s["prompt"]), max_new_tokens=s["max_new_tokens"])
+                                       for s in specs], runs=runs, at_16_rows=at_16)
+    return launches_total
+
+
+def drive_checkpoints(torch, cfg, params, out) -> dict:
+    """Phase 5's checkpoint checks. The slot engine (8 slots of 512
+    positions, 8 forwards a tick) on phase 5's first 12 requests with at most 64 new tokens each,
+    bf16 then int8 KV, greedy then TemperatureSampler(0.8) from seed 5:
+    run through; then again for half the ticks the uninterrupted run took,
+    snapshot_engine, save_snapshot to a temporary file, load_snapshot,
+    restore_engine into a fresh engine that runs to the end: every stream
+    must equal the uninterrupted run's token for token. Then a NativeBackend
+    after phase 4's 64-token prompt: snapshot_backend, 32 greedy decode
+    steps, restore_backend into a fresh backend, the same 32 steps: equal
+    tokens. Returns the launches of the restored runs."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from rten_tpu_torch.generate import NativeBackend, TemperatureSampler
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.serve import (Request, ServingEngine, load_snapshot, restore_backend, restore_engine,
+                                      save_snapshot, snapshot_backend, snapshot_engine)
+
+    dev = torch.device("cuda", 0)
+    specs = [dict(prompt=s["prompt"], max_new_tokens=min(64, s["max_new_tokens"])) for s in serving_specs(cfg)[:12]]
+    results, launches_total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kv in ("bf16", "int8"):
+            run_cfg = dataclasses.replace(cfg, int8_kv=kv == "int8")
+            for mode in ("greedy", "temperature 0.8"):
+                def make(run_cfg=run_cfg, mode=mode):
+                    kw = dict(sampler=TemperatureSampler(0.8), seed=5) if mode != "greedy" else {}
+                    return ServingEngine(params, run_cfg, max_batch=8, max_len=512, steps_per_tick=8, device=dev,
+                                         **kw)
+
+                engine = make()
+                for s in specs:
+                    engine.submit(Request(**s))
+                done, ticks = [], 0
+                while engine.has_work():
+                    done.extend(engine.step())
+                    ticks += 1
+                want = {r.request_id: r.output for r in done}
+                engine = make()
+                for s in specs:
+                    engine.submit(Request(**s))
+                done = []
+                for _ in range(ticks // 2):
+                    done.extend(engine.step())
+                path = f"{tmp}/{kv}_{mode.split()[0]}.npz"
+                save_snapshot(snapshot_engine(engine), path)
+                restored = make()
+                restore_engine(restored, load_snapshot(path))
+                dispatch.reset_counters()
+                done.extend(restored.run())
+                for name, n in dispatch.LAUNCHES.items():
+                    launches_total[name] = launches_total.get(name, 0) + n
+                got = {r.request_id: r.output for r in done}
+                if got != want:
+                    bad = [i for i in want if got.get(i) != want[i]]
+                    raise AssertionError(f"checkpoint {kv} {mode}: requests {bad} differ after the restore")
+                results[f"{kv} {mode}"] = dict(ticks=ticks, snapshot_at=ticks // 2, bytes=os.path.getsize(path),
+                                               restored_launches=dict(dispatch.LAUNCHES))
+                log(f"  checkpoint {kv} KV {mode}: snapshot after {ticks // 2} of {ticks} ticks "
+                    f"({os.path.getsize(path)} bytes), restored into a fresh engine: all {len(specs)} streams equal "
+                    "the uninterrupted run's")
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, N_PROMPT), generator=torch.Generator().manual_seed(0))
+    prompt = prompt.to(torch.int32).numpy()  # phase 4's prompt (the first draw of its seed)
+
+    def steps(backend, tok):
+        out_toks = []
+        for _ in range(N_FORCED):
+            tok = int(backend.decode(np.array([[tok]], np.int32), greedy=True)[0])
+            out_toks.append(tok)
+        return out_toks
+
+    backend = NativeBackend(params, cfg, max_len=CACHE_LEN, device=dev)
+    first = int(backend.prefill(prompt, greedy=True)[0])
+    snap = snapshot_backend(backend)
+    before = steps(backend, first)
+    fresh = NativeBackend(params, cfg, max_len=CACHE_LEN, device=dev)
+    restore_backend(fresh, snap)
+    after = steps(fresh, first)
+    if after != before or fresh.length != backend.length:
+        raise AssertionError(f"backend checkpoint: the decode after the restore differs: {before} vs {after}")
+    log(f"  backend checkpoint: NativeBackend after the {N_PROMPT}-token prompt, {N_FORCED} greedy steps after "
+        "restore_backend equal those after snapshot_backend")
+    out["checkpoint"] = dict(engine=results, backend=dict(steps=N_FORCED, equal=True, length=fresh.length))
     return launches_total
 
 
@@ -2058,8 +2320,8 @@ def drive_w8a8(torch, cfg, params, mem_rate, int8_rate, out):
         raise AssertionError(f"W8A8 slot run: {N_REQUESTS - equal} streams differ from their solo streams")
     del engine
     torch.cuda.empty_cache()
-    at_8 = at_8_rows(torch, "slot_w8a8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8,
-                                                             device=dev), specs)
+    at_8 = at_rows(torch, "slot_w8a8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8,
+                                                           device=dev), specs)
     out["w8a8_gate"] = gate
     out["w8a8_serving"] = dict(wall_s=wall, tokens_per_s=total_new / wall, launches=run_launches,
                                streams_equal=equal, at_8_rows=at_8, streams=[r.output for r in reqs])
@@ -2762,6 +3024,193 @@ def drive_generation(torch, mem_rate, out):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Whisper-tiny through Generator(EncDecBackend)
+# ---------------------------------------------------------------------------
+
+# Whisper's start of transcript: <|startoftranscript|> <|en|> <|transcribe|>
+# <|notimestamps|> (the multilingual vocabulary of whisper-tiny).
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+N_WHISPER_NEW, WHISPER_GATE = 200, 0.05
+WHISPER_STEP = {"quant_gemv_int8": 4, "flash_attention": 1, "quant_mlp_int8": 1}  # launches a layer a step
+WHISPER_KV = {True: "decode_attention_int8", False: "decode_attention:no_wo"}
+
+
+@contextlib.contextmanager
+def plain_encdec(ed):
+    """Route the encoder-decoder's kernel calls (and the decoder module's
+    flash_attention, which its prompt's attention reaches) to their plain
+    versions."""
+    from rten_tpu_torch.kernels import attention as at
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import quant_matmul as qm
+    from rten_tpu_torch.models import decoder
+
+    plain = {ed: dict(quant_gemv_int8=qm.quant_gemv_int8_ref, quant_mlp_int8=qm.quant_mlp_int8_ref,
+                      quant_matmul_int8=qm.quant_matmul_int8_ref, decode_attention=da.decode_attention_ref,
+                      decode_attention_int8=da.decode_attention_int8_ref, flash_attention=at.flash_attention_ref),
+             decoder: dict(flash_attention=at.flash_attention_ref)}
+    saved = {(mod, name): getattr(mod, name) for mod, names in plain.items() for name in names}
+    for mod, names in plain.items():
+        for name, fn in names.items():
+            setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def drive_whisper(torch, mem_rate, out) -> dict:
+    """Phase 11: Whisper-tiny at full width (WHISPER_TINY: random weights
+    from seed 0, int8 by quantize_params_int8, bf16 activations) through
+    Generator(EncDecBackend(..., device="cuda")), with int8 KV (BASELINE's
+    configuration), then a bf16 cache: a seeded [1, 80, 3000] mel (30 s,
+    1500 encoder positions) encoded once, the 4 start-of-transcript tokens
+    as one prefill, then N_WHISPER_NEW greedy steps in the 448-position
+    cache. Records the time to first token (encode and prompt, host clock),
+    the encoder's device µs by kernel, host ms a step and tokens/s, device
+    ms a step and the idle share (profiler), and one decode step's launches,
+    which must be WHISPER_STEP a layer, the KV kernel once a layer and the
+    lm_head GEMV, with no plain version. Then the encoder states and
+    N_FORCED teacher-forced steps (the prompt, then the served tokens one at
+    a time) through the kernels against the plain versions on the same
+    inputs: relative RMS at most WHISPER_GATE, the served token the argmax
+    of the kernels' logits, and another plain argmax only where its top-2
+    gap is below GAP_TOL. Returns the main runs' launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from rten_tpu_torch.generate import EncDecBackend, Generator, GeneratorConfig, Metrics
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import encoder_decoder as ed
+
+    t0 = time.perf_counter()
+    base = ed.WHISPER_TINY
+    params = ed.quantize_params_int8(ed.init_params(0, base, device="cuda"), device="cuda")
+    mel = torch.randn(1, base.n_mels, 2 * base.n_audio_ctx, generator=torch.Generator().manual_seed(11))
+    torch.cuda.synchronize()
+    n_layers = base.n_text_layers
+    log(f"  params: Whisper-tiny int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize; mel "
+        f"{tuple(mel.shape)} from seed 11")
+    weight = stream_bytes(params["dec_layers"]) + stream_bytes(params["lm_head_q"])
+    cross_bytes = 2 * n_layers * base.n_audio_ctx * base.d_model * 2
+    launches_total, results = {}, {}
+    for int8 in (True, False):
+        cfg = dataclasses.replace(base, int8_kv=int8)
+        key = "int8_kv" if int8 else "bf16_kv"
+
+        warm = EncDecBackend(params, cfg, mel, device="cuda")  # plans and the allocator, outside the counted run
+        list(Generator(warm, GeneratorConfig(max_tokens=4)).with_prompt([list(WHISPER_PROMPT)]))
+        del warm
+        torch.cuda.synchronize()
+        dispatch.reset_counters()
+        metrics = Metrics()
+        t_start = time.perf_counter()
+        backend = EncDecBackend(params, cfg, mel, device="cuda")
+        gen = Generator(backend, GeneratorConfig(max_tokens=N_WHISPER_NEW + 1)).with_prompt([list(WHISPER_PROMPT)])
+        it = iter(gen.profile(metrics))
+        tokens = [int(next(it)[0])]
+        ttft = (time.perf_counter() - t_start) * 1e3
+        tokens += [int(t[0]) for t in it]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        for name, n in launches.items():
+            launches_total[name] = launches_total.get(name, 0) + n
+        if any(plain.values()):
+            raise AssertionError(f"whisper {key}: plain versions ran on the main path: {plain}")
+        if len(tokens) != N_WHISPER_NEW + 1 or not all(0 <= t < base.vocab_size for t in tokens):
+            raise AssertionError(f"whisper {key}: the stream has the wrong length or out-of-vocabulary ids")
+        step_ms = metrics.mean_step_ms()
+
+        # One decode step's launches.
+        dispatch.reset_counters()
+        backend.decode(np.array([[tokens[-1]]], np.int32), greedy=True)
+        step_launches, step_plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        want = {name: n * n_layers for name, n in WHISPER_STEP.items()}
+        want["quant_gemv_int8"] += 1  # the lm_head
+        want[WHISPER_KV[int8]] = n_layers
+        kernels = {name: n for name, n in step_launches.items() if ":split" not in name}  # split launches twice
+        if kernels != want or step_plain:
+            raise AssertionError(f"whisper {key}: a decode step launched {step_launches} (plain {step_plain}), "
+                                 f"not {want}")
+
+        # Device time of the encoder and of a decode step (profiler).
+        enc_us = device_us_by_kernel(torch, lambda: ed.encode(params, cfg, mel.cuda()), 3)
+        decode_us = device_us_by_kernel(
+            torch, lambda: backend.decode(np.array([[tokens[1]]], np.int32), greedy=True), 16)
+        dev_ms = sum(decode_us.values()) / 1e3
+        idle = max(0.0, 1.0 - dev_ms / step_ms) if dev_ms > 0 else None
+        avg_prefix = len(WHISPER_PROMPT) + N_WHISPER_NEW / 2
+        kv = 2 * n_layers * avg_prefix * base.d_model * (1 + 4 / base.head_dim if int8 else 2)
+        bound_ms = (weight + cross_bytes + kv) / mem_rate * 1e3
+        results[key] = dict(
+            ttft_ms=ttft, wall_s=wall, tokens_per_s=metrics.tokens_per_second(), ms_per_step=step_ms,
+            device_ms_per_step=dev_ms, idle_share=idle, bound_ms_per_step=bound_ms, weight_bytes=weight,
+            cross_kv_bytes=cross_bytes, kv_bytes=kv, launches=launches, launches_per_step=step_launches,
+            encoder_device_us_by_kernel=enc_us, encoder_device_ms=sum(enc_us.values()) / 1e3,
+            decode_device_us_by_kernel=decode_us, served_head=tokens[:16],
+        )
+        log(f"  whisper {key}: time to first token {ttft:.4f} ms (encode + {len(WHISPER_PROMPT)}-token prompt, host "
+            f"clock); {N_WHISPER_NEW} steps at {step_ms:.4f} ms/step (host clock) -> "
+            f"{metrics.tokens_per_second():.1f} tokens/s; device {dev_ms:.4f} ms/step (profiler) -> idle share "
+            f"{idle if idle is None else round(idle, 4)}; bound {bound_ms:.4f} ms/step ({weight} weight + "
+            f"{cross_bytes} cross K/V + {kv:.0f} KV bytes); launches a step {step_launches}")
+        log(f"    encoder device {results[key]['encoder_device_ms']:.4f} ms (profiler); by kernel (us):")
+        for name, us in sorted(enc_us.items(), key=lambda kv_: -kv_[1])[:8]:
+            log(f"      {us:9.3f}  {name[:90]}")
+        log("    decode step by kernel (us):")
+        for name, us in sorted(decode_us.items(), key=lambda kv_: -kv_[1])[:8]:
+            log(f"      {us:9.3f}  {name[:90]}")
+
+        # Teacher-forced: the encoder states and N_FORCED steps through the
+        # kernels and through the plain versions on the same inputs.
+        served = tokens[:N_FORCED]
+
+        def forced():
+            enc = ed.encode(params, cfg, mel.cuda())
+            state = ed.init_decoder_state(params, cfg, enc)
+            ids = torch.tensor([list(WHISPER_PROMPT)], dtype=torch.int32, device="cuda")
+            lg, state = ed.decode(params, cfg, ids, state, last_only=True)
+            rows = [lg[0, -1]]
+            for tok in served[:-1]:
+                lg, state = ed.decode(params, cfg, torch.tensor([[tok]], dtype=torch.int32, device="cuda"), state)
+                rows.append(lg[0, -1])
+            return enc, torch.stack(rows)
+
+        enc_k, k_logits = forced()
+        with plain_encdec(ed):
+            enc_p, p_logits = forced()
+        torch.cuda.synchronize()
+        served_t = torch.tensor(served, device="cuda")
+        if not torch.equal(k_logits.argmax(-1), served_t):
+            raise AssertionError(f"whisper {key}: the served stream differs from the argmax of its kernels' logits")
+        p_gaps = p_logits.max(-1).values - p_logits.gather(1, served_t[:, None])[:, 0]
+        if bool((p_gaps > GAP_TOL).any()):
+            raise AssertionError(f"whisper {key}: a served token loses to the plain argmax by > {GAP_TOL}: "
+                                 f"{p_gaps.tolist()}")
+        gate = dict(logits_rel_rms=rel_rms(k_logits, p_logits), encoder_rel_rms=rel_rms(enc_k, enc_p),
+                    encoder_max_abs=(enc_k.float() - enc_p.float()).abs().max().item(),
+                    argmax_agree_plain=int((p_gaps == 0).sum()), max_gap_plain=p_gaps.max().item(),
+                    bound=WHISPER_GATE)
+        results[key]["forced"] = gate
+        log(f"    teacher-forced {N_FORCED} steps: logits relative RMS kernels against plain "
+            f"{gate['logits_rel_rms']:.5f} (bound {WHISPER_GATE}); the plain argmax is the served token at "
+            f"{gate['argmax_agree_plain']}/{N_FORCED}, worst gap {gate['max_gap_plain']:.4g} (tol {GAP_TOL}); "
+            f"encoder states relative RMS {gate['encoder_rel_rms']:.5f}, max |diff| {gate['encoder_max_abs']:.4g}")
+        if not (gate["logits_rel_rms"] <= WHISPER_GATE and gate["encoder_rel_rms"] <= WHISPER_GATE
+                and bool(torch.isfinite(k_logits).all())):
+            raise AssertionError(f"whisper {key}: kernels and plain versions differ beyond the bound: {gate}")
+        del backend, gen
+        torch.cuda.empty_cache()
+    out["whisper"] = results
+    del params
+    torch.cuda.empty_cache()
+    return launches_total
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -3033,7 +3482,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/11] device")
+    log("[1/12] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -3046,7 +3495,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/11] build")
+    log("[2/12] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -3067,7 +3516,7 @@ def main() -> int:
         return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
     if opts.gemv:
         return gemv_only(torch, bound, cfg, detail, kind, smi, opts.gemv)
-    log("[3/11] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    log("[3/12] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -3076,31 +3525,34 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/11] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/12] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/11] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/12] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/11] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/12] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/11] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/12] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/11] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log("[8/12] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/11] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[9/12] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[10/11] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+    log("[10/12] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
+        launches[name] = launches.get(name, 0) + n
+    log("[11/12] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
+    for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
@@ -3109,7 +3561,7 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log("[11/11] summary")
+    log("[12/12] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

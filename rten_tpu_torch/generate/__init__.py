@@ -1,9 +1,16 @@
-"""Autoregressive generation over the port's decoder: ``Generator`` with a
-``NativeBackend``, samplers, speculative decoding and metrics."""
+"""Autoregressive generation over the port's models: ``Generator`` with a
+``NativeBackend`` (the decoder) or an ``EncDecBackend`` (the Whisper-class
+encoder-decoder), samplers, speculative decoding and metrics."""
 
-from rten_tpu_torch.generate.generator import Generator, GeneratorConfig, NativeBackend
+from rten_tpu_torch.generate.generator import (
+    EncDecBackend,
+    EncDecBackendFactory,
+    Generator,
+    GeneratorConfig,
+    NativeBackend,
+)
 from rten_tpu_torch.generate.metrics import Metrics
 from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler, TemperatureSampler, TopKSampler, TopPSampler
 
-__all__ = ["Generator", "GeneratorConfig", "NativeBackend", "Metrics", "Sampler", "ArgMaxSampler",
-           "TemperatureSampler", "TopKSampler", "TopPSampler"]
+__all__ = ["Generator", "GeneratorConfig", "NativeBackend", "EncDecBackend", "EncDecBackendFactory", "Metrics",
+           "Sampler", "ArgMaxSampler", "TemperatureSampler", "TopKSampler", "TopPSampler"]

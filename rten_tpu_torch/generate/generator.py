@@ -3,8 +3,9 @@
 Counterpart of ``rten_tpu/generate/generator.py`` (``GeneratorConfig``,
 ``NativeBackend``, ``Generator``): the iterator keeps ``with_prompt``,
 ``append_prompt``, ``with_sampler``, ``with_draft``, ``on_token``,
-``profile``, EOS and ``max_tokens``. ``GraphBackend`` and
-``EncDecBackend`` are not ported yet.
+``profile``, EOS and ``max_tokens``. ``EncDecBackend`` drives the
+Whisper-class encoder-decoder (``models.encoder_decoder``) through the same
+iterator; ``GraphBackend`` and ``backend_for_model`` are not ported yet.
 
 A prompt, and every follow-up chunk of ``append_prompt``, goes into the
 cache as one ``decoder.prefill`` forward (the prefill kernels above 8 rows);
@@ -32,7 +33,7 @@ from rten_tpu_torch.generate import speculative
 from rten_tpu_torch.generate.metrics import Metrics
 from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler, TemperatureSampler
 from rten_tpu_torch.kernels.dispatch import resolve_device
-from rten_tpu_torch.models import decoder
+from rten_tpu_torch.models import decoder, encoder_decoder
 
 
 @dataclasses.dataclass
@@ -77,6 +78,65 @@ class NativeBackend:
     def prefill(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
         """Feed a prompt [B, T]; returns the last position's f32 logits
         [B, vocab], or its greedy tokens int32 [B] with ``greedy``."""
+        return self._step(tokens, greedy)
+
+    def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
+        """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``."""
+        return self._step(tokens, greedy)
+
+
+class EncDecBackendFactory:
+    """Carries an encoder-decoder's params and cfg; called with an
+    utterance's encoder input (audio features) it makes the
+    ``EncDecBackend`` for it (the JAX package's ``backend_for_model``
+    returns one for a lifted encoder-decoder graph)."""
+
+    def __init__(self, params, cfg):
+        self.params = params
+        self.cfg = cfg
+
+    def __call__(self, encoder_input, max_len: int | None = None, device="cuda"):
+        return EncDecBackend(self.params, self.cfg, encoder_input, max_len=max_len, device=device)
+
+
+class EncDecBackend:
+    """Backend over ``rten_tpu_torch.models.encoder_decoder`` (params, cfg):
+    ``encode`` once per utterance (the mel ``encoder_input`` [B, n_mels,
+    T_audio], here in the constructor), the cross K/V with it, then
+    prefill / decode over the self-attention cache of ``max_len`` (default
+    ``max_text_ctx``) positions on ``device``. ``reset`` starts the text
+    anew over the same utterance."""
+
+    def __init__(self, params, cfg, encoder_input, max_len: int | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        mel = encoder_input if isinstance(encoder_input, torch.Tensor) else torch.from_numpy(
+            np.asarray(encoder_input, np.float32))
+        mel = mel.to(self.device)
+        self.enc_states = encoder_decoder.encode(params, cfg, mel)
+        self.batch = self.enc_states.shape[0]
+        self.max_len = max_len or cfg.max_text_ctx
+        self.reset()
+
+    def reset(self) -> None:
+        self.state = encoder_decoder.init_decoder_state(self.params, self.cfg, self.enc_states, self.max_len)
+        self.length = 0  # tokens in the self-attention cache, every row
+
+    def _step(self, tokens: np.ndarray, greedy: bool) -> torch.Tensor:
+        tokens = np.asarray(tokens, np.int32)
+        if self.length + tokens.shape[1] > self.max_len:
+            raise ValueError(f"KV cache full: {self.length} + {tokens.shape[1]} tokens > max_len {self.max_len}")
+        ids = torch.from_numpy(tokens).to(self.device)
+        out, self.state = encoder_decoder.decode(self.params, self.cfg, ids, self.state,
+                                                 lm_head_mode="argmax" if greedy else "logits", last_only=True)
+        self.length += tokens.shape[1]
+        return out[:, -1]
+
+    def prefill(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
+        """Feed the decoder prompt [B, T] as one forward; returns the last
+        position's f32 logits [B, vocab], or its greedy tokens int32 [B]
+        with ``greedy``."""
         return self._step(tokens, greedy)
 
     def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:

@@ -1,1 +1,7 @@
-"""Native models of the port: the GPT-2-class decoder (``decoder``)."""
+"""Native models of the port: the GPT-2 / OPT / Llama-class decoder
+(``decoder``) and the Whisper-class encoder-decoder
+(``encoder_decoder``)."""
+
+from rten_tpu_torch.models import decoder, encoder_decoder
+
+__all__ = ["decoder", "encoder_decoder"]

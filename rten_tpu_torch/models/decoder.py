@@ -26,8 +26,9 @@ As on the TPU path, the number of rows B·T picks the structure:
 - **B·T > 8: the prefill structure.** Plain-PyTorch norms (``_norm``),
   ``quant_matmul_int8`` for qkv, wo, up (GELU in its epilogue) and down
   (or gate|up and down), the residual adds outside, and causal
-  ``flash_attention`` over the cache; one token a row on a bf16/f32 cache
-  (T = 1, B > 8) takes ``decode_attention`` without its wo instead, then wo
+  ``flash_attention`` over the cache; one token a row (T = 1, B > 8) takes
+  the cache's KV kernel instead (``decode_attention`` without its wo on a
+  bf16/f32 cache, ``decode_attention_int8``, the paged pair), then wo
   through the prefill projection, as the JAX package does.
 
 RoPE rotates q and k (rotate-half, in f32, rounded to the model dtype)
@@ -39,10 +40,10 @@ grouped-query attention.
 The KV cache is bf16/f32 or, with ``cfg.int8_kv``, int8 with one f32
 scale per (token, kv head); each row holds its own length. One token per
 row on an int8 cache runs ``decode_attention_int8``, on a paged pool's
-state (``serve.paged``) ``paged_decode_attention(_int8)``, each then wo
-through ``quant_gemv_int8`` with the residual; more tokens on an int8 cache
-take the eager branch (quantize, write, attend over the prefix dequantized
-to the model dtype).
+state (``serve.paged``) ``paged_decode_attention(_int8)``, at any B, each
+then wo (``quant_gemv_int8`` with the residual up to 8 rows); more tokens
+on an int8 cache take the eager branch (quantize, write, attend over the
+prefix dequantized to the model dtype).
 
 **The whole-block decode** (``cfg.mega``; the JAX package's
 ``RTEN_DECODE_FUSE=mega``): one token at batch 1 on a bf16/f32 cache runs
@@ -387,7 +388,14 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
     and ``w_gate`` among them) become ``int8_pack``s (a tiled one marked
     ``tiled``), the ``slabs`` duplicates are dropped, and ``[1, N]`` vectors
     become f32 ``[N]``."""
-    dev = resolve_device(device)
+    return carry_tree(tree, cfg.dtype, _EMBEDDINGS + _MATRICES, resolve_device(device))
+
+
+def carry_tree(tree: dict, dtype: torch.dtype, dense_keys, dev: torch.device) -> dict:
+    """A JAX params tree as port tensors on ``dev``: ``{"q", "s"}`` packs
+    (row-major or tiled) as ``int8_pack``s, leaves under ``dense_keys`` as
+    tensors in ``dtype``, every other leaf a vector ``[N]``: f32 in a
+    quantized tree, ``dtype`` in a dense one; ``slabs`` dropped."""
 
     def is_pack(node):
         return isinstance(node, dict) and set(node) == {"q", "s"}
@@ -411,10 +419,10 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
         if isinstance(node, list):
             return [conv(v, key) for v in node]
         arr = np.asarray(node, np.float32)
-        if key in _EMBEDDINGS or key in _MATRICES:
-            return torch.from_numpy(arr.copy()).to(dev, cfg.dtype)
+        if key in dense_keys:
+            return torch.from_numpy(arr.copy()).to(dev, dtype)
         vec = torch.from_numpy(arr.reshape(-1).copy()).to(dev)
-        return vec if quantized else vec.to(cfg.dtype)
+        return vec if quantized else vec.to(dtype)
 
     return conv(tree)
 
@@ -834,10 +842,11 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     The cache is one ``init_cache`` makes (bf16/f32 or int8) or a paged
     pool's state ``{"k_pages", "v_pages", ["k_scale_pages",
     "v_scale_pages"], "page_table", "len"}`` (``serve.paged``), which takes
-    one token per row, at most 8 rows, each row's page of ``len`` allocated
-    by the caller. One token on an int8 or paged cache runs
-    ``decode_attention_int8`` or ``paged_decode_attention(_int8)``, then wo
-    through ``quant_gemv_int8`` with the residual.
+    one token per row, each row's page of ``len`` allocated by the caller.
+    One token a row on an int8 or paged cache runs ``decode_attention_int8``
+    or ``paged_decode_attention(_int8)`` at any B, then wo through
+    ``quant_gemv_int8`` with the residual (the prefill projection above 8
+    rows).
 
     ``fuse=False`` runs the prefill structure at any row count (the JAX
     package's ``RTEN_DECODE_FUSE=0``): the serving engines admit a W8A8
@@ -852,14 +861,16 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     small = fuse and rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
     paged = cache is not None and "k_pages" in cache
     one_token = t == 1 and cache is not None
-    kv_decode = small and one_token and (paged or "k_scale" in cache)  # the paged / int8 decode kernels
-    # decode_attention: one token a row on a bf16/f32 cache; its wo fused in
-    # the decode structure, else left to the prefill projection.
+    # One token a row takes a KV kernel at any B (JAX decoder.py:740-812):
+    # the paged / int8 decode kernels, or decode_attention on a bf16/f32
+    # cache, its wo fused in the decode structure, else left to the prefill
+    # projection.
+    kv_decode = one_token and (paged or "k_scale" in cache)
     decode = one_token and not paged and "k_scale" not in cache
     mega = decode and small and b == 1 and cfg.mega and cfg.activation in ("gelu", "relu", "silu")
     q_offset = kv_len = None
     if paged and not kv_decode:
-        raise ValueError(f"a paged cache takes one token per row and at most {MAX_ROWS} rows, got {b}x{t}")
+        raise ValueError(f"a paged cache takes one token per row, got {b}x{t}")
     if cache is not None:
         _check_room(cache, t)
         start = cache["len"]
@@ -964,20 +975,15 @@ def _scan_steps(params: dict, cfg: DecoderConfig, cache: dict, tok, rng, n_steps
     return torch.cat(out, dim=1)
 
 
-def _capturable(cache: dict, b: int, sampled: bool) -> bool:
+def _capturable(sampled: bool) -> bool:
     """Whether ``generate_scan`` may capture its steps: only when every
-    step reads the cache length on the device alone. One token a row does
-    on a bf16/f32 cache at any B, and on an int8 or paged cache at 8 rows
-    or fewer (their decode kernels). An int8 cache above 8 rows goes
-    through ``_attention``, which bakes ``int(cache["host_len"].max())``
-    into the launch, so a replay would attend over the capture's prefix.
-    Decided from the cache's kind and B before any capture, never by
-    catching a capture error. A sampled graph needs the installed torch to
-    advance its generator at every replay
-    (``CUDAGraph.register_generator_state``)."""
-    if sampled and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-        return False
-    return b <= MAX_ROWS or ("k_pages" not in cache and "k_scale" not in cache)
+    step reads the cache length on the device alone, as one token a row
+    does on every kind of cache at any B (the KV kernels; never
+    ``_attention``, which bakes ``int(cache["host_len"].max())`` into the
+    launch). A sampled graph needs the installed torch to advance its
+    generator at every replay (``CUDAGraph.register_generator_state``).
+    Decided before any capture, never by catching a capture error."""
+    return not sampled or hasattr(torch.cuda.CUDAGraph, "register_generator_state")
 
 
 class _Captured:
@@ -1073,8 +1079,8 @@ def generate_scan(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, rn
     every replay and the same seed gives the same tokens captured and eager.
     Replays run on the caller's current stream, in order: graphs captured
     on one device share its capture stream's GEMV argmax work buffer.
-    Where a step would read a length on the host (``_capturable``) the
-    steps run eagerly, as they do on the CPU."""
+    Where the installed torch cannot advance a sampled graph's generator
+    (``_capturable``) the steps run eagerly, as they do on the CPU."""
     from rten_tpu_torch.generate.sampler import ArgMaxSampler
 
     if isinstance(sampler, ArgMaxSampler):
@@ -1083,7 +1089,7 @@ def generate_scan(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, rn
         raise ValueError(f"{type(sampler).__name__} requires an rng (a torch.Generator)")
     b = last_tokens.shape[0]
     _check_room(cache, n_steps)
-    if last_tokens.device.type != "cuda" or not _capturable(cache, b, sampler is not None):
+    if last_tokens.device.type != "cuda" or not _capturable(sampler is not None):
         return _scan_steps(params, cfg, cache, last_tokens, rng, n_steps, sampler), cache
     graphs = _GRAPHS.setdefault(cache["len"], {})
     tensors = _cache_tensors(cache)

@@ -28,8 +28,9 @@ slot at once.
 - ``run_pipelined`` dispatches the next tick from the device-side carry
   (last token, active mask, budget) before the host reads this one.
 
-At most 8 slots (the fused decode structure); no mesh or tensor
-parallelism yet.
+Any number of slots: a tick's forwards take the fused decode structure
+up to 8 rows and the prefill structure above, each with its cache's KV
+kernel. No mesh or tensor parallelism yet.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ import torch
 
 from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler
 from rten_tpu_torch.kernels.dispatch import resolve_device
-from rten_tpu_torch.kernels.quant_matmul import MAX_ROWS
 from rten_tpu_torch.models import decoder
 
 
@@ -61,14 +61,14 @@ class Request:
 
 
 def check_engine_options(max_batch: int, mesh, tp_mode: str = "pjit") -> None:
-    """The options the port's engines run, or NotImplementedError."""
+    """The options the port's engines run: any ``max_batch`` ≥ 1 (up to 8
+    rows a step takes the fused decode structure, more the prefill one),
+    no mesh, ``tp_mode="pjit"``. Else NotImplementedError (a mesh or
+    another ``tp_mode``) or ValueError."""
     if mesh is not None or tp_mode != "pjit":
         raise NotImplementedError("mesh / tensor-parallel serving is not ported yet")
-    if not 1 <= max_batch <= MAX_ROWS:
-        raise NotImplementedError(
-            f"max_batch {max_batch}: the port serves 1-{MAX_ROWS} rows per step (the fused decode "
-            "structure); the JAX package's unfused path above that is not ported"
-        )
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be at least 1, got {max_batch}")
 
 
 def sample_step(params, cfg, tokens, cache, sampler: Sampler, rng, **kw):

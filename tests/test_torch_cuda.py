@@ -234,6 +234,11 @@ FLASH_CASES = {
     "ragged_tq": (1, 3, 3, 13, 128, True, [50], [63]),
     "kv_len_0_row": (2, 2, 1, 9, 128, True, [0, 60], [0, 69]),
     "long": (1, 2, 2, 200, 300, True, [100], [300]),
+    # Whisper-tiny's attention shapes: the encoder's (Tq = S = 1500, not
+    # causal: 23 tiles of 64 positions and a last one of 28) and the cross
+    # attention of one decoder token over the 1500 audio positions.
+    "whisper_encoder": (1, 6, 6, 1500, 1500, False, None, None),
+    "whisper_cross": (2, 6, 6, 1, 1500, False, None, None),
 }
 
 
@@ -302,6 +307,24 @@ def test_flash_kernel_strided_views(dev, dtype):
     q, k, v = (p.transpose(1, 2) for p in qkv.unbind(2))
     out = flash_attention(q, k, v, causal=True)
     ref = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    _close_own_max(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tq", [1500, 1])
+def test_flash_kernel_whisper_views(dev, dtype, tq):
+    """The encoder-decoder's operands: q, k, v as [B, H, T, D] views of
+    [B·T, H·D] projections (rows 768 or 1536 bytes apart), S 1500, not
+    causal; against the plain version on contiguous copies."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, s, h, d = 1, 1500, 6, 64
+
+    def heads(t):
+        return (1.5 * torch.randn(b * t, h * d, generator=gen, device=dev)).to(dtype).view(b, t, h, d).transpose(1, 2)
+
+    q, k, v = heads(tq), heads(s), heads(s)
+    out = flash_attention(q, k, v, causal=False)
+    ref = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
     _close_own_max(out, ref, dtype)
 
 
@@ -586,6 +609,178 @@ def test_tiny_engines_match_cpu(dev, engine):
         assert eng.pool.n_free == eng.pool.n_pages
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["bf16_cache", "int8", "paged", "paged_int8"])
+def test_kv_kernels_at_16_rows(dev, kind, dtype):
+    """Each KV kernel at 16 rows of mixed lengths (0 to S - 1 of S 448,
+    Whisper-tiny's 6 heads of 64; pages of 64 scattered through the pool):
+    one launch for all rows, the attention vector against the plain version
+    (own-max tolerance) and the caches after the append bit for bit."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    b, h, d, s, page = 16, 6, 64, 448, 64
+    lens = torch.tensor([0, 1, 63, 64, 100, 150, 200, 255, 256, 300, 350, 383, 384, 400, 446, 447],
+                        dtype=torch.int32, device=dev)
+    ops = tuple((1.5 * torch.randn(b, h, d, generator=gen, device=dev)).to(dtype) for _ in range(3))
+    paged = kind.startswith("paged")
+    shape = (b * (s // page) + 1, h, page, d) if paged else (b, h, s, d)
+    if kind.endswith("int8"):
+        cache = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in range(2)]
+        cache += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+    else:
+        cache = [(1.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype) for _ in range(2)]
+    extra = []
+    if paged:
+        perm = torch.randperm(b * (s // page), generator=gen, device=dev).to(torch.int32)
+        extra = [perm.view(b, s // page).contiguous()]
+    kernel, plain = {"bf16_cache": (da.decode_attention, da.decode_attention_ref),
+                     "int8": (da.decode_attention_int8, da.decode_attention_int8_ref),
+                     "paged": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
+                     "paged_int8": (pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref)}[kind]
+    k_args, p_args = [c.clone() for c in cache + extra], [c.clone() for c in cache + extra]
+    dispatch.reset_counters()
+    out = kernel(ops, *k_args, lens)
+    assert sum(dispatch.LAUNCHES.values()) == 1 and not dispatch.PLAIN
+    ref = plain(ops, *p_args, lens)
+    assert out.shape == (b, h * d)
+    _close_own_max(out, ref, dtype)
+    for a, c in zip(k_args[: len(cache)], p_args[: len(cache)]):
+        assert torch.equal(a, c)
+
+
+def _tiny_encdec(dev, dtype=torch.float32, int8_kv=False):
+    from rten_tpu_torch.models import encoder_decoder as ed
+
+    cfg = ed.EncDecConfig(n_mels=16, n_audio_ctx=32, vocab_size=500, d_model=256, n_heads=4, n_audio_layers=2,
+                          n_text_layers=2, d_ff=512, max_text_ctx=64, dtype=dtype, int8_kv=int8_kv)
+    return ed, cfg, ed.quantize_params_int8(ed.init_params(0, cfg, device=dev), device=dev)
+
+
+@contextlib.contextmanager
+def _plain_encdec(ed):
+    """Route the encoder-decoder's kernel calls (and the decoder's, whose
+    ``_attention`` it uses for a prompt) to their plain versions."""
+    from rten_tpu_torch.kernels import decode_attention as da
+    from rten_tpu_torch.models import decoder
+
+    plain = {ed: dict(quant_gemv_int8=qm.quant_gemv_int8_ref, quant_mlp_int8=qm.quant_mlp_int8_ref,
+                      quant_matmul_int8=qm.quant_matmul_int8_ref, decode_attention=decode_attention_ref,
+                      decode_attention_int8=da.decode_attention_int8_ref, flash_attention=flash_attention_ref),
+             decoder: dict(flash_attention=flash_attention_ref)}
+    saved = {(mod, name): getattr(mod, name) for mod, names in plain.items() for name in names}
+    for mod, names in plain.items():
+        for name, fn in names.items():
+            setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["f32_kv", "int8_kv"])
+def test_tiny_encdec_kernels_match_plain(dev, int8_kv):
+    """The tiny f32 encoder-decoder on the card: the encoder states, a
+    3-token prompt and 6 fused one-token steps at 2 rows through the
+    kernels against the plain versions on the same card (relative 1e-4 of
+    the logits' max; the same greedy tokens), every step launching the
+    fused structure's kernels and no plain version."""
+    ed, cfg, params = _tiny_encdec(dev, int8_kv=int8_kv)
+    mel = torch.randn(2, 16, 64, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+
+    def run():
+        enc = ed.encode(params, cfg, mel)
+        state = ed.init_decoder_state(params, cfg, enc)
+        tok = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32, device=dev)
+        logits = []
+        for _ in range(7):
+            lg, state = ed.decode(params, cfg, tok, state)
+            logits.append(lg[:, -1])
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return enc, torch.stack(logits)
+
+    dispatch.reset_counters()
+    enc, got = run()
+    assert not dispatch.PLAIN
+    kv = "decode_attention_int8" if int8_kv else "decode_attention:no_wo"
+    assert dispatch.LAUNCHES[kv] == 6 * 2 and dispatch.LAUNCHES["quant_mlp_int8"] == 6 * 2
+    with _plain_encdec(ed):
+        enc_ref, want = run()
+    _close(enc, enc_ref, torch.float32)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("engine", ["slot", "int8_slot", "paged", "int8_paged"])
+def test_tiny_engines_at_16_rows_match_cpu(dev, engine):
+    """Both engines at max_batch 16 (bf16/f32 and int8 KV) on the tiny f32
+    config: 18 requests on the card (kernels) and on the CPU (plain
+    versions) give the same streams; every decode forward launched the KV
+    kernel once a layer and no plain version ran."""
+    import dataclasses
+
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
+
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=1024,
+                                max_seq=256, dtype=torch.float32)
+    cpu_params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cpu"), device="cpu")
+    gpu_params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+    gen = torch.Generator().manual_seed(14)
+    specs = [dict(prompt=torch.randint(1, 500, (int(n),), generator=gen).tolist(), max_new_tokens=int(m))
+             for n, m in zip(torch.randint(1, 40, (18,), generator=gen), torch.randint(4, 20, (18,), generator=gen))]
+    int8 = engine.startswith("int8")
+    if engine.endswith("slot"):
+        run_cfg = dataclasses.replace(cfg, int8_kv=int8)
+        run = lambda p, d: _engine_outputs(ServingEngine, p, run_cfg, specs, d, max_batch=16, steps_per_tick=4)  # noqa: E731
+        name = "decode_attention_int8" if int8 else "decode_attention:no_wo"
+    else:
+        run = lambda p, d: _engine_outputs(PagedServingEngine, p, cfg, specs, d, max_batch=16,  # noqa: E731
+                                           n_pages=24, page_size=64, int8_kv=int8)
+        name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    dispatch.reset_counters()
+    on_card, eng = run(gpu_params, dev)
+    assert not dispatch.PLAIN and dispatch.LAUNCHES[name] == cfg.n_layers * eng.steps
+    on_cpu, _ = run(cpu_params, "cpu")
+    assert on_card == on_cpu
+
+
+def test_engine_checkpoint_on_card(dev, tmp_path):
+    """A sampled int8-KV slot engine on the card, snapshotted mid-run
+    through a file and restored into a fresh engine, continues every
+    stream as the uninterrupted engine (the CUDA generator's state
+    included)."""
+    import dataclasses
+
+    from rten_tpu_torch.generate import TemperatureSampler
+    from rten_tpu_torch.serve import (Request, ServingEngine, load_snapshot, restore_engine, save_snapshot,
+                                      snapshot_engine)
+
+    _decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    cfg = dataclasses.replace(cfg, int8_kv=True)
+    specs = [dict(prompt=[1 + i, 2 + i, 3], max_new_tokens=12 + i) for i in range(5)]
+
+    def engine():
+        return ServingEngine(params, cfg, max_batch=4, steps_per_tick=2, sampler=TemperatureSampler(0.8), seed=7,
+                             device=dev)
+
+    eng_a = engine()
+    for s in specs:
+        eng_a.submit(Request(**s))
+    want = {r.request_id: r.output for r in eng_a.run()}
+    eng_b = engine()
+    for s in specs:
+        eng_b.submit(Request(**s))
+    done = eng_b.step() + eng_b.step() + eng_b.step()
+    save_snapshot(snapshot_engine(eng_b), str(tmp_path / "s.npz"))
+    eng_c = engine()
+    restore_engine(eng_c, load_snapshot(str(tmp_path / "s.npz")))
+    got = {r.request_id: r.output for r in done + eng_c.run()}
+    assert got == want
+
+
 # ---------------------------------------------------------------------------
 # generate_scan: n decode steps captured as one CUDA graph
 # ---------------------------------------------------------------------------
@@ -652,17 +847,20 @@ def test_generate_scan_captured_equals_eager(dev, kind, b, name):
 
 
 def test_generate_scan_int8_cache_past_eight_rows_runs_eagerly(dev):
-    """An int8 cache above 8 rows attends through the eager int8 branch,
-    which reads the host length: no graph, and the steps run eagerly."""
+    """An int8 cache above 8 rows attends through decode_attention_int8,
+    which reads the lengths on the device, so its steps are captured too
+    (no longer eagerly, as when they took the eager int8 branch): one
+    graph, the eager steps' tokens and launches."""
     import dataclasses
 
     decoder, cfg, params = _tiny(torch.bfloat16, dev)
     cfg = dataclasses.replace(cfg, int8_kv=True)
-    got, cache, _ = _scan_twice(decoder, cfg, params, dev, 12, _sampler("temperature"))
-    assert cache["len"] not in decoder._GRAPHS
+    got, cache, launches = _scan_twice(decoder, cfg, params, dev, 12, _sampler("temperature"))
+    assert len(decoder._GRAPHS[cache["len"]]) == 1
+    assert launches["decode_attention_int8"] == 2 * 12 * cfg.n_layers
     with _eager_scan(decoder):
-        want, _, _ = _scan_twice(decoder, cfg, params, dev, 12, _sampler("temperature"))
-    assert got.tolist() == want.tolist()
+        want, _, eager_launches = _scan_twice(decoder, cfg, params, dev, 12, _sampler("temperature"))
+    assert got.tolist() == want.tolist() and launches == eager_launches
 
 
 def test_generate_scan_two_graphs_on_one_stream(dev):

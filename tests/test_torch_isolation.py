@@ -67,6 +67,21 @@ for engine in (ServingEngine(lparams, dataclasses.replace(llama, int8_kv=True), 
     reqs = [engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=3)) for _ in range(3)]
     engine.run()
     assert all(len(r.output) == 3 for r in reqs)
+from rten_tpu_torch.models import encoder_decoder as ed  # the Whisper-class encoder-decoder
+wcfg = ed.EncDecConfig(n_mels=16, n_audio_ctx=16, vocab_size=300, d_model=256, n_heads=4, n_audio_layers=1,
+                       n_text_layers=1, d_ff=512, max_text_ctx=16, dtype=torch.float32, int8_kv=True)
+wparams = ed.quantize_params_int8(ed.init_params(0, wcfg, device="cpu"), device="cpu")
+enc = ed.encode(wparams, wcfg, torch.randn(1, 16, 32))
+state = ed.init_decoder_state(wparams, wcfg, enc)
+tok = torch.tensor([[1]], dtype=torch.int32)
+for _ in range(2):
+    tok, state = ed.decode(wparams, wcfg, tok, state, lm_head_mode="argmax")
+assert enc.shape == (1, 16, 256) and int(state["len"][0]) == 2 and tok.shape == (1, 1)
+from rten_tpu_torch.serve import checkpoint
+engine = ServingEngine(params, cfg, max_batch=2, device="cpu")
+engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=4))
+engine.step()
+checkpoint.restore_engine(ServingEngine(params, cfg, max_batch=2, device="cpu"), checkpoint.snapshot_engine(engine))
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -105,8 +120,9 @@ def test_scan_regex_catches_imports():
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch):
-    from rten_tpu_torch.generate import NativeBackend
+    from rten_tpu_torch.generate import EncDecBackend, NativeBackend
     from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.models import encoder_decoder as ed
     from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -124,6 +140,11 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: NativeBackend(params, cfg),
         lambda: ServingEngine(params, cfg),
         lambda: PagedServingEngine(params, cfg, page_size=64),
+        lambda: ed.init_params(0, ed.WHISPER_TINY),
+        lambda: ed.quantize_params_int8({}),
+        lambda: ed.params_from_jax({}, ed.WHISPER_TINY),
+        lambda: ed.from_hf_whisper({}, ed.WHISPER_TINY),
+        lambda: EncDecBackend({}, ed.WHISPER_TINY, [[[0.0]]]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -240,10 +240,10 @@ def test_sampled_engines_refuse_unported_options(models):
     _, tcfg, _, tparams = models
     temp = tsampler.TemperatureSampler(0.8)
     with pytest.raises(NotImplementedError):
-        ServingEngine(tparams, tcfg, max_batch=9, sampler=temp, device="cpu")
+        ServingEngine(tparams, tcfg, tp_mode="shard_map", sampler=temp, device="cpu")
     with pytest.raises(NotImplementedError):
         ServingEngine(tparams, tcfg, mesh=object(), sampler=temp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PagedServingEngine(tparams, tcfg, max_batch=9, page_size=64, sampler=temp, device="cpu")
+    with pytest.raises(ValueError, match="max_batch"):
+        PagedServingEngine(tparams, tcfg, max_batch=0, page_size=64, sampler=temp, device="cpu")
     with pytest.raises(NotImplementedError):
         PagedServingEngine(tparams, tcfg, mesh=object(), page_size=64, sampler=temp, device="cpu")

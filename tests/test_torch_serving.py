@@ -16,9 +16,12 @@ import json
 import threading
 import urllib.request
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from rten_tpu.kernels.decode_attention import pack_kv_scales
 from rten_tpu.models import decoder as jdec
 from rten_tpu.serve import Request as JRequest
 from rten_tpu.serve import ServingEngine as JServingEngine
@@ -27,7 +30,17 @@ from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
 from rten_tpu_torch.kernels import dispatch
 from rten_tpu_torch.models import decoder as tdec
 from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine, ServingServer
-from torch_port_helpers import configs, dense_tree, patch_jax_w8a8, to_jax, to_numpy, unfold
+from torch_port_helpers import (
+    carry_cache,
+    configs,
+    dense_tree,
+    jax_pages,
+    patch_jax_w8a8,
+    port_pages,
+    to_jax,
+    to_numpy,
+    unfold,
+)
 
 PAGE = 64
 
@@ -178,15 +191,100 @@ def test_paged_engine_matches_slot_engine(models, int8_kv):
 def test_engines_refuse_unported_options(models):
     _, tcfg, _, tparams = models
     with pytest.raises(NotImplementedError):
-        ServingEngine(tparams, tcfg, max_batch=9, device="cpu")
-    with pytest.raises(NotImplementedError):
         ServingEngine(tparams, tcfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         ServingEngine(tparams, tcfg, tp_mode="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError):
-        PagedServingEngine(tparams, tcfg, max_batch=9, page_size=PAGE, device="cpu")
     with pytest.raises(ValueError, match="page_size"):
         PagedServingEngine(tparams, tcfg, page_size=96, device="cpu")
+    with pytest.raises(ValueError, match="max_batch"):
+        PagedServingEngine(tparams, tcfg, max_batch=0, page_size=PAGE, device="cpu")
+
+
+# 14 requests over 12 rows: every decode forward runs at 12 rows, the
+# prefill structure with the cache's KV kernel (JAX decoder.py:740-812).
+ROWS_12 = [dict(prompt=_prompt(70 + i, 2 + (5 * i) % 19), max_new_tokens=3 + i % 6) for i in range(14)]
+
+
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["f32_kv", "int8_kv"])
+@pytest.mark.parametrize("engine", ["slot", "paged"])
+def test_engines_at_12_rows_match_jax(models, engine, int8_kv):
+    """The slot and paged engines at ``max_batch=12`` against the JAX
+    engines on the same params and requests: equal streams, each decode
+    forward's attention through the KV kernel (one a layer), never the
+    eager int8 branch."""
+    jcfg, tcfg, jparams, tparams = models
+    if engine == "slot":
+        jc, tc = (dataclasses.replace(c, int8_kv=int8_kv) for c in (jcfg, tcfg))
+        jeng = JServingEngine(jparams, jc, max_batch=12, seed=0)
+        teng = ServingEngine(tparams, tc, max_batch=12, device="cpu")
+        kernel = "decode_attention_int8" if int8_kv else "decode_attention:no_wo"
+    else:
+        jeng = JPagedServingEngine(jparams, jcfg, max_batch=12, n_pages=20, page_size=PAGE, seed=0, int8_kv=int8_kv)
+        teng = PagedServingEngine(tparams, tcfg, max_batch=12, n_pages=20, page_size=PAGE, int8_kv=int8_kv,
+                                  device="cpu")
+        kernel = "paged_decode_attention_int8" if int8_kv else "paged_decode_attention"
+    jreqs = _serve(jeng, JRequest, ROWS_12)
+    dispatch.reset_counters()
+    treqs = _serve(teng, Request, ROWS_12)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert all(r.finished and len(r.output) == s["max_new_tokens"] for r, s in zip(treqs, ROWS_12))
+    assert dispatch.PLAIN[kernel] == tcfg.n_layers * teng.steps  # every decode forward, every layer
+
+
+@pytest.mark.parametrize("kind", ["int8", "paged"])
+def test_forward_at_12_rows_matches_jax(models, kind):
+    """One decode forward at 12 rows of unequal lengths (0 to 70 tokens):
+    on an int8 cache (``decode_attention_int8``) and over a paged pool of
+    64-position pages (``paged_decode_attention``), against ``jdec.forward``
+    on the same cache: logits, lengths and the appended k/v."""
+    jcfg, tcfg, jparams, tparams = models
+    rng = np.random.default_rng(80)
+    hd, h, n = tcfg.head_dim, tcfg.n_heads, tcfg.n_layers
+    lens = np.array([5, 70, 0, 12, 63, 64, 1, 33, 2, 40, 7, 20], np.int32)
+    tokens = rng.integers(0, tcfg.vocab_size, (12, 1)).astype(np.int32)
+    if kind == "int8":
+        jcfg = dataclasses.replace(jcfg, int8_kv=True)
+        shape = (12, h, 128, hd)
+        codes = [[rng.integers(-127, 128, shape).astype(np.int8) for _ in range(n)] for _ in range(2)]
+        scales = [[rng.uniform(0.005, 0.02, shape[:3]).astype(np.float32) for _ in range(n)] for _ in range(2)]
+        jcache = {"k": [jnp.asarray(c) for c in codes[0]], "v": [jnp.asarray(c) for c in codes[1]],
+                  "k_scale": [jnp.asarray(pack_kv_scales(jnp.asarray(s[..., None]), hd)) for s in scales[0]],
+                  "v_scale": [jnp.asarray(pack_kv_scales(jnp.asarray(s[..., None]), hd)) for s in scales[1]],
+                  "len": jnp.asarray(lens)}
+        tcache = carry_cache(jcache, hd)
+        expect = "decode_attention_int8"
+    else:
+        n_pages = 2 * 12 + 1  # two pages a row, the last one the scratch page
+        shape = (n_pages, h, PAGE, hd)
+        pool = {key: [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+                for key in ("k_pages", "v_pages")}
+        table = rng.permutation(2 * 12).astype(np.int32).reshape(12, 2)
+        jcache = {key: [jnp.asarray(jax_pages(p)) for p in leaves] for key, leaves in pool.items()}
+        jcache.update(page_table=jnp.asarray(table), len=jnp.asarray(lens))
+        tcache = {key: [torch.from_numpy(p.copy()) for p in leaves] for key, leaves in pool.items()}
+        tcache.update(page_table=torch.from_numpy(table), len=torch.from_numpy(lens.copy()))
+        expect = "paged_decode_attention"
+    jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tokens), jcache)
+    dispatch.reset_counters()
+    tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tokens), tcache)
+    assert dispatch.PLAIN[expect] == n and "flash_attention" not in dispatch.PLAIN
+    assert dispatch.PLAIN["quant_matmul_int8"] == 4 * n + 1 and "quant_gemv_int8" not in dispatch.PLAIN
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(tcache["len"].numpy(), lens + 1)
+    for li in range(n):
+        if kind == "int8":
+            want = carry_cache(jcache, hd)
+            for key in ("k", "v", "k_scale", "v_scale"):
+                for r, m in enumerate(lens + 1):
+                    got, ref = tcache[key][li][r, :, :m].numpy(), want[key][li][r, :, :m].numpy()
+                    if key in ("k", "v"):
+                        np.testing.assert_array_equal(got, ref, err_msg=f"{key} {li} row {r}")
+                    else:
+                        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0, err_msg=f"{key} {li} row {r}")
+        else:
+            for key in ("k_pages", "v_pages"):
+                np.testing.assert_allclose(tcache[key][li].numpy(), port_pages(jcache[key][li], hd), atol=1e-5,
+                                           rtol=0)
 
 
 def _http(url, body=None):

@@ -104,6 +104,58 @@ def llama_tree(seed: int = 0, d_ff: int = 384, qkv_bias: bool = True) -> dict:
     return tree
 
 
+# The Whisper-class encoder-decoder slice: 16 mel bins, 32 audio positions
+# (64 mel frames), d_model 256 in 4 heads of 64, 2 + 2 layers, d_ff 512,
+# vocab 500, 64 text positions. Every projection and the tied head have
+# ≥ 2^16 elements and K a multiple of 128, so all of them quantize.
+ED_SLICE_CFG = dict(n_mels=16, n_audio_ctx=32, vocab_size=500, d_model=256, n_heads=4, n_audio_layers=2,
+                    n_text_layers=2, d_ff=512, max_text_ctx=64)
+
+
+def ed_configs(**kw):
+    """(JAX config, port config) of the encoder-decoder slice, in f32, with
+    ``kw`` replacing fields of ``ED_SLICE_CFG``."""
+    from rten_tpu.models import encoder_decoder as jed
+    from rten_tpu_torch.models import encoder_decoder as ted
+
+    c = {**ED_SLICE_CFG, **kw}
+    return jed.EncDecConfig(**c, dtype=jnp.float32), ted.EncDecConfig(**c, dtype=torch.float32)
+
+
+def ed_tree(seed: int = 0) -> dict:
+    """Dense encoder-decoder params as numpy arrays in the JAX package's
+    tree, with random biases and norm parameters (``dense_tree``'s rule) and
+    Whisper's biasless k projections."""
+    rng = np.random.default_rng(seed)
+    c = ED_SLICE_CFG
+    d, ff, v = c["d_model"], c["d_ff"], c["vocab_size"]
+
+    def w(*shape, scale=0.08):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ln():
+        return {"scale": rng.uniform(0.8, 1.2, d).astype(np.float32), "bias": w(d, scale=0.05)}
+
+    def attn():
+        return {"wq": w(d, d), "bq": w(d, scale=0.05), "wk": w(d, d), "wv": w(d, d), "bv": w(d, scale=0.05),
+                "wo": w(d, d), "bo": w(d, scale=0.05)}
+
+    def mlp():
+        return {"w_up": w(d, ff), "b_up": w(ff, scale=0.05), "w_down": w(ff, d, scale=0.04),
+                "b_down": w(d, scale=0.05)}
+
+    return {
+        "enc_conv1": w(d, c["n_mels"], 3, scale=0.2), "enc_conv1_b": w(d, scale=0.05),
+        "enc_conv2": w(d, d, 3, scale=0.05), "enc_conv2_b": w(d, scale=0.05),
+        "enc_layers": [{"ln1": ln(), "attn": attn(), "ln2": ln(), "mlp": mlp()} for _ in range(c["n_audio_layers"])],
+        "enc_ln_post": ln(),
+        "tok_emb": w(v, d, scale=0.5), "pos_emb": w(c["max_text_ctx"], d, scale=0.2),
+        "dec_layers": [{"ln1": ln(), "self_attn": attn(), "ln_x": ln(), "cross_attn": attn(), "ln2": ln(),
+                        "mlp": mlp()} for _ in range(c["n_text_layers"])],
+        "dec_ln": ln(),
+    }
+
+
 def to_jax(tree):
     if isinstance(tree, dict):
         return {k: to_jax(v) for k, v in tree.items()}
@@ -187,6 +239,11 @@ def jax_scale_tiles(scales, head_dim: int) -> np.ndarray:
     return tiles
 
 
+def _interpreted(fn):
+    """``fn`` called with ``interpret=True`` whatever its caller passes."""
+    return lambda *a, **kw: fn(*a, **{**kw, "interpret": True})
+
+
 def patch_jax_fused(monkeypatch, w8a8: bool = False):
     """Run the JAX package's fused decode path (the Pallas kernels) on the
     CPU, as ``tests/test_decoder_generate.py:429-455`` runs it:
@@ -204,9 +261,7 @@ def patch_jax_fused(monkeypatch, w8a8: bool = False):
     import rten_tpu.kernels.paged_attention as jpa
     import rten_tpu.kernels.quant_matmul as jqm
 
-    def interpreted(fn):
-        return lambda *a, **kw: fn(*a, **{**kw, "interpret": True})
-
+    interpreted = _interpreted
     monkeypatch.setattr(jdispatch, "on_tpu", lambda: True)
     if w8a8:
         monkeypatch.setattr(jqm, "_W_CONVERT_DEFAULT", "w8a8")
@@ -222,3 +277,19 @@ def patch_jax_fused(monkeypatch, w8a8: bool = False):
 def patch_jax_w8a8(monkeypatch):
     """``patch_jax_fused`` in the JAX package's W8A8 mode."""
     patch_jax_fused(monkeypatch, w8a8=True)
+
+
+def patch_jax_encdec(monkeypatch):
+    """``patch_jax_fused`` for the JAX encoder-decoder
+    (``rten_tpu/models/encoder_decoder.py``), whose every Pallas call then
+    runs in interpret mode: its encoder's and cross attention's
+    ``flash_attention`` (bound in its own module) and its ``_mm``'s
+    ``quant_matmul_int8``; its ``decode`` passes ``interpret=not on_tpu()``,
+    False under the patch, to the GEMV, MLP and KV kernels, so those take
+    ``interpret=True`` over their caller's."""
+    import rten_tpu.kernels.quant_matmul as jqm
+    from rten_tpu.models import encoder_decoder as jed
+
+    patch_jax_fused(monkeypatch)
+    for mod, name in ((jqm, "quant_gemv_int8"), (jqm, "quant_mlp_int8"), (jed, "flash_attention")):
+        monkeypatch.setattr(mod, name, _interpreted(getattr(mod, name)))
