@@ -13,6 +13,10 @@ NVIDIA card.
                                      # phases 1-2 and the KV kernels' and decode_block's
                                      # checks, of this tree's package or DIR's (see
                                      # kv_only); its last line is marked partial
+    python3 chip_smoke.py --encoders LABEL
+                                     # phases 1-2, the encoders' kernel modes of phase 3
+                                     # and phase 12 alone (see encoders_only); its last
+                                     # line is marked partial
     python3 chip_smoke.py --gemv LABEL [--package DIR]
                                      # phases 1-2 and the decode GEMV's, MLP's and fused
                                      # wo's checks at 1 and 8 rows, and decode_block's
@@ -141,7 +145,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the encoder states and 32 teacher-forced steps through the kernels
    against the plain versions (relative RMS at most WHISPER_GATE, the
    top-2 rule);
-12. the line {"kernels": [...]} (the launches summed over phases 4-11, a
+12. encoders — the encoders and vision models at full width (random
+   weights from seed 0): DistilBERT-base INT8 (8 sequences of seeded
+   lengths 32-384 padded to 384; encode, qa_logits, pool) in f32 and in
+   bf16, wav2vec2-base INT8 (4 waveforms of 3-10 s at 16 kHz padded to
+   10 s; ctc_logits and the greedy CtcDecoder), ViT-B/16 (classify and
+   feature_map), MobileNetV2 INT8 (its two K-24 expands on the kernel)
+   and ResNet-50 fp32, 8 images of 224² each: each forward's launches
+   by kernel equal to its layers' count with no plain version, host ms
+   (median of 7), device ms by kernel, idle share and items a second, its
+   output against the same forward through the plain versions (relative
+   RMS at most ENCODER_GATE_F32, ENCODER_GATE_BF16 in bf16; QA argmax,
+   CTC frames and top-1 classes under the top-2 rule), and ResNet-50's
+   and wav2vec2's conv stack's f32 output with both TF32 flags on against
+   f64 (ENCODER_F64_GATE); phase 3 adds the kernel modes these take
+   (check_encoder_kernels);
+13. the line {"kernels": [...]} (the launches summed over phases 4-12, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
@@ -162,6 +181,7 @@ NativeBackend.prefill call and the copy of its token to the host.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -312,22 +332,25 @@ def kv_launch_info(torch, fn, entry: str, q, hk: int, cap: int, with_wo: bool = 
     with wo also the GEMV: ``expect_launches``). The profiler misses about
     one record in eight of a cluster launch (measured on the H100:
     ``rt::kv_attention_kernel`` at 7 of 8 calls, the GEMV launched beside it
-    at 8 of 8), so each kernel's count a call is rounded. A profile that
-    recorded no device event at all, while the case's outputs had just
-    matched the plain version, is taken again, at most three times; the
-    attempts are recorded (``profile_attempts``), and three empty profiles
-    read 0 launches a call, which fails ``one_launch_a_call``."""
+    at 8 of 8; once at fewer than 8 of 16), so
+    each kernel's count a call is rounded. A profile whose rounded count is
+    not the expected one, while the case's outputs had just matched the
+    plain version, is taken again, at most three times; the attempts are
+    recorded (``profile_attempts``) and the last profile's count stands, so
+    a kernel that launches a wrong number of times in every profile (or has
+    none recorded) fails ``one_launch_a_call``."""
     from rten_tpu_torch.kernels import decode_attention as da
 
     plan = getattr(da, "kv_device_plan", None)
     extra = (int(with_wo),) if entry == "rt_decode_attention" else ()
+    expect = 2 if with_wo else 1
     for attempts in range(1, 4):
         _us, calls = profile_by_kernel(torch, fn, 16)
-        if calls:
+        if sum(round(n) for n in calls.values()) == expect:
             break
     return dict(split=plan(entry, q, hk, cap, *extra) if plan is not None else None, host_us=host_us(torch, fn),
                 profile_attempts=attempts,
-                launches_per_call=sum(round(n) for n in calls.values()), expect_launches=2 if with_wo else 1,
+                launches_per_call=sum(round(n) for n in calls.values()), expect_launches=expect,
                 kernel_names=sorted({name.split("<")[0] for name in calls}))
 
 
@@ -398,6 +421,8 @@ def check_kernels(torch, bound, cfg):
                      lens_cases=WHISPER_KV_LENS, h=WHISPER["n_heads"], s_max=WHISPER_TEXT)
     torch.cuda.empty_cache()
     check_kv_kernels(torch, bound, cfg, randn, record, kinds=("decode_attention", *KV_KINDS), lens_cases=KV_LENS_16)
+    torch.cuda.empty_cache()
+    check_encoder_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
     return cases
 
@@ -1536,6 +1561,101 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
                host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
         del copies, lib_in
 
+
+# The encoders' and vision models' kernel modes (phase 3, check_encoder_kernels):
+# DistilBERT-base's projections at 8 sequences of 384 tokens (M 3072),
+# MobileNetV2's K-24 expand at 8 images of 56² and its largest-M expand (16 ->
+# 96 channels at 112²), and the non-causal attentions at Tq = S: DistilBERT's
+# 8 x 384 with per-row lengths, ViT-B/16's 197 tokens, wav2vec2-base's 499
+# frames of 10 s with per-row lengths.
+ENC_D, ENC_FF, ENC_HEADS, ENC_T, ENC_B = 768, 3072, 12, 384, 8
+ENC_LENS = (384, 301, 250, 177, 120, 96, 64, 32)  # the per-row lengths of the attention case
+
+
+def check_encoder_kernels(torch, bound, randn, pack, record):
+    """quant_matmul_int8 with f32 activations (the SIMT route the f32
+    presets take) and flash_attention in f32 and bf16 at the encoders' and
+    vision models' shapes, each against its plain version, timed as
+    check_kernels times the others; the yardsticks are F.linear in f32 (TF32
+    off, the weights dequantized) and F.scaled_dot_product_attention with a
+    key mask. f32 cases bound their operations at the card's f32 CUDA-core
+    rate."""
+    from rten_tpu_torch.kernels import attention as at
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    dev = torch.device("cuda", 0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    F = torch.nn.functional
+    m_bert = ENC_B * ENC_T
+    shapes = [(f"distilbert wq M={m_bert}", m_bert, ENC_D, ENC_D, True),
+              (f"distilbert wo M={m_bert}", m_bert, ENC_D, ENC_D, True),
+              (f"distilbert up M={m_bert}", m_bert, ENC_FF, ENC_D, True),
+              (f"distilbert down M={m_bert}", m_bert, ENC_D, ENC_FF, True),
+              (f"mobilenet expand K=24 M={8 * 56 * 56}", 8 * 56 * 56, 144, 24, False),
+              (f"mobilenet expand K=16 M={8 * 112 * 112}", 8 * 112 * 112, 96, 16, False)]
+    for name, m, n, k, with_bias in shapes:
+        def make(i, m=m, n=n, k=k, with_bias=with_bias):
+            qt, s = pack(n, k)
+            return (randn(m, k, dtype=f32), qt, s, 0.1 * randn(n, dtype=f32) if with_bias else None)
+
+        args = make(0)
+        out = qm.quant_matmul_int8(*args)
+        ref = qm.quant_matmul_int8_ref(*args)
+        torch.cuda.synchronize()
+        err, tol = (out - ref).abs().max().item(), 1e-4 * max(1.0, ref.abs().max().item())
+        x, qt, s, bias = args
+        per_call = nbytes(x, qt, s, bias) + m * n * 4
+        copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+        ms = graph_ms(torch, [lambda a=a: qm.quant_matmul_int8(*a) for a in copies])
+        plain = eager_ms(torch, lambda: qm.quant_matmul_int8_ref(*args))
+        lib_w = [(c[1].float() * c[2][:, None], c[3]) for c in copies[:copies_for(4 * n * k, cap=64)]]
+        library = graph_ms(torch, [lambda w=w: F.linear(x, *w) for w in lib_w])
+        record("quant_matmul_int8", f"f32 {name} N={n} K={k}", err, tol, ms, plain,
+               bound(per_call, 2 * m * n * k, f32=True), library, route="f32",
+               host_us=host_us(torch, lambda: qm.quant_matmul_int8(*args)))
+        del copies, lib_w
+
+    hd = ENC_D // ENC_HEADS
+    w2v_frames = (499, 380, 255, 149)  # 10, ~7.6, ~5.1 and ~3 s of 16 kHz audio
+    fa_cases = [(f"distilbert B={ENC_B} Tq=S={ENC_T} per-row kv_len", ENC_B, ENC_T, ENC_LENS),
+                ("vit-b/16 B=8 Tq=S=197", 8, 197, None),
+                ("wav2vec2 B=4 Tq=S=499 per-row kv_len", 4, 499, w2v_frames)]
+    for dtype in (f32, bf16):
+        for name, b, t, lens in fa_cases:
+            def make(i, b=b, t=t, lens=lens, dtype=dtype):
+                def heads(scale):  # [B, H, T, D] views of [B·T, H·D] projections, as the models pass them
+                    return randn(b * t, ENC_D, scale=scale, dtype=dtype).view(b, t, ENC_HEADS, hd).transpose(1, 2)
+
+                kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+                return (heads(1.5), heads(1.5), heads(1.0)), dict(causal=False, kv_len=kv)
+
+            args, kw = make(0)
+            out = at.flash_attention(*args, **kw)
+            ref = at.flash_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            valid = None if lens is None else (torch.arange(t, device=dev)[None, :] < kw["kv_len"][:, None].long())
+            diff = (out.float() - ref.float()).abs()
+            if valid is not None:  # query rows past a row's length are padding, unspecified
+                diff = diff.transpose(1, 2)[valid]
+            err = diff.max().item()
+            tol = (1e-4 if dtype == f32 else 1e-2) * ref.float().abs().max().item()
+            pairs = t * (sum(lens) if lens is not None else b * t)
+            kv_rows = sum(lens) if lens is not None else b * t
+            per_call = 2 * nbytes(args[0]) + 2 * ENC_HEADS * kv_rows * hd * args[0].element_size() + 4 * b
+            ops = 4 * hd * ENC_HEADS * pairs
+            copies = [make(i) for i in range(copies_for(per_call, cap=32))]
+            ms = graph_ms(torch, [lambda a=a, kw=kw: at.flash_attention(*a, **kw) for a, kw in copies])
+            plain = eager_ms(torch, lambda: at.flash_attention_ref(*args, **kw))
+            lib_kw = {}
+            if lens is not None:
+                lib_kw["attn_mask"] = (torch.arange(t, device=dev)[None, :] < kw["kv_len"][:, None].long())[
+                    :, None, None, :]
+            library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a, **lib_kw) for a, _ in copies])
+            route = "f32" if dtype == f32 else "bf16"
+            record("flash_attention", f"{route} {name} H={ENC_HEADS} D={hd}", err, tol, ms, plain,
+                   bound(per_call, ops, f32=dtype == f32), library, route=route,
+                   host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
+            del copies
 
 # Whisper-tiny (huggingface.co/openai/whisper-tiny config.json: d_model 384,
 # 4 encoder and 4 decoder layers of 6 heads, FFN 1536, vocab 51865, 80 mel
@@ -3211,6 +3331,311 @@ def drive_whisper(torch, mem_rate, out) -> dict:
     return launches_total
 
 
+# Phase 12: the encoders and vision models at full width (random weights
+# from seed 0, nothing cut).
+ENCODER_GATE_F32, ENCODER_GATE_BF16 = 1e-4, 0.05  # relative RMS of kernels against plain versions
+ENCODER_F64_GATE = 1e-4  # relative RMS of the f32 forward against f64 (TF32 would give ~1e-3)
+ENCODER_REPS = 7  # host-timed forwards (median)
+W2V_RATE, W2V_SECONDS = 16000, (10.0, 7.7, 5.2, 3.1)  # 4 waveforms, padded to 10 s
+ENCODER_LAUNCHES = {  # a forward's launches by kernel, by the JAX quantizer's rules
+    "distilbert f32": {"quant_matmul_int8": 36, "flash_attention": 6},
+    "distilbert bf16": {"quant_matmul_int8": 36, "flash_attention": 6},
+    "wav2vec2": {"quant_matmul_int8": 72, "flash_attention": 12},
+    "vit": {"flash_attention": 12},
+    "mobilenet": {"quant_matmul_int8": 34},
+    "resnet50": {},
+}
+
+
+@contextlib.contextmanager
+def plain_encoders():
+    """Route the encoders' and vision models' kernel calls (BERT's, which
+    wav2vec2's layers share, and MobileNet's quant_matmul_int8; BERT's and
+    ViT's flash_attention) to their plain versions."""
+    from rten_tpu_torch.kernels import attention as at
+    from rten_tpu_torch.kernels import quant_matmul as qm
+    from rten_tpu_torch.models import bert, mobilenet, vit
+
+    plain = [(bert, "quant_matmul_int8", qm.quant_matmul_int8_ref),
+             (mobilenet, "quant_matmul_int8", qm.quant_matmul_int8_ref)]
+    plain += [(mod, "flash_attention", at.flash_attention_ref) for mod in (bert, vit)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain]
+    for mod, name, fn in plain:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def tf32_defaults(torch):
+    """Both TF32 flags on (cuDNN's default; cuBLAS's set too) inside the
+    block, the process's flags back after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def top1_check(what: str, k_logits, p_logits) -> dict:
+    """The kernels' argmax along the last axis against the plain versions':
+    a different choice passes only where the plain top-2 gap is below
+    GAP_TOL (the plain logits of the two choices that close)."""
+    k_arg, p_arg = k_logits.float().argmax(-1), p_logits.float().argmax(-1)
+    p = p_logits.float()
+    gaps = p.gather(-1, p_arg[..., None])[..., 0] - p.gather(-1, k_arg[..., None])[..., 0]
+    differ = int((k_arg != p_arg).sum())
+    worst = gaps.max().item()
+    if worst > GAP_TOL:
+        raise AssertionError(f"{what}: the kernels' argmax loses to the plain one by {worst:.4g} > {GAP_TOL}")
+    return dict(argmax_differ=differ, of=int(k_arg.numel()), worst_gap=worst)
+
+
+def encoder_run(torch, key: str, fn, outputs, n_items: int, unit: str, out, launches_total):
+    """One model of phase 12: ``fn()`` (a forward through the port's entry
+    points) once with the launch counters read around it, which must equal
+    ENCODER_LAUNCHES[key] with no plain call; ENCODER_REPS host-timed
+    forwards (median); the device time by kernel (profiler) and the idle
+    share; then ``outputs(result)`` of the kernels' forward against the
+    same forward with the plain versions: relative RMS at most the gate of
+    the model's dtype. Returns (kernel result, plain result)."""
+    from rten_tpu_torch.kernels import dispatch
+
+    fn()  # plans, cuDNN's algorithm choice and the allocator, outside the counted run
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    result = fn()
+    torch.cuda.synchronize()
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    if plain:
+        raise AssertionError(f"{key}: plain versions ran on the main path: {plain}")
+    if {k: v for k, v in launches.items() if ":" not in k} != ENCODER_LAUNCHES[key]:
+        raise AssertionError(f"{key}: a forward launched {launches}, not {ENCODER_LAUNCHES[key]}")
+    for name, n in launches.items():
+        launches_total[name] = launches_total.get(name, 0) + n
+    times = []
+    for _ in range(ENCODER_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(times)
+    by_kernel = device_us_by_kernel(torch, fn, 3)
+    dev_ms = sum(by_kernel.values()) / 1e3
+    idle = max(0.0, 1.0 - dev_ms / host_ms) if dev_ms > 0 else None
+    with plain_encoders():
+        ref = fn()
+    torch.cuda.synchronize()
+    got, want = outputs(result), outputs(ref)
+    gate = ENCODER_GATE_BF16 if "bf16" in key else ENCODER_GATE_F32
+    rms = rel_rms(got, want)
+    if not (rms <= gate and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{key}: kernels against plain versions relative RMS {rms:.3g} > {gate}")
+    rec = dict(launches_per_forward=launches, host_ms=host_ms, host_ms_all=times, device_ms=dev_ms, idle_share=idle,
+               per_s=n_items / (host_ms / 1e3), unit=unit, device_us_by_kernel=by_kernel, rel_rms_plain=rms,
+               gate=gate)
+    out[key] = rec
+    log(f"  {key}: {host_ms:.4f} ms a forward (host clock, median of {ENCODER_REPS}) -> "
+        f"{rec['per_s']:.2f} {unit}/s; device {dev_ms:.4f} ms (profiler) -> idle share "
+        f"{idle if idle is None else round(idle, 4)}; launches {launches}; kernels against plain relative RMS "
+        f"{rms:.3g} (gate {gate})")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"      {us:10.3f} us  {name[:90]}")
+    return result, ref
+
+
+def f64_check(torch, what: str, f32_fn, f64_fn) -> dict:
+    """``f32_fn()`` with both TF32 flags on against ``f64_fn()``: relative
+    RMS at most ENCODER_F64_GATE (the IEEE-f32 helper's proof)."""
+    with tf32_defaults(torch):
+        got = f32_fn()
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    want = f64_fn()
+    torch.cuda.synchronize()
+    rms = rel_rms(got, want)
+    log(f"    {what}: f32 (TF32 flags {flags}) against f64 relative RMS {rms:.3g} (gate {ENCODER_F64_GATE})")
+    if not rms <= ENCODER_F64_GATE:
+        raise AssertionError(f"{what}: f32 against f64 relative RMS {rms:.3g} > {ENCODER_F64_GATE}")
+    return dict(rel_rms_f64=rms, tf32_flags=list(flags), gate=ENCODER_F64_GATE)
+
+
+def features_f64(torch, params, cfg, wav):
+    """wav2vec2's conv stack in f64, written out here (the port's casts its
+    convolutions to f32): the reference of its f32 check."""
+    F = torch.nn.functional
+    x = wav.double()[:, None, :]
+    for i, layer in enumerate(params["convs"]):
+        x = F.conv1d(x, layer["conv"].double(), stride=cfg.conv_stride[i])
+        if "gn" in layer:
+            x = (x - x.mean(-1, keepdim=True)) / torch.sqrt(x.var(-1, keepdim=True, unbiased=False)
+                                                           + cfg.layer_norm_eps)
+            x = x * layer["gn"]["scale"].double()[None, :, None] + layer["gn"]["bias"].double()[None, :, None]
+        x = F.gelu(x)
+    return x.transpose(1, 2)
+
+
+def to_f64(torch, tree):
+    if isinstance(tree, dict):
+        return {k: to_f64(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f64(torch, v) for v in tree]
+    return tree.double()
+
+
+def drive_encoders(torch, out) -> tuple[dict, dict]:
+    """Phase 12: the encoders and vision models at full width, random
+    weights from seed 0 (encoder_run for each): DistilBERT-base INT8
+    (8 sequences of seeded lengths 32-384 padded to 384; encode, qa_logits,
+    pool) in f32 and then bf16; wav2vec2-base INT8 (4 seeded 16 kHz
+    waveforms of 3-10 s padded to 10 s, frame lengths from
+    feat_extract_output_length; ctc_logits then the greedy CtcDecoder);
+    ViT-B/16 (8 images of 224², classify and feature_map); MobileNetV2
+    INT8 and ResNet-50 fp32 (8 images of 224² each). The QA start / end,
+    the CTC frames and the top-1 classes against the plain versions'
+    (top1_check); ResNet-50 and wav2vec2's conv stack in f32 with both TF32
+    flags on against f64 (f64_check). Returns (the phase's launches, the
+    f32 runs' launches)."""
+    import numpy as np
+
+    from rten_tpu_torch import ctc
+    from rten_tpu_torch.models import bert, mobilenet, resnet, vit, wav2vec2
+
+    dev = torch.device("cuda", 0)
+    res, launches, f32_launches = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    t_phase = time.perf_counter()
+
+    # DistilBERT-base INT8, f32 then bf16.
+    rng = np.random.default_rng(0)
+    lens = np.sort(rng.integers(32, ENC_T + 1, ENC_B))[::-1].copy()
+    lens[0] = ENC_T
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    ids = torch.randint(0, bert.DISTILBERT_BASE.vocab_size, (ENC_B, ENC_T), generator=gen, device=dev)
+    valid = torch.arange(ENC_T, device=dev)[None, :] < lengths[:, None].long()
+    qa_head = {"w": torch.randn(ENC_D, 2, generator=gen, device=dev) * 0.05, "b": torch.zeros(2, device=dev)}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(bert.DISTILBERT_BASE, dtype=dtype)
+        key = f"distilbert {'f32' if dtype == torch.float32 else 'bf16'}"
+        params = bert.quantize_params_int8(bert.init_params(0, cfg, device=dev), device=dev)
+
+        def fn(params=params, cfg=cfg):
+            hidden = bert.encode(params, cfg, ids, lengths=lengths)
+            start, end = bert.qa_logits(hidden, qa_head, lengths)
+            return hidden, start, end, bert.pool(hidden, lengths)
+
+        def outputs(r):
+            hidden, start, end, pooled = r
+            return torch.cat([hidden[valid].float().reshape(-1), start[valid].float(), end[valid].float(),
+                              pooled.float().reshape(-1)])
+
+        (hidden, start, end, _), (_, p_start, p_end, _) = encoder_run(
+            torch, key, fn, outputs, ENC_B, "sequences", res, launches)
+        res[key]["qa_start"] = top1_check(f"{key} QA start", start, p_start)  # padding at -1e30 on both sides
+        res[key]["qa_end"] = top1_check(f"{key} QA end", end, p_end)
+        res[key]["lengths"] = lens.tolist()
+        if dtype == torch.float32:
+            for name, n in res[key]["launches_per_forward"].items():
+                f32_launches[name] = f32_launches.get(name, 0) + n
+        del params, hidden
+        torch.cuda.empty_cache()
+
+    # wav2vec2-base INT8: 4 waveforms, CTC logits and the greedy decode.
+    cfg = wav2vec2.WAV2VEC2_BASE
+    params = wav2vec2.quantize_params_int8(wav2vec2.init_params(0, cfg, device=dev), device=dev)
+    n_max = int(W2V_SECONDS[0] * W2V_RATE)
+    wav = torch.zeros(len(W2V_SECONDS), n_max, device=dev)
+    samples = [int(s * W2V_RATE) for s in W2V_SECONDS]
+    for i, n in enumerate(samples):
+        wav[i, :n] = torch.randn(n, generator=gen, device=dev) * 0.1
+    frames = torch.tensor([wav2vec2.feat_extract_output_length(cfg, n) for n in samples], dtype=torch.int32,
+                          device=dev)
+    t_max = wav2vec2.feat_extract_output_length(cfg, n_max)
+    fvalid = torch.arange(t_max, device=dev)[None, :] < frames[:, None].long()
+
+    def w2v_fn():
+        return wav2vec2.ctc_logits(params, cfg, wav, lengths=frames)
+
+    logits, p_logits = encoder_run(torch, "wav2vec2", w2v_fn, lambda r: r[fvalid].reshape(-1),
+                                   sum(W2V_SECONDS), "audio seconds", res, launches)
+    res["wav2vec2"]["ctc_frames"] = top1_check("wav2vec2 CTC frames", logits[fvalid], p_logits[fvalid])
+    texts, p_texts = [], []
+    alphabet = "".join(chr(ord("a") + i) for i in range(26)) + "' .,-"
+    for row, n in enumerate(frames.tolist()):
+        lp = torch.log_softmax(logits[row, :n].double(), -1).cpu().numpy()
+        plp = torch.log_softmax(p_logits[row, :n].double(), -1).cpu().numpy()
+        texts.append(ctc.CtcDecoder().decode_greedy(lp).text(alphabet))
+        p_texts.append(ctc.CtcDecoder().decode_greedy(plp).text(alphabet))
+    if res["wav2vec2"]["ctc_frames"]["argmax_differ"] == 0 and texts != p_texts:
+        raise AssertionError("wav2vec2: the CTC texts differ while every frame's argmax agrees")
+    res["wav2vec2"].update(frames=frames.tolist(), texts_equal=texts == p_texts, text_head=[t[:40] for t in texts])
+    log(f"    CTC greedy text equal to the plain versions' for {sum(a == b for a, b in zip(texts, p_texts))}/"
+        f"{len(texts)} waveforms (frames {frames.tolist()}); head {texts[0][:40]!r}")
+    res["wav2vec2"]["conv_stack_f64"] = f64_check(
+        torch, "wav2vec2 conv stack", lambda: wav2vec2.extract_features(params, cfg, wav),
+        lambda: features_f64(torch, params, cfg, wav))
+    for name, n in res["wav2vec2"]["launches_per_forward"].items():
+        f32_launches[name] = f32_launches.get(name, 0) + n
+    del params, logits, p_logits
+    torch.cuda.empty_cache()
+
+    # The vision models: 8 seeded images of 224² each.
+    images = torch.randn(8, 3, 224, 224, generator=gen, device=dev)
+    vcfg = vit.VIT_BASE
+    vparams = vit.init_params(0, vcfg, device=dev)
+
+    v_logits, vp_logits = encoder_run(torch, "vit", lambda: vit.classify(vparams, vcfg, images),
+                                      lambda r: r.reshape(-1), 8, "images", res, launches)
+    res["vit"]["top1"] = top1_check("vit top-1", v_logits, vp_logits)
+    fmap = vit.feature_map(vit.encode(vparams, vcfg, images), vcfg)  # the dense heads' input
+    with plain_encoders():
+        p_fmap = vit.feature_map(vit.encode(vparams, vcfg, images), vcfg)
+    res["vit"]["feature_map_rel_rms_plain"] = rel_rms(fmap, p_fmap)
+    if tuple(fmap.shape) != (8, vcfg.d_model, vcfg.grid, vcfg.grid) or not rel_rms(fmap, p_fmap) <= ENCODER_GATE_F32:
+        raise AssertionError(f"vit: feature map of shape {tuple(fmap.shape)}, relative RMS against plain "
+                             f"{rel_rms(fmap, p_fmap):.3g}")
+    for name, n in res["vit"]["launches_per_forward"].items():
+        f32_launches[name] = f32_launches.get(name, 0) + n
+    del vparams
+    torch.cuda.empty_cache()
+
+    mcfg = mobilenet.MOBILENET_V2
+    mparams = mobilenet.quantize_params_int8(mobilenet.init_params(0, mcfg, device=dev), device=dev)
+    k24 = [b["expand_w"]["qt"].shape for b in mparams["blocks"] if "expand_w" in b and b["expand_w"]["qt"].shape[1] == 24]
+    if len(k24) != 2:
+        raise AssertionError(f"mobilenet: {len(k24)} int8 expand convolutions of K 24, not 2")
+    m_logits, mp_logits = encoder_run(torch, "mobilenet", lambda: mobilenet.forward(mparams, mcfg, images),
+                                      lambda r: r.reshape(-1), 8, "images", res, launches)
+    res["mobilenet"]["top1"] = top1_check("mobilenet top-1", m_logits, mp_logits)
+    res["mobilenet"]["k24_expands"] = [list(s) for s in k24]
+    for name, n in res["mobilenet"]["launches_per_forward"].items():
+        f32_launches[name] = f32_launches.get(name, 0) + n
+    del mparams
+    torch.cuda.empty_cache()
+
+    rcfg = resnet.RESNET50
+    rparams = resnet.init_params(0, rcfg, device=dev)
+    r_logits, rp_logits = encoder_run(torch, "resnet50", lambda: resnet.forward(rparams, rcfg, images),
+                                      lambda r: r.reshape(-1), 8, "images", res, launches)
+    res["resnet50"]["top1"] = top1_check("resnet50 top-1", r_logits, rp_logits)
+    r64 = to_f64(torch, rparams)
+    c64 = dataclasses.replace(rcfg, dtype=torch.float64)
+    res["resnet50"]["f64"] = f64_check(
+        torch, "resnet50 features", lambda: resnet.forward(rparams, rcfg, images, features=True),
+        lambda: resnet.forward(r64, c64, images.double(), features=True))
+    res["resnet50"]["f64_logits"] = f64_check(
+        torch, "resnet50 logits", lambda: resnet.forward(rparams, rcfg, images),
+        lambda: resnet.forward(r64, c64, images.double()))
+    del rparams, r64
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    out["encoders"] = res
+    log(f"  ({res['seconds']:.1f} s)")
+    return launches, f32_launches
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -3225,6 +3650,16 @@ KERNELS = {
     # The split modes (a launch of the same kernel as a cluster that splits
     # K, or the KV axis, and sums its partials through distributed shared
     # memory): their cases are the kernel's cases whose plan splits.
+    # The f32 routes the encoders' and vision models' f32 presets take
+    # (phase 12): quant_matmul_int8's SIMT loop (f32 activations; a K of 8
+    # mod 16) and flash_attention's CUDA-core kernel. Their launches are the
+    # wrappers' counts read around phase 12's f32 forwards.
+    "quant_matmul_int8:f32": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul.cu",
+                                  replaces="rten_tpu/kernels/quant_matmul.py:590", timed="f32 distilbert up",
+                                  cases_of="quant_matmul_int8", select=lambda c: c.get("route") == "f32"),
+    "flash_attention:f32": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
+                                replaces="rten_tpu/kernels/attention.py:117", timed="f32 distilbert",
+                                cases_of="flash_attention", select=lambda c: c.get("route") == "f32"),
     "quant_matmul_int8:split_k": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul.cu",
                                       replaces="rten_tpu/kernels/quant_matmul.py:590", timed="down M=64",
                                       cases_of="quant_matmul_int8", select=lambda c: c.get("split", 1) > 1),
@@ -3330,6 +3765,23 @@ def prefill_only(torch, bound, cfg, detail, kind, smi, label: str = "") -> int:
     print(json.dumps({"partial": "prefill", "kind": kind, "label": label,
                       "prefill_ms": {k: sum(v.values()) / 1e3 for k, v in forwards.items()},
                       "launches_a_forward": {k: sum(v.values()) for k, v in launches.items()}}))
+    return 0
+
+
+def encoders_only(torch, bound, detail, kind, smi, label: str) -> int:
+    """``--encoders LABEL``: phase 3's encoder kernel modes
+    (check_encoder_kernels) and phase 12 (drive_encoders), written to
+    chiprun_out/encoders_LABEL.json; its last line is marked partial."""
+    randn, pack, _norm_vecs, _bf16_err, record, cases = check_tools(torch)
+    log("[3/4] the encoders' kernel modes against their plain versions")
+    check_encoder_kernels(torch, bound, randn, pack, record)
+    detail["cases"] = cases
+    log("[4/4] encoders and vision at full width")
+    launches, f32_runs = drive_encoders(torch, detail)
+    (OUT_DIR / f"encoders_{label}.json").write_text(json.dumps(detail, indent=1))
+    print(smi)
+    print(json.dumps({"partial": "encoders", "kind": kind, "label": label, "launches": launches,
+                      "f32_launches": f32_runs, "seconds": detail["encoders"]["seconds"]}))
     return 0
 
 
@@ -3461,6 +3913,8 @@ def main() -> int:
                         help="the prefill kernels' timing mode (prefill_only); LABEL names its output file")
     parser.add_argument("--kv", metavar="LABEL", help="the KV kernels' timing mode (kv_only)")
     parser.add_argument("--gemv", metavar="LABEL", help="the decode GEMV's and MLP's timing mode (gemv_only)")
+    parser.add_argument("--encoders", metavar="LABEL",
+                        help="the encoders' kernel modes and phase 12 alone (encoders_only)")
     parser.add_argument("--package", metavar="DIR",
                         help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
@@ -3482,7 +3936,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/12] device")
+    log("[1/13] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -3495,7 +3949,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/12] build")
+    log("[2/13] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -3516,7 +3970,9 @@ def main() -> int:
         return kv_only(torch, bound, cfg, detail, kind, smi, opts.kv)
     if opts.gemv:
         return gemv_only(torch, bound, cfg, detail, kind, smi, opts.gemv)
-    log("[3/12] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    if opts.encoders:
+        return encoders_only(torch, bound, detail, kind, smi, opts.encoders)
+    log("[3/13] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -3525,35 +3981,42 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/12] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/13] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/12] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/13] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/12] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/13] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/12] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/13] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/12] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log("[8/13] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/12] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[9/13] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[10/12] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+    log("[10/13] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[11/12] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
+    log("[11/13] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
+    log("[12/13] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
+        "INT8, ResNet-50 fp32")
+    phase12, f32_runs = drive_encoders(torch, detail)
+    for name, n in phase12.items():
+        launches[name] = launches.get(name, 0) + n
+    for name in ("quant_matmul_int8", "flash_attention"):
+        launches[f"{name}:f32"] = f32_runs.get(name, 0)
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
@@ -3561,7 +4024,7 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log("[12/12] summary")
+    log("[13/13] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

@@ -6,7 +6,9 @@ path: GPT-2-class INT8 prefill (a prompt as one forward) and greedy decode
 over a preallocated KV cache, bf16 or int8, with int8 weights only or, with
 ``DecoderConfig(w8a8=True)``, int8 activations too (``models.decoder``,
 ``generate``), and continuous-batching serving over slot or paged KV caches
-with an HTTP API (``serve``), on hand-written CUDA kernels for ``sm_90a``
+with an HTTP API (``serve``), the Whisper-class encoder-decoder, the BERT,
+wav2vec2 (with ``ctc`` and ``audio``), ViT, MobileNetV2 and ResNet models
+(``models``, ``image``), on hand-written CUDA kernels for ``sm_90a``
 (``kernels``). Entry points run on the card by default
 (``device="cuda"``) and run the kernels' plain PyTorch versions when asked
 for ``device="cpu"``.

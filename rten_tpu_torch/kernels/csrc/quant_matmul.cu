@@ -52,6 +52,12 @@
 //   four channels a thread, neighbouring threads on neighbouring channels.
 // f32 activations: f32_tile_loop on the CUDA cores (tile_mma.cuh; exact f32
 // products, the int8 weights convert exactly), each thread 4 x 8 outputs.
+// K needs only be a multiple of 8 there: a weight row whose K is 8 mod 16
+// (MobileNetV2's expand convs of K 24) is only 8-byte aligned, so such rows
+// arrive as two 8-byte halves, the half past K and the activations past K
+// zero-filled. bf16 activations with such a K take the same loop (their
+// values widened exactly to f32, so the products equal the tensor cores'):
+// TMA cannot address a weight row stride that is not a multiple of 16.
 
 #include <cooperative_groups.h>
 
@@ -64,7 +70,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 struct QmArgs {
-  const void* x;       // [m, k] f32 or bf16, 16-byte aligned, k % 16 == 0
+  const void* x;       // [m, k] f32 or bf16, 16-byte aligned, k % 8 == 0 (wgmma: k % 16 == 0)
   int m, n, k;
   const int8_t* w;     // [n, k] int8 (int8_pack), 16-byte aligned
   const float* scale;  // [n]
@@ -353,26 +359,42 @@ cudaError_t launch_wgmma(const QmArgs& a, int split, cudaStream_t st) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(TILE_THREADS) qmm_f32_kernel(QmArgs a) {
+template <bool X_BF16>
+__global__ void __launch_bounds__(TILE_THREADS) qmm_simt_kernel(QmArgs a) {
   __shared__ __align__(16) F32Tiles s;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int m0 = blockIdx.y * TILE_BM, n0 = blockIdx.x * TILE_BN;
-  const float* x = static_cast<const float*>(a.x);
-  auto stage = [&](int k0) {  // k % 16 == 0: every step is whole
+  auto stage = [&](int k0) {  // k % 8 == 0: a step is whole or ends after 8 columns
     {
       const int r = tid >> 2, kq = (tid & 3) * 4;
-      const float4 v = m0 + r < a.m
-                           ? __ldg(reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * a.k + k0 + kq))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < a.m && k0 + kq < a.k) {
+        const size_t o = (size_t)(m0 + r) * a.k + k0 + kq;
+        if constexpr (X_BF16) {
+          const uint2 h = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(a.x) + o));
+          v = make_float4(__uint_as_float(h.x << 16), __uint_as_float(h.x & 0xffff0000u),
+                          __uint_as_float(h.y << 16), __uint_as_float(h.y & 0xffff0000u));
+        } else {
+          v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(a.x) + o));
+        }
+      }
       s.a[kq][r] = v.x;
       s.a[kq + 1][r] = v.y;
       s.a[kq + 2][r] = v.z;
       s.a[kq + 3][r] = v.w;
     }
     if (tid < TILE_BN) {
-      const int4 wv = n0 + tid < a.n
-                          ? __ldg(reinterpret_cast<const int4*>(a.w + (size_t)(n0 + tid) * a.k + k0))
-                          : make_int4(0, 0, 0, 0);
+      int4 wv = make_int4(0, 0, 0, 0);
+      if (n0 + tid < a.n) {
+        const int8_t* wp = a.w + (size_t)(n0 + tid) * a.k + k0;
+        if ((a.k & 15) == 0) {
+          wv = __ldg(reinterpret_cast<const int4*>(wp));
+        } else {  // rows 8-byte aligned: two halves, the second zero past K
+          const int2 lo = __ldg(reinterpret_cast<const int2*>(wp));
+          const int2 hi = k0 + 8 < a.k ? __ldg(reinterpret_cast<const int2*>(wp + 8)) : make_int2(0, 0);
+          wv = make_int4(lo.x, lo.y, hi.x, hi.y);
+        }
+      }
       float f[16];
       unpack16(wv, f);
 #pragma unroll
@@ -407,19 +429,20 @@ extern "C" int rt_quant_matmul_clusters(int tok, int split) {
 }
 
 // tok (64 or 128: tokens a block) and split (1..8: blocks of a cluster
-// along K) come from quant_matmul.py matmul_plan; the f32 path ignores them.
+// along K) come from quant_matmul.py matmul_plan; the SIMT loop (f32
+// activations, or a K of 8 mod 16) ignores them.
 extern "C" int rt_quant_matmul(
     const void* x, int x_bf16, int m, int k,
     const int8_t* w_t, const float* scales, const float* bias, int n,
     int act, void* out, int out_bf16, int tok, int split,
     void* stream) {
-  if (m < 1 || n < 1 || k < 16 || k % 16 || (m + rt::TILE_BM - 1) / rt::TILE_BM > 65535 ||
+  if (m < 1 || n < 1 || k < 8 || k % 8 || (m + rt::TILE_BM - 1) / rt::TILE_BM > 65535 ||
       (reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(w_t) & 15)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const rt::QmArgs a{x, m, n, k, w_t, scales, bias, act, out, out_bf16};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
+  if (x_bf16 && k % 16 == 0) {
     if (split < 1 || split > rt::QW_MAX_CLUSTER || split > (k + rt::QW_BK - 1) / rt::QW_BK) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -428,6 +451,10 @@ extern "C" int rt_quant_matmul(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((n + rt::TILE_BN - 1) / rt::TILE_BN, (m + rt::TILE_BM - 1) / rt::TILE_BM);
-  rt::qmm_f32_kernel<<<grid, rt::TILE_THREADS, 0, st>>>(a);
+  if (x_bf16) {
+    rt::qmm_simt_kernel<true><<<grid, rt::TILE_THREADS, 0, st>>>(a);
+  } else {
+    rt::qmm_simt_kernel<false><<<grid, rt::TILE_THREADS, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -276,13 +276,13 @@ def _check_act(x, what: str):
         )
 
 
-def _check_weight(w_t, k: int, what: str):
+def _check_weight(w_t, k: int, what: str, multiple: int = 16):
     if w_t.dtype != torch.int8 or w_t.dim() != 2 or not w_t.is_contiguous():
         raise ValueError(f"{what}: weights must be a contiguous int8 [N, K] matrix (int8_pack)")
-    if w_t.shape[1] != k or k % 16 or w_t.data_ptr() % 16:
+    if w_t.shape[1] != k or k % multiple or w_t.data_ptr() % 16:
         raise ValueError(
             f"{what}: weight K={w_t.shape[1]} must equal the row width {k}, be a multiple "
-            "of 16, and be 16-byte aligned"
+            f"of {multiple}, and be 16-byte aligned"
         )
 
 
@@ -855,28 +855,31 @@ def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     bias [N]. Returns [M, N] in ``out_dtype`` (default x.dtype). The order
     is ``acc * scale → + bias → activation → out_dtype``.
 
-    M ≤ 8 hands off to ``quant_gemv_int8``, as the TPU function does. Above
-    that, CUDA tensors launch ``csrc/quant_matmul.cu``: bf16 activations on
-    the tensor cores (``wgmma`` from a TMA-fed ring, f32 accumulation,
-    split-K across a cluster by ``matmul_plan``), f32 activations on an f32
-    SIMT path with exact f32 products (no rounding to bf16 or TF32). A
-    split-K launch also counts under ``quant_matmul_int8:split_k``. CPU
-    tensors run ``quant_matmul_int8_ref``."""
+    M ≤ 8 hands off to ``quant_gemv_int8``, as the TPU function does, where
+    K is a multiple of 16 (the GEMV's rule). Otherwise CUDA tensors launch
+    ``csrc/quant_matmul.cu``: bf16 activations on the tensor cores
+    (``wgmma`` from a TMA-fed ring, f32 accumulation, split-K across a
+    cluster by ``matmul_plan``), f32 activations on an f32 SIMT path with
+    exact f32 products (no rounding to bf16 or TF32). K must be a multiple
+    of 8; bf16 activations whose K is not a multiple of 16 (TMA cannot
+    address such weight rows) take the SIMT path too, their products as
+    exact. A split-K launch also counts under ``quant_matmul_int8:split_k``.
+    CPU tensors run ``quant_matmul_int8_ref``."""
     m, k = x.shape
     n = w_t.shape[0]
-    if m <= MAX_ROWS:
+    if m <= MAX_ROWS and k % 16 == 0:
         return quant_gemv_int8(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
     out_dtype = out_dtype or x.dtype
     if not use_kernel(x, w_t, scales, bias):
         return quant_matmul_int8_ref(x, w_t, scales, bias, activation=activation, out_dtype=out_dtype)
     _check_act(x, "quant_matmul_int8")
-    _check_weight(w_t, k, "quant_matmul_int8")
+    _check_weight(w_t, k, "quant_matmul_int8", multiple=8)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quant_matmul_int8: out_dtype must be float32 or bfloat16, got {out_dtype}")
     scales = _vec_f32(scales, n, "scales")
     bias = _vec_f32(bias, n, "bias")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    tok, split = device_plan(x, n) if x.dtype == torch.bfloat16 else (0, 1)
+    tok, split = device_plan(x, n) if x.dtype == torch.bfloat16 and k % 16 == 0 else (0, 1)
     rc = _build.library().rt_quant_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
         w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,

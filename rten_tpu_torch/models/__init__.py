@@ -1,7 +1,9 @@
 """Native models of the port: the GPT-2 / OPT / Llama-class decoder
-(``decoder``) and the Whisper-class encoder-decoder
-(``encoder_decoder``)."""
+(``decoder``), the Whisper-class encoder-decoder (``encoder_decoder``), the
+BERT-class and wav2vec2 encoders (``bert``, ``wav2vec2``) and the vision
+models (``vit``, ``mobilenet``, ``resnet``); ``ieee`` holds their IEEE-f32
+convolutions and dense matmuls."""
 
-from rten_tpu_torch.models import decoder, encoder_decoder
+from rten_tpu_torch.models import bert, decoder, encoder_decoder, ieee, mobilenet, resnet, vit, wav2vec2
 
-__all__ = ["decoder", "encoder_decoder"]
+__all__ = ["bert", "decoder", "encoder_decoder", "ieee", "mobilenet", "resnet", "vit", "wav2vec2"]

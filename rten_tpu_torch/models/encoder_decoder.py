@@ -5,7 +5,8 @@ utterance.
 Counterpart of ``rten_tpu/models/encoder_decoder.py`` (BASELINE's "Whisper
 encoder-decoder transcription with INT8 weights + INT8 KV-cache"):
 
-- **The audio encoder** (``encode``): two 1-D convolutions (``F.conv1d``,
+- **The audio encoder** (``encode``): two 1-D convolutions
+  (``ieee.conv1d``: IEEE f32 at ``dtype=float32`` whatever the TF32 flags;
   the second of stride 2; the JAX package leaves them to XLA, no Pallas
   kernel), each followed by the exact-erf GELU; sinusoidal positions; then
   pre-norm encoder blocks whose projections are ``quant_matmul_int8`` (the
@@ -80,6 +81,7 @@ from rten_tpu_torch.kernels.quant_matmul import (
     quantize_weights_int8,
 )
 from rten_tpu_torch.models import decoder
+from rten_tpu_torch.models.ieee import conv1d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,8 +314,8 @@ def encode(params: dict, cfg: EncDecConfig, mel) -> torch.Tensor:
     """mel [B, n_mels, T_audio] → encoder states [B, T_audio / 2, d] in
     ``cfg.dtype``, on mel's device."""
     x = mel.to(cfg.dtype)
-    x = _gelu(F.conv1d(x, params["enc_conv1"], padding=1) + params["enc_conv1_b"][None, :, None], cfg.dtype)
-    x = _gelu(F.conv1d(x, params["enc_conv2"], stride=2, padding=1) + params["enc_conv2_b"][None, :, None],
+    x = _gelu(conv1d(x, params["enc_conv1"], padding=1) + params["enc_conv1_b"][None, :, None], cfg.dtype)
+    x = _gelu(conv1d(x, params["enc_conv2"], stride=2, padding=1) + params["enc_conv2_b"][None, :, None],
               cfg.dtype)
     b, d, t = x.shape
     pos = torch.from_numpy(_sinusoids(t, d)).to(x.device, cfg.dtype)

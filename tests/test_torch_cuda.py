@@ -2647,3 +2647,176 @@ def test_gemv_engine_one_launch_a_call(dev):
         launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
         kernels = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
         assert launches == 4 and kernels and all("gemv_kernel" in k for k in kernels), (name, launches, kernels)
+
+
+# ---------------------------------------------------------------------------
+# The encoders and vision models: the kernel modes they add, the IEEE-f32
+# helper, and each model's forward through the kernels against its plain run.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k", [(300, 144, 24), (9, 20, 8), (130, 96, 40), (4, 144, 24), (1568, 16, 32)])
+def test_matmul_kernel_k_multiple_of_8(dev, dtype, m, n, k):
+    """A K of 8 mod 16 (MobileNetV2's K-24 expands; weight rows only 8-byte
+    aligned) in one quant_matmul_int8 launch and no plain call, at every
+    row count: at M ≤ 8 too, where the GEMV (K a multiple of 16) is not
+    taken. K 32 at N 16 is MobileNetV2's first project convolution's shape."""
+    gen = torch.Generator(device=dev).manual_seed(90)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    bias = torch.randn(n, generator=gen, device=dev)
+    dispatch.reset_counters()
+    out = qm.quant_matmul_int8(x, qt, s, bias, activation="relu")
+    assert dict(dispatch.LAUNCHES) == {"quant_matmul_int8": 1} or k % 16 == 0 and m <= 8
+    assert not dispatch.PLAIN
+    assert out.shape == (m, n) and out.dtype == dtype
+    _close(out, qm.quant_matmul_int8_ref(x, qt, s, bias, activation="relu"), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,d", [(64, 64), (197, 64), (130, 128)])
+def test_flash_kernel_per_row_lengths_tq_eq_s(dev, dtype, t, d):
+    """Non-causal attention at Tq = S over B 8 rows of their own valid
+    lengths (the BERT and wav2vec2 batches), views of [B·T, H·D]
+    projections; valid query rows against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(91)
+    b, h = 8, 2
+    lens = torch.tensor([t, 1, t // 2, 17, t - 1, 64, 3, t // 3], dtype=torch.int32, device=dev)
+
+    def heads():
+        return (1.5 * torch.randn(b * t, h * d, generator=gen, device=dev)).to(dtype).view(b, t, h, d).transpose(1, 2)
+
+    q, k, v = heads(), heads(), heads()
+    dispatch.reset_counters()
+    out = flash_attention(q, k, v, causal=False, kv_len=lens)
+    assert dict(dispatch.LAUNCHES).get("flash_attention") == 1 and not dispatch.PLAIN
+    ref = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=False, kv_len=lens)
+    _close_own_max(out, ref, dtype)
+
+
+def test_ieee_conv_helper_with_tf32_flags_on(dev):
+    """With both TF32 flags on (cuDNN's default, and cuBLAS's set), the
+    helper's f32 convolutions and matmul stay within 1e-5 relative RMS of
+    f64; the flags are the caller's again afterwards."""
+    from rten_tpu_torch.models import ieee
+
+    gen = torch.Generator(device=dev).manual_seed(92)
+    x = torch.randn(4, 64, 56, 56, generator=gen, device=dev)
+    w = torch.randn(128, 64, 3, 3, generator=gen, device=dev) * 0.05
+    x1 = torch.randn(2, 64, 4000, generator=gen, device=dev)
+    w1 = torch.randn(64, 4, 128, generator=gen, device=dev) * 0.05
+    a, b = torch.randn(512, 768, generator=gen, device=dev), torch.randn(768, 1024, generator=gen, device=dev)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        cases = [(ieee.conv2d(x, w, padding=1), torch.nn.functional.conv2d(x.double(), w.double(), padding=1)),
+                 (ieee.conv1d(x1, w1, padding=64, groups=16),
+                  torch.nn.functional.conv1d(x1.double(), w1.double(), padding=64, groups=16)),
+                 (ieee.matmul(a, b), a.double() @ b.double())]
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for got, want in cases:
+        rel = ((got.double() - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+        assert rel <= 1e-5, rel
+
+
+@contextlib.contextmanager
+def _plain_encoders():
+    """Route the encoders' and vision models' kernel calls to their plain
+    versions on the card."""
+    from rten_tpu_torch.models import bert, mobilenet, vit  # wav2vec2's layers are bert's
+
+    plain = [(bert, "quant_matmul_int8", qm.quant_matmul_int8_ref), (mobilenet, "quant_matmul_int8",
+             qm.quant_matmul_int8_ref)] + [(mod, "flash_attention", flash_attention_ref) for mod in (bert, vit)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in plain]
+    for mod, name, fn in plain:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _rel_rms(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def _model_runs(dev, name, dtype):
+    """(kernel output, plain output, launches) of one model at the CPU
+    tests' sizes, random weights from seed 0, on the card."""
+    from rten_tpu_torch.models import bert, mobilenet, resnet, vit, wav2vec2
+
+    gen = torch.Generator(device=dev).manual_seed(93)
+    if name == "bert":
+        cfg = bert.BertConfig(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=512, max_seq=64, dtype=dtype)
+        params = bert.quantize_params_int8(bert.init_params(0, cfg, device=dev), device=dev)
+        ids = torch.randint(0, 500, (3, 48), generator=gen, device=dev)
+        lens = torch.tensor([48, 31, 9], dtype=torch.int32, device=dev)
+        head = {"w": torch.randn(256, 2, generator=gen, device=dev), "b": torch.zeros(2, device=dev)}
+
+        def fn():
+            hidden = bert.encode(params, cfg, ids, lengths=lens)
+            valid = torch.arange(48, device=dev)[None, :] < lens[:, None].long()
+            return torch.cat([hidden[valid].float().reshape(-1), bert.pool(hidden, lens).float().reshape(-1),
+                              bert.qa_logits(hidden, head, lens)[0][valid].float()])
+    elif name == "wav2vec2":
+        cfg = wav2vec2.Wav2Vec2Config(conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2), d_model=256,
+                                      n_layers=2, n_heads=4, d_ff=512)
+        params = wav2vec2.quantize_params_int8(wav2vec2.init_params(0, cfg, device=dev), device=dev)
+        wav = torch.randn(2, 490, generator=gen, device=dev)
+        frames = torch.tensor([48, 29], dtype=torch.int32, device=dev)
+
+        def fn():
+            logits = wav2vec2.ctc_logits(params, cfg, wav, lengths=frames)
+            return torch.cat([logits[0], logits[1, :29]]).reshape(-1)
+    elif name == "vit":
+        cfg = vit.ViTConfig(image_size=32, patch_size=8, n_layers=2, n_heads=4, d_model=256, d_ff=1024, n_classes=10)
+        params = vit.init_params(0, cfg, device=dev)
+        img = torch.randn(2, 3, 32, 32, generator=gen, device=dev)
+
+        def fn():
+            return torch.cat([vit.encode(params, cfg, img).reshape(-1), vit.classify(params, cfg, img).reshape(-1)])
+    elif name == "mobilenet":
+        cfg = mobilenet.MobileNetConfig(blocks=((1, 16, 1, 1), (6, 24, 2, 2)), last_channels=64, num_classes=10)
+        params = mobilenet.quantize_params_int8(mobilenet.init_params(0, cfg, device=dev), device=dev)
+        img = torch.randn(2, 3, 32, 32, generator=gen, device=dev)
+
+        def fn():
+            return mobilenet.forward(params, cfg, img).reshape(-1)
+    else:
+        cfg = resnet.ResNetConfig(stage_sizes=(1, 1), num_classes=10, width=8)
+        params = resnet.init_params(0, cfg, device=dev)
+        img = torch.randn(2, 3, 32, 32, generator=gen, device=dev)
+
+        def fn():
+            return torch.cat([resnet.forward(params, cfg, img).reshape(-1),
+                              resnet.forward(params, cfg, img, features=True).reshape(-1)])
+    dispatch.reset_counters()
+    out = fn()
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    with _plain_encoders():
+        ref = fn()
+    return out, ref, launches, plain
+
+
+MODEL_LAUNCHES = {"bert": {"quant_matmul_int8": 12, "flash_attention": 2},
+                  "wav2vec2": {"quant_matmul_int8": 12, "flash_attention": 2},
+                  "vit": {"flash_attention": 4}, "mobilenet": {"quant_matmul_int8": 6}, "resnet": {}}
+
+
+@pytest.mark.parametrize("name,dtype", [("bert", torch.float32), ("bert", torch.bfloat16), ("wav2vec2", torch.float32),
+                                        ("vit", torch.float32), ("mobilenet", torch.float32),
+                                        ("resnet", torch.float32)])
+def test_encoder_models_match_plain(dev, name, dtype):
+    """Each model's forward through the kernels against the same forward
+    through the plain versions on the card: relative RMS ≤ 1e-4 in f32
+    (0.05 for BERT in bf16), every kernel launch counted, no plain call."""
+    out, ref, launches, plain = _model_runs(dev, name, dtype)
+    assert not plain, plain
+    assert {k: v for k, v in launches.items() if ":" not in k} == MODEL_LAUNCHES[name]
+    assert bool(torch.isfinite(out).all())
+    assert _rel_rms(out, ref) <= (1e-4 if dtype == torch.float32 else 0.05)

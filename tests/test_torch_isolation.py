@@ -82,6 +82,25 @@ engine = ServingEngine(params, cfg, max_batch=2, device="cpu")
 engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=4))
 engine.step()
 checkpoint.restore_engine(ServingEngine(params, cfg, max_batch=2, device="cpu"), checkpoint.snapshot_engine(engine))
+from rten_tpu_torch.models import bert, mobilenet, resnet, vit, wav2vec2  # the encoders and vision models
+from rten_tpu_torch import audio, ctc, image
+bcfg = bert.BertConfig(vocab_size=300, n_layers=1, n_heads=4, d_model=256, d_ff=512, max_seq=32)
+bparams = bert.quantize_params_int8(bert.init_params(0, bcfg, device="cpu"), device="cpu")
+hidden = bert.encode(bparams, bcfg, torch.ones(2, 12, dtype=torch.int32), lengths=torch.tensor([12, 5]))
+assert bert.pool(hidden, torch.tensor([12, 5])).shape == (2, 256)
+wcfg2 = wav2vec2.Wav2Vec2Config(conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2), d_model=256, n_layers=1,
+                                n_heads=4, d_ff=512)
+w2v = wav2vec2.quantize_params_int8(wav2vec2.init_params(0, wcfg2, device="cpu"), device="cpu")
+logits = wav2vec2.ctc_logits(w2v, wcfg2, torch.randn(1, 490))
+assert logits.shape == (1, 48, 32) and isinstance(ctc.CtcDecoder().decode_greedy(logits[0].numpy()).labels, list)
+vcfg = vit.ViTConfig(image_size=32, patch_size=8, n_layers=1, n_heads=4, d_model=256, d_ff=512, n_classes=10)
+assert vit.classify(vit.init_params(0, vcfg, device="cpu"), vcfg, torch.randn(1, 3, 32, 32)).shape == (1, 10)
+mcfg = mobilenet.MobileNetConfig(blocks=((1, 16, 1, 1), (6, 24, 2, 2)), last_channels=64, num_classes=10)
+mparams = mobilenet.quantize_params_int8(mobilenet.init_params(0, mcfg, device="cpu"), device="cpu")
+assert mobilenet.forward(mparams, mcfg, torch.randn(1, 3, 32, 32)).shape == (1, 10)
+rcfg = resnet.ResNetConfig(stage_sizes=(1, 1), num_classes=10, width=8)
+assert resnet.forward(resnet.init_params(0, rcfg, device="cpu"), rcfg, torch.randn(1, 3, 32, 32)).shape == (1, 10)
+assert image.normalize_image(np.zeros((3, 2, 2), np.float32)).shape == (3, 2, 2) and audio.resample
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -122,6 +141,7 @@ def test_scan_regex_catches_imports():
 def test_entry_points_refuse_without_cuda(monkeypatch):
     from rten_tpu_torch.generate import EncDecBackend, NativeBackend
     from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.models import bert, mobilenet, resnet, vit, wav2vec2
     from rten_tpu_torch.models import encoder_decoder as ed
     from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
 
@@ -145,6 +165,22 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: ed.params_from_jax({}, ed.WHISPER_TINY),
         lambda: ed.from_hf_whisper({}, ed.WHISPER_TINY),
         lambda: EncDecBackend({}, ed.WHISPER_TINY, [[[0.0]]]),
+        lambda: bert.init_params(0, bert.BertConfig(n_layers=1)),
+        lambda: bert.quantize_params_int8({}),
+        lambda: bert.params_from_jax({}, bert.BERT_BASE),
+        lambda: bert.from_hf_bert({}, bert.BERT_BASE),
+        lambda: wav2vec2.init_params(0, wav2vec2.Wav2Vec2Config(n_layers=1)),
+        lambda: wav2vec2.quantize_params_int8({}),
+        lambda: wav2vec2.params_from_jax({}, wav2vec2.WAV2VEC2_BASE),
+        lambda: wav2vec2.from_hf_wav2vec2({}, wav2vec2.WAV2VEC2_BASE),
+        lambda: vit.init_params(0, vit.ViTConfig(n_layers=1)),
+        lambda: vit.params_from_jax({}, vit.VIT_BASE),
+        lambda: mobilenet.init_params(0, mobilenet.MOBILENET_TINY),
+        lambda: mobilenet.quantize_params_int8({"blocks": [], "head_w": None}),
+        lambda: mobilenet.params_from_jax({}, mobilenet.MOBILENET_V2),
+        lambda: resnet.init_params(0, resnet.RESNET18),
+        lambda: resnet.params_from_jax({}, resnet.RESNET50),
+        lambda: resnet.load_torchvision_state_dict({}, resnet.RESNET50),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

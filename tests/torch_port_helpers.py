@@ -293,3 +293,47 @@ def patch_jax_encdec(monkeypatch):
     patch_jax_fused(monkeypatch)
     for mod, name in ((jqm, "quant_gemv_int8"), (jqm, "quant_mlp_int8"), (jed, "flash_attention")):
         monkeypatch.setattr(mod, name, _interpreted(getattr(mod, name)))
+
+
+def patch_jax_encoders(monkeypatch):
+    """``patch_jax_fused`` for the JAX encoders and vision models
+    (``rten_tpu/models/bert.py``, ``wav2vec2.py``, ``vit.py``,
+    ``mobilenet.py``): their TPU branch, each Pallas call in interpret mode.
+    ``dispatch.on_tpu`` forced sends ``bert._proj`` and
+    ``mobilenet._pointwise`` to ``quant_matmul_int8`` (imported at call
+    time, so the patched one) and turns ``use_flash`` on by default;
+    ``flash_attention`` is bound in each transformer's own module, and
+    ``wav2vec2.encode`` passes ``interpret=not on_tpu()``, False under the
+    patch, so it is overridden there too."""
+    from rten_tpu.models import bert as jbert
+    from rten_tpu.models import vit as jvit
+    from rten_tpu.models import wav2vec2 as jw2v
+
+    patch_jax_fused(monkeypatch)
+    for mod in (jbert, jvit, jw2v):
+        monkeypatch.setattr(mod, "flash_attention", _interpreted(mod.flash_attention))
+
+
+def jax_cast(tree, dtype):
+    """A JAX params tree with every float leaf in ``dtype`` (int8 packs'
+    ``q`` and ``s`` kept)."""
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "s"}:
+            return tree
+        return {k: jax_cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [jax_cast(v, dtype) for v in tree]
+    return jnp.asarray(tree).astype(dtype)
+
+
+def rel_err(got, want, mask=None) -> float:
+    """max |got - want| over max |want| (over the positions ``mask`` keeps)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def torch_f32(arr) -> torch.Tensor:
+    """A JAX or numpy array (bf16 included) as a CPU tensor of its values in f32."""
+    return torch.from_numpy(np.asarray(arr, np.float32).copy())
