@@ -17,6 +17,10 @@ NVIDIA card.
                                      # phases 1-2, the encoders' kernel modes of phase 3
                                      # and phase 12 alone (see encoders_only); its last
                                      # line is marked partial
+    python3 chip_smoke.py --graph LABEL
+                                     # phases 1-2, QuantMatMul's kernel calls at the GPT-2
+                                     # graph's widths and phase 13 alone (see graph_only);
+                                     # its last line is marked partial
     python3 chip_smoke.py --gemv LABEL [--package DIR]
                                      # phases 1-2 and the decode GEMV's, MLP's and fused
                                      # wo's checks at 1 and 8 rows, and decode_block's
@@ -160,7 +164,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and wav2vec2's conv stack's f32 output with both TF32 flags on against
    f64 (ENCODER_F64_GATE); phase 3 adds the kernel modes these take
    (check_encoder_kernels);
-13. the line {"kernels": [...]} (the launches summed over phases 4-12, a
+13. graph   — the graph runtime: a GPT-2-small decoder graph at full width
+   (models.gpt2_graph: 12 layers, d 768, vocab 50257, 1024 positions,
+   seed 0, HF-Optimum inputs and outputs, LayerNorm and GELU as the
+   primitive patterns the optimizer fuses) through quantize_graph_int8,
+   Model(graph) on the card (49 QuantMatMul, 25 LayerNormalization, 12
+   Gelu) and GraphBackend in compiled mode: a 64-token prompt and 200
+   greedy steps, twice (the first run captures one CUDA graph a bucket:
+   the prompt's 64 and the decode buckets 128, 256 and 512), the second
+   timed (time to first token, host ms a step, device ms a step and the
+   idle share, launches: 49 quant_matmul_int8 for the prompt and 49
+   quant_gemv_int8 a step, no plain call); 16 teacher-forced steps through
+   the legacy interpret path against the compiled path's logits and
+   through the plain versions against the kernels' (relative RMS at most
+   GRAPH_GATE, the top-2 rule); a 512-token Model.run forward compiled
+   against interpret; phase 3 adds QuantMatMul's kernel calls at the
+   graph's widths (check_graph_kernels);
+14. the line {"kernels": [...]} (the launches summed over phases 4-13, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
@@ -423,6 +443,8 @@ def check_kernels(torch, bound, cfg):
     check_kv_kernels(torch, bound, cfg, randn, record, kinds=("decode_attention", *KV_KINDS), lens_cases=KV_LENS_16)
     torch.cuda.empty_cache()
     check_encoder_kernels(torch, bound, randn, pack, record)
+    torch.cuda.empty_cache()
+    check_graph_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
     return cases
 
@@ -3636,6 +3658,261 @@ def drive_encoders(torch, out) -> tuple[dict, dict]:
     log(f"  ({res['seconds']:.1f} s)")
     return launches, f32_launches
 
+# ---------------------------------------------------------------------------
+# Phase 13: the graph runtime — a GPT-2-small graph through GraphBackend
+# ---------------------------------------------------------------------------
+
+# The graph's QuantMatMul calls at GPT-2-small's widths, f32 activations: the
+# GEMV at one row (each decode step) and the f32 SIMT route at the 64-token
+# prompt: (name, N, K).
+GRAPH_PROJ = (("c_attn", 2304, 768), ("c_fc", 3072, 768), ("mlp c_proj", 768, 3072), ("lm_head", 50257, 768))
+GRAPH_PROMPT, GRAPH_STEPS, GRAPH_GATE_STEPS, GRAPH_FORWARD = 64, 200, 16, 512
+GRAPH_GATE = 1e-4  # relative RMS: f32 logits, the sums' order alone
+GRAPH_TOP2 = 1e-3  # a token may differ only where the reference's top-2 gap is below this
+
+
+def graph_op_counts(cfg) -> dict:
+    """The fused ops the optimizer leaves in a GPT-2 graph of ``cfg``: four
+    projections a layer and the lm_head, two LayerNorms a layer and the
+    final one, one GELU a layer (49, 25, 12 at GPT-2-small)."""
+    return {"QuantMatMul": 4 * cfg.n_layers + 1, "LayerNormalization": 2 * cfg.n_layers + 1, "Gelu": cfg.n_layers}
+
+
+def check_graph_kernels(torch, bound, randn, pack, record):
+    """QuantMatMul's kernel calls at the GPT-2 graph's widths with f32
+    activations (``optimize.quantize.quant_matmul_op``: x [M, K] f32 against
+    the [N, K] int8 pack): the GEMV at M 1 and quant_matmul_int8's SIMT
+    route at M 64, each against its plain version, timed as phase 3 times
+    the others; the yardstick is F.linear in IEEE f32 on the dequantized
+    weights."""
+    from rten_tpu_torch.kernels import quant_matmul as qm
+
+    f32 = torch.float32
+    F = torch.nn.functional
+    for m in (1, GRAPH_PROMPT):
+        for name, n, k in GRAPH_PROJ:
+            def make(i, m=m, n=n, k=k):
+                qt, s = pack(n, k)
+                return randn(m, k, dtype=f32), qt, s
+
+            args = make(0)
+            out = qm.quant_matmul_int8(*args)
+            ref = (qm.quant_gemv_int8_ref if m <= qm.MAX_ROWS else qm.quant_matmul_int8_ref)(*args)
+            torch.cuda.synchronize()
+            err, tol = (out - ref).abs().max().item(), 1e-4 * max(1.0, ref.abs().max().item())
+            x, qt, s = args
+            per_call = nbytes(x, qt, s) + m * n * 4
+            copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+            ms = graph_ms(torch, [lambda a=a: qm.quant_matmul_int8(*a) for a in copies])
+            plain = eager_ms(torch, lambda: (qm.quant_gemv_int8_ref if m <= qm.MAX_ROWS
+                                             else qm.quant_matmul_int8_ref)(*args))
+            lib_w = [c[1].float() * c[2][:, None] for c in copies[:copies_for(4 * n * k, cap=64)]]
+            library = graph_ms(torch, [lambda w=w: F.linear(x, w) for w in lib_w])
+            kernel = "quant_gemv_int8" if m <= qm.MAX_ROWS else "quant_matmul_int8"
+            record(kernel, f"graph {name} M={m} N={n} K={k}", err, tol, ms, plain,
+                   bound(per_call, 2 * m * n * k, f32=m > qm.MAX_ROWS), library, route="f32",
+                   host_us=host_us(torch, lambda: qm.quant_matmul_int8(*args)))
+            del copies, lib_w
+            torch.cuda.empty_cache()
+
+
+def teacher_forced(torch, backend, prompt, tokens, n, times=None):
+    """The f32 logits [n, vocab] of ``backend`` fed ``prompt`` then
+    ``tokens[:n - 1]`` one at a time; each decode step's host ms (to its
+    logits on the host) appended to ``times``."""
+    import numpy as np
+
+    rows = [backend.prefill(prompt[None]).cpu()]
+    for t in tokens[: n - 1]:
+        t0 = time.perf_counter()
+        rows.append(backend.decode(np.asarray([[t]], np.int32)).cpu())
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return torch.cat([r.float() for r in rows])
+
+
+def top2_gap(logits) -> float:
+    top = logits.double().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def drive_graph(torch, out) -> dict:
+    """Phase 13: the GPT-2-small graph (``models.gpt2_graph``, seed 0, full
+    width) quantized by ``quantize_graph_int8`` and run by ``Model`` on the
+    card through ``GraphBackend`` in compiled mode: a 64-token prompt and
+    200 greedy steps twice (the first run captures one CUDA graph a bucket:
+    the prompt's 64 and the decode buckets 128, 256 and 512), the second
+    timed with every launch counter read around it; device ms a step by
+    kernel (profiler) and the idle share; the gates (the legacy interpret
+    path's logits against the compiled path's, the kernels against their
+    plain versions, each over 16 teacher-forced steps); one 512-token
+    ``Model.run`` forward compiled against interpret. Returns the timed
+    run's launches."""
+    import collections
+
+    import numpy as np
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, GraphBackend
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.kernels import quant_matmul as qm
+    from rten_tpu_torch.models.gpt2_graph import GPT2_SMALL, build_gpt2_graph
+    from rten_tpu_torch.optimize import quantize
+    from rten_tpu_torch.runtime.session import Model, RunOptions
+
+    t_phase = time.perf_counter()
+    res = {}
+    graph, n_quantized = quantize.quantize_graph_int8(build_gpt2_graph(Graph, GPT2_SMALL, seed=0))
+    model = Model(graph, device="cuda")
+    kinds = collections.Counter(op.op_type for _, op in model.graph.operator_nodes())
+    res["ops"] = dict(kinds)
+    expect_ops = graph_op_counts(GPT2_SMALL)
+    n_proj = expect_ops["QuantMatMul"]
+    counts = {k: kinds[k] for k in expect_ops}
+    log(f"  graph: {sum(kinds.values())} ops after the optimizer, {n_quantized} matrices quantized; {counts} "
+        f"({time.perf_counter() - t_phase:.1f} s to build, quantize and optimize)")
+    if counts != expect_ops:
+        raise AssertionError(f"optimized GPT-2 graph holds {counts}, expected {expect_ops}")
+    backend = GraphBackend(model)
+    if backend.mode != "compiled":
+        raise AssertionError(f"GraphBackend picked {backend.mode!r} for the GPT-2 graph, expected 'compiled'")
+    prompt = np.random.default_rng(0).integers(0, GPT2_SMALL.vocab_size, GRAPH_PROMPT).astype(np.int32)
+
+    def generate():
+        backend.reset()
+        steps = iter(Generator(backend, GeneratorConfig(max_tokens=GRAPH_STEPS + 1)).with_prompt(prompt))
+        tokens, times = [], []
+        while True:
+            t0 = time.perf_counter()
+            try:
+                tok = next(steps)
+            except StopIteration:
+                return tokens, times
+            times.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(int(tok[0]))
+
+    t0 = time.perf_counter()
+    first, first_times = generate()
+    res["first_run_s"] = time.perf_counter() - t0
+    dispatch.reset_counters()
+    tokens, times = generate()
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    expect = {"quant_matmul_int8": n_proj, "quant_gemv_int8": n_proj * GRAPH_STEPS}
+    if launches != expect or plain:
+        raise AssertionError(f"GraphBackend run launched {launches} (expected {expect}), plain versions {plain}")
+    if tokens != first:
+        raise AssertionError("the captured replays' tokens differ from the capturing run's")
+    entries = len(model._compiled)
+    if entries != 4:
+        raise AssertionError(f"{entries} captured entries, expected 4 (prompt bucket 64, decode 128, 256, 512)")
+    step_ms = statistics.median(times[1:])
+    res.update(first_run_ms_per_step=statistics.median(first_times[1:]), ttft_ms=times[0], host_ms_step=step_ms,
+               tokens_per_s=1e3 / step_ms, launches=launches, entries=entries, tokens=tokens[:32])
+    tok = np.asarray([[tokens[-1]]], np.int32)
+    by_kernel, calls = profile_by_kernel(torch, lambda: backend.decode(tok, greedy=True), 20)
+    device_ms = sum(by_kernel.values()) / 1e3
+    dispatch.reset_counters()
+    backend.decode(tok, greedy=True)
+    step_launches = dict(dispatch.LAUNCHES)
+    res.update(device_ms_step=device_ms, idle_share=max(0.0, 1 - device_ms / step_ms), step_launches=step_launches,
+               device_us_by_kernel=by_kernel, device_calls_a_step=calls)
+    log(f"  compiled: time to first token {times[0]:.2f} ms (first run, capturing: {first_times[0]:.1f} ms); "
+        f"host {step_ms:.4f} ms a step (median of {GRAPH_STEPS}; {1e3 / step_ms:.1f} tokens/s); device "
+        f"{device_ms:.4f} ms a step (profiler, 20 steps at bucket 512); idle share {res['idle_share']:.3f}; "
+        f"launches a decode step {step_launches}, the prompt's {expect['quant_matmul_int8']} quant_matmul_int8; "
+        f"captured entries {entries}; first run {res['first_run_s']:.1f} s")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {us:9.3f} us  x{calls.get(name, 0):.0f}  {name[:90]}")
+
+    # The gates: 16 teacher-forced steps on the compiled stream's tokens.
+    n = GRAPH_GATE_STEPS
+    backend.reset()
+    compiled = teacher_forced(torch, backend, prompt, tokens, n)
+    interp_times = []
+    legacy = teacher_forced(torch, GraphBackend(model, mode="interpret"), prompt, tokens, n, interp_times)
+    rel = rel_rms(legacy, compiled)
+    diffs = [i for i in range(n) if int(legacy[i].argmax()) != tokens[i]]
+    bad = [i for i in diffs if top2_gap(legacy[i]) >= GRAPH_TOP2]
+    res["interpret_host_ms_step"] = statistics.median(interp_times)
+    log(f"  gate compiled / interpret: relative RMS {rel:.3g} (gate {GRAPH_GATE}); token differences {diffs}; "
+        f"interpret (legacy, exact shapes) {res['interpret_host_ms_step']:.3f} host ms a step (median of {n - 1})")
+    if not rel <= GRAPH_GATE or bad:
+        raise AssertionError(f"compiled against interpret: relative RMS {rel:.3g}, differences past the top-2 "
+                             f"rule at steps {bad}")
+    saved = quantize.quant_matmul_int8
+    quantize.quant_matmul_int8 = qm.quant_matmul_int8_ref
+    try:
+        dispatch.reset_counters()
+        plain_logits = teacher_forced(torch, GraphBackend(model, mode="interpret"), prompt, tokens, n)
+        plain_counts, kernel_counts = dict(dispatch.PLAIN), dict(dispatch.LAUNCHES)
+    finally:
+        quantize.quant_matmul_int8 = saved
+    rel_plain = rel_rms(legacy, plain_logits)
+    log(f"  gate kernels / plain versions: relative RMS {rel_plain:.3g} (gate {GRAPH_GATE}); plain calls "
+        f"{plain_counts}, kernel launches {kernel_counts}")
+    if not rel_plain <= GRAPH_GATE or kernel_counts or plain_counts != {"quant_matmul_int8": n_proj * n}:
+        raise AssertionError(f"kernels against plain versions: relative RMS {rel_plain:.3g}, plain {plain_counts}, "
+                             f"kernels {kernel_counts}")
+    res.update(gate_interpret=rel, gate_plain=rel_plain, token_differences=diffs)
+
+    # One 512-token forward, compiled (captured, replayed) against interpret.
+    gen = np.random.default_rng(1)
+    t = GRAPH_FORWARD
+    feed = {"input_ids": gen.integers(0, GPT2_SMALL.vocab_size, (1, t)).astype(np.int32),
+            "attention_mask": np.ones((1, t), np.int32), "position_ids": np.arange(t, dtype=np.int32)[None]}
+    for name in backend.cache_inputs:
+        feed[name] = backend._empty_cache_value(name, 1)
+
+    def forward(mode):
+        out_ = model.run(feed, ["logits"], RunOptions(mode=mode))[0]
+        torch.cuda.synchronize()
+        return out_
+
+    compiled_out = forward("compile")  # the capture
+    dispatch.reset_counters()
+    forward("compile")
+    fwd_launches = dict(dispatch.LAUNCHES)
+    fwd_compiled = statistics.median(host_ms(lambda: forward("compile")) for _ in range(7))
+    interp_out = forward("interpret")
+    fwd_interpret = statistics.median(host_ms(lambda: forward("interpret")) for _ in range(3))
+    rel_fwd = rel_rms(compiled_out, interp_out)
+    log(f"  Model.run forward of {t} tokens: compiled {fwd_compiled:.3f} ms, interpret {fwd_interpret:.3f} ms "
+        f"(host, median); relative RMS {rel_fwd:.3g}; launches {fwd_launches}")
+    if not rel_fwd <= GRAPH_GATE or fwd_launches != {"quant_matmul_int8": n_proj}:
+        raise AssertionError(f"the {t}-token forward: relative RMS {rel_fwd:.3g}, launches {fwd_launches}")
+    res.update(forward_tokens=t, forward_compiled_ms=fwd_compiled, forward_interpret_ms=fwd_interpret,
+               forward_rel_rms=rel_fwd, forward_launches=fwd_launches)
+    del model, backend, graph
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    out["graph"] = res
+    log(f"  ({res['seconds']:.1f} s)")
+    return launches
+
+
+def host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def graph_only(torch, bound, detail, kind, smi, label: str) -> int:
+    """``--graph LABEL``: QuantMatMul's kernel calls at the graph's widths
+    (check_graph_kernels) and phase 13 (drive_graph), written to
+    chiprun_out/graph_LABEL.json; its last line is marked partial."""
+    randn, pack, _norm_vecs, _bf16_err, record, cases = check_tools(torch)
+    log("[3/4] QuantMatMul's kernel calls at the GPT-2 graph's widths against their plain versions")
+    check_graph_kernels(torch, bound, randn, pack, record)
+    detail["cases"] = cases
+    log("[4/4] the GPT-2-small graph through GraphBackend")
+    launches = drive_graph(torch, detail)
+    (OUT_DIR / f"graph_{label}.json").write_text(json.dumps(detail, indent=1))
+    print(smi)
+    print(json.dumps({"partial": "graph", "kind": kind, "label": label, "launches": launches,
+                      "seconds": detail["graph"]["seconds"]}))
+    return 0
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -3915,6 +4192,8 @@ def main() -> int:
     parser.add_argument("--gemv", metavar="LABEL", help="the decode GEMV's and MLP's timing mode (gemv_only)")
     parser.add_argument("--encoders", metavar="LABEL",
                         help="the encoders' kernel modes and phase 12 alone (encoders_only)")
+    parser.add_argument("--graph", metavar="LABEL",
+                        help="QuantMatMul's kernel calls and phase 13 alone (graph_only)")
     parser.add_argument("--package", metavar="DIR",
                         help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
@@ -3936,7 +4215,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/13] device")
+    log("[1/14] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -3949,7 +4228,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/13] build")
+    log("[2/14] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -3972,7 +4251,9 @@ def main() -> int:
         return gemv_only(torch, bound, cfg, detail, kind, smi, opts.gemv)
     if opts.encoders:
         return encoders_only(torch, bound, detail, kind, smi, opts.encoders)
-    log("[3/13] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    if opts.graph:
+        return graph_only(torch, bound, detail, kind, smi, opts.graph)
+    log("[3/14] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -3981,42 +4262,48 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/13] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/14] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/13] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/14] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/13] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/14] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/13] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/14] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/13] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log("[8/14] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/13] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[9/14] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[10/13] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+    log("[10/14] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[11/13] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
+    log("[11/14] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[12/13] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
+    log("[12/14] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
         "INT8, ResNet-50 fp32")
     phase12, f32_runs = drive_encoders(torch, detail)
     for name, n in phase12.items():
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] = f32_runs.get(name, 0)
+    log("[13/14] the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
+        "one CUDA graph a bucket")
+    for name, n in drive_graph(torch, detail).items():
+        launches[name] = launches.get(name, 0) + n
+        if name in ("quant_matmul_int8", "flash_attention"):
+            launches[f"{name}:f32"] += n  # f32 activations: the SIMT route
     missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
@@ -4024,7 +4311,7 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log("[13/13] summary")
+    log("[14/14] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

@@ -1,16 +1,17 @@
 """Autoregressive generation over the port's models: ``Generator`` with a
-``NativeBackend`` (the decoder) or an ``EncDecBackend`` (the Whisper-class
-encoder-decoder), samplers, speculative decoding and metrics."""
+``NativeBackend`` (the decoder), an ``EncDecBackend`` (the Whisper-class
+encoder-decoder) or a ``GraphBackend`` (a graph ``Model``), samplers, speculative decoding and metrics."""
 
 from rten_tpu_torch.generate.generator import (
     EncDecBackend,
     EncDecBackendFactory,
     Generator,
     GeneratorConfig,
+    GraphBackend,
     NativeBackend,
 )
 from rten_tpu_torch.generate.metrics import Metrics
 from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler, TemperatureSampler, TopKSampler, TopPSampler
 
-__all__ = ["Generator", "GeneratorConfig", "NativeBackend", "EncDecBackend", "EncDecBackendFactory", "Metrics",
+__all__ = ["Generator", "GeneratorConfig", "NativeBackend", "GraphBackend", "EncDecBackend", "EncDecBackendFactory", "Metrics",
            "Sampler", "ArgMaxSampler", "TemperatureSampler", "TopKSampler", "TopPSampler"]

@@ -5,7 +5,8 @@ Counterpart of ``rten_tpu/generate/generator.py`` (``GeneratorConfig``,
 ``append_prompt``, ``with_sampler``, ``with_draft``, ``on_token``,
 ``profile``, EOS and ``max_tokens``. ``EncDecBackend`` drives the
 Whisper-class encoder-decoder (``models.encoder_decoder``) through the same
-iterator; ``GraphBackend`` and ``backend_for_model`` are not ported yet.
+iterator; ``GraphBackend`` drives a graph ``Model`` (``runtime.session``)
+that follows HF-Optimum naming. ``backend_for_model`` is not ported yet.
 
 A prompt, and every follow-up chunk of ``append_prompt``, goes into the
 cache as one ``decoder.prefill`` forward (the prefill kernels above 8 rows);
@@ -24,7 +25,9 @@ from per-row buffers refilled ``rounds_per_call`` rounds at a time.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator
+import re
+import warnings
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -137,6 +140,305 @@ class EncDecBackend:
         """Feed the decoder prompt [B, T] as one forward; returns the last
         position's f32 logits [B, vocab], or its greedy tokens int32 [B]
         with ``greedy``."""
+        return self._step(tokens, greedy)
+
+    def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
+        """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``."""
+        return self._step(tokens, greedy)
+
+
+def _len_bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // 1024) * 1024
+
+
+class GraphBackend:
+    """Backend over a graph ``Model`` using HF-Optimum naming conventions
+    (``input_ids`` / ``attention_mask`` / ``position_ids`` /
+    ``past_key_values.N.key|value`` → ``logits`` / ``present.N.*``): the
+    counterpart of the JAX package's ``GraphBackend``, on the model's device.
+
+    Compiled mode: the KV state lives in PREALLOCATED padded buffers of a
+    bucketed length P (one set a bucket, kept across ``reset``); every
+    decode step feeds the whole buffer plus an attention_mask that marks
+    [0, len) and the new tail positions valid, and runs the graph in compile
+    mode (on the card: one captured CUDA graph a bucket that reads the
+    buffers in place, ``RunOptions.donate_inputs``); the appended K/V are
+    copied into the buffers in place. The prompt runs padded to a length
+    bucket. Exact for any graph that honors attention_mask for K/V validity
+    (the HF Optimum export contract); graphs without a mask input run the
+    legacy exact-shape interpret path.
+
+    ``constant_inputs`` are loop-invariant inputs (e.g. encoder states); on
+    the first step the backend hoists everything derivable from them via
+    ``Model.partial_run`` and feeds the frontier values back as extra inputs
+    on every later run.
+    """
+
+    CACHE_PATTERNS = (
+        re.compile(r"^past_key_values\.(\d+)\.(key|value)$"),
+        re.compile(r"^past_key_values\.(\d+)\.(decoder|encoder)\.(key|value)$"),
+    )
+
+    def __init__(self, model, *, mode: str | None = None, constant_inputs=None):
+        from rten_tpu_torch.runtime.session import RunOptions
+
+        self.model = model
+        self.device = model.device
+        names = model.input_names()
+        self.input_ids_name = "input_ids"
+        self.attention_mask_name = "attention_mask" if "attention_mask" in names else None
+        self.position_ids_name = "position_ids" if "position_ids" in names else None
+        # Optimum MERGED decoder exports take an explicit branch selector:
+        # 0 → compute caches fresh (first step), 1 → reuse the past inputs.
+        self.use_cache_branch_name = "use_cache_branch" if "use_cache_branch" in names else None
+        self.cache_inputs: list[str] = [n for n in names if any(p.match(n) for p in self.CACHE_PATTERNS)]
+        out_names = model.output_names()
+        if not out_names:
+            raise ValueError(
+                "graph declares no outputs — not a runnable generation "
+                "model (note: load-time optimization sweeps constants "
+                "unreachable from outputs, so a weights-only graph also "
+                "loses its lift-able initializers)"
+            )
+        self.logits_name = "logits" if "logits" in out_names else out_names[0]
+        # present.N[.decoder|.encoder].key|value → the matching past input
+        # name; the .decoder/.encoder segments are kept (enc-dec exports
+        # tell growing self-attention caches from static cross ones by them).
+        self.cache_outputs = {
+            n: n.replace("present", "past_key_values", 1) for n in out_names if n.startswith("present")
+        }
+        # Cross-attention (encoder) caches: computed once, never appended.
+        self.static_cache = frozenset(n for n in self.cache_inputs if ".encoder." in n)
+        if mode is None:
+            # Compiled when the graph takes explicit position_ids, or when its
+            # positions provably come from a CumSum over the attention_mask
+            # (exact under the bucketed mask); a graph that derives positions
+            # from the past-KV SHAPE would read the padded length.
+            mode = (
+                "compiled"
+                if self.attention_mask_name
+                and self.cache_inputs
+                and (self.position_ids_name or self._positions_from_mask())
+                else "interpret"
+            )
+            if mode == "interpret":
+                why = (
+                    "no attention_mask input"
+                    if self.attention_mask_name is None
+                    else "positions not derivable from the attention_mask "
+                    "(no position_ids input and no CumSum-over-mask pattern)"
+                )
+                warnings.warn(
+                    f"GraphBackend: falling back to EXACT-SHAPE INTERPRET "
+                    f"execution ({why}) — one op-by-op dispatch per token, "
+                    f"orders of magnitude slower than the compiled bucketed "
+                    f"path. Re-export the graph with attention_mask/"
+                    f"position_ids inputs, or pass mode='compiled' if the "
+                    f"graph is mask-exact anyway.",
+                    stacklevel=2,
+                )
+        if mode == "compiled" and self.attention_mask_name is None:
+            raise ValueError(
+                "GraphBackend(mode='compiled') requires the graph to take an "
+                "attention_mask input (HF Optimum export contract); this "
+                "graph has none — use mode='interpret'"
+            )
+        self.mode = mode
+        self.opts = RunOptions(mode="compile", donate_inputs=True) if mode == "compiled" else RunOptions(
+            mode="interpret")
+        self.constant_inputs: dict[str, Any] = dict(constant_inputs or {})
+        self._hoisted: dict[int, Any] | None = None
+        # KV state: name → padded buffer (compiled) / exact tensor (legacy).
+        self.cache: dict[str, Any] = {}
+        self._buffers: dict[tuple, torch.Tensor] = {}  # (name, seq len) → a reused padded buffer
+        self.seq_len = 0
+        self._bucket = 0
+        self._kv_meta = {name: self.model.input_shape(self.model.node_id(name)) or [] for name in self.cache_inputs}
+
+    def _positions_from_mask(self) -> bool:
+        """True when the graph's positions provably derive from the
+        attention_mask: some CumSum consumes a value reachable from the mask
+        input, and no Shape op reads a past-KV input."""
+        from rten_tpu_torch.graph import OperatorNode
+
+        graph = self.model.graph
+        ops = [n for n in graph.nodes if isinstance(n, OperatorNode)]
+        kv_ids = {self.model.node_id(n) for n in self.cache_inputs}
+        if any(op.op_type == "Shape" and any(i in kv_ids for i in op.inputs if i is not None) for op in ops):
+            return False
+        reachable = {self.model.node_id(self.attention_mask_name)}
+        changed = True
+        found_cumsum = False
+        while changed and not found_cumsum:
+            changed = False
+            for op in ops:
+                ins = [i for i in op.inputs if i is not None]
+                if any(i in reachable for i in ins):
+                    if op.op_type == "CumSum":
+                        found_cumsum = True
+                        break
+                    for o in op.outputs:
+                        if o is not None and o not in reachable:
+                            reachable.add(o)
+                            changed = True
+        return found_cumsum
+
+    def reset(self) -> None:
+        self.cache = {}
+        self.seq_len = 0
+        self._bucket = 0
+
+    def _empty_cache_value(self, name: str, batch: int) -> np.ndarray:
+        shape = list(self._kv_meta.get(name) or [])
+        dims = [batch if isinstance(d, str) and "batch" in d else d for d in shape]
+        dims = [0 if isinstance(d, str) or d is None else int(d) for d in dims]
+        # Zero-length sequence axis: assume axis -2 is the sequence.
+        if len(dims) >= 2:
+            dims[-2] = 0
+        return np.zeros(dims, dtype=np.float32)
+
+    def _base_inputs(self) -> dict[Any, Any]:
+        inputs: dict[Any, Any] = dict(self.constant_inputs)
+        if self.constant_inputs and self._hoisted is None:
+            # One-time loop-invariant hoist: partial_run evaluates everything
+            # reachable from the constant inputs and hands back the frontier.
+            self._hoisted = dict(self.model.partial_run(self.constant_inputs, [self.logits_name]))
+        if self._hoisted:
+            inputs.update(self._hoisted)
+        return inputs
+
+    # -- legacy exact-shape interpret path -----------------------------------
+
+    def _step_legacy(self, tokens: np.ndarray) -> torch.Tensor:
+        batch, t = tokens.shape
+        inputs = self._base_inputs()
+        inputs[self.input_ids_name] = tokens.astype(np.int32)
+        new_len = self.seq_len + t
+        if self.attention_mask_name:
+            inputs[self.attention_mask_name] = np.ones((batch, new_len), np.int32)
+        if self.position_ids_name:
+            inputs[self.position_ids_name] = np.arange(self.seq_len, new_len, dtype=np.int32)[None, :].repeat(batch, 0)
+        if self.use_cache_branch_name:
+            inputs[self.use_cache_branch_name] = np.asarray([0 if self.seq_len == 0 else 1], np.int32)
+        for name in self.cache_inputs:
+            inputs[name] = self.cache.get(name)
+            if inputs[name] is None:
+                inputs[name] = self._empty_cache_value(name, batch)
+        wanted = [self.logits_name, *self.cache_outputs.keys()]
+        outs = self.model.run(inputs, wanted, self.opts)
+        for out_name, vals in zip(list(self.cache_outputs.keys()), outs[1:]):
+            self.cache[self.cache_outputs[out_name]] = vals
+        self.seq_len = new_len
+        return outs[0][:, -1, :]
+
+    # -- compiled bucketed path ----------------------------------------------
+
+    def _buffer(self, name: str, like: torch.Tensor, length: int) -> torch.Tensor:
+        """The reused zeroed buffer of ``name`` with ``length`` positions on
+        the sequence axis (-2), ``like``'s other dims and dtype."""
+        shape = list(like.shape)
+        shape[-2] = length
+        buf = self._buffers.get((name, length))
+        if buf is None or list(buf.shape) != shape or buf.dtype != like.dtype:
+            buf = self._buffers[(name, length)] = torch.zeros(shape, dtype=like.dtype, device=self.device)
+        else:
+            buf.zero_()
+        return buf
+
+    def _grow_cache(self, target: int) -> None:
+        """Move every GROWING KV buffer into its buffer of the next bucket;
+        static cross-attention caches keep the encoder length."""
+        for name, buf in self.cache.items():
+            if name in self.static_cache:
+                continue
+            grown = self._buffer(name, buf, target)
+            grown.narrow(-2, 0, buf.shape[-2]).copy_(buf)
+            self.cache[name] = grown
+        self._bucket = target
+
+    def _step_compiled(self, tokens: np.ndarray) -> torch.Tensor:
+        batch, t = tokens.shape
+        L = self.seq_len
+
+        if not self.cache:
+            # Bucketed prefill: input_ids padded to a length bucket, pad
+            # positions masked off; past arrives with a zero-length seq axis.
+            tb = _len_bucket(t)
+            ids = np.zeros((batch, tb), np.int32)
+            ids[:, :t] = tokens
+            mask = np.zeros((batch, tb), np.int32)
+            mask[:, :t] = 1
+            inputs = self._base_inputs()
+            inputs[self.input_ids_name] = ids
+            inputs[self.attention_mask_name] = mask
+            if self.position_ids_name:
+                pos = np.minimum(np.arange(tb), t - 1).astype(np.int32)
+                inputs[self.position_ids_name] = pos[None, :].repeat(batch, 0)
+            if self.use_cache_branch_name:
+                inputs[self.use_cache_branch_name] = np.asarray([0], np.int32)
+            for name in self.cache_inputs:
+                inputs[name] = self._empty_cache_value(name, batch)
+            wanted = [self.logits_name, *self.cache_outputs.keys()]
+            outs = self.model.run(inputs, wanted, self.opts)
+            self._bucket = _len_bucket(t + 1)
+            for out_name, present in zip(list(self.cache_outputs.keys()), outs[1:]):
+                key = self.cache_outputs[out_name]
+                if key in self.static_cache:
+                    # Cross-attn cache: encoder-length seq axis, stored exactly.
+                    buf = self._buffer(key, present, present.shape[-2])
+                    buf.copy_(present)
+                    self.cache[key] = buf
+                    continue
+                # Only the first t seq entries are real; the padding beyond
+                # stays masked until overwritten by decode appends.
+                buf = self._buffer(key, present, self._bucket)
+                buf.narrow(-2, 0, present.shape[-2]).copy_(present)
+                self.cache[key] = buf
+            self.seq_len = t
+            return outs[0][:, t - 1, :]
+
+        if L + t > self._bucket:
+            self._grow_cache(_len_bucket(L + t))
+        P = self._bucket
+
+        # Valid columns: the real prefix [0, L) plus the t new tail positions.
+        mask = np.zeros((batch, P + t), np.int32)
+        mask[:, :L] = 1
+        mask[:, P:] = 1
+        inputs = self._base_inputs()
+        inputs[self.input_ids_name] = tokens.astype(np.int32)
+        inputs[self.attention_mask_name] = mask
+        if self.position_ids_name:
+            inputs[self.position_ids_name] = np.arange(L, L + t, dtype=np.int32)[None, :].repeat(batch, 0)
+        if self.use_cache_branch_name:
+            inputs[self.use_cache_branch_name] = np.asarray([1], np.int32)
+        for name in self.cache_inputs:
+            inputs[name] = self.cache[name]
+        # Static cross-attn presents are identical every step — don't ask the
+        # program to rematerialize them after prefill.
+        growing_outs = [n for n in self.cache_outputs if self.cache_outputs[n] not in self.static_cache]
+        wanted = [self.logits_name, *growing_outs]
+        outs = self.model.run(inputs, wanted, self.opts)
+        for out_name, present in zip(growing_outs, outs[1:]):
+            # The in-place append: the new tail into [L, L + t) of the buffer.
+            key = self.cache_outputs[out_name]
+            self.cache[key].narrow(-2, L, t).copy_(present.narrow(-2, P, t))
+        self.seq_len = L + t
+        return outs[0][:, -1, :]
+
+    def _step(self, tokens: np.ndarray, greedy: bool) -> torch.Tensor:
+        tokens = np.asarray(tokens, np.int32)
+        logits = self._step_compiled(tokens) if self.mode == "compiled" else self._step_legacy(tokens)
+        # The greedy token: the lowest index among equal maxima.
+        return torch.argmax(logits, dim=-1).to(torch.int32) if greedy else logits
+
+    def prefill(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
+        """Feed a prompt [B, T]; returns the last position's logits [B,
+        vocab] on the model's device, or its greedy tokens int32 [B] with
+        ``greedy``."""
         return self._step(tokens, greedy)
 
     def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:

@@ -2,8 +2,9 @@
 (``decoder``), the Whisper-class encoder-decoder (``encoder_decoder``), the
 BERT-class and wav2vec2 encoders (``bert``, ``wav2vec2``) and the vision
 models (``vit``, ``mobilenet``, ``resnet``); ``ieee`` holds their IEEE-f32
-convolutions and dense matmuls."""
+convolutions and dense matmuls; ``gpt2_graph`` writes a GPT-2 decoder as a
+graph for the graph runtime."""
 
-from rten_tpu_torch.models import bert, decoder, encoder_decoder, ieee, mobilenet, resnet, vit, wav2vec2
+from rten_tpu_torch.models import bert, decoder, encoder_decoder, gpt2_graph, ieee, mobilenet, resnet, vit, wav2vec2
 
-__all__ = ["bert", "decoder", "encoder_decoder", "ieee", "mobilenet", "resnet", "vit", "wav2vec2"]
+__all__ = ["bert", "decoder", "encoder_decoder", "gpt2_graph", "ieee", "mobilenet", "resnet", "vit", "wav2vec2"]

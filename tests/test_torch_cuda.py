@@ -2820,3 +2820,223 @@ def test_encoder_models_match_plain(dev, name, dtype):
     assert {k: v for k, v in launches.items() if ":" not in k} == MODEL_LAUNCHES[name]
     assert bool(torch.isfinite(out).all())
     assert _rel_rms(out, ref) <= (1e-4 if dtype == torch.float32 else 0.05)
+
+
+# ---------------------------------------------------------------------------
+# The graph runtime on the card
+# ---------------------------------------------------------------------------
+
+
+def _gate_specs():
+    """``SPECS`` and ``build_model`` of the JAX package's execute-every-op
+    gate (``tests/test_all_ops_execute.py``), imported as they are. The
+    card's machine has no JAX, so there the names that file imports from
+    the JAX package come from stand-ins while it loads: its ``Graph`` is the
+    port's (the same API), and nothing else of them is used here."""
+    import importlib
+    import sys
+    import types
+
+    try:
+        gate = importlib.import_module("test_all_ops_execute")
+        return gate.SPECS, gate.build_model
+    except ImportError:
+        pass
+    from rten_tpu_torch import graph as tgraph
+    from rten_tpu_torch.ops import registry as tregistry
+    from rten_tpu_torch.runtime import session as tsession
+
+    stand_ins = {
+        "rten_tpu": types.ModuleType("rten_tpu"),
+        "rten_tpu.optimize": types.ModuleType("rten_tpu.optimize"),
+        "rten_tpu.optimize.quantize": types.ModuleType("rten_tpu.optimize.quantize"),
+        "rten_tpu.format": types.ModuleType("rten_tpu.format"),
+        "rten_tpu.format.fbs": types.ModuleType("rten_tpu.format.fbs"),
+        "rten_tpu.format.rten_io": types.ModuleType("rten_tpu.format.rten_io"),
+        "rten_tpu.graph": tgraph, "rten_tpu.ops": types.ModuleType("rten_tpu.ops"),
+        "rten_tpu.ops.registry": tregistry, "rten_tpu.runtime": types.ModuleType("rten_tpu.runtime"),
+        "rten_tpu.runtime.session": tsession,
+    }
+    stand_ins["rten_tpu.format"].fbs = stand_ins["rten_tpu.format.fbs"]
+    stand_ins["rten_tpu.format.rten_io"].load_rten = stand_ins["rten_tpu.format.rten_io"].save_rten = None
+    saved = {name: sys.modules.get(name) for name in stand_ins}
+    sys.modules.update(stand_ins)
+    try:
+        gate = importlib.import_module("test_all_ops_execute")
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+    return gate.SPECS, gate.build_model
+
+
+GATE_SPECS, GATE_BUILD = _gate_specs()
+
+
+def _host(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+
+
+@pytest.mark.parametrize("op_type", sorted(GATE_SPECS))
+def test_graph_op_on_card_matches_cpu(dev, op_type):
+    """Every op of the execute-every-op gate on the card in both modes (the
+    compile mode captured and replayed) against the port's CPU interpret
+    run: the gate's rtol 1e-4 / atol 1e-5 for floats, integers exactly;
+    data-dependent ops raise CompileError in compile mode."""
+    import numpy as np
+
+    import rten_tpu_torch.optimize.quantize  # noqa: F401 — registers QuantMatMul
+    from rten_tpu_torch.ops.registry import CompileError
+    from rten_tpu_torch.runtime.executor import RunError
+    from rten_tpu_torch.runtime.session import Model, ModelOptions, RunOptions
+
+    spec = GATE_SPECS[op_type]
+    g, inputs = GATE_BUILD(op_type, spec)
+    opts = ModelOptions(enable_optimization=False)
+    want = [_host(o) for o in Model(g, options=opts, device="cpu").run(inputs, opts=RunOptions(mode="interpret",
+                                                                                             seed=0))]
+    model = Model(g, options=opts, device=dev)
+    runs = [[_host(o) for o in model.run(inputs, opts=RunOptions(mode="interpret", seed=0))]]
+    if spec.get("dd"):
+        with pytest.raises((CompileError, RunError)) as exc:
+            model.run(inputs, opts=RunOptions(mode="compile", seed=0))
+        assert isinstance(exc.value, CompileError) or isinstance(exc.value.__cause__, CompileError)
+    else:
+        for _ in range(3):  # the capture, then two replays
+            runs.append([_host(o) for o in model.run(inputs, opts=RunOptions(mode="compile", seed=0))])
+        assert len(model._compiled) == 1
+    for got in runs:
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, (op_type, a.shape, b.shape, a.dtype, b.dtype)
+            if spec.get("nd"):
+                continue
+            if np.issubdtype(b.dtype, np.floating):
+                np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+            else:
+                np.testing.assert_array_equal(a, b)
+    for run in runs[2:]:  # replays equal the warm-up bit for bit (random ops too)
+        for a, b in zip(run, runs[1]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("m", [2, 8, 64])
+@pytest.mark.parametrize("k", [8, 20, 24, 768])
+def test_graph_quant_matmul_launches_its_kernels(dev, m, k):
+    from rten_tpu_torch.ops.registry import OpContext, get_op
+    import rten_tpu_torch.optimize.quantize  # noqa: F401
+
+    gen = torch.Generator(device=dev).manual_seed(m * 1000 + k)
+    n = 72
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=gen, device=dev) * 0.01 + 0.001
+    dispatch.reset_counters()
+    out = get_op("QuantMatMul").fn(OpContext(device=dev), {}, x, w, s)
+    assert dict(dispatch.LAUNCHES) == {"quant_gemv_int8" if m <= 8 else "quant_matmul_int8": 1}
+    assert not dispatch.PLAIN
+    ref = (x.double() @ w.double()) * s.double()
+    assert ((out.double() - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item() < 1e-4
+    assert out.shape == (m, n) and out.dtype == torch.float32
+
+
+def _tiny_gpt2_model(dev, **kw):
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.models.gpt2_graph import Gpt2GraphConfig, build_gpt2_graph
+    from rten_tpu_torch.optimize.quantize import quantize_graph_int8
+    from rten_tpu_torch.runtime.session import Model
+
+    cfg = Gpt2GraphConfig(vocab_size=500, n_positions=256, d_model=128, n_layers=2, n_heads=2, d_ff=512)
+    graph, _ = quantize_graph_int8(build_gpt2_graph(Graph, cfg, seed=0))
+    return Model(graph, device=dev, **kw), cfg
+
+
+def _feed(t, cfg, past=0):
+    import numpy as np
+
+    rng = np.random.default_rng(t)
+    feed = {"input_ids": rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int32),
+            "attention_mask": np.ones((1, past + t), np.int32),
+            "position_ids": np.arange(past, past + t, dtype=np.int32)[None]}
+    for i in range(cfg.n_layers):
+        for kind in ("key", "value"):
+            feed[f"past_key_values.{i}.{kind}"] = rng.standard_normal(
+                (1, cfg.n_heads, past, cfg.d_model // cfg.n_heads)).astype(np.float32)
+    return feed
+
+
+def test_graph_compiled_replay_equals_warm_up(dev):
+    """A signature's first compile call runs eagerly (the warm-up) and
+    captures; its replays give the same bits, valid after the next call;
+    one CUDAGraph per signature."""
+    from rten_tpu_torch.runtime.session import RunOptions
+
+    model, cfg = _tiny_gpt2_model(dev)
+    feed = _feed(12, cfg, past=5)
+    opts = RunOptions(mode="compile")
+    dispatch.reset_counters()
+    warm = model.run(feed, opts=opts)
+    assert dispatch.LAUNCHES["quant_matmul_int8"] == 9 and not dispatch.PLAIN
+    replay = model.run(feed, opts=opts)
+    again = model.run(_feed(12, cfg, past=5) | {"input_ids": feed["input_ids"][:, ::-1].copy()}, opts=opts)
+    assert dispatch.LAUNCHES["quant_matmul_int8"] == 27 and not dispatch.PLAIN  # replays count their launches
+    for a, b in zip(warm, replay):
+        assert torch.equal(a, b)  # and ``again`` did not overwrite ``replay``
+    assert not torch.equal(again[0], replay[0])
+    (entry,) = model._compiled.values()
+    assert isinstance(entry.cuda_graph, torch.cuda.CUDAGraph)
+    interp = model.run(feed, opts=RunOptions(mode="interpret"))
+    for a, b in zip(replay, interp):
+        _close(a, b, torch.float32)
+    model.run(_feed(3, cfg, past=5), opts=opts)
+    assert len(model._compiled) == 2
+
+
+def test_graph_donated_input_read_in_place(dev):
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.runtime.session import Model, ModelOptions, RunOptions
+
+    g = Graph()
+    x = g.add_value("x")
+    g.inputs, g.outputs = [x], [g.add_simple_op("Mul", [x, g.add_constant("c", torch.tensor(2.0).numpy())])]
+    model = Model(g, options=ModelOptions(enable_optimization=False), device=dev)
+    buf = torch.ones(4, 4, device=dev)
+    opts = RunOptions(mode="compile", donate_inputs=True)
+    assert torch.equal(model.run([buf], opts=opts)[0], 2 * buf)
+    buf.fill_(3.0)  # the entry reads the caller's tensor in place
+    assert torch.equal(model.run([buf], opts=opts)[0], torch.full_like(buf, 6.0))
+    other = torch.full((4, 4), 5.0, device=dev)  # another tensor: an entry of its own, buf untouched
+    assert torch.equal(model.run([other], opts=opts)[0], torch.full_like(buf, 10.0))
+    assert torch.equal(buf, torch.full_like(buf, 3.0)) and len(model._compiled) == 2
+
+
+def test_graph_backend_on_card(dev):
+    """The tiny GPT-2 graph through GraphBackend on the card: the compiled
+    path's tokens equal the legacy interpret path's and the CPU's, one
+    captured entry a bucket, QuantMatMul on its kernels (no plain call)."""
+    import numpy as np
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, GraphBackend
+
+    model, cfg = _tiny_gpt2_model(dev)
+    cpu_model, _ = _tiny_gpt2_model("cpu")
+    prompt = list(range(3, 40))
+
+    def tokens(backend, n=30):
+        return [int(t[0]) for t in Generator(backend, GeneratorConfig(max_tokens=n)).with_prompt(prompt)]
+
+    dispatch.reset_counters()
+    got = tokens(GraphBackend(model))
+    assert dispatch.LAUNCHES["quant_matmul_int8"] == 9 and dispatch.LAUNCHES["quant_gemv_int8"] == 9 * 29
+    assert not dispatch.PLAIN
+    assert len(model._compiled) == 3  # prompt bucket 64, decode buckets 64 and 128
+    be = GraphBackend(model)
+    assert tokens(be) == got and len(model._compiled) == 5  # a backend's buffers: entries of its own
+    be.reset()
+    assert tokens(be) == got and len(model._compiled) == 5
+    assert tokens(GraphBackend(model, mode="interpret")) == got
+    assert tokens(GraphBackend(cpu_model)) == got
+    logits = GraphBackend(model).prefill(np.asarray([prompt], np.int32))
+    ref = GraphBackend(cpu_model).prefill(np.asarray([prompt], np.int32))
+    _close(logits.cpu(), ref, torch.float32)

@@ -101,6 +101,22 @@ assert mobilenet.forward(mparams, mcfg, torch.randn(1, 3, 32, 32)).shape == (1, 
 rcfg = resnet.ResNetConfig(stage_sizes=(1, 1), num_classes=10, width=8)
 assert resnet.forward(resnet.init_params(0, rcfg, device="cpu"), rcfg, torch.randn(1, 3, 32, 32)).shape == (1, 10)
 assert image.normalize_image(np.zeros((3, 2, 2), np.float32)).shape == (3, 2, 2) and audio.resample
+from rten_tpu_torch.graph import Graph  # the graph runtime: build, optimize, run in both modes
+from rten_tpu_torch.models.gpt2_graph import Gpt2GraphConfig, build_gpt2_graph
+from rten_tpu_torch.optimize.quantize import quantize_graph_int8
+from rten_tpu_torch.runtime.session import Model, RunOptions
+from rten_tpu_torch.generate import Generator, GeneratorConfig, GraphBackend
+gcfg = Gpt2GraphConfig(vocab_size=300, n_positions=64, d_model=128, n_layers=1, n_heads=2, d_ff=256)
+graph, n_q = quantize_graph_int8(build_gpt2_graph(Graph, gcfg))
+gmodel = Model(graph, device="cpu")
+assert n_q == 5 and sum(op.op_type == "QuantMatMul" for _, op in gmodel.graph.operator_nodes()) == 5
+feed = {"input_ids": np.array([[1, 2, 3]], np.int32), "attention_mask": np.ones((1, 3), np.int32),
+        "position_ids": np.arange(3, dtype=np.int32)[None],
+        **{f"past_key_values.0.{k}": np.zeros((1, 2, 0, 64), np.float32) for k in ("key", "value")}}
+runs = [gmodel.run(feed, ["logits"], RunOptions(mode=mode))[0] for mode in ("interpret", "compile")]
+assert runs[0].shape == (1, 3, 300) and torch.equal(runs[0], runs[1])
+toks = [int(t[0]) for t in Generator(GraphBackend(gmodel), GeneratorConfig(max_tokens=4)).with_prompt([1, 2, 3])]
+assert len(toks) == 4 and len(gmodel._compiled) == 3  # the feed, the prompt bucket, one decode bucket
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -140,6 +156,8 @@ def test_scan_regex_catches_imports():
 
 def test_entry_points_refuse_without_cuda(monkeypatch):
     from rten_tpu_torch.generate import EncDecBackend, NativeBackend
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.runtime.session import Model
     from rten_tpu_torch.models import decoder
     from rten_tpu_torch.models import bert, mobilenet, resnet, vit, wav2vec2
     from rten_tpu_torch.models import encoder_decoder as ed
@@ -181,6 +199,7 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: resnet.init_params(0, resnet.RESNET18),
         lambda: resnet.params_from_jax({}, resnet.RESNET50),
         lambda: resnet.load_torchvision_state_dict({}, resnet.RESNET50),
+        lambda: Model(Graph()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

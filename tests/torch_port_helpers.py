@@ -337,3 +337,30 @@ def rel_err(got, want, mask=None) -> float:
 def torch_f32(arr) -> torch.Tensor:
     """A JAX or numpy array (bf16 included) as a CPU tensor of its values in f32."""
     return torch.from_numpy(np.asarray(arr, np.float32).copy())
+
+
+def port_graph(jgraph):
+    """A copy of a JAX-package ``Graph`` as the port's ``Graph`` (the same
+    nodes, ids, inputs, outputs and captures; If branches copied too)."""
+    from rten_tpu.graph import Graph as JGraph
+    from rten_tpu_torch import graph as tg
+
+    g = tg.Graph()
+    for node in jgraph.nodes:
+        kind = type(node).__name__
+        if kind == "ConstantNode":
+            g.nodes.append(tg.ConstantNode(node.name, node.value))
+        elif kind == "ValueNode":
+            g.nodes.append(tg.ValueNode(node.name, node.shape, node.dtype))
+        else:
+            attrs = {k: port_graph(v) if isinstance(v, JGraph) else v for k, v in node.attrs.items()}
+            g.nodes.append(tg.OperatorNode(node.name, node.op_type, attrs, list(node.inputs), list(node.outputs)))
+    g.inputs, g.outputs, g.captures = list(jgraph.inputs), list(jgraph.outputs), list(jgraph.captures)
+    return g
+
+
+def host(value) -> np.ndarray:
+    """A port result (a tensor on any device) or a JAX one as numpy."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
