@@ -21,6 +21,10 @@ NVIDIA card.
                                      # phases 1-2, QuantMatMul's kernel calls at the GPT-2
                                      # graph's widths and phase 13 alone (see graph_only);
                                      # its last line is marked partial
+    python3 chip_smoke.py --files LABEL
+                                     # phases 1-2, the lifted path's f32 kernel modes of
+                                     # phase 3 and phase 14 alone (see files_only); its
+                                     # last line is marked partial
     python3 chip_smoke.py --gemv LABEL [--package DIR]
                                      # phases 1-2 and the decode GEMV's, MLP's and fused
                                      # wo's checks at 1 and 8 rows, and decode_block's
@@ -180,7 +184,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GRAPH_GATE, the top-2 rule); a 512-token Model.run forward compiled
    against interpret; phase 3 adds QuantMatMul's kernel calls at the
    graph's widths (check_graph_kernels);
-14. the line {"kernels": [...]} (the launches summed over phases 4-13, a
+14. files   — model files at full width (drive_files): (a) phase 13's
+   int8 graph with its dead f32 constants swept, saved with save_rten and
+   loaded by Model.load_file and Model.load_mmap: GraphBackend compiled on
+   the file (64-token prompt, 200 greedy steps; 49 quant_matmul_int8, 49
+   quant_gemv_int8 a step), its tokens phase 13's, 16 teacher-forced steps
+   of logits bit-equal to the in-memory Model's from both loaders; (b) the
+   same graph in f32 with the tied head, saved, loaded and lifted by
+   backend_for_model(model, n_heads=12) onto NativeBackend (the dense-weight
+   route: 12 f32 causal flash_attention at the prompt, 12 decode_attention
+   without wo a step, no int8 kernel, no plain call), 200 greedy steps in a
+   1024-position cache against GraphBackend on the same file (top-2 rule,
+   gap GRAPH_TOP2), 16 teacher-forced steps within GRAPH_GATE of the
+   graph's and of the plain versions', time to first token, host and device
+   ms a step, the idle share, generate_scan captured for 200 steps equal to
+   the eager stream; (c) a two-layer MLP at GPT-2's MLP widths as ONNX
+   through python -m rten_tpu_torch.convert --quantize, QuantMatMul on
+   quant_matmul_int8 at 64 rows and quant_gemv_int8 at 1 within 1e-4 of
+   the plain versions; (d) python -m rten_tpu_torch.cli on (a)'s file, -n 3
+   and --mode interpret -t --mmap; (e) a Whisper-tiny-named state lifted by
+   backend_for_model onto EncDecBackend (dense f32; a 30-second mel, 4
+   start tokens, 32 greedy steps) against the plain versions (GRAPH_GATE,
+   top-2 rule); phase 3 adds the lifted path's f32 kernel modes
+   (check_file_kernels);
+15. the line {"kernels": [...]} (the launches summed over phases 4-14, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
@@ -445,6 +472,8 @@ def check_kernels(torch, bound, cfg):
     check_encoder_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
     check_graph_kernels(torch, bound, randn, pack, record)
+    torch.cuda.empty_cache()
+    check_file_kernels(torch, bound, randn, record)
     torch.cuda.empty_cache()
     return cases
 
@@ -3807,7 +3836,7 @@ def drive_graph(torch, out) -> dict:
         raise AssertionError(f"{entries} captured entries, expected 4 (prompt bucket 64, decode 128, 256, 512)")
     step_ms = statistics.median(times[1:])
     res.update(first_run_ms_per_step=statistics.median(first_times[1:]), ttft_ms=times[0], host_ms_step=step_ms,
-               tokens_per_s=1e3 / step_ms, launches=launches, entries=entries, tokens=tokens[:32])
+               tokens_per_s=1e3 / step_ms, launches=launches, entries=entries, tokens=tokens)
     tok = np.asarray([[tokens[-1]]], np.int32)
     by_kernel, calls = profile_by_kernel(torch, lambda: backend.decode(tok, greedy=True), 20)
     device_ms = sum(by_kernel.values()) / 1e3
@@ -3910,6 +3939,462 @@ def graph_only(torch, bound, detail, kind, smi, label: str) -> int:
     print(smi)
     print(json.dumps({"partial": "graph", "kind": kind, "label": label, "launches": launches,
                       "seconds": detail["graph"]["seconds"]}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: model files — .rten save / load, ONNX convert, the CLI, lifting
+# ---------------------------------------------------------------------------
+
+FILE_KV_LENS = (GRAPH_PROMPT, GRAPH_PROMPT + GRAPH_STEPS - 1, 1023)  # the lifted path's cache lengths, and S's end
+WHISPER_FILE_STEPS = 32
+
+
+def check_file_kernels(torch, bound, randn, record):
+    """The kernel modes the lifted dense GPT-2-small takes (phase 14 (b)),
+    f32 at its attention shapes (12 heads of 64): causal flash_attention of
+    the 64-token prompt (q a view of the [B, T, H, D] projection, k and v
+    views of the first 64 positions of a 1024-position cache, as
+    ``decoder._attention`` passes them) and decode_attention without its wo
+    over a 1024-position f32 cache at the path's lengths, each against its
+    plain version, timed as check_kernels times the others; the yardstick
+    is F.scaled_dot_product_attention (causal, or over the valid prefix).
+    f32 operations are bounded at the f32 CUDA-core rate."""
+    from rten_tpu_torch.kernels import attention as at
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda", 0)
+    f32 = torch.float32
+    F = torch.nn.functional
+    h, hd, s_max, t = 12, 64, 1024, GRAPH_PROMPT
+
+    def make_flash(i):
+        q = randn(t, h * hd, scale=1.5, dtype=f32).view(1, t, h, hd).transpose(1, 2)
+        caches = [randn(1, h, s_max, hd, scale=s, dtype=f32) for s in (1.5, 1.0)]
+        zero, n = torch.zeros(1, dtype=torch.int32, device=dev), torch.full((1,), t, dtype=torch.int32, device=dev)
+        return (q, caches[0][:, :, :t], caches[1][:, :, :t]), dict(causal=True, q_offset=zero, kv_len=n)
+
+    args, kw = make_flash(0)
+    out, ref = at.flash_attention(*args, **kw), at.flash_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err, tol = (out - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+    per_call = 4 * nbytes(args[0])
+    ops = 4 * hd * h * t * (t + 1) // 2
+    copies = [make_flash(i) for i in range(copies_for(per_call, cap=32))]
+    ms = graph_ms(torch, [lambda a=a, kw=kw: at.flash_attention(*a, **kw) for a, kw in copies])
+    plain = eager_ms(torch, lambda: at.flash_attention_ref(*args, **kw))
+    lib = [(a[0].contiguous(), a[1].contiguous(), a[2].contiguous()) for a, _ in copies]
+    library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a, is_causal=True) for a in lib])
+    record("flash_attention", f"f32 lift causal Tq={t} S={t} of {s_max} H={h} D={hd}", err, tol, ms, plain,
+           bound(per_call, ops, f32=True), library, route="f32",
+           host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
+    del copies, lib
+
+    for kv_len in FILE_KV_LENS:
+        def make(i, kv_len=kv_len):
+            ops_ = (randn(1, h, hd, scale=1.5, dtype=f32), randn(1, h, hd, scale=1.5, dtype=f32),
+                    randn(1, h, hd, dtype=f32))
+            return [ops_, randn(1, h, s_max, hd, scale=1.5, dtype=f32), randn(1, h, s_max, hd, dtype=f32),
+                    torch.full((1,), kv_len, dtype=torch.int32, device=dev)]
+
+        args = make(0)
+        k_args, p_args = [a if i == 0 else a.clone() for i, a in enumerate(args)], [
+            a if i == 0 else a.clone() for i, a in enumerate(args)]
+        out, ref = da.decode_attention(*k_args), da.decode_attention_ref(*p_args)
+        torch.cuda.synchronize()
+        if not (torch.equal(k_args[1], p_args[1]) and torch.equal(k_args[2], p_args[2])):
+            raise AssertionError(f"decode_attention f32 kv_len={kv_len}: the caches after the append differ")
+        err, tol = (out - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+        per_call = 2 * h * kv_len * hd * 4 + 3 * h * hd * 4 + h * hd * 4 + 2 * h * hd * 4 + 4
+        ops = 4 * h * (kv_len + 1) * hd
+        copies = [make(i) for i in range(copies_for(per_call, cap=64))]
+        ms = graph_ms(torch, [lambda a=a: da.decode_attention(*a) for a in copies])
+        plain = eager_ms(torch, lambda: da.decode_attention_ref(*p_args))  # the append is idempotent
+        lib = [(c[0][0][:, :, None], c[1][:, :, : kv_len + 1], c[2][:, :, : kv_len + 1]) for c in copies[:8]]
+        library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a) for a in lib])
+        record("decode_attention:no_wo", f"f32 lift kv_len={kv_len} S={s_max} H={h} D={hd}", err, tol, ms, plain,
+               bound(per_call, ops, f32=True), library, route="f32",
+               **kv_launch_info(torch, lambda: da.decode_attention(*k_args), "rt_decode_attention",
+                                k_args[0][0], h, s_max))
+        del copies, lib
+
+
+def whisper_tiny_state(seed: int = 0) -> dict:
+    """A Whisper-tiny-named HF state (``model.encoder.*`` / ``model.decoder.*``,
+    nn.Linear weights [out, in], ``WHISPER_TINY``'s widths: 4 + 4 layers of
+    6 heads, d 384, FF 1536, vocab 51865, 80 mel bins, 1500 audio and 448
+    text positions) with random weights from ``seed``: normal 0.02
+    matrices and embeddings, biases 0.02, LayerNorm scales near 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, ff, vocab, mels = WHISPER["d_model"], WHISPER["d_ff"], WHISPER["vocab_size"], 80
+
+    def w(*shape, std=0.02):
+        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+
+    st = {"model.encoder.conv1.weight": w(d, mels, 3), "model.encoder.conv1.bias": w(d),
+          "model.encoder.conv2.weight": w(d, d, 3), "model.encoder.conv2.bias": w(d),
+          "model.decoder.embed_tokens.weight": w(vocab, d), "model.decoder.embed_positions.weight": w(WHISPER_TEXT, d)}
+    for side in ("encoder", "decoder"):
+        st[f"model.{side}.layer_norm.weight"], st[f"model.{side}.layer_norm.bias"] = 1 + w(d, std=0.1), w(d)
+        for i in range(4):
+            p = f"model.{side}.layers.{i}."
+            for attn in ("self_attn",) + (("encoder_attn",) if side == "decoder" else ()):
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    st[f"{p}{attn}.{proj}.weight"] = w(d, d)
+                    if proj != "k_proj":
+                        st[f"{p}{attn}.{proj}.bias"] = w(d)
+                st[f"{p}{attn}_layer_norm.weight"], st[f"{p}{attn}_layer_norm.bias"] = 1 + w(d, std=0.1), w(d)
+            st[p + "fc1.weight"], st[p + "fc1.bias"] = w(ff, d), w(ff)
+            st[p + "fc2.weight"], st[p + "fc2.bias"] = w(d, ff), w(d)
+            st[p + "final_layer_norm.weight"], st[p + "final_layer_norm.bias"] = 1 + w(d, std=0.1), w(d)
+    return st
+
+
+def mlp_onnx(seed: int = 0) -> bytes:
+    """A two-layer MLP at GPT-2's MLP widths (768 → 3072, Gelu, → 768;
+    MatMul and Add with biases, weights normal 0.02 from ``seed``) as ONNX
+    bytes from the port's onnx_builder."""
+    import numpy as np
+
+    from rten_tpu_torch.format import onnx_builder as ob
+
+    rng = np.random.default_rng(seed)
+    d, ff = 768, 3072
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    nodes = [ob.make_node("MatMul", ["x", "w1"], ["h"]), ob.make_node("Add", ["h", "b1"], ["h1"]),
+             ob.make_node("Gelu", ["h1"], ["g"]), ob.make_node("MatMul", ["g", "w2"], ["y0"]),
+             ob.make_node("Add", ["y0", "b2"], ["y"])]
+    inits = [ob.make_tensor("w1", w(d, ff)), ob.make_tensor("b1", w(ff)), ob.make_tensor("w2", w(ff, d)),
+             ob.make_tensor("b2", w(d))]
+    return ob.make_model(ob.make_graph(nodes, inputs=[ob.make_value_info("x", ["batch", d])],
+                                       outputs=[ob.make_value_info("y", ["batch", d])], initializers=inits))
+
+
+def stream_check(what, got, want, want_logits_at):
+    """``got`` equals ``want`` token for token, or first differs where the
+    reference's top-2 gap (``want_logits_at(i)``, its logits at step i) is
+    below GRAPH_TOP2. Returns the first difference or None."""
+    at = first_difference(got, want)
+    if at is not None:
+        gap = top2_gap(want_logits_at(at))
+        log(f"    {what}: first differs at token {at} (reference top-2 gap {gap:.4g})")
+        if not gap < GRAPH_TOP2:
+            raise AssertionError(f"{what}: differs at token {at}, where the reference's top-2 gap is {gap:.4g} "
+                                 f">= {GRAPH_TOP2}")
+    return at
+
+
+def drive_files(torch, out) -> dict:
+    """Phase 14: the model-file paths at full width, each file written to
+    and read from a temporary directory.
+
+    (a) GPT-2-small as phase 13's graph (``models.gpt2_graph``, seed 0)
+    through ``quantize_graph_int8``, its dead f32 constants swept, saved by
+    ``format.save_rten`` and loaded by ``Model.load_file`` and
+    ``Model.load_mmap``: GraphBackend compiled on the file's model (a
+    64-token prompt, 200 greedy steps twice, the second timed: 49
+    quant_matmul_int8 for the prompt and 49 quant_gemv_int8 a step, no
+    plain call), its tokens phase 13's in-memory run's, 16 teacher-forced
+    steps of logits from each loader bit-equal to the in-memory Model's.
+    (b) The same graph in f32 with the tied head (``tied=True``), saved,
+    loaded, lifted by ``backend_for_model(model, n_heads=12)`` onto a
+    ``NativeBackend`` (the dense-weight route): the same prompt and 200
+    greedy steps in a 1024-position cache (12 f32 causal flash_attention at
+    the prompt, 12 decode_attention without wo a step, nothing else of the
+    kernels, no plain call); its tokens against GraphBackend's on the same
+    loaded file (top-2 rule, gap GRAPH_TOP2), 16 teacher-forced steps of
+    logits within GRAPH_GATE of the graph's and of its own plain versions';
+    time to first token, host and device ms a step, the idle share; then
+    ``generate_scan`` captured for 200 steps, equal to the eager stream.
+    (c) A two-layer MLP at GPT-2's MLP widths as ONNX through ``python -m
+    rten_tpu_torch.convert --quantize``, loaded on the card: QuantMatMul
+    through quant_matmul_int8 at 64 rows and quant_gemv_int8 at 1, within
+    1e-4 of the plain versions (the same file on the CPU).
+    (d) ``python -m rten_tpu_torch.cli`` on (a)'s file, ``-n 3`` and
+    ``--mode interpret -t --mmap``, each exiting 0 (run beside (c)).
+    (e) A Whisper-tiny-named state as a graph of constants:
+    ``backend_for_model`` gives an EncDecBackendFactory; EncDecBackend
+    (dense f32) on a seeded 30-second mel, the 4 start tokens and 32 greedy
+    steps; the encoder states and the teacher-forced logits through the
+    kernels against the plain versions (relative RMS at most GRAPH_GATE),
+    the tokens under the top-2 rule. Returns the phase's launches."""
+    import collections
+    import tempfile
+
+    import numpy as np
+
+    from rten_tpu_torch.format import save_rten
+    from rten_tpu_torch.generate import (EncDecBackend, EncDecBackendFactory, Generator, GeneratorConfig,
+                                         GraphBackend, NativeBackend, backend_for_model)
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.models import encoder_decoder as ed
+    from rten_tpu_torch.models.gpt2_graph import GPT2_SMALL, build_gpt2_graph
+    from rten_tpu_torch.optimize import passes, quantize
+    from rten_tpu_torch.runtime.session import Model
+
+    t_phase = time.perf_counter()
+    res, total = {}, collections.Counter()
+    prompt = np.random.default_rng(0).integers(0, GPT2_SMALL.vocab_size, GRAPH_PROMPT).astype(np.int32)
+    n_proj = graph_op_counts(GPT2_SMALL)["QuantMatMul"]
+    n_layers = GPT2_SMALL.n_layers
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+
+    def stream(backend, n=GRAPH_STEPS):
+        """Greedy tokens of ``backend`` after the prompt, and each token's host ms."""
+        backend.reset()
+        steps = iter(Generator(backend, GeneratorConfig(max_tokens=n + 1)).with_prompt(prompt))
+        tokens, times = [], []
+        while True:
+            t0 = time.perf_counter()
+            try:
+                tok = next(steps)
+            except StopIteration:
+                return tokens, times
+            times.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(int(tok[0]))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    def forced(backend, tokens, n):
+        """``teacher_forced`` from an empty cache."""
+        backend.reset()
+        return teacher_forced(torch, backend, prompt, tokens, n)
+
+    # (a) The quantized graph through a file.
+    graph, _ = quantize.quantize_graph_int8(build_gpt2_graph(Graph, GPT2_SMALL, seed=0))
+    graph = passes.sweep_dead_constants(graph)
+    data, save_s = timed(lambda: save_rten(graph, {"description": "GPT-2-small, seed 0, int8"}))
+    path_a = tmp / "gpt2_int8.rten"
+    path_a.write_bytes(data)
+    memory = Model(graph, device="cuda")
+    file_model, load_s = timed(lambda: Model.load_file(path_a, device="cuda"))
+    mmap_model, mmap_s = timed(lambda: Model.load_mmap(path_a, device="cuda"))
+    backend = GraphBackend(file_model)
+    first, _ = stream(backend)
+    dispatch.reset_counters()
+    tokens_a, times = stream(backend)
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    total.update(launches)
+    expect = {"quant_matmul_int8": n_proj, "quant_gemv_int8": n_proj * GRAPH_STEPS}
+    if launches != expect or plain:
+        raise AssertionError(f"(a) GraphBackend on the file launched {launches} (expected {expect}), plain {plain}")
+    ref_tokens = out.get("graph", {}).get("tokens")
+    if ref_tokens is None:  # phase 13 did not run (--files): the in-memory model's own stream
+        ref_tokens, _ = stream(GraphBackend(memory))
+    if tokens_a != first or tokens_a != ref_tokens:
+        raise AssertionError("(a) the file's tokens differ from the in-memory graph's (or between its runs)")
+    n = GRAPH_GATE_STEPS
+    want = forced(GraphBackend(memory), tokens_a, n)
+    for what, model in (("load_file", file_model), ("load_mmap", mmap_model)):
+        got = forced(GraphBackend(model), tokens_a, n)
+        if not torch.equal(got, want):
+            raise AssertionError(f"(a) {what}: teacher-forced logits differ from the in-memory Model's "
+                                 f"(max {(got - want).abs().max().item():.3g})")
+    step_ms = statistics.median(times[1:])
+    res["a"] = dict(file_bytes=len(data), save_s=save_s, load_file_s=load_s, load_mmap_s=mmap_s,
+                    ttft_ms=times[0], host_ms_step=step_ms, launches=launches)
+    log(f"  (a) int8 file {len(data) / 1e6:.1f} MB: save {save_s:.2f} s, load_file {load_s:.2f} s, load_mmap "
+        f"{mmap_s:.2f} s (with the optimizer); GraphBackend compiled: time to first token {times[0]:.2f} ms, host "
+        f"{step_ms:.4f} ms a step; tokens = phase 13's; 16 teacher-forced steps bit-equal (file, mmap); {launches}")
+    del memory, file_model, mmap_model, backend, graph, data
+    torch.cuda.empty_cache()
+
+    # (b) The dense f32 file lifted onto NativeBackend.
+    path_b = tmp / "gpt2_f32.rten"
+    data, save_s = timed(lambda: save_rten(build_gpt2_graph(Graph, GPT2_SMALL, seed=0, tied=True)))
+    path_b.write_bytes(data)
+    model_b, load_s = timed(lambda: Model.load_file(path_b, device="cuda"))
+    native, lift_s = timed(lambda: backend_for_model(model_b, n_heads=GPT2_SMALL.n_heads, device="cuda"))
+    if not isinstance(native, NativeBackend) or "lm_head" in native.params or native.cfg.max_seq != 1024:
+        raise AssertionError(f"(b) backend_for_model gave {type(native).__name__} (cfg {getattr(native, 'cfg', None)})")
+    graph_b = GraphBackend(model_b)
+    g_tokens, _ = stream(graph_b)  # captures the buckets
+    g_tokens, g_times = stream(graph_b)
+    stream(native)  # builds and plans the kernels at these shapes
+    dispatch.reset_counters()
+    tokens_b, times = stream(native)
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    total.update(launches)
+    expect = {"flash_attention": n_layers, "decode_attention:no_wo": n_layers * GRAPH_STEPS}
+    if launches != expect or plain:
+        raise AssertionError(f"(b) the lifted NativeBackend launched {launches} (expected {expect}), plain {plain}")
+    n = GRAPH_GATE_STEPS
+    g_logits, n_logits = forced(graph_b, tokens_b, n), forced(native, tokens_b, n)
+    with plain_decoder(decoder):
+        p_logits = forced(native, tokens_b, n)
+    at = stream_check("(b) lifted / GraphBackend", tokens_b, g_tokens, lambda i: forced(graph_b, g_tokens, i + 1)[i])
+    rel_graph, rel_plain = rel_rms(n_logits, g_logits), rel_rms(n_logits, p_logits)
+    if not (rel_graph <= GRAPH_GATE and rel_plain <= GRAPH_GATE):
+        raise AssertionError(f"(b) lifted logits: relative RMS {rel_graph:.3g} from the graph's, {rel_plain:.3g} "
+                             f"from the plain versions' (gate {GRAPH_GATE})")
+    step_ms = statistics.median(times[1:])
+    tok = np.asarray([[tokens_b[-1]]], np.int32)
+    by_kernel, calls = profile_by_kernel(torch, lambda: native.decode(tok, greedy=True), 20)
+    device_ms = sum(by_kernel.values()) / 1e3
+    # generate_scan captured on the lifted params: the eager stream's tokens.
+    params, cfg = native.params, native.cfg
+    cache = decoder.init_cache(cfg, 1, 1024, device="cuda")
+    ids = torch.from_numpy(prompt[None]).cuda()
+
+    def scan():
+        """The prompt, then generate_scan's steps, into ``cache`` from empty."""
+        cache["len"].zero_()
+        cache["host_len"][:] = 0
+        first_tok, _ = decoder.prefill(params, cfg, ids, cache, lm_head_mode="argmax", last_only=True)
+        dispatch.reset_counters()
+        steps, _ = decoder.generate_scan(params, cfg, cache, first_tok, n_steps=GRAPH_STEPS)
+        return [int(first_tok[0, 0])] + steps[0].tolist()
+
+    scan_tokens, capture_s = timed(scan)
+    scan_launches = dict(dispatch.LAUNCHES)
+    total.update(scan_launches)
+    replay_tokens, replay_s = timed(scan)  # the same cache: the captured graph replayed
+    total.update(dispatch.LAUNCHES)
+    if scan_tokens != tokens_b or replay_tokens != tokens_b or scan_launches != {
+            "decode_attention:no_wo": n_layers * GRAPH_STEPS}:
+        raise AssertionError(f"(b) generate_scan: capture / replay equal the eager stream: {scan_tokens == tokens_b}"
+                             f" / {replay_tokens == tokens_b}; launches {scan_launches}")
+    res["b"] = dict(file_bytes=len(data), save_s=save_s, load_file_s=load_s, lift_s=lift_s, ttft_ms=times[0],
+                    host_ms_step=step_ms, device_ms_step=device_ms, idle_share=max(0.0, 1 - device_ms / step_ms),
+                    graph_host_ms_step=statistics.median(g_times[1:]), graph_ttft_ms=g_times[0],
+                    rel_rms_graph=rel_graph, rel_rms_plain=rel_plain, first_difference=at, launches=launches,
+                    device_us_by_kernel=by_kernel, device_calls_a_step=calls, scan_capture_s=capture_s,
+                    scan_host_ms_step=replay_s * 1e3 / GRAPH_STEPS)
+    log(f"  (b) f32 file {len(data) / 1e6:.1f} MB: save {save_s:.2f} s, load_file {load_s:.2f} s, lift "
+        f"{lift_s:.2f} s; NativeBackend (dense f32): time to first token {times[0]:.2f} ms, host {step_ms:.4f} ms a "
+        f"step, device {device_ms:.4f} ms (profiler, 20 steps), idle share {res['b']['idle_share']:.3f}; "
+        f"GraphBackend on the same file {res['b']['graph_host_ms_step']:.4f} ms a step; relative RMS "
+        f"{rel_graph:.3g} from the graph, {rel_plain:.3g} from the plain versions; first token difference {at}; "
+        f"generate_scan captured {GRAPH_STEPS} steps ({capture_s:.2f} s with the capture, replay "
+        f"{res['b']['scan_host_ms_step']:.4f} ms a step) = eager; {launches}")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us:9.3f} us  x{calls.get(name, 0):.0f}  {name[:90]}")
+    del native, graph_b, model_b, params, cache, data
+    torch.cuda.empty_cache()
+
+    # (c) ONNX → convert --quantize, and (d) the CLI, as subprocesses side by side.
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    onnx_path, rten_path = tmp / "mlp.onnx", tmp / "mlp.rten"
+    onnx_path.write_bytes(mlp_onnx(0))
+    commands = {"convert": ["-m", "rten_tpu_torch.convert", str(onnx_path), str(rten_path), "--quantize"],
+                "cli": ["-m", "rten_tpu_torch.cli", str(path_a), "-n", "3"],
+                "cli interpret": ["-m", "rten_tpu_torch.cli", str(path_a), "--mode", "interpret", "-t", "--mmap"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, *c], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True) for k, c in commands.items()}
+    outputs = {}
+    for k, proc in procs.items():
+        try:
+            outputs[k] = proc.communicate(timeout=300)[0]
+        finally:
+            proc.kill()
+        res[k] = dict(rc=proc.returncode, tail=outputs[k][-600:])
+    cli_s = time.perf_counter() - t0
+    bad = {k: res[k]["rc"] for k in procs if res[k]["rc"] != 0}
+    if bad:
+        raise AssertionError(f"(c)/(d) subprocesses failed: {bad}; {[res[k]['tail'] for k in bad]}")
+    mlp = Model.load_file(rten_path, device="cuda")
+    mlp_cpu = Model.load_file(rten_path, device="cpu")
+    ops = collections.Counter(op.op_type for _, op in mlp.graph.operator_nodes())
+    if ops["QuantMatMul"] != 2:
+        raise AssertionError(f"(c) the converted MLP holds {dict(ops)}, expected 2 QuantMatMul")
+    errs = {}
+    for m, kernel in ((GRAPH_PROMPT, "quant_matmul_int8"), (1, "quant_gemv_int8")):
+        x = np.random.default_rng(m).standard_normal((m, 768)).astype(np.float32)
+        mlp.run([x])  # the capture
+        dispatch.reset_counters()
+        got = mlp.run([x])[0]
+        launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        total.update(launches)
+        want = mlp_cpu.run([x])[0]
+        errs[m] = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+        if launches != {kernel: 2} or plain or not errs[m] <= 1e-4:
+            raise AssertionError(f"(c) M={m}: launches {launches} (expected {kernel} twice), plain {plain}, "
+                                 f"relative error {errs[m]:.3g} from the plain versions")
+    res["c"] = dict(ops=dict(ops), rel_err=errs, file_bytes=rten_path.stat().st_size)
+    log(f"  (c) convert --quantize: {rten_path.stat().st_size / 1e6:.2f} MB, {dict(ops)}; against the plain versions "
+        f"{errs[GRAPH_PROMPT]:.3g} at M {GRAPH_PROMPT} (quant_matmul_int8), {errs[1]:.3g} at M 1 (quant_gemv_int8)")
+    log(f"  (d) cli -n 3 and --mode interpret -t --mmap exit 0 ({cli_s:.1f} s with (c)'s convert): "
+        f"{outputs['cli'].strip().splitlines()[-1]}")
+    del mlp, mlp_cpu
+
+    # (e) Whisper-tiny lifted from a graph of constants.
+    wg = Graph()
+    for name, arr in whisper_tiny_state(0).items():
+        wg.add_constant(name, arr)
+    make = backend_for_model(wg, n_heads=WHISPER["n_heads"], device="cuda")
+    if not isinstance(make, EncDecBackendFactory):
+        raise AssertionError(f"(e) backend_for_model gave {type(make).__name__}")
+    mel = torch.randn(1, 80, 2 * WHISPER_AUDIO, generator=torch.Generator().manual_seed(11))
+    dispatch.reset_counters()
+    backend = make(mel)
+    steps = iter(Generator(backend, GeneratorConfig(max_tokens=WHISPER_FILE_STEPS + 1)).with_prompt(
+        list(WHISPER_PROMPT)))
+    tokens_e = [int(t[0]) for t in steps]
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    total.update(launches)
+    n_text = make.cfg.n_text_layers
+    expect = {"flash_attention": make.cfg.n_audio_layers + 2 * n_text + n_text * WHISPER_FILE_STEPS,
+              "decode_attention:no_wo": n_text * WHISPER_FILE_STEPS}
+    if launches != expect or plain:
+        raise AssertionError(f"(e) EncDecBackend (dense f32) launched {launches} (expected {expect}), plain {plain}")
+    forced = list(WHISPER_PROMPT) + tokens_e[:-1]
+
+    def whisper_logits():
+        be = EncDecBackend(make.params, make.cfg, mel, device="cuda")
+        rows = [be.prefill(np.asarray([list(WHISPER_PROMPT)], np.int32)).cpu()]
+        rows += [be.decode(np.asarray([[t]], np.int32)).cpu() for t in forced[len(WHISPER_PROMPT):]]
+        return be.enc_states.float().cpu(), torch.cat(rows)
+
+    enc_k, logits_k = whisper_logits()
+    with plain_encdec(ed):
+        enc_p, logits_p = whisper_logits()
+    rel_enc, rel_logits = rel_rms(enc_k, enc_p), rel_rms(logits_k, logits_p)
+    at = stream_check("(e) whisper kernels / plain", [int(r.argmax()) for r in logits_k],
+                      [int(r.argmax()) for r in logits_p], lambda i: logits_p[i])
+    if not (rel_enc <= GRAPH_GATE and rel_logits <= GRAPH_GATE) or tokens_e != [int(r.argmax()) for r in logits_k]:
+        raise AssertionError(f"(e) relative RMS encoder {rel_enc:.3g}, logits {rel_logits:.3g} (gate {GRAPH_GATE}); "
+                             "or the stream is not the argmax of its own logits")
+    res["e"] = dict(launches=launches, rel_rms_encoder=rel_enc, rel_rms_logits=rel_logits, first_difference=at,
+                    tokens=tokens_e)
+    log(f"  (e) Whisper-tiny lifted (dense f32): EncDecBackendFactory; {WHISPER_FILE_STEPS} greedy steps; "
+        f"against the plain versions: encoder {rel_enc:.3g}, logits {rel_logits:.3g} (gate {GRAPH_GATE}); {launches}")
+    del make, backend, wg
+    tmp_dir.cleanup()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    out["files"] = res
+    log(f"  ({res['seconds']:.1f} s)")
+    return dict(total)
+
+
+def files_only(torch, bound, detail, kind, smi, label: str) -> int:
+    """``--files LABEL``: the lifted path's kernel modes (check_file_kernels)
+    and phase 14 (drive_files), written to chiprun_out/files_LABEL.json; its
+    last line is marked partial."""
+    randn, pack, _norm_vecs, _bf16_err, record, cases = check_tools(torch)
+    log("[3/4] the lifted path's kernel modes (f32) against their plain versions")
+    check_file_kernels(torch, bound, randn, record)
+    one_launch_a_call(cases)
+    detail["cases"] = cases
+    log("[4/4] model files: .rten, ONNX convert, the CLI, lifting")
+    launches = drive_files(torch, detail)
+    (OUT_DIR / f"files_{label}.json").write_text(json.dumps(detail, indent=1))
+    print(smi)
+    print(json.dumps({"partial": "files", "kind": kind, "label": label, "launches": launches,
+                      "seconds": detail["files"]["seconds"]}))
     return 0
 
 
@@ -4194,6 +4679,8 @@ def main() -> int:
                         help="the encoders' kernel modes and phase 12 alone (encoders_only)")
     parser.add_argument("--graph", metavar="LABEL",
                         help="QuantMatMul's kernel calls and phase 13 alone (graph_only)")
+    parser.add_argument("--files", metavar="LABEL",
+                        help="the lifted path's kernel modes and phase 14 alone (files_only)")
     parser.add_argument("--package", metavar="DIR",
                         help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
@@ -4215,7 +4702,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/14] device")
+    log("[1/15] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -4228,7 +4715,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/14] build")
+    log("[2/15] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -4253,7 +4740,9 @@ def main() -> int:
         return encoders_only(torch, bound, detail, kind, smi, opts.encoders)
     if opts.graph:
         return graph_only(torch, bound, detail, kind, smi, opts.graph)
-    log("[3/14] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    if opts.files:
+        return files_only(torch, bound, detail, kind, smi, opts.files)
+    log("[3/15] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -4262,43 +4751,43 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/14] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/15] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/14] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/15] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/14] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/15] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/14] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/15] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/14] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log("[8/15] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/14] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[9/15] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[10/14] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+    log("[10/15] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[11/14] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
+    log("[11/15] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[12/14] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
+    log("[12/15] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
         "INT8, ResNet-50 fp32")
     phase12, f32_runs = drive_encoders(torch, detail)
     for name, n in phase12.items():
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] = f32_runs.get(name, 0)
-    log("[13/14] the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
+    log("[13/15] the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
         "one CUDA graph a bucket")
     for name, n in drive_graph(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
@@ -4311,7 +4800,13 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log("[14/14] summary")
+    log("[14/15] model files: .rten save / load / mmap, ONNX convert --quantize, the CLI, lifting onto the "
+        "dense-weight route (GPT-2-small, Whisper-tiny)")
+    for name, n in drive_files(torch, detail).items():
+        launches[name] = launches.get(name, 0) + n
+        if name in ("quant_matmul_int8", "flash_attention"):
+            launches[f"{name}:f32"] += n  # f32 activations: the SIMT route, the f32 flash kernel
+    log("[15/15] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

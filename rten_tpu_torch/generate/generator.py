@@ -6,7 +6,9 @@ Counterpart of ``rten_tpu/generate/generator.py`` (``GeneratorConfig``,
 ``profile``, EOS and ``max_tokens``. ``EncDecBackend`` drives the
 Whisper-class encoder-decoder (``models.encoder_decoder``) through the same
 iterator; ``GraphBackend`` drives a graph ``Model`` (``runtime.session``)
-that follows HF-Optimum naming. ``backend_for_model`` is not ported yet.
+that follows HF-Optimum naming. ``backend_for_model`` picks the backend for
+a loaded graph model: ``NativeBackend`` on the params ``models.lift`` lifts
+from it, an ``EncDecBackendFactory``, or ``GraphBackend``.
 
 A prompt, and every follow-up chunk of ``append_prompt``, goes into the
 cache as one ``decoder.prefill`` forward (the prefill kernels above 8 rows);
@@ -91,15 +93,17 @@ class NativeBackend:
 class EncDecBackendFactory:
     """Carries an encoder-decoder's params and cfg; called with an
     utterance's encoder input (audio features) it makes the
-    ``EncDecBackend`` for it (the JAX package's ``backend_for_model``
-    returns one for a lifted encoder-decoder graph)."""
+    ``EncDecBackend`` for it, on ``device`` (the factory's own unless the
+    call names one; ``backend_for_model`` returns one for a lifted
+    encoder-decoder graph)."""
 
-    def __init__(self, params, cfg):
+    def __init__(self, params, cfg, device="cuda"):
         self.params = params
         self.cfg = cfg
+        self.device = device
 
-    def __call__(self, encoder_input, max_len: int | None = None, device="cuda"):
-        return EncDecBackend(self.params, self.cfg, encoder_input, max_len=max_len, device=device)
+    def __call__(self, encoder_input, max_len: int | None = None, device=None):
+        return EncDecBackend(self.params, self.cfg, encoder_input, max_len=max_len, device=device or self.device)
 
 
 class EncDecBackend:
@@ -145,6 +149,29 @@ class EncDecBackend:
     def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
         """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``."""
         return self._step(tokens, greedy)
+
+
+def backend_for_model(model, n_heads: int | None = None, batch: int = 1, device="cuda"):
+    """The backend for a loaded graph model (the JAX package's
+    ``backend_for_model``, ``rten_tpu/generate/generator.py:660``): lift its
+    HF-named weights onto the native decoder (``models.lift.lift_decoder``:
+    a ``NativeBackend`` on the dense-weight route), else onto the
+    encoder-decoder (an ``EncDecBackendFactory``, to be called with each
+    utterance's audio features), else the generic ``GraphBackend``. Only a
+    ``LiftError`` (a graph that is not such a model) falls through; a
+    lifted model that the decoder cannot run raises."""
+    from rten_tpu_torch.models.lift import LiftError, lift_decoder, lift_encoder_decoder
+
+    try:
+        cfg, params = lift_decoder(model, n_heads=n_heads, device=device)
+        return NativeBackend(params, cfg, batch=batch, device=device)
+    except LiftError:
+        pass
+    try:
+        cfg, params = lift_encoder_decoder(model, n_heads=n_heads, device=device)
+        return EncDecBackendFactory(params, cfg, device=device)
+    except LiftError:
+        return GraphBackend(model)
 
 
 def _len_bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024)) -> int:

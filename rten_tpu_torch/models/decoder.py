@@ -76,6 +76,23 @@ them on ``quant_matmul_int8``); that includes its lm_head at ≤ 8 rows
 (``last_only``), which runs ``_norm`` and the prefill projection as the
 JAX package runs it on every row.
 
+**Dense weights** (no int8 pack in the tree: ``init_params``,
+``from_hf_*``, ``params_from_jax`` of a dense tree, ``models.lift``): the
+JAX package's TPU branch on dense ``[K, N]`` matrices, which its int8 kernel
+branches (GEMV, MLP, mega, W8A8, the fused wo) never take. Each projection
+is a plain matmul in IEEE f32 (``ieee.matmul``; the JAX package's
+``dispatch.matmul`` at HIGHEST precision, outside any Pallas kernel) after
+the plain norm, its bias and activation added outside, in the model dtype:
+``wq``, ``wk`` and ``wv`` apart, ``wo`` and the MLP's down plus the
+residual, SwiGLU's ``w_gate`` and ``w_up``. One token a row on a bf16/f32
+cache is ``decode_attention`` without its wo, a prompt causal
+``flash_attention``; the int8 and paged caches take their KV kernels as
+above. The head is ``x @ lm_head`` where the params hold an ``lm_head``,
+else the tied ``x @ tok_emb``ᵀ, then the argmax. ``mega``, ``w8a8`` and
+``fuse`` change nothing on this route, and ``d_model`` need not be a
+multiple of 128: on the card the kernels' head dims (64, 128) are the limit.
+A tree that mixes packs and dense projections is refused.
+
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
 already quantized tree) gives the decode layout: int8 packs
@@ -104,7 +121,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
-from rten_tpu_torch.kernels.attention import flash_attention
+from rten_tpu_torch.kernels.activations import ACTIVATIONS
+from rten_tpu_torch.kernels.attention import HEAD_DIMS, flash_attention
 from rten_tpu_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_int8,
@@ -125,6 +143,7 @@ from rten_tpu_torch.kernels.quant_matmul import (
     quant_mlp_int8,
     quantize_weights_int8,
 )
+from rten_tpu_torch.models import ieee
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,10 +208,12 @@ def mlp_fused_supported(d: int, ff: int, n_qkv: int = 0) -> bool:
     return d * ff * 2 + d * n_qkv <= _MLP_FUSED_BYTES
 
 
-def _check_supported(cfg: DecoderConfig) -> None:
+def _check_supported(cfg: DecoderConfig, dense: bool = False, device=None) -> None:
     """The ported path: GPT-2, OPT and Llama/Qwen2-class blocks with a
-    kernel epilogue activation or SwiGLU, d_model a multiple of 128 (the K
-    of every projection but the down one), whole groups of query heads."""
+    kernel epilogue activation or SwiGLU, whole groups of query heads; with
+    int8 packs d_model a multiple of 128 (the K of every projection but the
+    down one), with dense weights on the card a head dim the attention
+    kernels are built for (``HEAD_DIMS``)."""
     problems = []
     if cfg.activation not in ("gelu", "relu", "silu", "swiglu"):
         problems.append(f"activation={cfg.activation!r}")
@@ -200,8 +221,10 @@ def _check_supported(cfg: DecoderConfig) -> None:
         problems.append(f"norm={cfg.norm!r}")
     if cfg.pos_encoding not in ("learned", "rope"):
         problems.append(f"pos_encoding={cfg.pos_encoding!r}")
-    if cfg.d_model % 128:
+    if cfg.d_model % 128 and not dense:
         problems.append("d_model not a multiple of 128")
+    if dense and device is not None and torch.device(device).type == "cuda" and cfg.head_dim not in HEAD_DIMS:
+        problems.append(f"head dim {cfg.head_dim} not in {HEAD_DIMS}")
     if cfg.n_heads % cfg.kv_heads:
         problems.append(f"n_heads {cfg.n_heads} not a multiple of n_kv_heads {cfg.kv_heads}")
     if problems:
@@ -222,7 +245,7 @@ def init_params(seed: int, cfg: DecoderConfig, device="cuda") -> dict:
     ``w_down`` without biases for SwiGLU (and then no attention biases),
     ``wk`` / ``wv`` of width ``kv_heads·head_dim``."""
     dev = resolve_device(device)
-    _check_supported(cfg)
+    _check_supported(cfg, dense=True)
     rng = np.random.default_rng(seed)
 
     def dense(shape):
@@ -606,6 +629,67 @@ def _pack(layer, key):
     return pack
 
 
+def _is_dense(params: dict) -> bool:
+    """Whether ``params`` is a dense tree: no int8 pack in a layer or in the
+    head (a tree with any pack takes the int8 route, which refuses a dense
+    projection)."""
+    if "lm_head_q" in params or _is_pack(params.get("lm_head")):
+        return False
+    return not any(_is_pack(v) for layer in params["layers"] for v in layer.values())
+
+
+def _dense_proj(x, w, bias=None, activation=None):
+    """``x @ w (+ bias)`` for a dense ``[K, N]`` matrix, the JAX package's
+    ``_proj`` on a dense weight (``decoder.py:546-550``): the product in
+    IEEE f32 (``ieee.matmul``), in the model dtype, then the bias, then the
+    activation in f32 rounded to the model dtype (GELU the exact erf one)."""
+    out = ieee.matmul(x, w)
+    if bias is not None:
+        out = out + bias
+    if activation is None:
+        return out
+    if activation == "gelu":
+        return F.gelu(out.float()).to(x.dtype)
+    return ACTIVATIONS[activation](out.float()).to(x.dtype)
+
+
+def _dense_qkv(layer: dict, cfg: DecoderConfig, x, b: int, t: int, rope):
+    """q [B, T, H, D], k and v [B, T, Hk, D] of the rows x through ln1 and
+    the separate dense ``wq``, ``wk``, ``wv`` (and their biases), RoPE'd
+    with ``rope``'s tables where given."""
+    xn = _norm(x, layer["ln1"], cfg)
+    q, k, v = (_dense_proj(xn, layer[w], layer.get(bias)).view(b, t, n, cfg.head_dim)
+               for w, bias, n in (("wq", "bq", cfg.n_heads), ("wk", "bk", cfg.kv_heads),
+                                  ("wv", "bv", cfg.kv_heads)))
+    if rope is not None:
+        q, k = _rope(q, rope), _rope(k, rope)
+    return q, k, v
+
+
+def _dense_mlp(layer: dict, cfg: DecoderConfig, x):
+    """The MLP half of a layer on dense weights: ln2, up (its bias and
+    activation) or SwiGLU's ``silu(gate) · up``, down, its bias, the
+    residual."""
+    xn = _norm(x, layer["ln2"], cfg)
+    if cfg.activation == "swiglu":
+        gate, up = _dense_proj(xn, layer["w_gate"]), _dense_proj(xn, layer["w_up"])
+        hidden = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        hidden = _dense_proj(xn, layer["w_up"], layer.get("b_up"), cfg.activation)
+    return x + _dense_proj(hidden, layer["w_down"], layer.get("b_down"))
+
+
+def _dense_lm_head(params: dict, cfg: DecoderConfig, x, mode: str):
+    """The final norm, then ``x @ lm_head`` (the params' untied head) or the
+    tied ``x @ tok_emb``ᵀ in the model dtype (``decoder.py:1123-1125``), as
+    f32 logits [M, vocab] or (``mode="argmax"``) the greedy tokens int32
+    [M] (the lowest index among equal maxima, as ``jnp.argmax``)."""
+    xn = _norm(x, params["final_norm"], cfg)
+    head = params["lm_head"] if "lm_head" in params else params["tok_emb"].t()
+    logits = ieee.matmul(xn, head)[:, : cfg.vocab_size].float()
+    return logits.argmax(-1).to(torch.int32) if mode == "argmax" else logits
+
+
 def _norm(x, p, cfg: DecoderConfig):
     """Row norm of the prefill structure, the counterpart of the JAX
     package's ``_norm`` (``decoder.py:491``): statistics and normalization
@@ -853,12 +937,14 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     prompt so, as the JAX engines' bucketed admission (≥ 32 rows) does. One
     token a row on a bf16/f32 cache then takes ``decode_attention`` without
     its fused wo, as it does at more than 8 rows."""
-    _check_supported(cfg)
+    dense = _is_dense(params)
+    _check_supported(cfg, dense, tokens.device)
     if lm_head_mode not in ("logits", "argmax"):
         raise ValueError(f"lm_head_mode must be 'logits' or 'argmax', got {lm_head_mode!r}")
     b, t = tokens.shape
     rows = b * t
-    small = fuse and rows <= MAX_ROWS  # the fused decode structure (JAX decoder.py:614-625)
+    # The fused decode structure (JAX decoder.py:614-625); dense weights never take it.
+    small = fuse and rows <= MAX_ROWS and not dense
     paged = cache is not None and "k_pages" in cache
     one_token = t == 1 and cache is not None
     # One token a row takes a KV kernel at any B (JAX decoder.py:740-812):
@@ -889,14 +975,17 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     layers = params["layers"]
     qkv = None  # this layer's qkv when the previous layer's MLP kernel computed it
     for li, layer in enumerate(layers):
-        if qkv is None:
+        if dense:
+            q, k, v = _dense_qkv(layer, cfg, x, b, t, rope)
+        elif qkv is None:
             wqkv = _pack(layer, "wqkv")
             if small:
                 qkv = _gemv_norm(cfg, x, wqkv, layer.get("bqkv"), layer["ln1"])
             else:
                 qkv = _proj(cfg, _norm(x, layer["ln1"], cfg), wqkv, layer.get("bqkv"))
-        q, k, v = _split_heads(qkv, cfg, b, t, rope)
-        wo = _pack(layer, "wo")
+        if not dense:
+            q, k, v = _split_heads(qkv, cfg, b, t, rope)
+            wo = _pack(layer, "wo")
         if mega:  # the whole layer, and the next layer's qkv, in one kernel
             block = _mega_layer(params, cfg, li, cache)
             if block is not None:
@@ -919,11 +1008,20 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
                 attn = _kv_decode_attention(ops, cache, li)
             else:
                 attn = _attention(q, k, v, cache, li, q_offset, kv_len)
-            x = _residual_proj(cfg, attn, wo, layer.get("bo"), x, small)
-        x, qkv = _mlp(params, cfg, li, x, small)
+            if dense:
+                x = x + _dense_proj(attn, layer["wo"], layer.get("bo"))
+            else:
+                x = _residual_proj(cfg, attn, wo, layer.get("bo"), x, small)
+        if dense:
+            x = _dense_mlp(layer, cfg, x)
+        else:
+            x, qkv = _mlp(params, cfg, li, x, small)
 
-    head_in = x.view(b, t, cfg.d_model)[:, -1] if last_only and t > 1 else x
-    result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode, small)
+    head_in = (x.view(b, t, cfg.d_model)[:, -1] if last_only and t > 1 else x).contiguous()
+    if dense:
+        result = _dense_lm_head(params, cfg, head_in, lm_head_mode)
+    else:
+        result = _lm_head(params, cfg, head_in, lm_head_mode, small)
     result = result.reshape(b, 1 if last_only else t, *result.shape[1:])
     if cache is not None:
         cache["len"].add_(t)

@@ -37,6 +37,18 @@ encoder-decoder transcription with INT8 weights + INT8 KV-cache"):
   k/v into the cache and attends causally with ``flash_attention`` at its
   ``q_offset`` / ``kv_len`` (``decoder._attention``).
 
+**Dense weights** (a tree with no int8 pack: ``init_params``,
+``from_hf_whisper``, ``params_from_jax`` of a dense tree, ``models.lift``)
+take the JAX package's ``_mm`` on a dense matrix (``encoder_decoder.py:
+141-163``) with the attention its TPU branch picks: every projection a
+plain matmul in IEEE f32 (``ieee.matmul``, the JAX ``dispatch.matmul`` at
+HIGHEST precision) plus its bias (and GELU) in the model dtype, with the
+unfused structure at every row count: ``decode_attention`` without its wo
+for one token a row (``decode_attention_int8`` on an int8 cache), causal
+``flash_attention`` for a prompt, non-causal ``flash_attention`` for the
+encoder and the cross attention, and the tied head ``x @ tok_emb``ᵀ after
+``dec_ln``. A tree that mixes packs and dense projections is refused.
+
 Parameters are plain dicts of tensors under the JAX package's names.
 ``quantize_params_int8`` (or ``params_from_jax`` of a quantized tree) makes
 the decode layout by the JAX package's rules: int8 packs
@@ -269,14 +281,36 @@ def _pack(node: dict, key: str) -> dict:
     pack = node.get(key)
     if not (isinstance(pack, dict) and "qt" in pack):
         raise ValueError(f"{key} is not an int8 pack: the encoder-decoder needs quantize_params_int8 (or "
-                         "params_from_jax of quantized params), with every projection ≥ 2^16 elements")
+                         "params_from_jax of quantized params), with every projection ≥ 2^16 elements, "
+                         "or dense weights throughout")
     return pack
 
 
-def _proj(x, pack: dict, bias=None, **kw):
-    """``x @ W + bias`` (bias in f32 in the epilogue) through
-    ``quant_matmul_int8``, which hands 8 rows or fewer to the GEMV."""
-    return quant_matmul_int8(x, pack["qt"], pack["s"], bias, **kw)
+def _is_dense(params: dict) -> bool:
+    """Whether no projection of ``params`` is an int8 pack (the dense route)."""
+    def packs(node):
+        if isinstance(node, dict):
+            return "qt" in node or any(packs(v) for v in node.values())
+        if isinstance(node, list):
+            return any(packs(v) for v in node)
+        return False
+
+    return not packs(params)
+
+
+def _weight(node: dict, key: str, dense: bool):
+    """A projection's weight: the dense matrix on the dense route, else its
+    int8 pack (``_pack``, which refuses a dense one)."""
+    return node[key] if dense else _pack(node, key)
+
+
+def _proj(x, w, bias=None, activation=None, **kw):
+    """``x @ W + bias`` (+ ``activation``): an int8 pack through
+    ``quant_matmul_int8`` (bias in f32 in the epilogue; 8 rows or fewer go
+    to the GEMV), a dense matrix through ``decoder._dense_proj``."""
+    if isinstance(w, dict):
+        return quant_matmul_int8(x, w["qt"], w["s"], bias, activation=activation, **kw)
+    return decoder._dense_proj(x, w, bias, activation)
 
 
 def _heads(x, b: int, t: int, h: int):
@@ -321,15 +355,17 @@ def encode(params: dict, cfg: EncDecConfig, mel) -> torch.Tensor:
     pos = torch.from_numpy(_sinusoids(t, d)).to(x.device, cfg.dtype)
     x = (x.transpose(1, 2) + pos[None]).reshape(b * t, d)
     h = cfg.n_heads
+    dense = _is_dense(params)
     for layer in params["enc_layers"]:
         a, m = layer["attn"], layer["mlp"]
         xn = decoder._norm(x, layer["ln1"], cfg)
-        q = _heads(_proj(xn, _pack(a, "wq"), a["bq"]), b, t, h)
-        k = _heads(_proj(xn, _pack(a, "wk")), b, t, h)
-        v = _heads(_proj(xn, _pack(a, "wv"), a["bv"]), b, t, h)
-        x = x + _proj(_unheads(flash_attention(q, k, v, causal=False)), _pack(a, "wo"), a["bo"])
-        hidden = _proj(decoder._norm(x, layer["ln2"], cfg), _pack(m, "w_up"), m["b_up"], activation="gelu")
-        x = x + _proj(hidden, _pack(m, "w_down"), m["b_down"])
+        q = _heads(_proj(xn, _weight(a, "wq", dense), a["bq"]), b, t, h)
+        k = _heads(_proj(xn, _weight(a, "wk", dense)), b, t, h)
+        v = _heads(_proj(xn, _weight(a, "wv", dense), a["bv"]), b, t, h)
+        x = x + _proj(_unheads(flash_attention(q, k, v, causal=False)), _weight(a, "wo", dense), a["bo"])
+        hidden = _proj(decoder._norm(x, layer["ln2"], cfg), _weight(m, "w_up", dense), m["b_up"],
+                       activation="gelu")
+        x = x + _proj(hidden, _weight(m, "w_down", dense), m["b_down"])
     return decoder._norm(x, params["enc_ln_post"], cfg).view(b, t, d)
 
 
@@ -349,10 +385,11 @@ def init_decoder_state(params: dict, cfg: EncDecConfig, enc_states, max_len: int
     b, s, d = enc_states.shape
     e2 = enc_states.reshape(b * s, d)
     state = {"cross_k": [], "cross_v": []}
+    dense = _is_dense(params)
     for layer in params["dec_layers"]:
         c = layer["cross_attn"]
-        state["cross_k"].append(_heads(_proj(e2, _pack(c, "wk")), b, s, cfg.n_heads))
-        state["cross_v"].append(_heads(_proj(e2, _pack(c, "wv"), c["bv"]), b, s, cfg.n_heads))
+        state["cross_k"].append(_heads(_proj(e2, _weight(c, "wk", dense)), b, s, cfg.n_heads))
+        state["cross_v"].append(_heads(_proj(e2, _weight(c, "wv", dense), c["bv"]), b, s, cfg.n_heads))
     cache_cfg = decoder.DecoderConfig(vocab_size=cfg.vocab_size, n_layers=cfg.n_text_layers, n_heads=cfg.n_heads,
                                       d_model=cfg.d_model, d_ff=cfg.d_ff, max_seq=cfg.max_text_ctx,
                                       int8_kv=cfg.int8_kv, dtype=cfg.dtype)
@@ -383,12 +420,15 @@ def _gemv_ln(x, pack, bias, ln, eps, **kw):
                            norm_bias=ln["bias"], norm_eps=eps, **kw)
 
 
-def _lm_head(params: dict, cfg: EncDecConfig, x, mode: str):
+def _lm_head(params: dict, cfg: EncDecConfig, x, mode: str, dense: bool = False):
     """``dec_ln`` + the tied int8 ``lm_head_q`` of the rows x [M, d]: f32
     logits [M, vocab] or (``mode="argmax"``) the greedy tokens int32 [M].
     Up to 8 rows through ``quant_gemv_int8`` with the norm fused (its argmax
     over the first ``vocab_size`` columns), more through the norm and
-    ``quant_matmul_int8``."""
+    ``quant_matmul_int8``. On the dense route, the norm and ``x @
+    tok_emb``ᵀ in IEEE f32 (``decoder._dense_lm_head``)."""
+    if dense:
+        return decoder._dense_lm_head({"final_norm": params["dec_ln"], "tok_emb": params["tok_emb"]}, cfg, x, mode)
     head, ln = _pack(params, "lm_head_q"), params["dec_ln"]
     if x.shape[0] <= MAX_ROWS:
         if mode == "argmax":
@@ -419,7 +459,8 @@ def decode(params: dict, cfg: EncDecConfig, tokens, state: dict, *, lm_head_mode
     positions = start[:, None] + torch.arange(t, device=start.device)
     x = params["tok_emb"].index_select(0, tokens.reshape(-1)) + params["pos_emb"].index_select(
         0, positions.reshape(-1))
-    fused = fuse and _fused_ok(params, cfg, b, t)
+    dense = _is_dense(params)
+    fused = fuse and not dense and _fused_ok(params, cfg, b, t)
     int8 = "k_scale" in state
     for li, layer in enumerate(params["dec_layers"]):
         a, c, m = layer["self_attn"], layer["cross_attn"], layer["mlp"]
@@ -431,8 +472,8 @@ def decode(params: dict, cfg: EncDecConfig, tokens, state: dict, *, lm_head_mode
             if "wqkv" in a:
                 qkv = _proj(xn, a["wqkv"], a.get("bqkv"))
             else:
-                qkv = torch.cat([_proj(xn, _pack(a, "wq"), a["bq"]), _proj(xn, _pack(a, "wk")),
-                                 _proj(xn, _pack(a, "wv"), a["bv"])], 1)
+                qkv = torch.cat([_proj(xn, _weight(a, "wq", dense), a["bq"]), _proj(xn, _weight(a, "wk", dense)),
+                                 _proj(xn, _weight(a, "wv", dense), a["bv"])], 1)
         qkv = qkv.view(b, t, 3, h, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, T, H, D]
         if t == 1:
@@ -444,13 +485,13 @@ def decode(params: dict, cfg: EncDecConfig, tokens, state: dict, *, lm_head_mode
                 attn = decode_attention(ops, state["k"][li], state["v"][li], start)
         else:
             attn = decoder._attention(q, k, v, state, li, start, start + t)
-        wo = _pack(a, "wo")
+        wo = _weight(a, "wo", dense)
         if fused:
             x = quant_gemv_int8(attn, wo["qt"], wo["s"], a["bo"], residual=x)
         else:
             x = x + _proj(attn, wo, a["bo"])
         # Cross attention over the precomputed encoder K/V.
-        wq_x, wo_x = _pack(c, "wq"), _pack(c, "wo")
+        wq_x, wo_x = _weight(c, "wq", dense), _weight(c, "wo", dense)
         if fused:
             qx = _gemv_ln(x, wq_x, c["bq"], layer["ln_x"], eps)
         else:
@@ -462,7 +503,7 @@ def decode(params: dict, cfg: EncDecConfig, tokens, state: dict, *, lm_head_mode
         else:
             x = x + _proj(attn_x, wo_x, c["bo"])
         # MLP.
-        up, down = _pack(m, "w_up"), _pack(m, "w_down")
+        up, down = _weight(m, "w_up", dense), _weight(m, "w_down", dense)
         if fused:
             x = quant_mlp_int8(x, up["qt"], up["s"], down["qt"], down["s"], m["b_up"], m["b_down"],
                                activation="gelu", norm="layernorm", norm_scale=layer["ln2"]["scale"],
@@ -472,7 +513,7 @@ def decode(params: dict, cfg: EncDecConfig, tokens, state: dict, *, lm_head_mode
             x = x + _proj(hidden, down, m["b_down"])
 
     head_in = x.view(b, t, d)[:, -1] if last_only and t > 1 else x
-    result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode)
+    result = _lm_head(params, cfg, head_in.contiguous(), lm_head_mode, dense)
     result = result.reshape(b, 1 if last_only else t, *result.shape[1:])
     state["len"].add_(t)
     state["host_len"] += t

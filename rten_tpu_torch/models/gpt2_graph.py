@@ -1,15 +1,17 @@
 """A GPT-2 decoder as a graph of primitive ops, with seeded weights.
 
-``build_gpt2_graph(graph_cls, cfg, seed)`` writes the graph an opset-14
-HF-Optimum export of GPT-2 with past key / values holds, from numpy alone,
-into ``graph_cls()`` (the port's ``Graph``, or any class with its API):
+``build_gpt2_graph(graph_cls, cfg, seed, tied=False)`` writes the graph an
+opset-14 HF-Optimum export of GPT-2 with past key / values holds, from numpy
+alone, into ``graph_cls()`` (the port's ``Graph``, or any class with its
+API):
 
 - inputs ``input_ids``, ``attention_mask``, ``position_ids`` and
   ``past_key_values.N.key|value`` [B, H, past, D / H]; outputs ``logits``
   and ``present.N.key|value``;
 - HF initializer names (``transformer.h.N.attn.c_attn.weight``, ...), the
   Conv1D weights as [in, out] matrices, an untied ``lm_head.weight``
-  [d_model, vocab];
+  [d_model, vocab] (with ``tied``, a copy of ``wte``ᵀ, as a tied HF export
+  holds; every other weight is the same);
 - LayerNorm as the ReduceMean / Sub / Pow / Sqrt / Div pattern, GELU as the
   Erf pattern (both of which the optimizer fuses), the head split and merge
   as Reshape / Transpose with shape math, attention as MatMul / Softmax with
@@ -48,8 +50,9 @@ INIT_STD = 0.02
 F32_MIN = np.float32(np.finfo(np.float32).min)
 
 
-def build_gpt2_graph(graph_cls, cfg: Gpt2GraphConfig = GPT2_SMALL, seed: int = 0):
-    """The GPT-2 decoder graph of ``cfg`` with weights from ``seed``."""
+def build_gpt2_graph(graph_cls, cfg: Gpt2GraphConfig = GPT2_SMALL, seed: int = 0, tied: bool = False):
+    """The GPT-2 decoder graph of ``cfg`` with weights from ``seed`` (its
+    head ``wte``ᵀ with ``tied``)."""
     rng = np.random.default_rng(seed)
     d, h = cfg.d_model, cfg.n_heads
     hd = d // h
@@ -108,7 +111,8 @@ def build_gpt2_graph(graph_cls, cfg: Gpt2GraphConfig = GPT2_SMALL, seed: int = 0
         return op("Add", [op("MatMul", [x, w], f"/{prefix}/MatMul"), b], f"/{prefix}/Add")
 
     # Embeddings and the extended attention mask, (1 - mask) · f32 min.
-    wte = const("transformer.wte.weight", normal(cfg.vocab_size, d, std=0.1))
+    wte_w = normal(cfg.vocab_size, d, std=0.1)
+    wte = const("transformer.wte.weight", wte_w)
     wpe = const("transformer.wpe.weight", normal(cfg.n_positions, d, std=0.1))
     x = op("Add", [op("Gather", [wte, ids], "/wte/Gather", {"axis": 0}),
                    op("Gather", [wpe, pos], "/wpe/Gather", {"axis": 0})], "/embed/Add")
@@ -168,7 +172,7 @@ def build_gpt2_graph(graph_cls, cfg: Gpt2GraphConfig = GPT2_SMALL, seed: int = 0
         x = op("Add", [x, down], f"/{p}/Add_1")
 
     final = layer_norm(x, "transformer.ln_f")
-    head = const("lm_head.weight", normal(d, cfg.vocab_size))
+    head = const("lm_head.weight", np.ascontiguousarray(wte_w.T) if tied else normal(d, cfg.vocab_size))
     logits = g.add_value("logits")
     g.add_operator("/lm_head/MatMul", "MatMul", {}, [final, head], [logits])
     g.outputs = [logits] + presents

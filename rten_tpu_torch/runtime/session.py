@@ -5,13 +5,14 @@
 mode (one ``executor.CompiledPlan`` a signature: on the card one captured
 CUDA graph, replayed). A ``Model`` lives on one device: ``"cuda"`` unless
 the caller asks for the CPU (``device="cpu"``, the plain versions of the
-kernels). Loading from a file (``Model.load*``) is not ported yet: build a
-``Model`` from a ``rten_tpu_torch.graph.Graph``.
+kernels). A ``Model`` is built from a ``rten_tpu_torch.graph.Graph`` or
+loaded from a `.rten` file (``Model.load``, ``load_file``, ``load_mmap``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -83,6 +84,39 @@ class Model:
         for i, node in enumerate(self.graph.nodes):
             if node.name:
                 self._ids.setdefault(node.name, i)
+
+    # ---- loading ----------------------------------------------------------
+
+    @classmethod
+    def load_file(cls, path: str | os.PathLike, options: ModelOptions | None = None, device="cuda") -> "Model":
+        """A `.rten` file read into memory (reference: src/model.rs:238)."""
+        with open(path, "rb") as f:
+            data = f.read()
+        return cls.load(data, options, device)
+
+    @classmethod
+    def load(cls, data: bytes, options: ModelOptions | None = None, device="cuda") -> "Model":
+        """`.rten` bytes (V1 or V2) as a Model on ``device``; the constants
+        are numpy views of ``data`` until they go to the device."""
+        from rten_tpu_torch.format.rten_io import load_rten
+
+        graph, metadata = load_rten(data)
+        return cls(graph, metadata, options, device)
+
+    @classmethod
+    def load_mmap(cls, path: str | os.PathLike, options: ModelOptions | None = None, device="cuda") -> "Model":
+        """Zero-copy load through a read-only mapping of the file
+        (reference: src/model.rs:255-295 load_mmap). The constants are
+        read-only numpy views of the mapping, which each view keeps open;
+        ``executor.ConstCache`` copies a constant before it becomes a tensor
+        (``registry.to_tensor``), so nothing writes through a view."""
+        import mmap
+
+        with open(path, "rb") as f:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        model = cls.load(mm, options, device)  # type: ignore[arg-type]
+        model._mapping = mm
+        return model
 
     def _validate_ops(self) -> None:
         from rten_tpu_torch.ops.registry import OpError, have_op

@@ -3040,3 +3040,146 @@ def test_graph_backend_on_card(dev):
     logits = GraphBackend(model).prefill(np.asarray([prompt], np.int32))
     ref = GraphBackend(cpu_model).prefill(np.asarray([prompt], np.int32))
     _close(logits.cpu(), ref, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Model files and the dense-weight route (the lifted decoders)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q_offset,tq", [(0, 64), (64, 8), (300, 1)])
+def test_lift_f32_causal_flash_matches_plain(dev, q_offset, tq):
+    """f32 causal flash_attention at GPT-2's attention (12 heads of 64) as
+    the dense route calls it: q a view of the [B, T, H, D] projection, k and
+    v views of the valid prefix of a 1024-position cache."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    h, d, s = 12, 64, 1024
+    q = (torch.randn(1, tq, h * d, generator=gen, device=dev) * 1.5).view(1, tq, h, d).transpose(1, 2)
+    k_cache = torch.randn(1, h, s, d, generator=gen, device=dev) * 1.5
+    v_cache = torch.randn(1, h, s, d, generator=gen, device=dev)
+    n = q_offset + tq
+    kw = dict(causal=True, q_offset=torch.tensor([q_offset], dtype=torch.int32, device=dev),
+              kv_len=torch.tensor([n], dtype=torch.int32, device=dev))
+    args = (q, k_cache[:, :, :n], v_cache[:, :, :n])
+    before = dispatch.LAUNCHES["flash_attention"]
+    out = flash_attention(*args, **kw)
+    assert dispatch.LAUNCHES["flash_attention"] == before + 1
+    _close_own_max(out, flash_attention_ref(*args, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("kv_len", [0, 64, 263, 1023])
+def test_lift_f32_no_wo_decode_matches_plain(dev, kv_len):
+    """f32 decode_attention without its wo over a 1024-position cache at
+    GPT-2's attention: the attention vector against the plain version, the
+    caches after the append bit for bit, one launch under its mode name."""
+    gen = torch.Generator(device=dev).manual_seed(kv_len)
+    h, d, s = 12, 64, 1024
+    ops = tuple(torch.randn(1, h, d, generator=gen, device=dev) * 1.5 for _ in range(3))
+    caches = [torch.randn(1, h, s, d, generator=gen, device=dev) for _ in range(2)]
+    lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    k_caches, p_caches = [c.clone() for c in caches], [c.clone() for c in caches]
+    before = dispatch.LAUNCHES["decode_attention:no_wo"]
+    out = decode_attention(ops, *k_caches, lens)
+    assert dispatch.LAUNCHES["decode_attention:no_wo"] == before + 1
+    _close_own_max(out, decode_attention_ref(ops, *p_caches, lens), torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(k_caches, p_caches))
+
+
+def _tiny_file(tied=False, quantize=True):
+    """The tiny GPT-2 graph (head dim 64) as `.rten` bytes: int8 with its
+    dead f32 constants swept, or f32."""
+    from rten_tpu_torch.format import save_rten
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.models.gpt2_graph import Gpt2GraphConfig, build_gpt2_graph
+    from rten_tpu_torch.optimize import passes
+    from rten_tpu_torch.optimize.quantize import quantize_graph_int8
+
+    cfg = Gpt2GraphConfig(vocab_size=500, n_positions=256, d_model=128, n_layers=2, n_heads=2, d_ff=512)
+    graph = build_gpt2_graph(Graph, cfg, seed=0, tied=tied)
+    if quantize:
+        graph = passes.sweep_dead_constants(quantize_graph_int8(graph)[0])
+    return save_rten(graph), cfg
+
+
+def test_load_mmap_and_load_file_on_card(dev, tmp_path):
+    """Both loaders put the file's model on the card: a compiled forward
+    equals the in-memory model's bit for bit and the CPU's within f32
+    tolerance; the mapped constants stay read-only and unchanged."""
+    import numpy as np
+
+    from rten_tpu_torch.format import load_rten
+    from rten_tpu_torch.runtime.session import Model
+
+    data, cfg = _tiny_file()
+    path = tmp_path / "tiny.rten"
+    path.write_bytes(data)
+    feed = _feed(9, cfg, past=4)
+    want = Model(load_rten(data)[0], device=dev).run(feed, ["logits"])[0]
+    mapped = Model.load_mmap(path, device=dev)
+    consts = [n.value for n in mapped.graph.nodes if getattr(n, "value", None) is not None and n.value.size > 1000]
+    before = [c.copy() for c in consts]
+    for model in (Model.load_file(path, device=dev), mapped):
+        for _ in range(2):  # the capture, then a replay
+            assert torch.equal(model.run(feed, ["logits"])[0], want)
+    assert all(not c.flags.writeable and np.array_equal(c, b) for c, b in zip(consts, before))
+    _close(want.cpu(), Model.load(data, device="cpu").run(feed, ["logits"])[0], torch.float32)
+
+
+def test_dense_route_generate_scan_captured(dev):
+    """The tiny f32 GPT-2 file lifted onto the dense-weight route on the
+    card: generate_scan captured equals its eager steps (one graph, the
+    same launches: decode_attention without wo a layer a step, no int8
+    kernel, no plain call) and the CPU's dense route token for token."""
+    import numpy as np
+
+    from rten_tpu_torch.generate import backend_for_model
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.runtime.session import Model
+
+    data, _ = _tiny_file(tied=True, quantize=False)
+    params = {dv: backend_for_model(Model.load(data, device=dv), n_heads=2, device=dv).params for dv in (dev, "cpu")}
+    cfg = backend_for_model(Model.load(data, device="cpu"), n_heads=2, device="cpu").cfg
+    prompt = np.arange(3, 20, dtype=np.int32)[None]
+
+    def run(device, eager=False):
+        p = params[device]
+        cache = decoder.init_cache(cfg, 1, 128, device=device)
+        first, cache = decoder.prefill(p, cfg, torch.from_numpy(prompt).to(device), cache, lm_head_mode="argmax",
+                                       last_only=True)
+        dispatch.reset_counters()
+        with _eager_scan(decoder) if eager else contextlib.nullcontext():
+            toks, cache = decoder.generate_scan(p, cfg, cache, first, n_steps=24)
+        return [int(first[0, 0])] + toks[0].tolist(), dict(dispatch.LAUNCHES), cache
+
+    got, launches, cache = run(dev)
+    assert len(decoder._GRAPHS[cache["len"]]) == 1
+    assert launches == {"decode_attention:no_wo": 24 * cfg.n_layers} and not dispatch.PLAIN
+    eager, eager_launches, _ = run(dev, eager=True)
+    assert got == eager and launches == eager_launches
+    assert run("cpu")[0] == got
+
+
+def test_dense_encoder_decoder_on_card(dev):
+    """The encoder-decoder on dense f32 weights (head dim 64) on the card
+    against the CPU's plain versions: encoder states and a prompt plus two
+    steps of logits within f32 tolerance; flash_attention and
+    decode_attention without wo, nothing else of the kernels."""
+    from rten_tpu_torch.models import encoder_decoder as ed
+
+    cfg = ed.EncDecConfig(n_mels=16, n_audio_ctx=32, vocab_size=500, d_model=256, n_heads=4, n_audio_layers=2,
+                          n_text_layers=2, d_ff=512, max_text_ctx=64, dtype=torch.float32)
+    params = {dv: ed.init_params(0, cfg, device=dv) for dv in (dev, "cpu")}
+    mel = torch.randn(1, 16, 64, generator=torch.Generator().manual_seed(3))
+    dispatch.reset_counters()
+    outs = {}
+    for dv in (dev, "cpu"):
+        enc = ed.encode(params[dv], cfg, mel.to(dv))
+        state = ed.init_decoder_state(params[dv], cfg, enc)
+        rows = [ed.decode(params[dv], cfg, torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dv), state)[0]]
+        for t in (7, 9):
+            rows.append(ed.decode(params[dv], cfg, torch.tensor([[t]], dtype=torch.int32, device=dv), state)[0])
+        outs[dv] = (enc.cpu(), [r.cpu() for r in rows])
+    assert set(dispatch.LAUNCHES) == {"flash_attention", "decode_attention:no_wo"}
+    _close_own_max(outs[dev][0], outs["cpu"][0], torch.float32)
+    for got, want in zip(outs[dev][1], outs["cpu"][1]):
+        _close_own_max(got, want, torch.float32)

@@ -345,8 +345,12 @@ def test_generate_greedy_past_cache_raises():
 
 
 def test_dense_params_are_refused():
+    """A dense projection among int8 packs is refused; a tree with no pack
+    at all takes the dense-weight route (``tests/test_torch_lift.py``)."""
     _, tcfg = configs()
-    params = tdec.params_from_jax(dense_tree(0), tcfg, device="cpu")
+    dense = tdec.params_from_jax(dense_tree(0), tcfg, device="cpu")
+    params = tdec.quantize_params_int8(dense, device="cpu")
+    params["layers"][1]["wo"] = dense["layers"][1]["wo"]
     cache = tdec.init_cache(tcfg, 1, 16, device="cpu")
     with pytest.raises(ValueError, match="quantize_params_int8"):
         tdec.forward(params, tcfg, torch.zeros((1, 1), dtype=torch.int32), cache)

@@ -1,6 +1,6 @@
 """rten_tpu_torch stands alone: it imports neither ``jax`` nor anything of
-``rten_tpu``, and its entry points do not fall back to the CPU on a
-machine without CUDA."""
+``rten_tpu`` (nor ``flatbuffers``: its `.rten` writer is its own), and its
+entry points do not fall back to the CPU on a machine without CUDA."""
 
 import os
 import re
@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,7 @@ _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["rten_tpu"] = None     # and so does any import of the JAX package
+sys.modules["flatbuffers"] = None  # the port writes .rten files without it
 import numpy as np, torch
 import rten_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rten_tpu_torch.__path__, "rten_tpu_torch.")]
@@ -117,6 +119,14 @@ runs = [gmodel.run(feed, ["logits"], RunOptions(mode=mode))[0] for mode in ("int
 assert runs[0].shape == (1, 3, 300) and torch.equal(runs[0], runs[1])
 toks = [int(t[0]) for t in Generator(GraphBackend(gmodel), GeneratorConfig(max_tokens=4)).with_prompt([1, 2, 3])]
 assert len(toks) == 4 and len(gmodel._compiled) == 3  # the feed, the prompt bucket, one decode bucket
+from rten_tpu_torch.format import load_rten, save_rten  # model files: save, load, run, lift
+from rten_tpu_torch.generate import NativeBackend, backend_for_model
+data = save_rten(build_gpt2_graph(Graph, gcfg, tied=True), {"description": "isolated"})
+fmodel = Model.load(data, device="cpu")
+assert save_rten(*load_rten(data)) == data and fmodel.metadata == {"description": "isolated"}
+assert fmodel.run(feed, ["logits"])[0].shape == (1, 3, 300)
+native = backend_for_model(fmodel, n_heads=2, device="cpu")
+assert isinstance(native, NativeBackend) and native.prefill(np.array([[1, 2, 3]], np.int32)).shape == (1, 300)
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -155,7 +165,9 @@ def test_scan_regex_catches_imports():
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch):
-    from rten_tpu_torch.generate import EncDecBackend, NativeBackend
+    from rten_tpu_torch.format import save_rten
+    from rten_tpu_torch.generate import EncDecBackend, NativeBackend, backend_for_model
+    from rten_tpu_torch.models.lift import lift_decoder
     from rten_tpu_torch.graph import Graph
     from rten_tpu_torch.runtime.session import Model
     from rten_tpu_torch.models import decoder
@@ -200,6 +212,9 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: resnet.params_from_jax({}, resnet.RESNET50),
         lambda: resnet.load_torchvision_state_dict({}, resnet.RESNET50),
         lambda: Model(Graph()),
+        lambda: Model.load(save_rten(Graph())),
+        lambda: lift_decoder({"wte.weight": np.zeros((4, 4), np.float32)}),
+        lambda: backend_for_model(Graph()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -364,3 +364,28 @@ def host(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def assert_graphs_equal(a, b):
+    """Two graphs of either package hold the same nodes (kind, name, value
+    shape and dtype and bits, shape, op type, attrs, inputs, outputs) and
+    the same inputs, outputs and captures; If branches compared alike."""
+    assert len(a.nodes) == len(b.nodes)
+    for i, (na, nb) in enumerate(zip(a.nodes, b.nodes)):
+        kind = type(na).__name__
+        assert kind == type(nb).__name__ and na.name == nb.name, (i, na, nb)
+        if kind == "ConstantNode":
+            assert na.value.dtype == nb.value.dtype and na.value.shape == nb.value.shape, (i, na.name)
+            np.testing.assert_array_equal(na.value, nb.value)
+        elif kind == "ValueNode":
+            assert na.shape == nb.shape, (i, na.name)
+        else:
+            assert (na.op_type, list(na.inputs), list(na.outputs)) == (nb.op_type, list(nb.inputs), list(nb.outputs))
+            assert set(na.attrs) == set(nb.attrs), (i, na.op_type, na.attrs, nb.attrs)
+            for key, va in na.attrs.items():
+                vb = nb.attrs[key]
+                if hasattr(va, "nodes"):
+                    assert_graphs_equal(va, vb)
+                else:
+                    assert type(va) is type(vb) and np.array_equal(va, vb), (i, na.op_type, key, va, vb)
+    assert (list(a.inputs), list(a.outputs), list(a.captures)) == (list(b.inputs), list(b.outputs), list(b.captures))
