@@ -25,6 +25,9 @@ NVIDIA card.
                                      # phases 1-2, the lifted path's f32 kernel modes of
                                      # phase 3 and phase 14 alone (see files_only); its
                                      # last line is marked partial
+    python3 chip_smoke.py --text LABEL
+                                     # phases 1-2 and phase 15 alone (see text_only); its
+                                     # last line is marked partial
     python3 chip_smoke.py --gemv LABEL [--package DIR]
                                      # phases 1-2 and the decode GEMV's, MLP's and fused
                                      # wo's checks at 1 and 8 rows, and decode_block's
@@ -34,7 +37,8 @@ NVIDIA card.
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device  — the card's name and power limit from nvidia-smi;
-2. build   — nvcc builds the kernels from rten_tpu_torch/kernels/csrc;
+2. build   — nvcc builds the kernels from rten_tpu_torch/kernels/csrc, and g++
+   the native host library from rten_tpu_torch/native/rten_native.cpp;
 3. kernels — each kernel (the three decode kernels, the prefill matmul and
    flash attention, the serving path's int8 and paged decode attentions,
    the W8A8 ones: the w8a8 modes of the decode GEMV and MLP,
@@ -207,7 +211,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    start tokens, 32 greedy steps) against the plain versions (GRAPH_GATE,
    top-2 rule); phase 3 adds the lifted path's f32 kernel modes
    (check_file_kernels);
-15. the line {"kernels": [...]} (the launches summed over phases 4-14, a
+15. text    — text in, text out (drive_text): (a) a GPT-2-style byte-level
+   BPE tokenizer of 2000 merges learned from README.md and a WordPiece one
+   of 30522 ids over its words, README encoded by the native library and
+   the Python path (equal ids), tokens a second; (b) python -m
+   rten_tpu_torch.examples.gpt2 --model x.npz --int8 --top-k 1 -n 64 on an
+   HF-named GPT-2-small state (seed 0) with README's first paragraph as the
+   prompt, through main(argv): its tokens phase 4's greedy stream on the
+   same params and ids, its text their decode, the prefill and decode
+   kernels launched and no plain call, time to first token, host ms a step
+   (the app's and marginal_step_time's), device ms a step, the tokenizer's
+   share; (c) gpt2.py on phase 14 (b)'s f32 file: its tokens the lifted
+   NativeBackend's; (d) python -m rten_tpu_torch.examples.bert_qa on an
+   HF-named BERT-base QA state (seed 0) with the WordPiece tokenizer:
+   flash_attention 12 times (f32, not causal), span and answer equal to the
+   plain versions', logits within GRAPH_GATE; (e) runtime.profiler.trace
+   around (b)'s warm-up: its trace.json names all five kernels of (b); (f)
+   the native contour tracer and CTC beam search against the Python paths
+   (a 512 x 512 mask, a 500 x 32 matrix);
+16. the line {"kernels": [...]} (the launches summed over phases 4-15, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
@@ -4398,6 +4420,514 @@ def files_only(torch, bound, detail, kind, smi, label: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: text in, text out (the host toolkit and the example apps)
+# ---------------------------------------------------------------------------
+
+TEXT_MERGES = 2000  # byte-level BPE merges learned from README.md
+TEXT_WP_VOCAB = 30522  # the WordPiece vocabulary's size, BERT-base's
+TEXT_NEW, TEXT_SHORT = 64, 16  # gpt2.py's new tokens; the short stream of the marginal step time
+TEXT_GPT2 = dict(vocab=50257, n_layers=12, d=768, ff=3072, n_pos=1024)  # GPT-2-small
+TEXT_BERT = dict(vocab=30522, n_layers=12, d=768, ff=3072, n_pos=512)  # BERT-base
+TEXT_MASK, TEXT_CTC, TEXT_BEAM = (512, 512), (500, 32), 8  # (f): the contour mask, the CTC matrix, its beam
+# The device kernels of each kernel wrapper on phase 15 (b)'s path, as the
+# profiler names them (gemv_kernel<DOT, PH>: PH 1 a GEMV, 3 the MLP).
+TRACE_NAMES = {"quant_gemv_int8": r"gemv_kernel<\d+, 1>", "quant_mlp_int8": r"gemv_kernel<\d+, 3>",
+               "decode_attention": r"kv_attention_kernel", "quant_matmul_int8": r"qmm_(wgmma|simt)_kernel",
+               "flash_attention": r"flash_(mma_)?kernel"}
+
+
+def readme_paragraphs(text: str) -> list[str]:
+    """README's prose paragraphs (blocks between blank lines that are not a
+    heading, list, table, quote or code, of 100 characters or more), each
+    joined into one line."""
+    paras = []
+    for block in text.split("\n\n"):
+        lines = [line.strip() for line in block.strip().splitlines()]
+        if lines and not lines[0].startswith(("#", "-", "*", "|", ">", "`", "```")) and len(" ".join(lines)) >= 100:
+            paras.append(" ".join(lines))
+    return paras
+
+
+def train_bpe(text: str, n_merges: int, pre_tokenizer=None) -> list[tuple[str, str]]:
+    """Byte-level BPE merges learned from ``text`` by counting, as GPT-2's
+    were: the GPT-2 pre-tokenization (the port's ``ByteLevel``, or
+    ``pre_tokenizer``) splits it into words of units, and each of
+    ``n_merges`` rounds merges the most frequent adjacent pair of units in
+    every word (ties: the pair that sorts first)."""
+    import collections
+    import heapq
+
+    from rten_tpu_torch.text.pretokenizer import ByteLevel
+
+    pre = pre_tokenizer or ByteLevel(add_prefix_space=False)
+    counts = collections.Counter(piece for piece, _ in pre.split(text))
+    words, freq = [list(w) for w in counts], list(counts.values())
+    pairs, where = collections.Counter(), collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for pair in zip(w, w[1:]):
+            pairs[pair] += freq[i]
+            where[pair].add(i)
+    heap = [(-n, pair) for pair, n in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while len(merges) < n_merges and heap:
+        n, best = heapq.heappop(heap)
+        if pairs.get(best, 0) != -n:
+            continue  # a stale count
+        merges.append(best)
+        a, b = best
+        touched = set()
+        for i in sorted(where.pop(best)):
+            w, out, j = words[i], [], 0
+            while j < len(w):
+                if j + 1 < len(w) and w[j] == a and w[j + 1] == b:
+                    out.append(a + b)
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            for pair in zip(w, w[1:]):
+                pairs[pair] -= freq[i]
+                touched.add(pair)
+            for pair in zip(out, out[1:]):
+                pairs[pair] += freq[i]
+                where[pair].add(i)
+                touched.add(pair)
+            words[i] = out
+        for pair in touched:
+            if pairs[pair] > 0:
+                heapq.heappush(heap, (-pairs[pair], pair))
+            else:
+                del pairs[pair]
+    return merges
+
+
+def bpe_tokenizer_spec(merges) -> dict:
+    """A GPT-2-style ``tokenizer.json`` (as a dict) over ``merges``: the 256
+    byte units (id = the byte), one id a merge, then ``<|endoftext|>``;
+    ByteLevel pre-tokenizer and decoder."""
+    from rten_tpu_torch.text.models import bytes_to_unicode
+
+    units = bytes_to_unicode()
+    vocab = {units[b]: b for b in range(256)}
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    eos = vocab.setdefault("<|endoftext|>", len(vocab))
+    return {"normalizer": None, "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+            "decoder": {"type": "ByteLevel"},
+            "model": {"type": "BPE", "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]},
+            "added_tokens": [{"id": eos, "content": "<|endoftext|>", "special": True}]}
+
+
+def wordpiece_tokenizer_spec(text: str, size: int = TEXT_WP_VOCAB) -> dict:
+    """A BERT-style WordPiece ``tokenizer.json`` (as a dict) over ``text``'s
+    lower-cased words (BertNormalizer, BertPreTokenizer): [PAD] [UNK] [CLS]
+    [SEP] [MASK], the words seen twice or more, every character alone and as
+    a ``##`` continuation, and the ``##`` suffixes of up to 4 characters of
+    those words, padded with ``[unusedN]`` to ``size`` ids; the [CLS] $A
+    [SEP] ($B [SEP]) template."""
+    import collections
+
+    from rten_tpu_torch.text.normalizer import BertNormalizer
+    from rten_tpu_torch.text.pretokenizer import BertPreTokenizer
+
+    counts = collections.Counter(w for w, _ in BertPreTokenizer().split(BertNormalizer(lowercase=True).normalize(text)))
+    common = sorted(w for w, n in counts.items() if n >= 2)
+    chars = sorted({c for w in counts for c in w})
+    suffixes = sorted({w[k:] for w in common for k in range(max(1, len(w) - 4), len(w))})
+    tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *common, *chars, *("##" + c for c in chars),
+              *("##" + s for s in suffixes)]
+    vocab = {}
+    for t in tokens:
+        vocab.setdefault(t, len(vocab))
+    if len(vocab) > size:
+        raise ValueError(f"{len(vocab)} WordPiece tokens do not fit in {size} ids")
+    for i in range(size - len(vocab)):
+        vocab[f"[unused{i}]"] = len(vocab)
+
+    def special(t, type_id=0):
+        return {"SpecialToken": {"id": t, "type_id": type_id}}
+
+    def seq(s, type_id=0):
+        return {"Sequence": {"id": s, "type_id": type_id}}
+
+    return {"normalizer": {"type": "BertNormalizer", "lowercase": True},
+            "pre_tokenizer": {"type": "BertPreTokenizer"},
+            "model": {"type": "WordPiece", "vocab": vocab, "unk_token": "[UNK]", "continuing_subword_prefix": "##"},
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [special("[CLS]"), seq("A"), special("[SEP]")],
+                               "pair": [special("[CLS]"), seq("A"), special("[SEP]"), seq("B", 1),
+                                        special("[SEP]", 1)]},
+            "added_tokens": [{"id": vocab[t], "content": t, "special": True}
+                             for t in ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")]}
+
+
+def _normal(rng, *shape, std=0.02):
+    import numpy as np
+
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+
+def gpt2_hf_state(seed: int, vocab: int, n_layers: int, d: int, ff: int, n_pos: int) -> dict:
+    """An HF ``GPT2Model``-named state (Conv1D weights ``[in, out]``) with
+    random weights from ``seed``: normal 0.02 matrices, embeddings and
+    biases, LayerNorm scales near 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    st = {"wte.weight": _normal(rng, vocab, d), "wpe.weight": _normal(rng, n_pos, d)}
+    for i in range(n_layers):
+        p = f"h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            st[f"{p}{ln}.weight"], st[f"{p}{ln}.bias"] = 1 + _normal(rng, d, std=0.1), _normal(rng, d)
+        st[p + "attn.c_attn.weight"], st[p + "attn.c_attn.bias"] = _normal(rng, d, 3 * d), _normal(rng, 3 * d)
+        st[p + "attn.c_proj.weight"], st[p + "attn.c_proj.bias"] = _normal(rng, d, d), _normal(rng, d)
+        st[p + "mlp.c_fc.weight"], st[p + "mlp.c_fc.bias"] = _normal(rng, d, ff), _normal(rng, ff)
+        st[p + "mlp.c_proj.weight"], st[p + "mlp.c_proj.bias"] = _normal(rng, ff, d), _normal(rng, d)
+    st["ln_f.weight"], st["ln_f.bias"] = 1 + _normal(rng, d, std=0.1), _normal(rng, d)
+    return st
+
+
+def bert_qa_hf_state(seed: int, vocab: int, n_layers: int, d: int, ff: int, n_pos: int) -> dict:
+    """An HF ``BertForQuestionAnswering``-named state (``bert.`` prefix,
+    nn.Linear weights ``[out, in]``, the ``qa_outputs`` span head) with
+    random weights from ``seed``: normal 0.02 matrices, embeddings and
+    biases, LayerNorm scales near 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    st = {}
+
+    def ln(p):
+        st[p + "weight"], st[p + "bias"] = 1 + _normal(rng, d, std=0.1), _normal(rng, d)
+
+    def linear(p, n_out, n_in):
+        st[p + "weight"], st[p + "bias"] = _normal(rng, n_out, n_in), _normal(rng, n_out)
+
+    st["bert.embeddings.word_embeddings.weight"] = _normal(rng, vocab, d)
+    st["bert.embeddings.position_embeddings.weight"] = _normal(rng, n_pos, d)
+    st["bert.embeddings.token_type_embeddings.weight"] = _normal(rng, 2, d)
+    ln("bert.embeddings.LayerNorm.")
+    for i in range(n_layers):
+        p = f"bert.encoder.layer.{i}."
+        for proj in ("query", "key", "value"):
+            linear(f"{p}attention.self.{proj}.", d, d)
+        linear(p + "attention.output.dense.", d, d)
+        ln(p + "attention.output.LayerNorm.")
+        linear(p + "intermediate.dense.", ff, d)
+        linear(p + "output.dense.", d, ff)
+        ln(p + "output.LayerNorm.")
+    linear("qa_outputs.", 2, d)
+    return st
+
+
+def trace_kernel_names(path) -> set:
+    """The wrappers of TRACE_NAMES whose device kernels a Chrome trace
+    (``runtime.profiler.trace``'s ``trace.json``) names."""
+    import re
+
+    names = {e.get("name", "") for e in json.loads(Path(path).read_text()).get("traceEvents", [])}
+    return {k for k, pat in TRACE_NAMES.items() if any(re.search(pat, n) for n in names)}
+
+
+def drive_text(torch, out) -> tuple[dict, dict]:
+    """Phase 15: text in, text out, through the port's host toolkit and its
+    example apps, the models' files written to a temporary directory.
+
+    (a) Tokenizers from README.md: 2000 byte-level BPE merges learned by
+    ``train_bpe`` into a GPT-2-style tokenizer.json (``bpe_tokenizer_spec``)
+    and a WordPiece one of 30522 ids (``wordpiece_tokenizer_spec``); README
+    encoded in full by the BPE through the native library and through the
+    Python path (the ids must be equal), and by the WordPiece; tokens a
+    second of each on this host.
+    (b) ``python -m rten_tpu_torch.examples.gpt2 --model gpt2.npz --int8
+    --tokenizer tok.json --top-k 1 -n 64 --prompt <README's first
+    paragraph>`` through ``main(argv)`` on an HF-named GPT-2-small state
+    from seed 0: its prompt ids are (a)'s, its 64 tokens the greedy stream
+    of phase 4's path (Generator over NativeBackend) on the params
+    ``from_hf_gpt2`` and ``quantize_params_int8`` make of the same state,
+    its text ``decode`` of them; quant_matmul_int8 and flash_attention at
+    the prompt, quant_gemv_int8, decode_attention and quant_mlp_int8 each
+    decode step, no plain call. Time to first token and host ms a step
+    (the app's Metrics; ``utils.bench.marginal_step_time`` over streams of
+    16 and 64 tokens), device ms a step (profiler), the tokenizer's share
+    of the app's host time.
+    (c) gpt2.py on phase 14 (b)'s file (GPT-2-small as an f32 graph, tied
+    head, seed 0) with the same prompt: its tokens equal backend_for_model's
+    NativeBackend greedy stream on the file (the dense-weight route: f32
+    causal flash_attention at the prompt, decode_attention without wo).
+    (d) ``python -m rten_tpu_torch.examples.bert_qa`` on an HF-named
+    BERT-base QA state from seed 0 with (a)'s WordPiece tokenizer, a README
+    sentence as the question and another as the context: flash_attention
+    12 times (f32, not causal), no plain call; its span and answer equal
+    the same run's through the plain versions, its start and end logits
+    within GRAPH_GATE of theirs.
+    (e) ``runtime.profiler.trace`` around (b)'s warm-up run: the
+    ``trace.json`` names the device kernels of all five wrappers of (b).
+    (f) The native contour tracer and CTC beam search against the Python
+    paths on a seeded 512 x 512 mask and a 500 x 32 log-probability matrix:
+    equal results.
+
+    Returns the phase's launches and those of them on the f32 routes."""
+    import collections
+    import tempfile
+
+    import numpy as np
+
+    from rten_tpu_torch import ctc, native
+    from rten_tpu_torch.examples import bert_qa as qa_app
+    from rten_tpu_torch.examples import gpt2 as gpt2_app
+    from rten_tpu_torch.format import save_rten
+    from rten_tpu_torch.generate import (Generator, GeneratorConfig, NativeBackend, TopKSampler,
+                                         backend_for_model)
+    from rten_tpu_torch.graph import Graph
+    from rten_tpu_torch.image import contours
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.models.gpt2_graph import GPT2_SMALL, build_gpt2_graph
+    from rten_tpu_torch.runtime import profiler
+    from rten_tpu_torch.runtime.session import Model
+    from rten_tpu_torch.text import Tokenizer
+    from rten_tpu_torch.utils.bench import marginal_step_time
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library is not available (phase 2 builds it)")
+    res, total, f32 = {}, collections.Counter(), collections.Counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    text = (ROOT / "README.md").read_text(encoding="utf-8")
+    paras = readme_paragraphs(text)
+    prompt = paras[0]
+
+    # (a) Tokenizers from README.md.
+    t0 = time.perf_counter()
+    merges = train_bpe(text, TEXT_MERGES)
+    train_s = time.perf_counter() - t0
+    specs = {"bpe": bpe_tokenizer_spec(merges), "wordpiece": wordpiece_tokenizer_spec(text)}
+    paths = {k: tmp / f"{k}_tokenizer.json" for k in specs}
+    for k, spec in specs.items():
+        paths[k].write_text(json.dumps(spec), encoding="utf-8")
+    n_ids = {k: len(spec["model"]["vocab"]) for k, spec in specs.items()}
+
+    def encode_timed(spec, python: bool):
+        tok = Tokenizer.from_json(spec)
+        if python:
+            tok.model._native, tok.model._native_tried = None, True  # the Python merge loop
+        t = time.perf_counter()
+        ids = tok.encode(text, add_special_tokens=False).ids
+        return ids, time.perf_counter() - t
+
+    ids_lib, lib_s = encode_timed(specs["bpe"], python=False)
+    ids_py, py_s = encode_timed(specs["bpe"], python=True)
+    ids_wp, wp_s = encode_timed(specs["wordpiece"], python=False)
+    if ids_lib != ids_py:
+        raise AssertionError(f"(a) README's BPE ids differ between the native library and the Python path at "
+                             f"{first_difference(ids_lib, ids_py)}")
+    if n_ids["bpe"] > TEXT_GPT2["vocab"] or max(ids_lib) >= n_ids["bpe"]:
+        raise AssertionError(f"(a) the BPE has {n_ids['bpe']} ids")
+    res["a"] = dict(merges=len(merges), train_s=train_s, ids=n_ids, readme_chars=len(text),
+                    tokens=dict(bpe=len(ids_lib), wordpiece=len(ids_wp)),
+                    tokens_per_s=dict(bpe_native=len(ids_lib) / lib_s, bpe_python=len(ids_py) / py_s,
+                                      wordpiece=len(ids_wp) / wp_s))
+    log(f"  (a) {len(merges)} BPE merges from README.md in {train_s:.2f} s ({n_ids['bpe']} ids; WordPiece "
+        f"{n_ids['wordpiece']} ids); README ({len(text)} chars) encoded: BPE {len(ids_lib)} tokens, native = Python; "
+        f"tokens/s on this host (a fresh tokenizer, one pass): BPE native {len(ids_lib) / lib_s:.0f}, BPE Python "
+        f"{len(ids_py) / py_s:.0f}, WordPiece {len(ids_wp) / wp_s:.0f}")
+
+    # (b) gpt2.py at GPT-2-small's width, int8 weights; (e) the trace of its warm-up run.
+    g = TEXT_GPT2
+    state = gpt2_hf_state(0, g["vocab"], g["n_layers"], g["d"], g["ff"], g["n_pos"])
+    npz = tmp / "gpt2.npz"
+    np.savez(npz, **state)
+    argv = ["--model", str(npz), "--int8", "--tokenizer", str(paths["bpe"]), "--top-k", "1", "--prompt", prompt]
+    trace_dir = OUT_DIR / "text_trace"
+    with profiler.trace(str(trace_dir)):
+        gpt2_app.main([*argv, "-n", "8"])
+    traced = trace_kernel_names(trace_dir / "trace.json")
+    trace_bytes = (trace_dir / "trace.json").stat().st_size
+    (trace_dir / "trace.json").unlink()  # too large to keep
+    if traced != set(TRACE_NAMES):
+        raise AssertionError(f"(e) the trace names the kernels of {sorted(traced)}, not all of {sorted(TRACE_NAMES)}")
+    dispatch.reset_counters()
+    app = {}
+    t0 = time.perf_counter()
+    gpt2_app.main([*argv, "-n", str(TEXT_NEW)], result=app)
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    total.update(launches)
+    steps, n_layers = TEXT_NEW - 1, g["n_layers"]
+    need = {"quant_matmul_int8": 1, "flash_attention": n_layers, "quant_gemv_int8": steps,
+            "decode_attention": n_layers * steps, "quant_mlp_int8": steps}
+    if plain or any(launches.get(k, 0) < n for k, n in need.items()) or launches.get("flash_attention") != n_layers:
+        raise AssertionError(f"(b) gpt2.py launched {launches} (at least {need}; flash_attention only at the "
+                             f"prompt), plain {plain}")
+    tok = Tokenizer.from_json(specs["bpe"])
+    if app["prompt_ids"] != tok.encode(prompt).ids:
+        raise AssertionError("(b) gpt2.py's prompt ids are not (a)'s")
+    cfg = gpt2_app.infer_gpt2_config(state, decoder)
+    params = decoder.quantize_params_int8(decoder.from_hf_gpt2(state, cfg, device="cuda"), device="cuda")
+    del state
+    backend = NativeBackend(params, cfg, device="cuda")
+    ref = [int(t[0]) for t in Generator(backend, GeneratorConfig(max_tokens=TEXT_NEW)).with_prompt(app["prompt_ids"])]
+    if app["tokens"] != ref or app["text"] != tok.decode(ref):
+        raise AssertionError(f"(b) gpt2.py's tokens differ from phase 4's greedy stream at "
+                             f"{first_difference(app['tokens'], ref)}, or its text from decode of them")
+
+    def run_at(n):
+        backend.reset()
+        gen = Generator(backend, GeneratorConfig(max_tokens=n)).with_prompt(app["prompt_ids"])
+        return [t for t in gen.with_sampler(TopKSampler(1, temperature=0.8))]
+
+    host_ms = marginal_step_time(run_at, TEXT_SHORT, TEXT_NEW, trials=3) * 1e3
+    last = np.asarray([[ref[-1]]], np.int32)
+    by_kernel, calls = profile_by_kernel(torch, lambda: backend.decode(last), 16)
+    device_ms = sum(by_kernel.values()) / 1e3
+    t0 = time.perf_counter()
+    tok2 = Tokenizer.from_json(paths["bpe"].read_text(encoding="utf-8"))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok2.encode(prompt)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok2.decode(app["tokens"])
+    dec_s = time.perf_counter() - t0
+    m = app["metrics"]
+    gen_s = sum(m.step_times_s)
+    phase4 = out.get("decode")
+    in_vocab = sum(t < n_ids["bpe"] for t in ref)  # the rest decode to nothing: random weights, 50257 logits
+    res["b"] = dict(prompt_tokens=len(app["prompt_ids"]), in_vocab=in_vocab, launches=launches,
+                    ttft_ms=m.warmup_time_s * 1e3,
+                    app_ms_step=m.mean_step_ms(), marginal_host_ms_step=host_ms, device_ms_step=device_ms,
+                    idle_share=max(0.0, 1 - device_ms / host_ms), device_us_by_kernel=by_kernel,
+                    device_calls_a_step=calls, app_s=app_s, tokenizer_load_ms=load_s * 1e3,
+                    encode_ms=enc_s * 1e3, decode_ms=dec_s * 1e3,
+                    tokenizer_share=(enc_s + dec_s) / gen_s, text=app["text"],
+                    phase4_ms_step=phase4 and phase4["ms_per_step"],
+                    phase4_ttft_ms=out.get("prefill", {}).get(str(N_PROMPT), {}).get("ttft_ms"))
+    log(f"  (b) gpt2.py --int8 --top-k 1 -n {TEXT_NEW}: a {len(app['prompt_ids'])}-token README prompt -> "
+        f"{app['text'][:60]!r} ({in_vocab} of the {TEXT_NEW} tokens among the tokenizer's {n_ids['bpe']} ids); "
+        f"tokens = phase 4's greedy stream; time to first token {m.warmup_time_s * 1e3:.3f} "
+        f"ms, host {m.mean_step_ms():.4f} ms a step (the app's Metrics), {host_ms:.4f} ms (marginal, streams of "
+        f"{TEXT_SHORT} and {TEXT_NEW}), device {device_ms:.4f} ms a step (profiler, 16 steps) -> idle share "
+        f"{res['b']['idle_share']:.4f}; phase 4: {res['b']['phase4_ms_step']} ms a step, time to first token "
+        f"{res['b']['phase4_ttft_ms']} ms (64-token prompt); tokenizer: from_json {load_s * 1e3:.2f} ms, encode "
+        f"{enc_s * 1e3:.3f} ms, decode {dec_s * 1e3:.3f} ms = {res['b']['tokenizer_share']:.5f} of the "
+        f"{gen_s * 1e3:.1f} ms of generation; {launches}")
+    log(f"  (e) profiler.trace around the warm-up run: trace.json ({trace_bytes / 1e6:.1f} MB) names "
+        f"{sorted(traced)}")
+    res["e"] = dict(trace_bytes=trace_bytes, kernels=sorted(traced))
+    del params, backend
+    torch.cuda.empty_cache()
+
+    # (c) gpt2.py on phase 14 (b)'s f32 file.
+    path_c = tmp / "gpt2_f32.rten"
+    path_c.write_bytes(save_rten(build_gpt2_graph(Graph, GPT2_SMALL, seed=0, tied=True)))
+    lifted = backend_for_model(Model.load_file(path_c, device="cuda"), n_heads=GPT2_SMALL.n_heads, device="cuda")
+    ref_c = [int(t[0]) for t in Generator(lifted, GeneratorConfig(max_tokens=TEXT_NEW)).with_prompt(app["prompt_ids"])]
+    del lifted
+    dispatch.reset_counters()
+    app_c = {}
+    gpt2_app.main(["--model", str(path_c), "--heads", str(GPT2_SMALL.n_heads), "--tokenizer", str(paths["bpe"]),
+                   "--top-k", "1", "-n", str(TEXT_NEW), "--prompt", prompt], result=app_c)
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    total.update(launches)
+    f32.update(launches)
+    expect = {"flash_attention": GPT2_SMALL.n_layers, "decode_attention:no_wo": GPT2_SMALL.n_layers * steps}
+    if launches != expect or plain:
+        raise AssertionError(f"(c) gpt2.py on the f32 file launched {launches} (expected {expect}), plain {plain}")
+    if app_c["tokens"] != ref_c:
+        raise AssertionError(f"(c) gpt2.py's tokens on the f32 file differ from the lifted NativeBackend's greedy "
+                             f"stream at {first_difference(app_c['tokens'], ref_c)}")
+    res["c"] = dict(launches=launches, ttft_ms=app_c["metrics"].warmup_time_s * 1e3,
+                    app_ms_step=app_c["metrics"].mean_step_ms(), text=app_c["text"])
+    log(f"  (c) gpt2.py --model gpt2_f32.rten (lifted, dense f32): tokens = the lifted NativeBackend's greedy "
+        f"stream; time to first token {res['c']['ttft_ms']:.3f} ms, host {res['c']['app_ms_step']:.4f} ms a step; "
+        f"{launches}")
+    torch.cuda.empty_cache()
+
+    # (d) bert_qa.py at BERT-base's width, f32.
+    b = TEXT_BERT
+    npz_qa = tmp / "bert_qa.npz"
+    np.savez(npz_qa, **bert_qa_hf_state(0, b["vocab"], b["n_layers"], b["d"], b["ff"], b["n_pos"]))
+    question, context = paras[1].split(". ")[0], paras[0].split(". ")[0]
+    argv_qa = ["--model", str(npz_qa), "--tokenizer", str(paths["wordpiece"]), "--question", question,
+               "--context", context]
+    qa_app.main(argv_qa)  # warm-up
+    dispatch.reset_counters()
+    kern = {}
+    t0 = time.perf_counter()
+    qa_app.main(argv_qa, result=kern)
+    torch.cuda.synchronize()
+    qa_s = time.perf_counter() - t0
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    total.update(launches)
+    f32.update(launches)
+    if launches != {"flash_attention": b["n_layers"]} or plain:
+        raise AssertionError(f"(d) bert_qa.py launched {launches} (expected flash_attention {b['n_layers']} "
+                             f"times), plain {plain}")
+    ref_qa = {}
+    with plain_encoders():
+        qa_app.main(argv_qa, result=ref_qa)
+    rel = {k: rel_rms(torch.from_numpy(kern[k]), torch.from_numpy(ref_qa[k])) for k in ("start", "end")}
+    if kern["span"] != ref_qa["span"] or kern["answer"] != ref_qa["answer"] or not max(rel.values()) <= GRAPH_GATE:
+        raise AssertionError(f"(d) bert_qa.py kernels / plain: span {kern['span']} / {ref_qa['span']}, answer "
+                             f"{kern['answer']!r} / {ref_qa['answer']!r}, relative RMS {rel} (gate {GRAPH_GATE})")
+    res["d"] = dict(tokens=len(kern["ids"]), span=kern["span"], answer=kern["answer"], rel_rms=rel, launches=launches,
+                    app_s=qa_s)
+    log(f"  (d) bert_qa.py (BERT-base, f32): {len(kern['ids'])} tokens, span {kern['span']} {kern['answer']!r} = the "
+        f"plain versions'; start / end logits relative RMS {rel['start']:.3g} / {rel['end']:.3g} (gate "
+        f"{GRAPH_GATE}); {qa_s * 1e3:.1f} ms a run (host clock, with the file's load); {launches}")
+
+    # (f) The native contour tracer and CTC beam search against the Python paths.
+    rng = np.random.default_rng(15)
+    mask = rng.random(TEXT_MASK) > 0.6
+    logits = rng.standard_normal(TEXT_CTC) * 3.0
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    t0 = time.perf_counter()
+    lib_contours = contours.find_contours(mask)
+    lib_beam = ctc.CtcDecoder().decode_beam(lp, TEXT_BEAM)
+    lib_s = time.perf_counter() - t0
+    saved = native.bindings.load_library
+    native.bindings.load_library = lambda auto_build=True: None  # the Python paths
+    try:
+        t0 = time.perf_counter()
+        py_contours = contours.find_contours(mask)
+        py_beam = ctc.CtcDecoder().decode_beam(lp, TEXT_BEAM)
+        py_s = time.perf_counter() - t0
+    finally:
+        native.bindings.load_library = saved
+    same = len(lib_contours) == len(py_contours) and all(
+        np.array_equal(a.as_array(), b.as_array()) for a, b in zip(lib_contours, py_contours))
+    if not same or lib_beam.steps != py_beam.steps or not abs(lib_beam.log_prob - py_beam.log_prob) < 1e-6:
+        raise AssertionError(f"(f) native / Python: contours equal {same}, CTC labels "
+                             f"{lib_beam.labels == py_beam.labels}, log-probs {lib_beam.log_prob} / {py_beam.log_prob}")
+    res["f"] = dict(contours=len(lib_contours), ctc_labels=len(lib_beam.labels), native_s=lib_s, python_s=py_s)
+    log(f"  (f) native = Python: {len(lib_contours)} contours of a {TEXT_MASK[0]}x{TEXT_MASK[1]} mask, "
+        f"{len(lib_beam.labels)} CTC labels of {TEXT_CTC[0]}x{TEXT_CTC[1]} (beam {TEXT_BEAM}); {lib_s:.3f} s native, "
+        f"{py_s:.3f} s Python (host)")
+    tmp_dir.cleanup()
+    res["seconds"] = time.perf_counter() - t_phase
+    out["text"] = res
+    log(f"  ({res['seconds']:.1f} s)")
+    return dict(total), dict(f32)
+
+
+def text_only(torch, detail, kind, smi, label: str) -> int:
+    """``--text LABEL``: phase 15 (drive_text) alone after phases 1-2,
+    written to chiprun_out/text_LABEL.json; its last line is marked
+    partial."""
+    log("[3/3] text in, text out: tokenizers, gpt2.py, bert_qa.py, the trace, the native library")
+    launches, _f32 = drive_text(torch, detail)
+    (OUT_DIR / f"text_{label}.json").write_text(json.dumps(detail, indent=1, default=str))
+    print(smi)
+    print(json.dumps({"partial": "text", "kind": kind, "label": label, "launches": launches,
+                      "seconds": detail["text"]["seconds"]}))
+    return 0
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -4681,6 +5211,8 @@ def main() -> int:
                         help="QuantMatMul's kernel calls and phase 13 alone (graph_only)")
     parser.add_argument("--files", metavar="LABEL",
                         help="the lifted path's kernel modes and phase 14 alone (files_only)")
+    parser.add_argument("--text", metavar="LABEL",
+                        help="phase 15 alone: tokenizers, the example apps, the trace (text_only)")
     parser.add_argument("--package", metavar="DIR",
                         help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
@@ -4702,7 +5234,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/15] device")
+    log("[1/16] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -4715,12 +5247,19 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/15] build")
+    log("[2/16] build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
     log(f"  kernels {'built' if built is not None else 'loaded'} in {time.perf_counter() - t0:.2f} s "
         f"({_build.source_hash()})")
+    from rten_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    native_lib = native_build.build()
+    if native_lib is None:
+        raise RuntimeError("the native host library did not build: no C++ compiler (g++) on PATH")
+    log(f"  native host library {native_lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
     ptxas = _build.build_log()
     (OUT_DIR / "build_log.txt").write_text(ptxas)
     regs = [line.split("Used")[1].split(",")[0].strip() for line in ptxas.splitlines() if "Used" in line]
@@ -4742,7 +5281,9 @@ def main() -> int:
         return graph_only(torch, bound, detail, kind, smi, opts.graph)
     if opts.files:
         return files_only(torch, bound, detail, kind, smi, opts.files)
-    log("[3/15] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    if opts.text:
+        return text_only(torch, detail, kind, smi, opts.text)
+    log("[3/16] kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -4751,43 +5292,43 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/15] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log("[4/16] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/15] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log("[5/16] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/15] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log("[6/16] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/15] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log("[7/16] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/15] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log("[8/16] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/15] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log("[9/16] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[10/15] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+    log("[10/16] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[11/15] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
+    log("[11/16] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[12/15] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
+    log("[12/16] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
         "INT8, ResNet-50 fp32")
     phase12, f32_runs = drive_encoders(torch, detail)
     for name, n in phase12.items():
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] = f32_runs.get(name, 0)
-    log("[13/15] the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
+    log("[13/16] the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
         "one CUDA graph a bucket")
     for name, n in drive_graph(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
@@ -4800,13 +5341,20 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log("[14/15] model files: .rten save / load / mmap, ONNX convert --quantize, the CLI, lifting onto the "
+    log("[14/16] model files: .rten save / load / mmap, ONNX convert --quantize, the CLI, lifting onto the "
         "dense-weight route (GPT-2-small, Whisper-tiny)")
     for name, n in drive_files(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
         if name in ("quant_matmul_int8", "flash_attention"):
             launches[f"{name}:f32"] += n  # f32 activations: the SIMT route, the f32 flash kernel
-    log("[15/15] summary")
+    log("[15/16] text in, text out: README tokenizers, gpt2.py (GPT-2-small int8 and its f32 file), bert_qa.py "
+        "(BERT-base), the profiler's trace, the native library")
+    phase15, f32_text = drive_text(torch, detail)
+    for name, n in phase15.items():
+        launches[name] = launches.get(name, 0) + n
+    for name in ("quant_matmul_int8", "flash_attention"):
+        launches[f"{name}:f32"] += f32_text.get(name, 0)  # (c) and (d): the f32 routes
+    log("[16/16] summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

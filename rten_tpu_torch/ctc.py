@@ -5,10 +5,9 @@ A numpy copy of ``rten_tpu/ctc.py`` (reference: src/ctc.rs,
 CtcDecoder::decode_greedy :139, decode_beam :170, decode_beam_nbest :211,
 CtcHypothesis :89), so that the port turns a model's CTC logits (for
 example ``models.wav2vec2.ctc_logits``, copied to the host) into text
-without the JAX package. One difference: ``decode_beam`` always runs the
-prefix beam search here, where the JAX package first tries its native
-library's (``rten_tpu/native``, not ported); both keep the same best label
-sequence.
+without the JAX package. ``decode_beam`` runs the native library's prefix
+beam search (``rten_tpu_torch.native``) as the JAX package does, and the
+Python one only where the library is not available (no C++ compiler).
 """
 
 from __future__ import annotations
@@ -65,7 +64,15 @@ class CtcDecoder:
         return CtcHypothesis(steps, score)
 
     def decode_beam(self, probs: np.ndarray, beam_size: int = 10) -> CtcHypothesis:
-        """The best hypothesis of the prefix beam search (``decode_beam_nbest``)."""
+        """The best hypothesis of the prefix beam search: the native
+        library's, else ``decode_beam_nbest``'s."""
+        from rten_tpu_torch.native.bindings import ctc_beam_search_native
+
+        lp = self._log_probs(probs)
+        native = ctc_beam_search_native(lp.astype(np.float32), beam_size, self.blank)
+        if native is not None:
+            labels, times, score = native
+            return CtcHypothesis(list(zip(labels, times)), score)
         return self.decode_beam_nbest(probs, beam_size, 1)[0]
 
     def decode_beam_nbest(

@@ -37,7 +37,7 @@ import torch
 
 from rten_tpu_torch.kernels import _build
 from rten_tpu_torch.kernels.activations import ACTIVATIONS, activation_code
-from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
+from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, resolve_device, use_kernel
 
 MAX_ROWS = 8  # decode GEMV rows (batch x tokens), as on the TPU
 _NORM_CODES = {None: 0, "layernorm": 1, "rmsnorm": 2}
@@ -72,7 +72,7 @@ def untile_gemv_weights(w_tiled, n: int | None = None) -> np.ndarray:
     return out if n is None else out[:, :n]
 
 
-def int8_pack(q, s, device="cpu") -> dict:
+def int8_pack(q, s, device="cuda") -> dict:
     """The port's int8 pack from a row-major ``[K, N]`` or tiled
     ``[S, K, bn]`` int8 matrix and its per-column scales:
     ``{"qt": int8 [N, K] (K contiguous), "s": f32 [N], "tiled": bool}``.
@@ -82,7 +82,9 @@ def int8_pack(q, s, device="cpu") -> dict:
     sets it by the JAX package's rules). The layout is the TPU's, but it
     decides numbers: the JAX package's prefill keeps tiled packs
     weight-only under W8A8 (``rten_tpu/models/decoder.py:526``), and the
-    port's decoder follows it."""
+    port's decoder follows it. The pack lands on ``device`` (the card by
+    default; ``device="cpu"`` for the plain versions)."""
+    dev = resolve_device(device)
     q = np.asarray(q)
     tiled = q.ndim == 3
     if tiled:
@@ -93,8 +95,8 @@ def int8_pack(q, s, device="cpu") -> dict:
     if s.shape[0] != q.shape[1]:
         raise ValueError(f"{s.shape[0]} scales for {q.shape[1]} columns")
     return {
-        "qt": torch.from_numpy(np.ascontiguousarray(q.T)).to(device),
-        "s": torch.from_numpy(s.copy()).to(device),
+        "qt": torch.from_numpy(np.ascontiguousarray(q.T)).to(dev),
+        "s": torch.from_numpy(s.copy()).to(dev),
         "tiled": tiled,
     }
 

@@ -15,8 +15,8 @@ and rounds once (the JAX ``_ln_f``); GELU is the exact erf, in f32.
 Heads: ``encode`` (final hidden states [B, T, D]), ``pool`` (sentence
 embeddings, cls or mean over valid tokens) and ``qa_logits`` (extractive-QA
 start / end logits, padding masked). ``from_hf_bert`` reads a HuggingFace
-``BertModel`` state dict. The JAX package's
-``encode_jit`` has no counterpart: ``encode`` is the eager entry point.
+``BertModel`` state dict. ``encode_jit`` (the JAX package's jitted
+``encode``) is ``encode`` under ``torch.inference_mode()``.
 
 Parameters are plain dicts of tensors under the JAX package's names; an
 int8 matrix is an ``int8_pack`` (``{"qt": int8 [N, K], "s": f32 [N]}``).
@@ -213,6 +213,13 @@ def encode(params: dict, cfg: BertConfig, input_ids, *, lengths=None, segment_id
         x = x + params["seg_emb"][seg]
     x = _ln_f(x.to(cfg.dtype), params["emb_ln"], cfg.layer_norm_eps).view(b * t, -1)
     return _layers(params["layers"], x, b, t, cfg.n_heads, cfg.layer_norm_eps, kv_len).view(b, t, -1)
+
+
+@torch.inference_mode()
+def encode_jit(params: dict, cfg: BertConfig, input_ids, lengths=None, segment_ids=None) -> torch.Tensor:
+    """``encode`` under ``torch.inference_mode()`` (the JAX package's
+    ``encode_jit``, ``rten_tpu/models/bert.py:225``)."""
+    return encode(params, cfg, input_ids, lengths=lengths, segment_ids=segment_ids)
 
 
 def _layers(layers, x, b: int, t: int, h: int, eps: float, kv_len):

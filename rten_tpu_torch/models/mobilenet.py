@@ -18,8 +18,8 @@ the stem on, so that the pointwise operand ``[N·H·W, C]`` is a view and the
 matmul's output is the next NHWC activation without a copy; shapes stay
 NCHW, as in the JAX package, and so do the results.
 
-The JAX package's ``predict`` (its jitted ``forward``) has no counterpart:
-``forward`` is the eager entry point. Entry points that make tensors
+``predict`` (the JAX package's jitted ``forward``) is ``forward`` under
+``torch.inference_mode()``. Entry points that make tensors
 default to ``device="cuda"``; ``device="cpu"`` runs the kernels' plain
 versions.
 """
@@ -171,3 +171,10 @@ def forward(params: dict, cfg: MobileNetConfig, images) -> torch.Tensor:
     x = _pointwise(x, params["head_w"], params["head_b"], relu6=True)
     x = x.mean((2, 3))  # global average pool
     return (matmul(x, params["fc_w"].to(x.dtype)) + params["fc_b"].to(x.dtype)).float()
+
+
+@torch.inference_mode()
+def predict(params: dict, cfg: MobileNetConfig, images) -> torch.Tensor:
+    """``forward`` under ``torch.inference_mode()`` (the JAX package's
+    ``predict``, ``rten_tpu/models/mobilenet.py:202``)."""
+    return forward(params, cfg, images)

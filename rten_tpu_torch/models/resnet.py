@@ -11,9 +11,9 @@ cuDNN's and cuBLAS's.
 
 ``forward(..., features=True)`` returns the last stage's feature map
 (backbone mode). ``load_torchvision_state_dict`` reads torchvision's
-``resnet18`` / ``resnet50`` weights with the BatchNorms folded. The JAX
-package's ``predict`` (its jitted ``forward``) has no counterpart:
-``forward`` is the eager entry point. Entry points that make tensors
+``resnet18`` / ``resnet50`` weights with the BatchNorms folded.
+``predict`` (the JAX package's jitted ``forward``) is ``forward`` under
+``torch.inference_mode()``. Entry points that make tensors
 default to ``device="cuda"``; ``device="cpu"`` runs on the CPU.
 """
 
@@ -165,3 +165,10 @@ def forward(params: dict, cfg: ResNetConfig, images, *, features: bool = False) 
         return x
     x = x.mean((2, 3))
     return (matmul(x, params["fc"]["w"].to(x.dtype)) + params["fc"]["b"].to(x.dtype)).float()
+
+
+@torch.inference_mode()
+def predict(params: dict, cfg: ResNetConfig, images) -> torch.Tensor:
+    """``forward`` under ``torch.inference_mode()`` (the JAX package's
+    ``predict``, ``rten_tpu/models/resnet.py:149``)."""
+    return forward(params, cfg, images)

@@ -11,9 +11,9 @@ round once; GELU is the exact erf.
 
 Heads: ``encode`` (hidden states [B, 1 + N, D], cls first, or [B, N, D]),
 ``classify`` (logits from the cls token, or the mean of the patch tokens)
-and ``feature_map`` (patch tokens as [B, D, gh, gw] for dense heads). The
-JAX package's ``classify_jit`` has no counterpart: ``classify`` is the
-eager entry point. Entry points that make tensors default to
+and ``feature_map`` (patch tokens as [B, D, gh, gw] for dense heads).
+``classify_jit`` (the JAX package's jitted ``classify``) is ``classify``
+under ``torch.inference_mode()``. Entry points that make tensors default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain versions.
 """
 
@@ -146,6 +146,13 @@ def classify(params: dict, cfg: ViTConfig, images) -> torch.Tensor:
     hidden = encode(params, cfg, images)
     feat = hidden[:, 0] if cfg.use_cls_token else hidden.mean(1)
     return matmul(feat, params["head_w"].to(feat.dtype)) + params["head_b"].to(feat.dtype)
+
+
+@torch.inference_mode()
+def classify_jit(params: dict, cfg: ViTConfig, images) -> torch.Tensor:
+    """``classify`` under ``torch.inference_mode()`` (the JAX package's
+    ``classify_jit``, ``rten_tpu/models/vit.py:192``)."""
+    return classify(params, cfg, images)
 
 
 def feature_map(hidden, cfg: ViTConfig) -> torch.Tensor:

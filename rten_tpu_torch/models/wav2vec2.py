@@ -19,9 +19,9 @@ branch:
 
 ``from_hf_wav2vec2`` reads a ``Wav2Vec2ForCTC.state_dict()`` (the
 positional convolution's weight norm resolved, in both of PyTorch's
-namings), ``infer_config`` sizes a config from one. The JAX package's
-``ctc_logits_jit`` has no counterpart: ``ctc_logits`` is the eager entry
-point. Entry points that make tensors default to ``device="cuda"``;
+namings), ``infer_config`` sizes a config from one. ``ctc_logits_jit``
+(the JAX package's jitted ``ctc_logits``) is ``ctc_logits`` under
+``torch.inference_mode()``. Entry points that make tensors default to ``device="cuda"``;
 ``device="cpu"`` runs the kernels' plain versions.
 """
 
@@ -188,6 +188,13 @@ def ctc_logits(params: dict, cfg: Wav2Vec2Config, wav, *, lengths=None) -> torch
     (``Wav2Vec2ForCTC``)."""
     hidden = encode(params, cfg, wav, lengths=lengths)
     return matmul(hidden, params["lm_head_w"].to(hidden.dtype)) + params["lm_head_b"].to(hidden.dtype)
+
+
+@torch.inference_mode()
+def ctc_logits_jit(params: dict, cfg: Wav2Vec2Config, wav, *, lengths=None) -> torch.Tensor:
+    """``ctc_logits`` under ``torch.inference_mode()`` (the JAX package's
+    ``ctc_logits_jit``, ``rten_tpu/models/wav2vec2.py:259``)."""
+    return ctc_logits(params, cfg, wav, lengths=lengths)
 
 
 def infer_config(state: dict, n_heads: int = 12, **overrides) -> Wav2Vec2Config:

@@ -3183,3 +3183,89 @@ def test_dense_encoder_decoder_on_card(dev):
     _close_own_max(outs[dev][0], outs["cpu"][0], torch.float32)
     for got, want in zip(outs[dev][1], outs["cpu"][1]):
         _close_own_max(got, want, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The example apps: text in, text out on the card
+# ---------------------------------------------------------------------------
+
+
+def _app_inputs(tmp_path):
+    """A README-learned BPE and WordPiece tokenizer, tiny HF GPT-2 and BERT
+    QA states (head dim 64) as .npz, and README's texts."""
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    import chip_smoke
+
+    readme = (Path(chip_smoke.ROOT) / "README.md").read_text(encoding="utf-8")
+    paths = {k: tmp_path / name for k, name in (("bpe", "bpe.json"), ("wordpiece", "wp.json"),
+                                                 ("gpt2", "gpt2.npz"), ("bert", "bert.npz"))}
+    paths["bpe"].write_text(json.dumps(chip_smoke.bpe_tokenizer_spec(chip_smoke.train_bpe(readme, 200))))
+    paths["wordpiece"].write_text(json.dumps(chip_smoke.wordpiece_tokenizer_spec(readme, 3000)))
+    np.savez(paths["gpt2"], **chip_smoke.gpt2_hf_state(0, 500, 2, 256, 1024, 256))
+    np.savez(paths["bert"], **chip_smoke.bert_qa_hf_state(0, 3000, 2, 256, 512, 128))
+    paras = chip_smoke.readme_paragraphs(readme)
+    return paths, paras
+
+
+def test_gpt2_app_on_card(dev, tmp_path):
+    """gpt2.py --int8 --top-k 1 on the card: its prompt ids equal its --cpu
+    run's, its tokens the greedy stream of Generator(NativeBackend) on the
+    card on the same params and ids, the prefill and decode kernels
+    launched and no plain call."""
+    import contextlib as cl
+    import io
+
+    from rten_tpu_torch.examples import gpt2
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
+    from rten_tpu_torch.models import decoder
+
+    paths, paras = _app_inputs(tmp_path)
+    argv = ["--model", str(paths["gpt2"]), "--int8", "--tokenizer", str(paths["bpe"]), "--top-k", "1", "-n", "16",
+            "--prompt", paras[0]]
+    cpu, card = {}, {}
+    with cl.redirect_stdout(io.StringIO()):
+        assert gpt2.main([*argv, "--cpu"], result=cpu) == 0
+        dispatch.reset_counters()
+        assert gpt2.main(argv, result=card) == 0
+    launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+    assert card["prompt_ids"] == cpu["prompt_ids"] and len(card["tokens"]) == 16
+    assert not plain and all(launches.get(k) for k in ("quant_matmul_int8", "flash_attention", "quant_gemv_int8",
+                                                       "decode_attention", "quant_mlp_int8")), launches
+    import numpy as np
+
+    state = dict(np.load(paths["gpt2"]))
+    cfg = gpt2.infer_gpt2_config(state, decoder)
+    params = decoder.quantize_params_int8(decoder.from_hf_gpt2(state, cfg, device=dev), device=dev)
+    ref = [int(t[0]) for t in Generator(NativeBackend(params, cfg, device=dev),
+                                        GeneratorConfig(max_tokens=16)).with_prompt(card["prompt_ids"])]
+    assert card["tokens"] == ref
+
+
+def test_bert_qa_app_on_card(dev, tmp_path):
+    """bert_qa.py (f32) on the card against its --cpu run: the same ids,
+    span and answer, start and end logits within f32 tolerance;
+    flash_attention once a layer, no plain call."""
+    import contextlib as cl
+    import io
+
+    import numpy as np
+
+    from rten_tpu_torch.examples import bert_qa
+
+    paths, paras = _app_inputs(tmp_path)
+    argv = ["--model", str(paths["bert"]), "--tokenizer", str(paths["wordpiece"]), "--question",
+            paras[1].split(". ")[0], "--context", paras[0].split(". ")[0]]
+    cpu, card = {}, {}
+    with cl.redirect_stdout(io.StringIO()):
+        assert bert_qa.main([*argv, "--cpu"], result=cpu) == 0
+        dispatch.reset_counters()
+        assert bert_qa.main(argv, result=card) == 0
+    assert dict(dispatch.LAUNCHES) == {"flash_attention": 2} and not dispatch.PLAIN
+    assert (card["ids"], card["span"], card["answer"]) == (cpu["ids"], cpu["span"], cpu["answer"])
+    for k in ("start", "end"):
+        _close(torch.from_numpy(card[k]), torch.from_numpy(cpu[k]), torch.float32)
+    assert np.isfinite(card["start"]).all()

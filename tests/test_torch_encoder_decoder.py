@@ -304,7 +304,7 @@ def test_lm_head_argmax_skips_the_padded_columns():
     w = np.full((d, 512), 0.0, np.float32)
     w[:, :vocab] = -np.linspace(1.0, 2.0, vocab, dtype=np.float32)[None]
     w[:, 7] = -0.5  # the best real column
-    params = {"lm_head_q": int8_pack(*quantize_weights_int8(w, axis=-1)),
+    params = {"lm_head_q": int8_pack(*quantize_weights_int8(w, axis=-1), device="cpu"),
               "dec_ln": {"scale": torch.zeros(d), "bias": torch.ones(d)}}  # every normalized row all ones
     for rows in (3, 12):
         x = torch.randn(rows, d)
@@ -365,7 +365,7 @@ def test_projection_bias_in_the_epilogue(monkeypatch):
     b = rng.standard_normal(256).astype(np.float32)
     x = rng.standard_normal((12, 256)).astype(np.float32)
     qw, s = quantize_weights_int8(w, axis=-1)
-    pack = int8_pack(qw, s)
+    pack = int8_pack(qw, s, device="cpu")
     xt = torch.from_numpy(x).to(torch.bfloat16)
     got = ted._proj(xt, pack, torch.from_numpy(b))
     acc = (xt.float() @ pack["qt"].float().t()) * pack["s"]

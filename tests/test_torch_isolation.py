@@ -127,6 +127,14 @@ assert save_rten(*load_rten(data)) == data and fmodel.metadata == {"description"
 assert fmodel.run(feed, ["logits"])[0].shape == (1, 3, 300)
 native = backend_for_model(fmodel, n_heads=2, device="cpu")
 assert isinstance(native, NativeBackend) and native.prefill(np.array([[1, 2, 3]], np.int32)).shape == (1, 300)
+from rten_tpu_torch import native  # the host toolkit: tokenizers, geometry, the native library, utils
+from rten_tpu_torch.image import find_contours
+from rten_tpu_torch.runtime.profiler import StepTimer
+from rten_tpu_torch.text.models import ByteLevelBPE
+from rten_tpu_torch.utils import env_int, run_bench
+assert ByteLevelBPE({"a": 0, "b": 1, "ab": 2}, ["a b"])._bpe("abab") == ["ab", "ab"]
+assert len(find_contours(np.eye(4, dtype=bool))) == 1 and isinstance(native.available(), bool)
+assert env_int("RTEN_UNSET_FOR_TEST", 3) == 3 and len(run_bench(2, "x", lambda: 1).times_s) == 2 and StepTimer()
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -174,6 +182,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     from rten_tpu_torch.models import bert, mobilenet, resnet, vit, wav2vec2
     from rten_tpu_torch.models import encoder_decoder as ed
     from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
+    from rten_tpu_torch.examples import bert_qa, gpt2
+    from rten_tpu_torch.kernels.quant_matmul import int8_pack
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = decoder.DecoderConfig(vocab_size=300, n_layers=1, n_heads=4, d_model=256, d_ff=512,
@@ -215,6 +225,9 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: Model.load(save_rten(Graph())),
         lambda: lift_decoder({"wte.weight": np.zeros((4, 4), np.float32)}),
         lambda: backend_for_model(Graph()),
+        lambda: int8_pack(np.zeros((4, 2), np.int8), np.ones(2, np.float32)),
+        lambda: gpt2.main(["--demo", "-n", "2"]),
+        lambda: bert_qa.main(["--demo"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

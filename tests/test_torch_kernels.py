@@ -33,7 +33,7 @@ def _quant(rng, k, n, scale=0.2):
 
 
 def _port_pack(q, s):
-    pack = tqm.int8_pack(q, s)
+    pack = tqm.int8_pack(q, s, device="cpu")
     return pack["qt"], pack["s"]
 
 
@@ -570,7 +570,7 @@ def test_quant_gemv_w8a8_argmax_tiled_padded_vocab(rng, m):
         jnp.asarray(x), jnp.asarray(tiled), jnp.asarray(s), norm="layernorm", norm_scale=jnp.asarray(ns),
         norm_bias=jnp.zeros(k), argmax_n=vocab, w_convert="w8a8", interpret=True,
     )
-    pack = tqm.int8_pack(tiled, s)
+    pack = tqm.int8_pack(tiled, s, device="cpu")
     assert pack["tiled"]
     out = tqm.quant_gemv_int8(_t(x), pack["qt"], pack["s"], norm="layernorm", norm_scale=_t(ns),
                               norm_bias=torch.zeros(k), argmax_n=vocab, w8a8=True)

@@ -34,7 +34,7 @@ def _quant(rng, k, n, scale=0.2):
 
 
 def _port_pack(q, s):
-    pack = tqm.int8_pack(q, s)
+    pack = tqm.int8_pack(q, s, device="cpu")
     return pack["qt"], pack["s"]
 
 

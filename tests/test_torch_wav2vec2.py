@@ -159,21 +159,31 @@ def test_ctc_decoder_matches_jax(seed):
         tn, jn = t.decode_beam_nbest(probs, 6, 3), j.decode_beam_nbest(probs, 6, 3)
         assert [h.steps for h in tn] == [h.steps for h in jn]
         assert np.allclose([h.log_prob for h in tn], [h.log_prob for h in jn], rtol=0, atol=1e-12)
-        assert t.decode_beam(probs, 6) == tn[0]
+        beam = t.decode_beam(probs, 6)  # the native library's, as the JAX package's decode_beam
+        jbeam = j.decode_beam(probs, 6)
+        assert (beam.steps, beam.log_prob) == (jbeam.steps, jbeam.log_prob) and beam.steps == tn[0].steps
 
 
 def test_ctc_decode_beam_without_native_library(monkeypatch):
-    """Intended difference: the port's decode_beam is always the prefix beam
-    search (the JAX package first tries its native library, not ported).
-    Its labels equal the JAX package's decode_beam, native or not."""
+    """decode_beam tries the native library first, as the JAX package's
+    does: with the port's library its labels, steps and log-prob equal the
+    JAX package's native result; with the port's library switched off
+    (``load_library`` patched to None) they equal the prefix beam search
+    and the JAX package's own fallback."""
+    import rten_tpu.native.bindings as nb
+
+    import rten_tpu_torch.native.bindings as tnb
+
     rng = np.random.default_rng(7)
     logits = rng.standard_normal((30, 6)) * 3.0
     lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    native = tctc.CtcDecoder().decode_beam(lp, 8)
+    want = jctc.CtcDecoder().decode_beam(lp, 8)  # the JAX package's native library
+    assert (native.steps, native.log_prob) == (want.steps, want.log_prob)
+    monkeypatch.setattr(tnb, "load_library", lambda auto_build=True: None)  # the port's Python path
     got = tctc.CtcDecoder().decode_beam(lp, 8)
     assert got == tctc.CtcDecoder().decode_beam_nbest(lp, 8, 1)[0]
-    assert got.labels == jctc.CtcDecoder().decode_beam(lp, 8).labels
-    import rten_tpu.native.bindings as nb
-
+    assert got.labels == native.labels
     monkeypatch.setattr(nb, "load_library", lambda: None)  # the JAX package's own fallback
     want = jctc.CtcDecoder().decode_beam(lp, 8)
     assert (got.steps, got.log_prob) == (want.steps, want.log_prob)
