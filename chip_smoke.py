@@ -28,6 +28,9 @@ NVIDIA card.
     python3 chip_smoke.py --text LABEL
                                      # phases 1-2 and phase 15 alone (see text_only); its
                                      # last line is marked partial
+    python3 chip_smoke.py --parallel LABEL
+                                     # phases 1-2 and phase 16 alone (see parallel_only);
+                                     # its last line is marked partial
     python3 chip_smoke.py --gemv LABEL [--package DIR]
                                      # phases 1-2 and the decode GEMV's, MLP's and fused
                                      # wo's checks at 1 and 8 rows, and decode_block's
@@ -229,7 +232,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    around (b)'s warm-up: its trace.json names all five kernels of (b); (f)
    the native contour tracer and CTC beam search against the Python paths
    (a 512 x 512 mask, a 500 x 32 matrix);
-16. the line {"kernels": [...]} (the launches summed over phases 4-15, a
+16. parallel — the Qwen2-0.5B shape (unfused random int8 packs from seed
+   0 made on the card) over 2 ranks of parallel.launch.run_ranks (NCCL with
+   a card a rank, else gloo, both ranks on one card and every collective
+   staged through host memory), after the kernels at the per-rank shapes
+   (check_tp_kernels: 7 / 1 heads, q 448, k 64, gate 2432, the f32 wo and
+   down partials, the lm_head's 76288 columns; sp_prefill's 512 rows;
+   pp_forward's microbatch): (a) a 64-token prompt through tp_prefill and
+   63 greedy tp_decode_steps in a 1024-position cache on bf16 KV, then 31
+   on int8 KV (each step 24 decode_attention without wo, or
+   decode_attention_int8, and 169 GEMVs a rank, no plain call), host and
+   device ms a step, and 32
+   teacher-forced steps' logits against the one-rank port path on the same
+   packs (PAR_GATE, the top-2 rule); (b) phase 9's 8 requests through
+   ServingEngine(mesh, tp_mode="shard_map") on bf16 and int8 KV and
+   PagedServingEngine(mesh) with bf16 and int8 pages, each stream against
+   the one-rank engine's (top-2 rule), ms a forward at 8 rows; (c)
+   sp_prefill of 1024 tokens through ring attention against the one-rank
+   prefill (logits and every layer's k / v); (d) pp_forward, 2 stages of
+   12 layers, dense bf16 weights, 4 x 128 tokens in 2 microbatches, against
+   the one-rank dense forward; (e) matmul_allreduce, matmul_reducescatter
+   and allgather_matmul at M 64, K 3072 over 2, N 768 (f32) against the
+   unfused pair (PAR_OVERLAP_GATE) and ring attention at H 12, D 64, T 1024
+   against one-rank causal attention (PAR_RING_GATE); (f) a
+   ServingSupervisor over (b)'s bf16 slot engine with a failure on rank 1
+   at step 20 and snapshots every 8 steps, its streams (b)'s. One line a
+   part: backend, each collective's route, numbers, the card. Two ranks
+   share one card here: no time of this phase is a scaling figure;
+17. the line {"kernels": [...]} (the launches summed over phases 4-16 and
+   phase 16's ranks, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
@@ -529,7 +560,7 @@ def gemv_launch_info(torch, fn, m: int, dot: str, phases: tuple, coop: bool = Fa
                 host_us=host_us(torch, fn))
 
 
-def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record):
+def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record, shapes=None, mlp=True):
     """quant_gemv_int8 and quant_mlp_int8 at 1 and 8 rows: GPT-2-small's
     layer-0 qkv + ln1, lm_head logits and lm_head + argmax, its MLP with the
     next layer's qkv and without (the last layer); the Qwen2-0.5B shape's
@@ -540,7 +571,9 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
     no next qkv). Each against its plain version, with its
     bound, its plain time, the time of F.linear on the dequantized bf16
     weights (the MLP: none, no single call), its plan and its launches a
-    call (one)."""
+    call (one). ``shapes`` (name, K, N, norm, mode, vocab) replace the
+    GEMV cases and ``mlp`` False leaves out the MLP's (phase 16's per-rank
+    shapes)."""
     from rten_tpu_torch.kernels import quant_matmul as qm
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -550,18 +583,18 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
     qw, qff, q_vocab = QWEN2["d_model"], QWEN2_CFG["d_ff"], QWEN2_CFG["vocab_size"]
     qkv_n = (QWEN2["n_heads"] + 2 * QWEN2["n_kv_heads"]) * (qw // QWEN2["n_heads"])
     wd = WHISPER["d_model"]
-    shapes = [("qkv+ln1", d, 3 * d, "layernorm", "bias", None),
-              ("lm_head_logits", d, n_vocab_pad, "layernorm", "logits", None),
-              ("lm_head_argmax", d, n_vocab_pad, "layernorm", "argmax", cfg.vocab_size),
-              ("qwen2 qkv+rms", qw, qkv_n, "rmsnorm", "bias", None),
-              ("qwen2 w_gu+rms", qw, 2 * qff, "rmsnorm", "", None),
-              ("qwen2 w_down+res", qff, qw, None, "residual", None),
-              ("qwen2 lm_head_argmax", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "argmax", q_vocab),
-              ("qwen2 lm_head_logits", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "logits", None),
-              ("whisper qkv+ln", wd, 3 * wd, "layernorm", "bias", None),
-              ("whisper wo+res", wd, wd, None, "residual", None),
-              ("whisper lm_head_argmax", wd, -(-WHISPER["vocab_size"] // 128) * 128, "layernorm", "argmax",
-               WHISPER["vocab_size"])]
+    shapes = shapes or [("qkv+ln1", d, 3 * d, "layernorm", "bias", None),
+                  ("lm_head_logits", d, n_vocab_pad, "layernorm", "logits", None),
+                  ("lm_head_argmax", d, n_vocab_pad, "layernorm", "argmax", cfg.vocab_size),
+                  ("qwen2 qkv+rms", qw, qkv_n, "rmsnorm", "bias", None),
+                  ("qwen2 w_gu+rms", qw, 2 * qff, "rmsnorm", "", None),
+                  ("qwen2 w_down+res", qff, qw, None, "residual", None),
+                  ("qwen2 lm_head_argmax", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "argmax", q_vocab),
+                  ("qwen2 lm_head_logits", qw, -(-q_vocab // 1024) * 1024, "rmsnorm", "logits", None),
+                  ("whisper qkv+ln", wd, 3 * wd, "layernorm", "bias", None),
+                  ("whisper wo+res", wd, wd, None, "residual", None),
+                  ("whisper lm_head_argmax", wd, -(-WHISPER["vocab_size"] // 128) * 128, "layernorm", "argmax",
+                   WHISPER["vocab_size"])]
     for m in (1, 8):
         for name, k, n, norm, mode, vocab in shapes:
             def make(i, m=m, k=k, n=n, norm=norm, mode=mode, vocab=vocab):
@@ -611,6 +644,8 @@ def check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
                    **gemv_launch_info(torch, lambda: qm.quant_gemv_int8(*args, **kw), m, "bf16",
                                       ((n, k, norm is not None, 2),)))
             del copies, w_deq
+        if not mlp:
+            continue
 
         # -- quant_mlp_int8: with the next layer's qkv (layers 0-10) and without
         # -- quant_mlp_int8: with the next layer's qkv (layers 0-10) and
@@ -1359,7 +1394,7 @@ def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_case
 QWEN2 = dict(n_heads=14, n_kv_heads=2, d_model=896)  # Qwen2-0.5B's attention (its config.json)
 
 
-def check_gqa_kernels(torch, bound, randn, pack, record):
+def check_gqa_kernels(torch, bound, randn, pack, record, heads=None, kinds=None, lens_cases=None, tag=""):
     """The KV kernels' Llama/Qwen2-class modes at Qwen2-0.5B's attention
     (14 query heads over 2 kv heads, head dim 64, wo 896 x 896) and S 768,
     kv_len 1 / 300 / 767 and 8 rows of mixed lengths: decode_attention on
@@ -1372,7 +1407,9 @@ def check_gqa_kernels(torch, bound, randn, pack, record):
     operands, the appended token and the output (and W_o); the library
     yardstick is scaled_dot_product_attention(enable_gqa=True) over the
     same prefix made contiguous (a bf16 dequantized copy for int8), rows
-    masked to their lengths, without wo."""
+    masked to their lengths, without wo. ``heads`` (query heads, kv heads
+    at head dim 64), ``kinds`` (a subset of the names), ``lens_cases`` and
+    ``tag`` (put before each shape label) give phase 16's per-rank cases."""
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import paged_attention as pa
 
@@ -1380,17 +1417,22 @@ def check_gqa_kernels(torch, bound, randn, pack, record):
     gen = torch.Generator(device=dev).manual_seed(6161)
     hq, hk, dm = QWEN2["n_heads"], QWEN2["n_kv_heads"], QWEN2["d_model"]
     hd, s_max, page = dm // hq, CACHE_LEN, 128
+    if heads is not None:
+        hq, hk = heads
+        dm = hq * hd
     per_row = s_max // page
     F = torch.nn.functional
-    kinds = {"decode_attention:gqa": (da.decode_attention, da.decode_attention_ref),
-             "decode_attention:no_wo": (da.decode_attention, da.decode_attention_ref),
-             "decode_attention_int8:gqa": (da.decode_attention_int8, da.decode_attention_int8_ref),
-             "paged_decode_attention:gqa": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
-             "paged_decode_attention_int8:gqa": (pa.paged_decode_attention_int8,
-                                                 pa.paged_decode_attention_int8_ref)}
-    for name, (kernel, plain) in kinds.items():
+    all_kinds = {"decode_attention:gqa": (da.decode_attention, da.decode_attention_ref),
+                 "decode_attention:no_wo": (da.decode_attention, da.decode_attention_ref),
+                 "decode_attention_int8:gqa": (da.decode_attention_int8, da.decode_attention_int8_ref),
+                 "paged_decode_attention:gqa": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
+                 "paged_decode_attention_int8:gqa": (pa.paged_decode_attention_int8,
+                                                     pa.paged_decode_attention_int8_ref)}
+    for name, (kernel, plain) in all_kinds.items():
+        if kinds is not None and name not in kinds:
+            continue
         int8, paged, with_wo = "int8" in name, name.startswith("paged"), name == "decode_attention:gqa"
-        for case, lens_list in KV_LENS.items():
+        for case, lens_list in (lens_cases or KV_LENS).items():
             b = len(lens_list)
 
             def make(i, b=b, lens_list=lens_list, int8=int8, paged=paged, with_wo=with_wo):
@@ -1459,7 +1501,8 @@ def check_gqa_kernels(torch, bound, randn, pack, record):
             lib_in = [(c[0][0][0][:, :, None], contiguous(c[0], 0), contiguous(c[0], 1)) for c in copies[:8]]
             library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask, enable_gqa=True)
                                        for t in lib_in])
-            record(name, f"{case} S={s_max} Hq={hq} Hk={hk} D={hd}" + (f" page={page}" if paged else ""), err, tol,
+            label = f"{tag}{case} S={s_max} Hq={hq} Hk={hk} D={hd}" + (f" page={page}" if paged else "")
+            record(name, label, err, tol,
                    ms, plain_ms, bound(per_call, ops), library, "(SDPA without wo)" if with_wo else "",
                    **kv_launch_info(torch, lambda: kernel(*k_args, **kw), KV_ENTRIES[name.split(":")[0]],
                                     args[0][0], hk, s_max, with_wo=with_wo))
@@ -1479,12 +1522,14 @@ def host_us(torch, fn, n: int = 100) -> float:
     return t
 
 
-def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
+def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record, shapes=None, fa_cases=None):
     """quant_matmul_int8 and flash_attention against their plain versions at
     the prefill paths' shapes (GPT-2-small's, the Qwen2-0.5B shape's and
     Whisper-tiny's encoder and cross attention),
     timed as check_kernels times the others, with each call's launch plan
-    (split-K or split-KV cluster size) and the wrapper's host µs a call."""
+    (split-K or split-KV cluster size) and the wrapper's host µs a call.
+    ``shapes`` and ``fa_cases`` replace the two lists (phase 16's per-rank
+    shapes)."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import quant_matmul as qm
 
@@ -1502,23 +1547,24 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     # w_down at 64 and 512 rows.
     qw = QWEN2["d_model"]
     qkv_n = (QWEN2["n_heads"] + 2 * QWEN2["n_kv_heads"]) * (qw // QWEN2["n_heads"])
-    shapes = []
-    for m in (64, 512):
-        shapes += [(f"qkv M={m}", m, 3 * d, d, None, True, bf16),
-                   (f"wo M={m}", m, d, d, None, True, bf16),
-                   (f"up+gelu M={m}", m, ff, d, "gelu", True, bf16),
-                   (f"down M={m}", m, d, ff, None, True, bf16),
-                   (f"lm_head_logits M={m}", m, n_vocab_pad, d, None, False, f32)]
-    shapes += [("qkv M=9 (ragged)", 9, 3 * d, d, None, True, bf16),
-               ("2048^3", 2048, 2048, 2048, None, False, bf16)]
-    for m in (64, 512):
-        shapes += [(f"qwen2 qkv M={m}", m, qkv_n, qw, None, True, bf16),
-                   (f"qwen2 w_gu M={m}", m, 10240, qw, None, False, bf16),
-                   (f"qwen2 w_down M={m}", m, qw, QWEN2_CFG["d_ff"], None, False, bf16)]
-    wd, wff, m = WHISPER["d_model"], WHISPER["d_ff"], WHISPER_AUDIO  # Whisper-tiny's encoder, 1500 positions
-    shapes += [(f"whisper enc wq M={m}", m, wd, wd, None, True, bf16),
-               (f"whisper enc up+gelu M={m}", m, wff, wd, "gelu", True, bf16),
-               (f"whisper enc down M={m}", m, wd, wff, None, True, bf16)]
+    if shapes is None:
+        shapes = []
+        for m in (64, 512):
+            shapes += [(f"qkv M={m}", m, 3 * d, d, None, True, bf16),
+                       (f"wo M={m}", m, d, d, None, True, bf16),
+                       (f"up+gelu M={m}", m, ff, d, "gelu", True, bf16),
+                       (f"down M={m}", m, d, ff, None, True, bf16),
+                       (f"lm_head_logits M={m}", m, n_vocab_pad, d, None, False, f32)]
+        shapes += [("qkv M=9 (ragged)", 9, 3 * d, d, None, True, bf16),
+                   ("2048^3", 2048, 2048, 2048, None, False, bf16)]
+        for m in (64, 512):
+            shapes += [(f"qwen2 qkv M={m}", m, qkv_n, qw, None, True, bf16),
+                       (f"qwen2 w_gu M={m}", m, 10240, qw, None, False, bf16),
+                       (f"qwen2 w_down M={m}", m, qw, QWEN2_CFG["d_ff"], None, False, bf16)]
+        wd, wff, m = WHISPER["d_model"], WHISPER["d_ff"], WHISPER_AUDIO  # Whisper-tiny's encoder, 1500 positions
+        shapes += [(f"whisper enc wq M={m}", m, wd, wd, None, True, bf16),
+                   (f"whisper enc up+gelu M={m}", m, wff, wd, "gelu", True, bf16),
+                   (f"whisper enc down M={m}", m, wd, wff, None, True, bf16)]
     for name, m, n, k, act, with_bias, out_dtype in shapes:
         def make(i, m=m, n=n, k=k, act=act, with_bias=with_bias, out_dtype=out_dtype):
             qt, s = pack(n, k)
@@ -1557,7 +1603,7 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record):
     # against its own max; the f32 kernel (the same values in f32) against
     # the softmax in f64.
     qh, qk, wh = QWEN2["n_heads"], QWEN2["n_kv_heads"], WHISPER["n_heads"]
-    fa_cases = [  # name, b, hq, hk, tq, s, causal, q_offset, kv_len
+    fa_cases = fa_cases or [  # name, b, hq, hk, tq, s, causal, q_offset, kv_len
         ("Tq=64 kv_len=64", 1, h, h, 64, CACHE_LEN, True, 0, 64),
         ("Tq=512 kv_len=512", 1, h, h, 512, CACHE_LEN, True, 0, 512),
         ("Tq=24 q_offset=300 kv_len=324", 1, h, h, 24, CACHE_LEN, True, 300, 324),
@@ -4928,6 +4974,545 @@ def text_only(torch, detail, kind, smi, label: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: parallel/ — tensor, sequence and pipeline parallelism over 2 ranks
+# ---------------------------------------------------------------------------
+
+# Two ranks (parallel.launch.run_ranks): NCCL where the host has a card a
+# rank, else gloo with both ranks on card 0, every collective staged through
+# host memory (parallel.mesh). The Qwen2-0.5B shape over a model axis of 2:
+# 7 query heads over 1 kv head a rank, q 448 / k and v 64 / gate and up 2432
+# columns, wo K 448, down K 2432, the lm_head's 152576 (padded) columns
+# split into 76288.
+# (a) runs 64 greedy steps on the bf16 cache and 32 on the int8 one (the
+# same path but for its KV kernel), cut from 256 to keep the script inside
+# its time limit: over gloo a step takes 0.14-0.30 s on the card's hosts.
+PAR_RANKS, PAR_FORCED, PAR_SP_TOKENS, PAR_TIMEOUT = 2, 32, 1024, 600
+PAR_STEPS = {"bf16": 64, "int8": 32}
+PAR_PP = dict(stages=2, batch=4, tokens=128, microbatches=2)
+PAR_TICK_FAIL, PAR_SNAPSHOT = 20, 8  # (f): rank 1 fails at step 20, snapshots every 8 steps
+PAR_OVERLAP = dict(m=64, k=3072, n=768)  # GPT-2's MLP widths, K over the 2 ranks
+PAR_RING = dict(h=12, d=64, t=1024)
+PAR_GATE, PAR_OVERLAP_GATE, PAR_RING_GATE = 0.05, 1e-6, 1e-5
+TP_LOCAL = dict(hq=7, hk=1, q=448, kv=64, ff=2432, vocab=76288)  # one rank's share of the Qwen2 shape
+
+
+def check_tp_kernels(torch, bound):
+    """The kernels of phase 16's path at the per-rank shapes no earlier case
+    launches, against their plain versions, timed as phase 3 times them:
+    the GEMV at 1 and 8 rows (q and k with their bias, gate, the f32 wo and
+    down partials, the f32 lm_head slice), quant_matmul_int8 at the 64-token
+    prompt (the same per-rank projections) and at sp_prefill's 512 rows a
+    rank (the whole weights), flash_attention at the prompt's 7 query heads
+    over 1 kv head and at pp_forward's microbatch (2 x 128 tokens, 14 / 2
+    heads), and the KV kernels' modes at 7 / 1 heads. Returns the cases
+    (shapes labelled "tp", "sp" or "pp")."""
+    from rten_tpu_torch.models import decoder
+
+    randn, pack, norm_vecs, bf16_err, record, cases = check_tools(torch)
+    cfg = decoder.DecoderConfig(dtype=torch.bfloat16)  # head dim 64; the shape lists below name every width
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, t = QWEN2["d_model"], TP_LOCAL
+    check_gemv_kernels(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record, mlp=False, shapes=[
+        ("tp q+bias", d, t["q"], None, "bias", None), ("tp k+bias", d, t["kv"], None, "bias", None),
+        ("tp gate", d, t["ff"], None, "", None), ("tp wo partial f32", t["q"], d, None, "logits", None),
+        ("tp down partial f32", t["ff"], d, None, "logits", None),
+        ("tp lm_head f32", d, t["vocab"], None, "logits", None)])
+    torch.cuda.empty_cache()
+    ff, vocab = QWEN2_CFG["d_ff"], 2 * t["vocab"]
+    shapes = [("tp q M=64", 64, t["q"], d, None, True, bf16), ("tp k M=64", 64, t["kv"], d, None, True, bf16),
+              ("tp gate M=64", 64, t["ff"], d, None, False, bf16),
+              ("tp wo partial M=64", 64, d, t["q"], None, False, f32),
+              ("tp down partial M=64", 64, d, t["ff"], None, False, f32),
+              ("sp q M=512", 512, d, d, None, True, bf16), ("sp k M=512", 512, 128, d, None, True, bf16),
+              ("sp gate M=512", 512, ff, d, None, False, bf16), ("sp down M=512", 512, d, ff, None, False, bf16),
+              ("sp lm_head M=512", 512, vocab, d, None, False, f32)]
+    fa = [("tp Tq=64 kv_len=64", 1, t["hq"], t["hk"], 64, QWEN2_CACHE, True, 0, 64),
+          ("pp B=2 Tq=128", 2, QWEN2["n_heads"], QWEN2["n_kv_heads"], 128, 128, True, 0, 128)]
+    check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record, shapes=shapes, fa_cases=fa)
+    torch.cuda.empty_cache()
+    check_gqa_kernels(torch, bound, randn, pack, record, heads=(t["hq"], t["hk"]), tag="tp ",
+                      kinds=("decode_attention:no_wo", "decode_attention_int8:gqa", "paged_decode_attention:gqa",
+                             "paged_decode_attention_int8:gqa"),
+                      lens_cases={k: KV_LENS[k] for k in ("B=1 kv_len=300", "B=8 mixed")})
+    torch.cuda.empty_cache()
+    return cases
+
+
+def qwen2_par_params(torch, cfg, dev, dense: bool = False, seed: int = 0) -> dict:
+    """The Qwen2-0.5B shape's params made on the card from one seed, the
+    same on every rank: unfused int8 packs (random codes and per-column
+    scales, as phase 3's ``pack``; the lm_head, a tied head's copy, padded
+    to 152576 columns as ``quantize_params_int8`` pads it) with f32 vectors,
+    or (``dense``) bf16 matrices of std 0.02; q/k/v biases, RMSNorm scales
+    near 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16, f32 = torch.bfloat16, torch.float32
+    vec_dtype = bf16 if dense else f32
+
+    def vec(n, scale=0.02, base=0.0):
+        return (base + scale * torch.randn(n, generator=gen, device=dev)).to(vec_dtype)
+
+    def mat(k, n, pad_n=0):
+        if dense:
+            return (0.02 * torch.randn(k, n, generator=gen, device=dev)).to(bf16)
+        qt = torch.randint(-127, 128, (n + pad_n, k), generator=gen, device=dev, dtype=torch.int8)
+        qt[n:] = 0
+        s = torch.rand(n + pad_n, generator=gen, device=dev) * (0.04 / 127) + 0.01 / 127
+        return {"qt": qt, "s": s, "tiled": False}
+
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    q, kv = cfg.n_heads * hd, cfg.kv_heads * hd
+    params = {"tok_emb": (0.02 * torch.randn(cfg.vocab_size, d, generator=gen, device=dev)).to(bf16),
+              "final_norm": {"scale": vec(d, 0.05, 1.0)}, "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "ln1": {"scale": vec(d, 0.05, 1.0)}, "ln2": {"scale": vec(d, 0.05, 1.0)},
+            "wq": mat(d, q), "wk": mat(d, kv), "wv": mat(d, kv), "bq": vec(q), "bk": vec(kv), "bv": vec(kv),
+            "wo": mat(q, d), "w_gate": mat(d, ff), "w_up": mat(d, ff), "w_down": mat(ff, d)})
+    if dense:
+        params["lm_head"] = params["tok_emb"].t().contiguous()
+    else:
+        params["lm_head"] = mat(d, cfg.vocab_size, -cfg.vocab_size % 1024)
+    return params
+
+
+def logits_gate(torch, what: str, got, ref) -> dict:
+    """The phase's accuracy gate on f32 logits [rows, vocab]: relative RMS
+    at most PAR_GATE, and each row's argmax the reference's or, where not,
+    the reference's top-2 gap below GAP_TOL."""
+    got, ref = got.float().reshape(-1, got.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    rel = (torch.sqrt(((got - ref) ** 2).mean()) / torch.sqrt((ref ** 2).mean())).item()
+    top2 = torch.topk(ref, 2, dim=-1).values
+    differ = got.argmax(-1) != ref.argmax(-1)
+    worst = float((top2[:, 0] - top2[:, 1])[differ].max()) if bool(differ.any()) else 0.0
+    if not (rel <= PAR_GATE and worst < GAP_TOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what}: relative RMS {rel:.4g} (gate {PAR_GATE}); argmax differs at "
+                             f"{int(differ.sum())} rows, largest reference top-2 gap there {worst:.4g} (< {GAP_TOL})")
+    return dict(rel_rms=rel, argmax_differ=int(differ.sum()), rows=int(got.shape[0]), worst_gap=worst)
+
+
+def par_tp(torch, mesh, cfg, full, local, kv: str) -> dict:
+    """(a): the 64-token prompt through tp_prefill, then PAR_STEPS[kv] - 1
+    greedy tp_decode_steps in a 1024-position cache (kv "bf16" or "int8"):
+    host ms a step, device ms a step by kernel (profiler), launches a step;
+    then PAR_FORCED teacher-forced steps' logits, and on rank 0 the same
+    through the one-rank port path on the whole tree against them."""
+    import collections
+    import dataclasses
+
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.parallel import init_cache
+    from rten_tpu_torch.parallel.tp import tp_decode_step, tp_prefill
+
+    dev = mesh.device
+    c = dataclasses.replace(cfg, int8_kv=kv == "int8")
+    gen = torch.Generator().manual_seed(16)
+    prompt = torch.randint(0, cfg.vocab_size, (1, N_PROMPT), generator=gen, dtype=torch.int32).to(dev)
+    cache = init_cache(c, 1, QWEN2_CACHE, mesh)
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    mesh.routes.clear()
+    t0 = time.perf_counter()
+    tok, cache = tp_prefill(local, c, prompt, cache, mesh=mesh, lm_head_mode="argmax", last_only=True)
+    stream = [int(tok.view(-1)[0])]
+    ttft = (time.perf_counter() - t0) * 1e3
+    launches = collections.Counter(dispatch.LAUNCHES)
+    dispatch.reset_counters()
+    mesh.seconds.clear()
+    tok = tok.view(1, 1)
+    toks = [tok]
+    t1 = time.perf_counter()
+    steps = PAR_STEPS[kv] - 1
+    for _ in range(steps):
+        tok, cache = tp_decode_step(local, c, tok.view(1, 1), cache, mesh=mesh, lm_head_mode="argmax")
+        toks.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    host_ms = wall * 1e3 / steps
+    collective_share = sum(mesh.seconds.values()) / wall  # staging copies and gloo waits inside the collectives
+    per_step = {k: v / steps for k, v in dispatch.LAUNCHES.items()}
+    plain = dict(dispatch.PLAIN)
+    launches.update(dispatch.LAUNCHES)
+    stream = [int(t.view(-1)[0]) for t in toks]
+    attn = "decode_attention_int8:gqa" if kv == "int8" else "decode_attention:no_wo"
+    gemvs = cfg.n_layers * 7 + 1  # q, k, v, wo, gate, up, down a layer, the lm_head
+    if plain or per_step.get(attn) != cfg.n_layers or per_step.get("quant_gemv_int8") != gemvs:
+        raise AssertionError(f"(a) {kv}: a decode step must launch {attn} {cfg.n_layers} times and the GEMV "
+                             f"{gemvs} times, no plain version: {per_step} plain {plain}")
+    routes = dict(mesh.routes)
+
+    def one_step():
+        nonlocal tok, cache
+        tok, cache = tp_decode_step(local, c, tok.view(1, 1), cache, mesh=mesh, lm_head_mode="argmax")
+
+    by_kernel, _calls = profile_by_kernel(torch, one_step, 8)
+    device_ms = sum(by_kernel.values()) / 1e3
+    copies_ms = sum(v for k, v in by_kernel.items() if "Memcpy" in k or "memcpy" in k) / 1e3
+
+    # Teacher-forced: the prompt, then the stream's first PAR_FORCED - 1 tokens.
+    forced = torch.tensor(stream[: PAR_FORCED - 1], dtype=torch.int32, device=dev).view(-1, 1, 1)
+    cache = init_cache(c, 1, QWEN2_CACHE, mesh)
+    rows = [tp_prefill(local, c, prompt, cache, mesh=mesh, last_only=True)[0][:, -1]]
+    for t in forced:
+        rows.append(tp_decode_step(local, c, t, cache, mesh=mesh)[0][:, -1])
+    got = torch.cat(rows)
+    out = dict(stream=stream, ttft_ms=ttft, host_ms=host_ms, device_ms=device_ms, copies_ms=copies_ms,
+               collective_share=collective_share, device_by_kernel=by_kernel, launches=dict(launches),
+               launches_per_step=per_step, routes=routes)
+    if mesh.axis_index(None) == 0:
+        ref_cache = decoder.init_cache(c, 1, QWEN2_CACHE, device=dev)
+        rows = [decoder.forward(full, c, prompt, ref_cache, last_only=True)[0][:, -1]]
+        for t in forced:
+            rows.append(decoder.forward(full, c, t, ref_cache)[0][:, -1])
+        out["gate"] = logits_gate(torch, f"(a) {kv} teacher-forced", got, torch.cat(rows))
+    return out
+
+
+def par_engines(torch, mesh, cfg, full) -> dict:
+    """(b): phase 9's 8 seeded requests through ServingEngine(mesh,
+    tp_mode="shard_map") on bf16 and int8 KV and PagedServingEngine(mesh)
+    with bf16 and int8 pages: streams, launches and ms a forward at 8 rows
+    (the run's steps that start with all 8 rows active: no admission in
+    them); on rank 0 each stream against the one-rank engine's
+    (solo_streams on the whole tree), the top-2 rule."""
+    import dataclasses
+    import random
+
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    rnd = random.Random(8)
+    specs = []
+    for _ in range(N_QWEN2_REQUESTS):
+        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*QWEN2_NEW_RANGE)
+        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    pages = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs)
+    cfg8 = dataclasses.replace(cfg, int8_kv=True)
+    makers = {
+        "slot": lambda: ServingEngine(full, cfg, max_batch=8, steps_per_tick=8, mesh=mesh, tp_mode="shard_map"),
+        "slot_int8": lambda: ServingEngine(full, cfg8, max_batch=8, steps_per_tick=8, mesh=mesh,
+                                           tp_mode="shard_map"),
+        "paged": lambda: PagedServingEngine(full, cfg, max_batch=8, n_pages=pages, page_size=SERVE_PAGE, mesh=mesh),
+        "paged_int8": lambda: PagedServingEngine(full, cfg, max_batch=8, n_pages=pages, page_size=SERVE_PAGE,
+                                                 int8_kv=True, mesh=mesh)}
+    out = {}
+    for kind, make in makers.items():
+        engine = make()
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        torch.cuda.synchronize()
+        dispatch.reset_counters()
+        mesh.routes.clear()
+        t0 = time.perf_counter()
+        full_s, full_fwd = 0.0, 0
+        while engine.has_work():
+            at_8, before, t_step = engine.n_active == 8, engine.steps, time.perf_counter()
+            engine.step()  # ends in its tokens' copy to the host
+            if at_8:
+                full_s += time.perf_counter() - t_step
+                full_fwd += engine.steps - before
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kv_kernel = "decode_attention:no_wo" if kind == "slot" else QWEN2_ENGINE_KERNELS[kind]
+        if not dispatch.LAUNCHES.get(kv_kernel) or dispatch.PLAIN:
+            raise AssertionError(f"(b) {kind}: {kv_kernel} not launched or plain calls: {dict(dispatch.LAUNCHES)} "
+                                 f"{dict(dispatch.PLAIN)}")
+        out[kind] = dict(streams=[r.output for r in reqs], wall_s=wall, forwards=engine.steps,
+                         ms_per_forward_8_rows=full_s * 1e3 / max(full_fwd, 1), forwards_at_8_rows=full_fwd,
+                         launches=dict(dispatch.LAUNCHES), routes=dict(mesh.routes))
+        del engine
+    if mesh.axis_index(None) == 0:
+        solo = {key: solo_streams(full, c, specs, mesh.device) for key, c in (("bf16", cfg), ("int8", cfg8))}
+        for kind, res in out.items():
+            ref, gaps = solo["int8" if kind.endswith("int8") else "bf16"]
+            res["differing"] = check_streams(f"(b) {kind} vs one-rank", res["streams"], ref, gaps)
+    return out
+
+
+def par_sp(torch, mesh, cfg, full) -> dict:
+    """(c): sp_prefill of 1024 seeded tokens (512 a rank) through ring
+    attention; on rank 0 the logits and every layer's k / v against the
+    one-rank prefill's."""
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.parallel.tp import sp_prefill
+
+    dev = mesh.device
+    gen = torch.Generator().manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PAR_SP_TOKENS), generator=gen, dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    mesh.routes.clear()
+    t0 = time.perf_counter()
+    logits, ks, vs = sp_prefill(full, cfg, tokens, mesh=mesh)
+    torch.cuda.synchronize()
+    out = dict(ms=(time.perf_counter() - t0) * 1e3, launches=dict(dispatch.LAUNCHES), plain=dict(dispatch.PLAIN),
+               routes=dict(mesh.routes))
+    if dispatch.PLAIN or not dispatch.LAUNCHES.get("quant_matmul_int8"):
+        raise AssertionError(f"(c): plain calls or no quant_matmul_int8: {out['launches']} {out['plain']}")
+    if mesh.axis_index(None) == 0:
+        cache = decoder.init_cache(cfg, 1, PAR_SP_TOKENS, device=dev)
+        ref, cache = decoder.prefill(full, cfg, tokens, cache)
+        out["gate"] = logits_gate(torch, "(c) sp_prefill logits", logits, ref)
+        kv_rel = max((torch.sqrt(((a.float() - b.float()) ** 2).mean()) / torch.sqrt((b.float() ** 2).mean())).item()
+                     for got, want in ((ks, cache["k"]), (vs, cache["v"])) for a, b in zip(got, want))
+        if not kv_rel <= PAR_GATE:
+            raise AssertionError(f"(c): per-layer k / v relative RMS {kv_rel:.4g} > {PAR_GATE}")
+        out["kv_rel_rms"] = kv_rel
+    return out
+
+
+def par_pp(torch, cfg, dev) -> dict:
+    """(d): pp_forward over a 2-stage pipe axis (12 layers a stage), dense
+    bf16 weights of the Qwen2 shape (seed 1), 4 sequences of 128 tokens in 2
+    microbatches; on rank 0 against the one-rank dense forward."""
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.parallel.mesh import Mesh
+    from rten_tpu_torch.parallel.pp import pp_forward, stack_layer_params
+
+    pipe = Mesh({"pipe": PAR_PP["stages"]}, device=dev)
+    dense = qwen2_par_params(torch, cfg, dev, dense=True, seed=1)
+    stacked = stack_layer_params(dense)
+    gen = torch.Generator().manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab_size, (PAR_PP["batch"], PAR_PP["tokens"]), generator=gen,
+                           dtype=torch.int32).to(dev)
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    logits = pp_forward(stacked, cfg, tokens, mesh=pipe, n_microbatches=PAR_PP["microbatches"])
+    torch.cuda.synchronize()
+    out = dict(ms=(time.perf_counter() - t0) * 1e3, launches=dict(dispatch.LAUNCHES), plain=dict(dispatch.PLAIN),
+               routes=dict(pipe.routes))
+    if dispatch.PLAIN or dispatch.LAUNCHES.get("flash_attention") != cfg.n_layers // PAR_PP["stages"] * PAR_PP[
+            "microbatches"]:
+        raise AssertionError(f"(d): each stage must launch flash_attention once a layer a microbatch: {out}")
+    if pipe.axis_index(None) == 0:
+        ref, _ = decoder.forward(dense, cfg, tokens, None)
+        out["gate"] = logits_gate(torch, "(d) pp_forward logits", logits, ref)
+    return out
+
+
+def par_overlap(torch, mesh) -> dict:
+    """(e): the three overlapped collective matmuls at GPT-2's MLP widths
+    (f32, K over the ranks) against the unfused pair, and ring attention
+    (H 12, D 64, T 1024, f32, causal) against one-rank attention."""
+    from rten_tpu_torch.kernels.ring_attention import ring_attention_sharded
+    from rten_tpu_torch.models import ieee
+    from rten_tpu_torch.parallel import overlap
+
+    dev, i, p = mesh.device, mesh.axis_index("model"), mesh.axis_size("model")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    m, k, n = PAR_OVERLAP["m"], PAR_OVERLAP["k"], PAR_OVERLAP["n"]
+    x, w = torch.randn(m, k, generator=gen, device=dev), torch.randn(k, n, generator=gen, device=dev)
+    kc, mc, nc = k // p, m // p, n // p
+    xs, ws, xr = x[:, i * kc:(i + 1) * kc], w[i * kc:(i + 1) * kc], x[i * mc:(i + 1) * mc]
+
+    def rel(a, b):
+        return (torch.sqrt(((a.double() - b.double()) ** 2).mean()) / torch.sqrt((b.double() ** 2).mean())).item()
+
+    full = mesh.psum(ieee.matmul(xs, ws), "model")  # the unfused pair
+    runs = {"matmul_allreduce": (lambda: overlap.matmul_allreduce(xs, ws, mesh), full),
+            "matmul_reducescatter": (lambda: overlap.matmul_reducescatter(xs, ws, mesh), full[:, i * nc:(i + 1) * nc]),
+            "allgather_matmul": (lambda: overlap.allgather_matmul(xr, w, mesh),
+                                 ieee.matmul(mesh.all_gather(xr, "model", dim=0), w))}
+    out = {}
+    for name, (fn, want) in runs.items():
+        got = fn()
+        err = rel(got, want)
+        if not err <= PAR_OVERLAP_GATE:
+            raise AssertionError(f"(e) {name}: relative RMS {err:.3g} from the unfused pair > {PAR_OVERLAP_GATE}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = dict(rel_rms=err, ms=(time.perf_counter() - t0) * 1e2)
+    h, d, t = PAR_RING["h"], PAR_RING["d"], PAR_RING["t"]
+    q, kk, v = (torch.randn(1, h, t, d, generator=gen, device=dev) for _ in range(3))
+    got = ring_attention_sharded(mesh, q, kk, v, causal=True)
+    with ieee.ieee_f32():
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kk) / math.sqrt(d)
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool, device=dev).triu(1), -math.inf)
+        want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+    err = rel(got, want)
+    if not err <= PAR_RING_GATE:
+        raise AssertionError(f"(e) ring_attention: relative RMS {err:.3g} from one-rank attention > {PAR_RING_GATE}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring_attention_sharded(mesh, q, kk, v, causal=True)
+    torch.cuda.synchronize()
+    out["ring_attention"] = dict(rel_rms=err, ms=(time.perf_counter() - t0) * 1e3)
+    out["routes"] = dict(mesh.routes)
+    # Where a staged collective's time goes: an all-reduce of one 896-wide
+    # f32 row (a decode step's) on host tensors (the transport alone), on a
+    # card tensor, and on one a kernel has just written; a blocking copy of
+    # it to the host alone. ms each, the median of 5 runs of 20.
+    row = torch.ones(1, QWEN2["d_model"], device=dev)
+    host_row = row.cpu()
+    cases = {"all_reduce host": lambda: mesh.psum(host_row, "model"),
+             "all_reduce card": lambda: mesh.psum(row, "model"),
+             "all_reduce card after a kernel": lambda: mesh.psum(row.add_(0.0), "model"),
+             "copy to host after a kernel": lambda: row.add_(0.0).cpu()}
+    lat = {}
+    for name, fn in cases.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            runs.append((time.perf_counter() - t0) * 1e3 / 20)
+        lat[name] = statistics.median(runs)
+    out["latency_ms"] = lat
+    return out
+
+
+def par_supervisor(torch, mesh, cfg, full, want) -> dict:
+    """(f): (b)'s requests through a ServingSupervisor over the bf16 slot
+    engine (one forward a step), a failure injected on rank 1 after step
+    PAR_TICK_FAIL, snapshots every PAR_SNAPSHOT steps: the streams equal
+    ``want``, (b)'s uninterrupted ones."""
+    import random
+
+    from rten_tpu_torch.parallel.multihost import ServingSupervisor
+    from rten_tpu_torch.serve import Request, ServingEngine
+
+    armed = [True]
+
+    class Failing(ServingEngine):
+        def step(self, n_steps=None):
+            out = super().step(n_steps)
+            if armed[0] and mesh.axis_index(None) == 1 and self.steps >= PAR_TICK_FAIL:
+                armed[0] = False
+                raise RuntimeError("injected failure on rank 1")
+            return out
+
+    rnd = random.Random(8)
+    specs = []
+    for _ in range(N_QWEN2_REQUESTS):
+        n, m = rnd.randint(*PROMPT_RANGE), rnd.randint(*QWEN2_NEW_RANGE)
+        specs.append(dict(prompt=[rnd.randrange(cfg.vocab_size) for _ in range(n)], max_new_tokens=m))
+    sup = ServingSupervisor(lambda: Failing(full, cfg, max_batch=8, mesh=mesh, tp_mode="shard_map"),
+                            snapshot_every=PAR_SNAPSHOT, max_restarts=2, mesh=mesh)
+    for i, s in enumerate(specs):
+        sup.submit(Request(**s, request_id=i))
+    t0 = time.perf_counter()
+    done = sup.run()
+    got = {r.request_id: r.output for r in done}
+    if sup.restarts != 1 or [got.get(i) for i in range(len(specs))] != want:
+        raise AssertionError(f"(f): {sup.restarts} restarts; streams equal to the uninterrupted run's: "
+                             f"{[got.get(i) == w for i, w in enumerate(want)]}")
+    return dict(restarts=sup.restarts, wall_s=time.perf_counter() - t0, requests=len(done))
+
+
+def parallel_rank(device="cuda") -> dict:
+    """One rank of phase 16: (a)-(f) in turn on this rank's card. Returns
+    each part's results (rank 0 with the gates against the one-rank path)."""
+    import torch
+
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.parallel import make_mesh, shard_decoder_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, PAR_RANKS, device=device)
+    dev = mesh.device
+    cfg = decoder.DecoderConfig(**QWEN2_CFG, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    full = qwen2_par_params(torch, cfg, dev)
+    local = shard_decoder_params(full, cfg, mesh)
+    torch.cuda.synchronize()
+    out = dict(rank=mesh.axis_index(None), device=str(dev), backend=mesh.backend,
+               params_s=time.perf_counter() - t0,
+               local_shapes={k: tuple(v["qt"].shape) for k, v in local["layers"][0].items() if isinstance(v, dict)
+                             and "qt" in v} | {"lm_head": tuple(local["lm_head"]["qt"].shape)})
+    out["a"] = {kv: par_tp(torch, mesh, cfg, full, local, kv) for kv in ("bf16", "int8")}
+    out["b"] = par_engines(torch, mesh, cfg, full)
+    out["c"] = par_sp(torch, mesh, cfg, full)
+    out["d"] = par_pp(torch, cfg, dev)
+    out["e"] = par_overlap(torch, mesh)
+    out["f"] = par_supervisor(torch, mesh, cfg, full, out["b"]["slot"]["streams"])
+    return out
+
+
+def drive_parallel(torch, bound, smi, out) -> tuple[dict, list]:
+    """Phase 16: the per-rank kernel checks in this process, then
+    parallel_rank on PAR_RANKS ranks (parallel.launch.run_ranks, the kernels
+    already built: each rank loads the library). Prints one line a part
+    and returns (the launches of (a)-(d) summed over the ranks, the kernel
+    cases)."""
+    from rten_tpu_torch.parallel import run_ranks
+
+    t_phase = time.perf_counter()
+    cases = check_tp_kernels(torch, bound)
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ran = run_ranks(parallel_rank, PAR_RANKS, device="cuda", timeout_s=PAR_TIMEOUT)
+    ranks = ran.results
+    r0 = ranks[0]
+    log(f"  {PAR_RANKS} ranks, backend {ran.backend}, devices {ran.devices}; the per-rank kernel checks "
+        f"{t_ranks - t_phase:.1f} s, the ranks {time.perf_counter() - t_ranks:.1f} s; params {r0['params_s']:.1f} s "
+        f"a rank; rank 0's shapes {r0['local_shapes']}; card {smi}")
+    launches: dict = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    for kv in ("bf16", "int8"):
+        a = [r["a"][kv] for r in ranks]
+        for r in a:
+            add(r["launches"])
+        if any(r["stream"] != a[0]["stream"] for r in a):
+            raise AssertionError(f"(a) {kv}: the ranks' streams differ")
+        log(f"  (a) tp {kv} KV [{ran.backend}] routes {a[0]['routes']}; time to first token {a[0]['ttft_ms']:.2f} ms; "
+            f"host ms a step {a[0]['host_ms']:.3f} ({1e3 / a[0]['host_ms']:.1f} tokens/s); device ms a step by rank "
+            f"{[round(r['device_ms'], 4) for r in a]} (host-device copies {[round(r['copies_ms'], 4) for r in a]}); "
+            f"the collectives' share of the host step {a[0]['collective_share']:.3f}; "
+            f"launches a step {a[0]['launches_per_step']}; gate {r0['a'][kv]['gate']}; {smi}")
+    b0 = r0["b"]
+    for kind, res in b0.items():
+        for r in ranks:
+            add(r["b"][kind]["launches"])
+            if r["b"][kind]["streams"] != res["streams"]:
+                raise AssertionError(f"(b) {kind}: the ranks' streams differ")
+        log(f"  (b) {kind} [{ran.backend}] routes {res['routes']}; {res['forwards']} forwards in "
+            f"{res['wall_s']:.3f} s; ms a forward at 8 rows {res['ms_per_forward_8_rows']:.3f} (over "
+            f"{res['forwards_at_8_rows']}); streams differing from the one-rank engine's "
+            f"(top-2 rule) {res['differing']}; launches {res['launches']}; {smi}")
+    for part, what in (("c", "sp_prefill 1024 tokens"), ("d", "pp_forward 2 stages x 12 layers")):
+        for r in ranks:
+            add(r[part]["launches"])
+        log(f"  ({part}) {what} [{ran.backend}] routes {r0[part]['routes']}; {r0[part]['ms']:.2f} ms; gate "
+            f"{r0[part]['gate']}" + (f"; k / v relative RMS {r0[part]['kv_rel_rms']:.4g}" if part == "c" else "")
+            + f"; launches {r0[part]['launches']}; {smi}")
+    e = r0["e"]
+    log(f"  (e) overlap and ring [{ran.backend}] routes {e['routes']}; "
+        + "; ".join(f"{k} rel RMS {v['rel_rms']:.3g} {v['ms']:.3f} ms" for k, v in e.items()
+                    if k not in ("routes", "latency_ms"))
+        + "; collective ms " + ", ".join(f"{k} {v:.4f}" for k, v in e["latency_ms"].items()) + f"; {smi}")
+    log(f"  (f) supervisor [{ran.backend}] restarts {r0['f']['restarts']}, {r0['f']['requests']} requests in "
+        f"{r0['f']['wall_s']:.2f} s, streams equal to (b)'s uninterrupted run; {smi}")
+    out["parallel"] = dict(backend=ran.backend, devices=ran.devices, ranks=ranks, launches=launches,
+                           seconds=time.perf_counter() - t_phase)
+    return launches, cases
+
+
+def parallel_only(torch, bound, detail, kind, smi, label: str) -> int:
+    """``--parallel LABEL``: phase 16 (drive_parallel) alone after phases
+    1-2, written to chiprun_out/parallel_LABEL.json; its last line is
+    marked partial."""
+    log("[3/3] parallel: per-rank kernel shapes, then tp / engines / sp / pp / overlap / supervisor on 2 ranks")
+    launches, cases = drive_parallel(torch, bound, smi, detail)
+    detail["cases"] = cases
+    (OUT_DIR / f"parallel_{label}.json").write_text(json.dumps(detail, indent=1, default=str))
+    print(smi)
+    print(json.dumps({"partial": "parallel", "kind": kind, "label": label, "launches": launches,
+                      "seconds": detail["parallel"]["seconds"]}))
+    return 0
+
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -5213,6 +5798,8 @@ def main() -> int:
                         help="the lifted path's kernel modes and phase 14 alone (files_only)")
     parser.add_argument("--text", metavar="LABEL",
                         help="phase 15 alone: tokenizers, the example apps, the trace (text_only)")
+    parser.add_argument("--parallel", metavar="LABEL",
+                        help="phase 16 alone: per-rank kernel shapes and the 2-rank parallel paths (parallel_only)")
     parser.add_argument("--package", metavar="DIR",
                         help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
@@ -5234,7 +5821,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log("[1/16] device")
+    log(f"[1/17] ({time.perf_counter() - t_start:.1f} s) device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -5247,7 +5834,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log("[2/16] build")
+    log(f"[2/17] ({time.perf_counter() - t_start:.1f} s) build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -5283,7 +5870,10 @@ def main() -> int:
         return files_only(torch, bound, detail, kind, smi, opts.files)
     if opts.text:
         return text_only(torch, detail, kind, smi, opts.text)
-    log("[3/16] kernels against their plain versions (GPT-2-small shapes, bf16)")
+    if opts.parallel:
+        return parallel_only(torch, bound, detail, kind, smi, opts.parallel)
+    log(f"[3/17] ({time.perf_counter() - t_start:.1f} s) "
+        "kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
     detail["cases"] = cases
@@ -5292,43 +5882,53 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log("[4/16] GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
+    log(f"[4/17] ({time.perf_counter() - t_start:.1f} s) "
+        "GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log("[5/16] continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
+    log(f"[5/17] ({time.perf_counter() - t_start:.1f} s) "
+        "continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[6/16] W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
+    log(f"[6/17] ({time.perf_counter() - t_start:.1f} s) "
+        "W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[7/16] mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
+    log(f"[7/17] ({time.perf_counter() - t_start:.1f} s) "
+        "mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log("[8/16] tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
+    log(f"[8/17] ({time.perf_counter() - t_start:.1f} s) "
+        "tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[9/16] Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
+    log(f"[9/17] ({time.perf_counter() - t_start:.1f} s) "
+        "Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log("[10/16] generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
+    log(f"[10/17] ({time.perf_counter() - t_start:.1f} s) "
+        "generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[11/16] whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
+    log(f"[11/17] ({time.perf_counter() - t_start:.1f} s) "
+        "whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log("[12/16] encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
+    log(f"[12/17] ({time.perf_counter() - t_start:.1f} s) "
+        "encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
         "INT8, ResNet-50 fp32")
     phase12, f32_runs = drive_encoders(torch, detail)
     for name, n in phase12.items():
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] = f32_runs.get(name, 0)
-    log("[13/16] the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
+    log(f"[13/17] ({time.perf_counter() - t_start:.1f} s) "
+        "the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
         "one CUDA graph a bucket")
     for name, n in drive_graph(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
@@ -5341,20 +5941,31 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log("[14/16] model files: .rten save / load / mmap, ONNX convert --quantize, the CLI, lifting onto the "
+    log(f"[14/17] ({time.perf_counter() - t_start:.1f} s) "
+        "model files: .rten save / load / mmap, ONNX convert --quantize, the CLI, lifting onto the "
         "dense-weight route (GPT-2-small, Whisper-tiny)")
     for name, n in drive_files(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
         if name in ("quant_matmul_int8", "flash_attention"):
             launches[f"{name}:f32"] += n  # f32 activations: the SIMT route, the f32 flash kernel
-    log("[15/16] text in, text out: README tokenizers, gpt2.py (GPT-2-small int8 and its f32 file), bert_qa.py "
+    log(f"[15/17] ({time.perf_counter() - t_start:.1f} s) "
+        "text in, text out: README tokenizers, gpt2.py (GPT-2-small int8 and its f32 file), bert_qa.py "
         "(BERT-base), the profiler's trace, the native library")
     phase15, f32_text = drive_text(torch, detail)
     for name, n in phase15.items():
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] += f32_text.get(name, 0)  # (c) and (d): the f32 routes
-    log("[16/16] summary")
+    torch.cuda.empty_cache()
+    log(f"[16/17] ({time.perf_counter() - t_start:.1f} s) "
+        "parallel: the Qwen2-0.5B shape over 2 ranks (tensor parallelism through tp_decode_step and the "
+        "engines, sp_prefill, pp_forward, the overlapped matmuls and ring attention, the supervisor)")
+    phase16, tp_cases = drive_parallel(torch, bound, smi, detail)
+    one_launch_a_call(tp_cases)
+    cases += tp_cases
+    for name, n in phase16.items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"[17/17] ({time.perf_counter() - t_start:.1f} s) summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

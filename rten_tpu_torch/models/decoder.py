@@ -76,22 +76,28 @@ them on ``quant_matmul_int8``); that includes its lm_head at ≤ 8 rows
 (``last_only``), which runs ``_norm`` and the prefill projection as the
 JAX package runs it on every row.
 
-**Dense weights** (no int8 pack in the tree: ``init_params``,
-``from_hf_*``, ``params_from_jax`` of a dense tree, ``models.lift``): the
-JAX package's TPU branch on dense ``[K, N]`` matrices, which its int8 kernel
-branches (GEMV, MLP, mega, W8A8, the fused wo) never take. Each projection
-is a plain matmul in IEEE f32 (``ieee.matmul``; the JAX package's
-``dispatch.matmul`` at HIGHEST precision, outside any Pallas kernel) after
-the plain norm, its bias and activation added outside, in the model dtype:
-``wq``, ``wk`` and ``wv`` apart, ``wo`` and the MLP's down plus the
-residual, SwiGLU's ``w_gate`` and ``w_up``. One token a row on a bf16/f32
-cache is ``decode_attention`` without its wo, a prompt causal
-``flash_attention``; the int8 and paged caches take their KV kernels as
-above. The head is ``x @ lm_head`` where the params hold an ``lm_head``,
-else the tied ``x @ tok_emb``ᵀ, then the argmax. ``mega``, ``w8a8`` and
-``fuse`` change nothing on this route, and ``d_model`` need not be a
-multiple of 128: on the card the kernels' head dims (64, 128) are the limit.
-A tree that mixes packs and dense projections is refused.
+**The per-projection route** (a tree with any dense projection, or with
+unfused q/k/v: ``init_params``, ``from_hf_*``, ``params_from_jax`` of a
+dense tree, ``models.lift``, ``quantize_params_int8`` below its 2^16-element
+threshold or with ``fuse=False``): the JAX package's ``_proj`` on each
+matrix as it finds it, which its fused int8 kernel branches (the GEMV with
+the norm fused, the MLP, mega, W8A8, the fused wo) never take. After the
+plain norm each projection is, for a dense ``[K, N]`` matrix, a plain matmul
+in IEEE f32 (``ieee.matmul``; the JAX package's ``dispatch.matmul`` at
+HIGHEST precision, outside any Pallas kernel), its bias and activation added
+outside, in the model dtype; for an int8 pack, ``quant_matmul_int8`` (the
+GEMV at ≤ 8 rows) with its bias and activation in the kernel's epilogue
+(``_proj``): the fused ``wqkv`` or ``wq``, ``wk`` and ``wv`` apart, ``wo``
+and the MLP's down plus the residual, ``w_gu`` or SwiGLU's ``w_gate`` and
+``w_up``. One token a row on a bf16/f32 cache is ``decode_attention``
+without its wo, a prompt causal ``flash_attention``; the int8 and paged
+caches take their KV kernels as above. The head is the params' ``lm_head``
+or tied ``lm_head_q`` (a pack through ``quant_matmul_int8`` in f32, a dense
+matrix through ``x @ head``), else the tied ``x @ tok_emb``ᵀ, then the
+argmax. ``mega``, ``w8a8`` and ``fuse`` change nothing on this route, and
+``d_model`` need not be a multiple of 128: on the card the kernels' head
+dims (64, 128) are the limit. A tree whose every projection is a pack and
+whose q/k/v are fused keeps the fused int8 route above.
 
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
@@ -340,7 +346,7 @@ def _mark_tiled(params: dict, tile_bn: int) -> None:
             mark(wqkv)
 
 
-def quantize_params_int8(params: dict, device="cuda") -> dict:
+def quantize_params_int8(params: dict, device="cuda", *, fuse: bool = True) -> dict:
     """INT8 decode params from dense ones, by the JAX package's rules
     (``rten_tpu/models/decoder.py`` ``quantize_params_int8``): every 2-D
     matrix of ≥ 2^16 elements is quantized per output channel after
@@ -351,7 +357,11 @@ def quantize_params_int8(params: dict, device="cuda") -> dict:
     quantized in place, tied embeddings get their own ``lm_head_q``.
     Embeddings stay dense in their dtype; every vector becomes f32 ``[N]``.
     The packs the JAX package would tile at its default width (``_TILE_BN``)
-    are marked ``tiled`` (``_mark_tiled``); the port's layout is the same."""
+    are marked ``tiled`` (``_mark_tiled``); the port's layout is the same.
+
+    ``fuse=False`` leaves ``wq`` / ``wk`` / ``wv`` and ``w_gate`` / ``w_up``
+    apart and marks nothing tiled, as the JAX package's ``fuse=False`` (the
+    tree that tensor parallelism shards by columns, ``parallel.mesh``)."""
     dev = resolve_device(device)
     dtype = params["tok_emb"].dtype
 
@@ -385,8 +395,8 @@ def quantize_params_int8(params: dict, device="cuda") -> dict:
     out = walk({k: v for k, v in params.items() if k != "layers"})
     out["layers"] = []
     for src in src_layers:
-        fuse_qkv = sum(src[k].shape[1] for k in ("wq", "wk", "wv")) % 128 == 0
-        fuse_gu = "w_gate" in src and (2 * src["w_gate"].shape[1]) % 128 == 0
+        fuse_qkv = fuse and sum(src[k].shape[1] for k in ("wq", "wk", "wv")) % 128 == 0
+        fuse_gu = fuse and "w_gate" in src and (2 * src["w_gate"].shape[1]) % 128 == 0
         skip = (("wq", "wk", "wv", "bq", "bk", "bv") if fuse_qkv else ()) + (("w_gate", "w_up") if fuse_gu else ())
         layer = {k: walk(v, k) for k, v in src.items() if k not in skip}
         if fuse_qkv:
@@ -398,7 +408,8 @@ def quantize_params_int8(params: dict, device="cuda") -> dict:
         out["layers"].append(layer)
     if "lm_head" not in params:
         out["lm_head_q"] = matrix(_np_f32(params["tok_emb"]).T.copy())
-    _mark_tiled(out, _TILE_BN)
+    if fuse:
+        _mark_tiled(out, _TILE_BN)
     return out
 
 
@@ -410,7 +421,9 @@ def params_from_jax(tree: dict, cfg: DecoderConfig, device="cuda") -> dict:
     ``[S, K, bn]`` packs (K-padded ones, the untied ``lm_head``, ``w_gu``
     and ``w_gate`` among them) become ``int8_pack``s (a tiled one marked
     ``tiled``), the ``slabs`` duplicates are dropped, and ``[1, N]`` vectors
-    become f32 ``[N]``."""
+    become f32 ``[N]``. A tree that mixes packs and dense matrices (the JAX
+    quantizer's output below its size threshold) or keeps q/k/v apart
+    (``fuse=False``) is carried as it is, for the per-projection route."""
     return carry_tree(tree, cfg.dtype, _EMBEDDINGS + _MATRICES, resolve_device(device))
 
 
@@ -629,23 +642,46 @@ def _pack(layer, key):
     return pack
 
 
+_PROJECTIONS = ("wqkv", "wq", "wk", "wv", "wo", "w_gu", "w_gate", "w_up", "w_down")
+
+
 def _is_dense(params: dict) -> bool:
-    """Whether ``params`` is a dense tree: no int8 pack in a layer or in the
-    head (a tree with any pack takes the int8 route, which refuses a dense
-    projection)."""
-    if "lm_head_q" in params or _is_pack(params.get("lm_head")):
-        return False
-    return not any(_is_pack(v) for layer in params["layers"] for v in layer.values())
+    """Whether ``params`` takes the per-projection route: a layer without
+    the fused ``wqkv`` (``fuse=False``, or a dense tree), or any projection
+    or head that is a dense matrix. Every other tree, packs throughout with
+    q/k/v fused, takes the fused int8 route."""
+    head = params.get("lm_head_q", params.get("lm_head"))
+    if head is not None and not _is_pack(head):
+        return True
+    return any("wqkv" not in layer or any(k in layer and not _is_pack(layer[k]) for k in _PROJECTIONS)
+               for layer in params["layers"])
 
 
-def _dense_proj(x, w, bias=None, activation=None):
-    """``x @ w (+ bias)`` for a dense ``[K, N]`` matrix, the JAX package's
-    ``_proj`` on a dense weight (``decoder.py:546-550``): the product in
-    IEEE f32 (``ieee.matmul``), in the model dtype, then the bias, then the
-    activation in f32 rounded to the model dtype (GELU the exact erf one)."""
-    out = ieee.matmul(x, w)
+def _dense_proj(x, w, bias=None, activation=None, n: int | None = None, out_dtype=None):
+    """``x @ w (+ bias)`` of the rows x [M, K] as the JAX package's ``_proj``
+    (``decoder.py:502-550``) runs it on the matrix it finds, sliced to ``n``
+    columns where given (a pack's N may be padded). A dense ``[K, N]``
+    matrix: the product in IEEE f32 (``ieee.matmul``) in the model dtype,
+    then the bias, then the activation in f32 rounded to the model dtype
+    (GELU the exact erf one). An int8 pack: x zero-padded to the pack's K,
+    then ``quant_matmul_int8`` (the GEMV at ≤ 8 rows), its bias and
+    activation in the kernel's epilogue when the pack has ``n`` columns,
+    else added outside after the slice. ``out_dtype`` (no bias or
+    activation): the product in that dtype, unrounded (the tensor-parallel
+    path's f32 partials)."""
+    if _is_pack(w):
+        k, n_pack = w["qt"].shape[1], w["qt"].shape[0]
+        if x.shape[1] < k:
+            x = F.pad(x, (0, k - x.shape[1]))
+        if n is None or n == n_pack:
+            return quant_matmul_int8(x, w["qt"], w["s"], bias, activation=activation, out_dtype=out_dtype)
+        out = quant_matmul_int8(x, w["qt"], w["s"])[:, :n]
+    else:
+        out = ieee.matmul(x, w) if out_dtype is None else ieee.matmul(x.to(out_dtype), w.to(out_dtype))
+        if n is not None:
+            out = out[:, :n]
     if bias is not None:
-        out = out + bias
+        out = (out + bias).to(x.dtype)
     if activation is None:
         return out
     if activation == "gelu":
@@ -655,38 +691,57 @@ def _dense_proj(x, w, bias=None, activation=None):
 
 def _dense_qkv(layer: dict, cfg: DecoderConfig, x, b: int, t: int, rope):
     """q [B, T, H, D], k and v [B, T, Hk, D] of the rows x through ln1 and
-    the separate dense ``wq``, ``wk``, ``wv`` (and their biases), RoPE'd
-    with ``rope``'s tables where given."""
+    the fused ``wqkv`` (sliced apart) or the separate ``wq``, ``wk``, ``wv``
+    (and their biases), RoPE'd with ``rope``'s tables where given."""
+    h, hk, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     xn = _norm(x, layer["ln1"], cfg)
-    q, k, v = (_dense_proj(xn, layer[w], layer.get(bias)).view(b, t, n, cfg.head_dim)
-               for w, bias, n in (("wq", "bq", cfg.n_heads), ("wk", "bk", cfg.kv_heads),
-                                  ("wv", "bv", cfg.kv_heads)))
+    if "wqkv" in layer:
+        qkv = _dense_proj(xn, layer["wqkv"], layer.get("bqkv"), n=(h + 2 * hk) * hd)
+        return _split_heads(qkv, cfg, b, t, rope)
+    q, k, v = (_dense_proj(xn, layer[w], layer.get(bias), n=n * hd).view(b, t, n, hd)
+               for w, bias, n in (("wq", "bq", h), ("wk", "bk", hk), ("wv", "bv", hk)))
     if rope is not None:
         q, k = _rope(q, rope), _rope(k, rope)
     return q, k, v
 
 
 def _dense_mlp(layer: dict, cfg: DecoderConfig, x):
-    """The MLP half of a layer on dense weights: ln2, up (its bias and
-    activation) or SwiGLU's ``silu(gate) · up``, down, its bias, the
-    residual."""
+    """The MLP half of a layer on the per-projection route: ln2, up (its
+    bias and activation) or SwiGLU's ``silu(gate) · up`` (``w_gu`` sliced
+    apart, or ``w_gate`` and ``w_up``), down, its bias, the residual."""
+    ff = cfg.d_ff
     xn = _norm(x, layer["ln2"], cfg)
     if cfg.activation == "swiglu":
-        gate, up = _dense_proj(xn, layer["w_gate"]), _dense_proj(xn, layer["w_up"])
+        if "w_gu" in layer:
+            gu = _dense_proj(xn, layer["w_gu"], n=2 * ff)
+            gate, up = gu[:, :ff], gu[:, ff:]
+        else:
+            gate, up = _dense_proj(xn, layer["w_gate"], n=ff), _dense_proj(xn, layer["w_up"], n=ff)
         hidden = F.silu(gate.float()).to(x.dtype) * up
     else:
-        hidden = _dense_proj(xn, layer["w_up"], layer.get("b_up"), cfg.activation)
-    return x + _dense_proj(hidden, layer["w_down"], layer.get("b_down"))
+        hidden = _dense_proj(xn, layer["w_up"], layer.get("b_up"), cfg.activation, n=ff)
+    return x + _dense_proj(hidden, layer["w_down"], layer.get("b_down"), n=cfg.d_model)
+
+
+def head_logits(params: dict, xn):
+    """f32 logits of the normalized rows xn through the params' ``lm_head``
+    or tied ``lm_head_q`` (a pack through ``quant_matmul_int8`` with f32
+    logits; a dense matrix ``xn @ head`` in the model dtype, then f32) or
+    the tied ``xn @ tok_emb``ᵀ (``decoder.py:1123-1125``); every column the
+    head has, padded ones included."""
+    head = params.get("lm_head", params.get("lm_head_q"))
+    if head is None:
+        head = params["tok_emb"].t()
+    if _is_pack(head):
+        return _dense_proj(xn, head, out_dtype=torch.float32)
+    return ieee.matmul(xn, head).float()
 
 
 def _dense_lm_head(params: dict, cfg: DecoderConfig, x, mode: str):
-    """The final norm, then ``x @ lm_head`` (the params' untied head) or the
-    tied ``x @ tok_emb``ᵀ in the model dtype (``decoder.py:1123-1125``), as
-    f32 logits [M, vocab] or (``mode="argmax"``) the greedy tokens int32
-    [M] (the lowest index among equal maxima, as ``jnp.argmax``)."""
-    xn = _norm(x, params["final_norm"], cfg)
-    head = params["lm_head"] if "lm_head" in params else params["tok_emb"].t()
-    logits = ieee.matmul(xn, head)[:, : cfg.vocab_size].float()
+    """The final norm and ``head_logits``, as f32 logits [M, vocab] or
+    (``mode="argmax"``) the greedy tokens int32 [M] (the lowest index among
+    equal maxima, as ``jnp.argmax``)."""
+    logits = head_logits(params, _norm(x, params["final_norm"], cfg))[:, : cfg.vocab_size]
     return logits.argmax(-1).to(torch.int32) if mode == "argmax" else logits
 
 
@@ -1009,7 +1064,7 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
             else:
                 attn = _attention(q, k, v, cache, li, q_offset, kv_len)
             if dense:
-                x = x + _dense_proj(attn, layer["wo"], layer.get("bo"))
+                x = x + _dense_proj(attn, layer["wo"], layer.get("bo"), n=cfg.d_model)
             else:
                 x = _residual_proj(cfg, attn, wo, layer.get("bo"), x, small)
         if dense:

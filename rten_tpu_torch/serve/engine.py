@@ -30,7 +30,22 @@ slot at once.
 
 Any number of slots: a tick's forwards take the fused decode structure
 up to 8 rows and the prefill structure above, each with its cache's KV
-kernel. No mesh or tensor parallelism yet.
+kernel.
+
+**Under a mesh** (``mesh=``, a ``parallel.mesh.Mesh`` with ``data`` and
+``model`` axes) the engine is SPMD: every rank of the mesh builds it with
+the same params, config and requests, and drives it the same way. The
+params are sharded (``parallel.shard_decoder_params``, which cuts fused
+q|k|v and gate|up apart itself), each rank's cache holds its ``max_batch /
+data`` slots at its ``kv_heads / model`` heads, and every forward runs
+``parallel.tp``'s explicit tensor-parallel path: ``tp_mode="shard_map"``
+with the overlapped ring on dense weights, as the JAX engine's, and
+``"pjit"`` (the JAX engine's GSPMD propagation, which PyTorch has no
+counterpart of) without it. A slot's admission prefills on its data
+group's ranks. The tokens of each forward reach every rank from one
+(``parallel.tp.tp_sample``), so the ranks' host decisions (admission, EOS,
+budget) cannot part. The sharded path runs eagerly, each collective as it
+comes.
 """
 
 from __future__ import annotations
@@ -60,15 +75,27 @@ class Request:
     finished: bool = False
 
 
-def check_engine_options(max_batch: int, mesh, tp_mode: str = "pjit") -> None:
-    """The options the port's engines run: any ``max_batch`` ≥ 1 (up to 8
-    rows a step takes the fused decode structure, more the prefill one),
-    no mesh, ``tp_mode="pjit"``. Else NotImplementedError (a mesh or
-    another ``tp_mode``) or ValueError."""
-    if mesh is not None or tp_mode != "pjit":
-        raise NotImplementedError("mesh / tensor-parallel serving is not ported yet")
+def check_engine_options(max_batch: int, mesh, tp_mode: str = "pjit", cfg=None) -> None:
+    """The JAX engine's rules (``rten_tpu/serve/engine.py:176-180``): a
+    known ``tp_mode``, a mesh for ``"shard_map"``; and the port's:
+    ``max_batch`` ≥ 1 (up to 8 rows a step takes the fused decode
+    structure, more the prefill one), a multiple of the mesh's data axis,
+    and under a mesh neither W8A8 nor the whole-block decode (the
+    tensor-parallel path, as the JAX package's, has neither). ValueError
+    otherwise."""
+    if tp_mode not in ("pjit", "shard_map"):
+        raise ValueError(f"unknown tp_mode {tp_mode!r}")
+    if tp_mode == "shard_map" and mesh is None:
+        raise ValueError("tp_mode='shard_map' requires a mesh")
     if max_batch < 1:
         raise ValueError(f"max_batch must be at least 1, got {max_batch}")
+    if mesh is None:
+        return
+    if max_batch % mesh.shape.get("data", 1):
+        raise ValueError(f"max_batch {max_batch} is not a multiple of the mesh's data axis "
+                         f"{mesh.shape.get('data', 1)}")
+    if cfg is not None and (cfg.w8a8 or cfg.mega):
+        raise ValueError("the tensor-parallel path has no W8A8 or whole-block (mega) mode")
 
 
 def sample_step(params, cfg, tokens, cache, sampler: Sampler, rng, **kw):
@@ -113,17 +140,30 @@ class ServingEngine:
         device="cuda",
     ) -> None:
         """``cfg.int8_kv`` gives the slots an int8 cache with per-(token,
-        head) scales."""
-        check_engine_options(max_batch, mesh, tp_mode)
-        self.device = resolve_device(device)
+        head) scales. ``mesh``: see the module docstring; the engine then
+        lives on the mesh's device."""
+        check_engine_options(max_batch, mesh, tp_mode, cfg)
+        self.mesh = mesh
+        self.tp_mode = tp_mode
+        self.max_len = max_len or cfg.max_seq
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._rows = slice(0, max_batch)
+            self.cache = decoder.init_cache(cfg, max_batch, self.max_len, self.device)
+        else:
+            from rten_tpu_torch.parallel.mesh import init_cache, shard_decoder_params
+            from rten_tpu_torch.parallel.tp import data_rows
+
+            self.device = mesh.device
+            params = shard_decoder_params(params, cfg, mesh)
+            self._rows = data_rows(mesh, max_batch)
+            self.cache = init_cache(cfg, max_batch, self.max_len, mesh)
         self.sampler = sampler or ArgMaxSampler()
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
-        self.max_len = max_len or cfg.max_seq
         self.steps_per_tick = steps_per_tick
-        self.cache = decoder.init_cache(cfg, max_batch, self.max_len, self.device)
         self.slots: list[Request | None] = [None] * max_batch
         self.queue: deque[Request] = deque()
         self._last_tokens = np.zeros((max_batch,), np.int32)
@@ -213,24 +253,34 @@ class ServingEngine:
         ``_decode_k_steps``): tok [B, 1] int32, act [B] bool, budget [B]
         int32 (tokens each slot may still emit). Returns (the tick's tokens
         and active flags stacked as int32 [2, k, B], the next carry)."""
-        lens = self.cache["len"]
-        lens.mul_(act)  # inactive slots attend to nothing and append at 0
+        lens, rows = self.cache["len"], self._rows  # this rank's slots of the batch
+        lens.mul_(act[rows])  # inactive slots attend to nothing and append at 0
         host_len = self.cache["host_len"]
-        host_len[self._mirror_budget <= 0] = 0
+        host_len[self._mirror_budget[rows] <= 0] = 0
         toks, actives = [], []
         for i in range(k):
-            nxt = sample_step(self.params, self.cfg, tok, self.cache, self.sampler, self._rng)
+            nxt = self._sample(tok)
             hit_eos = (nxt == eos).any(1)
             act_next = act & ~hit_eos & (budget > i + 1)
-            lens.mul_(act_next)
+            lens.mul_(act_next[rows])
             self._mirror_budget -= 1
-            host_len[self._mirror_budget <= 0] = 0
+            host_len[self._mirror_budget[rows] <= 0] = 0
             toks.append(nxt[:, 0])
             actives.append(act)
             tok, act = nxt, act_next
         out = torch.stack([torch.stack(toks), torch.stack(actives).to(torch.int32)])
         budget_left = budget - out[1].sum(0, dtype=torch.int32)
         return out, (tok, act, budget_left)
+
+    def _sample(self, tok):
+        """One forward of the batch's last tokens [B, 1]; the next tokens
+        [B, 1] (under a mesh, the same on every rank)."""
+        if self.mesh is None:
+            return sample_step(self.params, self.cfg, tok, self.cache, self.sampler, self._rng)
+        from rten_tpu_torch.parallel.tp import tp_sample
+
+        return tp_sample(self.params, self.cfg, tok, self.cache, self.sampler, self._rng, mesh=self.mesh,
+                         overlap=self.tp_mode == "shard_map")
 
     def _dispatch_tick(self, carry, k: int | None = None):
         """Launch one tick from the device-side carry; returns ((the tick's
@@ -280,23 +330,51 @@ class ServingEngine:
             if first in req.eos_tokens or len(req.output) >= req.max_new_tokens:
                 req.finished = True
                 finished.append(req)
-                self.cache["len"][slot] = 0
-                self.cache["host_len"][slot] = 0
+                local = self._local(slot)
+                if local is not None:
+                    self.cache["len"][local] = 0
+                    self.cache["host_len"][local] = 0
             else:
                 self.slots[slot] = req
                 self._mirror_budget[slot] = req.max_new_tokens - len(req.output)
                 self._last_admitted.append(slot)
         return finished
 
+    def _local(self, slot: int) -> int | None:
+        """The row of this rank's cache that holds ``slot``, or None when
+        another data group holds it."""
+        rows = self._rows
+        return slot - rows.start if rows.start <= slot < rows.stop else None
+
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
-        self.cache["len"][slot] = 0
-        self.cache["host_len"][slot] = 0
-        first = prefill_first_token(self.params, self.cfg, decoder.row_view(self.cache, slot), req.prompt,
-                                    self.sampler, self._rng)
+        local = self._local(slot)
+        if local is not None:
+            self.cache["len"][local] = 0
+            self.cache["host_len"][local] = 0
+        if self.mesh is None:
+            first = prefill_first_token(self.params, self.cfg, decoder.row_view(self.cache, slot), req.prompt,
+                                        self.sampler, self._rng)
+        else:
+            first = self._mesh_first_token(req.prompt, slot, local)
         req.output.append(first)
         if req.on_token:
             req.on_token(first)
         self._last_tokens[slot] = first
+
+    def _mesh_first_token(self, prompt, slot: int, local: int | None) -> int:
+        """Admission under a mesh: the slot's data group prefills the prompt
+        into its row (``tp_sample`` of the prompt on the row's view); the
+        first token then reaches every data group from the owner's."""
+        from rten_tpu_torch.parallel.tp import tp_sample
+
+        tok = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+        if local is not None:
+            ids = torch.as_tensor(np.asarray(prompt, np.int32)[None], device=self.device)
+            tok = tp_sample(self.params, self.cfg, ids, decoder.row_view(self.cache, local), self.sampler,
+                            self._rng, mesh=self.mesh, overlap=self.tp_mode == "shard_map", local=True)
+        if self.mesh.shape.get("data", 1) > 1:
+            tok = self.mesh.broadcast(tok, "data", slot // (self._rows.stop - self._rows.start))
+        return int(tok.view(-1)[0])  # waits for the device
 
     # -- pipelined ticking -------------------------------------------------------
 

@@ -17,6 +17,14 @@ needs, or preempts the row (its pages released, its request requeued at
 the front and re-prefilled later) when the pool is empty; retirement
 (pages back to the free list at once). Inactive rows point their table at
 the pool's scratch page, so their append lands in memory no row reads.
+
+Under a mesh (``mesh=``, model axis only: a paged batch is scheduled on
+the host, not sharded) every rank builds the engine alike (SPMD): its pool
+holds its ``kv_heads / model`` heads (scale pages beside the payload), the
+page tables and the free list are the same on every rank, and each decode
+is ``parallel.tp.tp_paged_decode``'s forward with the tokens broadcast from
+one rank (``parallel.tp.tp_sample``); admission prefills through
+``tp_prefill`` into a batch-1 cache at the local heads.
 """
 
 from __future__ import annotations
@@ -122,8 +130,19 @@ class PagedServingEngine:
         pages; the admission prefill then runs on an int8 cache too, so the
         deeper layers see the same quantized-KV attention the contiguous
         int8 engine computes."""
-        check_engine_options(max_batch, mesh)
-        self.device = resolve_device(device)
+        check_engine_options(max_batch, mesh, cfg=cfg)
+        self.mesh = mesh
+        pool_cfg = cfg
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from rten_tpu_torch.parallel.mesh import local_config, shard_decoder_params
+
+            if mesh.shape.get("data", 1) != 1:
+                raise ValueError("a paged engine's mesh shards the model axis only (data axis 1)")
+            self.device = mesh.device
+            params = shard_decoder_params(params, cfg, mesh)
+            pool_cfg = local_config(cfg, mesh)
         self.sampler = sampler or ArgMaxSampler()
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self.params = params
@@ -131,7 +150,8 @@ class PagedServingEngine:
         self.max_batch = max_batch
         self.int8_kv = int8_kv
         self._prefill_cfg = dataclasses.replace(cfg, int8_kv=int8_kv)
-        self.pool = PagePool(cfg, n_pages, page_size, int8=int8_kv, device=self.device)
+        self._cache_cfg = dataclasses.replace(pool_cfg, int8_kv=int8_kv)  # admission's cache, at the local heads
+        self.pool = PagePool(pool_cfg, n_pages, page_size, int8=int8_kv, device=self.device)
         self.seqs: list[_Seq | None] = [None] * max_batch
         self.queue: deque[Request] = deque()
         self._last_tokens = np.zeros((max_batch,), np.int32)
@@ -202,7 +222,12 @@ class PagedServingEngine:
         if self.int8_kv:
             state["k_scale_pages"], state["v_scale_pages"] = self.pool.k_scales, self.pool.v_scales
         tokens = torch.from_numpy(self._last_tokens[:, None].copy()).to(self.device)
-        sampled = sample_step(self.params, self.cfg, tokens, state, self.sampler, self._rng)
+        if self.mesh is None:
+            sampled = sample_step(self.params, self.cfg, tokens, state, self.sampler, self._rng)
+        else:
+            from rten_tpu_torch.parallel.tp import tp_sample
+
+            sampled = tp_sample(self.params, self.cfg, tokens, state, self.sampler, self._rng, mesh=self.mesh)
         sampled = sampled.view(-1).cpu().numpy()  # the step's one copy to the host
         self.steps += 1
 
@@ -250,8 +275,15 @@ class PagedServingEngine:
             pages = self.pool.alloc(need)
             slot = self.seqs.index(None)
 
-            tmp = decoder.init_cache(self._prefill_cfg, 1, need * psz, self.device)
-            first = prefill_first_token(self.params, self._prefill_cfg, tmp, ctx, self.sampler, self._rng)
+            tmp = decoder.init_cache(self._cache_cfg, 1, need * psz, self.device)
+            if self.mesh is None:
+                first = prefill_first_token(self.params, self._prefill_cfg, tmp, ctx, self.sampler, self._rng)
+            else:
+                from rten_tpu_torch.parallel.tp import tp_sample
+
+                ids = torch.as_tensor(np.asarray(ctx, np.int32)[None], device=self.device)
+                first = int(tp_sample(self.params, self._prefill_cfg, ids, tmp, self.sampler, self._rng,
+                                      mesh=self.mesh).view(-1)[0])
             for li in range(self.cfg.n_layers):
                 self.pool.write_prefix(li, pages, tmp, len(ctx))
             req.output.append(first)

@@ -3269,3 +3269,91 @@ def test_bert_qa_app_on_card(dev, tmp_path):
     for k in ("start", "end"):
         _close(torch.from_numpy(card[k]), torch.from_numpy(cpu[k]), torch.float32)
     assert np.isfinite(card["start"]).all()
+
+
+# ---------------------------------------------------------------------------
+# parallel/: one rank's share of the Qwen2-0.5B shape over a model axis of 2
+# (7 query heads over 1 kv head, q 448, k / v 64, gate / up 2432, the wo
+# and down partials at K 448 and 2432 in f32, the lm_head's 76288 columns),
+# and the collectives on CUDA tensors.
+# ---------------------------------------------------------------------------
+
+TP_GEMV = [("q", 896, 448, "bias"), ("k", 896, 64, "bias"), ("gate", 896, 2432, None), ("wo", 448, 896, "f32"),
+           ("down", 2432, 896, "f32"), ("lm_head", 896, 76288, "f32")]
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("name,k,n,mode", TP_GEMV, ids=[c[0] for c in TP_GEMV])
+def test_tp_rank_projection_shapes(dev, m, name, k, n, mode):
+    """quant_matmul_int8 (the GEMV at ≤ 8 rows) at each per-rank projection
+    of the tensor-parallel path, bf16 rows, against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(k + n + m)
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    qt, s = _pack(gen, n, k, dev)
+    bias = 0.1 * torch.randn(n, generator=gen, device=dev) if mode == "bias" else None
+    out_dtype = torch.float32 if mode == "f32" else None
+    out = qm.quant_matmul_int8(x, qt, s, bias, out_dtype=out_dtype)
+    ref = qm.quant_matmul_int8_ref(x, qt, s, bias, out_dtype=out_dtype or torch.bfloat16)
+    _close(out, ref, out.dtype)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "paged", "paged_int8"])
+def test_tp_rank_kv_kernels_7_over_1(dev, kind):
+    """The KV kernels at one rank's heads (7 query heads over 1 kv head,
+    the group of 7 under a tile of 8), 4 rows of mixed lengths in an S 1024
+    cache (pages of 128), against their plain versions."""
+    from rten_tpu_torch.kernels import paged_attention as pa
+    from rten_tpu_torch.kernels.decode_attention import decode_attention_int8, decode_attention_int8_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, hq, hk, d, s_max, page = 4, 7, 1, 64, 1024, 128
+    lens = torch.tensor([0, 5, 300, 1000], dtype=torch.int32, device=dev)
+    ops = tuple(torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16) for h in (hq, hk, hk))
+    if kind.startswith("paged"):
+        shape = (b * s_max // page + 1, hk, page, d)
+        extra = [torch.randperm(b * s_max // page, generator=gen, device=dev).to(torch.int32).view(b, -1)]
+    else:
+        shape, extra = (b, hk, s_max, d), []
+    if kind.endswith("int8"):
+        cache = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in range(2)]
+        cache += [0.005 + 0.015 * torch.rand(shape[:3], generator=gen, device=dev) for _ in range(2)]
+    else:
+        cache = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
+    fns = {"bf16": (decode_attention, decode_attention_ref), "int8": (decode_attention_int8, decode_attention_int8_ref),
+           "paged": (pa.paged_decode_attention, pa.paged_decode_attention_ref),
+           "paged_int8": (pa.paged_decode_attention_int8, pa.paged_decode_attention_int8_ref)}[kind]
+    k_cache, p_cache = [t.clone() for t in cache], [t.clone() for t in cache]
+    out = fns[0](ops, *k_cache, *extra, lens)
+    ref = fns[1](ops, *p_cache, *extra, lens)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
+    assert all(torch.equal(a, c) for a, c in zip(k_cache, p_cache))
+
+
+def test_tp_rank_flash_attention_7_over_1(dev):
+    """The prompt's causal flash_attention at one rank's 7 / 1 heads (64
+    tokens into a 1024-position cache), against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(1, 7, 64, 64, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, 1, 1024, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, q_offset=torch.zeros(1, dtype=torch.int32, device=dev),
+              kv_len=torch.full((1,), 64, dtype=torch.int32, device=dev))
+    out = flash_attention(q, k[:, :, :64], v[:, :, :64], **kw)
+    ref = flash_attention_ref(q, k[:, :, :64], v[:, :, :64], **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+
+
+def test_collectives_on_cuda_tensors(dev):
+    """Two ranks on the card (gloo on one card, every collective staged
+    through host memory; NCCL with a card each): psum, all_gather, ppermute
+    and broadcast of tensors a kernel has just written equal what they
+    must, and each collective counts under its route."""
+    import torch_parallel_ranks as ranks
+    from rten_tpu_torch.parallel import run_ranks
+
+    ran = run_ranks(ranks.card_collectives, 2, 3.0, device="cuda", timeout_s=120)
+    route = "nccl" if ran.backend == "nccl" else "gloo-host"
+    for res in ran.results:
+        assert res["ok"] == [True] * 4 and res["backend"] == ran.backend
+        assert {k.split(":")[1] for k in res["routes"]} == {route}, res["routes"]

@@ -345,15 +345,21 @@ def test_generate_greedy_past_cache_raises():
 
 
 def test_dense_params_are_refused():
-    """A dense projection among int8 packs is refused; a tree with no pack
-    at all takes the dense-weight route (``tests/test_torch_lift.py``)."""
-    _, tcfg = configs()
-    dense = tdec.params_from_jax(dense_tree(0), tcfg, device="cpu")
-    params = tdec.quantize_params_int8(dense, device="cpu")
-    params["layers"][1]["wo"] = dense["layers"][1]["wo"]
-    cache = tdec.init_cache(tcfg, 1, 16, device="cpu")
-    with pytest.raises(ValueError, match="quantize_params_int8"):
-        tdec.forward(params, tcfg, torch.zeros((1, 1), dtype=torch.int32), cache)
+    """A dense projection among int8 packs is no longer refused (mixed
+    trees run since the per-projection route takes each matrix as it
+    finds it, as the JAX package's ``_proj`` does): such a tree takes that
+    route, and its forward matches the JAX package's on the same tree
+    (int8 tolerance, rtol / atol 1e-3)."""
+    jcfg, tcfg = configs()
+    tree = dense_tree(0)
+    jparams = jdec.quantize_params_int8(to_jax(tree))
+    jparams["layers"][1]["wo"] = jnp.asarray(tree["layers"][1]["wo"])
+    params = tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu")
+    assert tdec._is_dense(params) and not isinstance(params["layers"][1]["wo"], dict)
+    tokens = np.array([[3, 7, 11, 2]], np.int32)
+    want, _ = jdec.forward(jparams, jcfg, jnp.asarray(tokens), None, use_flash=False)
+    got, _ = tdec.forward(params, tcfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-3)
 
 
 def test_from_hf_gpt2_matches_jax_and_transformers():

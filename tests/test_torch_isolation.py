@@ -135,6 +135,31 @@ from rten_tpu_torch.utils import env_int, run_bench
 assert ByteLevelBPE({"a": 0, "b": 1, "ab": 2}, ["a b"])._bpe("abab") == ["ab", "ab"]
 assert len(find_contours(np.eye(4, dtype=bool))) == 1 and isinstance(native.available(), bool)
 assert env_int("RTEN_UNSET_FOR_TEST", 3) == 3 and len(run_bench(2, "x", lambda: 1).times_s) == 2 and StepTimer()
+import tempfile  # parallel/ and ring attention on a one-rank gloo world
+import torch.distributed as dist
+from rten_tpu_torch.kernels.ring_attention import ring_attention_sharded
+from rten_tpu_torch.parallel import init_cache, make_mesh, shard_decoder_params
+from rten_tpu_torch.parallel.multihost import ServingSupervisor, init_distributed
+from rten_tpu_torch.parallel.overlap import matmul_allreduce
+from rten_tpu_torch.parallel.pp import pp_forward, stack_layer_params
+from rten_tpu_torch.parallel.tp import sp_prefill, tp_decode_step
+assert init_distributed()["num_processes"] == 1 and not dist.is_initialized()
+dist.init_process_group("gloo", store=dist.FileStore(tempfile.mkdtemp() + "/store", 1), rank=0, world_size=1)
+mesh = make_mesh(1, 1, device="cpu")
+tcache = init_cache(cfg, 1, 32, mesh)
+tok, tcache = tp_decode_step(shard_decoder_params(params, cfg, mesh), cfg, torch.tensor([[3]], dtype=torch.int32),
+                             tcache, mesh=mesh, lm_head_mode="argmax")
+assert tok.shape == (1, 1) and int(tcache["len"][0]) == 1
+assert sp_prefill(params, cfg, prompt[:, :4], mesh=mesh)[0].shape == (1, 4, 300)
+dense = decoder.init_params(0, cfg, device="cpu")
+pipe = type(mesh)({"pipe": 1}, device="cpu")
+assert pp_forward(stack_layer_params(dense), cfg, prompt[:, :4], mesh=pipe).shape == (1, 4, 300)
+assert matmul_allreduce(torch.ones(2, 4), torch.ones(4, 3), mesh).shape == (2, 3)
+assert ring_attention_sharded(mesh, *[torch.randn(1, 2, 8, 16)] * 3).shape == (1, 2, 8, 16)
+sup = ServingSupervisor(lambda: ServingEngine(params, cfg, max_batch=2, mesh=mesh), mesh=mesh)
+sup.submit(Request(prompt=[1, 2], max_new_tokens=3))
+assert [len(r.output) for r in sup.run()] == [3]
+dist.destroy_process_group()
 assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
@@ -184,6 +209,7 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
     from rten_tpu_torch.examples import bert_qa, gpt2
     from rten_tpu_torch.kernels.quant_matmul import int8_pack
+    from rten_tpu_torch.parallel import World, make_mesh, run_ranks
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = decoder.DecoderConfig(vocab_size=300, n_layers=1, n_heads=4, d_model=256, d_ff=512,
@@ -228,6 +254,9 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: int8_pack(np.zeros((4, 2), np.int8), np.ones(2, np.float32)),
         lambda: gpt2.main(["--demo", "-n", "2"]),
         lambda: bert_qa.main(["--demo"]),
+        lambda: make_mesh(1, 2),
+        lambda: World(2),
+        lambda: run_ranks(print, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

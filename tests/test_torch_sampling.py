@@ -237,13 +237,20 @@ def test_sampled_engine_near_zero_temperature_is_greedy(models, kind):
 
 
 def test_sampled_engines_refuse_unported_options(models):
+    """With a sampler, the engines' remaining refusals: the JAX engines'
+    (an unknown ``tp_mode``, ``"shard_map"`` without a mesh, a paged mesh
+    with a data axis over 1) and ``max_batch``; a mesh itself is taken
+    since the tensor-parallel path was ported (``tests/test_torch_parallel.py``)."""
+    import types
+
     _, tcfg, _, tparams = models
     temp = tsampler.TemperatureSampler(0.8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires a mesh"):
         ServingEngine(tparams, tcfg, tp_mode="shard_map", sampler=temp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tparams, tcfg, mesh=object(), sampler=temp, device="cpu")
+    with pytest.raises(ValueError, match="unknown tp_mode"):
+        ServingEngine(tparams, tcfg, tp_mode="gspmd", sampler=temp, device="cpu")
     with pytest.raises(ValueError, match="max_batch"):
         PagedServingEngine(tparams, tcfg, max_batch=0, page_size=64, sampler=temp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PagedServingEngine(tparams, tcfg, mesh=object(), page_size=64, sampler=temp, device="cpu")
+    with pytest.raises(ValueError, match="model axis only"):
+        PagedServingEngine(tparams, tcfg, mesh=types.SimpleNamespace(shape={"data": 2, "model": 1}), page_size=64,
+                           sampler=temp, device="cpu")

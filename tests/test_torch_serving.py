@@ -189,11 +189,20 @@ def test_paged_engine_matches_slot_engine(models, int8_kv):
 
 
 def test_engines_refuse_unported_options(models):
+    """The JAX engines' refusals (an unknown ``tp_mode``, ``"shard_map"``
+    without a mesh, a paged mesh with a data axis over 1) and the port's
+    (page size, ``max_batch``); a mesh itself is taken since the
+    tensor-parallel path was ported (``tests/test_torch_parallel.py``)."""
+    import types
+
     _, tcfg, _, tparams = models
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tparams, tcfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown tp_mode"):
+        ServingEngine(tparams, tcfg, tp_mode="gspmd", device="cpu")
+    with pytest.raises(ValueError, match="requires a mesh"):
         ServingEngine(tparams, tcfg, tp_mode="shard_map", device="cpu")
+    with pytest.raises(ValueError, match="model axis only"):
+        PagedServingEngine(tparams, tcfg, page_size=PAGE, mesh=types.SimpleNamespace(shape={"data": 2, "model": 1}),
+                           device="cpu")
     with pytest.raises(ValueError, match="page_size"):
         PagedServingEngine(tparams, tcfg, page_size=96, device="cpu")
     with pytest.raises(ValueError, match="max_batch"):
