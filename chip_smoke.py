@@ -31,6 +31,9 @@ NVIDIA card.
     python3 chip_smoke.py --parallel LABEL
                                      # phases 1-2 and phase 16 alone (see parallel_only);
                                      # its last line is marked partial
+    python3 chip_smoke.py --apps LABEL
+                                     # phases 1-2 and phase 17 alone (see apps_only); its
+                                     # last line is marked partial
     python3 chip_smoke.py --gemv LABEL [--package DIR]
                                      # phases 1-2 and the decode GEMV's, MLP's and fused
                                      # wo's checks at 1 and 8 rows, and decode_block's
@@ -259,7 +262,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at step 20 and snapshots every 8 steps, its streams (b)'s. One line a
    part: backend, each collective's route, numbers, the card. Two ranks
    share one card here: no time of this phase is a scaling figure;
-17. the line {"kernels": [...]} (the launches summed over phases 4-16 and
+17. apps    — the example apps and the C embedding API (drive_apps): (a)
+   python -m rten_tpu_torch.examples.qwen2_chat --model q.npz --int8 -n 64
+   on an HF-named state at Qwen2-0.5B's widths (24 layers, d_model 896, 14
+   query heads over 2 kv heads, d_ff 4864, vocab 151936, q/k/v biases, the
+   tied embedding as lm_head.weight; seed 0) with a README BPE, 2 turns
+   through Generator.append_prompt: as shipped (TopKSampler(20, 0.8):
+   tokens/s, host and device ms a step, the idle share) and with the
+   sampler pinned to TopKSampler(1), whose turns equal a greedy
+   Generator(NativeBackend) stream; the decode GEMV, decode_attention:gqa
+   (24 a step), quant_matmul_int8 and flash_attention launched, no plain
+   call; the first turn teacher-forced through the kernels and the plain
+   versions under phase 9's top-2 rule; (b) imagenet.py on a
+   torchvision-named ResNet-50 and a 224² PNG against its --cpu run; (c)
+   the other 11 apps on their file routes (the tier-1 tests' files) against
+   their --cpu runs, then every app's --demo; (d) a C program through
+   librten_embed.so with RTEN_TORCH_DEVICE=cuda against the in-process
+   Model and its CPU run;
+18. the line {"kernels": [...]} (the launches summed over phases 4-17 and
    phase 16's ranks, a
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
@@ -282,6 +302,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2762,12 +2783,14 @@ QWEN2_ENGINE_KERNELS = {"slot": "decode_attention:gqa", "slot_int8": "decode_att
                         "paged": "paged_decode_attention:gqa", "paged_int8": "paged_decode_attention_int8:gqa"}
 
 
+@functools.lru_cache(maxsize=1)
 def qwen2_params(torch, cfg):
     """Random int8 params of the Qwen2-0.5B shape from seed 0: the port's
     ``init_params`` (tied), seeded q/k/v biases, and the tied head as
     ``from_hf_llama`` writes it (an ``lm_head`` copy of the embedding), then
     ``quantize_params_int8`` (``w_gu`` fuses: 2 x 4864 is a multiple of 128,
-    its N 9728 pads to 10240; the lm_head's N 151936 to 152576)."""
+    its N 9728 pads to 10240; the lm_head's N 151936 to 152576). Made once
+    for phases 9 and 10 (~15 s on the card); phase 10 drops it."""
     import numpy as np
 
     from rten_tpu_torch.models import decoder
@@ -3208,6 +3231,7 @@ def drive_generation(torch, mem_rate, out):
                            make_sampler("TopPSampler", (0.9, 0.7)), "decode_attention:gqa", "Qwen2 top-p 0.9 at 0.7")
     add(run)
     del qparams
+    qwen2_params.cache_clear()
     torch.cuda.empty_cache()
     log(f"  ({time.perf_counter() - t_phase:.1f} s)")
     t_phase = time.perf_counter()
@@ -5513,6 +5537,835 @@ def parallel_only(torch, bound, detail, kind, smi, label: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the example apps, the C embedding API
+# ---------------------------------------------------------------------------
+
+# The files the apps take (write_app_files): the tier-1 tests' widths, which
+# the card's phase 17 (c) reuses. Head dims are 64, the kernels' smallest.
+APP_QWEN2 = dict(vocab=500, n_layers=2, d=256, heads=4, kv=2, ff=384, tied=False)  # LLAMA_SLICE_CFG-like
+APP_BERT = dict(vocab=3000, n_layers=2, d=256, ff=512, n_pos=128)
+APP_W2V = dict(conv_dim=(32, 32), conv_kernel=(10, 3), d=256, n_layers=2, ff=512, vocab=32, pos_k=16, pos_groups=4)
+APP_TOKENS = 16  # qwen2_chat.py's new tokens a turn in the tests
+QWEN2_APP = dict(vocab=151936, n_layers=24, d=896, heads=14, kv=2, ff=4864)  # Qwen/Qwen2-0.5B config.json
+APP_QWEN2_NEW = 64  # phase 17 (a)'s new tokens a turn
+RESIDUAL_BN = (0.1, 0.3)  # resnet_tv_state: the scales of each residual branch's last BatchNorm
+# Every app but qwen2_chat and imagenet (phase 17 (a) and (b)) on its file route.
+FILE_APPS = ("yolo", "deeplab", "detr", "depth_anything", "segment_anything", "jina_similarity", "wav2vec2",
+             "silero", "piper", "trocr", "distilvit")
+# Each app's --demo flags (the JAX package's tests/test_examples.py).
+DEMO_FLAGS = {"imagenet": [], "yolo": [], "deeplab": [], "detr": [], "depth_anything": [], "segment_anything": [],
+              "distilvit": ["-n", "3"], "trocr": ["-n", "4"], "jina_similarity": [],
+              "qwen2_chat": ["-n", "3", "--turns", "2"], "piper": [], "silero": [], "wav2vec2": ["--beam", "2"]}
+
+
+def qwen2_hf_state(seed: int, vocab: int, n_layers: int, d: int, heads: int, kv: int, ff: int,
+                   tied: bool = True) -> dict:
+    """An HF ``Qwen2ForCausalLM``-named state (``model.`` prefix, nn.Linear
+    weights ``[out, in]``, q/k/v biases) with random weights from ``seed``:
+    normal 0.02 matrices, embeddings and biases, RMSNorm scales near 1;
+    ``lm_head.weight`` is the tied embedding, as ``state_dict()`` of the
+    tied HF model gives it, or with ``tied=False`` a matrix of its own
+    (whose greedy stream does not just repeat the last token)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hd = d // heads
+    st = {"model.embed_tokens.weight": _normal(rng, vocab, d)}
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        st[p + "input_layernorm.weight"] = 1 + _normal(rng, d, std=0.1)
+        st[p + "post_attention_layernorm.weight"] = 1 + _normal(rng, d, std=0.1)
+        for proj, n_out in (("q_proj", heads * hd), ("k_proj", kv * hd), ("v_proj", kv * hd)):
+            st[f"{p}self_attn.{proj}.weight"], st[f"{p}self_attn.{proj}.bias"] = _normal(rng, n_out, d), \
+                _normal(rng, n_out)
+        st[p + "self_attn.o_proj.weight"] = _normal(rng, d, heads * hd)
+        st[p + "mlp.gate_proj.weight"], st[p + "mlp.up_proj.weight"] = _normal(rng, ff, d), _normal(rng, ff, d)
+        st[p + "mlp.down_proj.weight"] = _normal(rng, d, ff)
+    st["model.norm.weight"] = 1 + _normal(rng, d, std=0.1)
+    st["lm_head.weight"] = st["model.embed_tokens.weight"] if tied else _normal(rng, vocab, d)
+    return st
+
+
+def resnet_tv_state(seed: int, bottleneck: bool, stage_sizes=None, width: int = 64, num_classes: int = 1000) -> dict:
+    """A torchvision ``resnet50`` (``bottleneck``) or ``resnet18``-named
+    state with random weights from ``seed``: He-normal convolutions,
+    BatchNorms with scales and variances in [0.5, 1.5] and means and shifts
+    near 0 (each residual branch's last scale in RESIDUAL_BN, so that 16
+    blocks do not grow the activations a thousandfold), a normal 0.01
+    classifier."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    stage_sizes = stage_sizes or ((3, 4, 6, 3) if bottleneck else (2, 2, 2, 2))
+    st = {}
+
+    def conv(name, c_out, c_in, k):
+        st[name] = rng.standard_normal((c_out, c_in, k, k), dtype=np.float32) * np.float32(np.sqrt(2 / (c_in * k * k)))
+
+    def bn(p, c, scale=None):
+        st[p + "weight"] = rng.uniform(*(scale or (0.5, 1.5)), c).astype(np.float32)
+        st[p + "bias"] = _normal(rng, c, std=0.1)
+        st[p + "running_mean"] = _normal(rng, c, std=0.1)
+        st[p + "running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        st[p + "num_batches_tracked"] = np.asarray(0, np.int64)
+
+    conv("conv1.weight", width, 3, 7)
+    bn("bn1.", width)
+    c_in, exp = width, (4 if bottleneck else 1)
+    for si, n_blocks in enumerate(stage_sizes):
+        c_mid = width * 2 ** si
+        for bi in range(n_blocks):
+            p, stride = f"layer{si + 1}.{bi}.", (2 if si > 0 and bi == 0 else 1)
+            if bottleneck:
+                conv(p + "conv1.weight", c_mid, c_in, 1)
+                conv(p + "conv2.weight", c_mid, c_mid, 3)
+                conv(p + "conv3.weight", c_mid * exp, c_mid, 1)
+                bn(p + "bn3.", c_mid * exp, RESIDUAL_BN)
+            else:
+                conv(p + "conv1.weight", c_mid, c_in, 3)
+                conv(p + "conv2.weight", c_mid, c_mid, 3)
+            bn(p + "bn1.", c_mid)
+            bn(p + "bn2.", c_mid, None if bottleneck else RESIDUAL_BN)
+            if stride != 1 or c_in != c_mid * exp:
+                conv(p + "downsample.0.weight", c_mid * exp, c_in, 1)
+                bn(p + "downsample.1.", c_mid * exp)
+            c_in = c_mid * exp
+    st["fc.weight"], st["fc.bias"] = _normal(rng, num_classes, c_in, std=0.01), _normal(rng, num_classes, std=0.01)
+    return st
+
+
+def wav2vec2_hf_state(seed: int, conv_dim, conv_kernel, d: int, n_layers: int, ff: int, vocab: int, pos_k: int,
+                      pos_groups: int) -> dict:
+    """An HF ``Wav2Vec2ForCTC``-named state (group-norm feature extractor
+    without conv biases, post-LN layers, the positional convolution as
+    ``weight_g`` / ``weight_v``) with random weights from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    st = {}
+
+    def ln(p, n):
+        st[p + "weight"], st[p + "bias"] = 1 + _normal(rng, n, std=0.1), _normal(rng, n)
+
+    def linear(p, n_out, n_in):
+        st[p + "weight"], st[p + "bias"] = _normal(rng, n_out, n_in, std=0.05), _normal(rng, n_out)
+
+    c_in = 1
+    for i, (c, k) in enumerate(zip(conv_dim, conv_kernel)):
+        st[f"wav2vec2.feature_extractor.conv_layers.{i}.conv.weight"] = _normal(rng, c, c_in, k, std=0.2)
+        c_in = c
+    ln("wav2vec2.feature_extractor.conv_layers.0.layer_norm.", conv_dim[0])
+    ln("wav2vec2.feature_projection.layer_norm.", conv_dim[-1])
+    linear("wav2vec2.feature_projection.projection.", d, conv_dim[-1])
+    pos = "wav2vec2.encoder.pos_conv_embed.conv."
+    st[pos + "weight_g"] = 1 + _normal(rng, 1, 1, pos_k, std=0.1)
+    st[pos + "weight_v"] = _normal(rng, d, d // pos_groups, pos_k, std=0.05)
+    st[pos + "bias"] = _normal(rng, d)
+    ln("wav2vec2.encoder.layer_norm.", d)
+    for i in range(n_layers):
+        p = f"wav2vec2.encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(f"{p}attention.{proj}.", d, d)
+        ln(p + "layer_norm.", d)
+        linear(p + "feed_forward.intermediate_dense.", ff, d)
+        linear(p + "feed_forward.output_dense.", d, ff)
+        ln(p + "final_layer_norm.", d)
+    linear("lm_head.", vocab, d)
+    return st
+
+
+def _save_graph(g, path: Path) -> str:
+    from rten_tpu_torch.format import save_rten
+
+    path.write_bytes(save_rten(g))
+    return str(path)
+
+
+def conv_graph(path: Path, size: int, out_ch: int, kernel: int, stride: int, head=None, seed: int = 0) -> str:
+    """A .rten file: image [1, 3, size, size] → Conv(out_ch, kernel,
+    stride) → ``head(g, conv)``'s outputs (the conv alone without one)."""
+    import numpy as np
+
+    from rten_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    g = Graph()
+    x = g.add_value("image", shape=[1, 3, size, size])
+    w = g.add_constant("w", (rng.standard_normal((out_ch, 3, kernel, kernel)) * 0.3).astype(np.float32))
+    conv = g.add_simple_op("Conv", [x, w], attrs={"strides": [stride, stride]})
+    g.inputs, g.outputs = [x], (head(g, conv) if head else [conv])
+    return _save_graph(g, path)
+
+
+def _yolo_head(g, conv):
+    """[1, 8, 8, 8] → [1, 64, 8]: 64 candidates of (4 box + 1 obj + 3
+    classes), the box channels scaled into pixels."""
+    import numpy as np
+
+    r = g.add_simple_op("Reshape", [conv, g.add_constant("sh", np.asarray([1, 8, 64], np.int32))])
+    t = g.add_simple_op("Transpose", [r], attrs={"perm": [0, 2, 1]})
+    scale = g.add_constant("scale", np.asarray([32, 32, 16, 16, 1, 1, 1, 1], np.float32))
+    return [g.add_simple_op("Mul", [t, scale])]
+
+
+def _detr_head(g, conv):
+    """[1, 9, 4, 4] → logits [1, 16, 5] (4 classes + no-object) and
+    sigmoid boxes [1, 16, 4]."""
+    import numpy as np
+
+    r = g.add_simple_op("Reshape", [conv, g.add_constant("sh", np.asarray([1, 9, 16], np.int32))])
+    t = g.add_simple_op("Transpose", [r], attrs={"perm": [0, 2, 1]})
+
+    def cut(i, a, b):
+        return g.add_simple_op("Slice", [t, g.add_constant(f"s{i}", np.asarray([a], np.int32)),
+                                         g.add_constant(f"e{i}", np.asarray([b], np.int32)),
+                                         g.add_constant(f"a{i}", np.asarray([2], np.int32))])
+
+    return [cut(0, 0, 5), g.add_simple_op("Sigmoid", [cut(1, 5, 9)])]
+
+
+def vad_graph(path: Path, d_in: int = 9, d_h: int = 16, seed: int = 0) -> str:
+    """A GRU → MatMul → Sigmoid VAD .rten: feats [T, 1, d_in] → [T, 1]."""
+    import numpy as np
+
+    from rten_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    g = Graph()
+    x = g.add_value("feats", shape=["T", 1, d_in])
+    w = g.add_constant("w", (rng.standard_normal((1, 3 * d_h, d_in)) * 0.5).astype(np.float32))
+    r = g.add_constant("r", (rng.standard_normal((1, 3 * d_h, d_h)) * 0.5).astype(np.float32))
+    b = g.add_constant("b", np.zeros((1, 6 * d_h), np.float32))
+    gru = g.add_simple_op("GRU", [x, w, r, b], attrs={"direction": "forward", "hidden_size": d_h}, n_outputs=2)
+    flat = g.add_simple_op("Reshape", [gru, g.add_constant("sh", np.asarray([-1, d_h], np.int32))])
+    w_cls = g.add_constant("w_cls", (rng.standard_normal((d_h, 1)) * 0.8).astype(np.float32))
+    g.inputs, g.outputs = [x], [g.add_simple_op("Sigmoid", [g.add_simple_op("MatMul", [flat, w_cls])])]
+    return _save_graph(g, path)
+
+
+def tts_graph(path: Path, vocab: int = 27, feat: int = 160, seed: int = 0) -> str:
+    """A Gather → Reshape → Tanh TTS .rten: ids [1, N] → N · feat samples."""
+    import numpy as np
+
+    from rten_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    g = Graph()
+    ids = g.add_value("ids", shape=[1, "N"], dtype="int32")
+    emb = g.add_constant("emb", (rng.standard_normal((vocab, feat)) * 0.7).astype(np.float32))
+    gathered = g.add_simple_op("Gather", [emb, ids], attrs={"axis": 0})
+    flat = g.add_simple_op("Reshape", [gathered, g.add_constant("sh", np.asarray([-1], np.int32))])
+    g.inputs, g.outputs = [ids], [g.add_simple_op("Tanh", [flat])]
+    return _save_graph(g, path)
+
+
+def patch_encoder_graph(path: Path, h: int, w: int, d: int) -> tuple[str, int]:
+    """A line / image encoder .rten: [1, 3, h, w] → Conv(d, 8x8/8) → [1, N,
+    d] memory; returns (path, N)."""
+    import numpy as np
+
+    from rten_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(1)
+    g = Graph()
+    x = g.add_value("image", shape=[1, 3, h, w])
+    wconv = g.add_constant("wconv", (rng.standard_normal((d, 3, 8, 8)) * 0.2).astype(np.float32))
+    conv = g.add_simple_op("Conv", [x, wconv], attrs={"strides": [8, 8]})
+    n = (h // 8) * (w // 8)
+    r = g.add_simple_op("Reshape", [conv, g.add_constant("sh", np.asarray([1, d, n], np.int32))])
+    g.inputs, g.outputs = [x], [g.add_simple_op("Transpose", [r], attrs={"perm": [0, 2, 1]})]
+    return _save_graph(g, path), n
+
+
+def encdec_decoder_graph(path: Path, enc_n: int, d: int, v: int, seed: int = 2, max_pos: int = 256) -> str:
+    """A Whisper / TrOCR-class decoder .rten with HF-Optimum inputs: masked
+    self-attention over past_key_values.0.decoder.*, cross-attention
+    recomputed from encoder_hidden_states each call (GraphBackend hoists
+    it), logits and the present K / V (the JAX package's
+    ``tests/test_graph_backend.py`` ``build_encdec_decoder_graph``)."""
+    import numpy as np
+
+    from rten_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    g = Graph()
+    ids = g.add_value("input_ids", ["batch", None])
+    mask = g.add_value("attention_mask", ["batch", None])
+    pos = g.add_value("position_ids", ["batch", None])
+    enc = g.add_value("encoder_hidden_states", ["batch", enc_n, d])
+    pk_in = g.add_value("past_key_values.0.decoder.key", ["batch", None, d])
+    pv_in = g.add_value("past_key_values.0.decoder.value", ["batch", None, d])
+    g.inputs = [ids, mask, pos, enc, pk_in, pv_in]
+
+    def c(name, arr):
+        return g.add_constant(name, np.asarray(arr))
+
+    def mat(name, *shape, std):
+        return c(name, rng.standard_normal(shape).astype(np.float32) * std)
+
+    wte, wpe = mat("wte", v, d, std=0.5), mat("wpe", max_pos, d, std=0.1)
+    wq, wk, wv, wq2, wk2, wv2 = (mat(n, d, d, std=0.3) for n in ("wq", "wk", "wv", "wq2", "wk2", "wv2"))
+    wlm = mat("wlm", d, v, std=0.5)
+    op = g.add_simple_op
+    x = op("Add", [op("Gather", [wte, ids], {"axis": 0}, name="emb"), op("Gather", [wpe, pos], {"axis": 0},
+                                                                         name="pemb")], name="x")
+    q, k, vv = (op("MatMul", [x, wm], name=n) for wm, n in ((wq, "q"), (wk, "k"), (wv, "v")))
+    pk, pv = g.add_value("present.0.decoder.key"), g.add_value("present.0.decoder.value")
+    g.add_operator("concat_k", "Concat", {"axis": 1}, [pk_in, k], [pk])
+    g.add_operator("concat_v", "Concat", {"axis": 1}, [pv_in, vv], [pv])
+    raw = op("MatMul", [q, op("Transpose", [pk], {"perm": [0, 2, 1]}, name="pk_t")], name="scores_raw")
+    scale = c("scale", np.float32(1.0 / np.sqrt(d)))
+    scores = op("Mul", [raw, scale], name="scores")
+    onef = c("onef", np.float32(1.0))
+    kpos = op("Sub", [op("CumSum", [op("Cast", [mask], {"to": "float"}, name="mf"), c("one_ax", np.int32(1))],
+                         name="csum"), onef], name="kpos")
+    qposf = op("Cast", [pos], {"to": "float"}, name="qposf")
+    ax1, ax2 = c("ax1", np.int32([1])), c("ax2", np.int32([2]))
+    causal = op("LessOrEqual", [op("Unsqueeze", [kpos, ax1], name="kpos_b"),
+                                op("Unsqueeze", [qposf, ax2], name="qpos_b")], name="causal")
+    valid = op("Mul", [causal, op("Unsqueeze", [mask, ax1], name="mask_b")], name="valid")
+    vm1 = op("Sub", [op("Cast", [valid], {"to": "float"}, name="validf"), onef], name="vm1")
+    masked = op("Add", [scores, op("Mul", [vm1, c("big", np.float32(1e9))], name="sbias")], name="masked")
+    h1 = op("Add", [op("MatMul", [op("Softmax", [masked], {"axis": -1}, name="probs"), pv], name="ctx"), x],
+            name="h1")
+    q2 = op("MatMul", [h1, wq2], name="q2")
+    k_enc, v_enc = op("MatMul", [enc, wk2], name="k_enc"), op("MatMul", [enc, wv2], name="v_enc")
+    raw2 = op("MatMul", [q2, op("Transpose", [k_enc], {"perm": [0, 2, 1]}, name="k_enc_t")], name="raw2")
+    probs2 = op("Softmax", [op("Mul", [raw2, scale], name="scores2")], {"axis": -1}, name="probs2")
+    h2 = op("Add", [op("MatMul", [probs2, v_enc], name="ctx2"), h1], name="h2")
+    logits = g.add_value("logits")
+    g.add_operator("lm", "MatMul", {}, [h2, wlm], [logits])
+    g.outputs = [logits, pk, pv]
+    return _save_graph(g, path)
+
+
+def write_app_files(tmp: Path, qwen2: dict | None = None) -> dict:
+    """Every file the apps' file routes take, written into ``tmp`` from
+    seeds with numpy: PNGs (64² and 32² scenes, a 16 x 64 text line), .wav
+    files (1 s at 16 kHz; 0.6 s at 8 kHz, which wav2vec2.py resamples), the
+    .rten graphs (the five vision heads, the VAD, the TTS, two encoder /
+    decoder pairs), seeded HF-named states (a BERT at APP_BERT, a
+    wav2vec2 at APP_W2V, a ResNet-18, and with ``qwen2`` a Qwen2 at those
+    widths), README tokenizers (200 BPE merges, APP_BERT's WordPiece) and
+    a documents file. Returns the paths and the texts by name."""
+    import numpy as np
+
+    from rten_tpu_torch.audio import write_wav
+    from rten_tpu_torch.examples import common
+    from rten_tpu_torch.image.io import write_image
+
+    text = (ROOT / "README.md").read_text(encoding="utf-8")
+    paras = readme_paragraphs(text)
+    f = {}
+    for name, (hw, seed) in {"scene64": ((64, 64), 3), "scene32": ((32, 32), 3)}.items():
+        f[name] = str(tmp / f"{name}.png")
+        write_image(f[name], common.synthetic_image(*hw, seed=seed))
+    rng = np.random.default_rng(3)
+    f["line"] = str(tmp / "line.png")
+    write_image(f["line"], np.clip(0.9 - 0.8 * (rng.random((3, 16, 64)) < 0.2), 0, 1).astype(np.float32))
+    for name, (sec, sr) in {"wav16k": (1.0, 16000), "wav8k": (0.6, 8000)}.items():
+        f[name] = str(tmp / f"{name}.wav")
+        write_wav(f[name], common.synthetic_audio(sec, sr=sr, seed=0)[0], sr)
+    f["yolo"] = conv_graph(tmp / "yolo.rten", 64, 8, 8, 8, _yolo_head)
+    f["detr"] = conv_graph(tmp / "detr.rten", 64, 9, 16, 16, _detr_head)
+    f["deeplab"] = conv_graph(tmp / "deeplab.rten", 64, 6, 8, 8)
+    f["sam"] = conv_graph(tmp / "sam.rten", 32, 16, 4, 4)
+    f["depth"] = conv_graph(tmp / "depth.rten", 32, 1, 8, 8)
+    f["vad"], f["tts"] = vad_graph(tmp / "vad.rten"), tts_graph(tmp / "tts.rten")
+    for app, (h, w) in {"trocr": (16, 64), "distilvit": (32, 32)}.items():
+        f[app + "_enc"], n = patch_encoder_graph(tmp / f"{app}_enc.rten", h, w, 16)
+        f[app + "_dec"] = encdec_decoder_graph(tmp / f"{app}_dec.rten", n, 16, 32)
+    b, w2 = APP_BERT, APP_W2V
+    f["bert"], f["w2v"], f["resnet18"] = (str(tmp / n) for n in ("bert.npz", "w2v.npz", "resnet18.npz"))
+    np.savez(f["bert"], **bert_qa_hf_state(0, b["vocab"], b["n_layers"], b["d"], b["ff"], b["n_pos"]))
+    np.savez(f["w2v"], **wav2vec2_hf_state(0, **{k: w2[k] for k in ("conv_dim", "conv_kernel", "d", "n_layers",
+                                                                    "ff", "vocab", "pos_k", "pos_groups")}))
+    np.savez(f["resnet18"], **resnet_tv_state(0, bottleneck=False, num_classes=10))
+    if qwen2:
+        f["qwen2"] = str(tmp / "qwen2.npz")
+        np.savez(f["qwen2"], **qwen2_hf_state(0, **qwen2))
+    f["bpe"], f["wordpiece"], f["docs"] = (str(tmp / n) for n in ("bpe.json", "wordpiece.json", "docs.txt"))
+    Path(f["bpe"]).write_text(json.dumps(bpe_tokenizer_spec(train_bpe(text, 200))), encoding="utf-8")
+    Path(f["wordpiece"]).write_text(json.dumps(wordpiece_tokenizer_spec(text, b["vocab"])), encoding="utf-8")
+    sentences = [" ".join(s.split()[:16]) for p in paras for s in p.split(". ")]  # 16 words each
+    Path(f["docs"]).write_text("\n".join(sentences[1:6]), encoding="utf-8")
+    f["query"] = sentences[0]
+    return f
+
+
+def app_argv(name: str, f: dict, out_dir: Path | None = None) -> list[str]:
+    """The flags of app ``name``'s file route on ``write_app_files``' files
+    (the JAX package's tests' flags); a PNG or WAV the app writes goes to
+    ``out_dir``."""
+    out = {"yolo": "boxes.png", "deeplab": "mask.png", "depth_anything": "depth.png", "piper": "speech.wav"}
+    argv = {
+        "imagenet": ["--image", f["scene64"], "--model", f["resnet18"]],
+        "yolo": ["--image", f["scene64"], "--model", f["yolo"], "--conf", "0.1"],
+        "deeplab": ["--image", f["scene64"], "--model", f["deeplab"]],
+        "detr": ["--image", f["scene64"], "--model", f["detr"], "--threshold", "0.1"],
+        "depth_anything": ["--image", f["scene32"], "--model", f["depth"]],
+        "segment_anything": ["--image", f["scene32"], "--model", f["sam"], "--point", "20,10"],
+        "jina_similarity": ["--model", f["bert"], "--tokenizer", f["wordpiece"], "--docs", f["docs"], "--query",
+                            f["query"]],
+        "wav2vec2": ["--audio", f["wav8k"], "--model", f["w2v"], "--heads", str(APP_W2V["d"] // 64), "--beam", "4"],
+        "silero": ["--audio", f["wav16k"], "--model", f["vad"], "--on", "0.5", "--off", "0.4"],
+        "piper": ["--model", f["tts"], "--text", "hello world"],
+        "trocr": ["--image", f["line"], "--encoder", f["trocr_enc"], "--decoder", f["trocr_dec"], "-n", "6"],
+        "distilvit": ["--image", f["scene32"], "--encoder", f["distilvit_enc"], "--decoder", f["distilvit_dec"],
+                      "-n", "5"],
+        "qwen2_chat": ["--model", f.get("qwen2", ""), "--tokenizer", f["bpe"], "-n", str(APP_TOKENS)],
+    }[name]
+    if name in out and out_dir is not None:
+        argv += ["--out", str(Path(out_dir) / out[name])]
+    return argv
+
+
+_NUMBER = r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?"
+
+
+def lines_differ(got: list[str], want: list[str], rtol: float, atol: float) -> str | None:
+    """None when the printed lines agree: the same text around the numbers,
+    and each number within ``rtol`` relative or ``atol`` absolute, or one
+    unit in the last decimal place it was printed with (a rounding); else
+    the first difference."""
+    import re
+
+    if len(got) != len(want):
+        return f"{len(got)} lines, not {len(want)}"
+    for a, b in zip(got, want):
+        if re.split(_NUMBER, a) != re.split(_NUMBER, b):
+            return f"{a!r} != {b!r}"
+        for x, y in zip(re.findall(_NUMBER, a), re.findall(_NUMBER, b)):
+            unit = 10.0 ** -len(y.split(".")[1].split("e")[0].split("E")[0]) if "." in y else 0.0
+            if abs(float(x) - float(y)) > max(atol, rtol * abs(float(y)), unit * 1.0001):
+                return f"{a!r} != {b!r} ({x} / {y})"
+    return None
+
+
+def written_differ(got: str, want: str) -> str | None:
+    """None when a written PNG or WAV equals the other but for at most
+    0.1% of its pixels or samples, each off by one code; else why not."""
+    import numpy as np
+
+    if got.endswith(".wav"):
+        from rten_tpu_torch.audio.io import _parse_riff
+
+        (*meta_a, data_a), (*meta_b, data_b) = _parse_riff(got), _parse_riff(want)
+        if meta_a != meta_b:
+            return f"WAV formats {meta_a} / {meta_b}"
+        a, b = np.frombuffer(data_a, np.int16).astype(np.int64), np.frombuffer(data_b, np.int16).astype(np.int64)
+    else:
+        from PIL import Image
+
+        a, b = (np.asarray(Image.open(p), np.int64) for p in (got, want))
+    if a.shape != b.shape:
+        return f"shapes {a.shape} / {b.shape}"
+    off = np.abs(a - b)
+    if off.max(initial=0) > 1 or (off > 0).mean() > 1e-3:
+        return f"{int((off > 0).sum())} of {off.size} values differ, by up to {off.max()}"
+    return None
+
+
+EMBED_DRIVER_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+
+/* librten_embed.so ABI */
+#ifdef __cplusplus
+extern "C" {
+#endif
+extern int rten_init(const char *python_path);
+extern const char *rten_last_error(void);
+extern void *rten_model_load_file(const char *path);
+extern int rten_model_input_count(void *m);
+extern int rten_model_output_count(void *m);
+extern const char *rten_model_input_name(void *m, int i);
+extern void *rten_tensor_f32(const float *data, const int *shape, int ndim);
+extern int rten_model_run(void *m, void *const *in, int n_in, void **out, int max_out);
+extern int rten_tensor_ndim(void *t);
+extern void rten_tensor_shape(void *t, int *out);
+extern const float *rten_tensor_data_f32(void *t);
+extern void rten_tensor_free(void *t);
+extern void rten_model_free(void *m);
+#ifdef __cplusplus
+}
+#endif
+
+int main(int argc, char **argv) {
+  if (rten_init(argv[2]) != 0) {
+    fprintf(stderr, "init failed: %s\n", rten_last_error());
+    return 1;
+  }
+  void *model = rten_model_load_file(argv[1]);
+  if (!model) {
+    fprintf(stderr, "load failed: %s\n", rten_last_error());
+    return 3;
+  }
+  printf("inputs=%d outputs=%d first_input=%s\n",
+         rten_model_input_count(model), rten_model_output_count(model),
+         rten_model_input_name(model, 0));
+
+  float data[8];
+  for (int i = 0; i < 8; ++i) data[i] = (float)i - 3.0f;
+  int shape[2] = {2, 4};
+  void *x = rten_tensor_f32(data, shape, 2);
+  void *outs[4];
+  int n = rten_model_run(model, &x, 1, outs, 4);
+  if (n < 0) {
+    fprintf(stderr, "run failed: %s\n", rten_last_error());
+    return 1;
+  }
+  int oshape[8];
+  int nd = rten_tensor_ndim(outs[0]);
+  rten_tensor_shape(outs[0], oshape);
+  const float *od = rten_tensor_data_f32(outs[0]);
+  printf("n_out=%d ndim=%d shape=%d,%d\n", n, nd, oshape[0], oshape[1]);
+  long total = 1;
+  for (int i = 0; i < nd; ++i) total *= oshape[i];
+  for (long i = 0; i < total; ++i) printf("%.9g ", od[i]);
+  printf("\n");
+  rten_tensor_free(x);
+  rten_tensor_free(outs[0]);
+  rten_model_free(model);
+  return 0;
+}
+"""
+EMBED_INPUT_SHAPE = (2, 4)
+
+
+def embed_model(path: Path, seed: int = 0):
+    """The embedding check's .rten: relu(x @ w) + 1 over x [2, 4], w [4, 3]
+    from ``seed``; returns w."""
+    import numpy as np
+
+    from rten_tpu_torch.graph import Graph
+
+    wv = np.random.default_rng(seed).standard_normal((4, 3)).astype(np.float32)
+    g = Graph()
+    x = g.add_value("x", list(EMBED_INPUT_SHAPE))
+    mm = g.add_simple_op("MatMul", [x, g.add_constant("w", wv)], name="mm")
+    out = g.add_simple_op("Add", [g.add_simple_op("Relu", [mm], name="relu"), g.add_constant("one", np.float32(1.0))],
+                          name="plus1")
+    g.inputs, g.outputs = [x], [out]
+    _save_graph(g, path)
+    return wv
+
+
+def embed_input():
+    """The C driver's input: x[i] = i - 3, shape EMBED_INPUT_SHAPE."""
+    import numpy as np
+
+    return (np.arange(8, dtype=np.float32) - 3.0).reshape(EMBED_INPUT_SHAPE)
+
+
+def build_embed_driver(tmp: Path) -> Path:
+    """``librten_embed.so`` built by ``native.build.build_embed`` and the C
+    driver (EMBED_DRIVER_C) compiled and linked against it with g++;
+    returns the driver's path."""
+    from rten_tpu_torch.native import build as native_build
+
+    lib = native_build.build_embed()
+    if lib is None:
+        raise RuntimeError("the embedding API did not build: no g++ or no Python.h")
+    src, exe = tmp / "embed_driver.c", tmp / "embed_driver"
+    src.write_text(EMBED_DRIVER_C)
+    subprocess.run(["g++", "-o", str(exe), str(src), str(lib), f"-Wl,-rpath,{lib.parent}"], check=True,
+                   capture_output=True, text=True, timeout=120)
+    return exe
+
+
+def run_embed_driver(exe: Path, model: str, device: str, timeout: float = 300):
+    """The C driver run on ``model`` with RTEN_TORCH_DEVICE=``device``, the
+    embedded interpreter given this one's import path: the completed
+    process."""
+    env = dict(os.environ, RTEN_TORCH_DEVICE=device, PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    return subprocess.run([str(exe), model, str(ROOT)], capture_output=True, text=True, env=env, timeout=timeout)
+
+
+def embed_output(proc):
+    """The driver's output values [2, 3] from its printed lines."""
+    import numpy as np
+
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or lines[:2] != ["inputs=1 outputs=1 first_input=x", "n_out=1 ndim=2 shape=2,3"]:
+        raise AssertionError(f"the embedding driver: exit {proc.returncode}, {proc.stdout!r} {proc.stderr[-2000:]!r}")
+    return np.asarray([float(v) for v in lines[2].split()], np.float32).reshape(2, 3)
+
+
+
+APP_CARD_RTOL, APP_CARD_ATOL = 1e-3, 1e-4  # the card's apps against their --cpu runs (printed numbers)
+IMAGENET_PROB_TOL = 1e-3  # (b): ResNet-50's top-5 probabilities, card against --cpu
+
+
+def app_run(torch, name: str, argv: list[str], result: dict | None = None) -> dict:
+    """One run of app ``name``'s ``main(argv)`` with the launch counters
+    set to 0 before it and read after: its printed lines, exit code, host
+    seconds and launches (and plain calls) by kernel mode."""
+    import contextlib
+    import importlib
+    import io
+
+    from rten_tpu_torch.kernels import dispatch
+
+    main = importlib.import_module(f"rten_tpu_torch.examples.{name}").main
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    dispatch.reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv) if result is None else main(argv, result=result)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(rc=rc, lines=buf.getvalue().splitlines(), seconds=seconds, launches=dict(dispatch.LAUNCHES),
+                plain=dict(dispatch.PLAIN))
+
+
+def qwen2_chat_app(torch, f: dict, out) -> dict:
+    """Phase 17 (a): qwen2_chat.py --model q.npz --int8 at Qwen2-0.5B's
+    widths, as shipped (TopKSampler(20, 0.8)) and with the sampler pinned
+    to TopKSampler(1); returns the launches of both runs."""
+    import itertools
+
+    import numpy as np
+
+    from rten_tpu_torch import generate
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend, TopKSampler
+    from rten_tpu_torch.models import decoder
+
+    argv = ["--model", f["qwen2"], "--int8", "--tokenizer", f["bpe"], "-n", str(APP_QWEN2_NEW)]
+    n_layers, steps = QWEN2_APP["n_layers"], 2 * (APP_QWEN2_NEW - 1)  # each turn's first token: its prompt's
+    runs, launches = {}, {}
+    for kind in ("sampled", "pinned"):
+        res = {}
+        if kind == "pinned":
+            generate.TopKSampler = lambda k, temperature=1.0: TopKSampler(1, temperature)
+        try:
+            run = app_run(torch, "qwen2_chat", argv, res)
+        finally:
+            generate.TopKSampler = TopKSampler
+        got = run["launches"]
+        if run["rc"] != 0 or run["plain"] or any(not got.get(k) for k in QWEN2_KERNELS) \
+                or got.get("decode_attention:gqa") != n_layers * steps:
+            raise AssertionError(f"(a) qwen2_chat.py {kind}: exit {run['rc']}, launched {got} (each of "
+                                 f"{QWEN2_KERNELS}; decode_attention:gqa {n_layers} x {steps}), plain {run['plain']}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        times = res["metrics"].step_times_s
+        decode = [t for i, t in enumerate(times) if i % APP_QWEN2_NEW]  # a turn's first step is its prompt's
+        runs[kind] = dict(run, res=res, tokens_per_s=len(times) / sum(times), host_ms_step=1e3 * sum(decode) / len(decode),
+                          prompt_ms=[1e3 * times[i] for i in range(0, len(times), APP_QWEN2_NEW)])
+    params, cfg, pinned = runs["pinned"]["res"]["params"], runs["pinned"]["res"]["cfg"], runs["pinned"]["res"]
+    if cfg.d_model != QWEN2_APP["d"] or cfg.n_kv_heads != QWEN2_APP["kv"] or cfg.vocab_size != QWEN2_APP["vocab"]:
+        raise AssertionError(f"(a) the app inferred {cfg}")
+
+    # The pinned turns against a greedy Generator over the same appended prompt ids.
+    gen = Generator(NativeBackend(params, cfg, device="cuda"), GeneratorConfig(max_tokens=10**9))
+    ref = []
+    for prompt in pinned["prompts"]:
+        gen.append_prompt(prompt)
+        ref.append([int(t[0]) for t in itertools.islice(gen, APP_QWEN2_NEW)])
+    if pinned["turns"] != ref:
+        raise AssertionError(f"(a) the pinned turns differ from the greedy Generator's: {pinned['turns']} / {ref}")
+
+    # Device time a step: the sampled path's step (decode + TopKSampler(20, 0.8)) after the first turn.
+    backend = NativeBackend(params, cfg, device="cuda")
+    backend.prefill(np.asarray([pinned["prompts"][0]], np.int32))
+    last = np.asarray([[pinned["turns"][0][-1]]], np.int32)
+    sampler, rng = TopKSampler(20, temperature=0.8), torch.Generator(device=backend.device).manual_seed(0)
+    by_kernel, calls = profile_by_kernel(torch, lambda: sampler.sample(rng, backend.decode(last)), 16)
+    device_ms = sum(by_kernel.values()) / 1e3
+    sampled = runs["sampled"]
+
+    # The first turn's prompt and answer, teacher-forced: kernels and plain versions (phase 9's rule).
+    prompt, answer = pinned["prompts"][0], pinned["turns"][0]
+    seq = torch.tensor([prompt + answer[:-1]], dtype=torch.int32, device=backend.device)
+    served = torch.tensor(answer, dtype=torch.int64, device=backend.device)
+
+    def one_forward_logits():
+        lg, _ = decoder.prefill(params, cfg, seq, decoder.init_cache(cfg, 1, cfg.max_seq, device="cuda"))
+        return lg[0, len(prompt) - 1:].float()
+
+    k_logits = one_forward_logits()
+    with plain_decoder(decoder):
+        p_logits = one_forward_logits()
+    gaps = {what: (lg.max(-1).values - lg.gather(1, served[:, None])[:, 0]) for what, lg in
+            (("kernels", k_logits), ("plain", p_logits))}
+    if any(bool((g > GAP_TOL).any()) for g in gaps.values()) or not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError(f"(a) a pinned token loses to the argmax of the one-forward prefill by > {GAP_TOL}: "
+                             f"{ {k: g.max().item() for k, g in gaps.items()} }")
+    rel = rel_rms(k_logits, p_logits)
+    res = dict(
+        tokens_per_s=sampled["tokens_per_s"], host_ms_step=sampled["host_ms_step"], device_ms_step=device_ms,
+        idle_share=max(0.0, 1 - device_ms / sampled["host_ms_step"]), device_us_by_kernel=by_kernel,
+        device_calls_a_step=calls, prompt_ms=sampled["prompt_ms"], app_s=sampled["seconds"],
+        pinned_tokens_per_s=runs["pinned"]["tokens_per_s"], pinned_host_ms_step=runs["pinned"]["host_ms_step"],
+        pinned_app_s=runs["pinned"]["seconds"], prompts=[len(p) for p in pinned["prompts"]],
+        sampled_texts=sampled["res"]["texts"], launches={k: r["launches"] for k, r in runs.items()},
+        max_gap={k: g.max().item() for k, g in gaps.items()}, agree={k: int((g == 0).sum()) for k, g in gaps.items()},
+        rel_rms_kernels_plain=rel)
+    log(f"  (a) qwen2_chat.py --int8, Qwen2-0.5B widths (tied head), 2 turns of {APP_QWEN2_NEW} (prompts "
+        f"{res['prompts']} tokens): sampled {res['tokens_per_s']:.1f} tokens/s, host {res['host_ms_step']:.4f} ms a "
+        f"decode step, device {device_ms:.4f} ms (profiler, 16 steps) -> idle share {res['idle_share']:.4f}; "
+        f"prompt steps {[round(t, 3) for t in res['prompt_ms']]} ms; the app {sampled['seconds']:.1f} s with the "
+        f"file's load; pinned to TopKSampler(1): turns = the greedy Generator's; teacher-forced turn 0: kernels / "
+        f"plain agree with it at {res['agree']} of {len(answer)}, worst gap {res['max_gap']} (tol {GAP_TOL}), "
+        f"relative RMS {rel:.4g}; launches {runs['sampled']['launches']}")
+    out["qwen2_chat"] = res
+    del params, backend, gen, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_apps(torch, out) -> dict:
+    """Phase 17: the port's example apps and its C embedding API on the
+    card, through ``main(argv)`` as ``python -m
+    rten_tpu_torch.examples.<app>`` runs them, the files in a temporary
+    directory.
+
+    (a) ``qwen2_chat.py --model q.npz --int8 --tokenizer bpe.json -n 64``
+    on a seeded HF-named state at Qwen2-0.5B's widths (QWEN2_APP; the tied
+    embedding written as ``lm_head.weight``, 2.5 GB in f32) with 2000 BPE
+    merges from README: 2 turns through ``Generator.append_prompt``, as
+    shipped (TopKSampler(20, 0.8): tokens/s, host ms a decode step, device
+    ms a step and the idle share) and with the sampler pinned to
+    TopKSampler(1), whose turns must equal a greedy
+    ``Generator(NativeBackend)`` stream over the same appended prompt ids;
+    each run launches quant_gemv_int8, quant_matmul_int8, flash_attention
+    and decode_attention:gqa (24 a decode step) and no plain version; the
+    first turn's prompt and answer teacher-forced through the kernels and
+    the plain versions under phase 9's top-2 rule.
+    (b) ``imagenet.py`` on a torchvision-named ResNet-50 (seed 0) and a
+    224² PNG: its top-5 classes those of its ``--cpu`` run, probabilities
+    within IMAGENET_PROB_TOL.
+    (c) Every other app (FILE_APPS) on its file route, on the files of the
+    tier-1 tests (``write_app_files``): printed lines those of its ``--cpu``
+    run (numbers within APP_CARD_RTOL / APP_CARD_ATOL), written PNG / WAV
+    files equal but for 0.1% off by one code, launches by kernel mode and
+    host seconds; then each of the 13 apps' ``--demo`` exits 0.
+    (d) The C embedding API: a C program built against ``build_embed``'s
+    library runs a .rten with RTEN_TORCH_DEVICE=cuda; its output within
+    1e-5 of ``Model.load_file(device="cuda")``'s and 1e-4 of its own run
+    with RTEN_TORCH_DEVICE=cpu.
+
+    Returns the phase's launches and those of them on the f32 routes (every
+    app of (c) and every demo but qwen2_chat's, whose models are f32)."""
+    import collections
+    import tempfile
+
+    import numpy as np
+
+    from rten_tpu_torch.examples import common
+    from rten_tpu_torch.image.io import write_image
+    from rten_tpu_torch.runtime.session import Model
+
+    t_phase = time.perf_counter()
+    res, launches, f32 = {}, collections.Counter(), collections.Counter()
+
+    def add(got, f32_route=False):
+        launches.update(got)
+        if f32_route:
+            f32.update(got)
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        f = write_app_files(tmp)
+        text = (ROOT / "README.md").read_text(encoding="utf-8")
+        Path(f["bpe"]).write_text(json.dumps(bpe_tokenizer_spec(train_bpe(text, TEXT_MERGES))), encoding="utf-8")
+        t0 = time.perf_counter()
+        f["qwen2"] = str(tmp / "qwen2_05b.npz")
+        np.savez(f["qwen2"], **qwen2_hf_state(0, **QWEN2_APP))
+        log(f"  files written in {time.perf_counter() - t0:.1f} s (the Qwen2 state "
+            f"{Path(f['qwen2']).stat().st_size / 1e9:.2f} GB)")
+        add(qwen2_chat_app(torch, f, res))
+        Path(f["qwen2"]).unlink()
+
+        # (b) imagenet.py at ResNet-50's width.
+        f["resnet50"], f["image224"] = str(tmp / "resnet50.npz"), str(tmp / "image224.png")
+        np.savez(f["resnet50"], **resnet_tv_state(0, bottleneck=True))
+        write_image(f["image224"], common.synthetic_image(224, 224, seed=3))
+        argv = ["--image", f["image224"], "--model", f["resnet50"]]
+        card, cpu = {}, {}
+        run = app_run(torch, "imagenet", argv, card)
+        app_run(torch, "imagenet", [*argv, "--cpu"], cpu)
+        err = float(np.abs(card["probs"] - cpu["probs"]).max())
+        if run["rc"] != 0 or card["top"] != cpu["top"] or not err <= IMAGENET_PROB_TOL:
+            raise AssertionError(f"(b) imagenet.py: top-5 {card['top']} / --cpu {cpu['top']}, max |p| difference "
+                                 f"{err} (tol {IMAGENET_PROB_TOL})")
+        add(run["launches"])
+        res["imagenet"] = dict(top=card["top"], max_prob_err=err, seconds=run["seconds"], launches=run["launches"])
+        log(f"  (b) imagenet.py, ResNet-50 (seed 0), 224²: top-5 {card['top']} = --cpu's, probabilities within "
+            f"{err:.3g}; {run['seconds']:.2f} s with the file's load; launches {run['launches']}")
+
+        # (c) every other app on its file route, then each app's --demo.
+        apps = {}
+        for name in FILE_APPS:
+            out_card, out_cpu = tmp / f"card_{name}", tmp / f"cpu_{name}"
+            out_card.mkdir()
+            out_cpu.mkdir()
+            run = app_run(torch, name, app_argv(name, f, out_card))
+            ref = app_run(torch, name, [*app_argv(name, f, out_cpu), "--cpu"])
+            diff = lines_differ([line.replace(str(out_card), "OUT") for line in run["lines"]],
+                                [line.replace(str(out_cpu), "OUT") for line in ref["lines"]], APP_CARD_RTOL,
+                                APP_CARD_ATOL)
+            written = sorted(p.name for p in out_cpu.iterdir())
+            diff = diff or next((f"{w}: {d}" for w in written
+                                 if (d := written_differ(str(out_card / w), str(out_cpu / w)))), None)
+            if run["rc"] != 0 or ref["rc"] != 0 or diff or run["plain"]:
+                raise AssertionError(f"(c) {name}: exit {run['rc']} / --cpu {ref['rc']}; {diff}; plain "
+                                     f"{run['plain']}")
+            add(run["launches"], f32_route=True)
+            apps[name] = dict(seconds=run["seconds"], cpu_seconds=ref["seconds"], launches=run["launches"],
+                              lines=run["lines"][-3:])
+            log(f"  (c) {name}: = --cpu; {run['seconds']:.3f} s (--cpu {ref['seconds']:.3f} s); "
+                f"launches {run['launches']}")
+        demos = {}
+        for name, flags in DEMO_FLAGS.items():
+            run = app_run(torch, name, ["--demo", *flags])
+            if run["rc"] != 0 or not run["lines"] or run["plain"]:
+                raise AssertionError(f"(c) {name} --demo: exit {run['rc']}, plain {run['plain']}")
+            add(run["launches"], f32_route=name != "qwen2_chat")
+            demos[name] = dict(seconds=run["seconds"], launches=run["launches"])
+        log(f"  (c) every --demo exits 0: " + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in demos.items()))
+        res["apps"], res["demos"] = apps, demos
+
+        # (d) The C embedding API on the card.
+        model = tmp / "embed.rten"
+        embed_model(model)
+        t0 = time.perf_counter()
+        exe = build_embed_driver(tmp)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = embed_output(run_embed_driver(exe, str(model), "cuda"))
+        card_s = time.perf_counter() - t0
+        want = common.to_numpy(Model.load_file(model, device="cuda").run([embed_input()])[0])
+        host = embed_output(run_embed_driver(exe, str(model), "cpu"))
+        e_card, e_cpu = float(np.abs(got - want).max()), float(np.abs(got - host).max())
+        if not (e_card <= 1e-5 and e_cpu <= 1e-4):
+            raise AssertionError(f"(d) the embedding API on the card: {e_card} from Model (tol 1e-5), {e_cpu} from "
+                                 f"its CPU run (tol 1e-4)")
+        res["embed"] = dict(max_err_model=e_card, max_err_cpu=e_cpu, build_s=build_s, run_s=card_s)
+        log(f"  (d) C program through librten_embed.so, RTEN_TORCH_DEVICE=cuda: within {e_card:.3g} of the "
+            f"in-process Model on the card, {e_cpu:.3g} of RTEN_TORCH_DEVICE=cpu; built in {build_s:.2f} s, "
+            f"{card_s:.2f} s a run (process start and the embedded interpreter's imports)")
+    res["seconds"] = time.perf_counter() - t_phase
+    out["apps"] = res
+    log(f"  ({res['seconds']:.1f} s)")
+    return dict(launches), dict(f32)
+
+
+def apps_only(torch, detail, kind, smi, label: str) -> int:
+    """``--apps LABEL``: phase 17 (drive_apps) alone after phases 1-2,
+    written to chiprun_out/apps_LABEL.json; its last line is marked
+    partial."""
+    log("[3/3] the example apps and the C embedding API")
+    launches, _f32 = drive_apps(torch, detail)
+    (OUT_DIR / f"apps_{label}.json").write_text(json.dumps(detail, indent=1, default=str))
+    print(smi)
+    print(json.dumps({"partial": "apps", "kind": kind, "label": label, "launches": launches,
+                      "seconds": detail["apps"]["seconds"]}))
+    return 0
+
 KERNELS = {
     "quant_gemv_int8": dict(source="rten_tpu_torch/kernels/csrc/quant_gemv.cu",
                             replaces="rten_tpu/kernels/quant_matmul.py:339", timed="lm_head_argmax"),
@@ -5800,6 +6653,8 @@ def main() -> int:
                         help="phase 15 alone: tokenizers, the example apps, the trace (text_only)")
     parser.add_argument("--parallel", metavar="LABEL",
                         help="phase 16 alone: per-rank kernel shapes and the 2-rank parallel paths (parallel_only)")
+    parser.add_argument("--apps", metavar="LABEL",
+                        help="phase 17 alone: the example apps and the C embedding API (apps_only)")
     parser.add_argument("--package", metavar="DIR",
                         help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
@@ -5821,7 +6676,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
 
-    log(f"[1/17] ({time.perf_counter() - t_start:.1f} s) device")
+    log(f"[1/18] ({time.perf_counter() - t_start:.1f} s) device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
@@ -5834,7 +6689,7 @@ def main() -> int:
     detail = dict(device=dict(kind=kind, nvidia_smi=smi, mem_rate=mem_rate, bf16_rate=op_rate, int8_rate=int8_rate,
                               f32_rate=f32_rate))
 
-    log(f"[2/17] ({time.perf_counter() - t_start:.1f} s) build")
+    log(f"[2/18] ({time.perf_counter() - t_start:.1f} s) build")
     t0 = time.perf_counter()
     _build.library()
     built = _build.BUILD_SECONDS
@@ -5872,7 +6727,9 @@ def main() -> int:
         return text_only(torch, detail, kind, smi, opts.text)
     if opts.parallel:
         return parallel_only(torch, bound, detail, kind, smi, opts.parallel)
-    log(f"[3/17] ({time.perf_counter() - t_start:.1f} s) "
+    if opts.apps:
+        return apps_only(torch, detail, kind, smi, opts.apps)
+    log(f"[3/18] ({time.perf_counter() - t_start:.1f} s) "
         "kernels against their plain versions (GPT-2-small shapes, bf16)")
     cases = check_kernels(torch, bound, cfg)
     one_launch_a_call(cases)
@@ -5882,44 +6739,44 @@ def main() -> int:
     params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cuda"), device="cuda")
     torch.cuda.synchronize()
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
-    log(f"[4/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[4/18] ({time.perf_counter() - t_start:.1f} s) "
         "GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
     launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
 
-    log(f"[5/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[5/18] ({time.perf_counter() - t_start:.1f} s) "
         "continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")
     for name, n in drive_serving(torch, cfg, params, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log(f"[6/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[6/18] ({time.perf_counter() - t_start:.1f} s) "
         "W8A8: GPT-2-small through Generator and the slot engine, the accuracy gate")
     for name, n in drive_w8a8(torch, cfg, params, mem_rate, int8_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log(f"[7/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[7/18] ({time.perf_counter() - t_start:.1f} s) "
         "mega: GPT-2-small with DecoderConfig(mega=True), the whole block in one kernel a layer")
     for name, n in drive_mega(torch, cfg, params, mem_rate, op_rate, detail, forced).items():
         launches[name] = launches.get(name, 0) + n
     del params
     torch.cuda.empty_cache()
-    log(f"[8/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[8/18] ({time.perf_counter() - t_start:.1f} s) "
         "tiny_starcoder_py shape (MQA 12/1): Generator two-kernel and mega, the mega gate")
     for name, n in drive_starcoder(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log(f"[9/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[9/18] ({time.perf_counter() - t_start:.1f} s) "
         "Qwen2-0.5B shape (RoPE, GQA 14/2, SwiGLU): Generator, the engines, a 12-row step")
     for name, n in drive_qwen2(torch, mem_rate, op_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
 
-    log(f"[10/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[10/18] ({time.perf_counter() - t_start:.1f} s) "
         "generation: generate_scan captured and eager with each sampler (GPT-2-small, Qwen2-0.5B "
         "shape), speculative decoding, sampled serving")
     for name, n in drive_generation(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log(f"[11/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[11/18] ({time.perf_counter() - t_start:.1f} s) "
         "whisper: Whisper-tiny through Generator(EncDecBackend(device='cuda')), int8 and bf16 KV")
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
-    log(f"[12/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[12/18] ({time.perf_counter() - t_start:.1f} s) "
         "encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
         "INT8, ResNet-50 fp32")
     phase12, f32_runs = drive_encoders(torch, detail)
@@ -5927,7 +6784,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] = f32_runs.get(name, 0)
-    log(f"[13/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[13/18] ({time.perf_counter() - t_start:.1f} s) "
         "the graph runtime: a GPT-2-small graph through GraphBackend(Model(graph)) compiled, "
         "one CUDA graph a bucket")
     for name, n in drive_graph(torch, detail).items():
@@ -5941,14 +6798,14 @@ def main() -> int:
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
     one_launch_w8a8(cases)
-    log(f"[14/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[14/18] ({time.perf_counter() - t_start:.1f} s) "
         "model files: .rten save / load / mmap, ONNX convert --quantize, the CLI, lifting onto the "
         "dense-weight route (GPT-2-small, Whisper-tiny)")
     for name, n in drive_files(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
         if name in ("quant_matmul_int8", "flash_attention"):
             launches[f"{name}:f32"] += n  # f32 activations: the SIMT route, the f32 flash kernel
-    log(f"[15/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[15/18] ({time.perf_counter() - t_start:.1f} s) "
         "text in, text out: README tokenizers, gpt2.py (GPT-2-small int8 and its f32 file), bert_qa.py "
         "(BERT-base), the profiler's trace, the native library")
     phase15, f32_text = drive_text(torch, detail)
@@ -5957,7 +6814,7 @@ def main() -> int:
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] += f32_text.get(name, 0)  # (c) and (d): the f32 routes
     torch.cuda.empty_cache()
-    log(f"[16/17] ({time.perf_counter() - t_start:.1f} s) "
+    log(f"[16/18] ({time.perf_counter() - t_start:.1f} s) "
         "parallel: the Qwen2-0.5B shape over 2 ranks (tensor parallelism through tp_decode_step and the "
         "engines, sp_prefill, pp_forward, the overlapped matmuls and ring attention, the supervisor)")
     phase16, tp_cases = drive_parallel(torch, bound, smi, detail)
@@ -5965,7 +6822,15 @@ def main() -> int:
     cases += tp_cases
     for name, n in phase16.items():
         launches[name] = launches.get(name, 0) + n
-    log(f"[17/17] ({time.perf_counter() - t_start:.1f} s) summary")
+    log(f"[17/18] ({time.perf_counter() - t_start:.1f} s) "
+        "apps: qwen2_chat.py at Qwen2-0.5B's widths, imagenet.py at ResNet-50's, the other apps against their "
+        "--cpu runs, every --demo, the C embedding API")
+    phase17, f32_apps = drive_apps(torch, detail)
+    for name, n in phase17.items():
+        launches[name] = launches.get(name, 0) + n
+    for name in ("quant_matmul_int8", "flash_attention"):
+        launches[f"{name}:f32"] += f32_apps.get(name, 0)  # (c) and the demos: the f32 routes
+    log(f"[18/18] ({time.perf_counter() - t_start:.1f} s) summary")
     entries = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == meta.get("cases_of", name) and meta.get("select", bool)(c)]

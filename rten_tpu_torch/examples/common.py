@@ -65,6 +65,41 @@ def synthetic_audio(
     return wav, sr
 
 
+def resize_bilinear(x, size):
+    """``x`` [..., h, w] (a tensor, or a numpy array taken to the CPU)
+    resized over its last two axes to ``size`` (H, W) in f32 on its device:
+    what ``jax.image.resize(x, (..., H, W), "bilinear")`` computes, the
+    triangle filter widened when it shrinks (``antialias=True``; PyTorch's
+    plain bilinear samples without it and differs by up to ~0.6 there)."""
+    import torch
+    import torch.nn.functional as F
+
+    t = torch.as_tensor(x).float()
+    lead, (h, w) = t.shape[:-2], t.shape[-2:]
+    if (h, w) == tuple(size):
+        return t
+    out = F.interpolate(t.reshape(-1, 1, h, w), size=tuple(size), mode="bilinear", align_corners=False,
+                        antialias=True)
+    return out.reshape(*lead, *size)
+
+
+def load_image_arg(path: str, size: int | None = None) -> np.ndarray:
+    """Read an image file as CHW f32 in [0, 1] (``image.io`` ≙
+    rten-imageio), bilinearly resized to size×size when asked — the
+    examples' real-input path (reference: imagenet.rs:56-100)."""
+    from rten_tpu_torch.image.io import read_image
+
+    chw = read_image(path)
+    if size is not None and chw.shape[1:] != (size, size):
+        chw = resize_bilinear(chw, (size, size)).numpy()
+    return chw
+
+
+def to_numpy(t) -> np.ndarray:
+    """A model output as a host f32 numpy array (one copy from the card)."""
+    return t.detach().float().cpu().numpy()
+
+
 def word_vocab(words: list[str]) -> dict[str, int]:
     """WordPiece-style vocab over whole words + specials."""
     vocab = {"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3}

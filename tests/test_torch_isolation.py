@@ -1,7 +1,9 @@
 """rten_tpu_torch stands alone: it imports neither ``jax`` nor anything of
-``rten_tpu`` (nor ``flatbuffers``: its `.rten` writer is its own), and its
-entry points do not fall back to the CPU on a machine without CUDA."""
+``rten_tpu`` or of the repo-level ``examples`` package (nor ``flatbuffers``:
+its `.rten` writer is its own), its C++ / CUDA sources name neither, and
+its entry points do not fall back to the CPU on a machine without CUDA."""
 
+import importlib
 import os
 import re
 import subprocess
@@ -16,12 +18,16 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p for p in (REPO / "rten_tpu_torch").rglob("*.py") if "_build" not in p.parts  # build outputs
 ) + [REPO / "chip_smoke.py"]
+PORT_NATIVE = sorted(
+    p for pat in ("*.cpp", "*.cu*") for p in (REPO / "rten_tpu_torch").rglob(pat) if "_build" not in p.parts
+)
 
 _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["rten_tpu"] = None     # and so does any import of the JAX package
 sys.modules["flatbuffers"] = None  # the port writes .rten files without it
+sys.modules["examples"] = None     # the repo-level apps: the port has its own
 import numpy as np, torch
 import rten_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rten_tpu_torch.__path__, "rten_tpu_torch.")]
@@ -160,7 +166,16 @@ sup = ServingSupervisor(lambda: ServingEngine(params, cfg, max_batch=2, mesh=mes
 sup.submit(Request(prompt=[1, 2], max_new_tokens=3))
 assert [len(r.output) for r in sup.run()] == [3]
 dist.destroy_process_group()
-assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.")) or m == "rten_tpu"
+import contextlib, io  # the example apps: every --demo on the CPU
+from rten_tpu_torch.examples import common
+demos = {"imagenet": [], "yolo": [], "deeplab": [], "detr": [], "depth_anything": [], "segment_anything": [],
+         "distilvit": ["-n", "2"], "trocr": ["-n", "2"], "jina_similarity": [], "qwen2_chat": ["-n", "2"],
+         "piper": [], "silero": [], "wav2vec2": ["--beam", "2"], "gpt2": ["-n", "2"], "bert_qa": []}
+for app in demos:
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert importlib.import_module(f"rten_tpu_torch.examples.{app}").main(["--demo", "--cpu", *demos[app]]) == 0
+assert common.resize_bilinear(np.zeros((1, 4, 4), np.float32), (2, 2)).shape == (1, 2, 2)
+assert not any(m == "jax" or m.startswith(("jax.", "rten_tpu.", "examples.")) or m in ("rten_tpu", "examples")
                for m, mod in sys.modules.items() if mod is not None)
 print("OK", len(names))
 """
@@ -186,6 +201,27 @@ _FORBIDDEN = re.compile(
 def test_source_imports_no_jax(path):
     hits = _FORBIDDEN.findall(path.read_text())
     assert not hits, hits
+
+
+# In a C++ / CUDA source: a Python module named in a string (an import
+# through the C API, or Python code run from a string).
+_NATIVE_FORBIDDEN = re.compile(r'"(?:jax|rten_tpu|examples)(?:[."]|\\n)|\b(?:import|from)\s+(?:jax|rten_tpu)\b(?!_torch)')
+
+
+@pytest.mark.parametrize("path", PORT_NATIVE, ids=lambda p: str(p.relative_to(REPO)))
+def test_native_source_names_no_jax(path):
+    hits = _NATIVE_FORBIDDEN.findall(path.read_text())
+    assert not hits, hits
+
+
+def test_native_scan_catches_the_jax_embed_api():
+    """The JAX package's embed_api.cpp imports rten_tpu.runtime.session and
+    runs ``import jax`` from a string: the scan finds both; the port's
+    copy names neither."""
+    hits = _NATIVE_FORBIDDEN.findall((REPO / "rten_tpu" / "native" / "embed_api.cpp").read_text())
+    assert '"rten_tpu.' in hits and any("jax" in h for h in hits)
+    assert REPO / "rten_tpu_torch" / "native" / "embed_api.cpp" in PORT_NATIVE
+    assert not _NATIVE_FORBIDDEN.search('PyImport_ImportModule("rten_tpu_torch.runtime.session")')
 
 
 def test_scan_regex_catches_imports():
@@ -254,6 +290,9 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         lambda: int8_pack(np.zeros((4, 2), np.int8), np.ones(2, np.float32)),
         lambda: gpt2.main(["--demo", "-n", "2"]),
         lambda: bert_qa.main(["--demo"]),
+        *(lambda app=app: importlib.import_module(f"rten_tpu_torch.examples.{app}").main(["--demo"])
+          for app in ("imagenet", "yolo", "deeplab", "detr", "depth_anything", "segment_anything", "distilvit",
+                      "trocr", "jina_similarity", "qwen2_chat", "piper", "silero", "wav2vec2")),
         lambda: make_mesh(1, 2),
         lambda: World(2),
         lambda: run_ranks(print, 2),
