@@ -77,7 +77,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    at 1500 rows, the GEMV at K 384 with the lm_head's argmax bounded to
    51865 of 51968 columns, the MLP at D 384 / FF 1536, decode_attention
    without wo and decode_attention_int8 at S 448), and the four KV kernels
-   at 16 rows of mixed lengths;
+   at 16 rows of mixed lengths; the attention kernels at the head dims and
+   pages beside 64 and 128 (check_head_dims_and_pages: the four KV kernels
+   and decode_block at 24 heads of 32 over S 768, pages of 16 at the Qwen2
+   shape and at Llama-3-8B's 32 / 8 heads of 128, int8 pages of 32;
+   flash_attention at all-MiniLM-L6-v2's 12 heads of 32, at 24 heads of
+   16, and at Phi-3-mini's 96 and Phi-2's 80 on the 128 instance);
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
@@ -90,7 +95,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    seeded requests (prompts 16-320 tokens, 32-256 new tokens) queued at
    once through ServingEngine (8 slots, 8 forwards a tick; run and
    run_pipelined), PagedServingEngine (pages of 128; a pool that holds them
-   all, then one small enough to preempt), both again with int8 KV, and 4
+   all, then one small enough to preempt; then pages of 16, their streams
+   against the solo streams), both again with int8 KV, and 4
    concurrent POST /generate to a ServingServer on loopback; each stream
    held against its solo Generator(NativeBackend) stream (a difference
    passes only where the solo top-2 logit gap is below 0.05), every page
@@ -166,7 +172,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 12. encoders — the encoders and vision models at full width (random
    weights from seed 0): DistilBERT-base INT8 (8 sequences of seeded
    lengths 32-384 padded to 384; encode, qa_logits, pool) in f32 and in
-   bf16, wav2vec2-base INT8 (4 waveforms of 3-10 s at 16 kHz padded to
+   bf16, all-MiniLM-L6-v2's widths INT8 (6 layers, 12 heads of 32; 8
+   sequences of 32-256 tokens; encode and pool) in f32 and in bf16,
+   wav2vec2-base INT8 (4 waveforms of 3-10 s at 16 kHz padded to
    10 s; ctc_logits and the greedy CtcDecoder), ViT-B/16 (classify and
    feature_map), MobileNetV2 INT8 (its two K-24 expands on the kernel)
    and ResNet-50 fp32, 8 images of 224² each: each forward's launches
@@ -276,7 +284,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    versions under phase 9's top-2 rule; (b) imagenet.py on a
    torchvision-named ResNet-50 and a 224² PNG against its --cpu run; (c)
    the other 11 apps on their file routes (the tier-1 tests' files) against
-   their --cpu runs, then every app's --demo; (d) a C program through
+   their --cpu runs, then every app's --demo at the JAX demos' widths
+   (heads of 16 and 32; gpt2.py also with --int8), none with --cpu; (d) a
+   C program through
    librten_embed.so with RTEN_TORCH_DEVICE=cuda against the in-process
    Model and its CPU run;
 18. the line {"kernels": [...]} (the launches summed over phases 4-17 and
@@ -284,7 +294,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    captured graph's launches counted at each replay, the
    split-K and split-KV launches also under their own names;
    matmul_fused, which no model calls, launches in phase 3 only, its
-   ragged route also under its own name), the
+   ragged route also under its own name; the head dims other than 64 and
+   128 and the pages under 64 positions under name:d<D> and
+   name:page<P>), the
    nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
 Details (every case, the compiler's register report) go to
@@ -543,6 +555,8 @@ def check_kernels(torch, bound, cfg):
     torch.cuda.empty_cache()
     check_kv_kernels(torch, bound, cfg, randn, record, kinds=("decode_attention", *KV_KINDS), lens_cases=KV_LENS_16)
     torch.cuda.empty_cache()
+    check_head_dims_and_pages(torch, bound, cfg, randn, pack, record)
+    torch.cuda.empty_cache()
     check_encoder_kernels(torch, bound, randn, pack, record)
     torch.cuda.empty_cache()
     check_graph_kernels(torch, bound, randn, pack, record)
@@ -550,6 +564,32 @@ def check_kernels(torch, bound, cfg):
     check_file_kernels(torch, bound, randn, record)
     torch.cuda.empty_cache()
     return cases
+
+
+def check_head_dims_and_pages(torch, bound, cfg, randn, pack, record):
+    """The KV kernels' other head dims and pages, each against its plain
+    version, timed, with its bound and SDPA, recorded under name:d32 or
+    name:page<P>: the four KV kernels at 24 heads of 32 over S 768 (a
+    synthetic shape at GPT-2's d_model: the 32 instance; decode_attention
+    with its fused wo and without); pages of 16 positions at the Qwen2-0.5B
+    shape's 14 / 2 heads of 64 and at Llama-3-8B's 32 / 8 heads of 128, and
+    int8 pages of 32 at the latter (the JAX rules' smallest). decode_block's
+    32 instance and flash_attention's at 16, 32, 80 and 96 are in
+    check_decode_block, check_encoder_kernels and check_prefill_kernels."""
+    tag = "synthetic 24x32 "
+    check_kv_kernels(torch, bound, cfg, randn, record, kinds=("decode_attention", *KV_KINDS),
+                     lens_cases=KV_LENS_MODES, h=24, hd=32, suffix=":d32", tag=tag)
+    torch.cuda.empty_cache()
+    check_gqa_kernels(torch, bound, randn, pack, record, heads=(24, 24), hd=32, kinds=("decode_attention:gqa",),
+                      lens_cases=KV_LENS_MODES, tag=tag, suffix=":d32")
+    torch.cuda.empty_cache()
+    for kind, page in (("paged_decode_attention:gqa", SMALL_PAGE), ("paged_decode_attention_int8:gqa", 32)):
+        for heads, hd, tag in (((14, 2), 64, "qwen2 "), ((32, 8), 128, "llama-3-8b ")):
+            if kind.startswith("paged_decode_attention_int8") and hd != 128:
+                continue  # the JAX int8 rule takes pages of 64 and more at head dim 64
+            check_gqa_kernels(torch, bound, randn, pack, record, heads=heads, hd=hd, kinds=(kind,),
+                              lens_cases=KV_LENS_MODES, tag=tag, page=page, suffix=f":page{page}")
+            torch.cuda.empty_cache()
 
 
 def gemv_launch_info(torch, fn, m: int, dot: str, phases: tuple, coop: bool = False) -> dict:
@@ -1031,7 +1071,10 @@ def check_w8a8_matmul(torch, bound, cfg, randn, pack, record):
 # decode_block's blocks: (query heads, kv heads) at d_model 768, FF 3072,
 # head dim 64; GPT-2-small's (packed q|k|v) and tiny_starcoder_py's (MQA,
 # unpacked; the next qkv N (12 + 2) x 64 = 896).
-BLOCK_SHAPES = {"gpt2": (12, 12), "starcoder": (12, 1)}
+# (query heads, kv heads[, head dim]): GPT-2-small's and tiny_starcoder_py's
+# blocks at head dim 64, and (labelled synthetic) 24 heads of 32 at GPT-2's
+# d_model, decode_block's 32 instance.
+BLOCK_SHAPES = {"gpt2": (12, 12), "starcoder": (12, 1), "synthetic 24x32": (24, 24, 32)}
 
 
 def block_waits(torch, fn, grid: int, reps: int = 5) -> dict:
@@ -1100,11 +1143,12 @@ def check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
 
     # -- decode_block: the whole layer (and the next layer's qkv) in one launch
     for shape in shapes:
-        h, hk = BLOCK_SHAPES[shape]
-        name = "decode_block" if h == hk else "decode_block:gqa"
+        h, hk, *rest = BLOCK_SHAPES[shape]
+        hd = rest[0] if rest else cfg.head_dim
+        name = ("decode_block" if h == hk else "decode_block:gqa") if hd == 64 else f"decode_block:d{hd}"
         nq = (h + 2 * hk) * hd
-        for kv_len in (1, 300, 767):
-            for with_next in (True, False):
+        for kv_len in (1, 300, 767) if hd == 64 else (300, 767):
+            for with_next in (True, False) if hd == 64 else (True,):
                 def make(i, kv_len=kv_len, with_next=with_next):
                     kc, vc = randn(1, hk, s_max, hd, scale=1.5), randn(1, hk, s_max, hd)
                     if h == hk:
@@ -1153,11 +1197,12 @@ def check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, reco
                 two_ms = graph_ms(torch, [lambda a=a: two_kernels(a) for a in copies])
                 plain = eager_ms(torch, lambda: da.decode_block_ref(*p_args, **kw))
                 extra = dict(two_kernel_ms=two_ms)
-                if stamped:
+                if stamped and hd == 64:  # the measurement build: bf16, head dim 64
                     extra.update(block_waits(torch, lambda st: da.decode_block_timed(st, *args, **kw),
                                              da.block_grid(0)))
-                record(name, f"kv_len={kv_len} {'+next_qkv' if with_next else 'last layer'} S={s_max} "
-                       f"Hq={h} Hk={hk} D={d} FF={ff}", *worst, ms, plain, bound(per_call, ops_n), None,
+                record(name, f"{'' if hd == 64 else shape + ' '}kv_len={kv_len} "
+                       f"{'+next_qkv' if with_next else 'last layer'} S={s_max} Hq={h} Hk={hk} D={d} FF={ff}"
+                       + ("" if hd == 64 else f" head_dim={hd}"), *worst, ms, plain, bound(per_call, ops_n), None,
                        f"(decode_attention + quant_mlp_int8 on the same inputs {two_ms:.4f} ms)", **extra)
                 del copies
 
@@ -1310,6 +1355,9 @@ KV_LENS = {"B=1 kv_len=1": [1], "B=1 kv_len=300": [300], "B=1 kv_len=767": [767]
            "B=8 mixed": [1, 100, 200, 300, 400, 500, 640, 767]}
 # The 16-row engines' decode step (phase 5): 16 rows of mixed lengths.
 KV_LENS_16 = {"B=16 mixed": [0, 1, 50, 100, 127, 128, 200, 255, 300, 400, 447, 500, 600, 640, 700, 767]}
+# The KV kernels' cases at the head dims and pages beside 64 and 128 (phase
+# 3's check_head_dims_and_pages): rows at 300, and 8 rows of mixed lengths.
+KV_LENS_MODES = {k: KV_LENS[k] for k in ("B=1 kv_len=300", "B=8 mixed")}
 KV_ENTRIES = {"decode_attention": "rt_decode_attention", "decode_attention_int8": "rt_decode_attention_int8",
               "paged_decode_attention": "rt_paged_attention",
               "paged_decode_attention_int8": "rt_paged_attention_int8"}  # each KV kernel's C entry point
@@ -1318,13 +1366,16 @@ KV_ENTRIES = {"decode_attention": "rt_decode_attention", "decode_attention_int8"
 KV_KINDS = ("decode_attention_int8", "paged_decode_attention", "paged_decode_attention_int8")
 
 
-def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_cases=None, h=None, s_max=CACHE_LEN):
+def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_cases=None, h=None, s_max=CACHE_LEN,
+                     hd=None, suffix="", tag=""):
     """The serving path's KV kernels (decode_attention_int8 over an int8
     [B, H, S, D] cache; paged_decode_attention and its int8 twin over pools
     of 128-position pages, each row's pages scattered through the pool; with
     ``"decode_attention"`` in ``kinds``, decode_attention without its wo
-    over a bf16 cache) at S ``s_max`` (768) and ``h`` heads (cfg's) for the
-    rows of each of ``lens_cases`` (KV_LENS), against their plain versions:
+    over a bf16 cache) at S ``s_max`` (768) and ``h`` heads of ``hd`` (cfg's)
+    for the rows of each of ``lens_cases`` (KV_LENS), against their plain
+    versions (recorded under the mode's name plus ``suffix``, each label
+    after ``tag``):
     the attention vector (tolerance from its own max), the caches after the
     append bit for bit. Timed as check_kernels times the others; the bound
     counts the valid prefix's payload and scales, the packed qkv and the
@@ -1336,7 +1387,7 @@ def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_case
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4321)
-    h, hd, page = h or cfg.n_heads, cfg.head_dim, 128
+    h, hd, page = h or cfg.n_heads, hd or cfg.head_dim, 128
     per_row = s_max // page
     F = torch.nn.functional
     table = {"decode_attention": (da.decode_attention, da.decode_attention_ref),
@@ -1405,8 +1456,8 @@ def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_case
                 lib_in.append((q, contiguous(c, 0), contiguous(c, 1), mask))
             library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=t[3])
                                        for t in lib_in])
-            record(name + (":no_wo" if name == "decode_attention" else ""),
-                   f"{case} S={s_max} H={h} D={hd}" + (f" page={page}" if paged else ""), err, tol, ms,
+            record(name + (suffix or (":no_wo" if name == "decode_attention" else "")),
+                   f"{tag}{case} S={s_max} H={h} D={hd}" + (f" page={page}" if paged else ""), err, tol, ms,
                    plain_ms, bound(per_call, ops), library,
                    **kv_launch_info(torch, lambda: kernel(*k_args), KV_ENTRIES[name], args[0][:, 0, :, 0], h, s_max))
             del copies, lib_in
@@ -1415,7 +1466,8 @@ def check_kv_kernels(torch, bound, cfg, randn, record, kinds=KV_KINDS, lens_case
 QWEN2 = dict(n_heads=14, n_kv_heads=2, d_model=896)  # Qwen2-0.5B's attention (its config.json)
 
 
-def check_gqa_kernels(torch, bound, randn, pack, record, heads=None, kinds=None, lens_cases=None, tag=""):
+def check_gqa_kernels(torch, bound, randn, pack, record, heads=None, kinds=None, lens_cases=None, tag="", hd=64,
+                      page=128, suffix=""):
     """The KV kernels' Llama/Qwen2-class modes at Qwen2-0.5B's attention
     (14 query heads over 2 kv heads, head dim 64, wo 896 x 896) and S 768,
     kv_len 1 / 300 / 767 and 8 rows of mixed lengths: decode_attention on
@@ -1429,18 +1481,20 @@ def check_gqa_kernels(torch, bound, randn, pack, record, heads=None, kinds=None,
     yardstick is scaled_dot_product_attention(enable_gqa=True) over the
     same prefix made contiguous (a bf16 dequantized copy for int8), rows
     masked to their lengths, without wo. ``heads`` (query heads, kv heads
-    at head dim 64), ``kinds`` (a subset of the names), ``lens_cases`` and
-    ``tag`` (put before each shape label) give phase 16's per-rank cases."""
+    at head dim ``hd``), ``kinds`` (a subset of the names), ``lens_cases``
+    and ``tag`` (put before each shape label) give phase 16's per-rank
+    cases; ``page`` the pages' positions; ``suffix`` replaces the mode's
+    ``:gqa`` in the recorded name (the small pages' cases)."""
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(6161)
     hq, hk, dm = QWEN2["n_heads"], QWEN2["n_kv_heads"], QWEN2["d_model"]
-    hd, s_max, page = dm // hq, CACHE_LEN, 128
+    s_max = CACHE_LEN
     if heads is not None:
         hq, hk = heads
-        dm = hq * hd
+    dm = hq * hd
     per_row = s_max // page
     F = torch.nn.functional
     all_kinds = {"decode_attention:gqa": (da.decode_attention, da.decode_attention_ref),
@@ -1523,7 +1577,7 @@ def check_gqa_kernels(torch, bound, randn, pack, record, heads=None, kinds=None,
             library = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(*t, attn_mask=mask, enable_gqa=True)
                                        for t in lib_in])
             label = f"{tag}{case} S={s_max} Hq={hq} Hk={hk} D={hd}" + (f" page={page}" if paged else "")
-            record(name, label, err, tol,
+            record(name.split(":")[0] + suffix if suffix else name, label, err, tol,
                    ms, plain_ms, bound(per_call, ops), library, "(SDPA without wo)" if with_wo else "",
                    **kv_launch_info(torch, lambda: kernel(*k_args, **kw), KV_ENTRIES[name.split(":")[0]],
                                     args[0][0], hk, s_max, with_wo=with_wo))
@@ -1624,7 +1678,7 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record, shap
     # against its own max; the f32 kernel (the same values in f32) against
     # the softmax in f64.
     qh, qk, wh = QWEN2["n_heads"], QWEN2["n_kv_heads"], WHISPER["n_heads"]
-    fa_cases = fa_cases or [  # name, b, hq, hk, tq, s, causal, q_offset, kv_len
+    fa_cases = fa_cases or [  # name, b, hq, hk, tq, s, causal, q_offset, kv_len[, head dim (cfg's)]
         ("Tq=64 kv_len=64", 1, h, h, 64, CACHE_LEN, True, 0, 64),
         ("Tq=512 kv_len=512", 1, h, h, 512, CACHE_LEN, True, 0, 512),
         ("Tq=24 q_offset=300 kv_len=324", 1, h, h, 24, CACHE_LEN, True, 300, 324),
@@ -1641,9 +1695,17 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record, shap
         ("whisper encoder Tq=1500", 1, wh, wh, WHISPER_AUDIO, WHISPER_AUDIO, False, 0, WHISPER_AUDIO),
         ("whisper cross Tq=1", 1, wh, wh, 1, WHISPER_AUDIO, False, 0, WHISPER_AUDIO),
         ("whisper cross B=8 Tq=1", 8, wh, wh, 1, WHISPER_AUDIO, False, 0, WHISPER_AUDIO),
+        # Head dims that run the next instance up with their columns past d
+        # zero: Phi-3-mini's 32 heads of 96 and Phi-2's 32 of 80 (their
+        # config.json files), a 512-token causal prompt in a 1024-position cache.
+        ("phi-3-mini Tq=512 kv_len=512", 1, 32, 32, 512, 1024, True, 0, 512, 96),
+        ("phi-2 Tq=512 kv_len=512", 1, 32, 32, 512, 1024, True, 0, 512, 80),
     ]
-    for name, b, hq, hk, tq, s, causal, q_off, kv_len in fa_cases:
-        def make(i, b=b, hq=hq, hk=hk, tq=tq, s=s, causal=causal, q_off=q_off, kv_len=kv_len):
+    cfg_hd = hd
+    for name, b, hq, hk, tq, s, causal, q_off, kv_len, *case_hd in fa_cases:
+        hd = case_hd[0] if case_hd else cfg_hd
+
+        def make(i, b=b, hq=hq, hk=hk, tq=tq, s=s, causal=causal, q_off=q_off, kv_len=kv_len, hd=hd):
             q = randn(b, hq, tq, hd, scale=1.5)
             kc, vc = randn(b, hk, s, hd, scale=1.5), randn(b, hk, s, hd)
             kw = dict(causal=causal, q_offset=torch.full((b,), q_off, dtype=torch.int32, device=dev),
@@ -1698,7 +1760,7 @@ def check_prefill_kernels(torch, bound, cfg, randn, pack, bf16_err, record, shap
                bound(per_call, ops), library,
                f"(f32 kernel vs f64 softmax err {err64:.3g} tol {tol64:.3g}; score std {score_std:.2f})",
                split=at.flash_plan(b, hq, hk, tq, kv_len, sms)[1],
-               host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
+               host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)), head_dim=hd)
         del copies, lib_in
 
 
@@ -1755,16 +1817,22 @@ def check_encoder_kernels(torch, bound, randn, pack, record):
                host_us=host_us(torch, lambda: qm.quant_matmul_int8(*args)))
         del copies, lib_w
 
-    hd = ENC_D // ENC_HEADS
     w2v_frames = (499, 380, 255, 149)  # 10, ~7.6, ~5.1 and ~3 s of 16 kHz audio
-    fa_cases = [(f"distilbert B={ENC_B} Tq=S={ENC_T} per-row kv_len", ENC_B, ENC_T, ENC_LENS),
-                ("vit-b/16 B=8 Tq=S=197", 8, 197, None),
-                ("wav2vec2 B=4 Tq=S=499 per-row kv_len", 4, 499, w2v_frames)]
+    minilm_lens = (256, 230, 201, 160, 128, 97, 64, 32)
+    fa_cases = [  # name, b, t, per-row lengths, heads, head dim
+        (f"distilbert B={ENC_B} Tq=S={ENC_T} per-row kv_len", ENC_B, ENC_T, ENC_LENS, ENC_HEADS, 64),
+        ("vit-b/16 B=8 Tq=S=197", 8, 197, None, ENC_HEADS, 64),
+        ("wav2vec2 B=4 Tq=S=499 per-row kv_len", 4, 499, w2v_frames, ENC_HEADS, 64),
+        # all-MiniLM-L6-v2's 12 heads of 32 (phase 12's MiniLM run), and
+        # (labelled synthetic) 24 heads of 16 over the same rows: the 32 and
+        # 16 instances.
+        (f"minilm B=8 Tq=S={MINILM_T} per-row kv_len", 8, MINILM_T, minilm_lens, 12, 32),
+        (f"synthetic 24x16 B=8 Tq=S={MINILM_T} per-row kv_len", 8, MINILM_T, minilm_lens, 24, 16)]
     for dtype in (f32, bf16):
-        for name, b, t, lens in fa_cases:
-            def make(i, b=b, t=t, lens=lens, dtype=dtype):
+        for name, b, t, lens, n_heads, hd in fa_cases:
+            def make(i, b=b, t=t, lens=lens, dtype=dtype, n_heads=n_heads, hd=hd):
                 def heads(scale):  # [B, H, T, D] views of [B·T, H·D] projections, as the models pass them
-                    return randn(b * t, ENC_D, scale=scale, dtype=dtype).view(b, t, ENC_HEADS, hd).transpose(1, 2)
+                    return randn(b * t, n_heads * hd, scale=scale, dtype=dtype).view(b, t, n_heads, hd).transpose(1, 2)
 
                 kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
                 return (heads(1.5), heads(1.5), heads(1.0)), dict(causal=False, kv_len=kv)
@@ -1781,8 +1849,8 @@ def check_encoder_kernels(torch, bound, randn, pack, record):
             tol = (1e-4 if dtype == f32 else 1e-2) * ref.float().abs().max().item()
             pairs = t * (sum(lens) if lens is not None else b * t)
             kv_rows = sum(lens) if lens is not None else b * t
-            per_call = 2 * nbytes(args[0]) + 2 * ENC_HEADS * kv_rows * hd * args[0].element_size() + 4 * b
-            ops = 4 * hd * ENC_HEADS * pairs
+            per_call = 2 * nbytes(args[0]) + 2 * n_heads * kv_rows * hd * args[0].element_size() + 4 * b
+            ops = 4 * hd * n_heads * pairs
             copies = [make(i) for i in range(copies_for(per_call, cap=32))]
             ms = graph_ms(torch, [lambda a=a, kw=kw: at.flash_attention(*a, **kw) for a, kw in copies])
             plain = eager_ms(torch, lambda: at.flash_attention_ref(*args, **kw))
@@ -1792,9 +1860,9 @@ def check_encoder_kernels(torch, bound, randn, pack, record):
                     :, None, None, :]
             library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a, **lib_kw) for a, _ in copies])
             route = "f32" if dtype == f32 else "bf16"
-            record("flash_attention", f"{route} {name} H={ENC_HEADS} D={hd}", err, tol, ms, plain,
+            record("flash_attention", f"{route} {name} H={n_heads} D={hd}", err, tol, ms, plain,
                    bound(per_call, ops, f32=dtype == f32), library, route=route,
-                   host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
+                   host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)), head_dim=hd)
             del copies
 
 # Whisper-tiny (huggingface.co/openai/whisper-tiny config.json: d_model 384,
@@ -2052,7 +2120,12 @@ ENGINE_KERNELS = {  # the kernels each engine run must launch (the prefill ones 
                   "flash_attention"),
     "paged_int8": ("quant_gemv_int8", "quant_mlp_int8", "paged_decode_attention_int8", "quant_matmul_int8",
                    "flash_attention"),
+    # Pages of 16 positions, the JAX rule's smallest at head dim 64: a
+    # 64-position chunk of the KV engine spans four pages.
+    "paged16": ("quant_gemv_int8", "quant_mlp_int8", "paged_decode_attention", "paged_decode_attention:page16",
+                "quant_matmul_int8", "flash_attention"),
 }
+SMALL_PAGE = 16  # phase 5's pages under 64 positions
 
 
 class GapArgMax:
@@ -2168,10 +2241,12 @@ def at_rows(torch, kind, make, specs, rows: int = 8, kv_kernel: str | None = Non
 def drive_serving(torch, cfg, params, out):
     """16 seeded requests, all queued at once, through the slot engine
     (run and run_pipelined), the paged engine (a pool that holds them all,
-    then one small enough to preempt), both again with int8_kv, and four
-    concurrent POST /generate to a ServingServer on loopback. Each stream is
-    held against its solo Generator(NativeBackend) stream; every run's
-    launch counters are read around it."""
+    then one small enough to preempt, then pages of SMALL_PAGE positions),
+    both again with int8_kv, and four concurrent POST /generate to a
+    ServingServer on loopback. Each stream is held against its solo
+    Generator(NativeBackend) stream (the paged runs of 128-position pages
+    against the slot run's); every run's launch counters are read around
+    it."""
     import dataclasses
     import threading
     import urllib.request
@@ -2198,6 +2273,7 @@ def drive_serving(torch, cfg, params, out):
     # run out of pages mid-decode, so some are preempted and re-prefilled.
     needs = [-(-(len(s["prompt"]) + s["max_new_tokens"]) // SERVE_PAGE) for s in specs]
     pages_small = max(max(needs), sum(needs[:8]) // 2)
+    pages_16 = sum(-(-(len(s["prompt"]) + s["max_new_tokens"]) // SMALL_PAGE) for s in specs)
     runs = [
         ("slot run", "slot", lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev), "run"),
         ("slot run_pipelined", "slot",
@@ -2208,6 +2284,9 @@ def drive_serving(torch, cfg, params, out):
         (f"paged {pages_small} pages (preempts)", "paged",
          lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_small, page_size=SERVE_PAGE,
                                     device=dev), "run"),
+        (f"paged {pages_16} pages of {SMALL_PAGE}", "paged16",
+         lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=pages_16, page_size=SMALL_PAGE, device=dev),
+         "run"),
         ("slot int8_kv run", "slot_int8",
          lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev), "run"),
         (f"paged int8_kv {pages_all} pages", "paged_int8",
@@ -2263,7 +2342,7 @@ def drive_serving(torch, cfg, params, out):
         torch.cuda.empty_cache()
 
     labels = list(results)
-    refs = {"slot": solo["bf16"], "slot_int8": solo["int8"]}
+    refs = {"slot": solo["bf16"], "slot_int8": solo["int8"], "paged16": solo["bf16"]}
     diffs = {}
     for label in labels:
         kind = results[label]["kind"]
@@ -3483,6 +3562,8 @@ W2V_RATE, W2V_SECONDS = 16000, (10.0, 7.7, 5.2, 3.1)  # 4 waveforms, padded to 1
 ENCODER_LAUNCHES = {  # a forward's launches by kernel, by the JAX quantizer's rules
     "distilbert f32": {"quant_matmul_int8": 36, "flash_attention": 6},
     "distilbert bf16": {"quant_matmul_int8": 36, "flash_attention": 6},
+    "minilm f32": {"quant_matmul_int8": 36, "flash_attention": 6},
+    "minilm bf16": {"quant_matmul_int8": 36, "flash_attention": 6},
     "wav2vec2": {"quant_matmul_int8": 72, "flash_attention": 12},
     "vit": {"flash_attention": 12},
     "mobilenet": {"quant_matmul_int8": 34},
@@ -3629,11 +3710,22 @@ def to_f64(torch, tree):
     return tree.double()
 
 
+# all-MiniLM-L6-v2's widths (huggingface.co/sentence-transformers/
+# all-MiniLM-L6-v2 config.json: 6 layers, d_model 384, 12 heads of 32, FF
+# 1536, vocab 30522, 512 positions, 2 token types, LayerNorm eps 1e-12;
+# bert.BertConfig's defaults give the last four), 8 sequences of seeded
+# lengths 32-256 padded to 256: flash_attention at head dim 32.
+MINILM = dict(n_layers=6, d_model=384, n_heads=12, d_ff=1536)
+MINILM_B, MINILM_T = 8, 256
+
+
 def drive_encoders(torch, out) -> tuple[dict, dict]:
     """Phase 12: the encoders and vision models at full width, random
     weights from seed 0 (encoder_run for each): DistilBERT-base INT8
     (8 sequences of seeded lengths 32-384 padded to 384; encode, qa_logits,
-    pool) in f32 and then bf16; wav2vec2-base INT8 (4 seeded 16 kHz
+    pool) in f32 and then bf16; all-MiniLM-L6-v2's widths INT8 (MINILM: 8
+    sequences of seeded lengths 32-256 with token types; encode and the
+    mean pool, its sentence embeddings) in f32 and then bf16; wav2vec2-base INT8 (4 seeded 16 kHz
     waveforms of 3-10 s padded to 10 s, frame lengths from
     feat_extract_output_length; ctc_logits then the greedy CtcDecoder);
     ViT-B/16 (8 images of 224², classify and feature_map); MobileNetV2
@@ -3684,6 +3776,34 @@ def drive_encoders(torch, out) -> tuple[dict, dict]:
             for name, n in res[key]["launches_per_forward"].items():
                 f32_launches[name] = f32_launches.get(name, 0) + n
         del params, hidden
+        torch.cuda.empty_cache()
+
+    # all-MiniLM-L6-v2's widths INT8, f32 then bf16: sentence embeddings.
+    m_lens = np.sort(rng.integers(32, MINILM_T + 1, MINILM_B))[::-1].copy()
+    m_lens[0] = MINILM_T
+    m_lengths = torch.from_numpy(m_lens.astype(np.int32)).to(dev)
+    m_ids = torch.randint(0, bert.BertConfig().vocab_size, (MINILM_B, MINILM_T), generator=gen, device=dev)
+    m_seg = (torch.arange(MINILM_T, device=dev)[None, :] >= m_lengths[:, None].long() // 2).to(torch.int32)
+    m_valid = torch.arange(MINILM_T, device=dev)[None, :] < m_lengths[:, None].long()
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = bert.BertConfig(**MINILM, dtype=dtype)
+        key = f"minilm {'f32' if dtype == torch.float32 else 'bf16'}"
+        params = bert.quantize_params_int8(bert.init_params(0, cfg, device=dev), device=dev)
+
+        def fn(params=params, cfg=cfg):
+            hidden = bert.encode(params, cfg, m_ids, lengths=m_lengths, segment_ids=m_seg)
+            return hidden, bert.pool(hidden, m_lengths)
+
+        def outputs(r):
+            hidden, pooled = r
+            return torch.cat([hidden[m_valid].float().reshape(-1), pooled.float().reshape(-1)])
+
+        encoder_run(torch, key, fn, outputs, MINILM_B, "sequences", res, launches)
+        res[key].update(lengths=m_lens.tolist(), head_dim=cfg.head_dim)
+        if dtype == torch.float32:
+            for name, n in res[key]["launches_per_forward"].items():
+                f32_launches[name] = f32_launches.get(name, 0) + n
+        del params
         torch.cuda.empty_cache()
 
     # wav2vec2-base INT8: 4 waveforms, CTC logits and the greedy decode.
@@ -5553,10 +5673,15 @@ RESIDUAL_BN = (0.1, 0.3)  # resnet_tv_state: the scales of each residual branch'
 # Every app but qwen2_chat and imagenet (phase 17 (a) and (b)) on its file route.
 FILE_APPS = ("yolo", "deeplab", "detr", "depth_anything", "segment_anything", "jina_similarity", "wav2vec2",
              "silero", "piper", "trocr", "distilvit")
-# Each app's --demo flags (the JAX package's tests/test_examples.py).
+# Each app's --demo flags (the JAX package's tests/test_examples.py), at the
+# JAX demos' widths: heads of 32 (gpt2, qwen2_chat, the ViTs and the
+# encoder-decoders) and of 16 (bert_qa, jina_similarity, piper). A label
+# "app:variant" is a second run of the app.
 DEMO_FLAGS = {"imagenet": [], "yolo": [], "deeplab": [], "detr": [], "depth_anything": [], "segment_anything": [],
               "distilvit": ["-n", "3"], "trocr": ["-n", "4"], "jina_similarity": [],
-              "qwen2_chat": ["-n", "3", "--turns", "2"], "piper": [], "silero": [], "wav2vec2": ["--beam", "2"]}
+              "qwen2_chat": ["-n", "3", "--turns", "2"], "piper": [], "silero": [], "wav2vec2": ["--beam", "2"],
+              "gpt2": ["-n", "8"], "gpt2:int8": ["-n", "8", "--int8"], "bert_qa": []}
+DEMO_BF16 = ("qwen2_chat", "gpt2", "gpt2:int8")  # demos whose models are bf16 (the rest f32)
 
 
 def qwen2_hf_state(seed: int, vocab: int, n_layers: int, d: int, heads: int, kv: int, ff: int,
@@ -6242,7 +6367,9 @@ def drive_apps(torch, out) -> dict:
     tier-1 tests (``write_app_files``): printed lines those of its ``--cpu``
     run (numbers within APP_CARD_RTOL / APP_CARD_ATOL), written PNG / WAV
     files equal but for 0.1% off by one code, launches by kernel mode and
-    host seconds; then each of the 13 apps' ``--demo`` exits 0.
+    host seconds; then each of the 15 apps' ``--demo`` at the JAX demos'
+    widths (DEMO_FLAGS; gpt2 also with ``--int8``) exits 0 with no plain
+    call.
     (d) The C embedding API: a C program built against ``build_embed``'s
     library runs a .rten with RTEN_TORCH_DEVICE=cuda; its output within
     1e-5 of ``Model.load_file(device="cuda")``'s and 1e-4 of its own run
@@ -6321,10 +6448,10 @@ def drive_apps(torch, out) -> dict:
                 f"launches {run['launches']}")
         demos = {}
         for name, flags in DEMO_FLAGS.items():
-            run = app_run(torch, name, ["--demo", *flags])
+            run = app_run(torch, name.split(":")[0], ["--demo", *flags])
             if run["rc"] != 0 or not run["lines"] or run["plain"]:
                 raise AssertionError(f"(c) {name} --demo: exit {run['rc']}, plain {run['plain']}")
-            add(run["launches"], f32_route=name != "qwen2_chat")
+            add(run["launches"], f32_route=name not in DEMO_BF16)
             demos[name] = dict(seconds=run["seconds"], launches=run["launches"])
         log(f"  (c) every --demo exits 0: " + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in demos.items()))
         res["apps"], res["demos"] = apps, demos
@@ -6439,6 +6566,46 @@ KERNELS = {
     "matmul_fused:ragged": dict(source="rten_tpu_torch/kernels/csrc/matmul_fused.cu",
                                 replaces="rten_tpu/kernels/matmul_pallas.py:102", timed="512x768x3070",
                                 on_path=False, cases_of="matmul_fused", select=lambda c: c.get("route") == "ragged"),
+    # Head dims beside 64 and 128, and pages under 64 positions: each
+    # wrapper also counts a launch at head dim D under name:d<D> and over
+    # pages of P (not a multiple of 64) under name:page<P>. On the main
+    # paths: flash at 32 (phase 12's MiniLM, the demos) and 16 (bert_qa.py,
+    # jina_similarity.py and piper.py --demo), decode_attention at 32
+    # (gpt2.py --demo, with and without --int8), pages of 16 (phase 5).
+    # The other modes are checked in phase 3 and launch on no main path.
+    "flash_attention:d16": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
+                                replaces="rten_tpu/kernels/attention.py:117", timed="bf16 synthetic 24x16",
+                                cases_of="flash_attention", select=lambda c: c.get("head_dim") == 16),
+    "flash_attention:d32": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
+                                replaces="rten_tpu/kernels/attention.py:117", timed="bf16 minilm",
+                                cases_of="flash_attention", select=lambda c: c.get("head_dim") == 32),
+    "flash_attention:d80": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
+                                replaces="rten_tpu/kernels/attention.py:117", timed="phi-2", on_path=False,
+                                cases_of="flash_attention", select=lambda c: c.get("head_dim") == 80),
+    "flash_attention:d96": dict(source="rten_tpu_torch/kernels/csrc/flash_attention.cu",
+                                replaces="rten_tpu/kernels/attention.py:117", timed="phi-3-mini", on_path=False,
+                                cases_of="flash_attention", select=lambda c: c.get("head_dim") == 96),
+    "decode_attention:d32": dict(source="rten_tpu_torch/kernels/csrc/decode_attention.cu",
+                                 replaces="rten_tpu/kernels/decode_attention.py:734",
+                                 timed="synthetic 24x32 B=1 kv_len=300"),
+    "decode_attention_int8:d32": dict(source="rten_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+                                      replaces="rten_tpu/kernels/decode_attention.py:1667",
+                                      timed="synthetic 24x32 B=1 kv_len=300", on_path=False),
+    "paged_decode_attention:d32": dict(source="rten_tpu_torch/kernels/csrc/paged_attention.cu",
+                                       replaces="rten_tpu/kernels/paged_attention.py:592",
+                                       timed="synthetic 24x32 B=1 kv_len=300", on_path=False),
+    "paged_decode_attention_int8:d32": dict(source="rten_tpu_torch/kernels/csrc/paged_attention_int8.cu",
+                                            replaces="rten_tpu/kernels/paged_attention.py:413",
+                                            timed="synthetic 24x32 B=1 kv_len=300", on_path=False),
+    "decode_block:d32": dict(source="rten_tpu_torch/kernels/csrc/decode_block.cu",
+                             replaces="rten_tpu/kernels/decode_attention.py:118",
+                             timed="synthetic 24x32 kv_len=300", on_path=False),
+    "paged_decode_attention:page16": dict(source="rten_tpu_torch/kernels/csrc/paged_attention.cu",
+                                          replaces="rten_tpu/kernels/paged_attention.py:592",
+                                          timed="qwen2 B=1 kv_len=300"),
+    "paged_decode_attention_int8:page32": dict(source="rten_tpu_torch/kernels/csrc/paged_attention_int8.cu",
+                                               replaces="rten_tpu/kernels/paged_attention.py:413",
+                                               timed="llama-3-8b B=1 kv_len=300", on_path=False),
 }
 
 
@@ -6518,7 +6685,8 @@ def encoders_only(torch, bound, detail, kind, smi, label: str) -> int:
 def kv_only(torch, bound, cfg, detail, kind, smi, label: str) -> int:
     """``--kv LABEL``: the four KV kernels in every mode and decode_block at
     the shapes phase 3 times them (check_decode_attention, check_kv_kernels,
-    check_gqa_kernels, check_decode_block, check_decode_attention_b8), each
+    check_gqa_kernels, check_decode_block, check_decode_attention_b8,
+    check_head_dims_and_pages), each
     with its plan, host µs and launches a call, written to
     chiprun_out/kv_LABEL.json. A timing mode: its last line is marked
     partial, never the full run's ok line, and it holds no launch count to
@@ -6535,6 +6703,10 @@ def kv_only(torch, bound, cfg, detail, kind, smi, label: str) -> int:
     torch.cuda.empty_cache()
     check_decode_block(torch, bound, cfg, randn, pack, norm_vecs, bf16_err, record)
     check_decode_attention_b8(torch, bound, cfg, randn, pack, bf16_err, record)
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    if hasattr(da, "kv_head_dim_supported"):  # a package with the KV kernels' other head dims and pages
+        check_head_dims_and_pages(torch, bound, cfg, randn, pack, record)
     detail["cases"] = cases
     (OUT_DIR / f"kv_{label}.json").write_text(json.dumps(detail, indent=1))
     print(smi)
@@ -6777,8 +6949,8 @@ def main() -> int:
     for name, n in drive_whisper(torch, mem_rate, detail).items():
         launches[name] = launches.get(name, 0) + n
     log(f"[12/18] ({time.perf_counter() - t_start:.1f} s) "
-        "encoders and vision: DistilBERT INT8 (f32, bf16), wav2vec2 INT8 + CTC, ViT-B/16, MobileNetV2 "
-        "INT8, ResNet-50 fp32")
+        "encoders and vision: DistilBERT INT8 (f32, bf16), all-MiniLM-L6-v2's widths INT8 (f32, bf16), wav2vec2 "
+        "INT8 + CTC, ViT-B/16, MobileNetV2 INT8, ResNet-50 fp32")
     phase12, f32_runs = drive_encoders(torch, detail)
     for name, n in phase12.items():
         launches[name] = launches.get(name, 0) + n
@@ -6791,9 +6963,6 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
         if name in ("quant_matmul_int8", "flash_attention"):
             launches[f"{name}:f32"] += n  # f32 activations: the SIMT route
-    missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main paths: {missing}")
     if launches.get("quantize_rows_int8", 0):
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
@@ -6830,6 +6999,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name in ("quant_matmul_int8", "flash_attention"):
         launches[f"{name}:f32"] += f32_apps.get(name, 0)  # (c) and the demos: the f32 routes
+    missing = [name for name, meta in KERNELS.items() if meta.get("on_path", True) and launches.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
     log(f"[18/18] ({time.perf_counter() - t_start:.1f} s) summary")
     entries = []
     for name, meta in KERNELS.items():

@@ -58,10 +58,8 @@ def main(argv=None, result: dict | None = None):
         coarse = out.reshape(1, out.shape[-2], out.shape[-1])
         print(f"loaded {args.model}: depth grid {tuple(coarse.shape[1:])} through Model.run")
     else:
-        # One head of 64 (the JAX demo's 2 of 32): the kernels' head dims
-        # are 64 and 128.
         cfg = vit.ViTConfig(
-            image_size=size, patch_size=8, n_layers=2, n_heads=1,
+            image_size=size, patch_size=8, n_layers=2, n_heads=2,
             d_model=64, d_ff=128, use_cls_token=True,
         )
         params = vit.init_params(args.seed, cfg, device=dev)

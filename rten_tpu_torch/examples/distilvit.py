@@ -65,17 +65,15 @@ def main(argv=None, result: dict | None = None):
             result.update(memory=enc_states, caption=caption)
         return 0
 
-    # One head of 64 (the JAX demo's 2 of 32): the kernels' head dims are
-    # 64 and 128.
     vit_cfg = vit.ViTConfig(
-        image_size=size, patch_size=8, n_layers=2, n_heads=1,
+        image_size=size, patch_size=8, n_layers=2, n_heads=2,
         d_model=d, d_ff=128, use_cls_token=False,
     )
     vit_params = vit.init_params(args.seed, vit_cfg, device=dev)
     enc_states = vit.encode(vit_params, vit_cfg, torch.from_numpy(chw[None]).to(dev))  # [1, N, d]
 
     ed_cfg = ed.EncDecConfig(
-        n_mels=d, vocab_size=64, d_model=d, n_heads=1,
+        n_mels=d, vocab_size=64, d_model=d, n_heads=2,
         n_audio_layers=1, n_text_layers=2, d_ff=128,
         max_text_ctx=32, dtype=torch.float32,
     )

@@ -101,10 +101,8 @@ def main(argv=None, result: dict | None = None):
         params = bert.from_hf_bert(state, cfg, device=dev)
     else:
         words = sorted({w for t in texts for w in t.lower().split()})
-        # One head of 64 (the JAX demo's 4 of 16): the kernels' head dims
-        # are 64 and 128.
         cfg = bert.BertConfig(
-            vocab_size=len(words) + 8, n_layers=2, n_heads=1, d_model=64, d_ff=128,
+            vocab_size=len(words) + 8, n_layers=2, n_heads=4, d_model=64, d_ff=128,
             max_seq=64, n_segments=0,
         )
         params = bert.init_params(args.seed, cfg, device=dev)

@@ -64,11 +64,9 @@ def main(argv=None, result: dict | None = None):
             result.update(ids=ids, wav=wav)
         return 0
 
-    # Acoustic model: encoder over phonemes → per-phoneme (duration, f0,
-    # amp). One head of 64 (the JAX demo's 2 of 16): the kernels' head dims
-    # are 64 and 128.
+    # Acoustic model: encoder over phonemes → per-phoneme (duration, f0, amp).
     cfg = bert.BertConfig(
-        vocab_size=len(charset), n_layers=2, n_heads=1, d_model=64, d_ff=64,
+        vocab_size=len(charset), n_layers=2, n_heads=2, d_model=32, d_ff=64,
         max_seq=128, n_segments=0,
     )
     params = bert.init_params(args.seed, cfg, device=dev)

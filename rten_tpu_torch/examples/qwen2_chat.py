@@ -96,13 +96,11 @@ def main(argv=None, result: dict | None = None):
         params = decoder.from_hf_llama(state, cfg, device=device)
         del state
     else:
-        # Two query heads over one kv head of 64 (the JAX demo's 4 over 2
-        # of 32): the kernels' head dims are 64 and 128.
         cfg = decoder.DecoderConfig(
             vocab_size=256,
             n_layers=2,
-            n_heads=2,
-            n_kv_heads=1,  # GQA
+            n_heads=4,
+            n_kv_heads=2,  # GQA
             d_model=128,
             d_ff=256,
             max_seq=512,

@@ -63,10 +63,8 @@ def main(argv=None, result: dict | None = None):
             f"loaded {args.model}: embeddings {tuple(fm.shape)} through Model.run"
         )
     else:
-        # One head of 64 (the JAX demo's 2 of 32): the kernels' head dims
-        # are 64 and 128.
         cfg = vit.ViTConfig(
-            image_size=size, patch_size=4, n_layers=2, n_heads=1,
+            image_size=size, patch_size=4, n_layers=2, n_heads=2,
             d_model=64, d_ff=128, use_cls_token=False,
         )
         params = vit.init_params(args.seed, cfg, device=dev)

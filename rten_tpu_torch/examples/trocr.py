@@ -93,10 +93,8 @@ def main(argv=None, result: dict | None = None):
     vit_params = vit.init_params(args.seed, _square_cfg(vit_cfg, patches), device=dev)
     enc_states = _encode_patches(vit_params, vit_cfg, patches)
 
-    # One head of 64 (the JAX demo's 2 of 32): the kernels' head dims are
-    # 64 and 128.
     ed_cfg = ed.EncDecConfig(
-        n_mels=d, vocab_size=len(CHARSET), d_model=d, n_heads=1,
+        n_mels=d, vocab_size=len(CHARSET), d_model=d, n_heads=2,
         n_audio_layers=1, n_text_layers=2, d_ff=128,
         max_text_ctx=32, dtype=torch.float32,
     )

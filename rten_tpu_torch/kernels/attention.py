@@ -30,7 +30,9 @@ from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
 from rten_tpu_torch.kernels.quant_matmul import MAX_SPLIT, _sms, _stream, split_for
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for (csrc/flash_attention.cu)
+# Head dims the kernel has instances at (csrc/flash_attention.cu); a head
+# dim between them runs the next one up with its columns past d zero.
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 # Launch plan of the bf16 kernel (flash_mma_kernel): a block owns FB_ROWS
 # (query, head of the GQA group) rows, query major, and walks KV tiles of
 # FB_KV positions; a cluster of ``split`` blocks divides the tiles.
@@ -128,12 +130,10 @@ def flash_attention_ref(q, k, v, *, causal=True, sm_scale=None, q_offset=None, k
 
 def _strides(t, what: str):
     """(batch, head, position) element strides of a [B, H, T, D] operand
-    whose rows the kernel reads as 16-byte vectors."""
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:3]):
-        raise ValueError(
-            f"flash_attention {what}: D must be contiguous, and the pointer and every row "
-            "start 16-byte aligned"
-        )
+    with D contiguous (the kernel reads its rows in the largest pieces
+    their alignment allows)."""
+    if t.stride(3) != 1 and t.shape[3] > 1:
+        raise ValueError(f"flash_attention {what}: D must be contiguous")
     return t.stride(0), t.stride(1), t.stride(2)
 
 
@@ -151,10 +151,12 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     contiguous. The split-KV plan reads S, so a caller that knows on the
     host that no row's prefix reaches past n passes ``k[:, :, :n]``.
 
-    CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, head dim
-    64 or 128; bf16 on the tensor cores, split over the KV axis across a
-    cluster by ``flash_plan``, such a launch also counted under
-    ``flash_attention:split_kv``); CPU tensors run ``flash_attention_ref``."""
+    CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, any head
+    dim up to 256: instances at ``FLASH_HEAD_DIMS``, a head dim between them
+    on the next one up; bf16 on the tensor cores, split over the KV axis
+    across a cluster by ``flash_plan``, such a launch also counted under
+    ``flash_attention:split_kv``, and a head dim other than 64 and 128 also
+    under ``flash_attention:d<D>``); CPU tensors run ``flash_attention_ref``."""
     b, hq, tq, d, hk, s = _shapes(q, k, v)
     _per_row(q_offset, b, "q_offset")
     _per_row(kv_len, b, "kv_len")
@@ -165,8 +167,9 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     if dtype not in (torch.float32, torch.bfloat16) or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    if d > FLASH_HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head dim {d} is above {FLASH_HEAD_DIMS[-1]}, the widest kernel instance "
+                         "(the JAX kernel, rten_tpu/kernels/attention.py:117 flash_attention, takes any)")
     for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
         if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
             raise ValueError(f"flash_attention: {name} must be a contiguous int32 [B] tensor")
@@ -185,4 +188,6 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     LAUNCHES["flash_attention"] += 1
     if split > 1:
         LAUNCHES["flash_attention:split_kv"] += 1
+    if d not in (64, 128):
+        LAUNCHES[f"flash_attention:d{d}"] += 1
     return out

@@ -831,6 +831,25 @@ cudaError_t launch_block(BlockArgs& a, int grid, size_t smem, cudaStream_t st) {
                                      dim3(DB_THREADS), args, smem, st);
 }
 
+// The head dims decode_block is built for: 16, 32, 64 and 128 (of the
+// divisors of 128 that the JAX mega rule admits, those whose rows are whole
+// 16-byte bulk copies in either dtype).
+bool block_dim_ok(int d) { return d == 16 || d == 32 || d == 64 || d == 128; }
+
+// f(T{}, integral_constant<D>) for the instance of (dtype, head dim d), or
+// `refused` for a head dim it is not built for (nothing launched).
+template <typename R, typename F>
+R with_block_dim(int bf16, int d, R refused, const F& f) {
+  const auto as = [&](auto dd) -> R { return bf16 ? f(__nv_bfloat16{}, dd) : f(0.f, dd); };
+  switch (d) {
+    case 16: return as(std::integral_constant<int, 16>{});
+    case 32: return as(std::integral_constant<int, 32>{});
+    case 64: return as(std::integral_constant<int, 64>{});
+    case 128: return as(std::integral_constant<int, 128>{});
+    default: return refused;
+  }
+}
+
 bool phase_ok(const DbPhase& p) {
   const auto mis = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
   return p.k % 16 == 0 && p.k >= 16 && p.n >= 1 && !mis(p.w) && p.scale != nullptr;
@@ -855,7 +874,7 @@ extern "C" int rt_decode_block(
   using namespace rt;
   const auto mis = [](const void* p) { return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0; };
   if (mis(q) || mis(k_new) || mis(v_new) || mis(k_cache) || mis(v_cache) || mis(part) || hq < 1 || hk < 1 ||
-      hq % hk || s_max < 1 || n_chunks * DB_CHUNK < s_max || (norm != 1 && norm != 2) || (d != 64 && d != 128) ||
+      hq % hk || s_max < 1 || n_chunks * DB_CHUNK < s_max || (norm != 1 && norm != 2) || !block_dim_ok(d) ||
       grid < 1 || dm % 16 || dm > DB_MAX_DM || ff % 16 || mis(ln2_scale) || mis(ln2_bias) || mis(next_scale) ||
       mis(next_bias) || mis(h_buf) || mis(u_buf) || mis(out_f32)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -909,8 +928,9 @@ extern "C" int rt_decode_block(
   // each head's maximum and 1 / den for the combine (neither grows with the
   // cache).
   const int gt = hq / hk < DB_GT ? hq / hk : DB_GT;
-  const int att = bf16 ? (d == 64 ? DbAtt<__nv_bfloat16, 64>::bytes(gt) : DbAtt<__nv_bfloat16, 128>::bytes(gt))
-                       : (d == 64 ? DbAtt<float, 64>::bytes(gt) : DbAtt<float, 128>::bytes(gt));
+  const int att = with_block_dim(bf16, d, 0, [&](auto t, auto dd) {
+    return DbAtt<decltype(t), decltype(dd)::value>::bytes(gt);
+  });
   int kmax = hq * d > dm ? hq * d : dm;
   kmax = kmax > ff ? kmax : ff;
   const int row = 4 * kmax + 8 * hq;
@@ -938,14 +958,11 @@ extern "C" int rt_decode_block(
   if (most > DB_MAX_SEG) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (size_t)db_layout(a.uni_bytes, a.region).total;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  cudaError_t e;
   if (stamps) {  // the measurement build: bf16, head dim 64 only
-    e = bf16 && d == 64 ? launch_block<BF, 64, true>(a, grid, smem, st) : cudaErrorInvalidValue;
-  } else if (d == 64) {
-    e = bf16 ? launch_block<BF, 64>(a, grid, smem, st) : launch_block<float, 64>(a, grid, smem, st);
-  } else {
-    e = bf16 ? launch_block<BF, 128>(a, grid, smem, st) : launch_block<float, 128>(a, grid, smem, st);
+    return static_cast<int>(bf16 && d == 64 ? launch_block<__nv_bfloat16, 64, true>(a, grid, smem, st)
+                                            : cudaErrorInvalidValue);
   }
-  return static_cast<int>(e);
+  return static_cast<int>(with_block_dim(bf16, d, cudaErrorInvalidValue, [&](auto t, auto dd) {
+    return launch_block<decltype(t), decltype(dd)::value>(a, grid, smem, st);
+  }));
 }

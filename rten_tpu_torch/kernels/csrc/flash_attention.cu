@@ -66,8 +66,21 @@
 // - Thread (ty, tx) owns query rows ty + 16 i (i < 4): scores of columns
 //   tx + 16 j (j < 4) and output columns tx + 16 j (j < D / 16). A row's
 //   maximum and sum reduce over its 16 threads, which share one half-warp.
+//
+// Head dims: both kernels have instances at D = 16, 32, 64, 128 and 256.
+// A head dim d between them (8, 24, 80 for Phi-2, 96 for Phi-3-mini, ...;
+// the JAX kernel takes any) runs the next instance up: its rows land in the
+// first d columns of the D-wide tiles and the columns past d are zero
+// (loads predicated by column, so q . k and P . V are those of d columns),
+// and only d columns are stored. Rows are read in pieces of the largest
+// size (16, 8, 4 or 2 bytes) that divides every row start and d's bytes
+// (`gran`), by cp.async (bf16; a 2-byte piece by a plain load) or by 16-byte
+// or scalar loads (f32), so a view whose rows are not 16-byte aligned is
+// read as it is. Above 256 the entry point refuses d.
 
 #include <cooperative_groups.h>
+
+#include <initializer_list>
 
 #include "hopper.cuh"
 #include "tile_mma.cuh"
@@ -93,24 +106,27 @@ struct FlashArgs {
   const int* kv_len;    // [B] or null (S)
   int hq, hk, tq, s, causal;
   float sm_scale;
+  int d;     // head dim: the instance's D, or fewer columns of it
+  int gran;  // bytes of a piece of a row: 16, 8, 4 or 2 (every row start and d's bytes a multiple)
 };
 
-// Rows [row0, row0 + n_valid) of a [*, D] f32 operand (row stride
-// `stride` elements) into a 64-row tile with row stride D + 1; rows past
-// n_valid are zero.
+// Rows [row0, row0 + n_valid) of a [*, d] f32 operand (row stride `stride`
+// elements) into a 64-row tile with row stride D + 1; rows past n_valid and
+// columns past d are zero. 16-byte loads where the rows allow (vec), else
+// one float at a time.
 template <int D>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src, long long stride, int row0,
-                                           int n_valid) {
+                                           int n_valid, int d, bool vec) {
   constexpr int VN = 4;         // floats per 16-byte load
   constexpr int VPR = D / VN;   // loads per row
   for (int i = threadIdx.x; i < FA_BQ * VPR; i += FA_THREADS) {
     const int r = i / VPR, c = (i % VPR) * VN;
     float f[VN];
-    if (r < n_valid) {
+    if (r < n_valid && c < d && vec) {  // vec: d % 4 == 0, so the 4 columns are d's
       load16(src + (row0 + r) * stride + c, f);
     } else {
 #pragma unroll
-      for (int e = 0; e < VN; ++e) f[e] = 0.f;
+      for (int e = 0; e < VN; ++e) f[e] = r < n_valid && c + e < d ? src[(row0 + r) * stride + c + e] : 0.f;
     }
 #pragma unroll
     for (int e = 0; e < VN; ++e) dst[r * (D + 1) + c + e] = f[e];
@@ -152,7 +168,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  stage_tile<D>(qs, qp, a.q_st, q0, min(FA_BQ, a.tq - q0));
+  const bool vec = a.gran == 16;
+  stage_tile<D>(qs, qp, a.q_st, q0, min(FA_BQ, a.tq - q0), a.d, vec);
 
   float m_i[4], l_i[4], acc[4][DJ];
 #pragma unroll
@@ -166,8 +183,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int c0 = t * FA_BK;
     __syncthreads();  // the previous tile's readers (and the q staging) are done
-    stage_tile<D>(ks, kp, a.k_ss, c0, min(FA_BK, kv_len - c0));
-    stage_tile<D>(vs, vp, a.v_ss, c0, min(FA_BK, kv_len - c0));
+    stage_tile<D>(ks, kp, a.k_ss, c0, min(FA_BK, kv_len - c0), a.d, vec);
+    stage_tile<D>(vs, vp, a.v_ss, c0, min(FA_BK, kv_len - c0), a.d, vec);
     __syncthreads();
 
     float s[4][4];
@@ -236,7 +253,9 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
     if (r >= a.tq) continue;
     const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) op[r * a.o_st + tx + 16 * j] = acc[i][j] * inv;
+    for (int j = 0; j < DJ; ++j) {
+      if (tx + 16 * j < a.d) op[r * a.o_st + tx + 16 * j] = acc[i][j] * inv;
+    }
   }
 }
 
@@ -260,7 +279,8 @@ constexpr int FB_MAX_CLUSTER = 8;  // attention.py MAX_SPLIT
 template <int D>
 struct FbLayout {
   static constexpr int LD = D + 8;                  // bf16 row stride: ldmatrix rows in distinct banks
-  static constexpr int STAGES = D == 64 ? 3 : 2;    // K/V ring depth
+  static constexpr int STAGES = D <= 64 ? 3 : 2;    // K/V ring depth
+  static constexpr bool QREG = D <= 128;            // Q's fragments in registers (else reread each tile)
   static constexpr int TILE = FB_ROWS * LD;         // bf16 elements of a Q, K or V tile
   static constexpr int SMEM = (1 + 2 * STAGES) * TILE * 2;
   static constexpr int LDO = D + 4;                 // f32 row stride of the split partials
@@ -277,10 +297,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+__host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
+
 template <int D>
 __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
   using L = FbLayout<D>;
-  constexpr int LD = L::LD, CH = D / 8;  // 16-byte chunks a row
+  constexpr int LD = L::LD;
   extern __shared__ float4 fb_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(fb_smem);
   __nv_bfloat16* ring = qs + L::TILE;  // stage s: K at ring + 2 s TILE, V after it
@@ -306,24 +328,28 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hkv * a.k_sh;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hkv * a.v_sh;
 
-  for (int c = tid; c < FB_ROWS * CH; c += FB_THREADS) {
-    const int r = c / CH, d8 = (c % CH) * 8, pr = r0 + r;
-    const bool ok = pr < rows;
+  // A row's D * 2 bytes in pieces of a.gran: piece c of the tile is row
+  // c >> lp, elements [e, e + pe) with e = (c & (pieces - 1)) * pe, read
+  // where e < d (gran divides d's bytes, so a piece is all in or all out).
+  const int gr = a.gran, pe = gr / 2, lp = ilog2(D * 2) - (__ffs(gr) - 1);
+  for (int c = tid; c < FB_ROWS << lp; c += FB_THREADS) {
+    const int r = c >> lp, e = (c & ((1 << lp) - 1)) * pe, pr = r0 + r;
+    const bool ok = pr < rows && e < a.d;
     const __nv_bfloat16* src =
-        ok ? qp + (hkv * group + pr % group) * a.q_sh + (long long)(pr / group) * a.q_st + d8 : qp;
-    cp_async16(qs + r * LD + d8, src, ok);
+        ok ? qp + (hkv * group + pr % group) * a.q_sh + (long long)(pr / group) * a.q_st + e : qp;
+    copy_piece(qs + r * LD + e, src, ok, gr);
   }
   cp_async_commit();
   auto load_kv = [&](int tile, int stage) {
     const int c0 = tile * FB_KV;
     __nv_bfloat16* ks = ring + 2 * stage * L::TILE;
     __nv_bfloat16* vs = ks + L::TILE;
-    for (int c = tid; c < FB_KV * CH; c += FB_THREADS) {
-      const int r = c / CH, d8 = (c % CH) * 8;
-      const bool ok = c0 + r < kv_len;
+    for (int c = tid; c < FB_KV << lp; c += FB_THREADS) {
+      const int r = c >> lp, e = (c & ((1 << lp) - 1)) * pe;
+      const bool ok = c0 + r < kv_len && e < a.d;
       const long long pos = ok ? c0 + r : 0;
-      cp_async16(ks + r * LD + d8, kp + pos * a.k_ss + d8, ok);
-      cp_async16(vs + r * LD + d8, vp + pos * a.v_ss + d8, ok);
+      copy_piece(ks + r * LD + e, kp + pos * a.k_ss + (ok ? e : 0), ok, gr);
+      copy_piece(vs + r * LD + e, vp + pos * a.v_ss + (ok ? e : 0), ok, gr);
     }
   };
 #pragma unroll
@@ -334,10 +360,13 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
   cp_async_wait<L::STAGES - 1>();  // the Q group
   __syncthreads();
 
-  uint32_t qf[D / 16][4];
+  uint32_t qf[L::QREG ? D / 16 : 1][4];
+  const auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    ldmatrix_x4(f, qs + (warp * 16 + r8 + (mat & 1) * 8) * LD + kk * 16 + (mat >> 1) * 8);
+  };
+  if constexpr (L::QREG) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qf[kk], qs + (warp * 16 + r8 + (mat & 1) * 8) * LD + kk * 16 + (mat >> 1) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag(kk, qf[kk]);
   }
   // This thread's rows: warp * 16 + g and + 8; their queries' absolute positions.
   const int lr0 = warp * 16 + g;
@@ -365,12 +394,14 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t(&qk)[4] = qf[L::QREG ? kk : 0];
+      if constexpr (!L::QREG) q_frag(kk, qk);
 #pragma unroll
       for (int jn = 0; jn < 4; ++jn) {  // key positions jn * 16 .. + 15: two n8 tiles
         unsigned bfr[4];
         ldmatrix_x4(bfr, ks + (jn * 16 + r8 + (mat >> 1) * 8) * LD + kk * 16 + (mat & 1) * 8);
-        mma_bf16(s[2 * jn], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * jn + 1], qf[kk], bfr[2], bfr[3]);
+        mma_bf16(s[2 * jn], qk, bfr[0], bfr[1]);
+        mma_bf16(s[2 * jn + 1], qk, bfr[2], bfr[3]);
       }
     }
 
@@ -437,8 +468,14 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
       __nv_bfloat16* row = op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
-            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+        const int col = 8 * j + 2 * t;
+        if (gr >= 4 && col < a.d) {  // d even and the pair 4-byte aligned
+          *reinterpret_cast<__nv_bfloat162*>(row + col) =
+              __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+        } else {
+          if (col < a.d) row[col] = __float2bfloat16(o[j][2 * h] * inv);
+          if (col + 1 < a.d) row[col + 1] = __float2bfloat16(o[j][2 * h + 1] * inv);
+        }
       }
     }
     return;
@@ -498,11 +535,16 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
       }
     }
     const float inv = l_sum == 0.f ? 1.f : 1.f / l_sum;
-    uint2 packed;
-    packed.x = pack_bf16x2(o_sum.x * inv, o_sum.y * inv);
-    packed.y = pack_bf16x2(o_sum.z * inv, o_sum.w * inv);
-    *reinterpret_cast<uint2*>(op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st + d) =
-        packed;
+    __nv_bfloat16* dst = op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st + d;
+    if (gr >= 8 && d < a.d) {  // d % 4 == 0 and the four 8-byte aligned
+      uint2 packed;
+      packed.x = pack_bf16x2(o_sum.x * inv, o_sum.y * inv);
+      packed.y = pack_bf16x2(o_sum.z * inv, o_sum.w * inv);
+      *reinterpret_cast<uint2*>(dst) = packed;
+    } else {
+      const float f[4] = {o_sum.x, o_sum.y, o_sum.z, o_sum.w};
+      for (int e = 0; e < 4 && d + e < a.d; ++e) dst[e] = __float2bfloat16(f[e] * inv);
+    }
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
@@ -534,7 +576,10 @@ cudaError_t launch_flash_mma(const FlashArgs& a, int b, int split, cudaStream_t 
 }  // namespace rt
 
 // split (1..8: blocks of a cluster along the KV axis) comes from
-// attention.py flash_plan; the f32 path ignores it.
+// attention.py flash_plan; the f32 path ignores it. The instances: head
+// dims 16, 32, 64, 128 and 256, a head dim d <= 256 running the smallest
+// that holds it (its columns past d zero); d outside [1, 256] launches
+// nothing.
 extern "C" int rt_flash_attention(
     const void* q, long long q_sb, long long q_sh, long long q_st,
     const void* k, long long k_sb, long long k_sh, long long k_ss,
@@ -544,19 +589,35 @@ extern "C" int rt_flash_attention(
     int bf16, int b, int hq, int hk, int tq, int s, int d, int causal, float sm_scale, int split,
     void* stream) {
   if (b < 1 || b > 65535 || hq < 1 || hq > 65535 || hk < 1 || hq % hk || tq < 1 || s < 1 || split < 1 ||
-      split > rt::FB_MAX_CLUSTER) {
+      split > rt::FB_MAX_CLUSTER || d < 1 || d > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // The piece size: the lowest set bit of every row start's and d's bytes, at most 16.
+  const long long elt = bf16 ? 2 : 4;
+  unsigned long long bits = 16 | (unsigned long long)(d * elt);
+  for (const void* p : {q, k, v, static_cast<const void*>(o)}) bits |= reinterpret_cast<uintptr_t>(p);
+  for (long long st : {q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_st}) {
+    bits |= (unsigned long long)(st * elt);
+  }
+  const int gran = static_cast<int>(bits & (~bits + 1));
   const rt::FlashArgs a{q, q_sb, q_sh, q_st, k, k_sb, k_sh, k_ss, v, v_sb, v_sh, v_ss,
-                        o, o_sb, o_sh, o_st, q_offset, kv_len, hq, hk, tq, s, causal, sm_scale};
+                        o, o_sb, o_sh, o_st, q_offset, kv_len, hq, hk, tq, s, causal, sm_scale, d, gran};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto dd) {
+    constexpr int D = decltype(dd)::value;
+    return bf16 ? rt::launch_flash_mma<D>(a, b, split, st) : rt::launch_flash<D>(a, b, st);
+  };
   cudaError_t e;
-  if (d == 64) {
-    e = bf16 ? rt::launch_flash_mma<64>(a, b, split, st) : rt::launch_flash<64>(a, b, st);
-  } else if (d == 128) {
-    e = bf16 ? rt::launch_flash_mma<128>(a, b, split, st) : rt::launch_flash<128>(a, b, st);
+  if (d <= 16) {
+    e = run(std::integral_constant<int, 16>{});
+  } else if (d <= 32) {
+    e = run(std::integral_constant<int, 32>{});
+  } else if (d <= 64) {
+    e = run(std::integral_constant<int, 64>{});
+  } else if (d <= 128) {
+    e = run(std::integral_constant<int, 128>{});
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    e = run(std::integral_constant<int, 256>{});
   }
   return static_cast<int>(e);
 }

@@ -155,6 +155,31 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                : "memory");
 }
 
+// 8 bytes, or 8 zero bytes when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// A piece of `bytes` (16, 8, 4, 2 or 1; the source and destination aligned
+// to it) from global to shared memory, or zero bytes when !valid: cp.async
+// from 4 bytes up (in the caller's commit group), a plain load and store
+// below, which a barrier then publishes like the rest. For rows narrower
+// than 16 bytes, or rows whose start is not 16-byte aligned.
+__device__ __forceinline__ void copy_piece(void* dst, const void* src, bool valid, int bytes) {
+  if (bytes == 16) {
+    cp_async16(dst, src, valid);
+  } else if (bytes == 8) {
+    cp_async8(dst, src, valid);
+  } else if (bytes == 4) {
+    cp_async4(dst, src, valid);
+  } else if (bytes == 2) {
+    *static_cast<uint16_t*>(dst) = valid ? *static_cast<const uint16_t*>(src) : uint16_t{0};
+  } else {
+    *static_cast<uint8_t*>(dst) = valid ? *static_cast<const uint8_t*>(src) : uint8_t{0};
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");

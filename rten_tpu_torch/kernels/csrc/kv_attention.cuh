@@ -28,8 +28,7 @@
 //     head tile is the whole group up to KV_GT = 8 query heads (MHA: one);
 //     a larger group is tiled over more clusters, each reading the chunks
 //     again (from L2, mostly).
-//   - A row's 64-position chunks (a chunk never crosses a page: pages are
-//     multiples of KV_CHUNK) belong to V = min(8, chunks of cap) virtual
+//   - A row's 64-position chunks belong to V = min(8, chunks of cap) virtual
 //     ranks, virtual rank v walking chunks v, v + V, ... of the valid prefix
 //     plus the new token under a running online softmax; rank r of the
 //     cluster runs virtual ranks r, r + C, ... in turn. V, not C, orders a
@@ -40,7 +39,18 @@
 //     each chunk's K and V rows (and int8 scales) come by cp.async into a
 //     ring of 3 shared-memory stages (2 for f32 at head dim 128), requested
 //     two chunks ahead of the one the block computes, across its virtual
-//     ranks.
+//     ranks. Each row is found on its own (paged: its page from the table),
+//     so a chunk may span pages of any size the JAX rules admit (pages of
+//     8 positions at head dim 128, 16 at 64, or 48 or 80 at 64), and a paged
+//     row sums exactly as its dense twin.
+//   - Head dims: instances at 32, 64 and 128, and at 16 for every head dim
+//     that divides 16 (16, 8, 4, 2, 1; the JAX rule takes any divisor of
+//     128): a row narrower than the instance lands in the first a.d columns
+//     of its stage row, whose other columns are zero from the kernel's
+//     start; the new token, q and the output are read and written at a.d
+//     columns, and the scale is 1 / sqrt(a.d) (the caller's). Rows of 16
+//     bytes and more come in 16-byte cp.async pieces, narrower ones as one
+//     piece of 8 or 4 bytes by cp.async, or of 2 or 1 by plain loads.
 //   - A chunk in one pass for the whole head tile, each warp on its own,
 //     in blocks of 8 warps (MHA) or 16 (GQA): warp w takes head w % gt and
 //     the part w / gt of the chunk's positions (MHA: 8 parts of 8; Qwen2's
@@ -74,7 +84,9 @@
 //     +-127 (IEEE division and round-half-even, the jnp.round rule), and the
 //     new token's score and value use the dequantized code * scale.
 //   - Faults: kv_len outside [0, cap) writes nothing and gives NaN; a page
-//     id outside the pool for a chunk the row needs gives NaN for the row.
+//     id outside the pool for a position the row needs gives NaN for the
+//     row (such a page is never read, and a chunk that needs one is neither
+//     scored nor appended to).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -107,6 +119,7 @@ struct KvArgs {
   const int* kv_len;     // [B], valid length before this token
   const int* table;      // paged only: [B, max_pages]
   int hq, hk;            // query heads, kv heads (hq % hk == 0)
+  int d;                 // head dim: the instance's D, or (D 16) any divisor of it
   int cap;               // positions a row can hold: S, or max_pages * page
   int page, max_pages, n_pages;  // paged only
   float sm_scale;
@@ -130,26 +143,34 @@ __device__ __forceinline__ void load16(const int8_t* p, float* f) {
   unpack16(*reinterpret_cast<const int4*>(p), *reinterpret_cast<float(*)[16]>(f));
 }
 
-// Chunk c's K and V rows (rows >= `rows` zero-filled: past a cap that is
-// not a multiple of KV_CHUNK) and, int8, their scales, from payload row
-// `row0` into a stage, by cp.async; one commit group.
-template <typename KV, int D, int THREADS>
-__device__ __forceinline__ void kv_issue_chunk(const KvArgs& a, unsigned char* stage, size_t row0, int rows) {
+// Chunk c's K and V rows and, int8, their scales into a stage, by
+// cp.async; one commit group. row(t) is the payload row of position t, or
+// -1 for a row not read (past the positions needed, or on a page outside
+// the pool), whose stage row is zero-filled. A row of dt elements lands
+// in the first a.d columns of its D-wide stage row, in pieces of 16 bytes
+// (or one piece, a row narrower than that).
+template <typename KV, int D, int THREADS, typename Row>
+__device__ __forceinline__ void kv_issue_chunk(const KvArgs& a, unsigned char* stage, int c, int dt, const Row& row) {
   using L = KvStage<KV, D>;
-  constexpr int VROW = L::ROW / 16;  // 16-byte vectors a row
-  const unsigned char* kg = static_cast<const unsigned char*>(a.k) + row0 * L::ROW;
-  const unsigned char* vg = static_cast<const unsigned char*>(a.v) + row0 * L::ROW;
-  for (int i = threadIdx.x; i < KV_CHUNK * VROW; i += THREADS) {
-    const bool ok = i / VROW < rows;
-    cp_async16(stage + i * 16, kg + (ok ? i * 16 : 0), ok);
-    cp_async16(stage + L::TILE + i * 16, vg + (ok ? i * 16 : 0), ok);
+  const int rb = dt * static_cast<int>(sizeof(KV));  // bytes of a cache row: a power of two
+  const int gr = rb < 16 ? rb : 16;                   // bytes a piece
+  const int lp = __ffs(rb / gr) - 1;                  // log2 of the pieces a row
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v);
+  for (int i = threadIdx.x; i < KV_CHUNK << lp; i += THREADS) {
+    const int t = i >> lp, off = (i - (t << lp)) * gr;
+    const long long r = row(c * KV_CHUNK + t);
+    const size_t src = r >= 0 ? (size_t)r * rb + off : 0;
+    copy_piece(stage + t * L::ROW + off, kg + src, r >= 0, gr);
+    copy_piece(stage + L::TILE + t * L::ROW + off, vg + src, r >= 0, gr);
   }
   if constexpr (L::SCALES > 0) {  // scales 4 bytes at a time: a row's may start anywhere
     const int i = threadIdx.x;
     if (i < 2 * KV_CHUNK) {
       const int t = i % KV_CHUNK;
-      const float* src = (i < KV_CHUNK ? a.k_scale : a.v_scale) + row0;
-      cp_async4(stage + 2 * L::TILE + i * 4, src + (t < rows ? t : 0), t < rows);
+      const long long r = row(c * KV_CHUNK + t);
+      const float* src = (i < KV_CHUNK ? a.k_scale : a.v_scale) + (r >= 0 ? r : 0);
+      cp_async4(stage + 2 * L::TILE + i * 4, src, r >= 0);
     }
   }
   cp_async_commit();
@@ -168,7 +189,7 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
   constexpr int VN = 16 / sizeof(KV);  // elements in a 16-byte vector
   constexpr int VPR = D / VN;          // lanes a cache row
   constexpr int RPW = 32 / VPR;        // rows a warp reads at a time (the P.V slices of a warp)
-  constexpr int DL = D / 32;           // new-token elements a lane of warp 0 holds
+  constexpr int DL = (D + 31) / 32;    // new-token elements a lane of warp 0 holds
   constexpr int NSTEP = 8;             // row steps (RPW rows each) under one running-max update
   constexpr int THREADS = kv_threads<GT>(), WARPS = THREADS / 32;
 
@@ -188,6 +209,7 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
   const int group = a.hq / a.hk, g0 = tile * GT, gt = min(GT, group - g0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = (a.cap + KV_CHUNK - 1) / KV_CHUNK;
+  const int dt = D == 16 ? a.d : D;  // the head dim: the D-wide stage rows' first dt columns
   const int len = a.kv_len[b];
   // Arrive on the cluster barrier at once (relaxed: a release would stall
   // on the loads in flight); its wait, before the first store into another
@@ -196,22 +218,28 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
   const int V = min(KV_MAX_SPLIT, nc);
   if (split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  // Payload row of chunk c's first position (pg: its page, paged), and the
-  // rows of the chunk inside the cache.
-  const auto chunk_row = [&](int c, int pg) -> size_t {
+  // Payload row of position t, or -1 at or past `lim` (the positions the
+  // row needs, or the cap before kv_len has arrived) and, paged, on a page
+  // outside the pool: each position finds its own page, so a chunk may
+  // span pages.
+  int lim = a.cap;
+  const auto row_at = [&](int t) -> long long {
+    if (t >= lim) return -1;
     if constexpr (PAGED) {
-      return ((size_t)pg * a.hk + kvh) * a.page + (c * KV_CHUNK) % a.page;
+      const int pg = a.table[(size_t)b * a.max_pages + t / a.page];
+      return pg >= 0 && pg < a.n_pages ? ((long long)pg * a.hk + kvh) * a.page + t % a.page : -1;
     } else {
-      return ((size_t)b * a.hk + kvh) * a.cap + (size_t)c * KV_CHUNK;
+      return ((long long)b * a.hk + kvh) * a.cap + t;
     }
   };
-  const auto chunk_rows = [&](int c) { return PAGED ? KV_CHUNK : min(KV_CHUNK, a.cap - c * KV_CHUNK); };
-  // Page id of chunk c (paged; -1 past the row), and whether it is in the pool.
-  const auto page_of = [&](int c) {
-    return PAGED && c < nc ? a.table[(size_t)b * a.max_pages + c * KV_CHUNK / a.page] : (c < nc ? 0 : -1);
-  };
-  const auto page_ok = [&](int pg) { return !PAGED || (pg >= 0 && pg < a.n_pages); };
   const auto stage_at = [&](int i) { return kv_smem + (i % S) * L::BYTES; };
+  if (dt < D) {  // a narrower head dim: the stage rows' columns past it stay zero
+    const int rb = dt * static_cast<int>(sizeof(KV));
+    for (int i = tid; i < S * 2 * KV_CHUNK; i += THREADS) {
+      unsigned char* r = kv_smem + (i / (2 * KV_CHUNK)) * L::BYTES + (i % (2 * KV_CHUNK)) * L::ROW;
+      for (int x = rb; x < L::ROW; ++x) r[x] = 0;
+    }
+  }
 
   // The row's sums are ordered by V virtual ranks, V = min(8, chunks of
   // cap), a number the batch and C do not change: virtual rank v walks
@@ -232,17 +260,14 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
       c = v;
     }
   };
-  // The stream's first chunk (chunk `rank`): its page id and rows requested
-  // before kv_len is known.
+  // The stream's first chunk (chunk `rank`), requested before kv_len is
+  // known.
   int iv = rank, ic = rank < V ? rank : -1;  // the next chunk to request
-  int ipg = ic >= 0 ? page_of(ic) : -1;      // its page
-  if (ic >= 0 && page_ok(ipg)) {
-    kv_issue_chunk<KV, D, THREADS>(a, stage_at(0), chunk_row(ic, ipg), chunk_rows(ic));
+  if (ic >= 0) {
+    kv_issue_chunk<KV, D, THREADS>(a, stage_at(0), ic, dt, row_at);
   } else {
     cp_async_commit();
   }
-  int qpg[S - 1];  // qpg[k]: page of the stream's chunk k places after the one computed
-  qpg[0] = ipg;
 
   // Warp w takes head hg = w % gt of the tile and the part w / gt of every
   // chunk's positions (MHA: 8 parts of 8); lane (rw, sub) the rows rw,
@@ -256,9 +281,9 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
   const int sub = lane % VPR, rw = lane / VPR;
   float qr[VN];
   {
-    const T* qg = static_cast<const T*>(a.q) + b * a.q_stride + ((size_t)kvh * group + g0 + (pv_warp ? hg : 0)) * D;
+    const T* qg = static_cast<const T*>(a.q) + b * a.q_stride + ((size_t)kvh * group + g0 + (pv_warp ? hg : 0)) * dt;
 #pragma unroll
-    for (int e = 0; e < VN; ++e) qr[e] = to_f32(qg[sub * VN + e]);
+    for (int e = 0; e < VN; ++e) qr[e] = sub * VN + e < dt ? to_f32(qg[sub * VN + e]) : 0.f;
   }
   // Warp 0 holds the new token as the cache stores it (int8: codes, with
   // their scales sk / sv): appended to the cache, and written into the
@@ -266,14 +291,15 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
   KV wk[DL], wv[DL];
   float sk = 1.f, sv = 1.f;
   if (warp == 0) {
-    const T* kg = static_cast<const T*>(a.k_new) + b * a.kn_stride + (size_t)kvh * D;
-    const T* vg = static_cast<const T*>(a.v_new) + b * a.vn_stride + (size_t)kvh * D;
+    const T* kg = static_cast<const T*>(a.k_new) + b * a.kn_stride + (size_t)kvh * dt;
+    const T* vg = static_cast<const T*>(a.v_new) + b * a.vn_stride + (size_t)kvh * dt;
     if constexpr (INT8) {
       float xk[DL], xv[DL], ak = 0.f, av = 0.f;
 #pragma unroll
       for (int i = 0; i < DL; ++i) {
-        xk[i] = to_f32(kg[lane + 32 * i]);
-        xv[i] = to_f32(vg[lane + 32 * i]);
+        const bool in = lane + 32 * i < dt;  // columns past the head dim hold code 0
+        xk[i] = in ? to_f32(kg[lane + 32 * i]) : 0.f;
+        xv[i] = in ? to_f32(vg[lane + 32 * i]) : 0.f;
         ak = fmaxf(ak, fabsf(xk[i]));
         av = fmaxf(av, fabsf(xv[i]));
       }
@@ -289,38 +315,37 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
     } else {
 #pragma unroll
       for (int i = 0; i < DL; ++i) {
-        wk[i] = kg[lane + 32 * i];
-        wv[i] = vg[lane + 32 * i];
+        const bool in = lane + 32 * i < dt;
+        wk[i] = in ? kg[lane + 32 * i] : KV{};
+        wv[i] = in ? vg[lane + 32 * i] : KV{};
       }
     }
   }
 
-  O* dst = out + ((size_t)b * a.hq + (size_t)kvh * group + g0) * D;
+  O* dst = out + ((size_t)b * a.hq + (size_t)kvh * group + g0) * dt;
   if (len < 0 || len >= a.cap) {  // no room to append: nothing written, NaN out (the whole cluster)
     if (rank == 0) {
-      for (int i = tid; i < gt * D; i += THREADS) store_elt(dst + i, NAN);
+      for (int i = tid; i < gt * dt; i += THREADS) store_elt(dst + i, NAN);
     }
     cp_async_wait<0>();
     return;
   }
   const int total = len + 1;
+  lim = total;
   n_chunks = (total + KV_CHUNK - 1) / KV_CHUNK;
   const int c_new = len / KV_CHUNK;
   if (ic >= n_chunks) ic = -1;  // the row is shorter than the first request
   // The rest of the ring's first S - 1 chunks: one commit group a stage,
   // empty past the stream's end.
   advance(iv, ic);
-  ipg = ic >= 0 ? page_of(ic) : -1;
 #pragma unroll
   for (int k = 1; k < S - 1; ++k) {
-    if (ic >= 0 && page_ok(ipg)) {
-      kv_issue_chunk<KV, D, THREADS>(a, stage_at(k), chunk_row(ic, ipg), chunk_rows(ic));
+    if (ic >= 0) {
+      kv_issue_chunk<KV, D, THREADS>(a, stage_at(k), ic, dt, row_at);
     } else {
       cp_async_commit();
     }
-    qpg[k] = ipg;
     advance(iv, ic);
-    ipg = ic >= 0 ? page_of(ic) : -1;
   }
   const auto inbox = [&](auto* p, int r) { return r == rank ? p : cluster.map_shared_rank(p, r); };
   bool waited = split == 1;  // on the cluster barrier's first phase
@@ -336,23 +361,25 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
     for (int c = v; c < n_chunks; c += V, ++pos) {
       cp_async_wait<S - 2>();
       __syncthreads();  // chunk c landed; every warp is done with the stage it replaces
-      const int pg_cur = qpg[0];
-      if (ic >= 0 && page_ok(ipg)) {  // the chunk S - 1 places ahead, into the stage chunk pos - 1 left
-        kv_issue_chunk<KV, D, THREADS>(a, stage_at(pos + S - 1), chunk_row(ic, ipg), chunk_rows(ic));
+      if (ic >= 0) {  // the chunk S - 1 places ahead, into the stage chunk pos - 1 left
+        kv_issue_chunk<KV, D, THREADS>(a, stage_at(pos + S - 1), ic, dt, row_at);
       } else {
         cp_async_commit();
       }
-#pragma unroll
-      for (int k = 0; k < S - 2; ++k) qpg[k] = qpg[k + 1];
-      qpg[S - 2] = ipg;
       advance(iv, ic);
-      ipg = ic >= 0 ? page_of(ic) : -1;
-      if (!page_ok(pg_cur)) {  // a page id outside the pool: NaN for the row, nothing read or written
-        bad = true;
-        continue;
-      }
       const int start = c * KV_CHUNK;
       const int n_pos = min(KV_CHUNK, total - start);
+      if constexpr (PAGED) {  // a page id outside the pool among the chunk's: NaN for the row, nothing written
+        bool miss = false;
+        for (int p = start / a.page + lane; p <= (start + n_pos - 1) / a.page; p += 32) {
+          const int pg = a.table[(size_t)b * a.max_pages + p];
+          miss |= pg < 0 || pg >= a.n_pages;
+        }
+        if (__any_sync(0xffffffffu, miss)) {  // the same answer in every warp
+          bad = true;
+          continue;
+        }
+      }
       unsigned char* stage = stage_at(pos);
       const KV* kt = reinterpret_cast<const KV*>(stage);
       const KV* vt = reinterpret_cast<const KV*>(stage + L::TILE);
@@ -361,19 +388,22 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
       if (c == c_new) {  // the new token: appended at position len (once per kv head) and into the stage
         const int t_new = len - start;
         if (warp == 0) {
-          const size_t at = chunk_row(c, pg_cur) + t_new;
-          KV* kc = static_cast<KV*>(a.k) + at * D;
-          KV* vc = static_cast<KV*>(a.v) + at * D;
+          const size_t at = row_at(len);
+          KV* kc = static_cast<KV*>(a.k) + at * dt;
+          KV* vc = static_cast<KV*>(a.v) + at * dt;
           KV* ks = reinterpret_cast<KV*>(stage) + t_new * D;
           KV* vs = reinterpret_cast<KV*>(stage + L::TILE) + t_new * D;
 #pragma unroll
           for (int j = 0; j < DL; ++j) {
-            if (tile == 0) {
-              kc[lane + 32 * j] = wk[j];
-              vc[lane + 32 * j] = wv[j];
+            const int e = lane + 32 * j;
+            if (tile == 0 && e < dt) {
+              kc[e] = wk[j];
+              vc[e] = wv[j];
             }
-            ks[lane + 32 * j] = wk[j];
-            vs[lane + 32 * j] = wv[j];
+            if (e < D) {
+              ks[e] = wk[j];
+              vs[e] = wv[j];
+            }
           }
           if (INT8 && lane == 0) {
             if (tile == 0) {
@@ -515,7 +545,7 @@ __global__ void __launch_bounds__(kv_threads<GT>()) kv_attention_kernel(KvArgs a
       den += w * in_l[v][g];
       num += w * in_acc[v * share + j];
     }
-    store_elt(dst + o, nan ? NAN : num * (den == 0.f ? 1.f : 1.f / den));
+    if (o % D < dt) store_elt(dst + g * dt + o % D, nan ? NAN : num * (den == 0.f ? 1.f : 1.f / den));
   }
 }
 
@@ -554,32 +584,42 @@ struct KvKernel {
 // body(KvKernel<...>{}) for the kernel of (activation dtype, head dim, MHA
 // or GQA): the cache holds the activations' dtype or int8 codes (INT8_KV);
 // the attention vector is written in the activations' dtype, or in f32
-// (F32_OUT). The head dim is 64 or 128 (checked by the callers).
+// (F32_OUT). The instances: head dims 128, 64 and 32, and 16 for 16, 8, 4,
+// 2 and 1 (with 32, 64 and 128 the divisors of 128 that the JAX rule
+// admits, decode_attention.py:684); any other d launches nothing and gives
+// `refused`.
 template <bool INT8_KV, bool PAGED, bool F32_OUT, typename Body>
-int with_kv_kernel(int bf16, int d, bool gqa, const Body& body) {
-  const auto pick = [&](auto t, auto dd) -> int {
-    using T = decltype(t);
+int with_kv_kernel(int bf16, int d, bool gqa, int refused, const Body& body) {
+  const auto pick = [&](auto dd) -> int {
     constexpr int D = decltype(dd)::value;
-    using KV = std::conditional_t<INT8_KV, int8_t, T>;
-    using O = std::conditional_t<F32_OUT, float, T>;
-    return gqa ? body(KvKernel<T, KV, D, PAGED, KV_GT, O>{}) : body(KvKernel<T, KV, D, PAGED, 1, O>{});
+    const auto as = [&](auto t) -> int {
+      using T = decltype(t);
+      using KV = std::conditional_t<INT8_KV, int8_t, T>;
+      using O = std::conditional_t<F32_OUT, float, T>;
+      return gqa ? body(KvKernel<T, KV, D, PAGED, KV_GT, O>{}) : body(KvKernel<T, KV, D, PAGED, 1, O>{});
+    };
+    return bf16 ? as(__nv_bfloat16{}) : as(0.f);
   };
-  using D64 = std::integral_constant<int, 64>;
-  using D128 = std::integral_constant<int, 128>;
-  if (d == 64) return bf16 ? pick(__nv_bfloat16{}, D64{}) : pick(0.f, D64{});
-  return bf16 ? pick(__nv_bfloat16{}, D128{}) : pick(0.f, D128{});
+  switch (d) {
+    case 128: return pick(std::integral_constant<int, 128>{});
+    case 64: return pick(std::integral_constant<int, 64>{});
+    case 32: return pick(std::integral_constant<int, 32>{});
+    case 16: case 8: case 4: case 2: case 1: return pick(std::integral_constant<int, 16>{});
+    default: return refused;
+  }
 }
 
 // One launch of the KV attention of `b` rows as clusters of `split` blocks.
 template <bool INT8_KV, bool PAGED, bool F32_OUT = false>
-int run_kv_attention(const KvArgs& a, int bf16, int b, int d, void* out, int split, void* stream) {
+int run_kv_attention(KvArgs a, int bf16, int b, int d, void* out, int split, void* stream) {
+  const int refused = static_cast<int>(cudaErrorInvalidValue);
   if (b < 1 || a.hk < 1 || a.hq < a.hk || a.hq % a.hk || a.cap < 1 || split < 1 || split > KV_MAX_SPLIT ||
-      (d != 64 && d != 128) ||
-      (PAGED && (a.page < KV_CHUNK || a.page % KV_CHUNK || a.max_pages < 1 || a.n_pages < 1))) {
-    return static_cast<int>(cudaErrorInvalidValue);
+      (PAGED && (a.page < 1 || a.max_pages < 1 || a.n_pages < 1))) {
+    return refused;
   }
+  a.d = d;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_kv_kernel<INT8_KV, PAGED, F32_OUT>(bf16, d, a.hq > a.hk, [&](auto k) {
+  return with_kv_kernel<INT8_KV, PAGED, F32_OUT>(bf16, d, a.hq > a.hk, refused, [&](auto k) {
     using K = decltype(k);
     return static_cast<int>(K::launch(a, b, static_cast<typename K::Out*>(out), split, st));
   });
@@ -590,8 +630,9 @@ int run_kv_attention(const KvArgs& a, int bf16, int b, int d, void* out, int spl
 // launch resident within it.
 template <bool INT8_KV, bool PAGED, bool F32_OUT = false>
 int kv_clusters(int bf16, int d, int gqa, int split) {
-  if (split < 1 || split > KV_MAX_SPLIT || (d != 64 && d != 128)) return -static_cast<int>(cudaErrorInvalidValue);
-  return with_kv_kernel<INT8_KV, PAGED, F32_OUT>(bf16, d, gqa != 0,
+  const int refused = -static_cast<int>(cudaErrorInvalidValue);
+  if (split < 1 || split > KV_MAX_SPLIT) return refused;
+  return with_kv_kernel<INT8_KV, PAGED, F32_OUT>(bf16, d, gqa != 0, refused,
                                                  [&](auto k) { return decltype(k)::clusters(split); });
 }
 

@@ -67,8 +67,30 @@ from rten_tpu_torch.kernels.quant_matmul import (
 )
 
 CHUNK = KV_CHUNK  # cache positions per split-KV chunk (csrc/kv_attention.cuh KV_CHUNK)
-HEAD_DIMS = (64, 128)
 _LANES = 128  # the TPU's lane width, in the copied support rules below
+# Head dims decode_block is built for (csrc/decode_block.cu block_dim_ok):
+# those of the JAX mega rule's whose rows are whole 16-byte bulk copies.
+BLOCK_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def kv_head_dim_supported(head_dim: int) -> bool:
+    """Head dims the four KV kernels take: the head-dim terms of the JAX
+    package's ``decode_attention_supported``
+    (``rten_tpu/kernels/decode_attention.py:684``), a divisor of 128. Their
+    S terms (the TPU's 128-lane folding) do not apply: the kernels take any
+    S. Head dims 128, 64 and 32 have kernel instances; 16, 8, 4, 2 and 1
+    run the 16 one (csrc/kv_attention.cuh)."""
+    return 0 < head_dim <= _LANES and _LANES % head_dim == 0
+
+
+def kv_mode_names(name: str, hq: int, hk: int, d: int, wo: bool = True) -> list[str]:
+    """The launch counters a KV kernel's call adds one to: its mode
+    (``mode_name``) and, at a head dim other than 64 and 128,
+    ``name:d<D>``."""
+    names = [mode_name(name, hq, hk, wo)]
+    if d not in (64, 128):
+        names.append(f"{name}:d{d}")
+    return names
 
 
 def _unpack(packed_qkv):
@@ -161,8 +183,9 @@ def _operand_args(name: str, ops, d: int) -> list:
     dtype = ops[0].dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: activations must be float32 or bfloat16, got {dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head_dim in {HEAD_DIMS}, got {d}")
+    if not kv_head_dim_supported(d):
+        raise ValueError(f"{name}: head dim {d} does not divide 128, the head-dim rule of "
+                         "rten_tpu/kernels/decode_attention.py:684 decode_attention_supported")
     for what, t in zip(("q", "k_new", "v_new"), ops):
         if t.dtype != dtype or t.stride(2) != 1 or (t.shape[1] > 1 and t.stride(1) != d):
             raise ValueError(f"{name}: {what} must be {dtype} with each row's heads contiguous")
@@ -252,7 +275,8 @@ def decode_attention(
         wo_plan, work or None, _stream(q),
     )
     _build.check(rc, name)
-    LAUNCHES[mode_name(name, hq, hk, with_wo)] += 1
+    for mode in kv_mode_names(name, hq, hk, d, with_wo):
+        LAUNCHES[mode] += 1
     return out
 
 
@@ -430,6 +454,9 @@ def _decode_block(
         return decode_block_ref(ops, k_cache, v_cache, kv_len, wo_t, wo_scales, wo_bias, residual, mlp,
                                 next_qkv, activation=activation, norm=norm, norm_eps=norm_eps)
     name = "decode_block"
+    if d not in BLOCK_HEAD_DIMS:
+        raise ValueError(f"decode_block: head dim {d} is not one of {BLOCK_HEAD_DIMS}, the head dims of "
+                         "rten_tpu/kernels/decode_attention.py:697 mega_block_supported that it is built for")
     _operand_args(name, ops, d)
     dtype = q.dtype
     for what, t in (("k_cache", k_cache), ("v_cache", v_cache), ("residual", residual)):
@@ -489,6 +516,8 @@ def _decode_block(
     LAUNCHES[name] += 1
     if hq > hk:
         LAUNCHES[mode_name(name, hq, hk)] += 1
+    if d not in (64, 128):
+        LAUNCHES[f"{name}:d{d}"] += 1
     return out if next_qkv is None else (out, nxt)
 
 
@@ -582,11 +611,12 @@ def kv_device_plan(entry: str, q, hk: int, cap: int, *extra: int) -> int:
     return kv_plan(b, hk, hq // hk, cap, sm_count(idx), fits)
 
 
-def launch_kv_attention(name, entry, ops, tensors, kv_len, cap: int, scalars):
+def launch_kv_attention(name, entry, ops, tensors, kv_len, cap: int, scalars, modes=()):
     """Launch one of the KV kernels (kv_attention.cuh) on CUDA tensors:
     ``ops`` (q, k_new, v_new) as ``split_qkv`` gives them, ``tensors`` the
     (payload k, v, [scales k, v]) whose dtypes are checked, ``scalars`` the
-    entry's arguments between the scales and ``kv_len``. Returns the
+    entry's arguments between the scales and ``kv_len``, ``modes`` launch
+    counters it adds one to beside ``kv_mode_names``'. Returns the
     attention vector [B, Hq·D] in the operands' dtype."""
     q, kn, _vn = ops
     b, hq, d = q.shape
@@ -608,7 +638,8 @@ def launch_kv_attention(name, entry, ops, tensors, kv_len, cap: int, scalars):
         out.data_ptr(), 1.0 / math.sqrt(d), _stream(q),
     )
     _build.check(rc, name)
-    LAUNCHES[mode_name(name, hq, hk)] += 1
+    for mode in (*kv_mode_names(name, hq, hk, d), *modes):
+        LAUNCHES[mode] += 1
     return out
 
 

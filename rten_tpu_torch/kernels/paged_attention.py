@@ -11,7 +11,8 @@ takes them; a ``:gqa`` launch counter where Hq > Hk). Their folded pages
 ``[Hk, P, page·D/128, 128]`` and scale tiles ``[Hk, P, 8, 128]`` exist for
 Mosaic's 128-lane rule; here a pool is logical ``[P, Hk, page, D]`` (scales
 ``[P, Hk, page]``), one extra page of it being the serving engine's scratch
-page. Page table entries past a row's last page are never read.
+page. Page table entries past a row's last page may hold anything: what
+they name is never used.
 
 Numerics (those of the Pallas kernels): scores, softmax statistics and the
 attention vector in f32, scale ``1/sqrt(D)``, the output rounded to the
@@ -27,8 +28,8 @@ import math
 import torch
 
 from rten_tpu_torch.kernels.decode_attention import (
+    _LANES,
     CHUNK,
-    HEAD_DIMS,
     attend_ref,
     check_kv_operands,
     dequantize_kv,
@@ -41,9 +42,27 @@ from rten_tpu_torch.kernels.dispatch import PLAIN, use_kernel
 
 
 def paged_attention_supported(head_dim: int, page_size: int) -> bool:
-    """Shapes the kernels take: head dim 64 or 128, and pages of whole
-    64-position split chunks (csrc/kv_attention.cuh)."""
-    return head_dim in HEAD_DIMS and page_size >= CHUNK and page_size % CHUNK == 0
+    """Pages the JAX package's paged kernel takes, and so the port's: a
+    copy of ``rten_tpu/kernels/paged_attention.py:205``
+    ``paged_attention_supported`` (a head dim that divides 128, pages of a
+    multiple of 1024 / head dim positions: 8 at head dim 128, 16 at 64).
+    The kernel finds each position's page, so a 64-position chunk of it may
+    span pages (csrc/kv_attention.cuh)."""
+    return head_dim <= _LANES and _LANES % head_dim == 0 and (page_size * head_dim) % (8 * _LANES) == 0
+
+
+def paged_attention_int8_supported(head_dim: int, page_size: int) -> bool:
+    """The int8 twin's rule: a copy of
+    ``rten_tpu/kernels/paged_attention.py:213``
+    ``paged_attention_int8_supported`` (its int8 windows and scale-page
+    layout: pages of a multiple of 4096 / head dim positions, at most
+    16384 / head dim, head dim at least 16)."""
+    return (
+        paged_attention_supported(head_dim, page_size)
+        and (page_size * head_dim) % (32 * _LANES) == 0
+        and page_size * head_dim // _LANES <= _LANES
+        and _LANES // head_dim <= 8
+    )
 
 
 def _paged_ref(name, qkv, k_pages, v_pages, scales, page_table, kv_len):
@@ -72,6 +91,12 @@ def _paged_ref(name, qkv, k_pages, v_pages, scales, page_table, kv_len):
     return torch.stack(rows).to(q.dtype)
 
 
+def _page_modes(name: str, page: int) -> tuple[str, ...]:
+    """A launch over pages that are not whole 64-position chunks also counts
+    under ``name:page<P>``."""
+    return (f"{name}:page{page}",) if page % CHUNK else ()
+
+
 def paged_decode_attention_ref(qkv, k_pages, v_pages, page_table, kv_len):
     """Plain version of ``paged_decode_attention`` (same signature, result
     and in-place page update). Reads the table and lengths on the host."""
@@ -84,13 +109,14 @@ def paged_decode_attention_int8_ref(qkv, k_pages, v_pages, k_scale_pages, v_scal
                       (k_scale_pages, v_scale_pages), page_table, kv_len)
 
 
-def _check_table(name, q, k_pages, page_table, kv_len):
+def _check_table(name, q, k_pages, page_table, kv_len, int8: bool = False):
     b = q.shape[0]
     if page_table.dim() != 2 or page_table.shape[0] != b or tuple(kv_len.shape) != (b,):
         raise ValueError(f"{name}: page_table must be [B, max_pages] and kv_len [B] for B={b}")
-    if not paged_attention_supported(q.shape[-1], k_pages.shape[2]):
-        raise ValueError(f"{name}: page size {k_pages.shape[2]} is not a multiple of {CHUNK} "
-                         f"or head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    rule, line = (paged_attention_int8_supported, 213) if int8 else (paged_attention_supported, 205)
+    if not rule(q.shape[-1], k_pages.shape[2]):
+        raise ValueError(f"{name}: pages of {k_pages.shape[2]} positions at head dim {q.shape[-1]} fail "
+                         f"rten_tpu/kernels/paged_attention.py:{line} {rule.__name__}")
     if page_table.dtype != torch.int32 or not page_table.is_contiguous():
         raise ValueError(f"{name}: page_table must be a contiguous int32 tensor")
 
@@ -122,7 +148,8 @@ def paged_decode_attention(qkv, k_pages, v_pages, page_table, kv_len):
     n_pages, _, page, _ = k_pages.shape
     max_pages = page_table.shape[1]
     return launch_kv_attention(name, "rt_paged_attention", ops, (k_pages, v_pages), kv_len,
-                               max_pages * page, (n_pages, page, page_table.data_ptr(), max_pages))
+                               max_pages * page, (n_pages, page, page_table.data_ptr(), max_pages),
+                               _page_modes(name, page))
 
 
 def paged_decode_attention_int8(qkv, k_pages, v_pages, k_scale_pages, v_scale_pages, page_table, kv_len):
@@ -135,7 +162,7 @@ def paged_decode_attention_int8(qkv, k_pages, v_pages, k_scale_pages, v_scale_pa
     ``paged_decode_attention_int8_ref``."""
     name = "paged_decode_attention_int8"
     ops = check_kv_operands(name, qkv, (k_pages, v_pages), (k_scale_pages, v_scale_pages), 1)
-    _check_table(name, ops[0], k_pages, page_table, kv_len)
+    _check_table(name, ops[0], k_pages, page_table, kv_len, int8=True)
     if not use_kernel(*ops, k_pages, v_pages, k_scale_pages, v_scale_pages, page_table, kv_len):
         return paged_decode_attention_int8_ref(ops, k_pages, v_pages, k_scale_pages, v_scale_pages,
                                                page_table, kv_len)
@@ -143,4 +170,5 @@ def paged_decode_attention_int8(qkv, k_pages, v_pages, k_scale_pages, v_scale_pa
     max_pages = page_table.shape[1]
     return launch_kv_attention(name, "rt_paged_attention_int8", ops,
                                (k_pages, v_pages, k_scale_pages, v_scale_pages), kv_len,
-                               max_pages * page, (n_pages, page, page_table.data_ptr(), max_pages))
+                               max_pages * page, (n_pages, page, page_table.data_ptr(), max_pages),
+                               _page_modes(name, page))

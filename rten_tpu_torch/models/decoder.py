@@ -95,9 +95,17 @@ caches take their KV kernels as above. The head is the params' ``lm_head``
 or tied ``lm_head_q`` (a pack through ``quant_matmul_int8`` in f32, a dense
 matrix through ``x @ head``), else the tied ``x @ tok_emb``ᵀ, then the
 argmax. ``mega``, ``w8a8`` and ``fuse`` change nothing on this route, and
-``d_model`` need not be a multiple of 128: on the card the kernels' head
-dims (64, 128) are the limit. A tree whose every projection is a pack and
-whose q/k/v are fused keeps the fused int8 route above.
+``d_model`` need not be a multiple of 128. A tree whose every projection is
+a pack and whose q/k/v are fused keeps the fused int8 route above.
+
+**Head dims.** One token a row takes the KV kernels at a head dim that
+divides 128 (``kv_head_dim_supported``, the JAX rule's head-dim terms); at
+any other (80, 96, ...) it is appended to the cache and attends through
+``flash_attention`` at Tq 1, as the JAX decoder runs a step its decode
+kernels refuse, and ``generate_scan`` then runs its steps eagerly (that
+route reads the cache length on the host). The whole-block kernel takes
+head dims 16, 32, 64 and 128 (``BLOCK_HEAD_DIMS``); a mega layer at another
+head dim the JAX rule admits (8, 4, 2, 1) runs the two-kernel step.
 
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
@@ -128,12 +136,14 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from rten_tpu_torch.kernels.activations import ACTIVATIONS
-from rten_tpu_torch.kernels.attention import HEAD_DIMS, flash_attention
+from rten_tpu_torch.kernels.attention import flash_attention
 from rten_tpu_torch.kernels.decode_attention import (
+    BLOCK_HEAD_DIMS,
     decode_attention,
     decode_attention_int8,
     decode_block,
     dequantize_kv,
+    kv_head_dim_supported,
     mega_block_supported,
     quantize_kv,
 )
@@ -214,12 +224,12 @@ def mlp_fused_supported(d: int, ff: int, n_qkv: int = 0) -> bool:
     return d * ff * 2 + d * n_qkv <= _MLP_FUSED_BYTES
 
 
-def _check_supported(cfg: DecoderConfig, dense: bool = False, device=None) -> None:
+def _check_supported(cfg: DecoderConfig, dense: bool = False) -> None:
     """The ported path: GPT-2, OPT and Llama/Qwen2-class blocks with a
     kernel epilogue activation or SwiGLU, whole groups of query heads; with
     int8 packs d_model a multiple of 128 (the K of every projection but the
-    down one), with dense weights on the card a head dim the attention
-    kernels are built for (``HEAD_DIMS``)."""
+    down one). Any head dim: one token a row takes the KV kernels at a head
+    dim that divides 128, and ``flash_attention`` at Tq 1 at any other."""
     problems = []
     if cfg.activation not in ("gelu", "relu", "silu", "swiglu"):
         problems.append(f"activation={cfg.activation!r}")
@@ -229,8 +239,6 @@ def _check_supported(cfg: DecoderConfig, dense: bool = False, device=None) -> No
         problems.append(f"pos_encoding={cfg.pos_encoding!r}")
     if cfg.d_model % 128 and not dense:
         problems.append("d_model not a multiple of 128")
-    if dense and device is not None and torch.device(device).type == "cuda" and cfg.head_dim not in HEAD_DIMS:
-        problems.append(f"head dim {cfg.head_dim} not in {HEAD_DIMS}")
     if cfg.n_heads % cfg.kv_heads:
         problems.append(f"n_heads {cfg.n_heads} not a multiple of n_kv_heads {cfg.kv_heads}")
     if problems:
@@ -885,8 +893,8 @@ def _mega_layer(params: dict, cfg: DecoderConfig, li: int, cache: dict):
         nq = nxt["wqkv"]
         next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
     k_cache = cache["k"][li]
-    if not mega_block_supported(d, ff, qkv_dim if next_qkv is not None else 0, hk, hd, k_cache.shape[2],
-                                kv_bytes=k_cache.element_size()):
+    if hd not in BLOCK_HEAD_DIMS or not mega_block_supported(
+            d, ff, qkv_dim if next_qkv is not None else 0, hk, hd, k_cache.shape[2], kv_bytes=k_cache.element_size()):
         return None
     mlp = (up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),
            layer["ln2"]["scale"], layer["ln2"].get("bias"))
@@ -993,7 +1001,7 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     token a row on a bf16/f32 cache then takes ``decode_attention`` without
     its fused wo, as it does at more than 8 rows."""
     dense = _is_dense(params)
-    _check_supported(cfg, dense, tokens.device)
+    _check_supported(cfg, dense)
     if lm_head_mode not in ("logits", "argmax"):
         raise ValueError(f"lm_head_mode must be 'logits' or 'argmax', got {lm_head_mode!r}")
     b, t = tokens.shape
@@ -1005,9 +1013,13 @@ def forward(params: dict, cfg: DecoderConfig, tokens, cache: dict | None = None,
     # One token a row takes a KV kernel at any B (JAX decoder.py:740-812):
     # the paged / int8 decode kernels, or decode_attention on a bf16/f32
     # cache, its wo fused in the decode structure, else left to the prefill
-    # projection.
-    kv_decode = one_token and (paged or "k_scale" in cache)
-    decode = one_token and not paged and "k_scale" not in cache
+    # projection. At a head dim the KV kernels do not take (one that does not
+    # divide 128), the token is appended and attends through flash_attention
+    # at Tq 1, as the JAX decoder runs a step its decode kernels refuse
+    # (decoder.py:739-752, :1009-1020).
+    kv_ok = kv_head_dim_supported(cfg.head_dim)
+    kv_decode = one_token and (paged or ("k_scale" in cache and kv_ok))
+    decode = one_token and not paged and "k_scale" not in cache and kv_ok
     mega = decode and small and b == 1 and cfg.mega and cfg.activation in ("gelu", "relu", "silu")
     q_offset = kv_len = None
     if paged and not kv_decode:
@@ -1128,15 +1140,17 @@ def _scan_steps(params: dict, cfg: DecoderConfig, cache: dict, tok, rng, n_steps
     return torch.cat(out, dim=1)
 
 
-def _capturable(sampled: bool) -> bool:
+def _capturable(cfg: DecoderConfig, sampled: bool) -> bool:
     """Whether ``generate_scan`` may capture its steps: only when every
     step reads the cache length on the device alone, as one token a row
-    does on every kind of cache at any B (the KV kernels; never
-    ``_attention``, which bakes ``int(cache["host_len"].max())`` into the
-    launch). A sampled graph needs the installed torch to advance its
-    generator at every replay (``CUDAGraph.register_generator_state``).
-    Decided before any capture, never by catching a capture error."""
-    return not sampled or hasattr(torch.cuda.CUDAGraph, "register_generator_state")
+    does on every kind of cache at any B at a head dim the KV kernels take
+    (never ``_attention``, the step at any other head dim, which bakes
+    ``int(cache["host_len"].max())`` into the launch). A sampled graph needs
+    the installed torch to advance its generator at every replay
+    (``CUDAGraph.register_generator_state``). Decided before any capture,
+    never by catching a capture error."""
+    return kv_head_dim_supported(cfg.head_dim) and (
+        not sampled or hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
 
 
 class _Captured:
@@ -1242,7 +1256,7 @@ def generate_scan(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, rn
         raise ValueError(f"{type(sampler).__name__} requires an rng (a torch.Generator)")
     b = last_tokens.shape[0]
     _check_room(cache, n_steps)
-    if last_tokens.device.type != "cuda" or not _capturable(sampler is not None):
+    if last_tokens.device.type != "cuda" or not _capturable(cfg, sampler is not None):
         return _scan_steps(params, cfg, cache, last_tokens, rng, n_steps, sampler), cache
     graphs = _GRAPHS.setdefault(cache["len"], {})
     tensors = _cache_tensors(cache)

@@ -37,7 +37,7 @@ import torch
 
 from rten_tpu_torch.generate.sampler import ArgMaxSampler, Sampler
 from rten_tpu_torch.kernels.dispatch import resolve_device
-from rten_tpu_torch.kernels.paged_attention import paged_attention_supported
+from rten_tpu_torch.kernels.paged_attention import paged_attention_int8_supported, paged_attention_supported
 from rten_tpu_torch.models import decoder
 from rten_tpu_torch.serve.engine import Request, check_engine_options, prefill_first_token, sample_step
 
@@ -49,8 +49,10 @@ class PagePool:
 
     def __init__(self, cfg: decoder.DecoderConfig, n_pages: int, page_size: int = 128, int8: bool = False,
                  device="cuda") -> None:
-        if not paged_attention_supported(cfg.head_dim, page_size):
-            raise ValueError(f"page_size {page_size} unsupported for head_dim {cfg.head_dim}")
+        # The JAX PagePool's rules (rten_tpu/serve/paged.py:47-60).
+        if not (paged_attention_int8_supported if int8 else paged_attention_supported)(cfg.head_dim, page_size):
+            raise ValueError(f"page_size {page_size} unsupported for {'int8 ' if int8 else ''}head_dim "
+                             f"{cfg.head_dim}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.n_pages = n_pages

@@ -218,3 +218,25 @@ def test_presets_match_jax():
                       "layer_norm_eps"):
             assert getattr(t, field) == getattr(j, field), (name, field)
         assert t.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name,dtype,tol", CASES[:2], ids=[c[0] for c in CASES[:2]])
+def test_encode_at_head_dim_32_matches_jax(name, dtype, tol):
+    """8 heads of 32 (all-MiniLM-L6-v2's head dim) over the same int8
+    params: hidden states at valid positions against the JAX package's TPU
+    branch (its flash attention at head dim 32, interpreted)."""
+    ids, seg, _head = _inputs()
+    cfg = dict(CFG, n_heads=8)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jtree = jax_cast(jbert.quantize_params_int8(to_jax(bert_tree(0))), jdtype)
+    with pytest.MonkeyPatch.context() as mp:
+        patch_jax_encoders(mp)
+        want = jbert.encode(jtree, jbert.BertConfig(**cfg, dtype=jdtype), jnp.asarray(ids),
+                            lengths=jnp.asarray(LENGTHS), segment_ids=jnp.asarray(seg))
+    tcfg = tbert.BertConfig(**cfg, dtype=dtype)
+    params = tbert.params_from_jax(to_numpy(jtree), tcfg, device="cpu")
+    dispatch.reset_counters()
+    got = tbert.encode(params, tcfg, torch.from_numpy(ids), lengths=torch.from_numpy(LENGTHS),
+                       segment_ids=torch.from_numpy(seg))
+    assert tcfg.head_dim == 32 and dispatch.PLAIN["flash_attention"] == CFG["n_layers"]
+    assert rel_err(got.float().numpy(), np.asarray(want, np.float32), _valid()) <= tol

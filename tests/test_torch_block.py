@@ -92,23 +92,32 @@ BLOCK_CASES = [
     ("mqa", "f32", 5, True, "relu", "rmsnorm"),
     ("mqa", "bf16", 70, True, "gelu", "layernorm"),
     ("mqa", "f32", 127, False, "silu", "layernorm"),
+    # Head dims 32 and 16 (4 query heads of 32 or 16; the JAX mega rule
+    # admits every divisor of 128, decode_block is built for 16 and up).
+    ("packed", "f32", 70, True, "gelu", "layernorm", 32),
+    ("packed", "bf16", 127, True, "relu", "rmsnorm", 32),
+    ("gqa", "f32", 5, True, "silu", "rmsnorm", 32),
+    ("mqa", "bf16", 70, False, "gelu", "layernorm", 32),
+    ("packed", "f32", 127, True, "gelu", "rmsnorm", 16),
+    ("gqa", "bf16", 70, True, "relu", "layernorm", 16),
 ]
+BLOCK_CASES = [c if len(c) == 7 else (*c, 64) for c in BLOCK_CASES]
 KV_HEADS = {"packed": 4, "gqa": 2, "mqa": 1}  # over 4 query heads
 
 
 def _block_id(c):
-    name = f"{c[1]}_len{c[2]}_{'next' if c[3] else 'last'}_{c[4]}_{c[5]}"
+    name = f"{c[1]}_len{c[2]}_{'next' if c[3] else 'last'}_{c[4]}_{c[5]}" + ("" if c[6] == 64 else f"_d{c[6]}")
     return name if c[0] == "packed" else f"{c[0]}_{name}"
 
 
-@pytest.mark.parametrize("ops,dt,kv_len,with_next,act,norm", BLOCK_CASES, ids=[_block_id(c) for c in BLOCK_CASES])
-def test_decode_block_matches_mega_kernel(rng, ops, dt, kv_len, with_next, act, norm):
-    """One block of one token (batch 1, S 128, 4 query heads of 64 over 4,
-    2 or 1 kv heads, d_model 256, FF 1024, the next qkv (4 + 2 Hk) x 64):
-    the output, the next qkv and both caches after the append."""
+@pytest.mark.parametrize("ops,dt,kv_len,with_next,act,norm,d", BLOCK_CASES, ids=[_block_id(c) for c in BLOCK_CASES])
+def test_decode_block_matches_mega_kernel(rng, ops, dt, kv_len, with_next, act, norm, d):
+    """One block of one token (batch 1, S 128, 4 query heads of 64, 32 or
+    16 over 4, 2 or 1 kv heads, d_model 256, FF 1024, the next qkv (4 + 2
+    Hk) x D): the output, the next qkv and both caches after the append."""
     bf16 = dt == "bf16"
     jdt = _jax_dtype(bf16)
-    h, d, s_max, dm, ff = 4, 64, 128, 256, 1024
+    h, s_max, dm, ff = 4, 128, 256, 1024
     hk = KV_HEADS[ops]
     nq = (h + 2 * hk) * d
     kc = jnp.asarray(rng.standard_normal((1, hk, s_max, d)).astype(np.float32), jdt)

@@ -132,7 +132,7 @@ def test_mlp_kernel_rows_over_48kb_smem(dev, m):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_attention_kernel_matches_plain(dev, dtype, head_dim):
     gen = torch.Generator(device=dev).manual_seed(3)
     lens = torch.tensor([0, 5, 63, 64, 255], dtype=torch.int32, device=dev)
@@ -486,13 +486,19 @@ def _clone_args(args):
     return [a.clone() for a in args]
 
 
+def _rule_page(kind: str, d: int) -> int:
+    """The smallest page of at least 64 positions that the JAX rule of a
+    paged kind admits at head dim d (``paged_attention.py:205`` and :213)."""
+    return max(64, (4096 if kind.endswith("int8") else 1024) // d) if kind.startswith("paged") else 64
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("kind", KV_KINDS)
 def test_kv_kernel_matches_plain(dev, kind, dtype, head_dim):
     """Attention vector against the plain version (own-max tolerance), and
     the caches after the append bit for bit (int8: codes and scales)."""
-    kernel, plain, args = _kv_case(dev, kind, dtype, head_dim)
+    kernel, plain, args = _kv_case(dev, kind, dtype, head_dim, page=_rule_page(kind, head_dim))
     k_args, p_args = _clone_args(args), _clone_args(args)
     name = kernel.__name__
     before = dispatch.LAUNCHES[name]
@@ -1156,7 +1162,7 @@ def _block_check(args, kw, dtype, with_next):
 
 @pytest.mark.parametrize("ops", list(BLOCK_OPS))
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("kv_len", [0, 1, 63, 64, 65, 767])
 @pytest.mark.parametrize("with_next", [False, True])
 def test_decode_block_kernel_matches_plain(dev, ops, dtype, head_dim, kv_len, with_next):
@@ -2259,18 +2265,21 @@ def _engine_check(kernel, plain, args, kw, n_cache, dtype, kind):
     return out
 
 
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("group", [1, 7])
 @pytest.mark.parametrize("kind", KV_ENGINE_KINDS)
 def test_kv_engine_chunk_and_page_edges(dev, kind, group, dtype, head_dim):
-    """Rows at kv_len 0, 1, 63, 64, 65, 127, 128, 300 and cap - 1 (383 of 6
-    chunks or pages of 64), MHA and Qwen2's group of 7, both dtypes, head
-    dim 64 and 128: one launch of the kernel (the fused wo, at most 8 rows,
-    in two calls) against its plain version, the append bit for bit, two
-    launches bit for bit."""
+    """Rows at kv_len 0, 1, 63, 64, 65, 127, 128, 300 and 383 (the last of
+    6 chunks or pages of 64; int8 pages at head dims 16 and 32 are the JAX
+    rule's 256 and 128), MHA and Qwen2's group of 7, both dtypes, head dims
+    16, 32, 64 and 128: one launch of the kernel (the fused wo, at most 8
+    rows, in two calls) against its plain version, the append bit for bit,
+    two launches bit for bit."""
     dispatch.reset_counters()
-    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, dtype, head_dim, group, EDGE_LENS)
+    page = _rule_page(kind, head_dim)
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, dtype, head_dim, group, EDGE_LENS,
+                                                    cap=-(-384 // page) * page, page=page)
     if kind == "fused_wo":  # rows 0-7, then the last
         for rows in (slice(0, 8), slice(8, 9)):
             part = [tuple(t[rows] for t in args[0]), *(t[rows] for t in args[1:4]), *args[4:]]
@@ -3357,3 +3366,189 @@ def test_collectives_on_cuda_tensors(dev):
     for res in ran.results:
         assert res["ok"] == [True] * 4 and res["backend"] == ran.backend
         assert {k.split(":")[1] for k in res["routes"]} == {route}, res["routes"]
+
+
+# -- every head dim and page size the JAX kernels take: flash_attention up
+# to 256 (instances at 16, 32, 64, 128 and 256, the head dims between them
+# zero-filled), the KV kernels at every divisor of 128, pages under 64
+# positions, and the C entry points' refusal of a head dim they have no
+# instance for --
+
+FLASH_HEAD_DIM_CASES = ["causal", "gqa", "q_offset_kv_len", "kv_len_0_row", "long"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_HEAD_DIM_CASES)
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 80, 96, 256])
+def test_flash_kernel_every_head_dim(dev, dtype, case, d):
+    """Head dims 16, 32 and 256 on their own instances and 8, 24, 80 and 96
+    on the next one up (columns past d zero): against the plain version
+    (own-max tolerance), one launch counted under flash_attention:d<D>."""
+    args, kw = _flash_inputs(dev, case, dtype, d)
+    before = dispatch.LAUNCHES[f"flash_attention:d{d}"]
+    out = flash_attention(*args, **kw)
+    assert dispatch.LAUNCHES[f"flash_attention:d{d}"] == before + 1
+    assert out.shape == args[0].shape
+    _close_own_max(out, flash_attention_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [5, 12, 20, 36, 100])
+def test_flash_kernel_reads_unaligned_rows(dev, dtype, d):
+    """q, k and v as views of one packed [B, T, 3, H, d] buffer, whose row
+    starts are 2, 4 or 8 bytes aligned at these head dims (read in the
+    pieces they allow), causal at a q_offset: against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, h, t = 2, 3, 70
+    qkv = (1.5 * torch.randn(b, t, 3, h, d, generator=gen, device=dev)).to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    kw = dict(causal=True, q_offset=torch.tensor([0, 3], dtype=torch.int32, device=dev),
+              kv_len=torch.tensor([70, 66], dtype=torch.int32, device=dev))
+    _close_own_max(flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("d", [8, 4, 2, 1])
+@pytest.mark.parametrize("kind", ["no_wo", "int8", "paged"])
+def test_kv_engine_small_head_dims(dev, kind, d, group, dtype):
+    """Head dims 8, 4, 2 and 1 (the JAX rule's other divisors of 128) on the
+    16 instance, rows 2 to 16 bytes wide landing in zero-filled stage rows:
+    against the plain version, the append and a second launch bit for bit,
+    counted under name:d<D>. Pages: the JAX rule's smallest, 1024 / d."""
+    page = 1024 // d if kind == "paged" else 64
+    cap = 2 * max(page, 256)
+    lens = [0, 1, 63, 64, 65, 127, 128, 300, cap - 1]
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, dtype, d, group, lens, cap=cap, page=page, seed=95)
+    dispatch.reset_counters()
+    _engine_check(kernel, plain, args, kw, n_cache, dtype, kind)
+    assert dispatch.LAUNCHES[f"{kernel.__name__}:d{d}"] == 2  # the kernel twice; PLAIN counts the reference
+
+
+def _gather_pages(pages, table, cap):
+    """A pool's pages [P, Hk, page, ...] gathered along each row's table into
+    the dense layout [B, Hk, cap, ...]."""
+    g = pages[table.long()]  # [B, per_row, Hk, page, ...]
+    g = g.transpose(1, 2)
+    return g.reshape(g.shape[0], g.shape[1], cap, *g.shape[4:]).contiguous()
+
+
+# (kind, head dim, page): pages under 64 positions, and 48 and 80, which
+# 64-position chunks cross unevenly, as the JAX rules admit them.
+SMALL_PAGES = [("paged", 64, 16), ("paged", 64, 32), ("paged", 64, 48), ("paged", 64, 80), ("paged", 128, 8),
+               ("paged", 128, 16), ("paged", 32, 32), ("paged_int8", 128, 32), ("paged_int8", 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("group", [1, 7])
+@pytest.mark.parametrize("kind,d,page", SMALL_PAGES)
+def test_kv_engine_small_pages_equal_dense_rows(dev, kind, d, page, group, dtype):
+    """Pages of 8 to 80 positions: the paged kernel against its plain
+    version (the append and a second launch bit for bit), and each row's
+    attention vector bit for bit the one the dense kernel gives over the
+    same positions gathered into a [B, Hk, cap, D] cache."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    cap = -(-384 // page) * page
+    kernel, plain, args, kw, n_cache = _engine_case(dev, kind, dtype, d, group, EDGE_LENS, cap=cap, page=page,
+                                                    seed=96)
+    dispatch.reset_counters()
+    out = _engine_check(kernel, plain, args, kw, n_cache, dtype, kind)
+    if page % 64:
+        assert dispatch.LAUNCHES[f"{kernel.__name__}:page{page}"] == 2
+    table, lens = args[-2], args[-1]
+    dense = [_gather_pages(t, table, cap) for t in args[1 : 1 + n_cache]]
+    twin = da.decode_attention_int8 if kind.endswith("int8") else da.decode_attention
+    assert torch.equal(twin(args[0], *dense, lens), out)
+
+
+@pytest.mark.parametrize("heads", [4, 2])
+def test_tiny_paged_engine_pages_of_16_match_cpu(dev, heads):
+    """PagedServingEngine with pages of 16 at head dim 64 (4 heads) and 128
+    (2 heads) on the tiny f32 config: the same requests on the card and on
+    the CPU give the same streams; the card launched
+    paged_decode_attention:page16 and no plain version."""
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.serve import PagedServingEngine
+
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=heads, d_model=256, d_ff=1024,
+                                max_seq=256, dtype=torch.float32)
+    cpu_params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device="cpu"), device="cpu")
+    gpu_params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+    gen = torch.Generator().manual_seed(15)
+    specs = [dict(prompt=torch.randint(1, 500, (n,), generator=gen).tolist(), max_new_tokens=m)
+             for n, m in ((3, 20), (40, 12), (12, 30), (70, 8))]
+
+    def run(p, d):
+        return _engine_outputs(PagedServingEngine, p, cfg, specs, d, max_batch=3, n_pages=24, page_size=16)
+
+    dispatch.reset_counters()
+    on_card, eng = run(gpu_params, dev)
+    assert dispatch.LAUNCHES["paged_decode_attention:page16"] > 0 and not dispatch.PLAIN
+    on_cpu, _ = run(cpu_params, "cpu")
+    assert on_card == on_cpu and eng.pool.n_free == eng.pool.n_pages
+
+
+@pytest.mark.parametrize("head_dim", [32, 96])
+def test_tiny_decoder_head_dims_match_plain(dev, head_dim):
+    """The tiny f32 decoder at head dim 32 (the KV kernels' 32 instance) and
+    96 (no KV kernel: each step appended and attended through
+    flash_attention at Tq 1, eagerly): prompt logits and 8 greedy tokens,
+    kernels against the plain versions on the card."""
+    from rten_tpu_torch.models import decoder
+
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=384 // head_dim, d_model=384, d_ff=1024,
+                                max_seq=256, dtype=torch.float32)
+    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+    prompt = torch.tensor([[11, 42, 7, 300, 5, 9, 77]], dtype=torch.int32, device=dev)
+
+    def run():
+        cache = decoder.init_cache(cfg, 1, 64, device=dev)
+        logits, cache = decoder.prefill(params, cfg, prompt, cache)
+        toks, _ = decoder.generate_greedy(params, cfg, cache, logits[:, -1:].argmax(-1).to(torch.int32), 8)
+        return logits, toks
+
+    dispatch.reset_counters()
+    k_logits, k_toks = run()
+    kv = "decode_attention"
+    assert not dispatch.PLAIN and dispatch.LAUNCHES[f"flash_attention:d{head_dim}"] > 0
+    assert (dispatch.LAUNCHES[kv] > 0) == (head_dim == 32)
+    with _plain_decoder(decoder):
+        p_logits, p_toks = run()
+    _close(k_logits, p_logits, torch.float32)
+    assert k_toks.tolist() == p_toks.tolist()
+
+
+def test_entry_points_refuse_other_head_dims(dev, monkeypatch):
+    """A head dim a C entry point has no instance for launches nothing and
+    returns cudaErrorInvalidValue (the wrappers raise before it: their
+    checks are lifted here): the four KV kernels' launch and cluster-count
+    entries at 48, decode_block at 8, flash_attention at 320. The caches
+    are left as they were."""
+    from rten_tpu_torch.kernels import _build, attention
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    lib = _build.library()
+    for entry in ("rt_decode_attention_int8", "rt_paged_attention", "rt_paged_attention_int8"):
+        assert getattr(lib, entry + "_clusters")(1, 48, 0, 1) == -1
+    assert lib.rt_decode_attention_clusters(1, 48, 1, 0, 1) == -1
+    monkeypatch.setattr(da, "kv_head_dim_supported", lambda d: True)
+    monkeypatch.setattr(da, "kv_device_plan", lambda *a: 1)
+    for kind in ("no_wo", "int8"):
+        kernel, _plain, args, kw, n_cache = _engine_case(dev, kind, torch.bfloat16, 48, 1, [0, 5], cap=128)
+        before = _clone_args(args[1:])
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(args[1:], before))
+    monkeypatch.setattr(da, "BLOCK_HEAD_DIMS", (8,))
+    args, kw = _block_case(dev, torch.bfloat16, 8, 5, False)
+    kc = args[1].clone()
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        da.decode_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(args[1], kc)
+    monkeypatch.setattr(attention, "FLASH_HEAD_DIMS", (512,))
+    q = torch.randn(1, 2, 4, 320, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        flash_attention(q, q, q)

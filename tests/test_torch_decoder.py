@@ -238,8 +238,14 @@ def test_forward_rows_of_unequal_lengths(models, kind, t):
     length. A decode step (the decode kernels) and a 3-token forward (9 rows:
     the prefill structure) against ``jdec.forward`` on the same cache:
     logits, the caches' valid prefixes (int8: codes and scales) and lengths."""
-    jcfg, tcfg, jparams, tparams = models
     int8 = kind == "int8"
+    kv = ("decode_attention_int8" if int8 else "decode_attention") if t == 1 else "flash_attention"
+    _unequal_rows_check(*models, int8, t, kv)
+
+
+def _unequal_rows_check(jcfg, tcfg, jparams, tparams, int8: bool, t: int, kernel: str):
+    """``test_forward_rows_of_unequal_lengths`` on these models: one forward
+    of ``t`` tokens a row, ``kernel`` the plain version each layer runs."""
     if int8:
         jcfg = dataclasses.replace(jcfg, int8_kv=True)
     lens, s_max = [5, 12, 0], 64
@@ -249,8 +255,7 @@ def test_forward_rows_of_unequal_lengths(models, kind, t):
     jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tokens), jcache)
     dispatch.reset_counters()
     tlogits, tcache = tdec.forward(tparams, tcfg, torch.from_numpy(tokens), tcache)
-    expect = ("decode_attention_int8" if int8 else "decode_attention") if t == 1 else "flash_attention"
-    assert dispatch.PLAIN[expect] == tcfg.n_layers
+    assert dispatch.PLAIN[kernel] == tcfg.n_layers
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=LOGIT_ATOL, rtol=0)
     want = carry_cache(jcache, tcfg.head_dim)
     np.testing.assert_array_equal(tcache["len"].numpy(), np.array(lens) + t)
@@ -263,6 +268,49 @@ def test_forward_rows_of_unequal_lengths(models, kind, t):
                     np.testing.assert_array_equal(got, ref, err_msg=f"{key} {li} row {r}")
                 else:
                     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0, err_msg=f"{key} {li} row {r}")
+
+
+# Head dims beside SLICE_CFG's 64: 32 (8 heads; a KV kernel instance) and
+# 96 (4 heads over d_model 384; no KV kernel: a step takes flash_attention
+# at Tq 1, as the JAX decoder does at a head dim its decode kernels refuse).
+HEAD_DIM_CFGS = {32: dict(n_heads=8), 96: dict(n_heads=4, d_model=384)}
+
+
+@pytest.fixture(scope="module")
+def head_dim_models():
+    out = {}
+    for hd, kw in HEAD_DIM_CFGS.items():
+        jcfg, tcfg = configs(**kw)
+        jparams = jdec.quantize_params_int8(to_jax(dense_tree(0, **kw)), tile_bn=128)
+        out[hd] = (jcfg, tcfg, jparams, tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("head_dim", list(HEAD_DIM_CFGS))
+def test_head_dims_match_jax(head_dim_models, head_dim, kind):
+    """A decode step over rows of unequal lengths (as
+    ``test_forward_rows_of_unequal_lengths``) at head dims 32 and 96
+    against ``jdec.forward``: the KV kernels at 32, and at 96 the cache
+    append and ``flash_attention`` at Tq 1; then (f32) the greedy stream of
+    a prompt against JAX's ``generate_scan``."""
+    jcfg, tcfg, jparams, tparams = head_dim_models[head_dim]
+    assert tcfg.head_dim == head_dim
+    int8 = kind == "int8"
+    kv = ("decode_attention_int8" if int8 else "decode_attention") if head_dim == 32 else "flash_attention"
+    _unequal_rows_check(jcfg, tcfg, jparams, tparams, int8, 1, kv)
+    if int8:
+        return
+    prompt = np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 5)).astype(np.int32)
+    jcache = jdec.init_cache(jcfg, 2, 64)
+    jlogits, jcache = jdec.prefill(jparams, jcfg, jnp.asarray(prompt), jcache)
+    first = jnp.argmax(jlogits[:, -1:], axis=-1).astype(jnp.int32)
+    jtoks, _ = jdec.generate_scan(jparams, jcfg, jcache, first, jax.random.PRNGKey(0), n_steps=6)
+    tcache = tdec.init_cache(tcfg, 2, 64, device="cpu")
+    tfirst, tcache = tdec.prefill(tparams, tcfg, torch.from_numpy(prompt), tcache, lm_head_mode="argmax",
+                                  last_only=True)
+    ttoks, _ = tdec.generate_greedy(tparams, tcfg, tcache, tfirst, 6)
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["f32_pages", "int8_pages"])

@@ -7,8 +7,9 @@ Printed lines equal (numbers within 1e-4 relative / 1e-5 absolute), written
 PNGs equal but for at most 0.1% of pixels off by one code. Also: the apps'
 own functions against the JAX ones (trocr's ``_square_cfg`` and
 ``_encode_patches``, detr's ``_block``, ``common.resize_bilinear`` against
-``jax.image.resize``), and every one of the 13 ported apps' ``--demo
---cpu``."""
+``jax.image.resize``), and every ported app's ``--demo --cpu`` at the JAX
+demos' widths (``chip_smoke.DEMO_FLAGS``: the 13 of this file's kind,
+gpt2.py with and without ``--int8`` and bert_qa.py)."""
 
 import numpy as np
 import pytest
@@ -101,5 +102,5 @@ def test_resize_bilinear_matches_jax_image_resize(src, dst):
 def test_demo_on_cpu_exits_0(name):
     """Each ported app's --demo (seeded weights, the JAX package's
     tests/test_examples.py flags) runs on the CPU."""
-    rc, lines = run(port_app(name).main, ["--demo", "--cpu", *chip_smoke.DEMO_FLAGS[name]])
+    rc, lines = run(port_app(name.split(":")[0]).main, ["--demo", "--cpu", *chip_smoke.DEMO_FLAGS[name]])
     assert rc == 0 and lines

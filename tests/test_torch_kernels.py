@@ -24,6 +24,14 @@ from rten_tpu_torch.kernels.decode_attention import decode_attention
 ATOL = 1e-4
 
 
+def head_dim_params(cases, dims, keep=lambda values: True):
+    """Parameters of each case (a tuple of values with its id) at head dim
+    64, under the case's id, then of the cases ``keep`` selects at each of
+    ``dims`` under ``id-d<D>``: the head dim last among the values."""
+    return [pytest.param(*values, 64, id=name) for values, name in cases] + [
+        pytest.param(*values, d, id=f"{name}-d{d}") for d in dims for values, name in cases if keep(values)]
+
+
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a)).to(dtype)
 
@@ -251,7 +259,8 @@ def test_quant_matmul_hands_small_m_to_gemv(rng):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
-# (b, hq, hk, tq, s, causal, q_offset, kv_len): GPT-2's head dim 64 throughout.
+# (b, hq, hk, tq, s, causal, q_offset, kv_len), at GPT-2's head dim 64 and
+# at 16, 32 (instances of the CUDA kernel), 24 and 96 (run by it zero-filled).
 FLASH_CASES = {
     "causal": (2, 2, 2, 64, 128, True, None, None),
     "non_causal": (1, 2, 2, 40, 128, False, None, [97]),
@@ -262,10 +271,9 @@ FLASH_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(FLASH_CASES))
-def test_flash_attention_matches_pallas(rng, case):
+@pytest.mark.parametrize("case,d", head_dim_params([((c,), c) for c in FLASH_CASES], [16, 32, 24, 96]))
+def test_flash_attention_matches_pallas(rng, case, d):
     b, hq, hk, tq, s, causal, q_offset, kv_len = FLASH_CASES[case]
-    d = 64
     q = rng.standard_normal((b, hq, tq, d)).astype(np.float32) * 1.5
     k = rng.standard_normal((b, hk, s, d)).astype(np.float32) * 1.5
     v = rng.standard_normal((b, hk, s, d)).astype(np.float32)
@@ -672,15 +680,17 @@ def _ops(q, kn, vn):
     return _t(q[:, :, 0]), _t(kn[:, :, 0]), _t(vn[:, :, 0])
 
 
-@pytest.mark.parametrize("with_wo", [True, False], ids=["fused_wo", "no_wo"])
-@pytest.mark.parametrize("group", GROUPS)
-def test_decode_attention_gqa_matches_pallas(rng, group, with_wo):
+@pytest.mark.parametrize("group,with_wo,d", head_dim_params(
+    [((g, w), f"{g}-{'fused_wo' if w else 'no_wo'}") for w in (True, False) for g in GROUPS], [16, 32, 8],
+    keep=lambda values: values[0] != 2))
+def test_decode_attention_gqa_matches_pallas(rng, group, with_wo, d):
     """``decode_attention`` on unpacked operands with ``group`` query heads
     a kv head, rows at kv_len 0, 5 and 255: with the fused wo + bias +
     residual (the decode step of every RoPE / GQA model), and without it
-    (the attention vector of the unfused step); the caches in place."""
+    (the attention vector of the unfused step); the caches in place. Head
+    dims 64, 16, 32 and 8 (the JAX rule admits each at S 256)."""
     lens = np.array([0, 5, 255], np.int32)
-    b, hk, s_max, d, dm = len(lens), 2, 256, 64, 256
+    b, hk, s_max, dm = len(lens), 2, 256, 256
     hq = group * hk
     kc = rng.standard_normal((b, hk, s_max, d)).astype(np.float32) * 0.3
     vc = rng.standard_normal((b, hk, s_max, d)).astype(np.float32)
@@ -707,17 +717,21 @@ def test_decode_attention_gqa_matches_pallas(rng, group, with_wo):
     np.testing.assert_array_equal(v_cache.numpy(), np.asarray(ref_v).reshape(b, hk, s_max, d))
 
 
-@pytest.mark.parametrize("group", GROUPS)
-def test_decode_attention_int8_gqa_matches_pallas(rng, group):
+@pytest.mark.parametrize("group,d", head_dim_params([((g,), str(g)) for g in GROUPS], [32, 16],
+                                                    keep=lambda values: values[0] != 2))
+def test_decode_attention_int8_gqa_matches_pallas(rng, group, d):
     """``decode_attention_int8`` with ``group`` query heads a kv head: the
-    attention vector, and the codes and scales appended once per kv head."""
+    attention vector, and the codes and scales appended once per kv head.
+    Head dims 64, 32 and 16 at the S and block the JAX rule needs for each
+    (its scale tiles: block · D a multiple of 16384)."""
     from rten_tpu.kernels.decode_attention import decode_attention_int8 as jax_int8, pack_kv_scales
 
     from rten_tpu_torch.kernels.decode_attention import decode_attention_int8
     from torch_port_helpers import port_scales
 
-    lens = np.array([0, 100, 255], np.int32)
-    b, hk, s, d = len(lens), 2, 256, 64
+    s = 16384 // d if d < 64 else 256
+    lens = np.array([0, 100, s - 1], np.int32)
+    b, hk = len(lens), 2
     hq = group * hk
     kq, vq = (rng.integers(-127, 128, (b, hk, s, d)).astype(np.int8) for _ in range(2))
     ks, vs = (rng.uniform(0.005, 0.02, (b, hk, s)).astype(np.float32) for _ in range(2))
@@ -725,7 +739,7 @@ def test_decode_attention_int8_gqa_matches_pallas(rng, group):
     out, k2, v2, ks2, vs2 = jax_int8(
         jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), pack_kv_scales(jnp.asarray(ks[..., None]), d),
         pack_kv_scales(jnp.asarray(vs[..., None]), d), jnp.asarray(lens), jnp.asarray(kn), jnp.asarray(vn),
-        interpret=True,
+        block_s=min(s, 256 if d == 64 else s), interpret=True,
     )
     caches = [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs)]
     name = "decode_attention_int8" + ("" if group == 1 else ":gqa")
@@ -740,19 +754,42 @@ def test_decode_attention_int8_gqa_matches_pallas(rng, group):
     np.testing.assert_array_equal(caches[0][1, 0, 100, :6].numpy(), [127, 2, -4, 0, 2, 0])
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("group", GROUPS)
-def test_paged_attention_gqa_matches_pallas(rng, group, int8):
+def _paged_rows(rng, page: int, b: int = 5):
+    """(lens, table, n_pages): ``PAGED_LENS`` / ``PAGED_TABLE`` at pages
+    of 64; at other pages, rows at 0 (all scratch), page - 1, page, the
+    middle and the last position of at least 192 positions, their pages
+    scattered through the pool (the last page the scratch page)."""
+    if page == 64:
+        return np.array(PAGED_LENS, np.int32), np.array(PAGED_TABLE, np.int32), 12
+    cols = max(3, -(-192 // page))
+    cap = cols * page
+    table = rng.permutation(b * cols).astype(np.int32).reshape(b, cols)
+    table[0] = b * cols
+    return np.array([0, page - 1, page, cap // 2 + 5, cap - 1], np.int32), table, b * cols + 1
+
+
+# (group, int8, head dim, page): pages of 64 at head dim 64, and the JAX
+# rules' smallest pages at 64, 32 and 16 (pages of 16 at 64, 32 at 32), the
+# other head dims at MHA and Qwen2's group of 7.
+PAGED_GQA = [pytest.param(g, i, 64, 64, id=f"{g}-{'int8' if i else 'f32'}") for i in (False, True) for g in GROUPS] + [
+    pytest.param(g, i, d, page, id=f"{g}-{'int8' if i else 'f32'}-d{d}-page{page}")
+    for i, d, page in ((False, 64, 16), (False, 32, 32), (False, 16, 64), (True, 32, 128), (True, 16, 256))
+    for g in GROUPS if g != 2]
+
+
+@pytest.mark.parametrize("group,int8,d,page", PAGED_GQA)
+def test_paged_attention_gqa_matches_pallas(rng, group, int8, d, page):
     """``paged_decode_attention`` and its int8 twin with ``group`` query
-    heads a kv head over pages of 64 (``PAGED_TABLE``): the attention vector
-    and every page after the append."""
+    heads a kv head over pages of 64 (``PAGED_TABLE``) and the smallest
+    pages the JAX rules admit at head dims 64, 32 and 16: the attention
+    vector and every page after the append."""
     from rten_tpu.kernels import paged_attention as jpa
 
     from rten_tpu_torch.kernels import paged_attention as tpa
     from torch_port_helpers import jax_pages, jax_scale_tiles, port_pages, port_scale_pages
 
-    lens, table = np.array(PAGED_LENS, np.int32), np.array(PAGED_TABLE, np.int32)
-    b, hk, d, page, n_pages = len(lens), 2, 64, 64, 12
+    lens, table, n_pages = _paged_rows(rng, page)
+    b, hk = len(lens), 2
     hq = group * hk
     shape = (n_pages, hk, page, d)
     q, kn, vn = _gqa_tokens(rng, b, hq, hk, d)

@@ -176,6 +176,34 @@ def test_paged_engine_matches_jax(models, case, int8_kv):
     assert dispatch.PLAIN["paged_decode_attention_int8" if int8_kv else "paged_decode_attention"] > 0
 
 
+# Pages of 16 positions: PAGED_CASES' "basic" and "multi_page_prompt" with
+# four times as many pages, and a preempting pool of 3 pages for two rows
+# that each grow to 32 positions (2 pages).
+SMALL_PAGE_CASES = {
+    "basic": (dict(PAGED_CASES["basic"][0], n_pages=48), PAGED_CASES["basic"][1]),
+    "multi_page_prompt": (dict(PAGED_CASES["multi_page_prompt"][0], n_pages=16), PAGED_CASES["multi_page_prompt"][1]),
+    "preemption": (dict(max_batch=2, n_pages=3), [dict(prompt=_prompt(8 + i, 12), max_new_tokens=20) for i in range(2)]),
+}
+
+
+@pytest.mark.parametrize("case", list(SMALL_PAGE_CASES))
+def test_paged_engine_pages_of_16_matches_jax(models, case):
+    """Pages of 16 positions (the JAX rule's smallest at head dim 64: 16 ·
+    64 = 1024; a 64-position chunk spans four): the streams and the pool's
+    free pages of the JAX engine, and a preemption in the preempting case."""
+    jcfg, tcfg, jparams, tparams = models
+    kw, specs = SMALL_PAGE_CASES[case]
+    jeng = JPagedServingEngine(jparams, jcfg, page_size=16, seed=0, **kw)
+    jreqs = _serve(jeng, JRequest, specs)
+    engine = PagedServingEngine(tparams, tcfg, page_size=16, device="cpu", **kw)
+    dispatch.reset_counters()
+    treqs = _serve(engine, Request, specs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert engine.pool.n_free == engine.pool.n_pages == jeng.pool.n_free
+    assert (engine.preemptions > 0) == (case == "preemption")
+    assert dispatch.PLAIN["paged_decode_attention"] > 0
+
+
 @pytest.mark.parametrize("int8_kv", [False, True], ids=["f32_kv", "int8_kv"])
 def test_paged_engine_matches_slot_engine(models, int8_kv):
     """Paged against slot (int8 paged against int8 slot), the port alone."""
@@ -203,8 +231,8 @@ def test_engines_refuse_unported_options(models):
     with pytest.raises(ValueError, match="model axis only"):
         PagedServingEngine(tparams, tcfg, page_size=PAGE, mesh=types.SimpleNamespace(shape={"data": 2, "model": 1}),
                            device="cpu")
-    with pytest.raises(ValueError, match="page_size"):
-        PagedServingEngine(tparams, tcfg, page_size=96, device="cpu")
+    with pytest.raises(ValueError, match="page_size"):  # 24 · 64 is no multiple of 1024 (the JAX rule)
+        PagedServingEngine(tparams, tcfg, page_size=24, device="cpu")
     with pytest.raises(ValueError, match="max_batch"):
         PagedServingEngine(tparams, tcfg, max_batch=0, page_size=PAGE, device="cpu")
 

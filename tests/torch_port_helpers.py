@@ -19,21 +19,24 @@ from rten_tpu_torch.models import decoder as tdec
 SLICE_CFG = dict(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=1024, max_seq=256)
 
 
-def configs():
-    """(JAX config, port config) of the slice tests, in f32."""
+def configs(**kw):
+    """(JAX config, port config) of the slice tests, in f32, ``kw``
+    replacing fields of ``SLICE_CFG``."""
+    c = {**SLICE_CFG, **kw}
     return (
-        jdec.DecoderConfig(**SLICE_CFG, dtype=jnp.float32),
-        tdec.DecoderConfig(**SLICE_CFG, dtype=torch.float32),
+        jdec.DecoderConfig(**c, dtype=jnp.float32),
+        tdec.DecoderConfig(**c, dtype=torch.float32),
     )
 
 
-def dense_tree(seed: int = 0) -> dict:
+def dense_tree(seed: int = 0, **kw) -> dict:
     """Dense params as numpy arrays in the JAX package's tree layout, with
     random biases and norm parameters (the packages' own inits make them
     zeros and ones, which would leave those paths untested) and weights
-    large enough that greedy decoding has clear winners."""
+    large enough that greedy decoding has clear winners; ``kw`` replaces
+    fields of ``SLICE_CFG``."""
     rng = np.random.default_rng(seed)
-    c = SLICE_CFG
+    c = {**SLICE_CFG, **kw}
     d, ff, v = c["d_model"], c["d_ff"], c["vocab_size"]
 
     def w(*shape, scale=0.08):
