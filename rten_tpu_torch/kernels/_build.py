@@ -92,10 +92,10 @@ SIGNATURES = {
         _P, _I, _I, _I,              # x, x_bf16, m, k
         _P, _P, _P, _I,              # w_t, scales, bias, n
         _I, _P, _I,                  # act, out, out_bf16
-        _I, _I,                      # tok, split (quant_matmul.py matmul_plan)
+        _I, _I,                      # block, split (quant_matmul.py matmul_plan or f32_plan)
         _P,                          # stream
     ],
-    "rt_quant_matmul_clusters": [_I, _I],  # tok, split
+    "rt_quant_matmul_clusters": [_I, _I, _I],  # f32, block, split
     "rt_quantize_rows": [
         _P, _I, _I, _I,              # x, x_bf16, m, k
         _P, _P, _P,                  # codes, sx, stream

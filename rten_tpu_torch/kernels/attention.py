@@ -31,7 +31,8 @@ from rten_tpu_torch.kernels.quant_matmul import MAX_SPLIT, _sms, _stream, split_
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # Head dims the kernel has instances at (csrc/flash_attention.cu); a head
-# dim between them runs the next one up with its columns past d zero.
+# dim between them runs the next one up with its columns past d zero, and
+# a head dim above the last runs it in slices of that many output columns.
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 # Launch plan of the bf16 kernel (flash_mma_kernel): a block owns FB_ROWS
 # (query, head of the GQA group) rows, query major, and walks KV tiles of
@@ -39,17 +40,25 @@ FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 FB_ROWS, FB_KV = 64, 64
 
 
+def flash_slices(d: int) -> int:
+    """Output slices of ``FLASH_HEAD_DIMS[-1]`` columns a row tile of a
+    head dim ``d`` launch takes: one block each, every block computing the
+    scores over the whole d (1 up to the widest instance)."""
+    return max(1, -(-d // FLASH_HEAD_DIMS[-1]))
+
+
 @functools.lru_cache(maxsize=1024)
-def flash_plan(b: int, hq: int, hk: int, tq: int, s: int, sms: int) -> tuple[int, int]:
+def flash_plan(b: int, hq: int, hk: int, tq: int, s: int, sms: int, slices: int = 1) -> tuple[int, int]:
     """``(row_tiles, split)`` of one bf16 ``flash_attention`` launch on a
     card with ``sms`` SMs: the 64-row tiles of a kv head's Tq · (Hq / Hk)
     rows, and the split-KV cluster size (``split_for`` over the row tiles
-    of every kv head and batch row, at most the tiles of ``s`` positions).
-    The kernel divides the tiles the rows actually need (kv_len, q_offset:
-    on the device) among the ranks, rank r of ``split`` taking
-    ``[r n / split, (r + 1) n / split)`` of n tiles."""
+    of every kv head, batch row and output slice (``flash_slices``), at
+    most the tiles of ``s`` positions). The kernel divides the tiles the
+    rows actually need (kv_len, q_offset: on the device) among the ranks,
+    rank r of ``split`` taking ``[r n / split, (r + 1) n / split)`` of n
+    tiles."""
     row_tiles = -(-tq * (hq // hk) // FB_ROWS)
-    return row_tiles, split_for(row_tiles * hk * b, -(-s // FB_KV), sms)
+    return row_tiles, split_for(row_tiles * hk * b * slices, -(-s // FB_KV), sms)
 
 
 # The decode attention engine (csrc/kv_attention.cuh): a cluster of C
@@ -152,9 +161,10 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     host that no row's prefix reaches past n passes ``k[:, :, :n]``.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, any head
-    dim up to 256: instances at ``FLASH_HEAD_DIMS``, a head dim between them
-    on the next one up; bf16 on the tensor cores, split over the KV axis
-    across a cluster by ``flash_plan``, such a launch also counted under
+    dim: instances at ``FLASH_HEAD_DIMS``, a head dim between them on the
+    next one up, a head dim above 256 on the 256 one in ``flash_slices``
+    output slices; bf16 on the tensor cores, split over the KV axis across
+    a cluster by ``flash_plan``, such a launch also counted under
     ``flash_attention:split_kv``, and a head dim other than 64 and 128 also
     under ``flash_attention:d<D>``); CPU tensors run ``flash_attention_ref``."""
     b, hq, tq, d, hk, s = _shapes(q, k, v)
@@ -167,15 +177,12 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     if dtype not in (torch.float32, torch.bfloat16) or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d > FLASH_HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention: head dim {d} is above {FLASH_HEAD_DIMS[-1]}, the widest kernel instance "
-                         "(the JAX kernel, rten_tpu/kernels/attention.py:117 flash_attention, takes any)")
     for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
         if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
             raise ValueError(f"flash_attention: {name} must be a contiguous int32 [B] tensor")
     out = torch.empty((b, tq, hq, d), dtype=dtype, device=q.device).transpose(1, 2)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
-    split = flash_plan(b, hq, hk, tq, s, _sms(q))[1] if dtype == torch.bfloat16 else 1
+    split = flash_plan(b, hq, hk, tq, s, _sms(q), flash_slices(d))[1] if dtype == torch.bfloat16 else 1
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), *_strides(q, "q"), k.data_ptr(), *_strides(k, "k"),
         v.data_ptr(), *_strides(v, "v"), out.data_ptr(), *_strides(out, "out"),

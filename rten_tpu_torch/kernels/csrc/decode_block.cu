@@ -97,12 +97,27 @@
 //     dimension (cudaLaunchKernelEx with both attributes; PERF.md), but the
 //     combine needs every item's state in every block, which no cluster
 //     spans: it goes through L2.
+// Head dims: instances at 16, 32, 64 and 128 (the cache rows whole 16-byte
+// bulk copies in either dtype). Head dims 8, 4, 2 and 1, which the JAX mega
+// rule admits too (every divisor of 128), run the 16 instance with narrow
+// rows: every thread of the block stages an item's rows (d elements each)
+// into the stage's 16-wide rows in pieces of `gran` bytes (16, 8, 4, 2 or
+// 1: the largest that divides d's bytes and every operand's address;
+// cp.async from 4 bytes up, plain loads below, hopper.cuh copy_piece),
+// the columns past d zero, so the scores and P.V run on 16 columns of
+// which those past d add nothing; the items' states stay 16 + 4 floats a
+// head, and the combine writes only each head's d outputs into wo's
+// operand row (K = Hq d). The double-buffered item stages then wait on
+// cp.async groups instead of an mbarrier. The score scale is the caller's
+// 1 / sqrt(d).
 // Data that other blocks wrote in an earlier phase is read with __ldcg
 // (L2), never through the read-only path. A grid that cannot be co-resident
 // is refused by the launch (cudaErrorCooperativeLaunchTooLarge); nothing
 // falls back.
 
 #include <cooperative_groups.h>
+
+#include <initializer_list>
 
 #include "hopper.cuh"
 
@@ -140,6 +155,8 @@ struct BlockArgs {
   const int* kv_len;   // [1], the valid length before this token
   int hq, hk, cap, nc;  // nc: chunks of cap
   int tiles;           // head tiles of a group: ceil(group / DB_GT)
+  int dh;              // the head dim: the instance's D, or 8, 4, 2 or 1 on the 16 one (narrow rows)
+  int gran;            // bytes of a piece of a narrow row (a power of two up to 16)
   float sm_scale;
   float* part;         // [hq, nc, d + 4]: each item's per-head P.V, max and sum (state_floats)
   // The GEMV phases and their epilogues.
@@ -319,6 +336,48 @@ __device__ __forceinline__ void issue_item(const BlockArgs& a, int it, unsigned 
   bulk_g2s(stage + A::kn(gtile) + A::ROW, static_cast<const T*>(a.v_new) + (size_t)m.h * D, A::ROW, bar);
 }
 
+// An item into a stage by every thread of the block, for narrow rows (head
+// dims under 16 on the 16 instance): the same rows as issue_item, each of
+// d elements into a stage row of D, in pieces of a.gran bytes, the pieces
+// past d zero; cp.async in the caller's commit group (2- and 1-byte pieces
+// by plain loads).
+template <typename T, int D>
+__device__ __forceinline__ void issue_item_narrow(const BlockArgs& a, int it, unsigned char* stage) {
+  using A = DbAtt<T, D>;
+  const DbItem m = item_at(a, it);
+  const int gtile = min(DB_GT, a.hq / a.hk);
+  const int rows = min(DB_CHUNK, a.cap - m.c * DB_CHUNK);
+  const int dh = a.dh, pe = a.gran / (int)sizeof(T), ppr = D / pe;  // pieces a stage row
+  const size_t row0 = (size_t)m.h * a.cap + (size_t)m.c * DB_CHUNK;
+  const size_t q0 = (size_t)m.h * (a.hq / a.hk) + m.g0;
+  T* kt = reinterpret_cast<T*>(stage);
+  T* vt = reinterpret_cast<T*>(stage + A::TILE);
+  T* qt = reinterpret_cast<T*>(stage + A::q(gtile));
+  T* nt = reinterpret_cast<T*>(stage + A::kn(gtile));
+  const int total = (2 * rows + m.gt + 2) * ppr;
+  for (int p = threadIdx.x; p < total; p += DB_THREADS) {
+    const int r = p / ppr, e = (p - r * ppr) * pe;
+    const T* src;
+    T* dst;
+    if (r < rows) {
+      src = static_cast<const T*>(a.k) + (row0 + r) * dh;
+      dst = kt + r * D;
+    } else if (r < 2 * rows) {
+      src = static_cast<const T*>(a.v) + (row0 + r - rows) * dh;
+      dst = vt + (r - rows) * D;
+    } else if (r < 2 * rows + m.gt) {
+      src = static_cast<const T*>(a.q) + (q0 + r - 2 * rows) * dh;
+      dst = qt + (r - 2 * rows) * D;
+    } else {
+      const int j = r - 2 * rows - m.gt;  // 0: k_new, 1: v_new
+      src = static_cast<const T*>(j ? a.v_new : a.k_new) + (size_t)m.h * dh;
+      dst = nt + j * D;
+    }
+    const bool ok = e < dh;
+    copy_piece(dst + e, ok ? src + e : src, ok, a.gran);
+  }
+}
+
 // One attention item whose stage has landed: the append (tile 0 of the
 // chunk that holds kv_len), the tile's scores, softmax statistics and P.V,
 // written to the f32 scratch.
@@ -341,13 +400,15 @@ __device__ __forceinline__ void attend_item(const BlockArgs& a, int it, int len,
   float* mls = reinterpret_cast<float*>(uni + A::ml(gtile));
   float* pv = reinterpret_cast<float*>(uni + A::pv(gtile));
 
-  const int t_new = len - start;
+  const int t_new = len - start, dh = D == 16 ? a.dh : D;
   if (t_new < DB_CHUNK && tid < 2 * D) {  // the new token: into the cache once per kv head, and the stage
     const bool is_v = tid >= D;
     const int e = is_v ? tid - D : tid;
-    const T val = nt[tid];
-    if (m.t == 0) static_cast<T*>(is_v ? a.v : a.k)[((size_t)m.h * a.cap + len) * D + e] = val;
-    (is_v ? vt : kt)[t_new * D + e] = val;
+    if (e < dh) {
+      const T val = nt[tid];
+      if (m.t == 0) static_cast<T*>(is_v ? a.v : a.k)[((size_t)m.h * a.cap + len) * dh + e] = val;
+      (is_v ? vt : kt)[t_new * D + e] = val;
+    }
   }
   __syncthreads();
 
@@ -441,7 +502,8 @@ __device__ __forceinline__ void attend_item(const BlockArgs& a, int it, int len,
 }
 
 // The attention vector of every head, combined from the items' states,
-// into the dot operand row of wo (f32, permuted): NaN for a row with no
+// into the dot operand row of wo (f32, permuted; each head's d = dh
+// outputs, the state's columns past d dropped): NaN for a row with no
 // room. The states are read straight from L2, so the shared memory the
 // combine needs does not grow with the cache: a warp a head takes its
 // chunks' maximum M and 1 / den, den = sum_c exp(m_c - M) l_c (lane l:
@@ -452,7 +514,11 @@ __device__ __forceinline__ void attend_item(const BlockArgs& a, int it, int len,
 template <int D>
 __device__ __forceinline__ void combine_into(const BlockArgs& a, int len, float* xs, float* ml) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k = a.hq * D, kc = k >> 4, nv = k >> 2, sf = state_floats(D);
+  const int dh = D == 16 ? a.dh : D, lg = __ffs(dh) - 1;
+  // A thread takes four outputs of one head (d >= 4), else one.
+  const bool vec = dh >= 4;
+  const int per = vec ? 4 : 1;
+  const int k = a.hq * dh, kc = k >> 4, nv = k / per, sf = state_floats(D);
   if (len < 0 || len >= a.cap) {
     for (int e = tid; e < k; e += DB_THREADS) xs[perm_index(e, kc)] = NAN;
     __syncthreads();
@@ -462,13 +528,13 @@ __device__ __forceinline__ void combine_into(const BlockArgs& a, int len, float*
   const auto state = [&](int g, int c) { return a.part + ((size_t)g * a.nc + c) * sf; };
   float4 pv[DB_CB];
   float mc[DB_CB];
-  const auto fetch = [&](int v, int c0) {  // thread v's four outputs of chunks c0 .. c0 + DB_CB - 1
-    const int g = 4 * v / D, e = 4 * v - g * D;
+  const auto fetch = [&](int v, int c0) {  // thread v's outputs of chunks c0 .. c0 + DB_CB - 1
+    const int g = (per * v) >> lg, e = per * v - (g << lg);
 #pragma unroll
     for (int u = 0; u < DB_CB; ++u) {
       if (c0 + u < nch) {
         const float* st = state(g, c0 + u);
-        pv[u] = __ldcg(reinterpret_cast<const float4*>(st + e));
+        pv[u] = vec ? __ldcg(reinterpret_cast<const float4*>(st + e)) : make_float4(__ldcg(st + e), 0.f, 0.f, 0.f);
         mc[u] = __ldcg(st + D);
       }
     }
@@ -494,7 +560,7 @@ __device__ __forceinline__ void combine_into(const BlockArgs& a, int len, float*
   __syncthreads();
   float4* x4 = reinterpret_cast<float4*>(xs);
   for (int v = tid; v < nv; v += DB_THREADS) {
-    const int g = 4 * v / D;
+    const int g = (per * v) >> lg;
     const float mx = ml[2 * g], inv = ml[2 * g + 1];
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int c0 = 0; c0 < nch; c0 += DB_CB) {
@@ -510,7 +576,11 @@ __device__ __forceinline__ void combine_into(const BlockArgs& a, int len, float*
         }
       }
     }
-    x4[perm_index(4 * v, kc) >> 2] = num;
+    if (vec) {
+      x4[perm_index(4 * v, kc) >> 2] = num;
+    } else {
+      xs[perm_index(v, kc)] = num.x;
+    }
   }
   __syncthreads();
 }
@@ -711,6 +781,9 @@ __global__ void __launch_bounds__(DB_THREADS, 1) decode_block_kernel(BlockArgs a
   cg::grid_group grid_g = cg::this_grid();
   const int grid = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
   const int stage_bytes = A::stage(min(DB_GT, a.hq / a.hk));
+  // Narrow rows: the item stages filled by every thread (issue_item_narrow),
+  // one cp.async group an item, instead of one thread's bulk copies.
+  const bool narrow = D == 16 && a.dh < 16;
   // The measurement build (TIMED) has thread 0 of each block record the
   // %globaltimer into a.stamps at: 0 entry; 1 its first item landed; 2 the
   // attention done; then for each GEMV phase q = 0..3 (wo, up, down, next
@@ -737,7 +810,7 @@ __global__ void __launch_bounds__(DB_THREADS, 1) decode_block_kernel(BlockArgs a
   if (tid == 0) {
     for (int i = 0; i < DB_MAX_SEG + 2; ++i) mbar_init(&bars[i], 1);
     mbar_init_fence();
-    if (spec) issue_item<T, D>(a, first, uni, &bars[DB_MAX_SEG]);
+    if (spec && !narrow) issue_item<T, D>(a, first, uni, &bars[DB_MAX_SEG]);
     int j = 0, p_next = 0;
     block_segments(a, blk, grid, [&](const DbSeg& s) {
       while (p_next <= s.p) seg_lo[p_next++] = j;
@@ -747,24 +820,45 @@ __global__ void __launch_bounds__(DB_THREADS, 1) decode_block_kernel(BlockArgs a
     issue_wave(a, segs, j, 0, region, bars);
   }
   int cur_wave = 0;
+  if (narrow) {
+    if (spec) issue_item_narrow<T, D>(a, first, uni);
+    cp_async_commit();
+  }
 
   // Phase 1: the attention items.
   const int len = a.kv_len[0];
   const int items = (len >= 0 && len < a.cap) ? (len + DB_CHUNK) / DB_CHUNK * per_chunk : 0;
   __syncthreads();  // the barriers and the run table are ready
   Ep ep = ep_prefetch(a, 0, segs, seg_lo, BF);
-  if (tid == 0 && first + grid < items) issue_item<T, D>(a, first + grid, uni + stage_bytes, &bars[DB_MAX_SEG + 1]);
+  if (narrow) {
+    if (first + grid < items) issue_item_narrow<T, D>(a, first + grid, uni + stage_bytes);
+    cp_async_commit();
+  } else if (tid == 0 && first + grid < items) {
+    issue_item<T, D>(a, first + grid, uni + stage_bytes, &bars[DB_MAX_SEG + 1]);
+  }
   int n = 0;
   for (int it = first; it < items; it += grid, ++n) {
-    mbar_wait(&bars[DB_MAX_SEG + (n & 1)], (n >> 1) & 1);
+    if (narrow) {
+      cp_async_wait<1>();  // this thread's pieces of item n (the next item's group may be in flight) ...
+      __syncthreads();     // ... and everyone's
+    } else {
+      mbar_wait(&bars[DB_MAX_SEG + (n & 1)], (n >> 1) & 1);
+    }
     if (n == 0) mark(1);
     attend_item<T, D>(a, it, len, uni, uni + (n & 1) * stage_bytes);
-    if (tid == 0 && it + 2 * grid < items) {
+    if (narrow) {
+      if (it + 2 * grid < items) issue_item_narrow<T, D>(a, it + 2 * grid, uni + (n & 1) * stage_bytes);
+      cp_async_commit();
+    } else if (tid == 0 && it + 2 * grid < items) {
       fence_proxy_async();
       issue_item<T, D>(a, it + 2 * grid, uni + (n & 1) * stage_bytes, &bars[DB_MAX_SEG + (n & 1)]);
     }
   }
-  if (spec && first >= items) mbar_wait(&bars[DB_MAX_SEG], 0);  // a first item past the row: let it land
+  if (narrow) {
+    cp_async_wait<0>();  // a first item past the row: let it land
+  } else if (spec && first >= items) {
+    mbar_wait(&bars[DB_MAX_SEG], 0);  // a first item past the row: let it land
+  }
   const int dm = a.ph[0].n;
   NormPre norm = norm_prefetch(a.ln2_scale, a.ln2_bias, dm);
   mark(2);
@@ -772,7 +866,7 @@ __global__ void __launch_bounds__(DB_THREADS, 1) decode_block_kernel(BlockArgs a
   mark(3);
 
   // Phase 2: the combine into wo's operand; h = attn @ W_o * s + b + residual (f32).
-  combine_into<D>(a, len, xs, xs + a.hq * D);
+  combine_into<D>(a, len, xs, xs + a.ph[0].k);
   mark(4);
   gemv_phase(a, 0, BF, ep, xs, part, segs, seg_lo, region, bars, cur_wave, timed, stamp[5],
              [&](int col, float acc, const Ep& e) { a.h_buf[col] = acc * e.s + e.b + e.r; });
@@ -831,10 +925,10 @@ cudaError_t launch_block(BlockArgs& a, int grid, size_t smem, cudaStream_t st) {
                                      dim3(DB_THREADS), args, smem, st);
 }
 
-// The head dims decode_block is built for: 16, 32, 64 and 128 (of the
-// divisors of 128 that the JAX mega rule admits, those whose rows are whole
-// 16-byte bulk copies in either dtype).
-bool block_dim_ok(int d) { return d == 16 || d == 32 || d == 64 || d == 128; }
+// The head dims decode_block takes: every divisor of 128, as the JAX mega
+// rule admits (instances at 16, 32, 64 and 128; 8, 4, 2 and 1 on the 16
+// one with narrow rows).
+bool block_dim_ok(int d) { return d >= 1 && d <= 128 && 128 % d == 0; }
 
 // f(T{}, integral_constant<D>) for the instance of (dtype, head dim d), or
 // `refused` for a head dim it is not built for (nothing launched).
@@ -842,6 +936,10 @@ template <typename R, typename F>
 R with_block_dim(int bf16, int d, R refused, const F& f) {
   const auto as = [&](auto dd) -> R { return bf16 ? f(__nv_bfloat16{}, dd) : f(0.f, dd); };
   switch (d) {
+    case 1:
+    case 2:
+    case 4:
+    case 8:
     case 16: return as(std::integral_constant<int, 16>{});
     case 32: return as(std::integral_constant<int, 32>{});
     case 64: return as(std::integral_constant<int, 64>{});
@@ -873,7 +971,16 @@ extern "C" int rt_decode_block(
     float sm_scale, int grid, int region, long long* stamps, void* stream) {
   using namespace rt;
   const auto mis = [](const void* p) { return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0; };
-  if (mis(q) || mis(k_new) || mis(v_new) || mis(k_cache) || mis(v_cache) || mis(part) || hq < 1 || hk < 1 ||
+  // Narrow rows (d < 16) are read in pieces of the largest size that divides
+  // d's bytes and every row operand's address; wider rows by bulk copies
+  // from 16-byte aligned operands.
+  const bool narrow = d < 16;
+  unsigned long long bits = 16 | (unsigned long long)(d * (bf16 ? 2 : 4));
+  for (const void* p : {q, k_new, v_new, static_cast<const void*>(k_cache), static_cast<const void*>(v_cache)}) {
+    bits |= reinterpret_cast<uintptr_t>(p);
+  }
+  const bool rows_mis = !narrow && (mis(q) || mis(k_new) || mis(v_new) || mis(k_cache) || mis(v_cache));
+  if (rows_mis || mis(part) || hq < 1 || hk < 1 ||
       hq % hk || s_max < 1 || n_chunks * DB_CHUNK < s_max || (norm != 1 && norm != 2) || !block_dim_ok(d) ||
       grid < 1 || dm % 16 || dm > DB_MAX_DM || ff % 16 || mis(ln2_scale) || mis(ln2_bias) || mis(next_scale) ||
       mis(next_bias) || mis(h_buf) || mis(u_buf) || mis(out_f32)) {
@@ -893,6 +1000,8 @@ extern "C" int rt_decode_block(
   a.sm_scale = sm_scale;
   a.part = part;
   a.tiles = (hq / hk + DB_GT - 1) / DB_GT;
+  a.dh = d;
+  a.gran = static_cast<int>(bits & (~bits + 1));
   a.ph[0] = DbPhase{wo_t, wo_scales, wo_bias, dm, hq * d};
   a.ph[1] = DbPhase{w_up_t, s_up, b_up, ff, dm};
   a.ph[2] = DbPhase{w_down_t, s_down, b_down, dm, ff};

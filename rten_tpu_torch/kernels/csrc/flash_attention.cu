@@ -76,7 +76,20 @@
 // size (16, 8, 4 or 2 bytes) that divides every row start and d's bytes
 // (`gran`), by cp.async (bf16; a 2-byte piece by a plain load) or by 16-byte
 // or scalar loads (f32), so a view whose rows are not 16-byte aligned is
-// read as it is. Above 256 the entry point refuses d.
+// read as it is.
+//
+// Above 256 (the JAX kernel takes d as one block, whatever it is) the 256
+// instance's WIDE build cuts d into C = ceil(d / 256) column chunks, and a block owns one
+// output slice of 256 columns (chunk `slice`; grid x counts row tiles times
+// C). For each KV tile it sums the scores over all C chunks of q and k into
+// the same f32 scores, then runs the softmax and P.V on its own slice of v,
+// whose columns past d are zero as above. The f32 kernel stages chunk after
+// chunk behind its barriers; the bf16 kernel makes each KV tile C + 1 steps
+// of its ring (q chunk and k chunk, ..., then v's slice), q no longer
+// resident. So each of the C blocks of a row tile computes the whole q . k
+// again: the scores cost C times the operations of one pass (d 512: the
+// products take 1.5 times those of a single block), and the shared memory
+// stays that of the 256 instance (bf16 168,960 bytes, f32 214,016).
 
 #include <cooperative_groups.h>
 
@@ -145,7 +158,8 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <int D>
+// WIDE: a head dim above D (the 256 instance only), in column chunks.
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   constexpr int LD = D + 1, LP = FA_BK + 1, DJ = D / 16;
   extern __shared__ float4 fa_smem[];
@@ -154,7 +168,11 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   float* vs = ks + FA_BK * LD;                    // [BK][LD]
   float* ps = vs + FA_BK * LD;                    // [BQ][LP]
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // WIDE: C column chunks, this block's output slice.
+  const int n_chunks = WIDE ? (a.d + D - 1) / D : 1;
+  const int qt = blockIdx.x / n_chunks, slice = blockIdx.x - qt * n_chunks;
+  const int col0 = slice * D, d_out = min(D, a.d - col0);
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.hq / a.hk);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = qt * FA_BQ;
@@ -169,7 +187,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
   const bool vec = a.gran == 16;
-  stage_tile<D>(qs, qp, a.q_st, q0, min(FA_BQ, a.tq - q0), a.d, vec);
+  const int nq = min(FA_BQ, a.tq - q0);
+  if (n_chunks == 1) stage_tile<D>(qs, qp, a.q_st, q0, nq, a.d, vec);
 
   float m_i[4], l_i[4], acc[4][DJ];
 #pragma unroll
@@ -181,28 +200,31 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * FA_BK;
-    __syncthreads();  // the previous tile's readers (and the q staging) are done
-    stage_tile<D>(ks, kp, a.k_ss, c0, min(FA_BK, kv_len - c0), a.d, vec);
-    stage_tile<D>(vs, vp, a.v_ss, c0, min(FA_BK, kv_len - c0), a.d, vec);
-    __syncthreads();
-
+    const int c0 = t * FA_BK, nk = min(FA_BK, kv_len - c0);
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {  // one pass below 257 columns
+      const int cc = ch * D, dc = min(D, a.d - cc);
+      __syncthreads();  // the previous chunk's or tile's readers (and the q staging) are done
+      if (n_chunks > 1) stage_tile<D>(qs, qp + cc, a.q_st, q0, nq, dc, vec);
+      stage_tile<D>(ks, kp + cc, a.k_ss, c0, nk, dc, vec);
+      if (ch == n_chunks - 1) stage_tile<D>(vs, vp + col0, a.v_ss, c0, nk, d_out, vec);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int d = 0; d < D; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
+        for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
+        for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -246,7 +268,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
     }
   }
 
-  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh + col0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -254,19 +276,20 @@ __global__ void __launch_bounds__(FA_THREADS) flash_kernel(FlashArgs a) {
     const float inv = l_i[i] == 0.f ? 1.f : 1.f / l_i[i];
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      if (tx + 16 * j < a.d) op[r * a.o_st + tx + 16 * j] = acc[i][j] * inv;
+      if (tx + 16 * j < d_out) op[r * a.o_st + tx + 16 * j] = acc[i][j] * inv;
     }
   }
 }
 
-template <int D>
+template <int D, bool WIDE>
 cudaError_t launch_flash(const FlashArgs& a, int b, cudaStream_t st) {
   constexpr size_t smem = (3 * FA_BQ * (D + 1) + FA_BQ * (FA_BK + 1)) * sizeof(float);
   static bool smem_allowed = false;
-  const cudaError_t e = allow_smem(flash_kernel<D>, smem, smem_allowed);
+  const cudaError_t e = allow_smem(flash_kernel<D, WIDE>, smem, smem_allowed);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.tq + FA_BQ - 1) / FA_BQ, a.hq, b);
-  flash_kernel<D><<<grid, FA_THREADS, smem, st>>>(a);
+  const int slices = WIDE ? (a.d + D - 1) / D : 1;
+  const dim3 grid((a.tq + FA_BQ - 1) / FA_BQ * slices, a.hq, b);
+  flash_kernel<D, WIDE><<<grid, FA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -299,7 +322,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 __host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
 
-template <int D>
+template <int D, bool WIDE>
 __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
   using L = FbLayout<D>;
   constexpr int LD = L::LD;
@@ -312,7 +335,13 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
   const int rank = static_cast<int>(cluster.block_rank());
   const int hkv = blockIdx.y, b = blockIdx.z;
   const int group = a.hq / a.hk, rows = a.tq * group;
-  const int r0 = (blockIdx.x / n_split) * FB_ROWS;  // packed row r = query r / group, head r % group
+  // WIDE: C column chunks; a KV tile is C + 1 ring steps (q and k chunk c
+  // at step c, v's slice at step C), else one.
+  const int n_chunks = WIDE ? (a.d + D - 1) / D : 1;
+  const int spt = n_chunks == 1 ? 1 : n_chunks + 1;
+  const int tile_slice = blockIdx.x / n_split, rt = tile_slice / n_chunks;
+  const int col0 = (tile_slice - rt * n_chunks) * D, d_out = min(D, a.d - col0);
+  const int r0 = rt * FB_ROWS;  // packed row r = query r / group, head r % group
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, mat = lane >> 3, r8 = lane & 7;
 
@@ -330,43 +359,65 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
 
   // A row's D * 2 bytes in pieces of a.gran: piece c of the tile is row
   // c >> lp, elements [e, e + pe) with e = (c & (pieces - 1)) * pe, read
-  // where e < d (gran divides d's bytes, so a piece is all in or all out).
+  // where cc + e < d (columns from cc on; gran divides d's bytes and cc is
+  // a multiple of 256, so a piece is all in or all out).
   const int gr = a.gran, pe = gr / 2, lp = ilog2(D * 2) - (__ffs(gr) - 1);
-  for (int c = tid; c < FB_ROWS << lp; c += FB_THREADS) {
-    const int r = c >> lp, e = (c & ((1 << lp) - 1)) * pe, pr = r0 + r;
-    const bool ok = pr < rows && e < a.d;
-    const __nv_bfloat16* src =
-        ok ? qp + (hkv * group + pr % group) * a.q_sh + (long long)(pr / group) * a.q_st + e : qp;
-    copy_piece(qs + r * LD + e, src, ok, gr);
-  }
-  cp_async_commit();
-  auto load_kv = [&](int tile, int stage) {
-    const int c0 = tile * FB_KV;
-    __nv_bfloat16* ks = ring + 2 * stage * L::TILE;
-    __nv_bfloat16* vs = ks + L::TILE;
-    for (int c = tid; c < FB_KV << lp; c += FB_THREADS) {
-      const int r = c >> lp, e = (c & ((1 << lp) - 1)) * pe;
-      const bool ok = c0 + r < kv_len && e < a.d;
-      const long long pos = ok ? c0 + r : 0;
-      copy_piece(ks + r * LD + e, kp + pos * a.k_ss + (ok ? e : 0), ok, gr);
-      copy_piece(vs + r * LD + e, vp + pos * a.v_ss + (ok ? e : 0), ok, gr);
+  const auto q_rows = [&](__nv_bfloat16* dst, int cc) {
+    for (int c = tid; c < FB_ROWS << lp; c += FB_THREADS) {
+      const int r = c >> lp, e = (c & ((1 << lp) - 1)) * pe, pr = r0 + r;
+      const bool ok = pr < rows && cc + e < a.d;
+      const __nv_bfloat16* src =
+          ok ? qp + (hkv * group + pr % group) * a.q_sh + (long long)(pr / group) * a.q_st + cc + e : qp;
+      copy_piece(dst + r * LD + e, src, ok, gr);
     }
   };
+  // Positions c0 .. c0 + 63 of k or v (columns from cc on) into dst.
+  const auto kv_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* base, long long stride, int c0, int cc) {
+    for (int c = tid; c < FB_KV << lp; c += FB_THREADS) {
+      const int r = c >> lp, e = (c & ((1 << lp) - 1)) * pe;
+      const bool ok = c0 + r < kv_len && cc + e < a.d;
+      copy_piece(dst + r * LD + e, ok ? base + (c0 + r) * stride + cc + e : base, ok, gr);
+    }
+  };
+  if (n_chunks == 1) q_rows(qs, 0);
+  cp_async_commit();
+  // Ring step u: KV tile t_begin + u / spt; one step a tile: its K and V;
+  // else q and k chunk c (q in the stage's second tile) or, at c = C, v's slice.
+  auto load_step = [&](int u, int stage) {
+    const int i = u / spt, c = u - i * spt, c0 = (t_begin + i) * FB_KV;
+    __nv_bfloat16* s0 = ring + 2 * stage * L::TILE;
+    __nv_bfloat16* s1 = s0 + L::TILE;
+    if (spt == 1) {
+      for (int p = tid; p < FB_KV << lp; p += FB_THREADS) {
+        const int r = p >> lp, e = (p & ((1 << lp) - 1)) * pe;
+        const bool ok = c0 + r < kv_len && e < a.d;
+        const long long pos = ok ? c0 + r : 0;
+        copy_piece(s0 + r * LD + e, kp + pos * a.k_ss + (ok ? e : 0), ok, gr);
+        copy_piece(s1 + r * LD + e, vp + pos * a.v_ss + (ok ? e : 0), ok, gr);
+      }
+    } else if (c < n_chunks) {
+      kv_rows(s0, kp, a.k_ss, c0, c * D);
+      q_rows(s1, c * D);
+    } else {
+      kv_rows(s0, vp, a.v_ss, c0, col0);
+    }
+  };
+  const int n_steps = n_mine * spt;
 #pragma unroll
   for (int s = 0; s < L::STAGES - 1; ++s) {
-    if (s < n_mine) load_kv(t_begin + s, s);
+    if (s < n_steps) load_step(s, s);
     cp_async_commit();
   }
   cp_async_wait<L::STAGES - 1>();  // the Q group
   __syncthreads();
 
   uint32_t qf[L::QREG ? D / 16 : 1][4];
-  const auto q_frag = [&](int kk, uint32_t (&f)[4]) {
-    ldmatrix_x4(f, qs + (warp * 16 + r8 + (mat & 1) * 8) * LD + kk * 16 + (mat >> 1) * 8);
+  const auto q_frag = [&](const __nv_bfloat16* qt, int kk, uint32_t (&f)[4]) {
+    ldmatrix_x4(f, qt + (warp * 16 + r8 + (mat & 1) * 8) * LD + kk * 16 + (mat >> 1) * 8);
   };
   if constexpr (L::QREG) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) q_frag(kk, qf[kk]);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag(qs, kk, qf[kk]);
   }
   // This thread's rows: warp * 16 + g and + 8; their queries' absolute positions.
   const int lr0 = warp * 16 + g;
@@ -378,32 +429,40 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  for (int i = 0; i < n_mine; ++i) {
-    cp_async_wait<L::STAGES - 2>();  // tile i has landed (this thread's copies) ...
-    __syncthreads();                 // ... everyone's, and tile i - 1's stage is free
-    if (i + L::STAGES - 1 < n_mine) load_kv(t_begin + i + L::STAGES - 1, (i + L::STAGES - 1) % L::STAGES);
+  float s[8][4];
+  for (int u = 0; u < n_steps; ++u) {
+    cp_async_wait<L::STAGES - 2>();  // step u has landed (this thread's copies) ...
+    __syncthreads();                 // ... everyone's, and step u - 1's stage is free
+    if (u + L::STAGES - 1 < n_steps) load_step(u + L::STAGES - 1, (u + L::STAGES - 1) % L::STAGES);
     cp_async_commit();
-    const __nv_bfloat16* ks = ring + 2 * (i % L::STAGES) * L::TILE;
-    const __nv_bfloat16* vs = ks + L::TILE;
-    const int c0 = (t_begin + i) * FB_KV;
+    const int i = u / spt, c = u - i * spt;
+    const __nv_bfloat16* st0 = ring + 2 * (u % L::STAGES) * L::TILE;
+    const __nv_bfloat16* st1 = st0 + L::TILE;
 
-    float s[8][4];
+    if (c == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    }
+    if (c < n_chunks) {  // the scores over k (chunk c of q . k)
+      const __nv_bfloat16* qt = spt == 1 ? qs : st1;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t(&qk)[4] = qf[L::QREG ? kk : 0];
-      if constexpr (!L::QREG) q_frag(kk, qk);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t(&qk)[4] = qf[L::QREG ? kk : 0];
+        if constexpr (!L::QREG) q_frag(qt, kk, qk);
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {  // key positions jn * 16 .. + 15: two n8 tiles
-        unsigned bfr[4];
-        ldmatrix_x4(bfr, ks + (jn * 16 + r8 + (mat >> 1) * 8) * LD + kk * 16 + (mat & 1) * 8);
-        mma_bf16(s[2 * jn], qk, bfr[0], bfr[1]);
-        mma_bf16(s[2 * jn + 1], qk, bfr[2], bfr[3]);
+        for (int jn = 0; jn < 4; ++jn) {  // key positions jn * 16 .. + 15: two n8 tiles
+          unsigned bfr[4];
+          ldmatrix_x4(bfr, st0 + (jn * 16 + r8 + (mat >> 1) * 8) * LD + kk * 16 + (mat & 1) * 8);
+          mma_bf16(s[2 * jn], qk, bfr[0], bfr[1]);
+          mma_bf16(s[2 * jn + 1], qk, bfr[2], bfr[3]);
+        }
       }
     }
+    if (spt > 1 && c < n_chunks) continue;  // the tile's v step follows
+    const __nv_bfloat16* vs = spt == 1 ? st1 : st0;
+    const int c0 = (t_begin + i) * FB_KV;
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -465,16 +524,16 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
       const int pr = r0 + lr0 + 8 * h;
       if (pr >= rows) continue;
       const float inv = l_i[h] == 0.f ? 1.f : 1.f / l_i[h];
-      __nv_bfloat16* row = op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st;
+      __nv_bfloat16* row = op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st + col0;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * t;
-        if (gr >= 4 && col < a.d) {  // d even and the pair 4-byte aligned
+        if (gr >= 4 && col < d_out) {  // d even and the pair 4-byte aligned
           *reinterpret_cast<__nv_bfloat162*>(row + col) =
               __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
         } else {
-          if (col < a.d) row[col] = __float2bfloat16(o[j][2 * h] * inv);
-          if (col + 1 < a.d) row[col + 1] = __float2bfloat16(o[j][2 * h + 1] * inv);
+          if (col < d_out) row[col] = __float2bfloat16(o[j][2 * h] * inv);
+          if (col + 1 < d_out) row[col + 1] = __float2bfloat16(o[j][2 * h + 1] * inv);
         }
       }
     }
@@ -535,29 +594,31 @@ __global__ void __launch_bounds__(FB_THREADS) flash_mma_kernel(FlashArgs a) {
       }
     }
     const float inv = l_sum == 0.f ? 1.f : 1.f / l_sum;
-    __nv_bfloat16* dst = op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st + d;
-    if (gr >= 8 && d < a.d) {  // d % 4 == 0 and the four 8-byte aligned
+    __nv_bfloat16* dst =
+        op + (hkv * group + pr % group) * a.o_sh + (long long)(pr / group) * a.o_st + col0 + d;
+    if (gr >= 8 && d < d_out) {  // d % 4 == 0 and the four 8-byte aligned
       uint2 packed;
       packed.x = pack_bf16x2(o_sum.x * inv, o_sum.y * inv);
       packed.y = pack_bf16x2(o_sum.z * inv, o_sum.w * inv);
       *reinterpret_cast<uint2*>(dst) = packed;
     } else {
       const float f[4] = {o_sum.x, o_sum.y, o_sum.z, o_sum.w};
-      for (int e = 0; e < 4 && d + e < a.d; ++e) dst[e] = __float2bfloat16(f[e] * inv);
+      for (int e = 0; e < 4 && d + e < d_out; ++e) dst[e] = __float2bfloat16(f[e] * inv);
     }
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <int D>
+template <int D, bool WIDE>
 cudaError_t launch_flash_mma(const FlashArgs& a, int b, int split, cudaStream_t st) {
   using L = FbLayout<D>;
   static bool smem_allowed = false;
-  cudaError_t e = allow_smem(flash_mma_kernel<D>, L::SMEM, smem_allowed);
+  cudaError_t e = allow_smem(flash_mma_kernel<D, WIDE>, L::SMEM, smem_allowed);
   if (e != cudaSuccess) return e;
   const int row_tiles = (a.tq * (a.hq / a.hk) + FB_ROWS - 1) / FB_ROWS;
+  const int slices = WIDE ? (a.d + D - 1) / D : 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(row_tiles * split, a.hk, b);
+  cfg.gridDim = dim3(row_tiles * slices * split, a.hk, b);
   cfg.blockDim = dim3(FB_THREADS);
   cfg.dynamicSmemBytes = L::SMEM;
   cfg.stream = st;
@@ -568,7 +629,7 @@ cudaError_t launch_flash_mma(const FlashArgs& a, int b, int split, cudaStream_t 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;  // a plain launch is a cluster of one
-  e = cudaLaunchKernelEx(&cfg, flash_mma_kernel<D>, a);
+  e = cudaLaunchKernelEx(&cfg, flash_mma_kernel<D, WIDE>, a);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -578,8 +639,8 @@ cudaError_t launch_flash_mma(const FlashArgs& a, int b, int split, cudaStream_t 
 // split (1..8: blocks of a cluster along the KV axis) comes from
 // attention.py flash_plan; the f32 path ignores it. The instances: head
 // dims 16, 32, 64, 128 and 256, a head dim d <= 256 running the smallest
-// that holds it (its columns past d zero); d outside [1, 256] launches
-// nothing.
+// that holds it (its columns past d zero), any larger d the 256 one in
+// slices of 256 columns; d < 1 launches nothing.
 extern "C" int rt_flash_attention(
     const void* q, long long q_sb, long long q_sh, long long q_st,
     const void* k, long long k_sb, long long k_sh, long long k_ss,
@@ -589,7 +650,7 @@ extern "C" int rt_flash_attention(
     int bf16, int b, int hq, int hk, int tq, int s, int d, int causal, float sm_scale, int split,
     void* stream) {
   if (b < 1 || b > 65535 || hq < 1 || hq > 65535 || hk < 1 || hq % hk || tq < 1 || s < 1 || split < 1 ||
-      split > rt::FB_MAX_CLUSTER || d < 1 || d > 256) {
+      split > rt::FB_MAX_CLUSTER || d < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // The piece size: the lowest set bit of every row start's and d's bytes, at most 16.
@@ -603,21 +664,25 @@ extern "C" int rt_flash_attention(
   const rt::FlashArgs a{q, q_sb, q_sh, q_st, k, k_sb, k_sh, k_ss, v, v_sb, v_sh, v_ss,
                         o, o_sb, o_sh, o_st, q_offset, kv_len, hq, hk, tq, s, causal, sm_scale, d, gran};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto run = [&](auto dd) {
+  const auto run = [&](auto dd, auto wide) {
     constexpr int D = decltype(dd)::value;
-    return bf16 ? rt::launch_flash_mma<D>(a, b, split, st) : rt::launch_flash<D>(a, b, st);
+    constexpr bool WIDE = decltype(wide)::value;
+    return bf16 ? rt::launch_flash_mma<D, WIDE>(a, b, split, st) : rt::launch_flash<D, WIDE>(a, b, st);
   };
+  const std::false_type narrow{};
   cudaError_t e;
   if (d <= 16) {
-    e = run(std::integral_constant<int, 16>{});
+    e = run(std::integral_constant<int, 16>{}, narrow);
   } else if (d <= 32) {
-    e = run(std::integral_constant<int, 32>{});
+    e = run(std::integral_constant<int, 32>{}, narrow);
   } else if (d <= 64) {
-    e = run(std::integral_constant<int, 64>{});
+    e = run(std::integral_constant<int, 64>{}, narrow);
   } else if (d <= 128) {
-    e = run(std::integral_constant<int, 128>{});
+    e = run(std::integral_constant<int, 128>{}, narrow);
+  } else if (d <= 256) {
+    e = run(std::integral_constant<int, 256>{}, narrow);
   } else {
-    e = run(std::integral_constant<int, 256>{});
+    e = run(std::integral_constant<int, 256>{}, std::true_type{});
   }
   return static_cast<int>(e);
 }

@@ -180,6 +180,12 @@ __device__ __forceinline__ void copy_piece(void* dst, const void* src, bool vali
   }
 }
 
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (.noinc: the arrival is one of those the barrier was initialised to count).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");

@@ -13,7 +13,10 @@
 // from M ~ 150 rows on (more for a narrow N, where the activations' bytes
 // weigh too) the products outrun the ~295 bf16 operations per byte that
 // memory can feed, and the tensor cores bound it; at M = 64 the weight
-// stream (1 byte per weight) does.
+// stream (1 byte per weight) does. f32 activations take three bf16 passes
+// for exact products: 3 x 2 M N K operations on the bf16 tensor cores
+// against the x tile's 4 bytes a value, so the products bind from ~50
+// rows on.
 //
 // What the first design (64 x 128 tiles on mma.sync, tile_mma.cuh)
 // lost time on: one register stage, so every 32-deep K step waited out a
@@ -50,19 +53,70 @@
 //   launch: no atomics) and runs the epilogue once on the whole sum: acc *
 //   scale, + bias, activation, rounded once to the output dtype, stored
 //   four channels a thread, neighbouring threads on neighbouring channels.
-// f32 activations: f32_tile_loop on the CUDA cores (tile_mma.cuh; exact f32
-// products, the int8 weights convert exactly), each thread 4 x 8 outputs.
-// K needs only be a multiple of 8 there: a weight row whose K is 8 mod 16
-// (MobileNetV2's expand convs of K 24) is only 8-byte aligned, so such rows
-// arrive as two 8-byte halves, the half past K and the activations past K
-// zero-filled. bf16 activations with such a K take the same loop (their
-// values widened exactly to f32, so the products equal the tensor cores'):
-// TMA cannot address a weight row stride that is not a multiple of 16.
+//
+// f32 activations (the encoders' and the graph runtime's route),
+// qmm_f32_kernel: the same swap-AB wgmma on the same ring, with products
+// as exact as f32 FMA on the CUDA cores (the first design's SIMT loop, 84x
+// its bound at the GPT-2 graph's mlp c_proj):
+// - Exact products in three bf16 passes. Each f32 activation splits as
+//   x = hi + mid + lo, three bf16: hi = x cut to bf16's 8 significant bits,
+//   mid = the remainder x - hi (exact) cut the same way, lo = what is left
+//   (exact: at most 8 significant bits remain). Truncation rather than
+//   rounding: no value near f32's maximum overflows, and a part costs two
+//   instructions. An int8 weight is exact in bf16 and a bf16 x bf16
+//   product exact in f32, so W.hi + W.mid + W.lo has the exact products of
+//   x.W. Where |x| is under
+//   2^-110, lo (under 2^-118, mid) falls below bf16's normal range: rounded
+//   to its subnormal grid, or flushed by the tensor cores, an error under
+//   2^-118 a product. An infinite x gives hi = x and mid = lo = 0, so the
+//   products are IEEE's; NaN stays NaN.
+// - The sums. The tensor cores' f32 accumulation does not round each
+//   addition to nearest as an FMA does: one accumulator over a K of 3072
+//   (576 wgmma) drifted to 3.7e-5 of the largest output from the f64
+//   product on all-positive inputs, 10x the first design's FMA loop
+//   (PERF.md, section 6). So each stage's 24 wgmma accumulate into a register
+//   tile that starts at zero, and the stage's tile is added into the
+//   running f32 sums on the CUDA cores once the group retires: the tensor
+//   cores' drift is that of a K of 128, and the products stay exact.
+// - A block is 64 tokens (wgmma N 64) by 64 or 128 output channels: one
+//   or two consumer warpgroups and one producer warp. A ring stage is the
+//   f32 x tile ([64][128], four 128-byte-swizzled TMA boxes of 32 K, 32 KB)
+//   and the int8 W tile ([BN][128]). The consumers split the stage's x
+//   into three bf16 B tiles (hi, mid, lo) in the bf16 route's B layout and
+//   swizzle, into one of two split sets, turn its W into bf16 A fragments
+//   in registers (i8x2_to_bf16x2, as the bf16 route) and release the
+//   stage; 24 wgmma (8 k16 steps x 3 parts) run on the fragments while the
+//   next stage's x splits into the other set, and that stage's W converts
+//   once they retire (one fragment set: with two, a 288-thread block,
+//   capped at 168 registers a thread, spilled ~300 bytes). One consumer
+//   barrier a stage publishes the split writes to the tensor cores (after
+//   fence.proxy.async) and frees the set of the stage before. A stage past
+//   K (the last, or a K under 128 such as MobileNetV2's 16 and 24) splits
+//   and multiplies only its k16 steps that hold some of K.
+// - Shared memory: the ring holds 4 + 1 bytes a K element of a token and
+//   channel, a split set 3 x 2 more. Three layouts (QfLayout): 64 channels,
+//   3 stages (222,256 bytes) up to 64 rows, where the weights' bytes bound
+//   the call and more blocks fill the card; 128 channels, 2 stages
+//   (197,664) above, where each split x tile then serves twice the
+//   channels (1.5x faster at DistilBERT's M 3072 than 64); and a one-stage,
+//   one-set block of 64 channels (91,152) for a single K step, two to an
+//   SM, so that one block's loads and epilogue run under the other's work.
+// - Split-K across a cluster (quant_matmul.py f32_plan, its capacity
+//   queried like the bf16 block's) and the same fixed-order DSMEM sum and
+//   epilogue.
+// A K of 8 mod 16 (MobileNetV2's expand convs of K 24): TMA cannot address
+// weight rows whose stride is not a multiple of 16 bytes, so both kernels
+// (CPW) have the producer warp bring the W tile by cp.async in 8-byte
+// pieces into the same swizzled stage layout, zero past K and N, each lane
+// arriving on the stage's mbarrier when its pieces land
+// (cp.async.mbarrier.arrive.noinc); x still comes by TMA (its rows are
+// 16-byte multiples). bf16 activations at such a K run the bf16 kernel's
+// one pass.
 
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
-#include "tile_mma.cuh"
+#include "tile_mma.cuh"  // pack_bf16x2
 
 namespace rt {
 namespace {
@@ -70,7 +124,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 struct QmArgs {
-  const void* x;       // [m, k] f32 or bf16, 16-byte aligned, k % 8 == 0 (wgmma: k % 16 == 0)
+  const void* x;       // [m, k] f32 or bf16, 16-byte aligned, k % 8 == 0
   int m, n, k;
   const int8_t* w;     // [n, k] int8 (int8_pack), 16-byte aligned
   const float* scale;  // [n]
@@ -148,7 +202,97 @@ __device__ __forceinline__ void store_out4(const QmArgs& a, int row, int col, co
     if (col + j < a.n) store_act(a.out, a.out_bf16, o + j, v[j]);
 }
 
-template <int TOK>
+// The W tile of K step k0 ([ROWS][128] int8, rows n0 on) into a stage in
+// the layout TMA's 128-byte swizzle gives it, by the 32 lanes of the
+// producer warp in 8-byte cp.async pieces, zero past K and N, for weight
+// rows TMA cannot address (K of 8 mod 16: 8-byte aligned rows); each lane
+// then arrives on `bar` once its pieces have landed.
+template <int ROWS>
+__device__ __forceinline__ void w_tile_cp_async(unsigned char* dst, const QmArgs& a, int n0, int k0, uint64_t* bar,
+                                                int lane) {
+  for (int p = lane; p < ROWS * (QW_BK / 8); p += 32) {
+    const int r = p >> 4, h = p & 15;  // row, 8-byte piece
+    const int k = k0 + 8 * h;
+    const bool ok = n0 + r < a.n && k < a.k;
+    const int8_t* src = ok ? a.w + (size_t)(n0 + r) * a.k + k : a.w;
+    cp_async8(dst + r * QW_BK + (((h >> 1) ^ (r & 7)) << 4) + (h & 1) * 8, src, ok);
+  }
+  cp_async_mbar_arrive(bar);
+}
+
+// Consumer thread (warp, g, t)'s W rows r_lo and r_lo + 8 of a stage's
+// 128-byte-swizzled [BN][128] int8 tile as the bf16 A fragments of the 8
+// k16 steps (the mma.sync m16n8k16 layout).
+__device__ __forceinline__ void w_fragments(const unsigned char* ws, int r_lo, int g, unsigned sel,
+                                            uint32_t (&fa)[8][4]) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {  // K chunk s (16 bytes) of rows r_lo, r_lo + 8, swizzled to s ^ g
+    const uint4 lo = *reinterpret_cast<const uint4*>(ws + r_lo * QW_BK + ((s ^ g) << 4));
+    const uint4 hi = *reinterpret_cast<const uint4*>(ws + (r_lo + 8) * QW_BK + ((s ^ g) << 4));
+    fa[s][0] = i8x2_to_bf16x2(w_pair(lo, sel, false));
+    fa[s][1] = i8x2_to_bf16x2(w_pair(hi, sel, false));
+    fa[s][2] = i8x2_to_bf16x2(w_pair(lo, sel, true));
+    fa[s][3] = i8x2_to_bf16x2(w_pair(hi, sel, true));
+  }
+}
+
+// The block's sums as [tokens][LDR] f32 in shared memory: element e of
+// consumer thread (r_lo, t) is channel r_lo + 8 ((e / 2) % 2), token
+// 8 (e / 4) + 2 t + e % 2.
+template <int NACC, int LDR>
+__device__ __forceinline__ void stash_sums(float* red, const float (&acc)[NACC], int r_lo, int t) {
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) {
+    red[(8 * (e >> 2) + 2 * t + (e & 1)) * LDR + r_lo + 8 * ((e >> 1) & 1)] = acc[e];
+  }
+}
+
+// After the cluster barrier that follows stash_sums: rank r takes tokens
+// [r TOK / C, (r + 1) TOK / C) of the tile. A thread keeps one
+// four-channel piece (its scales and biases read once) over every
+// THREADS / (BN / 4)-th token of the slice; each piece is summed over
+// ranks 0..C-1 in that order (every rank's load in flight first), then the
+// epilogue runs on the whole sum: acc * scale, + bias, activation, rounded
+// once to the output dtype.
+template <int TOK, int BN, int THREADS, int LDR>
+__device__ __forceinline__ void split_k_epilogue(const QmArgs& a, cg::cluster_group& cluster, const float* red,
+                                                 int n_split, int rank, int n0, int m0) {
+  constexpr int QUADS = BN / 4, ROWS = THREADS / QUADS;
+  static_assert(THREADS % QUADS == 0, "a thread keeps its channels");
+  const int tid = threadIdx.x;
+  const int ch = (tid % QUADS) * 4, col = n0 + ch;
+  float sc[4], bi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) col_params(a, col + j, sc[j], bi[j]);
+  const int t_end = (rank + 1) * TOK / n_split;
+#pragma unroll 2
+  for (int tok = rank * TOK / n_split + tid / QUADS; tok < t_end; tok += ROWS) {
+    const float* piece = red + tok * LDR + ch;
+    float4 sum;
+    if (n_split == 1) {
+      sum = *reinterpret_cast<const float4*>(piece);
+    } else {
+      float4 part[QW_MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < QW_MAX_CLUSTER; ++q) {
+        if (q < n_split) part[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(piece, q));
+      }
+      sum = part[0];
+#pragma unroll
+      for (int q = 1; q < QW_MAX_CLUSTER; ++q) {
+        if (q < n_split) sum = sum + part[q];
+      }
+    }
+    const int row = m0 + tok;
+    if (row >= a.m || col >= a.n) continue;
+    const float o[4] = {activate(sum.x * sc[0] + bi[0], a.act), activate(sum.y * sc[1] + bi[1], a.act),
+                        activate(sum.z * sc[2] + bi[2], a.act), activate(sum.w * sc[3] + bi[3], a.act)};
+    store_out4(a, row, col, o);
+  }
+}
+
+// CPW: the W tile by the producer warp's cp.async (a K of 8 mod 16), else TMA.
+template <int TOK, bool CPW>
 __global__ void __launch_bounds__(QwLayout<TOK>::THREADS) qmm_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w, QmArgs a) {
   using L = QwLayout<TOK>;
@@ -168,7 +312,7 @@ __global__ void __launch_bounds__(QwLayout<TOK>::THREADS) qmm_wgmma_kernel(
 
   if (tid == 0) {
     for (int s = 0; s < QW_STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], CPW ? 33 : 1);  // CPW: the TMA's arrival and each lane's cp.async one
       mbar_init(&empty[s], L::CONSUMERS);
     }
     mbar_init_fence();
@@ -185,17 +329,21 @@ __global__ void __launch_bounds__(QwLayout<TOK>::THREADS) qmm_wgmma_kernel(
   const unsigned sel = (2 * t) | ((2 * t + 1) << 4);
 
   if (warp == L::CONSUMERS / 32) {
-    // Producer: one thread keeps up to QW_STAGES stages of loads in flight.
-    if (lane == 0) {
+    // Producer: one thread keeps up to QW_STAGES stages of loads in flight
+    // (CPW: the whole warp, for the W pieces).
+    if (CPW || lane == 0) {
       for (int i = 0; i < n_steps; ++i) {
         const int st = i % QW_STAGES;
         mbar_wait(&empty[st], ((i / QW_STAGES) & 1) ^ 1);
         unsigned char* stage = smem + st * L::STAGE;
         const int k0 = (s_begin + i) * QW_BK;
-        mbar_expect_tx(&full[st], L::STAGE);
-        tma_load_2d(stage, &tm_x, k0, m0, &full[st]);
-        tma_load_2d(stage + L::X_BYTES / 2, &tm_x, k0 + QW_BK / 2, m0, &full[st]);
-        tma_load_2d(stage + L::X_BYTES, &tm_w, k0, n0, &full[st]);
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], CPW ? L::X_BYTES : L::STAGE);
+          tma_load_2d(stage, &tm_x, k0, m0, &full[st]);
+          tma_load_2d(stage + L::X_BYTES / 2, &tm_x, k0 + QW_BK / 2, m0, &full[st]);
+          if (!CPW) tma_load_2d(stage + L::X_BYTES, &tm_w, k0, n0, &full[st]);
+        }
+        if (CPW) w_tile_cp_async<L::BN>(stage + L::X_BYTES, a, n0, k0, &full[st], lane);
       }
     }
   } else {
@@ -204,16 +352,7 @@ __global__ void __launch_bounds__(QwLayout<TOK>::THREADS) qmm_wgmma_kernel(
     auto convert = [&](int i, uint32_t (&fa)[8][4]) {
       const int st = i % QW_STAGES;
       mbar_wait(&full[st], (i / QW_STAGES) & 1);
-      const unsigned char* ws = smem + st * L::STAGE + L::X_BYTES;
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {  // K chunk s (16 bytes) of rows r_lo, r_lo + 8, swizzled to s ^ g
-        const uint4 lo = *reinterpret_cast<const uint4*>(ws + r_lo * QW_BK + ((s ^ g) << 4));
-        const uint4 hi = *reinterpret_cast<const uint4*>(ws + (r_lo + 8) * QW_BK + ((s ^ g) << 4));
-        fa[s][0] = i8x2_to_bf16x2(w_pair(lo, sel, false));
-        fa[s][1] = i8x2_to_bf16x2(w_pair(hi, sel, false));
-        fa[s][2] = i8x2_to_bf16x2(w_pair(lo, sel, true));
-        fa[s][3] = i8x2_to_bf16x2(w_pair(hi, sel, true));
-      }
+      w_fragments(smem + st * L::STAGE + L::X_BYTES, r_lo, g, sel, fa);
     };
     auto issue = [&](int i, uint32_t (&fa)[8][4]) {
       const unsigned char* xs = smem + (i % QW_STAGES) * L::STAGE;
@@ -254,207 +393,322 @@ __global__ void __launch_bounds__(QwLayout<TOK>::THREADS) qmm_wgmma_kernel(
     }
   }
 
-  // The block's sums as [TOK][BN] f32 in the (now free) ring: element e of
-  // consumer thread is channel r_lo + 8 ((e / 2) % 2), token 8 (e / 4) +
-  // 2 t + e % 2.
+  // The block's sums as [TOK][BN] f32 in the (now free) ring, summed
+  // across the cluster in rank order, then the epilogue.
   __syncthreads();
   float* red = reinterpret_cast<float*>(smem);
-  if (tid < L::CONSUMERS) {
-#pragma unroll
-    for (int e = 0; e < TOK / 2; ++e) {
-      red[(8 * (e >> 2) + 2 * t + (e & 1)) * L::LDR + r_lo + 8 * ((e >> 1) & 1)] = acc[e];
-    }
-  }
+  if (tid < L::CONSUMERS) stash_sums<TOK / 2, L::LDR>(red, acc, r_lo, t);
   cluster.sync();
-
-  // Rank r: tokens [r TOK / C, (r + 1) TOK / C) of the tile. A thread keeps
-  // one four-channel piece (its scales and biases read once) over every
-  // THREADS / (BN / 4)-th token of the slice; each piece is summed over
-  // ranks 0..C-1 in that order (every rank's load in flight first), then
-  // the epilogue runs on the whole sum.
-  constexpr int QUADS = L::BN / 4, ROWS = L::THREADS / QUADS;
-  static_assert(L::THREADS % QUADS == 0, "a thread keeps its channels");
-  const int ch = (tid % QUADS) * 4, col = n0 + ch;
-  float sc[4], bi[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) col_params(a, col + j, sc[j], bi[j]);
-  const int t_end = (rank + 1) * TOK / n_split;
-#pragma unroll 2
-  for (int tok = rank * TOK / n_split + tid / QUADS; tok < t_end; tok += ROWS) {
-    const float* piece = red + tok * L::LDR + ch;
-    float4 sum;
-    if (n_split == 1) {
-      sum = *reinterpret_cast<const float4*>(piece);
-    } else {
-      float4 part[QW_MAX_CLUSTER];
-#pragma unroll
-      for (int q = 0; q < QW_MAX_CLUSTER; ++q) {
-        if (q < n_split) part[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(piece, q));
-      }
-      sum = part[0];
-#pragma unroll
-      for (int q = 1; q < QW_MAX_CLUSTER; ++q) {
-        if (q < n_split) sum = sum + part[q];
-      }
-    }
-    const int row = m0 + tok;
-    if (row >= a.m || col >= a.n) continue;
-    const float o[4] = {activate(sum.x * sc[0] + bi[0], a.act), activate(sum.y * sc[1] + bi[1], a.act),
-                        activate(sum.z * sc[2] + bi[2], a.act), activate(sum.w * sc[3] + bi[3], a.act)};
-    store_out4(a, row, col, o);
-  }
+  split_k_epilogue<TOK, L::BN, L::THREADS, L::LDR>(a, cluster, red, n_split, rank, n0, m0);
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// The most clusters of `split` blocks of qmm_wgmma_kernel<TOK> the device
-// holds at once (quant_matmul.py plans the split-K within it), or minus a
-// CUDA error.
-template <int TOK>
-int max_clusters(int split) {
-  using L = QwLayout<TOK>;
-  static bool smem_allowed = false;
-  cudaError_t e = allow_smem(qmm_wgmma_kernel<TOK>, L::SMEM, smem_allowed);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, 1);
-  cfg.blockDim = dim3(L::THREADS);
-  cfg.dynamicSmemBytes = L::SMEM;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, qmm_wgmma_kernel<TOK>, &cfg);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+// ---- f32 activations: exact products in three bf16 passes -------------------
+
+constexpr int QF_TOK = 64;  // tokens a block: wgmma's N
+
+// The f32 block: WGS consumer warpgroups of 64 output channels each and
+// one producer warp, a ring of STAGES stages, SETS split sets. Three
+// layouts (quant_matmul.py f32_plan picks the channels, the entry point
+// the rest): 64 channels, 3 stages, 2 sets (222,256 bytes: up to 64 rows,
+// where more blocks fill the card); 128 channels, 2 stages, 2 sets
+// (197,664 bytes: more rows, where the split x tile serves twice the
+// channels); and for one K step (K <= 128) 64 channels, 1 stage, 1 set
+// (91,152 bytes), so that two blocks share an SM and one's loads and
+// epilogue run under the other's products.
+template <int WGS, int STAGES, int SETS>
+struct QfLayout {
+  static constexpr int BN = 64 * WGS;                   // output channels a block
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;
+  static constexpr int BOX = QF_TOK * 128;              // one 128-byte-wide TMA box of a tile: 8 KB
+  static constexpr int X_BYTES = 4 * BOX;               // [64][128] f32: four boxes of 32 K
+  static constexpr int STAGE = X_BYTES + BN * QW_BK;    // + [BN][128] int8 W: a multiple of 1024
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int PART = 2 * BOX;                  // one bf16 B tile [64][128]: two boxes of 64 K
+  static constexpr int SET = 3 * PART;                  // hi, mid, lo
+  static constexpr int SMEM = RING + SETS * SET + 2 * STAGES * 8 + 1024;  // + mbarriers + alignment slack
+  static constexpr int LDR = BN + 4;                    // f32 row stride of the [TOK][BN] sums
+  static_assert(QF_TOK * LDR * 4 <= RING, "the sums reuse the ring");
+  static_assert(SMEM <= (int)MAX_SMEM, "a block's shared memory");
+};
+
+// Bits of x cut to bf16's 8 significant bits (x's upper half).
+__device__ __forceinline__ float cut_bf16(float x) { return __uint_as_float(__float_as_uint(x) & 0xffff0000u); }
+
+// x = hi + mid + lo, each a bf16 value, exactly where |x| >= 2^-110 (see
+// the head of the file); an infinite or NaN x is hi alone.
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  const bool fin = fabsf(x) <= 3.4028234663852886e38f;
+  hi = fin ? cut_bf16(x) : x;
+  const float r = fin ? x - hi : 0.f;  // exact: hi holds x's leading bits
+  mid = cut_bf16(r);
+  lo = r - mid;  // exact, at most 8 significant bits
 }
 
-template <int TOK>
+// A stage's f32 x tile (`xs`) into split set `set`: three bf16 B tiles (hi,
+// mid, lo) in the bf16 route's layout, the K groups of 8 below `groups`.
+// Unit u is token u % 64 and K group u / 64: two 16-byte chunks of an f32
+// box row in, one 16-byte chunk of a bf16 box row out for each part; the
+// eight lanes of a quarter warp take eight tokens, so the swizzle puts
+// their chunks in distinct banks on both sides.
+template <int CONSUMERS>
+__device__ __forceinline__ void split_x(const unsigned char* xs, unsigned char* set, int groups, int ctid) {
+  constexpr int BOX = QF_TOK * 128, PART = 2 * BOX;
+#pragma unroll 2
+  for (int u = ctid; u < QF_TOK * groups; u += CONSUMERS) {
+    const int r = u & (QF_TOK - 1), kg = u / QF_TOK, sw = r & 7;
+    const unsigned char* src = xs + (kg >> 2) * BOX + r * 128;
+    const float4 v0 = *reinterpret_cast<const float4*>(src + ((((kg & 3) * 2) ^ sw) << 4));
+    const float4 v1 = *reinterpret_cast<const float4*>(src + ((((kg & 3) * 2 + 1) ^ sw) << 4));
+    const float f[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float h0, m0, l0, h1, m1, l1;
+      split3(f[2 * j], h0, m0, l0);
+      split3(f[2 * j + 1], h1, m1, l1);
+      hi[j] = pack_bf16x2(h0, h1);  // exact conversions (a subnormal lo rounds)
+      mid[j] = pack_bf16x2(m0, m1);
+      lo[j] = pack_bf16x2(l0, l1);
+    }
+    const int off = (kg >> 3) * BOX + r * 128 + (((kg & 7) ^ sw) << 4);
+    *reinterpret_cast<uint4*>(set + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(set + PART + off) = make_uint4(mid[0], mid[1], mid[2], mid[3]);
+    *reinterpret_cast<uint4*>(set + 2 * PART + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// The consumer warpgroups' barrier (named barrier 1; the producer warp
+// does not take part), after which the split writes before it are visible
+// to the tensor cores.
+template <int CONSUMERS>
+__device__ __forceinline__ void consumers_sync() {
+  fence_proxy_async();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// CPW: the W tile by the producer warp's cp.async (a K of 8 mod 16), else TMA.
+template <int WGS, int STAGES, int SETS, bool CPW>
+__global__ void __launch_bounds__(QfLayout<WGS, STAGES, SETS>::THREADS) qmm_f32_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w, QmArgs a) {
+  using L = QfLayout<WGS, STAGES, SETS>;
+  extern __shared__ unsigned char qf_raw[];
+  unsigned char* smem = smem_align(qf_raw);
+  unsigned char* sets = smem + L::RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sets + SETS * L::SET);
+  uint64_t* empty = full + STAGES;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n0 = (blockIdx.x / n_split) * L::BN, m0 = blockIdx.y * QF_TOK;
+  const int steps = (a.k + QW_BK - 1) / QW_BK;
+  const int s_begin = rank * steps / n_split, s_end = (rank + 1) * steps / n_split;
+  const int n_steps = s_end - s_begin;  // SETS 1: one step (the entry point's rule)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], CPW ? 33 : 1);  // CPW: the TMA's arrival and each lane's cp.async one
+      mbar_init(&empty[s], L::CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // acc: the wgmma tile of one stage; sum: the running sums, on the CUDA cores.
+  float acc[QF_TOK / 2], sum[QF_TOK / 2];
+#pragma unroll
+  for (int i = 0; i < QF_TOK / 2; ++i) acc[i] = sum[i] = 0.f;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = warp * 16 + g;
+  const unsigned sel = (2 * t) | ((2 * t + 1) << 4);
+
+  if (warp == L::CONSUMERS / 32) {
+    // Producer: the x boxes (and W) of up to STAGES steps in flight.
+    if (CPW || lane == 0) {
+      for (int i = 0; i < n_steps; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+        unsigned char* stage = smem + st * L::STAGE;
+        const int k0 = (s_begin + i) * QW_BK;
+        if (lane == 0) {
+          // Only the x boxes that hold some of K (a box's bytes count in
+          // full, its part past K zero-filled).
+          const int boxes = min(4, (a.k - k0 + 31) / 32);
+          mbar_expect_tx(&full[st], boxes * L::BOX + (CPW ? 0 : L::STAGE - L::X_BYTES));
+          for (int j = 0; j < boxes; ++j) tma_load_2d(stage + j * L::BOX, &tm_x, k0 + 32 * j, m0, &full[st]);
+          if (!CPW) tma_load_2d(stage + L::X_BYTES, &tm_w, k0, n0, &full[st]);
+        }
+        if (CPW) w_tile_cp_async<L::BN>(stage + L::X_BYTES, a, n0, k0, &full[st], lane);
+      }
+    }
+  } else {
+    // The k16 steps of stage i that hold some of K (8 but for a last stage
+    // past K).
+    const auto k16_steps = [&](int i) { return min(8, (a.k - (s_begin + i) * QW_BK + 15) / 16); };
+    const auto stage_of = [&](int i) { return smem + (i % STAGES) * L::STAGE; };
+    // Stage i's x into split set i % SETS once the stage has landed.
+    auto split = [&](int i) {
+      mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      split_x<L::CONSUMERS>(stage_of(i), sets + (i % SETS) * L::SET, 2 * k16_steps(i), tid);
+    };
+    // Stage i's W into the A fragments; the stage is then free.
+    auto convert = [&](int i, uint32_t (&fa)[8][4]) {
+      w_fragments(stage_of(i) + L::X_BYTES, r_lo, g, sel, fa);
+      mbar_arrive(&empty[i % STAGES]);
+    };
+    auto issue = [&](int i, uint32_t (&fa)[8][4]) {
+      const unsigned char* set = sets + (i % SETS) * L::SET;
+      const int ks = k16_steps(i);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s < ks) {
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            wgmma_rs_n64(acc, fa[s], sw128_desc(set + p * L::PART + (s >> 2) * L::BOX) + (s & 3) * 2);
+          }
+        }
+      }
+      wgmma_commit();
+    };
+    // The stage's group done: its tile into the running sums, the tile zeroed.
+    auto retire = [&](uint32_t (&fa)[8][4]) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(fa[s][e]);
+#pragma unroll
+      for (int e = 0; e < QF_TOK / 2; ++e) {
+        reg_fence(acc[e]);
+        sum[e] += acc[e];
+        acc[e] = 0.f;
+      }
+    };
+    // One set of A fragments (two would cap a two-warpgroup block's
+    // registers): stage i + 1's x splits while stage i's 24 wgmma run, its
+    // W converts once they have retired.
+    uint32_t fa[8][4];
+    if (n_steps > 0) {
+      split(0);
+      convert(0, fa);
+    }
+    consumers_sync<L::CONSUMERS>();
+    for (int i = 0; i < n_steps; ++i) {
+      issue(i, fa);
+      if (SETS > 1 && i + 1 < n_steps) split(i + 1);
+      retire(fa);
+      if (i + 1 < n_steps) convert(i + 1, fa);
+      consumers_sync<L::CONSUMERS>();  // set i + 1 written, set i free in every warpgroup
+    }
+  }
+
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  if (tid < L::CONSUMERS) stash_sums<QF_TOK / 2, L::LDR>(red, sum, r_lo, t);
+  cluster.sync();
+  split_k_epilogue<QF_TOK, L::BN, L::THREADS, L::LDR>(a, cluster, red, n_split, rank, n0, m0);
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// The most clusters of `split` blocks the device holds at once (F32: the
+// f32 block of TOK output channels, 64 or 128, as f32_plan plans it for
+// more than one K step; else the bf16 block of TOK tokens; quant_matmul.py
+// plans the split-K within it), or minus a CUDA error. The CPW instances
+// take the same threads and shared memory.
+template <bool F32, int TOK>
+int max_clusters(int split) {
+  static bool smem_allowed = false;
+  if constexpr (F32) {
+    using L = QfLayout<TOK / 64, TOK == 64 ? 3 : 2, 2>;
+    return max_active_clusters(qmm_f32_kernel<TOK / 64, TOK == 64 ? 3 : 2, 2, false>, L::THREADS, L::SMEM,
+                               smem_allowed, split);
+  } else {
+    using L = QwLayout<TOK>;
+    return max_active_clusters(qmm_wgmma_kernel<TOK, false>, L::THREADS, L::SMEM, smem_allowed, split);
+  }
+}
+
+template <int TOK, bool CPW>
 cudaError_t launch_wgmma(const QmArgs& a, int split, cudaStream_t st) {
   using L = QwLayout<TOK>;
-  CUtensorMap tm_x, tm_w;
+  CUtensorMap tm_x, tm_w = {};
   cudaError_t e = tensor_map_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.k, a.m, (uint64_t)a.k * 2,
                                 QW_BK / 2, TOK);
   if (e != cudaSuccess) return e;
-  e = tensor_map_2d(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.k, a.n, a.k, QW_BK, L::BN);
+  if (!CPW) e = tensor_map_2d(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.k, a.n, a.k, QW_BK, L::BN);
   if (e != cudaSuccess) return e;
   static bool smem_allowed = false;
-  e = allow_smem(qmm_wgmma_kernel<TOK>, L::SMEM, smem_allowed);
+  e = allow_smem(qmm_wgmma_kernel<TOK, CPW>, L::SMEM, smem_allowed);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((a.n + L::BN - 1) / L::BN) * split, (a.m + TOK - 1) / TOK);
-  cfg.blockDim = dim3(L::THREADS);
-  cfg.dynamicSmemBytes = L::SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;  // a plain launch is a cluster of one
-  e = cudaLaunchKernelEx(&cfg, qmm_wgmma_kernel<TOK>, tm_x, tm_w, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  const dim3 grid(((a.n + L::BN - 1) / L::BN) * split, (a.m + TOK - 1) / TOK);
+  return launch_clustered(qmm_wgmma_kernel<TOK, CPW>, grid, L::THREADS, L::SMEM, split, st, tm_x, tm_w, a);
 }
 
-template <bool X_BF16>
-__global__ void __launch_bounds__(TILE_THREADS) qmm_simt_kernel(QmArgs a) {
-  __shared__ __align__(16) F32Tiles s;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int m0 = blockIdx.y * TILE_BM, n0 = blockIdx.x * TILE_BN;
-  auto stage = [&](int k0) {  // k % 8 == 0: a step is whole or ends after 8 columns
-    {
-      const int r = tid >> 2, kq = (tid & 3) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < a.m && k0 + kq < a.k) {
-        const size_t o = (size_t)(m0 + r) * a.k + k0 + kq;
-        if constexpr (X_BF16) {
-          const uint2 h = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(a.x) + o));
-          v = make_float4(__uint_as_float(h.x << 16), __uint_as_float(h.x & 0xffff0000u),
-                          __uint_as_float(h.y << 16), __uint_as_float(h.y & 0xffff0000u));
-        } else {
-          v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(a.x) + o));
-        }
-      }
-      s.a[kq][r] = v.x;
-      s.a[kq + 1][r] = v.y;
-      s.a[kq + 2][r] = v.z;
-      s.a[kq + 3][r] = v.w;
-    }
-    if (tid < TILE_BN) {
-      int4 wv = make_int4(0, 0, 0, 0);
-      if (n0 + tid < a.n) {
-        const int8_t* wp = a.w + (size_t)(n0 + tid) * a.k + k0;
-        if ((a.k & 15) == 0) {
-          wv = __ldg(reinterpret_cast<const int4*>(wp));
-        } else {  // rows 8-byte aligned: two halves, the second zero past K
-          const int2 lo = __ldg(reinterpret_cast<const int2*>(wp));
-          const int2 hi = k0 + 8 < a.k ? __ldg(reinterpret_cast<const int2*>(wp + 8)) : make_int2(0, 0);
-          wv = make_int4(lo.x, lo.y, hi.x, hi.y);
-        }
-      }
-      float f[16];
-      unpack16(wv, f);
-#pragma unroll
-      for (int e = 0; e < 16; ++e) s.b[e][tid] = f[e];
-    }
-  };
-  float acc[4][8];
-  f32_tile_loop(a.k, stage, s, acc);
+template <int WGS, int STAGES, int SETS, bool CPW>
+cudaError_t launch_f32(const QmArgs& a, int split, cudaStream_t st) {
+  using L = QfLayout<WGS, STAGES, SETS>;
+  CUtensorMap tm_x, tm_w = {};
+  cudaError_t e = tensor_map_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.x, a.k, a.m, (uint64_t)a.k * 4,
+                                32, QF_TOK);
+  if (e != cudaSuccess) return e;
+  if (!CPW) e = tensor_map_2d(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.k, a.n, a.k, QW_BK, L::BN);
+  if (e != cudaSuccess) return e;
+  static bool smem_allowed = false;
+  e = allow_smem(qmm_f32_kernel<WGS, STAGES, SETS, CPW>, L::SMEM, smem_allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(((a.n + L::BN - 1) / L::BN) * split, (a.m + QF_TOK - 1) / QF_TOK);
+  return launch_clustered(qmm_f32_kernel<WGS, STAGES, SETS, CPW>, grid, L::THREADS, L::SMEM, split, st, tm_x,
+                          tm_w, a);
+}
 
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + tx + 16 * j;
-    if (col >= a.n) continue;
-    float sc, b;
-    col_params(a, col, sc, b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty + 16 * i;
-      if (row < a.m) store_act(a.out, a.out_bf16, (size_t)row * a.n + col, activate(acc[i][j] * sc + b, a.act));
-    }
-  }
+// The f32 block for `bn` output channels (64 or 128) at this K: one K step
+// (and so no split) takes the one-stage block, two to an SM.
+template <bool CPW>
+cudaError_t launch_f32_block(const QmArgs& a, int bn, int split, cudaStream_t st) {
+  if (bn == 128) return launch_f32<2, 2, 2, CPW>(a, split, st);
+  if (a.k <= QW_BK) return launch_f32<1, 1, 1, CPW>(a, split, st);
+  return launch_f32<1, 3, 2, CPW>(a, split, st);
 }
 
 }  // namespace
 }  // namespace rt
 
-extern "C" int rt_quant_matmul_clusters(int tok, int split) {
+// f32: 0 for the bf16 block of `block` tokens, 1 for the f32 block of
+// `block` output channels (64 or 128 either way).
+extern "C" int rt_quant_matmul_clusters(int f32, int block, int split) {
   if (split < 1 || split > rt::QW_MAX_CLUSTER) return -static_cast<int>(cudaErrorInvalidValue);
-  if (tok == 64) return rt::max_clusters<64>(split);
-  if (tok == 128) return rt::max_clusters<128>(split);
+  if (block == 64) return f32 ? rt::max_clusters<true, 64>(split) : rt::max_clusters<false, 64>(split);
+  if (block == 128) return f32 ? rt::max_clusters<true, 128>(split) : rt::max_clusters<false, 128>(split);
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// tok (64 or 128: tokens a block) and split (1..8: blocks of a cluster
-// along K) come from quant_matmul.py matmul_plan; the SIMT loop (f32
-// activations, or a K of 8 mod 16) ignores them.
+// block and split (1..8: blocks of a cluster along K) come from
+// quant_matmul.py: for bf16 activations block is the tokens a block (64 or
+// 128, matmul_plan), for f32 ones the output channels a block (64 or 128,
+// f32_plan). A K of 8 mod 16 takes either kernel's CPW instance.
 extern "C" int rt_quant_matmul(
     const void* x, int x_bf16, int m, int k,
     const int8_t* w_t, const float* scales, const float* bias, int n,
-    int act, void* out, int out_bf16, int tok, int split,
+    int act, void* out, int out_bf16, int block, int split,
     void* stream) {
-  if (m < 1 || n < 1 || k < 8 || k % 8 || (m + rt::TILE_BM - 1) / rt::TILE_BM > 65535 ||
-      (reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(w_t) & 15)) {
+  if (m < 1 || n < 1 || k < 8 || k % 8 || (m + 63) / 64 > 65535 || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(w_t) & 15) || split < 1 || split > rt::QW_MAX_CLUSTER ||
+      split > (k + rt::QW_BK - 1) / rt::QW_BK || (block != 64 && block != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const rt::QmArgs a{x, m, n, k, w_t, scales, bias, act, out, out_bf16};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && k % 16 == 0) {
-    if (split < 1 || split > rt::QW_MAX_CLUSTER || split > (k + rt::QW_BK - 1) / rt::QW_BK) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (tok == 64) return static_cast<int>(rt::launch_wgmma<64>(a, split, st));
-    if (tok == 128) return static_cast<int>(rt::launch_wgmma<128>(a, split, st));
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((n + rt::TILE_BN - 1) / rt::TILE_BN, (m + rt::TILE_BM - 1) / rt::TILE_BM);
+  const bool cpw = k % 16 != 0;
+  cudaError_t e;
   if (x_bf16) {
-    rt::qmm_simt_kernel<true><<<grid, rt::TILE_THREADS, 0, st>>>(a);
+    e = block == 64 ? (cpw ? rt::launch_wgmma<64, true>(a, split, st) : rt::launch_wgmma<64, false>(a, split, st))
+                    : (cpw ? rt::launch_wgmma<128, true>(a, split, st) : rt::launch_wgmma<128, false>(a, split, st));
   } else {
-    rt::qmm_simt_kernel<false><<<grid, rt::TILE_THREADS, 0, st>>>(a);
+    e = cpw ? rt::launch_f32_block<true>(a, block, split, st) : rt::launch_f32_block<false>(a, block, split, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

@@ -1,8 +1,8 @@
 // The 64 x 128 output tile of 256 threads of matmul_fused.cu's ragged route
-// (dense bf16 rows TMA cannot address; the bf16 loop) and of
-// quant_matmul.cu's f32 path (int8 weights; the f32 loop). Each kernel
-// stages its own operands into shared memory; the K loops, the tensor-core
-// step and the order of the epilogue are here. The mma_bf16 step and pack_bf16x2 serve flash_attention.cu too.
+// (dense bf16 rows TMA cannot address; the bf16 loop). The kernel stages
+// its own operands into shared memory; the K loop, the tensor-core step and
+// the order of the epilogue are here. The mma_bf16 step and pack_bf16x2
+// serve flash_attention.cu and quant_matmul.cu too.
 //
 // - bf16 (tensor cores): per K step of 32, the A tile (64 rows x 32, k
 //   contiguous) and the B tile are staged as bf16 into two buffers, the
@@ -14,10 +14,6 @@
 //   distinct banks. 8 warps as 2 x 4, each owning 32 x 32: per k16 step two
 //   ldmatrix.x4 for A, two for B, and 2 x 4 mma.sync.m16n8k16 (bf16 in, f32
 //   accumulate): 32 f32 accumulators per thread.
-// - f32 (CUDA cores, exact f32 products, no TF32): per K step of 16, A
-//   transposed ([16 k][64 rows]) and B k-major ([16 k][128 columns]) in
-//   shared memory, one buffer; each thread owns 4 x 8 outputs (rows ty +
-//   16 i, columns tx + 16 j) and accumulates with fmaf.
 #pragma once
 
 #include "common.cuh"
@@ -29,7 +25,6 @@ constexpr int TILE_BM = 64, TILE_BN = 128, TILE_THREADS = 256;
 constexpr int TILE_BK = 32;              // K step of the bf16 loop
 constexpr int TILE_LDS = TILE_BK + 8;    // [row][k] stride of a bf16 tile, in bf16
 constexpr int TILE_LDN = TILE_BN + 8;    // [k][column] stride of a k-major bf16 B tile
-constexpr int SIMT_BK = 16;              // K step of the f32 loop
 
 // c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
@@ -129,42 +124,6 @@ __device__ __forceinline__ void bf16_tile_epilogue(const float (&acc)[2][4][4], 
       pair(row, col, acc[i][j][0], acc[i][j][1]);
       pair(row + 8, col, acc[i][j][2], acc[i][j][3]);
     }
-  }
-}
-
-// Shared memory of the f32 loop: A transposed, B k-major.
-struct F32Tiles {
-  float a[SIMT_BK][TILE_BM + 4];
-  float b[SIMT_BK][TILE_BN];
-};
-
-// The f32 K loop: stage(k0) fills the tiles with K columns k0..k0+15 (zeros
-// past the edges). Thread (ty, tx) = (tid / 16, tid % 16) accumulates rows
-// ty + 16 i and columns tx + 16 j.
-template <typename Stage>
-__device__ __forceinline__ void f32_tile_loop(int k, const Stage& stage, const F32Tiles& s,
-                                              float (&acc)[4][8]) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += SIMT_BK) {
-    stage(k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SIMT_BK; ++kk) {
-      float xv[4], wv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = s.a[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) wv[j] = s.b[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 }
 

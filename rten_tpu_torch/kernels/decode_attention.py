@@ -68,9 +68,10 @@ from rten_tpu_torch.kernels.quant_matmul import (
 
 CHUNK = KV_CHUNK  # cache positions per split-KV chunk (csrc/kv_attention.cuh KV_CHUNK)
 _LANES = 128  # the TPU's lane width, in the copied support rules below
-# Head dims decode_block is built for (csrc/decode_block.cu block_dim_ok):
-# those of the JAX mega rule's whose rows are whole 16-byte bulk copies.
-BLOCK_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims decode_block takes (csrc/decode_block.cu block_dim_ok): every
+# divisor of 128, as the JAX mega rule admits; 8, 4, 2 and 1 run the 16
+# instance with narrow rows.
+BLOCK_HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def kv_head_dim_supported(head_dim: int) -> bool:
@@ -456,7 +457,7 @@ def _decode_block(
     name = "decode_block"
     if d not in BLOCK_HEAD_DIMS:
         raise ValueError(f"decode_block: head dim {d} is not one of {BLOCK_HEAD_DIMS}, the head dims of "
-                         "rten_tpu/kernels/decode_attention.py:697 mega_block_supported that it is built for")
+                         "rten_tpu/kernels/decode_attention.py:697 mega_block_supported")
     _operand_args(name, ops, d)
     dtype = q.dtype
     for what, t in (("k_cache", k_cache), ("v_cache", v_cache), ("residual", residual)):
@@ -475,8 +476,9 @@ def _decode_block(
                                or stamps.device != dev):
         raise ValueError(f"decode_block: stamps must be an int64 [{grid}, {BLOCK_STAMPS}] tensor on {dev}")
     # One f32 scratch: each (query head, chunk)'s P.V, max and sum (d + 4
-    # floats), h, the up row and the f32 block output, each 256-byte aligned.
-    sizes = (hq * n_chunks * (d + 4), dm, ff, dm)
+    # floats; 16 + 4 for the narrow rows of d < 16), h, the up row and the
+    # f32 block output, each 256-byte aligned.
+    sizes = (hq * n_chunks * (max(d, 16) + 4), dm, ff, dm)
     scratch = torch.empty(sum(_aligned(n) for n in sizes), dtype=torch.float32, device=dev)
     ptrs, off = [], 0
     for n in sizes:

@@ -657,11 +657,40 @@ def matmul_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None =
     return tok, split_for(tiles, -(-k // QW_BK), sms, fits)
 
 
+# The f32 route (quant_matmul.cu qmm_f32_kernel): a block owns F32_TOK
+# tokens and 64 or 128 output channels (``f32_channels``), a stage QW_BK of
+# K, each f32 activation split into three bf16 parts whose products are
+# summed as the bf16 route's one part.
+F32_TOK = 64
+
+
+def f32_channels(m: int, k: int) -> int:
+    """Output channels a block of the f32 route takes: 128 (two consumer
+    warpgroups on each stage's split x tile, which halves the splitting a
+    channel) above 64 rows when K takes more than one stage; else 64, where
+    the weights' bytes bound the call and more blocks fill the card (one K
+    step: the kernel's one-stage block, two to an SM)."""
+    return 128 if m > F32_TOK and k > QW_BK else 64
+
+
+@functools.lru_cache(maxsize=1024)
+def f32_plan(m: int, n: int, k: int, sms: int, fits: tuple[int, ...] | None = None) -> tuple[int, int]:
+    """``(bn, split)`` of one f32 ``quant_matmul_int8`` launch on a card
+    with ``sms`` SMs: output channels a block (``f32_channels``) and the
+    split-K cluster size (``split_for`` over the (N / bn) x (M / 64) output
+    tiles and the K steps of QW_BK; ``fits``: the device's cluster capacity
+    for that block, ``cluster_capacity(..., "f32", bn)``)."""
+    bn = f32_channels(m, k)
+    tiles = -(-n // bn) * -(-m // F32_TOK)
+    return bn, split_for(tiles, -(-k // QW_BK), sms, fits)
+
+
 @functools.lru_cache(maxsize=64)
 def cluster_capacity(device_index: int, tok: int, kernel: str = "int8", ch: int = 64, smem: int = 0
                      ) -> tuple[int, ...]:
     """``fits`` of ``split_for`` for ``kernel``'s ``tok``-token block on
-    this device (``"int8"``: quant_matmul.cu's bf16 block; ``"w8a8"``: the
+    this device (``"int8"``: quant_matmul.cu's bf16 block; ``"f32"``: its
+    f32 block of ``ch`` output channels (``tok`` unused); ``"w8a8"``: the
     two-launch W8A8 matmul's, with ``ch`` output channels a consumer
     warpgroup; ``"w8a8_fused"``: the one-launch W8A8 kernel's, with
     ``smem`` bytes of shared memory a block): clusters of 1..MAX_SPLIT
@@ -670,7 +699,9 @@ def cluster_capacity(device_index: int, tok: int, kernel: str = "int8", ch: int 
     lib = _build.library()
     with torch.cuda.device(device_index):
         if kernel == "int8":
-            fits = tuple(int(lib.rt_quant_matmul_clusters(tok, c)) for c in range(1, MAX_SPLIT + 1))
+            fits = tuple(int(lib.rt_quant_matmul_clusters(0, tok, c)) for c in range(1, MAX_SPLIT + 1))
+        elif kernel == "f32":
+            fits = tuple(int(lib.rt_quant_matmul_clusters(1, ch, c)) for c in range(1, MAX_SPLIT + 1))
         elif kernel == "w8a8":
             fits = tuple(int(lib.rt_quant_matmul_w8a8_clusters(tok, ch, c)) for c in range(1, MAX_SPLIT + 1))
         else:
@@ -820,6 +851,14 @@ def device_plan(x, n: int) -> tuple[int, int]:
     return matmul_plan(m, n, k, sm_count(idx), cluster_capacity(idx, matmul_tokens(m)))
 
 
+def f32_device_plan(x, n: int) -> tuple[int, int]:
+    """``f32_plan`` of f32 rows ``x`` [M, K] against N output channels on
+    x's card, with its SM count and the chosen block's cluster capacity."""
+    m, k = x.shape
+    idx = _device_index(x)
+    return f32_plan(m, n, k, sm_count(idx), cluster_capacity(idx, F32_TOK, "f32", f32_channels(m, k)))
+
+
 def w8a8_device_plan(x, n: int) -> W8A8Plan:
     """The one-launch plan of rows x [M, K] (f32 or bf16) against N output
     channels on x's card: ``w8a8_plan`` with its SM count and the chosen
@@ -859,14 +898,14 @@ def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
 
     M ≤ 8 hands off to ``quant_gemv_int8``, as the TPU function does, where
     K is a multiple of 16 (the GEMV's rule). Otherwise CUDA tensors launch
-    ``csrc/quant_matmul.cu``: bf16 activations on the tensor cores
-    (``wgmma`` from a TMA-fed ring, f32 accumulation, split-K across a
-    cluster by ``matmul_plan``), f32 activations on an f32 SIMT path with
-    exact f32 products (no rounding to bf16 or TF32). K must be a multiple
-    of 8; bf16 activations whose K is not a multiple of 16 (TMA cannot
-    address such weight rows) take the SIMT path too, their products as
-    exact. A split-K launch also counts under ``quant_matmul_int8:split_k``.
-    CPU tensors run ``quant_matmul_int8_ref``."""
+    ``csrc/quant_matmul.cu`` on the tensor cores (``wgmma`` from a TMA-fed
+    ring, f32 accumulation, split-K across a cluster): bf16 activations in
+    one pass (``matmul_plan``), f32 activations in three bf16 passes whose
+    products are exact, as an f32 FMA's (no rounding to bf16 or TF32;
+    ``f32_plan``). K must be a multiple of 8; where it is 8 mod 16 (TMA
+    cannot address such weight rows) the weight tiles arrive by cp.async
+    instead. A split-K launch also counts under
+    ``quant_matmul_int8:split_k``. CPU tensors run ``quant_matmul_int8_ref``."""
     m, k = x.shape
     n = w_t.shape[0]
     if m <= MAX_ROWS and k % 16 == 0:
@@ -881,12 +920,13 @@ def quant_matmul_int8(x, w_t, scales, bias=None, *, activation=None, out_dtype=N
     scales = _vec_f32(scales, n, "scales")
     bias = _vec_f32(bias, n, "bias")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    tok, split = device_plan(x, n) if x.dtype == torch.bfloat16 and k % 16 == 0 else (0, 1)
+    f32 = x.dtype == torch.float32
+    block, split = f32_device_plan(x, n) if f32 else device_plan(x, n)
     rc = _build.library().rt_quant_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
+        x.data_ptr(), int(not f32), m, k,
         w_t.data_ptr(), scales.data_ptr(), _ptr(bias), n,
         activation_code(activation), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        tok, split, _stream(x),
+        block, split, _stream(x),
     )
     _build.check(rc, "quant_matmul_int8")
     LAUNCHES["quant_matmul_int8"] += 1

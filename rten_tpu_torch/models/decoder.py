@@ -104,8 +104,8 @@ any other (80, 96, ...) it is appended to the cache and attends through
 ``flash_attention`` at Tq 1, as the JAX decoder runs a step its decode
 kernels refuse, and ``generate_scan`` then runs its steps eagerly (that
 route reads the cache length on the host). The whole-block kernel takes
-head dims 16, 32, 64 and 128 (``BLOCK_HEAD_DIMS``); a mega layer at another
-head dim the JAX rule admits (8, 4, 2, 1) runs the two-kernel step.
+every head dim the JAX mega rule admits (every divisor of 128), so a mega
+layer runs ``decode_block`` wherever the JAX decoder runs its mega kernel.
 
 Parameters are plain dicts of tensors. Dense parameters mirror the JAX
 package's names; ``quantize_params_int8`` (or ``params_from_jax`` of an
@@ -138,7 +138,6 @@ from torch.utils.weak import WeakIdKeyDictionary
 from rten_tpu_torch.kernels.activations import ACTIVATIONS
 from rten_tpu_torch.kernels.attention import flash_attention
 from rten_tpu_torch.kernels.decode_attention import (
-    BLOCK_HEAD_DIMS,
     decode_attention,
     decode_attention_int8,
     decode_block,
@@ -893,7 +892,7 @@ def _mega_layer(params: dict, cfg: DecoderConfig, li: int, cache: dict):
         nq = nxt["wqkv"]
         next_qkv = (nq["qt"], nq["s"], nxt.get("bqkv"), nxt["ln1"]["scale"], nxt["ln1"].get("bias"))
     k_cache = cache["k"][li]
-    if hd not in BLOCK_HEAD_DIMS or not mega_block_supported(
+    if not mega_block_supported(
             d, ff, qkv_dim if next_qkv is not None else 0, hk, hd, k_cache.shape[2], kv_bytes=k_cache.element_size()):
         return None
     mlp = (up["qt"], up["s"], down["qt"], down["s"], layer.get("b_up"), layer.get("b_down"),

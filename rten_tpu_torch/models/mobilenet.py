@@ -10,8 +10,8 @@ matmul: once ``quantize_params_int8`` made it an int8 pack, through
 added and ReLU6 taken, as the JAX ``_pointwise`` does), else through
 ``ieee.matmul``. The JAX rule quantizes a pointwise convolution whenever
 both of its dims are multiples of 8, so MobileNetV2 has two expand
-convolutions of K 24; the kernel takes them (``quant_matmul.cu``'s SIMT
-loop reads such weight rows as 8-byte halves).
+convolutions of K 24; the kernel takes them (``quant_matmul.cu`` brings
+such weight rows in 8-byte cp.async pieces).
 
 Layout: activations are kept channels-last (``torch.channels_last``) from
 the stem on, so that the pointwise operand ``[N·H·W, C]`` is a view and the

@@ -11,6 +11,7 @@ greedy tokens identical (ROADMAP's bars).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -320,18 +321,39 @@ def _random_caches(jcfg, tcfg, n, s_max, seed):
     return jcache, carry_cache(jcache, tcfg.head_dim)
 
 
-@pytest.mark.parametrize("w8a8", [False, True], ids=["weight_only", "w8a8"])
-def test_mega_decode_step_matches_jax(models, jax_mega, w8a8):
-    """A decode step at batch 1 on a 64-position cache holding 20 tokens:
-    the port's ``decode_block`` in every layer against the JAX mega kernel
-    in every layer; logits within 1e-3, caches equal to f32 rounding (atol
-1e-5, as the other decoder tests hold them). Under W8A8 the block
-    stays weight-only (the TPU kernel has no W8A8 mode) while layer 0's qkv
-    and the lm_head run the w8a8 GEMV, in both packages."""
-    jcfg, tcfg, jparams, tparams = models
+@functools.lru_cache(maxsize=None)
+def _models_at(head_dim: int):
+    """``models`` at SLICE_CFG's d_model with heads of ``head_dim``."""
+    n_heads = SLICE_CFG["d_model"] // head_dim
+    jcfg, tcfg = configs(n_heads=n_heads)
+    jparams = jdec.quantize_params_int8(to_jax(dense_tree(0, n_heads=n_heads)), tile_bn=128)
+    tparams = tdec.params_from_jax(to_numpy(jparams), tcfg, device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+# (w8a8, head dim): SLICE_CFG's 4 heads of 64, and 32 heads of 8 and 64 of
+# 4 at the same d_model, each on the smallest cache the JAX rule admits
+# there (S · D a multiple of 1024).
+MEGA_STEP_CASES = [(False, 64), (True, 64), (False, 8), (False, 4)]
+
+
+@pytest.mark.parametrize("w8a8,head_dim", MEGA_STEP_CASES,
+                         ids=[("w8a8" if w else "weight_only") + ("" if d == 64 else f"_d{d}")
+                              for w, d in MEGA_STEP_CASES])
+def test_mega_decode_step_matches_jax(models, jax_mega, w8a8, head_dim):
+    """A decode step at batch 1 on a cache holding 20 tokens (64
+    positions at head dim 64, 128 at 8, 256 at 4): the port's
+    ``decode_block`` in every layer against the JAX mega kernel in every
+    layer; logits within 1e-3, caches equal to f32 rounding (atol 1e-5, as
+    the other decoder tests hold them). Under W8A8 the block stays
+    weight-only (the TPU kernel has no W8A8 mode) while layer 0's qkv and
+    the lm_head run the w8a8 GEMV, in both packages. At head dims 8 and 4
+    the route is what would show a fault: in f32 the two-kernel step
+    differs from the block only in the order of its sums."""
+    jcfg, tcfg, jparams, tparams = models if head_dim == 64 else _models_at(head_dim)
     calls = jax_mega(w8a8)
     tcfg = dataclasses.replace(tcfg, mega=True, w8a8=w8a8)
-    jcache, tcache = _random_caches(jcfg, tcfg, 20, 64, seed=80)
+    jcache, tcache = _random_caches(jcfg, tcfg, 20, {64: 64, 8: 128, 4: 256}[head_dim], seed=80)
     tok = np.array([[123]], np.int32)
     jlogits, jcache = jdec.forward(jparams, jcfg, jnp.asarray(tok), jcache)
     assert calls == list(range(jcfg.n_layers))  # the JAX decoder took its mega kernel in every layer

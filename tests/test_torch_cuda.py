@@ -1751,6 +1751,78 @@ def test_matmul_bitwise_deterministic(dev, m, n, k):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+# The f32 route's shapes (PERF.md's f32 rows): the GPT-2 graph's
+# projections at its 64-token prompt (c_attn, c_fc, mlp c_proj, lm_head),
+# DistilBERT's at 3072 rows (wq / wo, up, down), MobileNetV2's expand conv
+# of K 24 at 300 rows and a K-16 project conv at 1568 rows.
+F32_ROUTE_SHAPES = [(64, 2304, 768), (64, 3072, 768), (64, 768, 3072), (64, 50257, 768), (3072, 768, 768),
+                    (3072, 3072, 768), (3072, 768, 3072), (300, 144, 24), (1568, 96, 16)]
+
+
+@pytest.mark.parametrize("m,n,k", F32_ROUTE_SHAPES + [(9, 131, 3000), (65, 70, 2056), (200, 1000, 40)])
+def test_matmul_f32_route_matches_plain(dev, m, n, k):
+    """f32 activations on the tensor cores (three bf16 passes, exact
+    products), at the models' shapes and ragged M, N and K (K of 8 mod 16
+    by cp.async): one launch, no plain call, split-K counted where
+    f32_plan splits, f32 tolerance against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(54)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    split = qm.f32_device_plan(x, n)[1]
+    dispatch.reset_counters()
+    out = qm.quant_matmul_int8(x, qt, s, bias, activation="gelu")
+    assert dispatch.LAUNCHES["quant_matmul_int8"] == 1 and not dispatch.PLAIN
+    assert dispatch.LAUNCHES["quant_matmul_int8:split_k"] == (split > 1)
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    _close(out, qm.quant_matmul_int8_ref(x, qt, s, bias, activation="gelu"), torch.float32)
+
+
+# The f32 route against an f64 product: x in [1, 2) x 2^e (e in -4..4, mixed
+# magnitudes) with its lowest 8 significand bits set, so the lo part of its
+# three-way split is near its largest (2^-15 of x), and all-positive int8
+# weights, so a dropped part cannot cancel out: max |out - exact| / max
+# |exact|. Measured at these shapes on an NVIDIA H100 80GB HBM3, 700 W
+# (PERF.md, section 6): the first design's FMA loop (exact products, f32 sums)
+# 1.45e-6 to 3.47e-6; this route 1.82e-6 to 1.92e-6; the same route with
+# the lo pass dropped (two passes) 1.43e-5 to 1.51e-5, which fails here.
+F32_F64_TOL = 7e-6
+
+
+def _f64_case(dev, m, n, k, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mant = torch.randint(0, 1 << 23, (m, k), generator=gen, device=dev, dtype=torch.int32) | 0xFF
+    expo = torch.randint(-4, 5, (m, k), generator=gen, device=dev, dtype=torch.int32)
+    x = ((mant | (127 << 23)).view(torch.float32) * torch.exp2(expo.float())).contiguous()
+    qt = torch.randint(1, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand(n, generator=gen, device=dev) * 0.02 + 0.001
+    exact = (x.double() @ qt.double().t()) * s.double()
+    return x, qt, s, exact
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 768, 768), (64, 768, 3072), (512, 768, 3072), (3072, 768, 3072)])
+def test_matmul_f32_route_against_f64(dev, m, n, k):
+    """The f32 route's products are exact: its error against an f64
+    product stays within F32_F64_TOL (the sums' order alone), which a
+    route that drops the split's lo part exceeds (the numbers above)."""
+    x, qt, s, exact = _f64_case(dev, m, n, k, seed=55)
+    out = qm.quant_matmul_int8(x, qt, s)
+    err = ((out.double() - exact).abs().max() / exact.abs().max()).item()
+    assert err <= F32_F64_TOL, err
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 768, 3072), (64, 2304, 768), (9, 131, 3000), (3072, 768, 768)])
+def test_matmul_f32_route_bitwise_deterministic(dev, m, n, k):
+    """Three launches of the f32 route on the same inputs give the same
+    bits, split-K included (the partials summed in rank order)."""
+    gen = torch.Generator(device=dev).manual_seed(56)
+    qt, s = _pack(gen, n, k, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    bias = torch.randn(n, generator=gen, device=dev)
+    outs = [qm.quant_matmul_int8(x, qt, s, bias) for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
 def _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=64, causal=True, seed=60):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = (1.5 * torch.randn(b, hq, tq, d, generator=gen, device=dev)).to(torch.bfloat16)
@@ -2943,7 +3015,10 @@ def test_graph_quant_matmul_launches_its_kernels(dev, m, k):
     s = torch.rand(n, generator=gen, device=dev) * 0.01 + 0.001
     dispatch.reset_counters()
     out = get_op("QuantMatMul").fn(OpContext(device=dev), {}, x, w, s)
-    assert dict(dispatch.LAUNCHES) == {"quant_gemv_int8" if m <= 8 else "quant_matmul_int8": 1}
+    want = {"quant_gemv_int8" if m <= 8 else "quant_matmul_int8": 1}
+    if m > 8 and qm.f32_device_plan(x, n)[1] > 1:  # the f32 route splits K where its tiles are few
+        want["quant_matmul_int8:split_k"] = 1
+    assert dict(dispatch.LAUNCHES) == want
     assert not dispatch.PLAIN
     ref = (x.double() @ w.double()) * s.double()
     assert ((out.double() - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item() < 1e-4
@@ -3368,9 +3443,10 @@ def test_collectives_on_cuda_tensors(dev):
         assert {k.split(":")[1] for k in res["routes"]} == {route}, res["routes"]
 
 
-# -- every head dim and page size the JAX kernels take: flash_attention up
-# to 256 (instances at 16, 32, 64, 128 and 256, the head dims between them
-# zero-filled), the KV kernels at every divisor of 128, pages under 64
+# -- every head dim and page size the JAX kernels take: flash_attention at
+# any head dim (instances at 16, 32, 64, 128 and 256, the head dims between
+# them zero-filled, above 256 in slices of 256 output columns), the KV
+# kernels and decode_block at every divisor of 128, pages under 64
 # positions, and the C entry points' refusal of a head dim they have no
 # instance for --
 
@@ -3379,17 +3455,55 @@ FLASH_HEAD_DIM_CASES = ["causal", "gqa", "q_offset_kv_len", "kv_len_0_row", "lon
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", FLASH_HEAD_DIM_CASES)
-@pytest.mark.parametrize("d", [8, 16, 24, 32, 80, 96, 256])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 80, 96, 256, 300, 320, 512])
 def test_flash_kernel_every_head_dim(dev, dtype, case, d):
-    """Head dims 16, 32 and 256 on their own instances and 8, 24, 80 and 96
-    on the next one up (columns past d zero): against the plain version
-    (own-max tolerance), one launch counted under flash_attention:d<D>."""
+    """Head dims 16, 32 and 256 on their own instances, 8, 24, 80 and 96
+    on the next one up (columns past d zero), and 300, 320 and 512 on the
+    256 one in two slices of 256 output columns (the second's columns past
+    d zero): against the plain version (own-max tolerance), one launch
+    counted under flash_attention:d<D>."""
     args, kw = _flash_inputs(dev, case, dtype, d)
     before = dispatch.LAUNCHES[f"flash_attention:d{d}"]
     out = flash_attention(*args, **kw)
     assert dispatch.LAUNCHES[f"flash_attention:d{d}"] == before + 1
     assert out.shape == args[0].shape
     _close_own_max(out, flash_attention_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("d", [300, 320, 512])
+@pytest.mark.parametrize("case", ["tq8_chunk", "gqa_14_over_2_tq24_at_300", "kv_len_0_row", "kv_len_on_split_edge"])
+def test_flash_split_kv_above_256(dev, case, d):
+    """bf16 above head dim 256 on a grid of few blocks: each slice's
+    cluster splits the KV tiles (flash_plan over the slices' blocks), every
+    rank recomputing the scores over the whole d; against the plain
+    version, one launch counted under split_kv when the plan splits."""
+    from rten_tpu_torch.kernels.attention import _sms, flash_plan, flash_slices
+
+    args, kw = _flash_case(dev, *SPLIT_KV_CASES[case], d=d)
+    b, hq, tq, _ = args[0].shape
+    split = flash_plan(b, hq, args[1].shape[1], tq, args[1].shape[2], _sms(args[0]), flash_slices(d))[1]
+    before = dispatch.LAUNCHES["flash_attention:split_kv"]
+    out = flash_attention(*args, **kw)
+    assert dispatch.LAUNCHES["flash_attention:split_kv"] == before + (split > 1)
+    assert split > 1 or case == "kv_len_0_row"
+    _close_own_max(out, flash_attention_ref(*args, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [300, 320, 512])
+def test_flash_kernel_above_256_views(dev, dtype, d):
+    """Above head dim 256, q, k and v as views of one packed [B, T, 3, H, d]
+    buffer (rows 8-byte aligned at 300, 16 at 320 and 512), causal at a
+    q_offset, GQA-free and non-causal per-row lengths: against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b, h, t = 2, 3, 70
+    qkv = (1.5 * torch.randn(b, t, 3, h, d, generator=gen, device=dev)).to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for kw in (dict(causal=True, q_offset=torch.tensor([0, 3], dtype=torch.int32, device=dev),
+                    kv_len=torch.tensor([70, 66], dtype=torch.int32, device=dev)),
+               dict(causal=False, kv_len=torch.tensor([41, 70], dtype=torch.int32, device=dev))):
+        _close_own_max(flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -3423,6 +3537,42 @@ def test_kv_engine_small_head_dims(dev, kind, d, group, dtype):
     dispatch.reset_counters()
     _engine_check(kernel, plain, args, kw, n_cache, dtype, kind)
     assert dispatch.LAUNCHES[f"{kernel.__name__}:d{d}"] == 2  # the kernel twice; PLAIN counts the reference
+
+
+# (query heads, kv heads, packed) at head dims 8, 4, 2 and 1: 16 query
+# heads, so that wo's K (16 d) is whole 16-byte pieces at every one.
+SMALL_BLOCK_OPS = {"packed": (16, 16, True), "gqa16_4": (16, 4, False), "mqa16_1": (16, 1, False)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 4, 2, 1])
+@pytest.mark.parametrize("ops", list(SMALL_BLOCK_OPS))
+@pytest.mark.parametrize("kv_len,with_next", [(0, True), (63, False), (64, True), (65, True), (767, False)])
+def test_decode_block_small_head_dims(dev, dtype, d, ops, kv_len, with_next):
+    """decode_block at head dims 8, 4, 2 and 1 (the JAX mega rule's other
+    divisors of 128) on the 16 instance, its narrow rows staged in pieces:
+    against decode_block_ref at S 768 (the chunk edges and the last
+    position), the caches after the append bit for bit, one launch counted
+    under decode_block:d<D>."""
+    h, hk, packed = SMALL_BLOCK_OPS[ops]
+    args, kw = _block_case(dev, dtype, d, kv_len, with_next, h=h, hk=hk, packed=packed, s_max=768)
+    dispatch.reset_counters()
+    _block_check(args, kw, dtype, with_next)
+    assert dispatch.LAUNCHES["decode_block"] == 1 and dispatch.LAUNCHES[f"decode_block:d{d}"] == 1
+
+
+def test_decode_block_small_head_dims_any_grid(dev, monkeypatch):
+    """Head dim 4 over a grid of 16 blocks with the weights in waves gives
+    the same bits as the full grid."""
+    from rten_tpu_torch.kernels import decode_attention as da
+
+    args, kw = _block_case(dev, torch.bfloat16, 4, 300, True, h=16, hk=4, packed=False, s_max=768)
+    caches = (args[1].clone(), args[2].clone())
+    full = da.decode_block(*args, **kw)
+    monkeypatch.setattr(da, "block_grid", lambda _i: 16)
+    monkeypatch.setattr(da, "block_region", lambda: 32 << 10)
+    small = da.decode_block(args[0], *caches, *args[3:], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(full, small))
 
 
 def _gather_pages(pages, table, cap):
@@ -3520,12 +3670,12 @@ def test_tiny_decoder_head_dims_match_plain(dev, head_dim):
 
 
 def test_entry_points_refuse_other_head_dims(dev, monkeypatch):
-    """A head dim a C entry point has no instance for launches nothing and
-    returns cudaErrorInvalidValue (the wrappers raise before it: their
-    checks are lifted here): the four KV kernels' launch and cluster-count
-    entries at 48, decode_block at 8, flash_attention at 320. The caches
-    are left as they were."""
-    from rten_tpu_torch.kernels import _build, attention
+    """A head dim a C entry point has no instance for (one the JAX rules
+    refuse) launches nothing and returns cudaErrorInvalidValue (the
+    wrappers raise before it: their checks are lifted here): the four KV
+    kernels' launch and cluster-count entries and decode_block at 48. The
+    caches are left as they were."""
+    from rten_tpu_torch.kernels import _build
     from rten_tpu_torch.kernels import decode_attention as da
 
     lib = _build.library()
@@ -3541,14 +3691,10 @@ def test_entry_points_refuse_other_head_dims(dev, monkeypatch):
             kernel(*args, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(args[1:], before))
-    monkeypatch.setattr(da, "BLOCK_HEAD_DIMS", (8,))
-    args, kw = _block_case(dev, torch.bfloat16, 8, 5, False)
+    monkeypatch.setattr(da, "BLOCK_HEAD_DIMS", (48,))
+    args, kw = _block_case(dev, torch.bfloat16, 48, 5, False)
     kc = args[1].clone()
     with pytest.raises(RuntimeError, match="CUDA error 1 "):
         da.decode_block(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(args[1], kc)
-    monkeypatch.setattr(attention, "FLASH_HEAD_DIMS", (512,))
-    q = torch.randn(1, 2, 4, 320, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error 1 "):
-        flash_attention(q, q, q)

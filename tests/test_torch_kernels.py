@@ -260,7 +260,9 @@ def test_quant_matmul_hands_small_m_to_gemv(rng):
 
 
 # (b, hq, hk, tq, s, causal, q_offset, kv_len), at GPT-2's head dim 64 and
-# at 16, 32 (instances of the CUDA kernel), 24 and 96 (run by it zero-filled).
+# at 16, 32 (instances of the CUDA kernel), 24 and 96 (run by it zero-filled);
+# GQA, q_offset / kv_len and the non-causal case also above the widest
+# instance, at 320 and 512 (run by it in slices of 256 columns).
 FLASH_CASES = {
     "causal": (2, 2, 2, 64, 128, True, None, None),
     "non_causal": (1, 2, 2, 40, 128, False, None, [97]),
@@ -271,7 +273,8 @@ FLASH_CASES = {
 }
 
 
-@pytest.mark.parametrize("case,d", head_dim_params([((c,), c) for c in FLASH_CASES], [16, 32, 24, 96]))
+@pytest.mark.parametrize("case,d", head_dim_params([((c,), c) for c in FLASH_CASES], [16, 32, 24, 96]) + [
+    pytest.param(c, d, id=f"{c}-d{d}") for d in (320, 512) for c in ("gqa", "q_offset_kv_len", "non_causal")])
 def test_flash_attention_matches_pallas(rng, case, d):
     b, hq, hk, tq, s, causal, q_offset, kv_len = FLASH_CASES[case]
     q = rng.standard_normal((b, hq, tq, d)).astype(np.float32) * 1.5

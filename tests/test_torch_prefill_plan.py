@@ -143,6 +143,62 @@ def test_matmul_plan_other_cards(sms):
         assert split == 1 or tiles * split <= sms
 
 
+# The f32 route's blocks of more than one K step (quant_matmul.cu
+# qmm_f32_kernel: 222 KB and 198 KB of shared memory) fill an SM each. Its shapes: the GPT-2 graph's
+# projections at its 64-token prompt, DistilBERT's at 3072 rows,
+# MobileNetV2's expand convs of K 24 and 16, ragged shapes.
+FITS_F32 = _fits(1)
+F32_SHAPES = MATMUL_SHAPES + [
+    (64, 2304, 768), (64, 3072, 768), (64, 768, 3072), (64, 50257, 768),
+    (3072, 768, 768), (3072, 3072, 768), (3072, 768, 3072),
+    (25088, 144, 24), (100352, 96, 16), (300, 144, 24), (9, 40, 8), (77, 130, 1032),
+]
+
+
+@pytest.mark.parametrize("m,n,k", F32_SHAPES)
+def test_f32_plan_limits_and_coverage(m, n, k):
+    """The f32 route's plan: 64 tokens by 64 channels a block up to 64 rows
+    or at one K step, else by 128; split-K only where the output tiles
+    leave most SMs idle, never past the K steps or the cluster capacity it
+    is given, and then no more blocks than SMs; every K step walked once."""
+    bn, split = qm.f32_plan(m, n, k, H100_SMS, FITS_F32)
+    steps = -(-k // qm.QW_BK)
+    tiles = -(-n // bn) * -(-m // qm.F32_TOK)
+    assert bn == qm.f32_channels(m, k) == (128 if m > 64 and steps > 1 else 64)
+    assert 1 <= split <= qm.MAX_SPLIT and split <= steps
+    assert split == 1 or tiles <= FITS_F32[split - 1]
+    assert (split > 1) == (2 * tiles < H100_SMS and steps > 1 and tiles <= FITS_F32[1])
+    if split > 1:
+        assert tiles * split <= H100_SMS
+    ranges = split_ranges(steps, split)
+    assert _covered_once(ranges, steps)
+    assert ranges[-1][1] * qm.QW_BK >= k > (ranges[-1][1] - 1) * qm.QW_BK
+
+
+def test_f32_plan_main_path_splits():
+    """The GPT-2 graph's few-tile projections at 64 rows split K (mlp
+    c_proj 12 tiles x 8, c_attn 36 x 3, c_fc 48 x 2); its lm_head and the
+    3072-row and MobileNetV2 shapes fill the card without; a smaller
+    capacity cuts the split."""
+    def plan(m, n, k, fits=FITS_F32):
+        return qm.f32_plan(m, n, k, H100_SMS, fits)
+
+    assert plan(64, 768, 3072) == (64, 8)
+    assert plan(64, 2304, 768) == (64, 3)
+    assert plan(64, 3072, 768) == (64, 2)
+    assert plan(64, 50257, 768) == (64, 1)
+    assert plan(3072, 768, 768) == (128, 1)
+    assert plan(3072, 768, 3072) == (128, 1)
+    assert plan(25088, 144, 24) == (64, 1)  # one K step: the one-stage block
+    assert plan(512, 768, 3072) == (128, 2)  # 48 tiles
+    assert plan(64, 768, 128) == (64, 1)  # one K step: nothing to split
+    # 12 clusters of 8 do not fit a capacity of 10; of 7 (12 fit) they do
+    small = tuple(min(f, 12 if c <= 7 else 10) for c, f in enumerate(FITS_F32, 1))
+    assert plan(64, 768, 3072, small) == (64, 7)
+    # without the device's capacity, as many as fill the SMs
+    assert qm.f32_plan(64, 2304, 768, H100_SMS) == (64, 3)
+
+
 FLASH_SHAPES = [  # b, hq, hk, tq, s
     (1, 12, 12, tq, 768) for tq in (1, 2, 5, 8, 24, 64, 100, 512)
 ] + [(1, 14, 2, tq, 1024) for tq in (1, 8, 24, 64, 512)] + [
@@ -167,7 +223,11 @@ def test_flash_plan_limits(b, hq, hk, tq, s):
 
 def test_flash_plan_main_path_splits():
     """Short prompts and the <= 8-row chunks split KV; 512-token prompts
-    (96 and 112 blocks) do not."""
+    (96 and 112 blocks) do not. Head dims above 256 count each output slice
+    as a block."""
+    assert [at.flash_slices(d) for d in (1, 64, 256, 257, 300, 320, 512, 513)] == [1, 1, 1, 2, 2, 2, 2, 3]
+    assert at.flash_plan(2, 4, 2, 32, 256, H100_SMS, at.flash_slices(512)) == (1, 4)  # 8 blocks x 2 slices
+    assert at.flash_plan(1, 12, 12, 512, 768, H100_SMS, 2) == (8, 1)
     assert at.flash_plan(1, 12, 12, 24, 768, H100_SMS) == (1, 8)
     assert at.flash_plan(1, 12, 12, 64, 768, H100_SMS) == (1, 8)
     assert at.flash_plan(1, 14, 2, 64, 1024, H100_SMS) == (7, 8)
