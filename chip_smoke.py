@@ -13,18 +13,20 @@ NVIDIA card.
                                      # phases 1-2 and the KV kernels' and decode_block's
                                      # checks, of this tree's package or DIR's (see
                                      # kv_only); its last line is marked partial
-    python3 chip_smoke.py --encoders LABEL
+    python3 chip_smoke.py --encoders LABEL [--package DIR]
                                      # phases 1-2, the encoders' kernel modes of phase 3
-                                     # and phase 12 alone (see encoders_only); its last
-                                     # line is marked partial
+                                     # and phase 12 alone (see encoders_only), of this
+                                     # tree's package or DIR's; its last line is marked
+                                     # partial
     python3 chip_smoke.py --graph LABEL
                                      # phases 1-2, QuantMatMul's kernel calls at the GPT-2
                                      # graph's widths and phase 13 alone (see graph_only);
                                      # its last line is marked partial
-    python3 chip_smoke.py --files LABEL
+    python3 chip_smoke.py --files LABEL [--package DIR]
                                      # phases 1-2, the lifted path's f32 kernel modes of
-                                     # phase 3 and phase 14 alone (see files_only); its
-                                     # last line is marked partial
+                                     # phase 3 and phase 14 alone (see files_only), of
+                                     # this tree's package or DIR's; its last line is
+                                     # marked partial
     python3 chip_smoke.py --text LABEL
                                      # phases 1-2 and phase 15 alone (see text_only); its
                                      # last line is marked partial
@@ -92,7 +94,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    path), and as one prefill forward through the kernels and through the
    plain versions;
 5. serving — the same model behind the continuous-batching engines: 16
-   seeded requests (prompts 16-320 tokens, 32-160 new tokens) queued at
+   seeded requests (prompts 16-320 tokens, 32-128 new tokens) queued at
    once through ServingEngine (8 slots, 8 forwards a tick; run and
    run_pipelined), PagedServingEngine (pages of 128; a pool that holds them
    all, then one small enough to preempt; then pages of 16, their streams
@@ -615,8 +617,9 @@ def check_wide_flash(torch, bound, randn, record):
     and bf16, each against its plain version (own-max tolerance: 1e-4 f32,
     1e-2 bf16), timed, with its bound (the function's work: every block of
     a row tile computes the scores over the whole d again, which the bound
-    does not count) and SDPA with the same mask, recorded under
-    flash_attention:d<D>."""
+    does not count; f32's six passes at the bf16 rate, f32_flash_extra
+    adding the CUDA-core bound, the plan's split and the f64 check) and
+    SDPA with the same mask, recorded under flash_attention:d<D>."""
     from rten_tpu_torch.kernels import attention as at
 
     dev = torch.device("cuda", 0)
@@ -655,11 +658,16 @@ def check_wide_flash(torch, bound, randn, record):
                 mask = mask & (col[None, None, :] <= torch.arange(tq, device=dev)[None, :, None] + q_off)
             lib_kw = dict(attn_mask=mask[:, None], enable_gqa=hq != hk)
             library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a, **lib_kw) for a, _ in copies])
-            route = "f32" if dtype == torch.float32 else "bf16"
-            split = at.flash_plan(b, hq, hk, tq, s, sms, at.flash_slices(hd))[1] if route == "bf16" else 1
-            record("flash_attention", f"{route} {name} H={hq}/{hk}", err, tol, ms, plain,
-                   bound(per_call, ops, f32=dtype == torch.float32), library, route=route, split=split,
-                   head_dim=hd, slices=at.flash_slices(hd))
+            if dtype == torch.float32:
+                slices = f32_flash_plan(torch, at, b, hq, hk, tq, s, hd)[0]
+                extra = f32_flash_extra(torch, bound, args, kw, out, per_call, ops)
+                bnd = bound(per_call, 6 * ops)
+            else:
+                slices = at.flash_slices(hd)
+                extra = dict(route="bf16", split=at.flash_plan(b, hq, hk, tq, s, sms, slices)[1])
+                bnd = bound(per_call, ops)
+            record("flash_attention", f"{extra['route']} {name} H={hq}/{hk}", err, tol, ms, plain, bnd, library,
+                   head_dim=hd, slices=slices, **extra)
             del copies
 
 
@@ -1873,6 +1881,68 @@ def f32_route_extra(torch, bound, x, qt, s, bias, out, per_call: int) -> dict:
 # largest value, at phase 3's seeded normal inputs (the sums' order alone:
 # the products are exact).
 F32_ROUTE_F64_GATE = 1e-5
+# The f32 flash kernel's error against the softmax in f64, relative to the
+# output's largest value (tests/test_torch_cuda.py F32_FLASH_F64_TOL, whose
+# inputs put every lo part of the split near its largest).
+F32_FLASH_F64_GATE = 1e-5
+
+
+def flash_f64(torch, q, k, v, causal, q_offset=None, kv_len=None):
+    """The attention of q, k, v in f64: GQA, the causal bound at each row's
+    q_offset, each row's kv_len (every row here sees a column)."""
+    b, hq, tq, d = q.shape
+    hk, s = k.shape[1], k.shape[2]
+    k64, v64 = (x.double().repeat_interleave(hq // hk, 1) for x in (k, v))
+    scores = torch.einsum("bhqd,bhsd->bhqs", q.double(), k64) / math.sqrt(d)
+    col = torch.arange(s, device=q.device)
+    lens = torch.full((b,), s, device=q.device) if kv_len is None else kv_len.long()
+    mask = (col[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        off = torch.zeros(b, device=q.device, dtype=torch.long) if q_offset is None else q_offset.long()
+        rows = torch.arange(tq, device=q.device)[None, :] + off[:, None]  # [B, Tq]
+        mask = mask & (col[None, None, :] <= rows[:, :, None])[:, None]
+    return torch.einsum("bhqs,bhsd->bhqd", torch.softmax(scores.masked_fill(~mask, -math.inf), -1), v64)
+
+
+def f32_flash_plan(torch, at, b: int, hq: int, hk: int, tq: int, s: int, d: int) -> tuple[int, int]:
+    """(slices, split) of an f32 flash_attention launch on this card: f32's
+    output slices (its widest instance FLASH_F32_WIDEST columns) and
+    flash_plan's split-KV cluster over them. A package without
+    FLASH_F32_WIDEST (``--package`` of a tree whose f32 kernel ran on the
+    CUDA cores) slices at bf16's widest and launches f32 unsplit."""
+    if not hasattr(at, "FLASH_F32_WIDEST"):
+        return at.flash_slices(d), 1
+    slices = at.flash_slices(d, False)
+    return slices, at.flash_plan(b, hq, hk, tq, s, torch.cuda.get_device_properties(0).multi_processor_count, slices)[1]
+
+
+def f32_flash_extra(torch, bound, args, kw, out, per_call: int, ops: int) -> dict:
+    """What an f32 flash_attention case records beside its times: its split
+    (flash_plan on this card, f32's slices), the bound at the f32 CUDA-core
+    rate (the first design's, for comparison with older rows), and its
+    error against the softmax in f64 (relative to the output's largest
+    value), which must stay within F32_FLASH_F64_GATE. The case's own bound
+    is the six passes' at the bf16 tensor-core rate (6 · ops)."""
+    from rten_tpu_torch.kernels import attention as at
+
+    q, k, v = args
+    b, hq, tq, d = q.shape
+    ref = flash_f64(torch, q, k, v, kw.get("causal", True), kw.get("q_offset"), kw.get("kv_len"))
+    rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+    if not (rel <= F32_FLASH_F64_GATE):
+        raise AssertionError(f"flash_attention f32 B={b} H={hq} Tq={tq} D={d}: {rel:.3g} from the f64 softmax "
+                             f"> {F32_FLASH_F64_GATE}")
+    split = f32_flash_plan(torch, at, b, hq, k.shape[1], tq, k.shape[2], d)[1]
+    return dict(route="f32", split=split, f64_rel_err=rel, cuda_core_bound_ms=bound(per_call, ops, f32=True)[0])
+
+
+def f32_flash_splits(torch, shapes) -> int:
+    """The f32 flash_attention launches among ``shapes`` ((b, hq, hk, tq, s,
+    d) each, as the calls pass them) that flash_plan splits on this card:
+    what a path's ``flash_attention:split_kv`` count must be."""
+    from rten_tpu_torch.kernels import attention as at
+
+    return sum(f32_flash_plan(torch, at, *shape)[1] > 1 for shape in shapes)
 
 
 def check_encoder_kernels(torch, bound, randn, pack, record):
@@ -1881,10 +1951,10 @@ def check_encoder_kernels(torch, bound, randn, pack, record):
     and bf16 at the encoders' and vision models' shapes, each against its
     plain version, timed as check_kernels times the others; the
     yardsticks are F.linear in f32 (TF32 off, the weights dequantized) and
-    F.scaled_dot_product_attention with a key mask. f32 matmul cases bound
-    their three passes at the bf16 tensor-core rate (f32_route_extra adds
-    the f32 CUDA-core bound and the f64 check); the f32 flash kernel's
-    operations are bounded at the f32 CUDA-core rate."""
+    F.scaled_dot_product_attention with a key mask. f32 cases bound their
+    passes at the bf16 tensor-core rate, the matmul's three and flash's six
+    (f32_route_extra and f32_flash_extra add the f32 CUDA-core bound and
+    the f64 check)."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import quant_matmul as qm
 
@@ -1963,10 +2033,10 @@ def check_encoder_kernels(torch, bound, randn, pack, record):
                 lib_kw["attn_mask"] = (torch.arange(t, device=dev)[None, :] < kw["kv_len"][:, None].long())[
                     :, None, None, :]
             library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a, **lib_kw) for a, _ in copies])
-            route = "f32" if dtype == f32 else "bf16"
-            record("flash_attention", f"{route} {name} H={n_heads} D={hd}", err, tol, ms, plain,
-                   bound(per_call, ops, f32=dtype == f32), library, route=route,
-                   host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)), head_dim=hd)
+            extra = f32_flash_extra(torch, bound, args, kw, out, per_call, ops) if dtype == f32 else dict(route="bf16")
+            record("flash_attention", f"{extra['route']} {name} H={n_heads} D={hd}", err, tol, ms, plain,
+                   bound(per_call, 6 * ops if dtype == f32 else ops), library,
+                   host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)), head_dim=hd, **extra)
             del copies
 
 # Whisper-tiny (huggingface.co/openai/whisper-tiny config.json: d_model 384,
@@ -2215,9 +2285,9 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
 # Phase 5: continuous-batching serving at full width
 # ---------------------------------------------------------------------------
 
-# New tokens a request: 32-160 (32-256 before; cut to keep the script within
-# its time limit on a slow host).
-N_REQUESTS, PROMPT_RANGE, NEW_RANGE, SERVE_PAGE, GAP_TOL = 16, (16, 320), (32, 160), 128, 0.05
+# New tokens a request: 32-128 (32-256, then 32-160 before; cut to keep the
+# script within its time limit on a slow host).
+N_REQUESTS, PROMPT_RANGE, NEW_RANGE, SERVE_PAGE, GAP_TOL = 16, (16, 320), (32, 128), 128, 0.05
 ENGINE_KERNELS = {  # the kernels each engine run must launch (the prefill ones with them)
     "slot": ("quant_gemv_int8", "quant_mlp_int8", "decode_attention", "quant_matmul_int8", "flash_attention"),
     "paged": ("quant_gemv_int8", "quant_mlp_int8", "paged_decode_attention", "quant_matmul_int8",
@@ -2524,7 +2594,7 @@ KV_KERNEL_16 = {"slot": "decode_attention:no_wo", "slot_int8": "decode_attention
 
 def serving_specs_16(cfg):
     """The 32 seeded requests of the 16-row runs: prompts of 16-320 tokens
-    as phase 5's, 16-48 new tokens each (phase 5's 32-160 cut to keep the
+    as phase 5's, 16-48 new tokens each (phase 5's 32-128 cut to keep the
     run short: these runs test the row count, which stays 16)."""
     import random
 
@@ -4294,11 +4364,15 @@ def check_file_kernels(torch, bound, randn, record):
     f32 at its attention shapes (12 heads of 64): causal flash_attention of
     the 64-token prompt (q a view of the [B, T, H, D] projection, k and v
     views of the first 64 positions of a 1024-position cache, as
-    ``decoder._attention`` passes them) and decode_attention without its wo
-    over a 1024-position f32 cache at the path's lengths, each against its
-    plain version, timed as check_kernels times the others; the yardstick
-    is F.scaled_dot_product_attention (causal, or over the valid prefix).
-    f32 operations are bounded at the f32 CUDA-core rate."""
+    ``decoder._attention`` passes them) and, in the lifted Whisper's f32,
+    one decoder token's cross attention over the 1500 audio positions (6
+    heads; split over KV), and decode_attention without its wo over a
+    1024-position f32 cache at the path's lengths, each against its plain
+    version, timed as check_kernels times the others; the yardstick is
+    F.scaled_dot_product_attention (causal, or over the valid prefix).
+    flash's f32 operations are bounded as six bf16 passes (f32_flash_extra:
+    the CUDA-core bound, the split, the f64 check), decode_attention's at
+    the f32 CUDA-core rate."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import decode_attention as da
 
@@ -4325,9 +4399,32 @@ def check_file_kernels(torch, bound, randn, record):
     lib = [(a[0].contiguous(), a[1].contiguous(), a[2].contiguous()) for a, _ in copies]
     library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a, is_causal=True) for a in lib])
     record("flash_attention", f"f32 lift causal Tq={t} S={t} of {s_max} H={h} D={hd}", err, tol, ms, plain,
-           bound(per_call, ops, f32=True), library, route="f32",
-           host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)))
+           bound(per_call, 6 * ops), library, host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)),
+           **f32_flash_extra(torch, bound, args, kw, out, per_call, ops))
     del copies, lib
+
+    wh, s_audio = WHISPER["n_heads"], WHISPER_AUDIO
+
+    def make_cross(i):
+        def heads(n, scale):  # [1, H, n, D] views of [n, H·D] projections, as encoder_decoder passes them
+            return randn(n, wh * hd, scale=scale, dtype=f32).view(1, n, wh, hd).transpose(1, 2)
+
+        return (heads(1, 1.5), heads(s_audio, 1.5), heads(s_audio, 1.0)), dict(causal=False)
+
+    args, kw = make_cross(0)
+    out, ref = at.flash_attention(*args, **kw), at.flash_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err, tol = (out - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+    per_call = nbytes(*args) + nbytes(out)
+    ops = 4 * hd * wh * s_audio
+    copies = [make_cross(i) for i in range(copies_for(per_call, cap=32))]
+    ms = graph_ms(torch, [lambda a=a, kw=kw: at.flash_attention(*a, **kw) for a, kw in copies])
+    plain = eager_ms(torch, lambda: at.flash_attention_ref(*args, **kw))
+    library = graph_ms(torch, [lambda a=a: F.scaled_dot_product_attention(*a) for a, _ in copies])
+    record("flash_attention", f"f32 whisper cross Tq=1 S={s_audio} H={wh} D={hd}", err, tol, ms, plain,
+           bound(per_call, 6 * ops), library, host_us=host_us(torch, lambda: at.flash_attention(*args, **kw)),
+           **f32_flash_extra(torch, bound, args, kw, out, per_call, ops))
+    del copies
 
     for kv_len in FILE_KV_LENS:
         def make(i, kv_len=kv_len):
@@ -4567,6 +4664,11 @@ def drive_files(torch, out) -> dict:
     launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
     total.update(launches)
     expect = {"flash_attention": n_layers, "decode_attention:no_wo": n_layers * GRAPH_STEPS}
+    hd = GPT2_SMALL.d_model // GPT2_SMALL.n_heads
+    splits = f32_flash_splits(torch, [(1, GPT2_SMALL.n_heads, GPT2_SMALL.n_heads, GRAPH_PROMPT, GRAPH_PROMPT, hd)]
+                              * n_layers)  # the prompt over its own 64 positions: one KV tile, no split
+    if splits:
+        expect["flash_attention:split_kv"] = splits
     if launches != expect or plain:
         raise AssertionError(f"(b) the lifted NativeBackend launched {launches} (expected {expect}), plain {plain}")
     n = GRAPH_GATE_STEPS
@@ -4687,6 +4789,14 @@ def drive_files(torch, out) -> dict:
     n_text = make.cfg.n_text_layers
     expect = {"flash_attention": make.cfg.n_audio_layers + 2 * n_text + n_text * WHISPER_FILE_STEPS,
               "decode_attention:no_wo": n_text * WHISPER_FILE_STEPS}
+    # The encoder over the audio positions; the prompt's self attention over
+    # its own tokens and its cross attention; a token's cross attention.
+    wh, n_p, hd = WHISPER["n_heads"], len(WHISPER_PROMPT), WHISPER["d_model"] // WHISPER["n_heads"]
+    splits = f32_flash_splits(torch, [(1, wh, wh, WHISPER_AUDIO, WHISPER_AUDIO, hd)] * make.cfg.n_audio_layers
+                              + [(1, wh, wh, n_p, n_p, hd), (1, wh, wh, n_p, WHISPER_AUDIO, hd)] * n_text
+                              + [(1, wh, wh, 1, WHISPER_AUDIO, hd)] * n_text * WHISPER_FILE_STEPS)
+    if splits:
+        expect["flash_attention:split_kv"] = splits
     if launches != expect or plain:
         raise AssertionError(f"(e) EncDecBackend (dense f32) launched {launches} (expected {expect}), plain {plain}")
     forced = list(WHISPER_PROMPT) + tokens_e[:-1]
@@ -4751,7 +4861,7 @@ TEXT_MASK, TEXT_CTC, TEXT_BEAM = (512, 512), (500, 32), 8  # (f): the contour ma
 # profiler names them (gemv_kernel<DOT, PH>: PH 1 a GEMV, 3 the MLP).
 TRACE_NAMES = {"quant_gemv_int8": r"gemv_kernel<\d+, 1>", "quant_mlp_int8": r"gemv_kernel<\d+, 3>",
                "decode_attention": r"kv_attention_kernel", "quant_matmul_int8": r"qmm_(wgmma|f32)_kernel",
-               "flash_attention": r"flash_(mma_)?kernel"}
+               "flash_attention": r"flash_mma_kernel"}
 
 
 def readme_paragraphs(text: str) -> list[str]:
@@ -5153,6 +5263,10 @@ def drive_text(torch, out) -> tuple[dict, dict]:
     total.update(launches)
     f32.update(launches)
     expect = {"flash_attention": GPT2_SMALL.n_layers, "decode_attention:no_wo": GPT2_SMALL.n_layers * steps}
+    n_p, hd = len(app["prompt_ids"]), GPT2_SMALL.d_model // GPT2_SMALL.n_heads
+    splits = f32_flash_splits(torch, [(1, GPT2_SMALL.n_heads, GPT2_SMALL.n_heads, n_p, n_p, hd)] * GPT2_SMALL.n_layers)
+    if splits:
+        expect["flash_attention:split_kv"] = splits
     if launches != expect or plain:
         raise AssertionError(f"(c) gpt2.py on the f32 file launched {launches} (expected {expect}), plain {plain}")
     if app_c["tokens"] != ref_c:
@@ -5182,9 +5296,11 @@ def drive_text(torch, out) -> tuple[dict, dict]:
     launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
     total.update(launches)
     f32.update(launches)
-    if launches != {"flash_attention": b["n_layers"]} or plain:
-        raise AssertionError(f"(d) bert_qa.py launched {launches} (expected flash_attention {b['n_layers']} "
-                             f"times), plain {plain}")
+    t_qa, heads = len(kern["ids"]), b["d"] // 64
+    splits = f32_flash_splits(torch, [(1, heads, heads, t_qa, t_qa, 64)] * b["n_layers"])
+    expect = {"flash_attention": b["n_layers"], **({"flash_attention:split_kv": splits} if splits else {})}
+    if launches != expect or plain:
+        raise AssertionError(f"(d) bert_qa.py launched {launches} (expected {expect}), plain {plain}")
     ref_qa = {}
     with plain_encoders():
         qa_app.main(argv_qa, result=ref_qa)
@@ -6637,9 +6753,10 @@ KERNELS = {
     # K, or the KV axis, and sums its partials through distributed shared
     # memory): their cases are the kernel's cases whose plan splits.
     # The f32 routes the encoders' and vision models' f32 presets take
-    # (phase 12): quant_matmul_int8's SIMT loop (f32 activations; a K of 8
-    # mod 16) and flash_attention's CUDA-core kernel. Their launches are the
-    # wrappers' counts read around phase 12's f32 forwards.
+    # (phase 12): quant_matmul_int8's three exact bf16 passes (qmm_f32_kernel;
+    # f32 activations) and flash_attention's six (flash_mma_kernel on f32
+    # tiles split in registers). Their launches are the wrappers' counts
+    # read around the f32 forwards of phases 12-17.
     "quant_matmul_int8:f32": dict(source="rten_tpu_torch/kernels/csrc/quant_matmul.cu",
                                   replaces="rten_tpu/kernels/quant_matmul.py:590", timed="f32 distilbert up",
                                   cases_of="quant_matmul_int8", select=lambda c: c.get("route") == "f32"),
@@ -6968,10 +7085,11 @@ def main() -> int:
     parser.add_argument("--apps", metavar="LABEL",
                         help="phase 17 alone: the example apps and the C embedding API (apps_only)")
     parser.add_argument("--package", metavar="DIR",
-                        help="with --prefill, --kv or --gemv: import rten_tpu_torch from DIR")
+                        help="with --prefill, --kv, --gemv, --encoders or --files: import rten_tpu_torch from DIR")
     opts = parser.parse_args()
-    if opts.package and not (opts.kv or opts.gemv or opts.prefill is not None):
-        parser.error("--package times another package's kernels: it needs --prefill, --kv or --gemv")
+    if opts.package and not (opts.kv or opts.gemv or opts.encoders or opts.files or opts.prefill is not None):
+        parser.error("--package times another package's kernels: it needs --prefill, --kv, --gemv, --encoders or "
+                     "--files")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -7102,7 +7220,7 @@ def main() -> int:
     for name, n in drive_graph(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
         if name in ("quant_matmul_int8", "flash_attention"):
-            launches[f"{name}:f32"] += n  # f32 activations: the SIMT route
+            launches[f"{name}:f32"] += n  # f32 activations: the matmul's three-pass route
     if launches.get("quantize_rows_int8", 0):
         raise AssertionError(f"quantize_rows_int8 launched {launches['quantize_rows_int8']} times on the main "
                              "paths: quant_matmul_w8a8 quantizes inside its one launch")
@@ -7113,7 +7231,7 @@ def main() -> int:
     for name, n in drive_files(torch, detail).items():
         launches[name] = launches.get(name, 0) + n
         if name in ("quant_matmul_int8", "flash_attention"):
-            launches[f"{name}:f32"] += n  # f32 activations: the SIMT route, the f32 flash kernel
+            launches[f"{name}:f32"] += n  # f32 activations: the matmul's three passes, flash's six
     log(f"[15/18] ({time.perf_counter() - t_start:.1f} s) "
         "text in, text out: README tokenizers, gpt2.py (GPT-2-small int8 and its f32 file), bert_qa.py "
         "(BERT-base), the profiler's trace, the native library")

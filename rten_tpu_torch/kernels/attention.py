@@ -8,10 +8,11 @@ Pallas kernel ``_flash_kernel`` :29), whose function the kernel keeps:
 scores and softmax statistics in f32; the mask value ``-0.7 · f32 max``
 (``MASK_VALUE``), not −inf; columns at or past ``kv_len`` and (causal)
 right of the query's absolute position ``q_offset + row`` masked; P rounded
-to v's dtype before P·V, the softmax sum taken from the unrounded P; and 0
-for a row with no valid column (``kv_len`` 0). The plain version is the
-counterpart of ``attention_reference`` (:222) with those last two rules of
-the kernel, so both give the Pallas kernel's result.
+to v's dtype before P·V (so in f32 not at all), the softmax sum taken from
+the unrounded P; and 0 for a row with no valid column (``kv_len`` 0). The
+plain version is the counterpart of ``attention_reference`` (:222) with
+those last two rules of the kernel, so both give the Pallas kernel's
+result.
 
 Also the launch plan of the split-KV decode attention engine
 (``csrc/kv_attention.cuh``, the four KV kernels' one clustered launch):
@@ -30,33 +31,40 @@ from rten_tpu_torch.kernels.dispatch import LAUNCHES, PLAIN, use_kernel
 from rten_tpu_torch.kernels.quant_matmul import MAX_SPLIT, _sms, _stream, split_for
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# Head dims the kernel has instances at (csrc/flash_attention.cu); a head
-# dim between them runs the next one up with its columns past d zero, and
-# a head dim above the last runs it in slices of that many output columns.
+# Head dims the kernel has instances at (csrc/flash_attention.cu), bf16's;
+# f32 has no 256 one (its tiles would not fit a block's shared memory), so
+# its widest is FLASH_F32_WIDEST. A head dim between them runs the next one
+# up with its columns past d zero, and a head dim above the widest runs it
+# in slices of that many output columns.
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
-# Launch plan of the bf16 kernel (flash_mma_kernel): a block owns FB_ROWS
-# (query, head of the GQA group) rows, query major, and walks KV tiles of
-# FB_KV positions; a cluster of ``split`` blocks divides the tiles.
+FLASH_F32_WIDEST = 128
+# Launch plan of the kernel (flash_mma_kernel, both types): a block owns
+# FB_ROWS (query, head of the GQA group) rows, query major, and walks KV
+# tiles of FB_KV positions; a cluster of ``split`` blocks divides the tiles.
 FB_ROWS, FB_KV = 64, 64
 
 
-def flash_slices(d: int) -> int:
-    """Output slices of ``FLASH_HEAD_DIMS[-1]`` columns a row tile of a
-    head dim ``d`` launch takes: one block each, every block computing the
-    scores over the whole d (1 up to the widest instance)."""
-    return max(1, -(-d // FLASH_HEAD_DIMS[-1]))
+def flash_slices(d: int, bf16: bool = True) -> int:
+    """Output slices of the widest instance's columns (256 in bf16,
+    ``FLASH_F32_WIDEST`` in f32) a row tile of a head dim ``d`` launch
+    takes: one block each, every block computing the scores over the whole
+    d (1 up to the widest instance)."""
+    return max(1, -(-d // (FLASH_HEAD_DIMS[-1] if bf16 else FLASH_F32_WIDEST)))
 
 
 @functools.lru_cache(maxsize=1024)
 def flash_plan(b: int, hq: int, hk: int, tq: int, s: int, sms: int, slices: int = 1) -> tuple[int, int]:
-    """``(row_tiles, split)`` of one bf16 ``flash_attention`` launch on a
-    card with ``sms`` SMs: the 64-row tiles of a kv head's Tq · (Hq / Hk)
-    rows, and the split-KV cluster size (``split_for`` over the row tiles
-    of every kv head, batch row and output slice (``flash_slices``), at
-    most the tiles of ``s`` positions). The kernel divides the tiles the
-    rows actually need (kv_len, q_offset: on the device) among the ranks,
-    rank r of ``split`` taking ``[r n / split, (r + 1) n / split)`` of n
-    tiles."""
+    """``(row_tiles, split)`` of one ``flash_attention`` launch (bf16 or
+    f32) on a card with ``sms`` SMs: the 64-row tiles of a kv head's Tq ·
+    (Hq / Hk) rows, and the split-KV cluster size (``split_for`` over the
+    row tiles of every kv head, batch row and output slice
+    (``flash_slices``), at most the tiles of ``s`` positions). The kernel
+    divides the tiles the rows actually need (kv_len, q_offset: on the
+    device) among the ranks, rank r of ``split`` taking ``[r n / split,
+    (r + 1) n / split)`` of n tiles. ``split_for`` splits only where the
+    blocks fill under half the SMs, and then to at most one block an SM:
+    the capacity of the f32 instance at 128 columns, whose shared memory
+    (222,208 bytes) admits one block an SM, the others two or more."""
     row_tiles = -(-tq * (hq // hk) // FB_ROWS)
     return row_tiles, split_for(row_tiles * hk * b * slices, -(-s // FB_KV), sms)
 
@@ -162,11 +170,13 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, any head
     dim: instances at ``FLASH_HEAD_DIMS``, a head dim between them on the
-    next one up, a head dim above 256 on the 256 one in ``flash_slices``
-    output slices; bf16 on the tensor cores, split over the KV axis across
-    a cluster by ``flash_plan``, such a launch also counted under
-    ``flash_attention:split_kv``, and a head dim other than 64 and 128 also
-    under ``flash_attention:d<D>``); CPU tensors run ``flash_attention_ref``."""
+    next one up, a head dim above the widest (256 bf16, 128 f32) on that
+    one in ``flash_slices`` output slices; on the tensor cores, f32 as six
+    bf16 products of split operands, as exact as f32 FMA; split over the
+    KV axis across a cluster by ``flash_plan``, such a launch also counted
+    under ``flash_attention:split_kv``, and a head dim other than 64 and
+    128 also under ``flash_attention:d<D>``); CPU tensors run
+    ``flash_attention_ref``."""
     b, hq, tq, d, hk, s = _shapes(q, k, v)
     _per_row(q_offset, b, "q_offset")
     _per_row(kv_len, b, "kv_len")
@@ -182,7 +192,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
             raise ValueError(f"flash_attention: {name} must be a contiguous int32 [B] tensor")
     out = torch.empty((b, tq, hq, d), dtype=dtype, device=q.device).transpose(1, 2)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
-    split = flash_plan(b, hq, hk, tq, s, _sms(q), flash_slices(d))[1] if dtype == torch.bfloat16 else 1
+    split = flash_plan(b, hq, hk, tq, s, _sms(q), flash_slices(d, dtype == torch.bfloat16))[1]
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), *_strides(q, "q"), k.data_ptr(), *_strides(k, "k"),
         v.data_ptr(), *_strides(v, "v"), out.data_ptr(), *_strides(out, "out"),

@@ -116,7 +116,7 @@
 #include <cooperative_groups.h>
 
 #include "hopper.cuh"
-#include "tile_mma.cuh"  // pack_bf16x2
+#include "tile_mma.cuh"  // pack_bf16x2, split3_pair
 
 namespace rt {
 namespace {
@@ -433,19 +433,6 @@ struct QfLayout {
   static_assert(SMEM <= (int)MAX_SMEM, "a block's shared memory");
 };
 
-// Bits of x cut to bf16's 8 significant bits (x's upper half).
-__device__ __forceinline__ float cut_bf16(float x) { return __uint_as_float(__float_as_uint(x) & 0xffff0000u); }
-
-// x = hi + mid + lo, each a bf16 value, exactly where |x| >= 2^-110 (see
-// the head of the file); an infinite or NaN x is hi alone.
-__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
-  const bool fin = fabsf(x) <= 3.4028234663852886e38f;
-  hi = fin ? cut_bf16(x) : x;
-  const float r = fin ? x - hi : 0.f;  // exact: hi holds x's leading bits
-  mid = cut_bf16(r);
-  lo = r - mid;  // exact, at most 8 significant bits
-}
-
 // A stage's f32 x tile (`xs`) into split set `set`: three bf16 B tiles (hi,
 // mid, lo) in the bf16 route's layout, the K groups of 8 below `groups`.
 // Unit u is token u % 64 and K group u / 64: two 16-byte chunks of an f32
@@ -464,14 +451,7 @@ __device__ __forceinline__ void split_x(const unsigned char* xs, unsigned char* 
     const float f[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
     uint32_t hi[4], mid[4], lo[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float h0, m0, l0, h1, m1, l1;
-      split3(f[2 * j], h0, m0, l0);
-      split3(f[2 * j + 1], h1, m1, l1);
-      hi[j] = pack_bf16x2(h0, h1);  // exact conversions (a subnormal lo rounds)
-      mid[j] = pack_bf16x2(m0, m1);
-      lo[j] = pack_bf16x2(l0, l1);
-    }
+    for (int j = 0; j < 4; ++j) split3_pair(f[2 * j], f[2 * j + 1], hi[j], mid[j], lo[j]);
     const int off = (kg >> 3) * BOX + r * 128 + (((kg & 7) ^ sw) << 4);
     *reinterpret_cast<uint4*>(set + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
     *reinterpret_cast<uint4*>(set + PART + off) = make_uint4(mid[0], mid[1], mid[2], mid[3]);

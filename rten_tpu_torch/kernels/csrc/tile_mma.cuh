@@ -1,8 +1,10 @@
 // The 64 x 128 output tile of 256 threads of matmul_fused.cu's ragged route
 // (dense bf16 rows TMA cannot address; the bf16 loop). The kernel stages
 // its own operands into shared memory; the K loop, the tensor-core step and
-// the order of the epilogue are here. The mma_bf16 step and pack_bf16x2
-// serve flash_attention.cu and quant_matmul.cu too.
+// the order of the epilogue are here. The mma_bf16 step, pack_bf16x2 and
+// the exact three-way split of an f32 value into bf16 parts (split3, and
+// the six-product step on split operands, mma_split6) serve
+// flash_attention.cu and quant_matmul.cu too.
 //
 // - bf16 (tensor cores): per K step of 32, the A tile (64 rows x 32, k
 //   contiguous) and the B tile are staged as bf16 into two buffers, the
@@ -39,6 +41,59 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Bits of x cut to bf16's 8 significant bits (x's upper half).
+__device__ __forceinline__ float cut_bf16(float x) { return __uint_as_float(__float_as_uint(x) & 0xffff0000u); }
+
+// x = hi + mid + lo, each a bf16 value, exactly where |x| >= 2^-110: hi is
+// x cut to bf16's 8 significant bits, mid the remainder x - hi (exact) cut
+// the same way, lo what is left (exact: at most 8 significant bits remain).
+// Truncation rather than rounding: no value near f32's maximum overflows,
+// and a part costs two instructions. So |mid| < 2^-7 |x| and |lo| < 2^-15
+// |x|. Where |x| is under 2^-110, lo (under 2^-125; below 2^-118, mid)
+// falls below bf16's normal range and is rounded to its subnormal grid by
+// the conversion, or flushed by the tensor cores: an error in the part
+// under 2^-126, whatever the value's size. An infinite
+// x gives hi = x and mid = lo = 0, so its products are IEEE's; NaN stays
+// NaN. The f32 routes of quant_matmul.cu and flash_attention.cu use it.
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  const bool fin = fabsf(x) <= 3.4028234663852886e38f;
+  hi = fin ? cut_bf16(x) : x;
+  const float r = fin ? x - hi : 0.f;  // exact: hi holds x's leading bits
+  mid = cut_bf16(r);
+  lo = r - mid;  // exact, at most 8 significant bits
+}
+
+// Two f32 values as three bf16 pairs (hi, mid, lo; x0 in the low half), the
+// pairs' sums the values exactly (split3). The conversions are exact but
+// for a subnormal lo.
+__device__ __forceinline__ void split3_pair(float x0, float x1, unsigned& hi, unsigned& mid, unsigned& lo) {
+  float h0, m0, l0, h1, m1, l1;
+  split3(x0, h0, m0, l0);
+  split3(x1, h1, m1, l1);
+  hi = pack_bf16x2(h0, h1);
+  mid = pack_bf16x2(m0, m1);
+  lo = pack_bf16x2(l0, l1);
+}
+
+// c += a · (n8 half h of b) over split operands (parts [0] hi, [1] mid,
+// [2] lo; b an ldmatrix x4 B fragment set, two n8 tiles): the six products
+// of weight 2^-16 and above, the smallest first (lo·hi, mid·mid, hi·lo,
+// mid·hi, hi·mid, hi·hi). The three dropped (mid·lo, lo·mid, lo·lo) are
+// each under 2^-22 |a||b| (nominally 2^-24): together at most 2^-21 of a
+// product's magnitude, and in practice ~2^-24, the size of one f32
+// rounding. The six start from zero and their sum is added into c on the
+// CUDA cores, so the tensor cores' truncating accumulation spans one k16
+// step.
+__device__ __forceinline__ void mma_split6(float (&c)[4], const unsigned (&a)[3][4], const unsigned (&b)[3][4],
+                                           int h) {
+  constexpr int PA[6] = {2, 1, 0, 1, 0, 0}, PB[6] = {0, 1, 2, 0, 1, 0};  // the parts of a and b, pass by pass
+  float part[4] = {};
+#pragma unroll
+  for (int pass = 0; pass < 6; ++pass) mma_bf16(part, a[PA[pass]], b[PB[pass]][2 * h], b[PB[pass]][2 * h + 1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += part[e];
 }
 
 // Shared memory of the bf16 loop; B_KN: B stored k-major.

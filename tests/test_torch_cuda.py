@@ -297,6 +297,60 @@ def test_flash_kernel_against_f64_softmax(dev):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+# f32 flash_attention against the softmax in f64: (b, hq, hk, tq, s, causal,
+# q_offset, kv_len, d). Not causal with per-row lengths at 197 x 64 (ViT's
+# and the encoders' rows), causal at q_offset 100, GQA 14/2 at a q_offset
+# (split over KV), head dims 32 and 128, one query over 1500 positions
+# (Whisper's cross attention, split), and 320 (the 128 instance in three
+# slices).
+F32_F64_CASES = {
+    "not_causal_lens_197": (4, 4, 4, 197, 197, False, None, [197, 150, 97, 20], 64),
+    "long": (1, 2, 2, 200, 300, True, [100], [300], 64),
+    "gqa_14_over_2": (1, 14, 2, 64, 1024, True, [300], [364], 64),
+    "d32": (4, 4, 4, 197, 197, False, None, [197, 150, 97, 20], 32),
+    "d128": (1, 2, 2, 200, 300, True, [100], [300], 128),
+    "tq1_s1500": (2, 6, 6, 1, 1500, False, None, None, 64),
+    "d320": (2, 8, 2, 64, 256, True, [100, 100], [164, 164], 320),
+}
+# max |out - f64| / max |f64| of test_flash_f32_against_f64, its inputs'
+# lowest 8 significand bits set (so every lo part of the three-way split is
+# near its largest, 2^-15 of the value). Measured over the cases on an
+# NVIDIA H100 80GB HBM3, 700 W (PERF.md, section 6): the earlier f32 kernel
+# (FMA on the CUDA cores) 6.06e-7 to 1.75e-6; the six-pass kernel 2.52e-7
+# to 7.2e-7; the same kernel keeping only hi.hi, hi.mid and mid.hi 5.4e-5
+# to 1.32e-4, which fails here.
+F32_FLASH_F64_TOL = 1e-5
+
+
+def _low_bits_set(t):
+    """t with its lowest 8 significand bits set: within 2^-15 of t."""
+    return (t.view(torch.int32) | 0xFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("case", list(F32_F64_CASES))
+def test_flash_f32_against_f64(dev, case):
+    """The f32 kernel (six bf16 products of split operands on the tensor
+    cores) against the softmax in f64 (chip_smoke.flash_f64), within
+    F32_FLASH_F64_TOL of the output's max."""
+    b, hq, hk, tq, s, causal, q_offset, kv_len, d = F32_F64_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q = _low_bits_set(1.5 * torch.randn(b, hq, tq, d, generator=gen, device=dev))
+    k = _low_bits_set(1.5 * torch.randn(b, hk, s, d, generator=gen, device=dev))
+    v = _low_bits_set(torch.randn(b, hk, s, d, generator=gen, device=dev))
+    kw = dict(causal=causal)
+    if q_offset is not None:
+        kw["q_offset"] = torch.tensor(q_offset, dtype=torch.int32, device=dev)
+    if kv_len is not None:
+        kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    import chip_smoke
+
+    out = flash_attention(q, k, v, **kw).double()
+    ref = chip_smoke.flash_f64(torch, q, k, v, causal, kw.get("q_offset"), kw.get("kv_len"))
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    print(f"f32 flash {case}: {rel:.3g} of the output's max from the f64 softmax")
+    assert rel <= F32_FLASH_F64_TOL, rel
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_strided_views(dev, dtype):
     """q, k, v as views of a packed [B, T, 3, H, D] qkv (the decoder's
@@ -1069,7 +1123,12 @@ def test_tiny_decoder_w8a8_kernels_match_plain(dev, dtype):
     kernels against the plain versions on the card. A code moved by one in
     a layer's norm moves the logits by far less than 1e-2 of their max;
     tokens are compared in f32 (bf16 rounds the activations after sums
-    taken in another order)."""
+    taken in another order). The prompts' flash_attention is held against
+    its plain version on the path's own inputs, and both runs keep its
+    kernel: W8A8 quantizes each attention row to int8, so one ulp in the
+    attention output can move a code, and here moved the f32 logits by
+    0.023 of their max 1.30 (the f32 flash kernel within 1.8e-7 of its
+    plain version; with flash common to both runs, 1.8e-7)."""
     import dataclasses
 
     decoder, cfg, params = _tiny(dtype, dev)
@@ -1084,13 +1143,29 @@ def test_tiny_decoder_w8a8_kernels_match_plain(dev, dtype):
         toks, _ = decoder.generate_greedy(params, cfg, cache, prompt[:, -1:], 6)
         return torch.cat([first, second], 1), toks
 
+    flash_calls = []
+
+    def flash_recorded(*args, **kw):
+        out = flash_attention(*args, **kw)
+        flash_calls.append(([a.clone() for a in args], {k: v.clone() if torch.is_tensor(v) else v
+                                                       for k, v in kw.items()}, out.clone()))
+        return out
+
     dispatch.reset_counters()
-    k_logits, k_toks = run()
+    decoder.flash_attention = flash_recorded
+    try:
+        k_logits, k_toks = run()
+    finally:
+        decoder.flash_attention = flash_attention
     assert dispatch.PLAIN == {}
-    for name in ("quant_matmul_w8a8", "quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8"):
+    for name in ("quant_matmul_w8a8", "quant_gemv_int8:w8a8", "quant_mlp_int8:w8a8", "flash_attention"):
         assert dispatch.LAUNCHES[name] > 0, name
     assert dispatch.LAUNCHES["quantize_rows_int8"] == 0  # the prefill quantizes inside quant_matmul_w8a8
+    assert len(flash_calls) == 2 * cfg.n_layers
+    for args, kw, out in flash_calls:
+        _close_own_max(out, flash_attention_ref(*args, **kw), dtype)
     with _plain_decoder(decoder):
+        decoder.flash_attention = flash_attention
         p_logits, p_toks = run()
     assert (k_logits - p_logits).abs().max().item() <= 1e-2 * p_logits.abs().max().item()
     if dtype == torch.float32:
@@ -1823,11 +1898,11 @@ def test_matmul_f32_route_bitwise_deterministic(dev, m, n, k):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
-def _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=64, causal=True, seed=60):
+def _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=64, causal=True, seed=60, dtype=torch.bfloat16):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = (1.5 * torch.randn(b, hq, tq, d, generator=gen, device=dev)).to(torch.bfloat16)
-    k = (1.5 * torch.randn(b, hk, s, d, generator=gen, device=dev)).to(torch.bfloat16)
-    v = torch.randn(b, hk, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    q = (1.5 * torch.randn(b, hq, tq, d, generator=gen, device=dev)).to(dtype)
+    k = (1.5 * torch.randn(b, hk, s, d, generator=gen, device=dev)).to(dtype)
+    v = torch.randn(b, hk, s, d, generator=gen, device=dev).to(dtype)
     kw = dict(causal=causal, q_offset=torch.tensor(q_offset, dtype=torch.int32, device=dev),
               kv_len=torch.tensor(kv_len, dtype=torch.int32, device=dev))
     return (q, k, v), kw
@@ -1847,29 +1922,36 @@ SPLIT_KV_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(SPLIT_KV_CASES))
-def test_flash_split_kv_matches_plain(dev, case):
+def _bf16_and_f32(*cases):
+    """(case, dtype) parameters: each case in bf16 under its own id, then in
+    f32 under the id with ``-f32``."""
+    return ([pytest.param(c, torch.bfloat16, id=c) for c in cases]
+            + [pytest.param(c, torch.float32, id=f"{c}-f32") for c in cases])
+
+
+@pytest.mark.parametrize("case,dtype", _bf16_and_f32(*SPLIT_KV_CASES))
+def test_flash_split_kv_matches_plain(dev, case, dtype):
     from rten_tpu_torch.kernels.attention import flash_plan
     from rten_tpu_torch.kernels.quant_matmul import _sms
 
     b, hq, hk, tq, s, q_offset, kv_len = SPLIT_KV_CASES[case]
-    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len)
+    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, dtype=dtype)
     split = flash_plan(b, hq, hk, tq, s, _sms(args[0]))[1]
     assert split > 1
     before = dispatch.LAUNCHES["flash_attention:split_kv"]
     out = flash_attention(*args, **kw)
     assert dispatch.LAUNCHES["flash_attention:split_kv"] == before + 1
     ref = flash_attention_ref(*args, **kw)
-    _close_own_max(out, ref, torch.bfloat16)
+    _close_own_max(out, ref, dtype)
     if case == "kv_len_0_row":
         assert not out[0].any()
 
 
-@pytest.mark.parametrize("case", ["tq24_at_300", "gqa_14_over_2_tq8", "kv_len_on_split_edge"])
-def test_flash_split_kv_head_dim_128(dev, case):
+@pytest.mark.parametrize("case,dtype", _bf16_and_f32("tq24_at_300", "gqa_14_over_2_tq8", "kv_len_on_split_edge"))
+def test_flash_split_kv_head_dim_128(dev, case, dtype):
     b, hq, hk, tq, s, q_offset, kv_len = SPLIT_KV_CASES[case]
-    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=128)
-    _close_own_max(flash_attention(*args, **kw), flash_attention_ref(*args, **kw), torch.bfloat16)
+    args, kw = _flash_case(dev, b, hq, hk, tq, s, q_offset, kv_len, d=128, dtype=dtype)
+    _close_own_max(flash_attention(*args, **kw), flash_attention_ref(*args, **kw), dtype)
 
 
 @pytest.mark.parametrize("b,hq,hk,tq,s,q_offset,kv_len", [
@@ -1882,14 +1964,14 @@ def test_flash_gqa_long_prompts_match_plain(dev, b, hq, hk, tq, s, q_offset, kv_
     _close_own_max(flash_attention(*args, **kw), flash_attention_ref(*args, **kw), torch.bfloat16)
 
 
-@pytest.mark.parametrize("case", ["tq24_at_300", "gqa_14_over_2_tq64", "kv_len_0_row"])
-def test_flash_bitwise_deterministic(dev, case):
+@pytest.mark.parametrize("case,dtype", _bf16_and_f32("tq24_at_300", "gqa_14_over_2_tq64", "kv_len_0_row"))
+def test_flash_bitwise_deterministic(dev, case, dtype):
     """Two launches on the same inputs give the same bits: the split-KV
     partials combine over the cluster's ranks in a fixed order."""
-    args, kw = _flash_case(dev, *SPLIT_KV_CASES[case])
+    args, kw = _flash_case(dev, *SPLIT_KV_CASES[case], dtype=dtype)
     outs = [flash_attention(*args, **kw) for _ in range(3)]
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
-    args, kw = _flash_case(dev, 1, 12, 12, 512, 768, [0], [512])
+    args, kw = _flash_case(dev, 1, 12, 12, 512, 768, [0], [512], dtype=dtype)
     assert torch.equal(flash_attention(*args, **kw), flash_attention(*args, **kw))
 
 
@@ -3332,13 +3414,16 @@ def test_gpt2_app_on_card(dev, tmp_path):
 def test_bert_qa_app_on_card(dev, tmp_path):
     """bert_qa.py (f32) on the card against its --cpu run: the same ids,
     span and answer, start and end logits within f32 tolerance;
-    flash_attention once a layer, no plain call."""
+    flash_attention once a layer (split over KV where flash_plan splits
+    the f32 launch: 4 heads of 64 over the question and context's
+    tokens), no plain call."""
     import contextlib as cl
     import io
 
     import numpy as np
 
     from rten_tpu_torch.examples import bert_qa
+    from rten_tpu_torch.kernels.attention import flash_plan, flash_slices
 
     paths, paras = _app_inputs(tmp_path)
     argv = ["--model", str(paths["bert"]), "--tokenizer", str(paths["wordpiece"]), "--question",
@@ -3348,7 +3433,11 @@ def test_bert_qa_app_on_card(dev, tmp_path):
         assert bert_qa.main([*argv, "--cpu"], result=cpu) == 0
         dispatch.reset_counters()
         assert bert_qa.main(argv, result=card) == 0
-    assert dict(dispatch.LAUNCHES) == {"flash_attention": 2} and not dispatch.PLAIN
+    t = len(card["ids"])
+    expect = {"flash_attention": 2}
+    if flash_plan(1, 4, 4, t, t, qm._sms(torch.empty(1, device=dev)), flash_slices(64, False))[1] > 1:
+        expect["flash_attention:split_kv"] = 2
+    assert dict(dispatch.LAUNCHES) == expect and not dispatch.PLAIN
     assert (card["ids"], card["span"], card["answer"]) == (cpu["ids"], cpu["span"], cpu["answer"])
     for k in ("start", "end"):
         _close(torch.from_numpy(card[k]), torch.from_numpy(cpu[k]), torch.float32)
@@ -3457,10 +3546,11 @@ FLASH_HEAD_DIM_CASES = ["causal", "gqa", "q_offset_kv_len", "kv_len_0_row", "lon
 @pytest.mark.parametrize("case", FLASH_HEAD_DIM_CASES)
 @pytest.mark.parametrize("d", [8, 16, 24, 32, 80, 96, 256, 300, 320, 512])
 def test_flash_kernel_every_head_dim(dev, dtype, case, d):
-    """Head dims 16, 32 and 256 on their own instances, 8, 24, 80 and 96
-    on the next one up (columns past d zero), and 300, 320 and 512 on the
-    256 one in two slices of 256 output columns (the second's columns past
-    d zero): against the plain version (own-max tolerance), one launch
+    """Head dims 16, 32 and (bf16) 256 on their own instances, 8, 24, 80
+    and 96 on the next one up (columns past d zero), and 300, 320 and 512
+    on the widest in slices of its columns (bf16: two of 256; f32: 256 in
+    two of 128, 300 and 320 in three, 512 in four; the last slice's columns
+    past d zero): against the plain version (own-max tolerance), one launch
     counted under flash_attention:d<D>."""
     args, kw = _flash_inputs(dev, case, dtype, d)
     before = dispatch.LAUNCHES[f"flash_attention:d{d}"]
@@ -3470,23 +3560,29 @@ def test_flash_kernel_every_head_dim(dev, dtype, case, d):
     _close_own_max(out, flash_attention_ref(*args, **kw), dtype)
 
 
-@pytest.mark.parametrize("d", [300, 320, 512])
-@pytest.mark.parametrize("case", ["tq8_chunk", "gqa_14_over_2_tq24_at_300", "kv_len_0_row", "kv_len_on_split_edge"])
-def test_flash_split_kv_above_256(dev, case, d):
-    """bf16 above head dim 256 on a grid of few blocks: each slice's
-    cluster splits the KV tiles (flash_plan over the slices' blocks), every
-    rank recomputing the scores over the whole d; against the plain
-    version, one launch counted under split_kv when the plan splits."""
+ABOVE_256_SPLIT_CASES = ["tq8_chunk", "gqa_14_over_2_tq24_at_300", "kv_len_0_row", "kv_len_on_split_edge"]
+
+
+@pytest.mark.parametrize("case,d,dtype", [
+    pytest.param(c, d, dt, id=f"{c}-{d}" + ("-f32" if dt == torch.float32 else ""))
+    for dt in (torch.bfloat16, torch.float32) for d in (300, 320, 512) for c in ABOVE_256_SPLIT_CASES])
+def test_flash_split_kv_above_256(dev, case, d, dtype):
+    """Above head dim 256 (f32: above 128) on a grid of few blocks: each
+    slice's cluster splits the KV tiles (flash_plan over the slices'
+    blocks), every rank recomputing the scores over the whole d; against
+    the plain version, one launch counted under split_kv when the plan
+    splits."""
     from rten_tpu_torch.kernels.attention import _sms, flash_plan, flash_slices
 
-    args, kw = _flash_case(dev, *SPLIT_KV_CASES[case], d=d)
+    args, kw = _flash_case(dev, *SPLIT_KV_CASES[case], d=d, dtype=dtype)
     b, hq, tq, _ = args[0].shape
-    split = flash_plan(b, hq, args[1].shape[1], tq, args[1].shape[2], _sms(args[0]), flash_slices(d))[1]
+    slices = flash_slices(d, dtype == torch.bfloat16)
+    split = flash_plan(b, hq, args[1].shape[1], tq, args[1].shape[2], _sms(args[0]), slices)[1]
     before = dispatch.LAUNCHES["flash_attention:split_kv"]
     out = flash_attention(*args, **kw)
     assert dispatch.LAUNCHES["flash_attention:split_kv"] == before + (split > 1)
     assert split > 1 or case == "kv_len_0_row"
-    _close_own_max(out, flash_attention_ref(*args, **kw), torch.bfloat16)
+    _close_own_max(out, flash_attention_ref(*args, **kw), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

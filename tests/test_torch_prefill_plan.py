@@ -236,6 +236,32 @@ def test_flash_plan_main_path_splits():
     assert at.flash_plan(1, 14, 2, 512, 1024, H100_SMS) == (56, 1)
 
 
+def test_flash_plan_f32_main_path_splits():
+    """f32 launches take the same plan, with f32's slices (the widest f32
+    instance is 128 columns): a follow-up prompt of GPT-2-small's lifted
+    f32 model over a 1024-position cache and Whisper-tiny's cross
+    attention (one query over 1500 audio positions) split KV; ViT-B/16's 8
+    x 197 does not."""
+    assert [at.flash_slices(d, False) for d in (1, 64, 128, 129, 256, 257, 320, 512, 513)] == [
+        1, 1, 1, 2, 2, 3, 3, 4, 5]
+    assert at.flash_plan(1, 12, 12, 64, 1024, H100_SMS, at.flash_slices(64, False)) == (1, 8)
+    assert at.flash_plan(1, 6, 6, 1, 1500, H100_SMS, at.flash_slices(64, False)) == (1, 8)
+    assert at.flash_plan(8, 12, 12, 197, 197, H100_SMS, at.flash_slices(64, False)) == (4, 1)
+    assert at.flash_plan(2, 8, 2, 64, 256, H100_SMS, at.flash_slices(320, False)) == (4, 2)  # 16 blocks x 3 slices
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 320, 512])
+def test_flash_plan_f32_within_capacity(d):
+    """A split f32 launch puts at most one block on each SM: the capacity
+    of the 128-column instance (and of its slices above 128), whose shared
+    memory admits one block an SM."""
+    slices = at.flash_slices(d, False)
+    for b, hq, hk, tq, s in FLASH_SHAPES:
+        row_tiles, split = at.flash_plan(b, hq, hk, tq, s, H100_SMS, slices)
+        if split > 1:
+            assert row_tiles * hk * b * slices * split <= H100_SMS, (b, hq, hk, tq, s, d)
+
+
 def _needed_tiles(row_tile, tq, group, q_offset, kv_len, s, causal):
     """KV tiles holding a column some row of the tile may attend to."""
     kv_len = min(max(kv_len, 0), s)
