@@ -88,11 +88,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 4. serve   — full-width GPT-2-small (12 layers, random int8 weights from a
    seed) served through Generator(NativeBackend(..., device="cuda")): a
    64-token prompt as one prefill forward and 512 greedy tokens in a
-   768-position cache, with every launch counter read around the run; the
-   prefill's time to first token at prompts of 64 and 512; then the first
-   32 steps teacher-forced token by token through the kernels (the served
-   path), and as one prefill forward through the kernels and through the
-   plain versions;
+   768-position cache (each decode step one replay of NativeBackend's
+   captured step), with every launch counter read around the run; the
+   step captured against its eager forward, greedy and logits, 56 steps
+   each, bit for bit with equal launches, host and device ms a step of
+   both (capture_check); the prefill's time to first token at prompts of
+   64 and 512; then the first 32 steps teacher-forced token by token
+   through the kernels (the served path), and as one prefill forward
+   through the kernels and through the plain versions;
 5. serving — the same model behind the continuous-batching engines: 16
    seeded requests (prompts 16-320 tokens, 32-128 new tokens) queued at
    once through ServingEngine (8 slots, 8 forwards a tick; run and
@@ -104,6 +107,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    passes only where the solo top-2 logit gap is below 0.05), every page
    back in its pool, each run's launch counters read around it; then ms
    per forward at 8 active rows and the device's idle share per engine;
+   both engines' captured tick / step against their eager forwards on
+   bf16 and int8 KV (8 requests, 56 forwards; capture_check);
    then both engines at max_batch 16 on bf16 and int8 KV with 32 seeded
    requests (16-48 new tokens), each stream against its solo stream, ms
    per forward at 16 active rows, the idle share, and one step's launches
@@ -142,8 +147,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a decode step), its 32 teacher-forced steps through the kernels and the
    plain versions, 8 seeded requests through the slot and paged engines on
    bf16 and int8 KV (the three GQA KV kernels; each stream against its solo
-   stream), and one decode step at 12 rows on a bf16 cache (decode_attention
-   without its wo) against the plain versions;
+   stream), the captured step, tick and paged step against eager
+   (capture_check), and one decode step at 12 rows on a bf16 cache
+   (decode_attention without its wo) against the plain versions;
 10. generation — GPT-2-small (seed 0) through decoder.generate_scan, greedy
    and with TemperatureSampler(0.8), TopKSampler(50, 0.8) and
    TopPSampler(0.9, 0.8) (seed 1): 256 steps after phase 4's prompt in a
@@ -157,7 +163,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stream leaves the plain greedy one) and a 2-layer draft at GPT-2's
    widths (seed 2), greedy and at temperature 1e-4, each against the plain
    greedy stream under the top-2 rule, with acceptance and host ms per
-   emitted token, and Generator.with_draft; phase 5's 16 requests through
+   emitted token, the rounds (8 a call, one graph replay) captured against
+   eager (capture_check), and Generator.with_draft; phase 5's 16 requests through
    the slot and paged engines with TemperatureSampler(0.8): one seed gives
    the same streams twice, temperature 1e-4 the greedy streams;
 11. whisper — Whisper-tiny at full width (WHISPER_TINY: random int8 weights
@@ -166,8 +173,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    encoder positions) encoded once, the 4 start-of-transcript tokens as
    one prefill, 200 greedy steps in the 448-position cache; time to first
    token, the encoder's device time by kernel, host and device ms a step,
-   tokens/s, the idle share, one step's launches (four GEMVs, the KV
-   kernel, flash attention and the MLP kernel a layer, the lm_head GEMV);
+   tokens/s (host ms a step from the backend's second run, reset: each
+   step a replay of its captured step), the idle share, one step's
+   launches (four GEMVs, the KV kernel, flash attention and the MLP kernel
+   a layer, the lm_head GEMV), the step captured against eager
+   (capture_check);
    the encoder states and 32 teacher-forced steps through the kernels
    against the plain versions (relative RMS at most WHISPER_GATE, the
    top-2 rule);
@@ -416,7 +426,9 @@ def copies_for(per_call_bytes: int, cap: int = 256) -> int:
 
 @contextlib.contextmanager
 def plain_decoder(decoder):
-    """Route the decoder's seven kernel calls to their plain versions."""
+    """Route the decoder's seven kernel calls to their plain versions, and
+    the captured decode paths to their eager steps (the plain versions read
+    lengths on the host, which a capture cannot)."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
@@ -424,7 +436,7 @@ def plain_decoder(decoder):
     plain = dict(quant_gemv_int8=qm.quant_gemv_int8_ref, quant_mlp_int8=qm.quant_mlp_int8_ref,
                  quant_matmul_int8=qm.quant_matmul_int8_ref, quant_matmul_w8a8=qm.quant_matmul_w8a8_ref,
                  decode_attention=da.decode_attention_ref, decode_block=da.decode_block_ref,
-                 flash_attention=at.flash_attention_ref)
+                 flash_attention=at.flash_attention_ref, _capturable=lambda *args: False)
     saved = {name: getattr(decoder, name) for name in plain}
     for name, fn in plain.items():
         setattr(decoder, name, fn)
@@ -457,6 +469,115 @@ def profile_by_kernel(torch, fn, n: int) -> tuple[dict, dict]:
 def device_us_by_kernel(torch, fn, n: int) -> dict:
     """Device µs per call of ``fn`` by kernel name (``profile_by_kernel``)."""
     return profile_by_kernel(torch, fn, n)[0]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two results (tensors, numbers, nested lists or tuples of
+    them) are equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(same_bits(torch, x, y) for x, y in zip(a, b))
+    return a == b
+
+
+# Steps of a captured-against-eager check (capture_check): warm-up (the
+# capture), host-timed, then profiled.
+CAPTURE_WARM, CAPTURE_TIMED, CAPTURE_PROF = 8, 32, 16
+
+
+def capture_check(torch, label: str, make, forwards: int = 1, steps=(CAPTURE_WARM, CAPTURE_TIMED, CAPTURE_PROF)):
+    """A captured path against its eager run on the same inputs (phases 4,
+    5, 9, 10 and 11). ``make()`` sets up a fresh run and returns ``(step,
+    result)``: ``step()`` runs one step of it (``forwards`` decode forwards)
+    and ``result()`` gives what it produced (tokens, logits, counts). Each
+    side runs warm-up steps (on the captured side the capture), then
+    host-timed steps, then steps under the profiler (device time); the
+    eager side with ``decoder._capturable`` off. The results must be equal
+    bit for bit, and the timed steps' launches by kernel mode. Returns
+    host and device ms a forward, captured and eager, and the idle shares."""
+    from rten_tpu_torch.kernels import dispatch
+    from rten_tpu_torch.models import decoder
+
+    warm, timed, prof = steps
+
+    def measure():
+        step, result = make()
+        for _ in range(warm):
+            step()
+        torch.cuda.synchronize()
+        dispatch.reset_counters()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / (timed * forwards)
+        launches, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN)
+        if any(plain.values()):
+            raise AssertionError(f"{label}: plain versions ran: {plain}")
+        dev_us = sum(device_us_by_kernel(torch, step, prof).values())
+        dev = dev_us / 1e3 / forwards if dev_us > 0 else None
+        return result(), launches, host, dev
+
+    got, launches, host_c, dev_c = measure()
+    saved = decoder._capturable
+    decoder._capturable = lambda *args: False
+    try:
+        want, eager_launches, host_e, dev_e = measure()
+    finally:
+        decoder._capturable = saved
+    if not same_bits(torch, got, want):
+        raise AssertionError(f"{label}: the captured run's results differ from the eager run's")
+    if launches != eager_launches:
+        raise AssertionError(f"{label}: captured launches {launches} differ from eager {eager_launches}")
+
+    def idle(dev, host):
+        return max(0.0, 1.0 - dev / host) if dev else None
+
+    res = dict(host_ms=host_c, device_ms=dev_c, idle_share=idle(dev_c, host_c), eager_host_ms=host_e,
+               eager_device_ms=dev_e, eager_idle_share=idle(dev_e, host_e), forwards_per_step=forwards,
+               steps=sum(steps), launches=launches)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"  # noqa: E731
+    log(f"  {label}: captured = eager bit for bit over {sum(steps)} steps, launches equal; host / device ms a forward "
+        f"captured {host_c:.4f} / {fmt(dev_c)} (idle {fmt(res['idle_share'])}), eager {host_e:.4f} / {fmt(dev_e)} "
+        f"(idle {fmt(res['eager_idle_share'])})")
+    return res
+
+
+def backend_steps(torch, make_backend, prompt, greedy: bool):
+    """``capture_check``'s ``make`` of a backend (``NativeBackend`` or
+    ``EncDecBackend``): the prompt as one prefill, then one decode step a
+    ``step()``, each fed the last token (greedy: the fused argmax; logits:
+    their argmax); ``result()`` is every step's tokens and (logits mode)
+    logits."""
+    import numpy as np
+
+    def make():
+        backend = make_backend()
+        first = backend.prefill(np.asarray(prompt, np.int32), greedy=greedy)
+        outs = [first]
+
+        def step():
+            last = outs[-1] if greedy else outs[-1].argmax(-1).to(torch.int32)
+            outs.append(backend.decode(last.cpu().numpy()[:, None], greedy=greedy))
+
+        return step, lambda: torch.stack(outs).cpu()
+
+    return make
+
+
+def engine_steps(torch, make_engine, specs):
+    """``capture_check``'s ``make`` of a serving engine: ``specs`` submitted
+    at once, one ``engine.step()`` a ``step()``; ``result()`` is every
+    request's stream so far."""
+    from rten_tpu_torch.serve import Request
+
+    def make():
+        engine = make_engine()
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        return engine.step, lambda: [list(r.output) for r in reqs]
+
+    return make
 
 
 def kv_launch_info(torch, fn, entry: str, q, hk: int, cap: int, with_wo: bool = False) -> dict:
@@ -2074,13 +2195,18 @@ def prefill_device_us(torch, cfg, params, ids, cache_len, reps: int = 4) -> dict
         params, cfg, ids, caches.pop(), lm_head_mode="argmax", last_only=True), reps)
 
 
-def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None, n_new=None, cache_len=None):
+def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=None, n_new=None, cache_len=None,
+                check_capture=False):
     """Phase 4 (and, with cfg.w8a8, key "w8a8_" and the W8A8 kernels
     required, phase 6's first part; phases 8's and 9's first parts at
     ``n_new`` tokens in a ``cache_len`` cache): the main path through Generator, time to
     first token, the device time per decode step, and the teacher-forced
-    checks. Returns the main path's launches and the teacher-forced
-    sequence with its logits."""
+    checks; with ``check_capture`` (phases 4 and 9), NativeBackend's
+    captured decode step against its eager forward, greedy and logits
+    (``capture_check``). The Generator runs on one backend, reset between
+    runs, so the timed run replays the step the warm-up captured. Returns
+    the main path's launches and the teacher-forced sequence with its
+    logits."""
     n_new = n_new or N_NEW
     cache_len = cache_len or CACHE_LEN
     from rten_tpu_torch.generate import Generator, GeneratorConfig, Metrics, NativeBackend
@@ -2092,14 +2218,16 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
                for n in sorted({N_PROMPT, *TTFT_PROMPTS})}
     prompt = prompts[N_PROMPT]
 
+    served_by = NativeBackend(params, cfg, max_len=cache_len, device="cuda")
+
     def serve(n_new, metrics=None):
-        gen = Generator(NativeBackend(params, cfg, max_len=cache_len, device="cuda"),
-                        GeneratorConfig(max_tokens=n_new)).with_prompt(prompt)
+        served_by.reset()
+        gen = Generator(served_by, GeneratorConfig(max_tokens=n_new)).with_prompt(prompt)
         if metrics is not None:
             gen.profile(metrics)
         return [int(t[0]) for t in gen]
 
-    serve(8)  # warm-up: allocator and library load, outside the counted run
+    serve(8)  # warm-up: allocator, library load and the step's capture, outside the counted run
 
     # The main path: the prompt as one prefill forward, then n_new - 1 decode steps.
     dispatch.reset_counters()
@@ -2121,6 +2249,13 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
         raise AssertionError("the served stream has the wrong length or out-of-vocabulary ids")
 
     step_ms = metrics.mean_step_ms()
+    del served_by
+    captured = None
+    if check_capture:
+        captured = {mode: capture_check(
+            torch, f"{key}NativeBackend decode step ({mode})",
+            backend_steps(torch, lambda: NativeBackend(params, cfg, max_len=cache_len, device="cuda"), prompt,
+                          mode == "greedy")) for mode in ("greedy", "logits")}
     weight = stream_bytes(params)
     avg_prefix = N_PROMPT + (n_new - 1) / 2
     kv = 2 * cfg.n_layers * cfg.kv_heads * avg_prefix * cfg.head_dim * 2
@@ -2270,7 +2405,7 @@ def drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="", required=Non
         bound_share=bound_ms / step_ms, weight_bytes=weight, kv_bytes=kv, device_ms_per_step=device_ms,
         idle_share=idle, device_us_by_kernel=by_kernel, launches=launches,
         launches_per_forward={k: v / forwards for k, v in launches.items()}, forwards=forwards,
-        plain_calls=plain, served_head=tokens[:16],
+        plain_calls=plain, served_head=tokens[:16], captured_against_eager=captured,
     )
     out[key + "prefill"] = {str(n): v for n, v in prefill_stats.items()}
     out[key + "forced"] = dict(
@@ -2355,14 +2490,19 @@ def serving_specs(cfg):
 
 def solo_streams(params, cfg, specs, dev):
     """Each request alone through Generator(NativeBackend): its stream and
-    each step's top-2 logit gap."""
+    each step's top-2 logit gap. One backend, reset between requests, so
+    its decode step is captured once: as long as the longest request and
+    at least 512 positions, where the KV kernels' plan takes its full 8
+    virtual ranks, as in the engines' caches."""
     from rten_tpu_torch.generate import Generator, GeneratorConfig, NativeBackend
 
+    longest = max(len(s["prompt"]) + s["max_new_tokens"] for s in specs)
+    backend = NativeBackend(params, cfg, max_len=min(cfg.max_seq, max(512, longest)), device=dev)
     streams, gaps = [], []
     for s in specs:
         sampler = GapArgMax()
-        gen = Generator(NativeBackend(params, cfg, max_len=len(s["prompt"]) + s["max_new_tokens"], device=dev),
-                        GeneratorConfig(max_tokens=s["max_new_tokens"])).with_prompt(s["prompt"])
+        backend.reset()
+        gen = Generator(backend, GeneratorConfig(max_tokens=s["max_new_tokens"])).with_prompt(s["prompt"])
         streams.append([int(t[0]) for t in gen.with_sampler(sampler)])
         gaps.append(sampler.gaps)
     return streams, gaps
@@ -2576,11 +2716,27 @@ def drive_serving(torch, cfg, params, out):
                                                                  page_size=SERVE_PAGE, int8_kv=True, device=dev))):
         step_stats[kind] = at_rows(torch, kind, make, specs)
 
+    # The slot engine's tick (8 forwards) and the paged step captured against
+    # eager: the first 8 requests' prompts cut to 64 tokens, 64 new tokens.
+    short = [dict(prompt=s["prompt"][:64], max_new_tokens=64) for s in specs[:8]]
+    captured = {}
+    for kind, make in (("slot", lambda: ServingEngine(params, cfg, max_batch=8, steps_per_tick=8, device=dev)),
+                       ("slot_int8", lambda: ServingEngine(params, cfg8, max_batch=8, steps_per_tick=8, device=dev)),
+                       ("paged", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=16, page_size=SERVE_PAGE,
+                                                            device=dev)),
+                       ("paged_int8", lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=16,
+                                                                 page_size=SERVE_PAGE, int8_kv=True, device=dev))):
+        slot = kind.startswith("slot")  # a tick of 8 forwards a step: 1 + 4 + 2 ticks, else 8 + 32 + 16 steps
+        captured[kind] = capture_check(torch, f"{kind} engine at 8 rows", engine_steps(torch, make, short),
+                                       forwards=8 if slot else 1,
+                                       steps=(1, 4, 2) if slot else (CAPTURE_WARM, CAPTURE_TIMED, CAPTURE_PROF))
+    torch.cuda.empty_cache()
+
     for res in results.values():
         del res["streams"]
     out["serving"] = dict(requests=[dict(prompt_len=len(s["prompt"]), max_new_tokens=s["max_new_tokens"])
                                     for s in specs], runs=results, differing=diffs, at_8_rows=step_stats,
-                          http=dict(health=health, stats=stats))
+                          http=dict(health=health, stats=stats), captured_against_eager=captured)
     for more in (drive_serving_16(torch, cfg, params, out), drive_checkpoints(torch, cfg, params, out)):
         for name, n in more.items():
             launches_total[name] = launches_total.get(name, 0) + n
@@ -3089,7 +3245,7 @@ def drive_qwen2(torch, mem_rate, op_rate, out):
         f"{weight} bytes a decode step streams; w_gu {tuple(params['layers'][0]['w_gu']['qt'].shape)}, "
         f"lm_head {tuple(params['lm_head']['qt'].shape)}")
     launches, _forced = drive_serve(torch, cfg, params, mem_rate, op_rate, out, key="qwen2_", required=QWEN2_KERNELS,
-                                    n_new=N_QWEN2_NEW, cache_len=QWEN2_CACHE)
+                                    n_new=N_QWEN2_NEW, cache_len=QWEN2_CACHE, check_capture=True)
     steps = N_QWEN2_NEW - 1
     if launches.get("decode_attention:gqa", 0) != cfg.n_layers * steps or launches.get("decode_attention", 0) \
             or launches.get("quant_mlp_int8", 0):
@@ -3143,6 +3299,17 @@ def drive_qwen2(torch, mem_rate, op_rate, out):
             f"{engine.steps} forwards; streams differing from solo (top-2 rule) {n_diff}; launches {run_launches}")
         del engine
         torch.cuda.empty_cache()
+
+    # The slot engine's tick and the paged step captured against eager: the
+    # 8 requests' prompts cut to 64 tokens, 64 new tokens, bf16 KV.
+    short = [dict(prompt=s["prompt"][:64], max_new_tokens=64) for s in specs]
+    serving["captured_against_eager"] = {
+        "slot": capture_check(torch, "Qwen2 slot engine at 8 rows",
+                              engine_steps(torch, runs["slot"], short), forwards=8, steps=(1, 4, 2)),
+        "paged": capture_check(torch, "Qwen2 paged engine at 8 rows", engine_steps(
+            torch, lambda: PagedServingEngine(params, cfg, max_batch=8, n_pages=16, page_size=SERVE_PAGE, device=dev),
+            short))}
+    torch.cuda.empty_cache()
 
     # One decode step at 12 rows on a bf16 cache: decode_attention without
     # its fused wo, then the prefill projections; kernels against plain.
@@ -3323,11 +3490,16 @@ def spec_stream(torch, cfg, params, dcfg, dparams, prompt, sampler=None):
     ids = torch.from_numpy(prompt).cuda()
     max_len = CACHE_LEN  # ≥ prompt + SPEC_NEW + SPEC_ROUNDS (K + 1) + K + 2; Generator.with_draft's too
     rng = torch.Generator(device="cuda").manual_seed(3)
+    # One pair of caches, emptied for each run: the timed run replays the
+    # rounds' graph the warm-up captured.
+    cache_t = decoder.init_cache(cfg, 1, max_len, device="cuda")
+    cache_d = decoder.init_cache(dcfg, 1, max_len, device="cuda")
 
     def run():
-        cache_t = decoder.init_cache(cfg, 1, max_len, device="cuda")
-        cache_d = decoder.init_cache(dcfg, 1, max_len, device="cuda")
-        logits, cache_t = decoder.prefill(params, cfg, ids, cache_t, last_only=True)
+        for cache in (cache_t, cache_d):
+            cache["len"].zero_()
+            cache["host_len"][:] = 0
+        logits, _ = decoder.prefill(params, cfg, ids, cache_t, last_only=True)
         decoder.prefill(dparams, dcfg, ids, cache_d, lm_head_mode="argmax", last_only=True)
         first = sampler.sample(rng, logits[:, -1]) if sampler else logits[:, -1].argmax(-1)
         last = first.view(1, 1).to(torch.int32)
@@ -3357,6 +3529,36 @@ def spec_stream(torch, cfg, params, dcfg, dparams, prompt, sampler=None):
         raise AssertionError(f"speculative: the verify's flash_attention not launched, or plain calls: {launches} "
                              f"{plain}")
     return out, counts, ms, launches
+
+
+def spec_steps(torch, cfg, params, dcfg, dparams, prompt, sampler=None):
+    """``capture_check``'s ``make`` of speculative decoding at batch 1 after
+    ``prompt``: both caches prefilled, the target's first token, then one
+    call of SPEC_ROUNDS rounds (K SPEC_K) a ``step()``, greedy or at the
+    sampler's temperature (seed 3); ``result()`` is every call's tokens,
+    counts and next token."""
+    from rten_tpu_torch.generate import speculative
+
+    def make():
+        rng = torch.Generator(device="cuda").manual_seed(3)
+        cache_t, cache_d, logits = speculative._prefill_both(params, cfg, dparams, dcfg, prompt, SPEC_NEW, SPEC_K,
+                                                             CACHE_LEN, "cuda")
+        first = sampler.sample(rng, logits) if sampler else logits.argmax(-1)
+        state = dict(last=first.view(1, 1).to(torch.int32), calls=[])
+
+        def step():
+            common = (params, cfg, cache_t, dparams, dcfg, cache_d, state["last"])
+            if sampler is None:
+                toks, counts, _, _, last = speculative.speculative_scan(*common, k=SPEC_K, n_rounds=SPEC_ROUNDS)
+            else:
+                toks, counts, _, _, last = speculative.speculative_sample_scan(
+                    *common, rng, sampler.temperature, k=SPEC_K, n_rounds=SPEC_ROUNDS)
+            state["last"] = last
+            state["calls"].append((toks.tolist(), counts.tolist(), last.tolist()))
+
+        return step, lambda: state["calls"]
+
+    return make
 
 
 def forced_gaps(torch, cfg, params, prompt, stream):
@@ -3463,6 +3665,14 @@ def drive_generation(torch, mem_rate, out):
             f"token ({1e3 / ms:.1f} tokens/s); first difference from the plain greedy stream {at} ({diff} differing); "
             f"every token within {max(loss):.4g} of the target's argmax given its prefix (one forward)"
             + (f"; short rounds' top-2 gaps {[round(g, 4) for g in ties]}" if dc is cfg else ""))
+    # The rounds captured against eager (the 2-layer draft, greedy and at
+    # temperature 1e-4): a call of SPEC_ROUNDS rounds a step.
+    spec_captured = {}
+    for label, sampler in (("greedy", None), ("temperature 1e-4", TemperatureSampler(1e-4))):
+        spec_captured[label] = capture_check(
+            torch, f"speculative rounds, 2-layer draft, {label}", spec_steps(torch, cfg, params, dcfg, dparams, prompt,
+                                                                            sampler),
+            forwards=SPEC_ROUNDS, steps=(1, 4, 1))
     # The same through Generator.with_draft (greedy): its stream equals spec_stream's.
     gen = Generator(NativeBackend(params, cfg, max_len=CACHE_LEN, device=dev), GeneratorConfig(max_tokens=SPEC_NEW))
     gen.with_prompt(prompt).with_draft(NativeBackend(dparams, dcfg, max_len=CACHE_LEN, device=dev), k=SPEC_K,
@@ -3536,7 +3746,8 @@ def drive_generation(torch, mem_rate, out):
         log(f"  {kind} engine: one seed, the same streams; temperature 1e-4 equals greedy ({n_diff} differ, top-2 "
             f"rule)")
     log(f"  ({time.perf_counter() - t_phase:.1f} s)")
-    out["generation"] = dict(gpt2_scan=scan, qwen2_scan=qwen2, speculative=spec, serving=serving)
+    out["generation"] = dict(gpt2_scan=scan, qwen2_scan=qwen2, speculative=spec, serving=serving,
+                             speculative_captured_against_eager=spec_captured)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -3558,7 +3769,7 @@ WHISPER_KV = {True: "decode_attention_int8", False: "decode_attention:no_wo"}
 def plain_encdec(ed):
     """Route the encoder-decoder's kernel calls (and the decoder module's
     flash_attention, which its prompt's attention reaches) to their plain
-    versions."""
+    versions, and EncDecBackend's step to its eager forward."""
     from rten_tpu_torch.kernels import attention as at
     from rten_tpu_torch.kernels import decode_attention as da
     from rten_tpu_torch.kernels import quant_matmul as qm
@@ -3567,7 +3778,7 @@ def plain_encdec(ed):
     plain = {ed: dict(quant_gemv_int8=qm.quant_gemv_int8_ref, quant_mlp_int8=qm.quant_mlp_int8_ref,
                       quant_matmul_int8=qm.quant_matmul_int8_ref, decode_attention=da.decode_attention_ref,
                       decode_attention_int8=da.decode_attention_int8_ref, flash_attention=at.flash_attention_ref),
-             decoder: dict(flash_attention=at.flash_attention_ref)}
+             decoder: dict(flash_attention=at.flash_attention_ref, _capturable=lambda *args: False)}
     saved = {(mod, name): getattr(mod, name) for mod, names in plain.items() for name in names}
     for mod, names in plain.items():
         for name, fn in names.items():
@@ -3641,7 +3852,18 @@ def drive_whisper(torch, mem_rate, out) -> dict:
             raise AssertionError(f"whisper {key}: plain versions ran on the main path: {plain}")
         if len(tokens) != N_WHISPER_NEW + 1 or not all(0 <= t < base.vocab_size for t in tokens):
             raise AssertionError(f"whisper {key}: the stream has the wrong length or out-of-vocabulary ids")
+        # The host step time from the same backend again, reset: its first
+        # run's first decode step captured the graph its steps replay.
+        backend.reset()
+        metrics = Metrics()
+        again = [int(t[0]) for t in Generator(backend, GeneratorConfig(max_tokens=N_WHISPER_NEW + 1)).with_prompt(
+            [list(WHISPER_PROMPT)]).profile(metrics)]
+        if again != tokens:
+            raise AssertionError(f"whisper {key}: the reset backend's stream differs from the first run's")
         step_ms = metrics.mean_step_ms()
+        captured = capture_check(torch, f"whisper {key} EncDecBackend decode step",
+                                 backend_steps(torch, lambda: EncDecBackend(params, cfg, mel, device="cuda"),
+                                               [list(WHISPER_PROMPT)], True))
 
         # One decode step's launches.
         dispatch.reset_counters()
@@ -3669,10 +3891,10 @@ def drive_whisper(torch, mem_rate, out) -> dict:
             device_ms_per_step=dev_ms, idle_share=idle, bound_ms_per_step=bound_ms, weight_bytes=weight,
             cross_kv_bytes=cross_bytes, kv_bytes=kv, launches=launches, launches_per_step=step_launches,
             encoder_device_us_by_kernel=enc_us, encoder_device_ms=sum(enc_us.values()) / 1e3,
-            decode_device_us_by_kernel=decode_us, served_head=tokens[:16],
+            decode_device_us_by_kernel=decode_us, served_head=tokens[:16], captured_against_eager=captured,
         )
         log(f"  whisper {key}: time to first token {ttft:.4f} ms (encode + {len(WHISPER_PROMPT)}-token prompt, host "
-            f"clock); {N_WHISPER_NEW} steps at {step_ms:.4f} ms/step (host clock) -> "
+            f"clock); {N_WHISPER_NEW} steps at {step_ms:.4f} ms/step (host clock, the reset backend's run) -> "
             f"{metrics.tokens_per_second():.1f} tokens/s; device {dev_ms:.4f} ms/step (profiler) -> idle share "
             f"{idle if idle is None else round(idle, 4)}; bound {bound_ms:.4f} ms/step ({weight} weight + "
             f"{cross_bytes} cross K/V + {kv:.0f} KV bytes); launches a step {step_launches}")
@@ -4665,8 +4887,8 @@ def drive_files(torch, out) -> dict:
     total.update(launches)
     expect = {"flash_attention": n_layers, "decode_attention:no_wo": n_layers * GRAPH_STEPS}
     hd = GPT2_SMALL.d_model // GPT2_SMALL.n_heads
-    splits = f32_flash_splits(torch, [(1, GPT2_SMALL.n_heads, GPT2_SMALL.n_heads, GRAPH_PROMPT, GRAPH_PROMPT, hd)]
-                              * n_layers)  # the prompt over its own 64 positions: one KV tile, no split
+    splits = f32_flash_splits(torch, [(1, GPT2_SMALL.n_heads, GPT2_SMALL.n_heads, GRAPH_PROMPT, native.max_len, hd)]
+                              * n_layers)  # the prompt's split plan sizes for the cache's S (decoder._attention)
     if splits:
         expect["flash_attention:split_kv"] = splits
     if launches != expect or plain:
@@ -4793,7 +5015,8 @@ def drive_files(torch, out) -> dict:
     # its own tokens and its cross attention; a token's cross attention.
     wh, n_p, hd = WHISPER["n_heads"], len(WHISPER_PROMPT), WHISPER["d_model"] // WHISPER["n_heads"]
     splits = f32_flash_splits(torch, [(1, wh, wh, WHISPER_AUDIO, WHISPER_AUDIO, hd)] * make.cfg.n_audio_layers
-                              + [(1, wh, wh, n_p, n_p, hd), (1, wh, wh, n_p, WHISPER_AUDIO, hd)] * n_text
+                              + [(1, wh, wh, n_p, make.cfg.max_text_ctx, hd), (1, wh, wh, n_p, WHISPER_AUDIO, hd)]
+                              * n_text
                               + [(1, wh, wh, 1, WHISPER_AUDIO, hd)] * n_text * WHISPER_FILE_STEPS)
     if splits:
         expect["flash_attention:split_kv"] = splits
@@ -5264,7 +5487,8 @@ def drive_text(torch, out) -> tuple[dict, dict]:
     f32.update(launches)
     expect = {"flash_attention": GPT2_SMALL.n_layers, "decode_attention:no_wo": GPT2_SMALL.n_layers * steps}
     n_p, hd = len(app["prompt_ids"]), GPT2_SMALL.d_model // GPT2_SMALL.n_heads
-    splits = f32_flash_splits(torch, [(1, GPT2_SMALL.n_heads, GPT2_SMALL.n_heads, n_p, n_p, hd)] * GPT2_SMALL.n_layers)
+    splits = f32_flash_splits(torch, [(1, GPT2_SMALL.n_heads, GPT2_SMALL.n_heads, n_p, GPT2_SMALL.n_positions, hd)]
+                              * GPT2_SMALL.n_layers)  # the prompt's plan sizes for the cache's S
     if splits:
         expect["flash_attention:split_kv"] = splits
     if launches != expect or plain:
@@ -7171,7 +7395,7 @@ def main() -> int:
     log(f"  params: GPT-2-small int8, seed 0, {time.perf_counter() - t0:.1f} s to make and quantize")
     log(f"[4/18] ({time.perf_counter() - t_start:.1f} s) "
         "GPT-2-small prefill and decode through Generator(NativeBackend(device='cuda'))")
-    launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail)
+    launches, forced = drive_serve(torch, cfg, params, mem_rate, op_rate, detail, check_capture=True)
 
     log(f"[5/18] ({time.perf_counter() - t_start:.1f} s) "
         "continuous-batching serving: slot and paged engines, int8 KV, HTTP (GPT-2-small)")

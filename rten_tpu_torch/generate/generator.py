@@ -12,7 +12,9 @@ from it, an ``EncDecBackendFactory``, or ``GraphBackend``.
 
 A prompt, and every follow-up chunk of ``append_prompt``, goes into the
 cache as one ``decoder.prefill`` forward (the prefill kernels above 8 rows);
-each later token is one decode step. With the default ``ArgMaxSampler`` the
+each later token is one decode step, on the card one replay of the
+backend's captured graph of it (``decoder.step_graph``; the JAX package
+jits its ``decode_step``). With the default ``ArgMaxSampler`` the
 backend returns the greedy token from the lm_head kernel's fused argmax,
 so no logits row leaves the card; any other sampler gets the f32 logits
 and draws from the generator's ``torch.Generator`` (seeded from
@@ -50,7 +52,14 @@ class GeneratorConfig:
 
 class NativeBackend:
     """Backend over ``rten_tpu_torch.models.decoder`` (params, cfg) with its
-    own KV cache on ``device``."""
+    own KV cache on ``device``.
+
+    On the card a one-token ``decode`` is one replay of a captured CUDA
+    graph of ``decoder.forward`` (the JAX package jits ``decode_step``),
+    captured at first use for the params, cfg, batch, mode (greedy or
+    logits) and cache; a prompt (T > 1) runs eagerly, as the JAX package
+    compiles a prefill per prompt shape. ``decoder._capturable`` decides;
+    on the CPU every step runs eagerly."""
 
     def __init__(self, params, cfg, batch: int = 1, max_len: int | None = None, device="cuda"):
         self.device = resolve_device(device)
@@ -61,24 +70,19 @@ class NativeBackend:
         self.reset()
 
     def reset(self) -> None:
-        self.cache = decoder.init_cache(self.cfg, self.batch, self.max_len, self.device)
+        """An empty cache: the old one zeroed in place where its shape is
+        still ``max_len`` (its captured steps stay valid), else a new one."""
+        cache = getattr(self, "cache", None)
+        if cache is not None and cache["k"][0].shape[2] == self.max_len:
+            _zero_cache(cache)
+        else:
+            self.cache = decoder.init_cache(self.cfg, self.batch, self.max_len, self.device)
         self.length = 0  # tokens in the cache, every row
 
     def _step(self, tokens: np.ndarray, greedy: bool) -> torch.Tensor:
         """All of ``tokens`` [B, T] in one forward; the lm_head runs on the
         last position only."""
-        tokens = np.asarray(tokens, np.int32)
-        if self.length + tokens.shape[1] > self.max_len:
-            raise ValueError(
-                f"KV cache full: {self.length} + {tokens.shape[1]} tokens > max_len {self.max_len}"
-            )
-        ids = torch.from_numpy(tokens).to(self.device)
-        out, self.cache = decoder.prefill(
-            self.params, self.cfg, ids, self.cache,
-            lm_head_mode="argmax" if greedy else "logits", last_only=True,
-        )
-        self.length += tokens.shape[1]
-        return out[:, -1]
+        return _backend_step(self, decoder.forward, self.cache, tokens, greedy)
 
     def prefill(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
         """Feed a prompt [B, T]; returns the last position's f32 logits
@@ -86,8 +90,38 @@ class NativeBackend:
         return self._step(tokens, greedy)
 
     def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
-        """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``."""
+        """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``, a copy
+        the caller may keep (a captured step's static output is copied)."""
         return self._step(tokens, greedy)
+
+
+def _zero_cache(state: dict) -> None:
+    """Zero a cache's self-attention leaves and lengths in place (an
+    encoder-decoder state keeps its cross K/V: the same utterance's)."""
+    for key, leaf in state.items():
+        if isinstance(leaf, list) and key not in ("cross_k", "cross_v"):
+            for t in leaf:
+                t.zero_()
+    state["len"].zero_()
+    state["host_len"][:] = 0
+
+
+def _backend_step(backend, fn, state: dict, tokens, greedy: bool) -> torch.Tensor:
+    """``fn`` (the decoder's forward or the encoder-decoder's decode) of
+    ``tokens`` [B, T] on ``state``, the lm_head on the last position only:
+    one token a row on the card through ``decoder.step_graph``, else one
+    eager forward. Advances ``backend.length``; returns [B(, vocab)]."""
+    tokens = np.asarray(tokens, np.int32)
+    if backend.length + tokens.shape[1] > backend.max_len:
+        raise ValueError(f"KV cache full: {backend.length} + {tokens.shape[1]} tokens > max_len {backend.max_len}")
+    ids = torch.from_numpy(tokens).to(backend.device)
+    mode = "argmax" if greedy else "logits"
+    if tokens.shape[1] == 1 and decoder._capturable(backend.device, False):
+        out = decoder.step_graph(fn, backend.params, backend.cfg, ids, state, mode)
+    else:
+        out, _ = fn(backend.params, backend.cfg, ids, state, lm_head_mode=mode, last_only=True)
+    backend.length += tokens.shape[1]
+    return out[:, -1]
 
 
 class EncDecBackendFactory:
@@ -112,7 +146,12 @@ class EncDecBackend:
     T_audio], here in the constructor), the cross K/V with it, then
     prefill / decode over the self-attention cache of ``max_len`` (default
     ``max_text_ctx``) positions on ``device``. ``reset`` starts the text
-    anew over the same utterance."""
+    anew over the same utterance.
+
+    On the card a one-token ``decode`` replays a captured CUDA graph of
+    ``encoder_decoder.decode`` (the JAX package jits Whisper's
+    ``decode_step``), one for the params, cfg, batch, mode and decoder
+    state; a prompt runs eagerly, as ``NativeBackend``'s does."""
 
     def __init__(self, params, cfg, encoder_input, max_len: int | None = None, device="cuda"):
         self.device = resolve_device(device)
@@ -127,18 +166,16 @@ class EncDecBackend:
         self.reset()
 
     def reset(self) -> None:
-        self.state = encoder_decoder.init_decoder_state(self.params, self.cfg, self.enc_states, self.max_len)
+        """An empty self-attention cache over the same utterance: zeroed in
+        place after the first (its captured steps stay valid)."""
+        if getattr(self, "state", None) is not None:
+            _zero_cache(self.state)
+        else:
+            self.state = encoder_decoder.init_decoder_state(self.params, self.cfg, self.enc_states, self.max_len)
         self.length = 0  # tokens in the self-attention cache, every row
 
     def _step(self, tokens: np.ndarray, greedy: bool) -> torch.Tensor:
-        tokens = np.asarray(tokens, np.int32)
-        if self.length + tokens.shape[1] > self.max_len:
-            raise ValueError(f"KV cache full: {self.length} + {tokens.shape[1]} tokens > max_len {self.max_len}")
-        ids = torch.from_numpy(tokens).to(self.device)
-        out, self.state = encoder_decoder.decode(self.params, self.cfg, ids, self.state,
-                                                 lm_head_mode="argmax" if greedy else "logits", last_only=True)
-        self.length += tokens.shape[1]
-        return out[:, -1]
+        return _backend_step(self, encoder_decoder.decode, self.state, tokens, greedy)
 
     def prefill(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
         """Feed the decoder prompt [B, T] as one forward; returns the last
@@ -147,7 +184,8 @@ class EncDecBackend:
         return self._step(tokens, greedy)
 
     def decode(self, tokens: np.ndarray, *, greedy: bool = False) -> torch.Tensor:
-        """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``."""
+        """Feed the next tokens [B, T ≥ 1]; returns as ``prefill``, a copy
+        the caller may keep."""
         return self._step(tokens, greedy)
 
 

@@ -18,7 +18,15 @@ overwrites them. The host mirror ``cache["host_len"]`` must never be below
 the device length: each forward adds its full token count to it, a round
 clamps it at the same limit the device clamps at, and after the rounds it
 is set equal again from their counts, which reach the host with the tokens
-in one copy. The rounds run eagerly, one forward at a time.
+in one copy.
+
+On the card a call's ``n_rounds`` rounds, each with its K draft forwards,
+its fill forward and its verify, are one replay of a CUDA graph captured
+once for the params, configs, batch, K, ``n_rounds``, the sampler and the
+two caches (the JAX package's nested ``lax.scan``s); the verify forward's
+attention then reads the cache's whole S (``decoder._attention``), bounded
+by each row's device length. On the CPU, and where the installed torch
+cannot advance a sampled graph's generator, the rounds run eagerly.
 """
 
 from __future__ import annotations
@@ -44,12 +52,12 @@ def _clamp_host(caches, limit: int) -> None:
         np.minimum(cache["host_len"], limit, out=cache["host_len"])
 
 
-def _finish(caches, len0: np.ndarray, toks: list, counts: list, limit: int):
+def _finish(caches, len0: np.ndarray, toks, counts, limit: int):
     """One copy of the rounds' tokens [R, B, K+1] and counts [R, B] to the
     host, and each cache's ``host_len`` set to the device lengths they
     imply (each round's ``min(len + count, limit)`` from the lengths at
     the start)."""
-    both = torch.cat([torch.stack(toks), torch.stack(counts)[..., None]], dim=-1).cpu().numpy()
+    both = torch.cat([toks, counts[..., None]], dim=-1).cpu().numpy()
     toks_np, counts_np = both[..., :-1], both[..., -1]
     lens = len0.copy()
     for c in counts_np:
@@ -57,6 +65,29 @@ def _finish(caches, len0: np.ndarray, toks: list, counts: list, limit: int):
     for cache in caches:
         cache["host_len"][:] = lens
     return toks_np, counts_np
+
+
+def _run_rounds(rounds, key: tuple, cache_t, cache_d, last, rng, n_rounds: int, keep):
+    """``rounds(cache_t, cache_d, last, rng, n)`` (the device tensors: tokens
+    [n, B, K+1], counts [n, B], the next last tokens [B, 1]) of
+    ``n_rounds`` rounds: on the card (``decoder._capturable``; sampled
+    rounds need a torch that advances a graph's generator) one replay of a
+    graph of all of them, captured once for ``key``, the generator and the
+    two caches (the JAX package's nested ``lax.scan``s), else eagerly."""
+    if not decoder._capturable(last.device, rng is not None):
+        return rounds(cache_t, cache_d, last, rng, n_rounds)
+
+    def capture_fn():
+        def warm():
+            warm_rng = None if rng is None else torch.Generator(device=last.device).manual_seed(0)
+            rounds(decoder.scratch_like(cache_t), decoder.scratch_like(cache_d), last.clone(), warm_rng, 1)
+
+        return decoder.capture(lambda tok: rounds(cache_t, cache_d, tok, rng, n_rounds), (last,), warm, rng=rng,
+                               states=(cache_t, cache_d), keep=(*keep, rng))
+
+    entry = decoder.graph_for(cache_t["len"], (*key, n_rounds, id(rng)),
+                              decoder.state_tensors(cache_t) + decoder.state_tensors(cache_d), capture_fn)
+    return tuple(t.clone() for t in entry.replay(last))
 
 
 def speculative_scan(params_t, cfg_t, cache_t, params_d, cfg_d, cache_d, last_tokens, *, k: int, n_rounds: int):
@@ -67,30 +98,37 @@ def speculative_scan(params_t, cfg_t, cache_t, params_d, cfg_d, cache_d, last_to
     Returns (tokens [R, B, K+1], counts [R, B], cache_t, cache_d,
     last_tokens [B, 1]); tokens and counts are numpy arrays on the host:
     per round and row the first ``counts[r, b]`` (1 to K+1) tokens are
-    emitted. The caches advance in place."""
+    emitted. The caches advance in place. On the card the rounds are one
+    replay of a captured graph (``_run_rounds``)."""
     limit = _limit(cache_t, k)
     len0 = cache_t["host_len"].copy()
-    last = last_tokens
-    toks, counts = [], []
-    for _ in range(n_rounds):
-        start = cache_t["len"].clone()
-        drafts, tok = [], last
-        for _ in range(k):
-            tok, cache_d = decoder.forward(params_d, cfg_d, tok, cache_d, lm_head_mode="argmax")
-            drafts.append(tok)
-        d = torch.cat(drafts, dim=1)  # [B, K]
-        _, cache_d = decoder.forward(params_d, cfg_d, d[:, -1:], cache_d, lm_head_mode="argmax")  # the fill step
-        logits, cache_t = decoder.forward(params_t, cfg_t, torch.cat([last, d], dim=1), cache_t)
-        t = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K+1]
-        n_acc = torch.cumprod((d == t[:, :k]).to(torch.int32), dim=1).sum(dim=1)  # [B]
-        m = (n_acc + 1).to(torch.int32)
-        new_len = torch.clamp(start + m, max=limit)
-        cache_t["len"].copy_(new_len)
-        cache_d["len"].copy_(new_len)
-        _clamp_host((cache_t, cache_d), limit)
-        last = torch.gather(t, 1, n_acc[:, None].long())  # t_{n_acc}
-        toks.append(t)
-        counts.append(m)
+
+    def rounds(cache_t, cache_d, last, rng, n_rounds):
+        toks, counts = [], []
+        for _ in range(n_rounds):
+            start = cache_t["len"].clone()
+            drafts, tok = [], last
+            for _ in range(k):
+                tok, cache_d = decoder.forward(params_d, cfg_d, tok, cache_d, lm_head_mode="argmax")
+                drafts.append(tok)
+            d = torch.cat(drafts, dim=1)  # [B, K]
+            _, cache_d = decoder.forward(params_d, cfg_d, d[:, -1:], cache_d, lm_head_mode="argmax")  # the fill step
+            logits, cache_t = decoder.forward(params_t, cfg_t, torch.cat([last, d], dim=1), cache_t)
+            t = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K+1]
+            n_acc = torch.cumprod((d == t[:, :k]).to(torch.int32), dim=1).sum(dim=1)  # [B]
+            m = (n_acc + 1).to(torch.int32)
+            new_len = torch.clamp(start + m, max=limit)
+            cache_t["len"].copy_(new_len)
+            cache_d["len"].copy_(new_len)
+            _clamp_host((cache_t, cache_d), limit)
+            last = torch.gather(t, 1, n_acc[:, None].long())  # t_{n_acc}
+            toks.append(t)
+            counts.append(m)
+        return torch.stack(toks), torch.stack(counts), last
+
+    key = ("greedy", id(params_t), cfg_t, id(params_d), cfg_d, k)
+    toks, counts, last = _run_rounds(rounds, key, cache_t, cache_d, last_tokens, None, n_rounds,
+                                     (params_t, params_d))
     toks_np, counts_np = _finish((cache_t, cache_d), len0, toks, counts, limit)
     return toks_np, counts_np, cache_t, cache_d, last
 
@@ -108,58 +146,65 @@ def speculative_sample_scan(params_t, cfg_t, cache_t, params_d, cfg_d, cache_d, 
 
     Returns (tokens [R, B, K+1], counts [R, B], cache_t, cache_d,
     last_tokens [B, 1]), tokens and counts on the host as in
-    ``speculative_scan``."""
+    ``speculative_scan``; on the card one replay, as there, with ``rng``
+    registered with the graph."""
     limit = _limit(cache_t, k)
     len0 = cache_t["host_len"].copy()
     dev = last_tokens.device
-    inv_t = 1.0 / torch.clamp(torch.full((), temperature, dtype=torch.float32, device=dev), min=1e-6)
-    last = last_tokens
-    toks, counts = [], []
-    for _ in range(n_rounds):
-        start = cache_t["len"].clone()
-        drafts, q_logits, tok = [], [], last
-        for _ in range(k):
-            logits, cache_d = decoder.forward(params_d, cfg_d, tok, cache_d)
-            lg = logits[:, -1].float() * inv_t  # [B, V]
-            tok = torch.argmax(lg + gumbel(rng, lg.shape, dev), dim=-1, keepdim=True).to(torch.int32)
-            drafts.append(tok)
-            q_logits.append(lg)
-        d = torch.cat(drafts, dim=1)  # [B, K]
-        q = torch.softmax(torch.stack(q_logits, dim=1), dim=-1)  # [B, K, V]
-        _, cache_d = decoder.forward(params_d, cfg_d, d[:, -1:], cache_d, lm_head_mode="argmax")  # the fill step
 
-        # p_j is the target's distribution after chunk[0..j]: it pairs with
-        # d_{j+1}; p_K is the bonus.
-        logits, cache_t = decoder.forward(params_t, cfg_t, torch.cat([last, d], dim=1), cache_t)
-        p = torch.softmax(logits.float() * inv_t, dim=-1)  # [B, K+1, V]
-        idx = d.long()[..., None]
-        p_d = torch.gather(p[:, :k], 2, idx)[..., 0]
-        q_d = torch.gather(q, 2, idx)[..., 0]
-        u = torch.rand(d.shape, generator=rng, device=dev)
-        accept = (u * torch.clamp(q_d, min=_EPS) < p_d).to(torch.int32)
-        n_acc = torch.cumprod(accept, dim=1).sum(dim=1)  # [B]
+    def rounds(cache_t, cache_d, last, rng, n_rounds):
+        inv_t = 1.0 / torch.clamp(torch.full((), temperature, dtype=torch.float32, device=dev), min=1e-6)
+        toks, counts = [], []
+        for _ in range(n_rounds):
+            start = cache_t["len"].clone()
+            drafts, q_logits, tok = [], [], last
+            for _ in range(k):
+                logits, cache_d = decoder.forward(params_d, cfg_d, tok, cache_d)
+                lg = logits[:, -1].float() * inv_t  # [B, V]
+                tok = torch.argmax(lg + gumbel(rng, lg.shape, dev), dim=-1, keepdim=True).to(torch.int32)
+                drafts.append(tok)
+                q_logits.append(lg)
+            d = torch.cat(drafts, dim=1)  # [B, K]
+            q = torch.softmax(torch.stack(q_logits, dim=1), dim=-1)  # [B, K, V]
+            _, cache_d = decoder.forward(params_d, cfg_d, d[:, -1:], cache_d, lm_head_mode="argmax")  # the fill step
 
-        # The residual at the first rejected position (q padded with a zero
-        # row at K: a full accept samples from p_K itself).
-        q_pad = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
-        row = n_acc.long()[:, None, None].expand(-1, 1, p.shape[-1])
-        p_row = torch.gather(p, 1, row)[:, 0]  # [B, V]
-        q_row = torch.gather(q_pad, 1, row)[:, 0]
-        res = torch.clamp(p_row - q_row, min=0.0)
-        res = torch.where(res.sum(-1, keepdim=True) > _EPS, res, p_row)  # an all-zero residual (rounding)
-        res_logits = torch.log(torch.clamp(res, min=_EPS))
-        extra = torch.argmax(res_logits + gumbel(rng, res.shape, dev), dim=-1).to(torch.int32)  # [B]
+            # p_j is the target's distribution after chunk[0..j]: it pairs with
+            # d_{j+1}; p_K is the bonus.
+            logits, cache_t = decoder.forward(params_t, cfg_t, torch.cat([last, d], dim=1), cache_t)
+            p = torch.softmax(logits.float() * inv_t, dim=-1)  # [B, K+1, V]
+            idx = d.long()[..., None]
+            p_d = torch.gather(p[:, :k], 2, idx)[..., 0]
+            q_d = torch.gather(q, 2, idx)[..., 0]
+            u = torch.rand(d.shape, generator=rng, device=dev)
+            accept = (u * torch.clamp(q_d, min=_EPS) < p_d).to(torch.int32)
+            n_acc = torch.cumprod(accept, dim=1).sum(dim=1)  # [B]
 
-        m = (n_acc + 1).to(torch.int32)
-        d_pad = torch.cat([d, d[:, -1:]], dim=1)  # [B, K+1]
-        pos = torch.arange(k + 1, device=dev)[None, :]
-        toks.append(torch.where(pos < n_acc[:, None], d_pad, extra[:, None]))
-        counts.append(m)
-        new_len = torch.clamp(start + m, max=limit)
-        cache_t["len"].copy_(new_len)
-        cache_d["len"].copy_(new_len)
-        _clamp_host((cache_t, cache_d), limit)
-        last = extra[:, None]
+            # The residual at the first rejected position (q padded with a zero
+            # row at K: a full accept samples from p_K itself).
+            q_pad = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
+            row = n_acc.long()[:, None, None].expand(-1, 1, p.shape[-1])
+            p_row = torch.gather(p, 1, row)[:, 0]  # [B, V]
+            q_row = torch.gather(q_pad, 1, row)[:, 0]
+            res = torch.clamp(p_row - q_row, min=0.0)
+            res = torch.where(res.sum(-1, keepdim=True) > _EPS, res, p_row)  # an all-zero residual (rounding)
+            res_logits = torch.log(torch.clamp(res, min=_EPS))
+            extra = torch.argmax(res_logits + gumbel(rng, res.shape, dev), dim=-1).to(torch.int32)  # [B]
+
+            m = (n_acc + 1).to(torch.int32)
+            d_pad = torch.cat([d, d[:, -1:]], dim=1)  # [B, K+1]
+            pos = torch.arange(k + 1, device=dev)[None, :]
+            toks.append(torch.where(pos < n_acc[:, None], d_pad, extra[:, None]))
+            counts.append(m)
+            new_len = torch.clamp(start + m, max=limit)
+            cache_t["len"].copy_(new_len)
+            cache_d["len"].copy_(new_len)
+            _clamp_host((cache_t, cache_d), limit)
+            last = extra[:, None]
+        return torch.stack(toks), torch.stack(counts), last
+
+    key = ("sample", id(params_t), cfg_t, id(params_d), cfg_d, k, temperature)
+    toks, counts, last = _run_rounds(rounds, key, cache_t, cache_d, last_tokens, rng, n_rounds,
+                                     (params_t, params_d))
     toks_np, counts_np = _finish((cache_t, cache_d), len0, toks, counts, limit)
     return toks_np, counts_np, cache_t, cache_d, last
 

@@ -120,9 +120,9 @@ def _per_row(t, b: int, what: str):
     return t
 
 
-def flash_attention_ref(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_len=None):
+def flash_attention_ref(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_len=None, plan_len=None):
     """Plain version of ``flash_attention`` (same signature and result,
-    returned contiguous)."""
+    returned contiguous; ``plan_len`` sizes no plan here)."""
     PLAIN["flash_attention"] += 1
     b, hq, tq, d, hk, s = _shapes(q, k, v)
     _per_row(q_offset, b, "q_offset")
@@ -154,7 +154,7 @@ def _strides(t, what: str):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_len=None):
+def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_len=None, plan_len=None):
     """``softmax(q·kᵀ · sm_scale + mask) · v``, tiled.
 
     q: [B, Hq, Tq, D]; k, v: [B, Hk, S, D] with Hq a multiple of Hk (q head
@@ -165,8 +165,10 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
     KV prefix (default S; the kernel clamps it to [0, S]). Both stay on the
     device. Returns [B, Hq, Tq, D] in q's dtype; the kernel's result is a
     view of a [B, Tq, Hq, D] buffer, so ``transpose(1, 2)`` of it is
-    contiguous. The split-KV plan reads S, so a caller that knows on the
-    host that no row's prefix reaches past n passes ``k[:, :, :n]``.
+    contiguous. The split-KV plan reads S, or ``plan_len`` where given: a
+    caller that passes a prefix ``k[:, :, :n]`` of a longer buffer (no
+    row's prefix reaching past n) gives the buffer's length there, so the
+    call splits, and sums, as it would over the whole buffer.
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (f32 or bf16, any head
     dim: instances at ``FLASH_HEAD_DIMS``, a head dim between them on the
@@ -192,7 +194,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=None, kv_le
             raise ValueError(f"flash_attention: {name} must be a contiguous int32 [B] tensor")
     out = torch.empty((b, tq, hq, d), dtype=dtype, device=q.device).transpose(1, 2)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
-    split = flash_plan(b, hq, hk, tq, s, _sms(q), flash_slices(d, dtype == torch.bfloat16))[1]
+    split = flash_plan(b, hq, hk, tq, plan_len or s, _sms(q), flash_slices(d, dtype == torch.bfloat16))[1]
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), *_strides(q, "q"), k.data_ptr(), *_strides(k, "k"),
         v.data_ptr(), *_strides(v, "v"), out.data_ptr(), *_strides(out, "out"),

@@ -102,8 +102,8 @@ a pack and whose q/k/v are fused keeps the fused int8 route above.
 divides 128 (``kv_head_dim_supported``, the JAX rule's head-dim terms); at
 any other (80, 96, ...) it is appended to the cache and attends through
 ``flash_attention`` at Tq 1, as the JAX decoder runs a step its decode
-kernels refuse, and ``generate_scan`` then runs its steps eagerly (that
-route reads the cache length on the host). The whole-block kernel takes
+kernels refuse (under a CUDA graph capture over the cache's whole S, as
+the speculative verify forward does: ``_attention``). The whole-block kernel takes
 every head dim the JAX mega rule admits (every divisor of 128), so a mega
 layer runs ``decode_block`` wherever the JAX decoder runs its mega kernel.
 
@@ -119,7 +119,11 @@ in place.
 
 ``generate_scan`` runs n one-token decode steps, greedy or sampled, each
 token fed straight back on the device; on the card it captures the steps
-once as one CUDA graph and replays it.
+once as one CUDA graph and replays it. The other decode paths that the JAX
+package runs as one compiled program (the backends' one-token step, the
+serving engines' tick and step, the speculative rounds) capture through the
+same helper (``capture``, ``graph_for``, ``step_graph``; ``_capturable``
+decides).
 
 Entry points default to ``device="cuda"`` and raise on a machine without
 CUDA; ``device="cpu"`` runs the kernels' plain versions.
@@ -826,20 +830,31 @@ def _split_heads(qkv, cfg: DecoderConfig, b: int, t: int, rope):
     return q, k, v
 
 
-def _attention(q, k, v, cache, li: int, q_offset, kv_len):
+def _attention(q, k, v, cache, li: int, q_offset, kv_len, whole: bool | None = None):
     """Causal attention of the T new rows, q [B, T, H, D], k and v [B, T,
     Hk, D] → [B·T, H·D]. With a cache, each row's new k/v are written in
     place at its own length (``q_offset``, on the device), and the queries
     attend to the cache's valid prefix; without, to the T rows themselves.
     An int8 cache takes the new rows quantized per (token, kv head), and the
     queries attend to its prefix dequantized to the model dtype (the JAX
-    package's eager int8 branch, ``decoder.py:812-845``)."""
+    package's eager int8 branch, ``decoder.py:812-845``).
+
+    The prefix read is the cache's first ``int(host_len.max()) + T``
+    positions (no row's reaches past them), or with ``whole`` (by default:
+    while a CUDA graph is being captured, which must not bake a host length
+    into its launches) all S of them, as the JAX decoder's static shapes
+    read them; ``flash_attention`` bounds each row by its device ``kv_len``
+    either way. Its split-KV plan sizes for S in both, so the two give the
+    same bits and the same launches."""
     b, t, h, hd = q.shape
     if cache is not None:
-        n = int(cache["host_len"].max()) + t  # no row's prefix reaches past it
+        k_cache, v_cache = cache["k"][li], cache["v"][li]
+        s = k_cache.shape[2]
+        if whole is None:
+            whole = q.is_cuda and torch.cuda.is_current_stream_capturing()
+        n = s if whole else int(cache["host_len"].max()) + t
         rows = torch.arange(b, device=q.device)[:, None]
         pos = q_offset.long()[:, None] + torch.arange(t, device=q.device)  # [B, T]
-        k_cache, v_cache = cache["k"][li], cache["v"][li]
         if "k_scale" in cache:
             out = []
             for new, codes, scales in ((k, k_cache, cache["k_scale"][li]), (v, v_cache, cache["v_scale"][li])):
@@ -851,10 +866,11 @@ def _attention(q, k, v, cache, li: int, q_offset, kv_len):
         else:
             k_cache[rows, :, pos] = k
             v_cache[rows, :, pos] = v
-            k, v = k_cache[:, :, :n], v_cache[:, :, :n]  # the split-KV plan reads S
+            k, v = k_cache[:, :, :n], v_cache[:, :, :n]
+        attn = flash_attention(q.transpose(1, 2), k, v, causal=True, q_offset=q_offset, kv_len=kv_len, plan_len=s)
     else:
-        k, v = k.transpose(1, 2), v.transpose(1, 2)
-    attn = flash_attention(q.transpose(1, 2), k, v, causal=True, q_offset=q_offset, kv_len=kv_len)
+        attn = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                               q_offset=q_offset, kv_len=kv_len)
     return attn.transpose(1, 2).reshape(b * t, h * hd)
 
 
@@ -1139,85 +1155,145 @@ def _scan_steps(params: dict, cfg: DecoderConfig, cache: dict, tok, rng, n_steps
     return torch.cat(out, dim=1)
 
 
-def _capturable(cfg: DecoderConfig, sampled: bool) -> bool:
-    """Whether ``generate_scan`` may capture its steps: only when every
-    step reads the cache length on the device alone, as one token a row
-    does on every kind of cache at any B at a head dim the KV kernels take
-    (never ``_attention``, the step at any other head dim, which bakes
-    ``int(cache["host_len"].max())`` into the launch). A sampled graph needs
-    the installed torch to advance its generator at every replay
-    (``CUDAGraph.register_generator_state``). Decided before any capture,
-    never by catching a capture error."""
-    return kv_head_dim_supported(cfg.head_dim) and (
+def _capturable(device, sampled: bool) -> bool:
+    """Whether a decode path on ``device`` runs as a captured CUDA graph:
+    on a CUDA device, and for a graph that samples (draws from a
+    ``torch.Generator``) only where the installed torch can advance the
+    generator at every replay (``CUDAGraph.register_generator_state``).
+    Every path decides it before any capture, never by catching a capture
+    error; a path that does not capture runs its steps eagerly, as on the
+    CPU."""
+    return torch.device(device).type == "cuda" and (
         not sampled or hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
 
 
-class _Captured:
-    """``n_steps`` decode steps captured as one CUDA graph: the static
-    first-token input [B, 1] the graph reads, its static tokens [B, n_steps],
-    the kernels' launch counts of one replay, and the objects whose device
-    memory the graph reads (params, the generator) kept alive with it."""
+# The capture helper of the decode paths (``generate_scan``, the backends'
+# one-token step, the serving engines' tick and step, the speculative
+# rounds). It has no counterpart in the JAX package, where ``jax.jit`` and
+# ``lax.scan`` make these loops one device program.
 
-    def __init__(self, graph, tokens_in, tokens_out, launches, keep):
-        self.graph, self.tokens_in, self.tokens_out = graph, tokens_in, tokens_out
+
+class Captured:
+    """A callable captured as one CUDA graph: the static inputs it reads,
+    its static outputs, the kernels' launch counts of one replay, and the
+    objects whose device memory it reads (params, a generator) kept alive
+    with it."""
+
+    def __init__(self, graph, inputs, outputs, launches, keep):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.launches, self.keep = launches, keep
 
+    def replay(self, *inputs):
+        """Copy ``inputs`` into the static inputs, replay on the current
+        stream and add one replay's launches to ``dispatch.LAUNCHES``.
+        Returns the static outputs, which the next replay overwrites."""
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        dispatch.LAUNCHES.update(self.launches)
+        return self.outputs
 
-# Captured graphs by cache (weakly, on its ``len`` tensor: a cache's graphs
-# go with it), then by (params, cfg, B, n_steps, sampler, generator, the
-# cache tensors' addresses and shapes).
+
+# Captured graphs by the state they read (weakly, on one of its tensors: a
+# state's graphs go with it), then by the caller's key and the addresses
+# and shapes of the state's tensors.
 _GRAPHS = WeakIdKeyDictionary()
 _CAPTURE_STREAMS: dict = {}
 
 
-def _cache_tensors(cache: dict) -> list:
-    return [t for key in (*_CACHE_LAYERS, "k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
-            for t in cache.get(key, ())] + [cache["len"]] + ([cache["page_table"]] if "page_table" in cache else [])
+def state_tensors(state: dict) -> list:
+    """Every tensor of a cache or decoder state (per-layer lists included),
+    in key order: what a graph over the state reads and writes."""
+    out = []
+    for key in sorted(state):
+        leaf = state[key]
+        out += [t for t in (leaf if isinstance(leaf, list) else [leaf]) if isinstance(t, torch.Tensor)]
+    return out
 
 
-def _scratch_like(cache: dict) -> dict:
-    """A cache of the same kind, shapes and lengths with zero contents (a
+def scratch_like(state: dict) -> dict:
+    """A state of the same kind, shapes and lengths with zero contents (a
     warm-up target that leaves the real one untouched)."""
-    scratch = {key: [torch.zeros_like(t) for t in cache[key]] for key in cache if isinstance(cache[key], list)}
+    scratch = {key: [torch.zeros_like(t) for t in leaf] for key, leaf in state.items() if isinstance(leaf, list)}
     for key in ("len", "page_table"):
-        if key in cache:
-            scratch[key] = cache[key].clone()
-    if "host_len" in cache:
-        scratch["host_len"] = cache["host_len"].copy()
+        if key in state:
+            scratch[key] = state[key].clone()
+    if "host_len" in state:
+        scratch["host_len"] = state["host_len"].copy()
     return scratch
 
 
-def _capture(params, cfg, cache, last_tokens, rng, n_steps, sampler) -> _Captured:
-    """Capture ``_scan_steps`` on the device's capture stream. Each kernel's
-    first use (its build, its plan, the GEMV argmax's work buffer of the
-    stream) happens first, in one warm-up step on a scratch cache with a
-    scratch generator on that stream. The launch counters are put back as
-    they were: a replay adds the captured counts. The capture's own
-    ``host_len`` additions are undone: a replay adds its ``n_steps``."""
-    dev = last_tokens.device
+def graph_for(anchor, key: tuple, tensors, capture_fn) -> Captured:
+    """The graph cached under ``key`` and the addresses and shapes of
+    ``tensors`` (the state it reads), held weakly on the tensor ``anchor``;
+    ``capture_fn()`` captures it at first use. A state whose tensors moved
+    gets a graph of its own: no graph replays on stale addresses."""
+    graphs = _GRAPHS.setdefault(anchor, {})
+    key = (*key, tuple((t.data_ptr(), tuple(t.shape)) for t in tensors))
+    entry = graphs.get(key)
+    if entry is None:
+        entry = graphs[key] = capture_fn()
+    return entry
+
+
+def capture(fn, inputs, warm, *, rng=None, states=(), keep=()) -> Captured:
+    """Capture ``fn(*static_inputs)`` (a tensor or a tuple of tensors
+    out) on the device's capture stream. ``warm()`` runs first on that
+    stream, on scratch state: each kernel's first use (its build, its plan,
+    the GEMV argmax's work buffer of the stream) must not happen under
+    capture. Then the generator ``rng``, where given, is registered with
+    the graph, so its state advances at every replay. The launch counters
+    are put back as they were (a replay adds the captured counts), and the
+    ``host_len`` of each cache in ``states`` as it was: the capture's own
+    forwards added to it, a replay's caller adds what it advanced. Raises
+    whatever the capture raises."""
+    dev = inputs[0].device
     stream = _CAPTURE_STREAMS.get(dev)
     if stream is None:
         stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
     before = collections.Counter(dispatch.LAUNCHES)
+    host_lens = [(st["host_len"], st["host_len"].copy()) for st in states if "host_len" in st]
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
-        warm_rng = None if sampler is None else torch.Generator(device=dev).manual_seed(0)
-        _scan_steps(params, cfg, _scratch_like(cache), last_tokens.clone(), warm_rng, 1, sampler)
+        warm()
     stream.synchronize()
     warmed = collections.Counter(dispatch.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
-    if sampler is not None:
+    if rng is not None:
         graph.register_generator_state(rng)
-    tokens_in = last_tokens.clone()
+    static = [x.clone() for x in inputs]
     with torch.cuda.graph(graph, stream=stream):
-        tokens_out = _scan_steps(params, cfg, cache, tokens_in, rng, n_steps, sampler)
+        outputs = fn(*static)
     launches = collections.Counter(dispatch.LAUNCHES)
     launches.subtract(warmed)
     dispatch.LAUNCHES.clear()
     dispatch.LAUNCHES.update(before)
-    if "host_len" in cache:
-        cache["host_len"] -= n_steps
-    return _Captured(graph, tokens_in, tokens_out, +launches, (params, rng))
+    for host_len, saved in host_lens:
+        host_len[:] = saved
+    return Captured(graph, static, outputs, +launches, keep)
+
+
+def step_graph(fn, params, cfg, tokens, state: dict, mode: str):
+    """One forward ``fn(params, cfg, tokens, state, lm_head_mode=mode,
+    last_only=True)`` of one token a row (``tokens`` [B, 1] on the card)
+    as a replay of its captured graph, keyed on (fn, params, cfg, B, mode)
+    and the state's tensors: the backends' decode step (the JAX package
+    jits ``decode_step``). Checks the room on the host first, as ``fn``
+    does, and advances ``host_len`` by one after the replay. Returns a copy
+    of the graph's result [B, 1(, vocab)]."""
+    _check_room(state, 1)
+
+    def capture_fn():
+        def warm():
+            fn(params, cfg, tokens.clone(), scratch_like(state), lm_head_mode=mode, last_only=True)
+
+        return capture(lambda t: fn(params, cfg, t, state, lm_head_mode=mode, last_only=True)[0], (tokens,), warm,
+                       states=(state,), keep=(params,))
+
+    entry = graph_for(state["len"], (fn, id(params), cfg, tokens.shape[0], mode), state_tensors(state), capture_fn)
+    out = entry.replay(tokens).clone()
+    state["host_len"] += 1
+    return out
 
 
 def generate_scan(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, rng=None, *, n_steps: int,
@@ -1238,38 +1314,40 @@ def generate_scan(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, rn
     on the host before any step (IndexError, nothing run).
 
     On the card the steps are captured once into a ``torch.cuda.CUDAGraph``
-    (cached on the cache, the params, cfg, B, n_steps, the sampler and the
-    generator) and replayed: each call copies ``last_tokens`` into the
-    graph's static input and returns a copy of its static output. The
-    generator is registered with the graph, so its state advances with
-    every replay and the same seed gives the same tokens captured and eager.
-    Replays run on the caller's current stream, in order: graphs captured
-    on one device share its capture stream's GEMV argmax work buffer.
-    Where the installed torch cannot advance a sampled graph's generator
-    (``_capturable``) the steps run eagerly, as they do on the CPU."""
+    (``capture``; cached on the cache, the params, cfg, B, n_steps, the
+    sampler and the generator) and replayed: each call copies
+    ``last_tokens`` into the graph's static input and returns a copy of its
+    static output. The generator is registered with the graph, so its state
+    advances with every replay and the same seed gives the same tokens
+    captured and eager. Replays run on the caller's current stream, in
+    order: graphs captured on one device share its capture stream's GEMV
+    argmax work buffer. Where the installed torch cannot advance a sampled
+    graph's generator (``_capturable``) the steps run eagerly, as they do
+    on the CPU."""
     from rten_tpu_torch.generate.sampler import ArgMaxSampler
 
     if isinstance(sampler, ArgMaxSampler):
         sampler = None
     if sampler is not None and rng is None:
         raise ValueError(f"{type(sampler).__name__} requires an rng (a torch.Generator)")
-    b = last_tokens.shape[0]
     _check_room(cache, n_steps)
-    if last_tokens.device.type != "cuda" or not _capturable(cfg, sampler is not None):
+    if not _capturable(last_tokens.device, sampler is not None):
         return _scan_steps(params, cfg, cache, last_tokens, rng, n_steps, sampler), cache
-    graphs = _GRAPHS.setdefault(cache["len"], {})
-    tensors = _cache_tensors(cache)
-    key = (id(params), cfg, b, n_steps, sampler, None if sampler is None else id(rng),
-           tuple((t.data_ptr(), tuple(t.shape)) for t in tensors))
-    entry = graphs.get(key)
-    if entry is None:
-        entry = graphs[key] = _capture(params, cfg, cache, last_tokens, rng, n_steps, sampler)
-    entry.tokens_in.copy_(last_tokens)
-    entry.graph.replay()
-    dispatch.LAUNCHES.update(entry.launches)
+
+    def capture_fn():
+        def warm():
+            warm_rng = None if sampler is None else torch.Generator(device=last_tokens.device).manual_seed(0)
+            _scan_steps(params, cfg, scratch_like(cache), last_tokens.clone(), warm_rng, 1, sampler)
+
+        return capture(lambda tok: _scan_steps(params, cfg, cache, tok, rng, n_steps, sampler), (last_tokens,), warm,
+                       rng=rng if sampler is not None else None, states=(cache,), keep=(params, rng))
+
+    key = (id(params), cfg, last_tokens.shape[0], n_steps, sampler, None if sampler is None else id(rng))
+    entry = graph_for(cache["len"], key, state_tensors(cache), capture_fn)
+    tokens = entry.replay(last_tokens).clone()
     if "host_len" in cache:
         cache["host_len"] += n_steps
-    return entry.tokens_out.clone(), cache
+    return tokens, cache
 
 
 def generate_greedy(params: dict, cfg: DecoderConfig, cache: dict, last_tokens, n_steps: int):

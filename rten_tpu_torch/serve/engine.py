@@ -18,13 +18,16 @@ slot at once.
   logits, of the prompt's last position at admission and of each tick
   forward, and draws from the engine's ``torch.Generator`` (seeded from
   ``seed``), so one seed gives the same streams.
-- **A tick** is a Python loop of forwards, each sampled on the device;
+- **A tick** is ``steps_per_tick`` forwards, each sampled on the device;
   EOS, the token budget and the active mask are decided on the device,
   and the tick's tokens and active flags reach the host in one copy at its
-  end. An inactive row's device length is pinned to 0, so its append lands
-  at position 0 of a dead slot; the host mirror of the lengths
-  (``cache["host_len"]``) is pinned by the same rule less EOS, which the
-  host does not see until the tick ends: it stays at least the device's.
+  end. On the card the tick is one replay of a CUDA graph captured once a
+  (cache, K, EOS width, sampler): the counterpart of the JAX engine's one
+  ``lax.scan`` program. An inactive row's device length is pinned to 0, so
+  its append lands at position 0 of a dead slot; the host mirror of the
+  lengths (``cache["host_len"]``) is pinned by the same rule less EOS,
+  which the host does not see until the tick ends: it stays at least the
+  device's.
 - ``run_pipelined`` dispatches the next tick from the device-side carry
   (last token, active mask, budget) before the host reads this one.
 
@@ -45,7 +48,7 @@ counterpart of) without it. A slot's admission prefills on its data
 group's ranks. The tokens of each forward reach every rank from one
 (``parallel.tp.tp_sample``), so the ranks' host decisions (admission, EOS,
 budget) cannot part. The sharded path runs eagerly, each collective as it
-comes.
+comes (staged through the host, so no graph can hold it).
 """
 
 from __future__ import annotations
@@ -252,19 +255,72 @@ class ServingEngine:
         """``k`` decode forwards on the device (counterpart of
         ``_decode_k_steps``): tok [B, 1] int32, act [B] bool, budget [B]
         int32 (tokens each slot may still emit). Returns (the tick's tokens
-        and active flags stacked as int32 [2, k, B], the next carry)."""
-        lens, rows = self.cache["len"], self._rows  # this rank's slots of the batch
+        and active flags stacked as int32 [2, k, B], the next carry).
+
+        On the card (``decoder._capturable``; a sampled tick needs a torch
+        that advances a graph's generator) the k forwards, their sampling,
+        the EOS and budget masks and the length pinning are one replay of a
+        graph captured once for the engine's cache, k, the EOS width and
+        the sampler; the host mirror (``_mirror_budget``, ``host_len``)
+        then takes its k steps after it by the same rule. Under a mesh the
+        tick runs eagerly (its collectives go through the host), as it does
+        on the CPU."""
+        sampled = not isinstance(self.sampler, ArgMaxSampler)
+        if self.mesh is not None or not decoder._capturable(self.device, sampled):
+            return self._tick_steps(self.cache, self._rng, self._mirror_budget, tok, act, budget, eos, k)
+        host_len, mirror = self.cache["host_len"].copy(), self._mirror_budget.copy()
+        self._mirror_steps(host_len, mirror, k)  # IndexError here, before the replay, where an eager step would raise
+
+        def capture_fn():
+            def warm():
+                self._tick_steps(decoder.scratch_like(self.cache), torch.Generator(device=self.device).manual_seed(0),
+                                 self._mirror_budget.copy(), tok.clone(), act.clone(), budget.clone(), eos.clone(), 1)
+
+            def run(*carry):
+                out, nxt = self._tick_steps(self.cache, self._rng, self._mirror_budget.copy(), *carry, k)
+                return out, *nxt
+
+            return decoder.capture(run, (tok, act, budget, eos), warm, rng=self._rng if sampled else None,
+                                   states=(self.cache,), keep=(self.params, self._rng))
+
+        key = ("tick", id(self.params), self.cfg, k, tuple(eos.shape), self.sampler, id(self._rng))
+        graph = decoder.graph_for(self.cache["len"], key, decoder.state_tensors(self.cache), capture_fn)
+        out, *carry = (t.clone() for t in graph.replay(tok, act, budget, eos))
+        self.cache["host_len"][:] = host_len
+        self._mirror_budget[:] = mirror
+        return out, tuple(carry)
+
+    def _mirror_steps(self, host_len, mirror, k: int) -> None:
+        """The host mirror of ``k`` forwards of a tick, in place: each adds
+        one position to every row (IndexError when a row would pass the
+        cache, as the forward's own check raises), then one step of budget
+        pins the rows without any left to 0, as the device pins inactive
+        rows (less EOS, which the host does not see until the tick ends)."""
+        rows, room = self._rows, {"k": self.cache["k"], "host_len": host_len}
+        host_len[mirror[rows] <= 0] = 0
+        for _ in range(k):
+            decoder._check_room(room, 1)
+            host_len += 1
+            mirror -= 1
+            host_len[mirror[rows] <= 0] = 0
+
+    def _tick_steps(self, cache, rng, mirror, tok, act, budget, eos, k: int):
+        """The tick's k forwards on ``cache``, drawing from ``rng``, as
+        ``_decode_tick`` describes them, with the host mirror's steps on
+        ``mirror`` (a budget array) and the cache's ``host_len`` between
+        them, as each forward checks room."""
+        lens, rows = cache["len"], self._rows  # this rank's slots of the batch
         lens.mul_(act[rows])  # inactive slots attend to nothing and append at 0
-        host_len = self.cache["host_len"]
-        host_len[self._mirror_budget[rows] <= 0] = 0
+        host_len = cache["host_len"]
+        host_len[mirror[rows] <= 0] = 0
         toks, actives = [], []
         for i in range(k):
-            nxt = self._sample(tok)
+            nxt = self._sample(tok, cache, rng)
             hit_eos = (nxt == eos).any(1)
             act_next = act & ~hit_eos & (budget > i + 1)
             lens.mul_(act_next[rows])
-            self._mirror_budget -= 1
-            host_len[self._mirror_budget[rows] <= 0] = 0
+            mirror -= 1
+            host_len[mirror[rows] <= 0] = 0
             toks.append(nxt[:, 0])
             actives.append(act)
             tok, act = nxt, act_next
@@ -272,14 +328,14 @@ class ServingEngine:
         budget_left = budget - out[1].sum(0, dtype=torch.int32)
         return out, (tok, act, budget_left)
 
-    def _sample(self, tok):
-        """One forward of the batch's last tokens [B, 1]; the next tokens
-        [B, 1] (under a mesh, the same on every rank)."""
+    def _sample(self, tok, cache, rng):
+        """One forward of the batch's last tokens [B, 1] on ``cache``; the
+        next tokens [B, 1] (under a mesh, the same on every rank)."""
         if self.mesh is None:
-            return sample_step(self.params, self.cfg, tok, self.cache, self.sampler, self._rng)
+            return sample_step(self.params, self.cfg, tok, cache, self.sampler, rng)
         from rten_tpu_torch.parallel.tp import tp_sample
 
-        return tp_sample(self.params, self.cfg, tok, self.cache, self.sampler, self._rng, mesh=self.mesh,
+        return tp_sample(self.params, self.cfg, tok, cache, self.sampler, rng, mesh=self.mesh,
                          overlap=self.tp_mode == "shard_map")
 
     def _dispatch_tick(self, carry, k: int | None = None):

@@ -7,8 +7,12 @@ a shared pool are allocated on demand, so the device holds Σ ceil(len_i /
 page) pages instead of a max_len × max_batch rectangle. Each decode step is
 one forward over the pool state, whose attention is
 ``paged_decode_attention`` (``paged_decode_attention_int8`` with
-``int8_kv``) through a ``[B, max_pages]`` page table; the kernel appends
-the new token into the page that holds each row's length.
+``int8_kv``) through a ``[B, max_pages]`` page table, ``max_pages`` the
+most a row can hold (the JAX engine's table grows with its rows and
+recompiles at each width); the kernel appends the new token into the page
+that holds each row's length. On the card the step is one replay of a CUDA
+graph captured once for the pool, the batch and the sampler, the tokens,
+table and lengths copied into it.
 
 Host side: a free-list allocator; admission (one prefill forward of prompt
 plus output into a contiguous batch-1 cache, copied into fresh pages); a
@@ -72,10 +76,13 @@ class PagePool:
     def n_free(self) -> int:
         return len(self.free)
 
+    def tensors(self) -> list:
+        """The pool's device tensors: payload pages, then scale pages."""
+        return self.k_pages + self.v_pages + (self.k_scales + self.v_scales if self.int8 else [])
+
     def nbytes(self) -> int:
         """Device bytes of the pool (payload and scales, scratch page included)."""
-        leaves = self.k_pages + self.v_pages + (self.k_scales + self.v_scales if self.int8 else [])
-        return sum(t.numel() * t.element_size() for t in leaves)
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def alloc(self, n: int) -> list[int]:
         if n > len(self.free):
@@ -218,19 +225,8 @@ class PagedServingEngine:
             if seq is not None:
                 table[i, : len(seq.pages)] = seq.pages
                 lens[i] = seq.length
-        state = {"k_pages": self.pool.k_pages, "v_pages": self.pool.v_pages,
-                 "page_table": torch.from_numpy(table).to(self.device),
-                 "len": torch.from_numpy(lens).to(self.device)}
-        if self.int8_kv:
-            state["k_scale_pages"], state["v_scale_pages"] = self.pool.k_scales, self.pool.v_scales
-        tokens = torch.from_numpy(self._last_tokens[:, None].copy()).to(self.device)
-        if self.mesh is None:
-            sampled = sample_step(self.params, self.cfg, tokens, state, self.sampler, self._rng)
-        else:
-            from rten_tpu_torch.parallel.tp import tp_sample
-
-            sampled = tp_sample(self.params, self.cfg, tokens, state, self.sampler, self._rng, mesh=self.mesh)
-        sampled = sampled.view(-1).cpu().numpy()  # the step's one copy to the host
+        inputs = [torch.from_numpy(a).to(self.device) for a in (self._last_tokens[:, None].copy(), table, lens)]
+        sampled = self._decode(*inputs).view(-1).cpu().numpy()  # the step's one copy to the host
         self.steps += 1
 
         for i, seq in enumerate(self.seqs):
@@ -250,8 +246,52 @@ class PagedServingEngine:
         return finished
 
     def _table_width(self) -> int:
-        widths = [len(s.pages) for s in self.seqs if s is not None]
-        return max(widths) if widths else 1
+        """The page table's width: the most pages a row can hold (its
+        ``max_seq`` positions, at most the pool), whatever the rows hold
+        now. One width keeps one captured graph for every step, and a row's
+        attention plan (sized for the table's positions) independent of the
+        other rows'; the kernels read a row's pages only up to its length,
+        and the entries past its pages name the scratch page."""
+        return min(self.pool.n_pages, -(-self.cfg.max_seq // self.pool.page_size))
+
+    def _state(self, table, lens) -> dict:
+        """The pool's decode state over ``table`` [B, W] and ``lens`` [B]."""
+        state = {"k_pages": self.pool.k_pages, "v_pages": self.pool.v_pages, "page_table": table, "len": lens}
+        if self.int8_kv:
+            state["k_scale_pages"], state["v_scale_pages"] = self.pool.k_scales, self.pool.v_scales
+        return state
+
+    def _decode(self, tokens, table, lens):
+        """One decode forward of ``tokens`` [B, 1] over the pool, each row's
+        page table and length given: the next tokens [B, 1] on the device.
+        On the card (``decoder._capturable``; a sampled step needs a torch
+        that advances a graph's generator) a replay of one graph captured
+        for the pool, the sampler and the batch (the JAX engine jits
+        ``_paged_decode``), its result valid until the next step; under a
+        mesh, and on the CPU, eagerly."""
+        sampled = not isinstance(self.sampler, ArgMaxSampler)
+        if self.mesh is not None:
+            from rten_tpu_torch.parallel.tp import tp_sample
+
+            return tp_sample(self.params, self.cfg, tokens, self._state(table, lens), self.sampler, self._rng,
+                             mesh=self.mesh)
+        if not decoder._capturable(self.device, sampled):
+            return sample_step(self.params, self.cfg, tokens, self._state(table, lens), self.sampler, self._rng)
+
+        def step(tok, tab, n, rng):
+            return sample_step(self.params, self.cfg, tok, self._state(tab, n), self.sampler, rng)
+
+        def capture_fn():
+            def warm():  # every row on the scratch page at length 0: its writes land where no row reads
+                step(tokens.clone(), torch.full_like(table, self.pool.scratch_page), torch.zeros_like(lens),
+                     torch.Generator(device=self.device).manual_seed(0))
+
+            return decoder.capture(lambda *t: step(*t, self._rng), (tokens, table, lens), warm,
+                                   rng=self._rng if sampled else None, keep=(self.params, self._rng))
+
+        key = ("paged", id(self.params), self.cfg, tuple(table.shape), self.sampler, id(self._rng))
+        graph = decoder.graph_for(self.pool.k_pages[0], key, self.pool.tensors(), capture_fn)
+        return graph.replay(tokens, table, lens)
 
     def pages_in_use(self) -> int:
         return self.pool.n_pages - self.pool.n_free

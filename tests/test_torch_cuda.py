@@ -402,8 +402,8 @@ def test_generate_greedy_past_cache_raises(dev):
 @contextlib.contextmanager
 def _plain_decoder(decoder):
     """Route the decoder's seven kernel calls to their plain versions, and
-    ``generate_scan`` to its eager steps (the plain versions read lengths
-    on the host, which a CUDA graph capture cannot)."""
+    every captured decode path to its eager steps (the plain versions read
+    lengths on the host, which a CUDA graph capture cannot)."""
     from rten_tpu_torch.kernels.decode_attention import decode_block_ref
 
     names = ("quant_gemv_int8", "quant_mlp_int8", "quant_matmul_int8", "quant_matmul_w8a8", "decode_attention",
@@ -851,7 +851,9 @@ SCAN_SAMPLERS = {"greedy": None, "temperature": ("TemperatureSampler", (0.8,)),
 
 @contextlib.contextmanager
 def _eager_scan(decoder):
-    """``generate_scan`` runs its steps eagerly (no capture)."""
+    """Every captured decode path (``generate_scan``, the backends' step,
+    the engines' tick and step, the speculative rounds) runs its steps
+    eagerly (no capture)."""
     saved = decoder._capturable
     decoder._capturable = lambda *args: False
     try:
@@ -951,6 +953,395 @@ def test_generate_scan_two_graphs_on_one_stream(dev):
     with _eager_scan(decoder):
         want, _ = run()
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The decode programs as captured graphs: the backends' one-token step, the
+# slot engine's tick, the paged engine's step and the speculative rounds,
+# each against its eager run (decoder._capturable off) bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _graphs(decoder, anchor) -> int:
+    return len(decoder._GRAPHS.get(anchor, ()))
+
+
+def _captured_and_eager(decoder, run):
+    """``run()`` captured, then eagerly, each with the launch counters read
+    around it: ((result, launches), (result, launches))."""
+    dispatch.reset_counters()
+    got = run()
+    launches = dict(dispatch.LAUNCHES)
+    assert not dispatch.PLAIN
+    with _eager_scan(decoder):
+        dispatch.reset_counters()
+        want = run()
+        eager_launches = dict(dispatch.LAUNCHES)
+    return (got, launches), (want, eager_launches)
+
+
+BACKEND_CASES = {"bf16_b1": (torch.bfloat16, False, 1, 64), "bf16_b3": (torch.bfloat16, False, 3, 64),
+                 "int8_b2": (torch.bfloat16, True, 2, 64), "bf16_b12": (torch.bfloat16, False, 12, 64),
+                 "f32_hd96_b2": (torch.float32, False, 2, 96)}
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "logits"])
+@pytest.mark.parametrize("case", list(BACKEND_CASES))
+def test_native_backend_step_captured_equals_eager(dev, case, greedy):
+    """NativeBackend's one-token decode as a graph replay against the eager
+    forward: a 9-token prompt (eager), then 20 decode steps each fed the
+    step's argmax. The same tokens and (logits mode) the same logits bit
+    for bit, the same launches by kernel mode, the same host lengths, one
+    graph on the cache, and (head dim 96) flash_attention at Tq 1 over the
+    cache's whole S under capture."""
+    import numpy as np
+
+    from rten_tpu_torch.generate import NativeBackend
+    from rten_tpu_torch.models import decoder
+
+    dtype, int8, b, hd = BACKEND_CASES[case]
+    cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=384 // hd if hd == 96 else 4,
+                                d_model=384 if hd == 96 else 256, d_ff=1024, max_seq=256, dtype=dtype, int8_kv=int8)
+    params = decoder.quantize_params_int8(decoder.init_params(0, cfg, device=dev), device=dev)
+    prompt = np.random.default_rng(9).integers(0, 500, (b, 9)).astype(np.int32)
+
+    def run():
+        backend = NativeBackend(params, cfg, batch=b, max_len=64, device=dev)
+        out = backend.prefill(prompt, greedy=greedy)
+        steps = []
+        for _ in range(20):
+            tok = out if greedy else out.argmax(-1).to(torch.int32)
+            steps.append(out)
+            out = backend.decode(tok.cpu().numpy()[:, None], greedy=greedy)
+        steps.append(out)
+        return torch.stack(steps), backend
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert torch.equal(got[0], want[0]) and launches == eager_launches
+    assert _graphs(decoder, got[1].cache["len"]) == 1 and _graphs(decoder, want[1].cache["len"]) == 0
+    assert got[1].length == want[1].length == 29
+    assert got[1].cache["host_len"].tolist() == want[1].cache["host_len"].tolist() == [29] * b
+    assert got[1].cache["len"].tolist() == [29] * b
+    if hd == 96:
+        assert launches["flash_attention:d96"] == 21 * cfg.n_layers
+
+
+def test_native_backend_graph_per_mode_and_cache(dev):
+    """A backend's greedy and logits steps are two graphs on its cache; a
+    reset (a new cache) and a second backend (another batch) each capture
+    anew, and the old graphs never replay on the new tensors: every stream
+    equals its eager run."""
+    import numpy as np
+
+    from rten_tpu_torch.generate import NativeBackend
+    from rten_tpu_torch.models import decoder
+
+    _, cfg, params = _tiny(torch.bfloat16, dev)
+
+    def run():
+        streams, anchors = [], []
+        for b in (1, 2):
+            backend = NativeBackend(params, cfg, batch=b, max_len=64, device=dev)
+            for _ in range(2):
+                backend.reset()
+                anchors.append(backend.cache["len"])
+                tok = backend.prefill(np.full((b, 4), 7, np.int32), greedy=True)
+                out = [tok]
+                for i in range(8):
+                    greedy = i % 2 == 0
+                    res = backend.decode(tok.cpu().numpy()[:, None], greedy=greedy)
+                    tok = res if greedy else res.argmax(-1).to(torch.int32)
+                    out.append(tok)
+                streams.append(torch.stack(out).tolist())
+        return streams, anchors
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert got[0] == want[0] and launches == eager_launches
+    assert [_graphs(decoder, a) for a in got[1]] == [2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "logits"])
+@pytest.mark.parametrize("int8_kv", [True, False], ids=["int8_kv", "bf16_kv"])
+def test_encdec_backend_step_captured_equals_eager(dev, int8_kv, greedy):
+    """EncDecBackend's one-token decode as a graph replay (the tiny
+    Whisper-class model, 2 rows, bf16) against the eager decode: a 3-token
+    prompt, 16 steps, the same tokens and logits bit for bit, the same
+    launches, one graph on the decoder state, the lengths advanced on the
+    host."""
+    import numpy as np
+
+    from rten_tpu_torch.generate import EncDecBackend
+
+    from rten_tpu_torch.models import decoder
+
+    ed, cfg, params = _tiny_encdec(dev, dtype=torch.bfloat16, int8_kv=int8_kv)
+    mel = torch.randn(2, 16, 64, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+
+    def run():
+        backend = EncDecBackend(params, cfg, mel, device=dev)
+        out = backend.prefill(np.array([[1, 2, 3], [4, 5, 6]], np.int32), greedy=greedy)
+        steps = []
+        for _ in range(16):
+            tok = out if greedy else out.argmax(-1).to(torch.int32)
+            steps.append(out)
+            out = backend.decode(tok.cpu().numpy()[:, None], greedy=greedy)
+        steps.append(out)
+        return torch.stack(steps), backend
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert torch.equal(got[0], want[0]) and launches == eager_launches
+    assert _graphs(decoder, got[1].state["len"]) == 1
+    assert got[1].length == 19 and got[1].state["host_len"].tolist() == [19, 19]
+    assert got[1].state["len"].tolist() == [19, 19]
+
+
+def _tick_specs(decoder, cfg, params, dev, engine_cls, sampler, long=False, **kw):
+    """Nine requests (prompts 3-40 tokens, 5-23 new tokens: budgets that end
+    mid-tick; ``long``: prompts 40-90, 58-71 new tokens, rows of 100-155
+    positions) with EOS ids taken from an eager run of the same requests
+    without them, so that five rows (``long``: three) stop at an EOS
+    mid-tick."""
+    from rten_tpu_torch.serve import Request
+
+    gen = torch.Generator().manual_seed(31)
+    lens = torch.randint(40, 90, (9,), generator=gen) if long else torch.randint(3, 40, (9,), generator=gen)
+    news = (60, 70, 62, 68, 64, 71, 58, 65, 67) if long else (5, 23, 9, 14, 11, 18, 6, 21, 13)
+    specs = [dict(prompt=torch.randint(1, 500, (int(n),), generator=gen).tolist(), max_new_tokens=m)
+             for n, m in zip(lens, news)]
+    with _eager_scan(decoder):
+        engine = engine_cls(params, cfg, sampler=sampler, seed=5, device=dev, **kw)
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        engine.run()
+    for i in (2, 6, 8) if long else (1, 3, 5, 7, 8):
+        specs[i]["eos_tokens"] = (reqs[i].output[min(6 + i, len(reqs[i].output) - 2)],)
+    return specs
+
+
+def _sampler_of(name):
+    from rten_tpu_torch.generate.sampler import TemperatureSampler
+
+    return None if name == "greedy" else TemperatureSampler(0.8)
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "temperature"])
+@pytest.mark.parametrize("mode", ["run", "pipelined"])
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["bf16_kv", "int8_kv"])
+def test_slot_engine_tick_captured_equals_eager(dev, int8_kv, mode, sampler):
+    """The slot engine's K-step tick (K 4, 4 slots) as one graph replay
+    against its eager forwards: nine requests with EOS hits and exhausted
+    budgets mid-tick, the same streams (one seed: the generator advances
+    with every replay), the same launches, the host mirror (``host_len``,
+    the budgets) equal and at least the device lengths, one graph on the
+    cache."""
+    import dataclasses
+
+    from rten_tpu_torch.serve import Request, ServingEngine
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    cfg = dataclasses.replace(cfg, int8_kv=int8_kv)
+    samp = _sampler_of(sampler)
+    specs = _tick_specs(decoder, cfg, params, dev, ServingEngine, samp, max_batch=4, max_len=96, steps_per_tick=4)
+
+    def run():
+        engine = ServingEngine(params, cfg, max_batch=4, max_len=96, steps_per_tick=4, sampler=samp, seed=5,
+                               device=dev)
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        engine.run() if mode == "run" else engine.run_pipelined()
+        return [r.output for r in reqs], engine
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert got[0] == want[0] and launches == eager_launches
+    assert any(len(o) < s["max_new_tokens"] for o, s in zip(got[0], specs))  # EOS stopped some rows
+    eng, ref = got[1], want[1]
+    assert _graphs(decoder, eng.cache["len"]) == 1 and eng.steps == ref.steps
+    assert eng.cache["host_len"].tolist() == ref.cache["host_len"].tolist()
+    assert eng._mirror_budget.tolist() == ref._mirror_budget.tolist()
+    assert all(h >= d for h, d in zip(eng.cache["host_len"].tolist(), eng.cache["len"].tolist()))
+
+
+def test_slot_engine_graph_per_k_and_eos_width(dev):
+    """``step(n_steps)`` with another K, and a request with more EOS ids
+    than the engine's width, each capture a graph of their own on the
+    cache; the streams equal the eager run's."""
+    from rten_tpu_torch.serve import Request, ServingEngine
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+
+    def run():
+        engine = ServingEngine(params, cfg, max_batch=3, max_len=96, steps_per_tick=4, device=dev)
+        reqs = [engine.submit(Request(prompt=[5, 6, 7 + i], max_new_tokens=20)) for i in range(3)]
+        engine.step()
+        engine.step(n_steps=3)
+        reqs.append(engine.submit(Request(prompt=[9, 9], max_new_tokens=12, eos_tokens=(1, 2, 3, 4, 5, 6))))
+        engine.run()
+        return [r.output for r in reqs], engine
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert got[0] == want[0] and launches == eager_launches
+    assert _graphs(decoder, got[1].cache["len"]) == 3  # K 4 and 3 at width 4, K 4 at width 6
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "temperature"])
+@pytest.mark.parametrize("int8_kv", [False, True], ids=["bf16_pages", "int8_pages"])
+def test_paged_step_captured_equals_eager(dev, int8_kv, sampler):
+    """The paged engine's step as one graph replay against its eager
+    forward: pages of 16 (bf16: rows cross page boundaries every 16
+    tokens) or 64 (int8, the JAX rule's smallest at head dim 64), a pool
+    small enough to preempt (12 / 5 pages for 4 rows of up to 155
+    positions), nine requests with EOS hits; the same streams and
+    preemptions, the same launches, every page back, one graph on the pool
+    over a table as wide as a row can grow."""
+    from rten_tpu_torch.serve import PagedServingEngine, Request
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    samp = _sampler_of(sampler)
+    page, n_pages = (64, 5) if int8_kv else (16, 12)
+    kw = dict(max_batch=4, n_pages=n_pages, page_size=page, int8_kv=int8_kv)
+    specs = _tick_specs(decoder, cfg, params, dev, PagedServingEngine, samp, long=True, **kw)
+
+    def run():
+        engine = PagedServingEngine(params, cfg, sampler=samp, seed=5, device=dev, **kw)
+        reqs = [engine.submit(Request(**s)) for s in specs]
+        engine.run()
+        return [r.output for r in reqs], engine
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert got[0] == want[0] and launches == eager_launches
+    eng = got[1]
+    assert eng.preemptions == want[1].preemptions > 0 and eng.pool.n_free == eng.pool.n_pages
+    assert _graphs(decoder, eng.pool.k_pages[0]) == 1 and eng._table_width() == min(n_pages, 256 // page)
+
+
+SPEC_CASES = {"bf16_b1": (False, 1), "int8_b2": (True, 2), "bf16_b3": (False, 3)}
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "temperature"])
+@pytest.mark.parametrize("case", list(SPEC_CASES))
+def test_speculative_rounds_captured_equals_eager(dev, case, sampled):
+    """``speculative_scan`` / ``speculative_sample_scan`` (K 4, 3 rounds a
+    call, a 1-layer draft) as one graph replay a call against the eager
+    rounds: three calls from a 12-token prompt, the same tokens, counts and
+    next tokens, the same cache lengths on the device and the host, the
+    same launches (the verify's flash_attention over the cache's whole S
+    and its split plan equal to the prefix route's), one graph on the
+    target cache."""
+    import dataclasses
+
+    from rten_tpu_torch.generate import speculative
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    int8, b = SPEC_CASES[case]
+    cfg = dataclasses.replace(cfg, int8_kv=int8)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = {**params, "layers": params["layers"][:1]}
+    prompt = torch.randint(0, 500, (b, 12), generator=torch.Generator().manual_seed(8)).to(torch.int32)
+
+    def run():
+        cache_t, cache_d, logits = speculative._prefill_both(params, cfg, dparams, dcfg, prompt.numpy(), 64, 4,
+                                                             None, dev)
+        last = logits.argmax(-1, keepdim=True).to(torch.int32)
+        rng = torch.Generator(device=dev).manual_seed(3)
+        out = []
+        for _ in range(3):
+            if sampled:
+                toks, counts, _, _, last = speculative.speculative_sample_scan(
+                    params, cfg, cache_t, dparams, dcfg, cache_d, last, rng, 0.8, k=4, n_rounds=3)
+            else:
+                toks, counts, _, _, last = speculative.speculative_scan(params, cfg, cache_t, dparams, dcfg,
+                                                                        cache_d, last, k=4, n_rounds=3)
+            out.append((toks.tolist(), counts.tolist(), last.tolist()))
+        return out, cache_t, cache_d
+
+    (got, launches), (want, eager_launches) = _captured_and_eager(decoder, run)
+    assert got[0] == want[0] and launches == eager_launches
+    for c, w in zip(got[1:], want[1:]):
+        assert c["len"].tolist() == w["len"].tolist() and c["host_len"].tolist() == w["host_len"].tolist()
+    assert got[1]["host_len"].tolist() == got[1]["len"].tolist()
+    assert _graphs(decoder, got[1]["len"]) == 1
+
+
+def test_sampled_paths_stay_eager_without_generator_registration(dev, monkeypatch):
+    """A torch whose CUDAGraph cannot register a generator keeps every
+    sampled path eager (decided by ``_capturable`` before any capture):
+    the slot engine's tick, the paged step, generate_scan and the
+    speculative sample rounds capture nothing and give the captured runs'
+    streams; greedy paths still capture."""
+    from rten_tpu_torch.generate import speculative
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    decoder, cfg, params = _tiny(torch.bfloat16, dev)
+    samp = _sampler_of("temperature")
+    specs = [dict(prompt=[3, 4, 5 + i], max_new_tokens=10) for i in range(3)]
+
+    def run():
+        out, anchors = [], []
+        for cls, kw in ((ServingEngine, dict(max_len=64, steps_per_tick=4)),
+                        (PagedServingEngine, dict(n_pages=8, page_size=16))):
+            engine = cls(params, cfg, max_batch=3, sampler=samp, seed=2, device=dev, **kw)
+            reqs = [engine.submit(Request(**s)) for s in specs]
+            engine.run()
+            out.append([r.output for r in reqs])
+            anchors.append(engine.cache["len"] if cls is ServingEngine else engine.pool.k_pages[0])
+        cache = decoder.init_cache(cfg, 1, 64, device=dev)
+        first, cache = decoder.prefill(params, cfg, torch.tensor([[7, 8, 9]], dtype=torch.int32, device=dev), cache,
+                                       lm_head_mode="argmax", last_only=True)
+        rng = torch.Generator(device=dev).manual_seed(4)
+        toks, cache = decoder.generate_scan(params, cfg, cache, first, rng, n_steps=6, sampler=samp)
+        out.append(toks.tolist())
+        anchors.append(cache["len"])
+        cache_t, cache_d, logits = speculative._prefill_both(params, cfg, params, cfg, [[7, 8, 9]], 16, 2, None, dev)
+        res = speculative.speculative_sample_scan(params, cfg, cache_t, params, cfg, cache_d,
+                                                  logits.argmax(-1, keepdim=True).to(torch.int32), rng, 0.8,
+                                                  k=2, n_rounds=2)
+        out.append(res[0].tolist())
+        anchors.append(cache_t["len"])
+        return out, anchors
+
+    captured, _ = run()
+    real = torch.cuda.CUDAGraph
+
+    class OlderCUDAGraph:
+        """This torch's CUDAGraph without ``register_generator_state``."""
+
+        def __init__(self, *args, **kw):
+            self._graph = real(*args, **kw)
+
+        def __getattr__(self, name):
+            if name == "register_generator_state":
+                raise AttributeError(name)
+            return getattr(self._graph, name)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", OlderCUDAGraph)
+    assert not decoder._capturable(dev, True) and decoder._capturable(dev, False)
+    eager, anchors = run()
+    assert eager == captured
+    assert [_graphs(decoder, a) for a in anchors] == [0, 0, 0, 0]
+    cache = decoder.init_cache(cfg, 1, 64, device=dev)
+    decoder.generate_scan(params, cfg, cache, torch.tensor([[7]], dtype=torch.int32, device=dev), n_steps=3)
+    assert _graphs(decoder, cache["len"]) == 1  # greedy: no generator to register
+
+
+def test_engines_under_a_mesh_stay_eager(dev):
+    """Under a mesh (one rank on the card, a ``(1, 1)`` mesh) the slot
+    engine's tick and the paged step run eagerly: no graph on their
+    states, where the meshless engines on the same requests capture one;
+    every request runs to its budget (the tensor-parallel path's kernels
+    are not the fused path's, so the streams are not compared)."""
+    import torch_parallel_ranks as ranks
+
+    from rten_tpu_torch.models import decoder
+    from rten_tpu_torch.parallel import run_ranks
+    from rten_tpu_torch.serve import PagedServingEngine, ServingEngine
+
+    specs = [dict(prompt=[3, 4, 5], max_new_tokens=10), dict(prompt=[9, 8, 7, 6], max_new_tokens=13)]
+    ran = run_ranks(ranks.card_mesh_engines, 1, specs, device="cuda", timeout_s=300).results[0]
+    _, cfg, params = _tiny(torch.bfloat16, dev)
+    for kind, cls, kw in (("slot", ServingEngine, dict(max_len=96, steps_per_tick=4)),
+                          ("paged", PagedServingEngine, dict(n_pages=10, page_size=16))):
+        outputs, engine = _engine_outputs(cls, params, cfg, specs, dev, max_batch=2, **kw)
+        anchor = engine.cache["len"] if kind == "slot" else engine.pool.k_pages[0]
+        assert _graphs(decoder, anchor) == 1 and ran[kind]["graphs"] == 0
+        assert [len(o) for o in ran[kind]["outputs"]] == [len(o) for o in outputs] == [10, 13]
 
 
 # ---------------------------------------------------------------------------
@@ -3739,8 +4130,9 @@ def test_tiny_paged_engine_pages_of_16_match_cpu(dev, heads):
 def test_tiny_decoder_head_dims_match_plain(dev, head_dim):
     """The tiny f32 decoder at head dim 32 (the KV kernels' 32 instance) and
     96 (no KV kernel: each step appended and attended through
-    flash_attention at Tq 1, eagerly): prompt logits and 8 greedy tokens,
-    kernels against the plain versions on the card."""
+    flash_attention at Tq 1, in generate_scan's graph over the cache's
+    whole S): prompt logits and 8 greedy tokens, kernels against the plain
+    versions on the card."""
     from rten_tpu_torch.models import decoder
 
     cfg = decoder.DecoderConfig(vocab_size=500, n_layers=2, n_heads=384 // head_dim, d_model=384, d_ff=1024,

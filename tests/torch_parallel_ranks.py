@@ -270,3 +270,25 @@ def card_collectives(shift):
           bool(torch.equal(mesh.ppermute(x, "model").wait(), want[1 - i])),
           bool(torch.equal(mesh.broadcast(x, "model", 1), want[1]))]
     return dict(ok=ok, routes=dict(mesh.routes), backend=mesh.backend, device=str(dev))
+
+
+def card_mesh_engines(specs):
+    """Both serving engines on a ``(1, 1)`` mesh on the card (the tiny bf16
+    config, params from seed 0): each request's output, and the graphs
+    captured on the engines' states, which must be none (under a mesh the
+    tick and the step run eagerly, their collectives through the host)."""
+    from rten_tpu_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    mesh = pmesh.make_mesh(1, 1)
+    cfg = tdec.DecoderConfig(vocab_size=500, n_layers=2, n_heads=4, d_model=256, d_ff=1024, max_seq=256,
+                             dtype=torch.bfloat16)
+    params = tdec.quantize_params_int8(tdec.init_params(0, cfg, device=mesh.device), device=mesh.device)
+    out = {}
+    for kind, cls, kw in (("slot", ServingEngine, dict(max_len=96, steps_per_tick=4)),
+                          ("paged", PagedServingEngine, dict(n_pages=10, page_size=16))):
+        engine = cls(params, cfg, max_batch=2, mesh=mesh, **kw)
+        reqs = [engine.submit(Request(**spec)) for spec in specs]
+        engine.run()
+        anchor = engine.cache["len"] if kind == "slot" else engine.pool.k_pages[0]
+        out[kind] = dict(outputs=[r.output for r in reqs], graphs=len(tdec._GRAPHS.get(anchor, ())))
+    return out
